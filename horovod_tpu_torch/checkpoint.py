@@ -1,0 +1,371 @@
+"""Durable, integrity-checked checkpoints for the port.
+
+The port of the JAX package's ``checkpoint.py`` (its manifest, walk-back,
+quarantine, watcher and hot-swap restore), with the port's own on-disk
+tree: one ``torch.save`` of a flat name -> CPU tensor dict per step
+(``state.pt``), since orbax cannot be read without JAX.
+
+* step-numbered directories ``step_<N>`` written atomically (tmpdir +
+  rename) by rank 0 only, with ``keep``-latest retention;
+* a ``manifest.json`` of size and crc32 per file, verified on restore: a
+  corrupt latest step is quarantined as ``step_<N>.corrupt`` and the
+  restore walks back to the newest intact step; a pinned corrupt
+  ``step=`` raises :class:`~horovod_tpu_torch.exceptions.
+  CheckpointCorruptError` instead;
+* the write retries transient filesystem failures (``utils/retry.py``);
+* :class:`CheckpointWatcher` and :func:`hot_swap_restore` drive the
+  serving pool's rolling hot-swap.
+
+A state is a nest of dicts over tensors, numpy arrays and Python scalars
+(flattened to ``"a/b"`` names), or an ``nn.Module`` (its ``state_dict``).
+Restoring into a template gives the template's structure, dtypes and
+devices; a module template is copied and loaded, never modified.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import logging
+import os
+import re
+import shutil
+import tempfile
+import zlib
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from . import context as _ctx
+from .exceptions import CheckpointCorruptError
+
+log = logging.getLogger("horovod_tpu_torch.checkpoint")
+
+_STEP_RE = re.compile(r"^step_(\d+)$")
+MANIFEST_NAME = "manifest.json"
+STATE_NAME = "state.pt"
+
+
+def _is_writer() -> bool:
+    """Rank-0-only writes, the reference's convention."""
+    if _ctx.is_initialized():
+        return _ctx.rank() == 0
+    return _ctx.launcher_rank() == 0
+
+
+def _step_dir(directory: str, step: int) -> str:
+    return os.path.join(directory, f"step_{step}")
+
+
+def all_steps(directory: str) -> List[int]:
+    if not os.path.isdir(directory):
+        return []
+    steps = []
+    for name in os.listdir(directory):
+        m = _STEP_RE.match(name)
+        if m:
+            steps.append(int(m.group(1)))
+    return sorted(steps)
+
+
+def latest_step(directory: str) -> Optional[int]:
+    steps = all_steps(directory)
+    return steps[-1] if steps else None
+
+
+# -- integrity ----------------------------------------------------------
+
+
+def _file_crc(path: str) -> int:
+    crc = 0
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            crc = zlib.crc32(chunk, crc)
+    return crc & 0xFFFFFFFF
+
+
+def _manifest_entries(root: str) -> Dict[str, Dict[str, int]]:
+    entries: Dict[str, Dict[str, int]] = {}
+    for dirpath, _, names in os.walk(root):
+        for name in sorted(names):
+            p = os.path.join(dirpath, name)
+            rel = os.path.relpath(p, root)
+            if rel == MANIFEST_NAME or not os.path.isfile(p):
+                continue
+            entries[rel] = {"size": os.path.getsize(p), "crc32": _file_crc(p)}
+    return entries
+
+
+def _write_manifest(root: str) -> None:
+    manifest = {"version": 1, "algo": "crc32", "files": _manifest_entries(root)}
+    with open(os.path.join(root, MANIFEST_NAME), "w") as f:
+        json.dump(manifest, f, indent=0, sort_keys=True)
+
+
+def verify_step_dir(path: str) -> List[str]:
+    """Integrity problems for one step directory ([] = intact).
+
+    A directory without a manifest verifies clean (legacy checkpoints stay
+    restorable); an unreadable manifest is itself a problem."""
+    mpath = os.path.join(path, MANIFEST_NAME)
+    if not os.path.exists(mpath):
+        return []
+    try:
+        with open(mpath) as f:
+            files = json.load(f)["files"]
+    except (OSError, ValueError, KeyError) as e:
+        return [f"unreadable manifest: {e}"]
+    problems = []
+    for rel, want in sorted(files.items()):
+        p = os.path.join(path, rel)
+        if not os.path.isfile(p):
+            problems.append(f"missing leaf file {rel}")
+            continue
+        size = os.path.getsize(p)
+        if size != want["size"]:
+            problems.append(f"size mismatch {rel}: {size} != {want['size']}")
+            continue
+        if _file_crc(p) != want["crc32"]:
+            problems.append(f"crc32 mismatch {rel}")
+    return problems
+
+
+def _quarantine(path: str) -> str:
+    """Move a corrupt step dir aside as ``<dir>.corrupt`` (numbered on
+    collision); losing the rename to a concurrent restorer counts as
+    quarantined."""
+    dest = path + ".corrupt"
+    i = 1
+    while os.path.exists(dest):
+        dest = f"{path}.corrupt.{i}"
+        i += 1
+    try:
+        os.rename(path, dest)
+    except FileNotFoundError:
+        pass
+    return dest
+
+
+# -- serialization ------------------------------------------------------
+
+
+def _flat_state(state: Any) -> Dict[str, torch.Tensor]:
+    """Flat name -> CPU tensor dict of a state (module, or nest of dicts)."""
+    if isinstance(state, torch.nn.Module):
+        state = state.state_dict()
+    out: Dict[str, torch.Tensor] = {}
+
+    def rec(prefix: str, node: Any) -> None:
+        if isinstance(node, dict):
+            for k, v in node.items():
+                rec(f"{prefix}/{k}" if prefix else str(k), v)
+            return
+        if isinstance(node, torch.Tensor):
+            # A private CPU copy: torch.save of a view would write its
+            # whole storage.
+            out[prefix] = node.detach().to("cpu", copy=True).contiguous()
+        elif isinstance(node, (np.ndarray, np.generic, bool, int, float)):
+            out[prefix] = torch.as_tensor(np.asarray(node)).clone()
+        else:
+            raise TypeError(
+                f"checkpoint leaf {prefix!r} has unsupported type "
+                f"{type(node).__name__}"
+            )
+
+    rec("", state)
+    return out
+
+
+def _write_tree(path: str, state: Any) -> None:
+    torch.save(_flat_state(state), os.path.join(path, STATE_NAME))
+
+
+def _read_tree(path: str, target: Any) -> Any:
+    flat = torch.load(
+        os.path.join(path, STATE_NAME), map_location="cpu", weights_only=True
+    )
+    if isinstance(target, torch.nn.Module):
+        missing = [k for k in target.state_dict() if k not in flat]
+        if missing:
+            raise ValueError(f"checkpoint lacks {missing[:3]} of the target")
+        restored = copy.deepcopy(target)
+        restored.load_state_dict(
+            {k: flat[k] for k in target.state_dict()}, strict=True
+        )
+        return restored
+
+    def rec(prefix: str, node: Any) -> Any:
+        if isinstance(node, dict):
+            return type(node)(
+                (k, rec(f"{prefix}/{k}" if prefix else str(k), v))
+                for k, v in node.items()
+            )
+        if prefix not in flat:
+            raise ValueError(f"checkpoint has no entry {prefix!r}")
+        r = flat[prefix]
+        if isinstance(node, torch.Tensor):
+            return r.to(device=node.device, dtype=node.dtype)
+        if isinstance(node, np.generic):
+            return node.dtype.type(r.item())
+        if isinstance(node, np.ndarray):
+            return np.asarray(r.float().numpy() if r.dtype == torch.bfloat16
+                              else r.numpy(), dtype=node.dtype)
+        return type(node)(r.item())
+
+    return rec("", target)
+
+
+def _write_tree_with_retry(tmp: str, state: Any) -> None:
+    """Serialize and write the manifest, retrying transient filesystem
+    failures with capped backoff; each retry starts from an emptied
+    ``tmp`` so a half-written attempt never leaks into the manifest."""
+    from .utils.retry import retry_call
+
+    def attempt():
+        _write_tree(tmp, state)
+        _write_manifest(tmp)
+
+    def on_retry(exc, attempt_no):
+        log.warning(
+            "checkpoint write attempt %d failed (%s); clearing %s and "
+            "retrying", attempt_no, exc, tmp,
+        )
+        for name in os.listdir(tmp):
+            p = os.path.join(tmp, name)
+            shutil.rmtree(p) if os.path.isdir(p) else os.remove(p)
+
+    retry_call(
+        attempt, attempts=4, retry_on=(OSError,), base=0.1, cap=2.0,
+        on_retry=on_retry,
+    )
+
+
+def save_checkpoint(directory: str, state: Any, step: int,
+                    keep: int = 3, force: bool = False) -> Optional[str]:
+    """Write ``state`` under ``directory/step_<step>``.
+
+    Only rank 0 writes (returns None elsewhere unless ``force``). The
+    write is atomic (tmpdir + rename); checkpoints older than the newest
+    ``keep`` are deleted, never the one just written."""
+    if not _is_writer() and not force:
+        return None
+    directory = os.path.abspath(directory)
+    final = _step_dir(directory, step)
+    os.makedirs(directory, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix=f"step_{step}.tmp", dir=directory)
+    try:
+        _write_tree_with_retry(tmp, state)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+    except Exception:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    for old in all_steps(directory)[:-keep] if keep else []:
+        if old != step:
+            shutil.rmtree(_step_dir(directory, old), ignore_errors=True)
+    return final
+
+
+def restore_checkpoint(directory: str, target: Any,
+                       step: Optional[int] = None,
+                       verify: bool = True) -> Any:
+    """Restore ``target``'s structure, dtypes and devices from
+    ``directory`` (latest intact step unless ``step`` given). Raises
+    FileNotFoundError when no checkpoint exists.
+
+    Restoring the latest step, a corrupt dir is quarantined as
+    ``step_<N>.corrupt`` and the walk falls back to the newest intact
+    step. A pinned ``step=`` that fails verification raises
+    :class:`CheckpointCorruptError`. ``verify=False`` skips the checks."""
+    directory = os.path.abspath(directory)
+    if step is None:
+        steps = all_steps(directory)
+        if not steps:
+            raise FileNotFoundError(f"no checkpoints under {directory}")
+        for s in reversed(steps):
+            path = _step_dir(directory, s)
+            problems = verify_step_dir(path) if verify else []
+            if not problems:
+                step = s
+                break
+            quarantined = _quarantine(path)
+            log.warning(
+                "checkpoint step %d is corrupt (%s); quarantined as %s, "
+                "falling back to the previous step",
+                s, "; ".join(problems[:3]), quarantined,
+            )
+        else:
+            raise FileNotFoundError(
+                f"no intact checkpoints under {directory} "
+                "(all steps quarantined as corrupt)"
+            )
+        path = _step_dir(directory, step)
+    else:
+        path = _step_dir(directory, step)
+        if not os.path.isdir(path):
+            raise FileNotFoundError(path)
+        if verify:
+            problems = verify_step_dir(path)
+            if problems:
+                raise CheckpointCorruptError(path, problems)
+    return _read_tree(path, target)
+
+
+# -- hot-swap (serving) --------------------------------------------------
+
+
+class CheckpointWatcher:
+    """Tracks a checkpoint directory for newly published steps -- the
+    rolling hot-swap trigger of the serving pool. :meth:`poll` returns a
+    step at most once; the watcher only moves forward, so a step
+    quarantined after being offered is never re-offered."""
+
+    def __init__(self, directory: str, initial: Optional[int] = None):
+        self.directory = os.path.abspath(directory)
+        self._last = (
+            initial if initial is not None else latest_step(self.directory)
+        )
+
+    def poll(self) -> Optional[int]:
+        """The newest step if it advanced past everything seen, else
+        None."""
+        cur = latest_step(self.directory)
+        if cur is not None and (self._last is None or cur > self._last):
+            self._last = cur
+            return cur
+        return None
+
+    def rewind(self, step: int) -> None:
+        """Un-see ``step`` so the next :meth:`poll` re-offers it, for a
+        swap that failed transiently. Only the most recently seen step
+        can be rewound."""
+        if self._last is not None and self._last == step:
+            self._last = step - 1
+
+
+def hot_swap_restore(directory: str, target: Any,
+                     step: Optional[int] = None,
+                     verify: bool = True):
+    """Restore for a rolling hot-swap: ``(state, restored_step,
+    rolled_back)``. A corrupt pinned ``step`` is quarantined and the
+    restore walks back to the newest intact step (``rolled_back=True``)."""
+    directory = os.path.abspath(directory)
+    rolled_back = False
+    if step is not None:
+        try:
+            state = restore_checkpoint(
+                directory, target, step=step, verify=verify
+            )
+            return state, step, False
+        except CheckpointCorruptError as e:
+            _quarantine(_step_dir(directory, step))
+            log.warning(
+                "hot-swap checkpoint step %d is corrupt (%s); quarantined "
+                "-- rolling back to the newest intact step",
+                step, "; ".join(e.problems[:3]),
+            )
+            rolled_back = True
+    state = restore_checkpoint(directory, target, verify=verify)
+    return state, latest_step(directory), rolled_back

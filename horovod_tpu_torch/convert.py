@@ -1,0 +1,130 @@
+"""GPT-2 weights for the port: from the JAX package's flax parameters, or
+made from a seed.
+
+:func:`params_from_flax` owns every reshape and transpose between the
+two layouts:
+
+* flax ``DenseGeneral`` query/key/value kernels are ``[D, H, dh]`` with
+  ``[H, dh]`` biases; the port fuses them into one ``qkv`` projection
+  whose ``weight`` is ``[3*H*dh, D]`` (rows: query, key, value);
+* the flax ``out`` kernel is ``[H, dh, D]``; the port's is ``[D, H*dh]``;
+* flax ``Dense`` kernels are ``[in, out]``; ``nn.Linear``-style weights
+  are ``[out, in]``;
+* embeddings and LayerNorm parameters keep their shapes.
+
+:func:`init_params` makes GPT-2 weights on the port's side from a numpy
+seed, drawn as flax initializes them (truncated-normal fan-in kernels,
+normal ``1/sqrt(D)`` embeddings, zero biases, unit LayerNorm scales), in
+the flax layout and converted by :func:`params_from_flax`.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from .models.transformer import TransformerConfig
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32, order="C"))
+
+
+def params_from_flax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``GPT2LMModel`` state dict (fp32, CPU) from the JAX package's
+    ``GPT2LMModel`` parameters as numpy arrays (with or without the outer
+    ``{"params": ...}``)."""
+    p = flax_params.get("params", flax_params)
+    tr = p["transformer"]
+    sd: Dict[str, torch.Tensor] = {
+        "transformer.wte.weight": _t(tr["wte"]["embedding"]),
+        "transformer.wpe.weight": _t(tr["wpe"]["embedding"]),
+        "transformer.ln_f.scale": _t(tr["ln_f"]["scale"]),
+        "transformer.ln_f.bias": _t(tr["ln_f"]["bias"]),
+    }
+    if "wtt" in tr:
+        sd["transformer.wtt.weight"] = _t(tr["wtt"]["embedding"])
+    n_layers = sum(1 for k in tr if k.startswith("block_"))
+    for i in range(n_layers):
+        blk = tr[f"block_{i}"]
+        pre = f"transformer.blocks.{i}."
+        mha = blk["MultiHeadAttention_0"]
+        d_model = np.asarray(mha["query"]["kernel"]).shape[0]
+        qkv_w = [
+            np.asarray(mha[n]["kernel"], np.float32).reshape(d_model, -1).T
+            for n in ("query", "key", "value")
+        ]
+        qkv_b = [
+            np.asarray(mha[n]["bias"], np.float32).reshape(-1)
+            for n in ("query", "key", "value")
+        ]
+        out_k = np.asarray(mha["out"]["kernel"], np.float32)
+        mlp = blk["MlpBlock_0"]
+        sd.update({
+            pre + "ln_1.scale": _t(blk["LayerNorm_0"]["scale"]),
+            pre + "ln_1.bias": _t(blk["LayerNorm_0"]["bias"]),
+            pre + "attn.qkv.weight": _t(np.concatenate(qkv_w, 0)),
+            pre + "attn.qkv.bias": _t(np.concatenate(qkv_b, 0)),
+            pre + "attn.out.weight": _t(out_k.reshape(-1, out_k.shape[-1]).T),
+            pre + "attn.out.bias": _t(mha["out"]["bias"]),
+            pre + "ln_2.scale": _t(blk["LayerNorm_1"]["scale"]),
+            pre + "ln_2.bias": _t(blk["LayerNorm_1"]["bias"]),
+            pre + "mlp.fc.weight": _t(np.asarray(mlp["Dense_0"]["kernel"]).T),
+            pre + "mlp.fc.bias": _t(mlp["Dense_0"]["bias"]),
+            pre + "mlp.proj.weight": _t(np.asarray(mlp["Dense_1"]["kernel"]).T),
+            pre + "mlp.proj.bias": _t(mlp["Dense_1"]["bias"]),
+        })
+    return sd
+
+
+def _flax_like_params(cfg: TransformerConfig, rng: np.random.Generator):
+    """GPT-2 parameters in the flax layout, drawn as flax initializes."""
+    d, h, dh, f = cfg.d_model, cfg.n_heads, cfg.d_model // cfg.n_heads, cfg.d_ff
+
+    def kernel(shape, fan_in):
+        # lecun_normal: truncated normal, stddev sqrt(1/fan_in) after the
+        # truncation's correction; truncation at two standard deviations.
+        std = np.sqrt(1.0 / fan_in) / 0.87962566103423978
+        x = rng.standard_normal(shape, dtype=np.float32)
+        return np.clip(x, -2.0, 2.0) * np.float32(std)
+
+    def embed(n):
+        return rng.standard_normal((n, d), dtype=np.float32) * np.float32(
+            1.0 / np.sqrt(d)
+        )
+
+    def ln():
+        return {"scale": np.ones(d, np.float32), "bias": np.zeros(d, np.float32)}
+
+    tr: Dict[str, Any] = {"wte": {"embedding": embed(cfg.vocab_size)},
+                          "wpe": {"embedding": embed(cfg.max_len)}}
+    if cfg.type_vocab_size:
+        tr["wtt"] = {"embedding": embed(cfg.type_vocab_size)}
+    for i in range(cfg.n_layers):
+        mha = {
+            n: {"kernel": kernel((d, h, dh), d),
+                "bias": np.zeros((h, dh), np.float32)}
+            for n in ("query", "key", "value")
+        }
+        mha["out"] = {"kernel": kernel((h, dh, d), h * dh),
+                      "bias": np.zeros(d, np.float32)}
+        tr[f"block_{i}"] = {
+            "LayerNorm_0": ln(),
+            "MultiHeadAttention_0": mha,
+            "LayerNorm_1": ln(),
+            "MlpBlock_0": {
+                "Dense_0": {"kernel": kernel((d, f), d),
+                            "bias": np.zeros(f, np.float32)},
+                "Dense_1": {"kernel": kernel((f, d), f),
+                            "bias": np.zeros(d, np.float32)},
+            },
+        }
+    tr["ln_f"] = ln()
+    return {"params": {"transformer": tr}}
+
+
+def init_params(cfg: TransformerConfig, seed: int = 0) -> Dict[str, torch.Tensor]:
+    """``GPT2LMModel`` state dict (fp32, CPU) made from a numpy seed."""
+    return params_from_flax(_flax_like_params(cfg, np.random.default_rng(seed)))

@@ -1,0 +1,56 @@
+"""GPT-2 language model -- the port of the JAX package's
+``models/gpt2.py``."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+from torch import nn
+
+from ..context import resolve_device
+from .transformer import Transformer, TransformerConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class GPT2Config(TransformerConfig):
+    causal: bool = True
+
+    @staticmethod
+    def small(**kw) -> "GPT2Config":
+        return GPT2Config(**kw)  # 124M defaults from TransformerConfig
+
+    @staticmethod
+    def tiny(**kw) -> "GPT2Config":
+        base = dict(
+            vocab_size=512, max_len=128, d_model=64, n_heads=4, n_layers=2,
+            d_ff=128,
+        )
+        base.update(kw)
+        return GPT2Config(**base)
+
+
+class GPT2LMModel(nn.Module):
+    """Causal LM with the tied head: ``model(tokens)`` gives fp32 logits
+    ``[B, S, vocab]``; ``return_hidden=True`` the final hidden states.
+
+    Built on ``device`` (default: this process's card; raises without
+    CUDA -- pass ``device="cpu"`` for the CPU). The matmul and embedding
+    weights are stored in ``cfg.dtype`` (see ``transformer.py``);
+    ``attention_fn`` replaces the attention path."""
+
+    def __init__(self, cfg: GPT2Config, *, device=None,
+                 attention_fn: Optional[Callable] = None,
+                 act_quant: Optional[str] = None):
+        super().__init__()
+        if act_quant not in (None, "", "off"):
+            raise NotImplementedError(
+                f"act_quant={act_quant!r} arrives with the training slice"
+            )
+        self.cfg = cfg
+        self.transformer = Transformer(
+            cfg, attention_fn, lm_head=True, device=resolve_device(device),
+        )
+
+    def forward(self, tokens, *, return_hidden=False):
+        return self.transformer(tokens, return_hidden=return_hidden)

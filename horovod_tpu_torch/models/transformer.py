@@ -1,0 +1,244 @@
+"""Shared transformer core (GPT-2 builds on it) -- the port of the JAX
+package's ``models/transformer.py``.
+
+The numerics follow the flax modules the JAX package builds from:
+
+* every op computes in ``cfg.dtype`` (bf16). Flax keeps fp32 parameters
+  and casts them to ``dtype`` at each op; here the matmul and embedding
+  weights are stored in ``cfg.dtype``, so ``load_state_dict`` casts an
+  fp32 checkpoint once at load -- the same rounding as the cast at each
+  op, done once. LayerNorm parameters stay fp32;
+* LayerNorm takes its statistics in fp32 with flax's epsilon 1e-6 and its
+  fast variance ``E[x^2] - E[x]^2``, and applies scale and bias in fp32;
+* ``nn.gelu`` is the tanh approximation;
+* the embeddings come out in bf16, so the residual stream is bf16;
+* plain attention does its softmax in fp32 and rounds the probabilities
+  to the compute dtype before PV; the flash kernel rounds ``p`` to V's
+  dtype;
+* the tied head computes ``x @ wte.T`` in bf16 and only then casts the
+  logits to fp32.
+
+Attention takes the flash path (:mod:`..ops.flash_attention`) in the
+packed ``[B, S, H*D]`` layout: q, k and v are column slices of one fused
+QKV projection, which the kernel reads in place through strides.
+``use_flash=None`` takes it on a CUDA device, as the JAX package takes its
+Pallas kernel on a TPU, and plain attention on the CPU; ``True`` takes it
+on either (CPU tensors run its plain version). On the card the kernel
+runs or the wrapper raises (it takes bf16 with head dim 64 or 128): plain
+attention runs there only for ``use_flash=False`` or an ``attention_fn``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.flash_attention import flash_attention
+
+LN_EPS = 1e-6  # flax nn.LayerNorm's default (torch's is 1e-5)
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 50257
+    max_len: int = 1024
+    d_model: int = 768
+    n_heads: int = 12
+    n_layers: int = 12
+    d_ff: int = 3072
+    causal: bool = True
+    dropout: float = 0.0
+    dtype: torch.dtype = torch.bfloat16
+    # Per-block rematerialization: a training-slice feature; anything but
+    # False/None/"none" raises NotImplementedError.
+    remat: Any = False
+    # None/""/"off" computes in ``dtype``; "fp8" waits for its slice.
+    compute_dtype: Optional[str] = None
+    type_vocab_size: int = 0
+    # Flash-attention kernel: None = auto (on for CUDA tensors), True =
+    # always, False = plain attention.
+    use_flash: Optional[bool] = None
+
+    def check_supported(self) -> None:
+        if self.remat not in (False, None, "none"):
+            raise NotImplementedError(
+                f"remat={self.remat!r} arrives with the training slice"
+            )
+        if self.compute_dtype not in (None, "", "off"):
+            raise NotImplementedError(
+                f"compute_dtype={self.compute_dtype!r} is not ported yet"
+            )
+        if self.d_model % self.n_heads:
+            raise ValueError(
+                f"d_model={self.d_model} is not a multiple of "
+                f"n_heads={self.n_heads}"
+            )
+
+
+def dot_product_attention(q, k, v, *, causal: bool, mask=None):
+    """Plain attention on ``[B, S, H, D]``; softmax in fp32, probabilities
+    rounded to the compute dtype before PV (the JAX package's
+    ``dot_product_attention``)."""
+    if mask is not None:
+        raise NotImplementedError("dense attention masks are not ported yet")
+    d = q.shape[-1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(d)
+    if causal:
+        qlen, klen = scores.shape[-2], scores.shape[-1]
+        cmask = torch.ones(
+            (qlen, klen), dtype=torch.bool, device=q.device
+        ).tril()
+        scores = scores.masked_fill(~cmask, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _factory(device, dtype):
+    return {"device": device, "dtype": dtype}
+
+
+class Dense(nn.Module):
+    """``y = x W^T + b`` computed in ``dtype`` (flax ``nn.Dense(dtype=)``);
+    ``weight`` is ``[out, in]``, stored in ``dtype``."""
+
+    def __init__(self, d_in: int, d_out: int, *, dtype, device):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(
+            torch.zeros((d_out, d_in), **_factory(device, dtype))
+        )
+        self.bias = nn.Parameter(torch.zeros((d_out,), **_factory(device, dtype)))
+
+    def forward(self, x):
+        return F.linear(x.to(self.dtype), self.weight, self.bias)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(dtype=)``: fp32 statistics (fast variance),
+    epsilon 1e-6, fp32 scale and bias, output in ``dtype``."""
+
+    def __init__(self, d: int, *, dtype, device):
+        super().__init__()
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones((d,), device=device))
+        self.bias = nn.Parameter(torch.zeros((d,), device=device))
+
+    def forward(self, x):
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        mul = torch.rsqrt(var + LN_EPS) * self.scale.float()
+        return ((xf - mean) * mul + self.bias.float()).to(self.dtype)
+
+
+class MultiHeadAttention(nn.Module):
+    def __init__(self, cfg: TransformerConfig,
+                 attention_fn: Optional[Callable] = None, *, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.attention_fn = attention_fn
+        kw = dict(dtype=cfg.dtype, device=device)
+        # Fused query/key/value projection: rows [0, D) are the query,
+        # [D, 2D) the key, [2D, 3D) the value (convert.py builds it from
+        # the three flax DenseGeneral kernels).
+        self.qkv = Dense(cfg.d_model, 3 * cfg.d_model, **kw)
+        self.out = Dense(cfg.d_model, cfg.d_model, **kw)
+
+    def forward(self, x, mask=None):
+        cfg = self.cfg
+        b, s, _ = x.shape
+        h, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
+        # Column slices of the fused output: strided [B, S, H*dh] views.
+        q, k, v = self.qkv(x).split(cfg.d_model, dim=-1)
+        attn = self.attention_fn
+        if attn is None:
+            if mask is not None:
+                raise NotImplementedError(
+                    "dense attention masks are not ported yet"
+                )
+            use_flash = cfg.use_flash
+            if use_flash is None:
+                use_flash = x.device.type == "cuda"
+            if use_flash:
+                y = flash_attention(
+                    q, k, v, causal=cfg.causal, layout="bsm", n_heads=h
+                )
+                return self.out(y)
+            attn = dot_product_attention
+        y = attn(
+            q.unflatten(-1, (h, dh)), k.unflatten(-1, (h, dh)),
+            v.unflatten(-1, (h, dh)), causal=cfg.causal, mask=mask,
+        )
+        return self.out(y.reshape(b, s, cfg.d_model))
+
+
+class MlpBlock(nn.Module):
+    def __init__(self, cfg: TransformerConfig, *, device=None):
+        super().__init__()
+        kw = dict(dtype=cfg.dtype, device=device)
+        self.fc = Dense(cfg.d_model, cfg.d_ff, **kw)
+        self.proj = Dense(cfg.d_ff, cfg.d_model, **kw)
+
+    def forward(self, x):
+        return self.proj(F.gelu(self.fc(x), approximate="tanh"))
+
+
+class Block(nn.Module):
+    """Pre-LN transformer block (GPT-2 style)."""
+
+    def __init__(self, cfg: TransformerConfig,
+                 attention_fn: Optional[Callable] = None, *, device=None):
+        super().__init__()
+        self.ln_1 = LayerNorm(cfg.d_model, dtype=cfg.dtype, device=device)
+        self.attn = MultiHeadAttention(cfg, attention_fn, device=device)
+        self.ln_2 = LayerNorm(cfg.d_model, dtype=cfg.dtype, device=device)
+        self.mlp = MlpBlock(cfg, device=device)
+
+    def forward(self, x, mask=None):
+        x = x + self.attn(self.ln_1(x), mask)
+        return x + self.mlp(self.ln_2(x))
+
+
+class Transformer(nn.Module):
+    """Token + position embeddings -> N blocks -> final LN; returns hidden
+    states ``[batch, seq, d_model]``, or with ``lm_head`` fp32 logits from
+    the tied head (``x @ wte.T`` in the compute dtype)."""
+
+    def __init__(self, cfg: TransformerConfig,
+                 attention_fn: Optional[Callable] = None,
+                 lm_head: bool = False, *, device=None):
+        super().__init__()
+        cfg.check_supported()
+        self.cfg = cfg
+        self.lm_head = lm_head
+        fac = _factory(device, cfg.dtype)
+        self.wte = nn.Embedding(cfg.vocab_size, cfg.d_model, **fac)
+        self.wpe = nn.Embedding(cfg.max_len, cfg.d_model, **fac)
+        self.wtt = (
+            nn.Embedding(cfg.type_vocab_size, cfg.d_model, **fac)
+            if cfg.type_vocab_size else None
+        )
+        self.blocks = nn.ModuleList(
+            Block(cfg, attention_fn, device=device)
+            for _ in range(cfg.n_layers)
+        )
+        self.ln_f = LayerNorm(cfg.d_model, dtype=cfg.dtype, device=device)
+
+    def forward(self, tokens, *, token_types=None, mask=None,
+                return_hidden=False):
+        x = F.embedding(tokens, self.wte.weight)
+        pos = torch.arange(tokens.shape[-1], device=tokens.device)
+        x = x + F.embedding(pos, self.wpe.weight)
+        if self.wtt is not None and token_types is not None:
+            x = x + F.embedding(token_types, self.wtt.weight)
+        for block in self.blocks:
+            x = block(x, mask)
+        x = self.ln_f(x)
+        if self.lm_head and not return_hidden:
+            return F.linear(x, self.wte.weight).float()
+        return x

@@ -1,0 +1,122 @@
+"""Builds the package's CUDA kernels at first use and loads them.
+
+Every ``csrc/<name>.cu`` source is compiled with ``nvcc`` straight into a
+shared library with a plain C interface and loaded with :mod:`ctypes`:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<name>.cu
+
+No PyTorch headers are involved, so a build takes seconds. The library
+name carries a hash of the source and the flags: an edited source builds
+anew, an unchanged one is loaded from ``_build/`` (listed in
+``.gitignore``). A failed build raises with nvcc's stderr.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+# Seconds each library took to build in this process (0.0 when it was
+# already on disk) -- chip_smoke.py reports them.
+build_seconds: Dict[str, float] = {}
+
+
+def sources() -> List[str]:
+    """Names of every kernel source under ``csrc/``."""
+    return sorted(p.stem for p in SRC_DIR.glob("*.cu"))
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else the one on
+    ``PATH``, else ``/usr/local/cuda/bin/nvcc``."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [os.path.join(home, "bin", "nvcc")] if home else []
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(found)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH and "
+        "/usr/local/cuda/bin); the CUDA kernels cannot be built"
+    )
+
+
+def _library_path(name: str) -> Path:
+    src = SRC_DIR / f"{name}.cu"
+    if not src.is_file():
+        raise FileNotFoundError(f"no kernel source {src}")
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _compile(name: str) -> Path:
+    """Compile one source unless its library is already built; the
+    library is written under a temporary name and renamed into place, so
+    concurrent builders never load a half-written file."""
+    out = _library_path(name)
+    if out.is_file():
+        build_seconds.setdefault(name, 0.0)
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(prefix=f".{name}-", suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(SRC_DIR / f"{name}.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n"
+            f"{' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    build_seconds[name] = time.perf_counter() - t0
+    return out
+
+
+def build_all(names: Iterable[str] = ()) -> Dict[str, float]:
+    """Build every named source (default: all of ``csrc/``), one nvcc per
+    source, all started together. Returns seconds per source."""
+    names = list(names) or sources()
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as ex:
+        list(ex.map(_compile, names))
+    return {n: build_seconds[n] for n in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(_compile(name)))
+            _libs[name] = lib
+    return lib

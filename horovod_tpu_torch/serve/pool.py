@@ -1,0 +1,388 @@
+"""Replicated inference pool on the card -- the port of the JAX package's
+``serve/pool.py``.
+
+:class:`ServePool` runs N serving workers (threads) over one shared
+:class:`~horovod_tpu_torch.serve.dispatcher.Dispatcher`. Each worker:
+
+* holds its own reference to the weights, loaded from a
+  manifest-verified checkpoint when ``ckpt_dir`` is given -- a corrupt
+  latest step walks back to the newest intact one;
+* loops ``lease -> infer -> complete`` under ``torch.inference_mode()``
+  (set inside the worker thread: the mode is per thread); the packed
+  batch moves to the pool's device, the outputs come back to the host, so
+  a response is a CPU tensor and the request latency includes the
+  device's work; a failed batch is re-queued, a killed worker's in-flight
+  batches are re-queued -- requests are never dropped;
+* takes part in the **rolling hot-swap**: when the checkpoint watcher
+  sees a newly published step, workers swap ONE AT A TIME while the
+  others keep serving; a corrupt target is quarantined and rolled back
+  through the walk-back restore, and no further worker attempts it.
+
+``params`` (or what a restore of ``ckpt_target`` gives) is handed to
+``infer_fn(params, batch)`` as it is: a nest of tensors, or an
+``nn.Module`` -- a restore into a module template loads a fresh copy of
+the module, so workers never share a module being swapped. All workers
+launch on the device's current stream.
+
+``autoscale=True`` drives the pool off its queue depth through
+:class:`~horovod_tpu_torch.elastic.scale.QueueDepthPolicy`: scale-up
+spawns a worker, scale-down drains one (it finishes its in-flight batch,
+then leaves).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from .. import checkpoint as _ckpt
+from ..context import resolve_device
+from ..elastic.scale import QueueDepthPolicy
+from ..ops.batching import tree_map
+from ..utils import env as _env
+from .dispatcher import Dispatcher, ServeFuture
+
+log = logging.getLogger("horovod_tpu_torch.serve")
+
+_OFF = ("", "off", "none", "0", "false", "no")
+
+
+def _place(state: Any, device: torch.device) -> Any:
+    """``state`` on ``device`` (a module moves in place)."""
+    if isinstance(state, torch.nn.Module):
+        return state.to(device)
+    return tree_map(
+        lambda x: x.to(device) if isinstance(x, torch.Tensor) else x, state
+    )
+
+
+def _to_host(outputs: Any) -> Any:
+    return tree_map(
+        lambda x: x.detach().to("cpu") if isinstance(x, torch.Tensor) else x,
+        outputs,
+    )
+
+
+class ServingWorker:
+    """One serving replica: a thread looping lease -> infer -> complete."""
+
+    def __init__(self, pool: "ServePool", name: str, params: Any,
+                 ckpt_step: Optional[int]):
+        self.pool = pool
+        self.name = name
+        self.params = params
+        self.ckpt_step = ckpt_step
+        # Held by the swapper while this worker's weights are replaced
+        # and by the worker while it picks them up: a batch never runs on
+        # half-swapped state.
+        self.swap_lock = threading.Lock()
+        self._stop = threading.Event()
+        self._draining = threading.Event()
+        self._thread = threading.Thread(
+            target=self._loop, name=f"hvdtpu-serve-{name}", daemon=True
+        )
+
+    def start(self) -> None:
+        self._thread.start()
+
+    def _loop(self) -> None:
+        device = self.pool.device
+        on_card = (
+            torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext()
+        )
+        with on_card, torch.inference_mode():
+            self._serve()
+        self._draining.set()
+
+    def _serve(self) -> None:
+        d = self.pool.dispatcher
+        while not self._stop.is_set():
+            if self._draining.is_set():
+                break  # drained: in-flight work finished, lease no more
+            lease = d.lease(self.name, timeout=0.05)
+            if lease is None:
+                continue
+            try:
+                with self.swap_lock:
+                    params = self.params
+                batch = _place(lease.batch, self.pool.device)
+                outputs = _to_host(self.pool._infer(params, batch))
+                d.complete(lease, outputs)
+            except Exception as e:  # noqa: BLE001 - any infer failure
+                log.warning(
+                    "serving worker %s failed a batch (%s); re-queueing",
+                    self.name, e,
+                )
+                d.fail(lease)
+
+    def drain(self, timeout: float = 30.0) -> bool:
+        """Graceful exit: stop leasing, let the in-flight batch finish."""
+        self._draining.set()
+        self._thread.join(timeout)
+        return not self._thread.is_alive()
+
+    def kill(self, join_timeout: float = 0.5) -> None:
+        """Simulated crash: the thread is told to stop and whatever it
+        held in flight is re-queued. The join is best-effort -- a worker
+        wedged inside infer is the case the re-queue exists for, and a
+        late answer from it is idempotent."""
+        self._stop.set()
+        self._thread.join(timeout=join_timeout)
+        self.pool.dispatcher.requeue_worker(self.name)
+
+
+class ServePool:
+    """In-process replicated serving pool on one device (default: this
+    process's card; raises without CUDA unless ``device="cpu"``)."""
+
+    def __init__(
+        self,
+        infer_fn: Callable[[Any, Any], Any],
+        params: Any = None,
+        *,
+        ckpt_dir: Optional[str] = None,
+        ckpt_target: Any = None,
+        workers: Optional[int] = None,
+        batch_size: Optional[int] = None,
+        batch_timeout_ms: Optional[float] = None,
+        request_timeout_secs: Optional[float] = None,
+        policy: Optional[QueueDepthPolicy] = None,
+        autoscale: bool = False,
+        ckpt_poll_secs: Optional[float] = None,
+        weight_dtype: Optional[str] = None,
+        autotune=None,
+        device=None,
+    ):
+        if params is None and ckpt_dir is None:
+            raise ValueError("need initial params or ckpt_dir")
+        if weight_dtype is not None:
+            wd = str(weight_dtype).strip().lower()
+            if wd == "int8":
+                raise NotImplementedError(
+                    "weight_dtype='int8' arrives with the int8 serving slice"
+                )
+            if wd not in _OFF:
+                raise ValueError(
+                    f"weight_dtype must be off|int8, got {weight_dtype!r}"
+                )
+        if autotune not in (None, False):
+            raise NotImplementedError("ServePool(autotune=) is not ported yet")
+        self.device = resolve_device(device)
+        self.ckpt_dir = ckpt_dir
+        self.ckpt_target = ckpt_target if ckpt_target is not None else params
+        self._infer = infer_fn
+        self.dispatcher = Dispatcher(
+            batch_size=batch_size,
+            batch_timeout_ms=batch_timeout_ms,
+            request_timeout_secs=request_timeout_secs,
+        )
+        self.n_workers_init = (
+            workers if workers is not None else _env.serve_workers()
+        )
+        self.policy = policy
+        self.autoscale = autoscale
+        if autoscale and policy is None:
+            self.policy = QueueDepthPolicy()
+        self._ckpt_poll = (
+            ckpt_poll_secs if ckpt_poll_secs is not None
+            else _env.serve_ckpt_poll_secs()
+        )
+        self._init_params = params
+        self._init_step: Optional[int] = None
+        self._workers: Dict[str, ServingWorker] = {}
+        self._next_worker = 0
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._threads: List[threading.Thread] = []
+        self._watcher: Optional[_ckpt.CheckpointWatcher] = None
+        # (worker, step, t_start, t_end) per completed swap -- the
+        # one-at-a-time evidence.
+        self.swap_log: List[Tuple[str, int, float, float]] = []
+        self.started = False
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def _restore(self, step: Optional[int] = None):
+        state, got, rolled_back = _ckpt.hot_swap_restore(
+            self.ckpt_dir, self.ckpt_target, step=step
+        )
+        return _place(state, self.device), got, rolled_back
+
+    def start(self) -> "ServePool":
+        if self.started:
+            return self
+        self.started = True
+        if self.ckpt_dir is not None:
+            params, step, _ = self._restore()
+        else:
+            params, step = _place(self._init_params, self.device), None
+        self._init_params, self._init_step = params, step
+        if self.ckpt_dir is not None:
+            self._watcher = _ckpt.CheckpointWatcher(
+                self.ckpt_dir, initial=step
+            )
+        for _ in range(self.n_workers_init):
+            self._spawn_worker()
+        loops = [(self._reaper, "serve-reaper")]
+        if self._watcher is not None:
+            loops.append((self._swap_watch, "serve-swap"))
+        if self.autoscale:
+            loops.append((self._autoscale_loop, "serve-autoscale"))
+        for target, name in loops:
+            t = threading.Thread(target=target, name=name, daemon=True)
+            t.start()
+            self._threads.append(t)
+        return self
+
+    def stop(self, drain: bool = True) -> None:
+        self._stop.set()
+        with self._lock:
+            workers = list(self._workers.values())
+        for w in workers:
+            if drain:
+                w.drain()
+            else:
+                w.kill()
+        self.dispatcher.close()
+        for t in self._threads:
+            t.join(timeout=5.0)
+
+    # -- client API --------------------------------------------------------
+
+    def submit(self, payload: Any) -> ServeFuture:
+        return self.dispatcher.submit(payload)
+
+    @property
+    def n_workers(self) -> int:
+        with self._lock:
+            return len(self._workers)
+
+    # -- elasticity --------------------------------------------------------
+
+    def _spawn_worker(self) -> str:
+        with self._lock:
+            name = f"w{self._next_worker}"
+            self._next_worker += 1
+            w = ServingWorker(self, name, self._init_params, self._init_step)
+            self._workers[name] = w
+            n = len(self._workers)
+        w.start()
+        log.info("serving worker %s joined the pool (%d live)", name, n)
+        return name
+
+    def _retire_worker(self) -> Optional[str]:
+        """Scale-down: drain the newest worker."""
+        with self._lock:
+            if not self._workers:
+                return None
+            name = sorted(
+                self._workers,
+                key=lambda n: int(n[1:]) if n[1:].isdigit() else 0,
+            )[-1]
+            w = self._workers.pop(name)
+            n = len(self._workers)
+        w.drain()
+        log.info("serving worker %s drained out of the pool (%d live)", name, n)
+        return name
+
+    def scale_to(self, target: int) -> None:
+        target = max(1, int(target))
+        while self.n_workers < target:
+            self._spawn_worker()
+        while self.n_workers > target:
+            self._retire_worker()
+
+    def kill_worker(self, name: str) -> bool:
+        """Hard-kill one worker: its in-flight requests are re-queued to
+        the survivors."""
+        with self._lock:
+            w = self._workers.pop(name, None)
+        if w is None:
+            return False
+        w.kill()
+        return True
+
+    def _autoscale_loop(self) -> None:
+        while not self._stop.wait(0.1):
+            d = self.dispatcher
+            target = self.policy.decide(
+                queue_depth=d.queue_depth,
+                in_flight=d.in_flight,
+                workers=self.n_workers,
+            )
+            if target != self.n_workers:
+                self.scale_to(target)
+
+    def _reaper(self) -> None:
+        period = max(0.05, self.dispatcher.request_timeout_secs / 4.0)
+        while not self._stop.wait(min(period, 1.0)):
+            self.dispatcher.reap_expired()
+
+    # -- rolling hot-swap --------------------------------------------------
+
+    def _swap_watch(self) -> None:
+        while not self._stop.wait(self._ckpt_poll):
+            step = self._watcher.poll()
+            if step is not None:
+                try:
+                    self.hot_swap(step)
+                except Exception as e:  # noqa: BLE001 - keep serving
+                    # Transient failure, not a corrupt target (that path
+                    # returns False after quarantine): re-offer the step.
+                    log.warning("hot-swap to step %s failed: %s", step, e)
+                    self._watcher.rewind(step)
+
+    def hot_swap(self, step: int) -> bool:
+        """Roll the pool onto checkpoint ``step``, one worker at a time.
+
+        Every worker restores from disk independently, under its swap lock,
+        while the other workers keep serving. A corrupt target rolls back:
+        the walk-back restore quarantines it, this worker keeps its
+        weights, and no further worker attempts the bad step. Returns True
+        when the pool finished the roll on ``step``."""
+        n_swapped = 0
+        # Loop until no live worker is left on an older step: a worker the
+        # autoscaler spawns mid-roll would otherwise serve stale weights.
+        while True:
+            with self._lock:
+                pending = [
+                    self._workers[n]
+                    for n in sorted(self._workers)
+                    if self._workers[n].ckpt_step != step
+                ]
+            if not pending:
+                break
+            for w in pending:
+                t0 = time.time()
+                state, got, rolled_back = self._restore(step)
+                if rolled_back:
+                    log.warning(
+                        "hot-swap target step %d was corrupt; pool stays "
+                        "on step %s (walk-back rollback)", step, w.ckpt_step,
+                    )
+                    return False
+                if n_swapped == 0:
+                    # Workers spawned from here on load the NEW weights.
+                    self._init_params, self._init_step = state, got
+                with w.swap_lock:
+                    w.params = state
+                    w.ckpt_step = got
+                self.swap_log.append((w.name, got, t0, time.time()))
+                n_swapped += 1
+        if n_swapped == 0:
+            # No live workers: validate and adopt the step for future
+            # spawns.
+            state, got, rolled_back = self._restore(step)
+            if rolled_back:
+                return False
+            self._init_params, self._init_step = state, got
+        log.info(
+            "pool rolled onto checkpoint step %d (%d swaps)", step, n_swapped
+        )
+        return True

@@ -1,0 +1,131 @@
+"""Environment knobs of the serving slice.
+
+Read from ``HVDTPU_<NAME>`` with ``HOROVOD_<NAME>`` as the compatibility
+alias, under the same names and defaults as the JAX package's
+``utils/env.py`` (kept as a copy: this package imports nothing of it), so
+one deployment's environment configures either package the same way.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+FUSION_THRESHOLD = "FUSION_THRESHOLD"  # bytes per fused pack() buffer
+SERVE_BATCH_SIZE = "SERVE_BATCH_SIZE"  # fixed device batch rows
+SERVE_BATCH_TIMEOUT_MS = "SERVE_BATCH_TIMEOUT_MS"  # batch-fill wait window
+SERVE_WORKERS = "SERVE_WORKERS"  # initial pool size
+SERVE_MAX_WORKERS = "SERVE_MAX_WORKERS"  # autoscale ceiling
+SERVE_QUEUE_HIGH = "SERVE_QUEUE_HIGH"  # per-worker backlog -> scale up
+SERVE_QUEUE_LOW = "SERVE_QUEUE_LOW"  # per-worker backlog -> scale down
+SERVE_SCALE_COOLDOWN_SECS = "SERVE_SCALE_COOLDOWN_SECS"  # between rescales
+SERVE_REQUEST_TIMEOUT_SECS = "SERVE_REQUEST_TIMEOUT_SECS"  # lease expiry
+SERVE_CKPT_POLL_SECS = "SERVE_CKPT_POLL_SECS"  # hot-swap watch period
+
+DEFAULT_FUSION_THRESHOLD = 128 * 1024 * 1024
+DEFAULT_SERVE_BATCH_SIZE = 8
+DEFAULT_SERVE_BATCH_TIMEOUT_MS = 2.0
+DEFAULT_SERVE_WORKERS = 1
+DEFAULT_SERVE_MAX_WORKERS = 4
+DEFAULT_SERVE_QUEUE_HIGH = 4.0
+DEFAULT_SERVE_QUEUE_LOW = 0.5
+DEFAULT_SERVE_SCALE_COOLDOWN_SECS = 5.0
+DEFAULT_SERVE_REQUEST_TIMEOUT_SECS = 30.0
+DEFAULT_SERVE_CKPT_POLL_SECS = 1.0
+
+
+def _lookup(name: str) -> Optional[str]:
+    for prefix in ("HVDTPU_", "HOROVOD_"):
+        val = os.environ.get(prefix + name)
+        if val is not None:
+            return val
+    return None
+
+
+def get_int(name: str, default: int) -> int:
+    val = _lookup(name)
+    if val is None:
+        return default
+    try:
+        return int(val)
+    except ValueError:
+        return default
+
+
+def get_float(name: str, default: float) -> float:
+    val = _lookup(name)
+    if val is None:
+        return default
+    try:
+        return float(val)
+    except ValueError:
+        return default
+
+
+def fusion_threshold_bytes() -> int:
+    """Default bucket size of :func:`horovod_tpu_torch.ops.batching.pack`."""
+    return get_int(FUSION_THRESHOLD, DEFAULT_FUSION_THRESHOLD)
+
+
+def serve_batch_size() -> int:
+    """Fixed device batch rows for the serve dispatcher (>= 1): the ONE
+    shape the inference step sees."""
+    size = get_int(SERVE_BATCH_SIZE, DEFAULT_SERVE_BATCH_SIZE)
+    if size < 1:
+        raise ValueError(f"HVDTPU_SERVE_BATCH_SIZE must be >= 1, got {size}")
+    return size
+
+
+def serve_batch_timeout_ms() -> float:
+    """Continuous-batching window: how long a partial batch waits for
+    more requests before dispatching underfilled (0 = never wait)."""
+    return max(0.0, get_float(
+        SERVE_BATCH_TIMEOUT_MS, DEFAULT_SERVE_BATCH_TIMEOUT_MS
+    ))
+
+
+def serve_workers() -> int:
+    """Initial serving-pool size (>= 1)."""
+    return max(1, get_int(SERVE_WORKERS, DEFAULT_SERVE_WORKERS))
+
+
+def serve_max_workers() -> int:
+    """Autoscale ceiling for the serving pool (>= 1)."""
+    return max(1, get_int(SERVE_MAX_WORKERS, DEFAULT_SERVE_MAX_WORKERS))
+
+
+def serve_queue_high() -> float:
+    """Per-worker queue backlog above which the scale policy adds a
+    worker."""
+    return get_float(SERVE_QUEUE_HIGH, DEFAULT_SERVE_QUEUE_HIGH)
+
+
+def serve_queue_low() -> float:
+    """Per-worker queue backlog below which the scale policy drains a
+    worker (never below the policy's ``min_workers``)."""
+    return get_float(SERVE_QUEUE_LOW, DEFAULT_SERVE_QUEUE_LOW)
+
+
+def serve_scale_cooldown_secs() -> float:
+    """Minimum seconds between scale decisions (hysteresis)."""
+    return max(0.0, get_float(
+        SERVE_SCALE_COOLDOWN_SECS, DEFAULT_SERVE_SCALE_COOLDOWN_SECS
+    ))
+
+
+def serve_request_timeout_secs() -> float:
+    """Age past which a leased (in-flight) batch is presumed lost and
+    its requests are re-queued to another worker. Clamped to >= 0.1 s:
+    a zero/negative value would make the lease reaper tear every batch
+    off healthy workers mid-infer."""
+    return max(0.1, get_float(
+        SERVE_REQUEST_TIMEOUT_SECS, DEFAULT_SERVE_REQUEST_TIMEOUT_SECS
+    ))
+
+
+def serve_ckpt_poll_secs() -> float:
+    """How often serving workers poll for a newly published checkpoint
+    step (the rolling hot-swap trigger)."""
+    return max(0.05, get_float(
+        SERVE_CKPT_POLL_SECS, DEFAULT_SERVE_CKPT_POLL_SECS
+    ))

@@ -27,8 +27,15 @@ setup(
         "Horovod's capabilities (JAX/XLA/Pallas data plane, native C++ "
         "eager runtime)"
     ),
-    packages=find_packages(include=["horovod_tpu", "horovod_tpu.*"]),
-    package_data={"horovod_tpu.native": ["libhvtcore.so"]},
+    packages=find_packages(include=[
+        "horovod_tpu", "horovod_tpu.*",
+        "horovod_tpu_torch", "horovod_tpu_torch.*",
+    ]),
+    package_data={
+        "horovod_tpu.native": ["libhvtcore.so"],
+        # The PyTorch/CUDA port builds its kernels from these at first use.
+        "horovod_tpu_torch": ["csrc/*.cu"],
+    },
     cmdclass={"build_py": BuildWithNativeCore},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "numpy", "pyyaml"],
