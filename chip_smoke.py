@@ -19,7 +19,46 @@ Phases (any failure exits non-zero; nothing is caught):
    torch's scaled_dot_product_attention on the same inputs as a yardstick
    (timed here only; the port never calls it), and the least time the
    card could take (bytes over 3.35 TB/s, operations over 989 TFLOP/s).
-3. Serving: GPT-2 small at full width from convert.init_params(seed=0),
+3. Kernel vs plain, flash backward: the dK/dV and dQ kernels (one
+   flash_attention_bwd call) against flash_attention_bwd_reference at
+   GPT-2 small's training shape (B=8, S=1024, H=12, D=64, causal; q/k/v
+   column views of one [8, 1024, 2304] bf16 tensor, out and lse from the
+   kernel forward) and two ragged cases (non-causal with kv_len and
+   q_offset; D=128 causal with q_offset > 0), both cotangents nonzero;
+   max |d dq|, |d dk|, |d dv| <= 1e-2 x the plain version's largest
+   gradient (bf16 outputs, P and dS rounded to bf16 at other points of
+   the sums). The pair is timed with CUDA events, each kernel alone with
+   torch.profiler; beside them the plain version and the backward of
+   scaled_dot_product_attention(is_causal=True) as the yardstick. The
+   pair's bound counts the five products the gradient needs (S, dP, dV,
+   dK, dQ); each kernel's, S, dP and its own products.
+4. Kernel vs plain, fused AdamW: flat fp32 buffers of the trainer's bucket
+   sizes (GPT-2 small, world 1, default fusion threshold); max |d| of the
+   update and both moments <= 1e-6 x the largest value (every operation is
+   IEEE-rounded in the plain version's order; powf of the bias corrections
+   may differ from torch.pow by an ulp). Timed over all buckets with the
+   plain version and torch.optim.AdamW(fused=True) on the same buffers as
+   the yardstick (its decay order differs); bound 28 bytes an element.
+5. Training: GPT-2 small at full width with fp32 master weights and bf16
+   compute, from convert.init_params(seed=0), on a one-rank NCCL world
+   (horovod_tpu_torch.init(backend="nccl")), through
+   make_train_step(loss, fused_adamw(1e-4), sharded=True,
+   fused_update=True), on one batch of 8 x 1024 tokens from a numpy seed
+   used every step. From the same start, the gradients and one step of
+   the plain path (use_flash=False, fused_update=False) are held against
+   the kernel path: all gradients within 5e-2 in relative L2 norm, every
+   parameter within 2 lr (1 + wd |p|) + 1e-6 of the plain step's, and at
+   most 2% of the elements stepping the other way (Adam's first step
+   moves every element by lr (sign g + wd p), so a gradient element within
+   bf16 noise of zero can flip). Then 3 warm-up and 20 timed steps: each
+   step's loss, the median step ms, tokens/s and MFU (obs/flops.py, H100
+   SXM bf16 peak).
+   Every loss must be finite and the last below the first; the launch
+   counts, set to 0 just before the timed steps, must be 12 forward,
+   12 dK/dV, 12 dQ and one AdamW per bucket per step. A torch.profiler
+   window over one step gives device time by kernel category and the
+   device's idle share.
+6. Serving: GPT-2 small at full width from convert.init_params(seed=0),
    saved with the port's save_checkpoint and served by ServePool
    (2 workers, batch 8); 64 requests of 1024 tokens from a numpy seed,
    submitted all at once, in 5 rounds (each round's requests/s and p50/p95
@@ -33,12 +72,15 @@ Phases (any failure exits non-zero; nothing is caught):
    share of the window's wall time (profiler overhead included). Then a
    step-2 checkpoint is published and the pool must roll onto it one
    worker at a time.
-4. Output: a "kernels" JSON line, the card's name and power limit, and
-   the last line {"ok": true, "device": {...}}.
+7. Output: a "kernels" JSON line (the four kernels; "launches" is the
+   training run's count, the forward kernel's serving count beside it as
+   "launches_serve"), the card's name and power limit, and the last line
+   {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import shutil
@@ -54,7 +96,13 @@ import torch
 # H100 SXM data-sheet peaks (at its full 700 W power limit).
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor cores
+FP32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores
 OUT_TOL, LSE_TOL = 1e-2, 1e-3
+GRAD_TOL = 1e-2  # flash backward, relative to the largest plain gradient
+ADAM_TOL = 1e-6  # fused AdamW, relative to the largest plain value
+ADAM_OPS = 30  # fp32 operations per element of the AdamW update
+STEP_GRAD_TOL, FLIP_TOL = 5e-2, 0.02  # kernel vs plain train step
+TRAIN_LR, TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 1e-4, 8, 3, 20
 SERVE_ROUNDS = 5
 
 
@@ -168,6 +216,172 @@ def flash_case(fa, gen, *, b, sq, skv, h, d, causal, q_offset=0,
     return rec
 
 
+def qkv_views(gen, b, sq, skv, h, d):
+    """q, k, v as the model hands them to the kernels: column views of one
+    fused projection (of q and a fused key/value one when Sq != Skv)."""
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    if sq == skv:
+        return rand(b, sq, 3 * h * d).split(h * d, dim=-1)
+    k, v = rand(b, skv, 2 * h * d).split(h * d, dim=-1)
+    return rand(b, sq, h * d), k, v
+
+
+def bwd_case(fa, gen, *, b, sq, skv, h, d, causal, q_offset=0, kv_offset=0,
+             kv_len=None, timed=False):
+    """The backward kernel pair vs its plain version on one shape, from the
+    kernel forward's out and lse and two nonzero cotangents."""
+    q, k, v = qkv_views(gen, b, sq, skv, h, d)
+    kw = dict(causal=causal, q_offset=q_offset, kv_offset=kv_offset,
+              layout="bsm", n_heads=h, kv_len=kv_len)
+    with torch.no_grad():
+        out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+    g_out = torch.randn((b, sq, h * d), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+    g_lse = torch.randn((b, h, sq), generator=gen, device="cuda")
+    args = (q, k, v, out, lse, g_out, g_lse)
+    got = fa.flash_attention_bwd(*args, **kw)
+    ref = fa.flash_attention_bwd_reference(*args, **kw)
+    torch.cuda.synchronize()
+    errs, rels = [], []
+    for g, r in zip(got, ref):
+        if g.shape != r.shape or g.dtype != r.dtype:
+            raise AssertionError(f"gradient {g.shape} {g.dtype} vs plain "
+                                 f"{r.shape} {r.dtype}")
+        err = (g.float() - r.float()).abs().max().item()
+        scale = max(r.float().abs().max().item(), 1e-6)
+        errs.append(err)
+        rels.append(err / scale)
+    name = (f"B={b} Sq={sq} Skv={skv} H={h} D={d} causal={causal} "
+            f"q_offset={q_offset} kv_offset={kv_offset} kv_len={kv_len}")
+    log(f"[bwd] {name}: max|d dq|={errs[0]:.3e} max|d dk|={errs[1]:.3e} "
+        f"max|d dv|={errs[2]:.3e}; relative {max(rels):.3e}")
+    if max(rels) > GRAD_TOL:
+        raise AssertionError(
+            f"flash backward kernels disagree with their plain version on "
+            f"{name}: relative {rels} (tol {GRAD_TOL})"
+        )
+    rec = {"err": max(errs), "rel_err": max(rels)}
+    if timed:
+        rec["ms"] = time_ms(lambda: fa.flash_attention_bwd(*args, **kw))
+        rec["kernel_ms"] = kernel_ms(
+            lambda: fa.flash_attention_bwd(*args, **kw), 10
+        )
+        rec["plain_ms"] = time_ms(
+            lambda: fa.flash_attention_bwd_reference(*args, **kw)
+        )
+        qh, kh, vh = (x.unflatten(-1, (h, d)).transpose(1, 2).contiguous()
+                      .requires_grad_(True) for x in (q, k, v))
+        oh = torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=causal
+        )
+        goh = g_out.unflatten(-1, (h, d)).transpose(1, 2)
+        rec["library_ms"] = time_ms(lambda: torch.autograd.grad(
+            oh, (qh, kh, vh), goh, retain_graph=True
+        ))
+        kvl = skv if kv_len is None else kv_len
+        pairs = valid_pairs(sq, kvl, causal, q_offset, kv_offset)
+        n_q, n_kv, n_row = b * sq * h * d, b * skv * h * d, b * h * sq
+        product = 2 * d * b * h * pairs  # one QK^T-sized product, causal part
+        # Bytes and operations of each function: the pair reads q, out, dO,
+        # k, v, lse, g_lse and writes dq, dk, dv (delta is its own, from out
+        # and dO) and needs five products (S, dP, dV, dK, dQ); each kernel
+        # reads q, k, v, dO, lse, delta, g_lse, writes its gradients and
+        # needs S, dP and its own products.
+        work = {
+            "pair": (2 * (4 * n_q + 4 * n_kv) + 4 * 2 * n_row, 5 * product),
+            "flash_bwd_dkdv": (2 * (2 * n_q + 4 * n_kv) + 4 * 3 * n_row,
+                               4 * product),
+            "flash_bwd_dq": (2 * (3 * n_q + 2 * n_kv) + 4 * 3 * n_row,
+                             3 * product),
+        }
+        for name, (nbytes, flops) in work.items():
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = flops / BF16_FLOPS_PER_S
+            rec[name] = {
+                "bytes": nbytes, "flops": flops,
+                "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            }
+        pair = rec["pair"]
+        log(f"[bwd] {pair['bytes'] / 1e6:.1f} MB, {pair['flops'] / 1e9:.2f} "
+            f"GFLOP: kernel pair {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.4f} ms, sdpa backward "
+            f"{rec['library_ms']:.4f} ms, bound {pair['bound_ms']:.4f} ms "
+            f"({pair['bound_by']})")
+        for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
+            log(f"[bwd] {name}: {rec['kernel_ms'][name]:.4f} ms a launch "
+                f"(profiler), bound {rec[name]['bound_ms']:.4f} ms "
+                f"({rec[name]['bound_by']})")
+    return rec
+
+
+def trainer_bucket_sizes(hvt, cfg):
+    """Elements per fused bucket of the trainer's parameter dict (world 1,
+    default fusion threshold), from shapes alone (a meta-device model)."""
+    from horovod_tpu_torch.ops.fusion import bucket_byte_layout
+
+    params = dict(hvt.GPT2LMModel(cfg, device="meta").named_parameters())
+    return [nbytes // 4 for dt, nbytes in bucket_byte_layout(params)
+            if dt == "float32"]
+
+
+def adamw_case(fadam, gen, sizes):
+    """The fused AdamW kernel vs its plain version on every bucket."""
+    spec = fadam.FusedAdamSpec(TRAIN_LR)
+    count = torch.tensor(3, dtype=torch.int32, device="cuda")
+
+    def rand(n, s):
+        return torch.randn((n,), generator=gen, device="cuda") * s
+
+    bufs = [(rand(n, 1.0), rand(n, 0.01), rand(n, 0.03).abs() ** 2,
+             rand(n, 0.1)) for n in sizes]
+    err, rel, bitwise = 0.0, 0.0, True
+    for p, m, v, g in bufs:
+        mk, vk = m.clone(), v.clone()
+        u = fadam.fused_adamw_update(p, mk, vk, g, count, spec)
+        ref = fadam.fused_adamw_update_reference(p, m, v, g, count, spec)
+        for a, r in zip((u, mk, vk), ref):
+            d = (a - r).abs().max().item()
+            err = max(err, d)
+            rel = max(rel, d / max(r.abs().max().item(), 1e-30))
+            bitwise = bitwise and torch.equal(a, r)
+    n = sum(sizes)
+    log(f"[adamw] buckets {sizes} ({n} elements): max|d| {err:.3e}, "
+        f"relative {rel:.3e}, bit for bit {bitwise}")
+    if rel > ADAM_TOL:
+        raise AssertionError(
+            f"fused AdamW kernel disagrees with its plain version: {rel} "
+            f"(tol {ADAM_TOL})"
+        )
+    rec = {"err": err, "rel_err": rel, "bitwise": bitwise,
+           "buckets": list(sizes)}
+    rec["ms"] = time_ms(lambda: [
+        fadam.fused_adamw_update(p, m, v, g, count, spec)
+        for p, m, v, g in bufs
+    ])
+    rec["plain_ms"] = time_ms(lambda: [
+        fadam.fused_adamw_update_reference(p, m, v, g, count, spec)
+        for p, m, v, g in bufs
+    ], samples=9, per_sample=3)
+    for p, _, _, g in bufs:
+        p.grad = g
+    lib = torch.optim.AdamW([p for p, _, _, _ in bufs], lr=spec.learning_rate,
+                            betas=(spec.b1, spec.b2), eps=spec.eps,
+                            weight_decay=spec.weight_decay, fused=True)
+    rec["library_ms"] = time_ms(lib.step)
+    nbytes, flops = 28 * n, ADAM_OPS * n
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    rec["bound_ms"] = max(t_bytes, t_ops) * 1e3
+    rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"[adamw] {nbytes / 1e9:.3f} GB: kernel {rec['ms']:.4f} ms, plain "
+        f"{rec['plain_ms']:.4f} ms, torch.optim.AdamW(fused=True) "
+        f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']})")
+    return rec
+
+
 def plain_attention(fa):
     def attn(q, k, v, *, causal, mask=None):
         return fa.flash_attention_reference(q, k, v, causal=causal)[0]
@@ -177,8 +391,12 @@ def plain_attention(fa):
 
 def kernel_category(name: str) -> str:
     n = name.lower()
-    if "flash_fwd_kernel" in n:
-        return "flash_fwd"
+    for kernel in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
+                   "fused_adamw"):
+        if kernel + "_kernel" in n:
+            return kernel
+    if "nccl" in n:
+        return "nccl"
     if any(s in n for s in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
         return "matmul"
     if "memcpy" in n or "memset" in n:
@@ -186,18 +404,11 @@ def kernel_category(name: str) -> str:
     return "other"
 
 
-def profile_serving(pool, tokens):
-    """Device time by kernel over a window of served requests."""
+def device_ms_by_name(prof):
+    """Device ms by kernel name, and by kernel category, from a finished
+    torch.profiler window."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        futs = [pool.submit(torch.from_numpy(t)) for t in tokens]
-        for f in futs:
-            f.result(timeout=600.0)
-        wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -206,19 +417,202 @@ def profile_serving(pool, tokens):
         if us is None:
             us = e.self_cuda_time_total
         by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
-    device_ms = sum(by_name.values())
     by_cat = {}
     for name, ms in by_name.items():
         c = kernel_category(name)
         by_cat[c] = by_cat.get(c, 0.0) + ms
+    return by_name, by_cat
+
+
+def kernel_ms(fn, calls):
+    """Device ms a call of each of this repository's kernels that ``fn``
+    launches, from torch.profiler over ``calls`` calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    _, by_cat = device_ms_by_name(prof)
+    return {c: ms / calls for c, ms in by_cat.items()
+            if c.startswith(("flash", "fused"))}
+
+
+def device_breakdown(prof, wall_ms, extra):
+    """Device time by kernel from a finished torch.profiler window."""
+    by_name, by_cat = device_ms_by_name(prof)
+    device_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    rec = {"requests": len(tokens), "wall_ms": wall_ms,
-           "device_ms": device_ms,
-           "idle_share": 1.0 - device_ms / wall_ms if wall_ms else None,
-           "by_category_ms": by_cat,
-           "top_kernels_ms": [[n[:80], ms] for n, ms in top]}
+    rec = dict(extra, wall_ms=wall_ms, device_ms=device_ms,
+               idle_share=1.0 - device_ms / wall_ms if wall_ms else None,
+               by_category_ms=by_cat,
+               top_kernels_ms=[[n[:80], ms] for n, ms in top])
     log(f"[profile] {json.dumps(rec)}")
     return rec
+
+
+def profile_window(fn, extra):
+    """Run ``fn`` under torch.profiler; device time by kernel category and
+    the idle share of the window's wall time (profiler overhead included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return device_breakdown(prof, wall_ms, extra)
+
+
+def profile_serving(pool, tokens):
+    """Device time by kernel over a window of served requests."""
+    def run():
+        futs = [pool.submit(torch.from_numpy(t)) for t in tokens]
+        for f in futs:
+            f.result(timeout=600.0)
+
+    return profile_window(run, {"requests": len(tokens)})
+
+
+def train_loss(model):
+    """Next-token cross entropy on the fp32 logits, through the parameter
+    dict the step hands in."""
+    import torch.nn.functional as F
+
+    def loss_fn(params, tokens):
+        logits = torch.func.functional_call(model, params, (tokens[:, :-1],))
+        return F.cross_entropy(logits.flatten(0, 1), tokens[:, 1:].flatten())
+
+    return loss_fn
+
+
+def train(hvt, fa, fadam, cfg, sizes):
+    """GPT-2 small through make_train_step(sharded=True, fused_update=True)
+    on a one-rank NCCL world, held against the plain path, then timed."""
+    from horovod_tpu_torch.obs import flops
+    from horovod_tpu_torch.parallel import dp
+
+    hvt.init(backend="nccl")
+    seq = cfg.max_len
+    sd0 = hvt.convert.init_params(cfg, seed=0)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, seq + 1), dtype=np.int64
+    )).cuda()
+    n_matmul = sum(v.numel() for k, v in sd0.items()
+                   if not k.startswith(("transformer.wte", "transformer.wpe")))
+    tokens_per_step = TRAIN_BATCH * seq
+    flops_per_step = tokens_per_step * flops.transformer_flops_per_token(
+        n_matmul, cfg.n_layers, seq, cfg.d_model
+    )
+
+    def build(use_flash, fused):
+        model = hvt.GPT2LMModel(dataclasses.replace(cfg, use_flash=use_flash))
+        model.load_state_dict(sd0)
+        step, opt = hvt.make_train_step(
+            train_loss(model), hvt.fused_adamw(TRAIN_LR), sharded=True,
+            fused_update=fused, tokens_per_step=tokens_per_step,
+            flops_per_step=flops_per_step,
+        )
+        return model, step, dp.init_state(model, opt)
+
+    model_k, step_k, state_k = build(None, True)
+    model_p, step_p, state_p = build(False, False)
+    got = [b.numel() for b in state_k.opt_state.inner.mu.buffers]
+    if got != list(sizes):
+        raise AssertionError(f"trainer buckets {got} != predicted {sizes}")
+
+    # Gradients at the start: kernel path vs plain attention.
+    _, _, g_k = dp.accumulate_gradients(train_loss(model_k), state_k.params,
+                                        tokens, 1)
+    _, _, g_p = dp.accumulate_gradients(train_loss(model_p), state_p.params,
+                                        tokens, 1)
+    num = sum(float((g_k[n] - g_p[n]).float().norm()) ** 2 for n in g_p)
+    den = sum(float(g_p[n].float().norm()) ** 2 for n in g_p)
+    grad_rel = (num / den) ** 0.5
+    del g_k, g_p
+    log(f"[train] gradients, kernel vs plain path: relative L2 {grad_rel:.3e} "
+        f"(tol {STEP_GRAD_TOL})")
+    if not grad_rel <= STEP_GRAD_TOL:
+        raise AssertionError("kernel-path gradients disagree with the plain path")
+
+    # One step each from the same start.
+    p0 = {n: p.detach().clone() for n, p in state_k.params.items()}
+    state_k, loss_k = step_k(state_k, tokens)
+    state_p, loss_p = step_p(state_p, tokens)
+    wd = hvt.fused_adamw(TRAIN_LR).fused_spec.weight_decay
+    excess, flipped, total = -1.0, 0, 0
+    with torch.no_grad():
+        for n, p in p0.items():
+            d = (state_k.params[n] - state_p.params[n]).abs()
+            bound = 2 * TRAIN_LR * (1 + wd * p.abs()) + 1e-6
+            excess = max(excess, float((d - bound).max()))
+            flipped += int((d > TRAIN_LR).sum())
+            total += d.numel()
+    flip_share = flipped / total
+    log(f"[train] one step, kernel vs plain path: loss {float(loss_k):.6f} vs "
+        f"{float(loss_p):.6f}; largest excess over 2 lr (1 + wd |p|) + 1e-6: "
+        f"{excess:.3e}; elements stepping the other way {flipped}/{total} "
+        f"({flip_share:.3e}, tol {FLIP_TOL})")
+    if excess > 0 or flip_share > FLIP_TOL:
+        raise AssertionError("the kernel step's parameters disagree with the "
+                             "plain step's")
+    del model_p, step_p, state_p, p0
+    torch.cuda.empty_cache()
+
+    losses = [float(loss_k)]
+    for _ in range(TRAIN_WARMUP - 1):
+        state_k, loss = step_k(state_k, tokens)
+        losses.append(float(loss))
+    fa.reset_launches()
+    fadam.reset_launches()
+    times = []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state_k, loss = step_k(state_k, tokens)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = {"flash_fwd": fa.launches, "flash_bwd_dkdv": fa.launches_dkdv,
+              "flash_bwd_dq": fa.launches_dq, "fused_adamw": fadam.launches}
+    log(f"[train] losses {losses}")
+    log(f"[train] launches over {TRAIN_STEPS} steps: {counts}")
+    want = {"flash_fwd": cfg.n_layers, "flash_bwd_dkdv": cfg.n_layers,
+            "flash_bwd_dq": cfg.n_layers, "fused_adamw": len(sizes)}
+    for name, per_step in want.items():
+        if counts[name] != per_step * TRAIN_STEPS:
+            raise AssertionError(
+                f"{name} launched {counts[name]} times in {TRAIN_STEPS} "
+                f"steps, not {per_step} a step"
+            )
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training did not reduce the loss: {losses}")
+    if int(state_k.step) != TRAIN_WARMUP + TRAIN_STEPS:
+        raise AssertionError(f"state.step is {int(state_k.step)}")
+    step_ms = float(np.median(times)) * 1e3
+    tp = step_k.throughput(step_ms / 1e3)
+    log(f"[train] step median {step_ms:.3f} ms (min {min(times) * 1e3:.3f}, "
+        f"max {max(times) * 1e3:.3f}); {tp['tokens_per_s']:.1f} tokens/s; "
+        f"MFU {tp['mfu']}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    def one_step():
+        nonlocal state_k
+        state_k, _ = step_k(state_k, tokens)
+
+    prof = profile_window(one_step, {"steps": 1})
+    hvt.shutdown()
+    del model_k, step_k, state_k
+    torch.cuda.empty_cache()
+    return {"launches": counts, "losses": losses, "step_ms": step_ms,
+            "step_ms_all": [t * 1e3 for t in times],
+            "tokens_per_s": tp["tokens_per_s"], "mfu": tp["mfu"],
+            "grad_rel_l2": grad_rel, "flip_share": flip_share,
+            "param_excess": excess, "profile": prof}
 
 
 def serve(hvt, fa, workdir):
@@ -333,6 +727,7 @@ def main() -> int:
     import horovod_tpu_torch as hvt
     from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import fused_adamw as fadam
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -356,6 +751,20 @@ def main() -> int:
         flash_case(fa, gen, b=2, sq=200, skv=520, h=4, d=128, causal=True,
                    q_offset=300, kv_offset=0, kv_len=517),
     ]
+    bwd_main = bwd_case(fa, gen, b=8, sq=1024, skv=1024, h=12, d=64,
+                        causal=True, timed=True)
+    bwd_cases = [
+        bwd_main,
+        bwd_case(fa, gen, b=2, sq=333, skv=1000, h=12, d=64, causal=False,
+                 q_offset=40, kv_len=937),
+        bwd_case(fa, gen, b=2, sq=200, skv=520, h=4, d=128, causal=True,
+                 q_offset=300, kv_len=517),
+    ]
+    train_cfg = hvt.GPT2Config.small(param_dtype=torch.float32)
+    sizes = trainer_bucket_sizes(hvt, train_cfg)
+    adam = adamw_case(fadam, gen, sizes)
+    torch.cuda.empty_cache()
+    trained = train(hvt, fa, fadam, train_cfg, sizes)
 
     workdir = tempfile.mkdtemp(prefix="smoke-", dir=_build.BUILD_DIR)
     try:
@@ -363,12 +772,16 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
+    src = "horovod_tpu_torch/csrc/"
+    ref = "horovod_tpu/ops/pallas_kernels.py:"
+    launches = trained["launches"]
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
-        "source": "horovod_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "horovod_tpu/ops/pallas_kernels.py:125",
-        "launches": served["launches"],
+        "source": src + "flash_fwd.cu",
+        "replaces": ref + "125",
+        "launches": launches["flash_fwd"],
+        "launches_serve": served["launches"],
         "max_abs_err": max(c["err_out"] for c in cases),
         "max_abs_err_lse": max(c["err_lse"] for c in cases),
         "ms": main_case["ms"],
@@ -377,7 +790,43 @@ def main() -> int:
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
     }]
-    print(json.dumps({"kernels": kernels, "serve": served}), flush=True)
+    # The two backward kernels run as one pair (flash_attention_bwd): "ms"
+    # and "bound_ms" are each kernel's own; the plain version and the
+    # yardstick compute the pair's function, timed beside the pair.
+    for name, line in (("flash_bwd_dkdv", "480"), ("flash_bwd_dq", "541")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": src + "flash_bwd.cu",
+            "replaces": ref + line,
+            "launches": launches[name],
+            "max_abs_err": max(c["err"] for c in bwd_cases),
+            "max_rel_err": max(c["rel_err"] for c in bwd_cases),
+            "ms": bwd_main["kernel_ms"][name],
+            "plain_ms": bwd_main["plain_ms"],
+            "bound_ms": bwd_main[name]["bound_ms"],
+            "bound_by": bwd_main[name]["bound_by"],
+            "library_ms": bwd_main["library_ms"],
+            "pair_ms": bwd_main["ms"],
+            "pair_bound_ms": bwd_main["pair"]["bound_ms"],
+        })
+    kernels.append({
+        "name": "fused_adamw",
+        "route": "cuda",
+        "source": src + "fused_adamw.cu",
+        "replaces": ref + "1064",
+        "launches": launches["fused_adamw"],
+        "max_abs_err": adam["err"],
+        "max_rel_err": adam["rel_err"],
+        "bitwise": adam["bitwise"],
+        "ms": adam["ms"],
+        "plain_ms": adam["plain_ms"],
+        "bound_ms": adam["bound_ms"],
+        "bound_by": adam["bound_by"],
+        "library_ms": adam["library_ms"],
+    })
+    print(json.dumps({"kernels": kernels, "train": trained, "serve": served}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -4,11 +4,13 @@ A second package beside the JAX one, which stays the reference it is held
 against. This package imports ``torch``, ``numpy`` and the standard
 library only -- never JAX, and nothing of ``horovod_tpu``.
 
-This slice serves GPT-2 through :class:`~horovod_tpu_torch.serve.
-ServePool` on an NVIDIA H100, with the flash-attention forward as a
-hand-written CUDA kernel (``csrc/flash_fwd.cu``, built with nvcc at first
-use). Entry points run on the card unless the caller passes
-``device="cpu"``; without CUDA the default raises.
+It serves GPT-2 through :class:`~horovod_tpu_torch.serve.ServePool` and
+trains it data-parallel through :func:`~horovod_tpu_torch.parallel.dp.
+make_train_step` (replicated, or ZeRO-1 sharded with the fused AdamW
+update) on NVIDIA H100s. Its kernels are hand-written CUDA C++ under
+``csrc/`` (the flash-attention forward and backward, the fused AdamW
+update), built with nvcc at first use. Entry points run on the card unless
+the caller passes ``device="cpu"``; without CUDA the default raises.
 """
 
 from . import convert  # noqa: F401
@@ -21,10 +23,13 @@ from .checkpoint import (  # noqa: F401
     verify_step_dir,
 )
 from .context import (  # noqa: F401
+    cross_rank,
+    cross_size,
     device,
     init,
     is_initialized,
     local_rank,
+    local_size,
     rank,
     resolve_device,
     shutdown,
@@ -36,8 +41,31 @@ from .exceptions import (  # noqa: F401
     NotInitializedError,
 )
 from .models import GPT2Config, GPT2LMModel, TransformerConfig  # noqa: F401
+from .ops.collectives import (  # noqa: F401
+    Average,
+    ReduceOp,
+    Sum,
+    allgather,
+    allreduce,
+    barrier,
+    broadcast,
+    reducescatter,
+)
+from .ops.compression import Compression  # noqa: F401
 from .ops.flash_attention import (  # noqa: F401
     flash_attention,
     flash_attention_reference,
     flash_attention_with_lse,
 )
+from .ops.fusion import (  # noqa: F401
+    fused_allgather,
+    fused_allreduce,
+    fused_reducescatter,
+)
+from .optimizer import (  # noqa: F401
+    DistributedOptimizer,
+    ShardedDistributedOptimizer,
+    adamw,
+    fused_adamw,
+)
+from .parallel.dp import TrainState, init_state, make_train_step  # noqa: F401

@@ -1,13 +1,23 @@
 """Process context: ``init``, ``rank``, ``size``, ``local_rank``,
-``device``.
+``local_size``, ``cross_rank``, ``cross_size``, ``device``, and the process
+group.
 
 The PyTorch counterpart of the JAX package's ``context.py`` for one
-process per card (the reference Horovod's model): rank, world size and
-local rank come from the launcher's environment (``torchrun``'s
-``RANK``/``WORLD_SIZE``/``LOCAL_RANK``, or Horovod's ``HOROVOD_RANK``/
-``HOROVOD_SIZE``/``HOROVOD_LOCAL_RANK``); without a launcher the world is
-one process. The card is ``cuda:<local_rank>``. Process groups
-(``torch.distributed``) arrive with the training slice.
+process per card (the reference Horovod's model): rank, world size, local
+rank and local size come from the launcher's environment (``torchrun``'s
+``RANK``/``WORLD_SIZE``/``LOCAL_RANK``/``LOCAL_WORLD_SIZE``, or Horovod's
+``HOROVOD_RANK``/``HOROVOD_SIZE``/``HOROVOD_LOCAL_RANK``/
+``HOROVOD_LOCAL_SIZE``); without a launcher the world is one process. The
+card is ``cuda:<local_rank>``. Hosts are counted as the JAX package counts
+them: ``cross_size = size // local_size`` and ``cross_rank = rank //
+local_size``.
+
+``init(backend=...)`` also brings up ``torch.distributed``: ``"nccl"`` for
+a process on the card, ``"gloo"`` on the CPU. Its rendezvous is
+``init_method`` when given, else ``MASTER_ADDR``/``MASTER_PORT`` from the
+environment, else -- for a world of one -- a file store in a fresh
+temporary directory. :func:`spawn_gloo` runs a function on a gloo world of
+CPU processes (the multi-rank CPU tests use it).
 
 Every entry point of the package runs on the card unless the caller
 passes ``device="cpu"``: :func:`resolve_device` raises when CUDA is
@@ -18,16 +28,21 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import shutil
+import tempfile
 import threading
-from typing import Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from .exceptions import NotInitializedError
 
 _RANK_VARS = ("RANK", "HOROVOD_RANK")
 _SIZE_VARS = ("WORLD_SIZE", "HOROVOD_SIZE")
 _LOCAL_RANK_VARS = ("LOCAL_RANK", "HOROVOD_LOCAL_RANK")
+_LOCAL_SIZE_VARS = ("LOCAL_WORLD_SIZE", "HOROVOD_LOCAL_SIZE")
+BACKENDS = ("nccl", "gloo")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,10 +53,21 @@ class TorchContext:
     size: int
     local_rank: int
     device: torch.device
+    local_size: int = 1
+    backend: Optional[str] = None  # the process group's, None without one
+
+    @property
+    def cross_size(self) -> int:
+        return max(1, self.size // self.local_size)
+
+    @property
+    def cross_rank(self) -> int:
+        return self.rank // self.local_size
 
 
 _lock = threading.Lock()
 _context: Optional[TorchContext] = None
+_store_dir: Optional[str] = None  # file-store directory that init made
 
 
 def _env_int(names: Sequence[str], default: int) -> int:
@@ -80,27 +106,79 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def init(device=None) -> TorchContext:
-    """Read rank/size/local rank from the launcher's environment and pin
-    this process's device (default ``cuda:<local_rank>``)."""
+def _init_method(init_method: Optional[str], size: int) -> str:
+    global _store_dir
+    if init_method:
+        return init_method
+    if os.environ.get("MASTER_ADDR") and os.environ.get("MASTER_PORT"):
+        return "env://"
+    if size != 1:
+        raise ValueError(
+            f"a world of {size} processes needs a rendezvous: pass "
+            "init_method= or set MASTER_ADDR and MASTER_PORT"
+        )
+    _store_dir = tempfile.mkdtemp(prefix="hvt-store-")
+    return "file://" + os.path.join(_store_dir, "store")
+
+
+def init(device=None, *, backend: Optional[str] = None,
+         init_method: Optional[str] = None) -> TorchContext:
+    """Read rank/size/local rank/local size from the launcher's environment
+    and pin this process's device (default ``cuda:<local_rank>``).
+
+    ``backend`` ``"nccl"`` (the card) or ``"gloo"`` (the CPU) also
+    initializes the default ``torch.distributed`` process group with that
+    rank and world size; ``None`` leaves process groups alone (a serving
+    process needs none)."""
     global _context
     rank = launcher_rank()
     size = _env_int(_SIZE_VARS, 1)
     local_rank = _env_int(_LOCAL_RANK_VARS, 0)
+    local_size = _env_int(_LOCAL_SIZE_VARS, size)
     if not 0 <= rank < size:
         raise ValueError(f"rank {rank} outside a world of size {size}")
+    if local_size < 1 or size % local_size:
+        raise ValueError(
+            f"local size {local_size} does not divide the world size {size}"
+        )
     dev = resolve_device(
         device if device is not None else f"cuda:{local_rank}"
     )
+    if backend is not None:
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, not {backend!r}")
+        want = "cuda" if backend == "nccl" else "cpu"
+        if dev.type != want:
+            raise ValueError(
+                f"backend {backend!r} runs on {want} tensors, but this "
+                f"process's device is {dev}"
+            )
     with _lock:
-        _context = TorchContext(rank, size, local_rank, dev)
+        if backend is not None and not dist.is_initialized():
+            if dev.type == "cuda":
+                torch.cuda.set_device(dev)
+            dist.init_process_group(
+                backend, init_method=_init_method(init_method, size),
+                rank=rank, world_size=size,
+            )
+        _context = TorchContext(
+            rank, size, local_rank, dev, local_size,
+            backend if dist.is_initialized() else None,
+        )
         return _context
 
 
 def shutdown() -> None:
-    global _context
+    """Forget the context and tear down the process group that
+    :func:`init` brought up."""
+    global _context, _store_dir
     with _lock:
+        if _context is not None and _context.backend and dist.is_initialized():
+            dist.destroy_process_group()
         _context = None
+        if _store_dir is not None:
+            shutil.rmtree(_store_dir, ignore_errors=True)
+            _store_dir = None
 
 
 def is_initialized() -> bool:
@@ -128,6 +206,64 @@ def local_rank() -> int:
     return context().local_rank
 
 
+def local_size() -> int:
+    """Number of processes on this host."""
+    return context().local_size
+
+
+def cross_rank() -> int:
+    """This host's rank (parity: ``hvd.cross_rank()``)."""
+    return context().cross_rank
+
+
+def cross_size() -> int:
+    """Number of hosts (parity: ``hvd.cross_size()``)."""
+    return context().cross_size
+
+
 def device() -> torch.device:
     """This process's device (``cuda:<local_rank>`` by default)."""
     return context().device
+
+
+def _spawned(rank: int, world: int, store: str, out_dir: str, fn: Callable,
+             args: tuple) -> None:
+    os.environ.update(
+        RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+        LOCAL_WORLD_SIZE=str(world),
+    )
+    # One intra-op thread a rank: the test suite runs several worlds at once.
+    torch.set_num_threads(1)
+    init(device="cpu", backend="gloo", init_method="file://" + store)
+    try:
+        result = fn(*args)
+        torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        shutdown()
+
+
+def spawn_gloo(world: int, fn: Callable, *args: Any) -> List[Any]:
+    """Run ``fn(*args)`` on a gloo world of ``world`` CPU processes and
+    return each rank's result, in rank order.
+
+    Each process is spawned fresh (``fn`` must be importable by name),
+    initialized with :func:`init` (``device="cpu"``, ``backend="gloo"``)
+    on a file store in a new temporary directory -- no port, so concurrent
+    worlds never collide -- and limited to one intra-op thread.
+    Results travel back through ``torch.save``; a failing rank raises here
+    with its traceback."""
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix="hvt-gloo-")
+    try:
+        mp.start_processes(
+            _spawned,
+            args=(world, os.path.join(tmp, "store"), tmp, fn, args),
+            nprocs=world, start_method="spawn",
+        )
+        return [
+            torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)
+        ]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)

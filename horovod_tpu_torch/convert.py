@@ -2,7 +2,7 @@
 made from a seed.
 
 :func:`params_from_flax` owns every reshape and transpose between the
-two layouts:
+two layouts, and :func:`params_to_flax` undoes them:
 
 * flax ``DenseGeneral`` query/key/value kernels are ``[D, H, dh]`` with
   ``[H, dh]`` biases; the port fuses them into one ``qkv`` projection
@@ -77,6 +77,66 @@ def params_from_flax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             pre + "mlp.proj.bias": _t(mlp["Dense_1"]["bias"]),
         })
     return sd
+
+
+def params_to_flax(state_dict: Mapping[str, Any], n_heads: int) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_flax`: the JAX package's
+    ``GPT2LMModel`` parameters (``{"params": {"transformer": ...}}``,
+    fp32 numpy arrays) from a port state dict or parameter dict (any
+    dtype, any device). ``n_heads`` splits the fused projections."""
+
+    def a(name):
+        return state_dict[name].detach().float().cpu().numpy()
+
+    tr: Dict[str, Any] = {
+        "wte": {"embedding": a("transformer.wte.weight")},
+        "wpe": {"embedding": a("transformer.wpe.weight")},
+        "ln_f": {"scale": a("transformer.ln_f.scale"),
+                 "bias": a("transformer.ln_f.bias")},
+    }
+    if "transformer.wtt.weight" in state_dict:
+        tr["wtt"] = {"embedding": a("transformer.wtt.weight")}
+    n_layers = 1 + max(
+        (int(k.split(".")[2]) for k in state_dict
+         if k.startswith("transformer.blocks.")), default=-1,
+    )
+    for i in range(n_layers):
+        pre = f"transformer.blocks.{i}."
+        qkv_w, qkv_b = a(pre + "attn.qkv.weight"), a(pre + "attn.qkv.bias")
+        d_model = qkv_w.shape[1]
+        dh = d_model // n_heads
+        mha = {}
+        for j, n in enumerate(("query", "key", "value")):
+            rows = slice(j * d_model, (j + 1) * d_model)
+            mha[n] = {
+                "kernel": qkv_w[rows].T.reshape(d_model, n_heads, dh),
+                "bias": qkv_b[rows].reshape(n_heads, dh),
+            }
+        mha["out"] = {
+            "kernel": a(pre + "attn.out.weight").T.reshape(n_heads, dh, d_model),
+            "bias": a(pre + "attn.out.bias"),
+        }
+        tr[f"block_{i}"] = {
+            "LayerNorm_0": {"scale": a(pre + "ln_1.scale"),
+                            "bias": a(pre + "ln_1.bias")},
+            "MultiHeadAttention_0": mha,
+            "LayerNorm_1": {"scale": a(pre + "ln_2.scale"),
+                            "bias": a(pre + "ln_2.bias")},
+            "MlpBlock_0": {
+                "Dense_0": {"kernel": a(pre + "mlp.fc.weight").T,
+                            "bias": a(pre + "mlp.fc.bias")},
+                "Dense_1": {"kernel": a(pre + "mlp.proj.weight").T,
+                            "bias": a(pre + "mlp.proj.bias")},
+            },
+        }
+    tr = {k: _contiguous(v) for k, v in tr.items()}
+    return {"params": {"transformer": tr}}
+
+
+def _contiguous(tree):
+    if isinstance(tree, dict):
+        return {k: _contiguous(v) for k, v in tree.items()}
+    return np.ascontiguousarray(tree)
 
 
 def _flax_like_params(cfg: TransformerConfig, rng: np.random.Generator):

@@ -36,8 +36,9 @@ class GPT2LMModel(nn.Module):
 
     Built on ``device`` (default: this process's card; raises without
     CUDA -- pass ``device="cpu"`` for the CPU). The matmul and embedding
-    weights are stored in ``cfg.dtype`` (see ``transformer.py``);
-    ``attention_fn`` replaces the attention path."""
+    weights are stored in ``cfg.param_dtype`` (default ``cfg.dtype``; a
+    trainer passes ``torch.float32`` for fp32 master weights, see
+    ``transformer.py``); ``attention_fn`` replaces the attention path."""
 
     def __init__(self, cfg: GPT2Config, *, device=None,
                  attention_fn: Optional[Callable] = None,
@@ -45,7 +46,8 @@ class GPT2LMModel(nn.Module):
         super().__init__()
         if act_quant not in (None, "", "off"):
             raise NotImplementedError(
-                f"act_quant={act_quant!r} arrives with the training slice"
+                f"act_quant={act_quant!r} is not ported yet; it arrives "
+                "with the fp8 slice (ops/actquant.py)"
             )
         self.cfg = cfg
         self.transformer = Transformer(

@@ -4,10 +4,15 @@ package's ``models/transformer.py``.
 The numerics follow the flax modules the JAX package builds from:
 
 * every op computes in ``cfg.dtype`` (bf16). Flax keeps fp32 parameters
-  and casts them to ``dtype`` at each op; here the matmul and embedding
-  weights are stored in ``cfg.dtype``, so ``load_state_dict`` casts an
-  fp32 checkpoint once at load -- the same rounding as the cast at each
-  op, done once. LayerNorm parameters stay fp32;
+  and casts them to ``dtype`` at each op. Here the matmul and embedding
+  weights are stored in ``cfg.param_dtype``, which defaults to
+  ``cfg.dtype``: a serving model stores bf16 weights, so
+  ``load_state_dict`` casts an fp32 checkpoint once at load -- the same
+  rounding as the cast at each op, done once. A trainer builds with
+  ``param_dtype=torch.float32`` (fp32 master weights): ``Dense``, the
+  embeddings and the tied head then cast the weight to ``cfg.dtype`` at
+  each op, as flax's ``param_dtype``/``dtype`` split does, so the
+  gradients reach fp32 parameters. LayerNorm parameters stay fp32;
 * LayerNorm takes its statistics in fp32 with flax's epsilon 1e-6 and its
   fast variance ``E[x^2] - E[x]^2``, and applies scale and bias in fp32;
 * ``nn.gelu`` is the tanh approximation;
@@ -54,6 +59,8 @@ class TransformerConfig:
     causal: bool = True
     dropout: float = 0.0
     dtype: torch.dtype = torch.bfloat16
+    # Storage dtype of the matmul and embedding weights; None = ``dtype``.
+    param_dtype: Optional[torch.dtype] = None
     # Per-block rematerialization: a training-slice feature; anything but
     # False/None/"none" raises NotImplementedError.
     remat: Any = False
@@ -67,7 +74,8 @@ class TransformerConfig:
     def check_supported(self) -> None:
         if self.remat not in (False, None, "none"):
             raise NotImplementedError(
-                f"remat={self.remat!r} arrives with the training slice"
+                f"remat={self.remat!r} is not ported yet; it arrives with "
+                "the remat slice (ops/remat.py on torch.utils.checkpoint)"
             )
         if self.compute_dtype not in (None, "", "off"):
             raise NotImplementedError(
@@ -78,6 +86,10 @@ class TransformerConfig:
                 f"d_model={self.d_model} is not a multiple of "
                 f"n_heads={self.n_heads}"
             )
+
+    @property
+    def weight_dtype(self) -> torch.dtype:
+        return self.param_dtype or self.dtype
 
 
 def dot_product_attention(q, k, v, *, causal: bool, mask=None):
@@ -104,18 +116,20 @@ def _factory(device, dtype):
 
 class Dense(nn.Module):
     """``y = x W^T + b`` computed in ``dtype`` (flax ``nn.Dense(dtype=)``);
-    ``weight`` is ``[out, in]``, stored in ``dtype``."""
+    ``weight`` is ``[out, in]``, stored in ``param_dtype`` (default
+    ``dtype``) and cast to ``dtype`` at the op."""
 
-    def __init__(self, d_in: int, d_out: int, *, dtype, device):
+    def __init__(self, d_in: int, d_out: int, *, dtype, device,
+                 param_dtype=None):
         super().__init__()
         self.dtype = dtype
-        self.weight = nn.Parameter(
-            torch.zeros((d_out, d_in), **_factory(device, dtype))
-        )
-        self.bias = nn.Parameter(torch.zeros((d_out,), **_factory(device, dtype)))
+        fac = _factory(device, param_dtype or dtype)
+        self.weight = nn.Parameter(torch.zeros((d_out, d_in), **fac))
+        self.bias = nn.Parameter(torch.zeros((d_out,), **fac))
 
     def forward(self, x):
-        return F.linear(x.to(self.dtype), self.weight, self.bias)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                        self.bias.to(self.dtype))
 
 
 class LayerNorm(nn.Module):
@@ -142,7 +156,7 @@ class MultiHeadAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.attention_fn = attention_fn
-        kw = dict(dtype=cfg.dtype, device=device)
+        kw = dict(dtype=cfg.dtype, device=device, param_dtype=cfg.param_dtype)
         # Fused query/key/value projection: rows [0, D) are the query,
         # [D, 2D) the key, [2D, 3D) the value (convert.py builds it from
         # the three flax DenseGeneral kernels).
@@ -180,7 +194,7 @@ class MultiHeadAttention(nn.Module):
 class MlpBlock(nn.Module):
     def __init__(self, cfg: TransformerConfig, *, device=None):
         super().__init__()
-        kw = dict(dtype=cfg.dtype, device=device)
+        kw = dict(dtype=cfg.dtype, device=device, param_dtype=cfg.param_dtype)
         self.fc = Dense(cfg.d_model, cfg.d_ff, **kw)
         self.proj = Dense(cfg.d_ff, cfg.d_model, **kw)
 
@@ -216,7 +230,7 @@ class Transformer(nn.Module):
         cfg.check_supported()
         self.cfg = cfg
         self.lm_head = lm_head
-        fac = _factory(device, cfg.dtype)
+        fac = _factory(device, cfg.weight_dtype)
         self.wte = nn.Embedding(cfg.vocab_size, cfg.d_model, **fac)
         self.wpe = nn.Embedding(cfg.max_len, cfg.d_model, **fac)
         self.wtt = (
@@ -231,14 +245,16 @@ class Transformer(nn.Module):
 
     def forward(self, tokens, *, token_types=None, mask=None,
                 return_hidden=False):
-        x = F.embedding(tokens, self.wte.weight)
+        dt = self.cfg.dtype
+        wte = self.wte.weight.to(dt)  # one cast, shared with the tied head
+        x = F.embedding(tokens, wte)
         pos = torch.arange(tokens.shape[-1], device=tokens.device)
-        x = x + F.embedding(pos, self.wpe.weight)
+        x = x + F.embedding(pos, self.wpe.weight.to(dt))
         if self.wtt is not None and token_types is not None:
-            x = x + F.embedding(token_types, self.wtt.weight)
+            x = x + F.embedding(token_types, self.wtt.weight.to(dt))
         for block in self.blocks:
             x = block(x, mask)
         x = self.ln_f(x)
         if self.lm_head and not return_hidden:
-            return F.linear(x, self.wte.weight).float()
+            return F.linear(x, wte).float()
         return x

@@ -99,6 +99,14 @@ class PackSpec:
     n_leaves: int
     pad: Tuple[int, ...] = ()  # per-buffer trailing pad elements
 
+    def bucket_sizes(self) -> Tuple[int, ...]:
+        """Unpadded payload elements per fused buffer."""
+        return tuple(sum(s.size for s in slots) for slots in self.buckets)
+
+    def padded_sizes(self) -> Tuple[int, ...]:
+        pads = self.pad or (0,) * len(self.buckets)
+        return tuple(size + p for size, p in zip(self.bucket_sizes(), pads))
+
 
 def _bucketize(leaves: Sequence[torch.Tensor], threshold_bytes: int):
     """Greedy per-dtype bucketing up to ``threshold_bytes`` per bucket.

@@ -1,28 +1,41 @@
-"""Flash-attention forward: the CUDA kernel, its wrapper and its plain
-version.
+"""Flash attention: the CUDA kernels, their wrappers and their plain
+versions, forward and backward.
 
-The port of ``horovod_tpu/ops/pallas_kernels.py::_fwd_kernel`` (through
-``_fwd_pallas``, ``flash_attention_with_lse`` and ``flash_attention``).
-The kernel is ``csrc/flash_fwd.cu`` -- hand-written CUDA C++ for sm_90a,
-built with nvcc at first use (:mod:`._build`); its source note says what
-bounds it on an H100 and what the simple design leaves on the table.
+The port of ``horovod_tpu/ops/pallas_kernels.py``'s flash attention: the
+forward ``_fwd_kernel`` (through ``_fwd_pallas``, ``flash_attention_with_lse``
+and ``flash_attention``) and the backward pair ``_bwd_kernel_dkdv`` /
+``_bwd_kernel_dq`` (through ``_bwd_pallas``, the ``custom_vjp`` backward of
+``_flash``). The kernels are ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``
+-- hand-written CUDA C++ for sm_90a, built with nvcc at first use
+(:mod:`._build`); their source notes say what bounds them on an H100 and
+what the simple designs leave on the table.
 
 * :func:`flash_attention_with_lse` -- ``(out, lse)``: out in the input
   dtype, lse fp32 ``[B, H, Sq]``; causal masking on global positions
   ``q_offset``/``kv_offset``; keys at or past ``kv_len`` (default: all of
   them) are masked; rows with no valid key give out 0 and lse ``-inf``.
+  When autograd records (grad mode on and an input requiring grad) the
+  call goes through :class:`FlashAttention`, whose backward takes the
+  cotangents of both ``out`` and ``lse``; under ``torch.no_grad()`` or
+  ``torch.inference_mode()`` it is the forward alone.
 * :func:`flash_attention` -- the output only.
-* :func:`flash_attention_reference` -- the plain PyTorch version with
-  the same signature and outputs: fp32 scores, the same mask and ``-inf``
-  rules, ``p`` rounded to V's dtype before the PV product.
+* :func:`flash_attention_bwd` -- ``(dq, dk, dv)`` from the saved
+  ``q, k, v, out, lse`` and the cotangents ``g_out``, ``g_lse`` (``None``
+  means zeros), in the inputs' layout and dtype.
+* :func:`flash_attention_reference` / :func:`flash_attention_bwd_reference`
+  -- the plain PyTorch versions with the same signatures and outputs: fp32
+  scores and softmax statistics, ``p`` rounded to V's dtype before the PV
+  product; in the backward ``dO`` cast to the input dtype, ``p`` rounded
+  before ``dV`` and ``dS`` before ``dK``/``dQ``, ``sm_scale`` applied to
+  the fp32 products, ``delta = rowsum(dO * out)`` in fp32.
 
 Dispatch is by the tensors' device and nothing else: CPU tensors take the
-plain version, CUDA tensors launch the kernel or raise. Layouts are the JAX
-package's: ``"bshd"`` ``[B, S, H, D]``, ``"bhsd"`` ``[B, H, S, D]`` and
+plain versions, CUDA tensors launch the kernels or raise. Layouts are the
+JAX package's: ``"bshd"`` ``[B, S, H, D]``, ``"bhsd"`` ``[B, H, S, D]`` and
 the packed ``"bsm"`` ``[B, S, H*D]`` with ``n_heads`` given -- the
-projection's native layout, which the kernel reads in place through
+projection's native layout, which the kernels read in place through
 strides (a strided view such as one third of a fused QKV output is read
-without a copy). The kernel takes bf16 with head dim 64 or 128.
+without a copy). The kernels take bf16 with head dim 64 or 128.
 """
 
 from __future__ import annotations
@@ -37,28 +50,37 @@ import torch
 from . import _build
 
 __all__ = [
+    "FlashAttention",
     "flash_attention",
+    "flash_attention_bwd",
+    "flash_attention_bwd_reference",
     "flash_attention_with_lse",
     "flash_attention_reference",
     "launches",
+    "launches_dkdv",
+    "launches_dq",
     "reset_launches",
 ]
 
 KERNEL_SOURCE = "flash_fwd"
+BWD_SOURCE = "flash_bwd"
 HEAD_DIMS = (64, 128)
 
-# Kernel launches since import (or the last reset_launches()): the wrapper
-# adds one where it launches the kernel and nowhere else, so a run can show
-# that its main path went through the kernel.
-launches = 0
+# Kernel launches since import (or the last reset_launches()), one count per
+# kernel: each wrapper adds one where it launches its kernel and nowhere
+# else, so a run can show that its main path went through the kernels.
+launches = 0  # flash_fwd
+launches_dkdv = 0  # flash_bwd: dK/dV
+launches_dq = 0  # flash_bwd: dQ
 _count_lock = threading.Lock()
 _fn = None
+_bwd_fns = None
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, launches_dkdv, launches_dq
     with _count_lock:
-        launches = 0
+        launches = launches_dkdv = launches_dq = 0
 
 
 def _count_launch() -> None:
@@ -67,25 +89,38 @@ def _count_launch() -> None:
         launches += 1
 
 
-def _views(q, k, v, layout: str, n_heads: int):
-    """``[B, S, H, D]`` views of q/k/v (no copies)."""
+def _count_bwd_launch(kind: str) -> None:
+    global launches_dkdv, launches_dq
+    with _count_lock:
+        if kind == "dkdv":
+            launches_dkdv += 1
+        else:
+            launches_dq += 1
+
+
+def _view4(x, layout: str, n_heads: int):
+    """``[B, S, H, D]`` view of one tensor in ``layout`` (no copy)."""
     if layout == "bsm":
         if n_heads <= 0:
             raise ValueError("layout='bsm' requires n_heads")
-        if q.shape[-1] % n_heads:
+        if x.shape[-1] % n_heads:
             raise ValueError(
-                f"packed width {q.shape[-1]} is not a multiple of "
+                f"packed width {x.shape[-1]} is not a multiple of "
                 f"n_heads={n_heads}"
             )
-        d = q.shape[-1] // n_heads
-        return tuple(x.unflatten(-1, (n_heads, d)) for x in (q, k, v))
+        return x.unflatten(-1, (n_heads, x.shape[-1] // n_heads))
     if layout == "bshd":
-        return q, k, v
+        return x
     if layout == "bhsd":
-        return tuple(x.transpose(1, 2) for x in (q, k, v))
+        return x.transpose(1, 2)
     raise ValueError(
         f"layout must be 'bshd', 'bhsd' or 'bsm', got {layout!r}"
     )
+
+
+def _views(q, k, v, layout: str, n_heads: int):
+    """``[B, S, H, D]`` views of q/k/v (no copies)."""
+    return tuple(_view4(x, layout, n_heads) for x in (q, k, v))
 
 
 def _empty_out(b, sq, h, d, layout, like):
@@ -126,6 +161,16 @@ def _scalar(x) -> int:
     return int(x.item()) if isinstance(x, torch.Tensor) else int(x)
 
 
+def _valid_mask(sq, skv, kv_len, causal, q_offset, kv_offset, device):
+    """``[Sq, Skv]`` bool: the keys each query row may attend to."""
+    col = torch.arange(skv, device=device)
+    valid = (col < kv_len).expand(sq, skv)
+    if causal:
+        q_pos = _scalar(q_offset) + torch.arange(sq, device=device)
+        valid = valid & (q_pos[:, None] >= _scalar(kv_offset) + col[None, :])
+    return valid
+
+
 def flash_attention_reference(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -139,9 +184,10 @@ def flash_attention_reference(
     n_heads: int = 0,
     kv_len: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain PyTorch version of the kernel (same signature, same
-    outputs). Scores and softmax statistics are fp32; ``p`` is rounded to
-    V's dtype before the PV product, which accumulates in fp32."""
+    """The plain PyTorch version of the forward kernel (same signature,
+    same outputs). Scores and softmax statistics are fp32; ``p`` is
+    rounded to V's dtype before the PV product, which accumulates in
+    fp32."""
     q4, k4, v4 = _views(q, k, v, layout, n_heads)
     kv_len = _check(q4, k4, v4, kv_len)
     b, sq, h, d = q4.shape
@@ -152,11 +198,7 @@ def flash_attention_reference(
     kh = k4.transpose(1, 2).float()
     vh = v4.transpose(1, 2)
     s = torch.matmul(qh, kh.transpose(-1, -2)) * sm_scale  # [B, H, Sq, Skv]
-    col = torch.arange(skv, device=q.device)
-    valid = (col < kv_len).expand(sq, skv)
-    if causal:
-        q_pos = _scalar(q_offset) + torch.arange(sq, device=q.device)
-        valid = valid & (q_pos[:, None] >= _scalar(kv_offset) + col[None, :])
+    valid = _valid_mask(sq, skv, kv_len, causal, q_offset, kv_offset, q.device)
     s = s.masked_fill(~valid, float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m_safe = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
@@ -185,21 +227,23 @@ def _kernel_fn():
     return _fn
 
 
-def _launch(q4, k4, v4, *, causal, q_offset, kv_offset, sm_scale, layout,
-            kv_len):
-    if q4.dtype != torch.bfloat16:
-        raise TypeError(
-            f"the CUDA flash kernel takes bfloat16, got {q4.dtype}"
-        )
-    b, sq, h, d = q4.shape
-    skv = k4.shape[1]
+def _check_kernel_operands(named, d):
+    """What the CUDA kernels take: bf16, head dim 64/128, unit stride
+    along D and 16-byte aligned rows."""
+    for name, x in named:
+        if x.dtype != torch.bfloat16:
+            raise TypeError(
+                f"the CUDA flash kernels take bfloat16, got {x.dtype} for "
+                f"{name}"
+            )
     if d not in HEAD_DIMS:
         raise ValueError(
-            f"the CUDA flash kernel takes head dim {HEAD_DIMS}, got {d}"
+            f"the CUDA flash kernels take head dim {HEAD_DIMS}, got {d}"
         )
+    b, _, h, _ = named[0][1].shape
     if b > 65535 or h > 65535:
         raise ValueError(f"batch {b} or heads {h} exceed the grid limit")
-    for name, x in (("q", q4), ("k", k4), ("v", v4)):
+    for name, x in named:
         if x.stride(3) != 1:
             raise ValueError(f"{name} must have a unit stride along D")
         if any(s % 8 for s in x.stride()[:3]) or x.data_ptr() % 16:
@@ -207,6 +251,13 @@ def _launch(q4, k4, v4, *, causal, q_offset, kv_offset, sm_scale, layout,
                 f"{name} rows must be 16-byte aligned: strides "
                 f"{tuple(x.stride())}, address {x.data_ptr():#x}"
             )
+
+
+def _launch(q4, k4, v4, *, causal, q_offset, kv_offset, sm_scale, layout,
+            kv_len):
+    b, sq, h, d = q4.shape
+    skv = k4.shape[1]
+    _check_kernel_operands((("q", q4), ("k", k4), ("v", v4)), d)
     out, o4 = _empty_out(b, sq, h, d, layout, q4)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q4.device)
     if b == 0 or h == 0 or sq == 0:
@@ -230,22 +281,10 @@ def _launch(q4, k4, v4, *, causal, q_offset, kv_offset, sm_scale, layout,
     return out, lse
 
 
-def flash_attention_with_lse(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    *,
-    causal: bool = False,
-    q_offset=0,
-    kv_offset=0,
-    sm_scale: Optional[float] = None,
-    layout: str = "bshd",
-    n_heads: int = 0,
-    kv_len: Optional[int] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Blockwise attention returning ``(out, lse)`` -- the port of the
-    JAX package's ``flash_attention_with_lse``. CUDA tensors run the
-    kernel; CPU tensors run :func:`flash_attention_reference`."""
+def _forward(q, k, v, *, causal, q_offset, kv_offset, sm_scale, layout,
+             n_heads, kv_len):
+    """The forward alone: the plain version for CPU tensors, the kernel
+    for CUDA tensors."""
     device = q.device.type
     if device == "cpu":
         return flash_attention_reference(
@@ -263,6 +302,216 @@ def flash_attention_with_lse(
         kv_offset=_scalar(kv_offset), sm_scale=sm_scale, layout=layout,
         kv_len=kv_len,
     )
+
+
+def flash_attention_bwd_reference(
+    q, k, v, out, lse, g_out, g_lse=None, *,
+    causal: bool = False,
+    q_offset=0,
+    kv_offset=0,
+    sm_scale: Optional[float] = None,
+    layout: str = "bshd",
+    n_heads: int = 0,
+    kv_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the backward kernels: ``(dq, dk, dv)``
+    in the inputs' layout and dtype (``_recompute_p_ds`` and the two
+    ``_bwd_kernel_*`` of the JAX package, written out densely)."""
+    q4, k4, v4 = _views(q, k, v, layout, n_heads)
+    kv_len = _check(q4, k4, v4, kv_len)
+    b, sq, h, d = q4.shape
+    skv = k4.shape[1]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    dt = q4.dtype
+    g4 = _view4(g_out, layout, n_heads)
+    o4 = _view4(out, layout, n_heads)
+    # delta from the cotangent as given, the kernels' dO in the input dtype.
+    delta = torch.einsum("bqhd,bqhd->bhq", g4.float(), o4.float())
+    qh, kh, vh = (x.transpose(1, 2).float() for x in (q4, k4, v4))
+    gh = g4.to(dt).transpose(1, 2).float()
+    s = torch.matmul(qh, kh.transpose(-1, -2)) * sm_scale  # [B, H, Sq, Skv]
+    valid = _valid_mask(sq, skv, kv_len, causal, q_offset, kv_offset, q.device)
+    lse_r = lse.float()[..., None]
+    row_ok = ~torch.isneginf(lse_r)  # rows without keys contribute nothing
+    p = torch.where(
+        valid & row_ok,
+        torch.exp(s - torch.where(row_ok, lse_r, torch.zeros_like(lse_r))),
+        0.0,
+    )
+    dp = torch.matmul(gh, vh.transpose(-1, -2))
+    glse = (
+        torch.zeros_like(lse_r) if g_lse is None else g_lse.float()[..., None]
+    )
+    ds = p * (dp - delta[..., None]) + glse * p
+    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), gh)
+    dsr = ds.to(dt).float()
+    dk = torch.matmul(dsr.transpose(-1, -2), qh) * sm_scale
+    dq = torch.matmul(dsr, kh) * sm_scale
+    grads = []
+    for x, s_len in ((dq, sq), (dk, skv), (dv, skv)):
+        buf, buf4 = _empty_out(b, s_len, h, d, layout, q4)
+        buf4.copy_(x.transpose(1, 2))
+        grads.append(buf)
+    return tuple(grads)
+
+
+def _bwd_kernel_fns():
+    global _bwd_fns
+    if _bwd_fns is None:
+        lib = _build.load(BWD_SOURCE)
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        tail = [i32] * 5 + [ptr] + [i32] * 3 + [ctypes.c_float, i32, ptr]
+        dkdv = lib.hvt_flash_bwd_dkdv_bf16
+        dkdv.argtypes = [ptr] * 9 + tail
+        dkdv.restype = ctypes.c_int
+        dq = lib.hvt_flash_bwd_dq_bf16
+        dq.argtypes = [ptr] * 8 + tail
+        dq.restype = ctypes.c_int
+        _bwd_fns = (dkdv, dq)
+    return _bwd_fns
+
+
+def _bwd_launch(q4, k4, v4, o4, g4, lse, g_lse, *, causal, q_offset,
+                kv_offset, sm_scale, layout, kv_len):
+    b, sq, h, d = q4.shape
+    skv = k4.shape[1]
+    if g4.dtype != q4.dtype:
+        g4 = g4.to(q4.dtype)  # the kernels' dO is in the input dtype
+    if g4.stride(3) != 1 or any(s % 8 for s in g4.stride()[:3]) or (
+        g4.data_ptr() % 16
+    ):
+        g4 = g4.contiguous()
+    _check_kernel_operands((("q", q4), ("k", k4), ("v", v4), ("dO", g4)), d)
+    dq, dq4 = _empty_out(b, sq, h, d, layout, q4)
+    dk, dk4 = _empty_out(b, skv, h, d, layout, q4)
+    dv, dv4 = _empty_out(b, skv, h, d, layout, q4)
+    if b == 0 or h == 0 or sq == 0 or skv == 0:
+        for x in (dq, dk, dv):
+            x.zero_()
+        return dq, dk, dv
+    delta = torch.einsum("bqhd,bqhd->bhq", g4.float(), o4.float()).contiguous()
+    lse = lse.float().contiguous()
+    glse = None if g_lse is None else g_lse.float().contiguous()
+    for name, x in (("lse", lse), ("g_lse", glse)):
+        if x is not None and tuple(x.shape) != (b, h, sq):
+            raise ValueError(
+                f"{name} has shape {tuple(x.shape)}, expected {(b, h, sq)}"
+            )
+    strides = (ctypes.c_longlong * 21)(*[
+        s for x in (q4, k4, v4, g4, dq4, dk4, dv4) for s in x.stride()[:3]
+    ])
+    head = [q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), g4.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(),
+            None if glse is None else glse.data_ptr()]
+    tail = [b, h, sq, skv, d, strides, kv_len, q_offset, kv_offset,
+            float(sm_scale), int(bool(causal))]
+    fn_dkdv, fn_dq = _bwd_kernel_fns()
+    with torch.cuda.device(q4.device):
+        stream = torch.cuda.current_stream(q4.device).cuda_stream
+        rc = fn_dkdv(*head, dk4.data_ptr(), dv4.data_ptr(), *tail, stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"flash_bwd dK/dV kernel launch failed with cudaError_t {rc}"
+            )
+        _count_bwd_launch("dkdv")
+        rc = fn_dq(*head, dq4.data_ptr(), *tail, stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"flash_bwd dQ kernel launch failed with cudaError_t {rc}"
+            )
+        _count_bwd_launch("dq")
+    return dq, dk, dv
+
+
+def flash_attention_bwd(
+    q, k, v, out, lse, g_out, g_lse=None, *,
+    causal: bool = False,
+    q_offset=0,
+    kv_offset=0,
+    sm_scale: Optional[float] = None,
+    layout: str = "bshd",
+    n_heads: int = 0,
+    kv_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients ``(dq, dk, dv)`` of flash attention from the forward's
+    inputs and outputs and the cotangents of ``out`` and ``lse`` (``g_lse``
+    ``None`` means zeros) -- the port of ``_bwd_pallas``. CUDA tensors run
+    the two backward kernels; CPU tensors run
+    :func:`flash_attention_bwd_reference`."""
+    kw = dict(causal=causal, q_offset=q_offset, kv_offset=kv_offset,
+              sm_scale=sm_scale, layout=layout, n_heads=n_heads,
+              kv_len=kv_len)
+    device = q.device.type
+    if device == "cpu":
+        return flash_attention_bwd_reference(q, k, v, out, lse, g_out, g_lse,
+                                             **kw)
+    if device != "cuda":
+        raise ValueError(f"flash attention runs on cuda or cpu, not {device}")
+    q4, k4, v4 = _views(q, k, v, layout, n_heads)
+    kv_len = _check(q4, k4, v4, kv_len)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q4.shape[-1])
+    return _bwd_launch(
+        q4, k4, v4, _view4(out, layout, n_heads), _view4(g_out, layout, n_heads),
+        lse, g_lse, causal=causal, q_offset=_scalar(q_offset),
+        kv_offset=_scalar(kv_offset), sm_scale=sm_scale, layout=layout,
+        kv_len=kv_len,
+    )
+
+
+class FlashAttention(torch.autograd.Function):
+    """``(out, lse)`` with the flash backward -- the counterpart of the JAX
+    package's ``_flash`` with its ``custom_vjp``. The forward saves ``q, k,
+    v, out, lse``; the backward takes the cotangents of both outputs (a
+    ``None`` cotangent of ``lse`` is zero) and calls
+    :func:`flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, kv_offset, sm_scale, layout,
+                n_heads, kv_len):
+        kw = dict(causal=causal, q_offset=q_offset, kv_offset=kv_offset,
+                  sm_scale=sm_scale, layout=layout, n_heads=n_heads,
+                  kv_len=kv_len)
+        out, lse = _forward(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if g_out is None:
+            g_out = torch.zeros_like(out)
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g_out, g_lse,
+                                         **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
+def flash_attention_with_lse(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    q_offset=0,
+    kv_offset=0,
+    sm_scale: Optional[float] = None,
+    layout: str = "bshd",
+    n_heads: int = 0,
+    kv_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Blockwise attention returning ``(out, lse)`` -- the port of the
+    JAX package's ``flash_attention_with_lse``. CUDA tensors run the
+    kernels; CPU tensors run the plain versions. Differentiable through
+    :class:`FlashAttention` when autograd records."""
+    kw = dict(causal=causal, q_offset=_scalar(q_offset),
+              kv_offset=_scalar(kv_offset), sm_scale=sm_scale, layout=layout,
+              n_heads=n_heads, kv_len=kv_len)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return FlashAttention.apply(q, k, v, *kw.values())
+    return _forward(q, k, v, **kw)
 
 
 def flash_attention(

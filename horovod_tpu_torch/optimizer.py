@@ -1,0 +1,389 @@
+"""Distributed optimizers: gradient reduction around an inner optimizer,
+replicated or with the ZeRO-1 sharded update.
+
+The port of the JAX package's ``optimizer.py``. An optimizer here has the
+shape of an optax ``GradientTransformation``: ``init(params) -> state``
+and ``update(grads, state, params) -> (updates, state)`` over dicts (or
+nests) of tensors; the caller adds the updates to the parameters
+(:mod:`.parallel.dp` does so in place). State tensors live on the
+parameters' device, the step count included, so no step waits on the host.
+
+* :func:`adamw` -- AdamW with optax ``adamw`` semantics: decay on every
+  leaf, ``eps`` outside the square root and ``eps_root`` inside it, bias
+  correction at ``count + 1``, ``weight_decay`` 1e-4 by default, update
+  ``-lr * (m_hat / (sqrt(v_hat + eps_root) + eps) + wd * p)``.
+  ``torch.optim.AdamW`` is not a drop-in (other default decay, decay
+  folded into the parameter, another order of operations).
+* :func:`fused_adamw` -- the same optimizer carrying its hyperparameters
+  as a :class:`~.ops.fused_adamw.FusedAdamSpec`, so the sharded update can
+  run it as one fused kernel pass per flat shard bucket
+  (``fused_update=True``; :mod:`.ops.fused_adamw`).
+* :func:`DistributedOptimizer` -- replicated: one fused allreduce of the
+  gradients (:func:`~.ops.fusion.fused_allreduce`), then the inner update.
+* :func:`ShardedDistributedOptimizer` -- ZeRO-1: gradients packed into
+  buckets padded to a multiple of the world size and reduce-scattered,
+  the inner update on this rank's 1/N shard (with 1/N optimizer state),
+  and one all-gather of the updates. Its state is this process's shards
+  of the flat buckets of the *port's own* parameter dict (names sorted as
+  strings), so it is not byte-compatible with the JAX package's
+  checkpointed state, which packs the flax tree.
+
+Not ported yet: Adasum, ``backward_passes_per_step > 1``, the quantized
+wire with error feedback, and the world-size-portable canonical form of
+the sharded state (``canonicalize_dist_state`` / ``reshard_opt_state``).
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Any, NamedTuple, Optional
+
+import torch
+
+from .exceptions import HorovodTpuError
+from .ops.batching import tree_flatten, tree_unflatten
+from .ops.collectives import Average, ReduceOp, Sum
+from .ops.collectives import world_size as _world_size
+from .ops.compression import Compression, require_unquantized
+from .ops.fused_adamw import FusedAdamSpec, fused_adamw_update
+from .ops.fusion import (
+    FlatBuckets,
+    fused_allgather,
+    fused_allreduce,
+    fused_reducescatter,
+    pack,
+    shard_slice,
+)
+from .utils import env as _env
+
+__all__ = [
+    "AdamState",
+    "DistributedOptState",
+    "DistributedOptimizer",
+    "FusedAdamSpec",
+    "Optimizer",
+    "ShardedDistributedOptimizer",
+    "ShardedOptState",
+    "adamw",
+    "fused_adamw",
+]
+
+
+class Optimizer(NamedTuple):
+    """``init(params) -> state``, ``update(grads, state, params) ->
+    (updates, state)`` -- the shape of an optax GradientTransformation.
+    ``fused_spec`` is set by :func:`fused_adamw`."""
+
+    init: Any
+    update: Any
+    fused_spec: Optional[FusedAdamSpec] = None
+
+
+class AdamState(NamedTuple):
+    """optax's ``ScaleByAdamState``: the step count (an int32 tensor on
+    the parameters' device) and the two moments, shaped like the
+    parameters."""
+
+    count: torch.Tensor
+    mu: Any
+    nu: Any
+
+
+def _map(fn, *trees):
+    """``fn`` over the leaves of like-structured nests (or FlatBuckets)."""
+    if isinstance(trees[0], FlatBuckets):
+        return FlatBuckets([fn(*xs) for xs in zip(*(t.buffers for t in trees))])
+    flat = [tree_flatten(t) for t in trees]
+    treedef = flat[0][1]
+    return tree_unflatten(treedef, [fn(*xs) for xs in zip(*(f[0] for f in flat))])
+
+
+def _first_leaf(tree) -> torch.Tensor:
+    if isinstance(tree, FlatBuckets):
+        return tree.buffers[0]
+    return tree_flatten(tree)[0][0]
+
+
+def adamw(
+    learning_rate: float,
+    *,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    eps_root: float = 0.0,
+    weight_decay: float = 1e-4,
+) -> Optimizer:
+    """AdamW with optax ``adamw`` semantics (see the module docstring);
+    each step is a handful of elementwise ops per leaf, in fp32 for fp32
+    parameters."""
+    spec = FusedAdamSpec(float(learning_rate), float(b1), float(b2),
+                         float(eps), float(eps_root), float(weight_decay))
+    return Optimizer(*_adamw_fns(spec))
+
+
+def _adamw_fns(spec: FusedAdamSpec):
+    def init(params):
+        device = _first_leaf(params).device
+        return AdamState(
+            torch.zeros((), dtype=torch.int32, device=device),
+            _map(torch.zeros_like, params),
+            _map(torch.zeros_like, params),
+        )
+
+    def update(grads, state: AdamState, params=None):
+        count = state.count + 1
+        c = count.float()
+        bc1 = 1.0 - spec.b1 ** c
+        bc2 = 1.0 - spec.b2 ** c
+        mu = _map(lambda g, m: (1.0 - spec.b1) * g + spec.b1 * m, grads,
+                  state.mu)
+        nu = _map(lambda g, v: (1.0 - spec.b2) * (g * g) + spec.b2 * v, grads,
+                  state.nu)
+
+        def one(m, v, p):
+            u = (m / bc1) / (torch.sqrt(v / bc2 + spec.eps_root) + spec.eps)
+            if spec.weight_decay:
+                if p is None:
+                    raise ValueError("adamw with weight decay needs params")
+                u = u + spec.weight_decay * p
+            return -spec.learning_rate * u
+
+        if params is None:
+            updates = _map(lambda m, v: one(m, v, None), mu, nu)
+        else:
+            updates = _map(one, mu, nu, params)
+        return updates, AdamState(count, mu, nu)
+
+    return init, update
+
+
+def fused_adamw(
+    learning_rate: float,
+    *,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    eps_root: float = 0.0,
+    weight_decay: float = 1e-4,
+) -> Optimizer:
+    """:func:`adamw` that also runs as the fused ZeRO-1 update
+    (``ShardedDistributedOptimizer(fused_update=True)``): its
+    hyperparameters are static floats (no schedules) handed to the fused
+    kernel as arguments. Unfused it is :func:`adamw` exactly."""
+    if callable(learning_rate):
+        raise ValueError(
+            "fused_adamw needs a static float learning rate (the fused "
+            "kernel takes it as an argument)"
+        )
+    spec = FusedAdamSpec(float(learning_rate), float(b1), float(b2),
+                         float(eps), float(eps_root), float(weight_decay))
+    return Optimizer(*_adamw_fns(spec), fused_spec=spec)
+
+
+class DistributedOptState(NamedTuple):
+    inner: Any
+    count: torch.Tensor  # steps taken
+
+
+def _resolve_fused_update(optimizer: Optimizer, fused_update) -> bool:
+    """An explicit ``True`` without a fused spec raises; the env default
+    degrades to the unfused update with a warning."""
+    explicit = fused_update is not None
+    if fused_update is None:
+        fused_update = _env.fused_update_default()
+    if fused_update and optimizer.fused_spec is None:
+        if explicit:
+            raise HorovodTpuError(
+                "fused_update=True needs an optimizer with static AdamW "
+                "hyperparameters; build it with horovod_tpu_torch."
+                "fused_adamw(lr, ...)"
+            )
+        warnings.warn(
+            "HVDTPU_FUSED_UPDATE=1 ignored: the inner optimizer carries no "
+            "fused spec (use horovod_tpu_torch.fused_adamw)",
+            stacklevel=3,
+        )
+        return False
+    return bool(fused_update)
+
+
+def _check_common(op, backward_passes_per_step):
+    if op not in (Average, Sum):
+        raise NotImplementedError(
+            f"op={ReduceOp(op).name} is not ported (Average and Sum are)"
+        )
+    if backward_passes_per_step != 1:
+        raise NotImplementedError(
+            "backward_passes_per_step > 1 is not ported; accumulate with "
+            "make_train_step(accum_steps=K)"
+        )
+
+
+def DistributedOptimizer(
+    optimizer: Optimizer,
+    *,
+    op: ReduceOp = Average,
+    compression=Compression.none,
+    backward_passes_per_step: int = 1,
+    prescale_factor: float = 1.0,
+    postscale_factor: float = 1.0,
+    threshold_bytes: Optional[int] = None,
+    sharded: bool = False,
+    gather_compression=Compression.none,
+    fused_update: Optional[bool] = None,
+) -> Optimizer:
+    """Wrap ``optimizer`` with cross-rank gradient reduction: one fused
+    allreduce per bucket of at most ``threshold_bytes``, then the inner
+    update, identical on every rank. ``sharded=True`` is
+    :func:`ShardedDistributedOptimizer`."""
+    _check_common(op, backward_passes_per_step)
+    require_unquantized(compression)
+    if sharded:
+        return ShardedDistributedOptimizer(
+            optimizer, op=op, compression=compression,
+            gather_compression=gather_compression,
+            prescale_factor=prescale_factor, postscale_factor=postscale_factor,
+            threshold_bytes=threshold_bytes, fused_update=fused_update,
+        )
+    if fused_update:
+        raise NotImplementedError(
+            "fused_update requires the ZeRO-1 flat-shard layout; pass "
+            "sharded=True"
+        )
+    if fused_update is None and _env.fused_update_default():
+        warnings.warn(
+            "HVDTPU_FUSED_UPDATE=1 ignored: the fused optimizer update "
+            "requires the ZeRO-1 sharded path (sharded=True)",
+            stacklevel=2,
+        )
+
+    def init(params):
+        return DistributedOptState(
+            optimizer.init(params),
+            torch.zeros((), dtype=torch.int32,
+                        device=_first_leaf(params).device),
+        )
+
+    def update(grads, state: DistributedOptState, params=None):
+        reduced = fused_allreduce(
+            grads, op=op, prescale_factor=prescale_factor,
+            postscale_factor=postscale_factor,
+            threshold_bytes=threshold_bytes, compression=compression,
+        )
+        updates, inner = optimizer.update(reduced, state.inner, params)
+        return updates, DistributedOptState(inner, state.count + 1)
+
+    return Optimizer(init, update)
+
+
+class ShardedOptState(NamedTuple):
+    """State of :func:`ShardedDistributedOptimizer`: the inner state over
+    this rank's shards of the flat buckets (:class:`FlatBuckets` leaves),
+    the step count, and the layout recipe -- the fusion threshold and the
+    world size the padding was built for."""
+
+    inner: Any
+    count: torch.Tensor
+    threshold: int
+    world: int
+
+
+def _fused_flat_update(g_shards, inner: AdamState, p_shards,
+                       spec: FusedAdamSpec):
+    """One fused AdamW kernel pass per shard bucket. The moments are
+    updated in place; the count stays on the device."""
+    if not isinstance(inner, AdamState) or not isinstance(inner.mu, FlatBuckets):
+        raise HorovodTpuError(
+            "fused_update could not find the flat-bucket Adam moments in "
+            "the optimizer state; build the optimizer with "
+            "horovod_tpu_torch.fused_adamw(...) and sharded=True"
+        )
+    out = [
+        fused_adamw_update(p, m, v, g, inner.count, spec)
+        for p, m, v, g in zip(p_shards.buffers, inner.mu.buffers,
+                              inner.nu.buffers, g_shards.buffers)
+    ]
+    return FlatBuckets(out), AdamState(inner.count + 1, inner.mu, inner.nu)
+
+
+def ShardedDistributedOptimizer(
+    optimizer: Optimizer,
+    *,
+    op: ReduceOp = Average,
+    compression=Compression.none,
+    gather_compression=Compression.none,
+    prescale_factor: float = 1.0,
+    postscale_factor: float = 1.0,
+    threshold_bytes: Optional[int] = None,
+    fused_update: Optional[bool] = None,
+) -> Optimizer:
+    """Gradient reduction with the ZeRO-1 sharded weight update.
+
+    Gradients are packed into fused buckets padded to a multiple of the
+    world size N and reduce-scattered (``compression`` rides that wire),
+    the inner optimizer runs on this rank's contiguous 1/N shard of every
+    bucket (1/N of the optimizer state and of the update work), and one
+    all-gather of the updates (``gather_compression`` on that wire)
+    restores the full tree. The inner optimizer must be elementwise.
+
+    ``fused_update=True`` (default reads ``HVDTPU_FUSED_UPDATE``) runs the
+    inner update as one fused AdamW kernel pass per shard bucket
+    (:func:`~.ops.fused_adamw.fused_adamw_update`); it needs an optimizer
+    from :func:`fused_adamw`, and its state is the unfused one's."""
+    _check_common(op, 1)
+    require_unquantized(compression)
+    require_unquantized(gather_compression)
+    # Pinned at construction: init records the layout and update packs
+    # with it, so a later change of the env knob cannot desync them.
+    threshold_bytes = (
+        threshold_bytes if threshold_bytes is not None
+        else _env.fusion_threshold_bytes()
+    )
+    fused = _resolve_fused_update(optimizer, fused_update)
+
+    def init(params):
+        world = _world_size()
+        buffers, _ = pack(params, threshold_bytes, pad_multiple=world)
+        shards = shard_slice(buffers)
+        return ShardedOptState(
+            optimizer.init(shards),
+            torch.zeros((), dtype=torch.int32, device=buffers[0].device),
+            threshold_bytes, world,
+        )
+
+    def update(grads, state: ShardedOptState, params=None):
+        if params is None:
+            raise ValueError(
+                "ShardedDistributedOptimizer.update requires params (the "
+                "local param shard feeds the inner update)"
+            )
+        world = _world_size()
+        if world != state.world:
+            raise HorovodTpuError(
+                f"the sharded state was built for a world of {state.world}, "
+                f"this world has {world} ranks"
+            )
+        g_shards, spec = fused_reducescatter(
+            grads, op=op, prescale_factor=prescale_factor,
+            postscale_factor=postscale_factor, threshold_bytes=threshold_bytes,
+            compression=compression,
+        )
+        p_buffers, _ = pack(params, threshold_bytes, pad_multiple=world)
+        if [b.shape[0] for b in p_buffers] != list(spec.padded_sizes()):
+            raise HorovodTpuError(
+                "gradient and parameter bucket layouts differ; the sharded "
+                "update needs grads to pack like params (same tree, shapes "
+                "and dtypes)"
+            )
+        p_shards = shard_slice(p_buffers)
+        if fused:
+            u_shards, inner = _fused_flat_update(
+                g_shards, state.inner, p_shards, optimizer.fused_spec
+            )
+        else:
+            u_shards, inner = optimizer.update(g_shards, state.inner, p_shards)
+        updates = fused_allgather(u_shards, spec,
+                                  compression=gather_compression)
+        return updates, state._replace(inner=inner, count=state.count + 1)
+
+    return Optimizer(init, update)

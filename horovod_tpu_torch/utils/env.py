@@ -1,4 +1,4 @@
-"""Environment knobs of the serving slice.
+"""Environment knobs of the serving and training slices.
 
 Read from ``HVDTPU_<NAME>`` with ``HOROVOD_<NAME>`` as the compatibility
 alias, under the same names and defaults as the JAX package's
@@ -21,6 +21,8 @@ SERVE_QUEUE_LOW = "SERVE_QUEUE_LOW"  # per-worker backlog -> scale down
 SERVE_SCALE_COOLDOWN_SECS = "SERVE_SCALE_COOLDOWN_SECS"  # between rescales
 SERVE_REQUEST_TIMEOUT_SECS = "SERVE_REQUEST_TIMEOUT_SECS"  # lease expiry
 SERVE_CKPT_POLL_SECS = "SERVE_CKPT_POLL_SECS"  # hot-swap watch period
+FUSED_UPDATE = "FUSED_UPDATE"  # fused ZeRO-1 optimizer-update kernel
+OVERLAP_ACCUM_STEPS = "OVERLAP_ACCUM_STEPS"  # default accum_steps (>=1)
 
 DEFAULT_FUSION_THRESHOLD = 128 * 1024 * 1024
 DEFAULT_SERVE_BATCH_SIZE = 8
@@ -50,6 +52,13 @@ def get_int(name: str, default: int) -> int:
         return int(val)
     except ValueError:
         return default
+
+
+def get_bool(name: str, default: bool = False) -> bool:
+    val = _lookup(name)
+    if val is None:
+        return default
+    return val.strip().lower() in ("1", "true", "yes", "on")
 
 
 def get_float(name: str, default: float) -> float:
@@ -129,3 +138,17 @@ def serve_ckpt_poll_secs() -> float:
     return max(0.05, get_float(
         SERVE_CKPT_POLL_SECS, DEFAULT_SERVE_CKPT_POLL_SECS
     ))
+
+
+def fused_update_default() -> bool:
+    """Default for ``ShardedDistributedOptimizer(fused_update=...)`` /
+    ``make_train_step(sharded=True, fused_update=...)``: run the ZeRO-1
+    weight update as one fused kernel pass per shard bucket. Needs an
+    optimizer built by ``fused_adamw`` (else the env default degrades to
+    unfused with a warning)."""
+    return get_bool(FUSED_UPDATE, False)
+
+
+def overlap_accum_steps() -> int:
+    """Default microbatch count for ``make_train_step(accum_steps=...)``."""
+    return max(1, get_int(OVERLAP_ACCUM_STEPS, 1))

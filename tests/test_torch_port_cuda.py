@@ -1,11 +1,16 @@
-"""The port's CUDA flash-attention kernel against its plain version, on
-the card. Every test here needs an NVIDIA GPU with nvcc (the kernel has no
+"""The port's CUDA kernels against their plain versions, on the card: the
+flash-attention forward, the backward pair (dK/dV, dQ) and the fused AdamW
+update. Every test here needs an NVIDIA GPU with nvcc (the kernels have no
 CPU mode) and skips without one. Run them on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
 (``--noconftest``: the suite's conftest sets up JAX, which the card's
-machine does not need). Tolerances as chip_smoke.py's: out 1e-2, lse 1e-3.
+machine does not need). Tolerances as chip_smoke.py's: out 1e-2, lse 1e-3;
+gradients 1e-2 of the largest plain gradient (bf16 outputs, P and dS
+rounded to bf16 at other points of the sums); AdamW 1e-6 of the largest
+plain value (every operation IEEE-rounded in the plain version's order,
+only powf of the bias corrections may differ by an ulp).
 """
 
 import dataclasses
@@ -14,6 +19,7 @@ import pytest
 import torch
 
 from horovod_tpu_torch.ops import flash_attention as fa
+from horovod_tpu_torch.ops import fused_adamw as fadam
 
 pytestmark = pytest.mark.cuda
 
@@ -132,3 +138,144 @@ def test_default_attention_on_the_card_is_the_kernel_or_raises(gen, kw, err,
     with torch.inference_mode():
         out = plain(tokens)
     assert fa.launches == 0 and torch.isfinite(out).all()
+
+
+def _bwd_compare(q, k, v, g_lse=True, **kw):
+    with torch.no_grad():
+        out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    g_out = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+    glse = (torch.randn(lse.shape, generator=gen, device="cuda")
+            if g_lse else None)
+    args = (q, k, v, out, lse, g_out, glse)
+    got = fa.flash_attention_bwd(*args, **kw)
+    ref = fa.flash_attention_bwd_reference(*args, **kw)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and g.dtype == r.dtype
+        scale = max(r.float().abs().max().item(), 1e-6)
+        assert (g.float() - r.float()).abs().max().item() <= 1e-2 * scale
+    return got
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("layout", ["bsm", "bhsd", "bshd"])
+def test_backward_kernels_match_plain(gen, layout, causal, d):
+    b, s, h = 2, 200, 3
+    shape = {"bsm": (b, s, h * d), "bhsd": (b, h, s, d), "bshd": (b, s, h, d)}
+    q, k, v = (_rand(gen, shape[layout]) for _ in range(3))
+    _bwd_compare(q, k, v, causal=causal, layout=layout,
+                 n_heads=h if layout == "bsm" else 0)
+
+
+@pytest.mark.parametrize(
+    "sq,skv,q_offset,kv_offset,kv_len,g_lse",
+    [(64, 64, 0, 0, 64, False), (1, 130, 129, 0, 130, True),
+     (100, 300, 7, 3, 251, True), (90, 90, 0, 30, 77, True)],
+)
+def test_backward_ragged_offsets_and_masked_rows(gen, sq, skv, q_offset,
+                                                 kv_offset, kv_len, g_lse):
+    q = _rand(gen, (2, sq, 4, 64))
+    k, v = _rand(gen, (2, skv, 4, 64)), _rand(gen, (2, skv, 4, 64))
+    dq, dk, dv = _bwd_compare(q, k, v, g_lse=g_lse, causal=True,
+                              q_offset=q_offset, kv_offset=kv_offset,
+                              kv_len=kv_len)
+    assert torch.all(dk[:, kv_len:] == 0) and torch.all(dv[:, kv_len:] == 0)
+
+
+def test_autograd_on_the_card_reaches_the_backward_kernels(gen, monkeypatch):
+    # A CUDA tensor with grad goes through FlashAttention into the kernel
+    # pair, never the plain backward.
+    def refuse(*a, **kw):
+        raise AssertionError("the plain backward ran for CUDA tensors")
+
+    monkeypatch.setattr(fa, "flash_attention_bwd_reference", refuse)
+    fused = _rand(gen, (2, 128, 3 * 768)).requires_grad_(True)
+    q, k, v = fused.split(768, dim=-1)
+    fa.reset_launches()
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal=True, layout="bsm",
+                                           n_heads=12)
+    (out.float().square().sum() + lse.sum()).backward()
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.launches_dkdv, fa.launches_dq) == (1, 1, 1)
+    assert fused.grad is not None and torch.isfinite(fused.grad.float()).all()
+
+
+@pytest.mark.parametrize("p_dtype,m_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16),
+])
+@pytest.mark.parametrize("n,offset", [(1_000_003, 0), (4099, 1), (7, 0)])
+@pytest.mark.parametrize("count", [0, 3])
+def test_fused_adamw_kernel_matches_plain(gen, p_dtype, m_dtype, n, offset,
+                                          count):
+    # offset: buffers that start off a 16-byte boundary take the scalar path.
+    def rand(scale, dtype):
+        x = torch.randn((n + offset,), generator=gen, device="cuda") * scale
+        return x.to(dtype)[offset:]
+
+    p, g = rand(1.0, p_dtype), rand(0.1, p_dtype)
+    m, v = rand(0.01, m_dtype), rand(0.03, m_dtype).square()
+    c = torch.tensor(count, dtype=torch.int32, device="cuda")
+    spec = fadam.FusedAdamSpec(3e-3, weight_decay=0.05)
+    want = fadam.fused_adamw_update_reference(p, m, v, g, c, spec)
+    fadam.reset_launches()
+    u = fadam.fused_adamw_update(p, m, v, g, c, spec)  # m, v in place
+    torch.cuda.synchronize()
+    assert fadam.launches == 1
+    for got, ref in zip((u, m, v), want):
+        assert got.dtype == ref.dtype
+        scale = max(ref.float().abs().max().item(), 1e-30)
+        assert (got.float() - ref.float()).abs().max().item() <= 1e-6 * scale
+
+
+def test_fused_adamw_kernel_rejects_what_it_does_not_take(gen):
+    x = torch.zeros((16,), device="cuda")
+    c = torch.zeros((), dtype=torch.int32, device="cuda")
+    spec = fadam.FusedAdamSpec(1e-3)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fadam.fused_adamw_update(x.half(), x, x, x.half(), c, spec)
+    with pytest.raises(TypeError, match="int32"):
+        fadam.fused_adamw_update(x, x.clone(), x.clone(), x, c.long(), spec)
+    with pytest.raises(ValueError, match="contiguous"):
+        y = torch.zeros((32,), device="cuda")[::2]
+        fadam.fused_adamw_update(y, x.clone(), x.clone(), x, c, spec)
+
+
+def test_sharded_fused_train_step_on_the_card(gen):
+    # GPT-2 tiny at head dim 64 through make_train_step(sharded=True,
+    # fused_update=True) on a one-rank NCCL world: every kernel launches
+    # once per layer / bucket per step, and the loss falls.
+    import horovod_tpu_torch as hvt
+    import torch.nn.functional as F
+
+    cfg = hvt.GPT2Config.tiny(d_model=128, n_heads=2,
+                              param_dtype=torch.float32)
+    hvt.init(backend="nccl")
+    try:
+        model = hvt.GPT2LMModel(cfg)
+        model.load_state_dict(hvt.convert.init_params(cfg, seed=0))
+
+        def loss_fn(p, t):
+            logits = torch.func.functional_call(model, p, (t[:, :-1],))
+            return F.cross_entropy(logits.flatten(0, 1), t[:, 1:].flatten())
+
+        step, opt = hvt.make_train_step(loss_fn, hvt.fused_adamw(1e-3),
+                                        sharded=True, fused_update=True)
+        state = hvt.init_state(model, opt)
+        tokens = torch.randint(0, cfg.vocab_size, (4, 65), device="cuda",
+                               generator=gen)
+        fa.reset_launches()
+        fadam.reset_launches()
+        losses = []
+        for _ in range(3):
+            state, loss = step(state, tokens)
+            losses.append(float(loss))
+        n_buckets = len(state.opt_state.inner.mu.buffers)
+        assert fa.launches == fa.launches_dkdv == fa.launches_dq == 3 * 2
+        assert fadam.launches == 3 * n_buckets
+        assert losses[-1] < losses[0]
+        assert all(p.dtype == torch.float32 for p in state.params.values())
+    finally:
+        hvt.shutdown()

@@ -219,11 +219,16 @@ class TestServePool:
         assert seen and all(seen)
 
     def test_killed_worker_requests_requeue_zero_dropped(self):
-        gate = threading.Event()
+        gate, w0_busy = threading.Event(), threading.Event()
 
         def infer(p, batch):
             if threading.current_thread().name.endswith("w0"):
+                w0_busy.set()
                 gate.wait(timeout=10.0)
+            else:
+                # w1 answers only once w0 holds a batch, so a starved w0
+                # thread on a loaded host cannot find the queue drained.
+                w0_busy.wait(timeout=10.0)
             return batch * 2.0
 
         pool = _mk_pool(infer, workers=2, batch_size=2, batch_timeout_ms=1.0,
@@ -266,6 +271,10 @@ class TestServePool:
             if threading.current_thread().name.endswith("w1"):
                 started.set()
                 release.wait(timeout=10.0)
+            else:
+                # w0 answers only once w1 holds a request, so a starved w1
+                # thread on a loaded host cannot find the queue drained.
+                started.wait(timeout=10.0)
             return batch + 1.0
 
         pool = _mk_pool(infer, workers=2, batch_size=1, batch_timeout_ms=0.0,
