@@ -72,8 +72,42 @@ Phases (any failure exits non-zero; nothing is caught):
    share of the window's wall time (profiler overhead included). Then a
    step-2 checkpoint is published and the pool must roll onto it one
    worker at a time.
-7. Output: a "kernels" JSON line (the four kernels; "launches" is the
-   training run's count, the forward kernel's serving count beside it as
+7. [quant] Kernel vs plain, blockwise quantize and dequantize: flat fp32
+   buffers of the quantized trainer's bucket sizes (the 4 buckets above,
+   padded to 256) and ragged cases (n = 1000 at block 256; blocks 8, 16 and
+   65536; a buffer off a 16-byte boundary; an all-zero block and a block
+   holding a NaN), int8 and fp8 e4m3. Payloads, scales and dequantized
+   values must equal the plain version's bit for bit (every operation is
+   IEEE-rounded in the same order), except the int8 value of a NaN element,
+   undefined in both (an fp8 NaN may differ in its sign bit). Timed over
+   the buckets with time_ms beside the plain versions and, for the int8
+   dequantize, torch.mul of the payload rows by the scale column (one
+   PyTorch call computing the same function; no single call computes the
+   quantize); bound: 5 + 4/256 bytes an element over 3.35 TB/s.
+8. [train-quant] The quantized wire on/off pair, the JAX package's
+   bench_quant configuration: from the same convert.init_params(seed=0)
+   start, make_train_step(loss, adamw(1e-4), compression=...) with
+   Compression.none and then Compression.int8 (block 256, error
+   feedback), each 3 warm-up and 20 timed steps on the training batch:
+   step_ms_off, step_ms_on, tokens/s, and the gradient wire bytes
+   (quantized_wire_bytes of the padded buckets against the fp32 and bf16
+   gradient bytes). Losses finite and falling; the int8 run's last loss
+   within 5% of the none run's. Launch counts, set to 0 just before the
+   timed steps: 12 of each flash kernel a step in both, and in the int8 run
+   exactly 2 quantize and 2 dequantize per bucket per step (the send and
+   the gather; the EF residual's dequantize and the final one; the
+   all-to-all sum is plain). One profiled int8 step gives device time by
+   category.
+9. [train-quant-zero1] make_train_step(loss, fused_adamw(1e-4),
+   sharded=True, fused_update=True, compression=Compression.int8): 3
+   warm-up and 10 timed steps; per bucket per step 2 quantize, 2
+   dequantize (the quantized reduce-scatter and update all-gather) and 1
+   fused AdamW; losses fall.
+10. [train-quant-fp8] Three replicated steps on the fp8 wire: losses
+   finite, 2 quantize and 2 dequantize per bucket per step.
+11. Output: a "kernels" JSON line (the six kernels; "launches" is the
+   training run's count -- for the quantize pair the int8 [train-quant]
+   run's -- the forward kernel's serving count beside it as
    "launches_serve"), the card's name and power limit, and the last line
    {"ok": true, "device": {...}}.
 """
@@ -104,6 +138,10 @@ ADAM_OPS = 30  # fp32 operations per element of the AdamW update
 STEP_GRAD_TOL, FLIP_TOL = 5e-2, 0.02  # kernel vs plain train step
 TRAIN_LR, TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 1e-4, 8, 3, 20
 SERVE_ROUNDS = 5
+QUANT_BLOCK = 256  # the default HVDTPU_QUANT_BLOCK
+QUANT_OPS = 7  # fp32 operations an element: abs, max, divide, round, clip, cast
+QUANT_LOSS_TOL = 0.05  # int8 last loss vs none's, relative
+ZERO1_QUANT_STEPS, FP8_QUANT_STEPS = 10, 3
 
 
 def log(msg: str) -> None:
@@ -382,6 +420,118 @@ def adamw_case(fadam, gen, sizes):
     return rec
 
 
+def quant_bucket_sizes(hvt, cfg):
+    """Elements per bucket of the quantized trainer (world 1, default
+    fusion threshold, padded to the block), from shapes alone."""
+    from horovod_tpu_torch.ops.fusion import quantized_bucket_layout
+
+    params = dict(hvt.GPT2LMModel(cfg, device="meta").named_parameters())
+    comp = hvt.Compression.int8.with_block(QUANT_BLOCK)
+    return [b["elements"] for b in quantized_bucket_layout(
+        params, world=1, compression=comp)]
+
+
+def quant_compare(tq, x, block, spec):
+    """The quantize and dequantize kernels vs their plain versions on one
+    buffer: bit for bit, NaN elements aside (see the docstring). Returns
+    the largest difference seen (0.0 when bit for bit)."""
+    q, s = tq.quantize_blockwise(x, block, spec)
+    rq, rs = tq.quantize_blockwise_reference(x, block, spec)
+    d = tq.dequantize_blockwise(q, s, block)
+    rd = tq.dequantize_blockwise_reference(q, s, block)
+    torch.cuda.synchronize()
+    qb, rqb = q.view(torch.uint8), rq.view(torch.uint8)
+    keep = ~torch.isnan(x)
+    if not spec.integer:
+        keep = torch.ones_like(keep)
+        keep &= ~(((qb & 0x7F) == 0x7F) & ((rqb & 0x7F) == 0x7F))
+    fin = ~torch.isnan(rd)
+    same = (q.shape == rq.shape and q.dtype == rq.dtype
+            and torch.equal(s.view(torch.int32), rs.view(torch.int32))
+            and torch.equal(qb[keep], rqb[keep])
+            and torch.equal(torch.isnan(d), ~fin)
+            and torch.equal(d[fin].view(torch.int32), rd[fin].view(torch.int32)))
+    err_q = (q.float()[keep] - rq.float()[keep]).abs().max().item() if (
+        keep.any()) else 0.0
+    err = max(err_q, (s - rs).abs().max().item(),
+              (d[fin] - rd[fin]).abs().max().item() if fin.any() else 0.0)
+    if not same:
+        raise AssertionError(
+            f"quantize/dequantize kernels differ from their plain versions "
+            f"({spec.name}, n={x.numel()}, block={block}): max |d| {err}"
+        )
+    return err
+
+
+def quant_case(tq, gen, sizes):
+    """Kernels 4 and 5 vs their plain versions at the trainer's buckets and
+    on the ragged cases, then timed at the buckets."""
+    def rand(n, offset=0):
+        return (torch.randn((n + offset,), generator=gen, device="cuda")
+                * 1e-3)[offset:]
+
+    bufs = [rand(n) for n in sizes]
+    special = rand(1_000_000)
+    special[QUANT_BLOCK:2 * QUANT_BLOCK] = 0.0  # an all-zero block
+    special[3 * QUANT_BLOCK + 17] = float("nan")  # a block holding a NaN
+    ragged = [("n=1000", rand(1000), QUANT_BLOCK),
+              ("block=8", rand(1_000_003), 8),
+              ("block=16", rand(1_000_003), 16),
+              ("block=65536", rand(1_000_003), 65536),
+              ("unaligned", rand(1_000_001, offset=1), QUANT_BLOCK),
+              ("zero+NaN blocks", special, QUANT_BLOCK)]
+    err = 0.0
+    for spec in (tq.INT8, tq.FP8):
+        for b in bufs:
+            err = max(err, quant_compare(tq, b, QUANT_BLOCK, spec))
+        for name, x, block in ragged:
+            err = max(err, quant_compare(tq, x, block, spec))
+        _, s = tq.quantize_blockwise(special, QUANT_BLOCK, spec)
+        if s[1].item() != 1.0 or s[3].item() != 1.0:
+            raise AssertionError("an all-zero or NaN block's scale is not 1")
+    n = sum(sizes)
+    log(f"[quant] buckets {sizes} ({n} elements) and {len(ragged)} ragged "
+        f"cases, int8 and fp8: kernels equal their plain versions bit for "
+        f"bit (max |d| {err})")
+    rec = {"buckets": list(sizes), "max_abs_err": err, "bitwise": True}
+    for spec in (tq.INT8, tq.FP8):
+        wires = [tq.quantize_blockwise(b, QUANT_BLOCK, spec) for b in bufs]
+        key = "" if spec.integer else "_fp8"
+        rec["quant_ms" + key] = time_ms(lambda: [
+            tq.quantize_blockwise(b, QUANT_BLOCK, spec) for b in bufs])
+        rec["dequant_ms" + key] = time_ms(lambda: [
+            tq.dequantize_blockwise(q, sc, QUANT_BLOCK) for q, sc in wires])
+        rec["quant_plain_ms" + key] = time_ms(lambda: [
+            tq.quantize_blockwise_reference(b, QUANT_BLOCK, spec)
+            for b in bufs], samples=9, per_sample=3)
+        rec["dequant_plain_ms" + key] = time_ms(lambda: [
+            tq.dequantize_blockwise_reference(q, sc, QUANT_BLOCK)
+            for q, sc in wires], samples=9, per_sample=3)
+        if spec.integer:
+            # int8 x fp32 promotes to fp32 in one call: the same function.
+            rows = [(q.view(-1, QUANT_BLOCK), sc[:, None]) for q, sc in wires]
+            rec["dequant_library_ms"] = time_ms(lambda: [
+                torch.mul(q, sc) for q, sc in rows])
+        del wires
+    n_blocks = sum(-(-m // QUANT_BLOCK) for m in sizes)
+    nbytes = 5 * n + 4 * n_blocks  # fp32 in, one-byte payload + scales out
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = QUANT_OPS * n / FP32_FLOPS_PER_S
+    rec["bytes"] = nbytes
+    rec["bound_ms"] = max(t_bytes, t_ops) * 1e3  # the same for both passes
+    rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"[quant] {nbytes / 1e6:.1f} MB a pass: int8 quantize "
+        f"{rec['quant_ms']:.4f} ms (plain {rec['quant_plain_ms']:.4f}), "
+        f"dequantize {rec['dequant_ms']:.4f} ms (plain "
+        f"{rec['dequant_plain_ms']:.4f}, torch.mul "
+        f"{rec['dequant_library_ms']:.4f}); fp8 quantize "
+        f"{rec['quant_ms_fp8']:.4f} ms, dequantize {rec['dequant_ms_fp8']:.4f} "
+        f"ms; bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    del bufs, special, ragged
+    torch.cuda.empty_cache()
+    return rec
+
+
 def plain_attention(fa):
     def attn(q, k, v, *, causal, mask=None):
         return fa.flash_attention_reference(q, k, v, causal=causal)[0]
@@ -391,8 +541,11 @@ def plain_attention(fa):
 
 def kernel_category(name: str) -> str:
     n = name.lower()
+    # dequantize_blockwise before quantize_blockwise: the one name holds
+    # the other.
     for kernel in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
-                   "fused_adamw"):
+                   "fused_adamw", "dequantize_blockwise",
+                   "quantize_blockwise"):
         if kernel + "_kernel" in n:
             return kernel
     if "nccl" in n:
@@ -438,7 +591,28 @@ def kernel_ms(fn, calls):
         torch.cuda.synchronize()
     _, by_cat = device_ms_by_name(prof)
     return {c: ms / calls for c, ms in by_cat.items()
-            if c.startswith(("flash", "fused"))}
+            if c.startswith(("flash", "fused", "quantize", "dequantize"))}
+
+
+def host_calls(prof):
+    """CUDA runtime calls of a finished torch.profiler window: ``{name:
+    [count, host ms]}``, and the host's busiest ops by self time. A
+    synchronizing call (cudaStreamSynchronize, cudaFree, a device-to-host
+    copy) makes the host wait for the device, which exposes every launch
+    after it."""
+    from torch.autograd import DeviceType
+
+    api, ops = {}, []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CPU:
+            continue
+        ms = e.self_cpu_time_total / 1e3
+        if e.key.startswith("cuda"):
+            api[e.key] = [e.count, ms]
+        else:
+            ops.append((e.key, e.count, ms))
+    ops.sort(key=lambda t: -t[2])
+    return api, [[k[:60], c, ms] for k, c, ms in ops[:8]]
 
 
 def device_breakdown(prof, wall_ms, extra):
@@ -446,10 +620,12 @@ def device_breakdown(prof, wall_ms, extra):
     by_name, by_cat = device_ms_by_name(prof)
     device_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    api, host_top = host_calls(prof)
     rec = dict(extra, wall_ms=wall_ms, device_ms=device_ms,
                idle_share=1.0 - device_ms / wall_ms if wall_ms else None,
                by_category_ms=by_cat,
-               top_kernels_ms=[[n[:80], ms] for n, ms in top])
+               top_kernels_ms=[[n[:80], ms] for n, ms in top],
+               cuda_api=api, host_top_self_ms=host_top)
     log(f"[profile] {json.dumps(rec)}")
     return rec
 
@@ -615,6 +791,157 @@ def train(hvt, fa, fadam, cfg, sizes):
             "param_excess": excess, "profile": prof}
 
 
+def reset_counts(fa, fadam, tq):
+    fa.reset_launches()
+    fadam.reset_launches()
+    tq.reset_launches()
+
+
+def read_counts(fa, fadam, tq):
+    return {"flash_fwd": fa.launches, "flash_bwd_dkdv": fa.launches_dkdv,
+            "flash_bwd_dq": fa.launches_dq, "fused_adamw": fadam.launches,
+            "quantize_blockwise": tq.launches_quant,
+            "dequantize_blockwise": tq.launches_dequant}
+
+
+def quant_train_run(hvt, kernels, cfg, sd0, tokens, compression, *, label,
+                    sharded=False, warmup=TRAIN_WARMUP, steps=TRAIN_STEPS,
+                    n_buckets, bracket=None, profile=False):
+    """One training run from ``sd0``: ``warmup`` steps, then ``steps``
+    timed steps with every launch count set to 0 just before and read just
+    after; checks the counts a step against the path's kernels."""
+    from horovod_tpu_torch.optimizer import ef_residual_norm
+    from horovod_tpu_torch.parallel import dp
+
+    fa, fadam, tq = kernels
+    model = hvt.GPT2LMModel(cfg)
+    model.load_state_dict(sd0)
+    if sharded:
+        opt, kw = hvt.fused_adamw(TRAIN_LR), dict(sharded=True,
+                                                   fused_update=True)
+    else:
+        opt, kw = hvt.adamw(TRAIN_LR), {}
+    step, wopt = hvt.make_train_step(train_loss(model), opt,
+                                     compression=compression, **kw,
+                                     **(bracket or {}))
+    state = dp.init_state(model, wopt)
+    losses = []
+    for _ in range(warmup):
+        state, loss = step(state, tokens)
+        losses.append(float(loss))
+    reset_counts(fa, fadam, tq)
+    times, enqueue = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, tokens)
+        enqueue.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = read_counts(fa, fadam, tq)
+    quantized = getattr(compression, "is_quantized", False)
+    want = {"flash_fwd": cfg.n_layers, "flash_bwd_dkdv": cfg.n_layers,
+            "flash_bwd_dq": cfg.n_layers,
+            "fused_adamw": n_buckets if sharded else 0,
+            "quantize_blockwise": 2 * n_buckets if quantized else 0,
+            "dequantize_blockwise": 2 * n_buckets if quantized else 0}
+    log(f"[{label}] losses {losses}")
+    log(f"[{label}] launches over {steps} steps: {counts}")
+    for name, per_step in want.items():
+        if counts[name] != per_step * steps:
+            raise AssertionError(
+                f"[{label}] {name} launched {counts[name]} times in {steps} "
+                f"steps, not {per_step} a step"
+            )
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[{label}] the loss did not fall: {losses}")
+    step_ms = float(np.median(times)) * 1e3
+    # Host time until the step function returns, before the loss is read:
+    # near the step time when the host is what holds the device back.
+    enqueue_ms = float(np.median(enqueue)) * 1e3
+    rec = {"losses": losses, "launches": counts, "step_ms": step_ms,
+           "step_ms_all": [t * 1e3 for t in times], "enqueue_ms": enqueue_ms}
+    if bracket:
+        rec.update(step.throughput(step_ms / 1e3))
+    res = getattr(state.opt_state, "residual", None)
+    if quantized and res is not None:
+        rec["residual_norm"] = ef_residual_norm(state)
+        if not rec["residual_norm"] > 0:
+            raise AssertionError(f"[{label}] the EF residuals stayed zero")
+    log(f"[{label}] step median {step_ms:.3f} ms (min {min(times) * 1e3:.3f}, "
+        f"max {max(times) * 1e3:.3f}), host enqueue {enqueue_ms:.3f} ms; "
+        f"tokens/s {rec.get('tokens_per_s')}; "
+        f"residual norm {rec.get('residual_norm')}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if profile:
+        def one_step():
+            nonlocal state
+            state, _ = step(state, tokens)
+
+        rec["profile"] = profile_window(one_step, {"steps": 1, "run": label})
+    del model, step, wopt, state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_quant(hvt, kernels, cfg, sizes, qsizes):
+    """[train-quant], [train-quant-zero1] and [train-quant-fp8]."""
+    from horovod_tpu_torch.obs import flops
+    from horovod_tpu_torch.ops import quantization as tq
+
+    hvt.init(backend="nccl")
+    seq = cfg.max_len
+    sd0 = hvt.convert.init_params(cfg, seed=0)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, seq + 1), dtype=np.int64
+    )).cuda()
+    n_matmul = sum(v.numel() for k, v in sd0.items()
+                   if not k.startswith(("transformer.wte", "transformer.wpe")))
+    bracket = {"tokens_per_step": TRAIN_BATCH * seq,
+               "flops_per_step": TRAIN_BATCH * seq
+               * flops.transformer_flops_per_token(n_matmul, cfg.n_layers,
+                                                   seq, cfg.d_model)}
+    int8 = hvt.Compression.int8.with_block(QUANT_BLOCK)
+    run = dict(n_buckets=len(qsizes))
+    off = quant_train_run(hvt, kernels, cfg, sd0, tokens, hvt.Compression.none,
+                          label="train-quant off", bracket=bracket,
+                          profile=True, **run)
+    on = quant_train_run(hvt, kernels, cfg, sd0, tokens, int8,
+                         label="train-quant on", bracket=bracket,
+                         profile=True, **run)
+    rel = abs(on["losses"][-1] - off["losses"][-1]) / abs(off["losses"][-1])
+    n = sum(sizes)
+    wire = {"gradient_wire_bytes_fp32": 4 * n,
+            "gradient_wire_bytes_bf16": 2 * n,
+            "gradient_wire_bytes_int8": sum(
+                tq.quantized_wire_bytes(m, QUANT_BLOCK, tq.INT8)
+                for m in qsizes)}
+    wire["ratio_vs_fp32"] = wire["gradient_wire_bytes_int8"] / (4 * n)
+    wire["ratio_vs_bf16"] = wire["gradient_wire_bytes_int8"] / (2 * n)
+    pair = dict(wire, step_ms_off=off["step_ms"], step_ms_on=on["step_ms"],
+                tokens_per_s_off=off["tokens_per_s"],
+                tokens_per_s_on=on["tokens_per_s"],
+                speedup=off["step_ms"] / on["step_ms"],
+                last_loss_off=off["losses"][-1], last_loss_on=on["losses"][-1],
+                last_loss_rel=rel, block=QUANT_BLOCK)
+    log(f"[train-quant] {json.dumps(pair)}")
+    if not rel < QUANT_LOSS_TOL:
+        raise AssertionError(
+            f"the int8 run's last loss is {rel:.3%} from the none run's "
+            f"(tol {QUANT_LOSS_TOL:.0%})"
+        )
+    zero1 = quant_train_run(hvt, kernels, cfg, sd0, tokens, int8,
+                            label="train-quant-zero1", sharded=True,
+                            steps=ZERO1_QUANT_STEPS, **run)
+    fp8 = quant_train_run(hvt, kernels, cfg, sd0, tokens,
+                          hvt.Compression.fp8.with_block(QUANT_BLOCK),
+                          label="train-quant-fp8", warmup=1,
+                          steps=FP8_QUANT_STEPS, **run)
+    hvt.shutdown()
+    return {"pair": pair, "off": off, "on": on, "zero1": zero1, "fp8": fp8}
+
+
 def serve(hvt, fa, workdir):
     from horovod_tpu_torch.serve import ServePool
 
@@ -728,6 +1055,7 @@ def main() -> int:
     from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.ops import fused_adamw as fadam
+    from horovod_tpu_torch.ops import quantization as tq
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -765,6 +1093,10 @@ def main() -> int:
     adam = adamw_case(fadam, gen, sizes)
     torch.cuda.empty_cache()
     trained = train(hvt, fa, fadam, train_cfg, sizes)
+    qsizes = quant_bucket_sizes(hvt, train_cfg)
+    quant = quant_case(tq, gen, qsizes)
+    quant_trained = train_quant(hvt, (fa, fadam, tq), train_cfg, sizes,
+                                qsizes)
 
     workdir = tempfile.mkdtemp(prefix="smoke-", dir=_build.BUILD_DIR)
     try:
@@ -825,7 +1157,29 @@ def main() -> int:
         "bound_by": adam["bound_by"],
         "library_ms": adam["library_ms"],
     })
-    print(json.dumps({"kernels": kernels, "train": trained, "serve": served}),
+    qlaunch = {r: quant_trained[r]["launches"] for r in ("on", "zero1", "fp8")}
+    for name, line, pre in (("quantize_blockwise", "963", "quant"),
+                            ("dequantize_blockwise", "978", "dequant")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": src + "quant_blockwise.cu",
+            "replaces": ref + line,
+            "launches": qlaunch["on"][name],
+            "launches_zero1": qlaunch["zero1"][name],
+            "launches_fp8": qlaunch["fp8"][name],
+            "max_abs_err": quant["max_abs_err"],
+            "bitwise": quant["bitwise"],
+            "ms": quant[pre + "_ms"],
+            "ms_fp8": quant[pre + "_ms_fp8"],
+            "plain_ms": quant[pre + "_plain_ms"],
+            "plain_ms_fp8": quant[pre + "_plain_ms_fp8"],
+            "bound_ms": quant["bound_ms"],
+            "bound_by": quant["bound_by"],
+            "library_ms": quant.get(pre + "_library_ms"),
+        })
+    print(json.dumps({"kernels": kernels, "train": trained, "quant": quant,
+                      "train_quant": quant_trained, "serve": served}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

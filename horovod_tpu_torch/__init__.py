@@ -7,9 +7,11 @@ library only -- never JAX, and nothing of ``horovod_tpu``.
 It serves GPT-2 through :class:`~horovod_tpu_torch.serve.ServePool` and
 trains it data-parallel through :func:`~horovod_tpu_torch.parallel.dp.
 make_train_step` (replicated, or ZeRO-1 sharded with the fused AdamW
-update) on NVIDIA H100s. Its kernels are hand-written CUDA C++ under
-``csrc/`` (the flash-attention forward and backward, the fused AdamW
-update), built with nvcc at first use. Entry points run on the card unless
+update; the gradient wire uncompressed, cast, or blockwise-quantized to
+int8/fp8 with error feedback) on NVIDIA H100s. Its kernels are
+hand-written CUDA C++ under ``csrc/`` (the flash-attention forward and
+backward, the fused AdamW update, the blockwise quantize and dequantize),
+built with nvcc at first use. Entry points run on the card unless
 the caller passes ``device="cpu"``; without CUDA the default raises.
 """
 
@@ -61,6 +63,8 @@ from .ops.fusion import (  # noqa: F401
     fused_allgather,
     fused_allreduce,
     fused_reducescatter,
+    quantized_fused_allreduce,
+    quantized_fused_reducescatter,
 )
 from .optimizer import (  # noqa: F401
     DistributedOptimizer,

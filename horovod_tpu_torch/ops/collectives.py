@@ -14,7 +14,9 @@ package computes it, and the form gloo supports -- and
 ``prescale_factor``/``postscale_factor`` multiply before and after the
 reduction. Every function returns new tensors and leaves its inputs alone.
 
-``alltoall``, ``join`` and ``masked_allreduce`` are not ported yet.
+The public ``alltoall(splits)``, ``join`` and ``masked_allreduce`` are not
+ported yet; :func:`alltoall_chunks` (equal chunks) carries the quantized
+wire.
 """
 
 from __future__ import annotations
@@ -184,10 +186,30 @@ def barrier() -> None:
 def allgather_chunks(out: torch.Tensor, shard: torch.Tensor) -> torch.Tensor:
     """Fill ``out`` (``world`` equal chunks along dim 0) with every rank's
     ``shard``: one ``all_gather`` call into views of ``out`` (the list form
-    every torch version takes without a deprecation warning)."""
+    every torch version takes without a deprecation warning). An fp8
+    payload travels as a ``uint8`` view."""
     if not dist.is_initialized():
         return out.copy_(shard)
-    dist.all_gather(list(out.chunk(world_size())), shard)
+    dist.all_gather(list(_as_transport(out).chunk(world_size())),
+                    _as_transport(shard))
+    return out
+
+
+def _as_transport(t: torch.Tensor) -> torch.Tensor:
+    """fp8 travels as its bytes: gloo has no fp8 type."""
+    if t.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+        return t.view(torch.uint8)
+    return t
+
+
+def alltoall_chunks(out: torch.Tensor, buf: torch.Tensor) -> torch.Tensor:
+    """Send chunk ``r`` of ``buf`` (``world`` equal chunks along dim 0) to
+    rank ``r`` and fill chunk ``r`` of ``out`` with rank ``r``'s chunk for
+    this rank: one ``all_to_all_single`` call. An fp8 payload travels as a
+    ``uint8`` view."""
+    if not dist.is_initialized():
+        return out.copy_(buf)
+    dist.all_to_all_single(_as_transport(out), _as_transport(buf))
     return out
 
 

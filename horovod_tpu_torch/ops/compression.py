@@ -12,26 +12,24 @@ The port of the JAX package's ``ops/compression.py``:
   replica-uniform with one scalar MAX all-reduce per call (a per-rank
   scale cannot be undone after a sum); a standalone ``compress`` uses the
   local max-abs. The scale stays exactly 1 unless some value threatens the
-  wire range.
-
-``Compression.int8`` and ``Compression.fp8`` (the blockwise-quantized wire
-with error feedback) are not ported yet: using them raises
-``NotImplementedError``.
+  wire range;
+* ``Compression.int8`` / ``Compression.fp8`` -- the blockwise-scaled
+  quantized wire (:mod:`.quantization`). Quantized values cannot be summed
+  on the wire, so the fused collectives (:mod:`.fusion`) lower these to a
+  quantized all-to-all, a local fp32 dequantize-and-sum, and a quantized
+  all-gather, with optional error feedback; ``compress``/``decompress``
+  here are the plain local round trip.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import quantization as _quant
+
 # Largest fp16-safe wire magnitude the prescale targets: half of fp16's
 # max finite (65504), headroom for the reduction's partial sums.
 FP16_SAFE_MAX = 32752.0
-
-_QUANT_SLICE = (
-    "the quantized wire (Compression.int8/fp8 with error feedback) is not "
-    "ported yet; it arrives with its own slice (blockwise quantize/"
-    "dequantize kernels)"
-)
 
 
 class Compressor:
@@ -100,32 +98,46 @@ class BF16Compressor(_CastCompressor):
 
 
 class QuantCompressor(Compressor):
-    """Placeholder for the blockwise-quantized wire formats: every use
-    raises ``NotImplementedError``."""
+    """Blockwise-scaled quantized wire format (int8/fp8).
+
+    The fused collectives (:mod:`.fusion`) detect these compressors and
+    take the quantized transport; ``compress``/``decompress`` are the local
+    round trip. ``block`` is the per-scale granularity (None ->
+    ``HVDTPU_QUANT_BLOCK``, default 256); ``with_block`` derives a copy with
+    the block pinned (the optimizers pin it at construction, so a later env
+    change cannot desync the residual layout)."""
 
     is_quantized = True
 
-    def __init__(self, name: str):
-        self.name = name
+    def __init__(self, spec: _quant.QuantSpec, block=None):
+        self.spec = spec
+        self.block = block
 
     def __repr__(self):
-        return f"Compression.{self.name}"
+        return f"Compression.{self.spec.name}(block={self.block_size()})"
+
+    def block_size(self) -> int:
+        return self.block if self.block else _quant.default_block()
+
+    def with_block(self, block: int) -> "QuantCompressor":
+        return QuantCompressor(self.spec, block=int(block))
 
     def compress(self, tensor, scale=None):
-        raise NotImplementedError(f"Compression.{self.name}: {_QUANT_SLICE}")
+        shape, dtype = tensor.shape, tensor.dtype
+        q, scales = _quant.quantize_blockwise(
+            tensor.reshape(-1).float(), self.block_size(), self.spec
+        )
+        return q, (scales, shape, dtype)
 
     def decompress(self, tensor, ctx):
-        raise NotImplementedError(f"Compression.{self.name}: {_QUANT_SLICE}")
+        scales, shape, dtype = ctx
+        return _quant.dequantize_blockwise(
+            tensor, scales, self.block_size(), out_dtype=dtype
+        ).reshape(shape)
 
 
 def is_quantized(compression) -> bool:
     return getattr(compression, "is_quantized", False)
-
-
-def require_unquantized(compression) -> None:
-    """Raise ``NotImplementedError`` for the quantized wire formats."""
-    if is_quantized(compression):
-        raise NotImplementedError(f"{compression!r}: {_QUANT_SLICE}")
 
 
 class Compression:
@@ -134,5 +146,22 @@ class Compression:
     none = NoneCompressor
     fp16 = FP16Compressor
     bf16 = BF16Compressor
-    int8 = QuantCompressor("int8")
-    fp8 = QuantCompressor("fp8")
+    int8 = QuantCompressor(_quant.INT8)
+    fp8 = QuantCompressor(_quant.FP8)
+
+    @staticmethod
+    def by_name(name: str):
+        """Resolve ``HVDTPU_QUANT``-style names (``int8``/``fp8``) and the
+        cast formats, checking that torch has the fp8 dtypes."""
+        table = {
+            "none": Compression.none,
+            "fp16": Compression.fp16,
+            "bf16": Compression.bf16,
+            "int8": Compression.int8,
+            "fp8": Compression.fp8,
+        }
+        if name not in table:
+            raise ValueError(f"unknown compression {name!r}")
+        if name == "fp8":
+            _quant.quant_spec("fp8")  # raises when unsupported
+        return table[name]

@@ -1,11 +1,11 @@
 """Tensor fusion: many gradients, few collective calls.
 
-The port of the JAX package's ``ops/fusion.py`` for the unquantized wire.
-The bucketing policy is the reference's and the JAX package's: leaves are
-walked in reverse tree order (bucket 0 holds the deepest layers, whose
-gradients the backward pass makes first), grouped by dtype and packed
-greedily up to ``threshold_bytes`` per bucket (``HVDTPU_FUSION_THRESHOLD``,
-default 128 MB). Where the JAX package emits one variadic ``psum`` per
+The port of the JAX package's ``ops/fusion.py``. The bucketing policy is
+the reference's and the JAX package's: leaves are walked in reverse tree
+order (bucket 0 holds the deepest layers, whose gradients the backward
+pass makes first), grouped by dtype and packed greedily up to
+``threshold_bytes`` per bucket (``HVDTPU_FUSION_THRESHOLD``, default 128
+MB). Where the JAX package emits one variadic ``psum`` per
 bucket, the port packs each bucket into one flat buffer
 (:func:`~.batching.pack`) and makes one ``torch.distributed`` call on it:
 
@@ -25,6 +25,27 @@ replica-uniform max-abs prescale (one scalar MAX all-reduce per call).
 Average is a Sum followed by a division by the world size, as the JAX
 package computes it. Without a process group the world is one process and
 every collective is the identity.
+
+The quantized wire (``Compression.int8``/``fp8``): buckets pad to
+``world * block`` so every chunk is whole scale blocks, and
+
+* :func:`quantized_fused_allreduce` -- per bucket, error feedback (the
+  residual of :class:`EFResiduals` added in), a blockwise quantize, one
+  ``all_to_all_single`` of the payload and one of the scales, a local fp32
+  dequantize-and-sum of this rank's chunk, a requantize, and one
+  ``all_gather`` of each back: one ring allreduce's bytes at ``itemsize +
+  4/block`` bytes an element;
+* :func:`quantized_fused_reducescatter` -- its front half (the ZeRO-1
+  reduce-scatter), and :func:`fused_allgather` with a quantized
+  ``compression`` its back half;
+* :func:`quantized_bucket_layout` -- the quantized layout and wire bytes
+  from shapes alone.
+
+``fused_allreduce``, ``fused_reducescatter`` and ``fused_allgather`` take
+these paths for a quantized ``compression`` (without residuals). Only the
+quantize and dequantize reach the kernels (:mod:`.quantization`); the
+dequantize-and-sum and the Average's division are plain torch, as they are
+plain jax in the JAX package.
 """
 
 from __future__ import annotations
@@ -51,15 +72,23 @@ from .collectives import (
     Sum,
     allgather_chunks,
     allreduce_,
+    alltoall_chunks,
     divide_by_world,
     reducescatter_chunks,
     scale,
     world_rank,
     world_size,
 )
-from .compression import FP16_SAFE_MAX, Compression, require_unquantized
+from .compression import FP16_SAFE_MAX, Compression, is_quantized
+from .quantization import (
+    SCALE_DTYPE,
+    dequantize_blockwise,
+    quantize_blockwise,
+    quantized_wire_bytes,
+)
 
 __all__ = [
+    "EFResiduals",
     "FlatBuckets",
     "PackSpec",
     "bucket_byte_layout",
@@ -67,6 +96,9 @@ __all__ = [
     "fused_allreduce",
     "fused_reducescatter",
     "pack",
+    "quantized_bucket_layout",
+    "quantized_fused_allreduce",
+    "quantized_fused_reducescatter",
     "shard_slice",
     "unpack",
 ]
@@ -81,6 +113,23 @@ class FlatBuckets:
 
     def __repr__(self):
         return f"FlatBuckets(n={len(self.buffers)})"
+
+
+class EFResiduals(FlatBuckets):
+    """Per-bucket error-feedback residuals of the quantized collectives:
+    one fp32 buffer per fused bucket (padded to ``world * block``) holding
+    THIS rank's accumulated quantization error -- rank-local state.
+    ``threshold``/``block`` record the bucket-layout recipe the buffers
+    were built for."""
+
+    def __init__(self, buffers: Sequence[torch.Tensor], threshold: int = 0,
+                 block: int = 0):
+        super().__init__(buffers)
+        self.threshold = int(threshold)
+        self.block = int(block)
+
+    def __repr__(self):
+        return f"EFResiduals(n={len(self.buffers)}, block={self.block})"
 
 
 def _flatten(tree, threshold_bytes):
@@ -116,6 +165,36 @@ def bucket_byte_layout(
     return out
 
 
+def quantized_bucket_layout(
+    tree,
+    threshold_bytes: Optional[int] = None,
+    *,
+    world: int,
+    compression,
+) -> List[dict]:
+    """The quantized wire from shapes and dtypes alone: per fused bucket,
+    the padded element count (a multiple of ``world * block``, so every
+    all-to-all chunk is whole blocks) and the payload, scale and total wire
+    bytes one quantized collective moves."""
+    block = compression.block_size()
+    qspec = compression.spec
+    pad_mult = world * block
+    leaves, _, threshold_bytes = _flatten(tree, threshold_bytes)
+    out = []
+    for bucket in _bucketize(leaves, threshold_bytes):
+        size = sum(leaf_nbytes(leaf) // leaf.dtype.itemsize
+                   for _, leaf in bucket)
+        size += (-size) % pad_mult
+        out.append({
+            "wire_dtype": qspec.wire_dtype_name,
+            "elements": size,
+            "payload_bytes": size * qspec.itemsize,
+            "scale_bytes": (size // block) * SCALE_DTYPE.itemsize,
+            "wire_bytes": quantized_wire_bytes(size, block, qspec),
+        })
+    return out
+
+
 def _uniform_cast_scale(tensors, world_factor: float):
     """Replica-uniform max-abs prescale for the fp16 wire: one scalar over
     every floating tensor, MAX-reduced across the world so every rank
@@ -146,6 +225,186 @@ def _check_op(op, name):
         raise ValueError(f"{name} supports Average/Sum")
 
 
+def _dequant_sum(q2, s2, world: int, block: int) -> torch.Tensor:
+    """Sum the all-to-all result rows in fp32: ``q2 [world, chunk]`` wire
+    values, ``s2 [world, chunk / block]`` scales -> this rank's reduced
+    ``[chunk]`` (the local half of the quantized reduce-scatter)."""
+    chunk = q2.shape[1]
+    deq = q2.float().reshape(world, chunk // block, block)
+    deq = deq * s2.float()[:, :, None]
+    return deq.sum(dim=0).reshape(chunk)
+
+
+def _quantized_reduce_shards(buffers, res_bufs, *, world: int, op: ReduceOp,
+                             prescale_factor: float, compression):
+    """The front half shared by the quantized allreduce and reduce-scatter:
+    per packed (``world * block``-padded) bucket, error feedback, a
+    blockwise quantize of this rank's contribution, the all-to-all of the
+    wire chunks, and the local dequantize-and-sum. Returns ``(reduced fp32
+    shards, new residuals or None)``.
+
+    Error feedback (``res_bufs`` given): the residual added in before the
+    quantize is this rank's accumulated quantization error, and the new
+    residual is exactly the error of what was just sent, ``x -
+    dequant(quant(x))``: no gradient mass is dropped, only delayed."""
+    qspec = compression.spec
+    block = compression.block_size()
+    shards, new_res = [], []
+    for i, buf in enumerate(buffers):
+        if not buf.is_floating_point():
+            raise ValueError(
+                "quantized collectives support floating-point trees only; "
+                f"got a {buf.dtype} bucket"
+            )
+        x = scale(buf.float(), prescale_factor)
+        if res_bufs is not None:
+            x = x + res_bufs[i].float()
+        q, s = quantize_blockwise(x, block, qspec)
+        if res_bufs is not None:
+            new_res.append(x - dequantize_blockwise(q, s, block))
+        chunk = q.shape[0] // world
+        q2 = alltoall_chunks(torch.empty_like(q), q).reshape(world, chunk)
+        s2 = alltoall_chunks(torch.empty_like(s), s).reshape(world, -1)
+        red = _dequant_sum(q2, s2, world, block)
+        if op == Average:
+            red = divide_by_world(red, world)
+        shards.append(red)
+    return shards, (new_res if res_bufs is not None else None)
+
+
+def _residual_buffers(residuals, n_buckets: int):
+    if residuals is None:
+        return None
+    bufs = (residuals.buffers if isinstance(residuals, FlatBuckets)
+            else list(residuals))
+    if len(bufs) != n_buckets:
+        raise ValueError(
+            f"residuals carry {len(bufs)} buckets for a {n_buckets}-bucket "
+            "layout; pass the residual state the optimizer built for these "
+            "params"
+        )
+    return bufs
+
+
+def _wrap_residuals(new_res, residuals, compression, threshold_bytes):
+    if new_res is None:
+        return None
+    thr = getattr(residuals, "threshold", 0) or (threshold_bytes or 0)
+    return EFResiduals(new_res, threshold=thr, block=compression.block_size())
+
+
+def _gather_quantized(q, s):
+    """All-gather one rank's payload and scales: the full wire buffers."""
+    world = world_size()
+    fq = torch.empty((world * q.shape[0],), dtype=q.dtype, device=q.device)
+    fs = torch.empty((world * s.shape[0],), dtype=s.dtype, device=s.device)
+    allgather_chunks(fq, q)
+    allgather_chunks(fs, s)
+    return fq, fs
+
+
+def quantized_fused_allreduce(
+    tree,
+    residuals=None,
+    *,
+    op: ReduceOp = Average,
+    prescale_factor: float = 1.0,
+    postscale_factor: float = 1.0,
+    threshold_bytes: Optional[int] = None,
+    compression=Compression.int8,
+):
+    """Allreduce a nest of tensors on the blockwise-quantized wire with
+    optional error feedback; returns ``(reduced tree, new residuals)``.
+
+    The quantized all-to-all, local fp32 dequantize-and-sum, requantize of
+    the reduced chunk and all-gather (see the module docstring): one ring
+    allreduce at ``itemsize + 4/block`` bytes an element. ``residuals`` (an
+    :class:`EFResiduals`, one fp32 buffer per bucket) arms error feedback
+    on this rank's send-side quantization. The second (broadcast)
+    quantization error is the same on every rank and unbiased across
+    steps; it gets no residual."""
+    _check_op(op, "quantized_fused_allreduce")
+    world = world_size()
+    block = compression.block_size()
+    buffers, spec = pack(tree, threshold_bytes, pad_multiple=world * block)
+    res_bufs = _residual_buffers(residuals, len(buffers))
+    shards, new_res = _quantized_reduce_shards(
+        buffers, res_bufs, world=world, op=op,
+        prescale_factor=prescale_factor, compression=compression,
+    )
+    out_bufs = []
+    for buf, red in zip(buffers, shards):
+        fq, fs = _gather_quantized(
+            *quantize_blockwise(red, block, compression.spec)
+        )
+        out = dequantize_blockwise(fq, fs, block)
+        out_bufs.append(scale(out, postscale_factor).to(buf.dtype))
+    return (
+        unpack(out_bufs, spec),
+        _wrap_residuals(new_res, residuals, compression, threshold_bytes),
+    )
+
+
+def quantized_fused_reducescatter(
+    tree,
+    residuals=None,
+    *,
+    op: ReduceOp = Average,
+    prescale_factor: float = 1.0,
+    postscale_factor: float = 1.0,
+    threshold_bytes: Optional[int] = None,
+    compression=Compression.int8,
+):
+    """Reduce-scatter a nest of tensors on the quantized wire: the front
+    half of :func:`quantized_fused_allreduce`. Each rank ends with the
+    fp32-accurate reduced 1/N shard of every bucket (padded to ``world *
+    block``), in the input dtype. Returns ``(FlatBuckets shards, PackSpec,
+    new residuals)``; ``fused_allgather(compression=...)`` with the same
+    compression is the matching back half."""
+    _check_op(op, "quantized_fused_reducescatter")
+    world = world_size()
+    block = compression.block_size()
+    buffers, spec = pack(tree, threshold_bytes, pad_multiple=world * block)
+    res_bufs = _residual_buffers(residuals, len(buffers))
+    shards, new_res = _quantized_reduce_shards(
+        buffers, res_bufs, world=world, op=op,
+        prescale_factor=prescale_factor, compression=compression,
+    )
+    out = [scale(red, postscale_factor).to(buf.dtype)
+           for buf, red in zip(buffers, shards)]
+    return (
+        FlatBuckets(out),
+        spec,
+        _wrap_residuals(new_res, residuals, compression, threshold_bytes),
+    )
+
+
+def _quantized_gather_unpack(buffers, spec: PackSpec, compression):
+    """All-gather per-bucket shards on the quantized wire: each rank
+    quantizes its shard blockwise, payload and scales ride the all-gather,
+    and every rank dequantizes the full bucket. A shard whose length is not
+    a whole number of blocks is padded per rank and the interleaved pads
+    are dropped after the gather, so this leg also follows an unquantized
+    reduce-scatter."""
+    block = compression.block_size()
+    full = []
+    for buf in buffers:
+        shard = buf.shape[0]
+        pad = (-shard) % block
+        x = buf.float()
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad,))])
+        fq, fs = _gather_quantized(
+            *quantize_blockwise(x, block, compression.spec)
+        )
+        out = dequantize_blockwise(fq, fs, block)
+        if pad:
+            world = fq.shape[0] // (shard + pad)
+            out = out.reshape(world, shard + pad)[:, :shard].reshape(-1)
+        full.append(out.to(buf.dtype))
+    return unpack(full, spec)
+
+
 def fused_allreduce(
     tree,
     *,
@@ -157,9 +416,16 @@ def fused_allreduce(
 ):
     """Allreduce a nest (or flat list) of tensors with bucketed fusion:
     one ``all_reduce`` per bucket. Returns new tensors in the input's
-    structure; the inputs are left alone."""
+    structure; the inputs are left alone. A quantized ``compression``
+    takes :func:`quantized_fused_allreduce` (without error feedback)."""
     _check_op(op, "fused_allreduce")
-    require_unquantized(compression)
+    if is_quantized(compression):
+        out, _ = quantized_fused_allreduce(
+            tree, None, op=op, prescale_factor=prescale_factor,
+            postscale_factor=postscale_factor,
+            threshold_bytes=threshold_bytes, compression=compression,
+        )
+        return out
     leaves, treedef, threshold_bytes = _flatten(tree, threshold_bytes)
     leaves = [_as_tensor(l) for l in leaves]
     world = world_size()
@@ -200,9 +466,17 @@ def fused_reducescatter(
     packed, padded to a multiple of the world size N, and reduced with one
     ``reduce_scatter`` each, so rank ``k`` keeps elements ``[k*S/N,
     (k+1)*S/N)`` of every bucket. Returns ``(shards, spec)``; ``spec``
-    restores the tree after :func:`fused_allgather`."""
+    restores the tree after :func:`fused_allgather`. A quantized
+    ``compression`` takes :func:`quantized_fused_reducescatter` (without
+    error feedback), whose buckets pad to ``world * block``."""
     _check_op(op, "fused_reducescatter")
-    require_unquantized(compression)
+    if is_quantized(compression):
+        shards, spec, _ = quantized_fused_reducescatter(
+            tree, None, op=op, prescale_factor=prescale_factor,
+            postscale_factor=postscale_factor,
+            threshold_bytes=threshold_bytes, compression=compression,
+        )
+        return shards, spec
     world = world_size()
     buffers, spec = pack(tree, threshold_bytes, pad_multiple=world)
     wire_scale = None
@@ -224,9 +498,11 @@ def fused_allgather(shards, spec: PackSpec, *, compression=Compression.none):
     """All-gather per-bucket shards back into the tree ``spec`` describes:
     one ``all_gather`` per bucket into the full padded buffer, the pad
     dropped by :func:`~.batching.unpack` (the leaves are views of the
-    gathered buffers)."""
-    require_unquantized(compression)
+    gathered buffers). A quantized ``compression`` gathers blockwise-
+    quantized shards and dequantizes the full buckets."""
     buffers = shards.buffers if isinstance(shards, FlatBuckets) else list(shards)
+    if is_quantized(compression):
+        return _quantized_gather_unpack(buffers, spec, compression)
     wire_scale = None
     if compression.needs_prescale:
         # Move-only leg: the same scale everywhere, no world factor.

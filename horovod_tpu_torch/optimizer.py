@@ -28,13 +28,23 @@ parameters' device, the step count included, so no step waits on the host.
   strings), so it is not byte-compatible with the JAX package's
   checkpointed state, which packs the flax tree.
 
-Not ported yet: Adasum, ``backward_passes_per_step > 1``, the quantized
-wire with error feedback, and the world-size-portable canonical form of
-the sharded state (``canonicalize_dist_state`` / ``reshard_opt_state``).
+``compression=Compression.int8`` / ``Compression.fp8`` takes the
+blockwise-quantized wire (:mod:`.ops.fusion`): both wrappers then keep
+per-bucket **error-feedback residuals** in their state (``residual``, an
+:class:`~.ops.fusion.EFResiduals`), this rank's quantization error, added
+back into the next step's gradient so no gradient mass is lost, only
+delayed; ``error_feedback=False`` drops them. The block size and the
+fusion threshold are pinned at construction, since the residual layout is
+state.
+
+Not ported yet: Adasum, ``backward_passes_per_step > 1``, and the
+world-size-portable canonical form of the sharded state and of the
+residuals (``canonicalize_dist_state`` / ``reshard_opt_state``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from typing import Any, NamedTuple, Optional
 
@@ -44,14 +54,18 @@ from .exceptions import HorovodTpuError
 from .ops.batching import tree_flatten, tree_unflatten
 from .ops.collectives import Average, ReduceOp, Sum
 from .ops.collectives import world_size as _world_size
-from .ops.compression import Compression, require_unquantized
+from .ops.compression import Compression, is_quantized
 from .ops.fused_adamw import FusedAdamSpec, fused_adamw_update
 from .ops.fusion import (
+    EFResiduals,
     FlatBuckets,
+    bucket_byte_layout,
     fused_allgather,
     fused_allreduce,
     fused_reducescatter,
     pack,
+    quantized_fused_allreduce,
+    quantized_fused_reducescatter,
     shard_slice,
 )
 from .utils import env as _env
@@ -65,7 +79,9 @@ __all__ = [
     "ShardedDistributedOptimizer",
     "ShardedOptState",
     "adamw",
+    "ef_residual_norm",
     "fused_adamw",
+    "has_ef_residuals",
 ]
 
 
@@ -183,6 +199,7 @@ def fused_adamw(
 class DistributedOptState(NamedTuple):
     inner: Any
     count: torch.Tensor  # steps taken
+    residual: Optional[EFResiduals] = None  # quantized wire's EF state
 
 
 def _resolve_fused_update(optimizer: Optimizer, fused_update) -> bool:
@@ -205,6 +222,45 @@ def _resolve_fused_update(optimizer: Optimizer, fused_update) -> bool:
         )
         return False
     return bool(fused_update)
+
+
+def _resolve_quant(compression, threshold_bytes):
+    """Pin a quantized compressor's block size and the fusion threshold at
+    construction: the EF residual layout is state, so a later change of
+    the env knobs must not desync it from the live buffers. Returns
+    ``(compression, threshold_bytes, quantized)``."""
+    if not is_quantized(compression):
+        return compression, threshold_bytes, False
+    compression = compression.with_block(compression.block_size())
+    if threshold_bytes is None:
+        threshold_bytes = _env.fusion_threshold_bytes()
+    return compression, threshold_bytes, True
+
+
+def _check_quant(op, backward_passes_per_step):
+    if op not in (Average, Sum):
+        raise ValueError("quantized compression supports op=Average/Sum")
+    if backward_passes_per_step != 1:
+        raise NotImplementedError(
+            "quantized compression (the quantized wire) does not support "
+            "backward_passes_per_step > 1; accumulate with "
+            "make_train_step(accum_steps=K) instead"
+        )
+
+
+def _init_residuals(params, threshold_bytes, block) -> EFResiduals:
+    """Zero EF residuals, one fp32 ``[padded]`` buffer per bucket of the
+    layout the quantized collectives pack (padded to ``world * block``):
+    this rank's own."""
+    layout = bucket_byte_layout(params, threshold_bytes,
+                                pad_multiple=_world_size() * block)
+    device = _first_leaf(params).device
+    bufs = [
+        torch.zeros((nbytes // getattr(torch, dt).itemsize,),
+                    dtype=torch.float32, device=device)
+        for dt, nbytes in layout
+    ]
+    return EFResiduals(bufs, threshold=threshold_bytes, block=block)
 
 
 def _check_common(op, backward_passes_per_step):
@@ -231,19 +287,26 @@ def DistributedOptimizer(
     sharded: bool = False,
     gather_compression=Compression.none,
     fused_update: Optional[bool] = None,
+    error_feedback: bool = True,
 ) -> Optimizer:
     """Wrap ``optimizer`` with cross-rank gradient reduction: one fused
     allreduce per bucket of at most ``threshold_bytes``, then the inner
     update, identical on every rank. ``sharded=True`` is
-    :func:`ShardedDistributedOptimizer`."""
+    :func:`ShardedDistributedOptimizer`.
+
+    A quantized ``compression`` reduces through
+    :func:`~.ops.fusion.quantized_fused_allreduce`, with error-feedback
+    residuals in the state unless ``error_feedback=False``."""
+    if is_quantized(compression):
+        _check_quant(op, backward_passes_per_step)
     _check_common(op, backward_passes_per_step)
-    require_unquantized(compression)
     if sharded:
         return ShardedDistributedOptimizer(
             optimizer, op=op, compression=compression,
             gather_compression=gather_compression,
             prescale_factor=prescale_factor, postscale_factor=postscale_factor,
             threshold_bytes=threshold_bytes, fused_update=fused_update,
+            error_feedback=error_feedback,
         )
     if fused_update:
         raise NotImplementedError(
@@ -257,21 +320,40 @@ def DistributedOptimizer(
             stacklevel=2,
         )
 
+    compression, threshold_bytes, quantized = _resolve_quant(
+        compression, threshold_bytes
+    )
+    ef = quantized and error_feedback
+
     def init(params):
+        residual = (
+            _init_residuals(params, threshold_bytes, compression.block_size())
+            if ef else None
+        )
         return DistributedOptState(
             optimizer.init(params),
             torch.zeros((), dtype=torch.int32,
                         device=_first_leaf(params).device),
+            residual,
         )
 
     def update(grads, state: DistributedOptState, params=None):
-        reduced = fused_allreduce(
-            grads, op=op, prescale_factor=prescale_factor,
-            postscale_factor=postscale_factor,
-            threshold_bytes=threshold_bytes, compression=compression,
-        )
+        new_res = None
+        if quantized:
+            reduced, new_res = quantized_fused_allreduce(
+                grads, state.residual, op=op,
+                prescale_factor=prescale_factor,
+                postscale_factor=postscale_factor,
+                threshold_bytes=threshold_bytes, compression=compression,
+            )
+        else:
+            reduced = fused_allreduce(
+                grads, op=op, prescale_factor=prescale_factor,
+                postscale_factor=postscale_factor,
+                threshold_bytes=threshold_bytes, compression=compression,
+            )
         updates, inner = optimizer.update(reduced, state.inner, params)
-        return updates, DistributedOptState(inner, state.count + 1)
+        return updates, DistributedOptState(inner, state.count + 1, new_res)
 
     return Optimizer(init, update)
 
@@ -279,13 +361,17 @@ def DistributedOptimizer(
 class ShardedOptState(NamedTuple):
     """State of :func:`ShardedDistributedOptimizer`: the inner state over
     this rank's shards of the flat buckets (:class:`FlatBuckets` leaves),
-    the step count, and the layout recipe -- the fusion threshold and the
-    world size the padding was built for."""
+    the step count, the layout recipe -- the fusion threshold, the world
+    size and the quantization block the padding was built for (buckets pad
+    to ``world * block``; 1 unquantized) -- and the quantized wire's EF
+    residuals (None without error feedback)."""
 
     inner: Any
     count: torch.Tensor
     threshold: int
     world: int
+    block: int = 1
+    residual: Optional[EFResiduals] = None
 
 
 def _fused_flat_update(g_shards, inner: AdamState, p_shards,
@@ -316,6 +402,7 @@ def ShardedDistributedOptimizer(
     postscale_factor: float = 1.0,
     threshold_bytes: Optional[int] = None,
     fused_update: Optional[bool] = None,
+    error_feedback: bool = True,
 ) -> Optimizer:
     """Gradient reduction with the ZeRO-1 sharded weight update.
 
@@ -329,26 +416,45 @@ def ShardedDistributedOptimizer(
     ``fused_update=True`` (default reads ``HVDTPU_FUSED_UPDATE``) runs the
     inner update as one fused AdamW kernel pass per shard bucket
     (:func:`~.ops.fused_adamw.fused_adamw_update`); it needs an optimizer
-    from :func:`fused_adamw`, and its state is the unfused one's."""
+    from :func:`fused_adamw`, and its state is the unfused one's.
+
+    A quantized ``compression`` reduce-scatters through
+    :func:`~.ops.fusion.quantized_fused_reducescatter` (buckets padded to
+    ``world * block``, error-feedback residuals in the state unless
+    ``error_feedback=False``) and, unless ``gather_compression`` says
+    otherwise, quantizes the update all-gather the same way."""
+    if is_quantized(compression):
+        _check_quant(op, 1)
     _check_common(op, 1)
-    require_unquantized(compression)
-    require_unquantized(gather_compression)
     # Pinned at construction: init records the layout and update packs
     # with it, so a later change of the env knob cannot desync them.
     threshold_bytes = (
         threshold_bytes if threshold_bytes is not None
         else _env.fusion_threshold_bytes()
     )
+    compression, threshold_bytes, quantized = _resolve_quant(
+        compression, threshold_bytes
+    )
+    gather_compression, _, _ = _resolve_quant(gather_compression, None)
+    if quantized and gather_compression is Compression.none:
+        # One compression knob quantizes both legs; an explicit
+        # gather_compression still wins.
+        gather_compression = compression
+    ef = quantized and error_feedback
+    block = compression.block_size() if quantized else 1
     fused = _resolve_fused_update(optimizer, fused_update)
 
     def init(params):
         world = _world_size()
-        buffers, _ = pack(params, threshold_bytes, pad_multiple=world)
+        buffers, _ = pack(params, threshold_bytes, pad_multiple=world * block)
         shards = shard_slice(buffers)
+        residual = (
+            _init_residuals(params, threshold_bytes, block) if ef else None
+        )
         return ShardedOptState(
             optimizer.init(shards),
             torch.zeros((), dtype=torch.int32, device=buffers[0].device),
-            threshold_bytes, world,
+            threshold_bytes, world, block, residual,
         )
 
     def update(grads, state: ShardedOptState, params=None):
@@ -363,12 +469,22 @@ def ShardedDistributedOptimizer(
                 f"the sharded state was built for a world of {state.world}, "
                 f"this world has {world} ranks"
             )
-        g_shards, spec = fused_reducescatter(
-            grads, op=op, prescale_factor=prescale_factor,
-            postscale_factor=postscale_factor, threshold_bytes=threshold_bytes,
-            compression=compression,
-        )
-        p_buffers, _ = pack(params, threshold_bytes, pad_multiple=world)
+        new_res = state.residual
+        if quantized:
+            g_shards, spec, new_res = quantized_fused_reducescatter(
+                grads, state.residual, op=op,
+                prescale_factor=prescale_factor,
+                postscale_factor=postscale_factor,
+                threshold_bytes=threshold_bytes, compression=compression,
+            )
+        else:
+            g_shards, spec = fused_reducescatter(
+                grads, op=op, prescale_factor=prescale_factor,
+                postscale_factor=postscale_factor,
+                threshold_bytes=threshold_bytes, compression=compression,
+            )
+        p_buffers, _ = pack(params, threshold_bytes,
+                            pad_multiple=world * block)
         if [b.shape[0] for b in p_buffers] != list(spec.padded_sizes()):
             raise HorovodTpuError(
                 "gradient and parameter bucket layouts differ; the sharded "
@@ -384,6 +500,36 @@ def ShardedDistributedOptimizer(
             u_shards, inner = optimizer.update(g_shards, state.inner, p_shards)
         updates = fused_allgather(u_shards, spec,
                                   compression=gather_compression)
-        return updates, state._replace(inner=inner, count=state.count + 1)
+        return updates, state._replace(inner=inner, count=state.count + 1,
+                                       residual=new_res)
 
     return Optimizer(init, update)
+
+
+def _ef_nodes(tree):
+    if isinstance(tree, EFResiduals):
+        yield tree
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for f in dataclasses.fields(tree):
+            yield from _ef_nodes(getattr(tree, f.name))
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _ef_nodes(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _ef_nodes(v)
+
+
+def has_ef_residuals(tree) -> bool:
+    """True when ``tree`` (a train state, an optimizer state or any nest
+    of them) carries quantized-wire EF residuals."""
+    return any(True for _ in _ef_nodes(tree))
+
+
+def ef_residual_norm(tree) -> Optional[float]:
+    """L2 norm of every EF residual this process holds in ``tree`` (None
+    when it carries none); reading it syncs with the device."""
+    sq = [b.float().square().sum() for n in _ef_nodes(tree) for b in n.buffers]
+    if not sq:
+        return None
+    return float(torch.stack(sq).sum().sqrt())

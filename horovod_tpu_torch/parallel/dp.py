@@ -27,7 +27,7 @@ from ..context import resolve_device
 from ..obs import flops as _flops
 from ..ops.batching import tree_flatten, tree_map
 from ..ops.collectives import Average, ReduceOp, allreduce
-from ..ops.compression import Compression, require_unquantized
+from ..ops.compression import Compression, is_quantized
 from ..optimizer import DistributedOptimizer, Optimizer, ShardedDistributedOptimizer
 from ..utils import env as _env
 
@@ -176,6 +176,7 @@ def make_train_step(
     accum_steps: Optional[int] = None,
     tokens_per_step: Optional[int] = None,
     flops_per_step: Optional[float] = None,
+    error_feedback: bool = True,
     device=None,
     overlap=None,
     stagger=None,
@@ -199,7 +200,11 @@ def make_train_step(
     ``fused_update=True`` -- default from ``HVDTPU_FUSED_UPDATE`` -- runs
     that update as one fused AdamW kernel pass per bucket, which needs
     :func:`~..optimizer.fused_adamw`). ``compression`` (none, bf16, fp16)
-    casts the gradient wire. ``accum_steps=K`` (default from
+    casts the gradient wire; ``Compression.int8``/``fp8`` quantize it
+    blockwise, with error-feedback residuals in the optimizer state unless
+    ``error_feedback=False`` (and, sharded, the update all-gather too).
+    ``compression=None`` reads ``HVDTPU_QUANT`` (off|int8|fp8); an
+    explicit ``Compression.none`` wins over it. ``accum_steps=K`` (default from
     ``HVDTPU_OVERLAP_ACCUM_STEPS``) microbatches the step through
     :func:`accumulate_gradients`; the reduction still runs once a step.
 
@@ -217,9 +222,9 @@ def make_train_step(
     against the card's peak (:mod:`..obs.flops`).
 
     ``overlap``, ``stagger``, ``lint``, ``guard``, ``autotune``,
-    ``publish``, ``remat``, ``compute_dtype``, ``act_quant`` and the
-    quantized ``compression`` formats are not ported yet: arming one
-    raises ``NotImplementedError`` naming the slice that brings it.
+    ``publish``, ``remat``, ``compute_dtype`` and ``act_quant`` are not
+    ported yet: arming one raises ``NotImplementedError`` naming the slice
+    that brings it.
     """
     knobs = dict(overlap=overlap, stagger=stagger, lint=lint, guard=guard,
                  autotune=autotune, publish=publish, remat=remat,
@@ -231,9 +236,14 @@ def make_train_step(
                 f"arrives with {_WAITING[name]}"
             )
     if compression is None:
-        compression = Compression.none
-    require_unquantized(compression)
-    require_unquantized(gather_compression)
+        # Unset: HVDTPU_QUANT=int8|fp8 arms the quantized wire. An explicit
+        # compression -- Compression.none included -- wins over the env.
+        q = _env.quant_mode()
+        compression = Compression.by_name(q) if q else Compression.none
+    if is_quantized(compression):
+        # Pinned now, so the optimizer's residual layout and every later
+        # step read one block size.
+        compression = compression.with_block(compression.block_size())
     if accum_steps is None:
         accum_steps = _env.overlap_accum_steps()
     if accum_steps < 1:
@@ -247,6 +257,7 @@ def make_train_step(
             optimizer, op=op, compression=compression,
             gather_compression=gather_compression,
             threshold_bytes=threshold_bytes, fused_update=fused_update,
+            error_feedback=error_feedback,
         )
     else:
         if fused_update:
@@ -256,7 +267,7 @@ def make_train_step(
             )
         opt = DistributedOptimizer(
             optimizer, op=op, compression=compression,
-            threshold_bytes=threshold_bytes,
+            threshold_bytes=threshold_bytes, error_feedback=error_feedback,
         )
 
     def step_fn(state: TrainState, batch):

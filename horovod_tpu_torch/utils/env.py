@@ -23,6 +23,8 @@ SERVE_REQUEST_TIMEOUT_SECS = "SERVE_REQUEST_TIMEOUT_SECS"  # lease expiry
 SERVE_CKPT_POLL_SECS = "SERVE_CKPT_POLL_SECS"  # hot-swap watch period
 FUSED_UPDATE = "FUSED_UPDATE"  # fused ZeRO-1 optimizer-update kernel
 OVERLAP_ACCUM_STEPS = "OVERLAP_ACCUM_STEPS"  # default accum_steps (>=1)
+QUANT = "QUANT"  # quantized collective wire format: off|int8|fp8
+QUANT_BLOCK = "QUANT_BLOCK"  # elements per blockwise quantization scale
 
 DEFAULT_FUSION_THRESHOLD = 128 * 1024 * 1024
 DEFAULT_SERVE_BATCH_SIZE = 8
@@ -34,6 +36,7 @@ DEFAULT_SERVE_QUEUE_LOW = 0.5
 DEFAULT_SERVE_SCALE_COOLDOWN_SECS = 5.0
 DEFAULT_SERVE_REQUEST_TIMEOUT_SECS = 30.0
 DEFAULT_SERVE_CKPT_POLL_SECS = 1.0
+DEFAULT_QUANT_BLOCK = 256  # 4/256 = 1.6% fp32-scale overhead on the wire
 
 
 def _lookup(name: str) -> Optional[str]:
@@ -42,6 +45,11 @@ def _lookup(name: str) -> Optional[str]:
         if val is not None:
             return val
     return None
+
+
+def get_str(name: str, default: Optional[str] = None) -> Optional[str]:
+    val = _lookup(name)
+    return default if val is None else val
 
 
 def get_int(name: str, default: int) -> int:
@@ -152,3 +160,26 @@ def fused_update_default() -> bool:
 def overlap_accum_steps() -> int:
     """Default microbatch count for ``make_train_step(accum_steps=...)``."""
     return max(1, get_int(OVERLAP_ACCUM_STEPS, 1))
+
+
+def quant_mode() -> str:
+    """Default wire quantization for ``make_train_step(compression=...)``:
+    ``""`` (off), ``"int8"`` or ``"fp8"``. Anything else raises -- a typo
+    (``HVDTPU_QUANT=int4``) must not silently train unquantized."""
+    val = (get_str(QUANT, "") or "").strip().lower()
+    if val in ("", "0", "off", "false", "no", "none"):
+        return ""
+    if val in ("int8", "fp8"):
+        return val
+    raise ValueError(
+        f"HVDTPU_QUANT={val!r} is not recognized; use off|int8|fp8"
+    )
+
+
+def quant_block() -> int:
+    """Blockwise quantization granularity (elements per scale), >= 1: an
+    fp32 scale per block costs 4/block of the payload."""
+    block = get_int(QUANT_BLOCK, DEFAULT_QUANT_BLOCK)
+    if block < 1:
+        raise ValueError(f"HVDTPU_QUANT_BLOCK must be >= 1, got {block}")
+    return block

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain versions, on the card: the
-flash-attention forward, the backward pair (dK/dV, dQ) and the fused AdamW
-update. Every test here needs an NVIDIA GPU with nvcc (the kernels have no
+flash-attention forward, the backward pair (dK/dV, dQ), the fused AdamW
+update and the blockwise quantize/dequantize. Every test here needs an NVIDIA GPU with nvcc (the kernels have no
 CPU mode) and skips without one. Run them on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
@@ -10,7 +10,9 @@ machine does not need). Tolerances as chip_smoke.py's: out 1e-2, lse 1e-3;
 gradients 1e-2 of the largest plain gradient (bf16 outputs, P and dS
 rounded to bf16 at other points of the sums); AdamW 1e-6 of the largest
 plain value (every operation IEEE-rounded in the plain version's order,
-only powf of the bias corrections may differ by an ulp).
+only powf of the bias corrections may differ by an ulp); quantize and
+dequantize bit for bit (every operation IEEE-rounded in the plain version's
+order), except the int8 value of a NaN element, which is undefined in both.
 """
 
 import dataclasses
@@ -20,6 +22,7 @@ import torch
 
 from horovod_tpu_torch.ops import flash_attention as fa
 from horovod_tpu_torch.ops import fused_adamw as fadam
+from horovod_tpu_torch.ops import quantization as tq
 
 pytestmark = pytest.mark.cuda
 
@@ -279,3 +282,135 @@ def test_sharded_fused_train_step_on_the_card(gen):
         assert all(p.dtype == torch.float32 for p in state.params.values())
     finally:
         hvt.shutdown()
+
+
+def _quant_input(gen, n, offset=0, zero_block=None, nan_at=None, block=256):
+    x = torch.randn((n + offset,), generator=gen, device="cuda")[offset:] * 7
+    if zero_block is not None:
+        x[zero_block * block:(zero_block + 1) * block] = 0
+    if nan_at is not None:
+        x[nan_at] = float("nan")
+    return x
+
+
+def _quant_compare(x, block, spec):
+    """Kernel vs plain on one input; returns the kernel's (q, scales)."""
+    q, s = tq.quantize_blockwise(x, block, spec)
+    rq, rs = tq.quantize_blockwise_reference(x, block, spec)
+    d = tq.dequantize_blockwise(q, s, block)
+    rd = tq.dequantize_blockwise_reference(q, s, block)
+    torch.cuda.synchronize()
+    assert q.dtype == rq.dtype and q.shape == rq.shape == x.shape
+    assert s.shape == rs.shape and s.dtype == torch.float32
+    assert torch.equal(s.view(torch.int32), rs.view(torch.int32))
+    keep = ~torch.isnan(x) if spec.integer else torch.ones_like(x, dtype=torch.bool)
+    qb, rqb = q.view(torch.uint8), rq.view(torch.uint8)
+    if not spec.integer:  # an fp8 NaN may differ from torch's in its sign bit
+        both_nan = ((qb & 0x7F) == 0x7F) & ((rqb & 0x7F) == 0x7F)
+        keep = keep & ~both_nan
+    assert torch.equal(qb[keep], rqb[keep])
+    fin = ~torch.isnan(rd)
+    assert torch.equal(torch.isnan(d), ~fin)
+    assert torch.equal(d[fin].view(torch.int32), rd[fin].view(torch.int32))
+    return q, s
+
+
+@pytest.mark.parametrize("name", ["int8", "fp8"])
+@pytest.mark.parametrize("n,block,offset", [
+    (1_000_000, 256, 0), (1000, 256, 0), (100_003, 8, 0), (100_003, 16, 0),
+    (300_001, 65536, 0), (4099, 256, 1), (5000, 1000, 0), (70_001, 1025, 3),
+])
+def test_quantize_kernels_match_plain(gen, name, n, block, offset):
+    # offset: a buffer off a 16-byte boundary takes the scalar path; blocks
+    # of 1000 and 1025 the non-vector ones; 65536 and 1025 one CTA a block.
+    spec = tq.INT8 if name == "int8" else tq.FP8
+    x = _quant_input(gen, n, offset, zero_block=1 if n >= 2 * block else None,
+                     block=block)
+    tq.reset_launches()
+    _, s = _quant_compare(x, block, spec)
+    assert tq.launches_quant == tq.launches_dequant == 1
+    if n >= 2 * block:
+        assert s[1].item() == 1.0
+
+
+@pytest.mark.parametrize("name", ["int8", "fp8"])
+def test_quantize_kernel_nan_block_gets_scale_one(gen, name):
+    spec = tq.INT8 if name == "int8" else tq.FP8
+    x = _quant_input(gen, 4096, nan_at=300)
+    _, s = _quant_compare(x, 256, spec)
+    assert s[1].item() == 1.0 and s[0].item() != 1.0
+
+
+def test_quantize_kernels_reject_what_they_do_not_take(gen):
+    x = torch.randn((64,), generator=gen, device="cuda")
+    with pytest.raises(TypeError, match="float32"):
+        tq.quantize_blockwise(x.half(), 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        tq.quantize_blockwise(torch.randn((128,), device="cuda")[::2], 16)
+    q, s = tq.quantize_blockwise(x, 16)
+    with pytest.raises(ValueError, match="on cpu"):
+        tq.dequantize_blockwise(q, s.cpu(), 16)
+    with pytest.raises(TypeError, match="int8 or float8_e4m3fn"):
+        tq.dequantize_blockwise(q.view(torch.uint8), s, 16)
+    with pytest.raises(TypeError, match="float32"):
+        tq.dequantize_blockwise(q, s.double(), 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        qq = torch.zeros((128,), dtype=torch.int8, device="cuda")[::2]
+        tq.dequantize_blockwise(qq, s, 16)
+
+
+def _tiny_quant_step(compression, **kw):
+    import horovod_tpu_torch as hvt
+
+    params = {"w": torch.randn((64, 33), device="cuda"),
+              "b": torch.zeros((33,), device="cuda")}
+
+    def loss_fn(p, batch):
+        x, y = batch
+        return ((x @ p["w"] + p["b"] - y) ** 2).mean()
+
+    step, opt = hvt.make_train_step(loss_fn, hvt.fused_adamw(1e-3),
+                                    compression=compression, **kw)
+    return step, hvt.init_state(params, opt)
+
+
+@pytest.mark.parametrize("sharded", [False, True], ids=["replicated", "zero1"])
+def test_quantized_train_step_on_the_card_launches_the_kernels(gen, sharded):
+    from horovod_tpu_torch.ops.compression import Compression
+
+    kw = dict(sharded=True, fused_update=True) if sharded else {}
+    step, state = _tiny_quant_step(Compression.int8, **kw)
+    batch = (torch.randn((16, 64), generator=gen, device="cuda"),
+             torch.randn((16, 33), generator=gen, device="cuda"))
+    tq.reset_launches()
+    fadam.reset_launches()
+    losses = []
+    for _ in range(3):
+        state, loss = step(state, batch)
+        losses.append(float(loss))
+    # One bucket: 2 quantize and 2 dequantize a step (the send and the
+    # gather; the EF residual's dequantize and the final one).
+    assert tq.launches_quant == tq.launches_dequant == 2 * 3
+    assert fadam.launches == (3 if sharded else 0)
+    assert losses[-1] < losses[0]
+    assert state.opt_state.residual.buffers[0].device.type == "cuda"
+
+
+def test_a_kernel_build_failure_propagates_out_of_the_train_step(gen,
+                                                                 monkeypatch):
+    # No fallback: a CUDA tensor whose kernel cannot be built raises.
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops.compression import Compression
+
+    def refuse(name):
+        raise RuntimeError(f"nvcc failed to build {name}.cu (test)")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(tq, "_fns", {})
+    step, state = _tiny_quant_step(Compression.int8)
+    batch = (torch.randn((16, 64), generator=gen, device="cuda"),
+             torch.randn((16, 33), generator=gen, device="cuda"))
+    tq.reset_launches()
+    with pytest.raises(RuntimeError, match="quant_blockwise"):
+        step(state, batch)
+    assert tq.launches_quant == 0

@@ -1,7 +1,7 @@
 """The port's train-step plumbing held against the JAX package's, on the
 CPU: ``accumulate_gradients``, the training env knobs, the FLOP model,
 ``params_to_flax``, fp32 master weights, and the ``make_train_step`` knobs
-that are not ported yet.
+that are not ported yet or that it refuses.
 
 Tolerances: ``accumulate_gradients`` in fp32 within 1e-6 of the largest
 value (the same sums, taken by XLA and by torch in other orders); the
@@ -25,6 +25,7 @@ from horovod_tpu_torch import convert
 from horovod_tpu_torch import optimizer as topt
 from horovod_tpu_torch.models import GPT2Config, GPT2LMModel
 from horovod_tpu_torch.obs import flops as tflops
+from horovod_tpu_torch.ops.collectives import ReduceOp
 from horovod_tpu_torch.ops.compression import Compression
 from horovod_tpu_torch.parallel import dp as tdp
 from horovod_tpu_torch.utils import env as tenv
@@ -156,9 +157,11 @@ def test_unported_train_step_knobs_raise_naming_their_slice(knob, value):
 
 
 def test_train_step_argument_checks():
-    with pytest.raises(NotImplementedError, match="quantized wire"):
+    # The quantized wire reduces with Average or Sum only, as in the JAX
+    # package.
+    with pytest.raises(ValueError, match="Average/Sum"):
         tdp.make_train_step(lambda p, b: 0.0, topt.adamw(1e-3), device="cpu",
-                            compression=Compression.int8)
+                            compression=Compression.int8, op=ReduceOp.ADASUM)
     with pytest.raises(ValueError, match="sharded=True"):
         tdp.make_train_step(lambda p, b: 0.0, topt.fused_adamw(1e-3),
                             device="cpu", fused_update=True)

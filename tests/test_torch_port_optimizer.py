@@ -183,6 +183,8 @@ def test_unported_optimizer_options_raise(kw, match):
     from horovod_tpu_torch.ops.compression import Compression
 
     if kw.get("compression") == "int8":
-        kw = dict(compression=Compression.int8)
+        # The quantized wire is ported; with backward_passes_per_step > 1
+        # it raises, as in the JAX package.
+        kw = dict(compression=Compression.int8, backward_passes_per_step=2)
     with pytest.raises(NotImplementedError, match=match):
         topt.DistributedOptimizer(topt.adamw(1e-3), **kw)
