@@ -105,11 +105,36 @@ Phases (any failure exits non-zero; nothing is caught):
    fused AdamW; losses fall.
 10. [train-quant-fp8] Three replicated steps on the fp8 wire: losses
    finite, 2 quantize and 2 dequantize per bucket per step.
-11. Output: a "kernels" JSON line (the six kernels; "launches" is the
+   The serving phase (6.) runs last, after 11. and 12.
+11. [fp8] Kernel 8 vs its plain version (fp8_matmul_reference): the
+   reference test's ragged cases (5, 300, 70), (16, 512, 128), (1, 257, 10)
+   in the three pairings (e4m3 x e4m3, e5m2 x e4m3, e4m3 x e5m2), fp32 and
+   bf16 out, and every distinct call of a GPT-2-small fp8 training step at
+   M = 16 x 1024 rows (forward x @ w.T, dX g @ w, dW g.T @ x, for the
+   768x768, fc and proj weights; bf16 out, dW in fp32 too), operands in the
+   path's own strides. Largest difference relative to the largest plain
+   value: <= 1e-4 (fp32), <= 8e-3 (bf16). Each call timed with time_ms
+   beside the plain version and torch._scaled_mm (a yardstick the port
+   never calls; copies into its layouts made outside the timing), with its
+   bound: fp8 bytes in and bf16 out over 3.35 TB/s, or its operations over
+   1,979 TFLOP/s, the larger; summed over one step's 216 launches.
+12. [train-fp8] The JAX package's bench_fp8 pair at GPT-2 small: "" then
+   "fp8", each from convert.init_params(seed=0), make_train_step(loss,
+   adamw(1e-3), compute_dtype=...) on one batch of 16 x 1025 tokens from
+   numpy.random.RandomState(0), 1 warm-up and 12 timed steps: step_ms_off,
+   step_ms_on, speedup, tokens/s, first and last losses, converged (the
+   fp8 loss finite, falling, within 0.15 relative of the off run's last),
+   the three fp8_state_gauges. Launch counts, set to 0 just before the
+   timed steps: 12 of each flash kernel a step, and 216 of kernel 8 in the
+   fp8 run (0 in the off run). Then one Fp8Linear forward and backward at
+   the first layer's fc (its real input and trained state) against the
+   same math on fp8_matmul_reference (out, dx, dw within 8e-3; the four
+   state gradients bit for bit), and one profiled fp8 step.
+13. Output: a "kernels" JSON line (the seven kernels; "launches" is the
    training run's count -- for the quantize pair the int8 [train-quant]
-   run's -- the forward kernel's serving count beside it as
-   "launches_serve"), the card's name and power limit, and the last line
-   {"ok": true, "device": {...}}.
+   run's, for kernel 8 the fp8 [train-fp8] run's -- the forward kernel's
+   serving count beside it as "launches_serve"), the card's name and
+   power limit, and the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -142,6 +167,11 @@ QUANT_BLOCK = 256  # the default HVDTPU_QUANT_BLOCK
 QUANT_OPS = 7  # fp32 operations an element: abs, max, divide, round, clip, cast
 QUANT_LOSS_TOL = 0.05  # int8 last loss vs none's, relative
 ZERO1_QUANT_STEPS, FP8_QUANT_STEPS = 10, 3
+FP8_FLOPS_PER_S = 1979e12  # dense fp8 tensor cores
+# Kernel 8 vs its plain version, relative to the largest plain value: exact
+# products and fp32 sums in another order; bf16 adds one rounding.
+FP8_TOL = {torch.float32: 1e-4, torch.bfloat16: 8e-3}
+FP8_BATCH, FP8_STEPS, FP8_LR, FP8_LOSS_RTOL = 16, 12, 1e-3, 0.15
 
 
 def log(msg: str) -> None:
@@ -545,7 +575,7 @@ def kernel_category(name: str) -> str:
     # the other.
     for kernel in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
                    "fused_adamw", "dequantize_blockwise",
-                   "quantize_blockwise"):
+                   "quantize_blockwise", "fp8_matmul_reduce", "fp8_matmul"):
         if kernel + "_kernel" in n:
             return kernel
     if "nccl" in n:
@@ -591,7 +621,8 @@ def kernel_ms(fn, calls):
         torch.cuda.synchronize()
     _, by_cat = device_ms_by_name(prof)
     return {c: ms / calls for c, ms in by_cat.items()
-            if c.startswith(("flash", "fused", "quantize", "dequantize"))}
+            if c.startswith(("flash", "fused", "quantize", "dequantize",
+                             "fp8"))}
 
 
 def host_calls(prof):
@@ -801,7 +832,8 @@ def read_counts(fa, fadam, tq):
     return {"flash_fwd": fa.launches, "flash_bwd_dkdv": fa.launches_dkdv,
             "flash_bwd_dq": fa.launches_dq, "fused_adamw": fadam.launches,
             "quantize_blockwise": tq.launches_quant,
-            "dequantize_blockwise": tq.launches_dequant}
+            "dequantize_blockwise": tq.launches_dequant,
+            "fp8_matmul": tq.launches_fp8_matmul}
 
 
 def quant_train_run(hvt, kernels, cfg, sd0, tokens, compression, *, label,
@@ -845,7 +877,8 @@ def quant_train_run(hvt, kernels, cfg, sd0, tokens, compression, *, label,
             "flash_bwd_dq": cfg.n_layers,
             "fused_adamw": n_buckets if sharded else 0,
             "quantize_blockwise": 2 * n_buckets if quantized else 0,
-            "dequantize_blockwise": 2 * n_buckets if quantized else 0}
+            "dequantize_blockwise": 2 * n_buckets if quantized else 0,
+            "fp8_matmul": 0}
     log(f"[{label}] losses {losses}")
     log(f"[{label}] launches over {steps} steps: {counts}")
     for name, per_step in want.items():
@@ -940,6 +973,317 @@ def train_quant(hvt, kernels, cfg, sizes, qsizes):
                           steps=FP8_QUANT_STEPS, **run)
     hvt.shutdown()
     return {"pair": pair, "off": off, "on": on, "zero1": zero1, "fp8": fp8}
+
+
+def fp8_step_shapes(cfg):
+    """Kernel 8's distinct calls in one GPT-2 training step at FP8_BATCH x
+    max_len tokens: ``(name, launches a step, kind, weight [N, K])``; kind
+    fwd is x @ w.T, dx is g @ w, dw is g.T @ x."""
+    d, f, layers = cfg.d_model, cfg.d_ff, cfg.n_layers
+    shapes = []
+    for kind in ("fwd", "dx", "dw"):
+        shapes += [(f"{kind} q/k/v/out", 4 * layers, kind, (d, d)),
+                   (f"{kind} fc", layers, kind, (f, d)),
+                   (f"{kind} proj", layers, kind, (d, f))]
+    return shapes
+
+
+def fp8_operands(gen, m, kind, w_shape):
+    """The fp8 operands of one call as the path hands them: x [M, K] and w
+    [N, K] in e4m3, g [M, N] in e5m2, transposed views where the path
+    reads them so. Returns (a, b) with out = a @ b."""
+    n_w, k_w = w_shape
+
+    def rand(rows, cols, dtype, s=4.0):
+        return (torch.randn((rows, cols), generator=gen, device="cuda")
+                * s).to(dtype)
+
+    e4, e5 = torch.float8_e4m3fn, torch.float8_e5m2
+    if kind == "fwd":
+        return rand(m, k_w, e4), rand(n_w, k_w, e4).t()
+    if kind == "dx":
+        return rand(m, n_w, e5), rand(n_w, k_w, e4)
+    return rand(m, n_w, e5).t(), rand(m, k_w, e4)
+
+
+def fp8_compare(tq, a, b, out_dtype, scale):
+    """Kernel 8 vs its plain version on one call: (max |d|, relative to
+    the largest plain value)."""
+    got = tq.fp8_matmul(a, b, scale, out_dtype=out_dtype)
+    ref = tq.fp8_matmul_reference(a, b, scale, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"fp8_matmul {got.shape} {got.dtype} vs plain "
+                             f"{ref.shape} {ref.dtype}")
+    err = (got.float() - ref.float()).abs().max().item()
+    rel = err / max(ref.float().abs().max().item(), 1e-30)
+    if not rel <= FP8_TOL[out_dtype]:
+        raise AssertionError(
+            f"fp8 matmul kernel disagrees with its plain version on "
+            f"{tuple(a.shape)} x {tuple(b.shape)} {a.dtype} x {b.dtype} -> "
+            f"{out_dtype}: {rel} (tol {FP8_TOL[out_dtype]})")
+    return err, rel
+
+
+def scaled_mm_ms(a, b, scale, out_dtype):
+    """torch._scaled_mm on the same operands as the yardstick (the port
+    never calls it): it takes a row-major and b column-major, so other
+    layouts get copies made here, outside the timing. None where it
+    refuses the case."""
+    a_l = a if a.is_contiguous() else a.contiguous()
+    b_l = b if b.t().is_contiguous() else b.t().contiguous().t()
+    one = torch.ones((), device="cuda")
+
+    def call():
+        return torch._scaled_mm(a_l, b_l, scale_a=scale, scale_b=one,
+                                out_dtype=out_dtype)
+
+    try:
+        call()
+    except (RuntimeError, TypeError) as exc:
+        log(f"[fp8] torch._scaled_mm refuses {a.dtype} x {b.dtype}: {exc}")
+        return None
+    return time_ms(call)
+
+
+def fp8_case(tq, gen, cfg):
+    """[fp8]: kernel 8 vs its plain version at the main path's calls (M =
+    FP8_BATCH x max_len) and on the reference test's ragged cases, then
+    the main path's calls timed beside the plain version and
+    torch._scaled_mm, each with its bound."""
+    scale = torch.tensor(0.37, device="cuda")
+    m = FP8_BATCH * cfg.max_len
+    err = rel = 0.0
+    rng = np.random.RandomState(11)
+    pairs = [(torch.float8_e4m3fn, torch.float8_e4m3fn),
+             (torch.float8_e5m2, torch.float8_e4m3fn),
+             (torch.float8_e4m3fn, torch.float8_e5m2)]
+    for fx, fw in pairs:
+        for mm, kk, nn in ((5, 300, 70), (16, 512, 128), (1, 257, 10)):
+            a = torch.from_numpy(rng.randn(mm, kk).astype(np.float32)).cuda()
+            b = torch.from_numpy(rng.randn(kk, nn).astype(np.float32)).cuda()
+            for out_dtype in (torch.float32, torch.bfloat16):
+                e, r = fp8_compare(tq, a.to(fx), b.to(fw), out_dtype, scale)
+                err, rel = max(err, e), max(rel, r)
+    log(f"[fp8] ragged cases, 3 pairings, fp32 and bf16: max |d| {err:.3e}, "
+        f"relative {rel:.3e}")
+    cases, step = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                       "t_bytes": 0.0, "t_ops": 0.0, "bound_ms": 0.0,
+                       "launches": 0}
+    for name, count, kind, w_shape in fp8_step_shapes(cfg):
+        a, b = fp8_operands(gen, m, kind, w_shape)
+        out_dtypes = ((torch.bfloat16, torch.float32) if kind == "dw"
+                      else (torch.bfloat16,))
+        r_case = {}
+        for out_dtype in out_dtypes:
+            e, r = fp8_compare(tq, a, b, out_dtype, scale)
+            err, rel = max(err, e), max(rel, r)
+            r_case[str(out_dtype).replace("torch.", "")] = r
+        mm, kk = a.shape
+        nn = b.shape[1]
+        rec = {"name": name, "launches_per_step": count, "m": mm, "k": kk,
+               "n": nn, "a": str(a.dtype), "b": str(b.dtype),
+               "a_stride": list(a.stride()), "b_stride": list(b.stride()),
+               "rel_err": r_case}
+        rec["ms"] = time_ms(lambda: tq.fp8_matmul(a, b, scale,
+                                                  out_dtype=torch.bfloat16))
+        rec["plain_ms"] = time_ms(
+            lambda: tq.fp8_matmul_reference(a, b, scale,
+                                            out_dtype=torch.bfloat16),
+            samples=5, per_sample=3)
+        rec["library_ms"] = scaled_mm_ms(a, b, scale, torch.bfloat16)
+        nbytes = mm * kk + kk * nn + 2 * mm * nn  # fp8 in, bf16 out
+        flops = 2 * mm * nn * kk
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP8_FLOPS_PER_S
+        rec.update(bytes=nbytes, flops=flops,
+                   bound_ms=max(t_bytes, t_ops) * 1e3,
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        rec["tflops"] = flops / rec["ms"] / 1e9
+        log(f"[fp8] {name}: [{mm}, {kk}] x [{kk}, {nn}] {a.dtype} x {b.dtype}"
+            f" (strides {tuple(a.stride())}, {tuple(b.stride())}): kernel "
+            f"{rec['ms']:.4f} ms ({rec['tflops']:.1f} TFLOP/s), plain "
+            f"{rec['plain_ms']:.4f} ms, torch._scaled_mm {rec['library_ms']} "
+            f"ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); "
+            f"relative error {r_case}")
+        cases.append(rec)
+        for key in ("ms", "plain_ms", "bound_ms"):
+            step[key] += count * rec[key]
+        step["library_ms"] = (None if step["library_ms"] is None
+                              or rec["library_ms"] is None
+                              else step["library_ms"] + count * rec["library_ms"])
+        step["t_bytes"] += count * t_bytes * 1e3
+        step["t_ops"] += count * t_ops * 1e3
+        step["launches"] += count
+        del a, b
+    step["bound_by"] = ("bytes" if step["t_bytes"] >= step["t_ops"]
+                        else "operations")
+    log(f"[fp8] one step's {step['launches']} launches: kernel "
+        f"{step['ms']:.3f} ms, plain {step['plain_ms']:.3f} ms, "
+        f"torch._scaled_mm {step['library_ms']} ms, bound "
+        f"{step['bound_ms']:.3f} ms ({step['bound_by']}); max |d| {err:.3e}, "
+        f"relative {rel:.3e}")
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "max_rel_err": rel, "step": step,
+            "cases": cases}
+
+
+def fp8_linear_plain(tq, x, w, kr, xh, kh, gh, g):
+    """Fp8Linear's forward and backward written out with the plain matmul:
+    (out, dx, dw, new kr, new xh, new kh, new gh)."""
+    e4, e5 = torch.float8_e4m3fn, torch.float8_e5m2
+    sx = tq.fp8_scale_from_history(xh, tq.E4M3_MAX)
+    sk = tq.fp8_scale_from_history(kh, tq.E4M3_MAX)
+    kc = w.float() + kr
+    qx = tq.fp8_saturating_cast(x, sx, e4, tq.E4M3_MAX).flatten(0, -2)
+    qk = tq.fp8_saturating_cast(kc, sk, e4, tq.E4M3_MAX)
+    out = tq.fp8_matmul_reference(qx, qk.t(), sx * sk, out_dtype=x.dtype)
+    sg = tq.fp8_scale_from_history(gh, tq.E5M2_MAX)
+    qg = tq.fp8_saturating_cast(g, sg, e5, tq.E5M2_MAX).flatten(0, -2)
+    dx = tq.fp8_matmul_reference(qg, qk, sg * sk, out_dtype=x.dtype)
+    dw = tq.fp8_matmul_reference(qg.t(), qx, sx * sg, out_dtype=x.dtype)
+    return (out.reshape(g.shape), dx.reshape(x.shape), dw,
+            kc - qk.float() * sk, tq.fp8_push_amax(xh, x),
+            tq.fp8_push_amax(kh, kc), tq.fp8_push_amax(gh, g))
+
+
+def fp8_linear_check(hvt, tq, gen, model, tokens):
+    """One Fp8Linear forward and backward at the first layer's fc (its
+    real input and trained state, a gradient of the ring's magnitude)
+    against the same math on the plain matmul: out, dx, dw within the bf16
+    tolerance, the four state gradients bit for bit."""
+    fc = model.transformer.blocks[0].mlp.fc
+    seen = {}
+
+    def keep_input(mod, inp, out):
+        seen["x"] = inp[0].detach()
+
+    hook = fc.register_forward_hook(keep_input)
+    with torch.no_grad():
+        model(tokens[:, :-1])
+    hook.remove()
+    x = seen["x"]
+    w = fc.weight.detach().to(x.dtype)
+    state = [p.detach() for p in (fc.fp8_k_residual, fc.fp8_x_amax_history,
+                                  fc.fp8_k_amax_history,
+                                  fc.fp8_g_amax_history)]
+    g = (torch.randn(x.shape[:-1] + (w.shape[0],), generator=gen,
+                     device="cuda") * (state[3].max() / 4)).to(x.dtype)
+    leaves = [t.clone().requires_grad_(True) for t in [x, w] + state]
+    out = hvt.Fp8Linear.apply(*leaves)
+    got = (out.detach(),) + torch.autograd.grad(out, leaves, g)
+    want = fp8_linear_plain(tq, x, w, *state, g)
+    torch.cuda.synchronize()
+    rels = []
+    for name, a, b in zip(("out", "dx", "dw"), got[:3], want[:3]):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"Fp8Linear {name} {a.shape} {a.dtype} vs "
+                                 f"plain {b.shape} {b.dtype}")
+        rels.append((a.float() - b.float()).abs().max().item()
+                    / max(b.float().abs().max().item(), 1e-30))
+    same = [torch.equal(a, b) for a, b in zip(got[3:], want[3:])]
+    log(f"[train-fp8] Fp8Linear at the first fc, x {tuple(x.shape)}, w "
+        f"{tuple(w.shape)}, kernel vs plain: relative out/dx/dw "
+        f"{rels} (tol {FP8_TOL[torch.bfloat16]}); state gradients bit for "
+        f"bit {same}")
+    if max(rels) > FP8_TOL[torch.bfloat16] or not all(same):
+        raise AssertionError("Fp8Linear on the kernel disagrees with its "
+                             "plain math")
+    return {"rel_err_out_dx_dw": rels, "state_bitwise": all(same)}
+
+
+def train_fp8(hvt, kernels, cfg_base):
+    """[train-fp8]: the JAX package's bench_fp8 pair at GPT-2 small, "" then
+    "fp8", each from convert.init_params(seed=0), 1 warm-up and FP8_STEPS
+    timed steps on one batch of FP8_BATCH x 1025 tokens."""
+    from horovod_tpu_torch.parallel import dp
+
+    fa, fadam, tq = kernels
+    hvt.init(backend="nccl")
+    seq = cfg_base.max_len
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg_base.vocab_size, size=(FP8_BATCH, seq + 1)).astype(np.int32)
+    ).long().cuda()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    runs = {}
+    for mode in ("", "fp8"):
+        label = f"train-fp8 {mode or 'off'}"
+        cfg = dataclasses.replace(cfg_base, compute_dtype=mode)
+        model = hvt.GPT2LMModel(cfg)
+        model.load_state_dict(hvt.convert.init_params(cfg, seed=0))
+        step, wopt = hvt.make_train_step(
+            train_loss(model), hvt.adamw(FP8_LR), compute_dtype=mode,
+            tokens_per_step=FP8_BATCH * seq)
+        state = dp.init_state(model, wopt)
+        torch.cuda.reset_peak_memory_stats()
+        state, loss = step(state, tokens)
+        losses = [float(loss)]
+        reset_counts(fa, fadam, tq)
+        times, enqueue = [], []
+        for _ in range(FP8_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, tokens)
+            enqueue.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        counts = read_counts(fa, fadam, tq)
+        want = {"flash_fwd": cfg.n_layers, "flash_bwd_dkdv": cfg.n_layers,
+                "flash_bwd_dq": cfg.n_layers, "fused_adamw": 0,
+                "quantize_blockwise": 0, "dequantize_blockwise": 0,
+                "fp8_matmul": 18 * cfg.n_layers if mode else 0}
+        log(f"[{label}] losses {losses}")
+        log(f"[{label}] launches over {FP8_STEPS} steps: {counts}")
+        for name, per_step in want.items():
+            if counts[name] != per_step * FP8_STEPS:
+                raise AssertionError(
+                    f"[{label}] {name} launched {counts[name]} times in "
+                    f"{FP8_STEPS} steps, not {per_step} a step")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"[{label}] non-finite loss: {losses}")
+        step_ms = float(np.median(times)) * 1e3
+        rec = {"losses": losses, "launches": counts, "step_ms": step_ms,
+               "step_ms_all": [t * 1e3 for t in times],
+               "enqueue_ms": float(np.median(enqueue)) * 1e3,
+               "tokens_per_s": step.throughput(step_ms / 1e3)["tokens_per_s"],
+               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+        log(f"[{label}] step median {step_ms:.3f} ms (min "
+            f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), host "
+            f"enqueue {rec['enqueue_ms']:.3f} ms; {rec['tokens_per_s']:.1f} "
+            f"tokens/s; peak memory {rec['peak_memory_gib']:.2f} GiB")
+        if mode:
+            rec["gauges"] = hvt.fp8_state_gauges(state.params)
+            log(f"[{label}] gauges {rec['gauges']}")
+            rec["fp8_linear"] = fp8_linear_check(hvt, tq, gen, model, tokens)
+
+            def one_step():
+                nonlocal state
+                state, _ = step(state, tokens)
+
+            rec["profile"] = profile_window(one_step,
+                                            {"steps": 1, "run": label})
+        runs[mode or "off"] = rec
+        del model, step, wopt, state
+        torch.cuda.empty_cache()
+    hvt.shutdown()
+    off, on = runs["off"], runs["fp8"]
+    converged = bool(
+        np.isfinite(on["losses"][-1]) and on["losses"][-1] < on["losses"][0]
+        and abs(on["losses"][-1] - off["losses"][-1])
+        <= FP8_LOSS_RTOL * max(abs(off["losses"][-1]), 1e-9))
+    pair = {"batch": FP8_BATCH, "seq_len": seq, "timing_steps": FP8_STEPS,
+            "step_ms_off": off["step_ms"], "step_ms_on": on["step_ms"],
+            "speedup": off["step_ms"] / on["step_ms"],
+            "tokens_per_s_off": off["tokens_per_s"],
+            "tokens_per_s_on": on["tokens_per_s"],
+            "loss_off_first": off["losses"][0], "loss_off": off["losses"][-1],
+            "loss_on_first": on["losses"][0], "loss_on": on["losses"][-1],
+            "loss_rtol": FP8_LOSS_RTOL, "converged": converged,
+            **on["gauges"]}
+    log(f"[train-fp8] {json.dumps(pair)}")
+    if not converged:
+        raise AssertionError(f"the fp8 run did not converge: {pair}")
+    return {"pair": pair, "off": off, "on": on}
 
 
 def serve(hvt, fa, workdir):
@@ -1097,6 +1441,8 @@ def main() -> int:
     quant = quant_case(tq, gen, qsizes)
     quant_trained = train_quant(hvt, (fa, fadam, tq), train_cfg, sizes,
                                 qsizes)
+    fp8 = fp8_case(tq, gen, train_cfg)
+    fp8_trained = train_fp8(hvt, (fa, fadam, tq), train_cfg)
 
     workdir = tempfile.mkdtemp(prefix="smoke-", dir=_build.BUILD_DIR)
     try:
@@ -1178,8 +1524,28 @@ def main() -> int:
             "bound_by": quant["bound_by"],
             "library_ms": quant.get(pre + "_library_ms"),
         })
+    # Kernel 8: "ms", "plain_ms", "library_ms" and "bound_ms" are one
+    # training step's 216 launches (each shape's time times its launches a
+    # step); "cases" holds each shape's own.
+    step8 = fp8["step"]
+    kernels.append({
+        "name": "fp8_matmul",
+        "route": "cuda",
+        "source": src + "fp8_matmul.cu",
+        "replaces": ref + "1268",
+        "launches": fp8_trained["on"]["launches"]["fp8_matmul"],
+        "launches_per_step": step8["launches"],
+        "max_abs_err": fp8["max_abs_err"],
+        "max_rel_err": fp8["max_rel_err"],
+        "ms": step8["ms"],
+        "plain_ms": step8["plain_ms"],
+        "bound_ms": step8["bound_ms"],
+        "bound_by": step8["bound_by"],
+        "library_ms": step8["library_ms"],
+    })
     print(json.dumps({"kernels": kernels, "train": trained, "quant": quant,
-                      "train_quant": quant_trained, "serve": served}),
+                      "train_quant": quant_trained, "fp8": fp8,
+                      "train_fp8": fp8_trained, "serve": served}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

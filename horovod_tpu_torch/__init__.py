@@ -8,10 +8,11 @@ It serves GPT-2 through :class:`~horovod_tpu_torch.serve.ServePool` and
 trains it data-parallel through :func:`~horovod_tpu_torch.parallel.dp.
 make_train_step` (replicated, or ZeRO-1 sharded with the fused AdamW
 update; the gradient wire uncompressed, cast, or blockwise-quantized to
-int8/fp8 with error feedback) on NVIDIA H100s. Its kernels are
-hand-written CUDA C++ under ``csrc/`` (the flash-attention forward and
-backward, the fused AdamW update, the blockwise quantize and dequantize),
-built with nvcc at first use. Entry points run on the card unless
+int8/fp8 with error feedback; the projections in bf16 or, with
+``compute_dtype="fp8"``, in fp8 under delayed scaling) on NVIDIA H100s.
+Its kernels are hand-written CUDA C++ under ``csrc/`` (the flash-attention
+forward and backward, the fused AdamW update, the blockwise quantize and
+dequantize, the fp8 matmul), built with nvcc at first use. Entry points run on the card unless
 the caller passes ``device="cpu"``; without CUDA the default raises.
 """
 
@@ -58,6 +59,12 @@ from .ops.flash_attention import (  # noqa: F401
     flash_attention,
     flash_attention_reference,
     flash_attention_with_lse,
+)
+from .ops.fp8 import (  # noqa: F401
+    Fp8Linear,
+    fp8_state_gauges,
+    fp8_state_optimizer,
+    has_fp8_state,
 )
 from .ops.fusion import (  # noqa: F401
     fused_allgather,

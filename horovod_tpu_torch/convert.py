@@ -10,12 +10,18 @@ two layouts, and :func:`params_to_flax` undoes them:
 * the flax ``out`` kernel is ``[H, dh, D]``; the port's is ``[D, H*dh]``;
 * flax ``Dense`` kernels are ``[in, out]``; ``nn.Linear``-style weights
   are ``[out, in]``;
-* embeddings and LayerNorm parameters keep their shapes.
+* embeddings and LayerNorm parameters keep their shapes;
+* the fp8 state of a ``compute_dtype="fp8"`` model
+  (``<Dense>/Fp8DotGeneral_0/fp8_{x,k,g}_amax_history`` and
+  ``fp8_k_residual``) lands on ``<dense>.fp8_*`` -- for query, key and
+  value on ``attn.qkv.{query,key,value}.fp8_*`` -- the rings as they are,
+  the residual with its kernel's reshape and transpose.
 
 :func:`init_params` makes GPT-2 weights on the port's side from a numpy
 seed, drawn as flax initializes them (truncated-normal fan-in kernels,
-normal ``1/sqrt(D)`` embeddings, zero biases, unit LayerNorm scales), in
-the flax layout and converted by :func:`params_from_flax`.
+normal ``1/sqrt(D)`` embeddings, zero biases, unit LayerNorm scales, zero
+fp8 state when ``cfg`` computes in fp8), in the flax layout and converted
+by :func:`params_from_flax`.
 """
 
 from __future__ import annotations
@@ -26,10 +32,34 @@ import numpy as np
 import torch
 
 from .models.transformer import TransformerConfig
+from .ops.fp8 import STATE_NAMES
+from .utils import env as _env
+
+FP8_SCOPE = "Fp8DotGeneral_0"  # the flax scope of a Dense's fp8 state
 
 
 def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32, order="C"))
+
+
+def _fp8_from_flax(sd, prefix: str, dense, kernel_to_port) -> None:
+    """A flax Dense's fp8 state onto ``prefix + "fp8_*"``, the residual
+    reshaped and transposed as ``kernel_to_port`` does its kernel."""
+    st = dense.get(FP8_SCOPE)
+    if st is None:
+        return
+    for name in STATE_NAMES[:3]:
+        sd[prefix + name] = _t(st[name])
+    sd[prefix + "fp8_k_residual"] = _t(
+        kernel_to_port(np.asarray(st["fp8_k_residual"], np.float32)))
+
+
+def _fp8_to_flax(a, state_dict, prefix: str, port_to_kernel):
+    if prefix + "fp8_k_residual" not in state_dict:
+        return {}
+    st = {name: a(prefix + name) for name in STATE_NAMES[:3]}
+    st["fp8_k_residual"] = port_to_kernel(a(prefix + "fp8_k_residual"))
+    return {FP8_SCOPE: st}
 
 
 def params_from_flax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -62,6 +92,13 @@ def params_from_flax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         ]
         out_k = np.asarray(mha["out"]["kernel"], np.float32)
         mlp = blk["MlpBlock_0"]
+        for n in ("query", "key", "value"):
+            _fp8_from_flax(sd, f"{pre}attn.qkv.{n}.", mha[n],
+                           lambda k, d=d_model: k.reshape(d, -1).T)
+        _fp8_from_flax(sd, pre + "attn.out.", mha["out"],
+                       lambda k: k.reshape(-1, k.shape[-1]).T)
+        _fp8_from_flax(sd, pre + "mlp.fc.", mlp["Dense_0"], lambda k: k.T)
+        _fp8_from_flax(sd, pre + "mlp.proj.", mlp["Dense_1"], lambda k: k.T)
         sd.update({
             pre + "ln_1.scale": _t(blk["LayerNorm_0"]["scale"]),
             pre + "ln_1.bias": _t(blk["LayerNorm_0"]["bias"]),
@@ -82,8 +119,9 @@ def params_from_flax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 def params_to_flax(state_dict: Mapping[str, Any], n_heads: int) -> Dict[str, Any]:
     """The inverse of :func:`params_from_flax`: the JAX package's
     ``GPT2LMModel`` parameters (``{"params": {"transformer": ...}}``,
-    fp32 numpy arrays) from a port state dict or parameter dict (any
-    dtype, any device). ``n_heads`` splits the fused projections."""
+    fp32 numpy arrays, with the fp8 state where the port's has it) from a
+    port state dict or parameter dict (any dtype, any device). ``n_heads``
+    splits the fused projections."""
 
     def a(name):
         return state_dict[name].detach().float().cpu().numpy()
@@ -111,10 +149,14 @@ def params_to_flax(state_dict: Mapping[str, Any], n_heads: int) -> Dict[str, Any
             mha[n] = {
                 "kernel": qkv_w[rows].T.reshape(d_model, n_heads, dh),
                 "bias": qkv_b[rows].reshape(n_heads, dh),
+                **_fp8_to_flax(a, state_dict, f"{pre}attn.qkv.{n}.",
+                               lambda r: r.T.reshape(d_model, n_heads, dh)),
             }
         mha["out"] = {
             "kernel": a(pre + "attn.out.weight").T.reshape(n_heads, dh, d_model),
             "bias": a(pre + "attn.out.bias"),
+            **_fp8_to_flax(a, state_dict, pre + "attn.out.",
+                           lambda r: r.T.reshape(n_heads, dh, d_model)),
         }
         tr[f"block_{i}"] = {
             "LayerNorm_0": {"scale": a(pre + "ln_1.scale"),
@@ -124,9 +166,13 @@ def params_to_flax(state_dict: Mapping[str, Any], n_heads: int) -> Dict[str, Any
                             "bias": a(pre + "ln_2.bias")},
             "MlpBlock_0": {
                 "Dense_0": {"kernel": a(pre + "mlp.fc.weight").T,
-                            "bias": a(pre + "mlp.fc.bias")},
+                            "bias": a(pre + "mlp.fc.bias"),
+                            **_fp8_to_flax(a, state_dict, pre + "mlp.fc.",
+                                           lambda r: r.T)},
                 "Dense_1": {"kernel": a(pre + "mlp.proj.weight").T,
-                            "bias": a(pre + "mlp.proj.bias")},
+                            "bias": a(pre + "mlp.proj.bias"),
+                            **_fp8_to_flax(a, state_dict, pre + "mlp.proj.",
+                                           lambda r: r.T)},
             },
         }
     tr = {k: _contiguous(v) for k, v in tr.items()}
@@ -158,27 +204,36 @@ def _flax_like_params(cfg: TransformerConfig, rng: np.random.Generator):
     def ln():
         return {"scale": np.ones(d, np.float32), "bias": np.zeros(d, np.float32)}
 
+    hlen = _env.fp8_amax_history() if cfg.fp8 else 0
+
+    def dense(kernel_, bias):
+        out = {"kernel": kernel_, "bias": bias}
+        if hlen:
+            ring = np.zeros(hlen, np.float32)
+            out[FP8_SCOPE] = {
+                "fp8_x_amax_history": ring, "fp8_k_amax_history": ring.copy(),
+                "fp8_g_amax_history": ring.copy(),
+                "fp8_k_residual": np.zeros(kernel_.shape, np.float32),
+            }
+        return out
+
     tr: Dict[str, Any] = {"wte": {"embedding": embed(cfg.vocab_size)},
                           "wpe": {"embedding": embed(cfg.max_len)}}
     if cfg.type_vocab_size:
         tr["wtt"] = {"embedding": embed(cfg.type_vocab_size)}
     for i in range(cfg.n_layers):
         mha = {
-            n: {"kernel": kernel((d, h, dh), d),
-                "bias": np.zeros((h, dh), np.float32)}
+            n: dense(kernel((d, h, dh), d), np.zeros((h, dh), np.float32))
             for n in ("query", "key", "value")
         }
-        mha["out"] = {"kernel": kernel((h, dh, d), h * dh),
-                      "bias": np.zeros(d, np.float32)}
+        mha["out"] = dense(kernel((h, dh, d), h * dh), np.zeros(d, np.float32))
         tr[f"block_{i}"] = {
             "LayerNorm_0": ln(),
             "MultiHeadAttention_0": mha,
             "LayerNorm_1": ln(),
             "MlpBlock_0": {
-                "Dense_0": {"kernel": kernel((d, f), d),
-                            "bias": np.zeros(f, np.float32)},
-                "Dense_1": {"kernel": kernel((f, d), f),
-                            "bias": np.zeros(d, np.float32)},
+                "Dense_0": dense(kernel((d, f), d), np.zeros(f, np.float32)),
+                "Dense_1": dense(kernel((f, d), f), np.zeros(d, np.float32)),
             },
         }
     tr["ln_f"] = ln()

@@ -38,7 +38,9 @@ class GPT2LMModel(nn.Module):
     CUDA -- pass ``device="cpu"`` for the CPU). The matmul and embedding
     weights are stored in ``cfg.param_dtype`` (default ``cfg.dtype``; a
     trainer passes ``torch.float32`` for fp32 master weights, see
-    ``transformer.py``); ``attention_fn`` replaces the attention path."""
+    ``transformer.py``); ``cfg.compute_dtype="fp8"`` runs the attention and
+    MLP projections in fp8 with their state as ``fp8_*`` parameters;
+    ``attention_fn`` replaces the attention path."""
 
     def __init__(self, cfg: GPT2Config, *, device=None,
                  attention_fn: Optional[Callable] = None,
@@ -47,7 +49,7 @@ class GPT2LMModel(nn.Module):
         if act_quant not in (None, "", "off"):
             raise NotImplementedError(
                 f"act_quant={act_quant!r} is not ported yet; it arrives "
-                "with the fp8 slice (ops/actquant.py)"
+                "with its own slice (ops/actquant.py)"
             )
         self.cfg = cfg
         self.transformer = Transformer(

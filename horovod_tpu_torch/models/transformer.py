@@ -31,6 +31,16 @@ Pallas kernel on a TPU, and plain attention on the CPU; ``True`` takes it
 on either (CPU tensors run its plain version). On the card the kernel
 runs or the wrapper raises (it takes bf16 with head dim 64 or 128): plain
 attention runs there only for ``use_flash=False`` or an ``attention_fn``.
+
+``compute_dtype="fp8"`` (``None`` reads ``HVDTPU_COMPUTE_DTYPE``) runs every
+attention and MLP projection through :class:`..ops.fp8.Fp8Linear`, as the
+JAX package injects its ``Fp8DotGeneral``: each ``Dense`` carries the fp8
+state parameters (:func:`..ops.fp8.add_fp8_state`) and adds its bias in the
+compute dtype after the fp8 product. The fused QKV projection runs three
+fp8 products on the three row blocks of its weight (contiguous views), each
+with its own state under the JAX package's scope name (``qkv.query.fp8_*``,
+``qkv.key.fp8_*``, ``qkv.value.fp8_*``), and hands the flash kernel three
+outputs. Embeddings, LayerNorms and the tied head stay in ``dtype``.
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import flash_attention
+from ..ops.fp8 import add_fp8_state, fp8_linear, resolve_compute_dtype
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default (torch's is 1e-5)
 
@@ -64,7 +75,9 @@ class TransformerConfig:
     # Per-block rematerialization: a training-slice feature; anything but
     # False/None/"none" raises NotImplementedError.
     remat: Any = False
-    # None/""/"off" computes in ``dtype``; "fp8" waits for its slice.
+    # Training matmul precision: None (HVDTPU_COMPUTE_DTYPE decides at
+    # construction), ""/"off" (``dtype``) or "fp8" (ops/fp8.Fp8Linear in
+    # every attention and MLP projection, its state in the parameters).
     compute_dtype: Optional[str] = None
     type_vocab_size: int = 0
     # Flash-attention kernel: None = auto (on for CUDA tensors), True =
@@ -77,10 +90,7 @@ class TransformerConfig:
                 f"remat={self.remat!r} is not ported yet; it arrives with "
                 "the remat slice (ops/remat.py on torch.utils.checkpoint)"
             )
-        if self.compute_dtype not in (None, "", "off"):
-            raise NotImplementedError(
-                f"compute_dtype={self.compute_dtype!r} is not ported yet"
-            )
+        resolve_compute_dtype(self.compute_dtype)
         if self.d_model % self.n_heads:
             raise ValueError(
                 f"d_model={self.d_model} is not a multiple of "
@@ -90,6 +100,12 @@ class TransformerConfig:
     @property
     def weight_dtype(self) -> torch.dtype:
         return self.param_dtype or self.dtype
+
+    @property
+    def fp8(self) -> bool:
+        """Whether the projections compute in fp8 (``compute_dtype``
+        resolved now: ``None`` reads ``HVDTPU_COMPUTE_DTYPE``)."""
+        return resolve_compute_dtype(self.compute_dtype) == "fp8"
 
 
 def dot_product_attention(q, k, v, *, causal: bool, mask=None):
@@ -117,19 +133,55 @@ def _factory(device, dtype):
 class Dense(nn.Module):
     """``y = x W^T + b`` computed in ``dtype`` (flax ``nn.Dense(dtype=)``);
     ``weight`` is ``[out, in]``, stored in ``param_dtype`` (default
-    ``dtype``) and cast to ``dtype`` at the op."""
+    ``dtype``) and cast to ``dtype`` at the op.
+
+    ``splits`` names the equal row blocks of a fused projection
+    (:meth:`parts` returns them). With ``fp8=True`` the product runs through
+    :class:`..ops.fp8.Fp8Linear` and the bias is added after it in
+    ``dtype``; the fp8 state sits on the module itself, or on one child per
+    split (named after it) with one fp8 product per block."""
 
     def __init__(self, d_in: int, d_out: int, *, dtype, device,
-                 param_dtype=None):
+                 param_dtype=None, fp8: bool = False, splits=()):
         super().__init__()
         self.dtype = dtype
+        self.fp8 = fp8
+        self.splits = tuple(splits)
         fac = _factory(device, param_dtype or dtype)
         self.weight = nn.Parameter(torch.zeros((d_out, d_in), **fac))
         self.bias = nn.Parameter(torch.zeros((d_out,), **fac))
+        if fp8 and self.splits:
+            rows = d_out // len(self.splits)
+            for name in self.splits:
+                state = nn.Module()
+                add_fp8_state(state, (rows, d_in), device=device)
+                self.add_module(name, state)
+        elif fp8:
+            add_fp8_state(self, (d_out, d_in), device=device)
 
     def forward(self, x):
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
-                        self.bias.to(self.dtype))
+        if self.fp8 and self.splits:
+            return torch.cat(self.parts(x), dim=-1)
+        x, w, b = x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(
+            self.dtype)
+        if self.fp8:
+            return fp8_linear(x, w, self) + b
+        return F.linear(x, w, b)
+
+    def parts(self, x):
+        """The output's row blocks of ``splits``: column views of one product,
+        or with fp8 one product per block, each on its own state."""
+        if not self.fp8:
+            return self(x).split(self.weight.shape[0] // len(self.splits),
+                                 dim=-1)
+        x, w, b = x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(
+            self.dtype)
+        rows = w.shape[0] // len(self.splits)
+        return [
+            fp8_linear(x, w[i * rows:(i + 1) * rows], getattr(self, name))
+            + b[i * rows:(i + 1) * rows]
+            for i, name in enumerate(self.splits)
+        ]
 
 
 class LayerNorm(nn.Module):
@@ -156,19 +208,22 @@ class MultiHeadAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.attention_fn = attention_fn
-        kw = dict(dtype=cfg.dtype, device=device, param_dtype=cfg.param_dtype)
+        kw = dict(dtype=cfg.dtype, device=device, param_dtype=cfg.param_dtype,
+                  fp8=cfg.fp8)
         # Fused query/key/value projection: rows [0, D) are the query,
         # [D, 2D) the key, [2D, 3D) the value (convert.py builds it from
         # the three flax DenseGeneral kernels).
-        self.qkv = Dense(cfg.d_model, 3 * cfg.d_model, **kw)
+        self.qkv = Dense(cfg.d_model, 3 * cfg.d_model,
+                         splits=("query", "key", "value"), **kw)
         self.out = Dense(cfg.d_model, cfg.d_model, **kw)
 
     def forward(self, x, mask=None):
         cfg = self.cfg
         b, s, _ = x.shape
         h, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
-        # Column slices of the fused output: strided [B, S, H*dh] views.
-        q, k, v = self.qkv(x).split(cfg.d_model, dim=-1)
+        # Column slices of the fused output (strided [B, S, H*dh] views), or
+        # with fp8 three outputs of their own.
+        q, k, v = self.qkv.parts(x)
         attn = self.attention_fn
         if attn is None:
             if mask is not None:
@@ -194,7 +249,8 @@ class MultiHeadAttention(nn.Module):
 class MlpBlock(nn.Module):
     def __init__(self, cfg: TransformerConfig, *, device=None):
         super().__init__()
-        kw = dict(dtype=cfg.dtype, device=device, param_dtype=cfg.param_dtype)
+        kw = dict(dtype=cfg.dtype, device=device, param_dtype=cfg.param_dtype,
+                  fp8=cfg.fp8)
         self.fc = Dense(cfg.d_model, cfg.d_ff, **kw)
         self.proj = Dense(cfg.d_ff, cfg.d_model, **kw)
 

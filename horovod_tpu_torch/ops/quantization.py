@@ -22,8 +22,16 @@ the quantized collectives; :mod:`.compression` exposes them as
   size: the TPU kernel's int8-only, 128-aligned limit is a TPU layout
   limit the port has no reason to copy.
 
-The weight half (``QuantizedWeight`` ... ``qmatmul``, kernel 7), the
-KV-head half and the fp8-compute helpers (kernel 8) wait for their slices.
+The fp8-compute half (``HVDTPU_COMPUTE_DTYPE=fp8``): the delayed-scaling
+algebra (:func:`fp8_scale_from_history`, :func:`fp8_push_amax`,
+:func:`fp8_saturating_cast`, op for op the JAX package's) and
+:func:`fp8_matmul`, which launches ``csrc/fp8_matmul.cu`` (kernel 8) on
+CUDA tensors and runs :func:`fp8_matmul_reference` on CPU tensors;
+:mod:`.fp8` builds the training matmul on them. Scales stay device
+tensors throughout, so a step never syncs on one.
+
+The weight half (``QuantizedWeight`` ... ``qmatmul``, kernel 7) and the
+KV-head half wait for their slices.
 """
 
 from __future__ import annotations
@@ -39,6 +47,8 @@ from ..utils import env as _env
 from . import _build
 
 __all__ = [
+    "E4M3_MAX",
+    "E5M2_MAX",
     "FP8",
     "INT8",
     "QuantSpec",
@@ -46,7 +56,13 @@ __all__ = [
     "default_block",
     "dequantize_blockwise",
     "dequantize_blockwise_reference",
+    "fp8_matmul",
+    "fp8_matmul_reference",
+    "fp8_push_amax",
+    "fp8_saturating_cast",
+    "fp8_scale_from_history",
     "launches_dequant",
+    "launches_fp8_matmul",
     "launches_quant",
     "quant_spec",
     "quantize_blockwise",
@@ -57,6 +73,7 @@ __all__ = [
 ]
 
 KERNEL_SOURCE = "quant_blockwise"
+FP8_MATMUL_SOURCE = "fp8_matmul"
 SCALE_DTYPE = torch.float32
 # Past this magnitude round-to-nearest-even lands beyond e4m3's largest
 # finite value (448), and e4m3 has no infinity: the value becomes NaN.
@@ -66,6 +83,7 @@ _E4M3_OVERFLOW = 464.0
 # adds one where it launches its kernel and nowhere else.
 launches_quant = 0
 launches_dequant = 0
+launches_fp8_matmul = 0
 _count_lock = threading.Lock()
 _fns = {}
 
@@ -131,19 +149,22 @@ def quantized_wire_bytes(n_elements: int, block: int, spec: QuantSpec) -> int:
 
 
 def reset_launches() -> None:
-    global launches_quant, launches_dequant
+    global launches_quant, launches_dequant, launches_fp8_matmul
     with _count_lock:
         launches_quant = 0
         launches_dequant = 0
+        launches_fp8_matmul = 0
 
 
 def _count_launch(which: str) -> None:
-    global launches_quant, launches_dequant
+    global launches_quant, launches_dequant, launches_fp8_matmul
     with _count_lock:
         if which == "quant":
             launches_quant += 1
-        else:
+        elif which == "dequant":
             launches_dequant += 1
+        else:
+            launches_fp8_matmul += 1
 
 
 def _blocks_view(x: torch.Tensor, block: int) -> Tuple[torch.Tensor, int, int]:
@@ -215,10 +236,14 @@ def dequantize_blockwise_reference(
 def _kernel(name: str):
     fn = _fns.get(name)
     if fn is None:
-        fn = getattr(_build.load(KERNEL_SOURCE), name)
+        source = FP8_MATMUL_SOURCE if name == "hvt_fp8_matmul" else KERNEL_SOURCE
+        fn = getattr(_build.load(source), name)
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         if name == "hvt_quantize_blockwise":
             fn.argtypes = [ptr, ptr, ptr, i64, i32, i32, ctypes.c_float, ptr]
+        elif name == "hvt_fp8_matmul":
+            fn.argtypes = ([ptr] * 5 + [i32] * 3 + [i64] * 3 + [i32] * 6
+                           + [ptr])
         else:
             fn.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
         fn.restype = ctypes.c_int
@@ -325,3 +350,179 @@ def dequantize_blockwise(
         )
     _count_launch("dequant")
     return out.to(out_dtype)
+
+
+# -- fp8 training compute ---------------------------------------------------
+#
+# Training matmuls on e4m3 operands (e5m2 for the incoming gradient in the
+# backward pass) under per-tensor *delayed* scales: each tensor's scale comes
+# from a short ring of past max-abs values, so the cast needs nothing from
+# the host. The helpers below are the scale algebra; ops/fp8.py wires them
+# into the training matmul with its state as parameters.
+
+E4M3_MAX = 448.0  # max finite of float8_e4m3fn
+E5M2_MAX = 57344.0  # max finite of float8_e5m2
+_device_consts = {}
+
+
+def _const(value: float, device: torch.device) -> torch.Tensor:
+    """``value`` as an fp32 scalar on ``device``, made once per device:
+    torch on the card turns a division by a host scalar into a multiply by
+    its reciprocal, an ulp off the JAX package's division."""
+    key = (value, device)
+    t = _device_consts.get(key)
+    if t is None:
+        t = torch.tensor(value, dtype=torch.float32, device=device)
+        _device_consts[key] = t
+    return t
+
+
+def fp8_scale_from_history(hist: torch.Tensor, qmax: float) -> torch.Tensor:
+    """Delayed per-tensor scale from an amax history ring: the ring's
+    running max mapped onto ``qmax``, a device scalar. An all-zero (fresh)
+    ring gives scale 1 -- the first step casts unscaled and seeds the
+    ring."""
+    amax = hist.max()
+    return torch.where(amax > 0, amax / _const(qmax, hist.device),
+                       torch.ones_like(amax)).to(SCALE_DTYPE)
+
+
+def fp8_push_amax(hist: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Roll the ring one slot and record ``amax(x)`` at slot 0 (a new
+    tensor): the delayed-scaling state update."""
+    amax = x.detach().abs().amax().to(hist.dtype)
+    return torch.cat([amax.reshape(1), hist[:-1]])
+
+
+def fp8_saturating_cast(
+    x: torch.Tensor, scale: torch.Tensor, wire_dtype: torch.dtype, qmax: float
+) -> torch.Tensor:
+    """``x / scale`` clipped into the wire dtype's finite range, then cast
+    (round to nearest even). Saturation, not overflow to inf/NaN, is what
+    makes a stale delayed scale a graceful error instead of a poisoned
+    step; NaN stays NaN."""
+    y = x.detach().to(torch.float32, copy=True).div_(scale)
+    return y.clamp_(-qmax, qmax).to(wire_dtype)
+
+
+def _check_fp8_operands(x_q: torch.Tensor, w_q: torch.Tensor):
+    if x_q.dim() != 2 or w_q.dim() != 2:
+        raise ValueError(
+            f"fp8_matmul takes 2-D operands, got {tuple(x_q.shape)} and "
+            f"{tuple(w_q.shape)}"
+        )
+    if x_q.shape[1] != w_q.shape[0]:
+        raise ValueError(
+            f"fp8_matmul shapes disagree: x {tuple(x_q.shape)} vs w "
+            f"{tuple(w_q.shape)}"
+        )
+    for name, t in (("x_q", x_q), ("w_q", w_q)):
+        if t.dtype not in (torch.float8_e4m3fn, torch.float8_e5m2):
+            raise TypeError(
+                f"fp8_matmul takes float8_e4m3fn or float8_e5m2 operands; "
+                f"{name} is {t.dtype}"
+            )
+
+
+def _scale_tensor(scale, device: torch.device) -> torch.Tensor:
+    scale = torch.as_tensor(scale, dtype=torch.float32, device=device)
+    if scale.numel() != 1:
+        raise ValueError(f"fp8_matmul takes one scale, got shape "
+                         f"{tuple(scale.shape)}")
+    return scale.reshape(())
+
+
+def fp8_matmul_reference(
+    x_q: torch.Tensor,
+    w_q: torch.Tensor,
+    scale,
+    *,
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """The plain version: ``(x_q[M, K] @ w_q[K, N]) * scale`` with the fp8
+    operands upcast to fp32 (every product exact) and fp32 sums, in
+    ``out_dtype``. Any strides."""
+    _check_fp8_operands(x_q, w_q)
+    acc = torch.matmul(x_q.to(torch.float32), w_q.to(torch.float32))
+    return (acc * _scale_tensor(scale, acc.device)).to(out_dtype)
+
+
+def _operand_layout(t: torch.Tensor, name: str, contract_dim: int):
+    """(k_contiguous, leading stride) of a 2-D operand read in place: the
+    kernel takes either dim with unit stride and copies nothing."""
+    other = 1 - contract_dim
+    if t.stride(contract_dim) == 1 or t.shape[contract_dim] == 1:
+        return True, max(t.stride(other), 1)
+    if t.stride(other) == 1 or t.shape[other] == 1:
+        return False, max(t.stride(contract_dim), 1)
+    raise ValueError(
+        f"fp8_matmul reads {name} in place and needs one of its dims with "
+        f"unit stride; got strides {tuple(t.stride())}"
+    )
+
+
+_sm_counts = {}
+
+
+def _splits(m: int, n: int, k: int, device: torch.device) -> int:
+    """Contraction splits for an output with too few 128x128 tiles to fill
+    the card (two resident blocks an SM), each split at least 8 k-tiles."""
+    sms = _sm_counts.get(device)
+    if sms is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _sm_counts[device] = sms
+    tiles = -(-m // 128) * -(-n // 128)
+    return max(1, min(2 * sms // tiles, k // (8 * 32)))
+
+
+def fp8_matmul(
+    x_q: torch.Tensor,
+    w_q: torch.Tensor,
+    scale,
+    *,
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """``[M, K] x [K, N]`` over fp8 operands (``float8_e4m3fn`` or
+    ``float8_e5m2``, mixed allowed) with fp32 accumulation and the combined
+    per-tensor ``scale`` (an fp32 device scalar) applied at the end, in
+    ``out_dtype`` (fp32 or bf16 on the card).
+
+    CPU tensors run :func:`fp8_matmul_reference`. CUDA tensors launch the
+    kernel or raise: each operand is read in place through its strides --
+    ``x_q`` with k or m contiguous, ``w_q`` with k or n contiguous, so a
+    transposed view (``w.t()``, ``g.t()``) costs no copy."""
+    _check_fp8_operands(x_q, w_q)
+    if w_q.device != x_q.device:
+        raise ValueError(f"w_q is on {w_q.device}, x_q on {x_q.device}")
+    device = _check_device(x_q)
+    if device == "cpu":
+        return fp8_matmul_reference(x_q, w_q, scale, out_dtype=out_dtype)
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the fp8 matmul kernel writes float32 or bfloat16, "
+                        f"not {out_dtype}")
+    scale = _scale_tensor(scale, x_q.device)
+    m, k = x_q.shape
+    n = w_q.shape[1]
+    a_kmaj, lda = _operand_layout(x_q, "x_q", 1)
+    b_kmaj, ldb = _operand_layout(w_q, "w_q", 0)
+    out = torch.empty((m, n), dtype=out_dtype, device=x_q.device)
+    if m == 0 or n == 0:
+        return out
+    splits = _splits(m, n, k, x_q.device)
+    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x_q.device)
+          if splits > 1 else None)
+    fn = _kernel("hvt_fp8_matmul")
+    with torch.cuda.device(x_q.device):
+        stream = torch.cuda.current_stream(x_q.device).cuda_stream
+        rc = fn(x_q.data_ptr(), w_q.data_ptr(), out.data_ptr(),
+                ws.data_ptr() if ws is not None else None, scale.data_ptr(),
+                m, n, k, lda, ldb, n, int(a_kmaj), int(b_kmaj),
+                int(x_q.dtype == torch.float8_e5m2),
+                int(w_q.dtype == torch.float8_e5m2),
+                int(out_dtype == torch.bfloat16), splits, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"fp8_matmul kernel launch failed with cudaError_t {rc}"
+        )
+    _count_launch("fp8_matmul")
+    return out

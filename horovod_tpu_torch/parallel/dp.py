@@ -28,6 +28,7 @@ from ..obs import flops as _flops
 from ..ops.batching import tree_flatten, tree_map
 from ..ops.collectives import Average, ReduceOp, allreduce
 from ..ops.compression import Compression, is_quantized
+from ..ops.fp8 import fp8_state_optimizer, resolve_compute_dtype
 from ..optimizer import DistributedOptimizer, Optimizer, ShardedDistributedOptimizer
 from ..utils import env as _env
 
@@ -146,15 +147,14 @@ _WAITING = {
     "autotune": "the tuning plane (tune/)",
     "publish": "the streaming plane (stream/)",
     "remat": "the remat slice (ops/remat.py on torch.utils.checkpoint)",
-    "compute_dtype": "the fp8 slice (kernel 8, ops/fp8.py)",
-    "act_quant": "the fp8 slice (ops/actquant.py)",
+    "act_quant": "its own slice (ops/actquant.py)",
 }
 
 
 def _armed(name: str, value) -> bool:
     if value is None or value is False:
         return False
-    if name in ("lint", "remat", "compute_dtype", "act_quant"):
+    if name in ("lint", "remat", "act_quant"):
         return str(value).lower() not in ("", "off", "none", "no", "false", "0")
     if name == "publish":
         return int(value) > 0
@@ -221,14 +221,20 @@ def make_train_step(
     ``step_fn.throughput(seconds_per_step)``, which gives tokens/s and MFU
     against the card's peak (:mod:`..obs.flops`).
 
+    ``compute_dtype="fp8"`` (default from ``HVDTPU_COMPUTE_DTYPE``) trains
+    a model built with ``compute_dtype="fp8"``: the optimizer is wrapped in
+    :func:`~..ops.fp8.fp8_state_optimizer` before the distributed wrapper,
+    so the ``fp8_*`` state parameters are averaged with the gradients and
+    committed by overwrite, never stepped by the optimizer. Replicated path
+    with ``op=Average`` only, as in the JAX package.
+
     ``overlap``, ``stagger``, ``lint``, ``guard``, ``autotune``,
-    ``publish``, ``remat``, ``compute_dtype`` and ``act_quant`` are not
-    ported yet: arming one raises ``NotImplementedError`` naming the slice
-    that brings it.
+    ``publish``, ``remat`` and ``act_quant`` are not ported yet: arming one
+    raises ``NotImplementedError`` naming the slice that brings it.
     """
     knobs = dict(overlap=overlap, stagger=stagger, lint=lint, guard=guard,
                  autotune=autotune, publish=publish, remat=remat,
-                 compute_dtype=compute_dtype, act_quant=act_quant)
+                 act_quant=act_quant)
     for name, value in knobs.items():
         if _armed(name, value):
             raise NotImplementedError(
@@ -249,6 +255,23 @@ def make_train_step(
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     dev = resolve_device(device)
+    if resolve_compute_dtype(compute_dtype) == "fp8":
+        if sharded:
+            raise NotImplementedError(
+                "compute_dtype='fp8' is replicated-path only: the ZeRO-1 "
+                "flat-shard update cannot see which bucket slices are fp8 "
+                "scale state, so the overwrite-with-gradient commit has no "
+                "leaf boundary to mask on"
+            )
+        if op != Average:
+            raise ValueError(
+                "compute_dtype='fp8' requires op=Average: the delayed-"
+                "scaling state rides the gradient reduction, and only the "
+                "mean keeps amax histories replica-uniform"
+            )
+        # Before the distributed wrapper: fp8_* leaves commit the values
+        # their gradients carry; every other leaf sees the optimizer.
+        optimizer = fp8_state_optimizer(optimizer)
 
     if not distribute_optimizer:
         opt = optimizer

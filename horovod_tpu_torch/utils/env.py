@@ -25,6 +25,8 @@ FUSED_UPDATE = "FUSED_UPDATE"  # fused ZeRO-1 optimizer-update kernel
 OVERLAP_ACCUM_STEPS = "OVERLAP_ACCUM_STEPS"  # default accum_steps (>=1)
 QUANT = "QUANT"  # quantized collective wire format: off|int8|fp8
 QUANT_BLOCK = "QUANT_BLOCK"  # elements per blockwise quantization scale
+COMPUTE_DTYPE = "COMPUTE_DTYPE"  # training matmul precision: off|fp8
+FP8_AMAX_HISTORY = "FP8_AMAX_HISTORY"  # delayed-scaling amax ring length
 
 DEFAULT_FUSION_THRESHOLD = 128 * 1024 * 1024
 DEFAULT_SERVE_BATCH_SIZE = 8
@@ -37,6 +39,7 @@ DEFAULT_SERVE_SCALE_COOLDOWN_SECS = 5.0
 DEFAULT_SERVE_REQUEST_TIMEOUT_SECS = 30.0
 DEFAULT_SERVE_CKPT_POLL_SECS = 1.0
 DEFAULT_QUANT_BLOCK = 256  # 4/256 = 1.6% fp32-scale overhead on the wire
+DEFAULT_FP8_AMAX_HISTORY = 16  # steps of amax memory behind each scale
 
 
 def _lookup(name: str) -> Optional[str]:
@@ -183,3 +186,30 @@ def quant_block() -> int:
     if block < 1:
         raise ValueError(f"HVDTPU_QUANT_BLOCK must be >= 1, got {block}")
     return block
+
+
+def compute_dtype_mode() -> str:
+    """Default for ``make_train_step(compute_dtype=...)`` and a model
+    config's ``compute_dtype=None``: ``""`` (the model's own dtype) or
+    ``"fp8"`` (e4m3 forward / e5m2 gradient matmuls with per-tensor delayed
+    scaling; fp32 master weights stay in the parameters). Anything else
+    raises -- a typo must not silently train full-precision."""
+    val = (get_str(COMPUTE_DTYPE, "") or "").strip().lower()
+    if val in ("", "0", "off", "false", "no", "none"):
+        return ""
+    if val == "fp8":
+        return val
+    raise ValueError(
+        f"HVDTPU_COMPUTE_DTYPE={val!r} is not recognized; use off|fp8"
+    )
+
+
+def fp8_amax_history() -> int:
+    """Length of the per-tensor amax history ring behind each delayed fp8
+    scale (>= 1). Longer rings react slower to dynamic-range drops but
+    resist transient under-scaling; 1 degenerates to just-in-time scaling
+    of the previous step."""
+    n = get_int(FP8_AMAX_HISTORY, DEFAULT_FP8_AMAX_HISTORY)
+    if n < 1:
+        raise ValueError(f"HVDTPU_FP8_AMAX_HISTORY must be >= 1, got {n}")
+    return n

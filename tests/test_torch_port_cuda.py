@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain versions, on the card: the
 flash-attention forward, the backward pair (dK/dV, dQ), the fused AdamW
-update and the blockwise quantize/dequantize. Every test here needs an NVIDIA GPU with nvcc (the kernels have no
+update, the blockwise quantize/dequantize and the fp8 matmul. Every test here needs an NVIDIA GPU with nvcc (the kernels have no
 CPU mode) and skips without one. Run them on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
@@ -12,7 +12,10 @@ rounded to bf16 at other points of the sums); AdamW 1e-6 of the largest
 plain value (every operation IEEE-rounded in the plain version's order,
 only powf of the bias corrections may differ by an ulp); quantize and
 dequantize bit for bit (every operation IEEE-rounded in the plain version's
-order), except the int8 value of a NaN element, which is undefined in both.
+order), except the int8 value of a NaN element, which is undefined in both;
+the fp8 matmul 1e-4 of the largest plain output in fp32 and 8e-3 in bf16
+(exact products, fp32 sums in another order; one bf16 rounding), the fp8
+state its Function returns bit for bit (the same torch operations).
 """
 
 import dataclasses
@@ -414,3 +417,166 @@ def test_a_kernel_build_failure_propagates_out_of_the_train_step(gen,
     with pytest.raises(RuntimeError, match="quant_blockwise"):
         step(state, batch)
     assert tq.launches_quant == 0
+
+
+# -- kernel 8: the fp8 matmul -------------------------------------------------
+
+_F8 = {"e4m3": torch.float8_e4m3fn, "e5m2": torch.float8_e5m2}
+
+
+def _fp8_operand(gen, rows, cols, dtype, contiguous_dim):
+    """A [rows, cols] fp8 operand with the given dim contiguous (a
+    transposed view when it is dim 0)."""
+    if contiguous_dim == 1:
+        x = torch.randn((rows, cols), generator=gen, device="cuda")
+    else:
+        x = torch.randn((cols, rows), generator=gen, device="cuda").t()
+    x = (x * 4).to(dtype)
+    assert x.stride(contiguous_dim) == 1
+    return x
+
+
+def _fp8_check(x, w, out_dtype, scale=0.37):
+    s = torch.tensor(scale, device="cuda")
+    got = tq.fp8_matmul(x, w, s, out_dtype=out_dtype)
+    ref = tq.fp8_matmul_reference(x, w, s, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == ref.dtype == out_dtype
+    tol = 1e-4 if out_dtype == torch.float32 else 8e-3
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= tol * max(ref.float().abs().max().item(), 1e-30), err
+    return got
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("pair", ["e4m3-e4m3", "e5m2-e4m3", "e4m3-e5m2"])
+@pytest.mark.parametrize("layout", ["kk", "kn", "mk", "mn"])
+@pytest.mark.parametrize("m,k,n", [(5, 300, 70), (16, 512, 128),
+                                   (1, 257, 10), (130, 129, 260),
+                                   (256, 8192, 192)])
+def test_fp8_matmul_kernel_matches_plain(gen, m, k, n, layout, pair,
+                                         out_dtype):
+    # layout: which dim of x [M, K] and of w [K, N] is contiguous (k, or
+    # m / n: a transposed view); (256, 8192, 192) splits the contraction.
+    fx, fw = (_F8[f] for f in pair.split("-"))
+    x = _fp8_operand(gen, m, k, fx, 1 if layout[0] == "k" else 0)
+    w = _fp8_operand(gen, k, n, fw, 0 if layout[1] == "k" else 1)
+    tq.reset_launches()
+    _fp8_check(x, w, out_dtype)
+    assert tq.launches_fp8_matmul == 1
+
+
+def test_fp8_matmul_kernel_unaligned_and_edge_operands(gen):
+    # Operands off a 16-byte boundary take byte loads; K = 0 gives zeros.
+    buf = (torch.randn((70 * 300 + 1,), generator=gen, device="cuda") * 4).to(
+        torch.float8_e4m3fn)
+    x = buf[1:].view(70, 300)
+    w = _fp8_operand(gen, 300, 48, torch.float8_e4m3fn, 0)
+    _fp8_check(x, w, torch.float32)
+    empty = tq.fp8_matmul(x[:, :0], w[:0], torch.tensor(1.0, device="cuda"))
+    assert empty.shape == (70, 48) and not empty.any()
+    # NaN and saturated values go through the products as the plain
+    # version's do.
+    yf = x.float()
+    yf[3, 5] = float("nan")
+    got = tq.fp8_matmul(yf.to(torch.float8_e4m3fn), w,
+                        torch.tensor(1.0, device="cuda"))
+    assert torch.isnan(got[3]).all() and torch.isfinite(got[4]).all()
+
+
+def test_fp8_matmul_kernel_rejects_what_it_does_not_take(gen):
+    x = _fp8_operand(gen, 32, 64, torch.float8_e4m3fn, 1)
+    w = _fp8_operand(gen, 64, 16, torch.float8_e4m3fn, 1)
+    s = torch.tensor(1.0, device="cuda")
+    with pytest.raises(ValueError, match="unit stride"):
+        tq.fp8_matmul(x[:, ::2], w[::2], s)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tq.fp8_matmul(x, w, s, out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="on cpu"):
+        tq.fp8_matmul(x, w.cpu(), s)
+
+
+def _fp8_linear_plain(x, w, kr, xh, kh, gh, g):
+    """Fp8Linear's forward and backward written out with the plain
+    matmul."""
+    from horovod_tpu_torch.ops.quantization import (
+        E4M3_MAX, E5M2_MAX, fp8_push_amax, fp8_saturating_cast,
+        fp8_scale_from_history)
+
+    sx = fp8_scale_from_history(xh, E4M3_MAX)
+    sk = fp8_scale_from_history(kh, E4M3_MAX)
+    kc = w.float() + kr
+    qx = fp8_saturating_cast(x, sx, torch.float8_e4m3fn, E4M3_MAX).flatten(0, -2)
+    qk = fp8_saturating_cast(kc, sk, torch.float8_e4m3fn, E4M3_MAX)
+    out = tq.fp8_matmul_reference(qx, qk.t(), sx * sk, out_dtype=x.dtype)
+    sg = fp8_scale_from_history(gh, E5M2_MAX)
+    qg = fp8_saturating_cast(g, sg, torch.float8_e5m2, E5M2_MAX).flatten(0, -2)
+    dx = tq.fp8_matmul_reference(qg, qk, sg * sk, out_dtype=x.dtype)
+    dw = tq.fp8_matmul_reference(qg.t(), qx, sx * sg, out_dtype=x.dtype)
+    return (out.reshape(g.shape), dx.reshape(x.shape), dw,
+            (kc - qk.float() * sk), fp8_push_amax(xh, x),
+            fp8_push_amax(kh, kc), fp8_push_amax(gh, g))
+
+
+def test_fp8_linear_on_the_card_matches_the_plain_math(gen):
+    from horovod_tpu_torch.ops.fp8 import Fp8Linear
+
+    def rand(*shape, s=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * s
+
+    x = rand(2, 96, 256, s=2.0).to(torch.bfloat16)
+    w = rand(384, 256, s=0.05).to(torch.bfloat16)
+    kr = rand(384, 256, s=1e-4)
+    xh, kh, gh = (rand(16, s=sc).abs() for sc in (6.0, 0.2, 0.03))
+    g = rand(2, 96, 384, s=0.01).to(torch.bfloat16)
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, kr, xh, kh, gh)]
+    tq.reset_launches()
+    out = Fp8Linear.apply(*leaves)
+    grads = torch.autograd.grad(out, leaves, g)
+    assert tq.launches_fp8_matmul == 3  # forward, dX, dW
+    want = _fp8_linear_plain(x, w, kr, xh, kh, gh, g)
+    for got, ref in zip((out.detach(),) + grads[:2], want[:3]):
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= 8e-3 * ref.float().abs().max().item()
+    for got, ref in zip(grads[2:], want[3:]):
+        assert torch.equal(got, ref)
+
+
+def test_fp8_train_step_on_the_card_launches_the_kernel(gen):
+    # GPT-2 tiny (head dim 64) with compute_dtype="fp8" on a one-rank NCCL
+    # world: 18 fp8 matmuls a layer a step (6 forward, 6 dX, 6 dW), the
+    # flash kernels once a layer, and the loss falls.
+    import horovod_tpu_torch as hvt
+    import torch.nn.functional as F
+
+    cfg = hvt.GPT2Config.tiny(d_model=128, n_heads=2, compute_dtype="fp8",
+                              param_dtype=torch.float32)
+    hvt.init(backend="nccl")
+    try:
+        model = hvt.GPT2LMModel(cfg)
+        model.load_state_dict(hvt.convert.init_params(cfg, seed=0))
+
+        def loss_fn(p, t):
+            logits = torch.func.functional_call(model, p, (t[:, :-1],))
+            return F.cross_entropy(logits.flatten(0, 1), t[:, 1:].flatten())
+
+        step, opt = hvt.make_train_step(loss_fn, hvt.adamw(1e-3),
+                                        compute_dtype="fp8")
+        state = hvt.init_state(model, opt)
+        tokens = torch.randint(0, cfg.vocab_size, (4, 65), device="cuda",
+                               generator=gen)
+        tq.reset_launches()
+        fa.reset_launches()
+        losses = []
+        for _ in range(3):
+            state, loss = step(state, tokens)
+            losses.append(float(loss))
+        assert tq.launches_fp8_matmul == 3 * 18 * cfg.n_layers
+        assert fa.launches == fa.launches_dkdv == fa.launches_dq == 3 * 2
+        assert losses[-1] < losses[0]
+        gauges = hvt.fp8_state_gauges(state.params)
+        assert gauges["fp8.amax_max"] > 0
+    finally:
+        hvt.shutdown()

@@ -240,15 +240,19 @@ def test_flash_path_runs_the_plain_version_on_cpu():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(remat="full"), "remat"),
-    (dict(compute_dtype="fp8"), "compute_dtype"),
+    (dict(compute_dtype="fp16"), "compute_dtype"),
 ])
 def test_unported_options_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
+    # compute_dtype="fp8" is ported (test_torch_port_fp8.py); another
+    # compute dtype is refused as the JAX package refuses it.
+    err = ValueError if "compute_dtype" in kw else NotImplementedError
+    with pytest.raises(err, match=match):
         GPT2LMModel(GPT2Config.tiny(**kw), device="cpu")
 
 
 def test_act_quant_and_dense_mask_raise():
-    with pytest.raises(NotImplementedError, match="act_quant"):
+    with pytest.raises(NotImplementedError,
+                       match="act_quant.*its own slice .ops/actquant.py."):
         GPT2LMModel(GPT2Config.tiny(), device="cpu", act_quant="int8")
     m = GPT2LMModel(GPT2Config.tiny(use_flash=False), device="cpu")
     x = torch.zeros((1, 4, 64), dtype=torch.bfloat16)
