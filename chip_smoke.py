@@ -130,11 +130,42 @@ Phases (any failure exits non-zero; nothing is caught):
    the first layer's fc (its real input and trained state) against the
    same math on fp8_matmul_reference (out, dx, dw within 8e-3; the four
    state gradients bit for bit), and one profiled fp8 step.
-13. Output: a "kernels" JSON line (the seven kernels; "launches" is the
+13. [int8] Kernel 7 vs its plain version (int8_weight_matmul_reference):
+   the reference test's ragged cases (5, 300, 70), (16, 512, 128),
+   (1, 64, 10), (130, 1000, 260) and (33, 17, 129) (K not a multiple of 16;
+   rows off 16-byte boundaries) with fp32 and bf16 activations, and the four GPT-2-small serving products (768->2304,
+   768->768, 768->3072, 3072->768; bf16, weights quantized on the card) at
+   M = 8192 (a batch of 8 x 1024) and M = 8 (decode-sized). Largest
+   difference relative to the largest plain value: <= 1e-5 (fp32),
+   <= 8e-3 (bf16). Each product timed with time_ms beside the plain
+   version, torch._weight_int8pack_mm where the build runs it on CUDA (a
+   yardstick the port never calls; its scales in bf16), and F.linear of
+   the bf16-dequantized weight (cuBLAS, the cost the int8 path replaces:
+   "bf16_ms"), each also by its device time under torch.profiler (at
+   M = 8 the events time the host's launches), with its bound: bf16 x and
+   out, int8 weight and fp32 scales over 3.35 TB/s, or its operations over
+   989 TFLOP/s, the larger; summed over one batch's 48 launches.
+14. [serve-int8] GPT-2 small through ServePool(weight_dtype="int8") from a
+   copy of the serving phase's step-1 fp32 checkpoint (2 workers, batch 8,
+   5 rounds of 64 x 1024-token requests): after load every Dense holds an
+   int8 payload and fp32 scales and no floating weight, kernel 4 ran 48
+   times (one restore), layer 0's fc payload and scales equal the CPU plain
+   quantize_weight of the checkpoint's fp32 tensor bit for bit; the model's
+   weight bytes beside the bf16 pool's. Launch counts, set to 0 just before
+   the rounds: kernel 7 = 48 x batches, flash forward = 12 x batches. The
+   first 8 answers against a bf16 model holding the dequantized weights
+   (cuBLAS): max |d logits| <= 0.05 max |logits| and the same argmax where
+   the top-2 margin exceeds that bound; their relative L2 against the bf16
+   pool's answers (the quantization's own error, no bound). One profiled
+   window (kernel 7 its own category); then step 2 is published and the
+   pool must roll onto it one worker at a time, int8 again (48 kernel-4
+   launches a worker), with changed answers.
+15. Output: a "kernels" JSON line (the nine kernels; "launches" is the
    training run's count -- for the quantize pair the int8 [train-quant]
-   run's, for kernel 8 the fp8 [train-fp8] run's -- the forward kernel's
-   serving count beside it as "launches_serve"), the card's name and
-   power limit, and the last line {"ok": true, "device": {...}}.
+   run's, for kernel 8 the fp8 [train-fp8] run's, for kernel 7 the
+   [serve-int8] rounds' -- the forward kernel's serving count beside it as
+   "launches_serve"), the card's name and power limit, and the last line
+   {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -172,6 +203,10 @@ FP8_FLOPS_PER_S = 1979e12  # dense fp8 tensor cores
 # products and fp32 sums in another order; bf16 adds one rounding.
 FP8_TOL = {torch.float32: 1e-4, torch.bfloat16: 8e-3}
 FP8_BATCH, FP8_STEPS, FP8_LR, FP8_LOSS_RTOL = 16, 12, 1e-3, 0.15
+# Kernel 7 vs its plain version, relative to the largest plain value: exact
+# products, fp32 sums in another order; bf16 adds one rounding.
+INT8_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+SERVE_REQUESTS, SERVE_BATCH = 64, 8
 
 
 def log(msg: str) -> None:
@@ -575,7 +610,8 @@ def kernel_category(name: str) -> str:
     # the other.
     for kernel in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
                    "fused_adamw", "dequantize_blockwise",
-                   "quantize_blockwise", "fp8_matmul_reduce", "fp8_matmul"):
+                   "quantize_blockwise", "fp8_matmul_reduce", "fp8_matmul",
+                   "int8_matmul"):
         if kernel + "_kernel" in n:
             return kernel
     if "nccl" in n:
@@ -622,7 +658,33 @@ def kernel_ms(fn, calls):
     _, by_cat = device_ms_by_name(prof)
     return {c: ms / calls for c, ms in by_cat.items()
             if c.startswith(("flash", "fused", "quantize", "dequantize",
-                             "fp8"))}
+                             "fp8", "int8"))}
+
+
+def device_ms(fn, calls=20):
+    """Device ms a call of ``fn``, which launches each of its kernels once a
+    call, from torch.profiler over ``calls`` calls after a warm-up: for
+    calls too short for time_ms, whose back-to-back events then time the
+    host's launches. Each kernel's time is its mean over the launches the
+    window recorded (the first launches of a window can go unrecorded)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.count:
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            total += us / 1e3 / e.count
+    return total
 
 
 def host_calls(prof):
@@ -833,7 +895,8 @@ def read_counts(fa, fadam, tq):
             "flash_bwd_dq": fa.launches_dq, "fused_adamw": fadam.launches,
             "quantize_blockwise": tq.launches_quant,
             "dequantize_blockwise": tq.launches_dequant,
-            "fp8_matmul": tq.launches_fp8_matmul}
+            "fp8_matmul": tq.launches_fp8_matmul,
+            "int8_matmul": tq.launches_int8_matmul}
 
 
 def quant_train_run(hvt, kernels, cfg, sd0, tokens, compression, *, label,
@@ -1290,7 +1353,7 @@ def serve(hvt, fa, workdir):
     from horovod_tpu_torch.serve import ServePool
 
     cfg = hvt.GPT2Config.small()
-    n_req, seq, batch = 64, cfg.max_len, 8
+    n_req, seq, batch = SERVE_REQUESTS, cfg.max_len, SERVE_BATCH
     t0 = time.perf_counter()
     params = hvt.convert.init_params(cfg, seed=0)
     hvt.save_checkpoint(workdir, params, step=1)
@@ -1388,7 +1451,343 @@ def serve(hvt, fa, workdir):
     return {"launches": launches, "batches": batches, "rounds": rounds,
             "req_per_s_median": float(np.median(
                 [r["req_per_s"] for r in rounds])),
-            "logit_err": err, "profile": prof}
+            "logit_err": err, "profile": prof,
+            "answers8": torch.stack(answers[:batch])}
+
+
+def int8_products(cfg):
+    """Kernel 7's calls in one GPT-2 serving batch: ``(name, launches a
+    batch, K, N)``."""
+    d, f, layers = cfg.d_model, cfg.d_ff, cfg.n_layers
+    return [("qkv", layers, d, 3 * d), ("out", layers, d, d),
+            ("fc", layers, d, f), ("proj", layers, f, d)]
+
+
+def int8_compare(tq, x, qw):
+    """Kernel 7 vs its plain version on one call: (max |d|, relative to the
+    largest plain value)."""
+    got = tq.int8_weight_matmul(x, qw)
+    ref = tq.int8_weight_matmul_reference(x, qw)
+    torch.cuda.synchronize()
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"int8_weight_matmul {got.shape} {got.dtype} vs "
+                             f"plain {ref.shape} {ref.dtype}")
+    err = (got.float() - ref.float()).abs().max().item()
+    rel = err / max(ref.float().abs().max().item(), 1e-30)
+    if not rel <= INT8_TOL[x.dtype]:
+        raise AssertionError(
+            f"int8 matmul kernel disagrees with its plain version on x "
+            f"{tuple(x.shape)} {x.dtype} x w {tuple(qw.shape)}: {rel} "
+            f"(tol {INT8_TOL[x.dtype]})")
+    return err, rel
+
+
+def int8pack_call(x2, qw):
+    """torch._weight_int8pack_mm on the same operands, the yardstick (the
+    port never calls it; it takes its scales in x's dtype), as a callable;
+    None where the build does not run it on CUDA."""
+    w_nk = qw.q.t()
+    scales = qw.scales.to(x2.dtype)
+
+    def call():
+        return torch._weight_int8pack_mm(x2, w_nk, scales)
+
+    try:
+        call()
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError, AttributeError, NotImplementedError) as exc:
+        log(f"[int8] torch._weight_int8pack_mm does not run here: "
+            f"{str(exc).splitlines()[0][:160]}")
+        return None
+    return call
+
+
+def _int8_times(rec):
+    def ms(key):
+        return "-" if rec[key] is None else f"{rec[key]:.4f}"
+
+    return (f"ms by events / device: kernel {ms('ms')} / {ms('device_ms')}, "
+            f"plain {ms('plain_ms')}, _weight_int8pack_mm {ms('library_ms')} / "
+            f"{ms('device_library_ms')}, bf16 F.linear {ms('bf16_ms')} / "
+            f"{ms('device_bf16_ms')}; bound {ms('bound_ms')} ({rec['bound_by']})")
+
+
+def int8_case(tq, gen, cfg):
+    """[int8]: kernel 7 vs its plain version on ragged cases and at one
+    serving batch's products (M = 8192) and decode-sized ones (M = 8), the
+    latter two timed beside the plain version, the library call and the
+    bf16 cuBLAS product of the dequantized weight, each with its bound."""
+    import torch.nn.functional as F
+
+    err = rel = 0.0
+    rng = np.random.RandomState(6)
+    for mm, kk, nn in ((5, 300, 70), (16, 512, 128), (1, 64, 10),
+                       (130, 1000, 260), (33, 17, 129)):
+        w = torch.from_numpy(rng.randn(kk, nn).astype(np.float32)).cuda()
+        x = torch.from_numpy(rng.randn(mm, kk).astype(np.float32)).cuda()
+        qw = tq.quantize_weight(w)
+        for dtype in (torch.float32, torch.bfloat16):
+            e, r = int8_compare(tq, x.to(dtype), qw)
+            err, rel = max(err, e), max(rel, r)
+    log(f"[int8] ragged cases, fp32 and bf16: max |d| {err:.3e}, relative "
+        f"{rel:.3e}")
+    cases, sums = [], {}
+    timed = ("ms", "plain_ms", "library_ms", "bf16_ms")
+    for m, label in ((SERVE_BATCH * cfg.max_len, "batch"),
+                     (SERVE_BATCH, "decode")):
+        tot = {"bound_ms": 0.0, "t_bytes": 0.0, "t_ops": 0.0, "launches": 0,
+               "m": m}
+        for key in timed:
+            tot[key] = tot["device_" + key] = 0.0
+        for name, count, kk, nn in int8_products(cfg):
+            rows = (SERVE_BATCH, m // SERVE_BATCH)  # [B, S, K] as the model
+            x = torch.randn((*rows, kk), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            qw = tq.quantize_weight(
+                torch.randn((kk, nn), generator=gen, device="cuda") * 0.02)
+            e, r = int8_compare(tq, x, qw)
+            err, rel = max(err, e), max(rel, r)
+            x2 = x.reshape(m, kk)
+            w_bf16 = tq.dequantize_weight(qw).t().contiguous().to(
+                torch.bfloat16)
+            rec = {"name": name, "launches_per_batch": count, "m": m,
+                   "k": kk, "n": nn, "rel_err": r}
+            fns = {"ms": lambda: tq.int8_weight_matmul(x, qw),
+                   "plain_ms": lambda: tq.int8_weight_matmul_reference(x, qw),
+                   "library_ms": int8pack_call(x2, qw),
+                   "bf16_ms": lambda: F.linear(x2, w_bf16)}
+            # Event times; at M = 8 they time the host's launches, so each
+            # call's device time (torch.profiler) stands beside them -- not
+            # the plain version's, which launches a kernel many times a call.
+            for key, fn in fns.items():
+                slow = key in ("plain_ms", "library_ms")
+                rec[key] = None if fn is None else time_ms(
+                    fn, **(dict(samples=5, per_sample=3) if slow else {}))
+                rec["device_" + key] = (
+                    None if fn is None or key == "plain_ms"
+                    else device_ms(fn, calls=5 if slow else 20))
+            nbytes = 2 * m * kk + kk * nn + 4 * nn + 2 * m * nn
+            flops = 2 * m * nn * kk
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = flops / BF16_FLOPS_PER_S
+            rec.update(bytes=nbytes, flops=flops,
+                       bound_ms=max(t_bytes, t_ops) * 1e3,
+                       bound_by="bytes" if t_bytes >= t_ops else "operations")
+            # Rates from the kernel's device time.
+            rec["tflops"] = flops / rec["device_ms"] / 1e9
+            rec["gbytes_per_s"] = nbytes / rec["device_ms"] / 1e6
+            log(f"[int8] {label} {name}: [{m}, {kk}] x [{kk}, {nn}] bf16 x "
+                f"int8 ({rec['tflops']:.1f} TFLOP/s, "
+                f"{rec['gbytes_per_s']:.0f} GB/s), {_int8_times(rec)}; "
+                f"relative error {r:.3e}")
+            cases.append(rec)
+            for key in [*timed, *("device_" + k for k in timed), "bound_ms"]:
+                tot[key] = (None if tot[key] is None or rec[key] is None
+                            else tot[key] + count * rec[key])
+            tot["t_bytes"] += count * t_bytes * 1e3
+            tot["t_ops"] += count * t_ops * 1e3
+            tot["launches"] += count
+            del x, x2, qw, w_bf16, fns
+        tot["bound_by"] = ("bytes" if tot["t_bytes"] >= tot["t_ops"]
+                           else "operations")
+        log(f"[int8] one {label}'s {tot['launches']} launches (M = {m}), "
+            f"{_int8_times(tot)}")
+        sums[label] = tot
+    log(f"[int8] max |d| {err:.3e}, relative {rel:.3e}")
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "max_rel_err": rel, "batch": sums["batch"],
+            "decode": sums["decode"], "cases": cases}
+
+
+def _dense_layers(model):
+    from horovod_tpu_torch.models.transformer import Dense
+
+    return [m for m in model.modules() if isinstance(m, Dense)]
+
+
+def check_int8_model(model, where):
+    """Every Dense holds an int8 payload and fp32 scales, no floating
+    weight."""
+    dense = _dense_layers(model)
+    bad = [i for i, m in enumerate(dense)
+           if not m.quantized or "weight" in m._parameters
+           or m.weight_q.dtype != torch.int8
+           or m.weight_scales.dtype != torch.float32]
+    if not dense or bad:
+        raise AssertionError(f"{where}: Dense layers {bad} of {len(dense)} "
+                             "are not int8")
+
+
+def weight_bytes(model):
+    """(all parameter and buffer bytes, the projections' bytes)."""
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    total = nbytes(list(model.parameters()) + list(model.buffers()))
+    proj = sum(nbytes([m.weight_q, m.weight_scales]) if m.quantized
+               else nbytes([m.weight]) for m in _dense_layers(model))
+    return total, proj
+
+
+def serve_int8(hvt, fa, tq, workdir, bf16_answers):
+    """[serve-int8]: GPT-2 small through ServePool(weight_dtype="int8")."""
+    from horovod_tpu_torch.serve import ServePool
+
+    cfg = hvt.GPT2Config.small()
+    n_req, seq, batch = SERVE_REQUESTS, cfg.max_len, SERVE_BATCH
+    per_restore = 4 * cfg.n_layers
+    ckdir = Path(workdir) / "int8"
+    shutil.copytree(Path(workdir) / "step_1", ckdir / "step_1")
+    ckdir = str(ckdir)
+    fc_name = "transformer.blocks.0.mlp.fc.weight"
+    fc32 = hvt.restore_checkpoint(
+        ckdir, {fc_name: torch.zeros((cfg.d_ff, cfg.d_model))})[fc_name]
+    template = hvt.GPT2LMModel(cfg, device="cuda")
+
+    def infer(model, tokens):
+        return model(tokens)[:, -1, :]
+
+    tq.reset_launches()
+    t0 = time.perf_counter()
+    pool = ServePool(
+        infer, ckpt_dir=ckdir, ckpt_target=template, workers=2,
+        batch_size=batch, batch_timeout_ms=5.0, request_timeout_secs=600.0,
+        ckpt_poll_secs=0.2, device="cuda", weight_dtype="int8",
+    ).start()
+    try:
+        load_s = time.perf_counter() - t0
+        quant_load = tq.launches_quant
+        model = pool._init_params
+        check_int8_model(model, "after load")
+        if quant_load != per_restore:
+            raise AssertionError(f"kernel 4 launched {quant_load} times at "
+                                 f"load, not {per_restore}")
+        want = tq.quantize_weight(fc32.t())  # the plain version, on the CPU
+        fc = model.transformer.blocks[0].mlp.fc
+        same_fc = (torch.equal(fc.quantized_weight().q.cpu(), want.q)
+                   and torch.equal(fc.weight_scales.cpu().view(torch.int32),
+                                   want.scales.view(torch.int32)))
+        if not same_fc:
+            raise AssertionError("layer 0's fc payload differs from the plain "
+                                 "quantize_weight of the fp32 checkpoint")
+        total, proj = weight_bytes(model)
+        total16, proj16 = weight_bytes(template)
+        log(f"[serve-int8] loaded in {load_s:.1f} s; kernel 4 launches "
+            f"{quant_load}; every Dense int8; layer 0 fc bit for bit with the "
+            f"CPU plain quantize_weight; weight bytes {total} (projections "
+            f"{proj}) vs the bf16 pool's {total16} ({proj16})")
+        tokens = np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (n_req, seq), dtype=np.int64)
+        with torch.inference_mode():  # warm-up
+            infer(model, torch.from_numpy(tokens[:batch]).cuda())
+        torch.cuda.synchronize()
+
+        fa.reset_launches()
+        tq.reset_launches()
+        batches0 = pool.dispatcher.n_batches
+        rounds, answers = [], None
+        for r in range(SERVE_ROUNDS):
+            t0 = time.perf_counter()
+            futs = [pool.submit(torch.from_numpy(t)) for t in tokens]
+            got = [f.result(timeout=600.0) for f in futs]
+            wall = time.perf_counter() - t0
+            lat = np.asarray(list(pool.dispatcher.latencies)[-n_req:])
+            p50, p95 = (float(np.percentile(lat, q)) * 1e3 for q in (50, 95))
+            rounds.append({"req_per_s": n_req / wall,
+                           "tokens_per_s": n_req * seq / wall,
+                           "p50_ms": p50, "p95_ms": p95})
+            log(f"[serve-int8] round {r}: {n_req} requests in {wall:.4f} s: "
+                f"{n_req / wall:.2f} req/s, {n_req * seq / wall:.1f} "
+                f"tokens/s; latency p50 {p50:.2f} ms, p95 {p95:.2f} ms")
+            answers = answers or got
+        launches = {"int8_matmul": tq.launches_int8_matmul,
+                    "flash_fwd": fa.launches}
+        batches = pool.dispatcher.n_batches - batches0
+        log(f"[serve-int8] {SERVE_ROUNDS} x {n_req} requests in {batches} "
+            f"batches; launches {launches}")
+        if launches != {"int8_matmul": per_restore * batches,
+                        "flash_fwd": cfg.n_layers * batches}:
+            raise AssertionError(
+                f"launches {launches} in {batches} batches: the main path "
+                f"did not run kernel 7 once a projection and the flash "
+                f"kernel once a layer")
+        for a in answers:
+            if a.shape != (cfg.vocab_size,) or a.dtype != torch.float32:
+                raise AssertionError(f"bad answer {a.shape} {a.dtype}")
+            if not torch.isfinite(a).all():
+                raise AssertionError("non-finite logits")
+
+        # A bf16 model holding the dequantized weights, on cuBLAS.
+        deq = hvt.GPT2LMModel(cfg, device="cuda")
+        sd = {}
+        for name, t in model.state_dict().items():
+            if name.endswith(".weight_scales"):
+                continue
+            if name.endswith(".weight_q"):
+                pre = name[:-len("weight_q")]
+                qw = tq.QuantizedWeight(t.t(), model.state_dict()[
+                    pre + "weight_scales"], "float32")
+                sd[pre + "weight"] = tq.dequantize_weight(qw).t()
+            else:
+                sd[name] = t
+        deq.load_state_dict(sd)
+        with torch.inference_mode():
+            ref = infer(deq, torch.from_numpy(tokens[:batch]).cuda()).cpu()
+        del deq, sd
+        got = torch.stack(answers[:batch])
+        err = (got - ref).abs().max().item()
+        bound = 0.05 * ref.abs().max().item()
+        top2 = ref.topk(2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > bound
+        same = got.argmax(-1) == ref.argmax(-1)
+        rel_l2 = float((got - bf16_answers).norm() / bf16_answers.norm())
+        argmax_bf16 = int((got.argmax(-1) == bf16_answers.argmax(-1)).sum())
+        log(f"[serve-int8] kernel 7 vs the dequantized bf16 model (cuBLAS): "
+            f"max|d|={err:.4e} (bound {bound:.4e}); argmax agrees on "
+            f"{int(same.sum())}/{batch} rows, {int(decided.sum())} decided; "
+            f"relative L2 against the bf16 pool's answers {rel_l2:.4e} "
+            f"(argmax agrees on {argmax_bf16}/{batch})")
+        if err > bound or not bool(same[decided].all()):
+            raise AssertionError("int8 answers disagree with the dequantized "
+                                 "bf16 model")
+        prof = profile_serving(pool, tokens[:16])
+
+        tq.reset_launches()
+        hvt.save_checkpoint(ckdir, hvt.convert.init_params(cfg, seed=2),
+                            step=2)
+        t0 = time.time()
+        while len(pool.swap_log) < 2 and time.time() - t0 < 300.0:
+            time.sleep(0.05)
+        log(f"[serve-int8] swap_log {pool.swap_log}; kernel 4 launches "
+            f"{tq.launches_quant}")
+        if sorted(w for w, _, _, _ in pool.swap_log) != ["w0", "w1"] or any(
+            s != 2 for _, s, _, _ in pool.swap_log
+        ):
+            raise AssertionError("the int8 pool did not roll onto step 2")
+        ivals = sorted((a, b) for _, _, a, b in pool.swap_log)
+        if any(end > start for (_, end), (start, _) in zip(ivals, ivals[1:])):
+            raise AssertionError("hot-swap windows overlap")
+        for w in pool._workers.values():
+            check_int8_model(w.params, f"worker {w.name} after the swap")
+        if tq.launches_quant != 2 * per_restore:
+            raise AssertionError(f"kernel 4 launched {tq.launches_quant} "
+                                 f"times in the swap, not 2 x {per_restore}")
+        after = pool.submit(torch.from_numpy(tokens[0])).result(timeout=600.0)
+        if not torch.isfinite(after).all() or torch.equal(after, answers[0]):
+            raise AssertionError("step-2 weights are not being served")
+    finally:
+        pool.stop()
+        shutil.rmtree(ckdir, ignore_errors=True)
+    return {"launches": launches["int8_matmul"],
+            "launches_flash_fwd": launches["flash_fwd"], "batches": batches,
+            "rounds": rounds, "req_per_s_median": float(np.median(
+                [r["req_per_s"] for r in rounds])),
+            "quant_launches_per_restore": quant_load,
+            "weight_bytes": total, "projection_bytes": proj,
+            "weight_bytes_bf16": total16, "projection_bytes_bf16": proj16,
+            "load_s": load_s, "logit_err": err, "logit_bound": bound,
+            "rel_l2_vs_bf16_pool": rel_l2, "argmax_vs_bf16_pool": argmax_bf16,
+            "profile": prof}
 
 
 def main() -> int:
@@ -1447,6 +1846,9 @@ def main() -> int:
     workdir = tempfile.mkdtemp(prefix="smoke-", dir=_build.BUILD_DIR)
     try:
         served = serve(hvt, fa, workdir)
+        int8 = int8_case(tq, gen, hvt.GPT2Config.small())
+        served_int8 = serve_int8(hvt, fa, tq, workdir,
+                                 served.pop("answers8"))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -1543,9 +1945,34 @@ def main() -> int:
         "bound_by": step8["bound_by"],
         "library_ms": step8["library_ms"],
     })
+    # Kernel 7: "ms", "plain_ms", "library_ms", "bf16_ms" and "bound_ms" are
+    # one serving batch's 48 launches at M = 8192 ("device_ms" the kernel's
+    # profiled device time); "decode" the same at M = 8, where the event
+    # times are the host's and the device_* times the card's.
+    batch7, decode7 = int8["batch"], int8["decode"]
+    kernels.append({
+        "name": "int8_matmul",
+        "route": "cuda",
+        "source": src + "int8_matmul.cu",
+        "replaces": ref + "1162",
+        "launches": served_int8["launches"],
+        "launches_per_batch": batch7["launches"],
+        "max_abs_err": int8["max_abs_err"],
+        "max_rel_err": int8["max_rel_err"],
+        "ms": batch7["ms"],
+        "plain_ms": batch7["plain_ms"],
+        "bound_ms": batch7["bound_ms"],
+        "bound_by": batch7["bound_by"],
+        "library_ms": batch7["library_ms"],
+        "bf16_ms": batch7["bf16_ms"],
+        "device_ms": batch7["device_ms"],
+        "decode": {k: v for k, v in decode7.items()
+                   if k not in ("t_bytes", "t_ops")},
+    })
     print(json.dumps({"kernels": kernels, "train": trained, "quant": quant,
                       "train_quant": quant_trained, "fp8": fp8,
-                      "train_fp8": fp8_trained, "serve": served}),
+                      "train_fp8": fp8_trained, "serve": served,
+                      "int8": int8, "serve_int8": served_int8}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,10 +9,12 @@ trains it data-parallel through :func:`~horovod_tpu_torch.parallel.dp.
 make_train_step` (replicated, or ZeRO-1 sharded with the fused AdamW
 update; the gradient wire uncompressed, cast, or blockwise-quantized to
 int8/fp8 with error feedback; the projections in bf16 or, with
-``compute_dtype="fp8"``, in fp8 under delayed scaling) on NVIDIA H100s.
-Its kernels are hand-written CUDA C++ under ``csrc/`` (the flash-attention
-forward and backward, the fused AdamW update, the blockwise quantize and
-dequantize, the fp8 matmul), built with nvcc at first use. Entry points run on the card unless
+``compute_dtype="fp8"``, in fp8 under delayed scaling) on NVIDIA H100s;
+``ServePool(weight_dtype="int8")`` serves int8 weights with per-column
+scales. Its kernels are hand-written CUDA C++ under ``csrc/`` (the
+flash-attention forward and backward, the fused AdamW update, the blockwise
+quantize and dequantize, the fp8 matmul, the int8-weight matmul), built with
+nvcc at first use. Entry points run on the card unless
 the caller passes ``device="cpu"``; without CUDA the default raises.
 """
 
@@ -65,6 +67,14 @@ from .ops.fp8 import (  # noqa: F401
     fp8_state_gauges,
     fp8_state_optimizer,
     has_fp8_state,
+)
+from .ops.quantization import (  # noqa: F401
+    QuantizedWeight,
+    dequantize_weight,
+    int8_weight_matmul,
+    qmatmul,
+    quantize_params,
+    quantize_weight,
 )
 from .ops.fusion import (  # noqa: F401
     fused_allgather,

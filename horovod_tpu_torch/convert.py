@@ -17,6 +17,11 @@ two layouts, and :func:`params_to_flax` undoes them:
   value on ``attn.qkv.{query,key,value}.fp8_*`` -- the rings as they are,
   the residual with its kernel's reshape and transpose.
 
+:func:`quantized_weight_from_jax` carries the JAX package's
+``QuantizedWeight`` (its ``q`` ``[K, N]`` and ``scales`` as numpy arrays)
+into the port's layout, ``[N, K]`` row-major storage read as its ``[K, N]``
+transposed view.
+
 :func:`init_params` makes GPT-2 weights on the port's side from a numpy
 seed, drawn as flax initializes them (truncated-normal fan-in kernels,
 normal ``1/sqrt(D)`` embeddings, zero biases, unit LayerNorm scales, zero
@@ -33,6 +38,7 @@ import torch
 
 from .models.transformer import TransformerConfig
 from .ops.fp8 import STATE_NAMES
+from .ops.quantization import QuantizedWeight
 from .utils import env as _env
 
 FP8_SCOPE = "Fp8DotGeneral_0"  # the flax scope of a Dense's fp8 state
@@ -177,6 +183,18 @@ def params_to_flax(state_dict: Mapping[str, Any], n_heads: int) -> Dict[str, Any
         }
     tr = {k: _contiguous(v) for k, v in tr.items()}
     return {"params": {"transformer": tr}}
+
+
+def quantized_weight_from_jax(qw) -> QuantizedWeight:
+    """The port's :class:`~.ops.quantization.QuantizedWeight` (on the CPU)
+    holding exactly the payload of the JAX package's: ``qw.q`` int8
+    ``[K, N]``, ``qw.scales`` fp32 ``[N]`` (anything numpy converts) and
+    ``qw.dtype_name``."""
+    storage = np.ascontiguousarray(np.asarray(qw.q, dtype=np.int8).T)
+    scales = np.array(qw.scales, dtype=np.float32)
+    return QuantizedWeight(torch.from_numpy(storage).t(),
+                           torch.from_numpy(scales),
+                           str(getattr(qw, "dtype_name", "float32")))
 
 
 def _contiguous(tree):

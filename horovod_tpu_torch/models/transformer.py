@@ -41,6 +41,12 @@ fp8 products on the three row blocks of its weight (contiguous views), each
 with its own state under the JAX package's scope name (``qkv.query.fp8_*``,
 ``qkv.key.fp8_*``, ``qkv.value.fp8_*``), and hands the flash kernel three
 outputs. Embeddings, LayerNorms and the tied head stay in ``dtype``.
+
+Int8 serving weights: :func:`..ops.quantization.quantize_params` on a model
+replaces each large ``Dense`` weight with an int8 payload and fp32 column
+scales (buffers ``weight_q`` ``[out, in]`` and ``weight_scales``; no floating
+copy stays) and its forward runs :func:`..ops.quantization.qmatmul` (kernel
+7 on the card), then adds the bias in ``dtype``.
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ from torch import nn
 
 from ..ops.flash_attention import flash_attention
 from ..ops.fp8 import add_fp8_state, fp8_linear, resolve_compute_dtype
+from ..ops.quantization import INT8, QuantizedWeight, qmatmul, quantize_weight
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default (torch's is 1e-5)
 
@@ -139,7 +146,9 @@ class Dense(nn.Module):
     (:meth:`parts` returns them). With ``fp8=True`` the product runs through
     :class:`..ops.fp8.Fp8Linear` and the bias is added after it in
     ``dtype``; the fp8 state sits on the module itself, or on one child per
-    split (named after it) with one fp8 product per block."""
+    split (named after it) with one fp8 product per block. After
+    :meth:`quantize_` the weight is an int8 payload with column scales and
+    the product runs through :func:`..ops.quantization.qmatmul`."""
 
     def __init__(self, d_in: int, d_out: int, *, dtype, device,
                  param_dtype=None, fp8: bool = False, splits=()):
@@ -147,6 +156,7 @@ class Dense(nn.Module):
         self.dtype = dtype
         self.fp8 = fp8
         self.splits = tuple(splits)
+        self.d_out = d_out
         fac = _factory(device, param_dtype or dtype)
         self.weight = nn.Parameter(torch.zeros((d_out, d_in), **fac))
         self.bias = nn.Parameter(torch.zeros((d_out,), **fac))
@@ -159,11 +169,33 @@ class Dense(nn.Module):
         elif fp8:
             add_fp8_state(self, (d_out, d_in), device=device)
 
+    @property
+    def quantized(self) -> bool:
+        return "weight_q" in self._buffers
+
+    def quantize_(self, spec=INT8) -> None:
+        """Replace the floating weight with its int8 payload (``weight_q``,
+        ``[out, in]``) and fp32 column scales (``weight_scales``), quantized
+        from the weight as stored (:func:`..ops.quantization.
+        quantize_weight`); buffers, so ``.to()``, ``deepcopy`` and
+        ``state_dict`` carry them."""
+        qw = quantize_weight(self.weight.detach().t(), spec)
+        self.weight_dtype_name = qw.dtype_name
+        del self.weight
+        self.register_buffer("weight_q", qw.q.t())
+        self.register_buffer("weight_scales", qw.scales)
+
+    def quantized_weight(self) -> QuantizedWeight:
+        return QuantizedWeight(self.weight_q.t(), self.weight_scales,
+                               self.weight_dtype_name)
+
     def forward(self, x):
         if self.fp8 and self.splits:
             return torch.cat(self.parts(x), dim=-1)
-        x, w, b = x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(
-            self.dtype)
+        x, b = x.to(self.dtype), self.bias.to(self.dtype)
+        if self.quantized:
+            return qmatmul(x, self.quantized_weight()) + b
+        w = self.weight.to(self.dtype)
         if self.fp8:
             return fp8_linear(x, w, self) + b
         return F.linear(x, w, b)
@@ -172,8 +204,7 @@ class Dense(nn.Module):
         """The output's row blocks of ``splits``: column views of one product,
         or with fp8 one product per block, each on its own state."""
         if not self.fp8:
-            return self(x).split(self.weight.shape[0] // len(self.splits),
-                                 dim=-1)
+            return self(x).split(self.d_out // len(self.splits), dim=-1)
         x, w, b = x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(
             self.dtype)
         rows = w.shape[0] // len(self.splits)

@@ -30,14 +30,25 @@ CUDA tensors and runs :func:`fp8_matmul_reference` on CPU tensors;
 :mod:`.fp8` builds the training matmul on them. Scales stay device
 tensors throughout, so a step never syncs on one.
 
-The weight half (``QuantizedWeight`` ... ``qmatmul``, kernel 7) and the
-KV-head half wait for their slices.
+The weight half (``ServePool(weight_dtype="int8")``): a 2-D matmul weight is
+quantized once per checkpoint load with one fp32 scale per output column
+(:func:`quantize_weight`: the blockwise codec at ``block = K`` on the
+``[N, K]`` row-major view, kernel 4 on the card), and
+:func:`int8_weight_matmul` applies the scales in the epilogue of
+``csrc/int8_matmul.cu`` (kernel 7) on CUDA tensors, or runs
+:func:`int8_weight_matmul_reference` on CPU tensors. :func:`qmatmul` is the
+quantization-transparent matmul an ``infer_fn`` routes its products
+through; :func:`quantize_params` picks the weights (a dict nest) or
+quantizes every ``Dense`` of a model in place.
+
+The KV-head half waits for its slice.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 import threading
 from typing import Optional, Tuple
 
@@ -52,21 +63,29 @@ __all__ = [
     "FP8",
     "INT8",
     "QuantSpec",
+    "QuantizedWeight",
     "SCALE_DTYPE",
     "default_block",
     "dequantize_blockwise",
     "dequantize_blockwise_reference",
+    "dequantize_weight",
     "fp8_matmul",
     "fp8_matmul_reference",
     "fp8_push_amax",
     "fp8_saturating_cast",
     "fp8_scale_from_history",
+    "int8_weight_matmul",
+    "int8_weight_matmul_reference",
     "launches_dequant",
     "launches_fp8_matmul",
+    "launches_int8_matmul",
     "launches_quant",
+    "qmatmul",
     "quant_spec",
     "quantize_blockwise",
     "quantize_blockwise_reference",
+    "quantize_params",
+    "quantize_weight",
     "quantized_wire_bytes",
     "reset_launches",
     "supports_fp8",
@@ -74,6 +93,7 @@ __all__ = [
 
 KERNEL_SOURCE = "quant_blockwise"
 FP8_MATMUL_SOURCE = "fp8_matmul"
+INT8_MATMUL_SOURCE = "int8_matmul"
 SCALE_DTYPE = torch.float32
 # Past this magnitude round-to-nearest-even lands beyond e4m3's largest
 # finite value (448), and e4m3 has no infinity: the value becomes NaN.
@@ -84,6 +104,7 @@ _E4M3_OVERFLOW = 464.0
 launches_quant = 0
 launches_dequant = 0
 launches_fp8_matmul = 0
+launches_int8_matmul = 0
 _count_lock = threading.Lock()
 _fns = {}
 
@@ -150,19 +171,24 @@ def quantized_wire_bytes(n_elements: int, block: int, spec: QuantSpec) -> int:
 
 def reset_launches() -> None:
     global launches_quant, launches_dequant, launches_fp8_matmul
+    global launches_int8_matmul
     with _count_lock:
         launches_quant = 0
         launches_dequant = 0
         launches_fp8_matmul = 0
+        launches_int8_matmul = 0
 
 
 def _count_launch(which: str) -> None:
     global launches_quant, launches_dequant, launches_fp8_matmul
+    global launches_int8_matmul
     with _count_lock:
         if which == "quant":
             launches_quant += 1
         elif which == "dequant":
             launches_dequant += 1
+        elif which == "int8_matmul":
+            launches_int8_matmul += 1
         else:
             launches_fp8_matmul += 1
 
@@ -233,17 +259,22 @@ def dequantize_blockwise_reference(
     return rows.reshape(-1)[:n].to(out_dtype)
 
 
+_SOURCES = {"hvt_fp8_matmul": FP8_MATMUL_SOURCE,
+            "hvt_int8_matmul": INT8_MATMUL_SOURCE}
+
+
 def _kernel(name: str):
     fn = _fns.get(name)
     if fn is None:
-        source = FP8_MATMUL_SOURCE if name == "hvt_fp8_matmul" else KERNEL_SOURCE
-        fn = getattr(_build.load(source), name)
+        fn = getattr(_build.load(_SOURCES.get(name, KERNEL_SOURCE)), name)
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         if name == "hvt_quantize_blockwise":
             fn.argtypes = [ptr, ptr, ptr, i64, i32, i32, ctypes.c_float, ptr]
         elif name == "hvt_fp8_matmul":
             fn.argtypes = ([ptr] * 5 + [i32] * 3 + [i64] * 3 + [i32] * 6
                            + [ptr])
+        elif name == "hvt_int8_matmul":
+            fn.argtypes = [ptr] * 4 + [i32] * 4 + [i64] * 3 + [i32, ptr]
         else:
             fn.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
         fn.restype = ctypes.c_int
@@ -526,3 +557,228 @@ def fp8_matmul(
         )
     _count_launch("fp8_matmul")
     return out
+
+
+# -- int8 serving weights -----------------------------------------------------
+#
+# The serving face of the same codec: a 2-D matmul weight is quantized once
+# per checkpoint load with one scale per output channel -- blockwise
+# quantization of the [N, K] row-major view with block = K -- and the matmul
+# applies the scales in its epilogue (kernel 7), so no dequantized weight
+# exists in device memory. Serving matmuls at small batch are bound by the
+# weight bytes, which int8 halves against bf16.
+
+_MATMUL_BLOCK_K = 256  # K-tile of the plain version's blocked accumulation
+
+
+class QuantizedWeight:
+    """One quantized matmul weight: ``q`` int8 ``[K, N]`` and ``scales``
+    fp32 ``[N]`` (one per output channel); ``dtype_name`` records the
+    original storage dtype for :func:`dequantize_weight`. ``q`` is the
+    transposed view of ``[N, K]`` row-major storage, the layout kernel 7
+    reads (``q.t()`` is contiguous)."""
+
+    def __init__(self, q: torch.Tensor, scales: torch.Tensor,
+                 dtype_name: str = "float32"):
+        self.q = q
+        self.scales = scales
+        self.dtype_name = dtype_name
+
+    @property
+    def shape(self):
+        return self.q.shape
+
+    def to(self, device) -> "QuantizedWeight":
+        """The payload and scales on ``device`` (the layout kept)."""
+        return QuantizedWeight(self.q.t().to(device).t(),
+                               self.scales.to(device), self.dtype_name)
+
+    def __repr__(self):
+        return (f"QuantizedWeight(shape={tuple(self.q.shape)}, "
+                f"dtype={self.dtype_name})")
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def quantize_weight(w: torch.Tensor, spec: QuantSpec = INT8) -> QuantizedWeight:
+    """Quantize a ``[K, N]`` matmul weight with per-output-channel scales:
+    :func:`quantize_blockwise` of the ``[N, K]`` row-major flat view at
+    ``block = K`` (kernel 4 on a CUDA tensor), so each column's max-abs maps
+    onto ``qmax`` and the scales are the codec's per-block scales. Bit for
+    bit the JAX package's ``quantize_weight``. An ``nn.Linear``-style
+    ``[N, K]`` weight ``v`` goes in as ``v.t()`` (no copy when ``v`` is
+    contiguous and fp32)."""
+    if w.dim() != 2:
+        raise ValueError(f"quantize_weight needs a 2-D weight, got "
+                         f"{tuple(w.shape)}")
+    k, n = w.shape
+    rows = w.t().to(torch.float32).contiguous()
+    q_flat, scales = quantize_blockwise(rows.reshape(-1), block=max(k, 1),
+                                        spec=spec)
+    return QuantizedWeight(q_flat.reshape(n, k).t(), scales,
+                           dtype_name=_dtype_name(w.dtype))
+
+
+def dequantize_weight(w: QuantizedWeight) -> torch.Tensor:
+    """``q * scales`` in fp32, cast back to the original storage dtype."""
+    return (w.q.to(torch.float32) * w.scales.reshape(1, -1)).to(
+        getattr(torch, w.dtype_name))
+
+
+def quantize_params(tree, spec: QuantSpec = INT8, *, min_size: int = 4096):
+    """What ``ServePool(weight_dtype="int8")`` runs once per checkpoint load.
+
+    On a nest of dicts/lists/tuples (a new nest; the input is untouched):
+    every 2-D floating tensor of at least ``min_size`` elements becomes a
+    :class:`QuantizedWeight`, the JAX package's rule; biases, norms and small
+    tensors keep their dtype. On an ``nn.Module`` (quantized in place and
+    returned): every ``models.transformer.Dense`` whose weight has at least
+    ``min_size`` elements keeps an int8 payload and fp32 scales as buffers
+    in place of its floating weight, and its forward runs :func:`qmatmul`;
+    embeddings, LayerNorms and the tied head stay floating. A model computing
+    in fp8 raises: int8 weights and fp8 compute do not combine."""
+    if isinstance(tree, torch.nn.Module):
+        from ..models.transformer import Dense
+
+        dense = [m for m in tree.modules() if isinstance(m, Dense)]
+        if any(m.fp8 for m in dense):
+            raise ValueError(
+                "int8 weights cannot combine with compute_dtype='fp8': the "
+                "fp8 projections cast their own fp32 weights")
+        for m in dense:
+            if not m.quantized and m.weight.numel() >= min_size:
+                m.quantize_(spec)
+        return tree
+    from .batching import tree_map
+
+    def fix(leaf):
+        if (isinstance(leaf, torch.Tensor) and leaf.dim() == 2
+                and leaf.is_floating_point() and leaf.numel() >= min_size):
+            return quantize_weight(leaf, spec)
+        return leaf
+
+    return tree_map(fix, tree)
+
+
+def _check_int8_operands(x: torch.Tensor, w: QuantizedWeight) -> None:
+    if not isinstance(w, QuantizedWeight):
+        raise TypeError(f"int8_weight_matmul takes a QuantizedWeight, got "
+                        f"{type(w).__name__}")
+    if w.q.dim() != 2 or w.q.dtype != torch.int8:
+        raise TypeError(f"the payload must be a 2-D int8 [K, N] tensor, got "
+                        f"{w.q.dtype} {tuple(w.q.shape)}")
+    if x.dim() < 1 or x.shape[-1] != w.q.shape[0]:
+        raise ValueError(f"matmul shapes disagree: x {tuple(x.shape)} vs "
+                         f"weight {tuple(w.q.shape)}")
+    if w.scales.shape != (w.q.shape[1],):
+        raise ValueError(f"{w.q.shape[1]} output columns need as many scales, "
+                         f"got shape {tuple(w.scales.shape)}")
+    for name, t in (("q", w.q), ("scales", w.scales)):
+        if t.device != x.device:
+            raise ValueError(f"the weight's {name} is on {t.device}, x on "
+                             f"{x.device}")
+
+
+def int8_weight_matmul_reference(
+    x: torch.Tensor, w: QuantizedWeight, *, block_k: int = _MATMUL_BLOCK_K
+) -> torch.Tensor:
+    """The plain version, in the JAX package's order: fp32 partial products
+    of x against the payload cast to x's dtype (exact for |q| <= 127) over
+    ``block_k``-wide K tiles, summed in order, times the column scales, cast
+    to ``x.dtype``. ``x`` is ``[..., K]``; the result ``[..., N]``."""
+    _check_int8_operands(x, w)
+    k, n = w.q.shape
+    x2 = x.reshape(math.prod(x.shape[:-1]), k)
+    acc = torch.zeros((x2.shape[0], n), dtype=torch.float32, device=x.device)
+    for k0 in range(0, k, block_k):
+        acc += torch.matmul(
+            x2[:, k0:k0 + block_k].to(torch.float32),
+            w.q[k0:k0 + block_k].to(x.dtype).to(torch.float32))
+    out = (acc * w.scales.to(torch.float32).reshape(1, -1)).to(x.dtype)
+    return out.reshape(*x.shape[:-1], n)
+
+
+def _rows_layout(x: torch.Tensor) -> Tuple[int, int, int]:
+    """``(rows_inner, stride_outer, stride_inner)`` of the rows of
+    ``x [..., K]`` flattened to ``[M, K]``: row ``r`` starts at
+    ``(r // rows_inner) * stride_outer + (r % rows_inner) * stride_inner``
+    elements. Leading dims that are contiguous with each other merge; x
+    must reduce to at most two row dims."""
+    dims = []
+    for size, stride in zip(x.shape[:-1], x.stride()[:-1]):
+        if size == 1:
+            continue
+        if dims and dims[-1][1] == stride * size:
+            dims[-1] = (dims[-1][0] * size, stride)
+        else:
+            dims.append((size, stride))
+    if not dims:
+        return 1, 0, 0
+    if len(dims) == 1:
+        return dims[0][0], 0, dims[0][1]
+    if len(dims) == 2:
+        return dims[1][0], dims[0][1], dims[1][1]
+    raise ValueError(
+        f"int8_weight_matmul reads x in place and takes at most two row "
+        f"dims that do not merge; got shape {tuple(x.shape)} strides "
+        f"{tuple(x.stride())}")
+
+
+def int8_weight_matmul(x: torch.Tensor, w: QuantizedWeight) -> torch.Tensor:
+    """``x @ w`` for ``x [..., K]`` against an int8 ``[K, N]`` weight with
+    its column scales applied in the epilogue: fp32 sums, one rounding to
+    ``x.dtype``; the result ``[..., N]``.
+
+    CPU tensors run :func:`int8_weight_matmul_reference`. CUDA tensors
+    launch kernel 7 or raise: x in bf16 or fp32 with k contiguous, read in
+    place through its strides; the payload in :func:`quantize_weight`'s
+    layout (``w.q.t()`` with k contiguous); fp32 scales."""
+    _check_int8_operands(x, w)
+    if _check_device(x) == "cpu":
+        return int8_weight_matmul_reference(x, w)
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the int8 matmul kernel takes bfloat16 or float32 "
+                        f"activations, not {x.dtype}")
+    if w.scales.dtype != SCALE_DTYPE or not w.scales.is_contiguous():
+        raise TypeError(f"the int8 matmul kernel takes contiguous {SCALE_DTYPE}"
+                        f" scales, got {w.scales.dtype}")
+    k, n = w.q.shape
+    storage = w.q.t()
+    if k > 1 and storage.stride(1) != 1:
+        raise ValueError(
+            "the int8 matmul kernel reads the weight as [N, K] with k "
+            f"contiguous (quantize_weight's layout); got q strides "
+            f"{tuple(w.q.stride())}")
+    if k > 1 and x.stride(-1) != 1:
+        raise ValueError(f"the int8 matmul kernel reads x with k contiguous; "
+                         f"got strides {tuple(x.stride())}")
+    lead = x.shape[:-1]
+    m = math.prod(lead)
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m == 0 or n == 0:
+        return out.reshape(*lead, n)
+    inner, so, si = _rows_layout(x)
+    ldw = storage.stride(0) if n > 1 else max(k, 1)
+    fn = _kernel("hvt_int8_matmul")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), storage.data_ptr(), w.scales.data_ptr(),
+                out.data_ptr(), m, n, k, inner, so, si, ldw,
+                int(x.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"int8_matmul kernel launch failed with cudaError_t {rc}")
+    _count_launch("int8_matmul")
+    return out.reshape(*lead, n)
+
+
+def qmatmul(x: torch.Tensor, w) -> torch.Tensor:
+    """Quantization-transparent matmul: ``w`` is a plain ``[K, N]`` tensor
+    (``x @ w``) or a :class:`QuantizedWeight` (:func:`int8_weight_matmul`).
+    An ``infer_fn`` written against this one call serves under any
+    ``ServePool(weight_dtype=...)``."""
+    if isinstance(w, QuantizedWeight):
+        return int8_weight_matmul(x, w)
+    return x @ w

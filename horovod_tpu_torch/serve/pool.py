@@ -24,6 +24,18 @@
 the module, so workers never share a module being swapped. All workers
 launch on the device's current stream.
 
+``weight_dtype="int8"`` (default: ``HVDTPU_SERVE_WEIGHT_DTYPE``) quantizes
+the weights once per restore -- the initial load, each worker's hot-swap
+restore, and the adoption of a step with no live worker -- on the pool's
+device (kernel 4 on the card), before any worker sees them, with
+:func:`~horovod_tpu_torch.ops.quantization.quantize_params`: a nest's big
+2-D floating tensors become ``QuantizedWeight`` leaves for an ``infer_fn``
+that routes its matmuls through ``qmatmul``; a model's ``Dense`` layers
+keep int8 payloads and run kernel 7. A module target is restored into an
+fp32 copy of itself, so the scales come from the checkpoint's fp32 values
+(as the JAX package quantizes its restored fp32 tree), and its other
+weights are then stored in the template's dtypes again.
+
 ``autoscale=True`` drives the pool off its queue depth through
 :class:`~horovod_tpu_torch.elastic.scale.QueueDepthPolicy`: scale-up
 spawns a worker, scale-down drains one (it finishes its in-flight batch,
@@ -33,6 +45,7 @@ then leaves).
 from __future__ import annotations
 
 import contextlib
+import copy
 import logging
 import threading
 import time
@@ -44,6 +57,7 @@ from .. import checkpoint as _ckpt
 from ..context import resolve_device
 from ..elastic.scale import QueueDepthPolicy
 from ..ops.batching import tree_map
+from ..ops.quantization import QuantizedWeight, quantize_params
 from ..utils import env as _env
 from .dispatcher import Dispatcher, ServeFuture
 
@@ -52,20 +66,35 @@ log = logging.getLogger("horovod_tpu_torch.serve")
 _OFF = ("", "off", "none", "0", "false", "no")
 
 
+def _move(x: Any, device) -> Any:
+    """A tensor or a whole ``QuantizedWeight`` on ``device``; else ``x``."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(device)
+    if isinstance(x, QuantizedWeight):
+        return x.to(device)
+    return x
+
+
 def _place(state: Any, device: torch.device) -> Any:
     """``state`` on ``device`` (a module moves in place)."""
     if isinstance(state, torch.nn.Module):
         return state.to(device)
-    return tree_map(
-        lambda x: x.to(device) if isinstance(x, torch.Tensor) else x, state
-    )
+    return tree_map(lambda x: _move(x, device), state)
 
 
 def _to_host(outputs: Any) -> Any:
-    return tree_map(
-        lambda x: x.detach().to("cpu") if isinstance(x, torch.Tensor) else x,
-        outputs,
-    )
+    return tree_map(lambda x: _move(x, "cpu"), outputs)
+
+
+def _resolve_weight_dtype(weight_dtype: Optional[str]) -> str:
+    if weight_dtype is None:
+        return _env.serve_weight_dtype()
+    wd = str(weight_dtype).strip().lower()
+    if wd in _OFF:
+        return ""
+    if wd != "int8":
+        raise ValueError(f"weight_dtype must be off|int8, got {weight_dtype!r}")
+    return wd
 
 
 class ServingWorker:
@@ -161,21 +190,21 @@ class ServePool:
     ):
         if params is None and ckpt_dir is None:
             raise ValueError("need initial params or ckpt_dir")
-        if weight_dtype is not None:
-            wd = str(weight_dtype).strip().lower()
-            if wd == "int8":
-                raise NotImplementedError(
-                    "weight_dtype='int8' arrives with the int8 serving slice"
-                )
-            if wd not in _OFF:
-                raise ValueError(
-                    f"weight_dtype must be off|int8, got {weight_dtype!r}"
-                )
+        self.weight_dtype = _resolve_weight_dtype(weight_dtype)
         if autotune not in (None, False):
             raise NotImplementedError("ServePool(autotune=) is not ported yet")
         self.device = resolve_device(device)
         self.ckpt_dir = ckpt_dir
         self.ckpt_target = ckpt_target if ckpt_target is not None else params
+        # What a restore loads into: with int8 weights a module template is
+        # restored as an fp32 copy, then stored in its own dtypes again.
+        self._restore_target = self.ckpt_target
+        self._storage_dtypes: Optional[Dict[str, torch.dtype]] = None
+        if (self.weight_dtype == "int8" and ckpt_dir is not None
+                and isinstance(self.ckpt_target, torch.nn.Module)):
+            self._storage_dtypes = {
+                n: p.dtype for n, p in self.ckpt_target.named_parameters()}
+            self._restore_target = copy.deepcopy(self.ckpt_target).float()
         self._infer = infer_fn
         self.dispatcher = Dispatcher(
             batch_size=batch_size,
@@ -208,11 +237,29 @@ class ServePool:
 
     # -- lifecycle ---------------------------------------------------------
 
+    def _prepare(self, state: Any) -> Any:
+        """The once-per-restore transform: onto the pool's device, then with
+        int8 weights quantized there (before any worker sees them)."""
+        state = _place(state, self.device)
+        if self.weight_dtype != "int8":
+            return state
+        state = quantize_params(state)
+        if self._storage_dtypes is not None:
+            for name, p in state.named_parameters():
+                want = self._storage_dtypes.get(name)
+                if want is not None and p.dtype != want:
+                    p.data = p.data.to(want)
+        return state
+
     def _restore(self, step: Optional[int] = None):
+        """``(state, step, rolled_back)``; ``state`` is prepared unless the
+        restore rolled back."""
         state, got, rolled_back = _ckpt.hot_swap_restore(
-            self.ckpt_dir, self.ckpt_target, step=step
+            self.ckpt_dir, self._restore_target, step=step
         )
-        return _place(state, self.device), got, rolled_back
+        if rolled_back:
+            return None, got, True
+        return self._prepare(state), got, False
 
     def start(self) -> "ServePool":
         if self.started:
@@ -221,7 +268,11 @@ class ServePool:
         if self.ckpt_dir is not None:
             params, step, _ = self._restore()
         else:
-            params, step = _place(self._init_params, self.device), None
+            params = self._init_params
+            if self.weight_dtype == "int8" and isinstance(
+                    params, torch.nn.Module):
+                params = copy.deepcopy(params)  # quantized in place
+            params, step = self._prepare(params), None
         self._init_params, self._init_step = params, step
         if self.ckpt_dir is not None:
             self._watcher = _ckpt.CheckpointWatcher(

@@ -21,6 +21,7 @@ SERVE_QUEUE_LOW = "SERVE_QUEUE_LOW"  # per-worker backlog -> scale down
 SERVE_SCALE_COOLDOWN_SECS = "SERVE_SCALE_COOLDOWN_SECS"  # between rescales
 SERVE_REQUEST_TIMEOUT_SECS = "SERVE_REQUEST_TIMEOUT_SECS"  # lease expiry
 SERVE_CKPT_POLL_SECS = "SERVE_CKPT_POLL_SECS"  # hot-swap watch period
+SERVE_WEIGHT_DTYPE = "SERVE_WEIGHT_DTYPE"  # serving weight storage: off|int8
 FUSED_UPDATE = "FUSED_UPDATE"  # fused ZeRO-1 optimizer-update kernel
 OVERLAP_ACCUM_STEPS = "OVERLAP_ACCUM_STEPS"  # default accum_steps (>=1)
 QUANT = "QUANT"  # quantized collective wire format: off|int8|fp8
@@ -149,6 +150,22 @@ def serve_ckpt_poll_secs() -> float:
     return max(0.05, get_float(
         SERVE_CKPT_POLL_SECS, DEFAULT_SERVE_CKPT_POLL_SECS
     ))
+
+
+def serve_weight_dtype() -> str:
+    """Default for ``ServePool(weight_dtype=...)``: ``""`` (serve the
+    checkpoint's own dtypes) or ``"int8"`` (quantize the matmul weights once
+    per checkpoint load; inference runs the int8 matmul with its scales in
+    the epilogue). Anything else raises -- a typo must not silently serve
+    full-precision."""
+    val = (get_str(SERVE_WEIGHT_DTYPE, "") or "").strip().lower()
+    if val in ("", "0", "off", "false", "no", "none"):
+        return ""
+    if val == "int8":
+        return val
+    raise ValueError(
+        f"HVDTPU_SERVE_WEIGHT_DTYPE={val!r} is not recognized; use off|int8"
+    )
 
 
 def fused_update_default() -> bool:

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card: the
 flash-attention forward, the backward pair (dK/dV, dQ), the fused AdamW
-update, the blockwise quantize/dequantize and the fp8 matmul. Every test here needs an NVIDIA GPU with nvcc (the kernels have no
+update, the blockwise quantize/dequantize, the fp8 matmul and the int8-weight
+matmul. Every test here needs an NVIDIA GPU with nvcc (the kernels have no
 CPU mode) and skips without one. Run them on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
@@ -15,7 +16,10 @@ dequantize bit for bit (every operation IEEE-rounded in the plain version's
 order), except the int8 value of a NaN element, which is undefined in both;
 the fp8 matmul 1e-4 of the largest plain output in fp32 and 8e-3 in bf16
 (exact products, fp32 sums in another order; one bf16 rounding), the fp8
-state its Function returns bit for bit (the same torch operations).
+state its Function returns bit for bit (the same torch operations); the
+int8-weight matmul 1e-5 of the largest plain output with fp32 activations
+and 8e-3 with bf16 (exact products, fp32 sums in another order, one
+rounding).
 """
 
 import dataclasses
@@ -580,3 +584,129 @@ def test_fp8_train_step_on_the_card_launches_the_kernel(gen):
         assert gauges["fp8.amax_max"] > 0
     finally:
         hvt.shutdown()
+
+
+# -- kernel 7: the int8-weight matmul -------------------------------------------
+
+
+def _int8_check(x, qw):
+    got = tq.int8_weight_matmul(x, qw)
+    ref = tq.int8_weight_matmul_reference(x, qw)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == ref.dtype == x.dtype
+    tol = 1e-5 if x.dtype == torch.float32 else 8e-3
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= tol * max(ref.float().abs().max().item(), 1e-30), err
+    return got
+
+
+def _int8_weight(gen, k, n, scale=0.05):
+    return tq.quantize_weight(
+        torch.randn((k, n), generator=gen, device="cuda") * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("m,k,n", [(5, 300, 70), (16, 512, 128), (1, 64, 10),
+                                   (130, 1000, 260), (8, 768, 2304),
+                                   (300, 3072, 768), (33, 17, 129)])
+def test_int8_matmul_kernel_matches_plain(gen, m, k, n, dtype):
+    x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    qw = _int8_weight(gen, k, n)
+    tq.reset_launches()
+    _int8_check(x, qw)
+    assert tq.launches_int8_matmul == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_int8_matmul_kernel_reads_x_through_its_strides(gen, dtype):
+    qw = _int8_weight(gen, 256, 96)
+    wide = torch.randn((2, 50, 3 * 256), generator=gen, device="cuda").to(dtype)
+    for x in (wide[..., 256:512],                      # a fused-QKV column view
+              wide[..., :256].transpose(0, 1),         # batch-transposed
+              wide.reshape(-1)[1:1 + 2 * 50 * 256].view(2, 50, 256)):  # unaligned
+        got = _int8_check(x, qw)
+        assert got.shape == (*x.shape[:-1], 96)
+        assert torch.equal(got, tq.int8_weight_matmul(x.contiguous(), qw))
+
+
+def test_int8_matmul_kernel_edges_and_refusals(gen):
+    qw = _int8_weight(gen, 64, 16)
+    empty = tq.int8_weight_matmul(torch.zeros((0, 64), device="cuda"), qw)
+    assert empty.shape == (0, 16)
+    zero_k = tq.QuantizedWeight(qw.q[:0], qw.scales)
+    out = tq.int8_weight_matmul(torch.ones((3, 0), device="cuda"), zero_k)
+    assert out.shape == (3, 16) and not out.any()
+    x = torch.randn((4, 64), generator=gen, device="cuda")
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        tq.int8_weight_matmul(x.half(), qw)
+    with pytest.raises(ValueError, match="on cpu"):
+        tq.int8_weight_matmul(x, qw.to("cpu"))
+    n_major = tq.QuantizedWeight(qw.q.contiguous(), qw.scales)
+    with pytest.raises(ValueError, match="k contiguous"):
+        tq.int8_weight_matmul(x, n_major)
+    with pytest.raises(ValueError, match="k contiguous"):
+        tq.int8_weight_matmul(torch.randn((64, 4), device="cuda").t(), qw)
+
+
+def test_quantize_weight_on_the_card_is_the_cpu_payload(gen):
+    w = torch.randn((768, 2304), generator=gen, device="cuda") * 0.02
+    tq.reset_launches()
+    on_card = tq.quantize_weight(w)
+    assert tq.launches_quant == 1  # kernel 4, block = K
+    on_cpu = tq.quantize_weight(w.cpu())
+    assert torch.equal(on_card.q.cpu(), on_cpu.q)
+    assert torch.equal(on_card.scales.cpu().view(torch.int32),
+                       on_cpu.scales.view(torch.int32))
+    assert on_card.q.t().is_contiguous()
+
+
+def test_gpt2_int8_on_the_card_runs_kernel_7_once_a_projection(gen):
+    import horovod_tpu_torch as hvt
+
+    cfg = hvt.GPT2Config.tiny(d_model=128, n_heads=2,
+                              param_dtype=torch.float32)
+    model = hvt.GPT2LMModel(cfg)
+    model.load_state_dict(hvt.convert.init_params(cfg, seed=0))
+    tq.reset_launches()
+    hvt.quantize_params(model)
+    assert tq.launches_quant == 4 * cfg.n_layers
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), device="cuda",
+                           generator=gen)
+    tq.reset_launches()
+    fa.reset_launches()
+    with torch.inference_mode():
+        got = model(tokens)
+    assert tq.launches_int8_matmul == 4 * cfg.n_layers
+    assert fa.launches == cfg.n_layers
+    with torch.inference_mode():
+        ref = model.to("cpu")(tokens.cpu())
+    err = (got.cpu() - ref).abs().max().item()
+    assert err <= 0.05 * ref.abs().max().item()
+
+
+def test_int8_serve_pool_on_the_card(gen, tmp_path):
+    import horovod_tpu_torch as hvt
+    from horovod_tpu_torch.serve import ServePool
+
+    cfg = hvt.GPT2Config.tiny(d_model=128, n_heads=2)
+    hvt.save_checkpoint(str(tmp_path), hvt.convert.init_params(cfg, seed=0),
+                        step=1)
+    tq.reset_launches()
+    pool = ServePool(lambda m, t: m(t)[:, -1, :], ckpt_dir=str(tmp_path),
+                     ckpt_target=hvt.GPT2LMModel(cfg), workers=1,
+                     batch_size=4, weight_dtype="int8").start()
+    try:
+        assert tq.launches_quant == 4 * cfg.n_layers  # one restore
+        tq.reset_launches()
+        tokens = torch.randint(0, cfg.vocab_size, (4, 32), generator=gen,
+                               device="cuda").cpu()
+        futs = [pool.submit(t) for t in tokens]
+        outs = [f.result(timeout=120.0) for f in futs]
+        batches = pool.dispatcher.n_batches
+        assert tq.launches_int8_matmul == 4 * cfg.n_layers * batches
+        assert all(o.shape == (cfg.vocab_size,) and torch.isfinite(o).all()
+                   for o in outs)
+    finally:
+        pool.stop()

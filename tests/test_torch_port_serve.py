@@ -325,9 +325,6 @@ class TestServePool:
             pool.stop()
 
     def test_unported_options_raise(self):
-        with pytest.raises(NotImplementedError, match="int8"):
-            ServePool(lambda p, b: b, {"w": torch.ones(1)}, device="cpu",
-                      weight_dtype="int8")
         with pytest.raises(NotImplementedError, match="autotune"):
             ServePool(lambda p, b: b, {"w": torch.ones(1)}, device="cpu",
                       autotune=True)
