@@ -105,32 +105,53 @@ Phases (any failure exits non-zero; nothing is caught):
    fused AdamW; losses fall.
 10. [train-quant-fp8] Three replicated steps on the fp8 wire: losses
    finite, 2 quantize and 2 dequantize per bucket per step.
-   The serving phase (6.) runs last, after 11. and 12.
-11. [fp8] Kernel 8 vs its plain version (fp8_matmul_reference): the
-   reference test's ragged cases (5, 300, 70), (16, 512, 128), (1, 257, 10)
-   in the three pairings (e4m3 x e4m3, e5m2 x e4m3, e4m3 x e5m2), fp32 and
-   bf16 out, and every distinct call of a GPT-2-small fp8 training step at
-   M = 16 x 1024 rows (forward x @ w.T, dX g @ w, dW g.T @ x, for the
-   768x768, fc and proj weights; bf16 out, dW in fp32 too), operands in the
-   path's own strides. Largest difference relative to the largest plain
-   value: <= 1e-4 (fp32), <= 8e-3 (bf16). Each call timed with time_ms
-   beside the plain version and torch._scaled_mm (a yardstick the port
-   never calls; copies into its layouts made outside the timing), with its
-   bound: fp8 bytes in and bf16 out over 3.35 TB/s, or its operations over
-   1,979 TFLOP/s, the larger; summed over one step's 216 launches.
-12. [train-fp8] The JAX package's bench_fp8 pair at GPT-2 small: "" then
+   The serving phase (6.) runs after 11.-13., before 14. and 15.
+11. [fp8] Kernel 8 (fp8 wgmma on K-major operands) vs its plain version
+   (fp8_matmul_reference): the reference test's ragged cases (5, 300, 70),
+   (16, 512, 128), (1, 257, 10) and (130, 129, 260) in the four pairings
+   (e4m3 / e5m2 each side), fp32 and bf16 out, each once K-major and once
+   with w as a row-major [K, N] tensor, which (like K not a multiple of 16)
+   goes through the relayout copy; and every distinct call of a
+   GPT-2-small fp8 training step at M = 16 x 1024 rows (forward x @ w.T, dX
+   g @ w, dW g.T @ x, for the 768x768, fc and proj weights; bf16 out, dW in
+   fp32 too), operands in the K-major layouts the path hands it (0
+   relayouts). Largest difference relative to the largest plain value:
+   <= 1e-4 (fp32), <= 8e-3 (bf16); the fp32 dW (K = 16,384) is printed as
+   the promotion's error, and one k-step ([768, 32] x [32, 768], fp32) as
+   the fp8 tensor cores' own rounding of a 32-product sum. Each call timed with time_ms beside the plain
+   version and torch._scaled_mm on the same operands (a yardstick the port
+   never calls), with its TFLOP/s and its bound: fp8 bytes in and bf16 out
+   over 3.35 TB/s, or its operations over 1,979 TFLOP/s, the larger;
+   summed over one step's 216 launches. Each call is also timed by its
+   device time under torch.profiler, and so is torch._scaled_mm: the
+   wrapper's host time exceeds the shorter calls' kernel time, and the
+   event times then measure the host.
+12. [fp8-cast] The fused cast-transpose-amax kernel vs fp8_cast_reference,
+   bit for bit (a NaN payload may differ in its sign bit): at the step's
+   shapes (activations and gradients 16,384 x 768 and 16,384 x 3072 bf16,
+   e4m3 and e5m2; the weights 768 x 768, 3072 x 768 and 768 x 3072 in
+   weight mode with their fp32 residual), on a tensor holding NaN, +-inf
+   and values past qmax, with a fresh (all-zero) ring, and on ragged shapes
+   with rows off 16-byte boundaries. Each step shape timed (CUDA events and
+   device time) beside the plain composition, with its byte bound
+   (activation: 2 bytes in, 2 out an element; weight: 6 in, 6 out), summed
+   over one step's 216 launches.
+13. [train-fp8] The JAX package's bench_fp8 pair at GPT-2 small: "" then
    "fp8", each from convert.init_params(seed=0), make_train_step(loss,
    adamw(1e-3), compute_dtype=...) on one batch of 16 x 1025 tokens from
    numpy.random.RandomState(0), 1 warm-up and 12 timed steps: step_ms_off,
    step_ms_on, speedup, tokens/s, first and last losses, converged (the
    fp8 loss finite, falling, within 0.15 relative of the off run's last),
    the three fp8_state_gauges. Launch counts, set to 0 just before the
-   timed steps: 12 of each flash kernel a step, and 216 of kernel 8 in the
-   fp8 run (0 in the off run). Then one Fp8Linear forward and backward at
-   the first layer's fc (its real input and trained state) against the
-   same math on fp8_matmul_reference (out, dx, dw within 8e-3; the four
-   state gradients bit for bit), and one profiled fp8 step.
-13. [int8] Kernel 7 vs its plain version (int8_weight_matmul_reference):
+   timed steps: 12 of each flash kernel a step, and 216 of kernel 8, 216
+   casts and 0 relayouts in the fp8 run (0 of each in the off run). Then
+   one Fp8Linear forward and backward at the first layer's fc (its real
+   input and trained state) against the same math on fp8_matmul_reference
+   (out, dx, dw within 8e-3; the four state gradients bit for bit; 3 casts,
+   3 kernel-8 launches, 0 relayouts), and one profiled fp8 step (device
+   time by category: elementwise, kernel 8, the cast kernel, the head's
+   cuBLAS GEMMs, flash).
+14. [int8] Kernel 7 vs its plain version (int8_weight_matmul_reference):
    the reference test's ragged cases (5, 300, 70), (16, 512, 128),
    (1, 64, 10), (130, 1000, 260) and (33, 17, 129) (K not a multiple of 16;
    rows off 16-byte boundaries) with fp32 and bf16 activations, and the four GPT-2-small serving products (768->2304,
@@ -145,7 +166,7 @@ Phases (any failure exits non-zero; nothing is caught):
    M = 8 the events time the host's launches), with its bound: bf16 x and
    out, int8 weight and fp32 scales over 3.35 TB/s, or its operations over
    989 TFLOP/s, the larger; summed over one batch's 48 launches.
-14. [serve-int8] GPT-2 small through ServePool(weight_dtype="int8") from a
+15. [serve-int8] GPT-2 small through ServePool(weight_dtype="int8") from a
    copy of the serving phase's step-1 fp32 checkpoint (2 workers, batch 8,
    5 rounds of 64 x 1024-token requests): after load every Dense holds an
    int8 payload and fp32 scales and no floating weight, kernel 4 ran 48
@@ -160,9 +181,10 @@ Phases (any failure exits non-zero; nothing is caught):
    window (kernel 7 its own category); then step 2 is published and the
    pool must roll onto it one worker at a time, int8 again (48 kernel-4
    launches a worker), with changed answers.
-15. Output: a "kernels" JSON line (the nine kernels; "launches" is the
-   training run's count -- for the quantize pair the int8 [train-quant]
-   run's, for kernel 8 the fp8 [train-fp8] run's, for kernel 7 the
+16. Output: a "kernels" JSON line (the nine TPU kernels' counterparts and
+   the cast kernel; "launches" is the training run's count -- for the
+   quantize pair the int8 [train-quant] run's, for kernel 8 and the cast
+   kernel the fp8 [train-fp8] run's, for kernel 7 the
    [serve-int8] rounds' -- the forward kernel's serving count beside it as
    "launches_serve"), the card's name and power limit, and the last line
    {"ok": true, "device": {...}}.
@@ -611,7 +633,7 @@ def kernel_category(name: str) -> str:
     for kernel in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
                    "fused_adamw", "dequantize_blockwise",
                    "quantize_blockwise", "fp8_matmul_reduce", "fp8_matmul",
-                   "int8_matmul"):
+                   "fp8_cast", "int8_matmul"):
         if kernel + "_kernel" in n:
             return kernel
     if "nccl" in n:
@@ -661,30 +683,37 @@ def kernel_ms(fn, calls):
                              "fp8", "int8"))}
 
 
-def device_ms(fn, calls=20):
+def device_ms(fn, calls=20, tries=3):
     """Device ms a call of ``fn``, which launches each of its kernels once a
     call, from torch.profiler over ``calls`` calls after a warm-up: for
     calls too short for time_ms, whose back-to-back events then time the
     host's launches. Each kernel's time is its mean over the launches the
-    window recorded (the first launches of a window can go unrecorded)."""
+    window recorded (the first launches of a window can go unrecorded). A
+    window that recorded no device time at all is taken again, and after
+    ``tries`` such windows the measurement fails: a launched kernel takes
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.count:
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = e.self_cuda_time_total
-            total += us / 1e3 / e.count
-    return total
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = 0.0
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and e.count:
+                us = getattr(e, "self_device_time_total", None)
+                if us is None:
+                    us = e.self_cuda_time_total
+                total += us / 1e3 / e.count
+        if total > 0:
+            return total
+    raise AssertionError(f"torch.profiler recorded no device time in {tries} "
+                         f"windows of {calls} calls")
 
 
 def host_calls(prof):
@@ -896,6 +925,8 @@ def read_counts(fa, fadam, tq):
             "quantize_blockwise": tq.launches_quant,
             "dequantize_blockwise": tq.launches_dequant,
             "fp8_matmul": tq.launches_fp8_matmul,
+            "fp8_cast": tq.launches_fp8_cast,
+            "fp8_relayout": tq.launches_fp8_relayout,
             "int8_matmul": tq.launches_int8_matmul}
 
 
@@ -1052,9 +1083,10 @@ def fp8_step_shapes(cfg):
 
 
 def fp8_operands(gen, m, kind, w_shape):
-    """The fp8 operands of one call as the path hands them: x [M, K] and w
-    [N, K] in e4m3, g [M, N] in e5m2, transposed views where the path
-    reads them so. Returns (a, b) with out = a @ b."""
+    """The fp8 operands of one call as the path hands them, K-major: the
+    casts write x [M, K], w [N, K] and g [M, N] row-major and transposed
+    (x^T [K, M] and w^T [K, N] in e4m3, g^T [N, M] in e5m2). Returns (a, b)
+    with out = a @ b, b the transposed view of a row-major payload."""
     n_w, k_w = w_shape
 
     def rand(rows, cols, dtype, s=4.0):
@@ -1062,11 +1094,11 @@ def fp8_operands(gen, m, kind, w_shape):
                 * s).to(dtype)
 
     e4, e5 = torch.float8_e4m3fn, torch.float8_e5m2
-    if kind == "fwd":
+    if kind == "fwd":  # x @ (w [N, K])^T
         return rand(m, k_w, e4), rand(n_w, k_w, e4).t()
-    if kind == "dx":
-        return rand(m, n_w, e5), rand(n_w, k_w, e4)
-    return rand(m, n_w, e5).t(), rand(m, k_w, e4)
+    if kind == "dx":  # g @ w = g @ (w^T [K, N])^T
+        return rand(m, n_w, e5), rand(k_w, n_w, e4).t()
+    return rand(n_w, m, e5), rand(k_w, m, e4).t()  # g^T @ (x^T)^T
 
 
 def fp8_compare(tq, a, b, out_dtype, scale):
@@ -1111,50 +1143,88 @@ def scaled_mm_ms(a, b, scale, out_dtype):
 
 def fp8_case(tq, gen, cfg):
     """[fp8]: kernel 8 vs its plain version at the main path's calls (M =
-    FP8_BATCH x max_len) and on the reference test's ragged cases, then
-    the main path's calls timed beside the plain version and
-    torch._scaled_mm, each with its bound."""
+    FP8_BATCH x max_len, K-major, no relayout) and on the reference test's
+    ragged cases (K-major and through the relayout), then the main path's
+    calls timed beside the plain version and torch._scaled_mm, each with
+    its bound."""
     scale = torch.tensor(0.37, device="cuda")
     m = FP8_BATCH * cfg.max_len
     err = rel = 0.0
     rng = np.random.RandomState(11)
-    pairs = [(torch.float8_e4m3fn, torch.float8_e4m3fn),
-             (torch.float8_e5m2, torch.float8_e4m3fn),
-             (torch.float8_e4m3fn, torch.float8_e5m2)]
-    for fx, fw in pairs:
-        for mm, kk, nn in ((5, 300, 70), (16, 512, 128), (1, 257, 10)):
-            a = torch.from_numpy(rng.randn(mm, kk).astype(np.float32)).cuda()
-            b = torch.from_numpy(rng.randn(kk, nn).astype(np.float32)).cuda()
-            for out_dtype in (torch.float32, torch.bfloat16):
-                e, r = fp8_compare(tq, a.to(fx), b.to(fw), out_dtype, scale)
-                err, rel = max(err, e), max(rel, r)
-    log(f"[fp8] ragged cases, 3 pairings, fp32 and bf16: max |d| {err:.3e}, "
+    f8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+    tq.reset_launches()
+    ragged = 0
+    for fx in f8:
+        for fw in f8:
+            for mm, kk, nn in ((5, 300, 70), (16, 512, 128), (1, 257, 10),
+                               (130, 129, 260)):
+                a = torch.from_numpy(rng.randn(mm, kk).astype(np.float32))
+                b = torch.from_numpy(rng.randn(kk, nn).astype(np.float32))
+                a = a.cuda().to(fx)
+                b_rows = b.cuda().to(fw)  # [K, N] row-major: relayout
+                b_kmaj = b_rows.t().contiguous().t()  # K-major
+                for bb in (b_kmaj, b_rows):
+                    for out_dtype in (torch.float32, torch.bfloat16):
+                        e, r = fp8_compare(tq, a, bb, out_dtype, scale)
+                        err, rel = max(err, e), max(rel, r)
+                        ragged += 1
+    relayouts = tq.launches_fp8_relayout
+    log(f"[fp8] ragged cases, 4 pairings, K-major and row-major w, fp32 and "
+        f"bf16 ({ragged} calls, {relayouts} relayouts): max |d| {err:.3e}, "
         f"relative {rel:.3e}")
+    if relayouts == 0:
+        raise AssertionError("the ragged cases never took the relayout")
+    # One k-step (K = 32, one wgmma, nothing promoted): the tensor cores'
+    # own rounding of a 32-product sum, relative to the largest output.
+    a1, b1 = fp8_operands(gen, 768, "fwd", (768, 32))
+    got = tq.fp8_matmul(a1, b1, scale)
+    ref = tq.fp8_matmul_reference(a1, b1, scale)
+    torch.cuda.synchronize()
+    d = (got - ref).float()
+    one_step = {"max_rel": (d.abs().max() / ref.abs().max()).item(),
+                "rms_rel": (d.square().mean().sqrt()
+                            / ref.square().mean().sqrt()).item()}
+    log(f"[fp8] one k-step's rounding by the fp8 tensor cores ([768, 32] x "
+        f"[32, 768], fp32 out): max {one_step['max_rel']:.3e}, rms "
+        f"{one_step['rms_rel']:.3e} of the plain version's largest / rms")
     cases, step = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                        "t_bytes": 0.0, "t_ops": 0.0, "bound_ms": 0.0,
-                       "launches": 0}
+                       "flops": 0.0, "launches": 0}
+    promotion = None
     for name, count, kind, w_shape in fp8_step_shapes(cfg):
         a, b = fp8_operands(gen, m, kind, w_shape)
         out_dtypes = ((torch.bfloat16, torch.float32) if kind == "dw"
                       else (torch.bfloat16,))
         r_case = {}
+        tq.reset_launches()
         for out_dtype in out_dtypes:
             e, r = fp8_compare(tq, a, b, out_dtype, scale)
             err, rel = max(err, e), max(rel, r)
             r_case[str(out_dtype).replace("torch.", "")] = r
+        if tq.launches_fp8_relayout:
+            raise AssertionError(f"[fp8] {name}: the main path's layout took "
+                                 f"{tq.launches_fp8_relayout} relayouts")
         mm, kk = a.shape
         nn = b.shape[1]
+        if kind == "dw" and (promotion is None or r_case["float32"] > promotion):
+            promotion = r_case["float32"]
         rec = {"name": name, "launches_per_step": count, "m": mm, "k": kk,
                "n": nn, "a": str(a.dtype), "b": str(b.dtype),
                "a_stride": list(a.stride()), "b_stride": list(b.stride()),
                "rel_err": r_case}
         rec["ms"] = time_ms(lambda: tq.fp8_matmul(a, b, scale,
                                                   out_dtype=torch.bfloat16))
+        rec["device_ms"] = device_ms(lambda: tq.fp8_matmul(
+            a, b, scale, out_dtype=torch.bfloat16))
         rec["plain_ms"] = time_ms(
             lambda: tq.fp8_matmul_reference(a, b, scale,
                                             out_dtype=torch.bfloat16),
             samples=5, per_sample=3)
         rec["library_ms"] = scaled_mm_ms(a, b, scale, torch.bfloat16)
+        one = torch.ones((), device="cuda")
+        rec["library_device_ms"] = (device_ms(lambda: torch._scaled_mm(
+            a, b, scale_a=scale, scale_b=one, out_dtype=torch.bfloat16))
+            if rec["library_ms"] else None)
         nbytes = mm * kk + kk * nn + 2 * mm * nn  # fp8 in, bf16 out
         flops = 2 * mm * nn * kk
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP8_FLOPS_PER_S
@@ -1162,31 +1232,165 @@ def fp8_case(tq, gen, cfg):
                    bound_ms=max(t_bytes, t_ops) * 1e3,
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
         rec["tflops"] = flops / rec["ms"] / 1e9
+        rec["library_tflops"] = (flops / rec["library_ms"] / 1e9
+                                 if rec["library_ms"] else None)
         log(f"[fp8] {name}: [{mm}, {kk}] x [{kk}, {nn}] {a.dtype} x {b.dtype}"
             f" (strides {tuple(a.stride())}, {tuple(b.stride())}): kernel "
-            f"{rec['ms']:.4f} ms ({rec['tflops']:.1f} TFLOP/s), plain "
-            f"{rec['plain_ms']:.4f} ms, torch._scaled_mm {rec['library_ms']} "
-            f"ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); "
-            f"relative error {r_case}")
+            f"{rec['ms']:.4f} ms ({rec['tflops']:.1f} TFLOP/s; device "
+            f"{rec['device_ms']:.4f}), plain {rec['plain_ms']:.4f} ms, "
+            f"torch._scaled_mm {rec['library_ms']} ms ({rec['library_tflops']}"
+            f" TFLOP/s; device {rec['library_device_ms']}), bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); relative error "
+            f"{r_case}")
         cases.append(rec)
-        for key in ("ms", "plain_ms", "bound_ms"):
-            step[key] += count * rec[key]
-        step["library_ms"] = (None if step["library_ms"] is None
-                              or rec["library_ms"] is None
-                              else step["library_ms"] + count * rec["library_ms"])
+        for key in ("ms", "device_ms", "plain_ms", "bound_ms"):
+            step[key] = step.get(key, 0.0) + count * rec[key]
+        for key in ("library_ms", "library_device_ms"):
+            step[key] = (None if step.get(key, 0.0) is None
+                         or rec[key] is None
+                         else step.get(key, 0.0) + count * rec[key])
         step["t_bytes"] += count * t_bytes * 1e3
         step["t_ops"] += count * t_ops * 1e3
+        step["flops"] += count * flops
         step["launches"] += count
         del a, b
     step["bound_by"] = ("bytes" if step["t_bytes"] >= step["t_ops"]
                         else "operations")
+    step["tflops"] = step["flops"] / step["ms"] / 1e9
     log(f"[fp8] one step's {step['launches']} launches: kernel "
-        f"{step['ms']:.3f} ms, plain {step['plain_ms']:.3f} ms, "
-        f"torch._scaled_mm {step['library_ms']} ms, bound "
-        f"{step['bound_ms']:.3f} ms ({step['bound_by']}); max |d| {err:.3e}, "
-        f"relative {rel:.3e}")
+        f"{step['ms']:.3f} ms ({step['tflops']:.1f} TFLOP/s; device "
+        f"{step['device_ms']:.3f} ms), plain "
+        f"{step['plain_ms']:.3f} ms, torch._scaled_mm {step['library_ms']} "
+        f"ms (device {step['library_device_ms']} ms), bound "
+        f"{step['bound_ms']:.3f} ms ({step['bound_by']}); max |d| "
+        f"{err:.3e}, relative {rel:.3e}; promotion's error at K = {m}: "
+        f"{promotion:.3e} (fp32 out, tol {FP8_TOL[torch.float32]})")
     torch.cuda.empty_cache()
     return {"max_abs_err": err, "max_rel_err": rel, "step": step,
+            "promotion_rel_err": promotion, "one_k_step_rel_err": one_step,
+            "ragged_relayouts": relayouts, "cases": cases}
+
+
+def fp8_cast_shapes(cfg):
+    """The cast kernel's distinct calls in one GPT-2 training step at
+    FP8_BATCH x max_len tokens: ``(name, launches a step, rows, cols, wire,
+    weight mode)``."""
+    d, f, layers = cfg.d_model, cfg.d_ff, cfg.n_layers
+    m = FP8_BATCH * cfg.max_len
+    e4, e5 = torch.float8_e4m3fn, torch.float8_e5m2
+    return [("x q/k/v/out/fc", 5 * layers, m, d, e4, False),
+            ("x proj", layers, m, f, e4, False),
+            ("g q/k/v/out/proj", 5 * layers, m, d, e5, False),
+            ("g fc", layers, m, f, e5, False),
+            ("w q/k/v/out", 4 * layers, d, d, e4, True),
+            ("w fc", layers, f, d, e4, True),
+            ("w proj", layers, d, f, e4, True)]
+
+
+def cast_compare(tq, x, hist, wire, res=None, **kw):
+    """The cast kernel vs its plain version, bit for bit except a NaN
+    payload's sign bit; returns the largest |kernel - plain| over the
+    non-NaN elements of every output (payloads, ring, scale, residual)."""
+    got = tq.fp8_cast(x, hist, wire, residual=res, **kw)
+    want = tq.fp8_cast_reference(x, hist, wire, residual=res, **kw)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, b in zip(got._fields, got, want):
+        if (a is None) != (b is None):
+            raise AssertionError(f"fp8_cast {name}: {a is None} vs plain "
+                                 f"{b is None}")
+        if a is None:
+            continue
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"fp8_cast {name} {a.shape} {a.dtype} vs "
+                                 f"plain {b.shape} {b.dtype}")
+        nan = torch.isnan(b.float())
+        view = {1: torch.uint8, 4: torch.int32}[a.element_size()]
+        same = (torch.equal(torch.isnan(a.float()), nan) and torch.equal(
+            a.contiguous().view(view)[~nan], b.contiguous().view(view)[~nan]))
+        if not same:
+            raise AssertionError(
+                f"fp8_cast kernel disagrees with its plain version on {name} "
+                f"of {tuple(x.shape)} {x.dtype} -> {wire}")
+        af, bf = a.float(), b.float()
+        d = torch.where(af == bf, 0.0, (af - bf).abs())[~nan]
+        if d.numel():
+            err = max(err, d.max().item())
+    return err
+
+
+def fp8_cast_case(tq, gen, cfg):
+    """[fp8-cast]: the cast kernel bit for bit against its plain version at
+    the step's shapes and on special values and ragged shapes, then the
+    step's shapes timed beside the plain composition and the byte bound."""
+    e4, e5 = torch.float8_e4m3fn, torch.float8_e5m2
+    checked, err = 0, 0.0
+    # Special values, a fresh ring, ragged shapes, rows off 16-byte
+    # boundaries, fp32 and bf16, both modes and formats.
+    for rows, cols, pad in ((1000, 768, 0), (130, 70, 0), (33, 129, 3),
+                            (1, 17, 0)):
+        base = torch.randn((rows, cols + pad), generator=gen,
+                           device="cuda")[:, :cols] * 3
+        for i, v in enumerate((float("nan"), float("inf"), -float("inf"),
+                               1e6, -1e6, 0.0, -0.0, 1e-30)):
+            base[(7 * i) % rows, (13 * i) % cols] = v
+        for dtype in (torch.bfloat16, torch.float32):
+            x = base.to(dtype)
+            for wire in (e4, e5):
+                for fresh in (True, False):
+                    hist = torch.rand((16,), generator=gen,
+                                      device="cuda") * 40
+                    if fresh:
+                        hist.zero_()
+                    res = torch.randn((rows, cols), generator=gen,
+                                      device="cuda") * 1e-3
+                    err = max(err, cast_compare(tq, x, hist, wire),
+                              cast_compare(tq, x, hist, wire, res))
+                    checked += 2
+    log(f"[fp8-cast] special values (NaN, +-inf, past qmax, signed zeros), "
+        f"fresh and filled rings, ragged and unaligned shapes, fp32 and bf16, "
+        f"e4m3 and e5m2, activation and weight mode: {checked} casts bit for "
+        f"bit (max |d| {err})")
+    cases, step = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                       "bytes": 0.0, "elements": 0.0, "launches": 0}
+    for name, count, rows, cols, wire, weight in fp8_cast_shapes(cfg):
+        x = (torch.randn((rows, cols), generator=gen, device="cuda")
+             * (0.05 if weight else 3.0)).to(torch.bfloat16)
+        hist = torch.rand((16,), generator=gen, device="cuda") * 10
+        res = (torch.randn((rows, cols), generator=gen, device="cuda") * 1e-4
+               if weight else None)
+        err = max(err, cast_compare(tq, x, hist, wire, res))
+        rec = {"name": name, "launches_per_step": count, "rows": rows,
+               "cols": cols, "wire": str(wire), "weight": weight}
+        rec["ms"] = time_ms(lambda: tq.fp8_cast(x, hist, wire, residual=res))
+        rec["device_ms"] = device_ms(
+            lambda: tq.fp8_cast(x, hist, wire, residual=res))
+        rec["plain_ms"] = time_ms(
+            lambda: tq.fp8_cast_reference(x, hist, wire, residual=res),
+            samples=5, per_sample=3)
+        per = 12 if weight else 4  # bytes an element in and out
+        rec["bytes"] = rows * cols * per
+        rec["bound_ms"] = rec["bytes"] / HBM_BYTES_PER_S * 1e3
+        rec["gbps"] = rec["bytes"] / rec["ms"] / 1e6
+        log(f"[fp8-cast] {name}: [{rows}, {cols}] bf16 -> {wire}"
+            f"{' + residual' if weight else ''}: kernel {rec['ms']:.4f} ms "
+            f"({rec['gbps']:.0f} GB/s; device {rec['device_ms']:.4f} ms), "
+            f"plain {rec['plain_ms']:.4f} ms, bound "
+            f"{rec['bound_ms']:.4f} ms (bytes); bit for bit")
+        cases.append(rec)
+        for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bytes"):
+            step[key] = step.get(key, 0.0) + count * rec[key]
+        step["elements"] += count * rows * cols
+        step["launches"] += count
+        del x, res
+    step["bound_by"] = "bytes"
+    log(f"[fp8-cast] one step's {step['launches']} launches "
+        f"({step['elements'] / 1e9:.3f} G elements, {step['bytes'] / 1e9:.2f} "
+        f"GB): kernel {step['ms']:.3f} ms (device {step['device_ms']:.3f} "
+        f"ms), plain {step['plain_ms']:.3f} ms, bound {step['bound_ms']:.3f} "
+        f"ms; max |d| over every cast checked {err}")
+    torch.cuda.empty_cache()
+    return {"checked": checked, "max_abs_err": err, "step": step,
             "cases": cases}
 
 
@@ -1232,8 +1436,12 @@ def fp8_linear_check(hvt, tq, gen, model, tokens):
     g = (torch.randn(x.shape[:-1] + (w.shape[0],), generator=gen,
                      device="cuda") * (state[3].max() / 4)).to(x.dtype)
     leaves = [t.clone().requires_grad_(True) for t in [x, w] + state]
+    tq.reset_launches()
     out = hvt.Fp8Linear.apply(*leaves)
     got = (out.detach(),) + torch.autograd.grad(out, leaves, g)
+    counts = {"fp8_matmul": tq.launches_fp8_matmul,
+              "fp8_cast": tq.launches_fp8_cast,
+              "fp8_relayout": tq.launches_fp8_relayout}
     want = fp8_linear_plain(tq, x, w, *state, g)
     torch.cuda.synchronize()
     rels = []
@@ -1247,11 +1455,14 @@ def fp8_linear_check(hvt, tq, gen, model, tokens):
     log(f"[train-fp8] Fp8Linear at the first fc, x {tuple(x.shape)}, w "
         f"{tuple(w.shape)}, kernel vs plain: relative out/dx/dw "
         f"{rels} (tol {FP8_TOL[torch.bfloat16]}); state gradients bit for "
-        f"bit {same}")
+        f"bit {same}; launches {counts}")
     if max(rels) > FP8_TOL[torch.bfloat16] or not all(same):
         raise AssertionError("Fp8Linear on the kernel disagrees with its "
                              "plain math")
-    return {"rel_err_out_dx_dw": rels, "state_bitwise": all(same)}
+    if counts != {"fp8_matmul": 3, "fp8_cast": 3, "fp8_relayout": 0}:
+        raise AssertionError(f"Fp8Linear launched {counts}")
+    return {"rel_err_out_dx_dw": rels, "state_bitwise": all(same),
+            "launches": counts}
 
 
 def train_fp8(hvt, kernels, cfg_base):
@@ -1294,7 +1505,9 @@ def train_fp8(hvt, kernels, cfg_base):
         want = {"flash_fwd": cfg.n_layers, "flash_bwd_dkdv": cfg.n_layers,
                 "flash_bwd_dq": cfg.n_layers, "fused_adamw": 0,
                 "quantize_blockwise": 0, "dequantize_blockwise": 0,
-                "fp8_matmul": 18 * cfg.n_layers if mode else 0}
+                "fp8_matmul": 18 * cfg.n_layers if mode else 0,
+                "fp8_cast": 18 * cfg.n_layers if mode else 0,
+                "fp8_relayout": 0}
         log(f"[{label}] losses {losses}")
         log(f"[{label}] launches over {FP8_STEPS} steps: {counts}")
         for name, per_step in want.items():
@@ -1841,6 +2054,7 @@ def main() -> int:
     quant_trained = train_quant(hvt, (fa, fadam, tq), train_cfg, sizes,
                                 qsizes)
     fp8 = fp8_case(tq, gen, train_cfg)
+    fp8_cast = fp8_cast_case(tq, gen, train_cfg)
     fp8_trained = train_fp8(hvt, (fa, fadam, tq), train_cfg)
 
     workdir = tempfile.mkdtemp(prefix="smoke-", dir=_build.BUILD_DIR)
@@ -1928,7 +2142,11 @@ def main() -> int:
         })
     # Kernel 8: "ms", "plain_ms", "library_ms" and "bound_ms" are one
     # training step's 216 launches (each shape's time times its launches a
-    # step); "cases" holds each shape's own.
+    # step); "cases" holds each shape's own. "ms" and "library_ms" are the
+    # CUDA-event times of back-to-back calls, as for every other kernel
+    # (they include the host's time where a wrapper takes longer than its
+    # kernel); "device_ms" and "library_device_ms" the device times under
+    # torch.profiler (the kernel's and torch._scaled_mm's own).
     step8 = fp8["step"]
     kernels.append({
         "name": "fp8_matmul",
@@ -1937,13 +2155,38 @@ def main() -> int:
         "replaces": ref + "1268",
         "launches": fp8_trained["on"]["launches"]["fp8_matmul"],
         "launches_per_step": step8["launches"],
+        "launches_relayout": fp8_trained["on"]["launches"]["fp8_relayout"],
         "max_abs_err": fp8["max_abs_err"],
         "max_rel_err": fp8["max_rel_err"],
+        "promotion_rel_err": fp8["promotion_rel_err"],
         "ms": step8["ms"],
+        "device_ms": step8["device_ms"],
         "plain_ms": step8["plain_ms"],
         "bound_ms": step8["bound_ms"],
         "bound_by": step8["bound_by"],
         "library_ms": step8["library_ms"],
+        "library_device_ms": step8["library_device_ms"],
+    })
+    # The cast kernel (not a TPU kernel: the port's counterpart of XLA's
+    # fusion of the jnp cast and amax in horovod_tpu/ops/fp8.py): "ms",
+    # "plain_ms" and "bound_ms" are one training step's 216 launches, "ms"
+    # the CUDA-event time and "device_ms" the device time, as for kernel 8.
+    step_c = fp8_cast["step"]
+    kernels.append({
+        "name": "fp8_cast",
+        "route": "cuda",
+        "source": src + "fp8_cast.cu",
+        "replaces": "horovod_tpu/ops/fp8.py:136",
+        "launches": fp8_trained["on"]["launches"]["fp8_cast"],
+        "launches_per_step": step_c["launches"],
+        "max_abs_err": fp8_cast["max_abs_err"],
+        "bitwise": True,
+        "ms": step_c["ms"],
+        "device_ms": step_c["device_ms"],
+        "plain_ms": step_c["plain_ms"],
+        "bound_ms": step_c["bound_ms"],
+        "bound_by": step_c["bound_by"],
+        "library_ms": None,
     })
     # Kernel 7: "ms", "plain_ms", "library_ms", "bf16_ms" and "bound_ms" are
     # one serving batch's 48 launches at M = 8192 ("device_ms" the kernel's
@@ -1971,6 +2214,7 @@ def main() -> int:
     })
     print(json.dumps({"kernels": kernels, "train": trained, "quant": quant,
                       "train_quant": quant_trained, "fp8": fp8,
+                      "fp8_cast": fp8_cast,
                       "train_fp8": fp8_trained, "serve": served,
                       "int8": int8, "serve_int8": served_int8}),
           flush=True)

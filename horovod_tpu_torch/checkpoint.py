@@ -16,15 +16,20 @@ tree: one ``torch.save`` of a flat name -> CPU tensor dict per step
 * :class:`CheckpointWatcher` and :func:`hot_swap_restore` drive the
   serving pool's rolling hot-swap.
 
-A state is a nest of dicts over tensors, numpy arrays and Python scalars
-(flattened to ``"a/b"`` names), or an ``nn.Module`` (its ``state_dict``).
-Restoring into a template gives the template's structure, dtypes and
-devices; a module template is copied and loaded, never modified.
+A state is an ``nn.Module`` (its ``state_dict``) or a nest of dicts,
+dataclasses (``TrainState``), NamedTuples (the optimizer states), lists,
+tuples and the fused optimizer buffers (``FlatBuckets``, ``EFResiduals``)
+over tensors, numpy arrays, Python scalars and ``None``, flattened to
+``"a/b"`` names by key, field name or index (``None`` writes nothing).
+Restoring into a template gives the template's structure, types, dtypes
+and devices (a tensor keeps its ``requires_grad``); a module template is
+copied and loaded, never modified.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import logging
 import os
@@ -39,6 +44,7 @@ import torch
 
 from . import context as _ctx
 from .exceptions import CheckpointCorruptError
+from .ops.fusion import EFResiduals, FlatBuckets
 
 log = logging.getLogger("horovod_tpu_torch.checkpoint")
 
@@ -150,18 +156,63 @@ def _quarantine(path: str) -> str:
 # -- serialization ------------------------------------------------------
 
 
+def _children(node: Any):
+    """``(key, child)`` pairs of an inner node of a state, or None for a
+    leaf: dict keys, dataclass and NamedTuple field names, list and tuple
+    indices, a fused buffer list's indices (and an EF residual's layout
+    recipe)."""
+    if isinstance(node, dict):
+        return list(node.items())
+    if dataclasses.is_dataclass(node) and not isinstance(node, type):
+        return [(f.name, getattr(node, f.name))
+                for f in dataclasses.fields(node) if f.init]
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return list(zip(node._fields, node))
+    if isinstance(node, (list, tuple)):
+        return list(enumerate(node))
+    if isinstance(node, EFResiduals):
+        return [("buffers", node.buffers), ("threshold", node.threshold),
+                ("block", node.block)]
+    if isinstance(node, FlatBuckets):
+        return [("buffers", node.buffers)]
+    return None
+
+
+def _rebuild(node: Any, values: list) -> Any:
+    """An inner node of ``node``'s own type from its children's values, in
+    :func:`_children`'s order."""
+    if isinstance(node, dict):
+        return type(node)(zip(node.keys(), values))
+    if dataclasses.is_dataclass(node):
+        names = [f.name for f in dataclasses.fields(node) if f.init]
+        return type(node)(**dict(zip(names, values)))
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*values)
+    if isinstance(node, (list, tuple)):
+        return type(node)(values)
+    if isinstance(node, EFResiduals):
+        return EFResiduals(*values)
+    return type(node)(*values)  # FlatBuckets
+
+
+def _join(prefix: str, key) -> str:
+    return f"{prefix}/{key}" if prefix else str(key)
+
+
 def _flat_state(state: Any) -> Dict[str, torch.Tensor]:
-    """Flat name -> CPU tensor dict of a state (module, or nest of dicts)."""
+    """Flat name -> CPU tensor dict of a state (see the module docstring)."""
     if isinstance(state, torch.nn.Module):
         state = state.state_dict()
     out: Dict[str, torch.Tensor] = {}
 
     def rec(prefix: str, node: Any) -> None:
-        if isinstance(node, dict):
-            for k, v in node.items():
-                rec(f"{prefix}/{k}" if prefix else str(k), v)
-            return
-        if isinstance(node, torch.Tensor):
+        kids = _children(node)
+        if kids is not None:
+            for k, v in kids:
+                rec(_join(prefix, k), v)
+        elif node is None:
+            pass
+        elif isinstance(node, torch.Tensor):
             # A private CPU copy: torch.save of a view would write its
             # whole storage.
             out[prefix] = node.detach().to("cpu", copy=True).contiguous()
@@ -196,16 +247,19 @@ def _read_tree(path: str, target: Any) -> Any:
         return restored
 
     def rec(prefix: str, node: Any) -> Any:
-        if isinstance(node, dict):
-            return type(node)(
-                (k, rec(f"{prefix}/{k}" if prefix else str(k), v))
-                for k, v in node.items()
-            )
+        kids = _children(node)
+        if kids is not None:
+            return _rebuild(node, [rec(_join(prefix, k), v) for k, v in kids])
+        if node is None:
+            return None
         if prefix not in flat:
             raise ValueError(f"checkpoint has no entry {prefix!r}")
         r = flat[prefix]
         if isinstance(node, torch.Tensor):
-            return r.to(device=node.device, dtype=node.dtype)
+            t = r.to(device=node.device, dtype=node.dtype)
+            if isinstance(node, torch.nn.Parameter):
+                return torch.nn.Parameter(t, requires_grad=node.requires_grad)
+            return t.requires_grad_(node.requires_grad)
         if isinstance(node, np.generic):
             return node.dtype.type(r.item())
         if isinstance(node, np.ndarray):

@@ -7,6 +7,17 @@ e4m3 operands in the backward pass, through
 :func:`~.quantization.fp8_matmul` (kernel 8 on the card, its plain version
 on the CPU).
 
+* **One cast a tensor, both orientations.** Each cast is one
+  :func:`~.quantization.fp8_cast` (one pass of ``csrc/fp8_cast.cu`` on the
+  card): scale from the ring, saturating cast, amax pushed, and the payload
+  written row-major and transposed. Kernel 8 reads K-major operands only
+  (Hopper's fp8 ``wgmma`` has no transposed fp8 operand), and the two
+  orientations are exactly what the three products need: ``x`` and ``w``
+  row-major now, their transposes saved for ``dW = g^T x`` and
+  ``dX = g w``; ``g`` both ways in the backward pass. One fp8 copy of ``x``
+  and of ``w`` is saved, as before. So a GPT-2-small step runs 216 casts
+  (2 forward, 1 backward a projection) and no relayout.
+
 * **Delayed scaling, state in the parameters.** Each tensor's cast scale
   comes from a ring of past max-abs values (``HVDTPU_FP8_AMAX_HISTORY``),
   so the cast needs nothing from the host. The rings and the weight-cast
@@ -35,14 +46,7 @@ from torch import nn
 
 from ..optimizer import Optimizer
 from ..utils import env as _env
-from .quantization import (
-    E4M3_MAX,
-    E5M2_MAX,
-    fp8_matmul,
-    fp8_push_amax,
-    fp8_saturating_cast,
-    fp8_scale_from_history,
-)
+from .quantization import E4M3_MAX, fp8_cast, fp8_matmul
 
 __all__ = [
     "FP8_STATE_PREFIX",
@@ -90,36 +94,42 @@ class Fp8Linear(torch.autograd.Function):
     def forward(ctx, x, w, kr, xh, kh, gh):
         n, k = w.shape
         out_dtype = torch.promote_types(x.dtype, w.dtype)
-        sx = fp8_scale_from_history(xh, E4M3_MAX)
-        sk = fp8_scale_from_history(kh, E4M3_MAX)
-        kc = w.to(torch.float32) + kr
-        qx = fp8_saturating_cast(x, sx, torch.float8_e4m3fn, E4M3_MAX)
-        qk = fp8_saturating_cast(kc, sk, torch.float8_e4m3fn, E4M3_MAX)
-        x2 = qx.reshape(-1, k)
-        out = fp8_matmul(x2, qk.t(), sx * sk, out_dtype=out_dtype)
-        new_xh = fp8_push_amax(xh, x)
-        new_kh = fp8_push_amax(kh, kc)
-        # What the e4m3 cast dropped this step; added back before the next
-        # cast so the rounding bias cannot accumulate in one direction.
-        new_kr = (kc - qk.to(torch.float32) * sk).to(kr.dtype)
-        ctx.save_for_backward(x2, qk, sx, sk, gh, new_xh, new_kh, new_kr)
+        x2 = x.detach().reshape(-1, k)
+        if x2.stride(-1) != 1:
+            x2 = x2.contiguous()
+        # The transposes only feed the backward products.
+        grad = any(ctx.needs_input_grad)
+        e4 = torch.float8_e4m3fn
+        cx = fp8_cast(x2, xh, e4, transposed=grad)
+        # The weight after its bf16 rounding plus what the last cast
+        # dropped; the new residual is what this cast drops, added back
+        # before the next one so the rounding bias cannot accumulate.
+        ck = fp8_cast(w.detach(), kh, e4, transposed=grad, residual=kr)
+        out = fp8_matmul(cx.q, ck.q.t(), cx.scale, scale_b=ck.scale,
+                         out_dtype=out_dtype)
+        ctx.save_for_backward(cx.qt, ck.qt, cx.scale, ck.scale, gh,
+                              cx.history, ck.history, ck.residual)
         ctx.x_shape = x.shape
         ctx.out_dtype = out_dtype
         return out.reshape(*x.shape[:-1], n)
 
     @staticmethod
     def backward(ctx, g):
-        qx, qk, sx, sk, gh, new_xh, new_kh, new_kr = ctx.saved_tensors
-        n = qk.shape[0]
-        sg = fp8_scale_from_history(gh, E5M2_MAX)
-        qg = fp8_saturating_cast(g, sg, torch.float8_e5m2, E5M2_MAX)
-        g2 = qg.reshape(-1, n)
-        # dX = g W reads W [N, K] with n contiguous; dW = g^T x reads both
-        # operands with m contiguous: transposed views, no copies.
-        dx = fp8_matmul(g2, qk, sg * sk, out_dtype=ctx.out_dtype)
-        dw = fp8_matmul(g2.t(), qx, sx * sg, out_dtype=ctx.out_dtype)
-        new_gh = fp8_push_amax(gh, g)
-        return (dx.reshape(ctx.x_shape), dw, new_kr, new_xh, new_kh, new_gh)
+        qxt, qkt, sx, sk, gh, new_xh, new_kh, new_kr = ctx.saved_tensors
+        n = qkt.shape[1]
+        g2 = g.reshape(-1, n)
+        if g2.stride(-1) != 1:
+            g2 = g2.contiguous()
+        cg = fp8_cast(g2, gh, torch.float8_e5m2)
+        # K-major operands throughout: dX = g W contracts over n, which g
+        # and W^T hold contiguous; dW = g^T x over the rows, which g^T and
+        # x^T hold contiguous.
+        dx = fp8_matmul(cg.q, qkt.t(), cg.scale, scale_b=sk,
+                        out_dtype=ctx.out_dtype)
+        dw = fp8_matmul(cg.qt, qxt.t(), sx, scale_b=cg.scale,
+                        out_dtype=ctx.out_dtype)
+        return (dx.reshape(ctx.x_shape), dw, new_kr, new_xh, new_kh,
+                cg.history)
 
 
 def add_fp8_state(module: nn.Module, weight_shape, *, device=None) -> None:

@@ -24,11 +24,17 @@ the quantized collectives; :mod:`.compression` exposes them as
 
 The fp8-compute half (``HVDTPU_COMPUTE_DTYPE=fp8``): the delayed-scaling
 algebra (:func:`fp8_scale_from_history`, :func:`fp8_push_amax`,
-:func:`fp8_saturating_cast`, op for op the JAX package's) and
-:func:`fp8_matmul`, which launches ``csrc/fp8_matmul.cu`` (kernel 8) on
-CUDA tensors and runs :func:`fp8_matmul_reference` on CPU tensors;
-:mod:`.fp8` builds the training matmul on them. Scales stay device
-tensors throughout, so a step never syncs on one.
+:func:`fp8_saturating_cast`, op for op the JAX package's);
+:func:`fp8_cast`, which does a tensor's whole cast in one pass of
+``csrc/fp8_cast.cu`` on the card -- scale from the ring, saturating cast,
+the payload row-major and transposed, the amax pushed onto a new ring, and
+for a weight the error-feedback residual -- and :func:`fp8_cast_reference`
+(exactly the composition of those helpers) on the CPU; and
+:func:`fp8_matmul`, which launches ``csrc/fp8_matmul.cu`` (kernel 8, fp8
+``wgmma`` on K-major operands) on CUDA tensors and runs
+:func:`fp8_matmul_reference` on CPU tensors. :mod:`.fp8` builds the training
+matmul on them, handing kernel 8 the K-major payloads the casts wrote. Scales
+stay device tensors throughout, so a step never syncs on one.
 
 The weight half (``ServePool(weight_dtype="int8")``): a 2-D matmul weight is
 quantized once per checkpoint load with one fp32 scale per output column
@@ -50,7 +56,7 @@ import ctypes
 import dataclasses
 import math
 import threading
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -61,6 +67,7 @@ __all__ = [
     "E4M3_MAX",
     "E5M2_MAX",
     "FP8",
+    "Fp8Cast",
     "INT8",
     "QuantSpec",
     "QuantizedWeight",
@@ -69,6 +76,8 @@ __all__ = [
     "dequantize_blockwise",
     "dequantize_blockwise_reference",
     "dequantize_weight",
+    "fp8_cast",
+    "fp8_cast_reference",
     "fp8_matmul",
     "fp8_matmul_reference",
     "fp8_push_amax",
@@ -77,7 +86,9 @@ __all__ = [
     "int8_weight_matmul",
     "int8_weight_matmul_reference",
     "launches_dequant",
+    "launches_fp8_cast",
     "launches_fp8_matmul",
+    "launches_fp8_relayout",
     "launches_int8_matmul",
     "launches_quant",
     "qmatmul",
@@ -93,6 +104,7 @@ __all__ = [
 
 KERNEL_SOURCE = "quant_blockwise"
 FP8_MATMUL_SOURCE = "fp8_matmul"
+FP8_CAST_SOURCE = "fp8_cast"
 INT8_MATMUL_SOURCE = "int8_matmul"
 SCALE_DTYPE = torch.float32
 # Past this magnitude round-to-nearest-even lands beyond e4m3's largest
@@ -105,6 +117,8 @@ launches_quant = 0
 launches_dequant = 0
 launches_fp8_matmul = 0
 launches_int8_matmul = 0
+launches_fp8_cast = 0  # the fused cast-transpose-amax kernel's casts
+launches_fp8_relayout = 0  # its byte mode: a K-major copy for kernel 8
 _count_lock = threading.Lock()
 _fns = {}
 
@@ -169,28 +183,20 @@ def quantized_wire_bytes(n_elements: int, block: int, spec: QuantSpec) -> int:
     return n_elements * spec.itemsize + n_blocks * SCALE_DTYPE.itemsize
 
 
+_COUNTERS = ("quant", "dequant", "fp8_matmul", "int8_matmul", "fp8_cast",
+             "fp8_relayout")
+
+
 def reset_launches() -> None:
-    global launches_quant, launches_dequant, launches_fp8_matmul
-    global launches_int8_matmul
+    """Set every launch count of this module to 0."""
     with _count_lock:
-        launches_quant = 0
-        launches_dequant = 0
-        launches_fp8_matmul = 0
-        launches_int8_matmul = 0
+        for which in _COUNTERS:
+            globals()["launches_" + which] = 0
 
 
 def _count_launch(which: str) -> None:
-    global launches_quant, launches_dequant, launches_fp8_matmul
-    global launches_int8_matmul
     with _count_lock:
-        if which == "quant":
-            launches_quant += 1
-        elif which == "dequant":
-            launches_dequant += 1
-        elif which == "int8_matmul":
-            launches_int8_matmul += 1
-        else:
-            launches_fp8_matmul += 1
+        globals()["launches_" + which] += 1
 
 
 def _blocks_view(x: torch.Tensor, block: int) -> Tuple[torch.Tensor, int, int]:
@@ -260,6 +266,7 @@ def dequantize_blockwise_reference(
 
 
 _SOURCES = {"hvt_fp8_matmul": FP8_MATMUL_SOURCE,
+            "hvt_fp8_cast": FP8_CAST_SOURCE,
             "hvt_int8_matmul": INT8_MATMUL_SOURCE}
 
 
@@ -271,8 +278,11 @@ def _kernel(name: str):
         if name == "hvt_quantize_blockwise":
             fn.argtypes = [ptr, ptr, ptr, i64, i32, i32, ctypes.c_float, ptr]
         elif name == "hvt_fp8_matmul":
-            fn.argtypes = ([ptr] * 5 + [i32] * 3 + [i64] * 3 + [i32] * 6
+            fn.argtypes = ([ptr] * 6 + [i32] * 3 + [i64] * 3 + [i32] * 4
                            + [ptr])
+        elif name == "hvt_fp8_cast":
+            fn.argtypes = ([ptr, i64] + [ptr] * 6 + [i64, ptr, i64, ptr]
+                           + [i32] * 3 + [ctypes.c_float, i32, i32, ptr])
         elif name == "hvt_int8_matmul":
             fn.argtypes = [ptr] * 4 + [i32] * 4 + [i64] * 3 + [i32, ptr]
         else:
@@ -436,6 +446,188 @@ def fp8_saturating_cast(
     return y.clamp_(-qmax, qmax).to(wire_dtype)
 
 
+def _fp8_qmax(wire_dtype: torch.dtype) -> float:
+    """The largest finite magnitude of an fp8 wire dtype."""
+    if wire_dtype == torch.float8_e4m3fn:
+        return E4M3_MAX
+    if wire_dtype == torch.float8_e5m2:
+        return E5M2_MAX
+    raise TypeError(f"fp8 casts write float8_e4m3fn or float8_e5m2, not "
+                    f"{wire_dtype}")
+
+
+class Fp8Cast(NamedTuple):
+    """What one delayed-scaling cast of a 2-D tensor ``x [R, C]`` gives:
+    the payload ``q [R, C]`` and its transpose ``qt [C, R]`` (None unless
+    asked for), the pushed amax ring, the fp32 scale the cast divided by (a
+    device scalar) and, in weight mode, the new fp32 residual."""
+
+    q: torch.Tensor
+    qt: Optional[torch.Tensor]
+    history: torch.Tensor
+    scale: torch.Tensor
+    residual: Optional[torch.Tensor]
+
+
+def _check_cast(x: torch.Tensor, history: torch.Tensor, residual) -> None:
+    if x.dim() != 2:
+        raise ValueError(f"fp8_cast takes a 2-D tensor, got {tuple(x.shape)}")
+    if history.dim() != 1 or history.numel() < 1:
+        raise ValueError(f"the amax ring must be 1-D and non-empty, got "
+                         f"{tuple(history.shape)}")
+    if residual is not None and residual.shape != x.shape:
+        raise ValueError(f"the residual {tuple(residual.shape)} must have x's "
+                         f"shape {tuple(x.shape)}")
+    for name, t in (("history", history), ("residual", residual)):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+
+
+def fp8_cast_reference(
+    x: torch.Tensor,
+    history: torch.Tensor,
+    wire_dtype: torch.dtype,
+    *,
+    transposed: bool = True,
+    residual: Optional[torch.Tensor] = None,
+) -> Fp8Cast:
+    """The plain version of :func:`fp8_cast`: exactly the composition the
+    fp8 matmul's casts were written as -- :func:`fp8_scale_from_history`,
+    ``v = x`` (or ``x.float() + residual``), :func:`fp8_saturating_cast`,
+    ``q.t().contiguous()``, :func:`fp8_push_amax` of ``v`` and the residual
+    ``v - q.float() * scale``."""
+    _check_cast(x, history, residual)
+    qmax = _fp8_qmax(wire_dtype)
+    scale = fp8_scale_from_history(history, qmax)
+    v = x if residual is None else x.to(torch.float32) + residual
+    q = fp8_saturating_cast(v, scale, wire_dtype, qmax)
+    new_res = (None if residual is None else
+               (v - q.to(torch.float32) * scale).to(residual.dtype))
+    return Fp8Cast(q, q.t().contiguous() if transposed else None,
+                   fp8_push_amax(history, v), scale, new_res)
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _payload(rows: int, cols: int, dtype, device) -> torch.Tensor:
+    """An uninitialised ``[rows, cols]`` payload whose rows start on 16-byte
+    boundaries (a row stride of ``cols`` rounded up to 16): the layout the
+    TMA loads of kernel 8 take."""
+    padded = _round16(cols)
+    out = torch.empty((rows, padded), dtype=dtype, device=device)
+    return out if padded == cols else out[:, :cols]
+
+
+def _launch_on(device: torch.device, fn, *args) -> int:
+    """``fn(*args, stream)`` on ``device``'s current stream, with the device
+    made current around the launch when it is not already: the fp8 path's
+    launches are short, so their host time counts."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+
+
+_cast_ws = {}
+
+
+def _cast_workspace(device: torch.device, stream: int) -> torch.Tensor:
+    """Two zeroed words a device and stream (the amax bits and the block
+    ticket): each cast kernel leaves them zero for the next."""
+    key = (device, stream)
+    ws = _cast_ws.get(key)
+    if ws is None:
+        ws = torch.zeros((2,), dtype=torch.int32, device=device)
+        _cast_ws[key] = ws
+    return ws
+
+
+def _launch_cast(x, ldx, in_kind, *, q=None, qt=None, history=None,
+                 residual=None, wire_dtype=None):
+    """One launch of ``hvt_fp8_cast``; returns (new ring, scale, new
+    residual), None each in byte mode."""
+    rows, cols = x.shape
+    new_hist = scale = new_res = None
+    if history is not None:
+        # The new ring and the scale in one allocation.
+        state = torch.empty((history.numel() + 1,), dtype=torch.float32,
+                            device=x.device)
+        new_hist, scale = state[:-1], state[-1]
+        if residual is not None:
+            new_res = torch.empty_like(residual)
+    e5m2 = int(wire_dtype == torch.float8_e5m2)
+    qmax = _fp8_qmax(wire_dtype) if wire_dtype is not None else 0.0
+    fn = _kernel("hvt_fp8_cast")
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def call(stream):
+        ws = None if history is None else _cast_workspace(x.device, stream)
+        return fn(x.data_ptr(), ldx, ptr(residual), ptr(new_res),
+                  ptr(history), ptr(new_hist), ptr(scale), ptr(q),
+                  q.stride(0) if q is not None else 0, ptr(qt),
+                  qt.stride(0) if qt is not None else 0, ptr(ws), rows, cols,
+                  history.numel() if history is not None else 0, qmax,
+                  in_kind, e5m2, stream)
+
+    rc = _launch_on(x.device, call)
+    if rc != 0:
+        raise RuntimeError(f"fp8_cast kernel launch failed with cudaError_t {rc}")
+    return new_hist, scale, new_res
+
+
+def fp8_cast(
+    x: torch.Tensor,
+    history: torch.Tensor,
+    wire_dtype: torch.dtype,
+    *,
+    transposed: bool = True,
+    residual: Optional[torch.Tensor] = None,
+) -> Fp8Cast:
+    """The delayed-scaling cast of ``x [R, C]`` to ``wire_dtype``
+    (``float8_e4m3fn``, or ``float8_e5m2`` for gradients) under the scale
+    of the amax ring ``history``, in one pass.
+
+    Returns :class:`Fp8Cast`: the payload row-major and, with
+    ``transposed``, transposed too, the ring with ``amax(|v|)`` pushed at
+    slot 0, the scale, and -- with ``residual`` (weight mode: ``v = x.float() +
+    residual``) -- the new residual ``v - q.float() * scale``. CPU tensors
+    run :func:`fp8_cast_reference`. CUDA tensors launch ``csrc/fp8_cast.cu``
+    or raise: ``x`` bf16 or fp32 with unit inner stride, the ring and the
+    residual contiguous fp32; each payload's rows start on 16-byte
+    boundaries (a padded row stride), bit for bit the plain version's."""
+    _check_cast(x, history, residual)
+    if _check_device(x) == "cpu":
+        return fp8_cast_reference(x, history, wire_dtype,
+                                  transposed=transposed, residual=residual)
+    _fp8_qmax(wire_dtype)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the fp8 cast kernel takes float32 or bfloat16, not "
+                        f"{x.dtype}")
+    r, c = x.shape
+    if r == 0 or c == 0:
+        raise ValueError(f"the fp8 cast kernel takes a non-empty tensor, got "
+                         f"{tuple(x.shape)}")
+    if c > 1 and x.stride(1) != 1:
+        raise ValueError(f"the fp8 cast kernel reads x with unit inner "
+                         f"stride; got strides {tuple(x.stride())}")
+    _check_kernel_input(history, "history", torch.float32)
+    if residual is not None:
+        _check_kernel_input(residual, "residual", torch.float32)
+    # Separate allocations: the training path saves only one of the two.
+    q = _payload(r, c, wire_dtype, x.device)
+    qt = _payload(c, r, wire_dtype, x.device) if transposed else None
+    new_hist, scale, new_res = _launch_cast(
+        x, x.stride(0) if r > 1 else c, int(x.dtype == torch.bfloat16),
+        q=q, qt=qt, history=history, residual=residual,
+        wire_dtype=wire_dtype)
+    _count_launch("fp8_cast")
+    return Fp8Cast(q, qt, new_hist, scale, new_res)
+
+
 def _check_fp8_operands(x_q: torch.Tensor, w_q: torch.Tensor):
     if x_q.dim() != 2 or w_q.dim() != 2:
         raise ValueError(
@@ -456,6 +648,9 @@ def _check_fp8_operands(x_q: torch.Tensor, w_q: torch.Tensor):
 
 
 def _scale_tensor(scale, device: torch.device) -> torch.Tensor:
+    if (isinstance(scale, torch.Tensor) and scale.dim() == 0
+            and scale.dtype == torch.float32 and scale.device == device):
+        return scale
     scale = torch.as_tensor(scale, dtype=torch.float32, device=device)
     if scale.numel() != 1:
         raise ValueError(f"fp8_matmul takes one scale, got shape "
@@ -469,41 +664,67 @@ def fp8_matmul_reference(
     scale,
     *,
     out_dtype: torch.dtype = torch.float32,
+    scale_b=None,
 ) -> torch.Tensor:
-    """The plain version: ``(x_q[M, K] @ w_q[K, N]) * scale`` with the fp8
+    """The plain version: ``(x_q[M, K] @ w_q[K, N]) * scale`` (times
+    ``scale_b`` when given, the two scales multiplied first) with the fp8
     operands upcast to fp32 (every product exact) and fp32 sums, in
     ``out_dtype``. Any strides."""
     _check_fp8_operands(x_q, w_q)
     acc = torch.matmul(x_q.to(torch.float32), w_q.to(torch.float32))
-    return (acc * _scale_tensor(scale, acc.device)).to(out_dtype)
+    s = _scale_tensor(scale, acc.device)
+    if scale_b is not None:
+        s = s * _scale_tensor(scale_b, acc.device)
+    return (acc * s).to(out_dtype)
 
 
-def _operand_layout(t: torch.Tensor, name: str, contract_dim: int):
-    """(k_contiguous, leading stride) of a 2-D operand read in place: the
-    kernel takes either dim with unit stride and copies nothing."""
+def _kmajor(t: torch.Tensor, contract_dim: int, name: str):
+    """``(storage, row stride)`` of operand ``t`` as kernel 8 reads it:
+    ``[rows, K]`` with k contiguous and rows on 16-byte boundaries. ``t``
+    itself when it is laid out so; otherwise one copy through the cast
+    kernel's byte mode (transposing when ``t`` is contiguous along its other
+    dim), counted in ``launches_fp8_relayout``."""
     other = 1 - contract_dim
-    if t.stride(contract_dim) == 1 or t.shape[contract_dim] == 1:
-        return True, max(t.stride(other), 1)
-    if t.stride(other) == 1 or t.shape[other] == 1:
-        return False, max(t.stride(contract_dim), 1)
-    raise ValueError(
-        f"fp8_matmul reads {name} in place and needs one of its dims with "
-        f"unit stride; got strides {tuple(t.stride())}"
-    )
+    rows, k = t.shape[other], t.shape[contract_dim]
+    k_major = t.stride(contract_dim) == 1 or k == 1
+    ld = t.stride(other) if rows > 1 else _round16(k)
+    if k_major and ld % 16 == 0 and ld >= k and t.data_ptr() % 16 == 0:
+        return t, ld
+    if k_major:  # rows misaligned: copy them onto 16-byte boundaries
+        src = t if contract_dim == 1 else t.t()
+        out = _payload(rows, k, t.dtype, t.device)
+        _launch_cast(src, src.stride(0) if rows > 1 else k, 2, q=out)
+    elif t.stride(other) == 1 or rows == 1:  # contiguous along rows
+        src = t.t() if contract_dim == 1 else t
+        out = _payload(rows, k, t.dtype, t.device)
+        _launch_cast(src, src.stride(0) if k > 1 else rows, 2, qt=out)
+    else:
+        raise ValueError(
+            f"fp8_matmul needs one dim of {name} with unit stride; got "
+            f"strides {tuple(t.stride())}"
+        )
+    _count_launch("fp8_relayout")
+    return out, out.stride(0)
 
 
 _sm_counts = {}
 
 
 def _splits(m: int, n: int, k: int, device: torch.device) -> int:
-    """Contraction splits for an output with too few 128x128 tiles to fill
-    the card (two resident blocks an SM), each split at least 8 k-tiles."""
+    """Contraction splits for kernel 8's persistent grid (one block an SM).
+    An output of fewer than two rounds of 128 x 128 tiles over a deep
+    contraction (K >= 4096) splits 3 ways when the splits fit one round
+    (the 768 x 768 weight gradient: 36 tiles, 108 blocks) and 4 ways
+    otherwise (144 tiles: 5 rounds of 32 k-tiles in place of 2 of 128);
+    every other output takes 1."""
     sms = _sm_counts.get(device)
     if sms is None:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         _sm_counts[device] = sms
     tiles = -(-m // 128) * -(-n // 128)
-    return max(1, min(2 * sms // tiles, k // (8 * 32)))
+    if k < 4096 or tiles >= 2 * sms:
+        return 1
+    return 3 if 3 * tiles <= sms else 4
 
 
 def fp8_matmul(
@@ -512,45 +733,55 @@ def fp8_matmul(
     scale,
     *,
     out_dtype: torch.dtype = torch.float32,
+    scale_b=None,
 ) -> torch.Tensor:
     """``[M, K] x [K, N]`` over fp8 operands (``float8_e4m3fn`` or
     ``float8_e5m2``, mixed allowed) with fp32 accumulation and the combined
-    per-tensor ``scale`` (an fp32 device scalar) applied at the end, in
-    ``out_dtype`` (fp32 or bf16 on the card).
+    per-tensor scale (an fp32 device scalar, times ``scale_b`` when given)
+    applied at the end, in ``out_dtype`` (fp32 or bf16 on the card).
 
-    CPU tensors run :func:`fp8_matmul_reference`. CUDA tensors launch the
-    kernel or raise: each operand is read in place through its strides --
-    ``x_q`` with k or m contiguous, ``w_q`` with k or n contiguous, so a
-    transposed view (``w.t()``, ``g.t()``) costs no copy."""
+    CPU tensors run :func:`fp8_matmul_reference`. CUDA tensors launch
+    kernel 8 or raise. The kernel reads K-major operands only (``x_q`` with
+    k contiguous, ``w_q`` with k contiguous, i.e. the transposed view of an
+    ``[N, K]`` row-major payload), rows on 16-byte boundaries; an operand in
+    another layout (contiguous along M or N, or misaligned rows) costs one
+    K-major copy first (``launches_fp8_relayout``). :func:`fp8_cast` writes
+    the fp8 training path's payloads so that it needs none."""
     _check_fp8_operands(x_q, w_q)
     if w_q.device != x_q.device:
         raise ValueError(f"w_q is on {w_q.device}, x_q on {x_q.device}")
     device = _check_device(x_q)
     if device == "cpu":
-        return fp8_matmul_reference(x_q, w_q, scale, out_dtype=out_dtype)
+        return fp8_matmul_reference(x_q, w_q, scale, out_dtype=out_dtype,
+                                    scale_b=scale_b)
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the fp8 matmul kernel writes float32 or bfloat16, "
                         f"not {out_dtype}")
     scale = _scale_tensor(scale, x_q.device)
+    if scale_b is not None:
+        scale_b = _scale_tensor(scale_b, x_q.device)
     m, k = x_q.shape
     n = w_q.shape[1]
-    a_kmaj, lda = _operand_layout(x_q, "x_q", 1)
-    b_kmaj, ldb = _operand_layout(w_q, "w_q", 0)
-    out = torch.empty((m, n), dtype=out_dtype, device=x_q.device)
-    if m == 0 or n == 0:
-        return out
+    if m == 0 or n == 0 or k == 0:
+        return torch.zeros((m, n), dtype=out_dtype, device=x_q.device)
+    a, lda = _kmajor(x_q, 1, "x_q")
+    b, ldb = _kmajor(w_q, 0, "w_q")
+    # The kernel's TMA stores need rows on 16-byte boundaries: an N that is
+    # not a multiple of 8 gets a padded row stride (a strided view).
+    ldc = -(-n // 8) * 8
+    out = torch.empty((m, ldc), dtype=out_dtype, device=x_q.device)
+    if ldc != n:
+        out = out[:, :n]
     splits = _splits(m, n, k, x_q.device)
-    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x_q.device)
-          if splits > 1 else None)
-    fn = _kernel("hvt_fp8_matmul")
-    with torch.cuda.device(x_q.device):
-        stream = torch.cuda.current_stream(x_q.device).cuda_stream
-        rc = fn(x_q.data_ptr(), w_q.data_ptr(), out.data_ptr(),
-                ws.data_ptr() if ws is not None else None, scale.data_ptr(),
-                m, n, k, lda, ldb, n, int(a_kmaj), int(b_kmaj),
-                int(x_q.dtype == torch.float8_e5m2),
-                int(w_q.dtype == torch.float8_e5m2),
-                int(out_dtype == torch.bfloat16), splits, stream)
+    ws = (torch.empty((splits, m, ldc), dtype=torch.float32,
+                      device=x_q.device) if splits > 1 else None)
+    rc = _launch_on(
+        x_q.device, _kernel("hvt_fp8_matmul"), a.data_ptr(), b.data_ptr(),
+        out.data_ptr(), ws.data_ptr() if ws is not None else None,
+        scale.data_ptr(), scale_b.data_ptr() if scale_b is not None else None,
+        m, n, k, lda, ldb, ldc, int(x_q.dtype == torch.float8_e5m2),
+        int(w_q.dtype == torch.float8_e5m2), int(out_dtype == torch.bfloat16),
+        splits)
     if rc != 0:
         raise RuntimeError(
             f"fp8_matmul kernel launch failed with cudaError_t {rc}"

@@ -229,12 +229,24 @@ def make_train_step(
     with ``op=Average`` only, as in the JAX package.
 
     ``overlap``, ``stagger``, ``lint``, ``guard``, ``autotune``,
-    ``publish``, ``remat`` and ``act_quant`` are not ported yet: arming one
-    raises ``NotImplementedError`` naming the slice that brings it.
+    ``publish``, ``remat`` and ``act_quant`` are not ported yet: arming one,
+    or leaving it None under an armed ``HVDTPU_OVERLAP``, ``_LINT``,
+    ``_GUARD``, ``_AUTOTUNE``, ``_PUBLISH_EVERY``, ``_REMAT`` or
+    ``_ACT_QUANT``, raises ``NotImplementedError`` naming the slice that
+    brings it.
     """
-    knobs = dict(overlap=overlap, stagger=stagger, lint=lint, guard=guard,
-                 autotune=autotune, publish=publish, remat=remat,
-                 act_quant=act_quant)
+    # None reads the knob's HVDTPU_* default, as the JAX package does; an
+    # explicit off value wins over the environment.
+    knobs = dict(
+        overlap=_env.overlap_default() if overlap is None else overlap,
+        stagger=stagger,
+        lint=_env.lint_mode() if lint is None else lint,
+        guard=_env.guard_default() if guard is None else guard,
+        autotune=_env.autotune_default() if autotune is None else autotune,
+        publish=_env.publish_every() if publish is None else publish,
+        remat=_env.remat_mode() if remat is None else remat,
+        act_quant=_env.act_quant_mode() if act_quant is None else act_quant,
+    )
     for name, value in knobs.items():
         if _armed(name, value):
             raise NotImplementedError(

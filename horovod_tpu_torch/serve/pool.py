@@ -191,7 +191,9 @@ class ServePool:
         if params is None and ckpt_dir is None:
             raise ValueError("need initial params or ckpt_dir")
         self.weight_dtype = _resolve_weight_dtype(weight_dtype)
-        if autotune not in (None, False):
+        if autotune is None:
+            autotune = _env.autotune_default()  # HVDTPU_AUTOTUNE
+        if autotune is not False:
             raise NotImplementedError("ServePool(autotune=) is not ported yet")
         self.device = resolve_device(device)
         self.ckpt_dir = ckpt_dir

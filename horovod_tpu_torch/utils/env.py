@@ -28,6 +28,15 @@ QUANT = "QUANT"  # quantized collective wire format: off|int8|fp8
 QUANT_BLOCK = "QUANT_BLOCK"  # elements per blockwise quantization scale
 COMPUTE_DTYPE = "COMPUTE_DTYPE"  # training matmul precision: off|fp8
 FP8_AMAX_HISTORY = "FP8_AMAX_HISTORY"  # delayed-scaling amax ring length
+# Defaults of make_train_step / ServePool knobs whose planes are not ported
+# yet: an armed value raises there as the explicit argument does.
+OVERLAP = "OVERLAP"  # default for make_train_step(overlap=...)
+LINT = "LINT"  # default for make_train_step(lint=...): off|warn|raise
+REMAT = "REMAT"  # default remat policy for make_train_step(remat=...)
+ACT_QUANT = "ACT_QUANT"  # int8 storage of remat'd activations: off|int8
+GUARD = "GUARD"  # arm the in-graph gradient guard by default
+PUBLISH_EVERY = "PUBLISH_EVERY"  # publish a delta every N commits; 0=off
+AUTOTUNE = "AUTOTUNE"  # closed-loop autotuner, trainer and serving pool
 
 DEFAULT_FUSION_THRESHOLD = 128 * 1024 * 1024
 DEFAULT_SERVE_BATCH_SIZE = 8
@@ -41,6 +50,7 @@ DEFAULT_SERVE_REQUEST_TIMEOUT_SECS = 30.0
 DEFAULT_SERVE_CKPT_POLL_SECS = 1.0
 DEFAULT_QUANT_BLOCK = 256  # 4/256 = 1.6% fp32-scale overhead on the wire
 DEFAULT_FP8_AMAX_HISTORY = 16  # steps of amax memory behind each scale
+DEFAULT_PUBLISH_EVERY = 0  # weight streaming is opt-in
 
 
 def _lookup(name: str) -> Optional[str]:
@@ -230,3 +240,65 @@ def fp8_amax_history() -> int:
     if n < 1:
         raise ValueError(f"HVDTPU_FP8_AMAX_HISTORY must be >= 1, got {n}")
     return n
+
+
+def overlap_default() -> bool:
+    """Default for ``make_train_step(overlap=...)`` when not passed."""
+    return get_bool(OVERLAP, False)
+
+
+def lint_mode() -> str:
+    """Default for ``make_train_step(lint=...)``: ``""`` (off), ``"warn"``
+    or ``"raise"``. ``1/true/yes/on`` are accepted as ``warn``. Anything
+    else raises: silently coercing a typo (``HVDTPU_LINT=error``) to the
+    weaker ``warn`` would quietly downgrade a gating control."""
+    val = (get_str(LINT, "") or "").strip().lower()
+    if val in ("", "0", "off", "false", "no", "none"):
+        return ""
+    if val == "raise":
+        return "raise"
+    if val in ("warn", "1", "true", "yes", "on"):
+        return "warn"
+    raise ValueError(
+        f"HVDTPU_LINT={val!r} is not recognized; use off|warn|raise"
+    )
+
+
+def remat_mode() -> str:
+    """Default for ``make_train_step(remat=...)``: ``""`` (off), ``"full"``
+    or a named policy (``"dots_saveable"``)."""
+    val = (get_str(REMAT, "") or "").strip().lower()
+    if val in ("", "0", "off", "false", "no", "none"):
+        return ""
+    return val
+
+
+def act_quant_mode() -> str:
+    """Default for ``make_train_step(act_quant=...)``: ``""`` (residuals
+    saved for backward keep the model dtype) or ``"int8"``. A typo must not
+    silently store full-precision residuals."""
+    val = (get_str(ACT_QUANT, "") or "").strip().lower()
+    if val in ("", "0", "off", "false", "no", "none"):
+        return ""
+    if val == "int8":
+        return val
+    raise ValueError(
+        f"HVDTPU_ACT_QUANT={val!r} is not recognized; use off|int8"
+    )
+
+
+def guard_default() -> bool:
+    """Default for ``make_train_step(guard=...)`` when not passed."""
+    return get_bool(GUARD, False)
+
+
+def publish_every() -> int:
+    """Committed-step cadence of live weight publishes (0 disables
+    streaming): the default of ``make_train_step(publish=...)``."""
+    return max(0, get_int(PUBLISH_EVERY, DEFAULT_PUBLISH_EVERY))
+
+
+def autotune_default() -> bool:
+    """Default for ``make_train_step(autotune=...)`` and
+    ``ServePool(autotune=...)``."""
+    return get_bool(AUTOTUNE, False)

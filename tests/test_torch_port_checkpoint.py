@@ -261,3 +261,113 @@ class TestSaveRetry:
         with pytest.raises(OSError, match="dead disk"):
             ckpt.save_checkpoint(str(tmp_path), {"w": torch.ones(2)}, step=3)
         assert not [n for n in os.listdir(tmp_path) if n.startswith("step_")]
+
+
+# -- training state (port twins of tests/test_sharded_optimizer.py::
+# test_replicated_checkpoint_roundtrip_unchanged, with the quantized wire's
+# error-feedback residuals) --------------------------------------------------
+
+
+def _train_problem():
+    rs = np.random.RandomState(5)
+    params = {"w": rs.standard_normal((6, 4)).astype(np.float32),
+              "b": np.zeros(4, np.float32),
+              "c": (rs.standard_normal(9) * 0.1).astype(np.float32)}
+    batches = [{"x": rs.standard_normal((8, 6)).astype(np.float32),
+                "y": rs.standard_normal((8, 4)).astype(np.float32)}
+               for _ in range(4)]
+    return params, batches
+
+
+def _train_loss(p, b):
+    return ((b["x"] @ p["w"] + p["b"] - b["y"]) ** 2).mean() + (
+        p["c"] ** 2).sum()
+
+
+def _train_step(variant):
+    from horovod_tpu_torch import optimizer as topt
+    from horovod_tpu_torch.ops.compression import Compression
+    from horovod_tpu_torch.parallel import dp as tdp
+
+    comp = Compression.int8.with_block(8)
+    if variant == "replicated":
+        return tdp.make_train_step(_train_loss, topt.adamw(1e-2),
+                                   compression=comp, device="cpu")
+    return tdp.make_train_step(_train_loss, topt.fused_adamw(1e-2),
+                               compression=comp, sharded=True,
+                               fused_update=True, device="cpu")
+
+
+@pytest.mark.parametrize("variant", ["replicated", "zero1"])
+def test_train_state_roundtrip_resumes_bit_for_bit(tmp_path, variant):
+    from horovod_tpu_torch import optimizer as topt
+    from horovod_tpu_torch.ops.fusion import EFResiduals, FlatBuckets
+    from horovod_tpu_torch.parallel import dp as tdp
+
+    params, batches = _train_problem()
+    tb = [{k: torch.from_numpy(v) for k, v in b.items()} for b in batches]
+
+    def fresh():
+        return {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+
+    step, opt = _train_step(variant)
+    state = tdp.init_state(fresh(), opt)
+    for b in tb[:2]:
+        state, _ = step(state, b)
+    assert topt.ef_residual_norm(state) > 0
+    d = str(tmp_path / "ck")
+    ckpt.save_checkpoint(d, state, step=2)
+    snapshot = ckpt._flat_state(state)
+
+    target = tdp.init_state(fresh(), opt)
+    restored = ckpt.restore_checkpoint(d, target)
+    # The target's own types, every leaf equal to the saved one.
+    assert type(restored) is tdp.TrainState
+    assert type(restored.opt_state) is type(state.opt_state)
+    assert type(restored.opt_state.residual) is EFResiduals
+    assert restored.opt_state.residual.block == 8
+    if variant == "zero1":
+        assert restored.opt_state.world == 1
+        assert type(restored.opt_state.inner.mu) is FlatBuckets
+    assert restored.extra is None
+    for name, p in restored.params.items():
+        assert p.requires_grad, name
+    again = ckpt._flat_state(restored)
+    assert sorted(again) == sorted(snapshot)
+    for k, v in snapshot.items():
+        assert torch.equal(again[k], v), k
+
+    # The next steps from the restored state equal the uninterrupted run's.
+    for b in tb[2:]:
+        state, loss = step(state, b)
+        restored, loss_r = step(restored, b)
+        assert torch.equal(loss, loss_r)
+    for k in params:
+        assert torch.equal(state.params[k], restored.params[k]), k
+    a, b = ckpt._flat_state(state), ckpt._flat_state(restored)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+def test_state_nests_of_tuples_namedtuples_and_none(tmp_path):
+    from horovod_tpu_torch.optimizer import AdamState
+
+    state = {"t": (torch.arange(3.0), [np.float32(2.5), None]),
+             "adam": AdamState(torch.tensor(4, dtype=torch.int32),
+                               {"w": torch.ones(2)}, {"w": torch.zeros(2)}),
+             "n": None}
+    ckpt.save_checkpoint(str(tmp_path), state, step=1)
+    target = {"t": (torch.zeros(3), [np.float32(0), None]),
+              "adam": AdamState(torch.tensor(0, dtype=torch.int32),
+                                {"w": torch.zeros(2)}, {"w": torch.ones(2)}),
+              "n": None}
+    got = ckpt.restore_checkpoint(str(tmp_path), target)
+    assert isinstance(got["t"], tuple) and isinstance(got["t"][1], list)
+    assert torch.equal(got["t"][0], torch.arange(3.0))
+    assert got["t"][1][0] == np.float32(2.5) and got["t"][1][1] is None
+    assert type(got["adam"]) is AdamState and int(got["adam"].count) == 4
+    assert torch.equal(got["adam"].mu["w"], torch.ones(2))
+    assert got["n"] is None
+    # A template asking for a leaf the checkpoint lacks raises.
+    with pytest.raises(ValueError, match="no entry"):
+        ckpt.restore_checkpoint(str(tmp_path), {"n": torch.zeros(1)})

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card: the
 flash-attention forward, the backward pair (dK/dV, dQ), the fused AdamW
-update, the blockwise quantize/dequantize, the fp8 matmul and the int8-weight
-matmul. Every test here needs an NVIDIA GPU with nvcc (the kernels have no
+update, the blockwise quantize/dequantize, the fused fp8 cast, the fp8 matmul
+and the int8-weight matmul. Every test here needs an NVIDIA GPU with nvcc (the kernels have no
 CPU mode) and skips without one. Run them on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
@@ -15,8 +15,11 @@ only powf of the bias corrections may differ by an ulp); quantize and
 dequantize bit for bit (every operation IEEE-rounded in the plain version's
 order), except the int8 value of a NaN element, which is undefined in both;
 the fp8 matmul 1e-4 of the largest plain output in fp32 and 8e-3 in bf16
-(exact products, fp32 sums in another order; one bf16 rounding), the fp8
-state its Function returns bit for bit (the same torch operations); the
+(exact products; sums of 128 products rounded by the fp8 tensor cores, then
+added in fp32 in another order; one bf16 rounding), also at K = 16,384; the
+fused fp8 cast bit for bit (the same IEEE operations in the same order; a
+NaN payload may differ in its sign bit), and so the fp8 state its Function
+returns; the
 int8-weight matmul 1e-5 of the largest plain output with fp32 activations
 and 8e-3 with bf16 (exact products, fp32 sums in another order, one
 rounding).
@@ -452,23 +455,55 @@ def _fp8_check(x, w, out_dtype, scale=0.37):
     return got
 
 
+def _relayouts(x, w):
+    """Operands kernel 8 cannot read as they lie: not K-major, or rows off
+    16-byte boundaries."""
+    n = 0
+    for t, kd in ((x, 1), (w, 0)):
+        rows = t.shape[1 - kd]
+        kmaj = t.stride(kd) == 1 or t.shape[kd] == 1
+        ld = t.stride(1 - kd)
+        n += not (kmaj and (rows == 1 or ld % 16 == 0)
+                  and t.data_ptr() % 16 == 0)
+    return n
+
+
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("pair", ["e4m3-e4m3", "e5m2-e4m3", "e4m3-e5m2"])
+@pytest.mark.parametrize("pair", ["e4m3-e4m3", "e5m2-e4m3", "e4m3-e5m2",
+                                  "e5m2-e5m2"])
 @pytest.mark.parametrize("layout", ["kk", "kn", "mk", "mn"])
 @pytest.mark.parametrize("m,k,n", [(5, 300, 70), (16, 512, 128),
                                    (1, 257, 10), (130, 129, 260),
-                                   (256, 8192, 192)])
+                                   (256, 8192, 192), (200, 384, 136)])
 def test_fp8_matmul_kernel_matches_plain(gen, m, k, n, layout, pair,
                                          out_dtype):
-    # layout: which dim of x [M, K] and of w [K, N] is contiguous (k, or
-    # m / n: a transposed view); (256, 8192, 192) splits the contraction.
+    # layout: which dim of x [M, K] and of w [K, N] is contiguous. "kk" is
+    # K-major, the layout kernel 8 reads; an m- or n-contiguous operand, or
+    # K-major rows off 16-byte boundaries (K = 300, 257, 129), take one
+    # relayout copy first. (256, 8192, 192) splits the contraction.
     fx, fw = (_F8[f] for f in pair.split("-"))
     x = _fp8_operand(gen, m, k, fx, 1 if layout[0] == "k" else 0)
     w = _fp8_operand(gen, k, n, fw, 0 if layout[1] == "k" else 1)
     tq.reset_launches()
     _fp8_check(x, w, out_dtype)
     assert tq.launches_fp8_matmul == 1
+    assert tq.launches_fp8_relayout == _relayouts(x, w)
+    assert tq.launches_fp8_cast == 0
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_fp8_matmul_long_contraction_error(gen, out_dtype):
+    # The weight gradient's contraction over a GPT-2-small step's 16,384
+    # rows, K-major as the fp8 path hands it: the periodic promotion of the
+    # tensor cores' partial sums to fp32 holds it to the plain version's
+    # tolerance.
+    g = _fp8_operand(gen, 768, 16384, torch.float8_e5m2, 1)
+    x = _fp8_operand(gen, 16384, 768, torch.float8_e4m3fn, 0)
+    tq.reset_launches()
+    _fp8_check(g, x, out_dtype)
+    assert tq.launches_fp8_relayout == 0
 
 
 def test_fp8_matmul_kernel_unaligned_and_edge_operands(gen):
@@ -499,6 +534,82 @@ def test_fp8_matmul_kernel_rejects_what_it_does_not_take(gen):
         tq.fp8_matmul(x, w, s, out_dtype=torch.float16)
     with pytest.raises(ValueError, match="on cpu"):
         tq.fp8_matmul(x, w.cpu(), s)
+
+
+def _cast_input(gen, rows, cols, dtype, specials=True, stride_pad=0):
+    x = torch.randn((rows, cols + stride_pad), generator=gen, device="cuda")
+    x = (x * 3)[:, :cols]
+    if specials:
+        flat = [float("nan"), float("inf"), -float("inf"), 1e6, -1e6, 0.0,
+                -0.0, 1e-30]
+        for i, v in enumerate(flat):
+            x[(7 * i) % rows, (13 * i) % cols] = v
+    return x.to(dtype)
+
+
+def _cast_equal(got, want):
+    """Bit for bit, except the sign bit of a NaN payload."""
+    assert (got is None) == (want is None)
+    if got is None:
+        return
+    assert got.shape == want.shape and got.dtype == want.dtype
+    gf, wf = got.float(), want.float()
+    nan = torch.isnan(wf)
+    assert torch.equal(torch.isnan(gf), nan)
+    view = {1: torch.uint8, 4: torch.int32}[got.element_size()]
+    gb = got.contiguous().view(view)
+    wb = want.contiguous().view(view)
+    assert torch.equal(gb[~nan], wb[~nan])
+
+
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("mode", ["activation", "weight"])
+@pytest.mark.parametrize("rows,cols,pad,ring", [
+    (1024, 768, 0, "filled"), (96, 3072, 0, "fresh"), (130, 70, 0, "filled"),
+    (33, 129, 3, "filled"), (1, 17, 0, "fresh"), (257, 64, 8, "nan")])
+def test_fp8_cast_kernel_matches_plain(gen, fmt, dtype, mode, rows, cols, pad,
+                                       ring):
+    # Activation and weight mode, both formats, NaN, +-inf, values past
+    # qmax and signed zeros in x, a fresh (all-zero) ring and one holding a
+    # NaN, ragged shapes and rows off 16-byte boundaries (pad).
+    wire = _F8[fmt]
+    x = _cast_input(gen, rows, cols, dtype, stride_pad=pad)
+    hist = torch.rand((16,), generator=gen, device="cuda") * 50
+    if ring == "fresh":
+        hist.zero_()
+    elif ring == "nan":
+        hist[3] = float("nan")
+    res = None
+    if mode == "weight":
+        res = torch.randn((rows, cols), generator=gen, device="cuda") * 1e-3
+    tq.reset_launches()
+    got = tq.fp8_cast(x, hist, wire, residual=res)
+    assert tq.launches_fp8_cast == 1
+    want = tq.fp8_cast_reference(x, hist, wire, residual=res)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        _cast_equal(a, b)
+    assert got.q.stride(0) % 16 == 0 and got.qt.stride(0) % 16 == 0
+    # The row-major payload alone, twice in a row (the workspace is
+    # re-zeroed).
+    for _ in range(2):
+        only = tq.fp8_cast(x, hist, wire, transposed=False, residual=res)
+        assert only.qt is None
+        _cast_equal(only.q, want.q)
+        _cast_equal(only.history, want.history)
+
+
+def test_fp8_cast_kernel_rejects_what_it_does_not_take(gen):
+    x = _cast_input(gen, 64, 64, torch.bfloat16, specials=False)
+    hist = torch.ones((4,), device="cuda")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tq.fp8_cast(x.half(), hist, torch.float8_e4m3fn)
+    with pytest.raises(ValueError, match="unit inner stride"):
+        tq.fp8_cast(x.t(), hist, torch.float8_e4m3fn)
+    with pytest.raises(ValueError, match="on cpu"):
+        tq.fp8_cast(x, hist.cpu(), torch.float8_e4m3fn)
 
 
 def _fp8_linear_plain(x, w, kr, xh, kh, gh, g):
@@ -539,6 +650,8 @@ def test_fp8_linear_on_the_card_matches_the_plain_math(gen):
     out = Fp8Linear.apply(*leaves)
     grads = torch.autograd.grad(out, leaves, g)
     assert tq.launches_fp8_matmul == 3  # forward, dX, dW
+    assert tq.launches_fp8_cast == 3  # x and w forward, g backward
+    assert tq.launches_fp8_relayout == 0  # the casts hand K-major payloads
     want = _fp8_linear_plain(x, w, kr, xh, kh, gh, g)
     for got, ref in zip((out.detach(),) + grads[:2], want[:3]):
         assert got.shape == ref.shape and got.dtype == ref.dtype
@@ -578,6 +691,8 @@ def test_fp8_train_step_on_the_card_launches_the_kernel(gen):
             state, loss = step(state, tokens)
             losses.append(float(loss))
         assert tq.launches_fp8_matmul == 3 * 18 * cfg.n_layers
+        assert tq.launches_fp8_cast == 3 * 18 * cfg.n_layers
+        assert tq.launches_fp8_relayout == 0
         assert fa.launches == fa.launches_dkdv == fa.launches_dq == 3 * 2
         assert losses[-1] < losses[0]
         gauges = hvt.fp8_state_gauges(state.params)

@@ -187,3 +187,55 @@ def test_train_step_argument_checks():
     meta = {"w": torch.empty((4, 3), device="meta")}
     with pytest.raises(ValueError, match="this step runs on cpu"):
         step(tdp.TrainState(meta, state.opt_state, state.step), batch)
+
+
+# (env var, armed value, make_train_step argument, its explicit off value);
+# None for the argument is the serving pool's knob.
+_ENV_KNOBS = [
+    ("HVDTPU_OVERLAP", "1", "overlap", False),
+    ("HVDTPU_LINT", "raise", "lint", "off"),
+    ("HVDTPU_REMAT", "full", "remat", "none"),
+    ("HVDTPU_ACT_QUANT", "int8", "act_quant", ""),
+    ("HVDTPU_GUARD", "yes", "guard", False),
+    ("HVDTPU_PUBLISH_EVERY", "3", "publish", 0),
+    ("HVDTPU_AUTOTUNE", "on", "autotune", False),
+    ("HVDTPU_AUTOTUNE", "on", None, False),
+]
+
+
+@pytest.mark.parametrize("var,armed,knob,off", _ENV_KNOBS,
+                         ids=[k or "serve_pool" for _, _, k, _ in _ENV_KNOBS])
+def test_armed_env_default_raises_like_the_explicit_argument(
+        monkeypatch, var, armed, knob, off):
+    from horovod_tpu_torch.serve import ServePool
+
+    def build(**kw):
+        if knob is None:
+            pool = ServePool(lambda p, b: b, {"w": torch.ones(1)},
+                             device="cpu", **kw)
+            pool.stop()
+        else:
+            tdp.make_train_step(lambda p, b: 0.0, topt.adamw(1e-3),
+                                device="cpu", **kw)
+
+    # The reference reads the same variable and resolves the same value.
+    accessor = {"HVDTPU_OVERLAP": "overlap_default", "HVDTPU_LINT": "lint_mode",
+                "HVDTPU_REMAT": "remat_mode",
+                "HVDTPU_ACT_QUANT": "act_quant_mode",
+                "HVDTPU_GUARD": "guard_default",
+                "HVDTPU_PUBLISH_EVERY": "publish_every",
+                "HVDTPU_AUTOTUNE": "autotune_default"}[var]
+    assert getattr(tenv, accessor)() == getattr(jenv, accessor)()
+    build()  # unset: off
+    monkeypatch.setenv(var, armed)
+    assert getattr(tenv, accessor)() == getattr(jenv, accessor)()
+    assert getattr(tenv, accessor)()
+    match = "autotune" if knob is None else "not ported yet.*arrives with"
+    with pytest.raises(NotImplementedError, match=match):
+        build()
+    if knob is not None:  # the explicit argument raises the same way
+        with pytest.raises(NotImplementedError, match=match):
+            tdp.make_train_step(lambda p, b: 0.0, topt.adamw(1e-3),
+                                device="cpu", **{knob: armed})
+    # An explicit off value wins over the environment.
+    build(**{knob or "autotune": off})

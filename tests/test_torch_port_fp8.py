@@ -134,6 +134,92 @@ def test_saturating_cast_bit_for_bit(fmt, scale):
     assert np.isfinite(gf[~nan]).all()
 
 
+# -- the fused cast (fp8_cast) -----------------------------------------------
+
+
+def _cast_input(dtype, seed=4, shape=(37, 52)):
+    rs = np.random.RandomState(seed)
+    x = (rs.standard_normal(shape) * 3).astype(np.float32)
+    # Saturation both ways, signed zeros and an element past every scale.
+    x[0, :4] = [1e6, -1e6, 0.0, -0.0]
+    return jnp.asarray(x).astype(getattr(jnp, dtype))
+
+
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ring", ["fresh", "filled", "tiny"])
+def test_fp8_cast_reference_matches_jax_bit_for_bit(fmt, dtype, ring):
+    """fp8_cast_reference is the JAX package's scale, saturating cast and
+    amax push, with the payload in both orientations."""
+    jdt, tdt, qmax = _FP8[fmt]
+    jx = _cast_input(dtype)
+    hist = _rings(5)[ring]
+    scale = jq.fp8_scale_from_history(jnp.asarray(hist), qmax)
+    want_q = jq.fp8_saturating_cast(jx, scale, jdt, qmax)
+    want_h = jq.fp8_push_amax(jnp.asarray(hist), jx)
+    got = tq.fp8_cast_reference(_to_torch(jx), torch.from_numpy(hist), tdt)
+    assert got.q.dtype == got.qt.dtype == tdt and got.residual is None
+    assert got.q.shape == jx.shape and got.qt.shape == jx.shape[::-1]
+    np.testing.assert_array_equal(_bits(got.q), _jbits(want_q))
+    np.testing.assert_array_equal(_bits(got.qt), _jbits(want_q).T)
+    np.testing.assert_array_equal(got.history.numpy(), np.asarray(want_h))
+    assert _bits(got.scale.reshape(1)) == _jbits(np.asarray(scale).reshape(1))
+    # The transpose is optional.
+    only_q = tq.fp8_cast_reference(_to_torch(jx), torch.from_numpy(hist), tdt,
+                                   transposed=False)
+    assert only_q.qt is None and torch.equal(_bits_t(only_q.q), _bits_t(got.q))
+
+
+def _bits_t(t):
+    return torch.from_numpy(_bits(t))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fp8_cast_reference_weight_mode_matches_the_custom_vjp_state(dtype):
+    """Weight mode: the error-feedback sum, its cast, amax push and new
+    residual, bit for bit the JAX package's forward (ops/fp8.py:136-161)."""
+    x, kern, kr, xh, kh, gh, g = _linear_inputs(dtype)
+    dn = (((x.ndim - 1,), (0,)), ((), ()))
+    _, res = jf8._fp8_dot_fwd(x, kern, jnp.asarray(kr), jnp.asarray(xh),
+                              jnp.asarray(kh), jnp.asarray(gh), dn, dtype)
+    _, jqk, _, jsk, _, _, jkh, jkr = res
+    # The port's weight is [N, K]: the JAX kernel [K, N] transposed.
+    w = _to_torch(kern).t().contiguous()
+    got = tq.fp8_cast_reference(w, torch.from_numpy(kh), torch.float8_e4m3fn,
+                                residual=torch.from_numpy(kr.T.copy()))
+    np.testing.assert_array_equal(_bits(got.q), _jbits(jqk).T)
+    np.testing.assert_array_equal(_bits(got.qt), _jbits(jqk))
+    np.testing.assert_array_equal(got.residual.numpy().T, np.asarray(jkr))
+    np.testing.assert_array_equal(got.history.numpy(), np.asarray(jkh))
+    assert float(got.scale) == float(jsk)
+
+
+def test_fp8_cast_on_cpu_is_the_plain_version():
+    jx = _cast_input("bfloat16", seed=6)
+    x = _to_torch(jx)
+    hist = torch.from_numpy(_rings(6)["filled"])
+    tq.reset_launches()
+    got = tq.fp8_cast(x, hist, torch.float8_e5m2)
+    want = tq.fp8_cast_reference(x, hist, torch.float8_e5m2)
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(_bits_t(a), _bits_t(b))
+    assert tq.launches_fp8_cast == 0  # a CPU tensor never launches
+    # A NaN lands in slot 0 of the ring and in the payload.
+    xn = x.clone()
+    xn[3, 4] = float("nan")
+    got = tq.fp8_cast(xn, hist, torch.float8_e4m3fn)
+    assert torch.isnan(got.history[0]) and torch.isnan(got.q.float()[3, 4])
+    assert torch.isnan(got.qt.float()[4, 3])
+    with pytest.raises(ValueError, match="2-D"):
+        tq.fp8_cast(x.reshape(-1), hist, torch.float8_e4m3fn)
+    with pytest.raises(ValueError, match="residual"):
+        tq.fp8_cast(x, hist, torch.float8_e4m3fn, residual=torch.zeros(3))
+    with pytest.raises(TypeError, match="float8"):
+        tq.fp8_cast(x, hist, torch.float16)
+
+
 # -- fp8_matmul -------------------------------------------------------------
 
 # The reference test's pairings (tests/test_fp8_compute.py:74-78) and the
