@@ -19,19 +19,25 @@ Phases (any failure exits non-zero; nothing is caught):
    torch's scaled_dot_product_attention on the same inputs as a yardstick
    (timed here only; the port never calls it), and the least time the
    card could take (bytes over 3.35 TB/s, operations over 989 TFLOP/s).
-3. Kernel vs plain, flash backward: the dK/dV and dQ kernels (one
-   flash_attention_bwd call) against flash_attention_bwd_reference at
-   GPT-2 small's training shape (B=8, S=1024, H=12, D=64, causal; q/k/v
-   column views of one [8, 1024, 2304] bf16 tensor, out and lse from the
-   kernel forward) and two ragged cases (non-causal with kv_len and
-   q_offset; D=128 causal with q_offset > 0), both cotangents nonzero;
-   max |d dq|, |d dk|, |d dv| <= 1e-2 x the plain version's largest
-   gradient (bf16 outputs, P and dS rounded to bf16 at other points of
-   the sums). The pair is timed with CUDA events, each kernel alone with
+3. Kernel vs plain, flash backward: the dQ and dK/dV kernels (one
+   flash_attention_bwd call: dQ first, computing delta, then dK/dV)
+   against flash_attention_bwd_reference at GPT-2 small's training shape
+   (B=8, S=1024, H=12, D=64, causal; q/k/v column views of one [8, 1024,
+   2304] bf16 tensor, out and lse from the kernel forward), at batch 16
+   (the fp8 step's), two ragged/offset cases (non-causal with kv_len and
+   q_offset; D=128 causal with q_offset > 0), two with an fp32 cotangent
+   of out (delta from it as given, the products from it rounded to bf16)
+   and three on ragged tile edges (Sq, Skv of 1, 63, 65, 127, 129, 1000
+   with kv_len < Skv, D 64 and 128); both cotangents nonzero; max |d dq|,
+   |d dk|, |d dv| <= 1e-2 x the plain version's largest gradient (bf16
+   outputs, P and dS rounded to bf16 at other points of the sums), and a
+   second call equal to the first bit for bit. At batch 8 and 16 the pair
+   is timed with CUDA events, each kernel alone by its device time under
    torch.profiler; beside them the plain version and the backward of
-   scaled_dot_product_attention(is_causal=True) as the yardstick. The
-   pair's bound counts the five products the gradient needs (S, dP, dV,
-   dK, dQ); each kernel's, S, dP and its own products.
+   scaled_dot_product_attention(is_causal=True) as the yardstick, by
+   events and by device time (every kernel of its call, by name), with
+   TFLOP/s by each. The pair's bound counts the five products the gradient
+   needs (S, dP, dV, dK, dQ); each kernel's, S, dP and its own products.
 4. Kernel vs plain, fused AdamW: flat fp32 buffers of the trainer's bucket
    sizes (GPT-2 small, world 1, default fusion threshold); max |d| of the
    update and both moments <= 1e-6 x the largest value (every operation is
@@ -354,20 +360,23 @@ def qkv_views(gen, b, sq, skv, h, d):
 
 
 def bwd_case(fa, gen, *, b, sq, skv, h, d, causal, q_offset=0, kv_offset=0,
-             kv_len=None, timed=False):
+             kv_len=None, g_dtype=torch.bfloat16, timed=False):
     """The backward kernel pair vs its plain version on one shape, from the
-    kernel forward's out and lse and two nonzero cotangents."""
+    kernel forward's out and lse and two nonzero cotangents (the cotangent
+    of out in ``g_dtype``: an fp32 one is rounded for the products only);
+    a second call must give the same gradients bit for bit."""
     q, k, v = qkv_views(gen, b, sq, skv, h, d)
     kw = dict(causal=causal, q_offset=q_offset, kv_offset=kv_offset,
               layout="bsm", n_heads=h, kv_len=kv_len)
     with torch.no_grad():
         out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
     g_out = torch.randn((b, sq, h * d), generator=gen,
-                        device="cuda").to(torch.bfloat16)
+                        device="cuda").to(g_dtype)
     g_lse = torch.randn((b, h, sq), generator=gen, device="cuda")
     args = (q, k, v, out, lse, g_out, g_lse)
     got = fa.flash_attention_bwd(*args, **kw)
     ref = fa.flash_attention_bwd_reference(*args, **kw)
+    again = fa.flash_attention_bwd(*args, **kw)
     torch.cuda.synchronize()
     errs, rels = [], []
     for g, r in zip(got, ref):
@@ -378,21 +387,26 @@ def bwd_case(fa, gen, *, b, sq, skv, h, d, causal, q_offset=0, kv_offset=0,
         scale = max(r.float().abs().max().item(), 1e-6)
         errs.append(err)
         rels.append(err / scale)
+    bitwise = all(torch.equal(x, y) for x, y in zip(got, again))
     name = (f"B={b} Sq={sq} Skv={skv} H={h} D={d} causal={causal} "
-            f"q_offset={q_offset} kv_offset={kv_offset} kv_len={kv_len}")
+            f"q_offset={q_offset} kv_offset={kv_offset} kv_len={kv_len} "
+            f"g_out {str(g_dtype).replace('torch.', '')}")
     log(f"[bwd] {name}: max|d dq|={errs[0]:.3e} max|d dk|={errs[1]:.3e} "
-        f"max|d dv|={errs[2]:.3e}; relative {max(rels):.3e}")
+        f"max|d dv|={errs[2]:.3e}; relative {max(rels):.3e}; "
+        f"bitwise again {bitwise}")
     if max(rels) > GRAD_TOL:
         raise AssertionError(
             f"flash backward kernels disagree with their plain version on "
             f"{name}: relative {rels} (tol {GRAD_TOL})"
         )
-    rec = {"err": max(errs), "rel_err": max(rels)}
+    if not bitwise:
+        raise AssertionError(f"two calls of the backward pair on {name} "
+                             f"gave different gradients")
+    rec = {"err": max(errs), "rel_err": max(rels), "bitwise": bitwise}
     if timed:
-        rec["ms"] = time_ms(lambda: fa.flash_attention_bwd(*args, **kw))
-        rec["kernel_ms"] = kernel_ms(
-            lambda: fa.flash_attention_bwd(*args, **kw), 10
-        )
+        call = lambda: fa.flash_attention_bwd(*args, **kw)  # noqa: E731
+        rec["ms"] = time_ms(call)
+        rec["kernel_ms"] = kernel_ms(call, 10)
         rec["plain_ms"] = time_ms(
             lambda: fa.flash_attention_bwd_reference(*args, **kw)
         )
@@ -402,9 +416,16 @@ def bwd_case(fa, gen, *, b, sq, skv, h, d, causal, q_offset=0, kv_offset=0,
             qh, kh, vh, is_causal=causal
         )
         goh = g_out.unflatten(-1, (h, d)).transpose(1, 2)
-        rec["library_ms"] = time_ms(lambda: torch.autograd.grad(
-            oh, (qh, kh, vh), goh, retain_graph=True
-        ))
+
+        def sdpa_bwd():
+            return torch.autograd.grad(oh, (qh, kh, vh), goh,
+                                       retain_graph=True)
+
+        rec["library_ms"] = time_ms(sdpa_bwd)
+        # Every kernel the call launches is the backward's (the graph is
+        # kept, so no forward runs), summed by name: torch's vendored
+        # flash kernels share names with this repository's.
+        rec["library_device_ms"] = device_ms(sdpa_bwd)
         kvl = skv if kv_len is None else kv_len
         pairs = valid_pairs(sq, kvl, causal, q_offset, kv_offset)
         n_q, n_kv, n_row = b * sq * h * d, b * skv * h * d, b * h * sq
@@ -430,15 +451,25 @@ def bwd_case(fa, gen, *, b, sq, skv, h, d, causal, q_offset=0, kv_offset=0,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             }
         pair = rec["pair"]
-        log(f"[bwd] {pair['bytes'] / 1e6:.1f} MB, {pair['flops'] / 1e9:.2f} "
-            f"GFLOP: kernel pair {rec['ms']:.4f} ms, plain "
-            f"{rec['plain_ms']:.4f} ms, sdpa backward "
-            f"{rec['library_ms']:.4f} ms, bound {pair['bound_ms']:.4f} ms "
-            f"({pair['bound_by']})")
+        pair_dev = sum(rec["kernel_ms"][n]
+                       for n in ("flash_bwd_dkdv", "flash_bwd_dq"))
+        tflops = lambda flops, ms: flops / ms / 1e9  # noqa: E731
+        log(f"[bwd] B={b}: {pair['bytes'] / 1e6:.1f} MB, "
+            f"{pair['flops'] / 1e9:.2f} GFLOP (5 products): kernel pair "
+            f"{rec['ms']:.4f} ms by events ({tflops(pair['flops'], rec['ms']):.1f}"
+            f" TFLOP/s), {pair_dev:.4f} ms device "
+            f"({tflops(pair['flops'], pair_dev):.1f} TFLOP/s); plain "
+            f"{rec['plain_ms']:.4f} ms; sdpa backward {rec['library_ms']:.4f}"
+            f" ms by events, {rec['library_device_ms']:.4f} ms device "
+            f"(pair / sdpa: {rec['ms'] / rec['library_ms']:.2f}x by events, "
+            f"{pair_dev / rec['library_device_ms']:.2f}x device); bound "
+            f"{pair['bound_ms']:.4f} ms ({pair['bound_by']})")
         for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
-            log(f"[bwd] {name}: {rec['kernel_ms'][name]:.4f} ms a launch "
-                f"(profiler), bound {rec[name]['bound_ms']:.4f} ms "
-                f"({rec[name]['bound_by']})")
+            ms = rec["kernel_ms"][name]
+            log(f"[bwd] B={b} {name}: {ms:.4f} ms a launch (device), "
+                f"{tflops(rec[name]['flops'], ms):.1f} TFLOP/s "
+                f"({rec[name]['flops'] // product} products), bound "
+                f"{rec[name]['bound_ms']:.4f} ms ({rec[name]['bound_by']})")
     return rec
 
 
@@ -2037,12 +2068,28 @@ def main() -> int:
     ]
     bwd_main = bwd_case(fa, gen, b=8, sq=1024, skv=1024, h=12, d=64,
                         causal=True, timed=True)
+    # The fp8 step's shape (batch 16), timed only to price the pair there.
+    bwd_b16 = bwd_case(fa, gen, b=16, sq=1024, skv=1024, h=12, d=64,
+                       causal=True, timed=True)
+    f32 = torch.float32
     bwd_cases = [
         bwd_main,
+        bwd_b16,
         bwd_case(fa, gen, b=2, sq=333, skv=1000, h=12, d=64, causal=False,
                  q_offset=40, kv_len=937),
         bwd_case(fa, gen, b=2, sq=200, skv=520, h=4, d=128, causal=True,
                  q_offset=300, kv_len=517),
+        # An fp32 cotangent (delta from it as given) and ragged tile edges.
+        bwd_case(fa, gen, b=2, sq=1024, skv=1024, h=12, d=64, causal=True,
+                 g_dtype=f32),
+        bwd_case(fa, gen, b=2, sq=129, skv=1000, h=4, d=128, causal=False,
+                 kv_len=999, g_dtype=f32),
+        bwd_case(fa, gen, b=1, sq=65, skv=127, h=2, d=64, causal=True,
+                 q_offset=62, kv_len=100),
+        bwd_case(fa, gen, b=1, sq=1, skv=129, h=2, d=128, causal=True,
+                 q_offset=128),
+        bwd_case(fa, gen, b=1, sq=1000, skv=63, h=2, d=128, causal=False,
+                 kv_len=60, g_dtype=f32),
     ]
     train_cfg = hvt.GPT2Config.small(param_dtype=torch.float32)
     sizes = trainer_bucket_sizes(hvt, train_cfg)
@@ -2085,8 +2132,10 @@ def main() -> int:
         "library_ms": main_case["library_ms"],
     }]
     # The two backward kernels run as one pair (flash_attention_bwd): "ms"
-    # and "bound_ms" are each kernel's own; the plain version and the
-    # yardstick compute the pair's function, timed beside the pair.
+    # is the pair's CUDA-event time, as for every row, "device_ms" each
+    # kernel's own profiled time; the plain version and the yardstick (SDPA's
+    # backward, by events and by device time) compute the pair's function.
+    # "b16" holds the same at batch 16, the fp8 step's shape.
     for name, line in (("flash_bwd_dkdv", "480"), ("flash_bwd_dq", "541")):
         kernels.append({
             "name": name,
@@ -2096,13 +2145,23 @@ def main() -> int:
             "launches": launches[name],
             "max_abs_err": max(c["err"] for c in bwd_cases),
             "max_rel_err": max(c["rel_err"] for c in bwd_cases),
-            "ms": bwd_main["kernel_ms"][name],
+            "bitwise_repeat": all(c["bitwise"] for c in bwd_cases),
+            "ms": bwd_main["ms"],
+            "device_ms": bwd_main["kernel_ms"][name],
             "plain_ms": bwd_main["plain_ms"],
             "bound_ms": bwd_main[name]["bound_ms"],
             "bound_by": bwd_main[name]["bound_by"],
-            "library_ms": bwd_main["library_ms"],
-            "pair_ms": bwd_main["ms"],
             "pair_bound_ms": bwd_main["pair"]["bound_ms"],
+            "library_ms": bwd_main["library_ms"],
+            "library_device_ms": bwd_main["library_device_ms"],
+            "b16": {
+                "ms": bwd_b16["ms"],
+                "device_ms": bwd_b16["kernel_ms"][name],
+                "bound_ms": bwd_b16[name]["bound_ms"],
+                "pair_bound_ms": bwd_b16["pair"]["bound_ms"],
+                "library_ms": bwd_b16["library_ms"],
+                "library_device_ms": bwd_b16["library_device_ms"],
+            },
         })
     kernels.append({
         "name": "fused_adamw",

@@ -8,7 +8,9 @@ and ``flash_attention``) and the backward pair ``_bwd_kernel_dkdv`` /
 ``_flash``). The kernels are ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``
 -- hand-written CUDA C++ for sm_90a, built with nvcc at first use
 (:mod:`._build`); their source notes say what bounds them on an H100 and
-what the simple designs leave on the table.
+what their designs leave on the table. The backward launches the dQ
+kernel first: it also computes ``delta`` and hands it to the dK/dV kernel
+through an fp32 scratch buffer.
 
 * :func:`flash_attention_with_lse` -- ``(out, lse)``: out in the input
   dtype, lse fp32 ``[B, H, Sq]``; causal masking on global positions
@@ -27,7 +29,8 @@ what the simple designs leave on the table.
   scores and softmax statistics, ``p`` rounded to V's dtype before the PV
   product; in the backward ``dO`` cast to the input dtype, ``p`` rounded
   before ``dV`` and ``dS`` before ``dK``/``dQ``, ``sm_scale`` applied to
-  the fp32 products, ``delta = rowsum(dO * out)`` in fp32.
+  the fp32 products, ``delta = rowsum(dO * out)`` in fp32 from the
+  cotangent as given (an fp32 ``g_out`` is not rounded for it).
 
 Dispatch is by the tensors' device and nothing else: CPU tensors take the
 plain versions, CUDA tensors launch the kernels or raise. Layouts are the
@@ -366,23 +369,41 @@ def _bwd_kernel_fns():
         dkdv.argtypes = [ptr] * 9 + tail
         dkdv.restype = ctypes.c_int
         dq = lib.hvt_flash_bwd_dq_bf16
-        dq.argtypes = [ptr] * 8 + tail
+        dq.argtypes = [ptr] * 6 + [i32] + [ptr] * 4 + tail
         dq.restype = ctypes.c_int
         _bwd_fns = (dkdv, dq)
     return _bwd_fns
+
+
+def _rows_aligned(x) -> bool:
+    """Unit stride along D, and every other stride of a dimension longer
+    than 1 a nonzero multiple of 16 bytes, from a 16-byte aligned base:
+    what TMA and the kernels' 16-byte loads take."""
+    unit = 16 // x.element_size()
+    return x.stride(3) == 1 and x.data_ptr() % 16 == 0 and all(
+        n == 1 or (s != 0 and s % unit == 0)
+        for s, n in zip(x.stride()[:3], x.shape[:3])
+    )
 
 
 def _bwd_launch(q4, k4, v4, o4, g4, lse, g_lse, *, causal, q_offset,
                 kv_offset, sm_scale, layout, kv_len):
     b, sq, h, d = q4.shape
     skv = k4.shape[1]
-    if g4.dtype != q4.dtype:
-        g4 = g4.to(q4.dtype)  # the kernels' dO is in the input dtype
-    if g4.stride(3) != 1 or any(s % 8 for s in g4.stride()[:3]) or (
-        g4.data_ptr() % 16
-    ):
-        g4 = g4.contiguous()
-    _check_kernel_operands((("q", q4), ("k", k4), ("v", v4), ("dO", g4)), d)
+    # delta = rowsum(dO * out) comes from the cotangent as given (the dQ
+    # kernel reads it in bf16 or fp32); the products take dO in the input
+    # dtype.
+    given = g4 if g4.dtype in (torch.bfloat16, torch.float32) else g4.float()
+    if not _rows_aligned(given):
+        given = given.contiguous()
+    g_op = g4 if g4.dtype == q4.dtype else g4.to(q4.dtype)
+    if not _rows_aligned(g_op):
+        g_op = g_op.contiguous()
+    if not _rows_aligned(o4):
+        o4 = o4.contiguous()
+    _check_kernel_operands(
+        (("q", q4), ("k", k4), ("v", v4), ("dO", g_op), ("out", o4)), d
+    )
     dq, dq4 = _empty_out(b, sq, h, d, layout, q4)
     dk, dk4 = _empty_out(b, skv, h, d, layout, q4)
     dv, dv4 = _empty_out(b, skv, h, d, layout, q4)
@@ -390,7 +411,6 @@ def _bwd_launch(q4, k4, v4, o4, g4, lse, g_lse, *, causal, q_offset,
         for x in (dq, dk, dv):
             x.zero_()
         return dq, dk, dv
-    delta = torch.einsum("bqhd,bqhd->bhq", g4.float(), o4.float()).contiguous()
     lse = lse.float().contiguous()
     glse = None if g_lse is None else g_lse.float().contiguous()
     for name, x in (("lse", lse), ("g_lse", glse)):
@@ -398,29 +418,39 @@ def _bwd_launch(q4, k4, v4, o4, g4, lse, g_lse, *, causal, q_offset,
             raise ValueError(
                 f"{name} has shape {tuple(x.shape)}, expected {(b, h, sq)}"
             )
-    strides = (ctypes.c_longlong * 21)(*[
-        s for x in (q4, k4, v4, g4, dq4, dk4, dv4) for s in x.stride()[:3]
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q4.device)
+    # A dimension of length 1 is never stepped along: its stride is given
+    # as 16 bytes, which the tensor maps take whatever the view says.
+    strides = (ctypes.c_longlong * 27)(*[
+        s if n > 1 else 8
+        for x in (q4, k4, v4, g_op, dq4, dk4, dv4, o4, given)
+        for s, n in zip(x.stride()[:3], x.shape[:3])
     ])
-    head = [q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), g4.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(),
-            None if glse is None else glse.data_ptr()]
     tail = [b, h, sq, skv, d, strides, kv_len, q_offset, kv_offset,
             float(sm_scale), int(bool(causal))]
+    glse_ptr = None if glse is None else glse.data_ptr()
     fn_dkdv, fn_dq = _bwd_kernel_fns()
     with torch.cuda.device(q4.device):
         stream = torch.cuda.current_stream(q4.device).cuda_stream
-        rc = fn_dkdv(*head, dk4.data_ptr(), dv4.data_ptr(), *tail, stream)
-        if rc != 0:
-            raise RuntimeError(
-                f"flash_bwd dK/dV kernel launch failed with cudaError_t {rc}"
-            )
-        _count_bwd_launch("dkdv")
-        rc = fn_dq(*head, dq4.data_ptr(), *tail, stream)
+        # dQ first: it writes delta, which the dK/dV kernel reads after it
+        # on the same stream.
+        rc = fn_dq(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
+                   g_op.data_ptr(), o4.data_ptr(), given.data_ptr(),
+                   int(given.dtype == torch.float32), lse.data_ptr(),
+                   glse_ptr, delta.data_ptr(), dq4.data_ptr(), *tail, stream)
         if rc != 0:
             raise RuntimeError(
                 f"flash_bwd dQ kernel launch failed with cudaError_t {rc}"
             )
         _count_bwd_launch("dq")
+        rc = fn_dkdv(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
+                     g_op.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                     glse_ptr, dk4.data_ptr(), dv4.data_ptr(), *tail, stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"flash_bwd dK/dV kernel launch failed with cudaError_t {rc}"
+            )
+        _count_bwd_launch("dkdv")
     return dq, dk, dv
 
 

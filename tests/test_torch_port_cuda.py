@@ -27,6 +27,7 @@ rounding).
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -194,6 +195,94 @@ def test_backward_ragged_offsets_and_masked_rows(gen, sq, skv, q_offset,
     dq, dk, dv = _bwd_compare(q, k, v, g_lse=g_lse, causal=True,
                               q_offset=q_offset, kv_offset=kv_offset,
                               kv_len=kv_len)
+    assert torch.all(dk[:, kv_len:] == 0) and torch.all(dv[:, kv_len:] == 0)
+
+
+def _rounding_sensitive_inputs(d, causal):
+    """bf16 q/k/v ``[B, S, H, D]``, the kernel forward's out and lse, and an
+    fp32 cotangent of out whose bf16 rounding moves ``delta = rowsum(dO *
+    out)`` by about as much as the gradient itself. v = u + w: u is one row
+    per (batch, head) in the first half of D, entries +-{1, 1.25, 1.5,
+    1.75} (bf16-exact), w noise in the second half. The cotangent is c + e:
+    c turns u pairwise, (u1, -u0, u3, -u2, ...), so c . v = 0 for every key
+    and c . out is near 0; e is out's first half times 2^-10, below half a
+    bf16 ulp of c, so c + e rounds to c and only the unrounded cotangent
+    carries e . out."""
+    b, s, h, half = 2, 200, 3, d // 2
+    rs = np.random.RandomState(11)
+    q = rs.standard_normal((b, s, h, d))
+    k = rs.standard_normal((b, s, h, d))
+    u = (rs.choice([1.0, 1.25, 1.5, 1.75], (b, 1, h, half))
+         * rs.choice([-1.0, 1.0], (b, 1, h, half)))
+    v = np.concatenate([np.broadcast_to(u, (b, s, h, half)),
+                        rs.standard_normal((b, s, h, d - half))], axis=-1)
+    c = np.zeros((b, s, h, d))
+    c[..., 0:half:2] = u[..., 1::2]
+    c[..., 1:half:2] = -u[..., 0::2]
+    q, k, v = (torch.from_numpy(x).float().cuda().to(torch.bfloat16)
+               for x in (q, k, v))
+    with torch.no_grad():
+        out, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
+    c = torch.from_numpy(c).float().cuda()
+    e = torch.zeros_like(c)
+    e[..., :half] = out[..., :half].float() * 2.0 ** -10
+    g = c + e
+    assert torch.equal(g.to(torch.bfloat16).float(), c)
+    return q, k, v, out, lse, g
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_backward_delta_from_the_cotangent_as_given(gen, causal, d):
+    # bf16 q/k/v with an fp32 cotangent: delta comes from the cotangent as
+    # given, as in _bwd_pallas and the plain version; only the products'
+    # dO is rounded. Rounding it for delta too moves dq and dk far past the
+    # tolerance, which the plain version on the rounded cotangent shows.
+    q, k, v, out, lse, g = _rounding_sensitive_inputs(d, causal)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, g,
+                                            causal=causal)
+    rounded = fa.flash_attention_bwd_reference(
+        q, k, v, out, lse, g.to(torch.bfloat16), causal=causal)
+    torch.cuda.synchronize()
+    for name, x, w, r in zip("qkv", got, want, rounded):
+        scale = w.float().abs().max().item()
+        assert (x.float() - w.float()).abs().max().item() <= 1e-2 * scale
+        if name != "v":  # dv = P^T dO takes the rounded dO in both
+            assert (r.float() - w.float()).abs().max().item() > 0.1 * scale
+
+
+def test_backward_pair_is_bitwise_repeatable(gen):
+    # Two kernels, no atomics: each gradient is one sum in a fixed order,
+    # so two calls on the same inputs agree bit for bit.
+    q, k, v = _rand(gen, (4, 1024, 3 * 768)).split(768, dim=-1)
+    kw = dict(causal=True, layout="bsm", n_heads=12)
+    with torch.no_grad():
+        out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+    g_out = _rand(gen, out.shape)
+    g_lse = torch.randn(lse.shape, generator=gen, device="cuda")
+    first = fa.flash_attention_bwd(q, k, v, out, lse, g_out, g_lse, **kw)
+    second = fa.flash_attention_bwd(q, k, v, out, lse, g_out, g_lse, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+_EDGES = [1, 63, 64, 65, 127, 128, 129, 1000]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("skv", _EDGES)
+@pytest.mark.parametrize("sq", _EDGES)
+def test_backward_ragged_tile_edges(gen, sq, skv, causal, d):
+    # Every length around the kernels' tiles (64-key and 32/64-query
+    # streams, 128-row blocks), with keys masked past kv_len < Skv; dk and
+    # dv are exactly 0 there.
+    kv_len = skv * 3 // 4
+    q = _rand(gen, (1, sq, 2, d))
+    k, v = _rand(gen, (1, skv, 2, d)), _rand(gen, (1, skv, 2, d))
+    dq, dk, dv = _bwd_compare(q, k, v, causal=causal, kv_len=kv_len,
+                              q_offset=max(skv - sq, 0) if causal else 0)
     assert torch.all(dk[:, kv_len:] == 0) and torch.all(dv[:, kv_len:] == 0)
 
 

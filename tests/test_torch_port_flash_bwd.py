@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from horovod_tpu.ops.pallas_kernels import (
+    _bwd_pallas,
     flash_attention_with_lse as jax_flash_with_lse,
 )
 from horovod_tpu_torch.ops import flash_attention as fa
@@ -194,3 +195,66 @@ def test_autograd_reaches_the_backward_and_counts_no_launch_on_cpu():
     with torch.no_grad():
         out = fa.flash_attention(q, k, v, causal=True)
     assert out.grad_fn is None
+
+
+def _rounding_sensitive_inputs(seed, b, s, h, d):
+    """bf16 q/k/v (``[B, H, S, D]``) and the pieces of an fp32 cotangent of
+    out whose bf16 rounding moves ``delta = rowsum(dO * out)`` by about as
+    much as the gradient itself. v = u + w: u is one row per (batch, head)
+    in the first half of D, entries +-{1, 1.25, 1.5, 1.75} (bf16-exact), w
+    noise in the second half. The cotangent is c + e: c turns u pairwise,
+    (u1, -u0, u3, -u2, ...), so c . v = 0 for every key and c . out is
+    near 0; e is out's first half times 2^-10, below half a bf16 ulp of c,
+    so c + e rounds to c and only the unrounded cotangent carries e . out."""
+    rs = np.random.RandomState(seed)
+    half = d // 2
+    q = rs.standard_normal((b, h, s, d)).astype(np.float32)
+    k = rs.standard_normal((b, h, s, d)).astype(np.float32)
+    u = (rs.choice([1.0, 1.25, 1.5, 1.75], (b, h, 1, half))
+         * rs.choice([-1.0, 1.0], (b, h, 1, half))).astype(np.float32)
+    v = np.concatenate(
+        [np.broadcast_to(u, (b, h, s, half)),
+         rs.standard_normal((b, h, s, d - half)).astype(np.float32)], axis=-1)
+    c = np.zeros((b, h, s, d), np.float32)
+    c[..., 0:half:2] = u[..., 1::2]
+    c[..., 1:half:2] = -u[..., 0::2]
+    return q, k, v, c
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_delta_comes_from_the_cotangent_as_given(causal):
+    # An fp32 cotangent with bf16 q/k/v: the JAX backward computes delta
+    # from it unrounded (only the kernels' dO operand is rounded), and so
+    # must the port; rounding it first moves dq and dk far past the bf16
+    # tolerance, so the case tells the two apart.
+    q, k, v, c = _rounding_sensitive_inputs(8, 1, 32, 2, 16)
+    ts = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)]
+    out, lse = fa.flash_attention_reference(*ts, causal=causal, layout="bhsd")
+    half = q.shape[-1] // 2
+    e = np.zeros_like(c)
+    e[..., :half] = out.float().numpy()[..., :half] * 2.0 ** -10
+    g = c + e
+    assert np.array_equal(
+        torch.from_numpy(g).to(torch.bfloat16).float().numpy(), c)
+    got = fa.flash_attention_bwd(*ts, out, lse, torch.from_numpy(g), None,
+                                 causal=causal, layout="bhsd")
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    jout = jnp.asarray(out.float().numpy(), jnp.bfloat16)
+    jlse = jnp.asarray(lse.numpy())
+
+    def jax_bwd(g_out):
+        grads = _bwd_pallas(
+            jq, jk, jv, 0, 0, jout, jlse, g_out, None,
+            sm_scale=1.0 / np.sqrt(q.shape[-1]), causal=causal, block_q=16,
+            block_k=16, interpret=True,
+        )
+        return [np.asarray(x.astype(jnp.float32)) for x in grads]
+
+    want = jax_bwd(jnp.asarray(g))
+    rounded = jax_bwd(jnp.asarray(g, jnp.bfloat16))
+    for name, x, w, r in zip("qkv", got, want, rounded):
+        scale = float(np.abs(w).max())
+        err = float(np.abs(x.float().numpy() - w).max())
+        assert err <= TOL["bfloat16"] * scale, (name, err, scale)
+        if name != "v":  # dv = P^T dO takes the rounded dO in both
+            assert float(np.abs(r - w).max()) > 0.1 * scale, name
