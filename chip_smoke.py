@@ -2,6 +2,9 @@
 """Drives the PyTorch/CUDA port (horovod_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --wrapper-host-us DIR   # the flash forward
+        # wrapper's host microseconds a call, DIR's package (another
+        # checkout) against this one's in one process on one card
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -11,14 +14,21 @@ Phases (any failure exits non-zero; nothing is caught):
    horovod_tpu_torch/csrc/ with nvcc (all at once), with the libraries
    that _build/ already held before it.
 2. Kernel vs plain: the flash-attention forward kernel against its plain
-   PyTorch version on the card, at GPT-2 small's serving shape (packed
-   [8, 1024, 768] bf16, causal) and on two ragged/offset cases; prints
-   max |d out| (<= 1e-2) and max |d lse| (<= 1e-3), the kernel's and the
-   plain version's times (CUDA events around runs of 10 back-to-back
-   calls, median of 25 runs after warm-up),
-   torch's scaled_dot_product_attention on the same inputs as a yardstick
-   (timed here only; the port never calls it), and the least time the
-   card could take (bytes over 3.35 TB/s, operations over 989 TFLOP/s).
+   PyTorch version on the card, q/k/v as column views of one fused
+   projection, at GPT-2 small's serving and training shape (B=8, S=1024,
+   H=12, D=64, causal bf16), at batch 16 (the fp8 step's), two
+   ragged/offset cases, two with query tiles that see no key, and ragged
+   tile edges (Sq, Skv of 1, 63, 65, 127, 129, 1000 with kv_len < Skv, D
+   64 and 128, causal with q_offset > 0); prints max |d out| (<= 1e-2)
+   and max |d lse| (<= 1e-3), the rows without keys (-inf in both), and
+   a second call must equal the first bit for bit. At batch 8 and 16: the
+   kernel's and the plain version's times (CUDA events around runs of 10
+   back-to-back calls, median of 25 runs after warm-up), the kernel's
+   device time under torch.profiler, the wrapper's host microseconds a
+   call (enqueue only), torch's scaled_dot_product_attention on the same
+   inputs as a yardstick (timed here only, by events and by device time;
+   the port never calls it), TFLOP/s by each, and the least time the card
+   could take (bytes over 3.35 TB/s, operations over 989 TFLOP/s).
 3. Kernel vs plain, flash backward: the dQ and dK/dV kernels (one
    flash_attention_bwd call: dQ first, computing delta, then dK/dV)
    against flash_attention_bwd_reference at GPT-2 small's training shape
@@ -250,12 +260,12 @@ def card_line() -> str:
 
 
 def source_fingerprint() -> str:
-    """sha256 over this script and every .py/.cu file of the port (by
+    """sha256 over this script and every .py/.cu/.cuh file of the port (by
     relative path, build outputs left out): the same on any checkout of
     one commit."""
     root = Path(__file__).resolve().parent
     files = [root / "chip_smoke.py"] + sorted(
-        f for pat in ("*.py", "*.cu")
+        f for pat in ("*.py", "*.cu", "*.cuh")
         for f in (root / "horovod_tpu_torch").rglob(pat)
         if "_build" not in f.parts and "__pycache__" not in f.parts
     )
@@ -295,55 +305,92 @@ def valid_pairs(sq, kv_len, causal, q_offset, kv_offset) -> int:
     return int(np.clip(q_pos - kv_offset + 1, 0, kv_len).sum())
 
 
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds a call of ``fn`` takes to return, enqueue only:
+    no synchronisation inside the window (the launch queue absorbs the
+    kernels), one before it."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
 def flash_case(fa, gen, *, b, sq, skv, h, d, causal, q_offset=0,
                kv_offset=0, kv_len=None, timed=False):
-    """Kernel vs plain version on one shape; returns the case's record."""
-    dev = torch.device("cuda")
-    q, k, v = (
-        torch.randn((b, s, h * d), generator=gen, device=dev).to(torch.bfloat16)
-        for s in (sq, skv, skv)
-    )
+    """Kernel vs plain version on one shape, q/k/v as the model hands them
+    (column views of a fused projection); a second call must equal the
+    first bit for bit. Returns the case's record."""
+    q, k, v = qkv_views(gen, b, sq, skv, h, d)
     kw = dict(causal=causal, q_offset=q_offset, kv_offset=kv_offset,
               layout="bsm", n_heads=h, kv_len=kv_len)
     out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+    again = fa.flash_attention_with_lse(q, k, v, **kw)
     ref_out, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
     torch.cuda.synchronize()
+    if out.shape != ref_out.shape or lse.shape != ref_lse.shape:
+        raise AssertionError(f"kernel shapes {out.shape} {lse.shape} vs plain "
+                             f"{ref_out.shape} {ref_lse.shape}")
     err_out = (out.float() - ref_out.float()).abs().max().item()
     inf_k, inf_r = torch.isneginf(lse), torch.isneginf(ref_lse)
     if not torch.equal(inf_k, inf_r):
         raise AssertionError("kernel and plain version disagree on -inf rows")
     fin = ~inf_r
     err_lse = (lse[fin] - ref_lse[fin]).abs().max().item() if fin.any() else 0.0
+    bitwise = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    empty_rows = int(inf_r.sum().item())
     name = (f"B={b} Sq={sq} Skv={skv} H={h} D={d} causal={causal} "
             f"q_offset={q_offset} kv_offset={kv_offset} kv_len={kv_len}")
-    log(f"[kernel] {name}: max|d out|={err_out:.3e} max|d lse|={err_lse:.3e}")
+    log(f"[kernel] {name}: max|d out|={err_out:.3e} max|d lse|={err_lse:.3e}"
+        f"; rows without keys {empty_rows}; bitwise again {bitwise}")
     if not (err_out <= OUT_TOL and err_lse <= LSE_TOL):
         raise AssertionError(
             f"flash kernel disagrees with its plain version on {name}: "
             f"out {err_out} (tol {OUT_TOL}), lse {err_lse} (tol {LSE_TOL})"
         )
-    rec = {"err_out": err_out, "err_lse": err_lse}
+    if not bitwise:
+        raise AssertionError(f"two calls of the flash forward on {name} "
+                             f"gave different results")
+    rec = {"err_out": err_out, "err_lse": err_lse, "bitwise": bitwise}
     if timed:
-        rec["ms"] = time_ms(lambda: fa.flash_attention_with_lse(q, k, v, **kw))
+        call = lambda: fa.flash_attention_with_lse(q, k, v, **kw)  # noqa: E731
+        rec["ms"] = time_ms(call)
+        rec["device_ms"] = kernel_ms(call, 10)["flash_fwd"]
+        rec["host_us"] = host_us(call)
         rec["plain_ms"] = time_ms(
             lambda: fa.flash_attention_reference(q, k, v, **kw)
         )
         qh, kh, vh = (x.unflatten(-1, (h, d)).transpose(1, 2) for x in (q, k, v))
-        rec["library_ms"] = time_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qh, kh, vh, is_causal=causal
-            )
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            qh, kh, vh, is_causal=causal
         )
+        rec["library_ms"] = time_ms(sdpa)
+        # Every kernel of its call, summed by name: torch's vendored flash
+        # kernels share names with this repository's.
+        rec["library_device_ms"] = device_ms(sdpa)
         kvl = skv if kv_len is None else kv_len
         nbytes = 2 * (2 * b * sq * h * d + 2 * b * skv * h * d) + 4 * b * h * sq
         flops = 4 * d * b * h * valid_pairs(sq, kvl, causal, q_offset, kv_offset)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+        rec["bytes"], rec["flops"] = nbytes, flops
         rec["bound_ms"] = max(t_bytes, t_ops) * 1e3
         rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        log(f"[kernel] {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP: "
-            f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-            f"sdpa {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-            f"({rec['bound_by']})")
+        tflops = lambda ms: flops / ms / 1e9  # noqa: E731
+        log(f"[kernel] B={b}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP: "
+            f"kernel {rec['ms']:.4f} ms by events ({tflops(rec['ms']):.1f} "
+            f"TFLOP/s), {rec['device_ms']:.4f} ms device "
+            f"({tflops(rec['device_ms']):.1f} TFLOP/s), wrapper "
+            f"{rec['host_us']:.1f} us host a call; plain {rec['plain_ms']:.4f}"
+            f" ms; sdpa {rec['library_ms']:.4f} ms by events "
+            f"({tflops(rec['library_ms']):.1f} TFLOP/s), "
+            f"{rec['library_device_ms']:.4f} ms device "
+            f"({tflops(rec['library_device_ms']):.1f} TFLOP/s) (kernel / sdpa:"
+            f" {rec['ms'] / rec['library_ms']:.2f}x by events, "
+            f"{rec['device_ms'] / rec['library_device_ms']:.2f}x device); "
+            f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
     return rec
 
 
@@ -2059,13 +2106,34 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     main_case = flash_case(fa, gen, b=8, sq=1024, skv=1024, h=12, d=64,
                            causal=True, timed=True)
+    # The fp8 step's shape (batch 16), timed only to price the forward there.
+    fwd_b16 = flash_case(fa, gen, b=16, sq=1024, skv=1024, h=12, d=64,
+                         causal=True, timed=True)
     cases = [
         main_case,
+        fwd_b16,
         flash_case(fa, gen, b=2, sq=333, skv=1000, h=12, d=64, causal=False,
                    q_offset=40, kv_len=937),
         flash_case(fa, gen, b=2, sq=200, skv=520, h=4, d=128, causal=True,
                    q_offset=300, kv_offset=0, kv_len=517),
+        # Query tiles with no valid key (all zeros and -inf) beside tiles
+        # that see some.
+        flash_case(fa, gen, b=1, sq=300, skv=300, h=2, d=64, causal=True,
+                   kv_offset=150),
+        flash_case(fa, gen, b=1, sq=300, skv=300, h=2, d=128, causal=True,
+                   kv_offset=150),
     ]
+    # Ragged tile edges: every length around the 128-row tiles, keys masked
+    # past kv_len < Skv, causal with q_offset > 0.
+    for sq, skv in ((1, 1), (63, 65), (65, 63), (127, 129), (129, 127),
+                    (1, 1000), (1000, 1), (129, 1000), (1000, 129)):
+        for d in fa.HEAD_DIMS:
+            for causal in (False, True):
+                cases.append(flash_case(
+                    fa, gen, b=1, sq=sq, skv=skv, h=2, d=d, causal=causal,
+                    kv_len=max(skv * 3 // 4, 1),
+                    q_offset=max(skv - sq, 1) if causal else 0,
+                ))
     bwd_main = bwd_case(fa, gen, b=8, sq=1024, skv=1024, h=12, d=64,
                         causal=True, timed=True)
     # The fp8 step's shape (batch 16), timed only to price the pair there.
@@ -2125,11 +2193,18 @@ def main() -> int:
         "launches_serve": served["launches"],
         "max_abs_err": max(c["err_out"] for c in cases),
         "max_abs_err_lse": max(c["err_lse"] for c in cases),
+        "bitwise_repeat": all(c["bitwise"] for c in cases),
         "ms": main_case["ms"],
+        "device_ms": main_case["device_ms"],
+        "host_us": main_case["host_us"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
+        "library_device_ms": main_case["library_device_ms"],
+        "b16": {key: fwd_b16[key] for key in (
+            "ms", "device_ms", "host_us", "bound_ms", "library_ms",
+            "library_device_ms")},
     }]
     # The two backward kernels run as one pair (flash_attention_bwd): "ms"
     # is the pair's CUDA-event time, as for every row, "device_ms" each
@@ -2284,5 +2359,52 @@ def main() -> int:
     return 0
 
 
+def wrapper_host_us(other_root: str) -> int:
+    """``--wrapper-host-us DIR``: the host microseconds a call of the flash
+    forward's wrapper takes (enqueue only) at the main shape, for the
+    ``horovod_tpu_torch`` under DIR (another checkout, e.g. the parent
+    commit's) and for this checkout's, both imported into this process and
+    timed in alternating windows of 200 calls (ten each), so the host's
+    drift falls on both alike."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    import importlib
+
+    def load(root):
+        for name in [m for m in sys.modules
+                     if m.split(".")[0] == "horovod_tpu_torch"]:
+            del sys.modules[name]
+        sys.path.insert(0, str(Path(root).resolve()))
+        try:
+            return importlib.import_module(
+                "horovod_tpu_torch.ops.flash_attention")
+        finally:
+            sys.path.pop(0)
+
+    other = load(other_root)
+    this = load(Path(__file__).resolve().parent)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = qkv_views(gen, 8, 1024, 1024, 12, 64)
+    calls = {
+        name: (lambda fa=fa: fa.flash_attention_with_lse(
+            q, k, v, causal=True, layout="bsm", n_heads=12))
+        for name, fa in (("other", other), ("this", this))
+    }
+    times = {name: [] for name in calls}
+    for _ in range(10):
+        for name, call in calls.items():
+            times[name].append(host_us(call))
+    for name, fa in (("other", other), ("this", this)):
+        t = times[name]
+        log(f"[host] {name} {fa.__file__}: wrapper median "
+            f"{float(np.median(t)):.2f} us a call, min {min(t):.2f}, max "
+            f"{max(t):.2f} ({json.dumps([round(x, 2) for x in t])})")
+    log(f"[host] {card_line()}")
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--wrapper-host-us":
+        sys.exit(wrapper_host_us(sys.argv[2]))
     sys.exit(main())

@@ -7,9 +7,10 @@ shared library with a plain C interface and loaded with :mod:`ctypes`:
          -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
 No PyTorch headers are involved, so a build takes seconds. The library
-name carries a hash of the source and the flags: an edited source builds
-anew, an unchanged one is loaded from ``_build/`` (listed in
-``.gitignore``). A failed build raises with nvcc's stderr.
+name carries a hash of the source, the shared headers ``csrc/*.cuh`` and
+the flags: an edited source or header builds anew, an unchanged one is
+loaded from ``_build/`` (listed in ``.gitignore``). A failed build raises
+with nvcc's stderr.
 """
 
 from __future__ import annotations
@@ -66,13 +67,17 @@ def nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
+    """``_build/lib<name>-<hash>.so``: the hash covers the source, every
+    shared header ``csrc/*.cuh`` (any source may include any of them) and
+    the flags, so an edited header builds anew too."""
     src = SRC_DIR / f"{name}.cu"
     if not src.is_file():
         raise FileNotFoundError(f"no kernel source {src}")
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _compile(name: str) -> Path:

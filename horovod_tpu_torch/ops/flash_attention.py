@@ -106,12 +106,12 @@ def _view4(x, layout: str, n_heads: int):
     if layout == "bsm":
         if n_heads <= 0:
             raise ValueError("layout='bsm' requires n_heads")
-        if x.shape[-1] % n_heads:
+        *lead, m = x.shape
+        if m % n_heads:
             raise ValueError(
-                f"packed width {x.shape[-1]} is not a multiple of "
-                f"n_heads={n_heads}"
+                f"packed width {m} is not a multiple of n_heads={n_heads}"
             )
-        return x.unflatten(-1, (n_heads, x.shape[-1] // n_heads))
+        return x.view(*lead, n_heads, m // n_heads)
     if layout == "bshd":
         return x
     if layout == "bhsd":
@@ -130,7 +130,7 @@ def _empty_out(b, sq, h, d, layout, like):
     """Output tensor in ``layout`` and its ``[B, Sq, H, D]`` view."""
     if layout == "bsm":
         out = torch.empty((b, sq, h * d), dtype=like.dtype, device=like.device)
-        return out, out.unflatten(-1, (h, d))
+        return out, out.view(b, sq, h, d)
     if layout == "bhsd":
         out = torch.empty((b, h, sq, d), dtype=like.dtype, device=like.device)
         return out, out.transpose(1, 2)
@@ -220,19 +220,30 @@ def _kernel_fn():
     global _fn
     if _fn is None:
         fn = _build.load(KERNEL_SOURCE).hvt_flash_fwd_bf16
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = (
-            [ptr] * 5 + [i32] * 5 + [i64] * 12
-            + [i32, i32, i32, ctypes.c_float, i32, ptr]
+            [ptr] * 5 + [i32] * 5 + [ptr]
+            + [i32, i32, i32, ctypes.c_float, i32, i32, ptr]
         )
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
+def _map_strides(x):
+    """Element strides (batch, seq, head) of a ``[B, S, H, D]`` view as the
+    kernels take them: a dimension of length 1 is never stepped along, so
+    its stride is given as 16 bytes, which a TMA tensor map takes whatever
+    the view says (a size-1 dimension's stride is arbitrary in torch)."""
+    st, n, unit = x.stride(), x.shape, 16 // x.element_size()
+    return (st[0] if n[0] > 1 else unit, st[1] if n[1] > 1 else unit,
+            st[2] if n[2] > 1 else unit)
+
+
 def _check_kernel_operands(named, d):
     """What the CUDA kernels take: bf16, head dim 64/128, unit stride
-    along D and 16-byte aligned rows."""
+    along D and 16-byte aligned rows. Returns each operand's
+    :func:`_map_strides`."""
     for name, x in named:
         if x.dtype != torch.bfloat16:
             raise TypeError(
@@ -246,36 +257,47 @@ def _check_kernel_operands(named, d):
     b, _, h, _ = named[0][1].shape
     if b > 65535 or h > 65535:
         raise ValueError(f"batch {b} or heads {h} exceed the grid limit")
+    strides = []
     for name, x in named:
         if x.stride(3) != 1:
             raise ValueError(f"{name} must have a unit stride along D")
-        if any(s % 8 for s in x.stride()[:3]) or x.data_ptr() % 16:
+        st = _map_strides(x)
+        if st[0] % 8 or st[1] % 8 or st[2] % 8 or x.data_ptr() % 16:
             raise ValueError(
                 f"{name} rows must be 16-byte aligned: strides "
                 f"{tuple(x.stride())}, address {x.data_ptr():#x}"
             )
+        strides.append(st)
+    return strides
 
 
 def _launch(q4, k4, v4, *, causal, q_offset, kv_offset, sm_scale, layout,
             kv_len):
     b, sq, h, d = q4.shape
     skv = k4.shape[1]
-    _check_kernel_operands((("q", q4), ("k", k4), ("v", v4)), d)
+    st = _check_kernel_operands((("q", q4), ("k", k4), ("v", v4)), d)
+    if 0 in st[0] or 0 in st[1] or 0 in st[2]:
+        # A tensor map steps every dimension by a nonzero stride: an
+        # expanded (stride 0) operand is copied first.
+        q4, k4, v4 = (x.contiguous() if 0 in xs else x
+                      for x, xs in zip((q4, k4, v4), st))
+        st = _check_kernel_operands((("q", q4), ("k", k4), ("v", v4)), d)
     out, o4 = _empty_out(b, sq, h, d, layout, q4)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q4.device)
     if b == 0 or h == 0 or sq == 0:
         return out, lse
     fn = _kernel_fn()
-    with torch.cuda.device(q4.device):
-        stream = torch.cuda.current_stream(q4.device).cuda_stream
-        rc = fn(
-            q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
-            lse.data_ptr(), b, h, sq, skv, d,
-            *q4.stride()[:3], *k4.stride()[:3], *v4.stride()[:3],
-            o4.stride(0), o4.stride(1), o4.stride(2),
-            kv_len, q_offset, kv_offset, float(sm_scale), int(bool(causal)),
-            stream,
-        )
+    strides = (ctypes.c_longlong * 12)(*st[0], *st[1], *st[2],
+                                        *_map_strides(o4))
+    # The entry point launches on the tensors' device (and restores the
+    # thread's current one), on torch's current stream there.
+    dev = q4.get_device()
+    rc = fn(
+        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
+        lse.data_ptr(), b, h, sq, skv, d, strides,
+        kv_len, q_offset, kv_offset, float(sm_scale), int(bool(causal)),
+        dev, torch._C._cuda_getCurrentRawStream(dev),
+    )
     if rc != 0:
         raise RuntimeError(
             f"flash_fwd kernel launch failed with cudaError_t {rc}"
@@ -419,12 +441,9 @@ def _bwd_launch(q4, k4, v4, o4, g4, lse, g_lse, *, causal, q_offset,
                 f"{name} has shape {tuple(x.shape)}, expected {(b, h, sq)}"
             )
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q4.device)
-    # A dimension of length 1 is never stepped along: its stride is given
-    # as 16 bytes, which the tensor maps take whatever the view says.
     strides = (ctypes.c_longlong * 27)(*[
-        s if n > 1 else 8
-        for x in (q4, k4, v4, g_op, dq4, dk4, dv4, o4, given)
-        for s, n in zip(x.stride()[:3], x.shape[:3])
+        s for x in (q4, k4, v4, g_op, dq4, dk4, dv4, o4, given)
+        for s in _map_strides(x)
     ])
     tail = [b, h, sq, skv, d, strides, kv_len, q_offset, kv_offset,
             float(sm_scale), int(bool(causal))]

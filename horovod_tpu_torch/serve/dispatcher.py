@@ -26,7 +26,7 @@ import itertools
 import threading
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from ..ops.batching import BatchSpec, pack_requests, unpack_responses
 from ..utils import env as _env
@@ -69,17 +69,23 @@ class ServeFuture:
             raise self._exc
         return self._value
 
-    def _settle(self, value: Any, exc: Optional[BaseException]) -> bool:
+    def _settle(self, value: Any, exc: Optional[BaseException],
+                on_settle: Optional[Callable[[], None]] = None) -> bool:
+        """Settle once; ``on_settle`` runs only for the settle that wins,
+        before any waiter can wake."""
         with self._lock:
             if self._event.is_set():
                 return False
             self._value = value
             self._exc = exc
+            if on_settle is not None:
+                on_settle()
             self._event.set()
             return True
 
-    def _resolve(self, value: Any) -> bool:
-        return self._settle(value, None)
+    def _resolve(self, value: Any,
+                 on_settle: Optional[Callable[[], None]] = None) -> bool:
+        return self._settle(value, None, on_settle)
 
     def _reject(self, exc: BaseException) -> bool:
         return self._settle(None, exc)
@@ -318,10 +324,12 @@ class Dispatcher:
         return None
 
     def _resolve_request(self, req: _Request, value: Any) -> bool:
-        if req.future._resolve(value):
-            now = time.time()
-            with self._cond:
-                self.n_resolved += 1
-                self.latencies.append(now - req.submit_t)
-            return True
-        return False
+        # A resolution is counted under the dispatcher's lock, by the settle
+        # that wins and before it wakes the waiter, so a client that reads
+        # the count after its result() returns sees it final.
+        def count() -> None:
+            self.n_resolved += 1
+            self.latencies.append(time.time() - req.submit_t)
+
+        with self._cond:
+            return req.future._resolve(value, count)

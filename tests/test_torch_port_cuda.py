@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain versions, on the card: the
-flash-attention forward, the backward pair (dK/dV, dQ), the fused AdamW
+flash-attention forward (ragged tile edges, query tiles without keys and a
+bitwise repeat included), the backward pair (dK/dV, dQ), the fused AdamW
 update, the blockwise quantize/dequantize, the fused fp8 cast, the fp8 matmul
 and the int8-weight matmul. Every test here needs an NVIDIA GPU with nvcc (the kernels have no
 CPU mode) and skips without one. Run them on the card with
@@ -94,6 +95,74 @@ def test_fused_qkv_strided_views_and_counter(gen):
     fa.reset_launches()
     out, _ = _compare(q, k, v, causal=True, layout="bsm", n_heads=12)
     assert fa.launches == 1 and out.is_contiguous()
+
+
+_FWD_EDGES = [1, 63, 65, 127, 129, 1000]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("skv", _FWD_EDGES)
+@pytest.mark.parametrize("sq", _FWD_EDGES)
+def test_forward_ragged_tile_edges(gen, sq, skv, causal, d):
+    # Every length around the forward's 128-row query and key tiles (most of
+    # a TMA box zero-filled), keys masked past kv_len < Skv, causal with
+    # q_offset > 0; a second call equals the first bit for bit.
+    q = _rand(gen, (1, sq, 2, d))
+    k, v = _rand(gen, (1, skv, 2, d)), _rand(gen, (1, skv, 2, d))
+    kw = dict(causal=causal, kv_len=max(skv * 3 // 4, 1),
+              q_offset=max(skv - sq, 1) if causal else 0)
+    out, lse = _compare(q, k, v, **kw)
+    again = fa.flash_attention_with_lse(q, k, v, **kw)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("layout", ["bsm", "bhsd", "bshd"])
+def test_forward_query_tiles_without_keys(gen, layout, d):
+    # kv_offset = 150 puts the first 150 queries before every key: their
+    # rows (a whole 128-row tile among them) give zeros and -inf, not NaN.
+    b, s, h = 2, 300, 2
+    shape = {"bsm": (b, s, h * d), "bhsd": (b, h, s, d), "bshd": (b, s, h, d)}
+    q, k, v = (_rand(gen, shape[layout]) for _ in range(3))
+    out, lse = _compare(q, k, v, causal=True, kv_offset=150, layout=layout,
+                        n_heads=h if layout == "bsm" else 0)
+    o4 = fa._view4(out, layout, h)
+    assert torch.all(o4[:, :150] == 0) and torch.isfinite(o4).all()
+    assert torch.all(torch.isneginf(lse[..., :150]))
+    assert torch.isfinite(lse[..., 150:]).all()
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sm_scale", [0.3, 0.0, -0.2])
+def test_forward_any_sign_of_sm_scale(gen, sm_scale, d):
+    # sm_scale > 0 takes the instantiation that maxes the raw scores and
+    # folds the scale into exp2's FMA; zero and negative scales the one
+    # that scales first. Both compute the plain version's function.
+    q = _rand(gen, (2, 200, 2, d))
+    k, v = _rand(gen, (2, 300, 2, d)), _rand(gen, (2, 300, 2, d))
+    _compare(q, k, v, causal=True, q_offset=100, kv_len=290,
+             sm_scale=sm_scale)
+
+
+def test_forward_is_bitwise_repeatable(gen):
+    q, k, v = _rand(gen, (4, 1024, 3 * 768)).split(768, dim=-1)
+    kw = dict(causal=True, layout="bsm", n_heads=12)
+    first = fa.flash_attention_with_lse(q, k, v, **kw)
+    second = fa.flash_attention_with_lse(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_forward_copies_an_expanded_operand(gen):
+    # A stride-0 dimension (one key head shared by both heads) is no tensor
+    # map's: the wrapper copies it, and the kernel runs.
+    q = _rand(gen, (1, 130, 2, 64))
+    k = _rand(gen, (1, 130, 1, 64)).expand(1, 130, 2, 64)
+    v = _rand(gen, (1, 130, 2, 64))
+    fa.reset_launches()
+    _compare(q, k, v, causal=True)
+    assert fa.launches == 1
 
 
 def test_kernel_rejects_what_it_does_not_take(gen):

@@ -221,3 +221,50 @@ def test_build_names_every_kernel_source():
     lib = _build._library_path("flash_fwd")
     assert lib.parent == _build.BUILD_DIR and lib.name.startswith("libflash_fwd-")
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_library_hash_covers_the_shared_headers(tmp_path, monkeypatch):
+    # A kernel source includes csrc/*.cuh: an edited header must name a new
+    # library, or a stale one would be loaded from _build/.
+    import shutil
+
+    from horovod_tpu_torch.ops import _build
+
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.SRC_DIR, src)
+    monkeypatch.setattr(_build, "SRC_DIR", src)
+    headers = sorted(src.glob("*.cuh"))
+    assert [h.name for h in headers] == ["sm90_common.cuh"]
+    before = _build._library_path("flash_fwd")
+    assert _build._library_path("flash_fwd") == before
+    headers[0].write_bytes(headers[0].read_bytes() + b"\n")
+    after = _build._library_path("flash_fwd")
+    assert after != before and after.name.startswith("libflash_fwd-")
+    (src / "extra.cuh").write_bytes(b"// another header\n")
+    assert _build._library_path("flash_fwd") not in (before, after)
+
+
+@pytest.mark.parametrize("layout", ["bsm", "bhsd", "bshd"])
+@pytest.mark.parametrize("b,sq", [(1, 5), (3, 1), (1, 1)])
+def test_map_strides_give_length_one_dims_16_bytes(layout, b, sq):
+    # The forward and the backward hand their tensor maps the same strides:
+    # the view's own, except that a dimension of length 1 gets 16 bytes
+    # (8 bf16 elements) whatever torch says its stride is.
+    h, d = 2, 64
+    x = torch.zeros(
+        {"bsm": (b, sq, h * d), "bhsd": (b, h, sq, d), "bshd": (b, sq, h, d)}
+        [layout], dtype=torch.bfloat16,
+    )
+    x4 = fa._view4(x, layout, h)
+    got = fa._map_strides(x4)
+    for s, n, want in zip(got, x4.shape[:3], x4.stride()[:3]):
+        assert s == (want if n > 1 else 8)
+    assert all(s % 8 == 0 and s > 0 for s in got)
+    # A length-1 dimension with a stride no tensor map takes is not refused.
+    odd = torch.zeros((1, sq, 2, 64), dtype=torch.bfloat16).as_strided(
+        (1, sq, 2, 64), (3, 128, 64, 1))
+    assert fa._map_strides(odd)[0] == 8
+    fa._check_kernel_operands((("q", odd),), 64)
+    assert fa._map_strides(x4.float())[0] == (4 if b == 1 else x4.stride(0))
+    # The wrapper's check hands back the same strides it checked.
+    assert fa._check_kernel_operands((("q", x4),), d) == [got]

@@ -120,6 +120,29 @@ class TestDispatcher:
         assert d.lease("w1", timeout=0.05) is None
         assert d.n_resolved == 1
 
+    def test_resolution_is_counted_before_the_waiter_wakes(self):
+        # Each future's event records the dispatcher's count at the moment
+        # it is set: by then the resolution must already be counted.
+        d = Dispatcher(batch_size=4, batch_timeout_ms=1.0,
+                       request_timeout_secs=5.0)
+        futs = [d.submit(r) for r in _requests(4)]
+        seen = []
+        for f in futs:
+            event_set = f._event.set
+
+            def set_and_record(event_set=event_set):
+                seen.append((d.n_resolved, len(d.latencies)))
+                event_set()
+
+            f._event.set = set_and_record
+        lease = d.lease("w0", timeout=0.5)
+        assert d.complete(lease, _echo(lease)) == 4
+        assert seen == [(n, n) for n in range(1, 5)]
+        # A settle that loses (the future was already answered) counts
+        # nothing.
+        assert not d._resolve_request(lease.requests[0], None)
+        assert d.n_resolved == 4 and len(d.latencies) == 4
+
     def test_close_rejects_pending(self):
         d = Dispatcher(batch_size=4)
         fut = d.submit(_requests(1)[0])
