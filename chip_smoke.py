@@ -2,9 +2,9 @@
 """Drives the PyTorch/CUDA port (horovod_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --wrapper-host-us DIR   # the flash forward
-        # wrapper's host microseconds a call, DIR's package (another
-        # checkout) against this one's in one process on one card
+    python3 chip_smoke.py --wrapper-host-us DIR   # the flash forward's
+        # and kernel 7's wrappers' host microseconds a call, DIR's package
+        # (another checkout) against this one's in one process on one card
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -170,18 +170,29 @@ Phases (any failure exits non-zero; nothing is caught):
 14. [int8] Kernel 7 vs its plain version (int8_weight_matmul_reference):
    the reference test's ragged cases (5, 300, 70), (16, 512, 128),
    (1, 64, 10), (130, 1000, 260) and (33, 17, 129) (K not a multiple of 16;
-   rows off 16-byte boundaries) with fp32 and bf16 activations, and the four GPT-2-small serving products (768->2304,
+   rows off 16-byte boundaries, which the bf16 kernel's TMA reads only
+   after one aligned copy: launches_int8_relayout) with fp32 and bf16
+   activations, and the four GPT-2-small serving products (768->2304,
    768->768, 768->3072, 3072->768; bf16, weights quantized on the card) at
-   M = 8192 (a batch of 8 x 1024) and M = 8 (decode-sized). Largest
+   M = 8192 (a batch of 8 x 1024) and M = 8 (decode-sized, a split
+   contraction and its sum). Largest
    difference relative to the largest plain value: <= 1e-5 (fp32),
-   <= 8e-3 (bf16). Each product timed with time_ms beside the plain
-   version, torch._weight_int8pack_mm where the build runs it on CUDA (a
-   yardstick the port never calls; its scales in bf16), and F.linear of
-   the bf16-dequantized weight (cuBLAS, the cost the int8 path replaces:
-   "bf16_ms"), each also by its device time under torch.profiler (at
-   M = 8 the events time the host's launches), with its bound: bf16 x and
-   out, int8 weight and fp32 scales over 3.35 TB/s, or its operations over
-   989 TFLOP/s, the larger; summed over one batch's 48 launches.
+   <= 8e-3 (bf16). Every call is repeated and must equal itself bit for
+   bit, and with a bias it must equal the unbiased call plus the bias in
+   x's dtype bit for bit; the GPT-2 products take no relayout. The
+   compiler's report of int8_matmul.cu (ptxas -v, SASS counts) is printed:
+   the bf16 kernel must show HGMMA, UTMALDG, no HMMA and no local memory.
+   Each product timed with time_ms as the served path calls it, with its
+   bf16 bias, beside the plain version with the same bias,
+   torch._weight_int8pack_mm where the build runs it on CUDA (a yardstick
+   the port never calls; its scales in bf16, no bias), and F.linear of
+   the bf16-dequantized weight with the bias (cuBLAS, the cost the int8
+   path replaces: "bf16_ms"), each also by its device time under
+   torch.profiler (at M = 8 the events time the host's launches), with its
+   bound: bf16 x, out and bias, int8 weight and fp32 scales over 3.35
+   TB/s, or its operations over 989 TFLOP/s, the larger; summed over one
+   batch's 48 launches; and the wrapper's host microseconds a call
+   (host_us, enqueue only).
 15. [serve-int8] GPT-2 small through ServePool(weight_dtype="int8") from a
    copy of the serving phase's step-1 fp32 checkpoint (2 workers, batch 8,
    5 rounds of 64 x 1024-token requests): after load every Dense holds an
@@ -189,12 +200,15 @@ Phases (any failure exits non-zero; nothing is caught):
    times (one restore), layer 0's fc payload and scales equal the CPU plain
    quantize_weight of the checkpoint's fp32 tensor bit for bit; the model's
    weight bytes beside the bf16 pool's. Launch counts, set to 0 just before
-   the rounds: kernel 7 = 48 x batches, flash forward = 12 x batches. The
+   the rounds: kernel 7 = 48 x batches (each projection's bias in its
+   epilogue), flash forward = 12 x batches, no relayout and no split. The
    first 8 answers against a bf16 model holding the dequantized weights
    (cuBLAS): max |d logits| <= 0.05 max |logits| and the same argmax where
    the top-2 margin exceeds that bound; their relative L2 against the bf16
    pool's answers (the quantization's own error, no bound). One profiled
-   window (kernel 7 its own category); then step 2 is published and the
+   window (kernel 7 its own category), whose elementwise launches a batch
+   must stay within 24 of the bf16 pool's window (a separate bias add
+   would be 48 more); then step 2 is published and the
    pool must roll onto it one worker at a time, int8 again (48 kernel-4
    launches a worker), with changed answers.
 16. Output: a "kernels" JSON line (the nine TPU kernels' counterparts and
@@ -216,6 +230,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -711,11 +726,13 @@ def kernel_category(name: str) -> str:
     for kernel in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
                    "fused_adamw", "dequantize_blockwise",
                    "quantize_blockwise", "fp8_matmul_reduce", "fp8_matmul",
-                   "fp8_cast", "int8_matmul"):
+                   "fp8_cast", "int8_matmul_reduce", "int8_matmul"):
         if kernel + "_kernel" in n:
             return kernel
     if "nccl" in n:
         return "nccl"
+    if "elementwise" in n:
+        return "elementwise"
     if any(s in n for s in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
         return "matmul"
     if "memcpy" in n or "memset" in n:
@@ -723,9 +740,10 @@ def kernel_category(name: str) -> str:
     return "other"
 
 
-def device_ms_by_name(prof):
+def device_ms_by_name(prof, counts=None):
     """Device ms by kernel name, and by kernel category, from a finished
-    torch.profiler window."""
+    torch.profiler window; with a dict ``counts``, the recorded launches by
+    category are added to it."""
     from torch.autograd import DeviceType
 
     by_name = {}
@@ -736,6 +754,9 @@ def device_ms_by_name(prof):
         if us is None:
             us = e.self_cuda_time_total
         by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
+        if counts is not None:
+            c = kernel_category(e.key)
+            counts[c] = counts.get(c, 0) + e.count
     by_cat = {}
     for name, ms in by_name.items():
         c = kernel_category(name)
@@ -817,13 +838,14 @@ def host_calls(prof):
 
 def device_breakdown(prof, wall_ms, extra):
     """Device time by kernel from a finished torch.profiler window."""
-    by_name, by_cat = device_ms_by_name(prof)
+    launches = {}
+    by_name, by_cat = device_ms_by_name(prof, launches)
     device_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     api, host_top = host_calls(prof)
     rec = dict(extra, wall_ms=wall_ms, device_ms=device_ms,
                idle_share=1.0 - device_ms / wall_ms if wall_ms else None,
-               by_category_ms=by_cat,
+               by_category_ms=by_cat, launches_by_category=launches,
                top_kernels_ms=[[n[:80], ms] for n, ms in top],
                cuda_api=api, host_top_self_ms=host_top)
     log(f"[profile] {json.dumps(rec)}")
@@ -845,13 +867,18 @@ def profile_window(fn, extra):
 
 
 def profile_serving(pool, tokens):
-    """Device time by kernel over a window of served requests."""
+    """Device time by kernel over a window of served requests, and the
+    batches the window served."""
+    extra = {"requests": len(tokens)}
+
     def run():
+        b0 = pool.dispatcher.n_batches
         futs = [pool.submit(torch.from_numpy(t)) for t in tokens]
         for f in futs:
             f.result(timeout=600.0)
+        extra["batches"] = pool.dispatcher.n_batches - b0
 
-    return profile_window(run, {"requests": len(tokens)})
+    return profile_window(run, extra)
 
 
 def train_loss(model):
@@ -1754,9 +1781,10 @@ def int8_products(cfg):
             ("fc", layers, d, f), ("proj", layers, f, d)]
 
 
-def int8_compare(tq, x, qw):
-    """Kernel 7 vs its plain version on one call: (max |d|, relative to the
-    largest plain value)."""
+def int8_compare(tq, x, qw, b):
+    """Kernel 7 vs its plain version on one call, a second call equal to the
+    first bit for bit, and the fused bias equal to the separate add bit for
+    bit: (max |d|, relative to the largest plain value, both bitwise)."""
     got = tq.int8_weight_matmul(x, qw)
     ref = tq.int8_weight_matmul_reference(x, qw)
     torch.cuda.synchronize()
@@ -1770,7 +1798,44 @@ def int8_compare(tq, x, qw):
             f"int8 matmul kernel disagrees with its plain version on x "
             f"{tuple(x.shape)} {x.dtype} x w {tuple(qw.shape)}: {rel} "
             f"(tol {INT8_TOL[x.dtype]})")
-    return err, rel
+    repeat = torch.equal(got, tq.int8_weight_matmul(x, qw))
+    fused = torch.equal(tq.int8_weight_matmul(x, qw, b), got + b.to(x.dtype))
+    if not (repeat and fused):
+        raise AssertionError(
+            f"int8 matmul kernel on x {tuple(x.shape)} {x.dtype} x w "
+            f"{tuple(qw.shape)}: bitwise repeat {repeat}, fused bias equal to "
+            f"the separate add {fused}")
+    return err, rel, repeat and fused
+
+
+def compiler_report(name):
+    """ptxas's report (-Xptxas -v: registers, spills, advisories) and SASS
+    instruction counts of each kernel of csrc/<name>.cu, compiled to an
+    object file with the package's flags."""
+    from horovod_tpu_torch.ops import _build
+
+    nvcc = _build.nvcc()
+    flags = [f for f in _build.NVCC_FLAGS if f != "-shared"]
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as d:
+        obj = str(Path(d) / f"{name}.o")
+        proc = subprocess.run(
+            [nvcc, *flags, "-Xptxas", "-v", "-c", "-o", obj,
+             str(_build.SRC_DIR / f"{name}.cu")],
+            capture_output=True, text=True, check=True)
+        sass = subprocess.run(
+            [str(Path(nvcc).parent / "cuobjdump"), "-sass", obj],
+            capture_output=True, text=True, check=True).stdout
+    report = {"ptxas": [], "advisories": [], "sass": {}}
+    for line in (proc.stdout + proc.stderr).splitlines():
+        if "Used" in line or "spill" in line or "Compiling entry" in line:
+            report["ptxas"].append(line.split("info    : ")[-1].strip())
+        if "C75" in line:
+            report["advisories"].append(line.strip())
+    for chunk in sass.split("Function : ")[1:]:
+        fn = chunk.split()[0]
+        report["sass"][fn] = {op: chunk.count(op) for op in (
+            "HGMMA", "HMMA", "UTMALDG", "UTMASTG", "LDL", "STL")}
+    return report
 
 
 def int8pack_call(x2, qw):
@@ -1803,31 +1868,39 @@ def _int8_times(rec):
             f"{ms('device_bf16_ms')}; bound {ms('bound_ms')} ({rec['bound_by']})")
 
 
-def int8_case(tq, gen, cfg):
+def int8_case(tq, gen, cfg, report):
     """[int8]: kernel 7 vs its plain version on ragged cases and at one
-    serving batch's products (M = 8192) and decode-sized ones (M = 8), the
-    latter two timed beside the plain version, the library call and the
-    bf16 cuBLAS product of the dequantized weight, each with its bound."""
+    serving batch's products (M = 8192) and decode-sized ones (M = 8), each
+    repeated bit for bit and with the bias fused bit for bit; the latter two
+    timed beside the plain version, the library call and the bf16 cuBLAS
+    product of the dequantized weight, each with its bound, and the
+    wrapper's host time a call; ``report`` the compiler's (a future)."""
     import torch.nn.functional as F
 
     err = rel = 0.0
     rng = np.random.RandomState(6)
+    tq.reset_launches()
     for mm, kk, nn in ((5, 300, 70), (16, 512, 128), (1, 64, 10),
                        (130, 1000, 260), (33, 17, 129)):
         w = torch.from_numpy(rng.randn(kk, nn).astype(np.float32)).cuda()
         x = torch.from_numpy(rng.randn(mm, kk).astype(np.float32)).cuda()
+        b = torch.from_numpy(rng.randn(nn).astype(np.float32)).cuda()
         qw = tq.quantize_weight(w)
         for dtype in (torch.float32, torch.bfloat16):
-            e, r = int8_compare(tq, x.to(dtype), qw)
+            e, r, _ = int8_compare(tq, x.to(dtype), qw, b)
             err, rel = max(err, e), max(rel, r)
-    log(f"[int8] ragged cases, fp32 and bf16: max |d| {err:.3e}, relative "
-        f"{rel:.3e}")
+    ragged = {"relayout": tq.launches_int8_relayout,
+              "reduce": tq.launches_int8_matmul_reduce,
+              "launches": tq.launches_int8_matmul}
+    log(f"[int8] ragged cases, fp32 and bf16, each repeated and with a fused "
+        f"bias (both bit for bit): max |d| {err:.3e}, relative {rel:.3e}; "
+        f"launches {ragged}")
     cases, sums = [], {}
     timed = ("ms", "plain_ms", "library_ms", "bf16_ms")
     for m, label in ((SERVE_BATCH * cfg.max_len, "batch"),
                      (SERVE_BATCH, "decode")):
         tot = {"bound_ms": 0.0, "t_bytes": 0.0, "t_ops": 0.0, "launches": 0,
-               "m": m}
+               "launches_reduce": 0, "host_us": 0.0, "m": m}
         for key in timed:
             tot[key] = tot["device_" + key] = 0.0
         for name, count, kk, nn in int8_products(cfg):
@@ -1836,17 +1909,31 @@ def int8_case(tq, gen, cfg):
                             device="cuda").to(torch.bfloat16)
             qw = tq.quantize_weight(
                 torch.randn((kk, nn), generator=gen, device="cuda") * 0.02)
-            e, r = int8_compare(tq, x, qw)
+            b = torch.randn((nn,), generator=gen, device="cuda")
+            tq.reset_launches()
+            e, r, _ = int8_compare(tq, x, qw, b)
             err, rel = max(err, e), max(rel, r)
+            calls = {"relayout": tq.launches_int8_relayout,
+                     "reduce": tq.launches_int8_matmul_reduce,
+                     "launches": tq.launches_int8_matmul}
+            if calls["relayout"]:
+                raise AssertionError(f"[int8] {label} {name}: the model's "
+                                     f"layout took {calls} relayouts")
             x2 = x.reshape(m, kk)
             w_bf16 = tq.dequantize_weight(qw).t().contiguous().to(
                 torch.bfloat16)
             rec = {"name": name, "launches_per_batch": count, "m": m,
-                   "k": kk, "n": nn, "rel_err": r}
-            fns = {"ms": lambda: tq.int8_weight_matmul(x, qw),
-                   "plain_ms": lambda: tq.int8_weight_matmul_reference(x, qw),
+                   "k": kk, "n": nn, "rel_err": r,
+                   "reduce_per_call": calls["reduce"] // calls["launches"]}
+            # Timed as the served path calls it (Dense.forward: the bias in
+            # the epilogue); the plain version and F.linear with the same
+            # bias, _weight_int8pack_mm (no bias argument) without.
+            b16 = b.to(torch.bfloat16)
+            fns = {"ms": lambda: tq.int8_weight_matmul(x, qw, b16),
+                   "plain_ms": lambda: tq.int8_weight_matmul_reference(
+                       x, qw, b16),
                    "library_ms": int8pack_call(x2, qw),
-                   "bf16_ms": lambda: F.linear(x2, w_bf16)}
+                   "bf16_ms": lambda: F.linear(x2, w_bf16, b16)}
             # Event times; at M = 8 they time the host's launches, so each
             # call's device time (torch.profiler) stands beside them -- not
             # the plain version's, which launches a kernel many times a call.
@@ -1857,7 +1944,8 @@ def int8_case(tq, gen, cfg):
                 rec["device_" + key] = (
                     None if fn is None or key == "plain_ms"
                     else device_ms(fn, calls=5 if slow else 20))
-            nbytes = 2 * m * kk + kk * nn + 4 * nn + 2 * m * nn
+            rec["host_us"] = host_us(fns["ms"])
+            nbytes = 2 * m * kk + kk * nn + (4 + 2) * nn + 2 * m * nn
             flops = 2 * m * nn * kk
             t_bytes = nbytes / HBM_BYTES_PER_S
             t_ops = flops / BF16_FLOPS_PER_S
@@ -1870,7 +1958,9 @@ def int8_case(tq, gen, cfg):
             log(f"[int8] {label} {name}: [{m}, {kk}] x [{kk}, {nn}] bf16 x "
                 f"int8 ({rec['tflops']:.1f} TFLOP/s, "
                 f"{rec['gbytes_per_s']:.0f} GB/s), {_int8_times(rec)}; "
-                f"relative error {r:.3e}")
+                f"wrapper {rec['host_us']:.1f} us a call; "
+                f"{rec['reduce_per_call']} reduce launches a call; relative "
+                f"error {r:.3e}")
             cases.append(rec)
             for key in [*timed, *("device_" + k for k in timed), "bound_ms"]:
                 tot[key] = (None if tot[key] is None or rec[key] is None
@@ -1878,16 +1968,32 @@ def int8_case(tq, gen, cfg):
             tot["t_bytes"] += count * t_bytes * 1e3
             tot["t_ops"] += count * t_ops * 1e3
             tot["launches"] += count
-            del x, x2, qw, w_bf16, fns
+            tot["launches_reduce"] += count * rec["reduce_per_call"]
+            tot["host_us"] += count * rec["host_us"]
+            del x, x2, qw, b16, w_bf16, fns
         tot["bound_by"] = ("bytes" if tot["t_bytes"] >= tot["t_ops"]
                            else "operations")
-        log(f"[int8] one {label}'s {tot['launches']} launches (M = {m}), "
-            f"{_int8_times(tot)}")
+        tot["host_us"] /= tot["launches"]  # the mean over the 48 launches
+        log(f"[int8] one {label}'s {tot['launches']} launches (M = {m}, "
+            f"{tot['launches_reduce']} reduce launches), {_int8_times(tot)}; "
+            f"wrapper {tot['host_us']:.1f} us a call on average")
         sums[label] = tot
-    log(f"[int8] max |d| {err:.3e}, relative {rel:.3e}")
+    log(f"[int8] max |d| {err:.3e}, relative {rel:.3e}; every call repeated "
+        f"bit for bit and its fused bias bit for bit the separate add")
+    comp = report.result()
+    log(f"[int8] compiler (int8_matmul.cu): {json.dumps(comp)}")
+    main_fn = [f for f in comp["sass"] if "int8_matmul_kernel" in f
+               and "f32" not in f]
+    sass = comp["sass"][main_fn[0]] if main_fn else {}
+    if not (sass.get("HGMMA", 0) > 0 and sass.get("HMMA", 1) == 0
+            and sass.get("UTMALDG", 0) > 0 and sass.get("LDL", 1) == 0
+            and sass.get("STL", 1) == 0):
+        raise AssertionError(f"[int8] the bf16 kernel's SASS is not wgmma "
+                             f"fed by TMA without spills: {sass}")
     torch.cuda.empty_cache()
-    return {"max_abs_err": err, "max_rel_err": rel, "batch": sums["batch"],
-            "decode": sums["decode"], "cases": cases}
+    return {"max_abs_err": err, "max_rel_err": rel, "bitwise_repeat": True,
+            "bias_bitwise": True, "ragged": ragged, "batch": sums["batch"],
+            "decode": sums["decode"], "cases": cases, "compiler": comp}
 
 
 def _dense_layers(model):
@@ -1920,7 +2026,7 @@ def weight_bytes(model):
     return total, proj
 
 
-def serve_int8(hvt, fa, tq, workdir, bf16_answers):
+def serve_int8(hvt, fa, tq, workdir, bf16_answers, bf16_profile):
     """[serve-int8]: GPT-2 small through ServePool(weight_dtype="int8")."""
     from horovod_tpu_torch.serve import ServePool
 
@@ -1992,16 +2098,19 @@ def serve_int8(hvt, fa, tq, workdir, bf16_answers):
                 f"tokens/s; latency p50 {p50:.2f} ms, p95 {p95:.2f} ms")
             answers = answers or got
         launches = {"int8_matmul": tq.launches_int8_matmul,
-                    "flash_fwd": fa.launches}
+                    "flash_fwd": fa.launches,
+                    "int8_relayout": tq.launches_int8_relayout,
+                    "int8_matmul_reduce": tq.launches_int8_matmul_reduce}
         batches = pool.dispatcher.n_batches - batches0
         log(f"[serve-int8] {SERVE_ROUNDS} x {n_req} requests in {batches} "
             f"batches; launches {launches}")
         if launches != {"int8_matmul": per_restore * batches,
-                        "flash_fwd": cfg.n_layers * batches}:
+                        "flash_fwd": cfg.n_layers * batches,
+                        "int8_relayout": 0, "int8_matmul_reduce": 0}:
             raise AssertionError(
                 f"launches {launches} in {batches} batches: the main path "
-                f"did not run kernel 7 once a projection and the flash "
-                f"kernel once a layer")
+                f"did not run kernel 7 once a projection (with no relayout "
+                f"and no split) and the flash kernel once a layer")
         for a in answers:
             if a.shape != (cfg.vocab_size,) or a.dtype != torch.float32:
                 raise AssertionError(f"bad answer {a.shape} {a.dtype}")
@@ -2042,6 +2151,17 @@ def serve_int8(hvt, fa, tq, workdir, bf16_answers):
             raise AssertionError("int8 answers disagree with the dequantized "
                                  "bf16 model")
         prof = profile_serving(pool, tokens[:16])
+        # The bias rides kernel 7's epilogue: a batch launches no more
+        # elementwise kernels than the bf16 pool's, whose cuBLAS products
+        # fuse theirs (a separate add would be 48 more a batch).
+        ew = {name: p["launches_by_category"].get("elementwise", 0)
+              / max(p["batches"], 1)
+              for name, p in (("int8", prof), ("bf16", bf16_profile))}
+        log(f"[serve-int8] elementwise launches a batch: {ew['int8']:.1f} "
+            f"(bf16 pool {ew['bf16']:.1f})")
+        if not ew["int8"] - ew["bf16"] < per_restore / 2:
+            raise AssertionError(f"the int8 pool launches {ew} elementwise "
+                                 "kernels a batch: a separate bias add?")
 
         tq.reset_launches()
         hvt.save_checkpoint(ckdir, hvt.convert.init_params(cfg, seed=2),
@@ -2070,7 +2190,10 @@ def serve_int8(hvt, fa, tq, workdir, bf16_answers):
         pool.stop()
         shutil.rmtree(ckdir, ignore_errors=True)
     return {"launches": launches["int8_matmul"],
-            "launches_flash_fwd": launches["flash_fwd"], "batches": batches,
+            "launches_flash_fwd": launches["flash_fwd"],
+            "launches_relayout": launches["int8_relayout"],
+            "launches_reduce": launches["int8_matmul_reduce"],
+            "elementwise_per_batch": ew, "batches": batches,
             "rounds": rounds, "req_per_s_median": float(np.median(
                 [r["req_per_s"] for r in rounds])),
             "quant_launches_per_restore": quant_load,
@@ -2102,6 +2225,10 @@ def main() -> int:
     built = _build.build_all()
     log(f"[card] built {built} in {time.perf_counter() - t0:.1f} s "
         f"(libraries in _build/ before: {before or 'none'})")
+    # Kernel 7's compiler report, in the background until [int8] reads it.
+    reporter = ThreadPoolExecutor(max_workers=1)
+    report = reporter.submit(compiler_report, tq.INT8_MATMUL_SOURCE)
+    reporter.shutdown(wait=False)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     main_case = flash_case(fa, gen, b=8, sq=1024, skv=1024, h=12, d=64,
@@ -2175,9 +2302,9 @@ def main() -> int:
     workdir = tempfile.mkdtemp(prefix="smoke-", dir=_build.BUILD_DIR)
     try:
         served = serve(hvt, fa, workdir)
-        int8 = int8_case(tq, gen, hvt.GPT2Config.small())
+        int8 = int8_case(tq, gen, hvt.GPT2Config.small(), report)
         served_int8 = serve_int8(hvt, fa, tq, workdir,
-                                 served.pop("answers8"))
+                                 served.pop("answers8"), served["profile"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -2323,9 +2450,12 @@ def main() -> int:
         "library_ms": None,
     })
     # Kernel 7: "ms", "plain_ms", "library_ms", "bf16_ms" and "bound_ms" are
-    # one serving batch's 48 launches at M = 8192 ("device_ms" the kernel's
-    # profiled device time); "decode" the same at M = 8, where the event
-    # times are the host's and the device_* times the card's.
+    # one serving batch's 48 launches at M = 8192 (the device_* keys the
+    # profiled device times of the kernel, the library call and the bf16
+    # F.linear); "decode" the same at M = 8 (its split contraction's sums
+    # included), where the event times are the host's and the device_* times
+    # the card's. "host_us" is the wrapper's host time a call (enqueue only),
+    # averaged over one batch's 48 calls.
     batch7, decode7 = int8["batch"], int8["decode"]
     kernels.append({
         "name": "int8_matmul",
@@ -2334,15 +2464,22 @@ def main() -> int:
         "replaces": ref + "1162",
         "launches": served_int8["launches"],
         "launches_per_batch": batch7["launches"],
+        "launches_relayout": served_int8["launches_relayout"],
+        "launches_reduce": served_int8["launches_reduce"],
         "max_abs_err": int8["max_abs_err"],
         "max_rel_err": int8["max_rel_err"],
+        "bitwise_repeat": int8["bitwise_repeat"],
+        "bias_bitwise": int8["bias_bitwise"],
         "ms": batch7["ms"],
+        "device_ms": batch7["device_ms"],
+        "host_us": batch7["host_us"],
         "plain_ms": batch7["plain_ms"],
         "bound_ms": batch7["bound_ms"],
         "bound_by": batch7["bound_by"],
         "library_ms": batch7["library_ms"],
+        "device_library_ms": batch7["device_library_ms"],
         "bf16_ms": batch7["bf16_ms"],
-        "device_ms": batch7["device_ms"],
+        "device_bf16_ms": batch7["device_bf16_ms"],
         "decode": {k: v for k, v in decode7.items()
                    if k not in ("t_bytes", "t_ops")},
     })
@@ -2360,16 +2497,23 @@ def main() -> int:
 
 
 def wrapper_host_us(other_root: str) -> int:
-    """``--wrapper-host-us DIR``: the host microseconds a call of the flash
-    forward's wrapper takes (enqueue only) at the main shape, for the
+    """``--wrapper-host-us DIR``: the host microseconds a call takes to
+    return (enqueue only) of two wrappers -- the flash forward at GPT-2
+    small's attention shape, and kernel 7's at its fc product (M = 8192 and
+    M = 8, bf16 [B, S, K] x, a weight quantized by each package; without a
+    bias, and with one as Dense.forward adds it: in the epilogue where the
+    wrapper takes a bias, else a separate ``+ b``) -- for the
     ``horovod_tpu_torch`` under DIR (another checkout, e.g. the parent
     commit's) and for this checkout's, both imported into this process and
-    timed in alternating windows of 200 calls (ten each), so the host's
-    drift falls on both alike."""
+    timed in windows of 200 calls, ten rounds of one window each, the order
+    of the two flipped every round so that the host's drift falls on both
+    alike. Prints each wrapper's windows, their median, and the rounds in
+    which this checkout's window was the faster."""
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     import importlib
+    import inspect
 
     def load(root):
         for name in [m for m in sys.modules
@@ -2377,29 +2521,54 @@ def wrapper_host_us(other_root: str) -> int:
             del sys.modules[name]
         sys.path.insert(0, str(Path(root).resolve()))
         try:
-            return importlib.import_module(
-                "horovod_tpu_torch.ops.flash_attention")
+            return (importlib.import_module(
+                "horovod_tpu_torch.ops.flash_attention"),
+                importlib.import_module("horovod_tpu_torch.ops.quantization"))
         finally:
             sys.path.pop(0)
 
-    other = load(other_root)
-    this = load(Path(__file__).resolve().parent)
+    pkgs = {"other": load(other_root),
+            "this": load(Path(__file__).resolve().parent)}
     gen = torch.Generator(device="cuda").manual_seed(0)
     q, k, v = qkv_views(gen, 8, 1024, 1024, 12, 64)
-    calls = {
-        name: (lambda fa=fa: fa.flash_attention_with_lse(
-            q, k, v, causal=True, layout="bsm", n_heads=12))
-        for name, fa in (("other", other), ("this", this))
-    }
-    times = {name: [] for name in calls}
-    for _ in range(10):
-        for name, call in calls.items():
-            times[name].append(host_us(call))
-    for name, fa in (("other", other), ("this", this)):
-        t = times[name]
-        log(f"[host] {name} {fa.__file__}: wrapper median "
-            f"{float(np.median(t)):.2f} us a call, min {min(t):.2f}, max "
-            f"{max(t):.2f} ({json.dumps([round(x, 2) for x in t])})")
+    w = torch.randn((768, 3072), generator=gen, device="cuda") * 0.02
+    b = (torch.randn((3072,), generator=gen, device="cuda") * 0.02).to(
+        torch.bfloat16)
+    xs = {m: torch.randn((8, m // 8, 768), generator=gen,
+                         device="cuda").to(torch.bfloat16) for m in (8192, 8)}
+    calls = {}
+    for name, (fa, tq) in pkgs.items():
+        calls[("flash_fwd", name)] = (
+            lambda fa=fa: fa.flash_attention_with_lse(
+                q, k, v, causal=True, layout="bsm", n_heads=12))
+        qw = tq.quantize_weight(w)
+        fused = "bias" in inspect.signature(tq.int8_weight_matmul).parameters
+        for m, x in xs.items():
+            calls[(f"int8_matmul M={m}", name)] = (
+                lambda tq=tq, x=x, qw=qw: tq.int8_weight_matmul(x, qw))
+            calls[(f"int8_matmul+bias M={m}", name)] = (
+                (lambda tq=tq, x=x, qw=qw: tq.int8_weight_matmul(x, qw, b))
+                if fused else
+                (lambda tq=tq, x=x, qw=qw: tq.int8_weight_matmul(x, qw) + b))
+    wrappers = list(dict.fromkeys(wrapper for wrapper, _ in calls))
+    times = {key: [] for key in calls}
+    for r in range(10):
+        names = ("other", "this") if r % 2 == 0 else ("this", "other")
+        for wrapper in wrappers:
+            for name in names:
+                times[(wrapper, name)].append(host_us(calls[(wrapper, name)]))
+    for (wrapper, name), t in times.items():
+        fa, _ = pkgs[name]
+        log(f"[host] {wrapper} {name} {Path(fa.__file__).parents[2]}: "
+            f"wrapper median {float(np.median(t)):.2f} us a call, min "
+            f"{min(t):.2f}, max {max(t):.2f} "
+            f"({json.dumps([round(x, 2) for x in t])})")
+    for wrapper in wrappers:
+        this, other = times[(wrapper, "this")], times[(wrapper, "other")]
+        wins = sum(a < b for a, b in zip(this, other))
+        log(f"[host] {wrapper}: this / other, medians "
+            f"{float(np.median(this) / np.median(other)):.3f}; this faster in "
+            f"{wins} of {len(this)} rounds")
     log(f"[host] {card_line()}")
     return 0
 

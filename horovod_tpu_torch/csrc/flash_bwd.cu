@@ -909,8 +909,9 @@ bool make_maps(CUtensorMap (&maps)[4], const void* q, const void* k,
 
 }  // namespace
 
-// Plain C entry points for ctypes, each launching one kernel on `stream`
-// and returning a cudaError_t (0 on a successful launch;
+// Plain C entry points for ctypes, each launching one kernel on `stream` of
+// `device` (the calling thread's current device is restored) and returning
+// a cudaError_t (0 on a successful launch;
 // cudaErrorInvalidValue when a tensor map is refused). q, k, v, dout are
 // bf16 with 16-byte aligned rows and strides (TMA's rule); glse may be null
 // (zero cotangent of lse). Launch the dQ kernel first: it writes delta
@@ -920,27 +921,31 @@ extern "C" int hvt_flash_bwd_dq_bf16(
     const void* out, const void* dout_given, int given_f32, const void* lse,
     const void* glse, void* delta, void* dq, int batch, int n_heads, int sq,
     int skv, int head_dim, const long long* strides, int kv_len, int q_offset,
-    int kv_offset, float sm_scale, int causal, void* stream) {
+    int kv_offset, float sm_scale, int causal, int device, void* stream) {
   Params p = make_params(out, dout_given, lse, glse, delta, dq, nullptr,
                          nullptr, batch, n_heads, sq, skv, strides, kv_len,
                          q_offset, kv_offset, sm_scale, causal);
   p.row_tiles = (sq + kRows - 1) / kRows;
-  CUtensorMap maps[4];
   if ((head_dim != 64 && head_dim != 128) ||
-      !grid_fits(p.row_tiles, batch, n_heads) ||
-      !make_maps(maps, q, k, v, dout, batch, n_heads, sq, skv, head_dim,
-                 strides, kRows, kBK)) {
+      !grid_fits(p.row_tiles, batch, n_heads)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  int current = 0;
+  cudaError_t err = bind_device(device, &current);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap maps[4];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (head_dim == 64) {
+  if (!make_maps(maps, q, k, v, dout, batch, n_heads, sq, skv, head_dim,
+                 strides, kRows, kBK)) {
+    err = cudaErrorInvalidValue;
+  } else if (head_dim == 64) {
     err = given_f32 ? launch_dq<64, true>(p, maps, s)
                     : launch_dq<64, false>(p, maps, s);
   } else {
     err = given_f32 ? launch_dq<128, true>(p, maps, s)
                     : launch_dq<128, false>(p, maps, s);
   }
+  if (current != device) cudaSetDevice(current);
   return static_cast<int>(err);
 }
 
@@ -949,21 +954,28 @@ extern "C" int hvt_flash_bwd_dkdv_bf16(
     const void* lse, const void* delta, const void* glse, void* dk, void* dv,
     int batch, int n_heads, int sq, int skv, int head_dim,
     const long long* strides, int kv_len, int q_offset, int kv_offset,
-    float sm_scale, int causal, void* stream) {
+    float sm_scale, int causal, int device, void* stream) {
   Params p = make_params(nullptr, nullptr, lse, glse, const_cast<void*>(delta),
                          nullptr, dk, dv, batch, n_heads, sq, skv, strides,
                          kv_len, q_offset, kv_offset, sm_scale, causal);
   p.row_tiles = (skv + kRows - 1) / kRows;
   const int bq = head_dim == 64 ? 64 : 32;
-  CUtensorMap maps[4];
   if ((head_dim != 64 && head_dim != 128) ||
-      !grid_fits(p.row_tiles, batch, n_heads) ||
-      !make_maps(maps, q, k, v, dout, batch, n_heads, sq, skv, head_dim,
-                 strides, bq, kRows)) {
+      !grid_fits(p.row_tiles, batch, n_heads)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  int current = 0;
+  cudaError_t err = bind_device(device, &current);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap maps[4];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = head_dim == 64 ? launch_dkdv<64, 64>(p, maps, s)
-                                         : launch_dkdv<128, 32>(p, maps, s);
+  if (!make_maps(maps, q, k, v, dout, batch, n_heads, sq, skv, head_dim,
+                 strides, bq, kRows)) {
+    err = cudaErrorInvalidValue;
+  } else {
+    err = head_dim == 64 ? launch_dkdv<64, 64>(p, maps, s)
+                         : launch_dkdv<128, 32>(p, maps, s);
+  }
+  if (current != device) cudaSetDevice(current);
   return static_cast<int>(err);
 }

@@ -485,19 +485,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// SMs of each device (0 until asked): the persistent grid's size.
-int sm_count() {
-  static std::atomic<int> counts[64];
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 64) return 0;
-  int n = counts[dev].load(std::memory_order_relaxed);
-  if (n == 0 &&
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess) {
-    counts[dev].store(n, std::memory_order_relaxed);
-  }
-  return n;
-}
-
 template <int D, bool kFold>
 cudaError_t launch(const Params& p, const CUtensorMap* maps, cudaStream_t stream) {
   static std::atomic<uint64_t> done{0};
@@ -554,22 +541,23 @@ extern "C" int hvt_flash_fwd_bf16(
   p.items = static_cast<int>(static_cast<long long>(p.row_tiles) * batch *
                              n_heads);  // grid_fits bounds it
   p.scale_log2 = sm_scale * kLog2e;
-  // With no valid key no block loads anything: the maps stay unencoded
-  // (and K/V may have no rows at all).
-  CUtensorMap maps[3] = {};
   if ((head_dim != 64 && head_dim != 128) ||
-      !grid_fits(p.row_tiles, batch, n_heads) ||
-      (kv_len > 0 &&
-       !(make_map(&maps[0], q, batch, sq, n_heads, head_dim, strides + 0, kRows) &&
-         make_map(&maps[1], k, batch, skv, n_heads, head_dim, strides + 3, kBN) &&
-         make_map(&maps[2], v, batch, skv, n_heads, head_dim, strides + 6, kBN)))) {
+      !grid_fits(p.row_tiles, batch, n_heads)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int current = 0;
-  cudaError_t err = cudaGetDevice(&current);
-  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  const cudaError_t err = bind_device(device, &current);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int rc = launch_on(p, maps, head_dim, static_cast<cudaStream_t>(stream));
+  // With no valid key no block loads anything: the maps stay unencoded
+  // (and K/V may have no rows at all).
+  CUtensorMap maps[3] = {};
+  int rc = static_cast<int>(cudaErrorInvalidValue);
+  if (kv_len <= 0 ||
+      (make_map(&maps[0], q, batch, sq, n_heads, head_dim, strides + 0, kRows) &&
+       make_map(&maps[1], k, batch, skv, n_heads, head_dim, strides + 3, kBN) &&
+       make_map(&maps[2], v, batch, skv, n_heads, head_dim, strides + 6, kBN))) {
+    rc = launch_on(p, maps, head_dim, static_cast<cudaStream_t>(stream));
+  }
   if (current != device) cudaSetDevice(current);
   return rc;
 }

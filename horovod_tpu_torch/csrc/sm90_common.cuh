@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
-// (flash_fwd.cu, flash_bwd.cu): mbarriers, TMA tile loads through 4-D
-// tensor maps, shared-memory matrix descriptors of 128B-swizzled tiles,
-// bf16 wgmma wrappers, register fragments, and the host side's tensor-map
-// encoding and shared-memory opt-in. Everything sits in an anonymous
-// namespace: each source is its own library (ops/_build.py), and the
-// library's hash covers this header.
+// (flash_fwd.cu, flash_bwd.cu) and the int8-weight matmul (int8_matmul.cu):
+// mbarriers, TMA tile loads through 4-D tensor maps, shared-memory matrix
+// descriptors of 128B-swizzled tiles, bf16 wgmma wrappers, register
+// fragments, and the host side's tensor-map encoding, shared-memory opt-in
+// and SM count. Everything sits in an anonymous namespace: each source is
+// its own library (ops/_build.py), and the library's hash covers this
+// header.
 
 #pragma once
 
@@ -326,6 +327,16 @@ bool make_map(CUtensorMap* map, const void* base, int batch, int seq,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// Makes `device` current for the calling thread and binds its primary
+// context: a thread that has made no CUDA runtime call yet has none bound,
+// and cuTensorMapEncodeTiled then refuses to encode a tensor map.
+// *previous gets the thread's device before the call, to restore where it
+// differs.
+cudaError_t bind_device(int device, int* previous) {
+  const cudaError_t err = cudaGetDevice(previous);
+  return err != cudaSuccess ? err : cudaSetDevice(device);
+}
+
 // Above 48 KB a kernel's dynamic shared memory must be opted into, once
 // for each device (the attribute belongs to the current device).
 template <typename Kernel>
@@ -339,6 +350,20 @@ cudaError_t opt_in(Kernel kernel, int bytes, std::atomic<uint64_t>& done) {
                              bytes);
   if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
   return err;
+}
+
+// SMs of the current device (0 when it cannot be asked): a persistent
+// grid's size.
+int sm_count() {
+  static std::atomic<int> counts[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 64) return 0;
+  int n = counts[dev].load(std::memory_order_relaxed);
+  if (n == 0 &&
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess) {
+    counts[dev].store(n, std::memory_order_relaxed);
+  }
+  return n;
 }
 
 bool grid_fits(int tiles, int batch, int n_heads) {

@@ -45,8 +45,9 @@ outputs. Embeddings, LayerNorms and the tied head stay in ``dtype``.
 Int8 serving weights: :func:`..ops.quantization.quantize_params` on a model
 replaces each large ``Dense`` weight with an int8 payload and fp32 column
 scales (buffers ``weight_q`` ``[out, in]`` and ``weight_scales``; no floating
-copy stays) and its forward runs :func:`..ops.quantization.qmatmul` (kernel
-7 on the card), then adds the bias in ``dtype``.
+copy stays) and its forward runs :func:`..ops.quantization.int8_weight_matmul`
+(kernel 7 on the card) with the bias, which the kernel adds in its epilogue
+bit for bit as a separate add in ``dtype`` would.
 """
 
 from __future__ import annotations
@@ -59,9 +60,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..context import resolve_device
 from ..ops.flash_attention import flash_attention
 from ..ops.fp8 import add_fp8_state, fp8_linear, resolve_compute_dtype
-from ..ops.quantization import INT8, QuantizedWeight, qmatmul, quantize_weight
+from ..ops.quantization import (INT8, QuantizedWeight, int8_weight_matmul,
+                                quantize_weight)
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default (torch's is 1e-5)
 
@@ -148,7 +151,8 @@ class Dense(nn.Module):
     ``dtype``; the fp8 state sits on the module itself, or on one child per
     split (named after it) with one fp8 product per block. After
     :meth:`quantize_` the weight is an int8 payload with column scales and
-    the product runs through :func:`..ops.quantization.qmatmul`."""
+    the product and the bias run through
+    :func:`..ops.quantization.int8_weight_matmul`."""
 
     def __init__(self, d_in: int, d_out: int, *, dtype, device,
                  param_dtype=None, fp8: bool = False, splits=()):
@@ -193,8 +197,8 @@ class Dense(nn.Module):
         if self.fp8 and self.splits:
             return torch.cat(self.parts(x), dim=-1)
         x, b = x.to(self.dtype), self.bias.to(self.dtype)
-        if self.quantized:
-            return qmatmul(x, self.quantized_weight()) + b
+        if self.quantized:  # the bias rides kernel 7's epilogue
+            return int8_weight_matmul(x, self.quantized_weight(), b)
         w = self.weight.to(self.dtype)
         if self.fp8:
             return fp8_linear(x, w, self) + b
@@ -239,8 +243,8 @@ class MultiHeadAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.attention_fn = attention_fn
-        kw = dict(dtype=cfg.dtype, device=device, param_dtype=cfg.param_dtype,
-                  fp8=cfg.fp8)
+        kw = dict(dtype=cfg.dtype, device=resolve_device(device),
+                  param_dtype=cfg.param_dtype, fp8=cfg.fp8)
         # Fused query/key/value projection: rows [0, D) are the query,
         # [D, 2D) the key, [2D, 3D) the value (convert.py builds it from
         # the three flax DenseGeneral kernels).
@@ -280,8 +284,8 @@ class MultiHeadAttention(nn.Module):
 class MlpBlock(nn.Module):
     def __init__(self, cfg: TransformerConfig, *, device=None):
         super().__init__()
-        kw = dict(dtype=cfg.dtype, device=device, param_dtype=cfg.param_dtype,
-                  fp8=cfg.fp8)
+        kw = dict(dtype=cfg.dtype, device=resolve_device(device),
+                  param_dtype=cfg.param_dtype, fp8=cfg.fp8)
         self.fc = Dense(cfg.d_model, cfg.d_ff, **kw)
         self.proj = Dense(cfg.d_ff, cfg.d_model, **kw)
 
@@ -295,6 +299,7 @@ class Block(nn.Module):
     def __init__(self, cfg: TransformerConfig,
                  attention_fn: Optional[Callable] = None, *, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.ln_1 = LayerNorm(cfg.d_model, dtype=cfg.dtype, device=device)
         self.attn = MultiHeadAttention(cfg, attention_fn, device=device)
         self.ln_2 = LayerNorm(cfg.d_model, dtype=cfg.dtype, device=device)
@@ -315,6 +320,7 @@ class Transformer(nn.Module):
                  lm_head: bool = False, *, device=None):
         super().__init__()
         cfg.check_supported()
+        device = resolve_device(device)
         self.cfg = cfg
         self.lm_head = lm_head
         fac = _factory(device, cfg.weight_dtype)

@@ -386,7 +386,7 @@ def _bwd_kernel_fns():
     if _bwd_fns is None:
         lib = _build.load(BWD_SOURCE)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        tail = [i32] * 5 + [ptr] + [i32] * 3 + [ctypes.c_float, i32, ptr]
+        tail = [i32] * 5 + [ptr] + [i32] * 3 + [ctypes.c_float, i32, i32, ptr]
         dkdv = lib.hvt_flash_bwd_dkdv_bf16
         dkdv.argtypes = [ptr] * 9 + tail
         dkdv.restype = ctypes.c_int
@@ -456,7 +456,8 @@ def _bwd_launch(q4, k4, v4, o4, g4, lse, g_lse, *, causal, q_offset,
         rc = fn_dq(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
                    g_op.data_ptr(), o4.data_ptr(), given.data_ptr(),
                    int(given.dtype == torch.float32), lse.data_ptr(),
-                   glse_ptr, delta.data_ptr(), dq4.data_ptr(), *tail, stream)
+                   glse_ptr, delta.data_ptr(), dq4.data_ptr(), *tail,
+                   q4.device.index, stream)
         if rc != 0:
             raise RuntimeError(
                 f"flash_bwd dQ kernel launch failed with cudaError_t {rc}"
@@ -464,7 +465,8 @@ def _bwd_launch(q4, k4, v4, o4, g4, lse, g_lse, *, causal, q_offset,
         _count_bwd_launch("dq")
         rc = fn_dkdv(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
                      g_op.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                     glse_ptr, dk4.data_ptr(), dv4.data_ptr(), *tail, stream)
+                     glse_ptr, dk4.data_ptr(), dv4.data_ptr(), *tail,
+                     q4.device.index, stream)
         if rc != 0:
             raise RuntimeError(
                 f"flash_bwd dK/dV kernel launch failed with cudaError_t {rc}"

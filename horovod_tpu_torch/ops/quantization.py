@@ -40,8 +40,8 @@ The weight half (``ServePool(weight_dtype="int8")``): a 2-D matmul weight is
 quantized once per checkpoint load with one fp32 scale per output column
 (:func:`quantize_weight`: the blockwise codec at ``block = K`` on the
 ``[N, K]`` row-major view, kernel 4 on the card), and
-:func:`int8_weight_matmul` applies the scales in the epilogue of
-``csrc/int8_matmul.cu`` (kernel 7) on CUDA tensors, or runs
+:func:`int8_weight_matmul` applies the scales, and a bias when given, in the
+epilogue of ``csrc/int8_matmul.cu`` (kernel 7) on CUDA tensors, or runs
 :func:`int8_weight_matmul_reference` on CPU tensors. :func:`qmatmul` is the
 quantization-transparent matmul an ``infer_fn`` routes its products
 through; :func:`quantize_params` picks the weights (a dict nest) or
@@ -90,6 +90,8 @@ __all__ = [
     "launches_fp8_matmul",
     "launches_fp8_relayout",
     "launches_int8_matmul",
+    "launches_int8_matmul_reduce",
+    "launches_int8_relayout",
     "launches_quant",
     "qmatmul",
     "quant_spec",
@@ -116,7 +118,9 @@ _E4M3_OVERFLOW = 464.0
 launches_quant = 0
 launches_dequant = 0
 launches_fp8_matmul = 0
-launches_int8_matmul = 0
+launches_int8_matmul = 0  # kernel 7, one a call
+launches_int8_matmul_reduce = 0  # its split-contraction sum
+launches_int8_relayout = 0  # calls that copied an operand onto 16-byte rows
 launches_fp8_cast = 0  # the fused cast-transpose-amax kernel's casts
 launches_fp8_relayout = 0  # its byte mode: a K-major copy for kernel 8
 _count_lock = threading.Lock()
@@ -183,7 +187,8 @@ def quantized_wire_bytes(n_elements: int, block: int, spec: QuantSpec) -> int:
     return n_elements * spec.itemsize + n_blocks * SCALE_DTYPE.itemsize
 
 
-_COUNTERS = ("quant", "dequant", "fp8_matmul", "int8_matmul", "fp8_cast",
+_COUNTERS = ("quant", "dequant", "fp8_matmul", "int8_matmul",
+             "int8_matmul_reduce", "int8_relayout", "fp8_cast",
              "fp8_relayout")
 
 
@@ -267,7 +272,8 @@ def dequantize_blockwise_reference(
 
 _SOURCES = {"hvt_fp8_matmul": FP8_MATMUL_SOURCE,
             "hvt_fp8_cast": FP8_CAST_SOURCE,
-            "hvt_int8_matmul": INT8_MATMUL_SOURCE}
+            "hvt_int8_matmul": INT8_MATMUL_SOURCE,
+            "hvt_int8_weight_map": INT8_MATMUL_SOURCE}
 
 
 def _kernel(name: str):
@@ -284,7 +290,10 @@ def _kernel(name: str):
             fn.argtypes = ([ptr, i64] + [ptr] * 6 + [i64, ptr, i64, ptr]
                            + [i32] * 3 + [ctypes.c_float, i32, i32, ptr])
         elif name == "hvt_int8_matmul":
-            fn.argtypes = [ptr] * 4 + [i32] * 4 + [i64] * 3 + [i32, ptr]
+            fn.argtypes = ([ptr] * 7 + [i32] * 4 + [i64] * 3 + [i32] * 4
+                           + [ptr])
+        elif name == "hvt_int8_weight_map":
+            fn.argtypes = [ptr, ptr, i32, i32, i64, i32]
         else:
             fn.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
         fn.restype = ctypes.c_int
@@ -710,6 +719,14 @@ def _kmajor(t: torch.Tensor, contract_dim: int, name: str):
 _sm_counts = {}
 
 
+def _sm_count(device: torch.device) -> int:
+    sms = _sm_counts.get(device)
+    if sms is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _sm_counts[device] = sms
+    return sms
+
+
 def _splits(m: int, n: int, k: int, device: torch.device) -> int:
     """Contraction splits for kernel 8's persistent grid (one block an SM).
     An output of fewer than two rounds of 128 x 128 tiles over a deep
@@ -717,10 +734,7 @@ def _splits(m: int, n: int, k: int, device: torch.device) -> int:
     (the 768 x 768 weight gradient: 36 tiles, 108 blocks) and 4 ways
     otherwise (144 tiles: 5 rounds of 32 k-tiles in place of 2 of 128);
     every other output takes 1."""
-    sms = _sm_counts.get(device)
-    if sms is None:
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        _sm_counts[device] = sms
+    sms = _sm_count(device)
     tiles = -(-m // 128) * -(-n // 128)
     if k < 4096 or tiles >= 2 * sms:
         return 1
@@ -893,7 +907,8 @@ def quantize_params(tree, spec: QuantSpec = INT8, *, min_size: int = 4096):
     return tree_map(fix, tree)
 
 
-def _check_int8_operands(x: torch.Tensor, w: QuantizedWeight) -> None:
+def _check_int8_operands(x: torch.Tensor, w: QuantizedWeight,
+                         bias: Optional[torch.Tensor]) -> None:
     if not isinstance(w, QuantizedWeight):
         raise TypeError(f"int8_weight_matmul takes a QuantizedWeight, got "
                         f"{type(w).__name__}")
@@ -906,20 +921,25 @@ def _check_int8_operands(x: torch.Tensor, w: QuantizedWeight) -> None:
     if w.scales.shape != (w.q.shape[1],):
         raise ValueError(f"{w.q.shape[1]} output columns need as many scales, "
                          f"got shape {tuple(w.scales.shape)}")
-    for name, t in (("q", w.q), ("scales", w.scales)):
-        if t.device != x.device:
+    if bias is not None and bias.shape != (w.q.shape[1],):
+        raise ValueError(f"{w.q.shape[1]} output columns need as many bias "
+                         f"values, got shape {tuple(bias.shape)}")
+    for name, t in (("q", w.q), ("scales", w.scales), ("bias", bias)):
+        if t is not None and t.device != x.device:
             raise ValueError(f"the weight's {name} is on {t.device}, x on "
                              f"{x.device}")
 
 
 def int8_weight_matmul_reference(
-    x: torch.Tensor, w: QuantizedWeight, *, block_k: int = _MATMUL_BLOCK_K
+    x: torch.Tensor, w: QuantizedWeight, bias: Optional[torch.Tensor] = None,
+    *, block_k: int = _MATMUL_BLOCK_K
 ) -> torch.Tensor:
     """The plain version, in the JAX package's order: fp32 partial products
     of x against the payload cast to x's dtype (exact for |q| <= 127) over
     ``block_k``-wide K tiles, summed in order, times the column scales, cast
-    to ``x.dtype``. ``x`` is ``[..., K]``; the result ``[..., N]``."""
-    _check_int8_operands(x, w)
+    to ``x.dtype``; then, with ``bias``, ``+ bias.to(x.dtype)`` in x's dtype.
+    ``x`` is ``[..., K]``; the result ``[..., N]``."""
+    _check_int8_operands(x, w, bias)
     k, n = w.q.shape
     x2 = x.reshape(math.prod(x.shape[:-1]), k)
     acc = torch.zeros((x2.shape[0], n), dtype=torch.float32, device=x.device)
@@ -928,6 +948,8 @@ def int8_weight_matmul_reference(
             x2[:, k0:k0 + block_k].to(torch.float32),
             w.q[k0:k0 + block_k].to(x.dtype).to(torch.float32))
     out = (acc * w.scales.to(torch.float32).reshape(1, -1)).to(x.dtype)
+    if bias is not None:
+        out = out + bias.to(x.dtype)
     return out.reshape(*x.shape[:-1], n)
 
 
@@ -957,52 +979,166 @@ def _rows_layout(x: torch.Tensor) -> Tuple[int, int, int]:
         f"{tuple(x.stride())}")
 
 
-def int8_weight_matmul(x: torch.Tensor, w: QuantizedWeight) -> torch.Tensor:
+_INT8_BK = 64  # kernel 7's k tile (a stage)
+_int8_plans = {}
+
+
+def _int8_splits(tiles: int, k: int, device: torch.device) -> Tuple[int, int]:
+    """``(splits, k tiles a split)`` of kernel 7's contraction. Fewer than two
+    rounds of 128 x 128 tiles over at least 4 k tiles of 64 split so that the
+    split tiles fit two rounds, each split at least 2 k tiles, choosing the
+    split that needs the fewest rounds times k tiles a round, a split sum
+    counting as 2 more (the reduce kernel's launch); e.g. the decode-sized
+    products of GPT-2 small (M = 8): 768 -> 2304 splits 6 ways, 3072 -> 768
+    16 ways. Every other product takes 1."""
+    key = (tiles, k, device)
+    plan = _int8_plans.get(key)
+    if plan is not None:
+        return plan
+    sms = _sm_count(device)
+    kt = -(-k // _INT8_BK)
+    plan, best = (1, kt), -(-tiles // sms) * kt
+    if tiles < 2 * sms and kt >= 4:
+        for s in range(2, kt // 2 + 1):
+            if tiles * s > 2 * sms:
+                break
+            per = -(-kt // s)
+            splits = -(-kt // per)  # no empty split
+            cost = -(-(tiles * splits) // sms) * per + 2
+            if cost < best:
+                plan, best = (splits, per), cost
+    _int8_plans[key] = plan
+    return plan
+
+
+_wmaps = {}
+
+
+def _weight_map(ptr: int, n: int, k: int, ldw: int, dev: int):
+    """The encoded TMA map (128 bytes) of an int8 ``[N, K]`` weight at
+    ``ptr`` on card ``dev`` with row stride ``ldw``, encoded once: a map
+    holds the address, shape and strides and nothing else, so the key is
+    safe to reuse."""
+    key = (ptr, n, k, ldw)
+    buf = _wmaps.get(key)
+    if buf is None:
+        buf = ctypes.create_string_buffer(128)
+        rc = _kernel("hvt_int8_weight_map")(buf, ptr, n, k, ldw, dev)
+        if rc != 0:
+            raise RuntimeError(
+                f"int8_matmul weight map refused (cudaError_t {rc})")
+        if len(_wmaps) >= 4096:
+            _wmaps.clear()
+        _wmaps[key] = buf
+    return buf
+
+
+def _aligned_rows(t: torch.Tensor, m: int, k: int) -> torch.Tensor:
+    """A copy of ``t`` as ``[m, k]`` rows on 16-byte boundaries (a padded
+    row stride): what TMA reads when ``t``'s own rows are not."""
+    unit = 16 // t.element_size()
+    out = torch.empty((m, -(-k // unit) * unit), dtype=t.dtype,
+                      device=t.device)[:, :k]
+    out.copy_(t.reshape(m, k))
+    return out
+
+
+def int8_weight_matmul(x: torch.Tensor, w: QuantizedWeight,
+                       bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x @ w`` for ``x [..., K]`` against an int8 ``[K, N]`` weight with
     its column scales applied in the epilogue: fp32 sums, one rounding to
-    ``x.dtype``; the result ``[..., N]``.
+    ``x.dtype``; with ``bias`` (``[N]``), ``+ bias.to(x.dtype)`` added in
+    the same epilogue, bit for bit the separate add. The result
+    ``[..., N]``.
 
     CPU tensors run :func:`int8_weight_matmul_reference`. CUDA tensors
     launch kernel 7 or raise: x in bf16 or fp32 with k contiguous, read in
     place through its strides; the payload in :func:`quantize_weight`'s
-    layout (``w.q.t()`` with k contiguous); fp32 scales."""
-    _check_int8_operands(x, w)
-    if _check_device(x) == "cpu":
-        return int8_weight_matmul_reference(x, w)
-    if x.dtype not in (torch.bfloat16, torch.float32):
+    layout (``w.q.t()`` with k contiguous); fp32 scales. The bf16 kernel
+    reads both operands with TMA, whose rows start on 16-byte boundaries:
+    an operand whose base or row strides do not (K not a multiple of 8 or
+    16) is copied once onto such rows first, counted once a call in
+    ``launches_int8_relayout``. A small output splits its contraction
+    (:func:`_int8_splits`), whose sum is a second kernel
+    (``launches_int8_matmul_reduce``)."""
+    _check_int8_operands(x, w, bias)
+    device, dtype = x.device, x.dtype
+    if device.type == "cpu":
+        return int8_weight_matmul_reference(x, w, bias)
+    if device.type != "cuda":
+        raise ValueError(f"the int8 matmul runs on cuda or cpu, not "
+                         f"{device.type}")
+    if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the int8 matmul kernel takes bfloat16 or float32 "
-                        f"activations, not {x.dtype}")
+                        f"activations, not {dtype}")
     if w.scales.dtype != SCALE_DTYPE or not w.scales.is_contiguous():
         raise TypeError(f"the int8 matmul kernel takes contiguous {SCALE_DTYPE}"
                         f" scales, got {w.scales.dtype}")
-    k, n = w.q.shape
-    storage = w.q.t()
-    if k > 1 and storage.stride(1) != 1:
+    q = w.q
+    k, n = q.shape
+    # The payload's storage is [N, K]: row stride q.stride(1), k contiguous.
+    if k > 1 and q.stride(0) != 1:
         raise ValueError(
             "the int8 matmul kernel reads the weight as [N, K] with k "
             f"contiguous (quantize_weight's layout); got q strides "
-            f"{tuple(w.q.stride())}")
+            f"{tuple(q.stride())}")
     if k > 1 and x.stride(-1) != 1:
         raise ValueError(f"the int8 matmul kernel reads x with k contiguous; "
                          f"got strides {tuple(x.stride())}")
     lead = x.shape[:-1]
     m = math.prod(lead)
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    if m == 0 or n == 0:
-        return out.reshape(*lead, n)
-    inner, so, si = _rows_layout(x)
-    ldw = storage.stride(0) if n > 1 else max(k, 1)
-    fn = _kernel("hvt_int8_matmul")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), storage.data_ptr(), w.scales.data_ptr(),
-                out.data_ptr(), m, n, k, inner, so, si, ldw,
-                int(x.dtype == torch.bfloat16), stream)
+    if bias is not None:
+        if bias.dtype != dtype:
+            bias = bias.to(dtype)
+        if not bias.is_contiguous():
+            bias = bias.contiguous()
+    if m == 0 or n == 0 or k == 0:
+        out = torch.zeros((*lead, n), dtype=dtype, device=device)
+        return out if bias is None else out + bias
+    out = torch.empty((*lead, n), dtype=dtype, device=device)
+    inner, so, si = (m, 0, k) if x.is_contiguous() else _rows_layout(x)
+    x_ptr, w_ptr, ldw = x.data_ptr(), q.data_ptr(), q.stride(1) if n > 1 else k
+    bf16 = dtype == torch.bfloat16
+    dev = device.index
+    splits = per = 1
+    w_map = ws = None
+    if bf16:
+        outer = m // inner
+        # A row dim of length 1 is never stepped along; another needs a
+        # positive stride of whole 16-byte units.
+        x_ok = (x_ptr % 16 == 0
+                and (outer == 1 or (so > 0 and so % 8 == 0))
+                and (inner == 1 or (si > 0 and si % 8 == 0)))
+        w_ok = w_ptr % 16 == 0 and ldw % 16 == 0
+        if not (x_ok and w_ok):
+            if not x_ok:
+                x = _aligned_rows(x, m, k)
+                x_ptr, inner, so, si = x.data_ptr(), m, 0, x.stride(0)
+            if not w_ok:
+                wq = _aligned_rows(q.t(), n, k)
+                w_ptr, ldw = wq.data_ptr(), wq.stride(0)
+            _count_launch("int8_relayout")
+        w_map = _weight_map(w_ptr, n, k, ldw, dev)
+        tiles = (m // inner) * -(-inner // 128) * -(-n // 128)
+        splits, per = _int8_splits(tiles, k, device)
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    if splits > 1:
+        # A workspace of its own a call: the caching allocator reuses it only
+        # after this call's kernels on this stream.
+        ws = torch.empty((splits, m, n + n % 2), dtype=torch.float32,
+                         device=device)
+    rc = _kernel("hvt_int8_matmul")(
+        x_ptr, w_ptr, w_map, w.scales.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), m, n,
+        k, inner, so, si, ldw, int(bf16), splits, per, dev, stream)
     if rc != 0:
         raise RuntimeError(
             f"int8_matmul kernel launch failed with cudaError_t {rc}")
     _count_launch("int8_matmul")
-    return out.reshape(*lead, n)
+    if splits > 1:
+        _count_launch("int8_matmul_reduce")
+    return out
 
 
 def qmatmul(x: torch.Tensor, w) -> torch.Tensor:

@@ -27,6 +27,7 @@ rounding).
 """
 
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
@@ -983,3 +984,178 @@ def test_int8_serve_pool_on_the_card(gen, tmp_path):
                    for o in outs)
     finally:
         pool.stop()
+
+
+_GPT2_PRODUCTS = {"qkv": (768, 2304), "out": (768, 768), "fc": (768, 3072),
+                  "proj": (3072, 768)}
+
+
+@pytest.mark.parametrize("m", [8192, 8], ids=["batch", "decode"])
+@pytest.mark.parametrize("name", sorted(_GPT2_PRODUCTS))
+def test_int8_matmul_kernel_at_gpt2_small_products(gen, name, m):
+    # The serving batch (8 x 1024 rows, read as the model's [B, S, K]) and a
+    # decode-sized one (8 rows, a split contraction): within INT8_TOL, and a
+    # second call equal to the first bit for bit.
+    k, n = _GPT2_PRODUCTS[name]
+    x = torch.randn((8, m // 8, k), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    qw = _int8_weight(gen, k, n, scale=0.02)
+    tq.reset_launches()
+    got = _int8_check(x, qw)
+    assert tq.launches_int8_matmul == 1 and tq.launches_int8_relayout == 0
+    assert tq.launches_int8_matmul_reduce == (1 if m == 8 else 0)
+    assert torch.equal(got, tq.int8_weight_matmul(x, qw))
+
+
+@pytest.mark.parametrize("m,k,n", [(8192, 768, 768), (8, 3072, 768),
+                                   (8, 768, 2304), (33, 300, 129),
+                                   (130, 1000, 260)],
+                         ids=["unsplit", "split16", "split6", "ragged",
+                              "ragged-wide"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_int8_matmul_kernel_fuses_the_bias_bit_for_bit(gen, m, k, n, dtype):
+    x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    qw = _int8_weight(gen, k, n)
+    b = torch.randn((n,), generator=gen, device="cuda")
+    tq.reset_launches()
+    fused = tq.int8_weight_matmul(x, qw, b)
+    unfused = _int8_check(x, qw) + b.to(dtype)  # held against the plain
+    torch.cuda.synchronize()
+    assert tq.launches_int8_matmul == 2
+    assert torch.equal(fused, unfused)
+
+
+def _in_fresh_thread(fn):
+    """``fn()`` in a new thread, one that has made no CUDA call yet (no
+    context bound); its exception is raised here."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except Exception as exc:  # raised in the caller
+            box["exc"] = exc
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    if "exc" in box:
+        raise box["exc"]
+    return box["out"]
+
+
+@pytest.mark.parametrize("kernel",
+                         ["int8_matmul", "flash_fwd", "flash_bwd", "fp8_matmul"])
+def test_tma_kernels_launch_from_a_fresh_thread(gen, kernel):
+    # The C entries bind the card's context before they encode tensor maps,
+    # which cuTensorMapEncodeTiled refuses in a thread with none bound.
+    q = _rand(gen, (2, 256, 2, 64))
+    if kernel == "int8_matmul":
+        x = _rand(gen, (64, 256))
+        warm, qw = _int8_weight(gen, 256, 96), _int8_weight(gen, 256, 96)
+        tq.int8_weight_matmul(x, warm)  # the allocator's blocks, not qw's map
+
+        def fn():
+            return tq.int8_weight_matmul(x, qw)
+    elif kernel == "flash_fwd":
+        def fn():
+            return fa.flash_attention_with_lse(q, q, q, causal=True)[0]
+    elif kernel == "flash_bwd":
+        out, lse = fa.flash_attention_with_lse(q, q, q, causal=True)
+        g_out = _rand(gen, tuple(out.shape))
+
+        def fn():
+            return fa.flash_attention_bwd(q, q, q, out, lse, g_out,
+                                          causal=True)[0]
+    else:
+        x_q = torch.randn((256, 512), generator=gen, device="cuda").to(
+            torch.float8_e4m3fn)
+        w_q = torch.randn((512, 256), generator=gen, device="cuda").to(
+            torch.float8_e4m3fn)
+        scale = torch.ones((), device="cuda")
+
+        def fn():
+            return tq.fp8_matmul(x_q, w_q, scale)
+    if kernel != "int8_matmul":
+        fn()
+    torch.cuda.synchronize()
+    got = _in_fresh_thread(fn)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fn())
+
+
+def test_int8_matmul_split_calls_from_two_threads_on_one_stream(gen):
+    # ServePool's workers are threads launching on one stream: two threads
+    # calling split products (M = 8) of different sizes at once, each call
+    # bit for bit its single-threaded result, held against the plain version.
+    cases = []
+    for k, n in ((3072, 768), (768, 2304)):
+        x = _rand(gen, (8, k))
+        qw = _int8_weight(gen, k, n)
+        b = _rand(gen, (n,))
+        tq.reset_launches()
+        want = _int8_check(x, qw) + b
+        assert tq.launches_int8_matmul_reduce == 1
+        cases.append((x, qw, b, want))
+    start = threading.Barrier(len(cases))
+    outs = [[] for _ in cases]
+
+    def run(i):
+        x, qw, b, _ = cases[i]
+        start.wait()
+        for _ in range(200):
+            outs[i].append(tq.int8_weight_matmul(x, qw, b))
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(cases))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    for (_, _, _, want), got in zip(cases, outs):
+        assert len(got) == 200
+        assert all(torch.equal(g, want) for g in got)
+
+
+def test_int8_matmul_kernel_relayout_counts(gen):
+    qw = _int8_weight(gen, 256, 96)
+    wide = _rand(gen, (2, 50, 3 * 256))
+    tq.reset_launches()
+    for x in (wide[..., :256].contiguous(),            # aligned [B, S, K]
+              wide[..., 256:512],                      # a fused-QKV column view
+              wide[..., :256].transpose(0, 1)):        # batch-transposed
+        _int8_check(x, qw)
+    assert tq.launches_int8_relayout == 0 and tq.launches_int8_matmul == 3
+    x = _rand(gen, (5, 300))  # rows of 600 bytes, weight rows of 300
+    _int8_check(x, _int8_weight(gen, 300, 70))
+    assert tq.launches_int8_relayout == 1 and tq.launches_int8_matmul == 4
+
+
+def test_gpt2_int8_forward_fuses_every_bias(gen):
+    import horovod_tpu_torch as hvt
+
+    cfg = hvt.GPT2Config.tiny(d_model=128, n_heads=2,
+                              param_dtype=torch.float32)
+    model = hvt.GPT2LMModel(cfg)
+    model.load_state_dict(hvt.convert.init_params(cfg, seed=0))
+    for m in model.modules():  # nonzero biases, so the add shows
+        if isinstance(m, hvt.models.transformer.Dense):
+            with torch.no_grad():
+                m.bias.normal_(generator=gen)
+    hvt.quantize_params(model)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), device="cuda",
+                           generator=gen)
+    fc = model.transformer.blocks[0].mlp.fc
+    seen = []
+    fc.register_forward_hook(lambda mod, inp, out: seen.append((inp[0], out)))
+    tq.reset_launches()
+    with torch.inference_mode():
+        model(tokens)
+    assert tq.launches_int8_matmul == 4 * cfg.n_layers
+    assert tq.launches_int8_relayout == 0
+    x, out = seen[0]
+    want = (tq.int8_weight_matmul(x, fc.quantized_weight())
+            + fc.bias.to(torch.bfloat16))
+    assert torch.equal(out, want)

@@ -273,3 +273,37 @@ def test_dot_product_attention_matches_jax():
             causal=causal,
         )
         np.testing.assert_allclose(got.numpy(), want, atol=2e-6, rtol=0)
+
+
+_EXPORTED = {
+    "Transformer": lambda cfg, device: ttr.Transformer(cfg, device=device),
+    "Block": lambda cfg, device: ttr.Block(cfg, device=device),
+    "MlpBlock": lambda cfg, device: ttr.MlpBlock(cfg, device=device),
+    "MultiHeadAttention": lambda cfg, device: ttr.MultiHeadAttention(
+        cfg, device=device),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_EXPORTED))
+def test_exported_modules_resolve_their_device(name, monkeypatch):
+    # An entry point runs on the card unless the caller asks for the CPU,
+    # as GPT2LMModel does: device=None resolves through resolve_device.
+    from horovod_tpu_torch import context
+
+    build = _EXPORTED[name]
+    cfg = GPT2Config.tiny()
+    if torch.cuda.is_available():
+        assert next(build(cfg, None).parameters()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build(cfg, None)
+    assert {p.device.type for p in build(cfg, "cpu").parameters()} == {"cpu"}
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    context.init(device="cpu", backend="gloo")
+    try:
+        assert {p.device.type for p in build(cfg, None).parameters()} == {
+            "cpu"}
+    finally:
+        context.shutdown()

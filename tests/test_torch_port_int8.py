@@ -171,6 +171,63 @@ def test_int8_weight_matmul_checks_its_operands():
         tq.int8_weight_matmul(torch.ones((2, 64)), qw.to("meta"))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", RAGGED)
+def test_bias_is_the_separate_add_bit_for_bit(m, k, n, dtype):
+    _, tdt = _DT[dtype]
+    rng = np.random.RandomState(9)
+    qw = tq.quantize_weight(torch.from_numpy(rng.randn(k, n).astype(
+        np.float32)))
+    x = torch.from_numpy(rng.randn(3, m, k).astype(np.float32)).to(tdt)
+    b = torch.from_numpy(rng.randn(n).astype(np.float32))  # cast to x's dtype
+    want = tq.int8_weight_matmul_reference(x, qw) + b.to(tdt)
+    for got in (tq.int8_weight_matmul_reference(x, qw, bias=b),
+                tq.int8_weight_matmul(x, qw, b)):
+        assert got.dtype == tdt and got.shape == (3, m, n)
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="bias"):
+        tq.int8_weight_matmul(x, qw, b[:-1])
+    with pytest.raises(ValueError, match="bias is on meta"):
+        tq.int8_weight_matmul(x, qw, b.to("meta"))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantized_dense_output_is_unchanged_by_the_fused_bias(dtype):
+    # Dense.forward hands its bias to int8_weight_matmul; the output equals
+    # the former qmatmul(x, w) + bias in the compute dtype, bit for bit.
+    _, tdt = _DT[dtype]
+    rng = np.random.RandomState(10)
+    dense = Dense(96, 80, dtype=tdt, device="cpu", param_dtype=torch.float32)
+    with torch.no_grad():
+        dense.weight.copy_(torch.from_numpy(rng.randn(80, 96).astype(
+            np.float32)))
+        dense.bias.copy_(torch.from_numpy(rng.randn(80).astype(np.float32)))
+    dense.quantize_()
+    x = torch.from_numpy(rng.randn(2, 7, 96).astype(np.float32))
+    with torch.no_grad():
+        got = dense(x)
+    want = tq.qmatmul(x.to(tdt), dense.quantized_weight()) + dense.bias.to(tdt)
+    assert got.dtype == tdt and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("tiles,k,want", [
+    (18, 768, (6, 2)),     # GPT-2 small at M = 8: qkv
+    (6, 768, (6, 2)),      # out
+    (24, 768, (4, 3)),     # fc
+    (6, 3072, (16, 3)),    # proj
+    (384, 768, (1, 12)),   # M = 8192: a few rounds already
+    (1152, 768, (1, 12)),
+    (384, 3072, (1, 48)),
+    (6, 192, (1, 3)),      # fewer than 4 k tiles
+    (60, 3072, (2, 24)),   # two splits fill one round
+    (100, 3072, (1, 48)),  # two splits would need two rounds: no gain
+])
+def test_int8_split_plan(tiles, k, want, monkeypatch):
+    # The wrapper's host-side plan for kernel 7 on a card of 132 SMs.
+    monkeypatch.setitem(tq._sm_counts, "card132", 132)
+    assert tq._int8_splits(tiles, k, "card132") == want
+
+
 @pytest.mark.parametrize("shape,strides,want", [
     ((4, 6, 8), (48, 8, 1), (24, 0, 8)),       # contiguous: one row dim
     ((4, 6, 8), (144, 24, 1), (24, 0, 24)),    # column slice of a wider row
