@@ -99,7 +99,14 @@ Phases (any failure exits non-zero; nothing is caught):
    the buckets with time_ms beside the plain versions and, for the int8
    dequantize, torch.mul of the payload rows by the scale column (one
    PyTorch call computing the same function; no single call computes the
-   quantize); bound: 5 + 4/256 bytes an element over 3.35 TB/s.
+   quantize); bound: 5 + 4/256 bytes an element over 3.35 TB/s. Then the
+   decode path's KV shapes at block = head_dim = 64 (quantize_kv_heads /
+   dequantize_kv_heads): one round's write, k and v of [12, 8, 12, 64]
+   fp32 (an all-zero head, and a copy 4 bytes past a 16-byte boundary),
+   and one round's gather, k and v of [12, 8, 1040, 12, 64] int8 with
+   their scales, bit for bit against the plain versions, each pair timed
+   by events and by device time beside the plain versions (and torch.mul
+   for the gather) with its byte bound.
 8. [train-quant] The quantized wire on/off pair, the JAX package's
    bench_quant configuration: from the same convert.init_params(seed=0)
    start, make_train_step(loss, adamw(1e-4), compression=...) with
@@ -211,13 +218,48 @@ Phases (any failure exits non-zero; nothing is caught):
    would be 48 more); then step 2 is published and the
    pool must roll onto it one worker at a time, int8 again (48 kernel-4
    launches a worker), with changed answers.
-16. Output: a "kernels" JSON line (the nine TPU kernels' counterparts and
+16. [ckpt-reshard] (after 8.-10.) GPT-2 small's ZeRO-1 state through
+   make_train_step(loss, fused_adamw(1e-4), sharded=True,
+   fused_update=True) on the one-rank NCCL world and the training batch:
+   (a) at a 64 MiB fusion threshold (7 buckets, the default's 4 printed
+   beside it), 2 steps, save_checkpoint, 1 more step (the reference);
+   restore_checkpoint into a target at the default threshold and 1 step:
+   every parameter within rtol 2e-5, atol 1e-6 of the reference (the JAX
+   test's tolerance), max |d| printed; (b) on the int8 wire (block 256,
+   error feedback) 2 steps, save, 2 more; restored into a fresh target, 2
+   steps that must equal the uninterrupted run bit for bit (losses,
+   parameters, moments, residuals), with the launch counts of 9. over the
+   resumed steps (set to 0 just before them). The checkpoints' bytes and
+   the save and restore seconds are printed, and the phase's wall seconds.
+17. [decode] (last) CacheLM at GPT-2-small width (vocab 50257, 12 layers,
+   12 heads of 64, 1024 positions), fp32 params from init_params(0),
+   through DecodeEngine(rows=8, workers=1, kv_blocks=520,
+   kv_block_size=16, max_seq_len=1024): bench_decode's closed loop (rows x
+   2 clients) over 32 streams (prompts of 64-512 tokens from
+   numpy.random.RandomState(0), 64 new tokens each), after one warm-up
+   stream, with fp32 KV, int8 KV, and int8 KV with spec_k=3 and
+   perturbed_params(params, 0.02) as the draft: tokens/s, TTFT and TPOT
+   p50/p95/p99 ms, mean batch fill, requeued, preempted, accept rate, the
+   KV pool's bytes per token. Launch counts, set to 0 just before the
+   load: 2 quantize and 2 dequantize per extend call (target and draft,
+   counted by a wrapper) with int8 KV, 0 with fp32. The fp32 run's first 4
+   streams must equal a full recompute over prompt + generated tokens, and
+   the speculative run's streams the plain int8 run's, except at a step
+   whose top-2 logit margin (the recompute's; for the int8 runs, the int8
+   cache's logits at that prefix) is below 1e-4 x max |logit| (printed);
+   the first decode step's logits with int8 KV within 0.05 x max |logit|
+   of fp32 KV over 8 prompts, the argmax equal where the fp32 top-2 margin
+   exceeds that bound. One profiled window of decode rounds (8 streams
+   after their prefill) in the int8 run: device time by category and the
+   idle share. The phase's wall seconds are printed.
+18. Output: a "kernels" JSON line (the nine TPU kernels' counterparts and
    the cast kernel; "launches" is the training run's count -- for the
-   quantize pair the int8 [train-quant] run's, for kernel 8 and the cast
-   kernel the fp8 [train-fp8] run's, for kernel 7 the
-   [serve-int8] rounds' -- the forward kernel's serving count beside it as
-   "launches_serve"), the card's name and power limit, and the last line
-   {"ok": true, "device": {...}}.
+   quantize pair the int8 [train-quant] run's (beside it the
+   [ckpt-reshard] and int8 [decode] runs' and the KV shapes' times as
+   "kv_write" / "kv_gather"), for kernel 8 and the cast kernel the fp8
+   [train-fp8] run's, for kernel 7 the [serve-int8] rounds' -- the forward
+   kernel's serving count beside it as "launches_serve"), the card's name
+   and power limit, and the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -260,6 +302,28 @@ FP8_BATCH, FP8_STEPS, FP8_LR, FP8_LOSS_RTOL = 16, 12, 1e-3, 0.15
 # products, fp32 sums in another order; bf16 adds one rounding.
 INT8_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
 SERVE_REQUESTS, SERVE_BATCH = 64, 8
+# The decode path's KV shapes for kernels 4 and 5 at block = head_dim: one
+# round's k (or v) write, [layers, rows, heads, head_dim], and its gather,
+# [layers, rows, 65 blocks x 16 slots, heads, head_dim].
+KV_WRITE_SHAPE = (12, 8, 12, 64)
+KV_GATHER_SHAPE = (12, 8, 1040, 12, 64)
+# [ckpt-reshard]: a fusion threshold that packs GPT-2 small's fp32 tree in
+# more buckets than the default 128 MiB, and the JAX package's tolerance for
+# a trajectory continued under another layout.
+CKPT_THRESHOLD = 64 * 2**20
+CKPT_RTOL, CKPT_ATOL = 2e-5, 1e-6
+# [decode]: CacheLM at GPT-2-small width, bench_decode's closed loop.
+DECODE_CFG = dict(vocab=50257, n_layers=12, n_heads=12, head_dim=64,
+                  max_positions=1024)
+DECODE_ROWS, DECODE_BLOCK, DECODE_MAX_SEQ = 8, 16, 1024
+# Enough blocks for every row at full length with the widest (spec_k 3)
+# round; the draft's pool is a second pool of the same size.
+DECODE_KV_BLOCKS = DECODE_ROWS * -(-(DECODE_MAX_SEQ + 4) // DECODE_BLOCK)
+DECODE_STREAMS, DECODE_NEW, DECODE_PROMPT = 32, 64, (64, 512)
+# A greedy token may leave its reference only at a near-tie: a top-2 logit
+# margin below this share of max |logit|.
+DECODE_MARGIN = 1e-4
+KV_LOGIT_TOL = 0.05  # int8 vs fp32 KV logits, of max |logit|
 
 
 def log(msg: str) -> None:
@@ -2204,6 +2268,511 @@ def serve_int8(hvt, fa, tq, workdir, bf16_answers, bf16_profile):
             "profile": prof}
 
 
+def kv_quant_case(tq, gen):
+    """Kernels 4 and 5 at the decode path's KV shapes (block = head_dim =
+    64): one round's write (k and v, [12, 8, 12, 64] fp32 each) and one
+    round's gather ([12, 8, 1040, 12, 64] int8 and its scales, k and v),
+    bit for bit against the plain versions, timed with their byte bounds."""
+    n_w = int(np.prod(KV_WRITE_SHAPE))
+    ks = [torch.randn(KV_WRITE_SHAPE, generator=gen, device="cuda") * 3
+          for _ in range(2)]
+    ks[0][0, 0, 0] = 0.0  # an all-zero head: scale 1
+    # One copy 4 bytes past a 16-byte boundary: the kernels' element path.
+    off = torch.empty((n_w + 1,), device="cuda")[1:].reshape(KV_WRITE_SHAPE)
+    off.copy_(ks[1])
+    for x in ks + [off]:
+        q, s = tq.quantize_kv_heads(x)
+        rq, rs = tq.quantize_kv_heads_reference(x)
+        if not (torch.equal(q, rq)
+                and torch.equal(s.view(torch.int32), rs.view(torch.int32))):
+            raise AssertionError("quantize_kv_heads differs from its plain "
+                                 "version")
+    if tq.quantize_kv_heads(ks[0])[1][0, 0, 0].item() != 1.0:
+        raise AssertionError("an all-zero head's scale is not 1")
+    payloads = []
+    for _ in range(2):
+        q = torch.randint(-127, 128, KV_GATHER_SHAPE, generator=gen,
+                          device="cuda", dtype=torch.int8)
+        s = torch.rand(KV_GATHER_SHAPE[:-1], generator=gen,
+                       device="cuda") * 0.05 + 1e-3
+        d = tq.dequantize_kv_heads(q, s)
+        rd = tq.dequantize_kv_heads_reference(q, s)
+        if not torch.equal(d.view(torch.int32), rd.view(torch.int32)):
+            raise AssertionError("dequantize_kv_heads differs from its "
+                                 "plain version")
+        payloads.append((q, s))
+        del d, rd
+    torch.cuda.synchronize()
+    rec = {"write_shape": list(KV_WRITE_SHAPE),
+           "gather_shape": list(KV_GATHER_SHAPE), "bitwise": True}
+    write = {
+        "ms": time_ms(lambda: [tq.quantize_kv_heads(x) for x in ks]),
+        # Two launches of one kernel a call: device_ms times one.
+        "device_ms": 2 * device_ms(lambda: tq.quantize_kv_heads(ks[0])),
+        "plain_ms": time_ms(lambda: [tq.quantize_kv_heads_reference(x)
+                                     for x in ks]),
+        "library_ms": None,
+    }
+    n_g = int(np.prod(KV_GATHER_SHAPE))
+    gather = {
+        "ms": time_ms(lambda: [tq.dequantize_kv_heads(q, s)
+                               for q, s in payloads]),
+        "device_ms": 2 * device_ms(
+            lambda: tq.dequantize_kv_heads(*payloads[0]), calls=10),
+        "plain_ms": time_ms(lambda: [tq.dequantize_kv_heads_reference(q, s)
+                                     for q, s in payloads],
+                            samples=9, per_sample=3),
+        # int8 x fp32 promotes to fp32 in one call: the same function.
+        "library_ms": time_ms(lambda: [torch.mul(q, s[..., None])
+                                       for q, s in payloads]),
+    }
+    hd = KV_WRITE_SHAPE[-1]
+    for case, n, nbytes in (
+            (write, n_w, 2 * (4 * n_w + n_w + 4 * n_w // hd)),
+            (gather, n_g, 2 * (n_g + 4 * n_g // hd + 4 * n_g))):
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = 2 * QUANT_OPS * n / FP32_FLOPS_PER_S
+        case.update(bytes=nbytes, launches_per_call=2,
+                    bound_ms=max(t_bytes, t_ops) * 1e3,
+                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+    rec["write"], rec["gather"] = write, gather
+    log(f"[quant] KV heads at block {hd}, k and v, bit for bit: write "
+        f"{KV_WRITE_SHAPE} x 2: {write['ms']:.4f} ms by events, "
+        f"{write['device_ms']:.4f} device (plain {write['plain_ms']:.4f}), "
+        f"bound {write['bound_ms']:.5f} ({write['bound_by']}); gather "
+        f"{KV_GATHER_SHAPE} x 2: {gather['ms']:.4f} ms, {gather['device_ms']:.4f} "
+        f"device (plain {gather['plain_ms']:.4f}, torch.mul "
+        f"{gather['library_ms']:.4f}), bound {gather['bound_ms']:.4f} "
+        f"({gather['bound_by']})")
+    del ks, off, payloads
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _params_equal(a, b) -> bool:
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def ckpt_reshard(hvt, kernels, cfg, n_quant_buckets):
+    """[ckpt-reshard]: GPT-2 small's ZeRO-1 state saved in its canonical
+    form and restored (a) under another fusion threshold, (b) on the int8
+    wire with error feedback, continuing the uninterrupted run."""
+    from horovod_tpu_torch.parallel import dp
+
+    from horovod_tpu_torch.ops import _build
+
+    fa, fadam, tq = kernels
+    t_phase = time.perf_counter()
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="ckpt-", dir=_build.BUILD_DIR)
+    hvt.init(backend="nccl")
+    sd0 = hvt.convert.init_params(cfg, seed=0)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, cfg.max_len + 1), dtype=np.int64
+    )).cuda()
+
+    def build(**kw):
+        model = hvt.GPT2LMModel(cfg)
+        model.load_state_dict(sd0)
+        step, opt = hvt.make_train_step(
+            train_loss(model), hvt.fused_adamw(TRAIN_LR), sharded=True,
+            fused_update=True, **kw)
+        return step, dp.init_state(model, opt)
+
+    def save(d, state, step):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = hvt.save_checkpoint(d, state, step=step)
+        secs = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in Path(path).rglob("*")
+                     if f.is_file())
+        return secs, nbytes
+
+    def restore(d, target):
+        t0 = time.perf_counter()
+        state = hvt.restore_checkpoint(d, target)
+        torch.cuda.synchronize()
+        return state, time.perf_counter() - t0
+
+    rec = {}
+    # (a) Across fusion thresholds.
+    step_a, sa = build(threshold_bytes=CKPT_THRESHOLD)
+    for _ in range(2):
+        sa, _ = step_a(sa, tokens)
+    d_a = str(Path(workdir) / "ckpt-thr")
+    save_s, nbytes = save(d_a, sa, 2)
+    ref, _ = step_a(sa, tokens)
+    ref_params = {k: v.detach().clone() for k, v in ref.params.items()}
+    n_saved = len(sa.opt_state.inner.mu.buffers)
+    del step_a, sa, ref
+    step_b, target = build()
+    n_target = len(target.opt_state.inner.mu.buffers)
+    restored, restore_s = restore(d_a, target)
+    if restored.opt_state.threshold == CKPT_THRESHOLD or len(
+            restored.opt_state.inner.mu.buffers) != n_target:
+        raise AssertionError("the restore did not take the target's layout")
+    got, _ = step_b(restored, tokens)
+    diff, excess = 0.0, 0.0
+    for k, want in ref_params.items():
+        d = (got.params[k].detach() - want).abs()
+        diff = max(diff, d.max().item())
+        excess = max(excess, (d - (CKPT_ATOL + CKPT_RTOL * want.abs()))
+                     .max().item())
+    rec["thresholds"] = {
+        "threshold_saved": CKPT_THRESHOLD, "buckets_saved": n_saved,
+        "buckets_target": n_target, "max_abs_diff": diff,
+        "checkpoint_bytes": nbytes, "save_s": save_s, "restore_s": restore_s,
+    }
+    log(f"[ckpt-reshard] across thresholds: saved at {CKPT_THRESHOLD} bytes "
+        f"({n_saved} buckets) after 2 steps, restored at the default "
+        f"({n_target} buckets), one step on: max |d| {diff:.3e} against the "
+        f"uninterrupted run (tolerance rtol {CKPT_RTOL}, atol {CKPT_ATOL}); "
+        f"checkpoint {nbytes} bytes, save {save_s:.2f} s, restore "
+        f"{restore_s:.2f} s")
+    if n_saved == n_target or excess > 0:
+        raise AssertionError(f"[ckpt-reshard] thresholds: {rec['thresholds']}")
+    del step_b, target, restored, got, ref_params
+    torch.cuda.empty_cache()
+
+    # (b) The int8 wire with error feedback, continued bit for bit.
+    int8 = hvt.Compression.int8.with_block(QUANT_BLOCK)
+    step_q, sq = build(compression=int8)
+    for _ in range(2):
+        sq, _ = step_q(sq, tokens)
+    d_b = str(Path(workdir) / "ckpt-int8")
+    save_s, nbytes = save(d_b, sq, 2)
+    want_losses = []
+    for _ in range(2):
+        sq, loss = step_q(sq, tokens)
+        want_losses.append(float(loss))
+    step_r, target = build(compression=int8)
+    restored, restore_s = restore(d_b, target)
+    reset_counts(fa, fadam, tq)
+    got_losses = []
+    for _ in range(2):
+        restored, loss = step_r(restored, tokens)
+        got_losses.append(float(loss))
+    counts = read_counts(fa, fadam, tq)
+    same = (got_losses == want_losses
+            and _params_equal(sq.params, restored.params)
+            and all(torch.equal(a, b) for a, b in zip(
+                sq.opt_state.inner.mu.buffers + sq.opt_state.inner.nu.buffers
+                + sq.opt_state.residual.buffers,
+                restored.opt_state.inner.mu.buffers
+                + restored.opt_state.inner.nu.buffers
+                + restored.opt_state.residual.buffers)))
+    want = {"flash_fwd": cfg.n_layers, "flash_bwd_dkdv": cfg.n_layers,
+            "flash_bwd_dq": cfg.n_layers, "fused_adamw": n_quant_buckets,
+            "quantize_blockwise": 2 * n_quant_buckets,
+            "dequantize_blockwise": 2 * n_quant_buckets}
+    rec["int8"] = {"losses": got_losses, "bitwise": same, "launches": counts,
+                   "checkpoint_bytes": nbytes, "save_s": save_s,
+                   "restore_s": restore_s}
+    log(f"[ckpt-reshard] int8 wire (block {QUANT_BLOCK}, error feedback): "
+        f"saved after 2 steps, restored, 2 steps on: losses {got_losses} vs "
+        f"{want_losses} uninterrupted, parameters, moments and residuals "
+        f"bit for bit: {same}; checkpoint {nbytes} bytes, save {save_s:.2f} "
+        f"s, restore {restore_s:.2f} s; launches over the 2 resumed steps "
+        f"{counts}")
+    if not same:
+        raise AssertionError("[ckpt-reshard] the resumed int8 run left the "
+                             "uninterrupted one")
+    for name, per_step in want.items():
+        if counts[name] != 2 * per_step:
+            raise AssertionError(f"[ckpt-reshard] {name} launched "
+                                 f"{counts[name]} times in 2 steps, not "
+                                 f"{per_step} a step")
+    del step_q, sq, step_r, target, restored
+    hvt.shutdown()
+    shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    rec["wall_s"] = time.perf_counter() - t_phase
+    log(f"[ckpt-reshard] phase wall {rec['wall_s']:.1f} s")
+    return rec
+
+
+class CountingModel:
+    """A decode model whose ``extend`` calls are counted (the launches a
+    call are held against them)."""
+
+    def __init__(self, model):
+        self.model, self.calls = model, 0
+        self.n_layers = model.n_layers
+        self.n_heads, self.head_dim = model.n_heads, model.head_dim
+
+    def extend(self, *args):
+        self.calls += 1
+        return self.model.extend(*args)
+
+
+def top2_margin(rows):
+    """(argmax, top-2 margin, max |logit|) of each row of ``rows``."""
+    top = rows.topk(2, dim=-1).values
+    return (rows.argmax(dim=-1), top[..., 0] - top[..., 1],
+            rows.abs().amax(dim=-1))
+
+
+def cached_step(model, params, pool, contexts, feeds=None):
+    """Prefill ``contexts`` (token lists) into fresh tables of ``pool``,
+    then one decode step feeding ``feeds`` (default: each context's greedy
+    next token). Returns (the prefill's logits at each context's last
+    token, the decode step's logits), ``[R, vocab]`` each."""
+    r = len(contexts)
+    width = max(len(c) for c in contexts)
+    m = -(-(width + 1) // pool.block_size)
+    toks = torch.zeros((r, width), dtype=torch.int32, device="cuda")
+    for i, c in enumerate(contexts):
+        toks[i, :len(c)] = torch.tensor(c, dtype=torch.int32)
+    zeros = torch.zeros((r,), dtype=torch.int32, device="cuda")
+    scratch = torch.full((r, m), pool.n_blocks, dtype=torch.int64,
+                         device="cuda")
+    logits, k_new, v_new = model.extend(params, toks, zeros, scratch, zeros,
+                                        *pool.device_args())
+    lens = torch.tensor([len(c) for c in contexts], device="cuda")
+    last = logits[torch.arange(r, device="cuda"), lens - 1]
+    if feeds is None:
+        feeds = last.argmax(dim=-1).tolist()
+    rows = np.full((r, m), pool.n_blocks, np.int64)
+    for i, c in enumerate(contexts):
+        t = pool.new_table()
+        t.ensure(len(c) + 1)
+        pool.write(t.flat_slots(0, len(c)), k_new[i, :len(c)],
+                   v_new[i, :len(c)])
+        rows[i] = t.padded_blocks(m)
+    step, _, _ = model.extend(
+        params, torch.tensor(feeds, dtype=torch.int32, device="cuda")[:, None],
+        lens.int(), torch.from_numpy(rows).cuda(), lens.int(),
+        *pool.device_args())
+    return last, step[:, 0]
+
+
+def recompute_check(model, params, prompts, outs):
+    """The engine's greedy tokens against a from-scratch forward over
+    prompt + generated tokens (each step's logits from the engine's own
+    prefix): a token may differ only where the recomputed top-2 margin is
+    below DECODE_MARGIN x max |logit|. Returns the divergent steps."""
+    from horovod_tpu_torch.serve import KVBlockPool
+
+    pool = KVBlockPool(1, DECODE_BLOCK, n_layers=model.n_layers,
+                       n_heads=model.n_heads, head_dim=model.head_dim,
+                       device="cuda")
+    allowed = []
+    for i, (prompt, gen) in enumerate(zip(prompts, outs)):
+        toks = torch.tensor([prompt + gen[:-1]], dtype=torch.int32,
+                            device="cuda")
+        zero = torch.zeros((1,), dtype=torch.int32, device="cuda")
+        scratch = torch.full((1, 1), pool.n_blocks, dtype=torch.int64,
+                             device="cuda")
+        logits, _, _ = model.extend(params, toks, zero, scratch, zero,
+                                    *pool.device_args())
+        n = len(prompt)
+        pred, margin, amax = top2_margin(logits[0, n - 1:n - 1 + len(gen)])
+        for j in (pred.cpu() != torch.tensor(gen)).nonzero()[:, 0].tolist():
+            rel = margin[j].item() / amax[j].item()
+            if rel >= DECODE_MARGIN:
+                raise AssertionError(
+                    f"[decode] stream {i} step {j}: the engine's token "
+                    f"{gen[j]} is not the recompute's {pred[j].item()} "
+                    f"(top-2 margin {rel:.3e} of max |logit|)")
+            allowed.append([i, j, rel])
+            log(f"[decode] stream {i} step {j}: a near-tie (top-2 margin "
+                f"{rel:.3e} of max |logit|) decided otherwise")
+    return allowed
+
+
+def spec_check(model, params, prompts, plain, spec):
+    """The speculative run's tokens against the non-speculative int8 run's:
+    at a stream's first difference, the int8-KV logits that decided it
+    (its prefix prefilled into an int8 pool, one decode step) must have a
+    top-2 margin below DECODE_MARGIN x max |logit|."""
+    from horovod_tpu_torch.serve import KVBlockPool
+
+    allowed = []
+    for i, (a, b) in enumerate(zip(plain, spec)):
+        k = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if k is None:
+            if len(a) != len(b):
+                raise AssertionError(f"[decode] stream {i} lengths differ")
+            continue
+        pool = KVBlockPool(-(-DECODE_MAX_SEQ // DECODE_BLOCK), DECODE_BLOCK,
+                           n_layers=model.n_layers, n_heads=model.n_heads,
+                           head_dim=model.head_dim, kv_dtype="int8",
+                           device="cuda")
+        ctx = prompts[i] + a[:k - 1] if k else prompts[i]
+        last, step = cached_step(model, params, pool, [ctx],
+                                 [a[k - 1]] if k else None)
+        _, margin, amax = top2_margin(step[0] if k else last[0])
+        rel = margin.item() / amax.item()
+        if rel >= DECODE_MARGIN:
+            raise AssertionError(
+                f"[decode] stream {i}: speculative token {b[k]} at step {k} "
+                f"where the int8 run has {a[k]} (top-2 margin {rel:.3e})")
+        allowed.append([i, k, rel])
+        log(f"[decode] stream {i} step {k}: speculative and plain int8 runs "
+            f"part at a near-tie (top-2 margin {rel:.3e} of max |logit|)")
+    return allowed
+
+
+def decode_run(tq, model, params, prompts, *, label, kv_dtype, spec_k=0,
+               draft=None, profile=False):
+    """One closed-loop load (bench_decode's: rows x 2 clients, each
+    submitting its streams one after another) through a fresh engine."""
+    import threading
+
+    from horovod_tpu_torch.serve import DecodeEngine
+
+    counting = CountingModel(model)
+    eng = DecodeEngine(
+        counting, params, draft_model=counting if spec_k else None,
+        draft_params=draft, workers=1, rows=DECODE_ROWS,
+        kv_blocks=DECODE_KV_BLOCKS, kv_block_size=DECODE_BLOCK,
+        max_seq_len=DECODE_MAX_SEQ, kv_dtype=kv_dtype, spec_k=spec_k,
+        device="cuda").start()
+    try:
+        # Off the clock: cuBLAS and the allocator meet every shape once.
+        eng.submit(prompts[0], 8).result(timeout=600.0)
+        torch.cuda.synchronize()
+        r0, f0 = eng.n_rounds, eng.fill_sum
+        p0, a0 = eng.n_proposed, eng.n_accepted
+        counting.calls = 0
+        tq.reset_launches()
+        futs = [None] * len(prompts)
+        clients = DECODE_ROWS * 2
+
+        def client(k):
+            for i in range(k, len(prompts), clients):
+                futs[i] = eng.submit(prompts[i], DECODE_NEW)
+                futs[i].result(timeout=600.0)
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(clients)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        counts = {"quantize_blockwise": tq.launches_quant,
+                  "dequantize_blockwise": tq.launches_dequant,
+                  "extend_calls": counting.calls}
+        outs = [f.result() for f in futs]
+        ttft = [(f.first_token_t - f.submit_t) * 1e3 for f in futs]
+        tpot = [(b - a) * 1e3 for f in futs
+                for a, b in zip(f.token_times(), f.token_times()[1:])]
+        n_tokens = sum(len(o) for o in outs)
+        rounds = eng.n_rounds - r0
+        rec = {
+            "run": label, "kv_dtype": kv_dtype or "fp32", "spec_k": spec_k,
+            "streams": len(outs), "tokens": n_tokens, "wall_s": wall,
+            "tokens_per_s": n_tokens / wall,
+            **{f"ttft_p{q}_ms": float(np.percentile(ttft, q))
+               for q in (50, 95, 99)},
+            **{f"tpot_p{q}_ms": float(np.percentile(tpot, q))
+               for q in (50, 95, 99)},
+            "rounds": rounds,
+            "mean_batch_fill": (eng.fill_sum - f0) / rounds,
+            "requeued": eng.n_requeued, "preempted": eng.n_preempted,
+            "accept_rate": ((eng.n_accepted - a0) / (eng.n_proposed - p0)
+                            if spec_k else None),
+            "kv_bytes_per_token": eng.pools()[0].bytes_per_token(),
+            "launches": counts,
+        }
+        log(f"[decode] {label}: {json.dumps(rec)}")
+        if profile:
+            # A window of decode rounds: 8 streams admitted (their prefill
+            # off the window), then profiled until every one has finished.
+            pf = [eng.submit(p, 48) for p in prompts[:DECODE_ROWS]]
+            while not all(f.tokens_so_far() for f in pf):
+                time.sleep(0.001)
+            extra = {"run": label, "rounds": -eng.n_rounds}
+
+            def rounds_window():
+                for f in pf:
+                    f.result(timeout=600.0)
+                extra["rounds"] += eng.n_rounds
+
+            rec["profile"] = profile_window(rounds_window, extra)
+    finally:
+        eng.stop()
+    want = 2 * counts["extend_calls"] if kv_dtype == "int8" else 0
+    if not (counts["quantize_blockwise"] == counts["dequantize_blockwise"]
+            == want):
+        raise AssertionError(f"[decode] {label}: {counts}, not {want} "
+                             f"quantize and dequantize launches")
+    if any(len(o) != DECODE_NEW for o in outs):
+        raise AssertionError(f"[decode] {label}: a stream fell short")
+    return rec, outs
+
+
+def decode(hvt, tq):
+    """[decode]: CacheLM at GPT-2-small width through DecodeEngine, fp32
+    KV, int8 KV, and int8 KV with speculation."""
+    from horovod_tpu_torch.serve import (CacheLM, CacheLMConfig, KVBlockPool,
+                                         perturbed_params)
+
+    t_phase = time.perf_counter()
+    cfg = CacheLMConfig(**DECODE_CFG)
+    model = CacheLM(cfg, block_size=DECODE_BLOCK)
+    params = model.init_params(0)
+    draft = perturbed_params(params, 0.02)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, cfg.vocab, size=rng.randint(
+        DECODE_PROMPT[0], DECODE_PROMPT[1] + 1)).tolist()
+        for _ in range(DECODE_STREAMS)]
+    log(f"[decode] CacheLM {DECODE_CFG}, fp32 params from init_params(0); "
+        f"engine rows {DECODE_ROWS}, 1 worker, kv_blocks {DECODE_KV_BLOCKS} "
+        f"of {DECODE_BLOCK}, max_seq_len {DECODE_MAX_SEQ}; {DECODE_STREAMS} "
+        f"streams of {DECODE_NEW} new tokens, prompts "
+        f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens, "
+        f"{DECODE_ROWS * 2} clients")
+    rec = {}
+    rec["fp32"], fp32_outs = decode_run(tq, model, params, prompts,
+                                        label="fp32 KV", kv_dtype="")
+    rec["int8"], int8_outs = decode_run(tq, model, params, prompts,
+                                        label="int8 KV", kv_dtype="int8",
+                                        profile=True)
+    rec["spec"], spec_outs = decode_run(tq, model, params, prompts,
+                                        label="int8 KV, spec_k 3",
+                                        kv_dtype="int8", spec_k=3,
+                                        draft=draft)
+    with torch.inference_mode():
+        rec["recompute_near_ties"] = recompute_check(
+            model, params, prompts[:4], fp32_outs[:4])
+        rec["spec_near_ties"] = spec_check(model, params, prompts, int8_outs,
+                                           spec_outs)
+        pools = {kv: KVBlockPool(DECODE_KV_BLOCKS, DECODE_BLOCK,
+                                 n_layers=cfg.n_layers, n_heads=cfg.n_heads,
+                                 head_dim=cfg.head_dim, kv_dtype=kv,
+                                 device="cuda") for kv in ("", "int8")}
+        last, fp = cached_step(model, params, pools[""],
+                               prompts[:DECODE_ROWS])
+        feeds = last.argmax(dim=-1).tolist()
+        _, q8 = cached_step(model, params, pools["int8"],
+                            prompts[:DECODE_ROWS], feeds)
+    bound = KV_LOGIT_TOL * fp.abs().max().item()
+    err = (q8 - fp).abs().max().item()
+    ref_arg, margin, _ = top2_margin(fp)
+    decided = margin > bound
+    same = bool((q8.argmax(dim=-1) == ref_arg)[decided].all())
+    rec["int8_vs_fp32"] = {"max_abs_diff": err, "bound": bound,
+                           "argmax_equal_where_decided": same,
+                           "decided_rows": int(decided.sum())}
+    log(f"[decode] first decode step, int8 vs fp32 KV over "
+        f"{DECODE_ROWS} prompts: max |d logits| {err:.4e} (bound {bound:.4e}"
+        f" = {KV_LOGIT_TOL} max |logit|), argmax equal on the "
+        f"{int(decided.sum())} rows whose top-2 margin exceeds it: {same}")
+    if err > bound or not same:
+        raise AssertionError(f"[decode] int8 KV: {rec['int8_vs_fp32']}")
+    log(f"[decode] the fp32 run's first 4 streams equal the full recompute "
+        f"(near-ties {rec['recompute_near_ties']}); the speculative run's "
+        f"equal the int8 run's (near-ties {rec['spec_near_ties']})")
+    del pools, params, draft
+    torch.cuda.empty_cache()
+    rec["wall_s"] = time.perf_counter() - t_phase
+    log(f"[decode] phase wall {rec['wall_s']:.1f} s")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2293,8 +2862,10 @@ def main() -> int:
     trained = train(hvt, fa, fadam, train_cfg, sizes)
     qsizes = quant_bucket_sizes(hvt, train_cfg)
     quant = quant_case(tq, gen, qsizes)
+    kv_quant = kv_quant_case(tq, gen)
     quant_trained = train_quant(hvt, (fa, fadam, tq), train_cfg, sizes,
                                 qsizes)
+    resharded = ckpt_reshard(hvt, (fa, fadam, tq), train_cfg, len(qsizes))
     fp8 = fp8_case(tq, gen, train_cfg)
     fp8_cast = fp8_cast_case(tq, gen, train_cfg)
     fp8_trained = train_fp8(hvt, (fa, fadam, tq), train_cfg)
@@ -2307,6 +2878,7 @@ def main() -> int:
                                  served.pop("answers8"), served["profile"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    decoded = decode(hvt, tq)
 
     src = "horovod_tpu_torch/csrc/"
     ref = "horovod_tpu/ops/pallas_kernels.py:"
@@ -2381,8 +2953,12 @@ def main() -> int:
         "library_ms": adam["library_ms"],
     })
     qlaunch = {r: quant_trained[r]["launches"] for r in ("on", "zero1", "fp8")}
-    for name, line, pre in (("quantize_blockwise", "963", "quant"),
-                            ("dequantize_blockwise", "978", "dequant")):
+    # "kv_write" / "kv_gather": the decode path's KV shapes at block 64 (one
+    # round's two launches, with their own bounds), and "launches_decode" the
+    # int8 [decode] run's count.
+    for name, line, pre, kv in (
+            ("quantize_blockwise", "963", "quant", "write"),
+            ("dequantize_blockwise", "978", "dequant", "gather")):
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -2391,6 +2967,8 @@ def main() -> int:
             "launches": qlaunch["on"][name],
             "launches_zero1": qlaunch["zero1"][name],
             "launches_fp8": qlaunch["fp8"][name],
+            "launches_ckpt_reshard": resharded["int8"]["launches"][name],
+            "launches_decode": decoded["int8"]["launches"][name],
             "max_abs_err": quant["max_abs_err"],
             "bitwise": quant["bitwise"],
             "ms": quant[pre + "_ms"],
@@ -2400,6 +2978,7 @@ def main() -> int:
             "bound_ms": quant["bound_ms"],
             "bound_by": quant["bound_by"],
             "library_ms": quant.get(pre + "_library_ms"),
+            "kv_" + kv: kv_quant[kv],
         })
     # Kernel 8: "ms", "plain_ms", "library_ms" and "bound_ms" are one
     # training step's 216 launches (each shape's time times its launches a
@@ -2487,7 +3066,9 @@ def main() -> int:
                       "train_quant": quant_trained, "fp8": fp8,
                       "fp8_cast": fp8_cast,
                       "train_fp8": fp8_trained, "serve": served,
-                      "int8": int8, "serve_int8": served_int8}),
+                      "int8": int8, "serve_int8": served_int8,
+                      "kv_quant": kv_quant, "ckpt_reshard": resharded,
+                      "decode": decoded}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

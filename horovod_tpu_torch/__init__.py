@@ -9,9 +9,11 @@ trains it data-parallel through :func:`~horovod_tpu_torch.parallel.dp.
 make_train_step` (replicated, or ZeRO-1 sharded with the fused AdamW
 update; the gradient wire uncompressed, cast, or blockwise-quantized to
 int8/fp8 with error feedback; the projections in bf16 or, with
-``compute_dtype="fp8"``, in fp8 under delayed scaling) on NVIDIA H100s;
+``compute_dtype="fp8"``, in fp8 under delayed scaling) on NVIDIA H100s,
+with checkpoints that restore at another world size or fusion threshold;
 ``ServePool(weight_dtype="int8")`` serves int8 weights with per-column
-scales. Its kernels are hand-written CUDA C++ under ``csrc/`` (the
+scales, and :class:`~horovod_tpu_torch.serve.DecodeEngine` decodes token by
+token over a paged, optionally int8, KV cache. Its kernels are hand-written CUDA C++ under ``csrc/`` (the
 flash-attention forward and backward, the fused AdamW update, the blockwise
 quantize and dequantize, the fp8 matmul, the int8-weight matmul), built with
 nvcc at first use. Entry points run on the card unless
@@ -88,5 +90,7 @@ from .optimizer import (  # noqa: F401
     ShardedDistributedOptimizer,
     adamw,
     fused_adamw,
+    reshard_opt_state,
+    unshard_opt_state,
 )
 from .parallel.dp import TrainState, init_state, make_train_step  # noqa: F401

@@ -18,12 +18,27 @@ tree: one ``torch.save`` of a flat name -> CPU tensor dict per step
 
 A state is an ``nn.Module`` (its ``state_dict``) or a nest of dicts,
 dataclasses (``TrainState``), NamedTuples (the optimizer states), lists,
-tuples and the fused optimizer buffers (``FlatBuckets``, ``EFResiduals``)
-over tensors, numpy arrays, Python scalars and ``None``, flattened to
-``"a/b"`` names by key, field name or index (``None`` writes nothing).
-Restoring into a template gives the template's structure, types, dtypes
-and devices (a tensor keeps its ``requires_grad``); a module template is
-copied and loaded, never modified.
+tuples, the fused optimizer buffers (``FlatBuckets``, ``EFResiduals``) and
+the canonical optimizer forms (``CanonicalBuckets``,
+``CanonicalResiduals``) over tensors, numpy arrays, Python scalars and
+``None``, flattened to ``"a/b"`` names by key, field name or index
+(``None`` writes nothing). Restoring into a template gives the template's
+structure, types, dtypes and devices (a tensor keeps its
+``requires_grad``); a module template is copied and loaded, never
+modified.
+
+World-size-portable training state (gather on save, reshard on restore):
+inside every ``TrainState``, a ZeRO-1 optimizer state and a replicated one
+carrying EF residuals are written in their canonical form
+(:func:`~horovod_tpu_torch.optimizer.unshard_opt_state`: parameter-shaped
+leaves keyed by parameter name, the padding stripped, the residuals'
+mean), and a restore reads them into the canonicalized target and repacks
+them for the live optimizer: this world's size, and the target's fusion
+threshold and quantization block. So a checkpoint saved at N ranks, or
+under one fusion threshold, restores at M ranks or under another. The
+canonicalization is a collective: every rank calls
+:func:`save_checkpoint` and :func:`restore_checkpoint` (only rank 0
+writes).
 """
 
 from __future__ import annotations
@@ -43,6 +58,7 @@ import numpy as np
 import torch
 
 from . import context as _ctx
+from . import optimizer as _opt
 from .exceptions import CheckpointCorruptError
 from .ops.fusion import EFResiduals, FlatBuckets
 
@@ -160,7 +176,14 @@ def _children(node: Any):
     """``(key, child)`` pairs of an inner node of a state, or None for a
     leaf: dict keys, dataclass and NamedTuple field names, list and tuple
     indices, a fused buffer list's indices (and an EF residual's layout
-    recipe)."""
+    recipe), a canonical form's tree. A canonical form's layout recipe
+    (``threshold``, ``block``) is not written: a restore takes it from the
+    target, the live optimizer's."""
+    if isinstance(node, _opt.CanonicalOptState):
+        return [("inner", node.inner), ("count", node.count),
+                ("residual", node.residual)]
+    if isinstance(node, (_opt.CanonicalBuckets, _opt.CanonicalResiduals)):
+        return [("tree", node.tree)]
     if isinstance(node, dict):
         return list(node.items())
     if dataclasses.is_dataclass(node) and not isinstance(node, type):
@@ -180,7 +203,15 @@ def _children(node: Any):
 
 def _rebuild(node: Any, values: list) -> Any:
     """An inner node of ``node``'s own type from its children's values, in
-    :func:`_children`'s order."""
+    :func:`_children`'s order (a canonical form's layout recipe from
+    ``node``)."""
+    if isinstance(node, _opt.CanonicalOptState):
+        inner, count, residual = values
+        return node._replace(inner=inner, count=count, residual=residual)
+    if isinstance(node, _opt.CanonicalBuckets):
+        return _opt.CanonicalBuckets(values[0])
+    if isinstance(node, _opt.CanonicalResiduals):
+        return _opt.CanonicalResiduals(values[0], node.threshold, node.block)
     if isinstance(node, dict):
         return type(node)(zip(node.keys(), values))
     if dataclasses.is_dataclass(node):
@@ -226,6 +257,41 @@ def _flat_state(state: Any) -> Dict[str, torch.Tensor]:
 
     rec("", state)
     return out
+
+
+def _map_train_states(state: Any, fix) -> Any:
+    """``fix`` applied to every ``parallel.dp.TrainState`` in ``state`` (a
+    bare ``TrainState`` root included)."""
+    from .parallel.dp import TrainState
+
+    return _opt._map_nodes(fix, state, lambda n: isinstance(n, TrainState))
+
+
+def _canonicalize_sharded(state: Any) -> Any:
+    """Gather on save: the optimizer states inside every ``TrainState``
+    rewritten into their canonical, world-size-portable form (a collective
+    across the world that built them)."""
+    def fix(node):
+        if not _opt.has_sharded_state(node.opt_state):
+            return node
+        canonical = _opt.canonicalize_sharded_states(node.opt_state,
+                                                     node.params)
+        return dataclasses.replace(node, opt_state=canonical)
+
+    return _map_train_states(state, fix)
+
+
+def _reshard_canonical(state: Any) -> Any:
+    """Reshard on restore: the inverse of :func:`_canonicalize_sharded` for
+    this world, at the layout the structural restore took from the target
+    (its threshold and block)."""
+    def fix(node):
+        if not _opt.has_canonical_state(node.opt_state):
+            return node
+        runtime = _opt.reshard_sharded_states(node.opt_state, node.params)
+        return dataclasses.replace(node, opt_state=runtime)
+
+    return _map_train_states(state, fix)
 
 
 def _write_tree(path: str, state: Any) -> None:
@@ -299,9 +365,12 @@ def save_checkpoint(directory: str, state: Any, step: int,
                     keep: int = 3, force: bool = False) -> Optional[str]:
     """Write ``state`` under ``directory/step_<step>``.
 
-    Only rank 0 writes (returns None elsewhere unless ``force``). The
-    write is atomic (tmpdir + rename); checkpoints older than the newest
-    ``keep`` are deleted, never the one just written."""
+    Only rank 0 writes (returns None elsewhere unless ``force``), but every
+    rank calls it: a ``TrainState``'s optimizer state is gathered into its
+    canonical form first (see the module docstring). The write is atomic
+    (tmpdir + rename); checkpoints older than the newest ``keep`` are
+    deleted, never the one just written."""
+    state = _canonicalize_sharded(state)
     if not _is_writer() and not force:
         return None
     directory = os.path.abspath(directory)
@@ -332,7 +401,11 @@ def restore_checkpoint(directory: str, target: Any,
     Restoring the latest step, a corrupt dir is quarantined as
     ``step_<N>.corrupt`` and the walk falls back to the newest intact
     step. A pinned ``step=`` that fails verification raises
-    :class:`CheckpointCorruptError`. ``verify=False`` skips the checks."""
+    :class:`CheckpointCorruptError`. ``verify=False`` skips the checks.
+
+    A ``TrainState``'s optimizer state is read in its canonical form and
+    repacked for this world and the target optimizer's layout (see the
+    module docstring); every rank of the world calls this."""
     directory = os.path.abspath(directory)
     if step is None:
         steps = all_steps(directory)
@@ -364,7 +437,7 @@ def restore_checkpoint(directory: str, target: Any,
             problems = verify_step_dir(path)
             if problems:
                 raise CheckpointCorruptError(path, problems)
-    return _read_tree(path, target)
+    return _reshard_canonical(_read_tree(path, _canonicalize_sharded(target)))
 
 
 # -- hot-swap (serving) --------------------------------------------------

@@ -22,6 +22,10 @@ two layouts, and :func:`params_to_flax` undoes them:
 into the port's layout, ``[N, K]`` row-major storage read as its ``[K, N]``
 transposed view.
 
+:func:`cachelm_params_from_jax` carries the JAX package's ``CacheLM``
+parameters (a nest of numpy arrays: ``emb``, ``pos`` and the ``layers``
+list; the port's ``CacheLM`` keeps the same layout) onto a device.
+
 :func:`init_params` makes GPT-2 weights on the port's side from a numpy
 seed, drawn as flax initializes them (truncated-normal fan-in kernels,
 normal ``1/sqrt(D)`` embeddings, zero biases, unit LayerNorm scales, zero
@@ -36,7 +40,9 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from .context import resolve_device
 from .models.transformer import TransformerConfig
+from .ops.batching import tree_map
 from .ops.fp8 import STATE_NAMES
 from .ops.quantization import QuantizedWeight
 from .utils import env as _env
@@ -195,6 +201,17 @@ def quantized_weight_from_jax(qw) -> QuantizedWeight:
     return QuantizedWeight(torch.from_numpy(storage).t(),
                            torch.from_numpy(scales),
                            str(getattr(qw, "dtype_name", "float32")))
+
+
+def cachelm_params_from_jax(params, device=None):
+    """The JAX package's ``CacheLM`` parameters (numpy arrays in its nest:
+    ``{"emb", "pos", "layers": [{"wq", "wk", "wv", "wo"}, ...]}``) as the
+    port's ``CacheLM`` takes them: the same nest of fp32 tensors on
+    ``device`` (default: this process's card)."""
+    device = resolve_device(device)
+    return tree_map(
+        lambda a: torch.as_tensor(np.array(a, np.float32), device=device),
+        params)
 
 
 def _contiguous(tree):

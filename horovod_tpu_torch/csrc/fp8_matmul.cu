@@ -92,6 +92,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bind_device.cuh"  // bind_device
+
 namespace {
 
 constexpr int kBM = 128;  // output rows per block (two 64-row warpgroups)
@@ -530,32 +532,13 @@ cudaError_t launch(const Params& p, const CUtensorMap& ma,
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Plain C entry point for ctypes. a is [M, K] stored with k contiguous and
-// row stride lda bytes; b is [K, N] stored as [N, K] with k contiguous and
-// row stride ldb bytes; both bases and strides 16-byte aligned (the TMA's
-// rule). out is [M, N] with row stride ldc elements, ldc a multiple of 8
-// (bf16) or 4 (fp32), 16-byte aligned. scale_b may be null. splits > 1
-// needs a 16-byte-aligned workspace of splits * M * ldc fp32. Returns a
-// cudaError_t (0 when every launch was accepted; cudaErrorInvalidValue when
-// the arguments or the tensor maps are refused).
-extern "C" int hvt_fp8_matmul(const void* a, const void* b, void* out,
-                              void* workspace, const void* scale_a,
-                              const void* scale_b, int m, int n, int k,
-                              long long lda, long long ldb, long long ldc,
-                              int a_e5m2, int b_e5m2, int out_bf16, int splits,
-                              void* stream) {
-  const int esize = out_bf16 ? 2 : 4;
-  if (m <= 0 || n <= 0 || k <= 0 || splits < 1 ||
-      (splits > 1 && !workspace) || lda % 16 || ldb % 16 ||
-      (ldc * esize) % 16 || ldc < n || (ldc * 4) % 16 ||
-      reinterpret_cast<uintptr_t>(a) % 16 ||
-      reinterpret_cast<uintptr_t>(b) % 16 ||
-      reinterpret_cast<uintptr_t>(out) % 16 ||
-      reinterpret_cast<uintptr_t>(workspace) % 16) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+// The three tensor maps, the product and, with splits > 1, the sum of the
+// splits, on the calling thread's current device.
+int encode_and_launch(const void* a, const void* b, void* out, void* workspace,
+                      const void* scale_a, const void* scale_b, int m, int n,
+                      int k, long long lda, long long ldb, long long ldc,
+                      int a_e5m2, int b_e5m2, int out_bf16, int splits,
+                      cudaStream_t s) {
   CUtensorMap ma, mb, mc;
   const bool split = splits > 1;
   if (!make_map(&ma, a, m, k, lda) || !make_map(&mb, b, n, k, ldb) ||
@@ -575,7 +558,6 @@ extern "C" int hvt_fp8_matmul(const void* a, const void* b, void* out,
   p.tiles_n = (n + kBN - 1) / kBN;
   p.splits = splits;
   p.out_bf16 = out_bf16;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (a_e5m2 && b_e5m2) {
     err = launch<true, true>(p, ma, mb, mc, splits, s);
@@ -594,4 +576,44 @@ extern "C" int hvt_fp8_matmul(const void* a, const void* b, void* out,
   fp8_matmul_reduce_kernel<<<blocks, threads, 0, s>>>(
       p, static_cast<const float*>(workspace), out, ldc, out_bf16);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C entry point for ctypes: launches on `stream` of `device` (the
+// calling thread's current device is restored). a is [M, K] stored with k
+// contiguous and row stride lda bytes; b is [K, N] stored as [N, K] with k
+// contiguous and row stride ldb bytes; both bases and strides 16-byte
+// aligned (the TMA's rule). out is [M, N] with row stride ldc elements, ldc
+// a multiple of 8 (bf16) or 4 (fp32), 16-byte aligned. scale_b may be null.
+// splits > 1 needs a 16-byte-aligned workspace of splits * M * ldc fp32.
+// Returns a cudaError_t (0 when every launch was accepted;
+// cudaErrorInvalidValue when the arguments or the tensor maps are refused).
+extern "C" int hvt_fp8_matmul(const void* a, const void* b, void* out,
+                              void* workspace, const void* scale_a,
+                              const void* scale_b, int m, int n, int k,
+                              long long lda, long long ldb, long long ldc,
+                              int a_e5m2, int b_e5m2, int out_bf16, int splits,
+                              int device, void* stream) {
+  const int esize = out_bf16 ? 2 : 4;
+  if (m <= 0 || n <= 0 || k <= 0 || splits < 1 ||
+      (splits > 1 && !workspace) || lda % 16 || ldb % 16 ||
+      (ldc * esize) % 16 || ldc < n || (ldc * 4) % 16 ||
+      reinterpret_cast<uintptr_t>(a) % 16 ||
+      reinterpret_cast<uintptr_t>(b) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 16 ||
+      reinterpret_cast<uintptr_t>(workspace) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // The maps are encoded in the card's context, which a thread whose first
+  // CUDA call this is has not bound yet.
+  int current = 0;
+  const cudaError_t bound = bind_device(device, &current);
+  if (bound != cudaSuccess) return static_cast<int>(bound);
+  const int rc = encode_and_launch(a, b, out, workspace, scale_a, scale_b, m,
+                                   n, k, lda, ldb, ldc, a_e5m2, b_e5m2,
+                                   out_bf16, splits,
+                                   static_cast<cudaStream_t>(stream));
+  if (current != device) cudaSetDevice(current);
+  return rc;
 }

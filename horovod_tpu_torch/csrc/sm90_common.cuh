@@ -2,10 +2,10 @@
 // (flash_fwd.cu, flash_bwd.cu) and the int8-weight matmul (int8_matmul.cu):
 // mbarriers, TMA tile loads through 4-D tensor maps, shared-memory matrix
 // descriptors of 128B-swizzled tiles, bf16 wgmma wrappers, register
-// fragments, and the host side's tensor-map encoding, shared-memory opt-in
-// and SM count. Everything sits in an anonymous namespace: each source is
-// its own library (ops/_build.py), and the library's hash covers this
-// header.
+// fragments, and the host side's tensor-map encoding, context binding
+// (bind_device.cuh), shared-memory opt-in and SM count. Everything sits in
+// an anonymous namespace: each source is its own library (ops/_build.py),
+// and the library's hash covers this header.
 
 #pragma once
 
@@ -16,6 +16,8 @@
 #include <stdint.h>
 
 #include <atomic>
+
+#include "bind_device.cuh"  // bind_device
 
 namespace {
 
@@ -325,16 +327,6 @@ bool make_map(CUtensorMap* map, const void* base, int batch, int seq,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// Makes `device` current for the calling thread and binds its primary
-// context: a thread that has made no CUDA runtime call yet has none bound,
-// and cuTensorMapEncodeTiled then refuses to encode a tensor map.
-// *previous gets the thread's device before the call, to restore where it
-// differs.
-cudaError_t bind_device(int device, int* previous) {
-  const cudaError_t err = cudaGetDevice(previous);
-  return err != cudaSuccess ? err : cudaSetDevice(device);
 }
 
 // Above 48 KB a kernel's dynamic shared memory must be opted into, once

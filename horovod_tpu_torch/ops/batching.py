@@ -7,7 +7,9 @@ records which slot holds which input, and :func:`unpack` reads the slot
 ranges back, dropping the pad. :func:`pack_requests` /
 :func:`unpack_responses` use the same machinery to pack 1..``batch_size``
 single-example requests into the ONE ``[batch_size, ...]`` shape the
-inference step sees and to route each response row to its request.
+inference step sees and to route each response row to its request;
+:func:`pack_prompts` packs variable-length token prompts for the decode
+engine's prefill the same way.
 
 Requests are nests of dicts, lists and tuples over tensors (numpy arrays
 and Python scalars are taken as tensors); :func:`tree_flatten` /
@@ -20,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..utils import env as _env
@@ -268,6 +271,31 @@ def pack_requests(requests: Sequence[Any], batch_size: int):
         tree_unflatten(treedef, batch_leaves),
         BatchSpec(treedef, tuple(leaf_specs), batch_size, len(requests)),
     )
+
+
+def pack_prompts(prompts: Sequence[Sequence[int]], batch_size: int,
+                 bucket: int):
+    """The token-level front half of :func:`pack_requests`: pad 1..
+    ``batch_size`` variable-length token prompts to the fixed ``bucket``
+    width and pack them into the one prefill shape. Returns ``(batch,
+    spec)`` with ``batch["tokens"]`` ``[batch_size, bucket]`` int32 and
+    ``batch["length"]`` ``[batch_size]`` int32 (pad rows zero-length), on
+    the CPU; ``spec.row_to_request[row]`` says which prompt row ``row``
+    carries, as for :func:`pack_requests` (the decode engine maps prefill
+    rows back to streams through it)."""
+    reqs = []
+    for toks in prompts:
+        arr = torch.as_tensor(np.asarray(toks, np.int32).reshape(-1))
+        if arr.numel() > bucket:
+            raise ValueError(
+                f"prompt of {arr.numel()} tokens exceeds the {bucket}-token "
+                "prefill bucket"
+            )
+        padded = torch.zeros((bucket,), dtype=torch.int32)
+        padded[:arr.numel()] = arr
+        reqs.append({"tokens": padded,
+                     "length": torch.tensor(arr.numel(), dtype=torch.int32)})
+    return pack_requests(reqs, batch_size)
 
 
 def unpack_requests(batch, spec: BatchSpec) -> List[Any]:

@@ -47,7 +47,14 @@ quantization-transparent matmul an ``infer_fn`` routes its products
 through; :func:`quantize_params` picks the weights (a dict nest) or
 quantizes every ``Dense`` of a model in place.
 
-The KV-head half waits for its slice.
+The KV-head half (the decode engine's int8 KV cache, :mod:`..serve.
+kvcache`): :func:`quantize_kv_heads` stores every head vector of a
+``[..., H, head_dim]`` fp32 buffer int8 with one fp32 max-abs scale, the
+blockwise codec at ``block = head_dim`` on the buffer viewed flat (kernel 4
+on a CUDA tensor, counted in ``launches_quant``), and
+:func:`dequantize_kv_heads` reads it back (kernel 5, ``launches_dequant``);
+:func:`quantize_kv_heads_reference` / :func:`dequantize_kv_heads_reference`
+are their plain versions, the JAX package's formula.
 """
 
 from __future__ import annotations
@@ -75,6 +82,8 @@ __all__ = [
     "default_block",
     "dequantize_blockwise",
     "dequantize_blockwise_reference",
+    "dequantize_kv_heads",
+    "dequantize_kv_heads_reference",
     "dequantize_weight",
     "fp8_cast",
     "fp8_cast_reference",
@@ -97,6 +106,8 @@ __all__ = [
     "quant_spec",
     "quantize_blockwise",
     "quantize_blockwise_reference",
+    "quantize_kv_heads",
+    "quantize_kv_heads_reference",
     "quantize_params",
     "quantize_weight",
     "quantized_wire_bytes",
@@ -284,7 +295,7 @@ def _kernel(name: str):
         if name == "hvt_quantize_blockwise":
             fn.argtypes = [ptr, ptr, ptr, i64, i32, i32, ctypes.c_float, ptr]
         elif name == "hvt_fp8_matmul":
-            fn.argtypes = ([ptr] * 6 + [i32] * 3 + [i64] * 3 + [i32] * 4
+            fn.argtypes = ([ptr] * 6 + [i32] * 3 + [i64] * 3 + [i32] * 5
                            + [ptr])
         elif name == "hvt_fp8_cast":
             fn.argtypes = ([ptr, i64] + [ptr] * 6 + [i64, ptr, i64, ptr]
@@ -400,6 +411,80 @@ def dequantize_blockwise(
         )
     _count_launch("dequant")
     return out.to(out_dtype)
+
+
+# -- the int8 KV cache -------------------------------------------------------
+#
+# The decode engine's paged KV pool (serve/kvcache.py) stores keys and values
+# int8 with one fp32 max-abs scale per (token, head): the blockwise codec with
+# block = head_dim, so a loud head cannot crush a quiet one's resolution. The
+# scales ride in a parallel fp32 pool: 4/head_dim overhead (6% at head_dim
+# 64) against a 4x cut of an fp32 cache's bytes.
+
+
+def _check_heads(x: torch.Tensor, name: str) -> int:
+    if x.dim() < 1 or x.shape[-1] < 1:
+        raise ValueError(f"{name} needs a last (head_dim) axis, got shape "
+                         f"{tuple(x.shape)}")
+    return int(x.shape[-1])
+
+
+def quantize_kv_heads_reference(
+    x: torch.Tensor, spec: QuantSpec = INT8
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version: ``x[..., H, head_dim]`` -> ``(q, scales)``, ``q``
+    the wire-dtype payload of ``x``'s shape and ``scales`` fp32 of shape
+    ``x.shape[:-1]``: per head vector ``scale = amax / qmax`` (1 where
+    ``amax`` is not positive), ``round(x / scale)`` clipped to ``qmax``."""
+    hd = _check_heads(x, "x")
+    q, scales = quantize_blockwise_reference(
+        x.to(torch.float32).reshape(-1), hd, spec)
+    return q.reshape(x.shape), scales.reshape(x.shape[:-1])
+
+
+def dequantize_kv_heads_reference(
+    q: torch.Tensor, scales: torch.Tensor,
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """The plain version: ``q * scales[..., None]`` in fp32, then
+    ``out_dtype``."""
+    hd = _check_heads(q, "q")
+    out = dequantize_blockwise_reference(
+        q.reshape(-1), scales.to(torch.float32).reshape(-1), hd)
+    return out.reshape(q.shape).to(out_dtype)
+
+
+def quantize_kv_heads(
+    x: torch.Tensor, spec: QuantSpec = INT8
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Quantize every head vector of ``x[..., H, head_dim]``: ``(q,
+    scales)`` as :func:`quantize_kv_heads_reference`. A CPU tensor runs the
+    plain version; a CUDA tensor launches kernel 4 at ``block = head_dim``
+    on its contiguous fp32 buffer viewed flat (one launch)."""
+    hd = _check_heads(x, "x")
+    if _check_device(x) == "cpu":
+        return quantize_kv_heads_reference(x, spec)
+    flat = x.to(torch.float32).contiguous().reshape(-1)
+    q, scales = quantize_blockwise(flat, hd, spec)
+    return q.reshape(x.shape), scales.reshape(x.shape[:-1])
+
+
+def dequantize_kv_heads(
+    q: torch.Tensor, scales: torch.Tensor,
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Inverse of :func:`quantize_kv_heads` (up to the wire's rounding). A
+    CPU tensor runs the plain version; a CUDA tensor launches kernel 5 at
+    ``block = head_dim`` on the flat payload (one launch)."""
+    hd = _check_heads(q, "q")
+    if tuple(scales.shape) != tuple(q.shape[:-1]):
+        raise ValueError(f"scales of shape {tuple(scales.shape)} for a "
+                         f"payload of shape {tuple(q.shape)}")
+    if _check_device(q) == "cpu":
+        return dequantize_kv_heads_reference(q, scales, out_dtype)
+    out = dequantize_blockwise(q.contiguous().reshape(-1),
+                               scales.contiguous().reshape(-1), hd)
+    return out.reshape(q.shape).to(out_dtype)
 
 
 # -- fp8 training compute ---------------------------------------------------
@@ -795,7 +880,7 @@ def fp8_matmul(
         scale.data_ptr(), scale_b.data_ptr() if scale_b is not None else None,
         m, n, k, lda, ldb, ldc, int(x_q.dtype == torch.float8_e5m2),
         int(w_q.dtype == torch.float8_e5m2), int(out_dtype == torch.bfloat16),
-        splits)
+        splits, x_q.device.index)
     if rc != 0:
         raise RuntimeError(
             f"fp8_matmul kernel launch failed with cudaError_t {rc}"

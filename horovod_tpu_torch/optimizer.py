@@ -25,8 +25,9 @@ parameters' device, the step count included, so no step waits on the host.
   the inner update on this rank's 1/N shard (with 1/N optimizer state),
   and one all-gather of the updates. Its state is this process's shards
   of the flat buckets of the *port's own* parameter dict (names sorted as
-  strings), so it is not byte-compatible with the JAX package's
-  checkpointed state, which packs the flax tree.
+  strings), so it is not byte-compatible with the JAX package's runtime
+  state, which packs the flax tree; the canonical form below is keyed by
+  parameter name instead.
 
 ``compression=Compression.int8`` / ``Compression.fp8`` takes the
 blockwise-quantized wire (:mod:`.ops.fusion`): both wrappers then keep
@@ -37,9 +38,28 @@ delayed; ``error_feedback=False`` drops them. The block size and the
 fusion threshold are pinned at construction, since the residual layout is
 state.
 
-Not ported yet: Adasum, ``backward_passes_per_step > 1``, and the
-world-size-portable canonical form of the sharded state and of the
-residuals (``canonicalize_dist_state`` / ``reshard_opt_state``).
+The world-size-portable form that checkpoints store (gather on save,
+reshard on restore; :mod:`.checkpoint` applies it to every ``TrainState``):
+
+* :func:`unshard_opt_state` -- a ZeRO-1 state to a
+  :class:`CanonicalOptState`: every rank's shards all-gathered into the
+  full buckets and unpacked into parameter-shaped leaves keyed by
+  parameter name (:class:`CanonicalBuckets`), the padding stripped, so the
+  form depends on neither the world size nor the bucket packing;
+  :func:`reshard_opt_state` packs it back for any world, fusion threshold
+  and block and keeps this rank's shards;
+* :func:`canonicalize_dist_state` / :func:`reshard_dist_state` -- the same
+  for a replicated state on the quantized wire, whose moments are
+  replicated already and pass through;
+* the EF residuals in their *mean-equivalent* form
+  (:class:`CanonicalResiduals`): the sum over ranks divided by the world
+  size, which every rank of the new world receives, so the residuals'
+  effect on the Average-reduced gradient survives an N -> M rescale.
+
+Unshard and canonicalize are collectives (an all-gather, an all-reduce):
+every rank of the world that built the state calls them together.
+
+Not ported yet: Adasum and ``backward_passes_per_step > 1``.
 """
 
 from __future__ import annotations
@@ -51,8 +71,21 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from .exceptions import HorovodTpuError
-from .ops.batching import tree_flatten, tree_unflatten
-from .ops.collectives import Average, ReduceOp, Sum
+from .ops.batching import (
+    PackSpec,
+    _bucketize,
+    _Slot,
+    tree_flatten,
+    tree_unflatten,
+    unpack,
+)
+from .ops.collectives import (
+    Average,
+    ReduceOp,
+    Sum,
+    allgather_chunks,
+    allreduce_,
+)
 from .ops.collectives import world_size as _world_size
 from .ops.compression import Compression, is_quantized
 from .ops.fused_adamw import FusedAdamSpec, fused_adamw_update
@@ -72,6 +105,10 @@ from .utils import env as _env
 
 __all__ = [
     "AdamState",
+    "CanonicalBuckets",
+    "CanonicalDistOptState",
+    "CanonicalOptState",
+    "CanonicalResiduals",
     "DistributedOptState",
     "DistributedOptimizer",
     "FusedAdamSpec",
@@ -79,9 +116,17 @@ __all__ = [
     "ShardedDistributedOptimizer",
     "ShardedOptState",
     "adamw",
+    "canonicalize_dist_state",
+    "canonicalize_sharded_states",
     "ef_residual_norm",
     "fused_adamw",
+    "has_canonical_state",
     "has_ef_residuals",
+    "has_sharded_state",
+    "reshard_dist_state",
+    "reshard_opt_state",
+    "reshard_sharded_states",
+    "unshard_opt_state",
 ]
 
 
@@ -506,18 +551,24 @@ def ShardedDistributedOptimizer(
     return Optimizer(init, update)
 
 
-def _ef_nodes(tree):
-    if isinstance(tree, EFResiduals):
+def _nodes(tree, is_node):
+    """Every node of ``tree`` (dataclasses, dicts, lists, tuples) that
+    ``is_node`` picks, none below one."""
+    if is_node(tree):
         yield tree
     elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         for f in dataclasses.fields(tree):
-            yield from _ef_nodes(getattr(tree, f.name))
+            yield from _nodes(getattr(tree, f.name), is_node)
     elif isinstance(tree, dict):
         for v in tree.values():
-            yield from _ef_nodes(v)
+            yield from _nodes(v, is_node)
     elif isinstance(tree, (list, tuple)):
         for v in tree:
-            yield from _ef_nodes(v)
+            yield from _nodes(v, is_node)
+
+
+def _ef_nodes(tree):
+    return _nodes(tree, lambda n: isinstance(n, EFResiduals))
 
 
 def has_ef_residuals(tree) -> bool:
@@ -533,3 +584,338 @@ def ef_residual_norm(tree) -> Optional[float]:
     if not sq:
         return None
     return float(torch.stack(sq).sum().sqrt())
+
+
+# -- the world-size-portable form (checkpoints) ------------------------------
+
+
+class CanonicalOptState(NamedTuple):
+    """World-size-portable form of :class:`ShardedOptState`: the inner
+    state's flat buckets unpacked into parameter-shaped leaves
+    (:class:`CanonicalBuckets`), the padding stripped; ``threshold`` and
+    ``block`` the layout recipe to repack with (a checkpoint restore takes
+    them from its target); ``residual`` the EF residuals'
+    :class:`CanonicalResiduals`, or None."""
+
+    inner: Any
+    count: Any
+    threshold: int
+    block: int = 1
+    residual: Optional["CanonicalResiduals"] = None
+
+
+class CanonicalDistOptState(NamedTuple):
+    """Canonical form of a quantized :class:`DistributedOptState`: ``inner``
+    is replicated and passes through; the EF residuals canonicalize as the
+    sharded path's do."""
+
+    inner: Any
+    count: Any
+    residual: Any
+
+
+class CanonicalResiduals:
+    """The mean-equivalent EF residual (sum over ranks / world), unpacked
+    into a parameter-shaped fp32 tree; ``threshold`` and ``block`` are the
+    bucket-layout recipe the runtime :class:`~.ops.fusion.EFResiduals`
+    repack with (a checkpoint restore takes them from its target)."""
+
+    def __init__(self, tree, threshold: int = 0, block: int = 0):
+        self.tree = tree
+        self.threshold = int(threshold)
+        self.block = int(block)
+
+    def __repr__(self):
+        return f"CanonicalResiduals(block={self.block})"
+
+
+class CanonicalBuckets:
+    """Marks a parameter-shaped tree standing where a :class:`FlatBuckets`
+    stood, so :func:`reshard_opt_state` finds the re-pack boundaries."""
+
+    def __init__(self, tree):
+        self.tree = tree
+
+    def __repr__(self):
+        return "CanonicalBuckets(...)"
+
+
+def _is_flat(n) -> bool:
+    return isinstance(n, FlatBuckets)
+
+
+def _is_canonical(n) -> bool:
+    return isinstance(n, CanonicalBuckets)
+
+
+def _map_nodes(fn, tree, is_node):
+    """``fn`` on every node of ``tree`` that ``is_node`` picks; dicts,
+    NamedTuples, lists and tuples are rebuilt as their own types, anything
+    else passes through."""
+    if is_node(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return type(tree)((k, _map_nodes(fn, v, is_node))
+                          for k, v in tree.items())
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_nodes(fn, v, is_node) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_nodes(fn, v, is_node) for v in tree)
+    return tree
+
+
+def has_sharded_state(tree) -> bool:
+    """True when ``tree`` holds state that canonicalizes for a portable
+    save: a :class:`ShardedOptState`, or a :class:`DistributedOptState`
+    carrying EF residuals."""
+    return any(
+        isinstance(n, ShardedOptState) or n.residual is not None
+        for n in _nodes(tree, lambda n: isinstance(
+            n, (ShardedOptState, DistributedOptState)))
+    )
+
+
+def has_canonical_state(tree) -> bool:
+    """True when ``tree`` holds a canonical (checkpoint-form) state."""
+    return any(True for _ in _nodes(tree, lambda n: isinstance(
+        n, (CanonicalOptState, CanonicalDistOptState))))
+
+
+def _layout(params, threshold_bytes: int, pad_multiple: int) -> PackSpec:
+    """The bucket layout :func:`~.ops.batching.pack` gives ``params``
+    (padded to ``pad_multiple``), from shapes and dtypes alone."""
+    leaves, treedef = tree_flatten(params)
+    buckets, pads = [], []
+    for bucket in _bucketize(leaves, threshold_bytes):
+        size = sum(leaf.numel() for _, leaf in bucket)
+        pads.append((-size) % max(1, pad_multiple))
+        buckets.append(tuple(_Slot(i, tuple(leaf.shape), leaf.numel())
+                             for i, leaf in bucket))
+    return PackSpec(treedef, tuple(buckets), len(leaves), tuple(pads))
+
+
+def _pack_as(tree, spec: PackSpec, dtype=None):
+    """``tree`` (shaped like the params ``spec`` was made from) packed into
+    ``spec``'s padded buffers, in ``dtype`` when given: the buckets follow
+    the params' dtypes, so a fp32 residual tree packs as the runtime
+    residuals of bf16 params do."""
+    leaves, treedef = tree_flatten(tree)
+    if treedef != spec.treedef:
+        raise HorovodTpuError(
+            "canonical opt-state leaves do not match the target params "
+            "(did the model change since the checkpoint was written?)"
+        )
+    out = []
+    for slots, pad in zip(spec.buckets, spec.pad):
+        parts = []
+        for slot in slots:
+            leaf = leaves[slot.index]
+            if tuple(leaf.shape) != slot.shape:
+                raise HorovodTpuError(
+                    f"canonical leaf of shape {tuple(leaf.shape)} where the "
+                    f"target params hold {slot.shape}"
+                )
+            parts.append(leaf.reshape(-1) if dtype is None
+                         else leaf.reshape(-1).to(dtype))
+        if pad:
+            parts.append(parts[0].new_zeros((pad,)))
+        out.append(torch.cat(parts))
+    return out
+
+
+def _gather_full(shards) -> list:
+    """Every rank's shard of each bucket gathered into the full buffer."""
+    world = _world_size()
+    full = []
+    for shard in shards:
+        buf = torch.empty((world * shard.shape[0],), dtype=shard.dtype,
+                          device=shard.device)
+        full.append(allgather_chunks(buf, shard.contiguous()))
+    return full
+
+
+def _mean_residuals(residual: EFResiduals, world: int) -> list:
+    """The mean-equivalent residual buffers: every rank's residual feeds
+    the Average reduction as ``r_k / world``, so their sum over the world
+    divided by ``world`` is the quantity whose effect must survive."""
+    return [allreduce_(b.float().clone()) / world for b in residual.buffers]
+
+
+def _canonicalize_residuals(residual, spec: PackSpec,
+                            world: int) -> Optional[CanonicalResiduals]:
+    if residual is None:
+        return None
+    return CanonicalResiduals(
+        unpack(_mean_residuals(residual, world), spec),
+        threshold=residual.threshold, block=residual.block,
+    )
+
+
+def _reshard_residuals(canonical: Optional[CanonicalResiduals], params,
+                       threshold_bytes: int,
+                       world: int) -> Optional[EFResiduals]:
+    """The inverse for a world of ``world`` ranks: the mean-equivalent tree
+    packed into the quantized bucket layout (padded to ``world * block``),
+    the same buffer on every rank."""
+    if canonical is None:
+        return None
+    block = max(1, canonical.block)
+    spec = _layout(params, threshold_bytes, world * block)
+    return EFResiduals(_pack_as(canonical.tree, spec, torch.float32),
+                       threshold=threshold_bytes, block=block)
+
+
+def _check_world(world: int, what: str) -> None:
+    live = _world_size()
+    if world != live:
+        raise HorovodTpuError(
+            f"{what} was built for a world of {world} ranks and gathers "
+            f"across it, but this world has {live}; canonicalize while the "
+            "world that built it is up"
+        )
+
+
+def unshard_opt_state(state: ShardedOptState, params, *,
+                      threshold_bytes: Optional[int] = None
+                      ) -> CanonicalOptState:
+    """A ZeRO-1 state to its world-size-portable :class:`CanonicalOptState`
+    (a collective: every rank of the state's world calls it): each flat
+    bucket's shards are all-gathered and unpacked into parameter-shaped
+    leaves keyed by parameter name, the padding stripped; the EF residuals
+    become their mean-equivalent form. The layout comes from the state's
+    recorded ``threshold``, ``world`` and ``block`` (``threshold_bytes``
+    overrides); ``params`` must be the tree the state was built over."""
+    if threshold_bytes is None:
+        threshold_bytes = int(state.threshold)
+    world = int(state.world)
+    _check_world(world, "the sharded optimizer state")
+    block = max(1, int(state.block or 1))
+    if state.residual is not None:
+        block = max(block, state.residual.block or 1)
+    spec = _layout(params, threshold_bytes, world * block)
+    expected = list(spec.padded_sizes())
+    if state.residual is not None:
+        got = [int(b.shape[0]) for b in state.residual.buffers]
+        if got != expected:
+            raise HorovodTpuError(
+                f"EF residual buffers ({got} a rank) do not match the padded "
+                f"bucket layout {expected} for world={world}, block={block}"
+            )
+
+    def fix(n):
+        got = [int(b.shape[0]) * world for b in n.buffers]
+        if got != expected:
+            raise HorovodTpuError(
+                "sharded opt-state buffers do not match the bucket layout of "
+                f"these params ({got} vs expected {expected} for "
+                f"threshold={threshold_bytes}, world={world}); pass the "
+                "params and threshold_bytes the optimizer was built with"
+            )
+        return CanonicalBuckets(unpack(_gather_full(n.buffers), spec))
+
+    return CanonicalOptState(
+        inner=_map_nodes(fix, state.inner, _is_flat),
+        count=state.count,
+        threshold=threshold_bytes,
+        block=block,
+        residual=_canonicalize_residuals(state.residual, spec, world),
+    )
+
+
+def reshard_opt_state(state: CanonicalOptState, params, *,
+                      world: Optional[int] = None,
+                      threshold_bytes: Optional[int] = None
+                      ) -> ShardedOptState:
+    """A :class:`CanonicalOptState` to the ZeRO-1 layout of a world of
+    ``world`` ranks (default: this world), packed at ``threshold_bytes``
+    (default: the state's) and padded to ``world * block``; this rank keeps
+    its contiguous 1/N shard of every bucket. The inverse of
+    :func:`unshard_opt_state` with the padding recomputed: how a checkpoint
+    saved at N ranks restores onto M. ``params`` (the target's tree) is
+    checked against the canonical leaves."""
+    if world is None:
+        world = _world_size()
+    if threshold_bytes is None:
+        threshold_bytes = int(state.threshold)
+    block = max(1, int(state.block or 1))
+    if state.residual is not None:
+        block = max(block, state.residual.block or 1)
+    spec = _layout(params, threshold_bytes, world * block)
+
+    def fix(n):
+        full = _pack_as(n.tree, spec)
+        shards = shard_slice(full).buffers
+        # A shard owns its memory: a view would keep the full bucket alive.
+        return FlatBuckets([s.clone() for s in shards] if world > 1
+                           else shards)
+
+    return ShardedOptState(
+        inner=_map_nodes(fix, state.inner, _is_canonical),
+        count=state.count,
+        threshold=threshold_bytes,
+        world=world,
+        block=block,
+        residual=_reshard_residuals(state.residual, params, threshold_bytes,
+                                    world),
+    )
+
+
+def canonicalize_dist_state(state: DistributedOptState, params, *,
+                            world: Optional[int] = None):
+    """A quantized replicated state to its portable form (a collective: the
+    residuals' mean is an all-reduce): ``inner`` passes through, the EF
+    residuals become their mean-equivalent tree. A state without residuals
+    is returned as it is."""
+    if state.residual is None:
+        return state
+    if world is None:
+        world = _world_size()
+    _check_world(world, "the replicated optimizer state")
+    block = max(1, state.residual.block or 1)
+    spec = _layout(params, state.residual.threshold or
+                   _env.fusion_threshold_bytes(), world * block)
+    return CanonicalDistOptState(
+        inner=state.inner, count=state.count,
+        residual=_canonicalize_residuals(state.residual, spec, world),
+    )
+
+
+def reshard_dist_state(state: CanonicalDistOptState, params, *,
+                       world: Optional[int] = None) -> DistributedOptState:
+    """The inverse of :func:`canonicalize_dist_state` for this (or the
+    given) world; threshold and block come from the canonical residuals,
+    which after a checkpoint restore are the target optimizer's."""
+    if world is None:
+        world = _world_size()
+    threshold = (state.residual.threshold
+                 or _env.fusion_threshold_bytes())
+    return DistributedOptState(
+        inner=state.inner, count=state.count,
+        residual=_reshard_residuals(state.residual, params, threshold,
+                                    world),
+    )
+
+
+def canonicalize_sharded_states(tree, params, **kwargs):
+    """Every :class:`ShardedOptState` (and quantized
+    :class:`DistributedOptState`) in ``tree`` replaced by its canonical
+    form (see :func:`unshard_opt_state`, :func:`canonicalize_dist_state`)."""
+    def fix(n):
+        if isinstance(n, ShardedOptState):
+            return unshard_opt_state(n, params, **kwargs)
+        return canonicalize_dist_state(n, params)
+
+    return _map_nodes(fix, tree, lambda n: isinstance(
+        n, (ShardedOptState, DistributedOptState)))
+
+
+def reshard_sharded_states(tree, params, **kwargs):
+    """Every canonical state in ``tree`` replaced by its runtime form for
+    this world (see :func:`reshard_opt_state`, :func:`reshard_dist_state`)."""
+    def fix(n):
+        if isinstance(n, CanonicalOptState):
+            return reshard_opt_state(n, params, **kwargs)
+        return reshard_dist_state(n, params)
+
+    return _map_nodes(fix, tree, lambda n: isinstance(
+        n, (CanonicalOptState, CanonicalDistOptState)))

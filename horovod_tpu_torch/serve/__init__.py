@@ -1,5 +1,5 @@
 """Inference serving on the card -- the port of ``horovod_tpu.serve``'s
-request-level tier.
+request-level and token-level tiers.
 
 * :class:`Dispatcher` -- continuous batching into the ONE fixed batch
   shape, with an in-flight ledger so a dead worker's requests re-queue
@@ -7,7 +7,13 @@ request-level tier.
 * :class:`ServePool` -- the replicated worker pool: manifest-verified
   checkpoint loads (CRC walk-back on corruption), queue-depth autoscaling
   (:class:`QueueDepthPolicy`), and rolling checkpoint hot-swap one worker
-  at a time with automatic walk-back rollback.
+  at a time with automatic walk-back rollback;
+* :class:`DecodeEngine` -- the token-level tier: continuous batching at
+  decode granularity over a paged KV-cache pool (:mod:`.kvcache`, int8 with
+  ``kv_dtype="int8"``), streaming futures, speculative decoding with a
+  draft tier, and the zero-drop ledger at sequence granularity (a killed
+  worker's streams resume from prompt + committed tokens); :class:`CacheLM`
+  is the model it drives.
 
 Quickstart (GPT-2 small on the card)::
 
@@ -25,6 +31,7 @@ Quickstart (GPT-2 small on the card)::
 from ..elastic.scale import QueueDepthPolicy  # noqa: F401
 from ..ops.batching import (  # noqa: F401
     BatchSpec,
+    pack_prompts,
     pack_requests,
     unpack_requests,
     unpack_responses,
@@ -38,3 +45,6 @@ from .dispatcher import (  # noqa: F401
     ServeRequestFailed,
 )
 from .pool import ServePool, ServingWorker  # noqa: F401
+from .engine import DecodeEngine, DecodeWorker, StreamFuture  # noqa: F401
+from .kvcache import BlockTable, KVBlockPool, OutOfBlocks  # noqa: F401
+from .model import CacheLM, CacheLMConfig, perturbed_params  # noqa: F401

@@ -22,6 +22,12 @@ SERVE_SCALE_COOLDOWN_SECS = "SERVE_SCALE_COOLDOWN_SECS"  # between rescales
 SERVE_REQUEST_TIMEOUT_SECS = "SERVE_REQUEST_TIMEOUT_SECS"  # lease expiry
 SERVE_CKPT_POLL_SECS = "SERVE_CKPT_POLL_SECS"  # hot-swap watch period
 SERVE_WEIGHT_DTYPE = "SERVE_WEIGHT_DTYPE"  # serving weight storage: off|int8
+SERVE_KV_BLOCKS = "SERVE_KV_BLOCKS"  # paged KV pool capacity, blocks
+SERVE_KV_BLOCK_SIZE = "SERVE_KV_BLOCK_SIZE"  # tokens per KV block
+SERVE_KV_DTYPE = "SERVE_KV_DTYPE"  # KV-cache storage: off(=fp)|int8
+SERVE_DECODE_ROWS = "SERVE_DECODE_ROWS"  # fixed decode batch rows/worker
+SERVE_MAX_SEQ_LEN = "SERVE_MAX_SEQ_LEN"  # prompt+generation token ceiling
+SERVE_SPEC_K = "SERVE_SPEC_K"  # draft proposals per speculative round
 FUSED_UPDATE = "FUSED_UPDATE"  # fused ZeRO-1 optimizer-update kernel
 OVERLAP_ACCUM_STEPS = "OVERLAP_ACCUM_STEPS"  # default accum_steps (>=1)
 QUANT = "QUANT"  # quantized collective wire format: off|int8|fp8
@@ -48,6 +54,11 @@ DEFAULT_SERVE_QUEUE_LOW = 0.5
 DEFAULT_SERVE_SCALE_COOLDOWN_SECS = 5.0
 DEFAULT_SERVE_REQUEST_TIMEOUT_SECS = 30.0
 DEFAULT_SERVE_CKPT_POLL_SECS = 1.0
+DEFAULT_SERVE_KV_BLOCKS = 64
+DEFAULT_SERVE_KV_BLOCK_SIZE = 16
+DEFAULT_SERVE_DECODE_ROWS = 4
+DEFAULT_SERVE_MAX_SEQ_LEN = 256
+DEFAULT_SERVE_SPEC_K = 0
 DEFAULT_QUANT_BLOCK = 256  # 4/256 = 1.6% fp32-scale overhead on the wire
 DEFAULT_FP8_AMAX_HISTORY = 16  # steps of amax memory behind each scale
 DEFAULT_PUBLISH_EVERY = 0  # weight streaming is opt-in
@@ -176,6 +187,67 @@ def serve_weight_dtype() -> str:
     raise ValueError(
         f"HVDTPU_SERVE_WEIGHT_DTYPE={val!r} is not recognized; use off|int8"
     )
+
+
+def serve_kv_blocks() -> int:
+    """Paged KV-cache pool capacity in blocks per decode worker (>= 1):
+    the admission ceiling of the token-level engine."""
+    n = get_int(SERVE_KV_BLOCKS, DEFAULT_SERVE_KV_BLOCKS)
+    if n < 1:
+        raise ValueError(f"HVDTPU_SERVE_KV_BLOCKS must be >= 1, got {n}")
+    return n
+
+
+def serve_kv_block_size() -> int:
+    """Tokens per KV-cache block (>= 1). Smaller blocks waste fewer slots
+    on short tails but cost more block-table entries."""
+    n = get_int(SERVE_KV_BLOCK_SIZE, DEFAULT_SERVE_KV_BLOCK_SIZE)
+    if n < 1:
+        raise ValueError(
+            f"HVDTPU_SERVE_KV_BLOCK_SIZE must be >= 1, got {n}"
+        )
+    return n
+
+
+def serve_kv_dtype() -> str:
+    """KV-cache storage dtype: ``""`` (the model's own float dtype) or
+    ``"int8"`` (per-token-per-head max-abs scales, the blockwise codec with
+    block = head_dim). A typo must not silently serve fp."""
+    val = (get_str(SERVE_KV_DTYPE, "") or "").strip().lower()
+    if val in ("", "0", "off", "false", "no", "none"):
+        return ""
+    if val == "int8":
+        return val
+    raise ValueError(
+        f"HVDTPU_SERVE_KV_DTYPE={val!r} is not recognized; use off|int8"
+    )
+
+
+def serve_decode_rows() -> int:
+    """Fixed decode batch width per worker (>= 1): the one decode shape;
+    sequences join and leave rows between steps."""
+    n = get_int(SERVE_DECODE_ROWS, DEFAULT_SERVE_DECODE_ROWS)
+    if n < 1:
+        raise ValueError(f"HVDTPU_SERVE_DECODE_ROWS must be >= 1, got {n}")
+    return n
+
+
+def serve_max_seq_len() -> int:
+    """Per-sequence token ceiling (prompt + generation, >= 2): sizes the
+    prefill bucket and the per-sequence block-table width."""
+    n = get_int(SERVE_MAX_SEQ_LEN, DEFAULT_SERVE_MAX_SEQ_LEN)
+    if n < 2:
+        raise ValueError(f"HVDTPU_SERVE_MAX_SEQ_LEN must be >= 2, got {n}")
+    return n
+
+
+def serve_spec_k() -> int:
+    """Draft proposals per speculative-decoding round (0 disables the
+    draft tier; a draft model is then required on the engine)."""
+    n = get_int(SERVE_SPEC_K, DEFAULT_SERVE_SPEC_K)
+    if n < 0:
+        raise ValueError(f"HVDTPU_SERVE_SPEC_K must be >= 0, got {n}")
+    return n
 
 
 def fused_update_default() -> bool:

@@ -1085,6 +1085,31 @@ def test_tma_kernels_launch_from_a_fresh_thread(gen, kernel):
     assert torch.equal(got, fn())
 
 
+def test_fp8_matmul_entry_binds_the_context_in_a_fresh_thread(gen):
+    # hvt_fp8_matmul called through ctypes from a thread that has made no
+    # CUDA call, with no torch call in it first: the entry itself must bind
+    # the card's context before cuTensorMapEncodeTiled encodes its maps.
+    # (fp8_cast.cu, the fp8 path's other entry, encodes no tensor map: its
+    # loads and stores are plain global accesses, so it needs no binding.)
+    m, n, k = 256, 256, 512
+    x_q = torch.randn((m, k), generator=gen, device="cuda").to(
+        torch.float8_e4m3fn)
+    w_nk = torch.randn((n, k), generator=gen, device="cuda").to(
+        torch.float8_e4m3fn)
+    scale = torch.ones((), device="cuda")
+    out = torch.zeros((m, n), dtype=torch.float32, device="cuda")
+    entry = tq._kernel("hvt_fp8_matmul")
+    args = (x_q.data_ptr(), w_nk.data_ptr(), out.data_ptr(), None,
+            scale.data_ptr(), None, m, n, k, k, k, n, 0, 0, 0, 1,
+            out.device.index, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    rc = _in_fresh_thread(lambda: entry(*args))
+    torch.cuda.synchronize()
+    assert rc == 0, f"cudaError_t {rc}"
+    want = tq.fp8_matmul_reference(x_q, w_nk.t(), scale)
+    assert (out - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
 def test_int8_matmul_split_calls_from_two_threads_on_one_stream(gen):
     # ServePool's workers are threads launching on one stream: two threads
     # calling split products (M = 8) of different sizes at once, each call
@@ -1159,3 +1184,74 @@ def test_gpt2_int8_forward_fuses_every_bias(gen):
     want = (tq.int8_weight_matmul(x, fc.quantized_weight())
             + fc.bias.to(torch.bfloat16))
     assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("head_dim", [8, 16, 64])
+def test_kv_heads_kernels_match_plain_bit_for_bit(gen, head_dim):
+    # The int8 KV cache's codec: kernels 4 and 5 at block = head_dim, one
+    # launch each, bit for bit the plain versions; an all-zero head gets
+    # scale 1. The input starts 4 bytes past a 16-byte boundary (and at
+    # head_dim 8 every other row of the payload is off one).
+    shape = (2, 5, 3, head_dim)
+    n = int(np.prod(shape))
+    x = (torch.randn((n + 1,), generator=gen, device="cuda") * 3)[1:]
+    x = x.reshape(shape)
+    x[1, 2, 0] = 0.0
+    tq.reset_launches()
+    q, s = tq.quantize_kv_heads(x)
+    rq, rs = tq.quantize_kv_heads_reference(x)
+    assert tq.launches_quant == 1
+    assert q.dtype == torch.int8 and tuple(s.shape) == shape[:-1]
+    assert torch.equal(q, rq)
+    assert torch.equal(s.view(torch.int32), rs.view(torch.int32))
+    assert s[1, 2, 0].item() == 1.0
+    off = torch.empty((n + 1,), dtype=torch.int8, device="cuda")[1:]
+    off.copy_(q.reshape(-1))
+    for payload in (q, off.reshape(shape)):
+        d = tq.dequantize_kv_heads(payload, s)
+        rd = tq.dequantize_kv_heads_reference(payload, s)
+        assert torch.equal(d.view(torch.int32), rd.view(torch.int32))
+    assert tq.launches_dequant == 2
+
+
+class _CountingModel:
+    """A model's ``extend`` calls, counted."""
+
+    def __init__(self, model):
+        self.model, self.calls = model, 0
+        self.n_layers = model.n_layers
+        self.n_heads, self.head_dim = model.n_heads, model.head_dim
+
+    def extend(self, *args):
+        self.calls += 1
+        return self.model.extend(*args)
+
+
+@pytest.mark.parametrize("spec", [False, True], ids=["plain", "speculative"])
+def test_decode_engine_int8_kv_on_the_card_matches_the_cpu(gen, spec):
+    from horovod_tpu_torch.serve import (CacheLM, CacheLMConfig,
+                                         DecodeEngine, perturbed_params)
+
+    cfg = CacheLMConfig(vocab=32, n_layers=2, n_heads=2, head_dim=8,
+                        max_positions=256)
+    prompts = [[5, 9], [3, 1, 4], [7, 2], [11, 4, 1]]
+    outs = {}
+    for device in ("cpu", "cuda"):
+        model = _CountingModel(CacheLM(cfg, block_size=8))
+        params = model.model.init_params(0, device=device)
+        kw = dict(spec_k=3, draft_params=perturbed_params(params, 0.05),
+                  draft_model=model) if spec else {}
+        eng = DecodeEngine(model, params, workers=1, rows=2, kv_blocks=32,
+                           kv_block_size=8, max_seq_len=64, kv_dtype="int8",
+                           device=device, **kw).start()
+        tq.reset_launches()
+        try:
+            outs[device] = [f.result(timeout=60)
+                            for f in [eng.submit(p, 16) for p in prompts]]
+        finally:
+            eng.stop()
+        # Every extend gathers k and v (2 dequantizes) and its write
+        # quantizes them (2 quantizes); the CPU launches nothing.
+        want = 2 * model.calls if device == "cuda" else 0
+        assert tq.launches_quant == tq.launches_dequant == want
+    assert outs["cuda"] == outs["cpu"]

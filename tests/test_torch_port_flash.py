@@ -234,14 +234,17 @@ def test_library_hash_covers_the_shared_headers(tmp_path, monkeypatch):
     shutil.copytree(_build.SRC_DIR, src)
     monkeypatch.setattr(_build, "SRC_DIR", src)
     headers = sorted(src.glob("*.cuh"))
-    assert [h.name for h in headers] == ["sm90_common.cuh"]
+    assert [h.name for h in headers] == ["bind_device.cuh", "sm90_common.cuh"]
     before = _build._library_path("flash_fwd")
     assert _build._library_path("flash_fwd") == before
-    headers[0].write_bytes(headers[0].read_bytes() + b"\n")
-    after = _build._library_path("flash_fwd")
-    assert after != before and after.name.startswith("libflash_fwd-")
+    seen = {before}
+    for header in headers:
+        header.write_bytes(header.read_bytes() + b"\n")
+        after = _build._library_path("flash_fwd")
+        assert after not in seen and after.name.startswith("libflash_fwd-")
+        seen.add(after)
     (src / "extra.cuh").write_bytes(b"// another header\n")
-    assert _build._library_path("flash_fwd") not in (before, after)
+    assert _build._library_path("flash_fwd") not in seen
 
 
 @pytest.mark.parametrize("layout", ["bsm", "bhsd", "bshd"])
