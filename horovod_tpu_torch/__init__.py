@@ -4,6 +4,11 @@ A second package beside the JAX one, which stays the reference it is held
 against. This package imports ``torch``, ``numpy`` and the standard
 library only -- never JAX, and nothing of ``horovod_tpu``.
 
+Its model zoo is the JAX package's: GPT-2, BERT, ViT, an MLP, ResNet (with
+cross-replica BatchNorm) and a Switch MoE, with per-block or whole-loss
+rematerialization and a chunked cross-entropy for large vocabularies; its
+input path shards, resumes and prefetches batches (:mod:`.data`).
+
 It serves GPT-2 through :class:`~horovod_tpu_torch.serve.ServePool` and
 trains it data-parallel through :func:`~horovod_tpu_torch.parallel.dp.
 make_train_step` (replicated, or ZeRO-1 sharded with the fused AdamW
@@ -47,7 +52,28 @@ from .exceptions import (  # noqa: F401
     HorovodTpuError,
     NotInitializedError,
 )
-from .models import GPT2Config, GPT2LMModel, TransformerConfig  # noqa: F401
+from .data import (  # noqa: F401
+    ShardedBatches,
+    ShardedIndexSampler,
+    prefetch_to_device,
+)
+from .models import (  # noqa: F401
+    MLP,
+    BertConfig,
+    BertModel,
+    GPT2Config,
+    GPT2LMModel,
+    MoEConfig,
+    ResNet18,
+    ResNet34,
+    ResNet50,
+    ResNet101,
+    ResNet152,
+    SwitchTransformerLM,
+    TransformerConfig,
+    ViT,
+    ViTConfig,
+)
 from .ops.collectives import (  # noqa: F401
     Average,
     ReduceOp,
@@ -78,6 +104,11 @@ from .ops.quantization import (  # noqa: F401
     quantize_params,
     quantize_weight,
 )
+from .ops.losses import (  # noqa: F401
+    cross_entropy_logits_reference,
+    fused_cross_entropy,
+)
+from .ops.remat import checkpoint_fn, remat_module, resolve_policy  # noqa: F401
 from .ops.fusion import (  # noqa: F401
     fused_allgather,
     fused_allreduce,

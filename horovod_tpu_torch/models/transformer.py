@@ -1,5 +1,5 @@
-"""Shared transformer core (GPT-2 builds on it) -- the port of the JAX
-package's ``models/transformer.py``.
+"""Shared transformer core (GPT-2, BERT, ViT and the Switch MoE build on
+it) -- the port of the JAX package's ``models/transformer.py``.
 
 The numerics follow the flax modules the JAX package builds from:
 
@@ -30,7 +30,12 @@ QKV projection, which the kernel reads in place through strides.
 Pallas kernel on a TPU, and plain attention on the CPU; ``True`` takes it
 on either (CPU tensors run its plain version). On the card the kernel
 runs or the wrapper raises (it takes bf16 with head dim 64 or 128): plain
-attention runs there only for ``use_flash=False`` or an ``attention_fn``.
+attention runs there only for ``use_flash=False``, an ``attention_fn``, or
+a dense ``mask`` (BERT's padding mask), which takes plain attention on
+every device, as the JAX package routes it.
+
+``cfg.remat`` checkpoints each block (:func:`..ops.remat.remat_module`):
+the backward recomputes the block's forward, flash kernel included.
 
 ``compute_dtype="fp8"`` (``None`` reads ``HVDTPU_COMPUTE_DTYPE``) runs every
 attention and MLP projection through :class:`..ops.fp8.Fp8Linear`, as the
@@ -65,6 +70,7 @@ from ..ops.flash_attention import flash_attention
 from ..ops.fp8 import add_fp8_state, fp8_linear, resolve_compute_dtype
 from ..ops.quantization import (INT8, QuantizedWeight, int8_weight_matmul,
                                 quantize_weight)
+from ..ops.remat import remat_module, resolve_policy
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default (torch's is 1e-5)
 
@@ -82,8 +88,10 @@ class TransformerConfig:
     dtype: torch.dtype = torch.bfloat16
     # Storage dtype of the matmul and embedding weights; None = ``dtype``.
     param_dtype: Optional[torch.dtype] = None
-    # Per-block rematerialization: a training-slice feature; anything but
-    # False/None/"none" raises NotImplementedError.
+    # Per-block rematerialization: False/"none" (off), True/"full", a named
+    # policy ("dots_saveable" keeps the matmul outputs and recomputes the
+    # elementwise chains) or a custom policy callable -- one knob shared
+    # with make_train_step(remat=...) through ops/remat.resolve_policy.
     remat: Any = False
     # Training matmul precision: None (HVDTPU_COMPUTE_DTYPE decides at
     # construction), ""/"off" (``dtype``) or "fp8" (ops/fp8.Fp8Linear in
@@ -95,11 +103,7 @@ class TransformerConfig:
     use_flash: Optional[bool] = None
 
     def check_supported(self) -> None:
-        if self.remat not in (False, None, "none"):
-            raise NotImplementedError(
-                f"remat={self.remat!r} is not ported yet; it arrives with "
-                "the remat slice (ops/remat.py on torch.utils.checkpoint)"
-            )
+        resolve_policy(self.remat)  # a typo raises, as in the JAX package
         resolve_compute_dtype(self.compute_dtype)
         if self.d_model % self.n_heads:
             raise ValueError(
@@ -121,9 +125,9 @@ class TransformerConfig:
 def dot_product_attention(q, k, v, *, causal: bool, mask=None):
     """Plain attention on ``[B, S, H, D]``; softmax in fp32, probabilities
     rounded to the compute dtype before PV (the JAX package's
-    ``dot_product_attention``)."""
-    if mask is not None:
-        raise NotImplementedError("dense attention masks are not ported yet")
+    ``dot_product_attention``). ``mask`` is a boolean tensor broadcast
+    against the ``[B, H, Sq, Sk]`` scores (BERT's padding mask is
+    ``[B, 1, 1, Sk]``); a masked score becomes -1e30."""
     d = q.shape[-1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(d)
     if causal:
@@ -132,6 +136,8 @@ def dot_product_attention(q, k, v, *, causal: bool, mask=None):
             (qlen, klen), dtype=torch.bool, device=q.device
         ).tril()
         scores = scores.masked_fill(~cmask, -1e30)
+    if mask is not None:
+        scores = scores.masked_fill(~mask.to(torch.bool), -1e30)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
@@ -261,14 +267,12 @@ class MultiHeadAttention(nn.Module):
         q, k, v = self.qkv.parts(x)
         attn = self.attention_fn
         if attn is None:
-            if mask is not None:
-                raise NotImplementedError(
-                    "dense attention masks are not ported yet"
-                )
             use_flash = cfg.use_flash
             if use_flash is None:
                 use_flash = x.device.type == "cuda"
-            if use_flash:
+            # A dense mask takes plain attention on every device: the
+            # kernel masks causally only (the JAX package routes the same).
+            if use_flash and mask is None:
                 y = flash_attention(
                     q, k, v, causal=cfg.causal, layout="bsm", n_heads=h
                 )
@@ -330,8 +334,9 @@ class Transformer(nn.Module):
             nn.Embedding(cfg.type_vocab_size, cfg.d_model, **fac)
             if cfg.type_vocab_size else None
         )
+        block = remat_module(Block, cfg.remat)
         self.blocks = nn.ModuleList(
-            Block(cfg, attention_fn, device=device)
+            block(cfg, attention_fn, device=device)
             for _ in range(cfg.n_layers)
         )
         self.ln_f = LayerNorm(cfg.d_model, dtype=cfg.dtype, device=device)

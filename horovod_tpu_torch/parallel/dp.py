@@ -29,6 +29,7 @@ from ..ops.batching import tree_flatten, tree_map
 from ..ops.collectives import Average, ReduceOp, allreduce
 from ..ops.compression import Compression, is_quantized
 from ..ops.fp8 import fp8_state_optimizer, resolve_compute_dtype
+from ..ops.remat import checkpoint_fn
 from ..optimizer import DistributedOptimizer, Optimizer, ShardedDistributedOptimizer
 from ..utils import env as _env
 
@@ -146,7 +147,6 @@ _WAITING = {
     "guard": "the fault planes (ops/guards.py, guard/)",
     "autotune": "the tuning plane (tune/)",
     "publish": "the streaming plane (stream/)",
-    "remat": "the remat slice (ops/remat.py on torch.utils.checkpoint)",
     "act_quant": "its own slice (ops/actquant.py)",
 }
 
@@ -154,7 +154,7 @@ _WAITING = {
 def _armed(name: str, value) -> bool:
     if value is None or value is False:
         return False
-    if name in ("lint", "remat", "act_quant"):
+    if name in ("lint", "act_quant"):
         return str(value).lower() not in ("", "off", "none", "no", "false", "0")
     if name == "publish":
         return int(value) > 0
@@ -228,12 +228,20 @@ def make_train_step(
     committed by overwrite, never stepped by the optimizer. Replicated path
     with ``op=Average`` only, as in the JAX package.
 
+    ``remat`` (default from ``HVDTPU_REMAT``) checkpoints the whole loss
+    function (:func:`~..ops.remat.checkpoint_fn`): ``"full"``, a named
+    policy such as ``"dots_saveable"``, or a policy callable; a typo
+    raises ``ValueError`` here. The region is the whole loss, so the
+    backward recomputes the whole forward at its first saved tensor and
+    holds it: the memory saving comes from per-block remat
+    (``TransformerConfig.remat``), as the reference's memory planner
+    finds for its whole-loss ``jax.checkpoint``.
+
     ``overlap``, ``stagger``, ``lint``, ``guard``, ``autotune``,
-    ``publish``, ``remat`` and ``act_quant`` are not ported yet: arming one,
-    or leaving it None under an armed ``HVDTPU_OVERLAP``, ``_LINT``,
-    ``_GUARD``, ``_AUTOTUNE``, ``_PUBLISH_EVERY``, ``_REMAT`` or
-    ``_ACT_QUANT``, raises ``NotImplementedError`` naming the slice that
-    brings it.
+    ``publish`` and ``act_quant`` are not ported yet: arming one, or
+    leaving it None under an armed ``HVDTPU_OVERLAP``, ``_LINT``,
+    ``_GUARD``, ``_AUTOTUNE``, ``_PUBLISH_EVERY`` or ``_ACT_QUANT``, raises
+    ``NotImplementedError`` naming the slice that brings it.
     """
     # None reads the knob's HVDTPU_* default, as the JAX package does; an
     # explicit off value wins over the environment.
@@ -244,7 +252,6 @@ def make_train_step(
         guard=_env.guard_default() if guard is None else guard,
         autotune=_env.autotune_default() if autotune is None else autotune,
         publish=_env.publish_every() if publish is None else publish,
-        remat=_env.remat_mode() if remat is None else remat,
         act_quant=_env.act_quant_mode() if act_quant is None else act_quant,
     )
     for name, value in knobs.items():
@@ -253,6 +260,8 @@ def make_train_step(
                 f"make_train_step({name}={value!r}) is not ported yet; it "
                 f"arrives with {_WAITING[name]}"
             )
+    loss_fn = checkpoint_fn(
+        loss_fn, _env.remat_mode() if remat is None else remat)
     if compression is None:
         # Unset: HVDTPU_QUANT=int8|fp8 arms the quantized wire. An explicit
         # compression -- Compression.none included -- wins over the env.

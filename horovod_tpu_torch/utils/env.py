@@ -34,11 +34,12 @@ QUANT = "QUANT"  # quantized collective wire format: off|int8|fp8
 QUANT_BLOCK = "QUANT_BLOCK"  # elements per blockwise quantization scale
 COMPUTE_DTYPE = "COMPUTE_DTYPE"  # training matmul precision: off|fp8
 FP8_AMAX_HISTORY = "FP8_AMAX_HISTORY"  # delayed-scaling amax ring length
+REMAT = "REMAT"  # default remat policy for make_train_step(remat=...)
+PREFETCH_DEPTH = "PREFETCH_DEPTH"  # prefetch_to_device buffer depth
 # Defaults of make_train_step / ServePool knobs whose planes are not ported
 # yet: an armed value raises there as the explicit argument does.
 OVERLAP = "OVERLAP"  # default for make_train_step(overlap=...)
 LINT = "LINT"  # default for make_train_step(lint=...): off|warn|raise
-REMAT = "REMAT"  # default remat policy for make_train_step(remat=...)
 ACT_QUANT = "ACT_QUANT"  # int8 storage of remat'd activations: off|int8
 GUARD = "GUARD"  # arm the in-graph gradient guard by default
 PUBLISH_EVERY = "PUBLISH_EVERY"  # publish a delta every N commits; 0=off
@@ -62,6 +63,7 @@ DEFAULT_SERVE_SPEC_K = 0
 DEFAULT_QUANT_BLOCK = 256  # 4/256 = 1.6% fp32-scale overhead on the wire
 DEFAULT_FP8_AMAX_HISTORY = 16  # steps of amax memory behind each scale
 DEFAULT_PUBLISH_EVERY = 0  # weight streaming is opt-in
+DEFAULT_PREFETCH_DEPTH = 2  # double-buffered host-to-device staging
 
 
 def _lookup(name: str) -> Optional[str]:
@@ -338,7 +340,8 @@ def lint_mode() -> str:
 
 def remat_mode() -> str:
     """Default for ``make_train_step(remat=...)``: ``""`` (off), ``"full"``
-    or a named policy (``"dots_saveable"``)."""
+    or a named policy (``"dots_saveable"``). Validation happens in
+    :func:`..ops.remat.resolve_policy`: a typo raises there."""
     val = (get_str(REMAT, "") or "").strip().lower()
     if val in ("", "0", "off", "false", "no", "none"):
         return ""
@@ -374,3 +377,8 @@ def autotune_default() -> bool:
     """Default for ``make_train_step(autotune=...)`` and
     ``ServePool(autotune=...)``."""
     return get_bool(AUTOTUNE, False)
+
+
+def prefetch_depth() -> int:
+    """Default buffer depth for :func:`..data.prefetch_to_device`."""
+    return max(1, get_int(PREFETCH_DEPTH, DEFAULT_PREFETCH_DEPTH))

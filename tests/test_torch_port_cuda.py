@@ -2,7 +2,10 @@
 flash-attention forward (ragged tile edges, query tiles without keys and a
 bitwise repeat included), the backward pair (dK/dV, dQ), the fused AdamW
 update, the blockwise quantize/dequantize, the fused fp8 cast, the fp8 matmul
-and the int8-weight matmul. Every test here needs an NVIDIA GPU with nvcc (the kernels have no
+and the int8-weight matmul; and the paths of the zoo that reach them (a
+head-dim-64 BERT through the kernels, per-block remat bit for bit, ResNet's
+SAME padding and BatchNorm against the CPU, ``prefetch_to_device``). Every
+test here needs an NVIDIA GPU with nvcc (the kernels have no
 CPU mode) and skips without one. Run them on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
@@ -1255,3 +1258,129 @@ def test_decode_engine_int8_kv_on_the_card_matches_the_cpu(gen, spec):
         want = 2 * model.calls if device == "cuda" else 0
         assert tq.launches_quant == tq.launches_dequant == want
     assert outs["cuda"] == outs["cpu"]
+
+
+# -- the zoo, remat and the input path on the card -------------------------------
+
+
+def _grad_rel(a, b):
+    num = sum(float((a[n].float() - b[n].float()).norm()) ** 2 for n in b)
+    den = sum(float(b[n].float().norm()) ** 2 for n in b)
+    return (num / den) ** 0.5
+
+
+def test_bert_head_dim_64_through_the_kernels_matches_plain_attention(gen):
+    # BERT with head dim 64 (d 128, 2 heads, 2 layers), non-causal: the
+    # kernel path (1 forward, 1 dK/dV, 1 dQ launch a layer) against plain
+    # attention on the card; logits within 0.05 of the largest, gradients
+    # within 5e-2 relative L2 (chip_smoke's [train] bound). A padding mask
+    # takes plain attention: no launch.
+    import horovod_tpu_torch as hvt
+
+    cfg = hvt.BertConfig.tiny(d_model=128, n_heads=2,
+                              param_dtype=torch.float32)
+    sd = hvt.convert.init_bert_params(cfg, seed=0)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 128), device="cuda",
+                           generator=gen)
+    out = {}
+    for use_flash in (None, False):
+        m = hvt.BertModel(dataclasses.replace(cfg, use_flash=use_flash))
+        m.load_state_dict(sd)
+        fa.reset_launches()
+        logits = m(tokens)
+        names, params = zip(*m.named_parameters())
+        grads = torch.autograd.grad(logits.float().square().mean(), params,
+                                    allow_unused=True)  # wtt: no types
+        out[use_flash] = (logits.detach(), {
+            n: g for n, g in zip(names, grads) if g is not None},
+            (fa.launches, fa.launches_dkdv, fa.launches_dq))
+    assert out[None][2] == (2, 2, 2) and out[False][2] == (0, 0, 0)
+    ref = out[False][0].float()
+    err = (out[None][0].float() - ref).abs().max().item()
+    assert err <= 0.05 * ref.abs().max().item(), err
+    assert _grad_rel(out[None][1], out[False][1]) <= 5e-2
+    fa.reset_launches()
+    m(tokens, attention_mask=torch.ones_like(tokens))
+    assert fa.launches == 0
+
+
+@pytest.mark.parametrize("compute_dtype", ["", "fp8"])
+def test_remat_dots_saveable_gradients_bit_for_bit_on_the_card(
+        gen, compute_dtype):
+    # Per-block dots_saveable remat against remat off on the card: the
+    # kernels are deterministic, so every gradient -- with fp8 compute the
+    # new amax rings and weight residual too -- equals bit for bit, and the
+    # forward kernel runs twice a layer (forward and recompute).
+    import horovod_tpu_torch as hvt
+
+    tokens = torch.randint(0, 512, (4, 128), device="cuda", generator=gen)
+    grads, counts = {}, {}
+    for remat in ("none", "dots_saveable"):
+        cfg = hvt.GPT2Config.tiny(d_model=128, n_heads=2, remat=remat,
+                                  compute_dtype=compute_dtype,
+                                  param_dtype=torch.float32)
+        m = hvt.GPT2LMModel(cfg)
+        m.load_state_dict(hvt.convert.init_params(cfg, seed=1))
+        fa.reset_launches()
+        tq.reset_launches()
+        loss = m(tokens).float().logsumexp(-1).mean()
+        gs = torch.autograd.grad(loss, list(m.parameters()))
+        grads[remat] = dict(zip([n for n, _ in m.named_parameters()], gs))
+        counts[remat] = (fa.launches, fa.launches_dkdv, fa.launches_dq,
+                         tq.launches_fp8_matmul)
+    assert counts["none"][:3] == (2, 2, 2)
+    assert counts["dots_saveable"][:3] == (4, 2, 2)
+    if compute_dtype == "fp8":
+        assert any(".fp8_" in n for n in grads["none"])
+        assert counts["none"][3] == 18 * 2
+        # the six forward products of each layer run again in the recompute
+        assert counts["dots_saveable"][3] == 24 * 2
+    for n, g in grads["none"].items():
+        assert torch.equal(grads["dots_saveable"][n], g), n
+
+
+def test_resnet18_same_padding_and_batchnorm_on_the_card_match_the_cpu(gen):
+    # fp32 with TF32 off: logits and the updated running statistics of a
+    # train-mode forward at 64 x 64 (the stem pads (2, 3) at odd totals),
+    # channels_last on the card, within 1e-4 of the CPU.
+    import horovod_tpu_torch as hvt
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        x = torch.randn((4, 3, 64, 64), generator=gen, device="cuda")
+        cpu = hvt.ResNet18(num_classes=10, dtype=torch.float32, device="cpu")
+        sd = hvt.convert.init_resnet_params(cpu, seed=0)
+        cpu.load_state_dict(sd)
+        card = hvt.ResNet18(num_classes=10, dtype=torch.float32)
+        card.load_state_dict(sd)
+        with torch.no_grad():
+            want = cpu(x.cpu())
+            got = card(x)
+        assert (got.cpu() - want).abs().max().item() <= 1e-4
+        for (name, a), (_, b) in zip(card.named_buffers(),
+                                     cpu.named_buffers()):
+            assert (a.cpu() - b).abs().max().item() <= 1e-5, name
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+
+
+def test_prefetch_to_device_batches_equal_the_hosts(gen):
+    import horovod_tpu_torch as hvt
+
+    x = np.random.RandomState(0).standard_normal((40, 3, 8, 8)).astype(
+        np.float32)
+    y = np.arange(40)
+    batches = hvt.ShardedBatches([x, y], 8, hvt.ShardedIndexSampler(
+        40, seed=1, rank=0, world_size=1))
+    host = list(batches)
+    staged = list(hvt.prefetch_to_device(iter(batches), depth=3))
+    assert len(staged) == len(host) == 5
+    for (hx, hy, hi), (dx, dy, di) in zip(host, staged):
+        assert dx.device.type == "cuda" and dx.dtype == torch.float32
+        assert torch.equal(dx.cpu(), torch.from_numpy(hx))
+        assert torch.equal(dy.cpu(), torch.from_numpy(hy))
+        assert torch.equal(di.cpu(), torch.from_numpy(hi))

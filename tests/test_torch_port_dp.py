@@ -146,7 +146,18 @@ def test_fp32_master_weights_compute_like_the_bf16_model():
     ("compute_dtype", "fp8"), ("act_quant", "int8"),
 ])
 def test_unported_train_step_knobs_raise_naming_their_slice(knob, value):
-    if knob == "compute_dtype":
+    if knob == "remat":
+        # Ported (test_torch_port_remat.py): it builds and runs a step that
+        # checkpoints the loss, and a typo raises as in the JAX package.
+        _remat_step_runs(value)
+        from horovod_tpu.ops import remat as jremat
+
+        # (the resolver the JAX make_train_step validates its knob with)
+        with pytest.raises(ValueError, match="unknown remat policy"):
+            jremat.resolve_policy("fulll")
+        with pytest.raises(ValueError, match="unknown remat policy"):
+            _port_build(remat="fulll")
+    elif knob == "compute_dtype":
         # Ported: fp8 compute builds on the replicated path and refuses
         # ZeRO-1, as the JAX package does (test_torch_port_fp8_train.py).
         with pytest.raises(NotImplementedError, match="replicated-path only"):
@@ -187,6 +198,31 @@ def test_train_step_argument_checks():
     meta = {"w": torch.empty((4, 3), device="meta")}
     with pytest.raises(ValueError, match="this step runs on cpu"):
         step(tdp.TrainState(meta, state.opt_state, state.step), batch)
+
+
+def _port_build(**kw):
+    return tdp.make_train_step(lambda p, b: 0.0, topt.adamw(1e-3),
+                               device="cpu", **kw)
+
+
+def _remat_step_runs(remat=None):
+    """One step of a small regression through make_train_step(remat=...);
+    returns how many times the loss function ran (2: checkpointed)."""
+    params, batch = _problem()
+    calls = []
+
+    def loss(p, b):
+        calls.append(1)
+        return ((b["x"] @ p["w"] + p["b"] - b["y"]) ** 2).mean()
+
+    kw = {} if remat is None else {"remat": remat}
+    step, opt = tdp.make_train_step(loss, topt.adamw(1e-2), device="cpu",
+                                    **kw)
+    state = tdp.init_state(
+        {k: torch.from_numpy(v) for k, v in params.items()}, opt)
+    state, out = step(state, jax.tree.map(torch.from_numpy, batch))
+    assert np.isfinite(float(out))
+    return len(calls)
 
 
 # (env var, armed value, make_train_step argument, its explicit off value);
@@ -230,6 +266,14 @@ def test_armed_env_default_raises_like_the_explicit_argument(
     monkeypatch.setenv(var, armed)
     assert getattr(tenv, accessor)() == getattr(jenv, accessor)()
     assert getattr(tenv, accessor)()
+    if knob == "remat":
+        # Ported: the armed default checkpoints the loss (its forward runs
+        # again in the backward), as the explicit argument does, and an
+        # explicit off value wins over the environment.
+        assert _remat_step_runs() == 2
+        assert _remat_step_runs(armed) == 2
+        assert _remat_step_runs(off) == 1
+        return
     match = "autotune" if knob is None else "not ported yet.*arrives with"
     with pytest.raises(NotImplementedError, match=match):
         build()

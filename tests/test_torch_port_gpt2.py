@@ -239,25 +239,57 @@ def test_flash_path_runs_the_plain_version_on_cpu():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(remat="full"), "remat"),
+    (dict(remat="dots_savable"), "remat"),
     (dict(compute_dtype="fp16"), "compute_dtype"),
 ])
 def test_unported_options_raise(kw, match):
-    # compute_dtype="fp8" is ported (test_torch_port_fp8.py); another
-    # compute dtype is refused as the JAX package refuses it.
-    err = ValueError if "compute_dtype" in kw else NotImplementedError
-    with pytest.raises(err, match=match):
+    # remat and compute_dtype="fp8" are ported (test_torch_port_remat.py,
+    # test_torch_port_fp8.py); a remat typo and another compute dtype are
+    # refused as the JAX package refuses them.
+    with pytest.raises(ValueError, match=match):
+        jgpt2.GPT2LMModel(jgpt2.GPT2Config.tiny(**kw)).init(
+            jax.random.PRNGKey(0), jnp.zeros((1, 4), jnp.int32))
+    with pytest.raises(ValueError, match=match):
         GPT2LMModel(GPT2Config.tiny(**kw), device="cpu")
 
 
 def test_act_quant_and_dense_mask_raise():
+    # act_quant still raises; the dense mask is ported and now matches the
+    # JAX package (the name is kept from the case it replaced).
     with pytest.raises(NotImplementedError,
                        match="act_quant.*its own slice .ops/actquant.py."):
         GPT2LMModel(GPT2Config.tiny(), device="cpu", act_quant="int8")
-    m = GPT2LMModel(GPT2Config.tiny(use_flash=False), device="cpu")
-    x = torch.zeros((1, 4, 64), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="mask"):
-        m.transformer.blocks[0].attn(x, mask=torch.ones((4, 4), dtype=torch.bool))
+    # A dense [B, 1, 1, S] mask on top of the causal one, through the
+    # attention of a fp32 block: plain attention on both sides, 1e-5.
+    cfg = jgpt2.GPT2Config.tiny(dtype=jnp.float32, use_flash=True)
+    rs = np.random.RandomState(12)
+    x = rs.standard_normal((2, 8, 64)).astype(np.float32)
+    mask = np.ones((2, 1, 1, 8), bool)
+    mask[0, ..., 5:] = False
+    mask[1, ..., 2] = False
+    jm = jtr.MultiHeadAttention(cfg)
+    params = jm.init(jax.random.PRNGKey(1), jnp.asarray(x))
+    want = np.asarray(jm.apply(params, jnp.asarray(x), jnp.asarray(mask)))
+    tm = GPT2LMModel(GPT2Config.tiny(dtype=torch.float32, use_flash=True),
+                     device="cpu")
+    wrapped = {"params": {"transformer": {"block_0": {
+        "MultiHeadAttention_0": jax.tree.map(np.asarray, params["params"]),
+        "LayerNorm_0": {"scale": np.ones(64), "bias": np.zeros(64)},
+        "LayerNorm_1": {"scale": np.ones(64), "bias": np.zeros(64)}}}}}
+    sd = {k[len("transformer.blocks.0."):]: v for k, v in
+          convert.params_from_flax({"params": {"transformer": {
+              **wrapped["params"]["transformer"],
+              "wte": {"embedding": np.zeros((1, 64))},
+              "wpe": {"embedding": np.zeros((1, 64))},
+              "ln_f": {"scale": np.ones(64), "bias": np.zeros(64)}}}}).items()
+          if k.startswith("transformer.blocks.0.attn.")}
+    attn = tm.transformer.blocks[0].attn
+    attn.load_state_dict({k[len("attn."):]: v for k, v in sd.items()})
+    fa.reset_launches()
+    with torch.no_grad():
+        got = attn(torch.from_numpy(x), torch.from_numpy(mask)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    assert fa.launches == 0
 
 
 def test_dot_product_attention_matches_jax():
