@@ -305,14 +305,38 @@ Phases (any failure exits non-zero; nothing is caught):
    and its aux loss within 5e-2. Then the fused AdamW kernel against its
    plain version (4.'s bound) at the ZeRO-1 shard sizes of [train-bert] and
    of each [zoo] model's step ([train-remat] has [train]'s layout).
-21. Output: a "kernels" JSON line (the nine TPU kernels' counterparts and
+21. [train-adasum] ViT-L/16 at 224 (ViTConfig.large(), batch 32, fp32
+   master weights and bf16 compute from init_vit_params(seed=0), four
+   seeded batches) through the replicated step on the one-rank NCCL world:
+   (1) make_train_step(adamw(1e-4), op=Adasum) and op=Average, one step
+   each from the same start: the parameters equal bit for bit (both
+   reductions are the identity at one rank); (2) 3 timed Adasum steps on
+   one batch: losses finite and falling, step ms, peak memory, 24 forward,
+   24 dK/dV and 24 dQ flash launches a step and 0 AdamW kernel launches;
+   (3) DistributedOptimizer(adamw(1e-4), op=Adasum,
+   backward_passes_per_step=2) with distribute_optimizer=False over 4 steps
+   on two alternating batches: after steps 1 and 3 the parameters and the
+   inner AdamW state unchanged bit for bit, after step 2 the parameters
+   equal one AdamW step on g1 + g2 computed on its own, bit for bit; the
+   host enqueue ms of a skipping and of a syncing step; (4) Adasum's
+   arithmetic: the fp32 gradients of 4 (then 3) seeded batches as virtual
+   ranks through the VHDD schedule (adasum_stacked, the distributed
+   path's combine) against the fp64 adasum_fold, every leaf within 1e-5
+   relative L2 (the worst printed), and one combine round over the whole
+   gradient timed by device_ms, with its launches (one profiler window)
+   and its byte bound (a and b read, the result written, over 3.35 TB/s);
+   (5) broadcast_object of a dict with a string, an int and a numpy
+   array, allgather_object, broadcast_parameters of ViT-L's parameters and
+   broadcast_optimizer_state of the AdamW state of (3), bit for bit, and
+   the uneven allgather and alltoall(splits) at one rank.
+22. Output: a "kernels" JSON line (the nine TPU kernels' counterparts and
    the cast kernel; "launches" is the training run's count -- for the
    quantize pair the int8 [train-quant] run's (beside it the
    [ckpt-reshard] and int8 [decode] runs' and the KV shapes' times as
    "kv_write" / "kv_gather"), for kernel 8 and the cast kernel the fp8
    [train-fp8] run's, for kernel 7 the [serve-int8] rounds' -- the forward
    kernel's serving count beside it as "launches_serve", and the flash
-   kernels' and AdamW's counts in 18.-20., each read over its own run, as
+   kernels' and AdamW's counts in 18.-21., each read over its own run, as
    "launches_phases"), the card's name and power limit, and the last line
    {"ok": true, "device": {...}}.
 
@@ -411,6 +435,9 @@ REMAT_BATCH, REMAT_STEPS, GPT2_CHUNK_RTOL = 32, 3, 1e-3
 # attention.
 ZOO_STEPS, ZOO_LR, ZOO_TOL, MOE_ROUTE_AGREE, MOE_TOL = 3, 1e-4, 5e-2, 0.9, 0.1
 VIT_BATCH, RESNET_BATCH, MOE_BATCH, RESNET_IMAGE = 32, 64, 8, 224
+# [train-adasum]: 3 timed steps; the fp32 VHDD against the fp64 fold,
+# relative L2 per leaf (fp32 products and row sums against fp64 sums).
+ADASUM_STEPS, ADASUM_LR, ADASUM_TOL = 3, 1e-4, 1e-5
 
 
 def log(msg: str) -> None:
@@ -3502,6 +3529,236 @@ def zoo(hvt, kernels):
     return out
 
 
+def tree_equal(a, b) -> bool:
+    """Equal structure and tensors bit for bit (NaN payloads included)."""
+    from horovod_tpu_torch.ops.batching import tree_flatten
+
+    (la, ta), (lb, tb) = tree_flatten(a), tree_flatten(b)
+    return ta == tb and all(
+        torch.equal(x.view(torch.uint8) if x.dtype.is_floating_point
+                    else x, y.view(torch.uint8) if y.dtype.is_floating_point
+                    else y) if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(la, lb))
+
+
+def snapshot(tree):
+    from horovod_tpu_torch.ops.batching import tree_map
+
+    return tree_map(lambda t: t.detach().clone()
+                    if isinstance(t, torch.Tensor) else t, tree)
+
+
+def adasum_arithmetic(grads, n):
+    """(4.) the fp32 VHDD over the first ``n`` gradients against the fp64
+    fold, per leaf; returns the worst leaf's relative L2."""
+    from horovod_tpu_torch.ops import adasum
+
+    got = adasum.adasum_stacked(grads[:n])
+    worst = (0.0, None)
+    for name in got:
+        want = adasum.adasum_fold(torch.stack([g[name] for g in grads[:n]]))
+        den = float(want.norm())
+        err = (float((got[name].double() - want).norm()) / den if den
+               else float(got[name].abs().max()))
+        worst = max(worst, (err, name))
+    log(f"[train-adasum] VHDD fp32 vs fp64 fold, {n} virtual ranks, "
+        f"{len(got)} leaves: worst leaf {worst[1]} relative L2 {worst[0]:.3e}"
+        f" (tol {ADASUM_TOL})")
+    if not worst[0] <= ADASUM_TOL:
+        raise AssertionError(f"[train-adasum] VHDD vs fold at {n} ranks")
+    return {"worst_rel_l2": worst[0], "worst_leaf": worst[1]}
+
+
+def combine_round(grads):
+    """One combine round over the whole gradient (two virtual ranks'
+    packed fp32 buffers): device ms (device_ms), its launches (one
+    profiler window) and its byte bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from horovod_tpu_torch.ops import adasum
+    from horovod_tpu_torch.ops.batching import tree_flatten
+
+    leaves = [tree_flatten(g)[0] for g in grads[:2]]
+    layout = adasum.FlatLayout(leaves[0])
+    (a,), (b,) = layout.pack(leaves[0]), layout.pack(leaves[1])
+    ((seg, n_seg),) = layout.segments()
+
+    def fn():
+        return adasum.combine(a, b, seg, n_seg)
+
+    ms = device_ms(fn, calls=10)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {}
+    device_ms_by_name(prof, counts)
+    elements = sum(x.numel() for x in leaves[0])
+    bound = 3 * elements * 4 / HBM_BYTES_PER_S * 1e3
+    rec = {"device_ms": ms, "launches": sum(counts.values()),
+           "launches_by_category": counts, "elements": elements,
+           "padded_elements": a.numel(), "bound_ms": bound,
+           "bound_by": "bytes", "over_bound": ms / bound}
+    log(f"[train-adasum] one combine round over {elements} fp32 elements "
+        f"({len(leaves[0])} leaves, {a.numel()} packed): {ms:.4f} device ms,"
+        f" {rec['launches']} launches, byte bound {bound:.4f} ms "
+        f"({rec['over_bound']:.2f}x)")
+    return rec
+
+
+def train_adasum(hvt, kernels):
+    """[train-adasum]: ViT-L/16 through the replicated step with op=Adasum
+    on the one-rank NCCL world, backward_passes_per_step=2, Adasum's
+    arithmetic over virtual ranks and the object and state helpers."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.parallel import dp
+
+    t_phase = time.perf_counter()
+    hvt.init(backend="nccl")
+    # The patch embedding's convolution: a deterministic cuDNN algorithm, so
+    # a gradient computed twice is the same bits (check 3).
+    cudnn_deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    rng = np.random.default_rng(12)
+    model, sd = zoo_model(hvt, "vit")
+    size, n = model.cfg.image_size, VIT_BATCH
+    batches = [(torch.from_numpy(rng.standard_normal(
+        (n, 3, size, size), dtype=np.float32)).cuda(),
+        torch.from_numpy(rng.integers(0, model.head.weight.shape[0],
+                                      (n,))).cuda()) for _ in range(4)]
+
+    def loss_fn(p, b):
+        return F.cross_entropy(torch.func.functional_call(model, p, (b[0],)),
+                               b[1])
+
+    rec = {}
+    # (1) Adasum and Average from the same start, one step each.
+    after = {}
+    for op in (hvt.Adasum, hvt.Average):
+        model.load_state_dict(sd)
+        step, opt = hvt.make_train_step(loss_fn, hvt.adamw(ADASUM_LR), op=op)
+        state, _ = step(dp.init_state(model, opt), batches[0])
+        after[op] = (snapshot(state.params), snapshot(state.opt_state))
+        del step, opt, state
+    same = (tree_equal(*(a[0] for a in after.values()))
+            and tree_equal(*(a[1] for a in after.values())))
+    log(f"[train-adasum] (1) one step with op=Adasum and with op=Average "
+        f"from one start, one rank: parameters and AdamW state bit for bit "
+        f"{same}")
+    if not same:
+        raise AssertionError("[train-adasum] Adasum != Average at one rank")
+    rec["adasum_equals_average"] = same
+    del after
+
+    # (2) Three timed Adasum steps.
+    model.load_state_dict(sd)
+    step, opt = hvt.make_train_step(loss_fn, hvt.adamw(ADASUM_LR),
+                                    op=hvt.Adasum)
+    state = dp.init_state(model, opt)
+    reset_counts(*kernels)
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    state, times = timed_steps(step, state, lambda i: batches[0],
+                               ADASUM_STEPS, losses)
+    counts = read_counts(*kernels)
+    peak = peak_gib()
+    layers = model.cfg.n_layers
+    log(f"[train-adasum] (2) ViT-L/16 b{n} Adasum steps: losses {losses}; "
+        f"step ms {times}; peak {peak:.3f} GiB; launches over "
+        f"{ADASUM_STEPS} steps {counts}")
+    check_counts("train-adasum", counts, {
+        "flash_fwd": layers, "flash_bwd_dkdv": layers,
+        "flash_bwd_dq": layers, "fused_adamw": 0}, ADASUM_STEPS)
+    check_falling("train-adasum", losses)
+    rec.update(losses=losses, step_ms=times, peak_gib=peak, launches=counts)
+    del step, opt, state
+
+    # (3) backward_passes_per_step=2 on two alternating batches.
+    model.load_state_dict(sd)
+    inner = hvt.adamw(ADASUM_LR)
+    opt = hvt.DistributedOptimizer(inner, op=hvt.Adasum,
+                                   backward_passes_per_step=2)
+    step, _ = hvt.make_train_step(loss_fn, opt, distribute_optimizer=False)
+    state = dp.init_state(model, opt)
+    enqueue, checks = [], []
+    for i in range(4):
+        batch = batches[i % 2]
+        before = (snapshot(state.params), snapshot(state.opt_state.inner))
+        if i == 1:
+            g1 = grads_before
+            _, _, g2 = dp.accumulate_gradients(loss_fn, state.params, batch, 1)
+            want, _ = inner.update({k: g1[k] + g2[k] for k in g1},
+                                   inner.init(before[0]), before[0])
+            want = {k: before[0][k] + want[k] for k in want}
+            del g1, g2
+        if i == 0:
+            _, _, grads_before = dp.accumulate_gradients(
+                loss_fn, state.params, batch, 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        if i % 2 == 0:  # a skipping step
+            checks.append(tree_equal(state.params, before[0])
+                          and tree_equal(state.opt_state.inner, before[1]))
+        elif i == 1:
+            checks.append(tree_equal(state.params, want))
+            del want
+        del before
+    inner_count = int(state.opt_state.inner.count)
+    log(f"[train-adasum] (3) backward_passes_per_step=2, 4 steps: steps 1 "
+        f"and 3 left parameters and AdamW state bit for bit {checks[0]}, "
+        f"{checks[2]}; step 2 equals AdamW on g1 + g2 bit for bit "
+        f"{checks[1]}; AdamW count {inner_count}; host enqueue ms skipping "
+        f"{enqueue[0::2]}, syncing {enqueue[1::2]}")
+    if not all(checks) or inner_count != 2:
+        raise AssertionError("[train-adasum] backward_passes_per_step=2")
+    rec.update(accumulation_checks=checks, enqueue_ms_skip=enqueue[0::2],
+               enqueue_ms_sync=enqueue[1::2])
+    opt_state = state.opt_state
+    del step, state
+
+    # (4) Adasum's arithmetic over virtual ranks.
+    model.load_state_dict(sd)
+    params = dict(model.named_parameters())
+    grads = [dp.accumulate_gradients(loss_fn, params, b, 1)[2]
+             for b in batches]
+    rec["vhdd_vs_fold"] = {k: adasum_arithmetic(grads, k) for k in (4, 3)}
+    rec["combine_round"] = combine_round(grads)
+    del grads
+
+    # (5) The object and state helpers on the NCCL world.
+    obj = {"name": "vit-l", "step": 7, "array": np.arange(11.0)}
+    got = hvt.broadcast_object(obj)
+    gathered = hvt.allgather_object(obj)
+    objects_ok = (got["name"] == "vit-l" and got["step"] == 7
+                  and np.array_equal(got["array"], obj["array"])
+                  and len(gathered) == 1 and gathered[0]["step"] == 7)
+    params_ok = tree_equal(hvt.broadcast_parameters(params), params)
+    state_ok = tree_equal(hvt.broadcast_optimizer_state(opt_state), opt_state)
+    x = torch.arange(12.0, device=hvt.device()).reshape(6, 2)
+    y, recv = hvt.alltoall(x, splits=[6])
+    moves_ok = (torch.equal(hvt.allgather(x[:5]), x[:5])
+                and torch.equal(y, x) and recv.tolist() == [6])
+    helpers = {"objects": objects_ok, "parameters": params_ok,
+               "optimizer_state": state_ok, "uneven_moves": moves_ok}
+    log(f"[train-adasum] (5) on the NCCL world, bit for bit: {helpers}")
+    if not all(helpers.values()):
+        raise AssertionError(f"[train-adasum] helpers {helpers}")
+    rec["helpers"] = helpers
+    del model, params, opt_state, batches
+    torch.cuda.empty_cache()
+    hvt.shutdown()
+    torch.backends.cudnn.deterministic = cudnn_deterministic
+    rec["wall_s"] = time.perf_counter() - t_phase
+    log(f"[train-adasum] phase wall {rec['wall_s']:.1f} s")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3620,6 +3877,7 @@ def main() -> int:
     bert = train_bert(hvt, (fa, fadam, tq))
     remat = train_remat(hvt, (fa, fadam, tq))
     zooed = zoo(hvt, (fa, fadam, tq))
+    adasum = train_adasum(hvt, (fa, fadam, tq))
     # [train-remat] trains GPT-2 small, [train]'s layout (held in adam).
     adam_phases = adamw_phase_checks(fadam, gen, {
         "train_bert": bert["bucket_sizes"],
@@ -3630,7 +3888,8 @@ def main() -> int:
                     "launches_train_remat": {
                         k: r["launches"] for k, r in remat["runs"].items()},
                     "launches_zoo": {k: zooed[k]["launches"]
-                                     for k in ("vit", "resnet", "moe")}}
+                                     for k in ("vit", "resnet", "moe")},
+                    "launches_train_adasum": adasum["launches"]}
 
     src = "horovod_tpu_torch/csrc/"
     ref = "horovod_tpu/ops/pallas_kernels.py:"
@@ -3646,6 +3905,7 @@ def main() -> int:
                             new_launches["launches_train_remat"].items()},
             "zoo": {k: c[name] for k, c in
                     new_launches["launches_zoo"].items()},
+            "train_adasum": new_launches["launches_train_adasum"][name],
         }
 
     kernels = [{
@@ -3842,7 +4102,8 @@ def main() -> int:
                       "int8": int8, "serve_int8": served_int8,
                       "kv_quant": kv_quant, "ckpt_reshard": resharded,
                       "decode": decoded, "train_bert": bert,
-                      "train_remat": remat, "zoo": zooed}),
+                      "train_remat": remat, "zoo": zooed,
+                      "train_adasum": adasum}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

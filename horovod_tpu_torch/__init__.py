@@ -9,6 +9,11 @@ cross-replica BatchNorm) and a Switch MoE, with per-block or whole-loss
 rematerialization and a chunked cross-entropy for large vocabularies; its
 input path shards, resumes and prefetches batches (:mod:`.data`).
 
+Its collectives run on ``torch.distributed`` over named mesh axes
+(``init(mesh=..., hierarchical=...)``, ``axis=``), with Adasum, uneven
+allgather and alltoall, and the object and state broadcasts of a Horovod
+script's start (:mod:`.functions`).
+
 It serves GPT-2 through :class:`~horovod_tpu_torch.serve.ServePool` and
 trains it data-parallel through :func:`~horovod_tpu_torch.parallel.dp.
 make_train_step` (replicated, or ZeRO-1 sharded with the fused AdamW
@@ -42,10 +47,12 @@ from .context import (  # noqa: F401
     is_initialized,
     local_rank,
     local_size,
+    mesh,
     rank,
     resolve_device,
     shutdown,
     size,
+    world_axes,
 )
 from .exceptions import (  # noqa: F401
     CheckpointCorruptError,
@@ -74,14 +81,32 @@ from .models import (  # noqa: F401
     ViT,
     ViTConfig,
 )
+from .functions import (  # noqa: F401
+    allgather_object,
+    broadcast_object,
+    broadcast_optimizer_state,
+    broadcast_parameters,
+    broadcast_variables,
+)
 from .ops.collectives import (  # noqa: F401
+    Adasum,
     Average,
+    Max,
+    Min,
+    Product,
     ReduceOp,
     Sum,
     allgather,
     allreduce,
+    alltoall,
     barrier,
     broadcast,
+    grouped_allgather,
+    grouped_allreduce,
+    grouped_reducescatter,
+    join,
+    masked_allreduce,
+    ppermute,
     reducescatter,
 )
 from .ops.compression import Compression  # noqa: F401
@@ -121,7 +146,10 @@ from .optimizer import (  # noqa: F401
     ShardedDistributedOptimizer,
     adamw,
     fused_adamw,
+    grad,
     reshard_opt_state,
     unshard_opt_state,
+    value_and_grad,
 )
 from .parallel.dp import TrainState, init_state, make_train_step  # noqa: F401
+from .parallel.mesh import build_mesh  # noqa: F401

@@ -70,9 +70,10 @@ STATE_NAME = "state.pt"
 
 
 def _is_writer() -> bool:
-    """Rank-0-only writes, the reference's convention."""
+    """Rank-0-only writes, the reference's convention (the global rank:
+    on a mesh, ``rank()`` is the index along the world axes)."""
     if _ctx.is_initialized():
-        return _ctx.rank() == 0
+        return _ctx.context().rank == 0
     return _ctx.launcher_rank() == 0
 
 

@@ -19,6 +19,14 @@ environment, else -- for a world of one -- a file store in a fresh
 temporary directory. :func:`spawn_gloo` runs a function on a gloo world of
 CPU processes (the multi-rank CPU tests use it).
 
+The world is a named mesh of ranks (:mod:`.parallel.mesh`), as in the JAX
+package: a flat ``"hvd"`` axis by default, ``(cross, local)`` with
+``hierarchical=True`` (``local`` the processes of a host), or the caller's
+``mesh=`` with ``world_axes=`` naming the axes that form the data-parallel
+world. ``size(axis)`` and ``rank(axis)`` read it, and every collective's
+``axis=`` resolves through :func:`axis_group` to this process's group
+along those axes (``None``: the world axes).
+
 Every entry point of the package runs on the card unless the caller
 passes ``device="cpu"``: :func:`resolve_device` raises when CUDA is
 absent instead of dropping to the CPU.
@@ -31,18 +39,23 @@ import os
 import shutil
 import tempfile
 import threading
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
-from .exceptions import NotInitializedError
+from .exceptions import HorovodTpuError, NotInitializedError
 
 _RANK_VARS = ("RANK", "HOROVOD_RANK")
 _SIZE_VARS = ("WORLD_SIZE", "HOROVOD_SIZE")
 _LOCAL_RANK_VARS = ("LOCAL_RANK", "HOROVOD_LOCAL_RANK")
 _LOCAL_SIZE_VARS = ("LOCAL_WORLD_SIZE", "HOROVOD_LOCAL_SIZE")
 BACKENDS = ("nccl", "gloo")
+# The flat data-parallel world axis, and the hierarchical (intra-host /
+# inter-host) axis names, as the JAX package names them.
+WORLD_AXIS = "hvd"
+LOCAL_AXIS = "local"
+CROSS_AXIS = "cross"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +68,8 @@ class TorchContext:
     device: torch.device
     local_size: int = 1
     backend: Optional[str] = None  # the process group's, None without one
+    mesh: Any = None  # a parallel.mesh.Mesh
+    world_axes: Tuple[str, ...] = (WORLD_AXIS,)  # the mesh axes of the world
 
     @property
     def cross_size(self) -> int:
@@ -122,14 +137,23 @@ def _init_method(init_method: Optional[str], size: int) -> str:
 
 
 def init(device=None, *, backend: Optional[str] = None,
-         init_method: Optional[str] = None) -> TorchContext:
+         init_method: Optional[str] = None,
+         mesh=None,
+         world_axes: Optional[Sequence[str]] = None,
+         hierarchical: bool = False) -> TorchContext:
     """Read rank/size/local rank/local size from the launcher's environment
     and pin this process's device (default ``cuda:<local_rank>``).
 
     ``backend`` ``"nccl"`` (the card) or ``"gloo"`` (the CPU) also
     initializes the default ``torch.distributed`` process group with that
     rank and world size; ``None`` leaves process groups alone (a serving
-    process needs none)."""
+    process needs none).
+
+    The world's mesh: ``mesh`` (axis sizes, or a :class:`~.parallel.mesh.
+    Mesh` built on this world), with ``world_axes`` its axes that form the
+    world (default all); else ``hierarchical=True`` for ``(cross, local)``
+    axes from the local size; else one ``"hvd"`` axis. Building a mesh's
+    process groups is collective: every rank calls ``init`` alike."""
     global _context
     rank = launcher_rank()
     size = _env_int(_SIZE_VARS, 1)
@@ -153,6 +177,8 @@ def init(device=None, *, backend: Optional[str] = None,
                 f"backend {backend!r} runs on {want} tensors, but this "
                 f"process's device is {dev}"
             )
+    from .parallel import mesh as _mesh
+
     with _lock:
         if backend is not None and not dist.is_initialized():
             if dev.type == "cuda":
@@ -161,9 +187,24 @@ def init(device=None, *, backend: Optional[str] = None,
                 backend, init_method=_init_method(init_method, size),
                 rank=rank, world_size=size,
             )
+        if isinstance(mesh, _mesh.Mesh):
+            m = mesh
+        elif mesh is not None:
+            m = _mesh.build_mesh(mesh, world=size, rank=rank, axis_groups=(
+                [tuple(world_axes)] if world_axes else ()))
+        elif hierarchical:
+            m = _mesh.build_mesh(
+                {CROSS_AXIS: size // local_size, LOCAL_AXIS: local_size},
+                world=size, rank=rank)
+        else:
+            m = _mesh.build_mesh({WORLD_AXIS: size}, world=size, rank=rank)
+        if m.size != size:
+            raise ValueError(f"{m} does not cover the world of {size}")
+        axes = tuple(world_axes) if world_axes else m.axis_names
+        m.group(axes)  # an unknown or unbuilt world axis raises here
         _context = TorchContext(
             rank, size, local_rank, dev, local_size,
-            backend if dist.is_initialized() else None,
+            backend if dist.is_initialized() else None, m, axes,
         )
         return _context
 
@@ -172,9 +213,12 @@ def shutdown() -> None:
     """Forget the context and tear down the process group that
     :func:`init` brought up."""
     global _context, _store_dir
+    from .ops import collectives
+
     with _lock:
         if _context is not None and _context.backend and dist.is_initialized():
             dist.destroy_process_group()
+            collectives.forget_groups()
         _context = None
         if _store_dir is not None:
             shutil.rmtree(_store_dir, ignore_errors=True)
@@ -191,14 +235,43 @@ def context() -> TorchContext:
     return _context
 
 
-def rank() -> int:
-    """Rank of this process in the world."""
-    return context().rank
+def rank(axis=None) -> int:
+    """This process's rank along ``axis`` (default: the world axes; the
+    index is row-major over a tuple of axes)."""
+    c = context()
+    return c.mesh.axis_index(c.world_axes if axis is None else axis, c.rank)
 
 
-def size() -> int:
-    """Number of processes in the world."""
-    return context().size
+def size(axis=None) -> int:
+    """Number of processes along ``axis`` (default: the world axes)."""
+    c = context()
+    return c.mesh.axis_size(c.world_axes if axis is None else axis)
+
+
+def mesh():
+    """The world's mesh."""
+    return context().mesh
+
+
+def world_axes() -> Tuple[str, ...]:
+    return context().world_axes
+
+
+def axis_group(axis=None):
+    """This process's group along ``axis`` -- a mesh axis name or a tuple
+    of names; ``None`` is the world axes -- which every collective's
+    ``axis=`` resolves through. Without :func:`init` the world is the
+    default process group (or one process), and a named axis raises."""
+    from .parallel import mesh as _mesh
+
+    c = _context
+    if c is None:
+        if axis is not None:
+            raise HorovodTpuError(
+                f"axis {axis!r} names no mesh axis: call "
+                "horovod_tpu_torch.init() first")
+        return _mesh._world_group()
+    return c.mesh.group(c.world_axes if axis is None else axis)
 
 
 def local_rank() -> int:

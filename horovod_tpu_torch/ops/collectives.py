@@ -1,27 +1,38 @@
 """Collective operations on ``torch.distributed``.
 
-The port of the JAX package's ``ops/collectives.py`` for one process per
+The port of the JAX package's ``ops/collectives.py`` (and of the uneven
+exchanges its process path, ``ops/eager.py``, serves) for one process per
 card: where the JAX package lowers each collective to a ``jax.lax``
-primitive inside its SPMD program, the port calls ``torch.distributed`` on
-the default process group (NCCL on the card, gloo on the CPU; see
-:func:`horovod_tpu_torch.context.init`). Without a process group the world
-is one process and every collective is the identity (a copy); with one,
-every call goes through ``torch.distributed``, a world of one included.
+primitive inside its SPMD program, the port calls ``torch.distributed``
+(NCCL on the card, gloo on the CPU; see
+:func:`horovod_tpu_torch.context.init`). ``axis=`` names the mesh axes the
+collective runs over -- this process's group along them
+(:func:`~horovod_tpu_torch.context.axis_group`); ``None`` is the world
+axes. Without a process group, or on a group of one process other than
+the world, every collective is the identity (a copy); the world's group
+goes through ``torch.distributed`` even at one process.
 
 Reduction semantics follow the reference (``operations.cc:943-975``):
-Average is a Sum followed by a division by the world size -- as the JAX
+Average is a Sum followed by a division by the group's size -- as the JAX
 package computes it, and the form gloo supports -- and
 ``prescale_factor``/``postscale_factor`` multiply before and after the
-reduction. Every function returns new tensors and leaves its inputs alone.
+reduction; Adasum reduces through :mod:`.adasum`. Every function returns
+new tensors and leaves its inputs alone.
 
-The public ``alltoall(splits)``, ``join`` and ``masked_allreduce`` are not
-ported yet; :func:`alltoall_chunks` (equal chunks) carries the quantized
-wire.
+The uneven exchanges negotiate first, as the reference's controller does:
+:func:`allgather` exchanges every rank's first dimension (with its
+trailing shape and dtype, so a mismatch raises ``HorovodTpuError`` on
+every rank instead of aborting the process group), and
+:func:`alltoall` exchanges the split table. :func:`join` returns -1: the
+port has no dynamic-enqueue runtime, and :func:`masked_allreduce` is the
+idiom for ranks whose data ran out.
 """
 
 from __future__ import annotations
 
 import enum
+import zlib
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -29,13 +40,24 @@ import torch.distributed as dist
 from ..exceptions import HorovodTpuError
 
 __all__ = [
+    "Adasum",
     "Average",
+    "Max",
+    "Min",
+    "Product",
     "ReduceOp",
     "Sum",
     "allgather",
     "allreduce",
+    "alltoall",
     "barrier",
     "broadcast",
+    "grouped_allgather",
+    "grouped_allreduce",
+    "grouped_reducescatter",
+    "join",
+    "masked_allreduce",
+    "ppermute",
     "reducescatter",
     "scale",
     "world_size",
@@ -70,15 +92,33 @@ _TORCH_OPS = {
     ReduceOp.PRODUCT: "PRODUCT",
 }
 
+# Dtype codes of the size negotiation (any fixed numbering will do).
+_DTYPES = (
+    torch.float32, torch.float64, torch.float16, torch.bfloat16, torch.uint8,
+    torch.int8, torch.int16, torch.int32, torch.int64, torch.bool,
+    torch.float8_e4m3fn, torch.float8_e5m2, torch.complex64,
+    torch.complex128,
+)
+_MAX_DIMS = 8  # trailing dims a mismatch message can show
 
-def world_size() -> int:
-    """Processes in the default group (1 without one)."""
-    return dist.get_world_size() if dist.is_initialized() else 1
+
+def group(axis=None):
+    """This process's :class:`~..parallel.mesh.AxisGroup` along ``axis``."""
+    from ..context import axis_group
+
+    return axis_group(axis)
 
 
-def world_rank() -> int:
-    """This process's rank in the default group (0 without one)."""
-    return dist.get_rank() if dist.is_initialized() else 0
+def world_size(axis=None) -> int:
+    """Processes a collective over ``axis`` reduces across (1 where it is
+    the identity)."""
+    return group(axis).size
+
+
+def world_rank(axis=None) -> int:
+    """This process's rank in its group along ``axis`` (0 where the
+    collective is the identity)."""
+    return group(axis).index
 
 
 def scale(x: torch.Tensor, factor) -> torch.Tensor:
@@ -102,18 +142,23 @@ def divide_by_world(x: torch.Tensor, world: int) -> torch.Tensor:
 
 def _torch_op(op: ReduceOp):
     if op not in _TORCH_OPS:
-        raise NotImplementedError(
-            f"op={ReduceOp(op).name} is not ported (Adasum waits for its "
-            "own slice)"
-        )
+        raise HorovodTpuError(f"unknown reduce op {op}")
     return getattr(dist.ReduceOp, _TORCH_OPS[op])
 
 
-def allreduce_(x: torch.Tensor, op: ReduceOp = Sum) -> torch.Tensor:
-    """In-place reduction of ``x`` across the world (no scaling, no
+def _as_transport(t: torch.Tensor) -> torch.Tensor:
+    """fp8 and bool travel as their bytes: gloo has neither type."""
+    if t.dtype in (torch.float8_e4m3fn, torch.float8_e5m2, torch.bool):
+        return t.view(torch.uint8)
+    return t
+
+
+def allreduce_(x: torch.Tensor, op: ReduceOp = Sum, *, axis=None) -> torch.Tensor:
+    """In-place reduction of ``x`` across ``axis`` (no scaling, no
     Average division): one ``all_reduce`` call."""
-    if dist.is_initialized():
-        dist.all_reduce(x, op=_torch_op(op))
+    g = group(axis)
+    if g.live:
+        dist.all_reduce(x, op=_torch_op(op), group=g.group)
     return x
 
 
@@ -123,103 +168,346 @@ def allreduce(
     op: ReduceOp = Average,
     prescale_factor: float = 1.0,
     postscale_factor: float = 1.0,
+    axis=None,
+    name: Optional[str] = None,
 ) -> torch.Tensor:
-    """Allreduce a tensor across the world (parity: ``hvd.allreduce``)."""
-    torch_op = _torch_op(op)
+    """Allreduce a tensor across ``axis`` (parity: ``hvd.allreduce``).
+    Adasum reduces through :func:`.adasum.adasum_allreduce`; Average
+    divides by the group's size."""
+    del name
     x = scale(tensor, prescale_factor)
+    if op == Adasum:
+        from .adasum import adasum_allreduce
+
+        return scale(adasum_allreduce(x, axis=axis), postscale_factor)
+    torch_op = _torch_op(op)
     x = x.clone() if x is tensor else x
-    if dist.is_initialized():
-        dist.all_reduce(x, op=torch_op)
+    g = group(axis)
+    if g.live:
+        dist.all_reduce(x, op=torch_op, group=g.group)
     if op == Average:
-        x = divide_by_world(x, world_size())
+        x = divide_by_world(x, g.size)
     return scale(x, postscale_factor)
 
 
-def allgather(tensor: torch.Tensor) -> torch.Tensor:
-    """Concatenate every rank's tensor along dim 0 (every rank passes the
-    same shape): ``[world * n, ...]``; a scalar counts as shape ``[1]``."""
-    if tensor.dim() == 0:
-        tensor = tensor[None]
-    out = torch.empty(
-        (world_size() * tensor.shape[0],) + tuple(tensor.shape[1:]),
-        dtype=tensor.dtype, device=tensor.device,
-    )
-    return allgather_chunks(out, tensor.contiguous())
+def grouped_allreduce(
+    tensors: Sequence[torch.Tensor],
+    *,
+    op: ReduceOp = Average,
+    prescale_factor: float = 1.0,
+    postscale_factor: float = 1.0,
+    axis=None,
+    fuse: bool = True,
+) -> List[torch.Tensor]:
+    """Allreduce a group of tensors as one logical operation (parity:
+    ``hvd.grouped_allreduce``): with ``fuse`` and Average or Sum, one
+    ``all_reduce`` per fusion bucket (:func:`.fusion.fused_allreduce`);
+    otherwise one :func:`allreduce` per tensor."""
+    tensors = list(tensors)
+    if fuse and op in (Average, Sum):
+        from .fusion import fused_allreduce
+
+        return fused_allreduce(
+            tensors, op=op, prescale_factor=prescale_factor,
+            postscale_factor=postscale_factor, axis=axis,
+        )
+    return [
+        allreduce(t, op=op, prescale_factor=prescale_factor,
+                  postscale_factor=postscale_factor, axis=axis)
+        for t in tensors
+    ]
 
 
-def broadcast(tensor: torch.Tensor, root_rank: int = 0) -> torch.Tensor:
-    """``root_rank``'s tensor on every rank."""
-    if not 0 <= root_rank < world_size():
+def _describe(t: torch.Tensor, lead: int) -> List[int]:
+    """A rank's row of a negotiation: ``lead``, its dtype code, the number
+    and a crc of its trailing dims, and up to ``_MAX_DIMS`` of them."""
+    trailing = [int(s) for s in t.shape[1:]]
+    crc = zlib.crc32(repr((trailing, str(t.dtype))).encode())
+    shown = (trailing + [0] * _MAX_DIMS)[:_MAX_DIMS]
+    return [lead, _DTYPES.index(t.dtype), len(trailing), crc] + shown
+
+
+def _check_alike(rows: List[List[int]], what: str) -> None:
+    """Raise on every rank when the ranks' trailing shapes or dtypes
+    differ (each rank holds the same table, so all of them raise)."""
+    if any(r[1:4] != rows[0][1:4] for r in rows):
+        desc = [f"rank {i}: {_DTYPES[r[1]]} trailing {tuple(r[4:4 + r[2]])}"
+                for i, r in enumerate(rows)]
+        raise HorovodTpuError(
+            f"{what}: the ranks' trailing shapes or dtypes differ ("
+            + "; ".join(desc) + ")")
+
+
+def _exchange_rows(row: List[int], g, device) -> List[List[int]]:
+    """Every rank's ``row`` of int64s (one ``all_gather``), as lists."""
+    mine = torch.tensor(row, dtype=torch.int64, device=device)
+    out = torch.empty((g.size, len(row)), dtype=torch.int64, device=device)
+    dist.all_gather(list(out.unbind(0)), mine, group=g.group)
+    return out.tolist()
+
+
+def allgather(tensor: torch.Tensor, *, axis=None,
+              name: Optional[str] = None) -> torch.Tensor:
+    """Concatenate every rank's tensor along dim 0; a scalar counts as
+    shape ``[1]``. First dimensions may differ: the sizes are exchanged
+    first (one ``all_gather`` of a small int64 row, which also carries the
+    trailing shape and dtype), then every rank's rows are gathered padded
+    to the largest and sliced out, as the JAX package's process path does
+    (``ops/eager.py`` ``allgather``). Trailing shapes or dtypes that differ
+    raise ``HorovodTpuError`` on every rank."""
+    del name
+    x = tensor[None] if tensor.dim() == 0 else tensor
+    x = x.contiguous()
+    g = group(axis)
+    if not g.live:
+        return x.clone()
+    rows = _exchange_rows(_describe(x, x.shape[0]), g, x.device)
+    _check_alike(rows, "allgather")
+    sizes = [r[0] for r in rows]
+    top = max(sizes)
+    if all(s == top for s in sizes):
+        out = torch.empty((g.size * top,) + tuple(x.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        return allgather_chunks(out, x, axis=axis)
+    if x.shape[0] < top:
+        x = torch.cat([x, x.new_zeros((top - x.shape[0],) + x.shape[1:])])
+    full = torch.empty((g.size * top,) + tuple(x.shape[1:]), dtype=x.dtype,
+                       device=x.device)
+    allgather_chunks(full, x, axis=axis)
+    parts = full.split(top)
+    return torch.cat([p[:n] for p, n in zip(parts, sizes)])
+
+
+def grouped_allgather(tensors: Sequence[torch.Tensor], *,
+                      axis=None) -> List[torch.Tensor]:
+    """:func:`allgather` of each tensor."""
+    return [allgather(t, axis=axis) for t in tensors]
+
+
+def broadcast(tensor: torch.Tensor, root_rank: int = 0, *, axis=None,
+              name: Optional[str] = None) -> torch.Tensor:
+    """``root_rank``'s tensor on every rank of the group; ``root_rank`` is
+    a rank within the group, as on the JAX package's device path."""
+    del name
+    g = group(axis)
+    if not 0 <= root_rank < g.size:
         raise HorovodTpuError(
             f"broadcast root_rank {root_rank} out of range for world size "
-            f"{world_size()}"
+            f"{g.size}"
         )
     x = tensor.clone()
-    if dist.is_initialized():
-        dist.broadcast(x, src=root_rank)
+    if g.live:
+        dist.broadcast(_as_transport(x), src=g.global_rank(root_rank),
+                       group=g.group)
     return x
 
 
-def reducescatter(tensor: torch.Tensor, *, op: ReduceOp = Sum) -> torch.Tensor:
-    """Sum (or average) across the world and keep this rank's contiguous
-    1/N slice of dim 0 (which the world size must divide)."""
+def reducescatter(tensor: torch.Tensor, *, op: ReduceOp = Sum,
+                  axis=None) -> torch.Tensor:
+    """Sum (or average) across the group and keep this rank's contiguous
+    1/N slice of dim 0 (which the group's size must divide)."""
     if op not in (Average, Sum):
         raise ValueError("reducescatter supports Average/Sum")
-    world = world_size()
+    world = world_size(axis)
     if tensor.shape[0] % world:
         raise ValueError(
             f"dim 0 ({tensor.shape[0]}) is not a multiple of the world "
             f"size {world}"
         )
-    out = reducescatter_chunks(tensor.contiguous())
+    out = reducescatter_chunks(tensor.contiguous(), axis=axis)
     if op == Average:
         out = divide_by_world(out, world)
     return out
 
 
-def barrier() -> None:
-    """Wait for every rank."""
-    if dist.is_initialized():
-        dist.barrier()
+def grouped_reducescatter(tensors: Sequence[torch.Tensor], *,
+                          op: ReduceOp = Sum, axis=None) -> List[torch.Tensor]:
+    """:func:`reducescatter` of each tensor."""
+    return [reducescatter(t, op=op, axis=axis) for t in tensors]
 
 
-def allgather_chunks(out: torch.Tensor, shard: torch.Tensor) -> torch.Tensor:
-    """Fill ``out`` (``world`` equal chunks along dim 0) with every rank's
-    ``shard``: one ``all_gather`` call into views of ``out`` (the list form
-    every torch version takes without a deprecation warning). An fp8
-    payload travels as a ``uint8`` view."""
-    if not dist.is_initialized():
+def alltoall(tensor: torch.Tensor, splits=None, *, axis=None,
+             name: Optional[str] = None):
+    """Send ``splits[r]`` rows of ``tensor`` (in order) to rank ``r`` and
+    receive every rank's rows for this one, concatenated in rank order
+    (parity: ``hvd.alltoall``). Without ``splits`` dim 0 is split equally.
+
+    With ``splits`` the split table is exchanged first (one ``all_gather``
+    of a row a rank, carrying its dim 0, trailing shape and dtype), then
+    one ``all_to_all_single`` moves the rows; returns ``(output,
+    received_splits)`` (int32), as the JAX package's process path does. A
+    ``splits`` of another length than the group's size, or whose sum is
+    not dim 0, raises ``HorovodTpuError`` on every rank."""
+    del name
+    g = group(axis)
+    world = g.size
+    x = tensor.contiguous()
+    if splits is None:
+        if x.shape[0] % world:
+            raise HorovodTpuError(
+                "alltoall requires dim0 divisible by world size")
+        if not g.live:
+            return x.clone()
+        return alltoall_chunks(torch.empty_like(x), x, axis=axis)
+    splits = [int(s) for s in (splits.tolist() if torch.is_tensor(splits)
+                               else list(splits))]
+    # A malformed table still sends a row of the group's width, marked -1,
+    # so every rank sees it and raises, and none waits for the exchange.
+    ok = len(splits) == world and sum(splits) == x.shape[0] and min(
+        splits, default=0) >= 0
+    sent = splits if ok else [-1] * world
+    if g.live:
+        rows = _exchange_rows(_describe(x, x.shape[0]) + sent, g, x.device)
+    else:
+        rows = [_describe(x, x.shape[0]) + sent]
+    head = 4 + _MAX_DIMS
+    me = g.index
+    bad = [i for i, r in enumerate(rows) if r[head] < 0]
+    if bad:
+        raise HorovodTpuError(
+            f"alltoall splits must be a length-{world} vector of sizes "
+            f"summing to dim 0, on every rank; rank(s) {bad} gave another"
+            + (f" (this rank: {splits} for dim 0 {x.shape[0]})"
+               if me in bad else ""))
+    _check_alike(rows, "alltoall")
+    recv = [r[head + me] for r in rows]
+    recv_t = torch.tensor(recv, dtype=torch.int32, device=x.device)
+    if not g.live:
+        return x.clone(), recv_t
+    out = x.new_empty((sum(recv),) + tuple(x.shape[1:]))
+    dist.all_to_all_single(_as_transport(out), _as_transport(x),
+                           output_split_sizes=recv, input_split_sizes=splits,
+                           group=g.group)
+    return out, recv_t
+
+
+def ppermute(tensor: torch.Tensor, perm: Sequence[Tuple[int, int]], *,
+             axis=None) -> torch.Tensor:
+    """Point-to-point permutation over the group: for each ``(src, dst)``
+    pair (group ranks) ``dst`` receives ``src``'s tensor; a rank that
+    receives nothing gets zeros, as ``lax.ppermute`` gives. One
+    ``batch_isend_irecv`` of the pairs this rank is in."""
+    g = group(axis)
+    world = g.size
+    perm = [(int(s), int(d)) for s, d in perm]
+    srcs, dsts = [s for s, _ in perm], [d for _, d in perm]
+    if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts) or any(
+            not 0 <= r < world for r in srcs + dsts):
+        raise HorovodTpuError(
+            f"ppermute pairs must name distinct sources and destinations "
+            f"among {world} ranks: {perm}")
+    me = g.index
+    x = tensor.contiguous()
+    out = torch.zeros_like(x)
+    ops = []
+    for src, dst in perm:
+        if src == me and dst == me:
+            out.copy_(x)
+        elif src == me:
+            ops.append(dist.P2POp(dist.isend, _as_transport(x),
+                                  g.global_rank(dst), g.group))
+        elif dst == me:
+            ops.append(dist.P2POp(dist.irecv, _as_transport(out),
+                                  g.global_rank(src), g.group))
+    p2p_ready(g, x.device)
+    for work in dist.batch_isend_irecv(ops) if ops else ():
+        work.wait()
+    return out
+
+
+# The process groups (by id) that have run a collective before their first
+# point-to-point exchange; emptied when the process groups are destroyed.
+_P2P_READY: set = set()
+
+
+def forget_groups() -> None:
+    _P2P_READY.clear()
+
+
+def p2p_ready(g, device) -> None:
+    """Before a group's first point-to-point exchange, one collective on
+    every rank of it (NCCL needs one before a ``batch_isend_irecv`` that
+    only some ranks join). Every rank of ``g`` calls this."""
+    if not g.live:
+        return
+    key = id(g.group if g.group is not None else dist.group.WORLD)
+    if key not in _P2P_READY:
+        dist.all_reduce(torch.zeros(1, device=device), group=g.group)
+        _P2P_READY.add(key)
+
+
+def barrier(*, axis=None) -> None:
+    """Wait for every rank of the group."""
+    g = group(axis)
+    if g.live:
+        dist.barrier(group=g.group)
+
+
+def join() -> int:
+    """``hvd.join()``: -1, no rank joined, as the JAX package returns
+    without its native runtime. The reference's Join lets a rank whose
+    data ran out take part in outstanding collectives with zeros; the port
+    has no dynamic-enqueue runtime, and every rank runs every collective.
+    For uneven data, weight each rank's contribution with
+    :func:`masked_allreduce` (``valid=False`` where the data ran out)."""
+    return -1
+
+
+def masked_allreduce(tree, valid, *, axis=None):
+    """Average a nest of tensors over only the ranks whose ``valid`` flag
+    is set: ``sum(t * w) / max(sum(w), 1)`` in ``t``'s dtype, ``w`` the
+    rank's 0/1 flag; zero when no rank is valid (parity:
+    ``hvd.masked_allreduce``)."""
+    from .batching import tree_flatten, tree_unflatten
+
+    leaves, treedef = tree_flatten(tree)
+    device = leaves[0].device if leaves else torch.device("cpu")
+    w = torch.as_tensor(valid, device=device).to(torch.float32)
+    denom = torch.clamp_min(allreduce_(w.clone(), Sum, axis=axis), 1.0)
+    out = []
+    for t in leaves:
+        s = allreduce_(t * w.to(t.dtype), Sum, axis=axis)
+        s = s.to(torch.promote_types(s.dtype, torch.float32))
+        out.append((s / denom).to(t.dtype))
+    return tree_unflatten(treedef, out)
+
+
+def allgather_chunks(out: torch.Tensor, shard: torch.Tensor, *,
+                     axis=None) -> torch.Tensor:
+    """Fill ``out`` (the group's size in equal chunks along dim 0) with
+    every rank's ``shard``: one ``all_gather`` call into views of ``out``
+    (the list form every torch version takes without a deprecation
+    warning). fp8 and bool travel as ``uint8`` views."""
+    g = group(axis)
+    if not g.live:
         return out.copy_(shard)
-    dist.all_gather(list(_as_transport(out).chunk(world_size())),
-                    _as_transport(shard))
+    dist.all_gather(list(_as_transport(out).chunk(g.size)),
+                    _as_transport(shard), group=g.group)
     return out
 
 
-def _as_transport(t: torch.Tensor) -> torch.Tensor:
-    """fp8 travels as its bytes: gloo has no fp8 type."""
-    if t.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
-        return t.view(torch.uint8)
-    return t
-
-
-def alltoall_chunks(out: torch.Tensor, buf: torch.Tensor) -> torch.Tensor:
-    """Send chunk ``r`` of ``buf`` (``world`` equal chunks along dim 0) to
-    rank ``r`` and fill chunk ``r`` of ``out`` with rank ``r``'s chunk for
-    this rank: one ``all_to_all_single`` call. An fp8 payload travels as a
-    ``uint8`` view."""
-    if not dist.is_initialized():
+def alltoall_chunks(out: torch.Tensor, buf: torch.Tensor, *,
+                    axis=None) -> torch.Tensor:
+    """Send chunk ``r`` of ``buf`` (the group's size in equal chunks along
+    dim 0) to rank ``r`` and fill chunk ``r`` of ``out`` with rank ``r``'s
+    chunk for this rank: one ``all_to_all_single`` call. fp8 and bool
+    travel as ``uint8`` views."""
+    g = group(axis)
+    if not g.live:
         return out.copy_(buf)
-    dist.all_to_all_single(_as_transport(out), _as_transport(buf))
+    dist.all_to_all_single(_as_transport(out), _as_transport(buf),
+                           group=g.group)
     return out
 
 
-def reducescatter_chunks(buf: torch.Tensor) -> torch.Tensor:
-    """Sum ``buf`` (``world`` equal chunks along dim 0) across the world
-    and return this rank's chunk of the sum: one ``reduce_scatter`` call
-    over views of ``buf``."""
-    if not dist.is_initialized():
+def reducescatter_chunks(buf: torch.Tensor, *, axis=None) -> torch.Tensor:
+    """Sum ``buf`` (the group's size in equal chunks along dim 0) across
+    the group and return this rank's chunk of the sum: one
+    ``reduce_scatter`` call over views of ``buf``."""
+    g = group(axis)
+    if not g.live:
         return buf.clone()
-    chunks = list(buf.chunk(world_size()))
+    chunks = list(buf.chunk(g.size))
     out = torch.empty_like(chunks[0])
-    dist.reduce_scatter(out, chunks, op=dist.ReduceOp.SUM)
+    dist.reduce_scatter(out, chunks, op=dist.ReduceOp.SUM, group=g.group)
     return out

@@ -23,8 +23,10 @@ bucket, the port packs each bucket into one flat buffer
 ``compression`` casts the wire (:mod:`.compression`): bf16, or fp16 with a
 replica-uniform max-abs prescale (one scalar MAX all-reduce per call).
 Average is a Sum followed by a division by the world size, as the JAX
-package computes it. Without a process group the world is one process and
-every collective is the identity.
+package computes it. ``axis=`` names the mesh axes every collective of a
+call runs over (default the world's; :func:`~horovod_tpu_torch.context.
+axis_group`). Without a process group the world is one process and every
+collective is the identity.
 
 The quantized wire (``Compression.int8``/``fp8``): buckets pad to
 ``world * block`` so every chunk is whole scale blocks, and
@@ -195,7 +197,7 @@ def quantized_bucket_layout(
     return out
 
 
-def _uniform_cast_scale(tensors, world_factor: float):
+def _uniform_cast_scale(tensors, world_factor: float, axis=None):
     """Replica-uniform max-abs prescale for the fp16 wire: one scalar over
     every floating tensor, MAX-reduced across the world so every rank
     scales alike. ``world_factor`` guards the sum of a reduction (pass the
@@ -204,7 +206,7 @@ def _uniform_cast_scale(tensors, world_factor: float):
     if not floats:
         return None
     gmax = torch.stack([t.float().abs().max() for t in floats]).max()
-    gmax = allreduce_(gmax, Max)
+    gmax = allreduce_(gmax, Max, axis=axis)
     return torch.clamp_min(world_factor * gmax / FP16_SAFE_MAX, 1.0)
 
 
@@ -236,7 +238,7 @@ def _dequant_sum(q2, s2, world: int, block: int) -> torch.Tensor:
 
 
 def _quantized_reduce_shards(buffers, res_bufs, *, world: int, op: ReduceOp,
-                             prescale_factor: float, compression):
+                             prescale_factor: float, compression, axis=None):
     """The front half shared by the quantized allreduce and reduce-scatter:
     per packed (``world * block``-padded) bucket, error feedback, a
     blockwise quantize of this rank's contribution, the all-to-all of the
@@ -263,8 +265,10 @@ def _quantized_reduce_shards(buffers, res_bufs, *, world: int, op: ReduceOp,
         if res_bufs is not None:
             new_res.append(x - dequantize_blockwise(q, s, block))
         chunk = q.shape[0] // world
-        q2 = alltoall_chunks(torch.empty_like(q), q).reshape(world, chunk)
-        s2 = alltoall_chunks(torch.empty_like(s), s).reshape(world, -1)
+        q2 = alltoall_chunks(torch.empty_like(q), q, axis=axis).reshape(
+            world, chunk)
+        s2 = alltoall_chunks(torch.empty_like(s), s, axis=axis).reshape(
+            world, -1)
         red = _dequant_sum(q2, s2, world, block)
         if op == Average:
             red = divide_by_world(red, world)
@@ -293,13 +297,13 @@ def _wrap_residuals(new_res, residuals, compression, threshold_bytes):
     return EFResiduals(new_res, threshold=thr, block=compression.block_size())
 
 
-def _gather_quantized(q, s):
+def _gather_quantized(q, s, axis=None):
     """All-gather one rank's payload and scales: the full wire buffers."""
-    world = world_size()
+    world = world_size(axis)
     fq = torch.empty((world * q.shape[0],), dtype=q.dtype, device=q.device)
     fs = torch.empty((world * s.shape[0],), dtype=s.dtype, device=s.device)
-    allgather_chunks(fq, q)
-    allgather_chunks(fs, s)
+    allgather_chunks(fq, q, axis=axis)
+    allgather_chunks(fs, s, axis=axis)
     return fq, fs
 
 
@@ -312,6 +316,7 @@ def quantized_fused_allreduce(
     postscale_factor: float = 1.0,
     threshold_bytes: Optional[int] = None,
     compression=Compression.int8,
+    axis=None,
 ):
     """Allreduce a nest of tensors on the blockwise-quantized wire with
     optional error feedback; returns ``(reduced tree, new residuals)``.
@@ -324,18 +329,18 @@ def quantized_fused_allreduce(
     quantization error is the same on every rank and unbiased across
     steps; it gets no residual."""
     _check_op(op, "quantized_fused_allreduce")
-    world = world_size()
+    world = world_size(axis)
     block = compression.block_size()
     buffers, spec = pack(tree, threshold_bytes, pad_multiple=world * block)
     res_bufs = _residual_buffers(residuals, len(buffers))
     shards, new_res = _quantized_reduce_shards(
         buffers, res_bufs, world=world, op=op,
-        prescale_factor=prescale_factor, compression=compression,
+        prescale_factor=prescale_factor, compression=compression, axis=axis,
     )
     out_bufs = []
     for buf, red in zip(buffers, shards):
         fq, fs = _gather_quantized(
-            *quantize_blockwise(red, block, compression.spec)
+            *quantize_blockwise(red, block, compression.spec), axis=axis
         )
         out = dequantize_blockwise(fq, fs, block)
         out_bufs.append(scale(out, postscale_factor).to(buf.dtype))
@@ -354,6 +359,7 @@ def quantized_fused_reducescatter(
     postscale_factor: float = 1.0,
     threshold_bytes: Optional[int] = None,
     compression=Compression.int8,
+    axis=None,
 ):
     """Reduce-scatter a nest of tensors on the quantized wire: the front
     half of :func:`quantized_fused_allreduce`. Each rank ends with the
@@ -362,13 +368,13 @@ def quantized_fused_reducescatter(
     new residuals)``; ``fused_allgather(compression=...)`` with the same
     compression is the matching back half."""
     _check_op(op, "quantized_fused_reducescatter")
-    world = world_size()
+    world = world_size(axis)
     block = compression.block_size()
     buffers, spec = pack(tree, threshold_bytes, pad_multiple=world * block)
     res_bufs = _residual_buffers(residuals, len(buffers))
     shards, new_res = _quantized_reduce_shards(
         buffers, res_bufs, world=world, op=op,
-        prescale_factor=prescale_factor, compression=compression,
+        prescale_factor=prescale_factor, compression=compression, axis=axis,
     )
     out = [scale(red, postscale_factor).to(buf.dtype)
            for buf, red in zip(buffers, shards)]
@@ -379,7 +385,8 @@ def quantized_fused_reducescatter(
     )
 
 
-def _quantized_gather_unpack(buffers, spec: PackSpec, compression):
+def _quantized_gather_unpack(buffers, spec: PackSpec, compression,
+                             axis=None):
     """All-gather per-bucket shards on the quantized wire: each rank
     quantizes its shard blockwise, payload and scales ride the all-gather,
     and every rank dequantizes the full bucket. A shard whose length is not
@@ -395,7 +402,7 @@ def _quantized_gather_unpack(buffers, spec: PackSpec, compression):
         if pad:
             x = torch.cat([x, x.new_zeros((pad,))])
         fq, fs = _gather_quantized(
-            *quantize_blockwise(x, block, compression.spec)
+            *quantize_blockwise(x, block, compression.spec), axis=axis
         )
         out = dequantize_blockwise(fq, fs, block)
         if pad:
@@ -413,6 +420,7 @@ def fused_allreduce(
     postscale_factor: float = 1.0,
     threshold_bytes: Optional[int] = None,
     compression=Compression.none,
+    axis=None,
 ):
     """Allreduce a nest (or flat list) of tensors with bucketed fusion:
     one ``all_reduce`` per bucket. Returns new tensors in the input's
@@ -424,14 +432,15 @@ def fused_allreduce(
             tree, None, op=op, prescale_factor=prescale_factor,
             postscale_factor=postscale_factor,
             threshold_bytes=threshold_bytes, compression=compression,
+            axis=axis,
         )
         return out
     leaves, treedef, threshold_bytes = _flatten(tree, threshold_bytes)
     leaves = [_as_tensor(l) for l in leaves]
-    world = world_size()
+    world = world_size(axis)
     wire_scale = None
     if compression.needs_prescale:
-        wire_scale = _uniform_cast_scale(leaves, float(world))
+        wire_scale = _uniform_cast_scale(leaves, float(world), axis)
     out: List[Optional[torch.Tensor]] = [None] * len(leaves)
     for bucket in _bucketize(leaves, threshold_bytes):
         wires, ctxs = [], []
@@ -441,7 +450,8 @@ def fused_allreduce(
             )
             wires.append(wire.reshape(-1))
             ctxs.append(ctx)
-        buf = allreduce_(torch.cat(wires), Sum)  # cat copies: inputs kept
+        # cat copies: inputs kept
+        buf = allreduce_(torch.cat(wires), Sum, axis=axis)
         offset = 0
         for (i, leaf), ctx in zip(bucket, ctxs):
             n = leaf.numel()
@@ -461,6 +471,7 @@ def fused_reducescatter(
     postscale_factor: float = 1.0,
     threshold_bytes: Optional[int] = None,
     compression=Compression.none,
+    axis=None,
 ) -> Tuple[FlatBuckets, PackSpec]:
     """Reduce-scatter a nest of tensors with bucketed fusion: buckets are
     packed, padded to a multiple of the world size N, and reduced with one
@@ -475,26 +486,28 @@ def fused_reducescatter(
             tree, None, op=op, prescale_factor=prescale_factor,
             postscale_factor=postscale_factor,
             threshold_bytes=threshold_bytes, compression=compression,
+            axis=axis,
         )
         return shards, spec
-    world = world_size()
+    world = world_size(axis)
     buffers, spec = pack(tree, threshold_bytes, pad_multiple=world)
     wire_scale = None
     if compression.needs_prescale:
-        wire_scale = _uniform_cast_scale(buffers, float(world))
+        wire_scale = _uniform_cast_scale(buffers, float(world), axis)
     shards = []
     for buf in buffers:
         wire, ctx = _compress(
             compression, scale(buf, prescale_factor), wire_scale
         )
         red = compression.decompress(
-            reducescatter_chunks(wire.contiguous()), ctx
+            reducescatter_chunks(wire.contiguous(), axis=axis), ctx
         )
         shards.append(_finish(red, op, world, postscale_factor))
     return FlatBuckets(shards), spec
 
 
-def fused_allgather(shards, spec: PackSpec, *, compression=Compression.none):
+def fused_allgather(shards, spec: PackSpec, *, compression=Compression.none,
+                    axis=None):
     """All-gather per-bucket shards back into the tree ``spec`` describes:
     one ``all_gather`` per bucket into the full padded buffer, the pad
     dropped by :func:`~.batching.unpack` (the leaves are views of the
@@ -502,24 +515,24 @@ def fused_allgather(shards, spec: PackSpec, *, compression=Compression.none):
     quantized shards and dequantizes the full buckets."""
     buffers = shards.buffers if isinstance(shards, FlatBuckets) else list(shards)
     if is_quantized(compression):
-        return _quantized_gather_unpack(buffers, spec, compression)
+        return _quantized_gather_unpack(buffers, spec, compression, axis)
     wire_scale = None
     if compression.needs_prescale:
         # Move-only leg: the same scale everywhere, no world factor.
-        wire_scale = _uniform_cast_scale(buffers, 1.0)
+        wire_scale = _uniform_cast_scale(buffers, 1.0, axis)
     full = []
     for buf, n in zip(buffers, spec.padded_sizes()):
         wire, ctx = _compress(compression, buf, wire_scale)
         gathered = torch.empty((n,), dtype=wire.dtype, device=wire.device)
-        allgather_chunks(gathered, wire.contiguous())
+        allgather_chunks(gathered, wire.contiguous(), axis=axis)
         full.append(compression.decompress(gathered, ctx))
     return unpack(full, spec)
 
 
-def shard_slice(buffers) -> FlatBuckets:
+def shard_slice(buffers, axis=None) -> FlatBuckets:
     """This rank's contiguous 1/N slice of full fused buffers (views) --
     the layout :func:`fused_reducescatter` produces, taken locally."""
-    world, rank = world_size(), world_rank()
+    world, rank = world_size(axis), world_rank(axis)
     bufs = buffers.buffers if isinstance(buffers, FlatBuckets) else list(buffers)
     out = []
     for buf in bufs:

@@ -19,7 +19,10 @@ parameters' device, the step count included, so no step waits on the host.
   run it as one fused kernel pass per flat shard bucket
   (``fused_update=True``; :mod:`.ops.fused_adamw`).
 * :func:`DistributedOptimizer` -- replicated: one fused allreduce of the
-  gradients (:func:`~.ops.fusion.fused_allreduce`), then the inner update.
+  gradients (:func:`~.ops.fusion.fused_allreduce`), or their Adasum
+  (:func:`~.ops.adasum.adasum_allreduce_tree`), then the inner update;
+  ``backward_passes_per_step=k`` accumulates k passes' gradients locally
+  and reduces and updates on every k-th.
 * :func:`ShardedDistributedOptimizer` -- ZeRO-1: gradients packed into
   buckets padded to a multiple of the world size and reduce-scattered,
   the inner update on this rank's 1/N shard (with 1/N optimizer state),
@@ -57,9 +60,12 @@ reshard on restore; :mod:`.checkpoint` applies it to every ``TrainState``):
   effect on the Average-reduced gradient survives an N -> M rescale.
 
 Unshard and canonicalize are collectives (an all-gather, an all-reduce):
-every rank of the world that built the state calls them together.
+every rank of the world that built the state calls them together, over
+the world axes.
 
-Not ported yet: Adasum and ``backward_passes_per_step > 1``.
+:func:`grad` and :func:`value_and_grad` are ``torch.func``'s with the
+gradients reduced as the optimizer reduces them. Every wrapper takes
+``axis=``, the mesh axes it reduces over (default the world's).
 """
 
 from __future__ import annotations
@@ -79,11 +85,14 @@ from .ops.batching import (
     tree_unflatten,
     unpack,
 )
+from .ops.adasum import adasum_allreduce_tree
 from .ops.collectives import (
+    Adasum,
     Average,
     ReduceOp,
     Sum,
     allgather_chunks,
+    allreduce,
     allreduce_,
 )
 from .ops.collectives import world_size as _world_size
@@ -120,6 +129,7 @@ __all__ = [
     "canonicalize_sharded_states",
     "ef_residual_norm",
     "fused_adamw",
+    "grad",
     "has_canonical_state",
     "has_ef_residuals",
     "has_sharded_state",
@@ -127,6 +137,7 @@ __all__ = [
     "reshard_opt_state",
     "reshard_sharded_states",
     "unshard_opt_state",
+    "value_and_grad",
 ]
 
 
@@ -242,9 +253,15 @@ def fused_adamw(
 
 
 class DistributedOptState(NamedTuple):
+    """State of :func:`DistributedOptimizer`, in the reference's field
+    order: the inner state, the local gradient accumulator (None unless
+    ``backward_passes_per_step > 1``), the passes taken (an int32 tensor on
+    the parameters' device) and the quantized wire's EF residuals."""
+
     inner: Any
-    count: torch.Tensor  # steps taken
-    residual: Optional[EFResiduals] = None  # quantized wire's EF state
+    acc: Any
+    count: torch.Tensor
+    residual: Optional[EFResiduals] = None
 
 
 def _resolve_fused_update(optimizer: Optimizer, fused_update) -> bool:
@@ -282,23 +299,12 @@ def _resolve_quant(compression, threshold_bytes):
     return compression, threshold_bytes, True
 
 
-def _check_quant(op, backward_passes_per_step):
-    if op not in (Average, Sum):
-        raise ValueError("quantized compression supports op=Average/Sum")
-    if backward_passes_per_step != 1:
-        raise NotImplementedError(
-            "quantized compression (the quantized wire) does not support "
-            "backward_passes_per_step > 1; accumulate with "
-            "make_train_step(accum_steps=K) instead"
-        )
-
-
-def _init_residuals(params, threshold_bytes, block) -> EFResiduals:
+def _init_residuals(params, threshold_bytes, block, axis=None) -> EFResiduals:
     """Zero EF residuals, one fp32 ``[padded]`` buffer per bucket of the
     layout the quantized collectives pack (padded to ``world * block``):
     this rank's own."""
     layout = bucket_byte_layout(params, threshold_bytes,
-                                pad_multiple=_world_size() * block)
+                                pad_multiple=_world_size(axis) * block)
     device = _first_leaf(params).device
     bufs = [
         torch.zeros((nbytes // getattr(torch, dt).itemsize,),
@@ -308,16 +314,40 @@ def _init_residuals(params, threshold_bytes, block) -> EFResiduals:
     return EFResiduals(bufs, threshold=threshold_bytes, block=block)
 
 
-def _check_common(op, backward_passes_per_step):
-    if op not in (Average, Sum):
-        raise NotImplementedError(
-            f"op={ReduceOp(op).name} is not ported (Average and Sum are)"
-        )
-    if backward_passes_per_step != 1:
-        raise NotImplementedError(
-            "backward_passes_per_step > 1 is not ported; accumulate with "
-            "make_train_step(accum_steps=K)"
-        )
+def _reduce_grads(grads, op, compression, prescale, postscale, axis,
+                  threshold):
+    """The reference's ``_reduce_grads``: Adasum per leaf (ignoring the
+    wire's compression, the scale factors and the threshold), else one
+    fused allreduce per bucket."""
+    if op == Adasum:
+        return adasum_allreduce_tree(grads, axis=axis)
+    return fused_allreduce(
+        grads, op=op, prescale_factor=prescale, postscale_factor=postscale,
+        axis=axis, threshold_bytes=threshold, compression=compression,
+    )
+
+
+def _zeros(tree):
+    return _map(torch.zeros_like, tree)
+
+
+class _Passes:
+    """The host's count of passes beside the state's device ``count``, so
+    ``backward_passes_per_step`` decides to skip or sync without reading
+    the device every step: a state this optimizer returned is recognised
+    by its ``count`` tensor, any other (the first, or a restored
+    checkpoint's) is read once."""
+
+    def __init__(self):
+        self.tensor = None
+        self.value = 0
+
+    def next(self, count: torch.Tensor) -> int:
+        value = self.value if count is self.tensor else int(count)
+        return value + 1
+
+    def keep(self, count: torch.Tensor, value: int) -> None:
+        self.tensor, self.value = count, value
 
 
 def DistributedOptimizer(
@@ -326,32 +356,53 @@ def DistributedOptimizer(
     op: ReduceOp = Average,
     compression=Compression.none,
     backward_passes_per_step: int = 1,
+    average_aggregated_gradients: bool = False,
     prescale_factor: float = 1.0,
     postscale_factor: float = 1.0,
+    axis=None,
     threshold_bytes: Optional[int] = None,
     sharded: bool = False,
     gather_compression=Compression.none,
     fused_update: Optional[bool] = None,
     error_feedback: bool = True,
 ) -> Optimizer:
-    """Wrap ``optimizer`` with cross-rank gradient reduction: one fused
-    allreduce per bucket of at most ``threshold_bytes``, then the inner
-    update, identical on every rank. ``sharded=True`` is
-    :func:`ShardedDistributedOptimizer`.
+    """Wrap ``optimizer`` with gradient reduction across ``axis`` (default
+    the world axes): one fused allreduce per bucket of at most
+    ``threshold_bytes``, then the inner update, identical on every rank.
+    ``sharded=True`` is :func:`ShardedDistributedOptimizer`.
+
+    ``op=Adasum`` reduces per leaf through :func:`~.ops.adasum.
+    adasum_allreduce_tree` and, as the reference's ``_reduce_grads`` does,
+    ignores ``compression``, ``prescale_factor``, ``postscale_factor`` and
+    ``threshold_bytes``, which apply to Average and Sum only.
+
+    ``backward_passes_per_step=k`` adds each pass's gradients into the
+    state's ``acc``; every k-th pass reduces ``acc`` (divided by k with
+    ``average_aggregated_gradients``), runs the inner update and zeroes
+    ``acc``, and the other passes return zero updates with the inner state
+    untouched (the zero updates are -0.0, which an update added to the
+    parameters leaves bit for bit). The skip decision reads a host count,
+    not the device.
 
     A quantized ``compression`` reduces through
     :func:`~.ops.fusion.quantized_fused_allreduce`, with error-feedback
     residuals in the state unless ``error_feedback=False``."""
-    if is_quantized(compression):
-        _check_quant(op, backward_passes_per_step)
-    _check_common(op, backward_passes_per_step)
+    if backward_passes_per_step < 1:
+        raise ValueError("backward_passes_per_step must be >= 1")
+    if op not in (Average, Sum, Adasum):
+        raise ValueError(
+            "DistributedOptimizer reduces with Average, Sum or Adasum")
     if sharded:
+        if backward_passes_per_step != 1:
+            raise NotImplementedError(
+                "sharded=True does not support backward_passes_per_step > 1"
+            )
         return ShardedDistributedOptimizer(
             optimizer, op=op, compression=compression,
             gather_compression=gather_compression,
             prescale_factor=prescale_factor, postscale_factor=postscale_factor,
-            threshold_bytes=threshold_bytes, fused_update=fused_update,
-            error_feedback=error_feedback,
+            axis=axis, threshold_bytes=threshold_bytes,
+            fused_update=fused_update, error_feedback=error_feedback,
         )
     if fused_update:
         raise NotImplementedError(
@@ -368,37 +419,65 @@ def DistributedOptimizer(
     compression, threshold_bytes, quantized = _resolve_quant(
         compression, threshold_bytes
     )
+    if quantized and op not in (Average, Sum):
+        raise ValueError("quantized compression supports op=Average/Sum")
+    if quantized and backward_passes_per_step != 1:
+        raise NotImplementedError(
+            "quantized compression does not support "
+            "backward_passes_per_step > 1 (the quantized wire's residuals "
+            "follow every reduction; accumulate with "
+            "make_train_step(accum_steps=K) instead)"
+        )
     ef = quantized and error_feedback
+    bpps = backward_passes_per_step
+    passes = _Passes()
 
     def init(params):
         residual = (
-            _init_residuals(params, threshold_bytes, compression.block_size())
+            _init_residuals(params, threshold_bytes, compression.block_size(),
+                            axis)
             if ef else None
         )
         return DistributedOptState(
             optimizer.init(params),
+            None if bpps == 1 else _zeros(params),
             torch.zeros((), dtype=torch.int32,
                         device=_first_leaf(params).device),
             residual,
         )
 
     def update(grads, state: DistributedOptState, params=None):
-        new_res = None
         if quantized:
             reduced, new_res = quantized_fused_allreduce(
                 grads, state.residual, op=op,
                 prescale_factor=prescale_factor,
                 postscale_factor=postscale_factor,
                 threshold_bytes=threshold_bytes, compression=compression,
+                axis=axis,
             )
-        else:
-            reduced = fused_allreduce(
-                grads, op=op, prescale_factor=prescale_factor,
-                postscale_factor=postscale_factor,
-                threshold_bytes=threshold_bytes, compression=compression,
-            )
+            updates, inner = optimizer.update(reduced, state.inner, params)
+            return updates, DistributedOptState(inner, None, state.count + 1,
+                                                new_res)
+        if bpps == 1:
+            reduced = _reduce_grads(grads, op, compression, prescale_factor,
+                                    postscale_factor, axis, threshold_bytes)
+            updates, inner = optimizer.update(reduced, state.inner, params)
+            return updates, DistributedOptState(inner, None, state.count + 1)
+        acc = _map(torch.add, state.acc, grads)
+        value = passes.next(state.count)
+        count = state.count + 1
+        passes.keep(count, value)
+        if value % bpps:
+            # Negative zeros: p + (-0.0) is p for every p, where p + 0.0
+            # turns a -0.0 parameter into +0.0.
+            skip = _map(lambda a: torch.full_like(a, -0.0), acc)
+            return skip, DistributedOptState(state.inner, acc, count)
+        if average_aggregated_gradients:
+            acc = _map(lambda g: g / bpps, acc)
+        reduced = _reduce_grads(acc, op, compression, prescale_factor,
+                                postscale_factor, axis, threshold_bytes)
         updates, inner = optimizer.update(reduced, state.inner, params)
-        return updates, DistributedOptState(inner, state.count + 1, new_res)
+        return updates, DistributedOptState(inner, _zeros(acc), count)
 
     return Optimizer(init, update)
 
@@ -445,11 +524,13 @@ def ShardedDistributedOptimizer(
     gather_compression=Compression.none,
     prescale_factor: float = 1.0,
     postscale_factor: float = 1.0,
+    axis=None,
     threshold_bytes: Optional[int] = None,
     fused_update: Optional[bool] = None,
     error_feedback: bool = True,
 ) -> Optimizer:
-    """Gradient reduction with the ZeRO-1 sharded weight update.
+    """Gradient reduction with the ZeRO-1 sharded weight update, across
+    ``axis`` (one mesh axis, default the world's; Average or Sum).
 
     Gradients are packed into fused buckets padded to a multiple of the
     world size N and reduce-scattered (``compression`` rides that wire),
@@ -468,9 +549,16 @@ def ShardedDistributedOptimizer(
     ``world * block``, error-feedback residuals in the state unless
     ``error_feedback=False``) and, unless ``gather_compression`` says
     otherwise, quantizes the update all-gather the same way."""
-    if is_quantized(compression):
-        _check_quant(op, 1)
-    _check_common(op, 1)
+    if op not in (Average, Sum):
+        raise ValueError(
+            "ShardedDistributedOptimizer supports Average/Sum (Adasum's "
+            "recursive halving has no scatter form here)"
+        )
+    if axis is not None and not isinstance(axis, str) and len(axis) != 1:
+        raise HorovodTpuError(
+            "sharded weight update supports a single world axis; got "
+            f"{axis} (flatten the mesh or pass axis=<one name>)"
+        )
     # Pinned at construction: init records the layout and update packs
     # with it, so a later change of the env knob cannot desync them.
     threshold_bytes = (
@@ -490,11 +578,12 @@ def ShardedDistributedOptimizer(
     fused = _resolve_fused_update(optimizer, fused_update)
 
     def init(params):
-        world = _world_size()
+        world = _world_size(axis)
         buffers, _ = pack(params, threshold_bytes, pad_multiple=world * block)
-        shards = shard_slice(buffers)
+        shards = shard_slice(buffers, axis)
         residual = (
-            _init_residuals(params, threshold_bytes, block) if ef else None
+            _init_residuals(params, threshold_bytes, block, axis)
+            if ef else None
         )
         return ShardedOptState(
             optimizer.init(shards),
@@ -508,7 +597,7 @@ def ShardedDistributedOptimizer(
                 "ShardedDistributedOptimizer.update requires params (the "
                 "local param shard feeds the inner update)"
             )
-        world = _world_size()
+        world = _world_size(axis)
         if world != state.world:
             raise HorovodTpuError(
                 f"the sharded state was built for a world of {state.world}, "
@@ -521,12 +610,14 @@ def ShardedDistributedOptimizer(
                 prescale_factor=prescale_factor,
                 postscale_factor=postscale_factor,
                 threshold_bytes=threshold_bytes, compression=compression,
+                axis=axis,
             )
         else:
             g_shards, spec = fused_reducescatter(
                 grads, op=op, prescale_factor=prescale_factor,
                 postscale_factor=postscale_factor,
                 threshold_bytes=threshold_bytes, compression=compression,
+                axis=axis,
             )
         p_buffers, _ = pack(params, threshold_bytes,
                             pad_multiple=world * block)
@@ -536,7 +627,7 @@ def ShardedDistributedOptimizer(
                 "update needs grads to pack like params (same tree, shapes "
                 "and dtypes)"
             )
-        p_shards = shard_slice(p_buffers)
+        p_shards = shard_slice(p_buffers, axis)
         if fused:
             u_shards, inner = _fused_flat_update(
                 g_shards, state.inner, p_shards, optimizer.fused_spec
@@ -544,7 +635,7 @@ def ShardedDistributedOptimizer(
         else:
             u_shards, inner = optimizer.update(g_shards, state.inner, p_shards)
         updates = fused_allgather(u_shards, spec,
-                                  compression=gather_compression)
+                                  compression=gather_compression, axis=axis)
         return updates, state._replace(inner=inner, count=state.count + 1,
                                        residual=new_res)
 
@@ -606,10 +697,11 @@ class CanonicalOptState(NamedTuple):
 
 class CanonicalDistOptState(NamedTuple):
     """Canonical form of a quantized :class:`DistributedOptState`: ``inner``
-    is replicated and passes through; the EF residuals canonicalize as the
-    sharded path's do."""
+    and ``acc`` are replicated and pass through; the EF residuals
+    canonicalize as the sharded path's do."""
 
     inner: Any
+    acc: Any
     count: Any
     residual: Any
 
@@ -875,7 +967,7 @@ def canonicalize_dist_state(state: DistributedOptState, params, *,
     spec = _layout(params, state.residual.threshold or
                    _env.fusion_threshold_bytes(), world * block)
     return CanonicalDistOptState(
-        inner=state.inner, count=state.count,
+        inner=state.inner, acc=state.acc, count=state.count,
         residual=_canonicalize_residuals(state.residual, spec, world),
     )
 
@@ -890,7 +982,7 @@ def reshard_dist_state(state: CanonicalDistOptState, params, *,
     threshold = (state.residual.threshold
                  or _env.fusion_threshold_bytes())
     return DistributedOptState(
-        inner=state.inner, count=state.count,
+        inner=state.inner, acc=state.acc, count=state.count,
         residual=_reshard_residuals(state.residual, params, threshold,
                                     world),
     )
@@ -919,3 +1011,51 @@ def reshard_sharded_states(tree, params, **kwargs):
 
     return _map_nodes(fix, tree, lambda n: isinstance(
         n, (CanonicalOptState, CanonicalDistOptState)))
+
+
+# -- torch.func with reduced gradients --------------------------------------
+
+
+def grad(fun, argnums=0, *, op: ReduceOp = Average, axis=None,
+         **allreduce_kwargs):
+    """``torch.func.grad`` with the gradients reduced across ``axis`` as
+    :func:`DistributedOptimizer` reduces them (``compression``,
+    ``prescale_factor``, ``postscale_factor`` and ``threshold_bytes`` as
+    keywords): the face of the reference's ``DistributedGradientTape``."""
+
+    def wrapped(*args, **kwargs):
+        g = torch.func.grad(fun, argnums=argnums)(*args, **kwargs)
+        return _reduce_kw(g, op, axis, allreduce_kwargs)
+
+    return wrapped
+
+
+def value_and_grad(fun, argnums=0, *, has_aux: bool = False,
+                   op: ReduceOp = Average, axis=None,
+                   average_loss: bool = True, **allreduce_kwargs):
+    """``(value, grads)`` of ``fun`` (``((value, aux), grads)`` with
+    ``has_aux``) through ``torch.func.grad_and_value``, the gradients
+    reduced as :func:`grad` reduces them and, with ``average_loss``, the
+    value averaged across ``axis`` so every rank reports the global loss."""
+
+    def wrapped(*args, **kwargs):
+        g, out = torch.func.grad_and_value(
+            fun, argnums=argnums, has_aux=has_aux)(*args, **kwargs)
+        g = _reduce_kw(g, op, axis, allreduce_kwargs)
+        if average_loss:
+            if has_aux:
+                loss, aux = out
+                out = (allreduce(loss, op=Average, axis=axis), aux)
+            else:
+                out = allreduce(out, op=Average, axis=axis)
+        return out, g
+
+    return wrapped
+
+
+def _reduce_kw(g, op, axis, kw):
+    return _reduce_grads(
+        g, op, kw.get("compression", Compression.none),
+        kw.get("prescale_factor", 1.0), kw.get("postscale_factor", 1.0),
+        axis, kw.get("threshold_bytes"),
+    )

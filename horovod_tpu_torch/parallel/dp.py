@@ -26,7 +26,7 @@ from torch import nn
 from ..context import resolve_device
 from ..obs import flops as _flops
 from ..ops.batching import tree_flatten, tree_map
-from ..ops.collectives import Average, ReduceOp, allreduce
+from ..ops.collectives import Average, ReduceOp, allreduce, world_size
 from ..ops.compression import Compression, is_quantized
 from ..ops.fp8 import fp8_state_optimizer, resolve_compute_dtype
 from ..ops.remat import checkpoint_fn
@@ -169,6 +169,7 @@ def make_train_step(
     distribute_optimizer: bool = True,
     op: ReduceOp = Average,
     compression=None,
+    axis=None,
     sharded: bool = False,
     gather_compression=Compression.none,
     threshold_bytes: Optional[int] = None,
@@ -204,7 +205,13 @@ def make_train_step(
     blockwise, with error-feedback residuals in the optimizer state unless
     ``error_feedback=False`` (and, sharded, the update all-gather too).
     ``compression=None`` reads ``HVDTPU_QUANT`` (off|int8|fp8); an
-    explicit ``Compression.none`` wins over it. ``accum_steps=K`` (default from
+    explicit ``Compression.none`` wins over it. ``op=Adasum`` reduces the
+    gradients per leaf through :mod:`..ops.adasum` (replicated path only,
+    as in the JAX package); ``axis`` names the mesh axes the gradients and
+    the loss are reduced over (default the world's). A user's own
+    ``DistributedOptimizer`` -- with ``backward_passes_per_step=k``, say --
+    goes in with ``distribute_optimizer=False``; its skipped passes' zero
+    updates leave the parameters as they were. ``accum_steps=K`` (default from
     ``HVDTPU_OVERLAP_ACCUM_STEPS``) microbatches the step through
     :func:`accumulate_gradients`; the reduction still runs once a step.
 
@@ -271,6 +278,8 @@ def make_train_step(
         # Pinned now, so the optimizer's residual layout and every later
         # step read one block size.
         compression = compression.with_block(compression.block_size())
+    if axis is not None:
+        world_size(axis)  # an unknown axis raises here, not in the step
     if accum_steps is None:
         accum_steps = _env.overlap_accum_steps()
     if accum_steps < 1:
@@ -299,7 +308,7 @@ def make_train_step(
     elif sharded:
         opt = ShardedDistributedOptimizer(
             optimizer, op=op, compression=compression,
-            gather_compression=gather_compression,
+            gather_compression=gather_compression, axis=axis,
             threshold_bytes=threshold_bytes, fused_update=fused_update,
             error_feedback=error_feedback,
         )
@@ -310,7 +319,7 @@ def make_train_step(
                 "sharded=True"
             )
         opt = DistributedOptimizer(
-            optimizer, op=op, compression=compression,
+            optimizer, op=op, compression=compression, axis=axis,
             threshold_bytes=threshold_bytes, error_feedback=error_feedback,
         )
 
@@ -328,7 +337,7 @@ def make_train_step(
             updates, new_opt = opt.update(grads, state.opt_state, state.params)
             for name, p in state.params.items():
                 p.add_(updates[name])
-            loss = allreduce(loss, op=Average)
+            loss = allreduce(loss, op=Average, axis=axis)
         new_state = TrainState(state.params, new_opt, state.step + 1,
                                state.extra)
         if has_aux:

@@ -4,7 +4,9 @@ bitwise repeat included), the backward pair (dK/dV, dQ), the fused AdamW
 update, the blockwise quantize/dequantize, the fused fp8 cast, the fp8 matmul
 and the int8-weight matmul; and the paths of the zoo that reach them (a
 head-dim-64 BERT through the kernels, per-block remat bit for bit, ResNet's
-SAME padding and BatchNorm against the CPU, ``prefetch_to_device``). Every
+SAME padding and BatchNorm against the CPU, ``prefetch_to_device``), and
+Adasum's fp32 schedule over stacked CUDA tensors against the fp64 fold with
+the object and state helpers on a one-rank NCCL world. Every
 test here needs an NVIDIA GPU with nvcc (the kernels have no
 CPU mode) and skips without one. Run them on the card with
 
@@ -26,7 +28,8 @@ NaN payload may differ in its sign bit), and so the fp8 state its Function
 returns; the
 int8-weight matmul 1e-5 of the largest plain output with fp32 activations
 and 8e-3 with bf16 (exact products, fp32 sums in another order, one
-rounding).
+rounding); Adasum's fp32 schedule 1e-5 relative L2 of the fp64 fold a leaf
+(fp32 products and row sums against fp64 sums).
 """
 
 import dataclasses
@@ -1384,3 +1387,60 @@ def test_prefetch_to_device_batches_equal_the_hosts(gen):
         assert torch.equal(dx.cpu(), torch.from_numpy(hx))
         assert torch.equal(dy.cpu(), torch.from_numpy(hy))
         assert torch.equal(di.cpu(), torch.from_numpy(hi))
+
+
+# -- Adasum's arithmetic and the object helpers on the card ----------------
+
+
+def _rel_l2(a, b):
+    return float((a.double() - b).norm() / b.norm())
+
+
+@pytest.mark.parametrize("n", [3, 4])
+def test_adasum_schedule_on_the_card_matches_the_fp64_fold(gen, n):
+    # The fp32 VHDD schedule over n virtual ranks (stacked CUDA tensors),
+    # per leaf, against the fp64 fold, which pairs alike at 3 and 4 ranks:
+    # every leaf within 1e-5 relative L2 (chip_smoke's [train-adasum] 4.).
+    from horovod_tpu_torch.ops import adasum
+
+    shapes = {"w": (300, 70), "b": (70,), "z": (5,), "h": (2048,)}
+    trees = [{k: torch.randn(s, generator=gen, device="cuda") * (1 + i)
+              for k, s in shapes.items()} for i in range(n)]
+    for t in trees:
+        t["z"].zero_()
+    got = adasum.adasum_stacked(trees)
+    for k in shapes:
+        want = adasum.adasum_fold(torch.stack([t[k] for t in trees]))
+        assert got[k].device.type == "cuda" and got[k].dtype == torch.float32
+        if k == "z":
+            assert torch.equal(got[k], torch.zeros_like(got[k]))
+        else:
+            assert _rel_l2(got[k], want) <= 1e-5, k
+
+
+def test_object_helpers_on_a_one_rank_nccl_world(gen):
+    import horovod_tpu_torch as hvt
+
+    hvt.init(backend="nccl")
+    try:
+        obj = {"s": "text", "i": 7, "a": np.arange(5, dtype=np.float32)}
+        got = hvt.broadcast_object(obj)
+        assert got["s"] == "text" and got["i"] == 7
+        np.testing.assert_array_equal(got["a"], obj["a"])
+        assert hvt.allgather_object(obj)[0]["i"] == 7
+        params = {"w": torch.randn((33, 7), generator=gen, device="cuda"),
+                  "h": torch.randn((9,), generator=gen,
+                                   device="cuda").to(torch.bfloat16)}
+        out = hvt.broadcast_parameters(params)
+        assert all(torch.equal(out[k], params[k]) for k in params)
+        opt = hvt.adamw(1e-3)
+        state = opt.init(params)
+        st = hvt.broadcast_optimizer_state({"opt": state, "name": "adam"})
+        assert st["name"] == "adam" and torch.equal(st["opt"].count,
+                                                    state.count)
+        x = torch.arange(6.0, device="cuda").reshape(3, 2)
+        assert torch.equal(hvt.allgather(x), x)
+        y, recv = hvt.alltoall(x, splits=[3])
+        assert torch.equal(y, x) and recv.tolist() == [3]
+    finally:
+        hvt.shutdown()

@@ -1,7 +1,11 @@
 """The port's train-step plumbing held against the JAX package's, on the
 CPU: ``accumulate_gradients``, the training env knobs, the FLOP model,
 ``params_to_flax``, fp32 master weights, and the ``make_train_step`` knobs
-that are not ported yet or that it refuses.
+that are not ported yet or that it refuses; ``op=Adasum`` equal to Average
+at one process, ``axis=`` naming a mesh axis, and a user's
+``DistributedOptimizer(backward_passes_per_step=2)`` whose skipped step
+leaves the parameters bit for bit (a -0.0 among them) and whose syncing
+step is AdamW on the summed gradients, bit for bit.
 
 Tolerances: ``accumulate_gradients`` in fp32 within 1e-6 of the largest
 value (the same sums, taken by XLA and by torch in other orders); the
@@ -283,3 +287,78 @@ def test_armed_env_default_raises_like_the_explicit_argument(
                                 device="cpu", **{knob: armed})
     # An explicit off value wins over the environment.
     build(**{knob or "autotune": off})
+
+
+# -- Adasum, axis= and a user's accumulating optimizer (one process) -------
+
+
+def _regression_step(opt, **kw):
+    params, batch = _problem()
+    step, wopt = tdp.make_train_step(
+        lambda p, b: ((b["x"] @ p["w"] + p["b"] - b["y"]) ** 2).mean(), opt,
+        device="cpu", **kw)
+    state = tdp.init_state(
+        {k: torch.from_numpy(v) for k, v in params.items()}, wopt)
+    return step, wopt, state, jax.tree.map(torch.from_numpy, batch)
+
+
+def test_adasum_step_is_the_average_step_at_one_process():
+    # At one process both reductions are the identity: the same parameters
+    # and AdamW state bit for bit (chip_smoke's [train-adasum] check 1).
+    runs = {}
+    for op in (ReduceOp.ADASUM, ReduceOp.AVERAGE):
+        step, _, state, batch = _regression_step(topt.adamw(1e-2), op=op)
+        for _ in range(2):
+            state, loss = step(state, batch)
+        runs[op] = state
+    a, b = runs[ReduceOp.ADASUM], runs[ReduceOp.AVERAGE]
+    for k in a.params:
+        assert torch.equal(a.params[k], b.params[k])
+        assert torch.equal(a.opt_state.inner.mu[k], b.opt_state.inner.mu[k])
+    with pytest.raises(ValueError, match="supports Average/Sum"):
+        _regression_step(topt.adamw(1e-2), op=ReduceOp.ADASUM, sharded=True)
+
+
+def test_train_step_axis_names_a_mesh_axis():
+    from horovod_tpu_torch import context
+    from horovod_tpu_torch.exceptions import HorovodTpuError
+
+    context.init(device="cpu", mesh={"dp": 1, "tp": 1}, world_axes=["dp"])
+    try:
+        step, _, state, batch = _regression_step(topt.adamw(1e-2), axis="dp")
+        state, loss = step(state, batch)
+        assert int(state.step) == 1 and np.isfinite(float(loss))
+        with pytest.raises(HorovodTpuError, match="unknown mesh axis"):
+            _regression_step(topt.adamw(1e-2), axis="nope")
+    finally:
+        context.shutdown()
+
+
+def test_user_accumulating_optimizer_skips_bit_for_bit():
+    # distribute_optimizer=False with DistributedOptimizer(k=2): the first
+    # step leaves parameters and AdamW state as they were, bit for bit; the
+    # second equals one AdamW step on g1 + g2 computed on its own.
+    inner = topt.adamw(1e-2)
+    opt = topt.DistributedOptimizer(inner, backward_passes_per_step=2)
+    step, _, state, batch = _regression_step(opt, distribute_optimizer=False)
+    with torch.no_grad():  # a -0.0 parameter stays -0.0 through a skip
+        state.params["b"][0] = -0.0
+    p0 = {k: v.detach().clone() for k, v in state.params.items()}
+    batch2 = {k: v * 0.5 for k, v in batch.items()}
+    _, _, g1 = tdp.accumulate_gradients(
+        lambda p, b: ((b["x"] @ p["w"] + p["b"] - b["y"]) ** 2).mean(),
+        state.params, batch, 1)
+    state, _ = step(state, batch)
+    for k in p0:
+        assert torch.equal(state.params[k].view(torch.int32),
+                           p0[k].view(torch.int32))
+    assert torch.signbit(state.params["b"][0])
+    assert int(state.opt_state.inner.count) == 0
+    _, _, g2 = tdp.accumulate_gradients(
+        lambda p, b: ((b["x"] @ p["w"] + p["b"] - b["y"]) ** 2).mean(),
+        state.params, batch2, 1)
+    state, _ = step(state, batch2)
+    want, _ = inner.update({k: g1[k] + g2[k] for k in g1}, inner.init(p0), p0)
+    for k in p0:
+        assert torch.equal(state.params[k], p0[k] + want[k]), k
+    assert int(state.opt_state.inner.count) == 1

@@ -15,10 +15,15 @@ package's, on the CPU.
   may fuse and reorder them).
 * The wrapper updates ``m`` and ``v`` in place and counts no launch on
   the CPU; the distributed wrappers resolve ``fused_update`` as the JAX
-  package does.
+  package does, and refuse what the JAX package refuses, in its words.
+* ``backward_passes_per_step``, Adasum, ``grad`` and ``value_and_grad`` on
+  a gloo world of 4 against the JAX package (see the section below), and
+  a ``TrainState`` checkpoint saved mid-accumulation (and one written
+  without ``acc``) restoring to the same run.
 """
 
 import jax
+from typing import NamedTuple
 import jax.numpy as jnp
 import numpy as np
 import optax
@@ -174,17 +179,340 @@ def test_fused_update_resolution(monkeypatch):
         topt.fused_adamw(lambda step: 1e-3)
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(op=2), "ADASUM"),
-    (dict(backward_passes_per_step=2), "accum_steps"),
-    (dict(compression="int8"), "quantized wire"),
-])
-def test_unported_optimizer_options_raise(kw, match):
+# The refusals the replicated wrapper keeps, in the JAX package's words
+# (horovod_tpu/optimizer.py): Adasum and backward_passes_per_step > 1 are
+# ported (test_torch_port_adasum.py, test_backward_passes_per_step_*), so
+# their two cases here gave way to the refusals that stay.
+_REFUSALS = [
+    (dict(sharded=True, backward_passes_per_step=2), NotImplementedError,
+     "sharded=True does not support backward_passes_per_step > 1"),
+    (dict(sharded=True, op=2), ValueError,
+     "ShardedDistributedOptimizer supports Average/Sum"),
+    (dict(compression="int8"), NotImplementedError, "quantized wire"),
+    (dict(backward_passes_per_step=0), ValueError,
+     "backward_passes_per_step must be >= 1"),
+    (dict(compression="int8", op=2), ValueError,
+     "quantized compression supports op=Average/Sum"),
+]
+
+
+@pytest.mark.parametrize(
+    "kw,exc,match", _REFUSALS,
+    ids=["sharded-bpps", "sharded-adasum", "kw2-quantized wire", "bpps0",
+         "quantized-adasum"])
+def test_unported_optimizer_options_raise(kw, exc, match):
     from horovod_tpu_torch.ops.compression import Compression
 
     if kw.get("compression") == "int8":
         # The quantized wire is ported; with backward_passes_per_step > 1
-        # it raises, as in the JAX package.
-        kw = dict(compression=Compression.int8, backward_passes_per_step=2)
-    with pytest.raises(NotImplementedError, match=match):
+        # it raises, as in the JAX package, and so does it with Adasum.
+        kw = dict(kw, compression=Compression.int8)
+        kw.setdefault("backward_passes_per_step", 2 if "op" not in kw else 1)
+    with pytest.raises(exc, match=match):
         topt.DistributedOptimizer(topt.adamw(1e-3), **kw)
+    if kw.get("sharded") and kw.get("op") == 2:
+        with pytest.raises(exc, match=match):
+            topt.ShardedDistributedOptimizer(topt.adamw(1e-3), op=2)
+
+
+# -- the rest of the wrapper on a gloo world of 4 ------------------------
+#
+# One gloo world of 4 CPU processes (context.spawn_gloo) runs every case
+# below; the JAX package's side runs under shard_map on 4 CPU devices, from
+# the same seeded numpy inputs per rank:
+#
+# * test_backward_passes_per_step's twin with a plain SGD(1.0): the skipped
+#   pass's update 0, the synced one -mean(2 (rank + 1)) = -5, exact; and with
+#   average_aggregated_gradients=True, -2.5;
+# * AdamW over 5 passes at backward_passes_per_step=2 against the JAX
+#   DistributedOptimizer under optax.adamw, at the tolerance of
+#   test_unfused_adamw_matches_optax_over_five_steps (1e-6 of the largest
+#   parameter); the inner count advances only on the synced passes;
+# * op=Adasum through DistributedOptimizer (AdamW, 3 updates) and through
+#   make_train_step (a regression, 3 steps) against the JAX optimizer and
+#   the JAX make_train_step(op=Adasum): the parameters within 1e-5 of the
+#   largest (Adasum's fp32 dots are summed in other orders, and Adam divides
+#   by sqrt(v));
+# * grad and value_and_grad (the twins of test_grad_allreduces and
+#   test_value_and_grad_averages_loss, exact: sums of small integers).
+
+import optax  # noqa: E402
+
+import horovod_tpu as hvd  # noqa: E402
+from horovod_tpu import _compat  # noqa: E402
+from horovod_tpu.parallel import dp as jdp  # noqa: E402
+from horovod_tpu_torch import context  # noqa: E402
+from horovod_tpu_torch.ops.collectives import Adasum  # noqa: E402
+from horovod_tpu_torch.parallel import dp as tdp  # noqa: E402
+from jax.sharding import PartitionSpec as P  # noqa: E402
+
+WORLD4 = 4
+ADASUM_LR = 1e-2
+
+
+def _sgd(lr):
+    """SGD without momentum, the shape of optax.sgd(lr)."""
+    return topt.Optimizer(
+        lambda params: (),
+        lambda g, s, p=None: (jax.tree.map(lambda x: -lr * x, g), s))
+
+
+def _rank_tree(seed, rank):
+    return _tree(seed + 10 * rank)
+
+
+def _regression(rank=None):
+    rs = np.random.RandomState(5)
+    params = {"w": rs.standard_normal((4, 3)).astype(np.float32),
+              "b": rs.standard_normal((3,)).astype(np.float32)}
+    x = rs.standard_normal((2 * WORLD4, 4)).astype(np.float32)
+    y = rs.standard_normal((2 * WORLD4, 3)).astype(np.float32)
+    if rank is not None:
+        x, y = x[2 * rank:2 * rank + 2], y[2 * rank:2 * rank + 2]
+    return params, x, y
+
+
+def _t(tree):
+    return jax.tree.map(lambda a: torch.from_numpy(np.array(a)), tree)
+
+
+def _port_world4():
+    rank = context.rank()
+    out = {}
+    for avg in (False, True):
+        d = topt.DistributedOptimizer(
+            _sgd(1.0), backward_passes_per_step=2,
+            average_aggregated_gradients=avg)
+        p = {"w": torch.ones(2)}
+        state = d.init(p)
+        g = {"w": torch.full((2,), rank + 1.0)}
+        u1, state = d.update(g, state, p)
+        u2, state = d.update(g, state, p)
+        out[f"bpps_avg{avg}"] = (u1["w"].numpy(), u2["w"].numpy())
+    # AdamW over 5 passes at k = 2.
+    d = topt.DistributedOptimizer(topt.adamw(1e-2), backward_passes_per_step=2)
+    p = _t(_tree(0))
+    state = d.init(p)
+    counts = []
+    for step in range(5):
+        u, state = d.update(_t(_rank_tree(100 + step, rank)), state, p)
+        p = jax.tree.map(lambda a, b: a + b, p, u)
+        counts.append(int(state.inner.count))
+    out["adamw_k2"] = (jax.tree.map(lambda t: t.numpy(), p), counts)
+    # Adasum through the optimizer ...
+    d = topt.DistributedOptimizer(topt.adamw(ADASUM_LR), op=Adasum)
+    p = _t(_tree(0))
+    state = d.init(p)
+    for step in range(3):
+        u, state = d.update(_t(_rank_tree(200 + step, rank)), state, p)
+        p = jax.tree.map(lambda a, b: a + b, p, u)
+    out["adasum_opt"] = jax.tree.map(lambda t: t.numpy(), p)
+    # ... and through make_train_step.
+    params, x, y = _regression(rank)
+    step_fn, wopt = tdp.make_train_step(
+        lambda q, b: ((b[0] @ q["w"] + q["b"] - b[1]) ** 2).mean(),
+        topt.adamw(ADASUM_LR), op=Adasum, device="cpu")
+    ts = tdp.init_state(_t(params), wopt)
+    losses = []
+    for _ in range(3):
+        ts, loss = step_fn(ts, (torch.from_numpy(x), torch.from_numpy(y)))
+        losses.append(float(loss))
+    out["adasum_step"] = ({k: v.detach().numpy() for k, v in ts.params.items()},
+                          losses)
+    # grad / value_and_grad.
+    r = float(rank)
+    out["grad"] = topt.grad(lambda w: (w * w).sum() * (r + 1.0))(
+        torch.ones(4)).numpy()
+    loss, g = topt.value_and_grad(lambda w: w.sum() * (r + 1.0))(torch.ones(3))
+    out["value_and_grad"] = (float(loss), g.numpy())
+    (loss, aux), g = topt.value_and_grad(
+        lambda w: (w.sum() * (r + 1.0), torch.tensor(r)), has_aux=True)(
+            torch.ones(3))
+    out["value_and_grad_aux"] = (float(loss), float(aux), g.numpy())
+    return out
+
+
+@pytest.fixture(scope="module")
+def world4():
+    return context.spawn_gloo(WORLD4, _port_world4)
+
+
+@pytest.fixture(scope="module")
+def jax_world4():
+    ctx = hvd.init(devices=jax.devices("cpu")[:WORLD4])
+    try:
+        def spmd(body, *stacked):
+            fn = jax.jit(_compat.shard_map(
+                lambda *a: jax.tree.map(lambda t: t[None], body(
+                    *jax.tree.map(lambda t: t[0], a))),
+                mesh=ctx.mesh, in_specs=(P(hvd.WORLD_AXIS),) * len(stacked),
+                out_specs=P(hvd.WORLD_AXIS), check_vma=False))
+            return jax.tree.map(lambda t: np.asarray(t)[0], fn(*stacked))
+
+        def stack(seed):
+            return jax.tree.map(lambda *xs: jnp.stack(xs), *[
+                _rank_tree(seed, r) for r in range(WORLD4)])
+
+        out = {}
+        grads = [stack(100 + s) for s in range(5)]
+
+        def adamw_k2(*gs):
+            d = hvd.DistributedOptimizer(optax.adamw(1e-2, weight_decay=1e-4),
+                                         backward_passes_per_step=2)
+            p = jax.tree.map(jnp.asarray, _tree(0))
+            s = d.init(p)
+            for g in gs:
+                u, s = d.update(g, s, p)
+                p = optax.apply_updates(p, u)
+            return p
+
+        out["adamw_k2"] = spmd(adamw_k2, *grads)
+        grads = [stack(200 + s) for s in range(3)]
+
+        def adasum_opt(*gs):
+            d = hvd.DistributedOptimizer(
+                optax.adamw(ADASUM_LR, weight_decay=1e-4), op=hvd.Adasum)
+            p = jax.tree.map(jnp.asarray, _tree(0))
+            s = d.init(p)
+            for g in gs:
+                u, s = d.update(g, s, p)
+                p = optax.apply_updates(p, u)
+            return p
+
+        out["adasum_opt"] = spmd(adasum_opt, *grads)
+        params, x, y = _regression()
+
+        def loss_fn(q, b):
+            return jnp.mean((b[0] @ q["w"] + q["b"] - b[1]) ** 2)
+
+        step, wopt = jdp.make_train_step(
+            loss_fn, optax.adamw(ADASUM_LR, weight_decay=1e-4), op=hvd.Adasum)
+        st = jdp.init_state(jax.tree.map(jnp.asarray, params), wopt)
+        losses = []
+        for _ in range(3):
+            st, loss = step(st, (jnp.asarray(x), jnp.asarray(y)))
+            losses.append(float(loss))
+        out["adasum_step"] = (jax.tree.map(np.asarray, st.params), losses)
+        return out
+    finally:
+        hvd.shutdown()
+
+
+def _within(got, want, tol):
+    """Every leaf of ``got`` within ``tol`` of ``want``'s largest value."""
+    top = max(float(np.abs(np.asarray(w)).max())
+              for w in jax.tree.leaves(want))
+    for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=0, atol=tol * top)
+
+
+@pytest.mark.parametrize("avg", [False, True])
+def test_backward_passes_per_step_on_a_gloo_world(world4, avg):
+    for r in range(WORLD4):
+        u1, u2 = world4[r][f"bpps_avg{avg}"]
+        np.testing.assert_array_equal(u1, 0.0)  # the skipped pass
+        # Accumulated 2 (rank + 1); its mean over ranks 2 x 2.5 = 5.
+        np.testing.assert_array_equal(u2, -2.5 if avg else -5.0)
+
+
+def test_adamw_accumulating_two_passes_matches_the_reference(world4,
+                                                             jax_world4):
+    for r in range(WORLD4):
+        params, counts = world4[r]["adamw_k2"]
+        assert counts == [0, 1, 1, 2, 2]  # AdamW steps only when it syncs
+        _within(params, jax_world4["adamw_k2"], 1e-6)
+
+
+def test_adasum_optimizer_and_train_step_match_the_reference(world4,
+                                                             jax_world4):
+    for r in range(WORLD4):
+        _within(world4[r]["adasum_opt"], jax_world4["adasum_opt"], 1e-5)
+        params, losses = world4[r]["adasum_step"]
+        want, want_losses = jax_world4["adasum_step"]
+        np.testing.assert_allclose(losses, want_losses, rtol=1e-5)
+        assert losses[-1] < losses[0]
+        _within(params, want, 1e-5)
+        for k in params:  # every rank ends with the same parameters
+            np.testing.assert_array_equal(params[k],
+                                          world4[0]["adasum_step"][0][k])
+
+
+def test_grad_and_value_and_grad_reduce_like_the_reference(world4):
+    for r in range(WORLD4):
+        # test_grad_allreduces: d/dw sum(w^2)(r + 1) averaged: 2 x 2.5.
+        np.testing.assert_array_equal(world4[r]["grad"], 5.0)
+        # test_value_and_grad_averages_loss: loss 3 x 2.5, grads 2.5.
+        loss, g = world4[r]["value_and_grad"]
+        assert loss == 7.5
+        np.testing.assert_array_equal(g, 2.5)
+        loss, aux, g = world4[r]["value_and_grad_aux"]
+        assert loss == 7.5 and aux == float(r)  # aux stays this rank's
+        np.testing.assert_array_equal(g, 2.5)
+
+
+# -- backward_passes_per_step in a TrainState checkpoint -------------------
+
+
+def _bpps_run(tmp_path, opt, interrupt_at=None):
+    """3 steps of a regression through make_train_step with a user's
+    DistributedOptimizer (distribute_optimizer=False); with
+    ``interrupt_at``, the state is saved after that step and the rest runs
+    from a restore into a fresh state."""
+    from horovod_tpu_torch import checkpoint as tckpt
+
+    params, x, y = _regression(0)
+    batches = [(torch.from_numpy(x) * (1 + i), torch.from_numpy(y))
+               for i in range(3)]
+    step, _ = tdp.make_train_step(
+        lambda q, b: ((b[0] @ q["w"] + q["b"] - b[1]) ** 2).mean(), opt,
+        distribute_optimizer=False, device="cpu")
+    state = tdp.init_state(_t(params), opt)
+    for i, batch in enumerate(batches):
+        state, _ = step(state, batch)
+        if i == interrupt_at:
+            tckpt.save_checkpoint(str(tmp_path), state, i + 1)
+            fresh = tdp.init_state(_t(params), opt)
+            state = tckpt.restore_checkpoint(str(tmp_path), fresh)
+            assert int(state.opt_state.count) == i + 1
+    return state
+
+
+def test_checkpoint_mid_accumulation_resumes_bit_for_bit(tmp_path):
+    opt = topt.DistributedOptimizer(topt.adamw(1e-2),
+                                    backward_passes_per_step=2)
+    whole = _bpps_run(tmp_path / "a", opt)
+    resumed = _bpps_run(tmp_path / "b", opt, interrupt_at=0)  # acc is full
+    for k in whole.params:
+        assert torch.equal(whole.params[k], resumed.params[k]), k
+    assert int(resumed.opt_state.inner.count) == 1
+
+
+class _PrePRDistState(NamedTuple):
+    """A replicated state as checkpoints stored it before ``acc`` existed."""
+
+    inner: object
+    count: torch.Tensor
+    residual: object = None
+
+
+def test_a_checkpoint_without_acc_restores_at_one_pass(tmp_path):
+    from horovod_tpu_torch import checkpoint as tckpt
+
+    opt = topt.DistributedOptimizer(topt.adamw(1e-2))
+    params, x, y = _regression(0)
+    step, _ = tdp.make_train_step(
+        lambda q, b: ((b[0] @ q["w"] + q["b"] - b[1]) ** 2).mean(), opt,
+        distribute_optimizer=False, device="cpu")
+    state, _ = step(tdp.init_state(_t(params), opt),
+                    (torch.from_numpy(x), torch.from_numpy(y)))
+    old = tdp.TrainState(state.params, _PrePRDistState(
+        state.opt_state.inner, state.opt_state.count), state.step)
+    tckpt.save_checkpoint(str(tmp_path), old, 1)
+    got = tckpt.restore_checkpoint(str(tmp_path),
+                                   tdp.init_state(_t(params), opt))
+    assert got.opt_state.acc is None and int(got.opt_state.count) == 1
+    for a, b in zip(jax.tree.leaves(tuple(got.opt_state.inner)),
+                    jax.tree.leaves(tuple(state.opt_state.inner))):
+        assert torch.equal(a, b)
+    for k in params:
+        assert torch.equal(got.params[k], state.params[k])
