@@ -329,15 +329,49 @@ Phases (any failure exits non-zero; nothing is caught):
    array, allgather_object, broadcast_parameters of ViT-L's parameters and
    broadcast_optimizer_state of the AdamW state of (3), bit for bit, and
    the uneven allgather and alltoall(splits) at one rank.
-22. Output: a "kernels" JSON line (the nine TPU kernels' counterparts and
+22. [train-overlap] The JAX package's bench_overlap configuration: GPT-2
+   small (fp32 masters, bf16 compute, per-block dots_saveable) at 32 x 1024
+   in 4 microbatches of 8 through the replicated adamw(1e-4) step on the
+   one-rank NCCL world, overlap off and then on from one start, each one
+   warm-up and 12 timed steps pulled from prefetch_to_device(depth=2):
+   each step's ms, the losses falling, 96 forward and 48 of each backward
+   flash launch a step, record_overlap_pair's dict (ring model over the
+   gradient bytes at one rank: 0 ms on the wire, efficiency null). Then 3
+   steps each of ZeRO-1 fused and of the int8 wire (EF) with overlap off
+   and on from one start: parameters, optimizer state and residuals bit for
+   bit after every step, launch counts (one AdamW a bucket; 2 quantizes and
+   2 dequantizes a bucket). The issue order the step agreed on after its
+   first step (the order its buckets became whole; pack order would put
+   the tied wte's bucket, whole only when the backward ends, first).
+   Profiled overlap-on steps (GPT-2, and GPT-2 on the int8 wire), the last
+   microbatch's backward marked by spin kernels: the backward's stream and
+   the bucket work's streams, the bucket work's device ms and overlapped_ms
+   (its part inside the last backward's span); a collective, quantize or
+   dequantize on the backward's stream fails, and so does bucket work that
+   does not start before the last backward kernel ended.
+23. [train-actquant] GPT-2 small at 32 x 1024 ([train-remat]'s
+   configuration, ZeRO-1 fused; per-block full beside it), ResNet-50 at
+   224 batch 64 ([zoo]'s) and bench_act_quant's MLP tower (8 x 512, 2048
+   rows, 10 classes, replicated adamw), act-quant off then "int8" from one
+   start, 3 steps each: losses falling, peak GiB, step ms, launches a step
+   (kernel 4: one a boundary; kernel 5: one a boundary and one a held
+   boundary output -- GPT-2 12 and 23, ResNet-50 16 and 31, the MLP 8 and
+   16), the int8 peak below the off peak for GPT-2 and ResNet-50; one
+   forward and backward outside the step: the first and last boundary
+   outputs bit for bit the plain boundary's, every held boundary output
+   int8 payload and fp32 scales (GPT-2 11, ResNet-50 15, the MLP 8); and
+   kernels 4 and 5 timed at a GPT-2 boundary (25.2 M fp32 elements) beside
+   their plain versions, torch.mul and the byte bound.
+24. Output: a "kernels" JSON line (the nine TPU kernels' counterparts and
    the cast kernel; "launches" is the training run's count -- for the
    quantize pair the int8 [train-quant] run's (beside it the
    [ckpt-reshard] and int8 [decode] runs' and the KV shapes' times as
    "kv_write" / "kv_gather"), for kernel 8 and the cast kernel the fp8
    [train-fp8] run's, for kernel 7 the [serve-int8] rounds' -- the forward
    kernel's serving count beside it as "launches_serve", and the flash
-   kernels' and AdamW's counts in 18.-21., each read over its own run, as
-   "launches_phases"), the card's name and power limit, and the last line
+   kernels', AdamW's and (from 22.) the quantize pair's counts in 18.-23.,
+   each read over its own run, as "launches_phases"; the quantize pair's
+   times at an act-quant boundary as "boundary"), the card's name and power limit, and the last line
    {"ok": true, "device": {...}}.
 
 A crash in native code prints every thread's Python stack to stderr
@@ -349,9 +383,11 @@ teardown of the CUDA, NCCL and profiler libraries.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import faulthandler
 import hashlib
+import itertools
 import json
 import os
 import shutil
@@ -438,6 +474,15 @@ VIT_BATCH, RESNET_BATCH, MOE_BATCH, RESNET_IMAGE = 32, 64, 8, 224
 # [train-adasum]: 3 timed steps; the fp32 VHDD against the fp64 fold,
 # relative L2 per leaf (fp32 products and row sums against fp64 sums).
 ADASUM_STEPS, ADASUM_LR, ADASUM_TOL = 3, 1e-4, 1e-5
+# [train-overlap]: bench_overlap's GPT-2 (32 x 1024 in 4 microbatches of 8,
+# per-block dots_saveable, replicated adamw) 1 warm-up + 12 timed steps each
+# side; 3 steps of each bit-for-bit pair; the spin kernels that mark the
+# last microbatch's backward in a profile.
+OVERLAP_ACCUM, OVERLAP_STEPS, OVERLAP_BIT_STEPS = 4, 12, 3
+MARK_CYCLES = 1000
+# [train-actquant]: 3 steps a side; bench_act_quant's MLP tower (width,
+# depth, rows, classes).
+ACTQ_STEPS, ACTQ_LR, ACTQ_MLP = 3, 1e-4, (512, 8, 2048, 10)
 
 
 def log(msg: str) -> None:
@@ -3759,6 +3804,566 @@ def train_adasum(hvt, kernels):
     return rec
 
 
+# -- [train-overlap] and [train-actquant] --------------------------------------
+
+
+def kernel_events(prof):
+    """Every device event of a finished torch.profiler window: (name,
+    stream id, start ns, end ns)."""
+    from torch.autograd import DeviceType
+
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        if hasattr(e, "start_ns"):
+            start, dur = e.start_ns(), e.duration_ns()
+        else:
+            start, dur = e.start_us() * 1000, e.duration_us() * 1000
+        out.append((e.name(), e.device_resource_id(), start, start + dur))
+    return out
+
+
+@contextlib.contextmanager
+def marked_backward():
+    """A spin kernel on the compute stream just before the bucket scheduler
+    arms its hooks (after the last microbatch's forward) and one just after
+    that backward returns: the marks of the last backward in a profile."""
+    from horovod_tpu_torch.ops import layout
+
+    orig = layout.BucketScheduler.armed
+
+    @contextlib.contextmanager
+    def armed(self):
+        torch.cuda._sleep(MARK_CYCLES)
+        with orig(self) as sched:
+            yield sched
+        torch.cuda._sleep(MARK_CYCLES)
+
+    layout.BucketScheduler.armed = armed
+    try:
+        yield
+    finally:
+        layout.BucketScheduler.armed = orig
+
+
+@contextlib.contextmanager
+def agreed_orders():
+    """A list of every issue order the overlap steps agree on after their
+    first step (BucketScheduler.agree_order), while it is open."""
+    from horovod_tpu_torch.ops import layout
+
+    got, orig = [], layout.BucketScheduler.agree_order
+
+    def agree(self):
+        got.append(orig(self))
+        return got[-1]
+
+    layout.BucketScheduler.agree_order = agree
+    try:
+        yield got
+    finally:
+        layout.BucketScheduler.agree_order = orig
+
+
+def overlap_profile(tag, step, state, batch):
+    """Two overlap-on steps in one profiler window (the first warms it);
+    of the second: the stream the backward ran on, the streams of the
+    bucket work (every kernel on another stream from the first mark on:
+    the side streams' packs, casts, quantizes, dequantizes, and NCCL's
+    own), the bucket work's device ms, and overlapped_ms, the part of it
+    inside the span of the last microbatch's backward (from the first
+    mark's end to the end of the last kernel the compute stream ran before
+    the second mark). Fails if a collective, quantize or dequantize ran on
+    the backward's stream in that step, if there was no bucket work, or if
+    none of it started before the last backward kernel ended."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with marked_backward(), profile(
+            activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    ev = kernel_events(prof)
+    marks = [e for e in ev if "spin_kernel" in e[0]]
+    if len(marks) < 2:
+        raise AssertionError(f"[train-overlap] {tag}: the marks of the "
+                             f"backward were not recorded ({len(marks)})")
+    m0, m1 = marks[-2], marks[-1]
+    compute = m0[1]
+    last = [e for e in ev if e[2] >= m0[2] and e not in (m0, m1)]
+    span0 = m0[3]
+    span1 = max([e[3] for e in last if e[1] == compute and e[2] < m1[2]]
+                or [m1[2]])
+    work = [e for e in last if e[1] != compute and "Memcpy" not in e[0]]
+    wrong = [e[0] for e in last if e[1] == compute and kernel_category(
+        e[0]) in ("nccl", "quantize_blockwise", "dequantize_blockwise")]
+    if not work or wrong:
+        raise AssertionError(
+            f"[train-overlap] {tag}: bucket work on side streams "
+            f"{len(work)} kernels; on the backward's stream {wrong[:4]}")
+    streams = {}
+    for name, sid, _, _ in work:
+        c = kernel_category(name)
+        streams.setdefault(sid, {}).setdefault(c, 0)
+        streams[sid][c] += 1
+    bucket_ms = sum(e[3] - e[2] for e in work) / 1e6
+    overlapped = sum(max(0, min(e[3], span1) - max(e[2], span0))
+                     for e in work) / 1e6
+    first = min(e[2] for e in work)
+    rec = {"backward_stream": compute,
+           "bucket_streams": {str(k): v for k, v in streams.items()},
+           "bucket_ms": bucket_ms, "overlapped_ms": overlapped,
+           "backward_span_ms": (span1 - span0) / 1e6,
+           "first_bucket_start_ms": (first - span0) / 1e6,
+           "started_before_backward_end": bool(first < span1)}
+    log(f"[train-overlap] {tag} profile: backward on stream {compute}; "
+        f"bucket work on streams {rec['bucket_streams']}; bucket work "
+        f"{bucket_ms:.3f} device ms, overlapped_ms {overlapped:.3f} of a "
+        f"{rec['backward_span_ms']:.3f} ms last backward; first bucket "
+        f"kernel {rec['first_bucket_start_ms']:.3f} ms after the backward "
+        f"began (before its end: {rec['started_before_backward_end']})")
+    if not rec["started_before_backward_end"]:
+        raise AssertionError(f"[train-overlap] {tag}: no bucket's work "
+                             "started before the last backward kernel ended")
+    return rec, state
+
+
+def state_tensors(tree):
+    """Every tensor of an optimizer state, in a fixed order."""
+    from horovod_tpu_torch.ops.fusion import FlatBuckets
+
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, FlatBuckets):
+        return list(tree.buffers)
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in state_tensors(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for x in tree for t in state_tensors(x)]
+    return []
+
+
+def snapshot_step(state):
+    return ([p.detach().clone() for _, p in sorted(state.params.items())],
+            [t.detach().clone() for t in state_tensors(state.opt_state)])
+
+
+def overlap_bitwise(hvt, kernels, model, loss_fn, tokens, name, kw):
+    """OVERLAP_BIT_STEPS steps with overlap off, then on, from one start:
+    the parameters, the optimizer state and the EF residuals after every
+    step bit for bit; the launch counts of each side."""
+    from horovod_tpu_torch.parallel import dp
+
+    kw = dict(kw)
+    opt_fn = kw.pop("opt")
+    snaps, rec = [], {}
+    for overlap in (False, True):
+        step, opt = hvt.make_train_step(loss_fn, opt_fn(TRAIN_LR),
+                                        accum_steps=OVERLAP_ACCUM,
+                                        overlap=overlap, **kw)
+        state = dp.init_state({n: p.detach().clone()
+                               for n, p in model.named_parameters()}, opt)
+        reset_counts(*kernels)
+        losses = []
+        for i in range(OVERLAP_BIT_STEPS):
+            state, loss = step(state, tokens)
+            losses.append(float(loss))
+            snap = snapshot_step(state)
+            if not overlap:
+                snaps.append(snap)
+                continue
+            want = snaps[i]
+            same = (len(snap[1]) == len(want[1]) and all(
+                torch.equal(a, b) for a, b in zip(snap[0] + snap[1],
+                                                  want[0] + want[1])))
+            if not same:
+                diff = max((a.float() - b.float()).abs().max().item()
+                           for a, b in zip(snap[0] + snap[1],
+                                           want[0] + want[1]))
+                raise AssertionError(
+                    f"[train-overlap] {name}: step {i + 1} with overlap is "
+                    f"not bit for bit the step without (max |d| {diff:.3e})")
+        counts = read_counts(*kernels)
+        n_b = (len(state.opt_state.residual.buffers)
+               if getattr(state.opt_state, "residual", None) is not None
+               else n_buckets(state))
+        if "compression" in kw:
+            want_counts = {"quantize_blockwise": 2 * n_b,
+                           "dequantize_blockwise": 2 * n_b,
+                           "fused_adamw": 0}
+        else:
+            want_counts = {"fused_adamw": n_b, "quantize_blockwise": 0}
+        check_counts(f"train-overlap {name}", counts, want_counts,
+                     OVERLAP_BIT_STEPS)
+        rec["on" if overlap else "off"] = {"losses": losses,
+                                           "launches": counts,
+                                           "buckets": n_b}
+        if overlap and "compression" in kw:
+            # Kernels 4 and 5 of the wire on a side stream, never on the
+            # backward's.
+            rec["profile"], state = overlap_profile(name, step, state, tokens)
+        del step, state, opt
+        torch.cuda.empty_cache()
+    rec["bitwise"] = True
+    log(f"[train-overlap] {name}: {OVERLAP_BIT_STEPS} steps with overlap "
+        f"equal the steps without bit for bit (parameters, optimizer state"
+        + (", EF residuals" if "compression" in kw else "") + f"); losses "
+        f"{rec['on']['losses']}; launches with overlap "
+        f"{rec['on']['launches']}")
+    del snaps
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mlp_tower(hvt, dtype=torch.float32):
+    """bench_act_quant's MLP tower (ACTQ_MLP) with seeded weights, its loss
+    and one seeded batch on the card."""
+    import torch.nn.functional as F
+
+    width, depth, rows, classes = ACTQ_MLP
+    model = hvt.MLP(features=(width,) * depth, num_classes=classes,
+                    in_features=width, dtype=dtype)
+    model.load_state_dict(hvt.convert.init_mlp_params(model, seed=0))
+    rng = np.random.default_rng(14)
+    x = torch.from_numpy(rng.standard_normal((rows, width),
+                                             dtype=np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, classes, (rows,))).cuda()
+
+    def loss_fn(p, b, model=model):
+        return F.cross_entropy(torch.func.functional_call(model, p, (b[0],)),
+                               b[1])
+
+    return model, loss_fn, (x, y)
+
+
+def train_overlap(hvt, kernels):
+    """[train-overlap]: bench_overlap's GPT-2 configuration on the one-rank
+    NCCL world with overlap off, then on (12 timed steps each, fed by
+    prefetch_to_device); the ZeRO-1 fused and int8-wire pairs bit for bit;
+    the issue order the steps agreed on; profiled overlap-on steps of GPT-2
+    and of the int8 wire."""
+    from horovod_tpu_torch.obs import overlap as obs_overlap
+    from horovod_tpu_torch.ops.fusion import BucketPlan
+    from horovod_tpu_torch.parallel import dp
+
+    t_phase = time.perf_counter()
+    hvt.init(backend="nccl")
+    cfg0 = hvt.GPT2Config.small(param_dtype=torch.float32)
+    sd0 = hvt.convert.init_params(cfg0, seed=0)
+    cfg = dataclasses.replace(cfg0, remat="dots_saveable")
+    model = hvt.GPT2LMModel(cfg)
+    model.load_state_dict(sd0)
+    del sd0
+    loss_fn = train_loss(model)
+    tokens_np = np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (REMAT_BATCH, cfg.max_len + 1), dtype=np.int64)
+    tokens = torch.from_numpy(tokens_np).cuda()
+    n_l, k = cfg.n_layers, OVERLAP_ACCUM
+    plan = BucketPlan(dict(model.named_parameters()))
+    first_bucket = [n for n, b in zip(sorted(dict(model.named_parameters())),
+                                      plan.bucket_of()) if b == 0]
+    out = {"buckets": plan.n_buckets, "bucket0": first_bucket}
+    runs = {}
+    with agreed_orders() as agreed:
+        for overlap in (False, True):
+            key = "on" if overlap else "off"
+            step, opt = hvt.make_train_step(loss_fn, hvt.adamw(TRAIN_LR),
+                                            accum_steps=k, overlap=overlap)
+            state = dp.init_state(
+                {n: p.detach().clone() for n, p in model.named_parameters()},
+                opt)
+            feed = hvt.prefetch_to_device(
+                itertools.repeat(tokens_np, OVERLAP_STEPS + 1), depth=2)
+            losses = []
+            state, warm = timed_steps(step, state, lambda i: next(feed), 1,
+                                      losses)
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(*kernels)
+            state, times = timed_steps(step, state, lambda i: next(feed),
+                                       OVERLAP_STEPS, losses)
+            counts = read_counts(*kernels)
+            check_counts("train-overlap " + key, counts, {
+                "flash_fwd": 2 * n_l * k, "flash_bwd_dkdv": n_l * k,
+                "flash_bwd_dq": n_l * k, "fused_adamw": 0,
+                "quantize_blockwise": 0, "dequantize_blockwise": 0},
+                OVERLAP_STEPS)
+            check_falling("train-overlap " + key, losses)
+            run = {"losses": losses, "warmup_ms": warm[0],
+                   "step_ms": times, "median_ms": float(np.median(times)),
+                   "peak_gib": peak_gib(), "launches": counts}
+            log(f"[train-overlap] GPT-2 small 32 x 1024 in {k} microbatches,"
+                f" overlap {key}: step ms {[round(t, 3) for t in times]} "
+                f"(median {run['median_ms']:.3f}, warm-up {warm[0]:.1f}); "
+                f"losses {losses[0]:.4f} -> {losses[-1]:.4f}; peak "
+                f"{run['peak_gib']:.3f} GiB; launches over {OVERLAP_STEPS} "
+                f"steps {counts}")
+            if overlap:
+                run["profile"], state = overlap_profile("gpt2", step, state,
+                                                        tokens)
+            runs[key] = run
+            del step, state, opt, feed
+            torch.cuda.empty_cache()
+    out["runs"] = runs
+    wire = sum(p.numel() * p.element_size() for p in model.parameters())
+    out["pair"] = obs_overlap.record_overlap_pair(
+        runs["on"]["median_ms"], runs["off"]["median_ms"], wire_bytes=wire,
+        n_chips=hvt.size(), device=torch.cuda.get_device_name(0))
+    log(f"[train-overlap] record_overlap_pair (ring model over {wire} "
+        f"gradient bytes, {hvt.size()} rank): {json.dumps(out['pair'])}")
+    out["issue_order"] = agreed[0]
+    log(f"[train-overlap] {plan.n_buckets} buckets; pack order's bucket 0 "
+        f"holds {first_bucket}, whole only when the backward ends; the "
+        f"issue order the steps agreed on after the first: {agreed[0]}")
+    out["zero1_fused"] = overlap_bitwise(
+        hvt, kernels, model, loss_fn, tokens, "zero1_fused",
+        dict(opt=hvt.fused_adamw, sharded=True, fused_update=True))
+    out["int8_wire"] = overlap_bitwise(
+        hvt, kernels, model, loss_fn, tokens, "int8_wire",
+        dict(opt=hvt.adamw, compression=hvt.Compression.int8))
+    del model, loss_fn, tokens
+    hvt.shutdown()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[train-overlap] phase wall {out['wall_s']:.1f} s")
+    return out
+
+
+def boundary_plain(aq, tq, x, nhwc):
+    """The boundary's plain version on the card: the plain quantize and
+    dequantize of the same flat fp32 activation."""
+    held_q, held_s = tq.quantize_blockwise_reference(
+        aq._flat(x, nhwc), QUANT_BLOCK, tq.INT8)
+    flat = tq.dequantize_blockwise_reference(held_q, held_s, QUANT_BLOCK)
+    if nhwc:
+        b, c, h, w = x.shape
+        return flat.reshape(b, h, w, c).permute(0, 3, 1, 2).to(x.dtype)
+    return flat.reshape(x.shape).to(x.dtype)
+
+
+def actquant_probe(aq, tq, loss_fn, params, batch, held_want):
+    """One act-quant forward and backward of ``loss_fn`` outside the step:
+    the first and last boundaries' outputs against the plain boundary bit
+    for bit, and every tensor the backward holds for a boundary output --
+    int8 payload and fp32 scales, one scale a 256-block -- counted."""
+    seen, held = [], []
+    boundary, pack = aq.boundary, aq._pack
+
+    def spy_boundary(x, **kw):
+        y = boundary(x, **kw)
+        seen.append((x.detach(), y.detach(), kw.get("nhwc", False)))
+        return y
+
+    def spy_pack(t):
+        out = pack(t)
+        if isinstance(out, aq._Held):
+            held.append(out)
+        return out
+
+    aq.boundary, aq._pack = spy_boundary, spy_pack
+    try:
+        loss = aq.checkpoint_fn(loss_fn, "", "int8")(params, batch)
+    finally:
+        aq.boundary, aq._pack = boundary, pack
+    loss.backward()
+    for p in params.values():
+        p.grad = None
+    for x, y, nhwc in (seen[0], seen[-1]):
+        if not torch.equal(y, boundary_plain(aq, tq, x, nhwc)):
+            raise AssertionError("[train-actquant] a boundary's kernel path "
+                                 "differs from its plain version")
+    for h in held:
+        n = h.q.numel()
+        if not (h.q.dtype == torch.int8 and h.s.dtype == torch.float32
+                and h.s.numel() == -(-n // QUANT_BLOCK)):
+            raise AssertionError(f"[train-actquant] held {h.q.dtype} "
+                                 f"{tuple(h.q.shape)}, {h.s.dtype} scales")
+    if len(held) != held_want:
+        raise AssertionError(f"[train-actquant] {len(held)} held boundary "
+                             f"outputs, not {held_want}")
+    held_bytes = sum(h.q.numel() + 4 * h.s.numel() for h in held)
+    full_bytes = sum(h.q.numel() * h.dtype.itemsize for h in held)
+    return {"boundaries": len(seen), "held": len(held),
+            "held_bytes": held_bytes, "model_dtype_bytes": full_bytes,
+            "boundary_bitwise": True}
+
+
+def actquant_kernel_times(tq, gen, n):
+    """Kernels 4 and 5 at one boundary's shape (``n`` fp32 elements, block
+    256) beside their plain versions, with the byte bound; and the whole
+    boundary of a bf16 activation (the cast to fp32, kernel 4, kernel 5,
+    the cast back)."""
+    from horovod_tpu_torch.ops import actquant as aq
+
+    x = torch.randn((n,), generator=gen, device="cuda")
+    q, s = tq.quantize_blockwise(x, QUANT_BLOCK, tq.INT8)
+    xb = x.to(torch.bfloat16)
+    rec = {"elements": n,
+           "quant_ms": time_ms(lambda: tq.quantize_blockwise(
+               x, QUANT_BLOCK, tq.INT8)),
+           "dequant_ms": time_ms(lambda: tq.dequantize_blockwise(
+               q, s, QUANT_BLOCK)),
+           "quant_plain_ms": time_ms(lambda: tq.quantize_blockwise_reference(
+               x, QUANT_BLOCK, tq.INT8), samples=5, per_sample=2),
+           "dequant_plain_ms": time_ms(
+               lambda: tq.dequantize_blockwise_reference(q, s, QUANT_BLOCK),
+               samples=5, per_sample=2),
+           "dequant_library_ms": time_ms(lambda: torch.mul(
+               q.view(-1, QUANT_BLOCK), s[:, None]))}
+    with aq.activate("int8"):
+        rec["boundary_bf16_ms"] = time_ms(lambda: aq.boundary(xb))
+    nbytes = 5 * n + 4 * (-(-n // QUANT_BLOCK))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = QUANT_OPS * n / FP32_FLOPS_PER_S
+    rec["bound_ms"] = max(t_bytes, t_ops) * 1e3
+    rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"[train-actquant] kernels 4 and 5 at a GPT-2 boundary ({n} fp32 "
+        f"elements, block {QUANT_BLOCK}): quantize {rec['quant_ms']:.4f} ms "
+        f"(plain {rec['quant_plain_ms']:.4f}), dequantize "
+        f"{rec['dequant_ms']:.4f} ms (plain {rec['dequant_plain_ms']:.4f}, "
+        f"torch.mul {rec['dequant_library_ms']:.4f}); bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); the whole bf16 "
+        f"boundary {rec['boundary_bf16_ms']:.4f} ms")
+    del x, q, s, xb
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_actquant(hvt, kernels, gen):
+    """[train-actquant]: GPT-2 small at 32 x 1024 ([train-remat]'s
+    configuration, ZeRO-1 fused; per-block full beside it), ResNet-50 at
+    224 batch 64 ([zoo]'s) and bench_act_quant's MLP tower, each with
+    act-quant off and then "int8" from one start."""
+    from horovod_tpu_torch.ops import actquant as aq
+    from horovod_tpu_torch.parallel import dp
+
+    tq = kernels[2]
+    t_phase = time.perf_counter()
+    hvt.init(backend="nccl")
+    out = {"kernels": actquant_kernel_times(
+        tq, gen, REMAT_BATCH * 1024 * 768)}
+    rng = np.random.default_rng(15)
+    cfg0 = hvt.GPT2Config.small(param_dtype=torch.float32)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg0.vocab_size, (REMAT_BATCH, cfg0.max_len + 1))).cuda()
+    images = torch.from_numpy(rng.standard_normal(
+        (RESNET_BATCH, 3, RESNET_IMAGE, RESNET_IMAGE),
+        dtype=np.float32)).cuda()
+    labels = torch.from_numpy(rng.integers(0, 1000, (RESNET_BATCH,))).cuda()
+    n_l, depth = cfg0.n_layers, ACTQ_MLP[1]
+    zero1 = dict(opt=hvt.fused_adamw, sharded=True, fused_update=True)
+    # Launches a step with act-quant: a quantize a boundary; a dequantize a
+    # boundary (its value) and one for every saved use of a boundary output
+    # (each segment's input; GPT-2's tail casts its last boundary output to
+    # fp32 and ResNet's pools it, which keep no int8; the MLP's head saves
+    # its input). The held boundary outputs: the segments' inputs (and the
+    # MLP head's).
+    specs = [
+        ("gpt2", lambda: gpt2_actquant_model(hvt, cfg0), toks, zero1,
+         {"quantize_blockwise": n_l, "dequantize_blockwise": 2 * n_l - 1,
+          "flash_fwd": 2 * n_l, "flash_bwd_dkdv": n_l, "flash_bwd_dq": n_l},
+         n_l - 1),
+        ("resnet50", lambda: resnet_actquant_model(hvt), (images, labels),
+         zero1, {"quantize_blockwise": 16, "dequantize_blockwise": 31,
+                 "flash_fwd": 0}, 15),
+        ("mlp", lambda: mlp_tower(hvt), None, dict(opt=hvt.adamw),
+         {"quantize_blockwise": depth, "dequantize_blockwise": 2 * depth,
+          "fused_adamw": 0}, depth),
+    ]
+    for name, build, batch, kw, want, held_want in specs:
+        rec = {}
+        built = build()
+        model, loss_fn = built[:2]
+        if batch is None:
+            batch = built[2]
+        sides = ("off", "int8") + (("block_full",) if name == "gpt2" else ())
+        for side in sides:
+            if side == "block_full":
+                del model, loss_fn
+                torch.cuda.empty_cache()
+                model, loss_fn = gpt2_actquant_model(hvt, cfg0, remat="full")
+            kwargs = dict(kw)
+            opt_fn = kwargs.pop("opt")
+            step, opt = hvt.make_train_step(
+                loss_fn, opt_fn(ACTQ_LR),
+                act_quant="int8" if side == "int8" else "", **kwargs)
+            # The state trains copies: the module keeps the start.
+            state = dp.init_state({n: p.detach().clone()
+                                   for n, p in model.named_parameters()},
+                                  opt)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(*kernels)
+            losses = []
+            state, times = timed_steps(step, state, lambda i: batch,
+                                       ACTQ_STEPS, losses)
+            counts = read_counts(*kernels)
+            peak = peak_gib()
+            check_falling(f"train-actquant {name} {side}", losses)
+            run = {"losses": losses, "step_ms": times,
+                   "median_ms": float(np.median(times[1:])),
+                   "peak_gib": peak, "launches": counts}
+            if side == "int8":
+                want_steps = dict(want)
+                if "fused_adamw" not in want_steps:
+                    want_steps["fused_adamw"] = n_buckets(state)
+                check_counts(f"train-actquant {name}", counts, want_steps,
+                             ACTQ_STEPS)
+            del step, state, opt
+            torch.cuda.empty_cache()
+            if side == "int8":
+                run["probe"] = actquant_probe(
+                    aq, tq, loss_fn, dict(model.named_parameters()), batch,
+                    held_want)
+            log(f"[train-actquant] {name} {side}: losses {losses}; step ms "
+                f"{[round(t, 3) for t in times]}; peak {peak:.3f} GiB; "
+                f"launches over {ACTQ_STEPS} steps {counts}"
+                + (f"; held {run['probe']['held']} boundary outputs, "
+                   f"{run['probe']['held_bytes']} bytes (int8 + fp32 "
+                   f"scales) for {run['probe']['model_dtype_bytes']} in the "
+                   f"model's dtype; boundaries bit for bit the plain "
+                   f"version's" if side == "int8" else ""))
+            rec[side] = run
+        del model, loss_fn, built
+        torch.cuda.empty_cache()
+        if name != "mlp" and not rec["int8"]["peak_gib"] < rec["off"][
+                "peak_gib"]:
+            raise AssertionError(
+                f"[train-actquant] {name}: the int8 peak "
+                f"{rec['int8']['peak_gib']:.3f} GiB is not below the off "
+                f"peak {rec['off']['peak_gib']:.3f}")
+        out[name] = rec
+    del images, labels, toks
+    hvt.shutdown()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[train-actquant] phase wall {out['wall_s']:.1f} s")
+    return out
+
+
+def gpt2_actquant_model(hvt, cfg0, remat=False):
+    """GPT-2 small (fp32 masters, bf16 compute, seeded), per-block ``remat``
+    and its next-token loss."""
+    model = hvt.GPT2LMModel(dataclasses.replace(cfg0, remat=remat))
+    model.load_state_dict(hvt.convert.init_params(cfg0, seed=0))
+    return model, train_loss(model)
+
+
+def resnet_actquant_model(hvt):
+    """[zoo]'s ResNet-50 (bf16, channels_last, seeded) and its loss."""
+    import torch.nn.functional as F
+
+    model, sd = zoo_model(hvt, "resnet")
+    model.load_state_dict(sd)
+
+    def loss_fn(p, b, model=model):
+        return F.cross_entropy(torch.func.functional_call(model, p, (b[0],)),
+                               b[1])
+
+    return model, loss_fn
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3878,6 +4483,8 @@ def main() -> int:
     remat = train_remat(hvt, (fa, fadam, tq))
     zooed = zoo(hvt, (fa, fadam, tq))
     adasum = train_adasum(hvt, (fa, fadam, tq))
+    overlapped = train_overlap(hvt, (fa, fadam, tq))
+    actq = train_actquant(hvt, (fa, fadam, tq), gen)
     # [train-remat] trains GPT-2 small, [train]'s layout (held in adam).
     adam_phases = adamw_phase_checks(fadam, gen, {
         "train_bert": bert["bucket_sizes"],
@@ -3889,7 +4496,16 @@ def main() -> int:
                         k: r["launches"] for k, r in remat["runs"].items()},
                     "launches_zoo": {k: zooed[k]["launches"]
                                      for k in ("vit", "resnet", "moe")},
-                    "launches_train_adasum": adasum["launches"]}
+                    "launches_train_adasum": adasum["launches"],
+                    "launches_train_overlap": {
+                        k: overlapped["runs"][k]["launches"]
+                        for k in ("off", "on")} | {
+                        k + "_on": overlapped[k]["on"]["launches"]
+                        for k in ("zero1_fused", "int8_wire")},
+                    "launches_train_actquant": {
+                        f"{m}/{side}": r["launches"]
+                        for m in ("gpt2", "resnet50", "mlp")
+                        for side, r in actq[m].items()}}
 
     src = "horovod_tpu_torch/csrc/"
     ref = "horovod_tpu/ops/pallas_kernels.py:"
@@ -3906,6 +4522,10 @@ def main() -> int:
             "zoo": {k: c[name] for k, c in
                     new_launches["launches_zoo"].items()},
             "train_adasum": new_launches["launches_train_adasum"][name],
+            "train_overlap": {k: c[name] for k, c in
+                              new_launches["launches_train_overlap"].items()},
+            "train_actquant": {k: c[name] for k, c in
+                               new_launches["launches_train_actquant"].items()},
         }
 
     kernels = [{
@@ -4000,6 +4620,7 @@ def main() -> int:
             "launches_fp8": qlaunch["fp8"][name],
             "launches_ckpt_reshard": resharded["int8"]["launches"][name],
             "launches_decode": decoded["int8"]["launches"][name],
+            "launches_phases": phase_launches(name),
             "max_abs_err": quant["max_abs_err"],
             "bitwise": quant["bitwise"],
             "ms": quant[pre + "_ms"],
@@ -4010,6 +4631,15 @@ def main() -> int:
             "bound_by": quant["bound_by"],
             "library_ms": quant.get(pre + "_library_ms"),
             "kv_" + kv: kv_quant[kv],
+            # One act-quant boundary of GPT-2 small at 32 x 1024 (25.2 M
+            # fp32 elements, block 256), with its bound and plain time.
+            "boundary": {
+                "ms": actq["kernels"][pre + "_ms"],
+                "plain_ms": actq["kernels"][pre + "_plain_ms"],
+                "bound_ms": actq["kernels"]["bound_ms"],
+                "bound_by": actq["kernels"]["bound_by"],
+                "library_ms": actq["kernels"].get(pre + "_library_ms"),
+                "elements": actq["kernels"]["elements"]},
         })
     # Kernel 8: "ms", "plain_ms", "library_ms" and "bound_ms" are one
     # training step's 216 launches (each shape's time times its launches a
@@ -4103,7 +4733,8 @@ def main() -> int:
                       "kv_quant": kv_quant, "ckpt_reshard": resharded,
                       "decode": decoded, "train_bert": bert,
                       "train_remat": remat, "zoo": zooed,
-                      "train_adasum": adasum}),
+                      "train_adasum": adasum, "train_overlap": overlapped,
+                      "train_actquant": actq}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

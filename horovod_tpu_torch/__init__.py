@@ -18,8 +18,10 @@ It serves GPT-2 through :class:`~horovod_tpu_torch.serve.ServePool` and
 trains it data-parallel through :func:`~horovod_tpu_torch.parallel.dp.
 make_train_step` (replicated, or ZeRO-1 sharded with the fused AdamW
 update; the gradient wire uncompressed, cast, or blockwise-quantized to
-int8/fp8 with error feedback; the projections in bf16 or, with
-``compute_dtype="fp8"``, in fp8 under delayed scaling) on NVIDIA H100s,
+int8/fp8 with error feedback; each bucket reduced from the gradient hooks
+on a side stream with ``overlap=True``; the projections in bf16 or, with
+``compute_dtype="fp8"``, in fp8 under delayed scaling; the activations the
+backward keeps as int8 with ``act_quant="int8"``) on NVIDIA H100s,
 with checkpoints that restore at another world size or fusion threshold;
 ``ServePool(weight_dtype="int8")`` serves int8 weights with per-column
 scales, and :class:`~horovod_tpu_torch.serve.DecodeEngine` decodes token by
@@ -134,6 +136,7 @@ from .ops.losses import (  # noqa: F401
     fused_cross_entropy,
 )
 from .ops.remat import checkpoint_fn, remat_module, resolve_policy  # noqa: F401
+from .obs.overlap import record_overlap_pair, ring_allreduce_ms  # noqa: F401
 from .ops.fusion import (  # noqa: F401
     fused_allgather,
     fused_allreduce,

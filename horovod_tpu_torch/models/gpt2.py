@@ -43,14 +43,8 @@ class GPT2LMModel(nn.Module):
     ``attention_fn`` replaces the attention path."""
 
     def __init__(self, cfg: GPT2Config, *, device=None,
-                 attention_fn: Optional[Callable] = None,
-                 act_quant: Optional[str] = None):
+                 attention_fn: Optional[Callable] = None):
         super().__init__()
-        if act_quant not in (None, "", "off"):
-            raise NotImplementedError(
-                f"act_quant={act_quant!r} is not ported yet; it arrives "
-                "with its own slice (ops/actquant.py)"
-            )
         self.cfg = cfg
         self.transformer = Transformer(
             cfg, attention_fn, lm_head=True, device=resolve_device(device),

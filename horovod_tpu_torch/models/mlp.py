@@ -10,6 +10,7 @@ import torch
 from torch import nn
 
 from ..context import resolve_device
+from ..ops import actquant as _actquant
 from .transformer import Dense
 
 
@@ -39,5 +40,8 @@ class MLP(nn.Module):
     def forward(self, x):
         x = x.reshape(x.shape[0], -1).to(self.dtype)
         for dense in self.hidden:
-            x = torch.relu(dense(x))
+            # An int8 activation-storage segment and boundary (a plain call
+            # and the identity unless act-quant is active).
+            x = _actquant.boundary(_actquant.segment(
+                dense, x, call=lambda t, d=dense: torch.relu(d(t))))
         return self.head(x)

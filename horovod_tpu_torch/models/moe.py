@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from ..context import resolve_device
+from ..ops import actquant as _actquant
 from ..ops.remat import remat_module
 from ..parallel.ep import top1_dispatch
 from .transformer import LayerNorm, MlpBlock, MultiHeadAttention, TransformerConfig
@@ -126,7 +127,10 @@ class SwitchTransformerLM(nn.Module):
         x = (self.wte[tokens] + self.wpe[None, :s]).to(self.cfg.dtype)
         total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for block in self.blocks:
-            x, aux = block(x)
+            # An int8 activation-storage segment and boundary (a plain call
+            # and the identity unless act-quant is active).
+            x, aux = _actquant.segment(block, x)
+            x = _actquant.boundary(x)
             total_aux = total_aux + aux
         x = self.ln_f(x)
         logits = x.float() @ self.wte.t()

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..context import resolve_device
+from ..ops import actquant as _actquant
 from ..ops.collectives import Average, allreduce
 from ..ops.conv import conv2d_same, max_pool_same
 from ..ops.remat import is_recomputing
@@ -229,7 +230,10 @@ class ResNet(nn.Module):
         x = torch.relu(self.bn_init(self.conv_init(x)))
         x = max_pool_same(x)
         for block in self.blocks:
-            x = block(x)
+            # An int8 activation-storage segment and boundary (a plain call
+            # and the identity unless act-quant is active), quantized in
+            # NHWC order as the reference's NHWC activations are.
+            x = _actquant.boundary(_actquant.segment(block, x), nhwc=True)
         return self.head(x.mean((2, 3)))
 
 

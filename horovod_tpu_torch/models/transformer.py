@@ -70,6 +70,7 @@ from ..ops.flash_attention import flash_attention
 from ..ops.fp8 import add_fp8_state, fp8_linear, resolve_compute_dtype
 from ..ops.quantization import (INT8, QuantizedWeight, int8_weight_matmul,
                                 quantize_weight)
+from ..ops import actquant as _actquant
 from ..ops.remat import remat_module, resolve_policy
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default (torch's is 1e-5)
@@ -351,7 +352,9 @@ class Transformer(nn.Module):
         if self.wtt is not None and token_types is not None:
             x = x + F.embedding(token_types, self.wtt.weight.to(dt))
         for block in self.blocks:
-            x = block(x, mask)
+            # An int8 activation-storage segment and boundary (a plain call
+            # and the identity unless act-quant is active; ops/actquant.py).
+            x = _actquant.boundary(_actquant.segment(block, x, mask))
         x = self.ln_f(x)
         if self.lm_head and not return_hidden:
             return F.linear(x, wte).float()

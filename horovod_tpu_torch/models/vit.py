@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from ..context import resolve_device
+from ..ops import actquant as _actquant
 from ..ops.conv import conv2d_same
 from .transformer import Block, Dense, LayerNorm, TransformerConfig
 
@@ -88,6 +89,8 @@ class ViT(nn.Module):
         cls = self.cls.to(dt).expand(x.shape[0], -1, -1)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
         for block in self.blocks:
-            x = block(x)
+            # An int8 activation-storage segment and boundary (a plain call
+            # and the identity unless act-quant is active).
+            x = _actquant.boundary(_actquant.segment(block, x))
         x = self.ln_f(x)
         return self.head(x[:, 0])

@@ -137,38 +137,59 @@ def _bucketize(leaves: Sequence[torch.Tensor], threshold_bytes: int):
     return buckets
 
 
-def pack(
-    tree, threshold_bytes: Optional[int] = None, *, pad_multiple: int = 1
-) -> Tuple[List[torch.Tensor], PackSpec]:
-    """Flatten a nest (or flat list) of tensors into fused 1-D buffers,
-    each zero-filled up to a multiple of ``pad_multiple``."""
-    if threshold_bytes is None:
-        threshold_bytes = _env.fusion_threshold_bytes()
+def _leaves_of(tree) -> Tuple[List[torch.Tensor], Any]:
     if isinstance(tree, (list, tuple)) and all(
         not isinstance(t, (list, tuple, dict)) for t in tree
     ):
-        leaves, treedef = [_as_tensor(t) for t in tree], None
-    else:
-        leaves, treedef = tree_flatten(tree)
-        leaves = [_as_tensor(t) for t in leaves]
-    buffers, spec_buckets, pads = [], [], []
+        return [_as_tensor(t) for t in tree], None
+    leaves, treedef = tree_flatten(tree)
+    return [_as_tensor(t) for t in leaves], treedef
+
+
+def pack_spec(
+    tree, threshold_bytes: Optional[int] = None, *, pad_multiple: int = 1
+) -> Tuple[List[torch.Tensor], PackSpec]:
+    """``(leaves, spec)``: the flat leaves of a nest (or flat list) and the
+    :class:`PackSpec` :func:`pack` would build for them, without packing
+    (the leaves may be any tensor-likes with a shape and a dtype)."""
+    if threshold_bytes is None:
+        threshold_bytes = _env.fusion_threshold_bytes()
+    leaves, treedef = _leaves_of(tree)
+    spec_buckets, pads = [], []
     for bucket in _bucketize(leaves, threshold_bytes):
-        parts = [leaf.reshape(-1) for _, leaf in bucket]
-        size = sum(p.numel() for p in parts)
-        pad = (-size) % max(1, pad_multiple)
-        if pad:
-            parts.append(parts[0].new_zeros((pad,)))
-        pads.append(pad)
-        buffers.append(parts[0] if len(parts) == 1 else torch.cat(parts))
+        size = sum(leaf.numel() for _, leaf in bucket)
+        pads.append((-size) % max(1, pad_multiple))
         spec_buckets.append(
             tuple(
                 _Slot(i, tuple(leaf.shape), leaf.numel())
                 for i, leaf in bucket
             )
         )
-    return buffers, PackSpec(
+    return leaves, PackSpec(
         treedef, tuple(spec_buckets), len(leaves), tuple(pads)
     )
+
+
+def pack_bucket(leaves: Sequence[torch.Tensor], pad: int) -> torch.Tensor:
+    """One fused 1-D buffer: ``leaves`` flattened end to end and ``pad``
+    zeros after them (a single leaf without a pad is its own flat view)."""
+    parts = [leaf.reshape(-1) for leaf in leaves]
+    if pad:
+        parts.append(parts[0].new_zeros((pad,)))
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def pack(
+    tree, threshold_bytes: Optional[int] = None, *, pad_multiple: int = 1
+) -> Tuple[List[torch.Tensor], PackSpec]:
+    """Flatten a nest (or flat list) of tensors into fused 1-D buffers,
+    each zero-filled up to a multiple of ``pad_multiple``."""
+    leaves, spec = pack_spec(tree, threshold_bytes, pad_multiple=pad_multiple)
+    buffers = [
+        pack_bucket([leaves[s.index] for s in slots], pad)
+        for slots, pad in zip(spec.buckets, spec.pad)
+    ]
+    return buffers, spec
 
 
 def unpack(buffers: Sequence[torch.Tensor], spec: PackSpec):

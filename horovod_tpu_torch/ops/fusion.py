@@ -48,6 +48,15 @@ these paths for a quantized ``compression`` (without residuals). Only the
 quantize and dequantize reach the kernels (:mod:`.quantization`); the
 dequantize-and-sum and the Average's division are plain torch, as they are
 plain jax in the JAX package.
+
+One bucket's reduction is :func:`reduce_bucket`, and a :class:`BucketPlan`
+holds a call's layout, wire settings and residuals: the reductions above
+run every bucket through it in pack order, and the overlap pipeline
+(:mod:`.layout`) runs each bucket through the same function from the hook
+of its last gradient. The four fused reductions take ``stagger=`` for the
+JAX package's API and ignore it: an eager call issues its buckets in pack
+order on one stream already, which is what the JAX package's chained
+dispatch pins.
 """
 
 from __future__ import annotations
@@ -59,10 +68,11 @@ import torch
 from ..utils import env as _env
 from .batching import (
     PackSpec,
-    _as_tensor,
     _bucketize,
     leaf_nbytes,
     pack,
+    pack_bucket,
+    pack_spec,
     tree_flatten,
     tree_unflatten,
     unpack,
@@ -90,6 +100,7 @@ from .quantization import (
 )
 
 __all__ = [
+    "BucketPlan",
     "EFResiduals",
     "FlatBuckets",
     "PackSpec",
@@ -101,6 +112,7 @@ __all__ = [
     "quantized_bucket_layout",
     "quantized_fused_allreduce",
     "quantized_fused_reducescatter",
+    "reduce_bucket",
     "shard_slice",
     "unpack",
 ]
@@ -237,33 +249,67 @@ def _dequant_sum(q2, s2, world: int, block: int) -> torch.Tensor:
     return deq.sum(dim=0).reshape(chunk)
 
 
-def _quantized_reduce_shards(buffers, res_bufs, *, world: int, op: ReduceOp,
-                             prescale_factor: float, compression, axis=None):
-    """The front half shared by the quantized allreduce and reduce-scatter:
-    per packed (``world * block``-padded) bucket, error feedback, a
-    blockwise quantize of this rank's contribution, the all-to-all of the
-    wire chunks, and the local dequantize-and-sum. Returns ``(reduced fp32
-    shards, new residuals or None)``.
+def _split(buf: torch.Tensor, leaves) -> List[torch.Tensor]:
+    """Views of a packed buffer shaped like ``leaves`` (the pad dropped)."""
+    out, offset = [], 0
+    for leaf in leaves:
+        n = leaf.numel()
+        out.append(buf[offset:offset + n].reshape(leaf.shape))
+        offset += n
+    return out
 
-    Error feedback (``res_bufs`` given): the residual added in before the
-    quantize is this rank's accumulated quantization error, and the new
-    residual is exactly the error of what was just sent, ``x -
-    dequant(quant(x))``: no gradient mass is dropped, only delayed."""
-    qspec = compression.spec
-    block = compression.block_size()
-    shards, new_res = [], []
-    for i, buf in enumerate(buffers):
+
+def reduce_bucket(
+    leaves: Sequence[torch.Tensor],
+    *,
+    world: int,
+    pad: int = 0,
+    scatter: bool = False,
+    op: ReduceOp = Average,
+    prescale_factor: float = 1.0,
+    postscale_factor: float = 1.0,
+    compression=Compression.none,
+    residual: Optional[torch.Tensor] = None,
+    wire_scale=None,
+    axis=None,
+):
+    """One fused bucket's reduction -- the one wire code every fused
+    reduction below runs, bucket after bucket, and the overlap pipeline
+    (:mod:`.layout`) runs from the hook of a bucket's last gradient:
+    pack, cast or quantize, the collective, dequantize and unpack (or hand
+    on this rank's shard), and the error-feedback residual.
+
+    ``leaves`` are the bucket's tensors in pack order and ``pad`` the zeros
+    packed after them (``world * block`` multiples on the quantized wire,
+    ``world`` multiples for a reduce-scatter). Returns ``(out,
+    new_residual)``: ``out`` the reduced leaves (``scatter=False``) or this
+    rank's reduced 1/N shard of the packed bucket (``scatter=True``);
+    ``new_residual`` None unless ``residual``, this bucket's fp32 EF
+    buffer, is given.
+
+    Quantized (``Compression.int8``/``fp8``): error feedback (the residual
+    added in before the quantize is this rank's accumulated quantization
+    error, and the new residual exactly the error of what was just sent,
+    ``x - dequant(quant(x))``: no gradient mass is dropped, only delayed),
+    a blockwise quantize, one ``all_to_all`` of the payload and one of the
+    scales, a local fp32 dequantize-and-sum of this rank's chunk -- the
+    reduce-scatter -- and for the allreduce a requantize of that chunk and
+    one ``all_gather`` of each back."""
+    if is_quantized(compression):
+        qspec = compression.spec
+        block = compression.block_size()
+        buf = pack_bucket(leaves, pad)
         if not buf.is_floating_point():
             raise ValueError(
                 "quantized collectives support floating-point trees only; "
                 f"got a {buf.dtype} bucket"
             )
         x = scale(buf.float(), prescale_factor)
-        if res_bufs is not None:
-            x = x + res_bufs[i].float()
+        if residual is not None:
+            x = x + residual.float()
         q, s = quantize_blockwise(x, block, qspec)
-        if res_bufs is not None:
-            new_res.append(x - dequantize_blockwise(q, s, block))
+        new_res = (x - dequantize_blockwise(q, s, block)
+                   if residual is not None else None)
         chunk = q.shape[0] // world
         q2 = alltoall_chunks(torch.empty_like(q), q, axis=axis).reshape(
             world, chunk)
@@ -272,8 +318,37 @@ def _quantized_reduce_shards(buffers, res_bufs, *, world: int, op: ReduceOp,
         red = _dequant_sum(q2, s2, world, block)
         if op == Average:
             red = divide_by_world(red, world)
-        shards.append(red)
-    return shards, (new_res if res_bufs is not None else None)
+        if scatter:
+            return scale(red, postscale_factor).to(buf.dtype), new_res
+        fq, fs = _gather_quantized(
+            *quantize_blockwise(red, block, qspec), axis=axis
+        )
+        out = dequantize_blockwise(fq, fs, block)
+        return (_split(scale(out, postscale_factor).to(buf.dtype), leaves),
+                new_res)
+    if scatter:
+        buf = pack_bucket(leaves, pad)
+        wire, ctx = _compress(
+            compression, scale(buf, prescale_factor), wire_scale
+        )
+        red = compression.decompress(
+            reducescatter_chunks(wire.contiguous(), axis=axis), ctx
+        )
+        return _finish(red, op, world, postscale_factor), None
+    wires, ctxs = [], []
+    for leaf in leaves:
+        wire, ctx = _compress(
+            compression, scale(leaf, prescale_factor), wire_scale
+        )
+        wires.append(wire.reshape(-1))
+        ctxs.append(ctx)
+    # cat copies: inputs kept
+    buf = allreduce_(torch.cat(wires), Sum, axis=axis)
+    out = [
+        _finish(compression.decompress(red, ctx), op, world, postscale_factor)
+        for red, ctx in zip(_split(buf, leaves), ctxs)
+    ]
+    return out, None
 
 
 def _residual_buffers(residuals, n_buckets: int):
@@ -307,6 +382,106 @@ def _gather_quantized(q, s, axis=None):
     return fq, fs
 
 
+class BucketPlan:
+    """One fused reduction of a nest, bucket by bucket.
+
+    The layout comes from the leaves' shapes and dtypes alone (the
+    gradients' or, before they exist, the parameters'), with the wire
+    settings and the per-bucket EF residuals. :meth:`reduce` runs one
+    bucket through :func:`reduce_bucket`; :meth:`assemble` puts the
+    buckets' results together; :meth:`run` does both over every bucket in
+    pack order, which is all the fused reductions below do. The overlap
+    pipeline runs :meth:`reduce` from gradient hooks instead.
+
+    ``scatter=True`` is the reduce-scatter (each rank keeps its 1/N shard
+    of every bucket, padded to a multiple of the world size, or of
+    ``world * block`` on the quantized wire). The fp16 wire's replica-
+    uniform prescale needs every leaf (``needs_all_leaves``): :meth:`run`
+    takes it, one scalar MAX all-reduce, before the first bucket, and the
+    overlap pipeline leaves such a plan to :meth:`run`."""
+
+    def __init__(self, tree, threshold_bytes: Optional[int] = None, *,
+                 scatter: bool = False, op: ReduceOp = Average,
+                 prescale_factor: float = 1.0, postscale_factor: float = 1.0,
+                 compression=Compression.none, residuals=None, axis=None):
+        self.world = world_size(axis)
+        self.scatter = scatter
+        self.op = op
+        self.prescale_factor = prescale_factor
+        self.postscale_factor = postscale_factor
+        self.compression = compression
+        self.axis = axis
+        self.threshold_bytes = threshold_bytes
+        quantized = is_quantized(compression)
+        if quantized:
+            pad_multiple = self.world * compression.block_size()
+        else:
+            pad_multiple = self.world if scatter else 1
+        self.leaves, self.spec = pack_spec(
+            tree, threshold_bytes, pad_multiple=pad_multiple)
+        self.residuals = residuals
+        self.res_bufs = _residual_buffers(residuals, len(self.spec.buckets))
+        self.needs_all_leaves = (not quantized) and compression.needs_prescale
+        self.wire_scale = None
+
+    @property
+    def n_buckets(self) -> int:
+        return len(self.spec.buckets)
+
+    def bucket_of(self) -> List[int]:
+        """The bucket each leaf (in flat order) belongs to."""
+        out = [0] * self.spec.n_leaves
+        for b, slots in enumerate(self.spec.buckets):
+            for slot in slots:
+                out[slot.index] = b
+        return out
+
+    def bucket_leaves(self, b: int, leaves=None) -> List[torch.Tensor]:
+        leaves = self.leaves if leaves is None else leaves
+        return [leaves[slot.index] for slot in self.spec.buckets[b]]
+
+    def reduce(self, b: int, leaves: Sequence[torch.Tensor]):
+        """Bucket ``b`` of ``leaves`` (its tensors in pack order)."""
+        return reduce_bucket(
+            leaves, world=self.world, pad=self.spec.pad[b],
+            scatter=self.scatter, op=self.op,
+            prescale_factor=self.prescale_factor,
+            postscale_factor=self.postscale_factor,
+            compression=self.compression,
+            residual=None if self.res_bufs is None else self.res_bufs[b],
+            wire_scale=self.wire_scale, axis=self.axis,
+        )
+
+    def assemble(self, results):
+        """``(out, new residuals)`` from every bucket's :meth:`reduce`:
+        ``out`` the reduced nest, or with ``scatter`` the
+        :class:`FlatBuckets` of this rank's shards."""
+        new_res = (None if self.res_bufs is None
+                   else [r for _, r in results])
+        res = _wrap_residuals(new_res, self.residuals, self.compression,
+                              self.threshold_bytes)
+        if self.scatter:
+            return FlatBuckets([o for o, _ in results]), res
+        out: List[Optional[torch.Tensor]] = [None] * self.spec.n_leaves
+        for slots, (outs, _) in zip(self.spec.buckets, results):
+            for slot, o in zip(slots, outs):
+                out[slot.index] = o
+        if self.spec.treedef is None:
+            return out, res
+        return tree_unflatten(self.spec.treedef, out), res
+
+    def run(self):
+        """Every bucket of the leaves the plan was built from, in pack
+        order, then :meth:`assemble`."""
+        if self.needs_all_leaves:
+            self.wire_scale = _uniform_cast_scale(
+                self.leaves, float(self.world), self.axis)
+        return self.assemble([
+            self.reduce(b, self.bucket_leaves(b))
+            for b in range(self.n_buckets)
+        ])
+
+
 def quantized_fused_allreduce(
     tree,
     residuals=None,
@@ -317,37 +492,25 @@ def quantized_fused_allreduce(
     threshold_bytes: Optional[int] = None,
     compression=Compression.int8,
     axis=None,
+    stagger: bool = False,
 ):
     """Allreduce a nest of tensors on the blockwise-quantized wire with
     optional error feedback; returns ``(reduced tree, new residuals)``.
 
-    The quantized all-to-all, local fp32 dequantize-and-sum, requantize of
-    the reduced chunk and all-gather (see the module docstring): one ring
-    allreduce at ``itemsize + 4/block`` bytes an element. ``residuals`` (an
-    :class:`EFResiduals`, one fp32 buffer per bucket) arms error feedback
-    on this rank's send-side quantization. The second (broadcast)
-    quantization error is the same on every rank and unbiased across
-    steps; it gets no residual."""
+    Per bucket (:func:`reduce_bucket`) the quantized all-to-all, local fp32
+    dequantize-and-sum, requantize of the reduced chunk and all-gather:
+    one ring allreduce at ``itemsize + 4/block`` bytes an element.
+    ``residuals`` (an :class:`EFResiduals`, one fp32 buffer per bucket)
+    arms error feedback on this rank's send-side quantization. The second
+    (broadcast) quantization error is the same on every rank and unbiased
+    across steps; it gets no residual. ``stagger`` is ignored (see the
+    module docstring)."""
     _check_op(op, "quantized_fused_allreduce")
-    world = world_size(axis)
-    block = compression.block_size()
-    buffers, spec = pack(tree, threshold_bytes, pad_multiple=world * block)
-    res_bufs = _residual_buffers(residuals, len(buffers))
-    shards, new_res = _quantized_reduce_shards(
-        buffers, res_bufs, world=world, op=op,
-        prescale_factor=prescale_factor, compression=compression, axis=axis,
-    )
-    out_bufs = []
-    for buf, red in zip(buffers, shards):
-        fq, fs = _gather_quantized(
-            *quantize_blockwise(red, block, compression.spec), axis=axis
-        )
-        out = dequantize_blockwise(fq, fs, block)
-        out_bufs.append(scale(out, postscale_factor).to(buf.dtype))
-    return (
-        unpack(out_bufs, spec),
-        _wrap_residuals(new_res, residuals, compression, threshold_bytes),
-    )
+    return BucketPlan(
+        tree, threshold_bytes, op=op, prescale_factor=prescale_factor,
+        postscale_factor=postscale_factor, compression=compression,
+        residuals=residuals, axis=axis,
+    ).run()
 
 
 def quantized_fused_reducescatter(
@@ -360,29 +523,22 @@ def quantized_fused_reducescatter(
     threshold_bytes: Optional[int] = None,
     compression=Compression.int8,
     axis=None,
+    stagger: bool = False,
 ):
     """Reduce-scatter a nest of tensors on the quantized wire: the front
     half of :func:`quantized_fused_allreduce`. Each rank ends with the
     fp32-accurate reduced 1/N shard of every bucket (padded to ``world *
     block``), in the input dtype. Returns ``(FlatBuckets shards, PackSpec,
     new residuals)``; ``fused_allgather(compression=...)`` with the same
-    compression is the matching back half."""
+    compression is the matching back half. ``stagger`` is ignored."""
     _check_op(op, "quantized_fused_reducescatter")
-    world = world_size(axis)
-    block = compression.block_size()
-    buffers, spec = pack(tree, threshold_bytes, pad_multiple=world * block)
-    res_bufs = _residual_buffers(residuals, len(buffers))
-    shards, new_res = _quantized_reduce_shards(
-        buffers, res_bufs, world=world, op=op,
-        prescale_factor=prescale_factor, compression=compression, axis=axis,
+    plan = BucketPlan(
+        tree, threshold_bytes, scatter=True, op=op,
+        prescale_factor=prescale_factor, postscale_factor=postscale_factor,
+        compression=compression, residuals=residuals, axis=axis,
     )
-    out = [scale(red, postscale_factor).to(buf.dtype)
-           for buf, red in zip(buffers, shards)]
-    return (
-        FlatBuckets(out),
-        spec,
-        _wrap_residuals(new_res, residuals, compression, threshold_bytes),
-    )
+    shards, res = plan.run()
+    return shards, plan.spec, res
 
 
 def _quantized_gather_unpack(buffers, spec: PackSpec, compression,
@@ -421,46 +577,20 @@ def fused_allreduce(
     threshold_bytes: Optional[int] = None,
     compression=Compression.none,
     axis=None,
+    stagger: bool = False,
 ):
     """Allreduce a nest (or flat list) of tensors with bucketed fusion:
-    one ``all_reduce`` per bucket. Returns new tensors in the input's
-    structure; the inputs are left alone. A quantized ``compression``
-    takes :func:`quantized_fused_allreduce` (without error feedback)."""
+    one ``all_reduce`` per bucket (:func:`reduce_bucket`). Returns new
+    tensors in the input's structure; the inputs are left alone. A
+    quantized ``compression`` takes the quantized wire (without error
+    feedback). ``stagger`` is ignored."""
     _check_op(op, "fused_allreduce")
-    if is_quantized(compression):
-        out, _ = quantized_fused_allreduce(
-            tree, None, op=op, prescale_factor=prescale_factor,
-            postscale_factor=postscale_factor,
-            threshold_bytes=threshold_bytes, compression=compression,
-            axis=axis,
-        )
-        return out
-    leaves, treedef, threshold_bytes = _flatten(tree, threshold_bytes)
-    leaves = [_as_tensor(l) for l in leaves]
-    world = world_size(axis)
-    wire_scale = None
-    if compression.needs_prescale:
-        wire_scale = _uniform_cast_scale(leaves, float(world), axis)
-    out: List[Optional[torch.Tensor]] = [None] * len(leaves)
-    for bucket in _bucketize(leaves, threshold_bytes):
-        wires, ctxs = [], []
-        for _, leaf in bucket:
-            wire, ctx = _compress(
-                compression, scale(leaf, prescale_factor), wire_scale
-            )
-            wires.append(wire.reshape(-1))
-            ctxs.append(ctx)
-        # cat copies: inputs kept
-        buf = allreduce_(torch.cat(wires), Sum, axis=axis)
-        offset = 0
-        for (i, leaf), ctx in zip(bucket, ctxs):
-            n = leaf.numel()
-            red = compression.decompress(
-                buf[offset:offset + n].reshape(leaf.shape), ctx
-            )
-            offset += n
-            out[i] = _finish(red, op, world, postscale_factor)
-    return out if treedef is None else tree_unflatten(treedef, out)
+    out, _ = BucketPlan(
+        tree, threshold_bytes, op=op, prescale_factor=prescale_factor,
+        postscale_factor=postscale_factor, compression=compression,
+        axis=axis,
+    ).run()
+    return out
 
 
 def fused_reducescatter(
@@ -472,38 +602,23 @@ def fused_reducescatter(
     threshold_bytes: Optional[int] = None,
     compression=Compression.none,
     axis=None,
+    stagger: bool = False,
 ) -> Tuple[FlatBuckets, PackSpec]:
     """Reduce-scatter a nest of tensors with bucketed fusion: buckets are
     packed, padded to a multiple of the world size N, and reduced with one
     ``reduce_scatter`` each, so rank ``k`` keeps elements ``[k*S/N,
     (k+1)*S/N)`` of every bucket. Returns ``(shards, spec)``; ``spec``
     restores the tree after :func:`fused_allgather`. A quantized
-    ``compression`` takes :func:`quantized_fused_reducescatter` (without
-    error feedback), whose buckets pad to ``world * block``."""
+    ``compression`` takes the quantized wire (without error feedback),
+    whose buckets pad to ``world * block``. ``stagger`` is ignored."""
     _check_op(op, "fused_reducescatter")
-    if is_quantized(compression):
-        shards, spec, _ = quantized_fused_reducescatter(
-            tree, None, op=op, prescale_factor=prescale_factor,
-            postscale_factor=postscale_factor,
-            threshold_bytes=threshold_bytes, compression=compression,
-            axis=axis,
-        )
-        return shards, spec
-    world = world_size(axis)
-    buffers, spec = pack(tree, threshold_bytes, pad_multiple=world)
-    wire_scale = None
-    if compression.needs_prescale:
-        wire_scale = _uniform_cast_scale(buffers, float(world), axis)
-    shards = []
-    for buf in buffers:
-        wire, ctx = _compress(
-            compression, scale(buf, prescale_factor), wire_scale
-        )
-        red = compression.decompress(
-            reducescatter_chunks(wire.contiguous(), axis=axis), ctx
-        )
-        shards.append(_finish(red, op, world, postscale_factor))
-    return FlatBuckets(shards), spec
+    plan = BucketPlan(
+        tree, threshold_bytes, scatter=True, op=op,
+        prescale_factor=prescale_factor, postscale_factor=postscale_factor,
+        compression=compression, axis=axis,
+    )
+    shards, _ = plan.run()
+    return shards, plan.spec
 
 
 def fused_allgather(shards, spec: PackSpec, *, compression=Compression.none,

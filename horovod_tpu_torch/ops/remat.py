@@ -52,8 +52,8 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-__all__ = ["POLICY_NAMES", "resolve_policy", "checkpoint_fn", "remat_module",
-           "is_recomputing"]
+__all__ = ["POLICY_NAMES", "resolve_policy", "checkpoint_fn",
+           "checkpoint_module", "remat_module", "is_recomputing"]
 
 POLICY_NAMES: Tuple[str, ...] = (
     "dots_saveable",
@@ -200,21 +200,39 @@ def checkpoint_fn(fn: Callable, remat: RematArg) -> Callable:
     return functools.wraps(fn)(_checkpointed(fn, policy))
 
 
+def _run_bound(module, state, call, *args, **kwargs):
+    with _bound(module, state):
+        if call is None:
+            return module.forward(*args, **kwargs)
+        return call(*args, **kwargs)
+
+
+def checkpoint_module(module: torch.nn.Module, policy: Optional[Callable],
+                      *args, call: Optional[Callable] = None, **kwargs):
+    """``module.forward(*args, **kwargs)`` -- or ``call(*args,
+    **kwargs)``, code that runs ``module`` -- as one checkpointed region
+    under ``policy`` (None: save only the inputs). The parameters and
+    buffers ``module`` reads now enter the region as its inputs, so the
+    recompute reads the tensors the forward read (see the module
+    docstring); the activation-storage segments (:mod:`.actquant`) run
+    through it."""
+    state = dict(module.named_parameters(remove_duplicate=False))
+    state.update(module.named_buffers(remove_duplicate=False))
+    return _checkpointed(_run_bound, policy)(module, state, call, *args,
+                                             **kwargs)
+
+
 @functools.lru_cache(maxsize=None)
 def _remat_class(module_cls, policy):
-    def body(self, state, *args, **kwargs):
-        with _bound(self, state):
-            return module_cls.forward(self, *args, **kwargs)
-
     class Remat(module_cls):
         def forward(self, *args, **kwargs):
             # The tensors the block reads now (the module's own, or those
             # a functional_call put in) enter the region as inputs: the
             # recompute runs after a functional_call has put the module's
             # own back, and must read the ones the forward read.
-            state = dict(self.named_parameters(remove_duplicate=False))
-            state.update(self.named_buffers(remove_duplicate=False))
-            return _checkpointed(body, policy)(self, state, *args, **kwargs)
+            return checkpoint_module(
+                self, policy, *args,
+                call=functools.partial(module_cls.forward, self), **kwargs)
 
     Remat.__name__ = Remat.__qualname__ = f"Remat{module_cls.__name__}"
     Remat.__module__ = module_cls.__module__

@@ -63,6 +63,12 @@ Unshard and canonicalize are collectives (an all-gather, an all-reduce):
 every rank of the world that built the state calls them together, over
 the world axes.
 
+Both wrappers split a step in a reduce phase, bucket by bucket, and an
+update phase on the reduced buckets or shards (:class:`Reduction`,
+``wrapper.reduction``); ``update`` runs the two back to back, and the
+overlap pipeline (:mod:`.ops.layout`) drives the reduce phase from the
+gradient hooks.
+
 :func:`grad` and :func:`value_and_grad` are ``torch.func``'s with the
 gradients reduced as the optimizer reduces them. Every wrapper takes
 ``axis=``, the mesh axes it reduces over (default the world's).
@@ -99,15 +105,13 @@ from .ops.collectives import world_size as _world_size
 from .ops.compression import Compression, is_quantized
 from .ops.fused_adamw import FusedAdamSpec, fused_adamw_update
 from .ops.fusion import (
+    BucketPlan,
     EFResiduals,
     FlatBuckets,
     bucket_byte_layout,
     fused_allgather,
     fused_allreduce,
-    fused_reducescatter,
     pack,
-    quantized_fused_allreduce,
-    quantized_fused_reducescatter,
     shard_slice,
 )
 from .utils import env as _env
@@ -122,6 +126,7 @@ __all__ = [
     "DistributedOptimizer",
     "FusedAdamSpec",
     "Optimizer",
+    "Reduction",
     "ShardedDistributedOptimizer",
     "ShardedOptState",
     "adamw",
@@ -144,11 +149,29 @@ __all__ = [
 class Optimizer(NamedTuple):
     """``init(params) -> state``, ``update(grads, state, params) ->
     (updates, state)`` -- the shape of an optax GradientTransformation.
-    ``fused_spec`` is set by :func:`fused_adamw`."""
+    ``fused_spec`` is set by :func:`fused_adamw`; ``reduction`` by the
+    distributed wrappers (see :class:`Reduction`)."""
 
     init: Any
     update: Any
     fused_spec: Optional[FusedAdamSpec] = None
+    reduction: Any = None
+
+
+class Reduction(NamedTuple):
+    """One step of a distributed wrapper split in its two phases, what the
+    overlap pipeline (:mod:`.ops.layout`) drives: ``plan`` (a
+    :class:`~.ops.fusion.BucketPlan`) reduces the gradients bucket by
+    bucket, and ``finish(out, new_residuals, params) -> (updates,
+    state)`` is the update phase on the plan's assembled result.
+    ``wrapper.reduction(state, like)`` builds it over the leaves of
+    ``like`` (the gradients, or the parameters they will be shaped like),
+    or returns None for a pass that does not reduce bucket by bucket
+    (Adasum, ``backward_passes_per_step > 1``). A wrapper's own ``update``
+    runs both phases back to back."""
+
+    plan: BucketPlan
+    finish: Any
 
 
 class AdamState(NamedTuple):
@@ -446,19 +469,29 @@ def DistributedOptimizer(
             residual,
         )
 
-    def update(grads, state: DistributedOptState, params=None):
-        if quantized:
-            reduced, new_res = quantized_fused_allreduce(
-                grads, state.residual, op=op,
-                prescale_factor=prescale_factor,
-                postscale_factor=postscale_factor,
-                threshold_bytes=threshold_bytes, compression=compression,
-                axis=axis,
-            )
+    def reduction(state: DistributedOptState, like) -> Optional[Reduction]:
+        # Adasum reduces per leaf, and the reference takes no stagger there;
+        # an accumulating pass reduces (or not) after its backward.
+        if op == Adasum or bpps != 1:
+            return None
+        plan = BucketPlan(
+            like, threshold_bytes, op=op, prescale_factor=prescale_factor,
+            postscale_factor=postscale_factor, compression=compression,
+            residuals=state.residual if quantized else None, axis=axis,
+        )
+
+        def finish(reduced, new_res, params=None):
             updates, inner = optimizer.update(reduced, state.inner, params)
             return updates, DistributedOptState(inner, None, state.count + 1,
                                                 new_res)
-        if bpps == 1:
+
+        return Reduction(plan, finish)
+
+    def update(grads, state: DistributedOptState, params=None):
+        red = reduction(state, grads)
+        if red is not None:
+            return red.finish(*red.plan.run(), params)
+        if bpps == 1:  # Adasum
             reduced = _reduce_grads(grads, op, compression, prescale_factor,
                                     postscale_factor, axis, threshold_bytes)
             updates, inner = optimizer.update(reduced, state.inner, params)
@@ -479,7 +512,7 @@ def DistributedOptimizer(
         updates, inner = optimizer.update(reduced, state.inner, params)
         return updates, DistributedOptState(inner, _zeros(acc), count)
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, reduction=reduction)
 
 
 class ShardedOptState(NamedTuple):
@@ -591,55 +624,59 @@ def ShardedDistributedOptimizer(
             threshold_bytes, world, block, residual,
         )
 
-    def update(grads, state: ShardedOptState, params=None):
-        if params is None:
-            raise ValueError(
-                "ShardedDistributedOptimizer.update requires params (the "
-                "local param shard feeds the inner update)"
-            )
+    def reduction(state: ShardedOptState, like) -> Reduction:
         world = _world_size(axis)
         if world != state.world:
             raise HorovodTpuError(
                 f"the sharded state was built for a world of {state.world}, "
                 f"this world has {world} ranks"
             )
-        new_res = state.residual
-        if quantized:
-            g_shards, spec, new_res = quantized_fused_reducescatter(
-                grads, state.residual, op=op,
-                prescale_factor=prescale_factor,
-                postscale_factor=postscale_factor,
-                threshold_bytes=threshold_bytes, compression=compression,
-                axis=axis,
-            )
-        else:
-            g_shards, spec = fused_reducescatter(
-                grads, op=op, prescale_factor=prescale_factor,
-                postscale_factor=postscale_factor,
-                threshold_bytes=threshold_bytes, compression=compression,
-                axis=axis,
-            )
-        p_buffers, _ = pack(params, threshold_bytes,
-                            pad_multiple=world * block)
-        if [b.shape[0] for b in p_buffers] != list(spec.padded_sizes()):
-            raise HorovodTpuError(
-                "gradient and parameter bucket layouts differ; the sharded "
-                "update needs grads to pack like params (same tree, shapes "
-                "and dtypes)"
-            )
-        p_shards = shard_slice(p_buffers, axis)
-        if fused:
-            u_shards, inner = _fused_flat_update(
-                g_shards, state.inner, p_shards, optimizer.fused_spec
-            )
-        else:
-            u_shards, inner = optimizer.update(g_shards, state.inner, p_shards)
-        updates = fused_allgather(u_shards, spec,
-                                  compression=gather_compression, axis=axis)
-        return updates, state._replace(inner=inner, count=state.count + 1,
-                                       residual=new_res)
+        plan = BucketPlan(
+            like, threshold_bytes, scatter=True, op=op,
+            prescale_factor=prescale_factor,
+            postscale_factor=postscale_factor, compression=compression,
+            residuals=state.residual if quantized else None, axis=axis,
+        )
 
-    return Optimizer(init, update)
+        def finish(g_shards, new_res, params):
+            # The update phase: this rank's shards of the parameters, the
+            # inner (or fused) update on them, the update all-gather.
+            p_buffers, _ = pack(params, threshold_bytes,
+                                pad_multiple=world * block)
+            if [b.shape[0] for b in p_buffers] != list(
+                    plan.spec.padded_sizes()):
+                raise HorovodTpuError(
+                    "gradient and parameter bucket layouts differ; the "
+                    "sharded update needs grads to pack like params (same "
+                    "tree, shapes and dtypes)"
+                )
+            p_shards = shard_slice(p_buffers, axis)
+            if fused:
+                u_shards, inner = _fused_flat_update(
+                    g_shards, state.inner, p_shards, optimizer.fused_spec
+                )
+            else:
+                u_shards, inner = optimizer.update(g_shards, state.inner,
+                                                   p_shards)
+            updates = fused_allgather(u_shards, plan.spec,
+                                      compression=gather_compression,
+                                      axis=axis)
+            return updates, state._replace(inner=inner,
+                                           count=state.count + 1,
+                                           residual=new_res)
+
+        return Reduction(plan, finish)
+
+    def update(grads, state: ShardedOptState, params=None):
+        if params is None:
+            raise ValueError(
+                "ShardedDistributedOptimizer.update requires params (the "
+                "local param shard feeds the inner update)"
+            )
+        red = reduction(state, grads)
+        return red.finish(*red.plan.run(), params)
+
+    return Optimizer(init, update, reduction=reduction)
 
 
 def _nodes(tree, is_node):

@@ -17,6 +17,7 @@ from them (for instance through ``torch.func.functional_call``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -28,8 +29,9 @@ from ..obs import flops as _flops
 from ..ops.batching import tree_flatten, tree_map
 from ..ops.collectives import Average, ReduceOp, allreduce, world_size
 from ..ops.compression import Compression, is_quantized
+from ..ops import actquant as _actquant
 from ..ops.fp8 import fp8_state_optimizer, resolve_compute_dtype
-from ..ops.remat import checkpoint_fn
+from ..ops.layout import BucketScheduler
 from ..optimizer import DistributedOptimizer, Optimizer, ShardedDistributedOptimizer
 from ..utils import env as _env
 
@@ -90,24 +92,54 @@ def accumulate_gradients(
     in fp32 and their means returned (the gradients in their own dtype).
     ``aux`` is the last microbatch's. Returns ``(loss, aux, grads)``, the
     loss detached."""
+    return _accumulate(loss_fn, params, batch, accum_steps, has_aux)
+
+
+def _accumulate(loss_fn, params, batch, accum_steps, has_aux,
+                scheduler: Optional[BucketScheduler] = None):
+    """:func:`accumulate_gradients`; with a ``scheduler`` the last
+    microbatch's backward runs with its gradient hooks armed, each leaf's
+    gradient is finished to the mean as it arrives -- ``((acc + g.float())
+    / K).to(dtype)``, the arithmetic below -- and handed to the
+    scheduler, and ``grads`` comes back None (the scheduler holds them).
+    The first K-1 microbatches accumulate locally, with no collective."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     names = list(params)
     leaves = [params[n] for n in names]
 
-    def one(mb):
+    def one(mb, hooks=contextlib.nullcontext()):
         with torch.enable_grad():
             out = loss_fn(params, mb)
             loss, aux = out if has_aux else (out, None)
-            gs = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = {
+            with hooks:
+                gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return loss.detach(), aux, gs
+
+    def zero_filled(gs):
+        return {
             n: torch.zeros_like(p) if g is None else g
             for n, p, g in zip(names, leaves, gs)
         }
-        return loss.detach(), aux, grads
+
+    def last(mb, acc):
+        if scheduler is None:
+            loss, aux, gs = one(mb)
+            return loss, aux, zero_filled(gs)
+        # The scheduler's leaves are the parameter tensors in its plan's
+        # order; autograd's are in ``names`` order.
+        slot = {id(p): j for j, p in enumerate(leaves)}
+        order = [slot[id(t)] for t in scheduler.leaves]
+        if acc is not None:
+            accs = [acc[names[j]] for j in order]
+            scheduler.finish = lambda i, g: (
+                (accs[i] + g.float()) / accum_steps).to(g.dtype)
+        loss, aux, gs = one(mb, scheduler.armed())
+        scheduler.flush([gs[j] for j in order])
+        return loss, aux, None
 
     if accum_steps == 1:
-        return one(batch)
+        return last(batch, None)
     for leaf in tree_flatten(batch)[0]:
         if leaf.shape[0] % accum_steps:
             raise ValueError(
@@ -126,35 +158,36 @@ def accumulate_gradients(
            for n, p in zip(names, leaves)}
     loss_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     for i in range(accum_steps - 1):
-        loss_i, _, g_i = one(micro(i))
+        loss_i, _, gs = one(micro(i))
+        g_i = zero_filled(gs)
         for n in names:
             acc[n] += g_i[n].float()
         loss_sum += loss_i.float()
-    loss_k, aux, g_k = one(micro(accum_steps - 1))
+    loss_k, aux, g_k = last(micro(accum_steps - 1), acc)
+    loss = (loss_sum + loss_k.float()) / accum_steps
+    if g_k is None:
+        return loss, aux, None
     grads = {
         n: ((acc[n] + g_k[n].float()) / accum_steps).to(g_k[n].dtype)
         for n in names
     }
-    return (loss_sum + loss_k.float()) / accum_steps, aux, grads
+    return loss, aux, grads
 
 
 # Knobs of the JAX package's make_train_step whose planes are not ported
 # yet: each raises NotImplementedError naming the slice that brings it.
 _WAITING = {
-    "overlap": "the overlap slice (per-bucket collectives on a side stream)",
-    "stagger": "the overlap slice (per-bucket collectives on a side stream)",
     "lint": "the analysis plane (torch.fx / torch.export graph lints)",
     "guard": "the fault planes (ops/guards.py, guard/)",
     "autotune": "the tuning plane (tune/)",
     "publish": "the streaming plane (stream/)",
-    "act_quant": "its own slice (ops/actquant.py)",
 }
 
 
 def _armed(name: str, value) -> bool:
     if value is None or value is False:
         return False
-    if name in ("lint", "act_quant"):
+    if name == "lint":
         return str(value).lower() not in ("", "off", "none", "no", "false", "0")
     if name == "publish":
         return int(value) > 0
@@ -244,22 +277,39 @@ def make_train_step(
     (``TransformerConfig.remat``), as the reference's memory planner
     finds for its whole-loss ``jax.checkpoint``.
 
-    ``overlap``, ``stagger``, ``lint``, ``guard``, ``autotune``,
-    ``publish`` and ``act_quant`` are not ported yet: arming one, or
-    leaving it None under an armed ``HVDTPU_OVERLAP``, ``_LINT``,
-    ``_GUARD``, ``_AUTOTUNE``, ``_PUBLISH_EVERY`` or ``_ACT_QUANT``, raises
+    ``overlap=True`` (default from ``HVDTPU_OVERLAP``) issues each
+    gradient bucket's reduction from the last microbatch's gradient hooks
+    as soon as its leaves are whole, on a side CUDA stream, in one order
+    on every rank (pack order in the first step, then the order rank 0's
+    buckets became whole in it; :mod:`~..ops.layout`); the update waits
+    for every bucket. The result
+    is the step's without overlap bit for bit. ``stagger`` (default: on
+    with overlap, ``HVDTPU_OVERLAP_STAGGER``) chains every bucket's work on
+    one side stream; ``stagger=False`` gives each bucket a stream of its
+    own. An explicit ``stagger=True`` without overlap is the step without
+    overlap, whose buckets already go out after the backward in pack
+    order, one after the other. Adasum, a user's optimizer with
+    ``backward_passes_per_step > 1``, the fp16 wire (whose prescale needs
+    every leaf) and an optimizer without a distributed wrapper reduce
+    after the backward, as without overlap.
+
+    ``act_quant="int8"`` (default from ``HVDTPU_ACT_QUANT``) stores the
+    activations at the model's boundaries as int8 payload and fp32 scales
+    for the backward (:mod:`~..ops.actquant`); ``remat`` then applies to
+    each segment between boundaries instead of the whole loss.
+
+    ``lint``, ``guard``, ``autotune`` and ``publish`` are not ported yet:
+    arming one, or leaving it None under an armed ``HVDTPU_LINT``,
+    ``_GUARD``, ``_AUTOTUNE`` or ``_PUBLISH_EVERY``, raises
     ``NotImplementedError`` naming the slice that brings it.
     """
     # None reads the knob's HVDTPU_* default, as the JAX package does; an
     # explicit off value wins over the environment.
     knobs = dict(
-        overlap=_env.overlap_default() if overlap is None else overlap,
-        stagger=stagger,
         lint=_env.lint_mode() if lint is None else lint,
         guard=_env.guard_default() if guard is None else guard,
         autotune=_env.autotune_default() if autotune is None else autotune,
         publish=_env.publish_every() if publish is None else publish,
-        act_quant=_env.act_quant_mode() if act_quant is None else act_quant,
     )
     for name, value in knobs.items():
         if _armed(name, value):
@@ -267,8 +317,16 @@ def make_train_step(
                 f"make_train_step({name}={value!r}) is not ported yet; it "
                 f"arrives with {_WAITING[name]}"
             )
-    loss_fn = checkpoint_fn(
-        loss_fn, _env.remat_mode() if remat is None else remat)
+    overlap = bool(_env.overlap_default() if overlap is None else overlap)
+    # stagger picks the overlap pipeline's side streams. Without overlap the
+    # buckets go out after the backward in pack order, one after the other,
+    # which is what the JAX package's stagger without overlap asks for.
+    stagger = bool(_env.overlap_stagger() if stagger is None else stagger)
+    # act_quant: the int8 boundaries arm for the loss, and the remat policy
+    # goes to their segments; off, remat checkpoints the whole loss.
+    loss_fn = _actquant.checkpoint_fn(
+        loss_fn, _env.remat_mode() if remat is None else remat,
+        _actquant.resolve_mode(act_quant))
     if compression is None:
         # Unset: HVDTPU_QUANT=int8|fp8 arms the quantized wire. An explicit
         # compression -- Compression.none included -- wins over the env.
@@ -323,6 +381,10 @@ def make_train_step(
             threshold_bytes=threshold_bytes, error_feedback=error_feedback,
         )
 
+    # Each bucket layout's issue order under overlap, as its ranks agreed
+    # on it after its first step (ops/layout.py); pack order until then.
+    issue_order: Dict[Any, list] = {}
+
     def step_fn(state: TrainState, batch):
         for name, p in state.params.items():
             if p.device != dev:
@@ -330,11 +392,32 @@ def make_train_step(
                     f"parameter {name} is on {p.device}; this step runs on "
                     f"{dev}"
                 )
-        loss, aux, grads = accumulate_gradients(
-            loss_fn, state.params, batch, accum_steps, has_aux=has_aux
-        )
+        red = None
+        if overlap and getattr(opt, "reduction", None):
+            red = opt.reduction(state.opt_state, state.params)
+            if red is not None and red.plan.needs_all_leaves:
+                red = None
+        if red is None:
+            loss, aux, grads = accumulate_gradients(
+                loss_fn, state.params, batch, accum_steps, has_aux=has_aux
+            )
+            with torch.no_grad():
+                updates, new_opt = opt.update(grads, state.opt_state,
+                                              state.params)
+        else:
+            # The reduce phase goes out bucket by bucket from the last
+            # microbatch's gradient hooks; the update phase waits for every
+            # bucket.
+            layout = red.plan.spec.buckets
+            sched = BucketScheduler(red.plan, stagger=stagger,
+                                    order=issue_order.get(layout))
+            loss, aux, _ = _accumulate(loss_fn, state.params, batch,
+                                       accum_steps, has_aux, sched)
+            if layout not in issue_order:
+                issue_order[layout] = sched.agree_order()
+            with torch.no_grad():
+                updates, new_opt = red.finish(*sched.wait(), state.params)
         with torch.no_grad():
-            updates, new_opt = opt.update(grads, state.opt_state, state.params)
             for name, p in state.params.items():
                 p.add_(updates[name])
             loss = allreduce(loss, op=Average, axis=axis)

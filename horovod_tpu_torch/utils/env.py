@@ -30,17 +30,18 @@ SERVE_MAX_SEQ_LEN = "SERVE_MAX_SEQ_LEN"  # prompt+generation token ceiling
 SERVE_SPEC_K = "SERVE_SPEC_K"  # draft proposals per speculative round
 FUSED_UPDATE = "FUSED_UPDATE"  # fused ZeRO-1 optimizer-update kernel
 OVERLAP_ACCUM_STEPS = "OVERLAP_ACCUM_STEPS"  # default accum_steps (>=1)
+OVERLAP_STAGGER = "OVERLAP_STAGGER"  # chain the overlap's bucket work
 QUANT = "QUANT"  # quantized collective wire format: off|int8|fp8
 QUANT_BLOCK = "QUANT_BLOCK"  # elements per blockwise quantization scale
 COMPUTE_DTYPE = "COMPUTE_DTYPE"  # training matmul precision: off|fp8
 FP8_AMAX_HISTORY = "FP8_AMAX_HISTORY"  # delayed-scaling amax ring length
 REMAT = "REMAT"  # default remat policy for make_train_step(remat=...)
 PREFETCH_DEPTH = "PREFETCH_DEPTH"  # prefetch_to_device buffer depth
+OVERLAP = "OVERLAP"  # default for make_train_step(overlap=...)
+ACT_QUANT = "ACT_QUANT"  # int8 storage of remat'd activations: off|int8
 # Defaults of make_train_step / ServePool knobs whose planes are not ported
 # yet: an armed value raises there as the explicit argument does.
-OVERLAP = "OVERLAP"  # default for make_train_step(overlap=...)
 LINT = "LINT"  # default for make_train_step(lint=...): off|warn|raise
-ACT_QUANT = "ACT_QUANT"  # int8 storage of remat'd activations: off|int8
 GUARD = "GUARD"  # arm the in-graph gradient guard by default
 PUBLISH_EVERY = "PUBLISH_EVERY"  # publish a delta every N commits; 0=off
 AUTOTUNE = "AUTOTUNE"  # closed-loop autotuner, trainer and serving pool
@@ -319,6 +320,12 @@ def fp8_amax_history() -> int:
 def overlap_default() -> bool:
     """Default for ``make_train_step(overlap=...)`` when not passed."""
     return get_bool(OVERLAP, False)
+
+
+def overlap_stagger() -> bool:
+    """Chained bucket work under the overlap pipeline (on by default when
+    the pipeline is on; this knob turns it off)."""
+    return get_bool(OVERLAP_STAGGER, True)
 
 
 def lint_mode() -> str:

@@ -6,7 +6,12 @@ and the int8-weight matmul; and the paths of the zoo that reach them (a
 head-dim-64 BERT through the kernels, per-block remat bit for bit, ResNet's
 SAME padding and BatchNorm against the CPU, ``prefetch_to_device``), and
 Adasum's fp32 schedule over stacked CUDA tensors against the fp64 fold with
-the object and state helpers on a one-rank NCCL world. Every
+the object and state helpers on a one-rank NCCL world; the overlap
+pipeline on it (overlap on bit for bit overlap off, ZeRO-1 fused and the
+int8 wire; the bucket work and kernels 4 and 5 on a side stream, by the
+profiler's stream ids) and int8 activation storage (a boundary's kernel
+path bit for bit its plain path, a ``channels_last`` boundary bit for bit
+the NHWC plain one). Every
 test here needs an NVIDIA GPU with nvcc (the kernels have no
 CPU mode) and skips without one. Run them on the card with
 
@@ -1444,3 +1449,134 @@ def test_object_helpers_on_a_one_rank_nccl_world(gen):
         assert torch.equal(y, x) and recv.tolist() == [3]
     finally:
         hvt.shutdown()
+
+
+# -- the overlap pipeline and int8 activation storage ---------------------------
+
+
+def _overlap_run(gen, overlap, **kw):
+    """Two steps of GPT-2 tiny (head dim 64, bf16 compute, fp32 masters) at
+    accum_steps=2 on the one-rank NCCL world, a threshold that makes several
+    buckets; the parameters and every optimizer-state tensor after each."""
+    import horovod_tpu_torch as hvt
+    import torch.nn.functional as F
+
+    cfg = hvt.GPT2Config.tiny(d_model=128, n_heads=2,
+                              param_dtype=torch.float32)
+    model = hvt.GPT2LMModel(cfg)
+    model.load_state_dict(hvt.convert.init_params(cfg, seed=0))
+
+    def loss_fn(p, t):
+        logits = torch.func.functional_call(model, p, (t[:, :-1],))
+        return F.cross_entropy(logits.flatten(0, 1), t[:, 1:].flatten())
+
+    step, opt = hvt.make_train_step(loss_fn, kw.pop("opt"), accum_steps=2,
+                                    threshold_bytes=1 << 18, overlap=overlap,
+                                    **kw)
+    state = hvt.init_state({n: p.detach().clone()
+                            for n, p in model.named_parameters()}, opt)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 65), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1))
+    out = []
+    for _ in range(2):
+        state, loss = step(state, tokens)
+        out.append(({n: p.detach().clone() for n, p in state.params.items()},
+                    [t.clone() for t in _state_tensors(state.opt_state)],
+                    float(loss)))
+    return out
+
+
+def _state_tensors(tree):
+    from horovod_tpu_torch.ops.fusion import FlatBuckets
+
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, FlatBuckets):
+        return list(tree.buffers)
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _state_tensors(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for x in tree for t in _state_tensors(x)]
+    return []
+
+
+@pytest.mark.parametrize("variant", ["zero1-fused", "int8-wire"])
+def test_overlap_on_equals_off_bit_for_bit_on_one_rank_nccl(gen, variant):
+    import horovod_tpu_torch as hvt
+
+    kw = ({"opt": hvt.fused_adamw(1e-3), "sharded": True,
+           "fused_update": True} if variant == "zero1-fused" else
+          {"opt": hvt.adamw(1e-3), "compression": hvt.Compression.int8})
+    hvt.init(backend="nccl")
+    try:
+        off = _overlap_run(gen, False, **dict(kw))
+        on = _overlap_run(gen, True, **dict(kw))
+    finally:
+        hvt.shutdown()
+    for (p0, s0, l0), (p1, s1, l1) in zip(off, on):
+        assert l0 == l1
+        assert all(torch.equal(p0[n], p1[n]) for n in p0)
+        assert len(s0) == len(s1) and all(
+            torch.equal(a, b) for a, b in zip(s0, s1))
+
+
+def _kernel_streams(prof):
+    """(name, stream id) of every CUDA kernel a profile recorded."""
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            out.append((e.name(), e.device_resource_id()))
+    return out
+
+
+def test_overlap_bucket_work_and_kernels_4_5_run_on_a_side_stream(gen):
+    import horovod_tpu_torch as hvt
+    from torch.profiler import ProfilerActivity, profile
+
+    hvt.init(backend="nccl")
+    try:
+        _overlap_run(gen, True, opt=hvt.adamw(1e-3),
+                     compression=hvt.Compression.int8)  # warm
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _overlap_run(gen, True, opt=hvt.adamw(1e-3),
+                         compression=hvt.Compression.int8)
+            torch.cuda.synchronize()
+    finally:
+        hvt.shutdown()
+    ks = _kernel_streams(prof)
+    backward = {s for n, s in ks if "flash_bwd" in n}
+    quant = {s for n, s in ks if "quantize_blockwise" in n}
+    assert backward and quant
+    # Every quantize and dequantize ran on a side stream: none on the
+    # stream the backward ran on (the default stream here).
+    assert not quant & backward, (quant, backward)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_act_quant_boundary_kernel_path_is_its_plain_path(gen, dtype):
+    from horovod_tpu_torch.ops import actquant as aq
+
+    x = (torch.randn((3, 1000, 77), generator=gen, device="cuda") * 4).to(
+        dtype)
+    tq.reset_launches()
+    with aq.activate("int8"):
+        got = aq.boundary(x)
+        want = aq.boundary(x.cpu())
+    torch.cuda.synchronize()
+    assert tq.launches_quant == 1 and tq.launches_dequant == 1
+    assert got.dtype == dtype and torch.equal(got.cpu(), want)
+
+
+def test_channels_last_boundary_is_the_nhwc_plain_one(gen):
+    from horovod_tpu_torch.ops import actquant as aq
+
+    x = torch.randn((4, 96, 14, 14), generator=gen, device="cuda").to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    with aq.activate("int8"):
+        got = aq.boundary(x, nhwc=True)
+        # The plain boundary of the NHWC tensor, flattened in its order.
+        want = aq.boundary(x.permute(0, 2, 3, 1).contiguous().cpu())
+    torch.cuda.synchronize()
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got.permute(0, 2, 3, 1).cpu(), want)

@@ -161,6 +161,24 @@ def test_unported_train_step_knobs_raise_naming_their_slice(knob, value):
             jremat.resolve_policy("fulll")
         with pytest.raises(ValueError, match="unknown remat policy"):
             _port_build(remat="fulll")
+    elif knob in ("overlap", "stagger"):
+        # Ported (test_torch_port_overlap.py): the step reduces its buckets
+        # from the gradient hooks (overlap) or after the backward (stagger
+        # alone, the plain step), bit for bit the plain step.
+        run = _knob_step_runs(**{knob: value})
+        assert run["params"] == _knob_step_runs()["params"]
+        assert run["inside"] == [knob == "overlap"]
+    elif knob == "act_quant":
+        # Ported (test_torch_port_actquant.py): the loss runs with the int8
+        # boundaries armed, and a mode the JAX package does not know raises
+        # as its resolve_mode does.
+        from horovod_tpu.ops import actquant as jaq
+
+        assert _knob_step_runs(act_quant=value)["modes"] == ["int8"]
+        with pytest.raises(ValueError, match="not recognized"):
+            jaq.resolve_mode("int4")
+        with pytest.raises(ValueError, match="not recognized"):
+            _port_build(act_quant="int4")
     elif knob == "compute_dtype":
         # Ported: fp8 compute builds on the replicated path and refuses
         # ZeRO-1, as the JAX package does (test_torch_port_fp8_train.py).
@@ -175,8 +193,10 @@ def test_unported_train_step_knobs_raise_naming_their_slice(knob, value):
             tdp.make_train_step(lambda p, b: 0.0, topt.adamw(1e-3),
                                 device="cpu", **{knob: value})
     # Their off values build a step.
+    # (act_quant's explicit off is "", as the JAX package's resolve_mode
+    # takes it; "off" is an environment spelling only.)
     off = {"lint": "off", "remat": "none", "compute_dtype": None,
-           "act_quant": "off", "publish": 0}.get(knob, False)
+           "act_quant": "", "publish": 0}.get(knob, False)
     tdp.make_train_step(lambda p, b: 0.0, topt.adamw(1e-3), device="cpu",
                         **{knob: off})
 
@@ -207,6 +227,41 @@ def test_train_step_argument_checks():
 def _port_build(**kw):
     return tdp.make_train_step(lambda p, b: 0.0, topt.adamw(1e-3),
                                device="cpu", **kw)
+
+
+def _knob_step_runs(**kw):
+    """Two steps of a small regression (one bucket a leaf) through
+    make_train_step(**kw) on one process: the parameters, the act-quant
+    mode the loss ran under, and whether a bucket was reduced inside the
+    backward."""
+    from horovod_tpu_torch.ops import actquant as taq
+    from horovod_tpu_torch.ops import fusion as tfusion
+
+    params, batch = _problem()
+    modes, inside = [], []
+    orig = tfusion.reduce_bucket
+
+    def spy(leaves, **k):
+        inside.append(torch._C._current_graph_task_id() >= 0)
+        return orig(leaves, **k)
+
+    def loss(p, b):
+        modes.append(taq.active_mode())
+        return ((b["x"] @ p["w"] + p["b"] - b["y"]) ** 2).mean()
+
+    tfusion.reduce_bucket = spy
+    try:
+        step, opt = tdp.make_train_step(loss, topt.adamw(1e-2), device="cpu",
+                                        threshold_bytes=8, **kw)
+        state = tdp.init_state(
+            {k: torch.from_numpy(v) for k, v in params.items()}, opt)
+        for _ in range(2):
+            state, _ = step(state, jax.tree.map(torch.from_numpy, batch))
+    finally:
+        tfusion.reduce_bucket = orig
+    return {"params": {k: v.detach().numpy().tobytes()
+                       for k, v in state.params.items()},
+            "modes": sorted(set(modes)), "inside": sorted(set(inside))}
 
 
 def _remat_step_runs(remat=None):
@@ -277,6 +332,22 @@ def test_armed_env_default_raises_like_the_explicit_argument(
         assert _remat_step_runs() == 2
         assert _remat_step_runs(armed) == 2
         assert _remat_step_runs(off) == 1
+        return
+    if knob == "overlap":
+        # Ported: the armed default reduces the buckets from inside the
+        # backward, as overlap=True does, bit for bit the plain step; an
+        # explicit False wins over the environment.
+        on, off_run = _knob_step_runs(), _knob_step_runs(overlap=off)
+        assert on["inside"] == [True] and off_run["inside"] == [False]
+        assert on["params"] == off_run["params"]
+        assert _knob_step_runs(overlap=True)["inside"] == [True]
+        return
+    if knob == "act_quant":
+        # Ported: the armed default runs the loss with the boundaries
+        # armed, as the explicit argument does; an explicit "" wins.
+        assert _knob_step_runs()["modes"] == ["int8"]
+        assert _knob_step_runs(act_quant=armed)["modes"] == ["int8"]
+        assert _knob_step_runs(act_quant=off)["modes"] == [""]
         return
     match = "autotune" if knob is None else "not ported yet.*arrives with"
     with pytest.raises(NotImplementedError, match=match):

@@ -254,11 +254,14 @@ def test_unported_options_raise(kw, match):
 
 
 def test_act_quant_and_dense_mask_raise():
-    # act_quant still raises; the dense mask is ported and now matches the
-    # JAX package (the name is kept from the case it replaced).
-    with pytest.raises(NotImplementedError,
-                       match="act_quant.*its own slice .ops/actquant.py."):
+    # The model takes no act_quant keyword: as in the JAX package, only
+    # make_train_step(act_quant=) arms the int8 boundaries
+    # (test_torch_port_actquant.py). The dense mask is ported and now
+    # matches the JAX package (the name is kept from the cases it replaced).
+    with pytest.raises(TypeError, match="act_quant"):
         GPT2LMModel(GPT2Config.tiny(), device="cpu", act_quant="int8")
+    with pytest.raises(TypeError, match="act_quant"):
+        jgpt2.GPT2LMModel(jgpt2.GPT2Config.tiny(), act_quant="int8")
     # A dense [B, 1, 1, S] mask on top of the causal one, through the
     # attention of a fp32 block: plain attention on both sides, 1e-5.
     cfg = jgpt2.GPT2Config.tiny(dtype=jnp.float32, use_flash=True)
