@@ -256,7 +256,8 @@ Phases (any failure exits non-zero; nothing is caught):
    the first decode step's logits with int8 KV within 0.05 x max |logit|
    of fp32 KV over 8 prompts, the argmax equal where the fp32 top-2 margin
    exceeds that bound. One profiled window of decode rounds (8 streams
-   after their prefill) in the int8 run: device time by category and the
+   after their prefill; the tracer brought up before they are submitted)
+   in the int8 run: device time by category and the
    idle share. The phase's wall seconds are printed.
 18. [train-bert] (after 17.) BERT-base MLM (BertConfig.base(): vocab
    30522, 512 positions, d 768, 12 heads of 64, 12 layers) at bench_bert's
@@ -362,15 +363,53 @@ Phases (any failure exits non-zero; nothing is caught):
    int8 payload and fp32 scales (GPT-2 11, ResNet-50 15, the MLP 8); and
    kernels 4 and 5 timed at a GPT-2 boundary (25.2 M fp32 elements) beside
    their plain versions, torch.mul and the byte bound.
-24. Output: a "kernels" JSON line (the nine TPU kernels' counterparts and
+24. [train-3d] The 3-D parallel GPT (parallel/transformer.py) at
+   examples/jax/gpt2_3d_parallel.py's defaults -- vocab 50304, 1024
+   positions, d 768, 12 heads, 12 layers, d_ff 3072, per-block remat -- in
+   bf16 compute with fp32 masters from init_params(Generator seed 0), on a
+   one-rank NCCL world whose mesh is dp = sp = tp = 1
+   (init(mesh=..., world_axes=("dp", "sp"))), batch 8 x 1024 from
+   default_rng(14): one step's gradients (loss_and_grads: the dense ring,
+   the Megatron pair, the (dp, sp) Sum) against gpt3d_dense_loss, the same
+   math in fp32 with plain attention, within [train]'s 5e-2 relative L2
+   (the worst leaf printed); then make_parallel_train_step(cfg,
+   adamw(3e-4)), 3 warm-up and 10 timed steps on that batch: step ms
+   (median), tokens/s, MFU (obs/flops.py; every parameter but wpe is a
+   matmul's, the tied wte the head's), peak GiB, the losses finite and
+   falling, fused_allreduce's buckets a step (counted at
+   fusion.reduce_bucket), and 0 flash launches (the reference's GPT runs
+   the dense ring).
+25. [ring-flash] The flash ring's hops at the example's long-context
+   shapes (--seq-len 2048 --sp 2 --tp 2: q/k/v [8, 2048, 6, 64] bf16 per
+   sp group, causal), run for 2 and 4 virtual sp ranks through
+   parallel/sp.py's flash_ring -- ring_attention's own loop -- with the
+   key/value blocks sliced instead of passed along the ring: out within
+   1e-2 and the merged lse within 1e-3 of kernel 1 over the whole sequence
+   and of its plain version (-inf rows alike); dq/dk/dv through autograd
+   (kernels 2 and 3 with each hop's lse cotangent) within 1e-2 of the
+   largest plain gradient, of the whole-sequence kernels and of the plain
+   backward, no NaN; every hop whose key block lies wholly after its query
+   block has lse -inf, out 0 and zero cotangents, and its backward with
+   nonzero cotangents of both outputs is zero; launches, set to 0 just
+   before, n^2 of each kernel. The ring and the whole-sequence call timed,
+   forward and forward + backward, by events (time_ms) and by busy device
+   time by category (ring_times: a profiler window after a warm-up window,
+   its sums divided by the calls its flash launches show it saw, taken
+   again if it saw under half; the ring holds more launches than
+   device_ms's held stream can queue), the whole call also behind a held
+   stream, which its profiled busy time a call must match within 10%.
+   Then ring_attention(use_flash=True) itself on a one-rank world (mesh
+   sp = 1: one hop) equal bit for bit to flash_attention_with_lse.
+26. Output: a "kernels" JSON line (the nine TPU kernels' counterparts and
    the cast kernel; "launches" is the training run's count -- for the
    quantize pair the int8 [train-quant] run's (beside it the
    [ckpt-reshard] and int8 [decode] runs' and the KV shapes' times as
    "kv_write" / "kv_gather"), for kernel 8 and the cast kernel the fp8
    [train-fp8] run's, for kernel 7 the [serve-int8] rounds' -- the forward
    kernel's serving count beside it as "launches_serve", and the flash
-   kernels', AdamW's and (from 22.) the quantize pair's counts in 18.-23.,
-   each read over its own run, as "launches_phases"; the quantize pair's
+   kernels', AdamW's and (from 22.) the quantize pair's counts in 18.-25.,
+   each read over its own run, as "launches_phases"; the flash rows' ring
+   times at n = 2, 4 and the whole sequence as "ring_flash_*"; the quantize pair's
    times at an act-quant boundary as "boundary"), the card's name and power limit, and the last line
    {"ok": true, "device": {...}}.
 
@@ -1009,7 +1048,10 @@ def device_ms_by_name(prof, counts=None):
 
     by_name = {}
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        # A scheduled window's step range ("ProfilerStep*") is annotated on
+        # the device too, spanning the whole step: it is no kernel.
+        if (e.device_type != DeviceType.CUDA
+                or e.key.startswith("ProfilerStep")):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -2886,19 +2928,7 @@ def decode_run(tq, model, params, prompts, *, label, kv_dtype, spec_k=0,
         }
         log(f"[decode] {label}: {json.dumps(rec)}")
         if profile:
-            # A window of decode rounds: 8 streams admitted (their prefill
-            # off the window), then profiled until every one has finished.
-            pf = [eng.submit(p, 48) for p in prompts[:DECODE_ROWS]]
-            while not all(f.tokens_so_far() for f in pf):
-                time.sleep(0.001)
-            extra = {"run": label, "rounds": -eng.n_rounds}
-
-            def rounds_window():
-                for f in pf:
-                    f.result(timeout=600.0)
-                extra["rounds"] += eng.n_rounds
-
-            rec["profile"] = profile_window(rounds_window, extra)
+            rec["profile"] = decode_window(eng, prompts[:DECODE_ROWS], label)
     finally:
         eng.stop()
     want = 2 * counts["extend_calls"] if kv_dtype == "int8" else 0
@@ -2909,6 +2939,35 @@ def decode_run(tq, model, params, prompts, *, label, kv_dtype, spec_k=0,
     if any(len(o) != DECODE_NEW for o in outs):
         raise AssertionError(f"[decode] {label}: a stream fell short")
     return rec, outs
+
+
+def decode_window(eng, prompts, label):
+    """A profiled window of decode rounds: the streams admitted (their
+    prefill off the window), then profiled until every one has finished.
+    The tracer comes up in the warm-up step of a schedule, before the
+    streams are submitted, while no thread launches work: brought up in
+    the middle of the worker's rounds, it crashed the process at the
+    window's end in 3 of 7 runs (a native thread, in the profiler's stop;
+    H100 80GB HBM3, torch 2.11.0+cu128). Only the active step, the rounds,
+    is reported."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        pf = [eng.submit(p, 48) for p in prompts]
+        while not all(f.tokens_so_far() for f in pf):
+            time.sleep(0.001)
+        extra = {"run": label, "rounds": -eng.n_rounds}
+        prof.step()
+        t0 = time.perf_counter()
+        for f in pf:
+            f.result(timeout=600.0)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        extra["rounds"] += eng.n_rounds
+        prof.step()
+    return device_breakdown(prof, wall_ms, extra)
 
 
 def decode(hvt, tq):
@@ -4364,6 +4423,409 @@ def resnet_actquant_model(hvt):
     return model, loss_fn
 
 
+# [train-3d]: examples/jax/gpt2_3d_parallel.py's defaults at full width on a
+# one-rank mesh (dp = sp = tp = 1), bf16 compute; 3 warm-up + 10 timed
+# steps on one seeded batch.
+GPT3D_CFG = dict(vocab_size=50304, max_len=1024, d_model=768, n_heads=12,
+                 n_layers=12, d_ff=3072, remat=True)
+GPT3D_BATCH, GPT3D_LR, GPT3D_WARMUP, GPT3D_STEPS = 8, 3e-4, 3, 10
+# [ring-flash]: the example's long-context shapes (--seq-len 2048 --sp 2
+# --tp 2): q/k/v [8, 2048, 6, 64] bf16, causal, split over 2 and 4 virtual
+# sp ranks.
+RING_SHAPE, RING_VIRTUAL = (8, 2048, 6, 64), (2, 4)
+
+
+def gpt3d_dense_loss(p, tokens, cfg):
+    """The 3-D GPT's math written densely in fp32 (plain causal softmax
+    attention over the whole sequence, no ring, no collective): the plain
+    reference [train-3d] holds the step's gradients against."""
+    import torch.nn.functional as F
+
+    def ln(x, scale, bias, eps=1e-5):
+        mu = x.mean(-1, keepdim=True)
+        var = ((x - mu) ** 2).mean(-1, keepdim=True)
+        return (x - mu) * torch.rsqrt(var + eps) * scale + bias
+
+    b, s = tokens.shape
+    d = cfg.head_dim
+    mask = torch.ones((s, s), dtype=torch.bool, device=tokens.device).tril()
+    x = p["wte"][tokens] + p["wpe"][:s]
+    for i in range(cfg.n_layers):
+        h = ln(x, p["ln1_scale"][i], p["ln1_bias"][i])
+        q, k, v = (torch.einsum("bsd,dhk->bhsk", h, p[w][i])
+                   for w in ("wq", "wk", "wv"))
+        scores = (q @ k.transpose(-1, -2)) / d ** 0.5
+        a = torch.softmax(scores.masked_fill(~mask, float("-inf")), -1) @ v
+        x = x + torch.einsum("bhsk,hkd->bsd", a, p["wo"][i])
+        h = ln(x, p["ln2_scale"][i], p["ln2_bias"][i])
+        up = F.gelu(h @ p["w_up"][i] + p["b_up"][i], approximate="tanh")
+        x = x + up @ p["w_down"][i] + p["b_down"][i]
+    x = ln(x, p["lnf_scale"], p["lnf_bias"])
+    logits = x @ p["wte"].t()
+    return F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
+                           tokens[:, 1:].reshape(-1))
+
+
+def train_3d(hvt, kernels):
+    """[train-3d]: the 3-D parallel GPT at GPT-2-small width through
+    make_parallel_train_step on a one-rank mesh, its gradients held against
+    an fp32 dense computation, then timed."""
+    from horovod_tpu_torch.obs import flops
+    from horovod_tpu_torch.ops import fusion
+    from horovod_tpu_torch.parallel import transformer as ptr
+
+    t_phase = time.perf_counter()
+    hvt.init(backend="nccl", mesh={"dp": 1, "sp": 1, "tp": 1},
+             world_axes=("dp", "sp"))
+    cfg = ptr.ParallelGPTConfig(**GPT3D_CFG, dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = ptr.shard_params(ptr.init_params(cfg, gen), cfg)
+    seq = cfg.max_len
+    tokens = torch.from_numpy(np.random.default_rng(14).integers(
+        0, cfg.vocab_size, (GPT3D_BATCH, seq), dtype=np.int64)).cuda()
+    rec = {"config": {**GPT3D_CFG, "dtype": "bfloat16", "batch": GPT3D_BATCH,
+                      "mesh": {"dp": 1, "sp": 1, "tp": 1}}}
+
+    # (1) One step's gradients against the fp32 dense computation.
+    loss, grads = ptr.loss_and_grads(params, tokens, cfg)
+    ref_params = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in params.items()}
+    ref_loss = gpt3d_dense_loss(ref_params, tokens, cfg)
+    ref_grads = dict(zip(ref_params, torch.autograd.grad(
+        ref_loss, list(ref_params.values()))))
+    rel = grads_rel_l2(grads, ref_grads)
+    per_leaf = {k: grads_rel_l2({k: grads[k]}, {k: ref_grads[k]})
+                for k in grads}
+    worst = max(per_leaf, key=per_leaf.get)
+    log(f"[train-3d] one step's gradients (bf16 compute, the ring, the "
+        f"Megatron pair, the (dp, sp) Sum) against the fp32 dense "
+        f"computation: relative L2 {rel:.4e} (bound {STEP_GRAD_TOL}); worst "
+        f"leaf {worst} {per_leaf[worst]:.4e}; loss {float(loss):.6f} vs fp32 "
+        f"{float(ref_loss.detach()):.6f}")
+    if not rel <= STEP_GRAD_TOL or not np.isfinite(float(loss)):
+        raise AssertionError(f"[train-3d] gradients off the fp32 dense "
+                             f"computation: relative L2 {rel}")
+    rec.update(grad_rel_l2=rel, grad_rel_l2_by_leaf=per_leaf,
+               loss_bf16=float(loss), loss_fp32=float(ref_loss.detach()))
+    del grads, ref_grads, ref_params, ref_loss
+    torch.cuda.empty_cache()
+
+    # (2) The timed steps; each fused_allreduce bucket counted.
+    opt = hvt.adamw(GPT3D_LR)
+    state = opt.init(params)
+    step = ptr.make_parallel_train_step(cfg, opt)
+    buckets = []
+    reduce_bucket = fusion.reduce_bucket
+
+    def counted(*a, **kw):
+        buckets.append(1)
+        return reduce_bucket(*a, **kw)
+
+    fusion.reduce_bucket = counted
+    reset_counts(*kernels)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    try:
+        for _ in range(GPT3D_WARMUP + GPT3D_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, loss = step(params, state, tokens)
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        fusion.reduce_bucket = reduce_bucket
+    counts = read_counts(*kernels)
+    n_steps = GPT3D_WARMUP + GPT3D_STEPS
+    check_falling("train-3d", losses)
+    check_counts("train-3d", counts, {"flash_fwd": 0, "flash_bwd_dkdv": 0,
+                                      "flash_bwd_dq": 0, "fused_adamw": 0},
+                 n_steps)
+    ms = float(np.median(times[GPT3D_WARMUP:]))
+    tok_s = GPT3D_BATCH * seq / ms * 1e3
+    # The tied wte is the head's matmul too, so it counts; wpe is a lookup.
+    n_matmul = sum(v.numel() for k, v in params.items() if k != "wpe")
+    fpt = flops.transformer_flops_per_token(n_matmul, cfg.n_layers, seq,
+                                            cfg.d_model)
+    mfu = flops.mfu(tok_s, fpt, torch.cuda.get_device_name(0))
+    peak = peak_gib()
+    log(f"[train-3d] GPT-2 small width (vocab {cfg.vocab_size}, d "
+        f"{cfg.d_model}, {cfg.n_layers} layers, remat) {GPT3D_BATCH} x {seq} "
+        f"bf16 on dp = sp = tp = 1: step {ms:.2f} ms (median of "
+        f"{GPT3D_STEPS} after {GPT3D_WARMUP} warm-up; all "
+        f"{json.dumps([round(t, 2) for t in times])}), {tok_s:.0f} tokens/s, "
+        f"MFU {mfu if mfu is None else round(mfu, 4)}, peak {peak:.2f} GiB; "
+        f"losses {losses[0]:.4f} -> {losses[-1]:.4f}; fused_allreduce "
+        f"buckets {len(buckets) / n_steps:g} a step; flash launches "
+        f"{counts['flash_fwd']} (the reference's GPT runs the dense ring)")
+    rec.update(step_ms=ms, step_times_ms=times, tokens_per_s=tok_s, mfu=mfu,
+               peak_gib=peak, losses=losses, launches=counts,
+               buckets_per_step=len(buckets) / n_steps,
+               phase_s=time.perf_counter() - t_phase)
+    hvt.shutdown()
+    del params, state, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+def virtual_ring(q, k, v, n):
+    """The flash ring of n virtual sp ranks in one process: each rank r's
+    query block through sp.flash_ring -- the loop ring_attention runs --
+    with its key/value blocks sliced from the whole sequence instead of
+    passed along the ring. Returns the whole output, the merged lse and
+    every hop's (r, kv_rank, o_i, lse_i)."""
+    from horovod_tpu_torch.parallel import sp as psp
+
+    s = q.shape[1] // n
+    outs, lses, hops = [], [], []
+    for r in range(n):
+        o, lse, hops_r = psp.flash_ring(
+            q[:, r * s:(r + 1) * s],
+            lambda step, kv: (k[:, kv * s:(kv + 1) * s],
+                              v[:, kv * s:(kv + 1) * s]),
+            n=n, r=r, causal=True)
+        hops += [(r, *hop) for hop in hops_r]
+        outs.append(o.to(q.dtype))
+        lses.append(lse)
+    return torch.cat(outs, 1), torch.cat(lses, 2), hops
+
+
+def ring_times(attend, q, k, v, g, launches, held=None, calls=8, tries=4):
+    """``attend(q, k, v) -> out``'s times: the forward alone and the forward
+    with its backward (cotangent ``g``), each by CUDA events around
+    back-to-back calls (time_ms: the host's gaps count where the host is
+    the slower) and by its busy device time -- every kernel of ``calls``
+    calls in a torch.profiler window, summed by category. The window is the
+    active step of a schedule whose warm-up step runs the same calls first,
+    so the tracing is up before the calls it counts. It can still miss
+    launches (a window of 8 whole-sequence forwards once recorded none of
+    them): ``launches`` gives the flash kernels' launches a call, for
+    ``"fwd"`` and ``"fwd_bwd"``, so the recorded flash launches say how
+    many calls the window saw, and the sums are divided by that. A window
+    that saw under half its calls, or whose busy time a call reads outside
+    0.9-1.1 of ``held``'s (device_ms's held-stream time of the same calls,
+    where the call is short enough for it), is taken again with twice the
+    calls; after ``tries`` such windows the measurement fails. The ring
+    enqueues more launches than the launch queue holds, so device_ms's
+    held stream cannot time it."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    def fwd():
+        with torch.no_grad():
+            attend(q, k, v)
+
+    def fwd_bwd():
+        xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        torch.autograd.grad(attend(*xs), xs, g)
+
+    out = {}
+    for name, fn in (("fwd", fwd), ("fwd_bwd", fwd_bwd)):
+        out[name + "_ms"] = time_ms(fn, samples=5, per_sample=2)
+        n, windows = calls, []
+        for _ in range(tries):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1,
+                                           repeat=1)) as prof:
+                for _ in range(2):
+                    for _ in range(n):
+                        fn()
+                    torch.cuda.synchronize()
+                    prof.step()
+            counts = {}
+            _, by_cat = device_ms_by_name(prof, counts)
+            seen = (sum(counts.get(c, 0) for c in launches[name])
+                    / sum(launches[name].values()))
+            busy = sum(by_cat.values()) / seen if seen else 0.0
+            windows.append((n, seen, busy, by_cat))
+            if seen >= n / 2 and (held is None
+                                  or 0.9 <= busy / held[name] <= 1.1):
+                break
+            n *= 2
+        else:
+            raise AssertionError(
+                f"torch.profiler saw too few calls of {name} in {tries} "
+                f"windows (calls, calls seen, busy ms a call, ms by "
+                f"category): {windows}"
+                + ("" if held is None else f"; held {held[name]} ms"))
+        out[name + "_device_ms"] = busy
+        out[name + "_device_ms_by_category"] = {
+            c: ms / seen for c, ms in sorted(by_cat.items())}
+        out[name + "_windows"] = windows
+    return out
+
+
+def describe_times(t):
+    cats = ", ".join(f"{c} {ms:.4f}"
+                     for c, ms in t["fwd_device_ms_by_category"].items())
+    return (f"forward {t['fwd_ms']:.4f} ms by events, "
+            f"{t['fwd_device_ms']:.4f} device ({cats}); forward + backward "
+            f"{t['fwd_bwd_ms']:.4f} by events, {t['fwd_bwd_device_ms']:.4f} "
+            f"device")
+
+
+def ring_flash(hvt, kernels):
+    """[ring-flash]: the flash ring's hops (kernel 1 forward, kernels 2 and
+    3 with the lse cotangent backward) at the 3-D example's long-context
+    shapes, 2 and 4 virtual sp ranks, against the whole-sequence kernels;
+    then ring_attention(use_flash=True) itself on the one-rank world."""
+    from horovod_tpu_torch.parallel import sp as psp
+
+    fa = kernels[0]
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+
+    def rand():
+        return torch.randn(RING_SHAPE, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+
+    q, k, v, g = rand(), rand(), rand(), rand()
+    with torch.no_grad():
+        out_w, lse_w = fa.flash_attention_with_lse(q, k, v, causal=True)
+        grads_w = fa.flash_attention_bwd(q, k, v, out_w, lse_w, g,
+                                         causal=True)
+        plain_w = fa.flash_attention_bwd_reference(q, k, v, out_w, lse_w, g,
+                                                   causal=True)
+        out_p, lse_p = fa.flash_attention_reference(q, k, v, causal=True)
+    scale = max(float(x.float().abs().max()) for x in plain_w)
+    fin_w = torch.isfinite(lse_w)
+    if not torch.equal(torch.isfinite(lse_p), fin_w):
+        raise AssertionError("[ring-flash] the whole-sequence kernel's -inf "
+                             "lse rows differ from the plain forward's")
+    rec = {"shape": list(RING_SHAPE), "causal": True, "runs": {}}
+    for n in RING_VIRTUAL:
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        reset_counts(*kernels)
+        out, lse, hops = virtual_ring(*leaves, n)
+        fwd = read_counts(*kernels)
+        masked = [(o_i, lse_i) for r, kv, o_i, lse_i in hops if kv > r]
+        for o_i, lse_i in masked:
+            o_i.retain_grad()
+            lse_i.retain_grad()
+        (out.float() * g.float()).sum().backward()
+        counts = read_counts(*kernels)
+        want = {"flash_fwd": n * n, "flash_bwd_dkdv": n * n,
+                "flash_bwd_dq": n * n}
+        got = {"flash_fwd": fwd["flash_fwd"],
+               "flash_bwd_dkdv": counts["flash_bwd_dkdv"],
+               "flash_bwd_dq": counts["flash_bwd_dq"]}
+        if got != want or counts["flash_fwd"] != n * n:
+            raise AssertionError(f"[ring-flash] n={n}: launches {got} (and "
+                                 f"{counts['flash_fwd']} forward after the "
+                                 f"backward), not {want}")
+        got = counts  # every kernel's count over the run
+        err_out = float((out.detach().float() - out_w.float()).abs().max())
+        same_inf = bool(torch.equal(torch.isinf(lse), ~fin_w))
+        err_lse = float((lse.detach()[fin_w] - lse_w[fin_w]).abs().max())
+        err_out_plain = float((out.detach().float()
+                               - out_p.float()).abs().max())
+        err_lse_plain = float((lse.detach()[fin_w]
+                               - lse_p[fin_w]).abs().max())
+        errs = [float((x.grad.float() - w.float()).abs().max())
+                for x, w in zip(leaves, grads_w)]
+        errs_plain = [float((x.grad.float() - w.float()).abs().max())
+                      for x, w in zip(leaves, plain_w)]
+        nan = any(bool(torch.isnan(x.grad).any()) for x in leaves)
+        # Hops whose key block lies wholly after their query block.
+        hop_ok = all(
+            bool(torch.isneginf(lse_i).all()) and not bool(o_i.any())
+            and not bool(o_i.grad.any()) and not bool(lse_i.grad.any())
+            for o_i, lse_i in masked)
+        # The same hops' backward with nonzero cotangents of both outputs:
+        # zeros and no NaN (launched outside the counted run).
+        r, kv, o_i, lse_i = next(h for h in hops if h[1] > h[0])
+        bsz, s = RING_SHAPE[0], RING_SHAPE[1] // n
+        with torch.no_grad():
+            hop_grads = fa.flash_attention_bwd(
+                q[:, r * s:(r + 1) * s].reshape(bsz, s, -1),
+                k[:, kv * s:(kv + 1) * s].reshape(bsz, s, -1),
+                v[:, kv * s:(kv + 1) * s].reshape(bsz, s, -1),
+                o_i.detach().reshape(bsz, s, -1), lse_i.detach(),
+                g[:, r * s:(r + 1) * s].reshape(bsz, s, -1),
+                torch.randn(lse_i.shape, generator=gen, device="cuda"),
+                causal=True, q_offset=r * s, kv_offset=kv * s, layout="bsm",
+                n_heads=RING_SHAPE[2])
+        masked_zero = all(not bool(x.any()) and not bool(torch.isnan(x).any())
+                          for x in hop_grads)
+        times = ring_times(lambda a, b, c: virtual_ring(a, b, c, n)[0],
+                           q, k, v, g, {"fwd": {"flash_fwd": n * n},
+                                        "fwd_bwd": want})
+        run = {"launches": got, "max_abs_err_out": err_out,
+               "max_abs_err_lse": err_lse,
+               "max_abs_err_out_vs_plain": err_out_plain,
+               "max_abs_err_lse_vs_plain": err_lse_plain,
+               "lse_inf_rows_match": same_inf,
+               "grad_err": errs, "grad_err_vs_plain": errs_plain,
+               "grad_scale": scale, "nan": nan,
+               "masked_hops": len(masked), "masked_hops_zero": hop_ok,
+               "masked_hop_bwd_zero": masked_zero, **times}
+        log(f"[ring-flash] n={n} virtual sp ranks of {s} tokens: out max |d| "
+            f"{err_out:.3e} against the whole-sequence kernel, "
+            f"{err_out_plain:.3e} against the plain forward (<= {OUT_TOL}), "
+            f"merged lse {err_lse:.3e}, {err_lse_plain:.3e} (<= {LSE_TOL}), "
+            f"-inf rows alike {same_inf}; dq/dk/dv max |d| "
+            f"{', '.join(f'{e:.3e}' for e in errs)} against the whole-sequence "
+            f"kernels ({', '.join(f'{e:.3e}' for e in errs_plain)} against "
+            f"the plain backward; bound {GRAD_TOL} x {scale:.3e}), NaN {nan}; "
+            f"{len(masked)} hops wholly in the future: lse -inf, out 0, zero "
+            f"cotangents {hop_ok}, their backward with nonzero cotangents 0 "
+            f"{masked_zero}; launches {got}; {describe_times(times)}")
+        if (max(err_out, err_out_plain) > OUT_TOL
+                or max(err_lse, err_lse_plain) > LSE_TOL or not same_inf
+                or nan or max(errs + errs_plain) > GRAD_TOL * scale
+                or not hop_ok
+                or not masked_zero or not masked):
+            raise AssertionError(f"[ring-flash] n={n} failed: {run}")
+        rec["runs"][f"n{n}"] = run
+        del leaves, out, lse, hops, masked
+
+    def whole(a, b, c):
+        return fa.flash_attention_with_lse(a, b, c, causal=True)[0]
+
+    # Its few launches fit behind device_ms's held stream, which checks the
+    # profiled windows of the whole call.
+    with torch.no_grad():
+        held_fwd = device_ms(lambda: whole(q, k, v))
+    held = {"fwd": held_fwd, "fwd_bwd": held_fwd + device_ms(
+        lambda: fa.flash_attention_bwd(q, k, v, out_w, lse_w, g,
+                                       causal=True))}
+    rec["whole"] = ring_times(
+        whole, q, k, v, g, {"fwd": {"flash_fwd": 1},
+                            "fwd_bwd": {"flash_fwd": 1, "flash_bwd_dkdv": 1,
+                                        "flash_bwd_dq": 1}}, held=held)
+    rec["whole"]["fwd_held_device_ms"] = held["fwd"]
+    rec["whole"]["fwd_bwd_held_device_ms"] = held["fwd_bwd"]
+    log(f"[ring-flash] the whole {RING_SHAPE[1]}-token sequence in one call: "
+        f"{describe_times(rec['whole'])}; behind a held stream: forward "
+        f"{rec['whole']['fwd_held_device_ms']:.4f}, forward + backward "
+        f"{rec['whole']['fwd_bwd_held_device_ms']:.4f} (no limit on the "
+        f"ring: its merges and masked hops are extra work by design)")
+
+    # ring_attention itself on the one-rank world: one hop, equal to the
+    # whole-sequence call's output.
+    hvt.init(backend="nccl", mesh={"sp": 1})
+    bsz, s = RING_SHAPE[0], RING_SHAPE[1] // 2
+    qh, kh, vh = (x[:, :s].contiguous() for x in (q, k, v))
+    with torch.no_grad():
+        got = psp.ring_attention(qh, kh, vh, axis="sp", causal=True,
+                                 use_flash=True)
+        want, _ = fa.flash_attention_with_lse(
+            *(x.reshape(bsz, s, -1) for x in (qh, kh, vh)), causal=True,
+            layout="bsm", n_heads=RING_SHAPE[2])
+        want = want.reshape(got.shape)
+    same = bool(torch.equal(got, want))
+    hvt.shutdown()
+    log(f"[ring-flash] ring_attention(use_flash=True) on the one-rank world "
+        f"({[bsz, s, *RING_SHAPE[2:]]}, one hop) equals flash_attention_with_lse bit for "
+        f"bit: {same}")
+    if not same:
+        raise AssertionError("[ring-flash] the one-hop ring differs from "
+                             "flash_attention_with_lse")
+    rec["one_rank_equal"] = same
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4485,6 +4947,8 @@ def main() -> int:
     adasum = train_adasum(hvt, (fa, fadam, tq))
     overlapped = train_overlap(hvt, (fa, fadam, tq))
     actq = train_actquant(hvt, (fa, fadam, tq), gen)
+    gpt3d = train_3d(hvt, (fa, fadam, tq))
+    ring = ring_flash(hvt, (fa, fadam, tq))
     # [train-remat] trains GPT-2 small, [train]'s layout (held in adam).
     adam_phases = adamw_phase_checks(fadam, gen, {
         "train_bert": bert["bucket_sizes"],
@@ -4505,7 +4969,10 @@ def main() -> int:
                     "launches_train_actquant": {
                         f"{m}/{side}": r["launches"]
                         for m in ("gpt2", "resnet50", "mlp")
-                        for side, r in actq[m].items()}}
+                        for side, r in actq[m].items()},
+                    "launches_train_3d": gpt3d["launches"],
+                    "launches_ring_flash": {
+                        k: r["launches"] for k, r in ring["runs"].items()}}
 
     src = "horovod_tpu_torch/csrc/"
     ref = "horovod_tpu/ops/pallas_kernels.py:"
@@ -4526,6 +4993,9 @@ def main() -> int:
                               new_launches["launches_train_overlap"].items()},
             "train_actquant": {k: c[name] for k, c in
                                new_launches["launches_train_actquant"].items()},
+            "train_3d": new_launches["launches_train_3d"][name],
+            "ring_flash": {k: c[name] for k, c in
+                           new_launches["launches_ring_flash"].items()},
         }
 
     kernels = [{
@@ -4550,6 +5020,12 @@ def main() -> int:
         "b16": {key: fwd_b16[key] for key in (
             "ms", "device_ms", "host_us", "bound_ms", "library_ms",
             "library_device_ms")},
+        # The flash ring's forward at [8, 2048, 6, 64] causal: n^2 hops and
+        # their merges over n virtual sp ranks, beside one whole call.
+        "ring_flash_fwd_device_ms": {
+            **{k: r["fwd_device_ms"] for k, r in ring["runs"].items()},
+            "whole": ring["whole"]["fwd_device_ms"],
+            "whole_held": ring["whole"]["fwd_held_device_ms"]},
     }]
     # The two backward kernels run as one pair (flash_attention_bwd): "ms"
     # is the pair's CUDA-event time, as for every row, "device_ms" each
@@ -4575,6 +5051,11 @@ def main() -> int:
             "pair_bound_ms": bwd_main["pair"]["bound_ms"],
             "library_ms": bwd_main["library_ms"],
             "library_device_ms": bwd_main["library_device_ms"],
+            "ring_flash_fwd_bwd_device_ms": {
+                **{k: r["fwd_bwd_device_ms"]
+                   for k, r in ring["runs"].items()},
+                "whole": ring["whole"]["fwd_bwd_device_ms"],
+                "whole_held": ring["whole"]["fwd_bwd_held_device_ms"]},
             "b16": {
                 "ms": bwd_b16["ms"],
                 "device_ms": bwd_b16["kernel_ms"][name],
@@ -4734,7 +5215,8 @@ def main() -> int:
                       "decode": decoded, "train_bert": bert,
                       "train_remat": remat, "zoo": zooed,
                       "train_adasum": adasum, "train_overlap": overlapped,
-                      "train_actquant": actq}),
+                      "train_actquant": actq, "train_3d": gpt3d,
+                      "ring_flash": ring}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

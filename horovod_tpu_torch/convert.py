@@ -26,6 +26,9 @@ transposed view.
 parameters (a nest of numpy arrays: ``emb``, ``pos`` and the ``layers``
 list; the port's ``CacheLM`` keeps the same layout) onto a device.
 
+:func:`parallel_gpt_params_from_jax` carries the JAX package's 3-D GPT
+parameters (a flat dict of arrays, layer dims stacked) onto a device.
+
 :func:`init_params` makes GPT-2 weights on the port's side from a numpy
 seed, drawn as flax initializes them (truncated-normal fan-in kernels,
 normal ``1/sqrt(D)`` embeddings, zero biases, unit LayerNorm scales, zero
@@ -348,6 +351,19 @@ def cachelm_params_from_jax(params, device=None):
     return tree_map(
         lambda a: torch.as_tensor(np.array(a, np.float32), device=device),
         params)
+
+
+def parallel_gpt_params_from_jax(np_params: Mapping[str, Any], device=None
+                                 ) -> Dict[str, torch.Tensor]:
+    """The JAX package's 3-D GPT parameters (``parallel/transformer.py``'s
+    flat dict, layer dims stacked on axis 0; anything numpy converts) as the
+    port's :mod:`.parallel.transformer` takes them: the same names and
+    shapes, fp32 tensors on ``device`` (default: this process's card).
+    :func:`.parallel.transformer.shard_params` then gives any rank its
+    shards of the same weights."""
+    device = resolve_device(device)
+    return {k: torch.as_tensor(np.array(v, np.float32), device=device)
+            for k, v in np_params.items()}
 
 
 def _contiguous(tree):

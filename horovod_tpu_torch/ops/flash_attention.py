@@ -24,6 +24,8 @@ through an fp32 scratch buffer.
 * :func:`flash_attention_bwd` -- ``(dq, dk, dv)`` from the saved
   ``q, k, v, out, lse`` and the cotangents ``g_out``, ``g_lse`` (``None``
   means zeros), in the inputs' layout and dtype.
+* :func:`combine_blocks` -- merges a partial ``(out, lse)`` into a running
+  one (the ring attention's per-hop update); plain torch, not a kernel.
 * :func:`flash_attention_reference` / :func:`flash_attention_bwd_reference`
   -- the plain PyTorch versions with the same signatures and outputs: fp32
   scores and softmax statistics, ``p`` rounded to V's dtype before the PV
@@ -54,6 +56,7 @@ from . import _build
 
 __all__ = [
     "FlashAttention",
+    "combine_blocks",
     "flash_attention",
     "flash_attention_bwd",
     "flash_attention_bwd_reference",
@@ -588,3 +591,34 @@ def flash_attention(
         n_heads=n_heads,
     )
     return out
+
+
+def combine_blocks(o_acc, lse_acc, o_i, lse_i):
+    """Merge a partial attention ``(o_i, lse_i)`` into the running
+    ``(o_acc, lse_acc)`` -- the port of the JAX package's
+    ``combine_blocks``, the per-hop update of the flash ring
+    (:mod:`..parallel.sp`). Both ``o`` are normalized outputs ``[B, S, H,
+    D]``, both ``lse`` fp32 ``[B, H, S]``; the merged output is the
+    lse-weighted convex combination, ``lse_new = logaddexp(lse_acc,
+    lse_i)``. A row that is ``-inf`` on one side takes the other side
+    whole; a row ``-inf`` on both stays ``-inf`` with output 0.
+
+    Every ``exp`` and ``log`` takes an argument guarded by its own
+    ``where``, so a row without keys passes a zero gradient, not NaN, to
+    its ``lse`` (``torch.logaddexp(-inf, -inf)`` and ``exp(-inf - -inf)``
+    have NaN gradients even in the branch a ``where`` discards)."""
+    fa, fi = torch.isfinite(lse_acc), torch.isfinite(lse_i)
+    both, any_ = fa & fi, fa | fi
+    zero = torch.zeros_like(lse_acc)
+    hi = torch.where(any_, torch.maximum(lse_acc, lse_i), zero)
+    gap = torch.where(both, torch.minimum(lse_acc, lse_i) - hi, zero)
+    lse_new = torch.where(
+        any_, hi + torch.where(both, torch.log1p(torch.exp(gap)), zero),
+        torch.full_like(lse_acc, float("-inf")))
+    ref = torch.where(any_, lse_new, zero)
+    w_acc = torch.where(fa, torch.exp(torch.where(fa, lse_acc, zero) - ref),
+                        zero)
+    w_i = torch.where(fi, torch.exp(torch.where(fi, lse_i, zero) - ref), zero)
+    wa = w_acc.transpose(1, 2)[..., None].to(o_acc.dtype)
+    wi = w_i.transpose(1, 2)[..., None].to(o_i.dtype)
+    return o_acc * wa + o_i * wi, lse_new

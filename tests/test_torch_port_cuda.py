@@ -11,7 +11,8 @@ pipeline on it (overlap on bit for bit overlap off, ZeRO-1 fused and the
 int8 wire; the bucket work and kernels 4 and 5 on a side stream, by the
 profiler's stream ids) and int8 activation storage (a boundary's kernel
 path bit for bit its plain path, a ``channels_last`` boundary bit for bit
-the NHWC plain one). Every
+the NHWC plain one); the backward pair on a flash-ring hop whose key
+block lies wholly after its query block (zeros, no NaN). Every
 test here needs an NVIDIA GPU with nvcc (the kernels have no
 CPU mode) and skips without one. Run them on the card with
 
@@ -277,6 +278,41 @@ def test_backward_ragged_offsets_and_masked_rows(gen, sq, skv, q_offset,
                               q_offset=q_offset, kv_offset=kv_offset,
                               kv_len=kv_len)
     assert torch.all(dk[:, kv_len:] == 0) and torch.all(dv[:, kv_len:] == 0)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_backward_of_a_hop_wholly_in_the_future_is_zero(gen, d):
+    """A flash-ring hop whose key block lies wholly after its query block
+    (parallel/sp.py at kv_rank > r): every row's lse is -inf and out 0, and
+    kernels 2 and 3 give zero gradients, no NaN, for nonzero cotangents of
+    both outputs; through combine_blocks beside the diagonal hop the
+    gradients are finite and the diagonal hop's alone."""
+    b, s, h = 2, 300, 3
+    q, k, v = (_rand(gen, (b, s, h, d)) for _ in range(3))
+    future = dict(causal=True, q_offset=0, kv_offset=s)
+    out, lse = fa.flash_attention_with_lse(q, k, v, **future)
+    assert torch.isneginf(lse).all() and not out.any()
+    g_out = _rand(gen, out.shape)
+    g_lse = torch.randn(lse.shape, generator=gen, device="cuda")
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, g_out, g_lse, **future)
+    torch.cuda.synchronize()
+    for x in grads:
+        assert not torch.isnan(x).any() and not x.any()
+
+    def ring_grads(with_future):
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        o, l = fa.flash_attention_with_lse(*xs, causal=True)
+        if with_future:
+            o_f, l_f = fa.flash_attention_with_lse(*xs, **future)
+            o, l = fa.combine_blocks(o.float(), l, o_f.float(), l_f)
+        ((o.float() * g_out.float()).sum() + (l * g_lse).sum()).backward()
+        return [x.grad for x in xs]
+
+    merged, alone = ring_grads(True), ring_grads(False)
+    for m, a in zip(merged, alone):
+        assert torch.isfinite(m).all()
+        scale = max(a.float().abs().max().item(), 1e-6)
+        assert (m.float() - a.float()).abs().max().item() <= 1e-2 * scale
 
 
 def _rounding_sensitive_inputs(d, causal):
