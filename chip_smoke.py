@@ -58,7 +58,10 @@ Phases (any failure exits non-zero; nothing is caught):
    sizes (GPT-2 small, world 1, default fusion threshold); max |d| of the
    update and both moments <= 1e-6 x the largest value (every operation is
    IEEE-rounded in the plain version's order; powf of the bias corrections
-   may differ from torch.pow by an ulp). Timed over all buckets with the
+   may differ from torch.pow by an ulp). The gradient guard's skip flag at
+   the same buckets: ok = 0 leaves the moments bit for bit and writes -0.0
+   updates (the plain version with the flag agrees bit for bit), ok = 1 is
+   the flagless call bit for bit; both timed beside it. Timed over all buckets with the
    plain version and torch.optim.AdamW(fused=True) on the same buffers as
    the yardstick (its decay order differs); bound 28 bytes an element.
 5. Training: GPT-2 small at full width with fp32 master weights and bf16
@@ -400,14 +403,54 @@ Phases (any failure exits non-zero; nothing is caught):
    stream, which its profiled busy time a call must match within 10%.
    Then ring_attention(use_flash=True) itself on a one-rank world (mesh
    sp = 1: one hop) equal bit for bit to flash_attention_with_lse.
-26. Output: a "kernels" JSON line (the nine TPU kernels' counterparts and
+26. [train-guard] [train]'s configuration (GPT-2 small, fp32 masters,
+   bf16 compute, 8 x 1025 tokens, ZeRO-1 fused_adamw(1e-4), one-rank
+   NCCL) under make_train_step(guard=GuardConfig(max_skips=2,
+   audit_every=0)), spike detection at its default warmup of 20 (these
+   runs are shorter: armed after 3 steps it takes this fixed batch's
+   growing gradient norm for a spike and skips one state forever; each
+   step's norm and that threshold are logged), the batch carrying
+   per-example loss weights of 1 (the floating leaf the grad.nan site
+   poisons). With
+   grad.nan:nan@step=6;n=1 armed, call 6 is skipped: the parameters, the
+   moments, both counts and state.step equal step 5's bit for bit, its
+   launches are 12/12/12 flash and one AdamW a bucket, each carrying
+   ok = 0, and the calls after it commit with the loss falling; the same on
+   the int8 wire, the EF residuals bit for bit too and 2 quantize + 2
+   dequantize launches a bucket. Then a 7-step run inside
+   hvt.elastic.run committing each clean step into an elastic TrainState
+   (ZeRO-1 state in canonical form): two NaN attempts at step 4 make the
+   next call raise HorovodInternalError, the loop restores the step-3
+   commit and finishes; its last loss and parameters against a clean
+   run's, bit for bit or within [train]'s bound with the reason. Last,
+   guarded and unguarded steps alternated (median of 20 after 3 warm-up,
+   each step between synchronizations; then blocks of 20 back to back,
+   two a side), the host syncs a step (CUDA's sync debug mode), the host
+   ms of the
+   guard's read of the previous step's counters, the screen's device ms
+   beside its byte bound, and check_gradients (with its all-reduce) by
+   events.
+27. [gspmd] GPT-2 small bf16 with parallel.gspmd.shard_params on a
+   one-rank NCCL DeviceMesh(("tp",)): one forward and backward of 8 x
+   1024 tokens through the local-heads attention (12/12/12 flash
+   launches, counts set to 0 just before), the collectives CommDebugMode
+   counts, logits and gradients against the dense module's (bit for bit,
+   or within [train]'s bound with the reason), forward + backward timed
+   beside the dense module's.
+28. [decode-chaos] [decode]'s CacheLM, fp32 KV, two workers of 4 rows, 8
+   streams of 64 tokens, clean and then with
+   serve.decode:crash@step=20;n=1: the first worker to reach round 20
+   dies, its streams requeue (n_requeued > 0, one worker left) and every
+   stream's tokens equal the clean run's (a difference only at a near-tie
+   the full recompute confirms).
+29. Output: a "kernels" JSON line (the nine TPU kernels' counterparts and
    the cast kernel; "launches" is the training run's count -- for the
    quantize pair the int8 [train-quant] run's (beside it the
    [ckpt-reshard] and int8 [decode] runs' and the KV shapes' times as
    "kv_write" / "kv_gather"), for kernel 8 and the cast kernel the fp8
    [train-fp8] run's, for kernel 7 the [serve-int8] rounds' -- the forward
    kernel's serving count beside it as "launches_serve", and the flash
-   kernels', AdamW's and (from 22.) the quantize pair's counts in 18.-25.,
+   kernels', AdamW's and (from 22.) the quantize pair's counts in 18.-27.,
    each read over its own run, as "launches_phases"; the flash rows' ring
    times at n = 2, 4 and the whole sequence as "ring_flash_*"; the quantize pair's
    times at an act-quant boundary as "boundary"), the card's name and power limit, and the last line
@@ -522,6 +565,25 @@ MARK_CYCLES = 1000
 # [train-actquant]: 3 steps a side; bench_act_quant's MLP tower (width,
 # depth, rows, classes).
 ACTQ_STEPS, ACTQ_LR, ACTQ_MLP = 3, 1e-4, (512, 8, 2048, 10)
+# [train-guard]: [train]'s configuration under make_train_step(guard=...):
+# the guard's knobs; step 6 poisoned (grad.nan) among 10; a NaN storm at
+# step 4 (two attempts) in a 7-step elastic run; 20 timed steps a side
+# after 3 warm-up, guarded and unguarded alternated. Spike detection keeps
+# its default warmup (20 committed steps), so these runs screen NaN only:
+# on this fixed batch the gradient norm grows from ~1.2 to ~2.2 in six
+# steps, and armed after 3 steps the detector (mean + 6 max(std, 0.1 mean)
+# over an EW baseline that skipped steps never feed) takes that growth for
+# a spike and skips the same state forever (the skip run logs each step's
+# norm against that threshold).
+GUARD_CFG = dict(max_skips=2, audit_every=0)
+GUARD_EARLY_WARMUP = 3
+GUARD_STEPS, GUARD_NAN_AT = 10, 6
+GUARD_STORM_AT, GUARD_RUN_STEPS = 4, 7
+GUARD_WARMUP, GUARD_TIMED = 3, 20
+# [gspmd]: GPT-2 small, bf16, one forward and backward at [train]'s shape.
+# [decode-chaos]: [decode]'s model, 8 streams of 64 tokens over two workers
+# of 4 rows; the first worker to reach this round is killed.
+DECODE_CHAOS_STREAMS, DECODE_CHAOS_ROUND = 8, 20
 
 
 def log(msg: str) -> None:
@@ -897,7 +959,45 @@ def adamw_case(fadam, gen, sizes):
         f"{rec['plain_ms']:.4f} ms, torch.optim.AdamW(fused=True) "
         f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
         f"({rec['bound_by']})")
+    rec["skip_flag"] = adamw_skip_flag(fadam, bufs, spec, count)
     return rec
+
+
+def adamw_skip_flag(fadam, bufs, spec, count):
+    """Kernel 6's skip flag (the gradient guard's) at the [train] buckets:
+    with ok = 0 every update element is -0.0 and the moments stay bit for
+    bit, in place, and the plain version with the flag agrees bit for bit;
+    with ok = 1 the call is bit for bit the flagless one. Both timed beside
+    the flagless call."""
+    flags = {v: torch.tensor(v, dtype=torch.int32, device="cuda")
+             for v in (0, 1)}
+    noop, same = True, True
+    for p, m, v, g in bufs:
+        mk, vk = m.clone(), v.clone()
+        u = fadam.fused_adamw_update(p, mk, vk, g, count, spec, flags[0])
+        ref = fadam.fused_adamw_update_reference(p, m, v, g, count, spec,
+                                                 flags[0])
+        noop = (noop and torch.equal(mk, m) and torch.equal(vk, v)
+                and bool((u == 0).all()) and bool(torch.signbit(u).all())
+                and all(torch.equal(a, r) for a, r in zip((u, mk, vk), ref)))
+        mk, vk, mf, vf = m.clone(), v.clone(), m.clone(), v.clone()
+        u1 = fadam.fused_adamw_update(p, mk, vk, g, count, spec, flags[1])
+        uf = fadam.fused_adamw_update(p, mf, vf, g, count, spec)
+        same = (same and torch.equal(u1, uf) and torch.equal(mk, mf)
+                and torch.equal(vk, vf))
+    times = {f"ms_ok{k}": time_ms(lambda k=k: [
+        fadam.fused_adamw_update(p, m, v, g, count, spec, flags[k])
+        for p, m, v, g in bufs]) for k in (0, 1)}
+    times["ms_flagless"] = time_ms(lambda: [
+        fadam.fused_adamw_update(p, m, v, g, count, spec)
+        for p, m, v, g in bufs])
+    log(f"[adamw] skip flag over {len(bufs)} buckets: ok=0 a no-op bit for "
+        f"bit (-0.0 updates, moments kept) {noop}; ok=1 bit for bit the "
+        f"flagless call {same}; " + ", ".join(
+            f"{k} {t:.4f}" for k, t in times.items()))
+    if not (noop and same):
+        raise AssertionError("[adamw] the skip flag changed what it must not")
+    return {"ok0_noop_bitwise": noop, "ok1_bitwise_flagless": same, **times}
 
 
 def quant_bucket_sizes(hvt, cfg):
@@ -4826,6 +4926,508 @@ def ring_flash(hvt, kernels):
     return rec
 
 
+def guard_loss(model):
+    """[train]'s next-token cross entropy with a per-example weight (ones):
+    the batch's floating leaf, the one the grad.nan site poisons (token ids
+    alone have none)."""
+    import torch.nn.functional as F
+
+    def loss_fn(params, batch):
+        tokens, weight = batch
+        logits = torch.func.functional_call(model, params, (tokens[:, :-1],))
+        ce = F.cross_entropy(logits.flatten(0, 1), tokens[:, 1:].flatten(),
+                             reduction="none")
+        return (ce.view(tokens.shape[0], -1).mean(-1) * weight).mean()
+
+    return loss_fn
+
+
+def guard_build(hvt, cfg, sd0, guard, quant=False):
+    """GPT-2 small from ``sd0`` through [train]'s ZeRO-1 fused step (on the
+    int8 wire with ``quant``), guarded by ``guard``."""
+    from horovod_tpu_torch.parallel import dp
+
+    model = hvt.GPT2LMModel(cfg)
+    model.load_state_dict(sd0)
+    kw = dict(compression=hvt.Compression.int8) if quant else {}
+    step, opt = hvt.make_train_step(
+        guard_loss(model), hvt.fused_adamw(TRAIN_LR), sharded=True,
+        fused_update=True, guard=guard, **kw)
+    return model, step, dp.init_state(model, opt)
+
+
+def guard_snapshot(state):
+    """Clones of what a skipped step must leave: the parameters, the ZeRO-1
+    moments, both counts, the step and the EF residuals."""
+    o = state.opt_state
+    t = [p.detach().clone() for p in state.params.values()]
+    t += [b.clone() for b in o.inner.mu.buffers + o.inner.nu.buffers]
+    t += [o.inner.count.clone(), o.count.clone(), state.step.clone()]
+    if o.residual is not None:
+        t += [b.clone() for b in o.residual.buffers]
+    return t
+
+
+def guard_skip_run(hvt, kernels, cfg, sd0, batch, quant):
+    """Step GUARD_NAN_AT's batch poisoned by the armed grad.nan site (n=1,
+    so the retry is clean): the step is skipped bit for bit with every
+    kernel-6 launch carrying ok = 0, and the steps after it commit."""
+    from horovod_tpu_torch import chaos
+    from horovod_tpu_torch import optimizer as topt
+    from horovod_tpu_torch.guard import GuardConfig
+
+    label = "int8 wire" if quant else "ZeRO-1 fused"
+    model, step, state = guard_build(hvt, cfg, sd0,
+                                     GuardConfig(**GUARD_CFG), quant)
+    flags = []
+    orig = topt.fused_adamw_update
+
+    def spy(p, m, v, g, count, spec, ok=None):
+        flags.append(ok)
+        return orig(p, m, v, g, count, spec, ok)
+
+    losses, norms = [], []
+
+    def note(state):
+        # The guard's host-safe norm, and the spike threshold a detector
+        # armed after GUARD_EARLY_WARMUP steps would hold it to.
+        g = state.guard
+        mean, std = float(g.mean), float(g.var) ** 0.5
+        norms.append({"step": int(state.step), "norm": float(g.last_norm),
+                      "mean": mean, "std": std,
+                      "threshold": mean + 6.0 * max(std, 0.1 * mean)})
+
+    chaos.plan(f"grad.nan:nan@step={GUARD_NAN_AT};n=1", seed=0)
+    try:
+        for _ in range(GUARD_NAN_AT - 1):
+            state, loss = step(state, batch)
+            losses.append(float(loss))
+            note(state)
+        before = guard_snapshot(state)
+        reset_counts(*kernels)
+        topt.fused_adamw_update = spy
+        try:
+            state, skipped_loss = step(state, batch)
+        finally:
+            topt.fused_adamw_update = orig
+        torch.cuda.synchronize()
+        counts = read_counts(*kernels)
+        bitwise = all(torch.equal(a, b)
+                      for a, b in zip(before, guard_snapshot(state)))
+        del before
+        flag_values = [None if f is None else int(f) for f in flags]
+        skipped, at = int(state.guard.skipped), int(state.step)
+        for _ in range(GUARD_STEPS - GUARD_NAN_AT):
+            state, loss = step(state, batch)
+            losses.append(float(loss))
+            note(state)
+    finally:
+        chaos.clear()
+    # Where a detector armed after GUARD_EARLY_WARMUP committed steps would
+    # have skipped: a norm above the threshold of the state before it.
+    early = [b["step"] for a, b in zip(norms, norms[1:])
+             if a["step"] >= GUARD_EARLY_WARMUP and b["norm"] > a["threshold"]]
+    nb = n_buckets(state)
+    want = {"flash_fwd": cfg.n_layers, "flash_bwd_dkdv": cfg.n_layers,
+            "flash_bwd_dq": cfg.n_layers, "fused_adamw": nb}
+    if quant:
+        want.update(quantize_blockwise=2 * nb, dequantize_blockwise=2 * nb)
+    check_counts("train-guard", counts, want, 1)
+    rec = {"bitwise_skip": bitwise, "kernel6_flags": flag_values,
+           "skipped_loss": float(skipped_loss), "losses": losses,
+           "step_after_skip": at, "final_step": int(state.step),
+           "guard": {f: float(getattr(state.guard, f))
+                     for f in state.guard._fields},
+           "norms": norms, "early_warmup_spikes_at": early,
+           "runtime": {k: getattr(step.guard_runtime, k) for k in (
+               "consecutive", "last_norm", "skips", "escalations")},
+           "launches": counts}
+    log(f"[train-guard] {label}: call {GUARD_NAN_AT} poisoned (loss "
+        f"{float(skipped_loss)}): skipped bit for bit (params, mu, nu, "
+        f"counts, step{', EF residuals' if quant else ''}) {bitwise}; "
+        f"kernel-6 flags {flag_values}; state.step {at}; launches {counts}; "
+        f"losses {[round(x, 4) for x in losses]}; guard {rec['guard']}; "
+        f"runtime {rec['runtime']}; "
+        f"norm / threshold by step "
+        f"{[(b['step'], round(b['norm'], 4), round(b['threshold'], 4)) for b in norms]}"
+        f"; a detector armed after {GUARD_EARLY_WARMUP} steps would skip "
+        f"the steps after {early}")
+    if not (bitwise and flag_values == [0] * nb and skipped == 1
+            and at == GUARD_NAN_AT - 1
+            and int(state.step) == GUARD_STEPS - 1):
+        raise AssertionError(f"[train-guard] {label}: the poisoned step was "
+                             f"not skipped cleanly: {rec}")
+    if not (np.isnan(float(skipped_loss)) and all(np.isfinite(losses))
+            and losses[-1] < losses[GUARD_NAN_AT - 2] < losses[0]):
+        raise AssertionError(f"[train-guard] {label}: losses {losses}")
+    del model, step, state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def guard_elastic_run(hvt, cfg, sd0, batch, storm):
+    """GUARD_RUN_STEPS steps inside hvt.elastic.run, committing each clean
+    step; with ``storm`` the grad.nan site poisons both attempts at step
+    GUARD_STORM_AT, so the third call raises and the loop restores."""
+    from horovod_tpu_torch import chaos
+    from horovod_tpu_torch.guard import GuardConfig
+    from horovod_tpu_torch.parallel import dp
+
+    model, step, state = guard_build(hvt, cfg, sd0, GuardConfig(**GUARD_CFG))
+    est = hvt.elastic.TrainState(params=state.params,
+                                 opt_state=state.opt_state, step=state.step,
+                                 guard=state.guard)
+    attempts, losses, commit_ms = [], [], []
+
+    @hvt.elastic.run
+    def train(st):
+        while int(st.step) < GUARD_RUN_STEPS:
+            cur = dp.TrainState(st.params, st.opt_state, st.step, None,
+                                st.guard)
+            new, loss = step(cur, batch)
+            attempts.append(int(new.step))
+            losses.append(float(loss))
+            st.opt_state, st.step, st.guard = (new.opt_state, new.step,
+                                               new.guard)
+            if int(new.guard.consecutive) == 0:
+                t0 = time.perf_counter()
+                st.commit()
+                commit_ms.append((time.perf_counter() - t0) * 1e3)
+        return st
+
+    if storm:
+        chaos.plan(f"grad.nan:nan@step={GUARD_STORM_AT};n=2", seed=0)
+    try:
+        train(est)
+    finally:
+        chaos.clear()
+    out = {"attempts": attempts, "losses": losses, "commit_ms": commit_ms,
+           "escalations": step.guard_runtime.escalations,
+           "params": {k: v.detach().clone() for k, v in est.params.items()}}
+    del model, step, state, est
+    torch.cuda.empty_cache()
+    return out
+
+
+def guard_timing(hvt, cfg, sd0, batch):
+    """Guarded vs unguarded [train] steps, alternated in one process (which
+    goes first swaps every round); the host syncs a step (CUDA's sync debug
+    mode, one step each), the host ms the guard's read of the previous
+    step's counters takes, and the screen's device ms."""
+    import warnings
+
+    from horovod_tpu_torch.guard import GuardConfig, check_gradients
+    from horovod_tpu_torch.guard import fresh_state
+    from horovod_tpu_torch.ops.guards import finite_and_sumsq
+    from horovod_tpu_torch.parallel import dp
+
+    runs = {"guarded": guard_build(hvt, cfg, sd0, GuardConfig(**GUARD_CFG)),
+            "unguarded": guard_build(hvt, cfg, sd0, False)}
+    states = {k: r[2] for k, r in runs.items()}
+    rt = runs["guarded"][1].guard_runtime
+    drain = []
+    escalate = rt._escalate_and_record
+
+    def timed_escalate(state):
+        t0 = time.perf_counter()
+        escalate(state)
+        drain.append((time.perf_counter() - t0) * 1e3)
+
+    rt._escalate_and_record = timed_escalate
+    times = {k: [] for k in runs}
+    for i in range(GUARD_WARMUP + GUARD_TIMED):
+        order = list(runs) if i % 2 == 0 else list(runs)[::-1]
+        for k in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states[k], _ = runs[k][1](states[k], batch)
+            torch.cuda.synchronize()
+            if i >= GUARD_WARMUP:
+                times[k].append((time.perf_counter() - t0) * 1e3)
+    synced_drain = drain[GUARD_WARMUP:]
+    drain.clear()
+    # Back to back, one synchronization a block of GUARD_TIMED steps: here
+    # the guard's read of the previous step's counters stops the host from
+    # enqueueing ahead (blocks alternated, two a side).
+    b2b = {k: [] for k in runs}
+    for i in range(4):
+        k = list(runs)[i % 2]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GUARD_TIMED):
+            states[k], _ = runs[k][1](states[k], batch)
+        torch.cuda.synchronize()
+        b2b[k].append((time.perf_counter() - t0) * 1e3 / GUARD_TIMED)
+    b2b_drain = list(drain)
+    syncs, sync_sites = {}, {}
+    for k in runs:
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                states[k], _ = runs[k][1](states[k], batch)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        # The mode's own notice ("... is a prototype feature ...") is not
+        # a sync.
+        hits = [w for w in caught if "synchroniz" in str(w.message)
+                and "prototype" not in str(w.message)]
+        syncs[k] = len(hits)
+        sync_sites[k] = [f"{Path(w.filename).name}:{w.lineno}" for w in hits]
+    _, _, grads = dp.accumulate_gradients(
+        guard_loss(runs["unguarded"][0]), states["unguarded"].params, batch,
+        1)
+    screen_ms = device_ms(lambda: finite_and_sumsq(grads))
+    gcfg, gs = GuardConfig(**GUARD_CFG), fresh_state("cuda")
+    # With its NCCL all-reduce the call cannot queue behind a held stream
+    # (the collective's launch waits on it): timed by events.
+    check_ms = time_ms(lambda: check_gradients(grads, gs, gcfg), samples=9,
+                       per_sample=5)
+    nbytes = sum(g.numel() * g.element_size() for g in grads.values())
+    rec = {k: {"step_ms": float(np.median(t)), "step_ms_all": t,
+               "back_to_back_ms": b2b[k]}
+           for k, t in times.items()}
+    rec.update(host_syncs_a_step=syncs, host_sync_sites=sync_sites,
+               drain_ms_synced=float(np.median(synced_drain)),
+               drain_ms_back_to_back=float(np.median(b2b_drain)),
+               screen_device_ms=screen_ms, check_ms=check_ms,
+               screen_bytes=nbytes,
+               screen_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    log(f"[train-guard] step ms, median of {GUARD_TIMED} after "
+        f"{GUARD_WARMUP} warm-up, alternated: guarded "
+        f"{rec['guarded']['step_ms']:.3f}, unguarded "
+        f"{rec['unguarded']['step_ms']:.3f} (all: guarded "
+        f"{[round(t, 2) for t in times['guarded']]}, unguarded "
+        f"{[round(t, 2) for t in times['unguarded']]}); back to back "
+        f"(ms a step over blocks of {GUARD_TIMED}): {b2b}; host syncs a step "
+        f"{syncs} at {sync_sites}; the guard's read of the previous "
+        f"step's counters (host ms, median) {rec['drain_ms_synced']:.3f} "
+        f"after a synchronized step, {rec['drain_ms_back_to_back']:.3f} "
+        f"back to back; screen "
+        f"{screen_ms:.4f} device ms over {nbytes / 1e6:.1f} MB (bound "
+        f"{rec['screen_bound_ms']:.4f} ms), check_gradients with its "
+        f"all-reduce {check_ms:.4f} ms by events")
+    del runs, states, grads
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_guard(hvt, kernels):
+    """[train-guard]: [train]'s GPT-2 small ZeRO-1 fused step under the
+    gradient guard: a poisoned step skipped bit for bit (also on the int8
+    wire), a NaN storm escalated and recovered by hvt.elastic.run, and the
+    guard's cost against the unguarded step."""
+    t_phase = time.perf_counter()
+    hvt.init(backend="nccl")
+    cfg = hvt.GPT2Config.small(param_dtype=torch.float32)
+    sd0 = hvt.convert.init_params(cfg, seed=0)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, cfg.max_len + 1),
+        dtype=np.int64)).cuda()
+    batch = (tokens, torch.ones(TRAIN_BATCH, device="cuda"))
+    log(f"[train-guard] GPT-2 small, fp32 masters, bf16 compute, "
+        f"{TRAIN_BATCH} x {cfg.max_len + 1} tokens (rng 3, [train]'s batch) "
+        f"with per-example weights of 1, ZeRO-1 fused_adamw({TRAIN_LR}), "
+        f"one-rank NCCL, GuardConfig({GUARD_CFG})")
+    rec = {"config": {"guard": GUARD_CFG, "batch": TRAIN_BATCH,
+                      "seq": cfg.max_len}}
+    rec["skip"] = guard_skip_run(hvt, kernels, cfg, sd0, batch, False)
+    rec["skip_int8"] = guard_skip_run(hvt, kernels, cfg, sd0, batch, True)
+    clean = guard_elastic_run(hvt, cfg, sd0, batch, storm=False)
+    storm = guard_elastic_run(hvt, cfg, sd0, batch, storm=True)
+    params_bitwise = all(torch.equal(clean["params"][k], storm["params"][k])
+                         for k in clean["params"])
+    p_rel = grads_rel_l2(storm["params"], clean["params"])
+    loss_bitwise = storm["losses"][-1] == clean["losses"][-1]
+    rec["escalation"] = {
+        "attempts": storm["attempts"], "clean_attempts": clean["attempts"],
+        "escalations": storm["escalations"], "losses": storm["losses"],
+        "clean_losses": clean["losses"], "last_loss_bitwise": loss_bitwise,
+        "params_bitwise": params_bitwise, "params_rel_l2": p_rel,
+        "commit_ms": storm["commit_ms"]}
+    del clean, storm
+    log(f"[train-guard] escalation: two NaN attempts at step "
+        f"{GUARD_STORM_AT} under max_skips 2 -> HorovodInternalError "
+        f"({rec['escalation']['escalations']} escalation), hvt.elastic.run "
+        f"restored the step-{GUARD_STORM_AT - 1} commit and finished: "
+        f"attempts {rec['escalation']['attempts']}; last loss "
+        f"{rec['escalation']['losses'][-1]!r} vs the clean run's "
+        f"{rec['escalation']['clean_losses'][-1]!r} (bit for bit "
+        f"{loss_bitwise}); final parameters bit for bit {params_bitwise} "
+        f"(relative L2 {p_rel:.3e}); commit ms "
+        f"{[round(t, 1) for t in rec['escalation']['commit_ms']]}")
+    e = rec["escalation"]
+    if e["escalations"] != 1 or e["attempts"].count(GUARD_STORM_AT - 1) != 3:
+        raise AssertionError(f"[train-guard] escalation: {e}")
+    if not (loss_bitwise and params_bitwise):
+        log("[train-guard] the restored run is not bit for bit the clean "
+            "run: a step on the card is not bitwise repeatable here; held "
+            f"to [train]'s bound (relative L2 <= {STEP_GRAD_TOL})")
+        if not p_rel <= STEP_GRAD_TOL:
+            raise AssertionError(f"[train-guard] escalation: {e}")
+    rec["timing"] = guard_timing(hvt, cfg, sd0, batch)
+    hvt.shutdown()
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[train-guard] phase wall {rec['phase_s']:.1f} s")
+    return rec
+
+
+def gspmd_phase(hvt, kernels):
+    """[gspmd]: GPT-2 small with its parameters placed as DTensors by
+    parallel.gspmd.shard_params on a one-rank NCCL DeviceMesh(("tp",)):
+    one bf16 forward and backward through kernels 1-3 on the local heads,
+    held against the dense module's."""
+    from horovod_tpu_torch.parallel import gspmd
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    t_phase = time.perf_counter()
+    hvt.init(backend="nccl")
+    cfg = hvt.GPT2Config.small()
+    sd0 = hvt.convert.init_params(cfg, seed=0)
+    dense, sharded = hvt.GPT2LMModel(cfg), hvt.GPT2LMModel(cfg)
+    dense.load_state_dict(sd0)
+    sharded.load_state_dict(sd0)
+    mesh = DeviceMesh("cuda", [0], mesh_dim_names=("tp",))
+    gspmd.shard_params(sharded, mesh)
+    placements = {n: str(p.placements) for n, p in
+                  sharded.named_parameters() if ".blocks.0." in n}
+    tokens = torch.from_numpy(np.random.default_rng(15).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, cfg.max_len),
+        dtype=np.int64)).cuda()
+    reset_counts(*kernels)
+    with CommDebugMode() as fwd:
+        logits = sharded(tokens).full_tensor()
+    with CommDebugMode() as bwd:
+        logits.float().logsumexp(-1).mean().backward()
+    torch.cuda.synchronize()
+    counts = read_counts(*kernels)
+    check_counts("gspmd", counts, {"flash_fwd": cfg.n_layers,
+                                   "flash_bwd_dkdv": cfg.n_layers,
+                                   "flash_bwd_dq": cfg.n_layers,
+                                   "fused_adamw": 0}, 1)
+    want = dense(tokens)
+    want.float().logsumexp(-1).mean().backward()
+    torch.cuda.synchronize()
+    logits, want = logits.detach(), want.detach()
+    logits_bitwise = torch.equal(logits, want)
+    logit_err = float((logits.float() - want.float()).abs().max())
+    ref = {n: p.grad for n, p in dense.named_parameters()}
+    got = {n: p.grad.full_tensor().reshape(ref[n].shape)
+           for n, p in sharded.named_parameters()}
+    grads_bitwise = all(torch.equal(got[n], ref[n]) for n in ref)
+    rel = grads_rel_l2(got, ref)
+
+    def fb(model):
+        out = model(tokens)
+        out = out.full_tensor() if model is sharded else out
+        out.float().logsumexp(-1).mean().backward()
+
+    times = {k: time_ms(lambda m=m: fb(m), samples=5, per_sample=2)
+             for k, m in (("dtensor", sharded), ("dense", dense))}
+    rec = {"launches": counts, "placements_block0": placements,
+           "comm_forward": {str(k): v for k, v in
+                            fwd.get_comm_counts().items()},
+           "comm_backward": {str(k): v for k, v in
+                             bwd.get_comm_counts().items()},
+           "logits_bitwise": logits_bitwise, "max_abs_logit_diff": logit_err,
+           "grads_bitwise": grads_bitwise, "grads_rel_l2": rel,
+           "fwd_bwd_ms": times}
+    log(f"[gspmd] GPT-2 small bf16, {TRAIN_BATCH} x {cfg.max_len}, "
+        f"parameters as DTensors on a one-rank DeviceMesh(('tp',)) "
+        f"(block 0: {placements}); launches {counts}; CommDebugMode "
+        f"forward {rec['comm_forward']}, backward {rec['comm_backward']}; "
+        f"logits vs the dense module bit for bit {logits_bitwise} (max |d| "
+        f"{logit_err:.3e}); gradients bit for bit {grads_bitwise} "
+        f"(relative L2 {rel:.3e}, bound {STEP_GRAD_TOL}); forward + "
+        f"backward ms {times}")
+    if not (logits_bitwise and grads_bitwise):
+        log("[gspmd] not bit for bit: DTensor dispatches the dense "
+            "products itself and may order their work otherwise; held to "
+            "[train]'s bound")
+    if not (rel <= STEP_GRAD_TOL
+            and logit_err <= 1e-2 * float(want.float().abs().max())):
+        raise AssertionError(f"[gspmd] the sharded module disagrees: {rec}")
+    hvt.shutdown()
+    del dense, sharded, logits, want, got, ref
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
+def decode_chaos(hvt):
+    """[decode-chaos]: [decode]'s CacheLM at GPT-2-small width, fp32 KV,
+    two decode workers of 4 rows, 8 streams of 64 tokens, clean and then
+    with serve.decode:crash@step=R;n=1: the first worker to reach round R
+    dies, its streams requeue and finish on the survivor with the clean
+    run's tokens."""
+    from horovod_tpu_torch import chaos
+    from horovod_tpu_torch.serve import CacheLM, CacheLMConfig, DecodeEngine
+
+    t_phase = time.perf_counter()
+    cfg = CacheLMConfig(**DECODE_CFG)
+    model = CacheLM(cfg, block_size=DECODE_BLOCK)
+    params = model.init_params(0)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, cfg.vocab, size=rng.randint(
+        DECODE_PROMPT[0], DECODE_PROMPT[1] + 1)).tolist()
+        for _ in range(DECODE_CHAOS_STREAMS)]
+    rows = DECODE_CHAOS_STREAMS // 2
+    spec = f"serve.decode:crash@step={DECODE_CHAOS_ROUND};n=1"
+
+    def run(armed, prompts=prompts):
+        fired0 = chaos.fired.get("serve.decode", 0)
+        if armed:
+            chaos.plan(spec, seed=0)
+        eng = DecodeEngine(model, params, workers=2, rows=rows,
+                           kv_blocks=DECODE_KV_BLOCKS // 2,
+                           kv_block_size=DECODE_BLOCK,
+                           max_seq_len=DECODE_MAX_SEQ, device="cuda").start()
+        try:
+            t0 = time.perf_counter()
+            outs = [f.result(timeout=600.0) for f in
+                    [eng.submit(p, DECODE_NEW) for p in prompts]]
+            wall = time.perf_counter() - t0
+            res = {"requeued": eng.n_requeued, "workers_left": eng.n_workers,
+                   "wall_s": wall,
+                   "fired": chaos.fired.get("serve.decode", 0) - fired0}
+        finally:
+            eng.stop()
+            chaos.clear()
+        return res, outs
+
+    run(False, prompts[:2])  # off the clock: shapes met once
+    clean, clean_outs = run(False)
+    hit, outs = run(True)
+    equal = [list(a) == list(b) for a, b in zip(outs, clean_outs)]
+    near_ties = []
+    if not all(equal):
+        with torch.inference_mode():
+            near_ties = recompute_check(
+                model, params, [p for p, e in zip(prompts, equal) if not e],
+                [o for o, e in zip(outs, equal) if not e])
+    rec = {"config": {"streams": DECODE_CHAOS_STREAMS, "new": DECODE_NEW,
+                      "workers": 2, "rows": rows, "spec": spec},
+           "clean": clean, "chaos": hit, "streams_equal": sum(equal),
+           "near_ties": near_ties}
+    log(f"[decode-chaos] {spec}: every stream answered "
+        f"({sum(len(o) for o in outs)} tokens), requeued {hit['requeued']}, "
+        f"workers left {hit['workers_left']}, fired {hit['fired']}; streams "
+        f"equal to the clean run's {sum(equal)}/{len(equal)} (near-ties "
+        f"{near_ties}); wall {hit['wall_s']:.2f} s vs clean "
+        f"{clean['wall_s']:.2f} s")
+    if not (hit["requeued"] > 0 and hit["workers_left"] == 1
+            and hit["fired"] == 1
+            and all(len(o) == DECODE_NEW for o in outs)):
+        raise AssertionError(f"[decode-chaos] {rec}")
+    del params
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4949,6 +5551,9 @@ def main() -> int:
     actq = train_actquant(hvt, (fa, fadam, tq), gen)
     gpt3d = train_3d(hvt, (fa, fadam, tq))
     ring = ring_flash(hvt, (fa, fadam, tq))
+    guarded = train_guard(hvt, (fa, fadam, tq))
+    gsp = gspmd_phase(hvt, (fa, fadam, tq))
+    dchaos = decode_chaos(hvt)
     # [train-remat] trains GPT-2 small, [train]'s layout (held in adam).
     adam_phases = adamw_phase_checks(fadam, gen, {
         "train_bert": bert["bucket_sizes"],
@@ -4972,7 +5577,11 @@ def main() -> int:
                         for side, r in actq[m].items()},
                     "launches_train_3d": gpt3d["launches"],
                     "launches_ring_flash": {
-                        k: r["launches"] for k, r in ring["runs"].items()}}
+                        k: r["launches"] for k, r in ring["runs"].items()},
+                    "launches_train_guard": {
+                        "skip_step": guarded["skip"]["launches"],
+                        "skip_step_int8": guarded["skip_int8"]["launches"]},
+                    "launches_gspmd": gsp["launches"]}
 
     src = "horovod_tpu_torch/csrc/"
     ref = "horovod_tpu/ops/pallas_kernels.py:"
@@ -4996,6 +5605,9 @@ def main() -> int:
             "train_3d": new_launches["launches_train_3d"][name],
             "ring_flash": {k: c[name] for k, c in
                            new_launches["launches_ring_flash"].items()},
+            "train_guard": {k: c[name] for k, c in
+                            new_launches["launches_train_guard"].items()},
+            "gspmd": new_launches["launches_gspmd"][name],
         }
 
     kernels = [{
@@ -5077,6 +5689,7 @@ def main() -> int:
         "max_rel_err": max([adam["rel_err"]] + [
             r["max_rel_err"] for r in adam_phases.values()]),
         "bitwise": adam["bitwise"],
+        "skip_flag": adam["skip_flag"],
         "phases_checked": adam_phases,
         "ms": adam["ms"],
         "plain_ms": adam["plain_ms"],
@@ -5216,7 +5829,8 @@ def main() -> int:
                       "train_remat": remat, "zoo": zooed,
                       "train_adasum": adasum, "train_overlap": overlapped,
                       "train_actquant": actq, "train_3d": gpt3d,
-                      "ring_flash": ring}),
+                      "ring_flash": ring, "train_guard": guarded,
+                      "gspmd": gsp, "decode_chaos": dchaos}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

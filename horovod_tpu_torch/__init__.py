@@ -30,9 +30,16 @@ flash-attention forward and backward, the fused AdamW update, the blockwise
 quantize and dequantize, the fp8 matmul, the int8-weight matmul), built with
 nvcc at first use. Entry points run on the card unless
 the caller passes ``device="cpu"``; without CUDA the default raises.
+
+Its fault planes: ``make_train_step(guard=True)`` skips a step whose
+gradients are poisoned or spike (:mod:`.guard`, with the consistency
+audit), :mod:`.chaos` injects seeded faults at named sites, and
+:mod:`.elastic` restores the last commit after a recoverable error.
+Parameters also take DTensor placements over a device mesh
+(:mod:`.parallel.gspmd`).
 """
 
-from . import convert  # noqa: F401
+from . import chaos, convert, elastic, guard  # noqa: F401
 from .checkpoint import (  # noqa: F401
     CheckpointWatcher,
     hot_swap_restore,
@@ -58,7 +65,9 @@ from .context import (  # noqa: F401
 )
 from .exceptions import (  # noqa: F401
     CheckpointCorruptError,
+    HorovodInternalError,
     HorovodTpuError,
+    HostsUpdatedInterrupt,
     NotInitializedError,
 )
 from .data import (  # noqa: F401

@@ -227,6 +227,19 @@ def _rebuild(node: Any, values: list) -> Any:
     return type(node)(*values)  # FlatBuckets
 
 
+def map_tensors(fn, state: Any) -> Any:
+    """``fn`` on every tensor of ``state`` (the nests this module walks:
+    dicts, dataclasses, NamedTuples, lists, tuples, the fused and canonical
+    optimizer buffers), rebuilt in the state's own types; other leaves pass
+    through."""
+    kids = _children(state)
+    if kids is not None:
+        return _rebuild(state, [map_tensors(fn, v) for _, v in kids])
+    if isinstance(state, torch.Tensor):
+        return fn(state)
+    return state
+
+
 def _join(prefix: str, key) -> str:
     return f"{prefix}/{key}" if prefix else str(key)
 
@@ -362,6 +375,35 @@ def _write_tree_with_retry(tmp: str, state: Any) -> None:
     )
 
 
+def _apply_ckpt_fault(tmp: str, fault) -> None:
+    """Damage one written file in ``tmp`` (the chaos ``ckpt.write`` site):
+    ``corrupt`` flips a 64-byte span in its middle (bit-rot), ``truncate``
+    cuts it in half (a torn write). The victim is picked from the fault
+    rule's seeded stream among the larger half of the files, so a failing
+    run replays exactly."""
+    candidates = [
+        (rel, meta["size"])
+        for rel, meta in sorted(_manifest_entries(tmp).items())
+        if meta["size"] > 0
+    ]
+    if not candidates:
+        return
+    candidates.sort(key=lambda kv: kv[1], reverse=True)
+    top = [rel for rel, _ in candidates[: max(1, len(candidates) // 2)]]
+    victim = os.path.join(tmp, fault.rng.choice(top))
+    size = os.path.getsize(victim)
+    if fault.kind == "truncate":
+        with open(victim, "r+b") as f:
+            f.truncate(size // 2)
+    else:
+        with open(victim, "r+b") as f:
+            f.seek(max(0, size // 2 - 32))
+            span = f.read(64)
+            f.seek(max(0, size // 2 - 32))
+            f.write(bytes(b ^ 0xFF for b in span))
+    log.warning("chaos: %s checkpoint file %s", fault.kind, victim)
+
+
 def save_checkpoint(directory: str, state: Any, step: int,
                     keep: int = 3, force: bool = False) -> Optional[str]:
     """Write ``state`` under ``directory/step_<step>``.
@@ -380,6 +422,15 @@ def save_checkpoint(directory: str, state: Any, step: int,
     tmp = tempfile.mkdtemp(prefix=f"step_{step}.tmp", dir=directory)
     try:
         _write_tree_with_retry(tmp, state)
+        from . import chaos as _chaos
+
+        if _chaos.enabled():
+            # The ckpt.write site: bit-rot or truncate the written tree
+            # AFTER the manifest, so the damage is what restore-time
+            # verification must catch.
+            fault = _chaos.act("ckpt.write", step=step)
+            if fault is not None and fault.kind in ("corrupt", "truncate"):
+                _apply_ckpt_fault(tmp, fault)
         if os.path.exists(final):
             shutil.rmtree(final)
         os.rename(tmp, final)

@@ -15,6 +15,13 @@
 // TPU kernel keeps it a device scalar. m and v may be updated in place
 // (m_out == m, v_out == v): each element is read and written by one thread.
 //
+// The gradient guard's skip flag: an optional device int32 ok, read like
+// count. Where *ok == 0 the step is skipped: every update element is -0.0f
+// (the additive identity for every bit pattern, so p + update leaves p bit
+// for bit, -0.0 included) and m_out, v_out equal m, v (nothing is written
+// when they are m and v). Without the flag, or with *ok == 1, the update
+// path computes what it computed before the flag existed, bit for bit.
+//
 // Every operation is IEEE-rounded in the order the plain PyTorch version
 // (ops/fused_adamw.py) rounds it: the products and sums go through the
 // __fmul_rn / __fadd_rn / __fsub_rn intrinsics, which nvcc never contracts
@@ -123,12 +130,31 @@ template <typename TP, typename TM>
 __global__ void __launch_bounds__(kThreads) fused_adamw_kernel(
     const TP* __restrict__ p, const TM* m, const TM* v, const TP* __restrict__ g,
     TP* __restrict__ u, TM* m_out, TM* v_out, const int* __restrict__ count,
-    long long n, AdamArgs a, int vec) {
+    const int* __restrict__ ok, long long n, AdamArgs a, int vec) {
+  const long long groups = (n + 3) / 4;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  if (ok != nullptr && *ok == 0) {
+    const float neg_zero[4] = {-0.f, -0.f, -0.f, -0.f};
+    const bool copy_m = m_out != m, copy_v = v_out != v;
+    for (long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         q < groups; q += stride) {
+      const long long i = q * 4;
+      const long long end = i + 4 <= n ? i + 4 : n;
+      if (end == i + 4) {
+        store4(u, i, vec & 16, neg_zero);
+      } else {
+        for (long long e = i; e < end; ++e) from_f(u[e], -0.f);
+      }
+      for (long long e = i; e < end; ++e) {
+        if (copy_m) m_out[e] = m[e];
+        if (copy_v) v_out[e] = v[e];
+      }
+    }
+    return;
+  }
   const float c = static_cast<float>(*count + 1);
   const float bc1 = __fsub_rn(1.f, powf(a.b1, c));
   const float bc2 = __fsub_rn(1.f, powf(a.b2, c));
-  const long long groups = (n + 3) / 4;
-  const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x; q < groups;
        q += stride) {
     const long long i = q * 4;
@@ -161,7 +187,8 @@ __global__ void __launch_bounds__(kThreads) fused_adamw_kernel(
 template <typename TP, typename TM>
 cudaError_t launch(const void* p, const void* m, const void* v, const void* g,
                    void* u, void* m_out, void* v_out, const void* count,
-                   long long n, const AdamArgs& a, cudaStream_t stream) {
+                   const void* ok, long long n, const AdamArgs& a,
+                   cudaStream_t stream) {
   auto aligned = [](const void* ptr, int bytes) {
     return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
   };
@@ -177,7 +204,7 @@ cudaError_t launch(const void* p, const void* m, const void* v, const void* g,
       static_cast<const TP*>(p), static_cast<const TM*>(m),
       static_cast<const TM*>(v), static_cast<const TP*>(g), static_cast<TP*>(u),
       static_cast<TM*>(m_out), static_cast<TM*>(v_out),
-      static_cast<const int*>(count), n, a, vec);
+      static_cast<const int*>(count), static_cast<const int*>(ok), n, a, vec);
   return cudaGetLastError();
 }
 
@@ -185,10 +212,12 @@ cudaError_t launch(const void* p, const void* m, const void* v, const void* g,
 
 // Plain C entry point for ctypes. p, g and the update share p_dtype; m, v
 // and their outputs share m_dtype (0 = float32, 1 = bfloat16). count is a
-// device int32 scalar. Returns a cudaError_t (0 on a successful launch).
+// device int32 scalar; ok is a device int32 scalar, or null for no flag.
+// Returns a cudaError_t (0 on a successful launch).
 extern "C" int hvt_fused_adamw(const void* p, const void* m, const void* v,
                                const void* g, void* u, void* m_out, void* v_out,
-                               const void* count, long long n, int p_dtype,
+                               const void* count, const void* ok, long long n,
+                               int p_dtype,
                                int m_dtype, float neg_lr, float b1, float b2,
                                float one_minus_b1, float one_minus_b2, float eps,
                                float eps_root, float weight_decay, void* stream) {
@@ -200,16 +229,16 @@ extern "C" int hvt_fused_adamw(const void* p, const void* m, const void* v,
   switch (key) {
     case 0:
       return static_cast<int>(launch<float, float>(p, m, v, g, u, m_out, v_out,
-                                                   count, n, a, s));
+                                                   count, ok, n, a, s));
     case 1:
       return static_cast<int>(launch<float, __nv_bfloat16>(
-          p, m, v, g, u, m_out, v_out, count, n, a, s));
+          p, m, v, g, u, m_out, v_out, count, ok, n, a, s));
     case 2:
       return static_cast<int>(launch<__nv_bfloat16, float>(
-          p, m, v, g, u, m_out, v_out, count, n, a, s));
+          p, m, v, g, u, m_out, v_out, count, ok, n, a, s));
     case 3:
       return static_cast<int>(launch<__nv_bfloat16, __nv_bfloat16>(
-          p, m, v, g, u, m_out, v_out, count, n, a, s));
+          p, m, v, g, u, m_out, v_out, count, ok, n, a, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

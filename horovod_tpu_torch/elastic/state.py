@@ -1,0 +1,257 @@
+"""Elastic training state: commit, restore, sync.
+
+The port of the JAX package's ``elastic/state.py`` (after Horovod's
+``State``, ``ObjectState`` and ``TorchState``): ``commit`` saves a
+known-good snapshot and checks for host updates; after a failure
+:func:`~.run.run` restores the last commit, and before every (re)start it
+syncs the state from rank 0.
+
+* :class:`State` -- the base: ``commit`` (with the chaos ``worker.step``
+  site), ``check_host_updates`` (one object broadcast of rank 0's latest
+  update timestamp, so every rank raises at the same commit),
+  ``register_reset_callbacks`` and ``on_reset``.
+* :class:`ObjectState` -- picklable attributes, deep-copied on save.
+* :class:`TrainState` -- ``params`` and ``opt_state`` (and any other
+  attributes) of a training loop. ``save`` snapshots every tensor to the
+  host; a ZeRO-1 or EF-residual optimizer state is snapshotted in its
+  canonical, world-size-portable form
+  (:func:`~..optimizer.canonicalize_sharded_states`, a collective), and
+  ``restore`` repacks it for the world of the moment
+  (:func:`~..optimizer.reshard_sharded_states`), so a state committed at
+  N ranks restores at M. ``restore`` writes the parameters back into the
+  live tensors, so a module trained in place keeps its parameters.
+  ``sync`` broadcasts the tensors from rank 0 (a sharded optimizer state
+  through its canonical form: each rank then keeps its own shards) and
+  the rest by pickle.
+
+Re-forming the world after a membership change (the reference's
+``shutdown`` + ``init`` in ``reset``) is the elastic launcher's (A13b):
+in a plain process ``reset`` keeps the live world, which an in-process
+restart -- a guard escalation, a failed step -- needs unchanged.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Any, Dict
+
+import torch
+
+from ..checkpoint import map_tensors
+from ..exceptions import HostsUpdatedInterrupt
+from ..functions import broadcast_object
+from ..ops.collectives import broadcast
+from .worker import in_elastic_world, notification_manager
+
+__all__ = ["ObjectState", "State", "TrainState"]
+
+
+def _rank():
+    from .. import context as _ctx
+
+    return _ctx.rank() if _ctx.is_initialized() else None
+
+
+class State:
+    """Base elastic state. Subclasses implement ``save``, ``restore`` and
+    ``sync``; ``commit()`` saves and checks for host updates, raising
+    :class:`~..exceptions.HostsUpdatedInterrupt` when the world changed."""
+
+    def __init__(self):
+        self._host_messages: list = []
+        self._reset_callbacks: list = []
+        self._last_updated_timestamp = 0.0
+        # Commit index: the chaos worker.step occurrence.
+        self._commit_count = 0
+        # Under an elastic launcher the watcher delivers the launcher's
+        # membership changes to on_hosts_updated (A13b); outside one there
+        # is nothing to watch.
+        notification_manager.init()
+
+    def register_reset_callbacks(self, callbacks):
+        self._reset_callbacks.extend(callbacks)
+
+    def on_reset(self):
+        self.reset()
+        for cb in self._reset_callbacks:
+            cb()
+
+    def on_hosts_updated(self, timestamp, update_res):
+        self._host_messages.append((timestamp, update_res))
+
+    def commit(self):
+        """Save and check for topology updates. The chaos ``worker.step``
+        site fires first: crash, hang or slow this worker at commit K, the
+        boundary where a real failure costs most."""
+        from .. import chaos as _chaos
+
+        self._commit_count += 1
+        if _chaos.enabled():
+            _chaos.act("worker.step", step=self._commit_count, rank=_rank())
+        self.save()
+        self.check_host_updates()
+
+    def check_host_updates(self):
+        """Raise :class:`HostsUpdatedInterrupt` on every rank at once when
+        rank 0 has heard of a newer membership change (one object
+        broadcast of its latest timestamp)."""
+        local_ts = self._host_messages[-1][0] if self._host_messages else 0.0
+        self._host_messages.clear()
+        ts = broadcast_object(local_ts, root_rank=0)
+        if ts > self._last_updated_timestamp:
+            self._last_updated_timestamp = ts
+            raise HostsUpdatedInterrupt(skip_sync=False)
+
+    def save(self):
+        raise NotImplementedError
+
+    def restore(self):
+        raise NotImplementedError
+
+    def sync(self):
+        raise NotImplementedError
+
+    def reset(self):
+        """Re-form the world after a topology change: under an elastic
+        launcher that is the launcher's round (A13b, not ported); in a
+        plain process the live world stays."""
+        if in_elastic_world():
+            raise NotImplementedError(
+                "rejoining an elastic round is not ported yet; it arrives "
+                "with A13b")
+
+
+class ObjectState(State):
+    """Elastic state for picklable attributes: those given to the
+    constructor are tracked, deep-copied on save and broadcast from rank 0
+    on sync."""
+
+    def __init__(self, **kwargs):
+        super().__init__()
+        self._saved_state: Dict[str, Any] = {}
+        for k, v in kwargs.items():
+            setattr(self, k, v)
+        self._known_attrs = list(kwargs.keys())
+        self.save()
+
+    def save(self):
+        self._saved_state = {
+            k: copy.deepcopy(getattr(self, k)) for k in self._known_attrs
+        }
+
+    def restore(self):
+        for k, v in self._saved_state.items():
+            setattr(self, k, copy.deepcopy(v))
+
+    def sync(self):
+        payload = {k: getattr(self, k) for k in self._known_attrs}
+        synced = broadcast_object(payload, root_rank=0)
+        for k, v in synced.items():
+            setattr(self, k, v)
+        self.save()
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to("cpu", copy=True).requires_grad_(t.requires_grad)
+
+
+def _device_of(tree):
+    found = []
+
+    def note(t):
+        found.append(t.device)
+        return t
+
+    map_tensors(note, tree)
+    return found[0] if found else None
+
+
+def _same_layout(live, new) -> bool:
+    return (isinstance(live, dict) and isinstance(new, dict)
+            and live.keys() == new.keys()
+            and all(isinstance(live[k], torch.Tensor)
+                    and isinstance(new[k], torch.Tensor)
+                    and live[k].shape == new[k].shape
+                    and live[k].dtype == new[k].dtype
+                    and live[k].device == new[k].device for k in new))
+
+
+class TrainState(ObjectState):
+    """Elastic state of a training loop: ``params`` and ``opt_state``
+    (nests of tensors, as :func:`~..parallel.dp.init_state` builds them)
+    and any other attributes. See the module docstring."""
+
+    def __init__(self, params=None, opt_state=None, **kwargs):
+        super().__init__(params=params, opt_state=opt_state, **kwargs)
+
+    def _params(self):
+        return getattr(self, "params", None)
+
+    def save(self):
+        from ..optimizer import canonicalize_sharded_states, has_sharded_state
+
+        params = self._params()
+        snap, devices = {}, {}
+        for k in self._known_attrs:
+            val = getattr(self, k)
+            if params is not None and has_sharded_state(val):
+                val = canonicalize_sharded_states(val, params)
+            devices[k] = _device_of(val)
+            snap[k] = map_tensors(_to_host, val)
+        self._saved_state = snap
+        self._devices = devices
+
+    def restore(self):
+        from ..optimizer import has_canonical_state, reshard_sharded_states
+
+        restored = {}
+        for k, v in self._saved_state.items():
+            dev = self._devices[k]
+            restored[k] = map_tensors(
+                lambda t: t.to(dev, copy=True).requires_grad_(
+                    t.requires_grad), v)
+        params = restored.get("params")
+        for k, v in restored.items():
+            if params is not None and has_canonical_state(v):
+                v = reshard_sharded_states(v, params)
+            live = getattr(self, k)
+            if k == "params" and _same_layout(live, v):
+                # Back into the live tensors: a module trained in place
+                # keeps its parameters.
+                with torch.no_grad():
+                    for name, t in v.items():
+                        live[name].copy_(t)
+                continue
+            setattr(self, k, v)
+
+    def sync(self):
+        """Rank 0's state on every rank: tensors by broadcast (a sharded
+        optimizer state through its canonical form), the rest by pickle;
+        then a fresh commit snapshot."""
+        from ..optimizer import (
+            canonicalize_sharded_states,
+            has_sharded_state,
+            reshard_sharded_states,
+        )
+
+        def bcast(t):
+            out = broadcast(t.detach(), 0)
+            if t.requires_grad:
+                with torch.no_grad():
+                    t.copy_(out)
+                return t
+            return out
+
+        for k in self._known_attrs:
+            val = getattr(self, k)
+            params = self._params()
+            has_tensors = _device_of(val) is not None
+            if params is not None and has_sharded_state(val):
+                canonical = map_tensors(
+                    bcast, canonicalize_sharded_states(val, params))
+                setattr(self, k, reshard_sharded_states(canonical, params))
+            elif has_tensors:
+                setattr(self, k, map_tensors(bcast, val))
+            else:
+                setattr(self, k, broadcast_object(val, root_rank=0))
+        self.save()

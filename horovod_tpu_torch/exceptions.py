@@ -1,8 +1,8 @@
 """Exception types of the PyTorch package.
 
 The same classes as ``horovod_tpu.exceptions`` (kept as a copy: this
-package imports nothing of the JAX package), limited to what the serving
-slice raises.
+package imports nothing of the JAX package), limited to what the ported
+slices raise.
 """
 
 
@@ -19,6 +19,22 @@ class NotInitializedError(HorovodTpuError):
             f"{what} has not been initialized; call horovod_tpu_torch.init() "
             "first."
         )
+
+
+class HorovodInternalError(HorovodTpuError):
+    """A collective failed, or the gradient guard or the consistency audit
+    gave up on the live state. :func:`horovod_tpu_torch.elastic.run`
+    catches it, restores the last committed state and restarts the
+    training loop."""
+
+
+class HostsUpdatedInterrupt(HorovodTpuError):
+    """The set of hosts changed. Carries ``skip_sync`` so a rank that knows
+    its state is identical can skip the re-broadcast."""
+
+    def __init__(self, skip_sync: bool = False):
+        super().__init__()
+        self.skip_sync = skip_sync
 
 
 class CheckpointCorruptError(HorovodTpuError):

@@ -244,6 +244,16 @@ class LayerNorm(nn.Module):
         return ((xf - mean) * mul + self.bias.float()).to(self.dtype)
 
 
+def _replicated(t, mesh):
+    """``t`` as a DTensor replicated over ``mesh`` (None and DTensors pass)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if t is None or isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
 class MultiHeadAttention(nn.Module):
     def __init__(self, cfg: TransformerConfig,
                  attention_fn: Optional[Callable] = None, *, device=None):
@@ -260,30 +270,70 @@ class MultiHeadAttention(nn.Module):
         self.out = Dense(cfg.d_model, cfg.d_model, **kw)
 
     def forward(self, x, mask=None):
-        cfg = self.cfg
-        b, s, _ = x.shape
-        h, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
+        if not self.qkv.quantized and self.qkv.weight.dim() == 3:
+            return self._forward_local_heads(x, mask)
         # Column slices of the fused output (strided [B, S, H*dh] views), or
         # with fp8 three outputs of their own.
         q, k, v = self.qkv.parts(x)
+        return self.out(self._attend(q, k, v, self.cfg.n_heads, mask))
+
+    def _attend(self, q, k, v, h, mask):
+        """Attention over the ``h`` heads of ``[B, S, h*dh]`` q, k and v;
+        returns ``[B, S, h*dh]``."""
+        cfg = self.cfg
+        b, s, width = q.shape
+        dh = width // h
         attn = self.attention_fn
         if attn is None:
             use_flash = cfg.use_flash
             if use_flash is None:
-                use_flash = x.device.type == "cuda"
+                use_flash = q.device.type == "cuda"
             # A dense mask takes plain attention on every device: the
             # kernel masks causally only (the JAX package routes the same).
             if use_flash and mask is None:
-                y = flash_attention(
+                return flash_attention(
                     q, k, v, causal=cfg.causal, layout="bsm", n_heads=h
                 )
-                return self.out(y)
             attn = dot_product_attention
         y = attn(
             q.unflatten(-1, (h, dh)), k.unflatten(-1, (h, dh)),
             v.unflatten(-1, (h, dh)), causal=cfg.causal, mask=mask,
         )
-        return self.out(y.reshape(b, s, cfg.d_model))
+        return y.reshape(b, s, width)
+
+    def _forward_local_heads(self, x, mask):
+        """The forward with the fused projection sharded on heads as a
+        DTensor (``parallel.gspmd.shard_params``: weight ``[3, H*dh, D]``,
+        bias ``[3, H*dh]``, both sharded on dim 1) and ``x`` a replicated
+        DTensor. DTensor has no rule for the attention kernels, so each
+        rank runs the projection and the attention on its local heads,
+        re-enters with ``Shard(-1)``, and the row-parallel ``out`` leaves a
+        ``Partial`` that DTensor all-reduces. ``x``'s gradient is partial
+        over the mesh dimensions that shard the heads (Megatron's identity
+        forward, all-reduce backward)."""
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        from torch.distributed.tensor import Shard
+
+        if self.cfg.fp8:
+            raise NotImplementedError(
+                "head-sharded attention runs the bf16/fp32 projections only")
+        w, b = self.qkv.weight, self.qkv.bias
+        heads_sharded = [isinstance(p, Shard) for p in w.placements]
+        x_loc = x.to_local(grad_placements=[
+            Partial() if hs else Replicate() for hs in heads_sharded])
+        w_loc, b_loc = w.to_local(), b.to_local()
+        rows = w_loc.shape[1]
+        dt = self.qkv.dtype
+        qkv = F.linear(x_loc.to(dt), w_loc.reshape(3 * rows, -1).to(dt),
+                       b_loc.reshape(-1).to(dt))
+        q, k, v = qkv.split(rows, dim=-1)
+        h = rows // (self.cfg.d_model // self.cfg.n_heads)
+        y = self._attend(q, k, v, h, mask)
+        y = DTensor.from_local(
+            y, w.device_mesh,
+            [Shard(y.dim() - 1) if hs else Replicate()
+             for hs in heads_sharded])
+        return self.out(y)
 
 
 class MlpBlock(nn.Module):
@@ -346,8 +396,14 @@ class Transformer(nn.Module):
                 return_hidden=False):
         dt = self.cfg.dtype
         wte = self.wte.weight.to(dt)  # one cast, shared with the tied head
-        x = F.embedding(tokens, wte)
         pos = torch.arange(tokens.shape[-1], device=tokens.device)
+        if hasattr(wte, "device_mesh"):
+            # Parameters placed as DTensors (parallel.gspmd): the indices
+            # join them replicated.
+            tokens, pos, token_types = (
+                _replicated(t, wte.device_mesh)
+                for t in (tokens, pos, token_types))
+        x = F.embedding(tokens, wte)
         x = x + F.embedding(pos, self.wpe.weight.to(dt))
         if self.wtt is not None and token_types is not None:
             x = x + F.embedding(token_types, self.wtt.weight.to(dt))

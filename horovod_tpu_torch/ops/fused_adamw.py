@@ -18,14 +18,17 @@ with nvcc at first use by :mod:`._build`).
   version; CUDA tensors launch the kernel or raise.
 
 ``count`` is a device int32 scalar on the card: the kernel reads it there,
-so a step never syncs with the host for it.
+so a step never syncs with the host for it. So is the gradient guard's
+optional skip flag ``ok``: where it is 0 (False) the update is -0.0 in
+every element -- ``p + (-0.0)`` is ``p`` bit for bit, -0.0 included -- and
+the moments stay as they were.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -75,10 +78,11 @@ def _count_launch() -> None:
 
 def fused_adamw_update_reference(
     p: torch.Tensor, m: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
-    count, spec: FusedAdamSpec,
+    count, spec: FusedAdamSpec, ok: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain version: ``(update, new_m, new_v)``, new tensors, in the
-    JAX package's order of operations."""
+    JAX package's order of operations; where ``ok`` is 0 the update is -0.0
+    and the moments are ``m`` and ``v``."""
     c = (torch.as_tensor(count, device=p.device).to(torch.int32) + 1).float()
     g32 = g.float()
     p32 = p.float()
@@ -93,11 +97,14 @@ def fused_adamw_update_reference(
     u = mhat / (torch.sqrt((vhat + spec.eps_root).double()).float() + spec.eps)
     if spec.weight_decay:
         u = u + spec.weight_decay * p32
-    return (
-        (-spec.learning_rate * u).to(p.dtype),
-        nm.to(m.dtype),
-        nv.to(v.dtype),
-    )
+    u = (-spec.learning_rate * u).to(p.dtype)
+    nm, nv = nm.to(m.dtype), nv.to(v.dtype)
+    if ok is not None:
+        keep = torch.as_tensor(ok, device=p.device).to(torch.bool)
+        u = torch.where(keep, u, torch.full_like(u, -0.0))
+        nm = torch.where(keep, nm, m)
+        nv = torch.where(keep, nv, v)
+    return u, nm, nv
 
 
 def _kernel_fn():
@@ -106,14 +113,14 @@ def _kernel_fn():
         fn = _build.load(KERNEL_SOURCE).hvt_fused_adamw
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = (
-            [ptr] * 8 + [ctypes.c_longlong, i32, i32] + [f32] * 8 + [ptr]
+            [ptr] * 9 + [ctypes.c_longlong, i32, i32] + [f32] * 8 + [ptr]
         )
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def _check(p, m, v, g, count):
+def _check(p, m, v, g, count, ok):
     n = p.numel()
     for name, x in (("p", p), ("m", m), ("v", v), ("g", g)):
         if x.dim() != 1 or x.numel() != n:
@@ -123,11 +130,14 @@ def _check(p, m, v, g, count):
             )
         if x.device != p.device:
             raise ValueError(f"{name} is on {x.device}, p on {p.device}")
-    if not isinstance(count, torch.Tensor) or count.numel() != 1:
-        raise TypeError("count must be a one-element int32 tensor")
+    for name, x in (("count", count), ("ok", ok)):
+        if x is None and name == "ok":
+            continue
+        if not isinstance(x, torch.Tensor) or x.numel() != 1:
+            raise TypeError(f"{name} must be a one-element int32 tensor")
 
 
-def _launch(p, m, v, g, count, spec):
+def _launch(p, m, v, g, count, spec, ok):
     for name, x in (("p", p), ("m", m), ("v", v), ("g", g)):
         if x.dtype not in _DTYPE_CODES:
             raise TypeError(
@@ -141,11 +151,12 @@ def _launch(p, m, v, g, count, spec):
             "the CUDA AdamW kernel takes g in p's dtype and v in m's dtype; "
             f"got p {p.dtype}, g {g.dtype}, m {m.dtype}, v {v.dtype}"
         )
-    if count.dtype != torch.int32 or count.device != p.device:
-        raise TypeError(
-            f"count must be an int32 tensor on {p.device}, got {count.dtype} "
-            f"on {count.device}"
-        )
+    for name, x in (("count", count), ("ok", ok)):
+        if x is not None and (x.dtype != torch.int32 or x.device != p.device):
+            raise TypeError(
+                f"{name} must be an int32 tensor on {p.device}, got "
+                f"{x.dtype} on {x.device}"
+            )
     u = torch.empty_like(p)
     fn = _kernel_fn()
     with torch.cuda.device(p.device):
@@ -153,7 +164,8 @@ def _launch(p, m, v, g, count, spec):
         rc = fn(
             p.data_ptr(), m.data_ptr(), v.data_ptr(), g.data_ptr(),
             u.data_ptr(), m.data_ptr(), v.data_ptr(), count.data_ptr(),
-            p.numel(), _DTYPE_CODES[p.dtype], _DTYPE_CODES[m.dtype],
+            None if ok is None else ok.data_ptr(), p.numel(),
+            _DTYPE_CODES[p.dtype], _DTYPE_CODES[m.dtype],
             -spec.learning_rate, spec.b1, spec.b2, 1.0 - spec.b1,
             1.0 - spec.b2, spec.eps, spec.eps_root, spec.weight_decay, stream,
         )
@@ -168,19 +180,21 @@ def _launch(p, m, v, g, count, spec):
 def fused_adamw_update(
     p: torch.Tensor, m: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
     count: torch.Tensor, spec: FusedAdamSpec,
+    ok: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One fused AdamW step over flat 1-D buffers (a ZeRO-1 shard): updates
     ``m`` and ``v`` in place and returns the update (``-lr`` applied, in
     ``p``'s dtype). ``count`` is the step count before this update, an
-    int32 tensor on ``p``'s device. CUDA tensors launch the kernel; CPU
-    tensors run :func:`fused_adamw_update_reference`."""
-    _check(p, m, v, g, count)
+    int32 tensor on ``p``'s device; ``ok``, when given, the guard's skip
+    flag there (an int32 tensor on the card; 0 skips). CUDA tensors launch
+    the kernel; CPU tensors run :func:`fused_adamw_update_reference`."""
+    _check(p, m, v, g, count, ok)
     device = p.device.type
     if device == "cpu":
-        u, nm, nv = fused_adamw_update_reference(p, m, v, g, count, spec)
+        u, nm, nv = fused_adamw_update_reference(p, m, v, g, count, spec, ok)
         m.copy_(nm)
         v.copy_(nv)
         return u
     if device != "cuda":
         raise ValueError(f"fused AdamW runs on cuda or cpu, not {device}")
-    return _launch(p, m, v, g, count, spec)
+    return _launch(p, m, v, g, count, spec, ok)

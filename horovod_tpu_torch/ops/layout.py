@@ -205,6 +205,13 @@ class BucketScheduler:
         if self._next != len(self._ready):
             raise RuntimeError("a bucket was never issued")
 
+    @property
+    def grads(self) -> List[Optional[torch.Tensor]]:
+        """After :meth:`flush`: every leaf's gradient as reduced (the
+        microbatch mean), in the plan's leaf order -- what the gradient
+        guard screens."""
+        return list(self._grads)
+
     def agree_order(self) -> List[int]:
         """After :meth:`flush`: the order rank 0's buckets became whole
         this step, on every rank of the plan's group (one broadcast; every

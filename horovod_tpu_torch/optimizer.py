@@ -69,6 +69,13 @@ update phase on the reduced buckets or shards (:class:`Reduction`,
 overlap pipeline (:mod:`.ops.layout`) drives the reduce phase from the
 gradient hooks.
 
+Under the gradient guard (:mod:`.guard`) a wrapper's ``update`` and
+``finish`` take the step's replica-uniform verdict ``ok`` (a 0-d bool
+tensor on the device): the reduction and the update always run, and only
+the commit depends on ``ok`` (:func:`guarded_commit`). The fused ZeRO-1
+update writes its moments in place, so there ``ok`` reaches the fused
+kernel as its skip flag and the count advances by ``ok``.
+
 :func:`grad` and :func:`value_and_grad` are ``torch.func``'s with the
 gradients reduced as the optimizer reduces them. Every wrapper takes
 ``axis=``, the mesh axes it reduces over (default the world's).
@@ -135,6 +142,7 @@ __all__ = [
     "ef_residual_norm",
     "fused_adamw",
     "grad",
+    "guarded_commit",
     "has_canonical_state",
     "has_ef_residuals",
     "has_sharded_state",
@@ -354,6 +362,54 @@ def _zeros(tree):
     return _map(torch.zeros_like, tree)
 
 
+def _select(ok, new, old):
+    """``new`` where ``ok``, else ``old``, over two like-structured states;
+    a node ``new`` shares with ``old`` (a buffer updated in place, the
+    layout recipe) passes as it is."""
+    if new is old or old is None:
+        return new
+    if isinstance(new, torch.Tensor):
+        return torch.where(ok, new, old)
+    if isinstance(new, EFResiduals):
+        return EFResiduals(_select(ok, new.buffers, old.buffers),
+                           new.threshold, new.block)
+    if isinstance(new, FlatBuckets):
+        return FlatBuckets(_select(ok, new.buffers, old.buffers))
+    if isinstance(new, dict):
+        return type(new)((k, _select(ok, v, old[k])) for k, v in new.items())
+    if isinstance(new, tuple) and hasattr(new, "_fields"):
+        return type(new)(*(_select(ok, a, b) for a, b in zip(new, old)))
+    if isinstance(new, (list, tuple)):
+        return type(new)(_select(ok, a, b) for a, b in zip(new, old))
+    return new
+
+
+def guarded_commit(ok, updates, new_opt_state, opt_state, *,
+                   updates_skipped: bool = False):
+    """Commit or skip one optimizer step under the gradient guard: returns
+    ``(updates, opt_state)`` -- the fresh pair where ``ok``, else updates
+    of -0.0 (``p + (-0.0)`` is ``p`` bit for bit) and the incoming state
+    -- selected on the device with ``torch.where``, with no host sync.
+
+    The update and its collectives always run (``ok`` is replica-uniform,
+    and collectives never sit under data-dependent control flow); only the
+    commit depends on it. The selection covers the whole state: the inner
+    moments and count, the ZeRO-1 flat buckets, the wrappers' counts and
+    the quantized wire's EF residuals, which would otherwise keep the
+    quantization error of a gradient that was never applied. A reduction
+    writes its residuals to new buffers, so the incoming ones are the
+    snapshot to restore. State updated in place (the fused kernel's
+    moments, under its own skip flag) is the same object in both states
+    and passes. ``updates_skipped`` says the updates are already -0.0 on a
+    skip (the fused kernel's, through an exact gather). ``ok=None`` (no
+    guard) commits the fresh pair as it is."""
+    if ok is None:
+        return updates, new_opt_state
+    if not updates_skipped:
+        updates = _map(lambda u: torch.where(ok, u, -0.0), updates)
+    return updates, _select(ok, new_opt_state, opt_state)
+
+
 class _Passes:
     """The host's count of passes beside the state's device ``count``, so
     ``backward_passes_per_step`` decides to skip or sync without reading
@@ -480,17 +536,21 @@ def DistributedOptimizer(
             residuals=state.residual if quantized else None, axis=axis,
         )
 
-        def finish(reduced, new_res, params=None):
+        def finish(reduced, new_res, params=None, ok=None):
             updates, inner = optimizer.update(reduced, state.inner, params)
-            return updates, DistributedOptState(inner, None, state.count + 1,
-                                                new_res)
+            new = DistributedOptState(inner, None, state.count + 1, new_res)
+            return guarded_commit(ok, updates, new, state)
 
         return Reduction(plan, finish)
 
-    def update(grads, state: DistributedOptState, params=None):
+    def update(grads, state: DistributedOptState, params=None, ok=None):
         red = reduction(state, grads)
         if red is not None:
-            return red.finish(*red.plan.run(), params)
+            return red.finish(*red.plan.run(), params, ok)
+        return guarded_commit(ok, *_unbucketed_update(grads, state, params),
+                              state)
+
+    def _unbucketed_update(grads, state: DistributedOptState, params):
         if bpps == 1:  # Adasum
             reduced = _reduce_grads(grads, op, compression, prescale_factor,
                                     postscale_factor, axis, threshold_bytes)
@@ -532,21 +592,25 @@ class ShardedOptState(NamedTuple):
 
 
 def _fused_flat_update(g_shards, inner: AdamState, p_shards,
-                       spec: FusedAdamSpec):
+                       spec: FusedAdamSpec, ok=None):
     """One fused AdamW kernel pass per shard bucket. The moments are
-    updated in place; the count stays on the device."""
+    updated in place; the count stays on the device. With the guard's
+    ``ok`` the kernel skips where it is False (updates of -0.0, the moments
+    untouched) and the count advances by ``ok``."""
     if not isinstance(inner, AdamState) or not isinstance(inner.mu, FlatBuckets):
         raise HorovodTpuError(
             "fused_update could not find the flat-bucket Adam moments in "
             "the optimizer state; build the optimizer with "
             "horovod_tpu_torch.fused_adamw(...) and sharded=True"
         )
+    flag = None if ok is None else ok.to(torch.int32)
     out = [
-        fused_adamw_update(p, m, v, g, inner.count, spec)
+        fused_adamw_update(p, m, v, g, inner.count, spec, flag)
         for p, m, v, g in zip(p_shards.buffers, inner.mu.buffers,
                               inner.nu.buffers, g_shards.buffers)
     ]
-    return FlatBuckets(out), AdamState(inner.count + 1, inner.mu, inner.nu)
+    step = 1 if flag is None else flag
+    return FlatBuckets(out), AdamState(inner.count + step, inner.mu, inner.nu)
 
 
 def ShardedDistributedOptimizer(
@@ -638,9 +702,10 @@ def ShardedDistributedOptimizer(
             residuals=state.residual if quantized else None, axis=axis,
         )
 
-        def finish(g_shards, new_res, params):
+        def finish(g_shards, new_res, params, ok=None):
             # The update phase: this rank's shards of the parameters, the
-            # inner (or fused) update on them, the update all-gather.
+            # inner (or fused) update on them, the update all-gather; under
+            # the guard, the commit selected on ``ok``.
             p_buffers, _ = pack(params, threshold_bytes,
                                 pad_multiple=world * block)
             if [b.shape[0] for b in p_buffers] != list(
@@ -653,7 +718,7 @@ def ShardedDistributedOptimizer(
             p_shards = shard_slice(p_buffers, axis)
             if fused:
                 u_shards, inner = _fused_flat_update(
-                    g_shards, state.inner, p_shards, optimizer.fused_spec
+                    g_shards, state.inner, p_shards, optimizer.fused_spec, ok
                 )
             else:
                 u_shards, inner = optimizer.update(g_shards, state.inner,
@@ -661,20 +726,24 @@ def ShardedDistributedOptimizer(
             updates = fused_allgather(u_shards, plan.spec,
                                       compression=gather_compression,
                                       axis=axis)
-            return updates, state._replace(inner=inner,
-                                           count=state.count + 1,
-                                           residual=new_res)
+            new = state._replace(inner=inner, count=state.count + 1,
+                                 residual=new_res)
+            # The fused kernel's -0.0 survives an exact or cast gather; a
+            # quantized one dequantizes it to +0.0, so it is selected again.
+            return guarded_commit(
+                ok, updates, new, state,
+                updates_skipped=fused and not is_quantized(gather_compression))
 
         return Reduction(plan, finish)
 
-    def update(grads, state: ShardedOptState, params=None):
+    def update(grads, state: ShardedOptState, params=None, ok=None):
         if params is None:
             raise ValueError(
                 "ShardedDistributedOptimizer.update requires params (the "
                 "local param shard feeds the inner update)"
             )
         red = reduction(state, grads)
-        return red.finish(*red.plan.run(), params)
+        return red.finish(*red.plan.run(), params, ok)
 
     return Optimizer(init, update, reduction=reduction)
 

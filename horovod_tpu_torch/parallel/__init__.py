@@ -2,10 +2,12 @@
 meshes (:mod:`.mesh`), and the parallelism library on them -- sequence
 (:mod:`.sp`), tensor (:mod:`.tp`), pipeline (:mod:`.pp`) and expert
 (:mod:`.ep`) parallelism, the hierarchical all-reduce
-(:mod:`.hierarchical`) and the 3-D parallel GPT (:mod:`.transformer`)."""
+(:mod:`.hierarchical`), the 3-D parallel GPT (:mod:`.transformer`), and
+GSPMD placements as DTensor (:mod:`.gspmd`)."""
 
 from .dp import TrainState, accumulate_gradients, init_state, make_train_step  # noqa: F401
 from .ep import switch_moe, switch_moe_stacked, top1_dispatch  # noqa: F401
+from .gspmd import shard_params, transformer_param_specs  # noqa: F401
 from .hierarchical import hierarchical_allreduce  # noqa: F401
 from .pp import pipeline  # noqa: F401
 from .sp import ring_attention, ulysses_attention  # noqa: F401

@@ -25,6 +25,8 @@ import torch
 from torch import nn
 
 from ..context import resolve_device
+from ..guard import GuardRuntime, check_gradients, fresh_state
+from ..guard import resolve as _resolve_guard
 from ..obs import flops as _flops
 from ..ops.batching import tree_flatten, tree_map
 from ..ops.collectives import Average, ReduceOp, allreduce, world_size
@@ -32,7 +34,12 @@ from ..ops.compression import Compression, is_quantized
 from ..ops import actquant as _actquant
 from ..ops.fp8 import fp8_state_optimizer, resolve_compute_dtype
 from ..ops.layout import BucketScheduler
-from ..optimizer import DistributedOptimizer, Optimizer, ShardedDistributedOptimizer
+from ..optimizer import (
+    DistributedOptimizer,
+    Optimizer,
+    ShardedDistributedOptimizer,
+    guarded_commit,
+)
 from ..utils import env as _env
 
 __all__ = [
@@ -49,6 +56,9 @@ class TrainState:
     opt_state: Any
     step: torch.Tensor  # int32, on the parameters' device
     extra: Any = None
+    # The gradient guard's bookkeeping (guard.GuardState) when the step was
+    # built with guard=...; None otherwise.
+    guard: Any = None
 
 
 def _params_dict(params) -> Dict[str, torch.Tensor]:
@@ -57,11 +67,15 @@ def _params_dict(params) -> Dict[str, torch.Tensor]:
     return dict(params)
 
 
-def init_state(params, wrapped_optimizer: Optimizer, extra=None) -> TrainState:
+def init_state(params, wrapped_optimizer: Optimizer, extra=None,
+               guard=None) -> TrainState:
     """A :class:`TrainState` from a parameter dict (or an ``nn.Module``,
     whose own parameters are then trained in place) and the optimizer
     :func:`make_train_step` returned. Every parameter becomes a leaf that
-    requires grad."""
+    requires grad. ``guard=True`` (or a :class:`~..guard.GuardConfig`)
+    seeds the guard's bookkeeping now, so the state's structure is final
+    before the first step (a checkpoint restore target); a guarded step
+    otherwise seeds it at its first call."""
     params = _params_dict(params)
     if not params:
         raise ValueError("init_state needs at least one parameter")
@@ -75,7 +89,7 @@ def init_state(params, wrapped_optimizer: Optimizer, extra=None) -> TrainState:
         opt_state = wrapped_optimizer.init(params)
     return TrainState(
         params, opt_state, torch.zeros((), dtype=torch.int32, device=device),
-        extra,
+        extra, fresh_state(device) if guard else None,
     )
 
 
@@ -178,7 +192,6 @@ def _accumulate(loss_fn, params, batch, accum_steps, has_aux,
 # yet: each raises NotImplementedError naming the slice that brings it.
 _WAITING = {
     "lint": "the analysis plane (torch.fx / torch.export graph lints)",
-    "guard": "the fault planes (ops/guards.py, guard/)",
     "autotune": "the tuning plane (tune/)",
     "publish": "the streaming plane (stream/)",
 }
@@ -298,16 +311,32 @@ def make_train_step(
     for the backward (:mod:`~..ops.actquant`); ``remat`` then applies to
     each segment between boundaries instead of the whole loss.
 
-    ``lint``, ``guard``, ``autotune`` and ``publish`` are not ported yet:
-    arming one, or leaving it None under an armed ``HVDTPU_LINT``,
-    ``_GUARD``, ``_AUTOTUNE`` or ``_PUBLISH_EVERY``, raises
-    ``NotImplementedError`` naming the slice that brings it.
+    ``guard=True`` (or a :class:`~..guard.GuardConfig`; default reads
+    ``HVDTPU_GUARD``) arms the gradient guard (:mod:`..guard`): every
+    step's gradients are screened for NaN/Inf and for a norm spike, the
+    verdict made replica-uniform by one all-reduce, and a poisoned step is
+    skipped -- parameters, optimizer state (the fused kernel through its
+    skip flag) and EF residuals stay as they were and ``state.step`` does
+    not advance -- with nothing read on the host. The bookkeeping rides
+    ``TrainState.guard`` (seeded at the first call); the returned step
+    carries ``step_fn.guard_runtime`` (:class:`~..guard.GuardRuntime`),
+    which raises a recoverable ``HorovodInternalError`` after
+    ``max_skips`` consecutive skips, runs the fail-silent chaos sites and,
+    in a world of more than one process, the consistency audit. The guard
+    combines with ``overlap`` (the screen reads the hooks' gradients),
+    ``accum_steps`` (it screens the microbatch mean) and
+    ``compute_dtype="fp8"`` (the fp8 state rides the screened gradients),
+    as in the JAX package.
+
+    ``lint``, ``autotune`` and ``publish`` are not ported yet: arming one,
+    or leaving it None under an armed ``HVDTPU_LINT``, ``_AUTOTUNE`` or
+    ``_PUBLISH_EVERY``, raises ``NotImplementedError`` naming the slice
+    that brings it.
     """
     # None reads the knob's HVDTPU_* default, as the JAX package does; an
     # explicit off value wins over the environment.
     knobs = dict(
         lint=_env.lint_mode() if lint is None else lint,
-        guard=_env.guard_default() if guard is None else guard,
         autotune=_env.autotune_default() if autotune is None else autotune,
         publish=_env.publish_every() if publish is None else publish,
     )
@@ -317,6 +346,7 @@ def make_train_step(
                 f"make_train_step({name}={value!r}) is not ported yet; it "
                 f"arrives with {_WAITING[name]}"
             )
+    guard_cfg = _resolve_guard(guard)
     overlap = bool(_env.overlap_default() if overlap is None else overlap)
     # stagger picks the overlap pipeline's side streams. Without overlap the
     # buckets go out after the backward in pack order, one after the other,
@@ -385,6 +415,16 @@ def make_train_step(
     # on it after its first step (ops/layout.py); pack order until then.
     issue_order: Dict[Any, list] = {}
 
+    def update(grads, state: TrainState, ok):
+        """The optimizer's update; under the guard, committed or skipped on
+        ``ok`` (a distributed wrapper selects its own state, and passes
+        ``ok`` to the fused kernel)."""
+        if ok is not None and opt.reduction is not None:
+            return opt.update(grads, state.opt_state, state.params, ok=ok)
+        return guarded_commit(
+            ok, *opt.update(grads, state.opt_state, state.params),
+            state.opt_state)
+
     def step_fn(state: TrainState, batch):
         for name, p in state.params.items():
             if p.device != dev:
@@ -392,6 +432,9 @@ def make_train_step(
                     f"parameter {name} is on {p.device}; this step runs on "
                     f"{dev}"
                 )
+        ok = new_guard = None
+        if guard_cfg is not None and state.guard is None:
+            state = dataclasses.replace(state, guard=fresh_state(dev))
         red = None
         if overlap and getattr(opt, "reduction", None):
             red = opt.reduction(state.opt_state, state.params)
@@ -402,8 +445,12 @@ def make_train_step(
                 loss_fn, state.params, batch, accum_steps, has_aux=has_aux
             )
             with torch.no_grad():
-                updates, new_opt = opt.update(grads, state.opt_state,
-                                              state.params)
+                if guard_cfg is not None:
+                    # The screen before anything commits; the update and its
+                    # collectives run whatever it says.
+                    ok, _, new_guard = check_gradients(
+                        grads, state.guard, guard_cfg, axis=axis)
+                updates, new_opt = update(grads, state, ok)
         else:
             # The reduce phase goes out bucket by bucket from the last
             # microbatch's gradient hooks; the update phase waits for every
@@ -416,13 +463,21 @@ def make_train_step(
             if layout not in issue_order:
                 issue_order[layout] = sched.agree_order()
             with torch.no_grad():
-                updates, new_opt = red.finish(*sched.wait(), state.params)
+                if guard_cfg is not None:
+                    ok, _, new_guard = check_gradients(
+                        sched.grads, state.guard, guard_cfg, axis=axis)
+                updates, new_opt = red.finish(*sched.wait(), state.params,
+                                              ok)
         with torch.no_grad():
             for name, p in state.params.items():
                 p.add_(updates[name])
             loss = allreduce(loss, op=Average, axis=axis)
-        new_state = TrainState(state.params, new_opt, state.step + 1,
-                               state.extra)
+        # A guarded step advances by its verdict; an unguarded one keeps a
+        # state's foreign guard bookkeeping as it is.
+        new_state = TrainState(
+            state.params, new_opt,
+            state.step + (1 if ok is None else ok.to(state.step.dtype)),
+            state.extra, state.guard if ok is None else new_guard)
         if has_aux:
             return new_state, loss, aux
         return new_state, loss
@@ -438,5 +493,12 @@ def make_train_step(
                            torch.cuda.get_device_name(dev))
         return {"tokens_per_s": tps, "mfu": m}
 
-    step_fn.throughput = throughput
-    return step_fn, opt
+    fn = step_fn
+    guard_runtime = None
+    if guard_cfg is not None:
+        guard_runtime = GuardRuntime(guard_cfg, sharded=sharded)
+        fn = guard_runtime.wrap(step_fn)
+    fn.throughput = throughput
+    fn.guard_config = guard_cfg
+    fn.guard_runtime = guard_runtime
+    return fn, opt

@@ -28,6 +28,7 @@ import time
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from .. import chaos as _chaos
 from ..ops.batching import BatchSpec, pack_requests, unpack_responses
 from ..utils import env as _env
 
@@ -164,7 +165,16 @@ class Dispatcher:
     # -- ingress -----------------------------------------------------------
 
     def submit(self, payload: Any) -> ServeFuture:
-        """Accept one single-example request; returns its future."""
+        """Accept one single-example request; returns its future.
+
+        Chaos site ``serve.request``: ``drop`` rejects here (the flaky
+        ingress a client retries), ``delay`` stalls the enqueue."""
+        if _chaos.enabled():
+            fault = _chaos.act("serve.request")
+            if fault is not None and fault.kind == "drop":
+                raise ServeRequestDropped(
+                    "chaos: injected serve request drop"
+                )
         with self._cond:
             if self._closed:
                 raise ServeRequestDropped("dispatcher is shut down")

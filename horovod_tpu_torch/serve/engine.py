@@ -46,6 +46,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import chaos as _chaos
 from ..context import resolve_device
 from ..elastic.scale import QueueDepthPolicy
 from ..ops.batching import pack_prompts, tree_map
@@ -129,9 +130,18 @@ class _Row:
         self.draft_table = draft_table
 
 
+class _InjectedCrash(Exception):
+    """The chaos ``serve.decode:crash`` kill of a decode worker's thread."""
+
+
 class DecodeWorker:
     """One decode replica: its paged KV pool(s) and a thread running the
-    admit -> step loop over ``rows`` fixed decode lanes."""
+    admit -> step loop over ``rows`` fixed decode lanes.
+
+    Chaos site ``serve.decode`` (context: the worker's name and its round
+    count as ``step``): ``crash`` kills the worker's thread mid-round --
+    its streams are requeued and resume elsewhere from prompt plus
+    committed tokens -- and ``delay`` stalls one round."""
 
     def __init__(self, engine: "DecodeEngine", name: str):
         self.engine = engine
@@ -154,6 +164,7 @@ class DecodeWorker:
             )
         self._stop = threading.Event()
         self._draining = threading.Event()
+        self._round = 0
         self._thread = threading.Thread(
             target=self._run, name=f"hvt-decode-{name}", daemon=True)
 
@@ -193,11 +204,26 @@ class DecodeWorker:
                             if not eng._queue and not self._stop.is_set():
                                 eng._cond.wait(0.02)
                         continue
+                    self._round += 1
+                    if _chaos.enabled():
+                        fault = _chaos.action(
+                            "serve.decode", worker=self.name,
+                            step=self._round)
+                        if fault is not None:
+                            if fault.kind == "crash":
+                                raise _InjectedCrash()
+                            if fault.kind == "delay":
+                                time.sleep(float(fault.value or 0.01))
                     if eng.spec_k:
                         self._spec_round()
                     else:
                         self._decode_round()
                     eng._note_round(self.n_active)
+        except _InjectedCrash:
+            log.warning("decode worker %s killed by chaos mid-round",
+                        self.name)
+            eng._worker_died(self)
+            return
         except Exception:  # noqa: BLE001 - any failed round: zero drops
             log.exception(
                 "decode worker %s failed a round; re-queueing its streams",

@@ -43,6 +43,13 @@ ACT_QUANT = "ACT_QUANT"  # int8 storage of remat'd activations: off|int8
 # yet: an armed value raises there as the explicit argument does.
 LINT = "LINT"  # default for make_train_step(lint=...): off|warn|raise
 GUARD = "GUARD"  # arm the in-graph gradient guard by default
+GUARD_SPIKE_SIGMA = "GUARD_SPIKE_SIGMA"  # z-score above the norm EMA
+GUARD_MAX_SKIPS = "GUARD_MAX_SKIPS"  # consecutive skips before escalation
+GUARD_WARMUP = "GUARD_WARMUP"  # ok-steps before spike detection arms
+GUARD_EMA_DECAY = "GUARD_EMA_DECAY"  # norm EMA decay (0, 1)
+GUARD_AUDIT_EVERY = "GUARD_AUDIT_EVERY"  # consistency-audit cadence (0=off)
+CHAOS = "CHAOS"  # fault-injection schedule (horovod_tpu_torch.chaos)
+CHAOS_SEED = "CHAOS_SEED"  # seed for probabilistic chaos rules
 PUBLISH_EVERY = "PUBLISH_EVERY"  # publish a delta every N commits; 0=off
 AUTOTUNE = "AUTOTUNE"  # closed-loop autotuner, trainer and serving pool
 
@@ -63,6 +70,11 @@ DEFAULT_SERVE_MAX_SEQ_LEN = 256
 DEFAULT_SERVE_SPEC_K = 0
 DEFAULT_QUANT_BLOCK = 256  # 4/256 = 1.6% fp32-scale overhead on the wire
 DEFAULT_FP8_AMAX_HISTORY = 16  # steps of amax memory behind each scale
+DEFAULT_GUARD_SPIKE_SIGMA = 6.0
+DEFAULT_GUARD_MAX_SKIPS = 8
+DEFAULT_GUARD_WARMUP = 20
+DEFAULT_GUARD_EMA_DECAY = 0.99
+DEFAULT_GUARD_AUDIT_EVERY = 100
 DEFAULT_PUBLISH_EVERY = 0  # weight streaming is opt-in
 DEFAULT_PREFETCH_DEPTH = 2  # double-buffered host-to-device staging
 
@@ -372,6 +384,46 @@ def act_quant_mode() -> str:
 def guard_default() -> bool:
     """Default for ``make_train_step(guard=...)`` when not passed."""
     return get_bool(GUARD, False)
+
+
+def guard_spike_sigma() -> float:
+    """Gradient-norm z-score (vs the EMA baseline) above which a step is
+    treated as a spike and skipped. Must be positive."""
+    sigma = get_float(GUARD_SPIKE_SIGMA, DEFAULT_GUARD_SPIKE_SIGMA)
+    if sigma <= 0:
+        raise ValueError(
+            f"HVDTPU_GUARD_SPIKE_SIGMA must be > 0, got {sigma}"
+        )
+    return sigma
+
+
+def guard_max_skips() -> int:
+    """Consecutive guard-skipped steps before the step wrapper escalates
+    to a recoverable ``HorovodInternalError`` (>= 1)."""
+    return max(1, get_int(GUARD_MAX_SKIPS, DEFAULT_GUARD_MAX_SKIPS))
+
+
+def guard_warmup() -> int:
+    """Committed steps observed before spike detection arms (NaN/Inf
+    screening is active from step 0 regardless)."""
+    return max(0, get_int(GUARD_WARMUP, DEFAULT_GUARD_WARMUP))
+
+
+def guard_ema_decay() -> float:
+    """Decay of the gradient-norm EMA baseline; must lie in (0, 1)."""
+    d = get_float(GUARD_EMA_DECAY, DEFAULT_GUARD_EMA_DECAY)
+    if not 0.0 < d < 1.0:
+        raise ValueError(
+            f"HVDTPU_GUARD_EMA_DECAY must be in (0, 1), got {d}"
+        )
+    return d
+
+
+def guard_audit_every() -> int:
+    """Cross-replica consistency-audit cadence in committed steps
+    (0 disables; the audit only runs in a world of more than one
+    process)."""
+    return max(0, get_int(GUARD_AUDIT_EVERY, DEFAULT_GUARD_AUDIT_EVERY))
 
 
 def publish_every() -> int:

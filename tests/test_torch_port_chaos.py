@@ -1,0 +1,331 @@
+"""The port's chaos plane (horovod_tpu_torch.chaos) held against the JAX
+package's: tests/test_chaos.py's TestSchedule, TestArming,
+TestWorkerStepSite and TestCkptSite have twins here, plus the serving
+sites of tests/test_decode.py::TestDecodeChaos and ``serve.request``.
+
+The schedule is held against the reference's parser on the same specs:
+the same rules, the same fires at the same occurrences, the same seeded
+streams. The sites the port does not have yet parse and are reached by
+nothing.
+"""
+
+import os
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from horovod_tpu import chaos as jchaos
+from horovod_tpu.chaos.schedule import parse as jparse
+from horovod_tpu_torch import chaos
+from horovod_tpu_torch import checkpoint as ckpt
+from horovod_tpu_torch.chaos.schedule import ChaosSpecError, SITES, parse
+
+
+@pytest.fixture(autouse=True)
+def _disarm():
+    """Every test starts and ends with nothing armed (and the env latch
+    reset, so a monkeypatched HVDTPU_CHAOS is honoured)."""
+    chaos._reset_for_tests()
+    yield
+    chaos._reset_for_tests()
+
+
+# ---- schedule grammar ---------------------------------------------------
+
+
+FULL = ("kv.request:drop@after=1;n=6, worker.step:crash@step=4;host=h2,"
+        "worker.step:slow=0.25@rank=1, ckpt.write:corrupt@step=5;spawn=0,"
+        "eager.dispatch:delay=0.2@p=0.1;every=2")
+
+
+class TestSchedule:
+    def test_catalog_is_the_reference_catalog(self):
+        assert SITES == jchaos.SITES
+
+    def test_parse_full_grammar(self):
+        p = parse(FULL, seed=3)
+        assert len(p.rules) == 5
+        kinds = sorted(r.kind for r in p.rules)
+        assert kinds == ["corrupt", "crash", "delay", "drop", "slow"]
+        j = jparse(FULL, seed=3)
+        assert [(r.site, r.kind, r.value, r.conds) for r in p.rules] == [
+            (r.site, r.kind, r.value, r.conds) for r in j.rules]
+
+    @pytest.mark.parametrize(
+        "bad",
+        [
+            "nosuchsite:drop",  # unknown site
+            "kv.request:corrupt",  # action illegal for site
+            "kv.request",  # no action
+            "worker.step:slow",  # value-carrying action without value
+            "kv.request:drop@p=1.5",  # probability out of range
+            "kv.request:drop@bogus=1",  # unknown condition
+            "kv.request:drop@step",  # condition without a value
+            "",  # empty schedule
+        ],
+    )
+    def test_parse_rejects(self, bad):
+        with pytest.raises(ChaosSpecError):
+            parse(bad)
+        with pytest.raises(jchaos.ChaosSpecError):
+            jparse(bad)
+
+    def test_step_and_n_conditions(self):
+        p = parse("eager.dispatch:timeout@step=3")
+        fires = [p.match("eager.dispatch", {}) is not None for _ in range(5)]
+        assert fires == [False, False, True, False, False]
+        p = parse("eager.dispatch:timeout@after=2;n=2")
+        fires = [p.match("eager.dispatch", {}) is not None for _ in range(5)]
+        assert fires == [False, True, True, False, False]
+
+    def test_every_condition_uses_ctx_step(self):
+        p = parse("ckpt.write:corrupt@every=2")
+        fires = [
+            p.match("ckpt.write", {"step": s}) is not None
+            for s in (1, 2, 3, 4, 7, 8)
+        ]
+        assert fires == [False, True, False, True, False, True]
+
+    def test_identity_filters_do_not_consume_occurrences(self):
+        p = parse("worker.step:crash@step=2;host=h1")
+        assert p.match("worker.step", {"host": "h2"}) is None
+        assert p.match("worker.step", {"host": "h2"}) is None
+        assert p.match("worker.step", {"host": "h1"}) is None  # its step 1
+        assert p.match("worker.step", {"host": "h1"}) is not None
+
+    def test_probabilistic_rules_replay_with_seed(self):
+        a = parse("eager.dispatch:delay=0.01@p=0.4", seed=11)
+        b = parse("eager.dispatch:delay=0.01@p=0.4", seed=11)
+        fa = [a.match("eager.dispatch", {}) is not None for _ in range(64)]
+        fb = [b.match("eager.dispatch", {}) is not None for _ in range(64)]
+        assert fa == fb
+        assert any(fa) and not all(fa)
+
+    @pytest.mark.parametrize("seed", [0, 11, 1234])
+    def test_fires_and_streams_are_the_reference(self, seed):
+        spec = ("eager.dispatch:delay=0.01@p=0.4,"
+                "ckpt.write:corrupt@every=3;n=4,"
+                "worker.step:slow=0.1@after=5;rank=1")
+        p, j = parse(spec, seed=seed), jparse(spec, seed=seed)
+        rs = np.random.RandomState(seed)
+        for i in range(60):
+            site = ("eager.dispatch", "ckpt.write", "worker.step")[i % 3]
+            ctx = {"step": i, "rank": int(rs.randint(0, 2))}
+            a, b = p.match(site, dict(ctx)), j.match(site, dict(ctx))
+            assert (a is None) == (b is None), (i, site)
+            if a is not None:
+                assert (a.kind, a.value) == (b.kind, b.value)
+                assert a.rng.random() == b.rng.random()
+
+    def test_spawn_filter_reads_env(self, monkeypatch):
+        monkeypatch.setenv("HVDTPU_SPAWN_ROUND", "1")
+        chaos.plan("worker.step:crash@step=1;spawn=0")
+        # crash would os._exit -- its NOT firing is the assertion.
+        assert chaos.action("worker.step", step=1) is None
+        monkeypatch.setenv("HVDTPU_SPAWN_ROUND", "0")
+        act = chaos.action("worker.step", step=1)
+        assert act is not None and act.kind == "crash"
+
+
+# ---- arming & the disabled fast path ------------------------------------
+
+
+class TestArming:
+    def test_disabled_by_default(self, monkeypatch):
+        monkeypatch.delenv("HVDTPU_CHAOS", raising=False)
+        chaos._reset_for_tests()
+        assert not chaos.enabled()
+        assert chaos.act("kv.request") is None
+
+    def test_env_arming(self, monkeypatch):
+        monkeypatch.setenv("HVDTPU_CHAOS", "eager.dispatch:timeout@step=1")
+        chaos._reset_for_tests()
+        assert chaos.enabled()
+        act = chaos.action("eager.dispatch")
+        assert act is not None and act.kind == "timeout"
+        assert chaos.fired == {"eager.dispatch": 1}
+
+    def test_env_seed_arms_the_streams(self, monkeypatch):
+        monkeypatch.setenv("HVDTPU_CHAOS", "eager.dispatch:delay=0@p=0.5")
+        monkeypatch.setenv("HVDTPU_CHAOS_SEED", "9")
+        chaos._reset_for_tests()
+        fires = [chaos.action("eager.dispatch") is not None
+                 for _ in range(32)]
+        ref = jparse("eager.dispatch:delay=0@p=0.5", seed=9)
+        assert fires == [ref.match("eager.dispatch", {}) is not None
+                         for _ in range(32)]
+
+    def test_env_arming_rejects_typos(self, monkeypatch):
+        monkeypatch.setenv("HVDTPU_CHAOS", "kv.request:dorp")
+        chaos._reset_for_tests()
+        with pytest.raises(ChaosSpecError):
+            chaos.enabled()
+
+    def test_clear_disarms(self):
+        chaos.plan("eager.dispatch:timeout")
+        assert chaos.enabled()
+        chaos.clear()
+        assert not chaos.enabled()
+        assert chaos.act("eager.dispatch") is None
+
+    def test_unknown_site_raises_at_the_site(self):
+        chaos.plan("eager.dispatch:timeout")
+        with pytest.raises(ChaosSpecError):
+            chaos.action("no.such.site")
+
+    def test_generic_delay_runs_inline(self):
+        chaos.plan("serve.request:delay=0.05")
+        t0 = time.monotonic()
+        assert chaos.act("serve.request") is None
+        assert time.monotonic() - t0 >= 0.05
+
+    def test_sites_are_noops_when_unarmed(self):
+        from horovod_tpu_torch.serve.dispatcher import Dispatcher
+
+        d = Dispatcher(batch_size=2, batch_timeout_ms=1.0)
+        fut = d.submit(np.ones(3, np.float32))
+        assert not fut.done() and d.n_submitted == 1
+        d.close()
+
+
+# ---- worker.step site ---------------------------------------------------
+
+
+class TestWorkerStepSite:
+    def test_slow_commit_straggles(self):
+        from horovod_tpu_torch.elastic.state import ObjectState
+
+        st = ObjectState(x=1)
+        chaos.plan("worker.step:slow=0.15@step=2")
+        t0 = time.monotonic()
+        st.commit()  # step 1: no fault
+        fast = time.monotonic() - t0
+        t0 = time.monotonic()
+        st.commit()  # step 2: injected straggle
+        slow = time.monotonic() - t0
+        assert slow >= 0.15 and slow > fast
+        assert chaos.fired == {"worker.step": 1}
+
+
+# ---- ckpt.write site + restore fallback ---------------------------------
+
+
+class TestCkptSite:
+    def _state(self, i):
+        return {"w": torch.full((64,), float(i)), "step": np.int64(i)}
+
+    def test_corrupt_write_detected_and_walked_back(self, tmp_path):
+        d = str(tmp_path)
+        ckpt.save_checkpoint(d, self._state(1), step=1)
+        chaos.plan("ckpt.write:corrupt@step=2")
+        ckpt.save_checkpoint(d, self._state(2), step=2)
+        chaos.clear()
+        restored = ckpt.restore_checkpoint(d, self._state(0))
+        assert int(restored["step"]) == 1
+        assert any(".corrupt" in n for n in os.listdir(d))
+
+    def test_truncate_write_detected(self, tmp_path):
+        d = str(tmp_path)
+        ckpt.save_checkpoint(d, self._state(3), step=3)
+        chaos.plan("ckpt.write:truncate@step=4")
+        ckpt.save_checkpoint(d, self._state(4), step=4)
+        chaos.clear()
+        assert ckpt.verify_step_dir(os.path.join(d, "step_4"))
+        assert not ckpt.verify_step_dir(os.path.join(d, "step_3"))
+
+    def test_other_steps_write_clean(self, tmp_path):
+        d = str(tmp_path)
+        chaos.plan("ckpt.write:corrupt@step=9")
+        for s in (1, 2):
+            ckpt.save_checkpoint(d, self._state(s), step=s)
+            assert not ckpt.verify_step_dir(os.path.join(d, f"step_{s}"))
+        assert chaos.fired == {}
+
+
+# ---- serving sites ------------------------------------------------------
+
+
+class TestServeRequestSite:
+    def test_drop_rejects_at_the_door(self):
+        from horovod_tpu_torch.serve.dispatcher import (
+            Dispatcher,
+            ServeRequestDropped,
+        )
+
+        d = Dispatcher(batch_size=2, batch_timeout_ms=1.0)
+        chaos.plan("serve.request:drop@step=2")
+        d.submit(np.ones(3, np.float32))
+        with pytest.raises(ServeRequestDropped, match="chaos"):
+            d.submit(np.ones(3, np.float32))
+        d.submit(np.ones(3, np.float32))
+        assert d.n_submitted == 2
+        d.close()
+
+    def test_pool_answers_every_request_that_got_in(self):
+        from horovod_tpu_torch.serve import ServePool
+        from horovod_tpu_torch.serve.dispatcher import ServeRequestDropped
+
+        chaos.plan("serve.request:drop@every=3")
+        pool = ServePool(lambda p, b: b * p["w"], {"w": torch.full((1,), 2.0)},
+                         device="cpu", batch_size=4).start()
+        try:
+            futs, dropped = [], 0
+            for i in range(9):
+                try:
+                    futs.append((i, pool.submit(np.full(3, i, np.float32))))
+                except ServeRequestDropped:
+                    dropped += 1
+            for i, f in futs:
+                np.testing.assert_array_equal(np.asarray(f.result(timeout=30)),
+                                              np.full(3, 2.0 * i))
+        finally:
+            pool.stop()
+        assert dropped == 3 and len(futs) == 6
+
+
+def _decode_engine(**kw):
+    from horovod_tpu_torch.serve import CacheLM, CacheLMConfig, DecodeEngine
+
+    cfg = CacheLMConfig(vocab=32, n_layers=2, n_heads=2, head_dim=8,
+                        max_positions=256)
+    model = CacheLM(cfg, block_size=8)
+    base = dict(workers=1, rows=2, kv_blocks=32, kv_block_size=8,
+                max_seq_len=64, device="cpu")
+    base.update(kw)
+    return DecodeEngine(model, model.init_params(0, device="cpu"), **base)
+
+
+class TestDecodeChaos:
+    def test_site_in_catalog(self):
+        assert SITES["serve.decode"] == ("crash", "delay")
+
+    def test_crash_kills_worker_streams_resume(self):
+        clean = _decode_engine(workers=2).start()
+        try:
+            want = [clean.submit([1 + i, 2], 16).result(timeout=60)
+                    for i in range(4)]
+        finally:
+            clean.stop()
+        chaos.plan("serve.decode:crash@step=3;n=1")
+        eng = _decode_engine(workers=2).start()
+        try:
+            futs = [eng.submit([1 + i, 2], 16) for i in range(4)]
+            outs = [f.result(timeout=60) for f in futs]
+            assert all(len(o) == 16 for o in outs)
+            assert eng.n_requeued > 0
+            assert eng.n_workers == 1  # the victim is gone
+        finally:
+            eng.stop()
+        assert [list(o) for o in outs] == [list(o) for o in want]
+        assert chaos.fired == {"serve.decode": 1}
+
+    def test_delay_stalls_but_completes(self):
+        chaos.plan("serve.decode:delay=0.005@every=2")
+        eng = _decode_engine().start()
+        try:
+            assert len(eng.submit([3, 3], 8).result(timeout=30)) == 8
+        finally:
+            eng.stop()
+        assert chaos.fired["serve.decode"] >= 3

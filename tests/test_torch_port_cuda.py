@@ -1616,3 +1616,157 @@ def test_channels_last_boundary_is_the_nhwc_plain_one(gen):
     torch.cuda.synchronize()
     assert got.is_contiguous(memory_format=torch.channels_last)
     assert torch.equal(got.permute(0, 2, 3, 1).cpu(), want)
+
+
+# -- the gradient guard's skip flag in kernel 6 ------------------------------
+
+
+@pytest.mark.parametrize("p_dtype,m_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16),
+])
+@pytest.mark.parametrize("n,offset", [(1_000_003, 0), (4099, 1), (7, 0)])
+def test_fused_adamw_skip_flag(gen, p_dtype, m_dtype, n, offset):
+    # ok = 0: every update element -0.0 and the moments untouched, in place
+    # or out of place; ok = 1: bit for bit the flagless kernel.
+    def rand(scale, dtype):
+        x = torch.randn((n + offset,), generator=gen, device="cuda") * scale
+        return x.to(dtype)[offset:]
+
+    p, g = rand(1.0, p_dtype), rand(0.1, p_dtype)
+    g[0] = float("nan")
+    m, v = rand(0.01, m_dtype), rand(0.03, m_dtype).square()
+    c = torch.tensor(3, dtype=torch.int32, device="cuda")
+    spec = fadam.FusedAdamSpec(3e-3, weight_decay=0.05)
+    for ok_value in (0, 1):
+        ok = torch.tensor(ok_value, dtype=torch.int32, device="cuda")
+        mk, vk = m.clone(), v.clone()
+        fadam.reset_launches()
+        u = fadam.fused_adamw_update(p, mk, vk, g, c, spec, ok)
+        torch.cuda.synchronize()
+        assert fadam.launches == 1
+        want = fadam.fused_adamw_update_reference(p, m, v, g, c, spec, ok)
+        if ok_value == 0:
+            assert torch.equal(mk, m) and torch.equal(vk, v)
+            assert (u == 0).all() and torch.signbit(u.float()).all()
+            assert torch.equal(p + u, p)
+            for got, ref in zip((u, mk, vk), want):
+                assert torch.equal(got, ref)
+        else:
+            mf, vf = m.clone(), v.clone()
+            uf = fadam.fused_adamw_update(p, mf, vf, g, c, spec)
+            assert torch.equal(u[1:], uf[1:]) and torch.equal(mk[1:], mf[1:])
+            assert torch.equal(vk[1:], vf[1:])
+
+
+def test_fused_adamw_skip_flag_rejects_a_bool_or_cpu_flag(gen):
+    x = torch.zeros((16,), device="cuda")
+    c = torch.zeros((), dtype=torch.int32, device="cuda")
+    spec = fadam.FusedAdamSpec(1e-3)
+    with pytest.raises(TypeError, match="ok must be an int32"):
+        fadam.fused_adamw_update(x, x.clone(), x.clone(), x, c, spec,
+                                 torch.tensor(True, device="cuda"))
+    with pytest.raises(TypeError, match="ok must be an int32"):
+        fadam.fused_adamw_update(x, x.clone(), x.clone(), x, c, spec,
+                                 torch.tensor(1, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("int8_wire", [False, True])
+def test_guarded_zero1_step_skips_a_nan_step_on_the_card(gen, int8_wire):
+    # GPT-2 tiny at head dim 64, ZeRO-1 with the fused kernel (and the int8
+    # wire): a NaN batch weight skips the step, leaving the parameters,
+    # moments, count, EF residuals and step bit for bit; the kernel launches
+    # once a bucket with the flag down; the next clean step commits.
+    import horovod_tpu_torch as hvt
+    import torch.nn.functional as F
+    from horovod_tpu_torch.guard import GuardConfig
+
+    cfg = hvt.GPT2Config.tiny(d_model=128, n_heads=2,
+                              param_dtype=torch.float32)
+    hvt.init(backend="nccl")
+    try:
+        model = hvt.GPT2LMModel(cfg)
+        model.load_state_dict(hvt.convert.init_params(cfg, seed=0))
+
+        def loss_fn(p, b):
+            t, wgt = b
+            logits = torch.func.functional_call(model, p, (t[:, :-1],))
+            ce = F.cross_entropy(logits.flatten(0, 1), t[:, 1:].flatten(),
+                                 reduction="none").view(t.shape[0], -1)
+            return (ce.mean(-1) * wgt).mean()
+
+        kw = dict(compression=hvt.Compression.int8) if int8_wire else {}
+        step, opt = hvt.make_train_step(
+            loss_fn, hvt.fused_adamw(1e-3), sharded=True, fused_update=True,
+            guard=GuardConfig(warmup=3, max_skips=2, audit_every=0), **kw)
+        state = hvt.init_state(model, opt)
+        tokens = torch.randint(0, cfg.vocab_size, (4, 65), device="cuda",
+                               generator=gen)
+        ones = torch.ones(4, device="cuda")
+        poison = ones.clone()
+        poison[2] = float("nan")
+        for _ in range(2):
+            state, _ = step(state, (tokens, ones))
+
+        def snap(s):
+            t = [p.detach().clone() for p in s.params.values()]
+            t += [b.clone() for b in s.opt_state.inner.mu.buffers
+                  + s.opt_state.inner.nu.buffers]
+            t += [s.opt_state.inner.count.clone(), s.opt_state.count.clone(),
+                  s.step.clone()]
+            if s.opt_state.residual is not None:
+                t += [b.clone() for b in s.opt_state.residual.buffers]
+            return t
+
+        before = snap(state)
+        n_buckets = len(state.opt_state.inner.mu.buffers)
+        fadam.reset_launches()
+        tq.reset_launches()
+        state, loss = step(state, (tokens, poison))
+        torch.cuda.synchronize()
+        assert fadam.launches == n_buckets
+        if int8_wire:
+            assert tq.launches_quant == tq.launches_dequant == 2 * n_buckets
+        assert all(torch.equal(a, b) for a, b in zip(before, snap(state)))
+        assert int(state.guard.skipped) == 1 and int(state.step) == 2
+        state, _ = step(state, (tokens, ones))
+        assert int(state.step) == 3 and int(state.guard.consecutive) == 0
+    finally:
+        hvt.shutdown()
+
+
+def test_gspmd_one_rank_mesh_runs_the_kernels_on_the_card(gen):
+    # GPT-2 tiny at head dim 64 placed as DTensors on a one-rank mesh: the
+    # forward and backward reach kernels 1-3 once a layer each, and the
+    # logits and gradients agree with the dense module's.
+    import horovod_tpu_torch as hvt
+    from horovod_tpu_torch.parallel import gspmd
+    from torch.distributed.device_mesh import DeviceMesh
+
+    cfg = hvt.GPT2Config.tiny(d_model=128, n_heads=2)
+    hvt.init(backend="nccl")
+    try:
+        sd = hvt.convert.init_params(cfg, seed=0)
+        dense, sharded = hvt.GPT2LMModel(cfg), hvt.GPT2LMModel(cfg)
+        dense.load_state_dict(sd)
+        sharded.load_state_dict(sd)
+        mesh = DeviceMesh("cuda", [0], mesh_dim_names=("tp",))
+        gspmd.shard_params(sharded, mesh)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 64), device="cuda",
+                               generator=gen)
+        fa.reset_launches()
+        logits = sharded(tokens).full_tensor()
+        logits.float().logsumexp(-1).mean().backward()
+        torch.cuda.synchronize()
+        assert (fa.launches, fa.launches_dkdv, fa.launches_dq) == (2, 2, 2)
+        want = dense(tokens)
+        want.float().logsumexp(-1).mean().backward()
+        # bf16: [train]'s bound (DTensor may order an op's work otherwise).
+        assert (logits - want).abs().max() <= 1e-2 * want.abs().max()
+        ref = dict(dense.named_parameters())
+        for name, p in sharded.named_parameters():
+            g = p.grad.full_tensor().reshape(ref[name].shape).float()
+            r = ref[name].grad.float()
+            assert (g - r).abs().max() <= 1e-2 * r.abs().max() + 1e-6, name
+    finally:
+        hvt.shutdown()

@@ -179,6 +179,13 @@ def test_unported_train_step_knobs_raise_naming_their_slice(knob, value):
             jaq.resolve_mode("int4")
         with pytest.raises(ValueError, match="not recognized"):
             _port_build(act_quant="int4")
+    elif knob == "guard":
+        # Ported (test_torch_port_guard.py): the step screens its gradients
+        # and keeps the guard's bookkeeping; on clean data it is the
+        # unguarded step bit for bit.
+        run = _knob_step_runs(**{knob: value})
+        assert run["guarded"] == [True]
+        assert run["params"] == _knob_step_runs()["params"]
     elif knob == "compute_dtype":
         # Ported: fp8 compute builds on the replicated path and refuses
         # ZeRO-1, as the JAX package does (test_torch_port_fp8_train.py).
@@ -232,8 +239,8 @@ def _port_build(**kw):
 def _knob_step_runs(**kw):
     """Two steps of a small regression (one bucket a leaf) through
     make_train_step(**kw) on one process: the parameters, the act-quant
-    mode the loss ran under, and whether a bucket was reduced inside the
-    backward."""
+    mode the loss ran under, whether a bucket was reduced inside the
+    backward, and whether the state carries the guard's bookkeeping."""
     from horovod_tpu_torch.ops import actquant as taq
     from horovod_tpu_torch.ops import fusion as tfusion
 
@@ -261,7 +268,8 @@ def _knob_step_runs(**kw):
         tfusion.reduce_bucket = orig
     return {"params": {k: v.detach().numpy().tobytes()
                        for k, v in state.params.items()},
-            "modes": sorted(set(modes)), "inside": sorted(set(inside))}
+            "modes": sorted(set(modes)), "inside": sorted(set(inside)),
+            "guarded": [state.guard is not None]}
 
 
 def _remat_step_runs(remat=None):
@@ -341,6 +349,13 @@ def test_armed_env_default_raises_like_the_explicit_argument(
         assert on["inside"] == [True] and off_run["inside"] == [False]
         assert on["params"] == off_run["params"]
         assert _knob_step_runs(overlap=True)["inside"] == [True]
+        return
+    if knob == "guard":
+        # Ported: the armed default guards the step, as guard=True does,
+        # and an explicit False wins over the environment.
+        assert _knob_step_runs()["guarded"] == [True]
+        assert _knob_step_runs(guard=True)["guarded"] == [True]
+        assert _knob_step_runs(guard=off)["guarded"] == [False]
         return
     if knob == "act_quant":
         # Ported: the armed default runs the loss with the boundaries
