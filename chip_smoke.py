@@ -443,15 +443,41 @@ Phases (any failure exits non-zero; nothing is caught):
    dies, its streams requeue (n_requeued > 0, one worker left) and every
    stream's tokens equal the clean run's (a difference only at a near-tie
    the full recompute confirms).
-29. Output: a "kernels" JSON line (the nine TPU kernels' counterparts and
+29. [launch] ``python -m horovod_tpu_torch.runner.launch -np 1 -H
+   localhost:1`` starts a worker that takes [train]'s configuration for 3
+   steps in a one-rank NCCL world whose store rank 0 published through
+   the launcher's rendezvous KV: rc 0, 12/12/12 + 4 launches a step, the
+   losses [train]'s first three bit for bit (else [train]'s bound, the
+   reason printed).
+30. [elastic-recover] run_elastic in this process on a discovery script
+   that prints localhost:1 (blacklist cooldown 1 s): [train-guard]'s
+   configuration through hvt.elastic.run for 8 commits, checkpointed at
+   3 and 6, clean and under worker.step:crash@step=5;spawn=0 (the host
+   returns on probation, the respawn restores the step-3 checkpoint and
+   runs to 8): both rc 0, the final parameters and optimizer state bit
+   for bit (else [train]'s bound, the reason printed), [train-guard]'s
+   launches a step; the time to recover, split (crash to exit seen, the
+   cooldown to the new round, respawn to a formed world with its kernels
+   loaded, the restore, the first step after it).
+31. [serve-kv] a KVServeCoordinator on the driver's rendezvous server and
+   two serving worker processes (localhost, 127.0.0.1) on the card, each
+   GPT-2 small bf16 from init_params(seed=0): 64 requests of 1024 tokens,
+   batch 8, clean and with serve.dispatch:crash@step=2;host=127.0.0.1;
+   spawn=0: zero dropped, requests requeued in the chaos run, 12 kernel-1
+   launches a batch in each worker, every answer (the greedy next-token
+   id at every position) equal to this process's forward of the request
+   (a difference only at a near-tie the full recompute confirms);
+   requests/s and wall of both runs.
+32. Output: a "kernels" JSON line (the nine TPU kernels' counterparts and
    the cast kernel; "launches" is the training run's count -- for the
    quantize pair the int8 [train-quant] run's (beside it the
    [ckpt-reshard] and int8 [decode] runs' and the KV shapes' times as
    "kv_write" / "kv_gather"), for kernel 8 and the cast kernel the fp8
    [train-fp8] run's, for kernel 7 the [serve-int8] rounds' -- the forward
    kernel's serving count beside it as "launches_serve", and the flash
-   kernels', AdamW's and (from 22.) the quantize pair's counts in 18.-27.,
-   each read over its own run, as "launches_phases"; the flash rows' ring
+   kernels', AdamW's and (from 22.) the quantize pair's counts in 18.-31.,
+   each read over its own run, as "launches_phases" (29.-31. counted in
+   the worker processes); the flash rows' ring
    times at n = 2, 4 and the whole sequence as "ring_flash_*"; the quantize pair's
    times at an act-quant boundary as "boundary"), the card's name and power limit, and the last line
    {"ok": true, "device": {...}}.
@@ -5428,6 +5454,567 @@ def decode_chaos(hvt):
     return rec
 
 
+# ---- the launcher: [launch], [elastic-recover], [serve-kv] ------------------
+
+# The workers these phases start are chaos_soak's harness workers:
+# WORKER_PRELUDE (its log() appends JSON records to the run's
+# progress.jsonl, which chaos_soak.read_records reads back), then the
+# constants, this shared part and the phase's body. record() stamps each
+# record with the worker's host, spawn round and wall time (one clock:
+# every process runs on this machine).
+WORKER_COMMON = '''
+import horovod_tpu_torch as hvt
+from horovod_tpu_torch.ops import _build
+from horovod_tpu_torch.ops import flash_attention as fa
+from horovod_tpu_torch.ops import fused_adamw as fadam
+from horovod_tpu_torch.parallel import dp
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+DEVICE = "cuda"
+SPAWN = int(os.environ.get("HVDTPU_SPAWN_ROUND", "-1"))
+
+
+def record(rec):
+    log(dict(rec, host=host_id, spawn=SPAWN, t=time.time()))
+
+
+def world():
+    """This worker's world: NCCL on the card, bootstrapped over the
+    launcher's KV; then the kernels the step runs, loaded."""
+    hvt.init(backend="nccl")
+    for src in (fa.KERNEL_SOURCE, fa.BWD_SOURCE, fadam.KERNEL_SOURCE):
+        _build.load(src)
+
+
+def batch_tokens(cfg, batch):
+    return torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (batch, cfg.max_len + 1), dtype=np.int64)
+    ).to(DEVICE)
+
+
+def counts():
+    return {"flash_fwd": fa.launches, "flash_bwd_dkdv": fa.launches_dkdv,
+            "flash_bwd_dq": fa.launches_dq, "fused_adamw": fadam.launches}
+
+
+def reset():
+    fa.reset_launches()
+    fadam.reset_launches()
+
+
+def digests(tree):
+    """sha256 of every tensor's bytes, in the tree's walk order."""
+    import hashlib
+
+    out = []
+    hvt.checkpoint.map_tensors(lambda t: out.append(hashlib.sha256(
+        t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy()
+    ).hexdigest()) or t, tree)
+    return out
+'''
+
+# [launch]: [train]'s configuration, LAUNCH_STEPS steps, one rank.
+LAUNCH_WORKER = '''
+import torch.nn.functional as F
+
+world()
+cfg = hvt.GPT2Config.small(param_dtype=torch.float32)
+model = hvt.GPT2LMModel(cfg, device=DEVICE)
+model.load_state_dict(hvt.convert.init_params(cfg, seed=0))
+
+
+def loss_fn(params, tokens):
+    logits = torch.func.functional_call(model, params, (tokens[:, :-1],))
+    return F.cross_entropy(logits.flatten(0, 1), tokens[:, 1:].flatten())
+
+
+step, opt = hvt.make_train_step(loss_fn, hvt.fused_adamw(LR), sharded=True,
+                                fused_update=True, device=DEVICE)
+state = dp.init_state(model, opt)
+tokens = batch_tokens(cfg, BATCH)
+losses, launches = [], []
+for _ in range(STEPS):
+    reset()
+    state, loss = step(state, tokens)
+    losses.append(float(loss))
+    launches.append(counts())
+record({"rank": hvt.rank(), "size": hvt.size(),
+        "backend": hvt.context.context().backend,
+        "kv_store": not os.environ.get("MASTER_ADDR"),
+        "losses": losses, "launches": launches})
+hvt.shutdown()
+'''
+
+# [elastic-recover]: [train-guard]'s configuration through hvt.elastic.run
+# for RECOVER_COMMITS commits, checkpointed at RECOVER_CKPT_AT; resumes from
+# the newest checkpoint when one exists (the respawn).
+RECOVER_WORKER = '''
+import torch.nn.functional as F
+
+from horovod_tpu_torch.elastic import worker as ew
+from horovod_tpu_torch.guard import GuardConfig
+
+record({"event": "started"})
+t0 = time.time()
+world()
+record({"event": "ready", "init_s": time.time() - t0,
+        "join": ew.last_join})
+cfg = hvt.GPT2Config.small(param_dtype=torch.float32)
+model = hvt.GPT2LMModel(cfg, device=DEVICE)
+model.load_state_dict(hvt.convert.init_params(cfg, seed=0))
+
+
+def loss_fn(params, batch):
+    tokens, weight = batch
+    logits = torch.func.functional_call(model, params, (tokens[:, :-1],))
+    ce = F.cross_entropy(logits.flatten(0, 1), tokens[:, 1:].flatten(),
+                         reduction="none")
+    return (ce.view(tokens.shape[0], -1).mean(-1) * weight).mean()
+
+
+guard = GuardConfig(**GUARD)
+step, opt = hvt.make_train_step(loss_fn, hvt.fused_adamw(LR), sharded=True,
+                                fused_update=True, guard=guard, device=DEVICE)
+state = dp.init_state(model, opt, guard=guard)
+tokens = batch_tokens(cfg, BATCH)
+batch = (tokens, torch.ones(BATCH, device=DEVICE))
+t0 = time.time()
+try:
+    state = hvt.checkpoint.restore_checkpoint(CKDIR, state)
+    resumed = int(state.step)
+except FileNotFoundError:
+    resumed = None
+record({"event": "restored", "step": resumed, "restore_s": time.time() - t0})
+est = hvt.elastic.TrainState(params=state.params, opt_state=state.opt_state,
+                             step=state.step, guard=state.guard)
+
+
+@hvt.elastic.run
+def train(st):
+    while int(st.step) < COMMITS:
+        cur = dp.TrainState(st.params, st.opt_state, st.step, None, st.guard)
+        reset()
+        t1 = time.time()
+        new, loss = step(cur, batch)
+        loss = float(loss)
+        c = counts()
+        st.params, st.opt_state, st.step, st.guard = (
+            new.params, new.opt_state, new.step, new.guard)
+        s = int(new.step)
+        record({"step": s, "loss": loss, "launches": c, "t0": t1,
+                "t1": time.time()})
+        if s in CKPT_AT:
+            hvt.checkpoint.save_checkpoint(
+                CKDIR, dp.TrainState(st.params, st.opt_state, st.step, None,
+                                     st.guard), step=s, keep=2)
+        record({"event": "commit", "step": s})
+        st.commit()
+    return st
+
+
+train(est)
+torch.save({"params": {k: v.detach().cpu() for k, v in est.params.items()},
+            "opt_sha256": digests(est.opt_state), "step": int(est.step)},
+           FINAL)
+record({"event": "done"})
+hvt.shutdown()
+'''
+
+# [serve-kv]: GPT-2 small bf16 from init_params(seed=0) answering the KV
+# transport's leases: the greedy next-token id at every position.
+SERVE_KV_WORKER = '''
+from horovod_tpu_torch.elastic import worker as ew
+from horovod_tpu_torch.serve import kv as skv
+
+rank, size = ew.join_world()
+cfg = hvt.GPT2Config.small()
+model = hvt.GPT2LMModel(cfg, device=DEVICE)
+model.load_state_dict(hvt.convert.init_params(cfg, seed=0))
+with torch.inference_mode():  # kernels loaded, the batch shape met once
+    model(torch.zeros(BATCH, cfg.max_len, dtype=torch.long, device=DEVICE))
+record({"event": "ready", "rank": rank})
+per_batch = []
+
+
+def infer(batch):
+    fa.reset_launches()
+    ids = model(batch.long()).argmax(-1).float()
+    per_batch.append(fa.launches)
+    return ids
+
+
+served = skv.kv_worker_serve_loop(
+    infer, host_id=host_id, poll_secs=0.02, device=DEVICE,
+    on_batch=lambda rec: record(dict(rec, event="batch",
+                                     flash=per_batch[-1])))
+record({"event": "served", "batches": served})
+ew.heartbeat_stop()
+sys.exit(0)
+'''
+
+LAUNCH_STEPS = 3
+RECOVER_COMMITS, RECOVER_CKPT_AT, RECOVER_CRASH_AT = 8, (3, 6), 5
+SERVE_KV_REQUESTS = 64
+SERVE_KV_CRASH = "serve.dispatch:crash@step=2;host=127.0.0.1;spawn=0"
+WORKER_TIMEOUT_S = 300.0
+
+
+def phase_dir(prefix: str) -> Path:
+    """A fresh directory for a phase's workers under the ignored _build/."""
+    from horovod_tpu_torch.ops import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return Path(tempfile.mkdtemp(prefix=prefix, dir=_build.BUILD_DIR))
+
+
+def worker_source(body: str, **consts) -> str:
+    head = "".join(f"{k} = {v!r}\n" for k, v in consts.items())
+    return head + WORKER_COMMON + body
+
+
+def summed(per_step):
+    return {k: sum(c[k] for c in per_step) for k in per_step[0]}
+
+
+def run_group(cmd, env, timeout, cwd):
+    """Run ``cmd`` in a session of its own; on the timeout kill the whole
+    group (the launcher and its workers) and raise."""
+    proc = subprocess.Popen(cmd, env=env, cwd=cwd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        raise AssertionError(f"{cmd} outlived {timeout} s")
+    return proc.returncode, out, err
+
+
+def launch_phase(hvt, trained):
+    """[launch]: ``python -m horovod_tpu_torch.runner.launch -np 1 -H
+    localhost:1`` runs a worker that takes [train]'s configuration for
+    LAUNCH_STEPS steps in a one-rank NCCL world bootstrapped over the
+    launcher's KV."""
+    from horovod_tpu_torch.tools.chaos_soak import (WORKER_PRELUDE,
+                                                    read_records)
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    root = Path(__file__).resolve().parent
+    workdir = phase_dir("launch-")
+    try:
+        worker = workdir / "worker.py"
+        worker.write_text(WORKER_PRELUDE + worker_source(
+            LAUNCH_WORKER, BATCH=TRAIN_BATCH, LR=TRAIN_LR,
+            STEPS=LAUNCH_STEPS))
+        env = dict(os.environ, PYTHONPATH=str(root), PYTHONUNBUFFERED="1",
+                   HVDTPU_TEST_WORKDIR=str(workdir),
+                   HVDTPU_HOST_ID="localhost")
+        cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
+               "-np", "1", "-H", "localhost:1", sys.executable, str(worker)]
+        t0 = time.perf_counter()
+        rc, _, err = run_group(cmd, env, WORKER_TIMEOUT_S, root)
+        wall = time.perf_counter() - t0
+        recs = read_records(str(workdir))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    if rc != 0 or len(recs) != 1:
+        raise AssertionError(f"[launch] rc {rc}, records {recs}: {err[-3000:]}")
+    r = recs[0]
+    want = trained["losses"][:LAUNCH_STEPS]
+    bitwise = r["losses"] == want
+    rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], want))
+    launches = r["launches"]
+    rec = {"rc": rc, "wall_s": wall, "rank": r["rank"], "size": r["size"],
+           "backend": r["backend"], "kv_store": r["kv_store"],
+           "losses": r["losses"], "train_losses": want,
+           "losses_bitwise": bitwise, "losses_max_rel": rel,
+           "launches_per_step": launches, "launches": summed(launches)}
+    log(f"[launch] hvdtpu-run-torch -np 1 -H localhost:1: rc {rc}, wall "
+        f"{wall:.1f} s (process start, CUDA init, kernel load, GPT-2 small "
+        f"build, {LAUNCH_STEPS} steps); rank {r['rank']}/{r['size']} "
+        f"{r['backend']} world over the KV's store {r['kv_store']}; losses "
+        f"{r['losses']} vs [train]'s {want}: bit for bit {bitwise}; launches "
+        f"a step {launches}")
+    if r["size"] != 1 or not r["kv_store"]:
+        raise AssertionError(f"[launch] {rec}")
+    cfg = hvt.GPT2Config.small(param_dtype=torch.float32)
+    check_counts("launch", rec["launches"], {
+        "flash_fwd": cfg.n_layers, "flash_bwd_dkdv": cfg.n_layers,
+        "flash_bwd_dq": cfg.n_layers,
+        "fused_adamw": len(trainer_bucket_sizes(hvt, cfg))}, LAUNCH_STEPS)
+    if not bitwise:
+        log(f"[launch] the launched losses are not [train]'s bit for bit "
+            f"(largest relative difference {rel:.3e}): a step on the card "
+            f"is not bitwise repeatable across processes here; held to "
+            f"[train]'s bound {STEP_GRAD_TOL}")
+        if not rel <= STEP_GRAD_TOL:
+            raise AssertionError(f"[launch] {rec}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
+def _first(events, kind, after, host=None):
+    for e in events:
+        if e[0] == kind and e[2] >= after and (host is None or e[1] == host):
+            return e
+    raise AssertionError(f"no {kind} event after {after}: {events}")
+
+
+def recover_split(recs, events):
+    """The time to recover, split: the crash (the last record before the
+    crashed commit) to the driver's reaping of the exit; that to the
+    round the host re-enters on probation (the cooldown and discovery);
+    the respawn's spawn to its world formed and its kernels loaded (start,
+    join, CUDA and NCCL init); the checkpoint restore; the first step
+    after the restore."""
+    crash = max(r["t"] for r in recs if r.get("spawn") == 0
+                and r.get("event") == "commit")
+    exit_ = _first(events, "exit", crash)
+    round_ = _first(events, "round", exit_[2])
+    spawn = _first(events, "spawn", exit_[2])
+    new = [r for r in recs if r.get("spawn", 0) > 0]
+    started = next(r for r in new if r.get("event") == "started")
+    ready = next(r for r in new if r.get("event") == "ready")
+    restored = next(r for r in new if r.get("event") == "restored")
+    first = next(r for r in new if "loss" in r)
+    split = {"crash_to_exit_seen_s": exit_[2] - crash,
+             "cooldown_to_round_s": round_[2] - exit_[2],
+             "spawn_to_world_s": ready["t"] - spawn[2],
+             "spawn_to_started_s": started["t"] - spawn[2],
+             "started_to_world_s": ready["t"] - started["t"],
+             "round_join_s": ready["join"].get("secs"),
+             "restore_s": restored["restore_s"],
+             "first_step_s": first["t1"] - first["t0"],
+             "total_s": first["t1"] - crash,
+             "resumed_at": restored["step"]}
+    return split
+
+
+def elastic_recover(hvt):
+    """[elastic-recover]: run_elastic in this process on a discovery script
+    that prints localhost:1 (cooldown 1 s; every other setting the
+    launcher's own, none of the harness's speed-ups), the worker running
+    [train-guard]'s configuration through hvt.elastic.run for
+    RECOVER_COMMITS commits, clean and under worker.step:crash at commit
+    RECOVER_CRASH_AT (the respawn restores the step-3 checkpoint)."""
+    from horovod_tpu_torch.tools.chaos_soak import run_elastic_scenario
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    workdir = phase_dir("recover-")
+    runs = {}
+    try:
+        for label, chaos in (
+                ("clean", None),
+                ("chaos", f"worker.step:crash@step={RECOVER_CRASH_AT};"
+                          "spawn=0")):
+            d = workdir / label
+            d.mkdir()
+            src = worker_source(
+                RECOVER_WORKER, BATCH=TRAIN_BATCH, LR=TRAIN_LR,
+                GUARD=GUARD_CFG, COMMITS=RECOVER_COMMITS,
+                CKPT_AT=RECOVER_CKPT_AT, CKDIR=str(d / "ckpt"),
+                FINAL=str(d / "final.pt"))
+            job_ref = {}
+            t0 = time.perf_counter()
+            rc, recs = run_elastic_scenario(
+                str(d), src, initial_hosts=["localhost:1"], chaos=chaos,
+                driver_env={"HVDTPU_BLACKLIST_COOLDOWN": "1"},
+                timeout=WORKER_TIMEOUT_S, drain_timeout=60.0,
+                job_ref=job_ref, fast=False)
+            wall = time.perf_counter() - t0
+            final = torch.load(d / "final.pt")
+            runs[label] = {"rc": rc, "wall_s": wall, "recs": recs,
+                           "events": list(job_ref["job"].events),
+                           "final": final}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    clean, hit = runs["clean"], runs["chaos"]
+    pa, pb = clean["final"]["params"], hit["final"]["params"]
+    params_bitwise = all(torch.equal(pa[k], pb[k]) for k in pa)
+    opt_bitwise = clean["final"]["opt_sha256"] == hit["final"]["opt_sha256"]
+    p_rel = grads_rel_l2(pb, pa)
+    spawns = sorted({r["spawn"] for r in hit["recs"]})
+    steps_by_spawn = {s: [r["step"] for r in hit["recs"]
+                          if r.get("spawn") == s and "loss" in r]
+                      for s in spawns}
+    per_step = [r["launches"] for r in clean["recs"] + hit["recs"]
+                if "launches" in r]
+    split = recover_split(hit["recs"], hit["events"])
+    rec = {"rc": [clean["rc"], hit["rc"]],
+           "wall_s": {k: r["wall_s"] for k, r in runs.items()},
+           "steps_by_spawn": steps_by_spawn,
+           "final_step": [clean["final"]["step"], hit["final"]["step"]],
+           "params_bitwise": params_bitwise, "opt_bitwise": opt_bitwise,
+           "params_rel_l2": p_rel, "time_to_recover": split,
+           "launches_per_step": per_step[0],
+           "launches": summed(per_step), "steps": len(per_step),
+           "losses": {k: [r["loss"] for r in run["recs"] if "loss" in r]
+                      for k, run in runs.items()}}
+    log(f"[elastic-recover] run_elastic, discovery localhost:1, cooldown "
+        f"1 s, the launcher's own discovery and poll intervals, "
+        f"[train-guard]'s configuration for {RECOVER_COMMITS} commits "
+        f"(checkpoints at {RECOVER_CKPT_AT}): clean rc {clean['rc']} in "
+        f"{clean['wall_s']:.1f} s; worker.step:crash@step={RECOVER_CRASH_AT}"
+        f";spawn=0 rc {hit['rc']} in {hit['wall_s']:.1f} s, steps by "
+        f"spawn round {steps_by_spawn}; final parameters bit for bit "
+        f"{params_bitwise}, optimizer state bit for bit {opt_bitwise} "
+        f"(relative L2 {p_rel:.3e}); launches a step {per_step[0]}")
+    log("[elastic-recover] time to recover (s): " + ", ".join(
+        f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in split.items()))
+    if clean["rc"] != 0 or hit["rc"] != 0:
+        raise AssertionError(f"[elastic-recover] {rec}")
+    if not (len(spawns) == 2 and steps_by_spawn[spawns[0]][-1]
+            == RECOVER_CRASH_AT and split["resumed_at"] == RECOVER_CKPT_AT[0]
+            and steps_by_spawn[spawns[1]] == list(
+                range(RECOVER_CKPT_AT[0] + 1, RECOVER_COMMITS + 1))
+            and hit["final"]["step"] == clean["final"]["step"]
+            == RECOVER_COMMITS):
+        raise AssertionError(f"[elastic-recover] the crash and resume did not "
+                             f"run as scheduled: {rec}")
+    cfg = hvt.GPT2Config.small(param_dtype=torch.float32)
+    check_counts("elastic-recover", rec["launches"], {
+        "flash_fwd": cfg.n_layers, "flash_bwd_dkdv": cfg.n_layers,
+        "flash_bwd_dq": cfg.n_layers,
+        "fused_adamw": len(trainer_bucket_sizes(hvt, cfg))}, len(per_step))
+    if not (params_bitwise and opt_bitwise):
+        log("[elastic-recover] the resumed run is not the clean run bit for "
+            "bit: a step on the card is not bitwise repeatable across "
+            f"processes here; held to [train]'s bound (relative L2 <= "
+            f"{STEP_GRAD_TOL})")
+        if not p_rel <= STEP_GRAD_TOL:
+            raise AssertionError(f"[elastic-recover] {rec}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
+def serve_kv_reference(hvt, requests, batch):
+    """This process's own answers: the same model, the requests packed
+    ``batch`` at a time (the workers' shape), greedy ids at every
+    position; and a function recomputing one request's logits."""
+    from horovod_tpu_torch.ops.batching import pack_requests, unpack_responses
+
+    cfg = hvt.GPT2Config.small()
+    model = hvt.GPT2LMModel(cfg, device="cuda")
+    model.load_state_dict(hvt.convert.init_params(cfg, seed=0))
+    answers = []
+    with torch.inference_mode():
+        for i in range(0, len(requests), batch):
+            packed, spec = pack_requests(
+                [torch.from_numpy(r) for r in requests[i:i + batch]], batch)
+            ids = model(packed.cuda().long()).argmax(-1).float()
+            answers += [r.tolist() for r in unpack_responses(ids, spec)]
+
+    def logits_of(req):
+        packed, spec = pack_requests([torch.from_numpy(req)], batch)
+        with torch.inference_mode():
+            logits = model(packed.cuda().long())
+        return logits[spec.row_to_request.index(0)].float().cpu()
+
+    return answers, logits_of, model
+
+
+def serve_kv_run(workdir, requests, chaos):
+    """One KV-transport run (``chaos_soak.run_kv_serving``): a
+    KVServeCoordinator on the driver's rendezvous server, two serving
+    worker processes under the elastic driver (localhost, 127.0.0.1;
+    cooldown 1 s; every other setting the launcher's own), every request
+    submitted at once and answered."""
+    from horovod_tpu_torch.tools.chaos_soak import run_kv_serving
+
+    workdir.mkdir()
+    run = run_kv_serving(
+        str(workdir), worker_source(SERVE_KV_WORKER, BATCH=SERVE_BATCH),
+        requests, extra_env={"HVDTPU_CHAOS": chaos} if chaos else None,
+        batch_size=SERVE_BATCH, request_timeout=2.0, trickle=0.0,
+        timeout=WORKER_TIMEOUT_S, fast=False)
+    if run["timed_out"] or run["wall_s"] is None:
+        raise AssertionError(f"[serve-kv] the run did not finish: "
+                             f"{run['exc']} {run['diagnostics']}")
+    run["requests_per_s"] = len(requests) / run["wall_s"]
+    return run
+
+
+def serve_kv(hvt):
+    """[serve-kv]: the KV transport with two GPT-2 small bf16 serving worker
+    processes on the one card, clean and then with 127.0.0.1's first
+    incarnation killed at its second leased batch."""
+    t_phase = time.perf_counter()
+    cfg = hvt.GPT2Config.small()
+    rng = np.random.default_rng(11)
+    requests = [rng.integers(0, cfg.vocab_size, cfg.max_len).astype(
+        np.float32) for _ in range(SERVE_KV_REQUESTS)]
+    want, logits_of, model = serve_kv_reference(hvt, requests, SERVE_BATCH)
+    torch.cuda.empty_cache()
+    workdir = phase_dir("servekv-")
+    try:
+        runs = {label: serve_kv_run(workdir / label, requests, chaos)
+                for label, chaos in (("clean", None),
+                                     ("chaos", SERVE_KV_CRASH))}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    rec = {"config": {"requests": SERVE_KV_REQUESTS, "tokens": cfg.max_len,
+                      "batch": SERVE_BATCH, "chaos": SERVE_KV_CRASH}}
+    for label, run in runs.items():
+        near, wrong = [], []
+        for i, got in run["answered"].items():
+            diff = [p for p, (a, b) in enumerate(zip(got, want[i])) if a != b]
+            if not diff:
+                continue
+            lg = logits_of(requests[i])
+            top = lg.abs().max()
+            for p in diff:
+                gap = abs(float(lg[p, int(got[p])] - lg[p, int(want[i][p])]))
+                (near if gap <= DECODE_MARGIN * float(top) else wrong
+                 ).append((i, p, gap))
+        batches = [r for r in run["records"] if r.get("event") == "batch"]
+        flash = sorted({r["flash"] for r in batches})
+        by_host = {}
+        for r in batches:
+            by_host.setdefault(f"{r['host']}/{r['spawn']}", 0)
+            by_host[f"{r['host']}/{r['spawn']}"] += 1
+        rec[label] = {"rc": run["rc"], "wall_s": run["wall_s"],
+                      "requests_per_s": run["requests_per_s"],
+                      "answered": len(run["answered"]),
+                      "dropped": len(run["errors"]),
+                      "requeued": run["requeued"],
+                      "batches_by_host_spawn": by_host,
+                      "flash_launches_per_batch": flash,
+                      "flash_launches": sum(r["flash"] for r in batches),
+                      "answers_equal": len(run["answered"]) - len(
+                          {i for i, _, _ in near + wrong}),
+                      "near_ties": near, "wrong": wrong[:8]}
+        log(f"[serve-kv] {label}: {rec[label]['answered']}/"
+            f"{SERVE_KV_REQUESTS} answered, dropped {rec[label]['dropped']}, "
+            f"requeued {run['requeued']}, wall {run['wall_s']:.3f} s, "
+            f"{run['requests_per_s']:.2f} requests/s; batches by host/spawn "
+            f"{by_host}; kernel-1 launches a batch {flash}; answers equal to "
+            f"this process's forward {rec[label]['answers_equal']} (near-ties "
+            f"{near[:4]}, wrong {wrong[:4]})")
+        if not (run["rc"] == 0 and not run["errors"]
+                and len(run["answered"]) == SERVE_KV_REQUESTS and not wrong):
+            raise AssertionError(f"[serve-kv] {label}: {rec[label]} "
+                                 f"{run.get('exc')}")
+        check_counts(f"serve-kv {label}", {"flash_fwd": sum(
+            r["flash"] for r in batches)}, {"flash_fwd": cfg.n_layers},
+            len(batches))
+    hit = rec["chaos"]
+    respawned = any(k.startswith("127.0.0.1/") and not k.endswith("/0")
+                    for k in hit["batches_by_host_spawn"])
+    log(f"[serve-kv] the killed host served again after its respawn: "
+        f"{respawned}")
+    if not hit["requeued"] > 0:
+        raise AssertionError(f"[serve-kv] nothing was re-queued: {hit}")
+    del model
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5554,6 +6141,10 @@ def main() -> int:
     guarded = train_guard(hvt, (fa, fadam, tq))
     gsp = gspmd_phase(hvt, (fa, fadam, tq))
     dchaos = decode_chaos(hvt)
+    launched = launch_phase(hvt, trained)
+    recovered = elastic_recover(hvt)
+    served_kv = serve_kv(hvt)
+    log_threads("[serve-kv]")
     # [train-remat] trains GPT-2 small, [train]'s layout (held in adam).
     adam_phases = adamw_phase_checks(fadam, gen, {
         "train_bert": bert["bucket_sizes"],
@@ -5581,7 +6172,13 @@ def main() -> int:
                     "launches_train_guard": {
                         "skip_step": guarded["skip"]["launches"],
                         "skip_step_int8": guarded["skip_int8"]["launches"]},
-                    "launches_gspmd": gsp["launches"]}
+                    "launches_gspmd": gsp["launches"],
+                    "launches_launch": launched["launches"],
+                    "launches_elastic_recover": recovered["launches"]}
+    # [serve-kv]'s workers run kernel 1 only: its count over every batch
+    # of both runs, the other kernels' 0.
+    serve_kv_flash = (served_kv["clean"]["flash_launches"]
+                      + served_kv["chaos"]["flash_launches"])
 
     src = "horovod_tpu_torch/csrc/"
     ref = "horovod_tpu/ops/pallas_kernels.py:"
@@ -5608,6 +6205,10 @@ def main() -> int:
             "train_guard": {k: c[name] for k, c in
                             new_launches["launches_train_guard"].items()},
             "gspmd": new_launches["launches_gspmd"][name],
+            "launch": new_launches["launches_launch"].get(name, 0),
+            "elastic_recover":
+                new_launches["launches_elastic_recover"].get(name, 0),
+            "serve_kv": serve_kv_flash if name == "flash_fwd" else 0,
         }
 
     kernels = [{
@@ -5830,7 +6431,9 @@ def main() -> int:
                       "train_adasum": adasum, "train_overlap": overlapped,
                       "train_actquant": actq, "train_3d": gpt3d,
                       "ring_flash": ring, "train_guard": guarded,
-                      "gspmd": gsp, "decode_chaos": dchaos}),
+                      "gspmd": gsp, "decode_chaos": dchaos,
+                      "launch": launched, "elastic_recover": recovered,
+                      "serve_kv": served_kv}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

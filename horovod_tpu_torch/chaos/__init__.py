@@ -7,8 +7,14 @@ recovery instead of assuming it. The sites wired in the port:
 
 ====================  ====================================================
 ``worker.step``       every elastic ``State.commit``
+``worker.preempt``    every elastic ``State.commit`` (a real SIGTERM)
 ``ckpt.write``        checkpoint serialization, before the atomic rename
+``kv.request``        every rendezvous KV request (drop / 5xx / delay)
+``kv.server``         the elastic driver's poll loop (KV listener restart)
+``driver.crash``      the elastic driver's poll loop (driver dies hard)
 ``serve.request``     serving-request ingress (``Dispatcher.submit``)
+``serve.dispatch``    a serving worker's leased batch (``ServePool`` and
+                      the KV transport's worker loop)
 ``serve.decode``      a decode worker's round (kills or stalls the worker
                       mid-sequence; its streams must resume elsewhere)
 ``grad.nan``          guarded train step: NaN-poison one batch element
@@ -16,7 +22,8 @@ recovery instead of assuming it. The sites wired in the port:
 ``param.corrupt``     guarded train step: perturb a seeded parameter span
 ====================  ====================================================
 
-The rest of the catalog parses and waits for the code that reaches it.
+The rest of the catalog (``eager.dispatch``, ``publish.delta``) parses and
+waits for the code that reaches it.
 
 Arming: set ``HVDTPU_CHAOS`` to a schedule string -- parsed once, at the
 first site hit -- or call :func:`plan`. ``HVDTPU_CHAOS_SEED`` seeds every
@@ -153,10 +160,14 @@ def act(site: str, **ctx) -> Optional[Action]:
 
 
 def _hang(site: str) -> None:
-    """A hard process hang: the process sleeps until something kills it.
-    (The launcher's heartbeat, which the reference pauses here too, comes
-    with the elastic launcher, A13b.)"""
+    """A hard process hang: the heartbeat stops too (a frozen process
+    beats nothing), so the elastic driver's lease expiry -- not the
+    end-of-job drain deadline -- is what must catch it; the process sleeps
+    until something kills it."""
     print(f"horovod_tpu_torch.chaos: injected hang at {site}",
           file=sys.stderr, flush=True)
+    from ..elastic import worker as _worker
+
+    _worker.heartbeat_pause()
     while True:
         time.sleep(60.0)

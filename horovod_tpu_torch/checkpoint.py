@@ -492,6 +492,27 @@ def restore_checkpoint(directory: str, target: Any,
     return _reshard_canonical(_read_tree(path, _canonicalize_sharded(target)))
 
 
+def priority_checkpoint(directory: str, state: Any, step: int,
+                        keep: int = 3) -> Optional[str]:
+    """Eviction-grace checkpoint: what a preempted worker writes in its
+    SIGTERM window (``elastic.worker.register_preempt_callback``).
+
+    The same manifest-verified atomic writer as :func:`save_checkpoint`
+    (per-tensor CRC manifest, retry-wrapped serialization, tmpdir +
+    rename), with ``force=True``: the evicted host may be any rank, and
+    ITS state must reach disk whoever the designated writer is. Counted in
+    :data:`priority_checkpoints` (a plain attribute until the metrics
+    plane, A14)."""
+    global priority_checkpoints
+    path = save_checkpoint(directory, state, step=step, keep=keep, force=True)
+    priority_checkpoints += 1
+    log.info("priority checkpoint of step %d written to %s", step, path)
+    return path
+
+
+priority_checkpoints = 0
+
+
 # -- hot-swap (serving) --------------------------------------------------
 
 

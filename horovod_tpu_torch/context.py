@@ -15,9 +15,16 @@ local_size``.
 ``init(backend=...)`` also brings up ``torch.distributed``: ``"nccl"`` for
 a process on the card, ``"gloo"`` on the CPU. Its rendezvous is
 ``init_method`` when given, else ``MASTER_ADDR``/``MASTER_PORT`` from the
-environment, else -- for a world of one -- a file store in a fresh
-temporary directory. :func:`spawn_gloo` runs a function on a gloo world of
-CPU processes (the multi-rank CPU tests use it).
+environment, else -- in a process the port's launcher started
+(``HVDTPU_RENDEZVOUS_ADDR``/``_PORT``) -- a ``TCPStore`` that rank 0 opens
+and publishes through the launcher's KV (:func:`~.runner.api.kv_store`),
+else -- for a world of one -- a file store in a fresh temporary
+directory. Under an elastic launcher ``init`` first joins the driver's
+current round, which gives the rank and the world size. Every call of the
+world times out after ``HVT_DATA_TIMEOUT_SECS`` (default 300 s), so a dead
+peer fails the survivors' collectives instead of hanging them.
+:func:`spawn_gloo` runs a function on a gloo world of CPU processes (the
+multi-rank CPU tests use it).
 
 The world is a named mesh of ranks (:mod:`.parallel.mesh`), as in the JAX
 package: a flat ``"hvd"`` axis by default, ``(cross, local)`` with
@@ -83,6 +90,8 @@ class TorchContext:
 _lock = threading.Lock()
 _context: Optional[TorchContext] = None
 _store_dir: Optional[str] = None  # file-store directory that init made
+_store = None  # the launcher-bootstrapped TCPStore of the live world
+_pg_ours = False  # init brought up the default process group
 
 
 def _env_int(names: Sequence[str], default: int) -> int:
@@ -121,19 +130,28 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _init_method(init_method: Optional[str], size: int) -> str:
-    global _store_dir
+def _rendezvous(init_method: Optional[str], rank: int, size: int,
+                timeout: float) -> dict:
+    """``init_process_group``'s rendezvous arguments: ``init_method=`` or
+    a launcher-bootstrapped ``store=``."""
+    global _store_dir, _store
     if init_method:
-        return init_method
+        return {"init_method": init_method}
     if os.environ.get("MASTER_ADDR") and os.environ.get("MASTER_PORT"):
-        return "env://"
+        return {"init_method": "env://"}
+    from .runner import api as _api
+
+    store = _api.kv_store(rank, size, timeout)
+    if store is not None:
+        _store = store
+        return {"store": store}
     if size != 1:
         raise ValueError(
             f"a world of {size} processes needs a rendezvous: pass "
             "init_method= or set MASTER_ADDR and MASTER_PORT"
         )
     _store_dir = tempfile.mkdtemp(prefix="hvt-store-")
-    return "file://" + os.path.join(_store_dir, "store")
+    return {"init_method": "file://" + os.path.join(_store_dir, "store")}
 
 
 def init(device=None, *, backend: Optional[str] = None,
@@ -154,7 +172,15 @@ def init(device=None, *, backend: Optional[str] = None,
     world (default all); else ``hierarchical=True`` for ``(cross, local)``
     axes from the local size; else one ``"hvd"`` axis. Building a mesh's
     process groups is collective: every rank calls ``init`` alike."""
-    global _context
+    global _context, _pg_ours
+    if backend is not None:
+        from .elastic import worker as _worker
+
+        if (_worker.in_elastic_world() and not dist.is_initialized()
+                and not _worker.consume_join()):
+            # Rank and size come from the driver's current round, not the
+            # static env, and may change at every rejoin.
+            _worker.join_world_env()
     rank = launcher_rank()
     size = _env_int(_SIZE_VARS, 1)
     local_rank = _env_int(_LOCAL_RANK_VARS, 0)
@@ -183,10 +209,17 @@ def init(device=None, *, backend: Optional[str] = None,
         if backend is not None and not dist.is_initialized():
             if dev.type == "cuda":
                 torch.cuda.set_device(dev)
+            from datetime import timedelta
+
+            from .utils import env as _env
+
+            timeout = _env.data_timeout_secs()
             dist.init_process_group(
-                backend, init_method=_init_method(init_method, size),
-                rank=rank, world_size=size,
+                backend, rank=rank, world_size=size,
+                timeout=timedelta(seconds=timeout),
+                **_rendezvous(init_method, rank, size, timeout),
             )
+            _pg_ours = True
         if isinstance(mesh, _mesh.Mesh):
             m = mesh
         elif mesh is not None:
@@ -209,16 +242,32 @@ def init(device=None, *, backend: Optional[str] = None,
         return _context
 
 
-def shutdown() -> None:
-    """Forget the context and tear down the process group that
-    :func:`init` brought up."""
-    global _context, _store_dir
+def shutdown(abort: bool = False) -> None:
+    """Forget the context and tear down the process groups that
+    :func:`init` brought up: the default group and every mesh group.
+
+    ``abort=True`` (an elastic rejoin, where a peer may be dead) aborts
+    an NCCL world's communicators first, so a dead peer cannot hang the
+    teardown."""
+    global _context, _store_dir, _store, _pg_ours
     from .ops import collectives
 
     with _lock:
-        if _context is not None and _context.backend and dist.is_initialized():
-            dist.destroy_process_group()
+        # _pg_ours: an init that failed after bringing the group up (a mesh
+        # group a dead peer never joined) left no context, but its group
+        # must go too.
+        if (_pg_ours or _context is not None and _context.backend) \
+                and dist.is_initialized():
+            from torch.distributed import distributed_c10d as _c10d
+
+            abort_all = getattr(_c10d, "_abort_process_group", None)
+            if abort and dist.get_backend() == "nccl" and abort_all:
+                abort_all()
+            else:
+                dist.destroy_process_group()
             collectives.forget_groups()
+        _pg_ours = False
+        _store = None
         _context = None
         if _store_dir is not None:
             shutil.rmtree(_store_dir, ignore_errors=True)

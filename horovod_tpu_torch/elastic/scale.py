@@ -1,18 +1,21 @@
 """Queue-depth-driven elastic scaling (the serving workload's policy).
 
-The port of the JAX package's ``elastic/scale.py::QueueDepthPolicy``:
+The port of the JAX package's ``elastic/scale.py``. :class:`QueueDepthPolicy`:
 per-worker backlog (``queue_depth / workers``) above ``high`` adds a
 worker, backlog below ``low`` (with nothing in flight) removes one, never
 past ``min_workers``/``max_workers``, and no two decisions land within
 ``cooldown_secs`` (hysteresis -- a bursty queue must not flap the pool).
 :class:`horovod_tpu_torch.serve.ServePool` asks it for a target worker
-count from the live dispatcher gauges when ``autoscale=True``.
+count from the live dispatcher gauges when ``autoscale=True``;
+:class:`PolicyDiscovery` lets the elastic driver scale serving worker
+processes by the same policy (``ElasticDriver(scale_policy=...)``).
 """
 
 from __future__ import annotations
 
+import threading
 import time
-from typing import Optional
+from typing import Callable, Dict, Optional
 
 from ..utils import env as _env
 
@@ -83,3 +86,50 @@ class QueueDepthPolicy:
         if target != workers:
             self._last_change = now
         return target
+
+
+class PolicyDiscovery:
+    """``HostDiscovery`` wrapper: the inner discovery says what *could*
+    run; the policy says how much of it the serving load *needs*.
+
+    ``gauges_fn`` returns the load observation (``queue_depth``, and
+    optionally ``in_flight``). Host order is kept stable (sorted), and the
+    trim keeps a prefix, so scale-down always removes the same tail host
+    -- the driver's survivor-stable rank ordering then drains exactly one
+    worker.
+    """
+
+    def __init__(
+        self,
+        inner,
+        policy: QueueDepthPolicy,
+        gauges_fn: Callable[[], Dict[str, float]],
+    ):
+        self._inner = inner
+        self.policy = policy
+        self._gauges_fn = gauges_fn
+        self._target: Optional[int] = None
+        self._lock = threading.Lock()
+
+    def find_available_hosts_and_slots(self) -> Dict[str, int]:
+        hosts = self._inner.find_available_hosts_and_slots()
+        if not hosts:
+            return hosts
+        try:
+            gauges = self._gauges_fn() or {}
+        except Exception:  # a torn gauge read must not kill discovery
+            gauges = {}
+        with self._lock:
+            current = (
+                self._target if self._target is not None
+                else min(len(hosts), self.policy.min_workers)
+            )
+            current = max(1, min(current, len(hosts)))
+            self._target = self.policy.decide(
+                queue_depth=float(gauges.get("queue_depth", 0.0)),
+                in_flight=float(gauges.get("in_flight", 0.0)),
+                workers=current,
+            )
+            target = min(self._target, len(hosts))
+        kept = sorted(hosts)[:target]
+        return {h: hosts[h] for h in kept}

@@ -24,15 +24,21 @@ syncs the state from rank 0.
   through its canonical form: each rank then keeps its own shards) and
   the rest by pickle.
 
-Re-forming the world after a membership change (the reference's
-``shutdown`` + ``init`` in ``reset``) is the elastic launcher's (A13b):
-in a plain process ``reset`` keeps the live world, which an in-process
-restart -- a guard escalation, a failed step -- needs unchanged.
+Under an elastic launcher ``reset`` re-forms the world after a membership
+change or a failed collective (the reference's ``shutdown`` + ``init``):
+:func:`~.worker.rejoin_world` tears it down, joins the driver's current
+round and initializes it again with the previous mesh's axes. In a plain
+process ``reset`` keeps the live world, which an in-process restart -- a
+guard escalation, a failed step -- needs unchanged. ``commit`` also
+honours a pending preemption notice (the priority checkpoint) and carries
+the chaos ``worker.preempt`` site.
 """
 
 from __future__ import annotations
 
 import copy
+import os
+import time
 from typing import Any, Dict
 
 import torch
@@ -41,7 +47,12 @@ from ..checkpoint import map_tensors
 from ..exceptions import HostsUpdatedInterrupt
 from ..functions import broadcast_object
 from ..ops.collectives import broadcast
-from .worker import in_elastic_world, notification_manager
+from .worker import (
+    in_elastic_world,
+    notification_manager,
+    preempt_requested,
+    run_preempt_checkpoint,
+)
 
 __all__ = ["ObjectState", "State", "TrainState"]
 
@@ -64,9 +75,10 @@ class State:
         # Commit index: the chaos worker.step occurrence.
         self._commit_count = 0
         # Under an elastic launcher the watcher delivers the launcher's
-        # membership changes to on_hosts_updated (A13b); outside one there
-        # is nothing to watch.
-        notification_manager.init()
+        # membership changes to on_hosts_updated; outside one there is
+        # nothing to watch.
+        if notification_manager.init():
+            notification_manager.register_listener(self)
 
     def register_reset_callbacks(self, callbacks):
         self._reset_callbacks.extend(callbacks)
@@ -82,23 +94,42 @@ class State:
     def commit(self):
         """Save and check for topology updates. The chaos ``worker.step``
         site fires first: crash, hang or slow this worker at commit K, the
-        boundary where a real failure costs most."""
+        boundary where a real failure costs most; ``worker.preempt``
+        delivers a real SIGTERM to this process, whose grace handler owns
+        the drain from there. A pending preemption notice runs the
+        registered priority checkpoint after the save, before the
+        host-update check can walk this worker out of the world."""
         from .. import chaos as _chaos
 
         self._commit_count += 1
         if _chaos.enabled():
-            _chaos.act("worker.step", step=self._commit_count, rank=_rank())
+            rank = _rank()
+            _chaos.act("worker.step", step=self._commit_count, rank=rank)
+            fault = _chaos.act("worker.preempt", step=self._commit_count,
+                               rank=rank)
+            if fault is not None and fault.kind == "sigterm":
+                import signal as _signal
+
+                os.kill(os.getpid(), _signal.SIGTERM)
+                time.sleep(0.05)  # let the handler run before the check
         self.save()
+        if preempt_requested():
+            run_preempt_checkpoint()
         self.check_host_updates()
 
     def check_host_updates(self):
         """Raise :class:`HostsUpdatedInterrupt` on every rank at once when
         rank 0 has heard of a newer membership change (one object
         broadcast of its latest timestamp)."""
+        from .worker import joined_ts
+
         local_ts = self._host_messages[-1][0] if self._host_messages else 0.0
         self._host_messages.clear()
         ts = broadcast_object(local_ts, root_rank=0)
-        if ts > self._last_updated_timestamp:
+        # A change no newer than the round this world already joined (a
+        # rejoin after a failure lands in it) is not news; every rank of
+        # the round holds the same round timestamp.
+        if ts > max(self._last_updated_timestamp, joined_ts()):
             self._last_updated_timestamp = ts
             raise HostsUpdatedInterrupt(skip_sync=False)
 
@@ -112,13 +143,15 @@ class State:
         raise NotImplementedError
 
     def reset(self):
-        """Re-form the world after a topology change: under an elastic
-        launcher that is the launcher's round (A13b, not ported); in a
+        """Re-form the world after a topology change or a failed
+        collective: under an elastic launcher, tear it down and rejoin the
+        driver's current round (possibly with a new rank and size,
+        possibly exiting cleanly when this host was scaled away); in a
         plain process the live world stays."""
         if in_elastic_world():
-            raise NotImplementedError(
-                "rejoining an elastic round is not ported yet; it arrives "
-                "with A13b")
+            from .worker import rejoin_world
+
+            rejoin_world()
 
 
 class ObjectState(State):
@@ -166,6 +199,15 @@ def _device_of(tree):
     return found[0] if found else None
 
 
+def _values_from(tree, snap):
+    """``tree`` with its tensors' values taken from ``snap``, a host
+    snapshot of the same structure."""
+    leaves = []
+    map_tensors(lambda t: leaves.append(t) or t, snap)
+    it = iter(leaves)
+    return map_tensors(lambda t: next(it).to(t.device, t.dtype), tree)
+
+
 def _same_layout(live, new) -> bool:
     return (isinstance(live, dict) and isinstance(new, dict)
             and live.keys() == new.keys()
@@ -182,14 +224,32 @@ class TrainState(ObjectState):
     and any other attributes. See the module docstring."""
 
     def __init__(self, params=None, opt_state=None, **kwargs):
+        # Under an elastic launcher a respawned worker builds its state
+        # while its peers are mid-rejoin: the first snapshot (a collective
+        # for ZeRO-1 state) waits for run()'s sync, which every rank
+        # enters together.
+        self._snapshot_at_sync = in_elastic_world()
         super().__init__(params=params, opt_state=opt_state, **kwargs)
 
     def _params(self):
         return getattr(self, "params", None)
 
+    def reset(self):
+        """Rejoin as :meth:`State.reset` does; then, in an elastic world,
+        repack the last commit for the new world: the live ZeRO-1 shards
+        (and EF residuals) belong to the old world's rank and size. The
+        commit is the live state on both ways here -- ``run`` restored it
+        after a failure, and a host update is raised by ``commit`` right
+        after its save."""
+        super().reset()
+        if in_elastic_world() and self._saved_state:
+            self.restore()
+
     def save(self):
         from ..optimizer import canonicalize_sharded_states, has_sharded_state
 
+        if self._snapshot_at_sync:
+            return
         params = self._params()
         snap, devices = {}, {}
         for k in self._known_attrs:
@@ -227,7 +287,13 @@ class TrainState(ObjectState):
     def sync(self):
         """Rank 0's state on every rank: tensors by broadcast (a sharded
         optimizer state through its canonical form), the rest by pickle;
-        then a fresh commit snapshot."""
+        then a fresh commit snapshot.
+
+        A sharded state's canonical form is gathered from every rank's
+        shards, and a worker that just joined holds fresh ones: rank 0
+        broadcasts the canonical form of its last commit instead (the live
+        state whenever ``run`` syncs: the construction, a commit, or the
+        commit ``run`` restored)."""
         from ..optimizer import (
             canonicalize_sharded_states,
             has_sharded_state,
@@ -247,11 +313,15 @@ class TrainState(ObjectState):
             params = self._params()
             has_tensors = _device_of(val) is not None
             if params is not None and has_sharded_state(val):
-                canonical = map_tensors(
-                    bcast, canonicalize_sharded_states(val, params))
+                canonical = canonicalize_sharded_states(val, params)
+                snap = self._saved_state.get(k)
+                if snap is not None and _rank() in (None, 0):
+                    canonical = _values_from(canonical, snap)
+                canonical = map_tensors(bcast, canonical)
                 setattr(self, k, reshard_sharded_states(canonical, params))
             elif has_tensors:
                 setattr(self, k, map_tensors(bcast, val))
             else:
                 setattr(self, k, broadcast_object(val, root_rank=0))
+        self._snapshot_at_sync = False
         self.save()

@@ -29,10 +29,11 @@ sharded state does.
 The transport is injectable (``allgather_object`` / ``broadcast_leaf``)
 so the vote and heal logic runs in tests without a live world; the
 default rides :func:`~..functions.allgather_object` and
-:func:`~..ops.collectives.broadcast`. Reporting a minority host to the
-elastic launcher's health scoring (the reference's ``guard`` KV scope)
-comes with the elastic launcher (A13b); until then ``on_report`` is the
-hook.
+:func:`~..ops.collectives.broadcast`. A minority host is reported to the
+elastic driver's health scoring through the rendezvous KV (scope
+``guard``, key ``divergent/<host>``; :meth:`ConsistencyAuditor._kv_report`)
+-- outside a launch the report is only logged -- or to the caller's
+``on_report`` hook.
 """
 
 from __future__ import annotations
@@ -182,9 +183,10 @@ class ConsistencyAuditor:
         self.host_id = host_id
         self._allgather_object = allgather_object
         self._broadcast_leaf = broadcast_leaf
-        self._on_report = on_report if on_report is not None else self._log_report
+        self._on_report = on_report if on_report is not None else self._kv_report
         self._report_counts: Dict[str, int] = {}
         self._audits = 0
+        self._current_step = 0  # the KV report's job-monotonic nonce
         # Set before the walk-back raise, so a harness still sees the
         # evidence of a divergence healed by restore rather than resync.
         self.last_report: Optional[AuditReport] = None
@@ -202,6 +204,29 @@ class ConsistencyAuditor:
         log.warning("consistency audit: host %s diverged (%d times)",
                     host, count)
 
+    def _kv_report(self, host: str, count: int) -> None:
+        """Default report channel: the elastic rendezvous KV (scope
+        ``guard``, key ``divergent/<host>``), which the driver's main loop
+        polls into ``HostManager`` health scoring. The value embeds the
+        audit STEP -- a job-monotonic nonce -- because the reporter's own
+        tally is process-local: a respawned (or newly elected) reporter
+        restarts at 1, and the driver must still see a CHANGED value for
+        every new divergence. Outside a launch it only logs."""
+        from ..elastic import worker as _worker
+
+        self._log_report(host, count)
+        client = _worker._kv_client()
+        if client is None:
+            return
+        try:
+            client.put(
+                "guard",
+                f"divergent/{host}",
+                f"{count}:{self._current_step}".encode(),
+            )
+        except OSError:
+            pass  # telemetry-grade: the resync itself already healed us
+
     def _report(self, hosts: List[str], minority_ranks: List[int]) -> None:
         for r in minority_ranks:
             host = hosts[r] or f"rank{r}"
@@ -211,6 +236,7 @@ class ConsistencyAuditor:
     def audit(self, tree, step: int, *, has_sharded: bool = False):
         """Run one audit round; see the class docstring."""
         self._audits += 1
+        self._current_step = step  # nonce for the default KV channel
         local = fingerprint(tree)
         gathered = self._allgather_object(
             {"rank": self.rank, "host": self.host_id, "crc": local}

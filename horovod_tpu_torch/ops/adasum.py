@@ -41,7 +41,7 @@ import torch.distributed as dist
 
 from ..exceptions import HorovodTpuError
 from .batching import tree_flatten, tree_unflatten
-from .collectives import group, p2p_ready
+from .collectives import _comm, group, p2p_ready
 
 __all__ = [
     "FlatLayout",
@@ -194,8 +194,8 @@ def _exchange(bufs, send_to, recv_from, g) -> List[torch.Tensor]:
         ops.append(dist.P2POp(dist.irecv, b, g.global_rank(recv_from),
                               g.group))
     if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
+        for work in _comm(dist.batch_isend_irecv, ops):
+            _comm(work.wait)
     return got
 
 

@@ -26,6 +26,13 @@ every rank instead of aborting the process group), and
 :func:`alltoall` exchanges the split table. :func:`join` returns -1: the
 port has no dynamic-enqueue runtime, and :func:`masked_allreduce` is the
 idiom for ranks whose data ran out.
+
+A failed ``torch.distributed`` call -- a dead peer, a timeout -- raises
+:class:`~horovod_tpu_torch.exceptions.HorovodInternalError` (from the
+backend's error), on which :func:`horovod_tpu_torch.elastic.run` restores
+the last commit and rejoins. Every bucket of :mod:`.fusion` and
+:mod:`.layout` goes through these functions, so a failure of one raised
+in a gradient hook surfaces the same way.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from ..exceptions import HorovodTpuError
+from ..exceptions import HorovodInternalError, HorovodTpuError
 
 __all__ = [
     "Adasum",
@@ -153,12 +160,25 @@ def _as_transport(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def _comm(fn, *args, **kwargs):
+    """Run one ``torch.distributed`` call; its failure -- a peer that died,
+    a timeout, a torn connection -- is the collective's failure, raised as
+    :class:`~..exceptions.HorovodInternalError` (what the JAX package's
+    native runtime raises) for :func:`~..elastic.run` to restore and
+    rejoin on."""
+    try:
+        return fn(*args, **kwargs)
+    except RuntimeError as e:  # DistBackendError and gloo's errors
+        name = getattr(fn, "__name__", "collective")
+        raise HorovodInternalError(f"{name} failed: {e}") from e
+
+
 def allreduce_(x: torch.Tensor, op: ReduceOp = Sum, *, axis=None) -> torch.Tensor:
     """In-place reduction of ``x`` across ``axis`` (no scaling, no
     Average division): one ``all_reduce`` call."""
     g = group(axis)
     if g.live:
-        dist.all_reduce(x, op=_torch_op(op), group=g.group)
+        _comm(dist.all_reduce, x, op=_torch_op(op), group=g.group)
     return x
 
 
@@ -184,7 +204,7 @@ def allreduce(
     x = x.clone() if x is tensor else x
     g = group(axis)
     if g.live:
-        dist.all_reduce(x, op=torch_op, group=g.group)
+        _comm(dist.all_reduce, x, op=torch_op, group=g.group)
     if op == Average:
         x = divide_by_world(x, g.size)
     return scale(x, postscale_factor)
@@ -242,7 +262,7 @@ def _exchange_rows(row: List[int], g, device) -> List[List[int]]:
     """Every rank's ``row`` of int64s (one ``all_gather``), as lists."""
     mine = torch.tensor(row, dtype=torch.int64, device=device)
     out = torch.empty((g.size, len(row)), dtype=torch.int64, device=device)
-    dist.all_gather(list(out.unbind(0)), mine, group=g.group)
+    _comm(dist.all_gather, list(out.unbind(0)), mine, group=g.group)
     return out.tolist()
 
 
@@ -297,8 +317,8 @@ def broadcast(tensor: torch.Tensor, root_rank: int = 0, *, axis=None,
         )
     x = tensor.clone()
     if g.live:
-        dist.broadcast(_as_transport(x), src=g.global_rank(root_rank),
-                       group=g.group)
+        _comm(dist.broadcast, _as_transport(x),
+              src=g.global_rank(root_rank), group=g.group)
     return x
 
 
@@ -375,9 +395,8 @@ def alltoall(tensor: torch.Tensor, splits=None, *, axis=None,
     if not g.live:
         return x.clone(), recv_t
     out = x.new_empty((sum(recv),) + tuple(x.shape[1:]))
-    dist.all_to_all_single(_as_transport(out), _as_transport(x),
-                           output_split_sizes=recv, input_split_sizes=splits,
-                           group=g.group)
+    _comm(dist.all_to_all_single, _as_transport(out), _as_transport(x),
+          output_split_sizes=recv, input_split_sizes=splits, group=g.group)
     return out, recv_t
 
 
@@ -410,8 +429,8 @@ def ppermute(tensor: torch.Tensor, perm: Sequence[Tuple[int, int]], *,
             ops.append(dist.P2POp(dist.irecv, _as_transport(out),
                                   g.global_rank(src), g.group))
     p2p_ready(g, x.device)
-    for work in dist.batch_isend_irecv(ops) if ops else ():
-        work.wait()
+    for work in _comm(dist.batch_isend_irecv, ops) if ops else ():
+        _comm(work.wait)
     return out
 
 
@@ -432,7 +451,7 @@ def p2p_ready(g, device) -> None:
         return
     key = id(g.group if g.group is not None else dist.group.WORLD)
     if key not in _P2P_READY:
-        dist.all_reduce(torch.zeros(1, device=device), group=g.group)
+        _comm(dist.all_reduce, torch.zeros(1, device=device), group=g.group)
         _P2P_READY.add(key)
 
 
@@ -440,7 +459,7 @@ def barrier(*, axis=None) -> None:
     """Wait for every rank of the group."""
     g = group(axis)
     if g.live:
-        dist.barrier(group=g.group)
+        _comm(dist.barrier, group=g.group)
 
 
 def join() -> int:
@@ -481,8 +500,8 @@ def allgather_chunks(out: torch.Tensor, shard: torch.Tensor, *,
     g = group(axis)
     if not g.live:
         return out.copy_(shard)
-    dist.all_gather(list(_as_transport(out).chunk(g.size)),
-                    _as_transport(shard), group=g.group)
+    _comm(dist.all_gather, list(_as_transport(out).chunk(g.size)),
+          _as_transport(shard), group=g.group)
     return out
 
 
@@ -495,8 +514,8 @@ def alltoall_chunks(out: torch.Tensor, buf: torch.Tensor, *,
     g = group(axis)
     if not g.live:
         return out.copy_(buf)
-    dist.all_to_all_single(_as_transport(out), _as_transport(buf),
-                           group=g.group)
+    _comm(dist.all_to_all_single, _as_transport(out), _as_transport(buf),
+          group=g.group)
     return out
 
 
@@ -509,5 +528,6 @@ def reducescatter_chunks(buf: torch.Tensor, *, axis=None) -> torch.Tensor:
         return buf.clone()
     chunks = list(buf.chunk(g.size))
     out = torch.empty_like(chunks[0])
-    dist.reduce_scatter(out, chunks, op=dist.ReduceOp.SUM, group=g.group)
+    _comm(dist.reduce_scatter, out, chunks, op=dist.ReduceOp.SUM,
+          group=g.group)
     return out

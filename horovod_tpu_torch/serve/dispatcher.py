@@ -238,6 +238,41 @@ class Dispatcher:
             self._leases.pop(lease.lease_id, None)
         return resolved
 
+    def resolve(self, request_id: int, value: Any) -> bool:
+        """Resolve ONE in-flight request by id -- the partial-completion
+        path remote transports use (per-request responses arriving out of
+        batch order, :mod:`.kv`). Retires the owning lease once every
+        request in it is answered."""
+        with self._cond:
+            req = None
+            owner: Optional[BatchLease] = None
+            for lease in self._leases.values():
+                for r in lease.requests:
+                    if r.id == request_id:
+                        req, owner = r, lease
+                        break
+                if req is not None:
+                    break
+            if req is None:
+                # Re-queued copy still waiting? Answer it where it sits.
+                for r in self._queue:
+                    if r.id == request_id:
+                        req = r
+                        break
+            if req is None:
+                return False
+        hit = self._resolve_request(req, value)
+        if owner is not None and all(
+            r.future.done() for r in owner.requests
+        ):
+            with self._cond:
+                self._leases.pop(owner.lease_id, None)
+        return hit
+
+    def active_lease_ids(self) -> List[int]:
+        with self._cond:
+            return list(self._leases)
+
     def fail(self, lease: BatchLease, exc: Optional[BaseException] = None,
              requeue: bool = True) -> int:
         """A lease went bad: re-queue its unanswered requests at the FRONT

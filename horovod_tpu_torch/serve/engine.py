@@ -28,9 +28,10 @@ youngest row is preempted (re-queued, its blocks freed), never dropped.
 
 Each worker is a thread that runs ``model.extend`` eagerly under
 ``torch.inference_mode()`` (where the JAX package jits it) on the engine's
-device, default this process's card. Not ported yet: the ``serve.decode``
-chaos site (A13), and the goodput ledger, trace spans, ``serve.*`` gauges
-and streamed weight versions (A14); :meth:`DecodeEngine.attach_stream`
+device, default this process's card. The ``serve.decode`` chaos site
+kills or stalls a worker mid-round, its streams resuming on a survivor. Not
+ported yet: the goodput ledger, trace spans, ``serve.*`` gauges and
+streamed weight versions (A14); :meth:`DecodeEngine.attach_stream`
 raises.
 """
 

@@ -53,6 +53,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from .. import chaos as _chaos
 from .. import checkpoint as _ckpt
 from ..context import resolve_device
 from ..elastic.scale import QueueDepthPolicy
@@ -138,6 +139,16 @@ class ServingWorker:
             if lease is None:
                 continue
             try:
+                if _chaos.enabled():
+                    fault = _chaos.act("serve.dispatch", worker=self.name)
+                    if fault is not None:
+                        if fault.kind == "timeout":
+                            # Abandon the lease: the reaper re-queues it
+                            # (the hung-worker path).
+                            continue
+                        if fault.kind == "error":
+                            raise RuntimeError(
+                                "chaos: injected serve dispatch error")
                 with self.swap_lock:
                     params = self.params
                 batch = _place(lease.batch, self.pool.device)

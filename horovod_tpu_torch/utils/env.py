@@ -39,9 +39,7 @@ REMAT = "REMAT"  # default remat policy for make_train_step(remat=...)
 PREFETCH_DEPTH = "PREFETCH_DEPTH"  # prefetch_to_device buffer depth
 OVERLAP = "OVERLAP"  # default for make_train_step(overlap=...)
 ACT_QUANT = "ACT_QUANT"  # int8 storage of remat'd activations: off|int8
-# Defaults of make_train_step / ServePool knobs whose planes are not ported
-# yet: an armed value raises there as the explicit argument does.
-LINT = "LINT"  # default for make_train_step(lint=...): off|warn|raise
+# Fail-silent fault defense (guard/) and the chaos plane (chaos/).
 GUARD = "GUARD"  # arm the in-graph gradient guard by default
 GUARD_SPIKE_SIGMA = "GUARD_SPIKE_SIGMA"  # z-score above the norm EMA
 GUARD_MAX_SKIPS = "GUARD_MAX_SKIPS"  # consecutive skips before escalation
@@ -50,6 +48,21 @@ GUARD_EMA_DECAY = "GUARD_EMA_DECAY"  # norm EMA decay (0, 1)
 GUARD_AUDIT_EVERY = "GUARD_AUDIT_EVERY"  # consistency-audit cadence (0=off)
 CHAOS = "CHAOS"  # fault-injection schedule (horovod_tpu_torch.chaos)
 CHAOS_SEED = "CHAOS_SEED"  # seed for probabilistic chaos rules
+GUARD_BLACKLIST_AFTER = "GUARD_BLACKLIST_AFTER"  # divergence reports -> kill
+# The launcher and the elastic control plane (runner/, elastic/worker.py).
+KV_RETRIES = "KV_RETRIES"  # RendezvousClient transient-failure attempts
+HEARTBEAT_SECS = "HEARTBEAT_SECS"  # elastic worker lease period (0 = off)
+HEARTBEAT_TIMEOUT_SECS = "HEARTBEAT_TIMEOUT_SECS"  # driver lease expiry
+BLACKLIST_COOLDOWN = "BLACKLIST_COOLDOWN"  # secs; 0 = permanent exile
+JOURNAL_DIR = "JOURNAL_DIR"  # durable control-plane journal directory
+JOURNAL_COMPACT_BYTES = "JOURNAL_COMPACT_BYTES"  # WAL size -> snapshot
+PREEMPT_COOLDOWN_SECS = "PREEMPT_COOLDOWN_SECS"  # drain-mark expiry
+# The data plane's timeout, under the JAX package's native runtime's name
+# (read as is, with no HVDTPU_/HOROVOD_ prefix).
+DATA_TIMEOUT_ENV = "HVT_DATA_TIMEOUT_SECS"  # torch.distributed timeout
+# Defaults of make_train_step / ServePool knobs whose planes are not ported
+# yet (A14): an armed value raises there as the explicit argument does.
+LINT = "LINT"  # default for make_train_step(lint=...): off|warn|raise
 PUBLISH_EVERY = "PUBLISH_EVERY"  # publish a delta every N commits; 0=off
 AUTOTUNE = "AUTOTUNE"  # closed-loop autotuner, trainer and serving pool
 
@@ -75,6 +88,13 @@ DEFAULT_GUARD_MAX_SKIPS = 8
 DEFAULT_GUARD_WARMUP = 20
 DEFAULT_GUARD_EMA_DECAY = 0.99
 DEFAULT_GUARD_AUDIT_EVERY = 100
+DEFAULT_GUARD_BLACKLIST_AFTER = 2
+DEFAULT_KV_RETRIES = 4
+DEFAULT_HEARTBEAT_SECS = 2.0
+DEFAULT_HEARTBEAT_TIMEOUT_SECS = 30.0
+DEFAULT_JOURNAL_COMPACT_BYTES = 1 << 20  # 1 MiB of WAL between snapshots
+DEFAULT_PREEMPT_COOLDOWN_SECS = 60.0
+DEFAULT_DATA_TIMEOUT_SECS = 300.0  # the native runtime's default
 DEFAULT_PUBLISH_EVERY = 0  # weight streaming is opt-in
 DEFAULT_PREFETCH_DEPTH = 2  # double-buffered host-to-device staging
 
@@ -441,3 +461,62 @@ def autotune_default() -> bool:
 def prefetch_depth() -> int:
     """Default buffer depth for :func:`..data.prefetch_to_device`."""
     return max(1, get_int(PREFETCH_DEPTH, DEFAULT_PREFETCH_DEPTH))
+
+
+def guard_blacklist_after() -> int:
+    """Divergence reports against one host before the elastic driver
+    kills and blacklists it (>= 1); below this, reports only add health
+    strikes (probation bookkeeping)."""
+    return max(1, get_int(
+        GUARD_BLACKLIST_AFTER, DEFAULT_GUARD_BLACKLIST_AFTER
+    ))
+
+
+def kv_retries() -> int:
+    """Total attempts for one ``RendezvousClient`` request (>= 1)."""
+    return max(1, get_int(KV_RETRIES, DEFAULT_KV_RETRIES))
+
+
+def heartbeat_secs() -> float:
+    """Elastic worker heartbeat-lease period; <= 0 disables the lease."""
+    return get_float(HEARTBEAT_SECS, DEFAULT_HEARTBEAT_SECS)
+
+
+def heartbeat_timeout_secs() -> float:
+    """Lease age past which the driver treats a worker as hung;
+    <= 0 disables driver-side expiry."""
+    return get_float(HEARTBEAT_TIMEOUT_SECS, DEFAULT_HEARTBEAT_TIMEOUT_SECS)
+
+
+def journal_compact_bytes() -> int:
+    """Journal size past which the driver takes a compacted snapshot
+    and truncates the WAL (>= 4 KiB; compaction also fires on every
+    round advance regardless)."""
+    return max(4096, get_int(JOURNAL_COMPACT_BYTES,
+                             DEFAULT_JOURNAL_COMPACT_BYTES))
+
+
+def preempt_cooldown_secs() -> float:
+    """How long a preemption-drained host stays excluded from round
+    selection after its SIGTERM flag was consumed."""
+    return max(1.0, get_float(PREEMPT_COOLDOWN_SECS,
+                              DEFAULT_PREEMPT_COOLDOWN_SECS))
+
+
+def blacklist_cooldown() -> float:
+    """Seconds a blacklisted host sits out before probation re-admits
+    it to discovery (doubling per repeat offense); 0 = permanent."""
+    return max(0.0, get_float(BLACKLIST_COOLDOWN, 0.0))
+
+
+def data_timeout_secs() -> float:
+    """Timeout of every ``torch.distributed`` call of the world
+    (``HVT_DATA_TIMEOUT_SECS``, the JAX package's native-runtime knob;
+    default 300 s): a dead peer fails the survivors' collectives after
+    this long instead of gloo's 30 minutes."""
+    val = os.environ.get(DATA_TIMEOUT_ENV)
+    try:
+        secs = float(val) if val is not None else DEFAULT_DATA_TIMEOUT_SECS
+    except ValueError:
+        secs = DEFAULT_DATA_TIMEOUT_SECS
+    return secs if secs > 0 else DEFAULT_DATA_TIMEOUT_SECS

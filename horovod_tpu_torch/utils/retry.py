@@ -1,14 +1,19 @@
-"""Retry/backoff primitives (a copy of the JAX package's
-``utils/retry.py``; this package imports nothing of it).
+"""Retry/backoff primitives for the control plane (a copy of the JAX
+package's ``utils/retry.py``; this package imports nothing of it).
 
-* :class:`Backoff` — capped exponential backoff with jitter.
-* :func:`retry_call` — bounded attempts with backoff for transient
-  failures; the checkpoint writer retries a filesystem blip through it
-  instead of aborting the save.
+* :class:`Backoff` -- capped exponential backoff with jitter for polling
+  loops (``join_world``, ``RendezvousClient.wait``): jittered exponential
+  spread keeps the early polls snappy while decorrelating the
+  steady-state load on the rendezvous server.
+* :func:`retry_call` -- bounded attempts with backoff and an overall
+  deadline for transient failures: the checkpoint writer's filesystem
+  blips and the KV client's requests (a connection reset, a listener
+  restart, an injected chaos fault must not kill a worker that could
+  have succeeded 100 ms later).
 
-Both take an explicit ``rng`` so seeded runs stay reproducible; callers
-that don't care get a module-private stream that never perturbs
-``random``'s global state.
+:class:`Backoff` takes an explicit ``rng`` so seeded runs stay
+reproducible; callers that don't care get a module-private stream that
+never perturbs ``random``'s global state.
 """
 
 from __future__ import annotations
@@ -21,11 +26,11 @@ _rng = random.Random()  # jitter-only stream; isolated from random.seed()
 
 
 class Backoff:
-    """Capped exponential backoff with jitter.
+    """Capped exponential backoff with jitter for polling loops.
 
     ``delay(i) = min(cap, base * factor**i)``, then scaled by a uniform
     factor in ``[1 - jitter, 1]`` so callers never sleep *longer* than
-    the cap but decorrelate below it.
+    the cap (deadline math stays simple) but decorrelate below it.
     """
 
     def __init__(self, base: float = 0.05, cap: float = 2.0,
@@ -36,6 +41,10 @@ class Backoff:
         self.factor = factor
         self.jitter = jitter
         self._rng = rng if rng is not None else _rng
+        self._attempt = 0
+
+    def reset(self) -> None:
+        """Back to the initial delay (the awaited event made progress)."""
         self._attempt = 0
 
     def next_delay(self) -> float:
@@ -57,19 +66,51 @@ def retry_call(
     *,
     attempts: int = 4,
     retry_on: Sequence[Type[BaseException]] = (OSError,),
+    should_retry: Optional[Callable[[BaseException], bool]] = None,
     base: float = 0.1,
     cap: float = 2.0,
+    deadline: Optional[float] = None,
     on_retry: Optional[Callable[[BaseException, int], None]] = None,
+    budget_reset: Optional[Callable[[BaseException], bool]] = None,
 ):
-    """Call ``fn()``; on a failure of a ``retry_on`` type, back off and try
-    again, at most ``attempts`` calls in all; the last failure is raised.
-    ``on_retry(exc, attempt)`` fires before each backoff sleep."""
+    """Call ``fn()``; on a transient failure, back off and try again.
+
+    ``attempts`` bounds total calls (not just retries). ``retry_on``
+    selects by type; ``should_retry`` (when given) additionally filters
+    the caught exception — return False to re-raise immediately (e.g.
+    an HTTP 4xx inside the URLError family is not transient).
+    ``deadline`` is a wall-clock budget in seconds across all attempts;
+    the final exception is always the last real failure, never a
+    synthetic timeout. ``on_retry(exc, attempt)`` fires before each
+    backoff sleep — the hook where callers count ``recovery.*`` metrics.
+
+    ``budget_reset(exc)`` — inspected on EVERY caught failure, before
+    the ``should_retry`` re-raise (so a reset-worthy signal on a
+    non-retryable failure is still observed): return True to reset the
+    attempt counter and the backoff to their initial state. The KV
+    client uses this for its reconnect epochs ("fresh server = fresh
+    budget"); the wall-clock ``deadline`` stays the hard bound, so a
+    flapping trigger cannot extend the loop forever.
+    """
     backoff = Backoff(base=base, cap=cap)
-    for attempt in range(1, attempts + 1):
+    t0 = time.monotonic()
+    attempt = 0
+    while True:
+        attempt += 1
         try:
             return fn()
         except tuple(retry_on) as e:
-            if attempt >= attempts:
+            if budget_reset is not None and budget_reset(e):
+                attempt = 0
+                backoff.reset()
+            if should_retry is not None and not should_retry(e):
+                raise
+            out_of_budget = (
+                attempt >= attempts
+                or (deadline is not None
+                    and time.monotonic() - t0 >= deadline)
+            )
+            if out_of_budget:
                 raise
             if on_retry is not None:
                 on_retry(e, attempt)

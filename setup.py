@@ -48,6 +48,7 @@ setup(
     entry_points={
         "console_scripts": [
             "hvdtpu-run = horovod_tpu.runner.launch:main",
+            "hvdtpu-run-torch = horovod_tpu_torch.runner.launch:main",
         ]
     },
 )

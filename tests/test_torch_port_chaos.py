@@ -5,8 +5,12 @@ sites of tests/test_decode.py::TestDecodeChaos and ``serve.request``.
 
 The schedule is held against the reference's parser on the same specs:
 the same rules, the same fires at the same occurrences, the same seeded
-streams. The sites the port does not have yet parse and are reached by
-nothing.
+streams. The sites the port does not have yet (``eager.dispatch``,
+``publish.delta``) parse and are reached by nothing. The launcher's half
+(TestRetry, TestKVSite, TestBlacklistCooldown, TestHeartbeat and the
+worker-fault soak scenarios) came with the elastic launcher, and the
+``serve.dispatch`` twins of tests/test_serve.py::TestServeChaosSites
+with it.
 """
 
 import os
@@ -285,6 +289,48 @@ class TestServeRequestSite:
         assert dropped == 3 and len(futs) == 6
 
 
+class TestServeDispatchSite:
+    """Twins of tests/test_serve.py::TestServeChaosSites' dispatch tests:
+    the pool's workers reach ``serve.dispatch`` before every leased batch
+    (an ``error`` fails the batch back to the queue, a ``timeout``
+    abandons the lease for the reaper) and every request is answered."""
+
+    @staticmethod
+    def _pool(request_timeout_secs):
+        from horovod_tpu_torch.serve import ServePool
+
+        return ServePool(lambda p, b: b * p["scale"],
+                         {"scale": torch.tensor(2.0)}, device="cpu",
+                         workers=2, batch_size=4, batch_timeout_ms=2.0,
+                         request_timeout_secs=request_timeout_secs).start()
+
+    def test_dispatch_error_requeues_to_survivor(self):
+        chaos.plan("serve.dispatch:error@n=1")
+        pool = self._pool(5.0)
+        try:
+            futs = [pool.submit(torch.full((2,), float(i))) for i in range(6)]
+            for i, f in enumerate(futs):
+                np.testing.assert_allclose(
+                    np.asarray(f.result(timeout=10.0)), 2.0 * i)
+            assert pool.dispatcher.n_requeued > 0
+        finally:
+            pool.stop()
+        assert chaos.fired.get("serve.dispatch") == 1
+
+    def test_dispatch_timeout_reaped_and_answered(self):
+        chaos.plan("serve.dispatch:timeout@n=1")
+        pool = self._pool(0.3)
+        try:
+            futs = [pool.submit(torch.full((2,), float(i))) for i in range(4)]
+            for i, f in enumerate(futs):
+                np.testing.assert_allclose(
+                    np.asarray(f.result(timeout=10.0)), 2.0 * i)
+            assert pool.dispatcher.n_requeued > 0
+        finally:
+            pool.stop()
+        assert chaos.fired.get("serve.dispatch") == 1
+
+
 def _decode_engine(**kw):
     from horovod_tpu_torch.serve import CacheLM, CacheLMConfig, DecodeEngine
 
@@ -329,3 +375,302 @@ class TestDecodeChaos:
         finally:
             eng.stop()
         assert chaos.fired["serve.decode"] >= 3
+
+
+# ---- the launcher's sites (A13b): retry, kv.request, cooldown, leases -----
+
+
+class TestRetry:
+    def test_retry_call_recovers(self):
+        from horovod_tpu_torch.utils.retry import retry_call
+
+        calls = []
+
+        def fn():
+            calls.append(1)
+            if len(calls) < 3:
+                raise OSError("transient")
+            return "ok"
+
+        assert retry_call(fn, attempts=4, base=0.01) == "ok"
+        assert len(calls) == 3
+
+    def test_retry_call_exhausts(self):
+        from horovod_tpu_torch.utils.retry import retry_call
+
+        def fn():
+            raise OSError("always")
+
+        with pytest.raises(OSError):
+            retry_call(fn, attempts=3, base=0.01)
+
+    def test_should_retry_filter_raises_immediately(self):
+        from horovod_tpu_torch.utils.retry import retry_call
+
+        calls = []
+
+        def fn():
+            calls.append(1)
+            raise OSError("fatal")
+
+        with pytest.raises(OSError):
+            retry_call(fn, attempts=5, base=0.01,
+                       should_retry=lambda e: False)
+        assert len(calls) == 1
+
+    def test_backoff_grows_and_caps(self):
+        from horovod_tpu_torch.utils.retry import Backoff
+
+        b = Backoff(base=0.1, cap=0.5, factor=2.0, jitter=0.0)
+        assert [b.next_delay() for _ in range(4)] == [0.1, 0.2, 0.4, 0.5]
+        b.reset()
+        assert b.next_delay() == 0.1
+
+    def test_backoff_jitter_bounded(self):
+        import random
+
+        from horovod_tpu_torch.utils.retry import Backoff
+
+        b = Backoff(base=1.0, cap=1.0, jitter=0.5, rng=random.Random(0))
+        for _ in range(32):
+            assert 0.5 <= b.next_delay() <= 1.0
+
+
+class TestKVSite:
+    def _server(self, secret=None):
+        from horovod_tpu_torch.runner.http_server import (
+            RendezvousClient,
+            RendezvousServer,
+        )
+
+        server = RendezvousServer("127.0.0.1", secret=secret)
+        port = server.start()
+        return server, RendezvousClient("127.0.0.1", port, timeout=5,
+                                        secret=secret)
+
+    def test_drop_recovered_by_retry(self):
+        server, client = self._server()
+        try:
+            chaos.plan("kv.request:drop@n=2")
+            client.put("sc", "k", b"v")
+            assert client.get("sc", "k") == b"v"
+            assert chaos.fired["kv.request"] == 2
+            assert client.retries_seen == 2
+        finally:
+            server.stop()
+
+    def test_injected_5xx_recovered_by_retry(self):
+        server, client = self._server()
+        try:
+            chaos.plan("kv.request:error@n=2")
+            client.put("sc", "k", b"v")
+            assert client.get("sc", "k") == b"v"
+        finally:
+            server.stop()
+
+    def test_outage_beyond_retries_raises(self):
+        import urllib.error
+
+        server, client = self._server()
+        try:
+            chaos.plan("kv.request:drop@n=50")
+            with pytest.raises(urllib.error.URLError):
+                client.put("sc", "k", b"v")
+        finally:
+            server.stop()
+
+    def test_404_is_an_answer_not_a_retry(self):
+        server, client = self._server()
+        try:
+            t0 = time.monotonic()
+            assert client.get("sc", "missing") is None
+            assert time.monotonic() - t0 < 0.5
+        finally:
+            server.stop()
+
+    def test_retried_put_not_rejected_as_replay(self):
+        server, client = self._server(secret="s7")
+        try:
+            chaos.plan("kv.request:drop@n=2")
+            client.put("sc", "k", b"v")
+            assert client.get("sc", "k") == b"v"
+        finally:
+            server.stop()
+
+
+class TestBlacklistCooldown:
+    def _mgr(self, cooldown):
+        from horovod_tpu_torch.runner.elastic_driver import (
+            FixedHosts,
+            HostManager,
+        )
+
+        return HostManager(FixedHosts({"a": 1, "b": 1}), cooldown=cooldown)
+
+    def test_permanent_without_cooldown(self):
+        mgr = self._mgr(0.0)
+        mgr.update_available_hosts()
+        mgr.blacklist("a")
+        mgr.update_available_hosts()
+        assert mgr.current_hosts == {"b": 1}
+        assert mgr.is_blacklisted("a")
+
+    def test_cooldown_readmits_on_probation(self):
+        mgr = self._mgr(0.2)
+        mgr.update_available_hosts()
+        mgr.blacklist("a")
+        mgr.update_available_hosts()
+        assert mgr.current_hosts == {"b": 1}
+        assert mgr.is_blacklisted("a")
+        time.sleep(0.25)
+        assert not mgr.is_blacklisted("a")
+        assert mgr.update_available_hosts()
+        assert mgr.current_hosts == {"a": 1, "b": 1}
+        assert mgr.host_health() == {"a": 1}
+        assert mgr.readmissions == 1
+
+    def test_repeat_offender_cooldown_doubles(self):
+        mgr = self._mgr(0.2)
+        mgr.update_available_hosts()
+        mgr.blacklist("a")
+        time.sleep(0.25)
+        assert not mgr.is_blacklisted("a")
+        mgr.blacklist("a")
+        time.sleep(0.25)
+        assert mgr.is_blacklisted("a")
+        time.sleep(0.2)
+        assert not mgr.is_blacklisted("a")
+        assert mgr.host_health() == {"a": 2}
+
+    def test_env_knob_default(self, monkeypatch):
+        from horovod_tpu_torch.runner.elastic_driver import (
+            FixedHosts,
+            HostManager,
+        )
+
+        monkeypatch.setenv("HVDTPU_BLACKLIST_COOLDOWN", "0.2")
+        mgr = HostManager(FixedHosts({"a": 1}))
+        mgr.update_available_hosts()
+        mgr.blacklist("a")
+        assert mgr.is_blacklisted("a")
+        time.sleep(0.25)
+        assert not mgr.is_blacklisted("a")
+
+
+class _FakeProc:
+    def __init__(self):
+        self.killed = False
+
+    def kill(self, grace=5.0):
+        self.killed = True
+
+
+class TestHeartbeat:
+    def test_worker_beats_and_pause_stops_them(self, monkeypatch):
+        from horovod_tpu_torch.elastic import worker as ew
+        from horovod_tpu_torch.runner.http_server import RendezvousServer
+
+        server = RendezvousServer("127.0.0.1")
+        port = server.start()
+        hb = ew._Heartbeat()
+        try:
+            monkeypatch.setenv("HVDTPU_ELASTIC", "1")
+            monkeypatch.setenv("HVDTPU_RENDEZVOUS_ADDR", "127.0.0.1")
+            monkeypatch.setenv("HVDTPU_RENDEZVOUS_PORT", str(port))
+            monkeypatch.setenv("HVDTPU_HEARTBEAT_SECS", "0.05")
+            assert hb.start("hostX")
+            deadline = time.time() + 5.0
+            while time.time() < deadline:
+                if server.scope_items("heartbeat").get("hostX"):
+                    break
+                time.sleep(0.02)
+            first = float(server.scope_items("heartbeat")["hostX"])
+            hb.pause()
+            time.sleep(0.2)
+            paused = float(server.scope_items("heartbeat")["hostX"])
+            time.sleep(0.2)
+            still = float(server.scope_items("heartbeat")["hostX"])
+            assert first > 0 and paused == still and hb.beats > 0
+        finally:
+            hb.stop()
+            server.stop()
+
+    def test_heartbeat_disabled_by_knob(self, monkeypatch):
+        from horovod_tpu_torch.elastic import worker as ew
+
+        monkeypatch.setenv("HVDTPU_HEARTBEAT_SECS", "0")
+        assert not ew._Heartbeat().start("hostY")
+
+    def test_driver_lease_expiry_blacklists(self, monkeypatch):
+        from horovod_tpu_torch.runner.elastic_driver import (
+            ElasticDriver,
+            ElasticJob,
+            FixedHosts,
+        )
+
+        monkeypatch.setenv("HVDTPU_HEARTBEAT_TIMEOUT_SECS", "0.2")
+        driver = ElasticDriver(FixedHosts({"a": 1, "b": 1}))
+        job = ElasticJob(["true"], driver)
+        assert job.server.start()
+        a, b = _FakeProc(), _FakeProc()
+        try:
+            job._assignment = {"a": 0, "b": 1}
+            job._procs = {"a": a, "b": b}
+            job.server.put("heartbeat", "a", b"beat-from-skewed-clock")
+            assert job._check_leases() is False
+            time.sleep(0.25)
+            assert job._check_leases() is True
+            assert a.killed and not b.killed
+            assert "a" not in job._procs and "b" in job._procs
+            assert driver.host_manager.is_blacklisted("a")
+            assert job.lease_expiries == 1
+            job.server.put("heartbeat", "b", b"beat-1")
+            assert job._check_leases() is False
+            time.sleep(0.25)
+            job.server.put("heartbeat", "b", b"beat-2")
+            assert job._check_leases() is False
+        finally:
+            job.server.stop()
+
+    def test_stale_beat_from_previous_incarnation_ignored(self, monkeypatch):
+        from horovod_tpu_torch.runner.elastic_driver import (
+            ElasticDriver,
+            ElasticJob,
+            FixedHosts,
+        )
+
+        monkeypatch.setenv("HVDTPU_HEARTBEAT_TIMEOUT_SECS", "0.2")
+        job = ElasticJob(["true"], ElasticDriver(FixedHosts({"a": 1})))
+        job.server.start()
+
+        class NeverKill:
+            def kill(self, grace=5.0):
+                raise AssertionError("respawned worker must not be killed")
+
+        try:
+            job.server.put("heartbeat", "a", b"predecessor-beat")
+            job._assignment = {"a": 0}
+            job._procs = {"a": NeverKill()}
+            job._hb_baseline = {"a": b"predecessor-beat"}
+            time.sleep(0.25)
+            assert job._check_leases() is False
+            job.server.put("heartbeat", "a", b"fresh-beat")
+            assert job._check_leases() is False
+        finally:
+            job.server.stop()
+
+
+# ---- end to end: the worker-fault soak scenarios ---------------------------
+
+
+@pytest.mark.parametrize("scenario",
+                         ["crash", "hang", "kv_outage", "ckpt", "straggler"])
+def test_worker_fault_scenario(scenario):
+    """Twins of test_crash_recover_scenario_fast and of the worker-fault
+    half of test_full_chaos_soak: each fault fires in a gloo world of
+    loopback hosts under the port's elastic driver, and the job ends rc=0
+    at the exact step count with the analytic final parameters."""
+    from horovod_tpu_torch.tools import chaos_soak as soak
+
+    res = soak.run_scenario(scenario, steps=5, timeout=90.0)
+    assert soak.check_invariants(res, steps=5) == []

@@ -2,8 +2,9 @@
 of tests/test_elastic.py, plus what the port adds on its own state:
 ``TrainState`` saves ZeRO-1 state in its canonical form and restores it
 repacked for another world (4 -> 2 on gloo, spawned), ``sync`` on a gloo
-world of 2, a guard escalation recovered by ``run``, and the in-process
-worker entry points being no-ops outside an elastic launch.
+world of 2, a guard escalation recovered by ``run``, and the worker entry
+points: no-ops outside an elastic launch, live against a rendezvous
+server inside one.
 
 The JAX package's elastic objects behave alike on the same script: the
 ObjectState and run-loop twins run both packages' and compare.
@@ -171,18 +172,35 @@ def test_reset_callbacks_run_on_reset():
 
 
 def test_worker_entry_points_are_noops_outside_a_launch(monkeypatch):
+    """Outside a launch the entry points do nothing; inside one (a live
+    RendezvousServer on port 0) ``publish_clean_exit`` writes
+    ``exit/<host>`` and a state registers with the notification
+    manager's watcher."""
+    from horovod_tpu_torch.runner.http_server import RendezvousServer
+
     monkeypatch.delenv("HVDTPU_ELASTIC", raising=False)
     assert not worker.in_elastic_world()
     worker.publish_clean_exit()
     assert worker.notification_manager.init() is False
-    monkeypatch.setenv("HVDTPU_ELASTIC", "1")
-    monkeypatch.setenv("HVDTPU_RENDEZVOUS_ADDR", "127.0.0.1")
-    monkeypatch.setenv("HVDTPU_RENDEZVOUS_PORT", "1")
-    assert worker.in_elastic_world()
-    with pytest.raises(NotImplementedError, match="A13b"):
+    server = RendezvousServer("127.0.0.1")
+    port = server.start()
+    manager = worker.WorkerNotificationManager()
+    monkeypatch.setattr(worker, "notification_manager", manager)
+    monkeypatch.setattr(elastic.state, "notification_manager", manager)
+    try:
+        monkeypatch.setenv("HVDTPU_ELASTIC", "1")
+        monkeypatch.setenv("HVDTPU_RENDEZVOUS_ADDR", "127.0.0.1")
+        monkeypatch.setenv("HVDTPU_RENDEZVOUS_PORT", str(port))
+        monkeypatch.setenv("HVDTPU_HOST_ID", "hostA")
+        assert worker.in_elastic_world()
         worker.publish_clean_exit()
-    with pytest.raises(NotImplementedError, match="A13b"):
-        elastic.ObjectState(x=1)
+        assert server.scope_items("exit") == {"hostA": b"0"}
+        state = elastic.ObjectState(x=1)
+        assert state in set(manager._listeners)
+        assert manager._thread is not None and manager._thread.daemon
+    finally:
+        manager.stop()
+        server.stop()
 
 
 def test_train_state_snapshots_zero1_state_canonical():
