@@ -468,16 +468,47 @@ Phases (any failure exits non-zero; nothing is caught):
    id at every position) equal to this process's forward of the request
    (a difference only at a near-tie the full recompute confirms);
    requests/s and wall of both runs.
-32. Output: a "kernels" JSON line (the nine TPU kernels' counterparts and
+32. [obs] [train]'s configuration (GPT-2 small, fp32 masters, bf16
+   compute, 8 x 1025 tokens, ZeRO-1 fused_adamw(1e-4), one-rank NCCL)
+   with the metrics, trace and goodput planes off and on in alternated
+   blocks of 10 steps, four a side, each step between synchronizations:
+   both medians and their difference (no limit). With the planes on:
+   step.count and the three step histograms count the steps taken, each
+   step's host_dispatch + device is its total within 1% (its trace
+   spans), step.tokens is 8192 a step, step.mfu equals throughput()'s MFU
+   at the step time of step.per_sec to 1e-6 relative, rank0.jsonl's last
+   counters equal the registry's, rank0.prom parses, the trace dump holds
+   one step span a step with step.host_dispatch and step.device inside
+   it, the ledger conserves within 1 ms and books the device brackets as
+   compute or exposed_comm; 12/12/12 + 4 launches every step, on and off;
+   three steps from one start bit for bit on and off (parameters, moments,
+   counts). Then [serve]'s pool, 16 requests, metrics off and on: the
+   request histogram counts 16, the greedy answers are the metrics-off
+   pool's, 12 flash launches a batch.
+33. [elastic-quant] the quant soak scenario at full width: GPT-2 small,
+   ZeRO-1 fused AdamW on the int8 wire (block 256, error feedback)
+   through hvt.elastic.run under run_elastic at [elastic-recover]'s
+   settings, 8 commits, the TrainState saved at 3 and 6,
+   worker.step:crash@step=5;spawn=0, the metrics, trace and goodput planes
+   on in the driver and the workers: rc 0, the respawn's restored EF
+   residuals non-zero and bit for bit those saved at step 3, the final
+   parameters, moments and residuals bit for bit an uninterrupted run of
+   8 steps in this process (else [train]'s bound, the reason printed), 2
+   quantizes and 2 dequantizes a bucket a step, the dead incarnation's
+   flight dump on disk, hvdtpu_trace merging every dump with the crash and
+   the respawn's first step in it, the driver's goodput conserving with
+   rescale_downtime > 0; the time to recover split as [elastic-recover]
+   splits it, beside the ledger's categories.
+34. Output: a "kernels" JSON line (the nine TPU kernels' counterparts and
    the cast kernel; "launches" is the training run's count -- for the
    quantize pair the int8 [train-quant] run's (beside it the
    [ckpt-reshard] and int8 [decode] runs' and the KV shapes' times as
    "kv_write" / "kv_gather"), for kernel 8 and the cast kernel the fp8
    [train-fp8] run's, for kernel 7 the [serve-int8] rounds' -- the forward
    kernel's serving count beside it as "launches_serve", and the flash
-   kernels', AdamW's and (from 22.) the quantize pair's counts in 18.-31.,
-   each read over its own run, as "launches_phases" (29.-31. counted in
-   the worker processes); the flash rows' ring
+   kernels', AdamW's and (from 22.) the quantize pair's counts in 18.-33.,
+   each read over its own run, as "launches_phases" (29.-31. and 33.
+   counted in the worker processes); the flash rows' ring
    times at n = 2, 4 and the whole sequence as "ring_flash_*"; the quantize pair's
    times at an act-quant boundary as "boundary"), the card's name and power limit, and the last line
    {"ok": true, "device": {...}}.
@@ -6015,6 +6046,602 @@ def serve_kv(hvt):
     return rec
 
 
+# ---- the telemetry planes: [obs], [elastic-quant] -------------------------
+
+OBS_BLOCK, OBS_BLOCKS, OBS_BIT_STEPS, OBS_SERVE_REQUESTS = 10, 4, 3, 16
+
+
+def obs_arm(on: bool, trace_dir=None):
+    """The metrics, trace and goodput planes of this process on or off
+    (the step wrapper reads them at every call)."""
+    from horovod_tpu_torch.obs import goodput, registry, trace
+
+    if on:
+        registry.enable()
+        trace.enable(directory=trace_dir)
+        goodput.enable()
+    else:
+        registry.disable()
+        trace.disable()
+        goodput.disable()
+
+
+def obs_reset():
+    """Every plane off, and their process-global books empty."""
+    from horovod_tpu_torch.obs import export, goodput, registry, trace
+
+    registry._registry.reset()
+    registry._enabled = None
+    trace._reset_for_tests()
+    goodput._reset_for_tests()
+    export._reporter = None
+
+
+def state_digest(state):
+    """sha256 of every tensor of a TrainState's parameters and optimizer
+    state (moments, counts, EF residuals), in walk order."""
+    from horovod_tpu_torch import checkpoint as ckpt
+
+    h = hashlib.sha256()
+
+    def add(t):
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu()
+                 .numpy().tobytes())
+        return t
+
+    ckpt.map_tensors(add, (state.params, state.opt_state))
+    return h.hexdigest()
+
+
+def obs_steps(hvt, cfg, sd0, tokens, bracket, steps, on, trace_dir=None):
+    """``steps`` steps of [train]'s configuration from ``sd0`` with the
+    planes on or off: the state's digest and the losses."""
+    from horovod_tpu_torch.parallel import dp
+
+    model = hvt.GPT2LMModel(cfg)
+    model.load_state_dict(sd0)
+    step, opt = hvt.make_train_step(
+        train_loss(model), hvt.fused_adamw(TRAIN_LR), sharded=True,
+        fused_update=True, **bracket)
+    state = dp.init_state(model, opt)
+    obs_reset()
+    obs_arm(on, trace_dir)
+    losses = []
+    for _ in range(steps):
+        state, loss = step(state, tokens)
+        losses.append(float(loss))
+    obs_arm(False)
+    obs_reset()
+    digest = state_digest(state)
+    del model, step, state
+    torch.cuda.empty_cache()
+    return digest, losses
+
+
+def parse_prom(path):
+    """Every sample line of a Prometheus textfile as {name: value}; raises
+    on a malformed line."""
+    out = {}
+    for line in Path(path).read_text().splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name, value = line.rsplit(" ", 1)
+        if not name.endswith('{rank="0"}'):
+            raise AssertionError(f"malformed prom line {line!r}")
+        out[name[:-len('{rank="0"}')]] = float(value)
+    return out
+
+
+def obs_serve(hvt, fa):
+    """[serve]'s pool (GPT-2 small bf16, two workers, batch 8) for
+    OBS_SERVE_REQUESTS requests, metrics off and on: the greedy next
+    token of each request, and the registry's serving counts."""
+    from horovod_tpu_torch import obs
+    from horovod_tpu_torch.obs import registry
+    from horovod_tpu_torch.serve import ServePool
+
+    cfg = hvt.GPT2Config.small()
+    model = hvt.GPT2LMModel(cfg, device="cuda")
+    model.load_state_dict(hvt.convert.init_params(cfg, seed=0))
+    tokens = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (OBS_SERVE_REQUESTS, cfg.max_len), dtype=np.int64)
+
+    def infer(m, t):
+        return m(t)[:, -1, :].float()
+
+    out = {}
+    for label, on in (("off", False), ("on", True)):
+        obs_reset()
+        if on:
+            obs.enable()
+        pool = ServePool(infer, model, workers=2, batch_size=SERVE_BATCH,
+                         batch_timeout_ms=5.0, request_timeout_secs=600.0,
+                         device="cuda").start()
+        try:
+            fa.reset_launches()
+            futs = [pool.submit(torch.from_numpy(t)) for t in tokens]
+            logits = torch.stack([f.result(timeout=600.0) for f in futs])
+            batches = pool.dispatcher.n_batches
+        finally:
+            pool.stop()
+        out[label] = {"logits": logits, "flash": fa.launches,
+                      "batches": batches,
+                      "snapshot": registry._registry.snapshot()}
+        obs.disable()
+    obs_reset()
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def obs_phase(hvt, kernels):
+    """[obs]: [train]'s configuration with the metrics, trace and goodput
+    planes off and on, in alternated blocks of OBS_BLOCK steps; the
+    registry, exports, trace and ledger checked against the steps taken;
+    then [serve]'s pool with the metrics on."""
+    from horovod_tpu_torch.obs import export, flops, goodput, registry, trace
+    from horovod_tpu_torch.parallel import dp
+    from horovod_tpu_torch.tools import hvdtpu_trace as ht
+
+    fa, fadam, tq = kernels
+    t_phase = time.perf_counter()
+    hvt.init(backend="nccl")
+    cfg = hvt.GPT2Config.small(param_dtype=torch.float32)
+    seq = cfg.max_len
+    sd0 = hvt.convert.init_params(cfg, seed=0)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, seq + 1), dtype=np.int64)).cuda()
+    n_matmul = sum(v.numel() for k, v in sd0.items()
+                   if not k.startswith(("transformer.wte", "transformer.wpe")))
+    tokens_per_step = TRAIN_BATCH * seq
+    bracket = {"tokens_per_step": tokens_per_step,
+               "flops_per_step": tokens_per_step
+               * flops.transformer_flops_per_token(n_matmul, cfg.n_layers,
+                                                   seq, cfg.d_model)}
+    workdir = phase_dir("obs-")
+    try:
+        model = hvt.GPT2LMModel(cfg)
+        model.load_state_dict(sd0)
+        step, opt = hvt.make_train_step(
+            train_loss(model), hvt.fused_adamw(TRAIN_LR), sharded=True,
+            fused_update=True, **bracket)
+        state = dp.init_state(model, opt)
+        for _ in range(TRAIN_WARMUP):
+            state, _ = step(state, tokens)
+        n_bkt = n_buckets(state)
+        obs_reset()
+        export._reporter = export.MetricsReporter(
+            directory=str(workdir / "metrics"))
+        times = {"off": [], "on": []}
+        per_step = {"off": [], "on": []}
+        losses = []
+        for b in range(2 * OBS_BLOCKS):
+            side = "off" if b % 2 == 0 else "on"
+            obs_arm(side == "on", str(workdir / "trace"))
+            for _ in range(OBS_BLOCK):
+                reset_counts(fa, fadam, tq)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, loss = step(state, tokens)
+                torch.cuda.synchronize()
+                times[side].append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(loss))
+                per_step[side].append(read_counts(fa, fadam, tq))
+        # The last block ran with the planes on: read and export them
+        # before switching them off.
+        n_on = OBS_BLOCK * OBS_BLOCKS
+        snap = registry._registry.snapshot()
+        per_sec = snap["gauges"]["step.per_sec"]
+        tp = step.throughput(1.0 / per_sec)
+        mfu = snap["gauges"].get("step.mfu")
+        record = export._reporter.flush(summarize=False)
+        dump = trace.flight_dump("obs")
+        obs_arm(False)
+        jsonl = [json.loads(line) for line in
+                 (workdir / "metrics" / "rank0.jsonl").read_text()
+                 .splitlines()]
+        prom = parse_prom(workdir / "metrics" / "rank0.prom")
+        doc = json.loads(Path(dump).read_text())
+        spans = [e for e in doc["traceEvents"]
+                 if e.get("ph") == "X" and e.get("cat") == "train"]
+        steps_ = [e for e in spans if e["name"] == "step"]
+        disp = [e for e in spans if e["name"] == "step.host_dispatch"]
+        dev = [e for e in spans if e["name"] == "step.device"]
+        inside = all(
+            s["ts"] <= h["ts"] and h["ts"] + h["dur"] <= s["ts"] + s["dur"] + 2
+            and s["ts"] <= d["ts"] and d["ts"] + d["dur"] <= s["ts"]
+            + s["dur"] + 2
+            for s, h, d in zip(steps_, disp, dev))
+        parts = [abs(h["dur"] + d["dur"] - s["dur"]) / s["dur"]
+                 for s, h, d in zip(steps_, disp, dev)]
+        gp = goodput.ledger().snapshot()
+        device_s = sum(d["dur"] for d in dev) / 1e6
+        merged = ht.merge_dir(str(workdir / "trace"))
+        del model, step, state
+        torch.cuda.empty_cache()
+        # Three steps from one start, the planes off and on.
+        d_off, l_off = obs_steps(hvt, cfg, sd0, tokens, bracket,
+                                 OBS_BIT_STEPS, False)
+        d_on, l_on = obs_steps(hvt, cfg, sd0, tokens, bracket,
+                               OBS_BIT_STEPS, True, str(workdir / "trace3"))
+        hvt.shutdown()
+        served = obs_serve(hvt, fa)
+    finally:
+        obs_arm(False)
+        obs_reset()
+        shutil.rmtree(workdir, ignore_errors=True)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    want = {"flash_fwd": cfg.n_layers, "flash_bwd_dkdv": cfg.n_layers,
+            "flash_bwd_dq": cfg.n_layers, "fused_adamw": n_bkt,
+            "quantize_blockwise": 0, "dequantize_blockwise": 0}
+    for side in ("off", "on"):
+        for c in per_step[side]:
+            check_counts(f"obs {side}", c, want, 1)
+    counts = {side: summed(per_step[side]) for side in per_step}
+    checks = {
+        "step_count": snap["counters"].get("step.count") == n_on,
+        "step_tokens": snap["counters"].get("step.tokens")
+        == tokens_per_step * n_on,
+        "histogram_counts": all(
+            snap["histograms"][h]["count"] == n_on for h in (
+                "step.total_ms", "step.host_dispatch_ms", "step.device_ms")),
+        "dispatch_plus_device_is_total": len(parts) == n_on
+        and max(parts) <= 0.01,
+        "mfu_is_throughputs": mfu is not None and tp["mfu"] is not None
+        and abs(mfu - tp["mfu"]) <= 1e-6 * abs(tp["mfu"]),
+        "jsonl_counters": jsonl[-1]["counters"] == record["counters"]
+        == snap["counters"],
+        "prom_parses": prom.get("hvdtpu_step_count") == n_on,
+        "trace_one_step_span_a_step": len(steps_) == len(disp) == len(dev)
+        == n_on and inside,
+        "trace_merges": merged is not None
+        and ht.validate_events(merged["traceEvents"]) == [],
+        "ledger_conserves": abs(sum(gp["totals"].values())
+                                - gp["elapsed_s"]) <= 1e-3,
+        # The ledger books the device bracket as compute, less the
+        # exposed_comm it carves out against the rolling-min device time.
+        "ledger_device": gp["totals"]["compute"]
+        + gp["totals"]["exposed_comm"] >= device_s - 1e-3,
+        "bitwise_on_off": d_on == d_off and l_on == l_off,
+    }
+    s_on, s_off = served["on"], served["off"]
+    ss = s_on["snapshot"]
+    serve_checks = {
+        "requests": ss["counters"].get("serve.requests")
+        == OBS_SERVE_REQUESTS,
+        "responses": ss["counters"].get("serve.responses")
+        == OBS_SERVE_REQUESTS,
+        "request_histogram": ss["histograms"]["serve.request_ms"]["count"]
+        == OBS_SERVE_REQUESTS,
+        "answers_equal": torch.equal(s_on["logits"].argmax(-1),
+                                     s_off["logits"].argmax(-1)),
+        "off_recorded_nothing": s_off["snapshot"]["counters"] == {},
+    }
+    logit_diff = float((s_on["logits"] - s_off["logits"]).abs().max())
+    rec = {"step_ms_median": med, "step_ms": times,
+           "on_minus_off_ms": med["on"] - med["off"],
+           "on_over_off": med["on"] / med["off"], "losses": losses,
+           "launches": counts, "launches_per_step": per_step["on"][0],
+           "steps_on": n_on, "mfu_gauge": mfu, "mfu_throughput": tp["mfu"],
+           "tokens_per_s_gauge": snap["gauges"].get("step.tokens_per_sec"),
+           "host_dispatch_ms_p50":
+               snap["histograms"]["step.host_dispatch_ms"]["p50"],
+           "device_ms_p50": snap["histograms"]["step.device_ms"]["p50"],
+           "total_ms_p50": snap["histograms"]["step.total_ms"]["p50"],
+           "dispatch_plus_device_max_rel": max(parts) if parts else None,
+           "goodput": gp, "device_s": device_s, "names": {
+               sec: sorted(snap[sec]) for sec in snap},
+           "checks": checks, "serve": {
+               "checks": serve_checks, "logit_max_abs_diff": logit_diff,
+               "flash": {k: served[k]["flash"] for k in served},
+               "batches": {k: served[k]["batches"] for k in served},
+               "request_ms": ss["histograms"]["serve.request_ms"]}}
+    log(f"[obs] [train]'s configuration, planes off / on in alternated "
+        f"blocks of {OBS_BLOCK} ({OBS_BLOCKS} a side): step median off "
+        f"{med['off']:.3f} ms, on {med['on']:.3f} ms, on - off "
+        f"{med['on'] - med['off']:+.3f} ms ({med['on'] / med['off']:.4f}x); "
+        f"host_dispatch p50 {rec['host_dispatch_ms_p50']:.3f} ms, device p50 "
+        f"{rec['device_ms_p50']:.3f} ms, total p50 {rec['total_ms_p50']:.3f}"
+        f" ms; step.mfu {mfu} vs throughput() {tp['mfu']}; launches a step "
+        f"{per_step['on'][0]}")
+    log("[obs] goodput (s): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in gp["totals"].items() if v)
+        + f"; elapsed {gp['elapsed_s']:.4f}, fraction {gp['fraction']:.4f}; "
+        f"sum of step.device {device_s:.4f}")
+    log(f"[obs] checks {checks}")
+    log(f"[obs] serve: {OBS_SERVE_REQUESTS} requests, metrics on vs off: "
+        f"{serve_checks}; request_ms {rec['serve']['request_ms']}; max |d| "
+        f"of the last logits {logit_diff:.3e}; flash launches "
+        f"{rec['serve']['flash']} in {rec['serve']['batches']} batches")
+    bad = [k for k, v in {**checks, **serve_checks}.items() if not v]
+    if bad:
+        raise AssertionError(f"[obs] failed {bad}: {rec}")
+    for label in ("off", "on"):
+        check_counts(f"obs serve {label}", {"flash_fwd": served[label][
+            "flash"]}, {"flash_fwd": cfg.n_layers}, served[label]["batches"])
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
+# [elastic-quant]: [train-quant-zero1]'s configuration (ZeRO-1 fused AdamW on
+# the int8 wire, block 256, error feedback) through hvt.elastic.run for
+# QUANT_COMMITS commits, the TrainState checkpointed at QUANT_CKPT_AT; resumes
+# from the newest checkpoint when one exists (the respawn).
+ELASTIC_QUANT_WORKER = """
+import torch.nn.functional as F
+
+from horovod_tpu_torch.elastic import worker as ew
+from horovod_tpu_torch.ops import quantization as tq
+from horovod_tpu_torch.optimizer import ef_residual_norm
+
+record({"event": "started", "pid": os.getpid()})
+t0 = time.time()
+world()
+_build.load(tq.KERNEL_SOURCE)
+record({"event": "ready", "init_s": time.time() - t0,
+        "join": ew.last_join})
+cfg = hvt.GPT2Config.small(param_dtype=torch.float32)
+model = hvt.GPT2LMModel(cfg, device=DEVICE)
+model.load_state_dict(hvt.convert.init_params(cfg, seed=0))
+
+
+def loss_fn(params, tokens):
+    logits = torch.func.functional_call(model, params, (tokens[:, :-1],))
+    return F.cross_entropy(logits.flatten(0, 1), tokens[:, 1:].flatten())
+
+
+def residual_digests(opt_state):
+    return digests(opt_state.residual)
+
+
+step, opt = hvt.make_train_step(
+    loss_fn, hvt.fused_adamw(LR), sharded=True, fused_update=True,
+    compression=hvt.Compression.int8.with_block(BLOCK), device=DEVICE)
+state = dp.init_state(model, opt)
+tokens = batch_tokens(cfg, BATCH)
+t0 = time.time()
+try:
+    state = hvt.checkpoint.restore_checkpoint(CKDIR, state)
+    resumed = int(state.step)
+except FileNotFoundError:
+    resumed = None
+record({"event": "restored", "step": resumed, "restore_s": time.time() - t0,
+        "residual_norm": ef_residual_norm(state.opt_state),
+        "residual_sha256": residual_digests(state.opt_state)})
+est = hvt.elastic.TrainState(params=state.params, opt_state=state.opt_state,
+                             step=state.step)
+
+
+def counts_q():
+    return dict(counts(), quantize_blockwise=tq.launches_quant,
+                dequantize_blockwise=tq.launches_dequant)
+
+
+@hvt.elastic.run
+def train(st):
+    while int(st.step) < COMMITS:
+        cur = dp.TrainState(st.params, st.opt_state, st.step)
+        reset()
+        tq.reset_launches()
+        t1 = time.time()
+        new, loss = step(cur, tokens)
+        loss = float(loss)
+        c = counts_q()
+        st.params, st.opt_state, st.step = (new.params, new.opt_state,
+                                            new.step)
+        s = int(new.step)
+        record({"step": s, "loss": loss, "launches": c, "t0": t1,
+                "t1": time.time()})
+        if s in CKPT_AT:
+            hvt.checkpoint.save_checkpoint(
+                CKDIR, dp.TrainState(st.params, st.opt_state, st.step),
+                step=s, keep=2)
+            record({"event": "saved", "step": s,
+                    "residual_norm": ef_residual_norm(st.opt_state),
+                    "residual_sha256": residual_digests(st.opt_state)})
+        record({"event": "commit", "step": s})
+        st.commit()
+    return st
+
+
+train(est)
+torch.save({"params": {k: v.detach().cpu() for k, v in est.params.items()},
+            "opt_sha256": digests(est.opt_state), "step": int(est.step)},
+           FINAL)
+record({"event": "done"})
+hvt.shutdown()
+"""
+
+
+def elastic_quant_reference(hvt, commits):
+    """The uninterrupted run in this process: ``commits`` steps of the
+    worker's configuration from the same start."""
+    from horovod_tpu_torch.parallel import dp
+
+    hvt.init(backend="nccl")
+    cfg = hvt.GPT2Config.small(param_dtype=torch.float32)
+    model = hvt.GPT2LMModel(cfg)
+    model.load_state_dict(hvt.convert.init_params(cfg, seed=0))
+    step, opt = hvt.make_train_step(
+        train_loss(model), hvt.fused_adamw(TRAIN_LR), sharded=True,
+        fused_update=True,
+        compression=hvt.Compression.int8.with_block(QUANT_BLOCK))
+    state = dp.init_state(model, opt)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, cfg.max_len + 1), dtype=np.int64)
+    ).cuda()
+    losses = []
+    for _ in range(commits):
+        state, loss = step(state, tokens)
+        losses.append(float(loss))
+    out = {"params": {k: v.detach().cpu() for k, v in state.params.items()},
+           "opt_sha256": [], "losses": losses}
+    hvt.checkpoint.map_tensors(lambda t: out["opt_sha256"].append(
+        hashlib.sha256(t.detach().contiguous().view(-1).view(torch.uint8)
+                       .cpu().numpy()).hexdigest()) or t, state.opt_state)
+    hvt.shutdown()
+    del model, step, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def elastic_quant(hvt, n_quant_buckets):
+    """[elastic-quant]: the ``quant`` soak scenario at full width -- GPT-2
+    small on the int8 ZeRO-1 wire through hvt.elastic.run under
+    run_elastic at [elastic-recover]'s settings, the worker killed at
+    commit RECOVER_CRASH_AT and the respawn resumed from the step-3
+    checkpoint, with the metrics, trace and goodput planes on in the driver
+    and the workers."""
+    from horovod_tpu_torch.obs import export, goodput, registry, trace
+    from horovod_tpu_torch.runner import elastic_driver
+    from horovod_tpu_torch.tools import hvdtpu_trace as ht
+    from horovod_tpu_torch.tools.chaos_soak import run_elastic_scenario
+
+    t_phase = time.perf_counter()
+    want_run = elastic_quant_reference(hvt, RECOVER_COMMITS)
+    torch.cuda.empty_cache()
+    workdir = phase_dir("equant-")
+    trace_dir = workdir / "trace"
+    try:
+        src = worker_source(
+            ELASTIC_QUANT_WORKER, BATCH=TRAIN_BATCH, LR=TRAIN_LR,
+            BLOCK=QUANT_BLOCK, COMMITS=RECOVER_COMMITS,
+            CKPT_AT=RECOVER_CKPT_AT, CKDIR=str(workdir / "ckpt"),
+            FINAL=str(workdir / "final.pt"))
+        planes = {"HVDTPU_METRICS": "1",
+                  "HVDTPU_METRICS_DIR": str(workdir / "metrics"),
+                  "HVDTPU_TRACE": "1", "HVDTPU_TRACE_DIR": str(trace_dir),
+                  "HVDTPU_GOODPUT": "1"}
+        obs_reset()
+        registry.enable()
+        goodput.enable()
+        trace.enable(directory=str(trace_dir))
+        # The driver's exports go beside the workers' (its reporter is
+        # made once a process; this phase's is dropped after).
+        elastic_driver._driver_rep = export.MetricsReporter(
+            role="driver", directory=str(workdir / "metrics"))
+        job_ref = {}
+        t0 = time.perf_counter()
+        try:
+            rc, recs = run_elastic_scenario(
+                str(workdir), src, initial_hosts=["localhost:1"],
+                chaos=f"worker.step:crash@step={RECOVER_CRASH_AT};spawn=0",
+                extra_env=planes,
+                driver_env={"HVDTPU_BLACKLIST_COOLDOWN": "1"},
+                timeout=WORKER_TIMEOUT_S, drain_timeout=60.0,
+                job_ref=job_ref, fast=False)
+        finally:
+            job = job_ref.get("job")
+            gp = job.goodput_snapshot() if job is not None else None
+            events = list(job.events) if job is not None else []
+            obs_arm(False)
+            obs_reset()
+            elastic_driver._driver_rep = None
+        wall = time.perf_counter() - t0
+        final = torch.load(workdir / "final.pt")
+        dumps = sorted(p.name for p in trace_dir.glob("trace_*.json"))
+        merged = ht.merge_dir(str(trace_dir))
+        dead = [r["pid"] for r in recs
+                if r.get("event") == "started" and r.get("spawn") == 0]
+        dead_dump = None
+        for name in dumps:
+            if dead and name.endswith(f".{dead[0]}.json"):
+                dead_dump = json.loads((trace_dir / name).read_text())
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    saved = {r["step"]: r for r in recs if r.get("event") == "saved"
+             and r.get("spawn") == 0}
+    restored = [r for r in recs if r.get("event") == "restored"
+                and r.get("spawn", 0) > 0]
+    per_step = [r["launches"] for r in recs if "launches" in r]
+    pa, pb = want_run["params"], final["params"]
+    params_bitwise = all(torch.equal(pa[k], pb[k]) for k in pa)
+    opt_bitwise = want_run["opt_sha256"] == final["opt_sha256"]
+    p_rel = grads_rel_l2(pb, pa)
+    events_m = (merged or {}).get("traceEvents", [])
+    crash = [e for e in events_m if e.get("name") == "chaos.worker.step"
+             and e.get("args", {}).get("action") == "crash"]
+    after = [e for e in events_m if e.get("name") == "step"
+             and e.get("cat") == "train" and crash
+             and e["ts"] > max(c["ts"] for c in crash)]
+    split = recover_split(recs, events)
+    res_ok = bool(restored) and bool(saved.get(RECOVER_CKPT_AT[0])) and (
+        restored[0]["residual_norm"] or 0) > 0 and restored[0][
+        "residual_sha256"] == saved[RECOVER_CKPT_AT[0]]["residual_sha256"]
+    checks = {
+        "rc": rc == 0,
+        "resumed_at_first_checkpoint": bool(restored)
+        and restored[0]["step"] == RECOVER_CKPT_AT[0],
+        "residuals_restored_bitwise": res_ok,
+        "final_step": final["step"] == RECOVER_COMMITS,
+        "dead_dump_on_disk": dead_dump is not None and any(
+            r.startswith("chaos_crash") for r in
+            dead_dump["metadata"]["reasons"]),
+        # One dump a process: the driver's and each incarnation's.
+        "trace_merges_every_dump": merged is not None
+        and len(merged["metadata"]["merged_from"]) == len(dumps) >= 3
+        and set(merged["metadata"]["merged_from"]) == {"driver", "localhost"}
+        and ht.validate_events(events_m) == [],
+        "trace_holds_crash_and_respawn_step": bool(crash) and bool(after),
+        "ledger_conserves": gp is not None and abs(
+            sum(gp["totals"].values()) - gp["elapsed_s"]) <= 1e-3,
+        "rescale_downtime": gp is not None
+        and gp["totals"]["rescale_downtime"] > 0,
+    }
+    rec = {"rc": rc, "wall_s": wall, "final_step": final["step"],
+           "params_bitwise": params_bitwise, "opt_bitwise": opt_bitwise,
+           "params_rel_l2": p_rel, "time_to_recover": split,
+           "goodput": gp, "dumps": dumps,
+           "merged_from": (merged or {}).get("metadata", {}).get(
+               "merged_from"),
+           "residual_norm_saved": saved.get(RECOVER_CKPT_AT[0], {}).get(
+               "residual_norm"),
+           "residual_norm_restored": restored[0]["residual_norm"]
+           if restored else None,
+           "launches_per_step": per_step[0] if per_step else None,
+           "launches": summed(per_step) if per_step else {},
+           "steps": len(per_step),
+           "losses": [r["loss"] for r in recs if "loss" in r],
+           "reference_losses": want_run["losses"], "checks": checks}
+    log(f"[elastic-quant] run_elastic, discovery localhost:1, cooldown 1 s, "
+        f"the launcher's own intervals; GPT-2 small ZeRO-1 fused AdamW on "
+        f"the int8 wire (block {QUANT_BLOCK}, EF) for {RECOVER_COMMITS} "
+        f"commits, checkpoints at {RECOVER_CKPT_AT}, "
+        f"worker.step:crash@step={RECOVER_CRASH_AT};spawn=0, the planes on: "
+        f"rc {rc} in {wall:.1f} s; residual norm saved at step "
+        f"{RECOVER_CKPT_AT[0]} {rec['residual_norm_saved']}, restored "
+        f"{rec['residual_norm_restored']}; final parameters bit for bit "
+        f"the uninterrupted run {params_bitwise}, moments and residuals "
+        f"{opt_bitwise} (relative L2 {p_rel:.3e}); launches a step "
+        f"{rec['launches_per_step']}")
+    log("[elastic-quant] time to recover (s): " + ", ".join(
+        f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in split.items()))
+    if gp is not None:
+        log("[elastic-quant] the driver's goodput (s): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in gp["totals"].items() if v)
+            + f"; elapsed {gp['elapsed_s']:.4f}")
+    log(f"[elastic-quant] dumps {dumps}; checks {checks}")
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise AssertionError(f"[elastic-quant] failed {bad}: {rec}")
+    cfg = hvt.GPT2Config.small(param_dtype=torch.float32)
+    check_counts("elastic-quant", rec["launches"], {
+        "flash_fwd": cfg.n_layers, "flash_bwd_dkdv": cfg.n_layers,
+        "flash_bwd_dq": cfg.n_layers, "fused_adamw": n_quant_buckets,
+        "quantize_blockwise": 2 * n_quant_buckets,
+        "dequantize_blockwise": 2 * n_quant_buckets}, len(per_step))
+    if not (params_bitwise and opt_bitwise):
+        log("[elastic-quant] the resumed run is not the uninterrupted one bit "
+            "for bit: a step on the card is not bitwise repeatable across "
+            f"processes here; held to [train]'s bound (relative L2 <= "
+            f"{STEP_GRAD_TOL})")
+        if not p_rel <= STEP_GRAD_TOL:
+            raise AssertionError(f"[elastic-quant] {rec}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6145,6 +6772,9 @@ def main() -> int:
     recovered = elastic_recover(hvt)
     served_kv = serve_kv(hvt)
     log_threads("[serve-kv]")
+    observed = obs_phase(hvt, (fa, fadam, tq))
+    log_threads("[obs]")
+    equant = elastic_quant(hvt, len(qsizes))
     # [train-remat] trains GPT-2 small, [train]'s layout (held in adam).
     adam_phases = adamw_phase_checks(fadam, gen, {
         "train_bert": bert["bucket_sizes"],
@@ -6174,7 +6804,9 @@ def main() -> int:
                         "skip_step_int8": guarded["skip_int8"]["launches"]},
                     "launches_gspmd": gsp["launches"],
                     "launches_launch": launched["launches"],
-                    "launches_elastic_recover": recovered["launches"]}
+                    "launches_elastic_recover": recovered["launches"],
+                    "launches_obs": observed["launches"],
+                    "launches_elastic_quant": equant["launches"]}
     # [serve-kv]'s workers run kernel 1 only: its count over every batch
     # of both runs, the other kernels' 0.
     serve_kv_flash = (served_kv["clean"]["flash_launches"]
@@ -6209,6 +6841,12 @@ def main() -> int:
             "elastic_recover":
                 new_launches["launches_elastic_recover"].get(name, 0),
             "serve_kv": serve_kv_flash if name == "flash_fwd" else 0,
+            "obs": {k: c.get(name, 0) for k, c in
+                    new_launches["launches_obs"].items()},
+            "obs_serve": sum(observed["serve"]["flash"].values())
+            if name == "flash_fwd" else 0,
+            "elastic_quant":
+                new_launches["launches_elastic_quant"].get(name, 0),
         }
 
     kernels = [{
@@ -6433,7 +7071,8 @@ def main() -> int:
                       "ring_flash": ring, "train_guard": guarded,
                       "gspmd": gsp, "decode_chaos": dchaos,
                       "launch": launched, "elastic_recover": recovered,
-                      "serve_kv": served_kv}),
+                      "serve_kv": served_kv, "obs": observed,
+                      "elastic_quant": equant}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,7 +34,10 @@ Sites call :func:`act`: the generic actions (``delay``/``slow`` sleep,
 ``crash`` exits hard, ``hang`` freezes the process) execute inline and
 return None; site-specific ones (``drop``, ``corrupt``, ``truncate``,
 ``nan``, ``bitflip``) are returned for the site to interpret. Every fire
-counts into :data:`fired` (by site).
+counts into :data:`fired` (by site) and, with the planes on, into the
+``chaos.fired.<site>`` counter, a ``chaos.fired`` event and a
+``chaos.<site>`` trace instant; a ``crash`` or ``hang`` dumps the flight
+recorder first (``os._exit`` skips ``atexit``).
 """
 
 from __future__ import annotations
@@ -47,6 +50,8 @@ import time
 from typing import Dict, Optional
 
 from .schedule import SITES, Action, ChaosSpecError, Plan, parse
+from ..obs import registry as _obs
+from ..obs import trace as _trace
 from ..utils import env as _env
 
 __all__ = [
@@ -137,6 +142,15 @@ def action(site: str, **ctx) -> Optional[Action]:
     if act_ is not None:
         with _fired_lock:
             fired[site] = fired.get(site, 0) + 1
+        reg = _obs.metrics()
+        reg.counter(f"chaos.fired.{site}").inc()
+        reg.event("chaos.fired", site=site, action=act_.kind)
+        # Fault and symptom on one timeline: the injection is an instant
+        # inside the victim's open spans.
+        _trace.instant(
+            f"chaos.{site}", cat="chaos",
+            args={"action": act_.kind, "value": act_.value},
+        )
         log.warning("chaos: firing %s at %s (ctx=%s)", act_, site, ctx)
     return act_
 
@@ -151,6 +165,8 @@ def act(site: str, **ctx) -> Optional[Action]:
         time.sleep(float(act_.value))
         return None
     if act_.kind == "crash":
+        # os._exit skips atexit: this dump is the crash's only timeline.
+        _trace.flight_dump(f"chaos_crash:{site}")
         print(f"horovod_tpu_torch.chaos: injected crash at {site}",
               file=sys.stderr, flush=True)
         os._exit(1)
@@ -164,6 +180,9 @@ def _hang(site: str) -> None:
     beats nothing), so the elastic driver's lease expiry -- not the
     end-of-job drain deadline -- is what must catch it; the process sleeps
     until something kills it."""
+    # Dump before freezing: the site's enclosing span is still open, so
+    # the flight recorder shows where the process froze.
+    _trace.flight_dump(f"chaos_hang:{site}")
     print(f"horovod_tpu_torch.chaos: injected hang at {site}",
           file=sys.stderr, flush=True)
     from ..elastic import worker as _worker

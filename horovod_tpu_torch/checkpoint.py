@@ -51,6 +51,7 @@ import os
 import re
 import shutil
 import tempfile
+import time
 import zlib
 from typing import Any, Dict, List, Optional
 
@@ -60,6 +61,10 @@ import torch
 from . import context as _ctx
 from . import optimizer as _opt
 from .exceptions import CheckpointCorruptError
+from .obs import control as _ctl
+from .obs import goodput as _goodput
+from .obs import registry as _obs
+from .obs import serve as _serve_obs
 from .ops.fusion import EFResiduals, FlatBuckets
 
 log = logging.getLogger("horovod_tpu_torch.checkpoint")
@@ -166,7 +171,10 @@ def _quarantine(path: str) -> str:
     try:
         os.rename(path, dest)
     except FileNotFoundError:
-        pass
+        return dest  # a peer quarantined it first
+    reg = _obs.metrics()
+    reg.counter("recovery.ckpt_quarantined").inc()
+    reg.event("ckpt.quarantined", path=dest)
     return dest
 
 
@@ -361,6 +369,7 @@ def _write_tree_with_retry(tmp: str, state: Any) -> None:
         _write_manifest(tmp)
 
     def on_retry(exc, attempt_no):
+        _obs.metrics().counter("recovery.ckpt_write_retries").inc()
         log.warning(
             "checkpoint write attempt %d failed (%s); clearing %s and "
             "retrying", attempt_no, exc, tmp,
@@ -412,9 +421,12 @@ def save_checkpoint(directory: str, state: Any, step: int,
     rank calls it: a ``TrainState``'s optimizer state is gathered into its
     canonical form first (see the module docstring). The write is atomic
     (tmpdir + rename); checkpoints older than the newest ``keep`` are
-    deleted, never the one just written."""
+    deleted, never the one just written. The whole save, gather included,
+    is booked as ``checkpoint`` time in the goodput ledger."""
+    ckpt_w0 = time.time()
     state = _canonicalize_sharded(state)
     if not _is_writer() and not force:
+        _goodput.record_checkpoint(ckpt_w0, time.time() - ckpt_w0)
         return None
     directory = os.path.abspath(directory)
     final = _step_dir(directory, step)
@@ -434,12 +446,14 @@ def save_checkpoint(directory: str, state: Any, step: int,
         if os.path.exists(final):
             shutil.rmtree(final)
         os.rename(tmp, final)
+        _obs.metrics().counter("ckpt.saves").inc()
     except Exception:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
     for old in all_steps(directory)[:-keep] if keep else []:
         if old != step:
             shutil.rmtree(_step_dir(directory, old), ignore_errors=True)
+    _goodput.record_checkpoint(ckpt_w0, time.time() - ckpt_w0)
     return final
 
 
@@ -470,6 +484,7 @@ def restore_checkpoint(directory: str, target: Any,
                 step = s
                 break
             quarantined = _quarantine(path)
+            _obs.metrics().counter("recovery.ckpt_fallback").inc()
             log.warning(
                 "checkpoint step %d is corrupt (%s); quarantined as %s, "
                 "falling back to the previous step",
@@ -501,11 +516,13 @@ def priority_checkpoint(directory: str, state: Any, step: int,
     (per-tensor CRC manifest, retry-wrapped serialization, tmpdir +
     rename), with ``force=True``: the evicted host may be any rank, and
     ITS state must reach disk whoever the designated writer is. Counted in
-    :data:`priority_checkpoints` (a plain attribute until the metrics
-    plane, A14)."""
+    :data:`priority_checkpoints` and in ``recovery.preempt_ckpts``, with a
+    ``ckpt.preempt`` event."""
     global priority_checkpoints
     path = save_checkpoint(directory, state, step=step, keep=keep, force=True)
     priority_checkpoints += 1
+    _ctl.preempt_checkpointed()
+    _obs.metrics().event("ckpt.preempt", step=step, path=path)
     log.info("priority checkpoint of step %d written to %s", step, path)
     return path
 
@@ -520,13 +537,20 @@ class CheckpointWatcher:
     """Tracks a checkpoint directory for newly published steps -- the
     rolling hot-swap trigger of the serving pool. :meth:`poll` returns a
     step at most once; the watcher only moves forward, so a step
-    quarantined after being offered is never re-offered."""
+    quarantined after being offered is never re-offered. Every poll sets
+    the ``serve.ckpt_staleness_s`` gauge (:attr:`staleness_s`)."""
 
     def __init__(self, directory: str, initial: Optional[int] = None):
         self.directory = os.path.abspath(directory)
         self._last = (
             initial if initial is not None else latest_step(self.directory)
         )
+        self._advanced_t = time.time()  # last time poll() saw a new step
+
+    @property
+    def staleness_s(self) -> float:
+        """Seconds since the newest-step watermark last advanced."""
+        return max(0.0, time.time() - self._advanced_t)
 
     def poll(self) -> Optional[int]:
         """The newest step if it advanced past everything seen, else
@@ -534,7 +558,10 @@ class CheckpointWatcher:
         cur = latest_step(self.directory)
         if cur is not None and (self._last is None or cur > self._last):
             self._last = cur
+            self._advanced_t = time.time()
+            _serve_obs.set_ckpt_staleness(0.0)
             return cur
+        _serve_obs.set_ckpt_staleness(self.staleness_s)
         return None
 
     def rewind(self, step: int) -> None:
@@ -561,6 +588,7 @@ def hot_swap_restore(directory: str, target: Any,
             return state, step, False
         except CheckpointCorruptError as e:
             _quarantine(_step_dir(directory, step))
+            _obs.metrics().counter("recovery.ckpt_rollback").inc()
             log.warning(
                 "hot-swap checkpoint step %d is corrupt (%s); quarantined "
                 "-- rolling back to the newest intact step",

@@ -9,14 +9,17 @@ world from the port's :mod:`.context` (a world of one before ``init``).
 :func:`prefetch_to_device` stages batches onto the card ahead of the
 training loop: each array is copied into pinned host memory and sent on a
 copy stream of its own, and the consumer's stream waits on that copy's
-event before the batch is handed out. (The reference's ``prefetch.*``
-gauges belong to the observability plane, not ported yet.)
+event before the batch is handed out. With the telemetry planes on, it
+sets the ``prefetch.*`` gauges, records ``prefetch.fill`` spans and books
+an empty-buffer fill as ``input_stall`` in the goodput ledger, as the
+reference does.
 """
 
 from __future__ import annotations
 
 import collections
 import math
+import time
 from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -24,6 +27,9 @@ import torch
 
 from .context import rank as _ctx_rank, resolve_device, size as _ctx_size
 from .exceptions import NotInitializedError
+from .obs import goodput as _goodput
+from .obs import registry as _obs
+from .obs import trace as _trace
 from .ops.batching import tree_map
 from .utils import env as _env
 
@@ -220,13 +226,36 @@ def prefetch_to_device(iterator, depth: Optional[int] = None, *,
             return staged
 
         while True:
+            was_empty = not queue
+            timed = _trace.enabled() or _goodput.enabled()
+            t0 = time.perf_counter() if timed else 0.0
+            w0 = time.time() if timed else 0.0
+            filled = 0
             while len(queue) < depth:
                 try:
                     queue.append(put(next(it)))
+                    filled += 1
                 except StopIteration:
                     break
+            if filled and was_empty and _goodput.enabled():
+                # An empty buffer at entry: this fill ran on the
+                # consumer's critical path.
+                _goodput.record_input_stall(w0, time.perf_counter() - t0)
+            if filled and _trace.enabled():
+                # The fetch and H2D-enqueue slice; "stalled" tells a fill
+                # the step waited for from background work.
+                _trace.complete(
+                    "prefetch.fill", "data", w0, time.perf_counter() - t0,
+                    args={"filled": filled, "stalled": was_empty,
+                          "occupancy": len(queue), "depth": depth},
+                )
             if not queue:
                 return
+            if _obs.enabled():
+                reg = _obs.metrics()
+                reg.gauge("prefetch.depth").set(depth)
+                reg.gauge("prefetch.occupancy").set(len(queue))
+                reg.counter("prefetch.batches").inc()
             yield take()
 
     return gen()

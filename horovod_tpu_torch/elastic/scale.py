@@ -17,6 +17,7 @@ import threading
 import time
 from typing import Callable, Dict, Optional
 
+from ..obs import registry as _obs
 from ..utils import env as _env
 
 
@@ -85,6 +86,12 @@ class QueueDepthPolicy:
             target = workers - 1
         if target != workers:
             self._last_change = now
+            reg = _obs.metrics()
+            reg.counter(
+                "serve.scale_up" if target > workers else "serve.scale_down"
+            ).inc()
+            reg.event("serve.scale", workers=workers, target=target,
+                      queue_depth=queue_depth)
         return target
 
 

@@ -100,22 +100,28 @@ class State:
         registered priority checkpoint after the save, before the
         host-update check can walk this worker out of the world."""
         from .. import chaos as _chaos
+        from ..obs import trace as _trace
 
         self._commit_count += 1
-        if _chaos.enabled():
-            rank = _rank()
-            _chaos.act("worker.step", step=self._commit_count, rank=rank)
-            fault = _chaos.act("worker.preempt", step=self._commit_count,
-                               rank=rank)
-            if fault is not None and fault.kind == "sigterm":
-                import signal as _signal
+        # The span a flight dump shows open when a worker dies or freezes
+        # mid-commit: the chaos site (and a real wedge in save or check)
+        # fires inside it.
+        with _trace.span("worker.step", cat="elastic",
+                         step=self._commit_count):
+            if _chaos.enabled():
+                rank = _rank()
+                _chaos.act("worker.step", step=self._commit_count, rank=rank)
+                fault = _chaos.act("worker.preempt",
+                                   step=self._commit_count, rank=rank)
+                if fault is not None and fault.kind == "sigterm":
+                    import signal as _signal
 
-                os.kill(os.getpid(), _signal.SIGTERM)
-                time.sleep(0.05)  # let the handler run before the check
-        self.save()
-        if preempt_requested():
-            run_preempt_checkpoint()
-        self.check_host_updates()
+                    os.kill(os.getpid(), _signal.SIGTERM)
+                    time.sleep(0.05)  # let the handler run before the check
+            self.save()
+            if preempt_requested():
+                run_preempt_checkpoint()
+            self.check_host_updates()
 
     def check_host_updates(self):
         """Raise :class:`HostsUpdatedInterrupt` on every rank at once when

@@ -28,9 +28,13 @@ exits cleanly. Besides: the heartbeat lease, the preemption (SIGTERM)
 drain with its priority-checkpoint callbacks, and the clean-exit flag an
 adopting driver reads.
 
-Telemetry is kept in plain attributes until the metrics plane (A14):
-:data:`join_retries`, :data:`last_join` (the round, the seconds the join
-took and the wall times around it) and the heartbeat's ``beats``.
+Telemetry: :data:`join_retries`, :data:`last_join` (the round, the seconds
+the join took and the wall times around it) and the heartbeat's ``beats``,
+counted also as ``recovery.join_retries`` and ``recovery.heartbeats``; each
+join records ``clock_sync`` observations of the driver's clock (the round's
+timestamp and the driver's ``clock/now`` beacon), an ``elastic.join`` span
+and the join's wait as ``rescale_downtime`` in the goodput ledger; a
+SIGTERM dumps the flight recorder first.
 """
 
 from __future__ import annotations
@@ -43,6 +47,9 @@ import time
 import weakref
 from typing import Optional, Tuple
 
+from ..obs import goodput as _goodput
+from ..obs import registry as _obs
+from ..obs import trace as _trace
 from ..utils import env as _env
 from ..utils.retry import Backoff
 
@@ -75,7 +82,7 @@ _DECOMMISSION_GRACE_SECS = 5.0
 # How long a rejoin waits for a round newer than the one it failed in.
 _NEW_ROUND_GRACE_SECS = 5.0
 
-# Telemetry (A14 turns these into registry counters).
+# Join telemetry (the registry's recovery.join_retries counts the same).
 join_retries = 0  # KV outages and torn round publications ridden out
 last_join: dict = {}  # {"round", "rank", "size", "t0", "t1", "secs"}
 
@@ -115,6 +122,7 @@ _fresh_join = False  # a join_world_env no context.init has used yet
 def _count_retry() -> None:
     global join_retries
     join_retries += 1
+    _obs.metrics().counter("recovery.join_retries").inc()
 
 
 def join_world(timeout: Optional[float] = None, *,
@@ -159,10 +167,31 @@ def join_world(timeout: Optional[float] = None, *,
                     size = int(client.wait(f"round_{n}", "size", deadline=30.0))
                     ts = float(client.wait(f"round_{n}", "ts", deadline=30.0))
                     _joined_ts, _joined_round = ts, n
+                    # The round ts is the driver's wall clock observed on
+                    # this host's: the pair the trace merge recovers this
+                    # process's offset from. A respawn may join a round
+                    # published long ago, so the driver's poll-tick
+                    # beacon is sampled too (the merge keeps the
+                    # fresher).
+                    _trace.clock_sync(ts, round=n)
+                    try:
+                        beacon = client.get("clock", "now")
+                    except OSError:
+                        beacon = None
+                    if beacon is not None:
+                        _trace.clock_sync(float(beacon), round=n,
+                                          source="beacon")
                     t1 = time.time()
                     last_join = {"round": n, "rank": int(assign),
                                  "size": size, "t0": t0, "t1": t1,
                                  "secs": t1 - t0}
+                    _trace.complete(
+                        "elastic.join", "elastic", t0, t1 - t0,
+                        args={"round": n, "rank": int(assign),
+                              "size": size},
+                    )
+                    # The (re)join wait is world-rebuild downtime.
+                    _goodput.record_rescale(t0, t1 - t0)
                     install_preemption_handler(host_id)
                     # The world's store address lives in this round's own
                     # scope, so a re-rendezvous never reads the address
@@ -334,6 +363,7 @@ class _Heartbeat:
         # The first beat goes out at once: a worker that freezes before
         # its first period has ended must still hold a lease that expires.
         client = _kv_client()
+        beats = _obs.metrics().counter("recovery.heartbeats")
         wait = 0.0
         while not self._stop.wait(wait):
             wait = period
@@ -342,6 +372,7 @@ class _Heartbeat:
             try:
                 client.put("heartbeat", host_id, repr(time.time()).encode())
                 self.beats += 1
+                beats.inc()
             except OSError:
                 # Driver briefly unreachable: the lease just ages; the
                 # driver's timeout is many periods wide for this reason.
@@ -460,6 +491,10 @@ def install_preemption_handler(host_id: str) -> bool:
     import signal as _signal
 
     def _handler(signum, frame):
+        # Flight recorder first, at both notices: this handler replaces
+        # the trace plane's chained SIGTERM hook, so the dump must happen
+        # here or an evicted or hung worker ships no timeline.
+        _trace.flight_dump("sigterm")
         if _preempt_flag.is_set():
             # Second notice: the platform (or the driver's teardown)
             # means it -- die like a default SIGTERM.
@@ -505,12 +540,12 @@ def current_round() -> int:
 def tune_config_source():
     """This worker's view of the autotune rollout protocol: None outside
     an elastic world (the step then tunes nothing); inside one it raises,
-    the autotuner arriving with A14."""
+    the autotuner arriving with A14b."""
     if not in_elastic_world():
         return None
     raise NotImplementedError(
         "the autotune rollout protocol is not ported yet; it arrives with "
-        "A14")
+        "A14b")
 
 
 def cert_channel():

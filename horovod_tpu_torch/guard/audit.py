@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..exceptions import HorovodInternalError
+from ..obs import registry as _obs
 from ..ops.fusion import FlatBuckets
 
 __all__ = [
@@ -237,6 +238,8 @@ class ConsistencyAuditor:
         """Run one audit round; see the class docstring."""
         self._audits += 1
         self._current_step = step  # nonce for the default KV channel
+        reg = _obs.metrics()
+        reg.counter("guard.audits").inc()
         local = fingerprint(tree)
         gathered = self._allgather_object(
             {"rank": self.rank, "host": self.host_id, "crc": local}
@@ -253,12 +256,18 @@ class ConsistencyAuditor:
         if not diverged:
             self._last_verified_step = step
             return tree, report
+        reg.counter("guard.divergences").inc()
+        reg.event(
+            "guard.divergence", step=step,
+            minority=[hosts[r] for r in minority] or "unlocalized",
+        )
         if majority is None or has_sharded:
             report.healed = "walkback"
             if majority is not None:
                 report.minority_ranks = minority
                 if self.rank == self._lowest_majority(checksums, majority):
                     self._report(hosts, minority)
+            reg.counter("guard.walkbacks").inc()
             raise HorovodInternalError(
                 f"silent replica divergence at step {step} "
                 f"(checksums {checksums}); "
@@ -275,6 +284,11 @@ class ConsistencyAuditor:
         healed = self.resync(tree, root)
         report.healed = "resync"
         self._last_verified_step = step
+        reg.counter("guard.resyncs").inc()
+        reg.event(
+            "guard.resync", step=step, root=root,
+            minority=[hosts[r] for r in minority],
+        )
         return healed, report
 
     @staticmethod

@@ -22,9 +22,10 @@ the host:
   (:mod:`.audit`) over the step's output state, healed in place by
   resync or escalated to walk-back.
 
-The reference's ``guard.*`` gauges wait for the metrics registry (A14);
-until then the runtime keeps ``consecutive``, ``last_norm``, ``skips``
-and ``escalations`` as attributes.
+* **telemetry** -- the ``guard.*`` counters and gauges, the skip
+  instants and the escalation's flight dump (:mod:`..obs.guard`); the
+  runtime also keeps ``consecutive``, ``last_norm``, ``skips`` and
+  ``escalations`` as attributes.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ import torch
 
 from .. import chaos as _chaos
 from ..exceptions import HorovodInternalError
+from ..obs import guard as _obs_guard
 from . import inject as _inject
 from .audit import ConsistencyAuditor
 from .gradient import GuardConfig, fresh_state
@@ -91,6 +93,8 @@ class GuardRuntime:
         the consecutive-skip budget is spent."""
         g = state.guard
         skipped = int(g.skipped)
+        new_skips = (0 if self._prev_skipped is None
+                     else max(0, skipped - self._prev_skipped))
         if self._prev_skipped is None or skipped < self._prev_skipped:
             # First call, or an elastic restore rewound the counters: a
             # fresh streak; never blame a restored snapshot for its
@@ -103,11 +107,13 @@ class GuardRuntime:
             self.consecutive = 0  # the previous step committed
         self._prev_skipped = skipped
         self.last_norm = float(g.last_norm)
+        _obs_guard.record_step(self.consecutive, self.last_norm, new_skips)
         if self.consecutive >= self.cfg.max_skips:
             streak = self.consecutive
             self.consecutive = 0
             self._prev_skipped = None
             self.escalations += 1
+            _obs_guard.record_escalation(streak)
             raise HorovodInternalError(
                 f"gradient guard skipped {streak} consecutive steps "
                 f"(HVDTPU_GUARD_MAX_SKIPS={self.cfg.max_skips}); "

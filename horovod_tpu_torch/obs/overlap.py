@@ -19,15 +19,15 @@ card the table does not know gives None, and so does everything derived
 from it: no efficiency is made up from an unknown denominator. One rank
 moves nothing: 0 ms on the wire, and the efficiency is None as well.
 
-:func:`record_overlap_pair` returns the accounting as a dict. The
-reference also sets ``overlap.*`` gauges in its metrics registry; the
-port's registry arrives with the observability plane (ROADMAP A14), and
-the gauges with it.
+:func:`record_overlap_pair` returns the accounting as a dict and, with
+the metrics plane on, sets the ``overlap.*`` gauges as the reference does.
 """
 
 from __future__ import annotations
 
 from typing import Optional
+
+from . import registry as _obs
 
 __all__ = ["NVLINK_GBPS", "record_overlap_pair", "ring_allreduce_ms",
            "ring_gbps"]
@@ -92,7 +92,8 @@ def record_overlap_pair(
     """Fold an overlap-on/off step-time pair into the overlap accounting.
     ``comm_ms_total`` is a measured total, or None to take it from the
     ring model over ``wire_bytes`` and ``n_chips``. None fields where the
-    model has no answer."""
+    model has no answer; the gauges are set only with the metrics plane
+    on, the values returned either way."""
     if comm_ms_total is None and wire_bytes is not None and n_chips:
         comm_ms_total = ring_allreduce_ms(wire_bytes, n_chips, device)
     exposed = efficiency = None
@@ -101,6 +102,18 @@ def record_overlap_pair(
         exposed = min(max(step_ms_on - compute_ms, 0.0), comm_ms_total)
         efficiency = min(max(1.0 - exposed / comm_ms_total, 0.0), 1.0)
     speedup = step_ms_off / step_ms_on if step_ms_on > 0 else None
+    if _obs.enabled():
+        reg = _obs.metrics()
+        reg.gauge("overlap.step_ms_on").set(step_ms_on)
+        reg.gauge("overlap.step_ms_off").set(step_ms_off)
+        if speedup is not None:
+            reg.gauge("overlap.speedup").set(speedup)
+        if comm_ms_total is not None:
+            reg.gauge("overlap.total_comm_ms").set(comm_ms_total)
+        if exposed is not None:
+            reg.gauge("overlap.exposed_comm_ms").set(exposed)
+        if efficiency is not None:
+            reg.gauge("overlap.efficiency").set(efficiency)
     return {
         "step_ms_overlap_on": step_ms_on,
         "step_ms_overlap_off": step_ms_off,

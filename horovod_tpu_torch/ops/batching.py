@@ -22,9 +22,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, List, Optional, Sequence, Tuple
 
+import time as _time
+
 import numpy as np
 import torch
 
+from ..obs import registry as _obs
 from ..utils import env as _env
 
 _LEAF = "*"
@@ -183,17 +186,25 @@ def pack(
     tree, threshold_bytes: Optional[int] = None, *, pad_multiple: int = 1
 ) -> Tuple[List[torch.Tensor], PackSpec]:
     """Flatten a nest (or flat list) of tensors into fused 1-D buffers,
-    each zero-filled up to a multiple of ``pad_multiple``."""
+    each zero-filled up to a multiple of ``pad_multiple``. With the metrics
+    plane on, the call's time goes to ``fusion.pack_ms``."""
+    mx = _obs.enabled()
+    t0 = _time.perf_counter() if mx else 0.0
     leaves, spec = pack_spec(tree, threshold_bytes, pad_multiple=pad_multiple)
     buffers = [
         pack_bucket([leaves[s.index] for s in slots], pad)
         for slots, pad in zip(spec.buckets, spec.pad)
     ]
+    if mx:
+        _obs.metrics().histogram("fusion.pack_ms").observe(
+            (_time.perf_counter() - t0) * 1e3)
     return buffers, spec
 
 
 def unpack(buffers: Sequence[torch.Tensor], spec: PackSpec):
-    """Inverse of :func:`pack`."""
+    """Inverse of :func:`pack` (timed as ``fusion.unpack_ms``)."""
+    mx = _obs.enabled()
+    t0 = _time.perf_counter() if mx else 0.0
     leaves: List[Optional[torch.Tensor]] = [None] * spec.n_leaves
     for buf, slots in zip(buffers, spec.buckets):
         offset = 0
@@ -202,9 +213,13 @@ def unpack(buffers: Sequence[torch.Tensor], spec: PackSpec):
                 slot.shape
             )
             offset += slot.size
-    return leaves if spec.treedef is None else tree_unflatten(
+    out = leaves if spec.treedef is None else tree_unflatten(
         spec.treedef, leaves
     )
+    if mx:
+        _obs.metrics().histogram("fusion.unpack_ms").observe(
+            (_time.perf_counter() - t0) * 1e3)
+    return out
 
 
 # -- request batching (the serve dispatcher's layer) ----------------------

@@ -61,11 +61,14 @@ dispatch pins.
 
 from __future__ import annotations
 
+import time as _time
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from ..obs import registry as _obs
 from ..utils import env as _env
+from ..utils import timeline as _timeline
 from .batching import (
     PackSpec,
     _bucketize,
@@ -116,6 +119,41 @@ __all__ = [
     "shard_slice",
     "unpack",
 ]
+
+
+def _record_fusion_layout(kind: str, bucket_bytes, n_tensors, threshold):
+    """Metrics of one fused collective: the bytes it moves, its bucket
+    count and fill (the JAX package records them once a trace; the eager
+    port once a call, so ``fusion.traces`` counts calls)."""
+    if not _obs.enabled():
+        return
+    reg = _obs.metrics()
+    total = int(sum(bucket_bytes))
+    reg.counter("fusion.traces").inc()
+    reg.gauge(f"fusion.{kind}.bytes_per_step").set(total)
+    reg.gauge(f"fusion.{kind}.buckets").set(len(bucket_bytes))
+    reg.gauge(f"fusion.{kind}.tensors").set(n_tensors)
+    if bucket_bytes and threshold:
+        reg.gauge(f"fusion.{kind}.bucket_fill").set(
+            total / (len(bucket_bytes) * threshold)
+        )
+
+
+def _record_quant_layout(kind: str, bucket_wire_bytes) -> None:
+    """Quantized-wire gauges: the payload and scale bytes one call moves."""
+    if not _obs.enabled():
+        return
+    reg = _obs.metrics()
+    reg.gauge(f"fusion.quant.{kind}.wire_bytes_per_step").set(
+        int(sum(bucket_wire_bytes))
+    )
+    reg.gauge(f"fusion.quant.{kind}.buckets").set(len(bucket_wire_bytes))
+
+
+def _observe_quant_ms(t0: float) -> None:
+    _obs.metrics().histogram("fusion.quant_ms").observe(
+        (_time.perf_counter() - t0) * 1e3
+    )
 
 
 class FlatBuckets:
@@ -423,6 +461,40 @@ class BucketPlan:
         self.res_bufs = _residual_buffers(residuals, len(self.spec.buckets))
         self.needs_all_leaves = (not quantized) and compression.needs_prescale
         self.wire_scale = None
+        self.kind = "reducescatter" if scatter else "allreduce"
+        tl = _timeline.global_timeline()
+        if tl.enabled or _obs.enabled():
+            self._record_layout(tl, quantized)
+
+    def _record_layout(self, tl, quantized: bool) -> None:
+        """The call's layout as gauges and, with the timeline on, one
+        FUSE_BUCKETS instant (the reference's per-cycle fusion event)."""
+        spec = self.spec
+        padded = spec.padded_sizes()
+        if quantized:
+            block = self.compression.block_size()
+            # The allreduce moves each quantized bucket twice (all-to-all
+            # and all-gather), the reduce-scatter once.
+            times = 1 if self.scatter else 2
+            bucket_bytes = [
+                times * quantized_wire_bytes(n, block, self.compression.spec)
+                for n in padded
+            ]
+            _record_quant_layout(self.kind, bucket_bytes)
+        else:
+            bucket_bytes = [
+                n * self.leaves[slots[0].index].element_size()
+                for n, slots in zip(padded, spec.buckets)
+            ]
+            threshold = self.threshold_bytes or _env.fusion_threshold_bytes()
+            _record_fusion_layout(self.kind, bucket_bytes, spec.n_leaves,
+                                  threshold)
+        if tl.enabled:
+            tl.instant("fusion", "FUSE_BUCKETS", {
+                "mode": self.kind, "n_tensors": spec.n_leaves,
+                "n_buckets": len(spec.buckets), "bucket_bytes": bucket_bytes,
+                "pad_elements": list(spec.pad),
+            })
 
     @property
     def n_buckets(self) -> int:
@@ -441,7 +513,17 @@ class BucketPlan:
         return [leaves[slot.index] for slot in self.spec.buckets[b]]
 
     def reduce(self, b: int, leaves: Sequence[torch.Tensor]):
-        """Bucket ``b`` of ``leaves`` (its tensors in pack order)."""
+        """Bucket ``b`` of ``leaves`` (its tensors in pack order); one
+        activity of the bucket in the timeline when it is on."""
+        tl = _timeline.global_timeline()
+        if tl.enabled:
+            act = (_timeline.DIST_REDUCE_SCATTER if self.scatter
+                   else _timeline.DIST_ALLREDUCE)
+            with tl.activity(f"bucket{b}", act):
+                return self._reduce(b, leaves)
+        return self._reduce(b, leaves)
+
+    def _reduce(self, b: int, leaves: Sequence[torch.Tensor]):
         return reduce_bucket(
             leaves, world=self.world, pad=self.spec.pad[b],
             scatter=self.scatter, op=self.op,
@@ -472,14 +554,20 @@ class BucketPlan:
 
     def run(self):
         """Every bucket of the leaves the plan was built from, in pack
-        order, then :meth:`assemble`."""
+        order, then :meth:`assemble` (timed as ``fusion.quant_ms`` on the
+        quantized wire, as in the JAX package)."""
+        mx = _obs.enabled() and is_quantized(self.compression)
+        t0 = _time.perf_counter() if mx else 0.0
         if self.needs_all_leaves:
             self.wire_scale = _uniform_cast_scale(
                 self.leaves, float(self.world), self.axis)
-        return self.assemble([
+        out = self.assemble([
             self.reduce(b, self.bucket_leaves(b))
             for b in range(self.n_buckets)
         ])
+        if mx:
+            _observe_quant_ms(t0)
+        return out
 
 
 def quantized_fused_allreduce(
@@ -549,8 +637,10 @@ def _quantized_gather_unpack(buffers, spec: PackSpec, compression,
     a whole number of blocks is padded per rank and the interleaved pads
     are dropped after the gather, so this leg also follows an unquantized
     reduce-scatter."""
+    mx = _obs.enabled()
+    t0 = _time.perf_counter() if mx else 0.0
     block = compression.block_size()
-    full = []
+    full, wire_bytes = [], []
     for buf in buffers:
         shard = buf.shape[0]
         pad = (-shard) % block
@@ -564,7 +654,14 @@ def _quantized_gather_unpack(buffers, spec: PackSpec, compression,
         if pad:
             world = fq.shape[0] // (shard + pad)
             out = out.reshape(world, shard + pad)[:, :shard].reshape(-1)
+        # The full gathered payload (what lands on every rank), in wire
+        # bytes, as the unquantized leg counts it.
+        wire_bytes.append(fq.numel() * fq.element_size()
+                          + fs.numel() * fs.element_size())
         full.append(out.to(buf.dtype))
+    if mx:
+        _record_quant_layout("allgather", wire_bytes)
+        _observe_quant_ms(t0)
     return unpack(full, spec)
 
 
@@ -631,6 +728,15 @@ def fused_allgather(shards, spec: PackSpec, *, compression=Compression.none,
     buffers = shards.buffers if isinstance(shards, FlatBuckets) else list(shards)
     if is_quantized(compression):
         return _quantized_gather_unpack(buffers, spec, compression, axis)
+    if _obs.enabled():
+        # The full padded bucket (the gathered result), not the 1/N shard
+        # sent, so the reduce-scatter and all-gather gauges sum to one
+        # ring allreduce, as the JAX package counts them.
+        _record_fusion_layout(
+            "allgather",
+            [n * buf.element_size()
+             for n, buf in zip(spec.padded_sizes(), buffers)],
+            spec.n_leaves, _env.fusion_threshold_bytes())
     wire_scale = None
     if compression.needs_prescale:
         # Move-only leg: the same scale everywhere, no world factor.

@@ -90,10 +90,12 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from .exceptions import HorovodTpuError
+from .obs import registry as _obs
 from .ops.batching import (
     PackSpec,
     _bucketize,
     _Slot,
+    leaf_nbytes,
     tree_flatten,
     tree_unflatten,
     unpack,
@@ -345,11 +347,34 @@ def _init_residuals(params, threshold_bytes, block, axis=None) -> EFResiduals:
     return EFResiduals(bufs, threshold=threshold_bytes, block=block)
 
 
+def _record_grad_bytes(grads) -> None:
+    """The gradient payload one optimizer update reduces (leaf bytes,
+    before any compression): the optimizer-level view the per-collective
+    fusion gauges roll up into. ``optimizer.reduce_traces`` counts the
+    JAX package's traces, the port's calls."""
+    if not _obs.enabled():
+        return
+    leaves, _ = tree_flatten(grads)
+    total = sum(leaf_nbytes(l) for l in leaves)
+    reg = _obs.metrics()
+    reg.gauge("optimizer.grad_bytes_per_step").set(total)
+    reg.counter("optimizer.reduce_traces").inc()
+
+
+def _record_fused_update(n_buffers: int) -> None:
+    if not _obs.enabled():
+        return
+    reg = _obs.metrics()
+    reg.gauge("optimizer.fused_update").set(1.0)
+    reg.gauge("optimizer.fused_update_buckets").set(n_buffers)
+
+
 def _reduce_grads(grads, op, compression, prescale, postscale, axis,
                   threshold):
     """The reference's ``_reduce_grads``: Adasum per leaf (ignoring the
     wire's compression, the scale factors and the threshold), else one
     fused allreduce per bucket."""
+    _record_grad_bytes(grads)
     if op == Adasum:
         return adasum_allreduce_tree(grads, axis=axis)
     return fused_allreduce(
@@ -530,6 +555,7 @@ def DistributedOptimizer(
         # an accumulating pass reduces (or not) after its backward.
         if op == Adasum or bpps != 1:
             return None
+        _record_grad_bytes(like)
         plan = BucketPlan(
             like, threshold_bytes, op=op, prescale_factor=prescale_factor,
             postscale_factor=postscale_factor, compression=compression,
@@ -610,6 +636,7 @@ def _fused_flat_update(g_shards, inner: AdamState, p_shards,
                               inner.nu.buffers, g_shards.buffers)
     ]
     step = 1 if flag is None else flag
+    _record_fused_update(len(out))
     return FlatBuckets(out), AdamState(inner.count + step, inner.mu, inner.nu)
 
 
@@ -695,6 +722,7 @@ def ShardedDistributedOptimizer(
                 f"the sharded state was built for a world of {state.world}, "
                 f"this world has {world} ranks"
             )
+        _record_grad_bytes(like)
         plan = BucketPlan(
             like, threshold_bytes, scatter=True, op=op,
             prescale_factor=prescale_factor,

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -27,7 +28,11 @@ from torch import nn
 from ..context import resolve_device
 from ..guard import GuardRuntime, check_gradients, fresh_state
 from ..guard import resolve as _resolve_guard
+from ..obs import export as _export
 from ..obs import flops as _flops
+from ..obs import goodput as _goodput
+from ..obs import registry as _obs
+from ..obs import trace as _trace
 from ..ops.batching import tree_flatten, tree_map
 from ..ops.collectives import Average, ReduceOp, allreduce, world_size
 from ..ops.compression import Compression, is_quantized
@@ -38,6 +43,7 @@ from ..optimizer import (
     DistributedOptimizer,
     Optimizer,
     ShardedDistributedOptimizer,
+    ef_residual_norm,
     guarded_commit,
 )
 from ..utils import env as _env
@@ -205,6 +211,109 @@ def _armed(name: str, value) -> bool:
     if name == "publish":
         return int(value) > 0
     return True
+
+
+def _instrument_step(fn: Callable, dev: torch.device, tokens_per_step,
+                     flops_per_step, overlap: bool = False,
+                     accum_steps: int = 1, quantized: bool = False,
+                     fp8: bool = False) -> Callable:
+    """Telemetry wrapper of a built train step (the JAX package's
+    ``_instrument_step``).
+
+    The enablement check is per call, so ``obs.enable()``/``disable()``
+    work on an already-built step: with the metrics, trace and goodput
+    planes all off, a call costs three cached booleans and returns
+    ``fn(state, batch)`` untouched. With a plane on, each call is
+    bracketed: ``step.host_dispatch_ms`` is the Python enqueue of forward,
+    backward and update (``fn`` returning), ``step.device_ms`` the wait
+    for the card after it (``torch.cuda.synchronize``; 0 on the CPU, where
+    the eager step has run when ``fn`` returns), ``step.total_ms`` both.
+    A step that reads the device itself -- the guard's counter read
+    (``guard/runtime.py``), a loss printed -- waits inside ``fn``, and
+    that wait is counted in ``host_dispatch``. The bracket serializes host
+    and card per step, which is why it runs only with a plane on.
+
+    Besides the histograms: ``step.count``/``step.tokens`` counters, the
+    ``step.per_sec``/``step.tokens_per_sec``/``step.mfu`` gauges (MFU from
+    :mod:`..obs.flops` against the card's peak, as ``throughput()``
+    computes it), ``quant.residual_norm`` and the ``fp8.*`` gauges on the
+    first step and every 10th, three trace spans (``step``,
+    ``step.host_dispatch``, ``step.device``) and the goodput ledger's step
+    bracket. The reporter is ticked with this wrapper's own step count:
+    the cross-process summary fires on the same call on every rank, and a
+    rebuilt step (a rescale) restarts the count on every rank together.
+    """
+    peak = None  # resolved at the first instrumented step
+    local_step = 0
+    on_card = dev.type == "cuda"
+
+    def wrapped(state, batch):
+        nonlocal peak, local_step
+        trace_on = _trace.enabled()
+        goodput_on = _goodput.enabled()
+        if not _obs.enabled() and not trace_on and not goodput_on:
+            return fn(state, batch)
+        reg = _obs.metrics()
+        w0 = time.time()
+        t0 = time.perf_counter()
+        out = fn(state, batch)
+        t_dispatch = time.perf_counter()
+        if on_card:
+            torch.cuda.synchronize(dev)
+        t_done = time.perf_counter()
+        total = t_done - t0
+        if trace_on:
+            rec = _trace.recorder()
+            w0_us = int(w0 * 1e6)
+            disp_us = int((t_dispatch - t0) * 1e6)
+            rec.complete("step", "train", w0_us, int(total * 1e6),
+                         args={"step": local_step})
+            rec.complete("step.host_dispatch", "train", w0_us, disp_us)
+            rec.complete("step.device", "train", w0_us + disp_us,
+                         int((t_done - t_dispatch) * 1e6))
+        if goodput_on:
+            _goodput.record_step(w0, total, t_dispatch - t0,
+                                 t_done - t_dispatch)
+        reg.histogram("step.total_ms").observe(total * 1e3)
+        reg.histogram("step.host_dispatch_ms").observe(
+            (t_dispatch - t0) * 1e3)
+        reg.histogram("step.device_ms").observe((t_done - t_dispatch) * 1e3)
+        reg.counter("step.count").inc()
+        reg.gauge("overlap.enabled").set(1.0 if overlap else 0.0)
+        reg.gauge("overlap.accum_steps").set(accum_steps)
+        local_step += 1
+        if total > 0:
+            reg.gauge("step.per_sec").set(1.0 / total)
+        if tokens_per_step:
+            reg.counter("step.tokens").inc(int(tokens_per_step))
+            reg.gauge("step.tokens_per_sec").set(
+                tokens_per_step / total if total > 0 else 0.0)
+        if quantized and _obs.enabled() and local_step % 10 == 1:
+            # First step, then every 10th: a reduction over every EF
+            # residual, metrics plane only.
+            norm = ef_residual_norm(out[0].opt_state)
+            if norm is not None:
+                reg.gauge("quant.residual_norm").set(norm)
+        if fp8 and _obs.enabled() and local_step % 10 == 1:
+            from ..ops.fp8 import fp8_state_gauges
+
+            g = fp8_state_gauges(out[0].params)
+            if g:
+                reg.gauge("fp8.amax_max").set(g["fp8.amax_max"])
+                reg.gauge("fp8.scale_min").set(g["fp8.scale_min"])
+                reg.gauge("fp8.cast_residual_norm").set(
+                    g["fp8.cast_residual_norm"])
+        if flops_per_step and total > 0:
+            if peak is None:
+                peak = _flops.peak_tflops(
+                    torch.cuda.get_device_name(dev) if on_card else "")
+            m = _flops.mfu(1.0 / total, flops_per_step, peak=peak)
+            if m is not None:
+                reg.gauge("step.mfu").set(m)
+        _export.reporter().tick(step=local_step)
+        return out
+
+    return wrapped
 
 
 def make_train_step(
@@ -498,6 +607,12 @@ def make_train_step(
     if guard_cfg is not None:
         guard_runtime = GuardRuntime(guard_cfg, sharded=sharded)
         fn = guard_runtime.wrap(step_fn)
+    # The telemetry bracket wraps the guard's wrapper: a guarded step's
+    # counter read is inside its host_dispatch.
+    fn = _instrument_step(
+        fn, dev, tokens_per_step, flops_per_step, overlap=overlap,
+        accum_steps=accum_steps, quantized=is_quantized(compression),
+        fp8=resolve_compute_dtype(compute_dtype) == "fp8")
     fn.throughput = throughput
     fn.guard_config = guard_cfg
     fn.guard_runtime = guard_runtime

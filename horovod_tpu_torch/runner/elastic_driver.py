@@ -14,11 +14,19 @@ a new round that the workers rejoin in place (:class:`ElasticJob`), and
 in-process state survives through :func:`horovod_tpu_torch.elastic.run`'s
 sync/restore loop.
 
-Telemetry is kept in plain attributes until the metrics plane (A14):
-``HostManager.blacklist_events`` / ``penalties`` / ``readmissions`` and
-``ElasticJob.rescale_events`` / ``lease_expiries`` /
-``guard_report_events`` / ``adoptions``; the driver's autotune rollout
-(``autotune=True`` / ``HVDTPU_AUTOTUNE``) raises, naming A14.
+Telemetry: the reference's ``elastic.*``, ``recovery.*`` and ``guard.*``
+instruments (flushed to ``driver.jsonl``/``driver.prom``, the driver's own
+role stem), the ``round.publish``/``lease.expiry`` spans and the driver's
+goodput roll-up, journaled in ``_driver_state()["goodput"]`` so an adopter
+continues it; the plain attributes ``HostManager.blacklist_events`` /
+``penalties`` / ``readmissions`` and ``ElasticJob.rescale_events`` /
+``lease_expiries`` / ``guard_report_events`` / ``adoptions`` count the
+same events. The driver's autotune rollout (``autotune=True`` /
+``HVDTPU_AUTOTUNE``) raises, naming A14b.
+
+The serving request plane's repair (ROADMAP C12): the driver deletes a
+host's ``serve_ctl/ready/<host>`` announcement when it reaps the host's
+exit or blacklists it, so no lease goes to a dead incarnation.
 """
 
 from __future__ import annotations
@@ -32,11 +40,36 @@ from typing import Callable, Dict, List, Optional
 
 from .api import launch_job
 from .hosts import HostInfo
+from ..obs import control as _ctl
+from ..obs import goodput as _goodput
+from ..obs import registry as _obs
+from ..obs import trace as _trace
 from ..utils import env as _env
 
 log = logging.getLogger("horovod_tpu_torch.elastic.driver")
 
 DISCOVER_HOSTS_FREQUENCY_SECS = 1.0
+
+_driver_rep = None
+
+
+def _driver_reporter():
+    """The launcher's own metrics reporter: it has no rank, so its
+    exports land in ``driver.jsonl``/``driver.prom`` instead of
+    interleaving with worker rank 0's files."""
+    global _driver_rep
+    if _driver_rep is None:
+        from ..obs.export import MetricsReporter
+
+        _driver_rep = MetricsReporter(role="driver")
+    return _driver_rep
+
+
+def _flush_driver_metrics() -> None:
+    """Driver events are flushed at once: the driver has no train loop,
+    and the next event may never come before the job exits."""
+    if _obs.enabled():
+        _driver_reporter().flush(summarize=False)
 
 
 class HostDiscovery:
@@ -145,7 +178,19 @@ class HostManager:
                 health.until = now + self._cooldown * factor
             self._current.pop(host, None)
             self.blacklist_events += 1
+            n_blacklisted = sum(
+                1 for h in self._blacklist.values() if h.until > now
+            )
         log.info("blacklisted host %s (%d strike(s))", host, health.strikes)
+        reg = _obs.metrics()
+        reg.counter("elastic.blacklist_events").inc()
+        reg.gauge("elastic.blacklisted_hosts").set(n_blacklisted)
+        reg.event("elastic.blacklist", host=host, strikes=health.strikes)
+        _trace.instant(
+            "elastic.blacklist", cat="elastic",
+            args={"host": host, "strikes": health.strikes},
+        )
+        _flush_driver_metrics()
 
     def penalize(self, host: str) -> None:
         """Add a health strike WITHOUT blacklisting -- the bookkeeping
@@ -157,6 +202,10 @@ class HostManager:
             health = self._blacklist.setdefault(host, _HostHealth())
             health.strikes += 1
             self.penalties += 1
+            strikes = health.strikes
+        reg = _obs.metrics()
+        reg.counter("recovery.host_penalties").inc()
+        reg.event("elastic.penalty", host=host, strikes=strikes)
 
     def is_blacklisted(self, host: str) -> bool:
         with self._lock:
@@ -206,12 +255,15 @@ class HostManager:
                 filtered[h] = s
             changed = filtered != self._current
             self._current = filtered
+        reg = _obs.metrics()
         for h, strikes in readmitted:
             log.info(
                 "host %s re-enters discovery on probation "
                 "(%d strike(s))", h, strikes,
             )
             self.readmissions += 1
+            reg.counter("recovery.blacklist_readmissions").inc()
+            reg.event("elastic.probation", host=h, strikes=strikes)
         return changed
 
 
@@ -419,13 +471,21 @@ class ElasticJob:
         self._preempted: Dict[str, float] = {}
         self._preempt_cooldown = _env.preempt_cooldown_secs()
         # Closed-loop autotuner (HVDTPU_AUTOTUNE=1 / autotune=True): the
-        # rollout coordinator comes with A14; armed, it raises.
+        # rollout coordinator comes with A14b; armed, it raises.
         self._tuner = None
         if autotune if autotune is not None else _env.autotune_default():
             raise NotImplementedError(
                 "the elastic driver's autotune rollout is not ported yet; "
-                "it arrives with A14")
-        # Telemetry (A14 turns these into registry counters).
+                "it arrives with A14b")
+        # Driver-side goodput ledger (the job roll-up): control-plane
+        # downtime windows (round publishes, lease expiries, adoption
+        # gaps), journaled with the driver state so an adopter continues
+        # the job's accounting. One per instance, not the module
+        # singleton: harnesses run driver incarnations in one process.
+        self._goodput = (
+            _goodput.GoodputLedger() if _goodput.enabled() else None
+        )
+        # Event counts; the metrics plane counts the same events.
         self.rescale_events = 0
         self.lease_expiries = 0
         self.guard_report_events = 0
@@ -482,10 +542,29 @@ class ElasticJob:
             "secret": self.server.secret,
             "port": self.server.port if self.server._server else None,
             "epoch": self._epoch_gen,
+            # Goodput roll-up: totals and the alive-now anchor an adopter
+            # measures its takeover gap against.
+            "goodput": (
+                self._goodput.state_dict()
+                if self._goodput is not None else None
+            ),
         }
+
+    def goodput_snapshot(self) -> Optional[Dict]:
+        """The driver ledger's totals, elapsed seconds and fraction, or
+        None with the goodput plane off."""
+        if self._goodput is None:
+            return None
+        self._goodput.touch()
+        return self._goodput.snapshot()
 
     def _journal_state(self) -> None:
         if self.journal is not None:
+            if self._goodput is not None:
+                # Every journal write proves the driver alive now: the
+                # adoption-gap anchor must not lag at the last downtime
+                # window of a stable world.
+                self._goodput.touch()
             self.journal.record_driver(self._driver_state())
 
     def _restore_adopted_state(self) -> None:
@@ -510,6 +589,18 @@ class ElasticJob:
         self._preempted = {
             h: float(t) for h, t in state.get("preempted", {}).items()
         }
+        if self._goodput is not None and state.get("goodput"):
+            try:
+                gap = self._goodput.load_state_dict(state["goodput"])
+                log.info(
+                    "adopted goodput ledger: %.1fs takeover gap attributed "
+                    "to adoption_gap", gap,
+                )
+            except ValueError as e:
+                log.warning(
+                    "journaled goodput state not adoptable (%s); starting "
+                    "a fresh ledger", e,
+                )
 
     def _adopt_workers(self) -> None:
         """Re-attach to workers the dead driver spawned, from their
@@ -575,6 +666,12 @@ class ElasticJob:
                 self._hb_baseline[host] = None
                 self._hb_seen.pop(host, None)
         self.adoptions += 1
+        _ctl.driver_adopted(self._epoch_gen, len(adopted))
+        _trace.instant(
+            "driver.adopted", cat="elastic",
+            args={"epoch": self._epoch_gen, "round": self._round,
+                  "adopted": len(adopted)},
+        )
         log.info(
             "adopted driver epoch %d: round %d, %d live worker(s) "
             "re-attached (%s), %d respawn candidate(s)",
@@ -592,6 +689,14 @@ class ElasticJob:
         self.driver.host_manager.blacklist(host)
         if host in self._ordered:
             self._ordered.remove(host)
+        self._forget_serving(host)
+
+    def _forget_serving(self, host: str) -> None:
+        """Retire ``host``'s serving announcement (``serve_ctl/ready/
+        <host>``, :mod:`..serve.kv`): the incarnation that wrote it is
+        gone, so no lease may be addressed to it. Its respawn announces
+        itself with a fresh stamp."""
+        self.server.delete("serve_ctl", f"ready/{host}")
 
     # ---- round publication ------------------------------------------------
 
@@ -621,6 +726,17 @@ class ElasticJob:
         return ordered
 
     def _publish_round(self, hosts_map: Dict[str, int]) -> None:
+        publish_w0 = time.time()
+        with _trace.span("round.publish", cat="elastic",
+                         round=self._round + 1, available=len(hosts_map)):
+            self._publish_round_inner(hosts_map)
+        if self._goodput is not None:
+            # The publish window is world-rebuild downtime on the job's
+            # clock: no worker steps until the new round is joinable.
+            self._goodput.add("rescale_downtime", publish_w0,
+                              time.time() - publish_w0)
+
+    def _publish_round_inner(self, hosts_map: Dict[str, int]) -> None:
         self._ordered = self._select_hosts(hosts_map)
         self._assignment = {h: r for r, h in enumerate(self._ordered)}
         self._round += 1
@@ -637,6 +753,11 @@ class ElasticJob:
         self.server.put("elastic", "ts", repr(ts).encode())
         self.rescale_events += 1
         self.events.append(("round", n, ts))
+        reg = _obs.metrics()
+        reg.counter("elastic.rescale_events").inc()
+        reg.gauge("elastic.round").set(n)
+        reg.gauge("elastic.world_hosts").set(len(self._ordered))
+        reg.event("elastic.rescale", round=n, hosts=list(self._ordered))
         # Store GC on round advance: stale round scopes and per-host
         # keys (heartbeats, guard reports, preempt flags) of departed
         # hosts would otherwise accumulate for the life of a week-long
@@ -648,6 +769,7 @@ class ElasticJob:
         if self.journal is not None:
             self._journal_state()
             self.server.compact_journal(self._driver_state())
+        _flush_driver_metrics()
         if self.verbose:
             log.info("published round %d: %s", n, self._assignment)
 
@@ -750,6 +872,7 @@ class ElasticJob:
             return False
         beats = self.server.scope_items("heartbeat")
         now = time.time()
+        reg = _obs.metrics()
         expired: List[str] = []
         for host in list(self._procs):
             if host not in self._assignment:
@@ -760,11 +883,22 @@ class ElasticJob:
             prev = self._hb_seen.get(host)
             if prev is None or prev[0] != raw:
                 self._hb_seen[host] = (raw, now)
+                reg.gauge(f"recovery.lease_age_seconds.{host}").set(0.0)
                 continue
+            # Each lease's age on the driver's clock: an almost-dead lease
+            # shows in hvdtpu_top before the kill fires.
+            reg.gauge(f"recovery.lease_age_seconds.{host}").set(now - prev[1])
             if now - prev[1] > self._hb_timeout:
                 expired.append(host)
         for host in expired:
             age = now - self._hb_seen[host][1]
+            if _trace.enabled():
+                # The lease's whole silent window as one span, beside the
+                # victim's open step span in a merged timeline.
+                _trace.complete(
+                    "lease.expiry", "elastic", self._hb_seen[host][1], age,
+                    args={"host": host, "timeout": self._hb_timeout},
+                )
             log.warning(
                 "worker on %s stopped heartbeating %.1fs ago "
                 "(timeout %.1fs); treating as hung -- terminating and "
@@ -777,7 +911,15 @@ class ElasticJob:
             job.kill(grace=2.0)
             self.lease_expiries += 1
             self.events.append(("lease_expired", host, time.time()))
+            reg.counter("recovery.lease_expired").inc()
+            reg.event("elastic.lease_expired", host=host, age=age)
+            reg.remove_gauge(f"recovery.lease_age_seconds.{host}")
             self._blacklist(host)
+            if self._goodput is not None:
+                # The whole silent window was lost job time: the hung
+                # worker stalled its peers' collectives until this kill.
+                self._goodput.add("rescale_downtime",
+                                  self._hb_seen[host][1], age)
         if expired:
             self.driver.host_manager.update_available_hosts()
             return True
@@ -800,6 +942,7 @@ class ElasticJob:
             items = self.server.scope_items("guard")
         except Exception:
             return False
+        reg = _obs.metrics()
         republish = False
         consumed = False
         for key, raw in items.items():
@@ -819,6 +962,8 @@ class ElasticJob:
             self._guard_reports[host] = (raw, strikes)
             consumed = True
             self.guard_report_events += 1
+            reg.counter("guard.divergence_reports").inc()
+            reg.event("guard.divergence_report", host=host, count=strikes)
             log.warning(
                 "host %s reported silently diverged (%d report(s)); "
                 "adding a health strike", host, strikes,
@@ -834,6 +979,7 @@ class ElasticJob:
                 if job is not None:
                     job.kill(grace=2.0)
                 # Same books the lease-expiry kill path closes out.
+                reg.remove_gauge(f"recovery.lease_age_seconds.{host}")
                 self._hb_seen.pop(host, None)
                 self._hb_baseline.pop(host, None)
                 self._blacklist(host)
@@ -841,6 +987,7 @@ class ElasticJob:
                 republish = True
         if consumed:
             self._journal_state()  # strike tallies must survive a crash
+            _flush_driver_metrics()
         return republish
 
     def _check_preemptions(self) -> bool:
@@ -867,6 +1014,7 @@ class ElasticJob:
                 # evicted) or survived and may rejoin. Clear the stale
                 # KV flags so a future incarnation isn't insta-drained.
                 del self._preempted[host]
+                _ctl.preempt_cleared(host)
                 self.server.delete("preempt", host)
                 self.server.delete("exit", host)
                 if host in self.driver.host_manager.current_hosts:
@@ -887,15 +1035,17 @@ class ElasticJob:
                 "host %s received a preemption notice; draining it out "
                 "of the next round", host,
             )
+            _ctl.preempt_noticed(host)
             republish = True
             changed = True
         if changed:
             self._journal_state()
+            _flush_driver_metrics()
         return republish
 
     def _check_autotune(self) -> bool:
         """One autotune coordinator turn; the rollout coordinator comes
-        with A14 (``__init__`` refuses an armed tuner), so this is inert."""
+        with A14b (``__init__`` refuses an armed tuner), so this is inert."""
         return False
 
     def _terminate_all(self) -> None:
@@ -1025,6 +1175,9 @@ class ElasticJob:
             )
 
     def run(self) -> int:
+        if _trace.enabled():
+            # The driver has no rank: its dumps land in trace_driver.*.
+            _trace.set_role("driver")
         adopting = self._adopted_state is not None
         if adopting:
             # Come back AS the server the in-flight workers know: same
@@ -1039,6 +1192,7 @@ class ElasticJob:
             self.server.start(store={})
             if self.journal is not None:
                 self.server.compact_journal(None)
+        _ctl.set_driver_epoch(self._epoch_gen)
         self._install_sigterm_handler()
         self.driver.start()
         try:
@@ -1099,6 +1253,12 @@ class ElasticJob:
                     > _env.journal_compact_bytes()
                 ):
                     self.server.compact_journal(self._driver_state())
+                # Periodic export, so the lease-age gauges set every poll
+                # reach hvdtpu_top between events.
+                if _obs.enabled():
+                    if self._goodput is not None:
+                        _goodput.publish(self._goodput)
+                    _driver_reporter().tick()
                 # Reap exits.
                 failed_rc = 0
                 for host, job in list(self._procs.items()):
@@ -1108,6 +1268,7 @@ class ElasticJob:
                     job.terminate()  # reaped; closes redirected log files
                     del self._procs[host]
                     self.events.append(("exit", host, time.time(), rc))
+                    self._forget_serving(host)
                     if host not in self._assignment:
                         if host in self._preempted:
                             if rc == 0:
@@ -1119,6 +1280,7 @@ class ElasticJob:
                                     "preempted host %s drained cleanly",
                                     host,
                                 )
+                                _ctl.preempt_drained(host)
                             else:
                                 # The platform's kill beat the grace
                                 # window: still departed (no strike for
@@ -1129,7 +1291,9 @@ class ElasticJob:
                                     "preempted host %s died rc=%d before "
                                     "finishing its drain", host, rc,
                                 )
+                                _ctl.preempt_cleared(host)
                             self._journal_state()
+                            _flush_driver_metrics()
                         # Scaled-away worker exiting as told; not news.
                         continue
                     if host in self._preempted:
@@ -1143,11 +1307,13 @@ class ElasticJob:
                                 "preempted host %s drained before the "
                                 "shrink round landed", host,
                             )
+                            _ctl.preempt_drained(host)
                         else:
                             log.warning(
                                 "preempted host %s died rc=%d before "
                                 "draining", host, rc,
                             )
+                            _ctl.preempt_cleared(host)
                         self._journal_state()
                         republish = True
                         continue
@@ -1212,6 +1378,9 @@ class ElasticJob:
                     # reaped as a failure (e.g. killed externally).
                     return 1
         finally:
+            # Every way out of the run loop ships the driver's timeline,
+            # before the workers are torn down (theirs ride their SIGTERM).
+            _trace.flight_dump("driver_exit")
             if not self._leave_workers_running:
                 self._terminate_all()
             # On a driver crash (chaos) or SIGTERM handoff the workers

@@ -25,9 +25,9 @@ watch it to tell "same server, still failing" from "fresh server, fresh
 retry budget". HMAC replay protection composes with restarts because
 every client retry re-signs with a fresh timestamp.
 
-Telemetry stays in plain attributes until the metrics plane (A14):
-``RendezvousClient.retries_seen`` (transient failures retried) and
-``.reconnects`` (epoch changes observed).
+Telemetry: ``RendezvousClient.retries_seen`` (transient failures retried)
+and ``.reconnects`` (epoch changes observed), counted also as
+``recovery.kv_retries`` and ``recovery.kv_reconnects``.
 """
 
 from __future__ import annotations
@@ -38,6 +38,9 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Iterable, Optional, Tuple
 from urllib.parse import unquote
+
+from ..obs import control as _ctl
+from ..obs import registry as _obs
 
 from .secret import (
     DIGEST_HEADER,
@@ -478,6 +481,7 @@ class RendezvousClient:
         self._epoch = epoch
         if changed:
             self.reconnects += 1
+            _ctl.kv_reconnected()
         return changed
 
     def _headers(self, method: str, path: str, body: bytes = b"") -> dict:
@@ -542,6 +546,7 @@ class RendezvousClient:
 
         def on_retry(e, attempt_no):
             self.retries_seen += 1
+            _obs.metrics().counter("recovery.kv_retries").inc()
 
         return retry_call(
             attempt,

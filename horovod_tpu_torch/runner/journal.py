@@ -45,6 +45,8 @@ import threading
 import zlib
 from typing import Dict, Optional, Tuple
 
+from ..obs import control as _ctl
+
 log = logging.getLogger("horovod_tpu_torch.runner.journal")
 
 JOURNAL_NAME = "journal.jsonl"
@@ -129,9 +131,8 @@ class ControlPlaneJournal:
         self._lock = threading.Lock()
         self._fh = None
         self._records_since_compact = 0
-        # Telemetry, kept as plain attributes until the metrics plane
-        # (A14): compactions taken, and the last recovery's replayed
-        # records and torn-tail flag.
+        # Compactions taken, and the last recovery's replayed records and
+        # torn-tail flag (the journal.* instruments count the same).
         self.compactions = 0
         self.last_recovery = (0, 0)
 
@@ -166,6 +167,8 @@ class ControlPlaneJournal:
             if self._fsync:
                 os.fsync(fh.fileno())
             self._records_since_compact += 1
+            size = fh.tell()
+        _ctl.journal_appended(size, self._records_since_compact)
 
     def record_put(self, scope: str, key: str, value: bytes) -> None:
         self.append(
@@ -240,6 +243,8 @@ class ControlPlaneJournal:
                 os.fsync(self._fh.fileno())
             self._records_since_compact = 0
             self.compactions += 1
+        _ctl.journal_compacted()
+        _ctl.journal_appended(0, 0)
 
     # ---- recovery -------------------------------------------------------
 
@@ -291,6 +296,7 @@ class ControlPlaneJournal:
                 "recovered the longest valid prefix", replayed,
             )
         self.last_recovery = (replayed, torn)
+        _ctl.journal_recovered(replayed, torn)
         return store, driver_box[0]
 
     def close(self) -> None:

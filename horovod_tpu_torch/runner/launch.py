@@ -11,8 +11,10 @@ through the elastic driver::
         python train.py
 
 Config knobs follow the reference's flag->env convention
-(``horovod/runner/common/util/config_parser.py``). The flags of the
-planes not ported yet -- the autotuner and the timeline (A14) -- raise.
+(``horovod/runner/common/util/config_parser.py``); ``--timeline-*``
+becomes ``HVDTPU_TIMELINE`` / ``_TIMELINE_MARK_CYCLES``
+(:mod:`..utils.timeline`). The autotuner's flags, a plane not ported yet
+(A14b), raise.
 """
 
 from __future__ import annotations
@@ -135,15 +137,17 @@ def _args_to_env(args) -> Dict[str, str]:
         env["HVDTPU_CYCLE_TIME"] = str(args.cycle_time_ms)
     if args.cache_capacity is not None:
         env["HVDTPU_CACHE_CAPACITY"] = str(args.cache_capacity)
+    if args.timeline_filename:
+        env["HVDTPU_TIMELINE"] = args.timeline_filename
+    if args.timeline_mark_cycles:
+        env["HVDTPU_TIMELINE_MARK_CYCLES"] = "1"
     unported = [flag for flag, on in (
-        ("--timeline-filename", args.timeline_filename),
-        ("--timeline-mark-cycles", args.timeline_mark_cycles),
         ("--autotune", args.autotune),
         ("--autotune-log-file", args.autotune_log_file)) if on]
     if unported:
         raise NotImplementedError(
-            f"{', '.join(unported)}: the timeline and the autotuner are not "
-            "ported yet; they arrive with A14")
+            f"{', '.join(unported)}: the autotuner is not ported yet; it "
+            "arrives with A14b")
     if args.no_stall_check:
         env["HVDTPU_STALL_CHECK_DISABLE"] = "1"
     if args.stall_warning_time_seconds is not None:

@@ -29,6 +29,9 @@ from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from .. import chaos as _chaos
+from ..obs import registry as _obs
+from ..obs import serve as _sobs
+from ..obs import trace as _trace
 from ..ops.batching import BatchSpec, pack_requests, unpack_responses
 from ..utils import env as _env
 
@@ -172,6 +175,7 @@ class Dispatcher:
         if _chaos.enabled():
             fault = _chaos.act("serve.request")
             if fault is not None and fault.kind == "drop":
+                _sobs.record_drop()
                 raise ServeRequestDropped(
                     "chaos: injected serve request drop"
                 )
@@ -182,6 +186,12 @@ class Dispatcher:
             self._queue.append(req)
             self.n_submitted += 1
             self._cond.notify()
+            depth = len(self._queue)
+        _sobs.record_submit()
+        _sobs.set_queue_depth(depth)
+        if _trace.enabled():  # the highest-rate path: no args dict when off
+            _trace.instant("serve.queued", cat="serve",
+                           args={"id": req.id, "depth": depth})
         return req.future
 
     # -- worker side -------------------------------------------------------
@@ -190,7 +200,8 @@ class Dispatcher:
         """Next batch for ``worker``, or None when nothing arrives within
         ``timeout``. The first request dispatches after at most
         ``batch_timeout_ms`` even if the batch is not full."""
-        deadline = time.time() + timeout
+        t_lease = time.time()
+        deadline = t_lease + timeout
         with self._cond:
             first = self._pop_live_locked()
             while first is None:
@@ -221,9 +232,21 @@ class Dispatcher:
         lease = BatchLease(
             next(self._lease_ids), worker, tuple(taken), batch, spec
         )
+        fill = spec.fill
         with self._cond:
             self._leases[lease.lease_id] = lease
             self.n_batches += 1
+            self._update_gauges_locked(worker)
+        _sobs.record_batch(fill)
+        if _trace.enabled():
+            # Collect and pack as one span on the worker's thread: the
+            # batch-fill wait and the staging, the slice of a slow request
+            # that is neither queue wait nor device time.
+            _trace.complete(
+                "serve.lease", "serve", t_lease, time.time() - t_lease,
+                args={"worker": worker, "lease": lease.lease_id,
+                      "n": len(taken), "fill": fill},
+            )
         return lease
 
     def complete(self, lease: BatchLease, outputs: Any) -> int:
@@ -236,6 +259,7 @@ class Dispatcher:
                 resolved += 1
         with self._cond:
             self._leases.pop(lease.lease_id, None)
+            self._update_gauges_locked(lease.worker)
         return resolved
 
     def resolve(self, request_id: int, value: Any) -> bool:
@@ -267,6 +291,7 @@ class Dispatcher:
         ):
             with self._cond:
                 self._leases.pop(owner.lease_id, None)
+                self._update_gauges_locked(owner.worker)
         return hit
 
     def active_lease_ids(self) -> List[int]:
@@ -297,6 +322,14 @@ class Dispatcher:
             self._queue.extendleft(reversed(requeued))
             self.n_requeued += len(requeued)
             self._cond.notify_all()
+            self._update_gauges_locked(lease.worker)
+        if requeued:
+            _sobs.record_requeued(len(requeued))
+            _trace.instant(
+                "serve.requeue", cat="serve",
+                args={"lease": lease.lease_id, "worker": lease.worker,
+                      "n": len(requeued)},
+            )
         return len(requeued)
 
     def requeue_worker(self, worker: str) -> int:
@@ -373,8 +406,36 @@ class Dispatcher:
         # that wins and before it wakes the waiter, so a client that reads
         # the count after its result() returns sees it final.
         def count() -> None:
+            now = time.time()
             self.n_resolved += 1
-            self.latencies.append(time.time() - req.submit_t)
+            self.latencies.append(now - req.submit_t)
+            _sobs.record_response((now - req.submit_t) * 1e3)
+            if _trace.enabled():
+                # The whole lifecycle, submit to resolution: with the lease
+                # and infer spans below it, a slow request decomposes into
+                # queue wait, packing and device time.
+                _trace.complete(
+                    "serve.request", "serve", req.submit_t,
+                    now - req.submit_t,
+                    args={"id": req.id, "attempts": req.attempts},
+                )
 
         with self._cond:
             return req.future._resolve(value, count)
+
+    def _update_gauges_locked(self, worker: Optional[str] = None) -> None:
+        """The queue and in-flight gauges (cheap no-ops with the metrics
+        plane off)."""
+        if not _obs.enabled():
+            return
+        _sobs.set_queue_depth(len(self._queue))
+        total = 0
+        per_worker = 0
+        for l in self._leases.values():
+            n = sum(1 for r in l.requests if not r.future.done())
+            total += n
+            if l.worker == worker:
+                per_worker += n
+        _sobs.set_in_flight(total)
+        if worker is not None:
+            _sobs.set_worker_in_flight(worker, per_worker)

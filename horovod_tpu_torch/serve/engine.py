@@ -31,7 +31,7 @@ Each worker is a thread that runs ``model.extend`` eagerly under
 device, default this process's card. The ``serve.decode`` chaos site
 kills or stalls a worker mid-round, its streams resuming on a survivor. Not
 ported yet: the goodput ledger, trace spans, ``serve.*`` gauges and
-streamed weight versions (A14); :meth:`DecodeEngine.attach_stream`
+streamed weight versions (A14b); :meth:`DecodeEngine.attach_stream`
 raises.
 """
 
@@ -50,6 +50,9 @@ import torch
 from .. import chaos as _chaos
 from ..context import resolve_device
 from ..elastic.scale import QueueDepthPolicy
+from ..obs import goodput as _goodput
+from ..obs import serve as _sobs
+from ..obs import trace as _trace
 from ..ops.batching import pack_prompts, tree_map
 from ..utils import env as _env
 from .dispatcher import ServeFuture, ServeRequestDropped
@@ -201,9 +204,18 @@ class DecodeWorker:
                     if self.n_active == 0:
                         if self._draining.is_set():
                             break
+                        wait_w0 = time.time()
                         with eng._cond:
-                            if not eng._queue and not self._stop.is_set():
+                            queued = bool(eng._queue)
+                            if not queued and not self._stop.is_set():
                                 eng._cond.wait(0.02)
+                        if _goodput.enabled():
+                            # Parked on an empty queue is idle capacity;
+                            # spinning with work queued (admission refused
+                            # under KV pressure) is queue wait.
+                            _goodput.record_serve(
+                                "queue" if queued else "idle",
+                                wait_w0, time.time() - wait_w0)
                         continue
                     self._round += 1
                     if _chaos.enabled():
@@ -215,11 +227,20 @@ class DecodeWorker:
                                 raise _InjectedCrash()
                             if fault.kind == "delay":
                                 time.sleep(float(fault.value or 0.01))
+                    t0 = time.time()
                     if eng.spec_k:
-                        self._spec_round()
+                        n_tok = self._spec_round()
                     else:
-                        self._decode_round()
-                    eng._note_round(self.n_active)
+                        n_tok = self._decode_round()
+                    eng._note_round(n_tok, self.n_active)
+                    if _goodput.enabled():
+                        # A decode round is the serving plane's useful work.
+                        _goodput.record_serve("compute", t0, time.time() - t0)
+                    if _trace.enabled():
+                        _trace.complete(
+                            "serve.decode.round", "serve", t0,
+                            time.time() - t0,
+                            args={"worker": self.name, "tokens": n_tok})
         except _InjectedCrash:
             log.warning("decode worker %s killed by chaos mid-round",
                         self.name)
@@ -585,6 +606,9 @@ class DecodeEngine:
         self.n_proposed = 0
         self.n_accepted = 0
         self.n_hotswaps = 0
+        # The decode-throughput gauge's rolling window.
+        self._rate_t0 = time.time()
+        self._rate_tokens = 0
         self.started = False
 
     def _place(self, params):
@@ -608,7 +632,7 @@ class DecodeEngine:
     def attach_stream(self, subscriber) -> "DecodeEngine":
         raise NotImplementedError(
             "streamed weight delivery (horovod_tpu.stream) is not ported "
-            "yet (ROADMAP A14); use hot_swap(params)"
+            "yet (ROADMAP A14b); use hot_swap(params)"
         )
 
     def stop(self, drain: bool = True) -> None:
@@ -663,6 +687,7 @@ class DecodeEngine:
             self._queue.append(s)
             self.n_submitted += 1
             self._cond.notify_all()
+        _sobs.record_stream_submit()
         return s.future
 
     @property
@@ -694,12 +719,13 @@ class DecodeEngine:
         """Swap the serving weights in place; workers pick the new params up
         at their next round (in-flight streams continue on the new weights
         over their existing cache). ``version`` belongs to streamed weight
-        delivery, not ported yet (A14)."""
+        delivery, not ported yet (A14b)."""
         if version is not None:
             raise NotImplementedError(
                 "versioned hot swaps (streamed weight delivery) are not "
-                "ported yet (ROADMAP A14)"
+                "ported yet (ROADMAP A14b)"
             )
+        swap_w0 = time.time()
         params = self._place(params)
         draft = self._place(draft_params) if draft_params is not None else None
         with self._cond:
@@ -707,6 +733,9 @@ class DecodeEngine:
             if draft is not None:
                 self.draft_params = draft
             self.n_hotswaps += 1
+        _sobs.record_hotswap()
+        if _goodput.enabled():
+            _goodput.record_serve("swap", swap_w0, time.time() - swap_w0)
 
     # -- elasticity --------------------------------------------------------
 
@@ -718,6 +747,7 @@ class DecodeEngine:
             self._workers[name] = w
             n = len(self._workers)
         w.start()
+        _sobs.set_workers(n)
         log.info("decode worker %s joined the engine (%d live)", name, n)
         return name
 
@@ -727,7 +757,9 @@ class DecodeEngine:
                 return None
             name = max(self._workers, key=lambda n: int(n[1:]))
             w = self._workers.pop(name)
+            n = len(self._workers)
         w.drain()
+        _sobs.set_workers(n)
         return name
 
     def scale_to(self, target: int) -> None:
@@ -747,6 +779,7 @@ class DecodeEngine:
             return False
         w.kill()
         self._requeue_for_worker(name)
+        _sobs.set_workers(self.n_workers)
         return True
 
     def _autoscale_loop(self) -> None:
@@ -764,6 +797,7 @@ class DecodeEngine:
         with self._cond:
             self._workers.pop(worker.name, None)
         self._requeue_for_worker(worker.name)
+        _sobs.set_workers(self.n_workers)
 
     def _worker_left(self, worker: DecodeWorker) -> None:
         with self._cond:
@@ -789,6 +823,10 @@ class DecodeEngine:
                 self._queue.appendleft(s)
             self.n_requeued += len(requeued)
             self._cond.notify_all()
+        if requeued:
+            _sobs.record_stream_requeued(len(requeued))
+            _trace.instant("serve.decode.requeue", cat="serve",
+                           args={"worker": name, "n": len(requeued)})
 
     def _requeue(self, streams: List[_Stream], preempt: bool = False) -> None:
         with self._cond:
@@ -801,6 +839,8 @@ class DecodeEngine:
             else:
                 self.n_requeued += len(streams)
             self._cond.notify_all()
+        if preempt:
+            _sobs.record_stream_preempted(len(streams))
 
     def _commit_token(self, stream: _Stream, epoch: int, tok: int) -> str:
         """Append one token to a stream: the only commit path, epoch-guarded
@@ -810,23 +850,47 @@ class DecodeEngine:
         with self._cond:
             if stream.epoch != epoch or stream.future.done():
                 return "stale"
+            prev_t = stream.future.last_token_t
             stream.committed.append(tok)
             stream.future._append_token(tok, now)
+            first = len(stream.committed) == 1
             finished = (len(stream.committed) >= stream.max_new
                         or (stream.eos is not None and tok == stream.eos))
             self.n_tokens += 1
+            self._rate_tokens += 1
             if finished:
                 self._assigned.pop(stream.id, None)
                 self.n_finished += 1
+                # Counted before the waiter wakes, so a client reading the
+                # metrics after result() returns sees this stream in them.
+                _sobs.record_stream_finished()
+            # Latencies: the first committed token is the stream's TTFT;
+            # each later one a TPOT (a resumed stream's first token after a
+            # requeue counts as a TPOT from its predecessor).
+            if first:
+                _sobs.record_ttft((now - stream.future.submit_t) * 1e3)
+            elif prev_t is not None:
+                _sobs.record_tpot((now - prev_t) * 1e3)
+            if finished:
                 stream.future._resolve(list(stream.committed))
         return "done" if finished else "ok"
 
-    def _note_round(self, n_active: int) -> None:
+    def _note_round(self, n_tokens: int, n_active: int) -> None:
         with self._cond:
             self.n_rounds += 1
             self.fill_sum += n_active / self.rows_n
+            now = time.time()
+            rate = None
+            if now - self._rate_t0 >= 0.5:
+                rate = self._rate_tokens / (now - self._rate_t0)
+                self._rate_t0 = now
+                self._rate_tokens = 0
+        _sobs.record_decode_round(n_tokens, n_active / self.rows_n)
+        if rate is not None:
+            _sobs.set_decode_tokens_per_s(rate)
 
     def _note_speculation(self, proposed: int, accepted: int) -> None:
         with self._cond:
             self.n_proposed += proposed
             self.n_accepted += accepted
+        _sobs.record_speculation(proposed, accepted)

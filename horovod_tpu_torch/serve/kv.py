@@ -24,6 +24,16 @@ the request plane between them:
   dropped requests, one response per request (late duplicate answers
   lose the future race and are ignored).
 
+Leases are addressed to one worker *incarnation* (the port's repair of
+ROADMAP C12, which the JAX package keeps): a worker announces itself with a
+fresh ``serve_ctl/ready/<host>`` stamp, every lease message carries the
+stamp it was addressed to (``"ready"``), and a worker skips a lease whose
+stamp is not its own -- so a respawn never replays the leases written to
+its dead predecessor, which re-queue through the lease timeout instead.
+The elastic driver deletes the announcement when it reaps or blacklists
+the host, so no new lease goes to the dead incarnation. A message without
+a stamp (from the JAX package's coordinator) is served as before.
+
 Payloads are JSON lists of float32 values (token ids up to 2**24 travel
 exactly), as in the JAX package: the recovery semantics, which is what
 this layer exists to prove, are the same as over a data plane. Answered
@@ -98,16 +108,25 @@ class KVServeCoordinator:
 
     # -- pump --------------------------------------------------------------
 
+    def ready_stamps(self) -> Dict[str, str]:
+        """Each announced host's ready stamp, as its worker wrote it: the
+        incarnation a lease is addressed to."""
+        return {
+            key[len("ready/"):]: raw.decode()
+            for key, raw in self.server.scope_items(SCOPE_CTL).items()
+            if key.startswith("ready/")
+        }
+
     def ready_workers(self) -> Dict[str, float]:
-        """Hosts that announced themselves serving-ready. Stale entries
-        (dead hosts) are harmless: their leases expire and re-queue."""
+        """Hosts that announced themselves serving-ready, with the time
+        of the announcement. The elastic driver retires a dead host's
+        entry; without a driver a stale one costs only lease timeouts."""
         out: Dict[str, float] = {}
-        for key, raw in self.server.scope_items(SCOPE_CTL).items():
-            if key.startswith("ready/"):
-                try:
-                    out[key[len("ready/"):]] = float(raw)
-                except ValueError:
-                    pass
+        for host, stamp in self.ready_stamps().items():
+            try:
+                out[host] = float(stamp)
+            except ValueError:
+                pass
         return out
 
     def live_workers(self) -> Dict[str, float]:
@@ -163,6 +182,7 @@ class KVServeCoordinator:
             return
         by_worker = self.dispatcher.in_flight_by_worker()
         batch = self.dispatcher.batch_size
+        stamps = self.ready_stamps()
         for host in sorted(self.live_workers()):
             outstanding = -(-by_worker.get(host, 0) // batch)  # ceil
             while (
@@ -175,6 +195,7 @@ class KVServeCoordinator:
                 self._lease_by_id[lease.lease_id] = lease
                 msg = {
                     "lease": lease.lease_id,
+                    "ready": stamps.get(host),
                     "batch_size": batch,
                     "reqs": [
                         {"id": r.id,
@@ -211,6 +232,10 @@ def kv_worker_serve_loop(
     this worker mid-flight (the elastic driver blacklists and respawns the
     host; the coordinator's lease timeout re-queues the work), ``error``
     reports the lease failed, ``timeout`` swallows the batch silently.
+
+    The worker serves only leases addressed to its own ready stamp (or to
+    no stamp, from a coordinator that sends none); ``on_batch`` hears the
+    lease id of each batch served.
     """
     from ..context import resolve_device
     from ..elastic import worker as _ew
@@ -223,7 +248,8 @@ def kv_worker_serve_loop(
         host_id = os.environ.get(_ew.ENV_HOST_ID) or os.uname().nodename
     on_card = (torch.cuda.device(dev) if dev.type == "cuda"
                else contextlib.nullcontext())
-    client.put(SCOPE_CTL, f"ready/{host_id}", repr(time.time()).encode())
+    stamp = repr(time.time())
+    client.put(SCOPE_CTL, f"ready/{host_id}", stamp.encode())
     seen: Set[str] = set()
     served = 0
     while True:
@@ -244,6 +270,10 @@ def kv_worker_serve_loop(
             if raw is None:
                 continue
             msg = json.loads(raw)
+            if msg.get("ready") not in (None, stamp):
+                # Addressed to an earlier incarnation of this host: its
+                # lease times out at the coordinator and re-queues.
+                continue
             if _chaos.enabled():
                 fault = _chaos.act("serve.dispatch", host=host_id)
                 if fault is not None:
@@ -280,6 +310,7 @@ def kv_worker_serve_loop(
                     {
                         "host": host_id,
                         "batch": served,
+                        "lease": msg["lease"],
                         "n_reqs": len(reqs),
                         "fill": spec.fill,
                     }

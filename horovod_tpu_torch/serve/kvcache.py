@@ -37,6 +37,8 @@ import numpy as np
 import torch
 
 from ..context import resolve_device
+from ..obs import registry as _obs
+from ..obs import serve as _sobs
 from ..ops.quantization import (
     INT8,
     SCALE_DTYPE,
@@ -191,11 +193,13 @@ class KVBlockPool:
         self._free_list.sort()
         out, self._free_list = self._free_list[:n], self._free_list[n:]
         self.n_allocs += n
+        self._publish_gauges()
         return out
 
     def _free(self, blocks: Sequence[int]) -> None:
         self._free_list.extend(blocks)
         self.n_frees += len(blocks)
+        self._publish_gauges()
 
     @property
     def n_free(self) -> int:
@@ -232,6 +236,15 @@ class KVBlockPool:
             "defrags": self.n_defrags,
         }
 
+    def _publish_gauges(self) -> None:
+        """The ``serve.decode.kv_*`` gauges (skipped, stats and all, with
+        the metrics plane off)."""
+        if not _obs.enabled():
+            return
+        s = self.stats()
+        _sobs.set_kv_blocks(s["used_blocks"], s["occupancy"],
+                            s["fragmentation"])
+
     def defrag(self) -> int:
         """Compact live blocks to the lowest indices (one device gather a
         pool tensor), rewriting every table in place; returns how many
@@ -261,6 +274,7 @@ class KVBlockPool:
             t.blocks = [mapping[b] for b in t.blocks]
         self._free_list = list(range(len(live), self.n_blocks))
         self.n_defrags += 1
+        _sobs.record_kv_defrag()
         return moved
 
     # -- device writes -----------------------------------------------------

@@ -57,6 +57,8 @@ from .. import chaos as _chaos
 from .. import checkpoint as _ckpt
 from ..context import resolve_device
 from ..elastic.scale import QueueDepthPolicy
+from ..obs import serve as _sobs
+from ..obs import trace as _trace
 from ..ops.batching import tree_map
 from ..ops.quantization import QuantizedWeight, quantize_params
 from ..utils import env as _env
@@ -151,8 +153,12 @@ class ServingWorker:
                                 "chaos: injected serve dispatch error")
                 with self.swap_lock:
                     params = self.params
-                batch = _place(lease.batch, self.pool.device)
-                outputs = _to_host(self.pool._infer(params, batch))
+                with _trace.span(
+                    "serve.infer", cat="serve", worker=self.name,
+                    lease=lease.lease_id, n=len(lease.requests),
+                ):
+                    batch = _place(lease.batch, self.pool.device)
+                    outputs = _to_host(self.pool._infer(params, batch))
                 d.complete(lease, outputs)
             except Exception as e:  # noqa: BLE001 - any infer failure
                 log.warning(
@@ -278,8 +284,10 @@ class ServePool:
         if self.started:
             return self
         self.started = True
+        _sobs.set_weight_bits(8 if self.weight_dtype == "int8" else 0)
         if self.ckpt_dir is not None:
             params, step, _ = self._restore()
+            _sobs.set_ckpt_step(step if step is not None else -1)
         else:
             params = self._init_params
             if self.weight_dtype == "int8" and isinstance(
@@ -337,6 +345,7 @@ class ServePool:
             self._workers[name] = w
             n = len(self._workers)
         w.start()
+        _sobs.set_workers(n)
         log.info("serving worker %s joined the pool (%d live)", name, n)
         return name
 
@@ -352,6 +361,8 @@ class ServePool:
             w = self._workers.pop(name)
             n = len(self._workers)
         w.drain()
+        _sobs.drop_worker_gauges(name)
+        _sobs.set_workers(n)
         log.info("serving worker %s drained out of the pool (%d live)", name, n)
         return name
 
@@ -367,9 +378,12 @@ class ServePool:
         the survivors."""
         with self._lock:
             w = self._workers.pop(name, None)
+            n = len(self._workers)
         if w is None:
             return False
         w.kill()
+        _sobs.drop_worker_gauges(name)
+        _sobs.set_workers(n)
         return True
 
     def _autoscale_loop(self) -> None:
@@ -424,8 +438,11 @@ class ServePool:
                 break
             for w in pending:
                 t0 = time.time()
-                state, got, rolled_back = self._restore(step)
+                with _trace.span("serve.hotswap", cat="serve",
+                                 worker=w.name, step=step):
+                    state, got, rolled_back = self._restore(step)
                 if rolled_back:
+                    _sobs.record_rollback()
                     log.warning(
                         "hot-swap target step %d was corrupt; pool stays "
                         "on step %s (walk-back rollback)", step, w.ckpt_step,
@@ -438,14 +455,17 @@ class ServePool:
                     w.params = state
                     w.ckpt_step = got
                 self.swap_log.append((w.name, got, t0, time.time()))
+                _sobs.record_hotswap()
                 n_swapped += 1
         if n_swapped == 0:
             # No live workers: validate and adopt the step for future
             # spawns.
             state, got, rolled_back = self._restore(step)
             if rolled_back:
+                _sobs.record_rollback()
                 return False
             self._init_params, self._init_step = state, got
+        _sobs.set_ckpt_step(step)
         log.info(
             "pool rolled onto checkpoint step %d (%d swaps)", step, n_swapped
         )

@@ -45,12 +45,22 @@ restart-invariant, under one armed ``HVDTPU_CHAOS`` schedule, and
 ``decode``           a token-level decode worker is killed
                      mid-sequence -> its streams resume on the survivor,
                      token-identical to the fault-free run
+``quant``            int8 + error-feedback training crashes mid-run ->
+                     the respawn resumes from the checkpointed TrainState
+                     (EF residuals included) and ends bit for bit on the
+                     fault-free run (``quant_baseline``)
+``silent``           three guarded replicas: ``grad.nan`` skipped on
+                     every rank together, one ``grad.bitflip`` localized
+                     by the audit and resynced, no corrupted checkpoint,
+                     finals bit for bit the fault-free run's
 ===================  ====================================================
 
-Not ported yet: ``quant`` and ``silent`` (A13c), ``stream`` and
-``autotune`` (A14). Every scenario runs under a hard wall-clock
-deadline; on timeout the harness records log tails and the KV plane's
-round state and tears the wedged job down instead of hanging.
+Not ported yet: ``stream`` and ``autotune`` (A14b). Every scenario runs
+with the trace plane armed (workers and the in-process driver dump under
+``<workdir>/trace``) and the driver's goodput ledger on, under a hard
+wall-clock deadline; on timeout the harness records log tails, the KV
+plane's round state and the merged flight-recorder timeline, and tears
+the wedged job down instead of hanging.
 
 Usage::
 
@@ -352,6 +362,183 @@ hvt.shutdown()
 ''' % {"grad": GRAD, "lr": LEARNING_RATE}
 
 
+# The quantized-wire convergence worker (the ``quant`` scenario): a tiny
+# deterministic training loop through make_train_step on the int8 wire
+# with error feedback, checkpointing the whole TrainState (parameters,
+# optimizer state, EF residuals) every step. Batches are a pure function of
+# the step, so a crashed and resumed run lands on the fault-free run's
+# final parameters bit for bit -- which holds only if the EF residuals
+# round-trip through the checkpoint.
+QUANT_WORKER = """
+import horovod_tpu_torch as hvt
+from horovod_tpu_torch import checkpoint as ckptlib
+from horovod_tpu_torch import elastic
+from horovod_tpu_torch.optimizer import Optimizer, ef_residual_norm
+
+STEPS = int(os.environ["HVDTPU_TEST_SOAK_STEPS"])
+CKDIR = os.path.join(workdir, "ckpt")
+hvt.init(device="cpu", backend="gloo")
+
+
+def params0():
+    rng = np.random.RandomState(0)
+    return {"w": torch.tensor(rng.randn(8, 4) * 0.5, dtype=torch.float32),
+            "b": torch.zeros(4)}
+
+
+def loss_fn(p, b):
+    x, y = b
+    return ((x @ p["w"] + p["b"] - y) ** 2).mean()
+
+
+def batch_for(step):
+    rng = np.random.RandomState(1000 + step)
+    return (torch.tensor(rng.randn(16, 8), dtype=torch.float32),
+            torch.tensor(rng.randn(16, 4), dtype=torch.float32))
+
+
+def sgd(lr):
+    def update(g, s, p=None):
+        return {k: -lr * v for k, v in g.items()}, s
+    return Optimizer(lambda p: (), update)
+
+
+# A coarse block, so the quantization error is large and the residuals
+# carry real mass between steps.
+step_fn, opt = hvt.make_train_step(
+    loss_fn, sgd(0.05), compression=hvt.Compression.int8.with_block(64),
+    device="cpu")
+box = {"ts": hvt.init_state(params0(), opt)}
+state = elastic.ObjectState(step=0)
+try:
+    box["ts"] = ckptlib.restore_checkpoint(CKDIR, box["ts"])
+    state.step = int(box["ts"].step)
+    state.save()
+    log({"host": host_id, "resumed_at": state.step,
+         "resume_residual_norm": ef_residual_norm(box["ts"].opt_state)})
+except FileNotFoundError:
+    pass
+
+
+@elastic.run
+def train(st):
+    while st.step < STEPS:
+        ts, loss = step_fn(box["ts"], batch_for(st.step))
+        box["ts"] = ts
+        st.step = int(ts.step)
+        ckptlib.save_checkpoint(CKDIR, ts, step=st.step, keep=STEPS + 1)
+        log({"host": host_id, "rank": hvt.rank(), "size": hvt.size(),
+             "step": st.step, "loss": float(loss)})
+        st.commit()
+    return st.step
+
+
+train(state)
+final = box["ts"]
+log({"host": host_id, "rank": hvt.rank(), "final_step": int(final.step),
+     "final_w": [float(x) for x in final.params["w"].detach().reshape(-1)],
+     "final_residual_norm": ef_residual_norm(final.opt_state)})
+hvt.shutdown()
+"""
+
+
+# The fail-silent worker (the ``silent`` scenario): a world of 3 where each
+# process trains the same deterministic model through
+# make_train_step(guard=...), so every replica's state stays bit for bit
+# the same. ``grad.nan`` poisons one batch on every rank (the guard skips
+# the step on every rank together, the state untouched, and the
+# deterministic pipeline retries it); ``grad.bitflip`` flips one seeded bit
+# of one rank's parameters after the commit (only the consistency audit
+# sees it: the majority vote localizes the rank, the broadcast resync heals
+# it, the driver's health scoring records the report). Rank 0 checkpoints
+# every committed step after the audit, so no corrupted state reaches disk.
+SILENT_WORKER = """
+import horovod_tpu_torch as hvt
+from horovod_tpu_torch import checkpoint as ckptlib
+from horovod_tpu_torch import elastic
+from horovod_tpu_torch.guard import GuardConfig
+from horovod_tpu_torch.optimizer import Optimizer
+
+STEPS = int(os.environ["HVDTPU_TEST_SOAK_STEPS"])
+CKDIR = os.path.join(workdir, "ckpt")
+hvt.init(device="cpu", backend="gloo")
+
+
+def params0():
+    rng = np.random.RandomState(0)
+    return {"w": torch.tensor(rng.randn(8, 4) * 0.5, dtype=torch.float32),
+            "b": torch.zeros(4)}
+
+
+def loss_fn(p, b):
+    x, y = b
+    return ((x @ p["w"] + p["b"] - y) ** 2).mean()
+
+
+def batch_for(step):
+    rng = np.random.RandomState(1000 + step)
+    return (torch.tensor(rng.randn(16, 8), dtype=torch.float32),
+            torch.tensor(rng.randn(16, 4), dtype=torch.float32))
+
+
+def sgd(lr):
+    def update(g, s, p=None):
+        return {k: -lr * v for k, v in g.items()}, s
+    return Optimizer(lambda p: (), update)
+
+
+cfg = GuardConfig(max_skips=4, warmup=2, audit_every=1)
+step_fn, opt = hvt.make_train_step(loss_fn, sgd(0.05), guard=cfg,
+                                   device="cpu")
+box = {"ts": hvt.init_state(params0(), opt, guard=True)}
+state = elastic.ObjectState(step=0)
+try:
+    box["ts"] = ckptlib.restore_checkpoint(CKDIR, box["ts"])
+    state.step = int(box["ts"].step)
+    state.save()
+    log({"host": host_id, "resumed_at": state.step})
+except FileNotFoundError:
+    pass
+
+
+@elastic.run
+def train(st):
+    while st.step < STEPS:
+        attempt = int(box["ts"].step) + 1
+        ts, loss = step_fn(box["ts"], batch_for(int(box["ts"].step)))
+        box["ts"] = ts
+        lossf = float(loss)
+        rec = {"host": host_id, "rank": hvt.rank(), "size": hvt.size(),
+               "attempt": attempt, "step": int(ts.step),
+               "skipped_total": int(ts.guard.skipped),
+               "loss": lossf if np.isfinite(lossf) else None}
+        rt = step_fn.guard_runtime
+        if rt.last_report is not None and rt.last_report.step == int(ts.step):
+            rec["audit"] = rt.last_report.as_record()
+            rt.last_report = None
+        committed = int(ts.step) > st.step
+        st.step = int(ts.step)
+        if committed and hvt.rank() == 0:
+            # After the audit: a step reaches disk only once the
+            # cross-replica checksum round said this rank is clean.
+            ckptlib.save_checkpoint(CKDIR, ts, step=st.step,
+                                    keep=STEPS + 1, force=True)
+        log(rec)
+        st.commit()
+    return st.step
+
+
+train(state)
+final = box["ts"]
+log({"host": host_id, "rank": hvt.rank(), "final_step": int(final.step),
+     "final_w": [float(x) for x in final.params["w"].detach().reshape(-1)],
+     "skipped_total": int(final.guard.skipped)})
+hvt.shutdown()
+"""
+
+SILENT_VICTIM = "127.0.0.2"  # rank 1 of the sorted world of 3
+
+
 def _scenarios(steps: int) -> Dict[str, dict]:
     mid = max(2, steps // 2)
     two = ["localhost:1", "127.0.0.1:1"]
@@ -404,11 +591,100 @@ def _scenarios(steps: int) -> Dict[str, dict]:
             "journal": True,
             "env": {},
         },
+        # Quantized training and its EF state through a crash and restore:
+        # the respawn resumes from the checkpointed TrainState and must
+        # land on the fault-free run's final parameters bit for bit
+        # (run_scenario("quant") runs both). One host: the crashed host is
+        # re-admitted from blacklist probation for the respawn.
+        "quant_baseline": {
+            "hosts": ["localhost:1"], "chaos": None, "env": {},
+            "worker": QUANT_WORKER,
+        },
+        "quant": {
+            "hosts": ["localhost:1"],
+            "chaos": f"worker.step:crash@step={mid};spawn=0",
+            "env": {"HVDTPU_BLACKLIST_COOLDOWN": "1.0"},
+            "worker": QUANT_WORKER,
+        },
+        # Fail-silent faults (SILENT_WORKER): three loopback hosts, so the
+        # audit has a strict majority. grad.nan hits every rank at attempt
+        # 2 (the guard skips together and the step is retried);
+        # grad.bitflip hits only the victim's parameters after commit mid,
+        # and the audit of that step must catch it.
+        "silent_baseline": {
+            "hosts": ["127.0.0.1:1", "127.0.0.2:1", "127.0.0.3:1"],
+            "chaos": None, "env": {}, "worker": SILENT_WORKER,
+        },
+        "silent": {
+            "hosts": ["127.0.0.1:1", "127.0.0.2:1", "127.0.0.3:1"],
+            "chaos": ("grad.nan:nan@step=2;n=1,"
+                      f"grad.bitflip:bitflip@step={mid};"
+                      f"host={SILENT_VICTIM};n=1"),
+            "env": {}, "worker": SILENT_WORKER,
+        },
     }
 
 
-SCENARIO_NAMES = [n for n in _scenarios(DEFAULT_STEPS) if n != "baseline"] + [
+SCENARIO_NAMES = [n for n in _scenarios(DEFAULT_STEPS)
+                  if not n.endswith("baseline")] + [
     "serve", "decode", "driver_crash"]
+
+
+# ---- the telemetry planes of a scenario -----------------------------------
+
+
+def _arm_trace(workdir: str, env: dict) -> str:
+    """Arm the trace plane for a scenario: the workers through their env,
+    the in-process driver programmatically (its dumps under the
+    ``driver`` stem). Every soak run ships flight-recorder evidence."""
+    from ..obs import trace as _trace
+
+    trace_dir = os.path.join(workdir, "trace")
+    env["HVDTPU_TRACE"] = "1"
+    env["HVDTPU_TRACE_DIR"] = trace_dir
+    _trace.enable(directory=trace_dir)
+    return trace_dir
+
+
+def _disarm_trace() -> None:
+    """Scenario over: dump what the in-process side recorded, then disarm
+    and clear the ring, so the next scenario's dumps carry none of this
+    one's history."""
+    from ..obs import trace as _trace
+
+    _trace.flight_dump("scenario_end")
+    _trace.disable()
+    _trace.set_role(None)
+    _trace.recorder().clear()
+
+
+def _attach_flight_recorder(diag: Optional[dict], workdir: str) -> dict:
+    """Merge the flight-recorder dumps a torn-down job left (workers dump
+    on the kill's SIGTERM; a chaos ``hang`` or ``crash`` victim at the
+    injection) into one clock-aligned timeline, attached to the deadline
+    diagnostics."""
+    from ..obs import trace as _trace
+    from . import hvdtpu_trace as ht
+
+    diag = diag if diag is not None else {}
+    _trace.flight_dump("deadline")
+    trace_dir = os.path.join(workdir, "trace")
+    out = os.path.join(trace_dir, "merged.json")
+    try:
+        merged = ht.merge_dir(trace_dir, out=out)
+    except Exception as e:  # noqa: BLE001 - diagnostics only
+        diag["flight_recorder"] = {"error": repr(e)}
+        return diag
+    if merged is None:
+        diag["flight_recorder"] = {"error": "no flight-recorder dumps"}
+        return diag
+    diag["flight_recorder"] = {
+        "merged": out,
+        "files": [os.path.basename(p) for p in ht.discover(trace_dir)],
+        "events": len(merged["traceEvents"]),
+        "clock_offsets_us": merged["metadata"].get("clock_offsets_us"),
+    }
+    return diag
 
 
 def run_scenario(name: str, steps: int = DEFAULT_STEPS,
@@ -431,9 +707,16 @@ def run_scenario(name: str, steps: int = DEFAULT_STEPS,
         raise ValueError(
             f"unknown scenario {name!r} (choose from "
             f"{', '.join(['baseline'] + SCENARIO_NAMES)})")
+    from ..obs import goodput as _goodput
+
     workdir = workdir or tempfile.mkdtemp(prefix=f"chaos_{name}_")
     env = {"HVDTPU_TEST_SOAK_STEPS": str(steps)}
     env.update(spec["env"])
+    trace_dir = _arm_trace(workdir, env)
+    # The in-process driver's goodput ledger: a fault's lost wall-clock
+    # must land in its category (crash/hang: rescale_downtime).
+    _goodput._reset_for_tests()
+    _goodput.enable()
     job_ref: dict = {}
     journal_dir = os.path.join(workdir, "journal") if spec.get(
         "journal") else None
@@ -443,28 +726,37 @@ def run_scenario(name: str, steps: int = DEFAULT_STEPS,
         _chaos.plan(spec["driver_chaos"], seed=seed)
     result: dict = {}
     timed_out = False
+    diagnostics = None
     try:
         result["rc"], _ = run_elastic_scenario(
-            workdir, WORKER, initial_hosts=spec["hosts"], extra_env=env,
+            workdir, spec.get("worker") or WORKER,
+            initial_hosts=spec["hosts"], extra_env=env,
             driver_env=spec["env"], timeout=timeout, chaos=spec["chaos"],
             chaos_seed=seed, drain_timeout=30.0, job_ref=job_ref,
             journal_dir=journal_dir)
     except AssertionError as e:
         timed_out = "did not finish" in str(e)
         result["exc"] = str(e)[:8000]
+        if timed_out:
+            # After the teardown: its SIGTERMs made the wedged workers
+            # dump, so the deadline ships a "who was where" timeline.
+            diagnostics = _attach_flight_recorder(
+                {"error": result["exc"]}, workdir)
     finally:
         if spec.get("driver_chaos"):
             _chaos.clear()
+        _disarm_trace()
     job = job_ref.get("job")
     ckdir = os.path.join(workdir, "ckpt")
-    return {
+    res = {
         "scenario": name,
         "steps": steps,
         "workdir": workdir,
+        "trace_dir": trace_dir,
         "timed_out": timed_out,
         "rc": result.get("rc"),
         "exc": None if timed_out else result.get("exc"),
-        "diagnostics": result.get("exc") if timed_out else None,
+        "diagnostics": diagnostics,
         "records": read_records(workdir),
         "quarantined": (sorted(n for n in os.listdir(ckdir)
                                if ".corrupt" in n)
@@ -474,7 +766,20 @@ def run_scenario(name: str, steps: int = DEFAULT_STEPS,
         "kv_restarts": job.server.restarts if job is not None else 0,
         "rescale_events": job.rescale_events if job is not None else 0,
         "lease_expiries": job.lease_expiries if job is not None else 0,
+        # The driver's consumed guard divergence reports (silent).
+        "guard_reports": ({h: strikes for h, (_, strikes)
+                           in job._guard_reports.items()}
+                          if job is not None else {}),
+        # The driver ledger's attribution of the job's wall-clock.
+        "goodput": job.goodput_snapshot() if job is not None else None,
     }
+    _goodput._reset_for_tests()
+    if name in ("quant", "silent"):
+        # The invariant is relative: the same worker, fault-free, must
+        # end on the same parameters bit for bit.
+        res["baseline"] = run_scenario(f"{name}_baseline", steps=steps,
+                                       timeout=timeout, seed=seed)
+    return res
 
 
 def run_driver_crash_scenario(steps: int = DEFAULT_STEPS,
@@ -928,10 +1233,25 @@ def check_invariants(res: dict, steps: int = DEFAULT_STEPS) -> List[str]:
         if r["final_step"] != steps:
             problems.append(f"{name}: {r['host']} finished at step "
                             f"{r['final_step']}, wanted {steps}")
-        if any(abs(x - want) > 1e-9 for x in r["final_w"]):
+        # The quant and silent updates are real training steps: their
+        # finals are held to the fault-free run's, not to the analytic
+        # value.
+        if not name.startswith(("quant", "silent")) and any(
+                abs(x - want) > 1e-9 for x in r["final_w"]):
             problems.append(f"{name}: {r['host']} final_w={r['final_w']}, "
                             f"wanted all {want}")
     sizes = {r["size"] for r in records if "size" in r}
+    if name in ("crash", "hang"):
+        gp = res.get("goodput")
+        if gp is None:
+            problems.append(f"{name}: driver goodput ledger missing")
+        elif gp["totals"].get("rescale_downtime", 0.0) <= 0.0:
+            problems.append(f"{name}: no rescale_downtime on the driver's "
+                            f"ledger ({gp['totals']})")
+    if name == "quant":
+        problems.extend(_check_quant_invariants(res, finals))
+    if name == "silent":
+        problems.extend(_check_silent_invariants(res, finals))
     if name == "ckpt":
         if not res["quarantined"]:
             problems.append("ckpt: no quarantined .corrupt checkpoint "
@@ -1008,6 +1328,88 @@ def check_invariants(res: dict, steps: int = DEFAULT_STEPS) -> List[str]:
         if "localhost" in {r["host"] for r in records if "resumed_at" in r}:
             problems.append("driver_crash: the healthy survivor restarted "
                             "from disk during the driver outage")
+    return problems
+
+
+def _baseline_finals(res: dict, name: str, problems: List[str]):
+    base = res.get("baseline") or {}
+    finals = [r for r in base.get("records", []) if "final_step" in r]
+    if base.get("rc") != 0 or not finals:
+        problems.append(f"{name}: fault-free baseline run failed "
+                        f"(rc={base.get('rc')})")
+        return None
+    return finals
+
+
+def _check_quant_invariants(res: dict, finals: List[dict]) -> List[str]:
+    """The crashed and resumed int8 run ends on the fault-free run's
+    parameters bit for bit, from a restore whose EF residuals were
+    non-zero (they round-tripped through the checkpoint)."""
+    problems: List[str] = []
+    base = _baseline_finals(res, "quant", problems)
+    if base is not None and finals[-1]["final_w"] != base[-1]["final_w"]:
+        problems.append(
+            "quant: post-crash final params diverge from the fault-free "
+            f"baseline ({finals[-1]['final_w']} vs {base[-1]['final_w']}) "
+            "-- the optimizer or EF state did not survive the restore")
+    resumes = [r for r in res["records"] if "resumed_at" in r]
+    if not resumes:
+        problems.append("quant: worker never resumed from disk (the crash "
+                        "did not fire or the restore was skipped)")
+    elif not any((r.get("resume_residual_norm") or 0) > 0 for r in resumes):
+        problems.append("quant: resumed EF residuals are all zero -- the "
+                        "residual state did not round-trip")
+    return problems
+
+
+def _check_silent_invariants(res: dict, finals: List[dict]) -> List[str]:
+    """Every fault fired, each was caught by the defense meant for it, and
+    nothing corrupt survived."""
+    from .. import checkpoint as _ckpt
+
+    problems: List[str] = []
+    base = _baseline_finals(res, "silent", problems)
+    if base is not None:
+        for r in finals:
+            if r["final_w"] != base[-1]["final_w"]:
+                problems.append(f"silent: {r['host']} final params diverge "
+                                "from the fault-free baseline -- a fault "
+                                "escaped the guard")
+    # The NaN was screened on every rank, and the step retried (the step
+    # totals above still match).
+    if not finals or any(r.get("skipped_total", 0) < 1 for r in finals):
+        problems.append("silent: a rank never skipped -- grad.nan did not "
+                        "fire or the guard let it through")
+    audits = [r["audit"] for r in res["records"]
+              if r.get("audit", {}).get("diverged")]
+    if not audits:
+        problems.append("silent: no audit round saw the bitflip divergence")
+    else:
+        a = audits[0]
+        if a.get("minority_hosts") != [SILENT_VICTIM]:
+            problems.append(f"silent: audit localized "
+                            f"{a.get('minority_hosts')}, wanted "
+                            f"[{SILENT_VICTIM!r}]")
+        if a.get("healed") != "resync":
+            problems.append(f"silent: divergence healed by "
+                            f"{a.get('healed')!r}, wanted 'resync'")
+    if res.get("guard_reports", {}).get(SILENT_VICTIM, 0) < 1:
+        problems.append("silent: the driver never consumed a divergence "
+                        "report for the victim")
+    if res.get("host_health", {}).get(SILENT_VICTIM, 0) < 1:
+        problems.append("silent: the victim carries no health strike")
+    if res["quarantined"]:
+        problems.append(f"silent: corrupted checkpoints reached disk: "
+                        f"{res['quarantined']}")
+    ckdir = os.path.join(res["workdir"], "ckpt")
+    steps = _ckpt.all_steps(ckdir) if os.path.isdir(ckdir) else []
+    if not steps:
+        problems.append("silent: no checkpoints were ever committed")
+    for step_n in steps:
+        bad = _ckpt.verify_step_dir(os.path.join(ckdir, f"step_{step_n}"))
+        if bad:
+            problems.append(f"silent: committed checkpoint step {step_n} "
+                            f"fails integrity: {bad[:2]}")
     return problems
 
 

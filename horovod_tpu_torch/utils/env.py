@@ -60,8 +60,22 @@ PREEMPT_COOLDOWN_SECS = "PREEMPT_COOLDOWN_SECS"  # drain-mark expiry
 # The data plane's timeout, under the JAX package's native runtime's name
 # (read as is, with no HVDTPU_/HOROVOD_ prefix).
 DATA_TIMEOUT_ENV = "HVT_DATA_TIMEOUT_SECS"  # torch.distributed timeout
+# The telemetry planes (obs/): metrics registry and its exporters, the
+# span recorder, the goodput ledger, and the host timeline.
+METRICS = "METRICS"  # enable the metrics plane (horovod_tpu_torch.obs)
+METRICS_DIR = "METRICS_DIR"  # export directory (JSONL + Prometheus)
+METRICS_INTERVAL = "METRICS_INTERVAL"  # flush period, seconds
+METRICS_SUMMARY_STEPS = "METRICS_SUMMARY_STEPS"  # rank-0 summary cadence
+TRACE = "TRACE"  # enable the span recorder / flight recorder
+TRACE_DIR = "TRACE_DIR"  # per-rank trace dump directory
+TRACE_BUFFER = "TRACE_BUFFER"  # ring capacity, events (bounded memory)
+GOODPUT = "GOODPUT"  # enable the goodput accounting ledger
+GOODPUT_WINDOW = "GOODPUT_WINDOW"  # pending-interval window (bounded memory)
+TIMELINE = "TIMELINE"  # path of the chrome-trace host timeline
+TIMELINE_MARK_CYCLES = "TIMELINE_MARK_CYCLES"  # cycle marks in the timeline
 # Defaults of make_train_step / ServePool knobs whose planes are not ported
-# yet (A14): an armed value raises there as the explicit argument does.
+# yet (A14b, and the linter): an armed value raises there as the explicit
+# argument does.
 LINT = "LINT"  # default for make_train_step(lint=...): off|warn|raise
 PUBLISH_EVERY = "PUBLISH_EVERY"  # publish a delta every N commits; 0=off
 AUTOTUNE = "AUTOTUNE"  # closed-loop autotuner, trainer and serving pool
@@ -97,6 +111,7 @@ DEFAULT_PREEMPT_COOLDOWN_SECS = 60.0
 DEFAULT_DATA_TIMEOUT_SECS = 300.0  # the native runtime's default
 DEFAULT_PUBLISH_EVERY = 0  # weight streaming is opt-in
 DEFAULT_PREFETCH_DEPTH = 2  # double-buffered host-to-device staging
+DEFAULT_GOODPUT_WINDOW = 512  # pending intervals before the ledger settles
 
 
 def _lookup(name: str) -> Optional[str]:
@@ -520,3 +535,34 @@ def data_timeout_secs() -> float:
     except ValueError:
         secs = DEFAULT_DATA_TIMEOUT_SECS
     return secs if secs > 0 else DEFAULT_DATA_TIMEOUT_SECS
+
+
+def goodput_default() -> bool:
+    """Default enablement of the goodput ledger (:mod:`..obs.goodput`)."""
+    return get_bool(GOODPUT, False)
+
+
+def goodput_window() -> int:
+    """Pending-interval window of the goodput ledger: intervals held
+    before the oldest half is settled into totals (bounded memory). Must
+    be >= 16: a smaller window settles mid-step brackets, and late
+    reclassifications (guard skips, exposed-comm carve-outs) then degrade
+    into ``other`` residue."""
+    win = get_int(GOODPUT_WINDOW, DEFAULT_GOODPUT_WINDOW)
+    if win < 16:
+        raise ValueError(f"HVDTPU_GOODPUT_WINDOW must be >= 16, got {win}")
+    return win
+
+
+def launcher_rank_world() -> tuple:
+    """The launcher-injected ``(rank, world)``, resolved as the JAX
+    package resolves it (``HVT_*`` before ``HVDTPU_PROCESS_ID`` /
+    ``HVDTPU_NUM_PROCESSES``), then ``torch.distributed``'s ``RANK`` /
+    ``WORLD_SIZE``; a standalone process is ``(0, 1)``. The exporters and
+    the flight recorder stamp their files with it."""
+    env = os.environ
+    rank = env.get("HVT_RANK", env.get("HVDTPU_PROCESS_ID",
+                                       env.get("RANK", "0")))
+    world = env.get("HVT_SIZE", env.get("HVDTPU_NUM_PROCESSES",
+                                        env.get("WORLD_SIZE", "1")))
+    return int(rank), int(world)

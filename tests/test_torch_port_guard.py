@@ -866,3 +866,19 @@ class TestFailSilentChaosSites:
         ts, _ = step(ts, _batch(rng))
         assert ts.params["w"] is live
         assert chaos.fired == {"param.corrupt": 1}
+
+
+# ---- the silent soak (A13c) -----------------------------------------------
+
+
+def test_silent_soak_scenario():
+    """The twin of tests/test_guard.py::test_silent_soak_scenario on the
+    port's soak: three guarded replicas under grad.nan (skipped on every
+    rank together) and grad.bitflip (localized to the victim by the audit,
+    resynced, reported to the driver), no corrupted checkpoint, finals bit
+    for bit the fault-free run's."""
+    from horovod_tpu_torch.tools import chaos_soak as soak
+
+    res = soak.run_scenario("silent", steps=6, timeout=150.0)
+    problems = soak.check_invariants(res, steps=6)
+    assert not problems, problems

@@ -443,3 +443,20 @@ def test_quantized_allgather_matches_the_reference(port_world, jax_world,
     for rank in range(WORLD):
         _close(port_world[rank][name][leg], want)
     _ranks_agree([port_world[r][name][leg] for r in range(WORLD)])
+
+
+# ---- the quant soak (A13c) -------------------------------------------------
+
+
+def test_chaos_crash_restore_preserves_ef_state():
+    """The twin of tests/test_quantization.py::
+    test_chaos_crash_restore_preserves_ef_state on the port's soak: int8
+    and error-feedback training through the elastic launcher is crashed
+    mid-run; the respawn restores the whole TrainState, EF residuals
+    included (non-zero at the restore), and ends on the fault-free run's
+    final parameters bit for bit."""
+    from horovod_tpu_torch.tools import chaos_soak
+
+    res = chaos_soak.run_scenario("quant", steps=5, timeout=120)
+    problems = chaos_soak.check_invariants(res, steps=5)
+    assert not problems, problems

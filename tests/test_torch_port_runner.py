@@ -14,8 +14,8 @@ the two-host world is a gloo world bootstrapped over the KV (the
 reference's twin forms its native world); ``run`` ships module-level
 functions with the standard library's pickle and refuses a closure;
 ``--check-build`` reports torch, the card toolchain and the
-``torch.distributed`` backends; ``--autotune`` and ``--timeline-*`` raise
-(A14).
+``torch.distributed`` backends; ``--timeline-*`` map to the timeline's
+knobs and ``--autotune`` raises (A14b).
 """
 
 import json
@@ -350,10 +350,16 @@ def test_cli_parser_flags_to_env():
     assert env["HVDTPU_CYCLE_TIME"] == "2.5"
     assert env["HVDTPU_STALL_CHECK_DISABLE"] == "1"
     assert args.command[1:] == ["python", "train.py"]
-    for flags in (["--timeline-filename", "/tmp/t.json"], ["--autotune"],
-                  ["--timeline-mark-cycles"], ["--autotune-log-file", "a"]):
+    # The timeline flags map to the timeline's knobs, as in the JAX
+    # package; the autotuner's still raise, naming its slice.
+    args = build_parser().parse_args(
+        ["--timeline-filename", "/tmp/t.json", "--timeline-mark-cycles", "x"])
+    env = _args_to_env(args)
+    assert env["HVDTPU_TIMELINE"] == "/tmp/t.json"
+    assert env["HVDTPU_TIMELINE_MARK_CYCLES"] == "1"
+    for flags in (["--autotune"], ["--autotune-log-file", "a"]):
         args = build_parser().parse_args(flags + ["x"])
-        with pytest.raises(NotImplementedError, match="A14"):
+        with pytest.raises(NotImplementedError, match="A14b"):
             _args_to_env(args)
 
 

@@ -13,6 +13,7 @@ mid-sequence. A message written by either package's coordinator is read
 by the other's worker loop: the schema is shared.
 """
 
+import json
 import os
 import tempfile
 import threading
@@ -86,6 +87,105 @@ class TestKVTransport:
             coord.stop(shutdown_workers=True)
             for t in threads:
                 t.join(timeout=5.0)
+            server.stop()
+
+
+# ---- C12: a respawned worker serves only the leases addressed to it ----------
+
+
+def _stale_then_respawn(coordinator_mod, request_timeout=0.5):
+    """A dead incarnation of hostA announced itself and was leased two
+    batches it never answered; the driver retired its announcement (what
+    the elastic driver does when it reaps or blacklists a host); then the
+    respawn starts. Returns the dispatcher, the respawn's served lease ids,
+    the lease ids written to the dead incarnation, and the ids of every
+    lease message in hostA's scope."""
+    server = RendezvousServer()
+    server.start()
+    client = RendezvousClient("127.0.0.1", server.port)
+    d = Dispatcher(batch_size=4, batch_timeout_ms=5.0,
+                   request_timeout_secs=request_timeout, max_attempts=10)
+    coord = coordinator_mod.KVServeCoordinator(server, d,
+                                               poll_secs=0.02).start()
+    served = []
+    thread = None
+    try:
+        server.put(skv.SCOPE_CTL, "ready/hostA", repr(time.time()).encode())
+        futs = [d.submit(np.full(3, float(i), np.float32))
+                for i in range(8)]
+        deadline = time.time() + 20.0
+        while (len(server.scope_items(skv.scope_in("hostA"))) < 2
+               and time.time() < deadline):
+            time.sleep(0.01)
+
+        def lease_ids():
+            return {json.loads(raw)["lease"] for raw in
+                    server.scope_items(skv.scope_in("hostA")).values()}
+
+        stale = lease_ids()
+        assert len(stale) == 2, stale
+        server.delete(skv.SCOPE_CTL, "ready/hostA")
+        thread = threading.Thread(
+            target=skv.kv_worker_serve_loop, args=(lambda b: b * 2.0,),
+            kwargs=dict(client=client, host_id="hostA", poll_secs=0.02,
+                        device="cpu",
+                        on_batch=lambda rec: served.append(rec.get("lease"))),
+            daemon=True)
+        thread.start()
+        for i, f in enumerate(futs):
+            got = np.asarray(f.result(timeout=30.0))
+            assert np.allclose(got, 2.0 * i), (i, got)
+        return d, served, stale, lease_ids()
+    finally:
+        coord.stop(shutdown_workers=True)
+        if thread is not None:
+            thread.join(timeout=5.0)
+        server.stop()
+
+
+class TestStaleLeases:
+    """ROADMAP C12: a respawned KV serving worker used to replay every
+    lease ever written to its scope, the dead incarnation's included."""
+
+    def test_respawn_serves_only_leases_addressed_to_it(self):
+        d, served, stale, all_leases = _stale_then_respawn(skv)
+        assert d.n_resolved == 8
+        # The dead incarnation's two leases re-queued through the lease
+        # timeout, and the respawn answered them under new leases.
+        assert d.n_requeued >= 8
+        assert not set(served) & stale, (served, stale)
+        assert len(served) == len(all_leases - stale), (served, all_leases)
+
+    def test_worker_answers_the_reference_coordinator(self):
+        """The JAX package's coordinator sends no ready stamp: the port's
+        worker serves its messages as before the repair (it replays the
+        stale ones too, the fault the reference keeps)."""
+        d, served, stale, all_leases = _stale_then_respawn(jskv)
+        assert d.n_resolved == 8
+        assert set(served) == all_leases
+
+    def test_driver_retires_a_reaped_hosts_announcement(self):
+        """``ElasticJob._blacklist`` (and the reaping of an exit) deletes
+        ``serve_ctl/ready/<host>``; other hosts keep theirs."""
+        from types import SimpleNamespace
+
+        from horovod_tpu_torch.runner import elastic_driver as ed
+
+        server = RendezvousServer()
+        server.start()
+        try:
+            for h in ("hostA", "hostB"):
+                server.put(skv.SCOPE_CTL, f"ready/{h}", b"1.0")
+            job = ed.ElasticJob.__new__(ed.ElasticJob)
+            job.server = server
+            job._ordered = ["hostA", "hostB"]
+            hm = ed.HostManager(ed.FixedHosts({"hostA": 1, "hostB": 1}))
+            job.driver = SimpleNamespace(host_manager=hm)
+            job._blacklist("hostA")
+            assert sorted(server.scope_items(skv.SCOPE_CTL)) == [
+                "ready/hostB"]
+            assert job._ordered == ["hostB"]
+        finally:
             server.stop()
 
 
