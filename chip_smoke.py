@@ -499,14 +499,56 @@ Phases (any failure exits non-zero; nothing is caught):
    the respawn's first step in it, the driver's goodput conserving with
    rescale_downtime > 0; the time to recover split as [elastic-recover]
    splits it, beside the ledger's categories.
-34. Output: a "kernels" JSON line (the nine TPU kernels' counterparts and
+34. [autotune] GPT-2 small (fp32 masters, bf16 compute, 8 x 1025 tokens,
+   replicated unfused adamw(1e-4), one-rank NCCL) under make_train_step(
+   autotune=AutotuneConfig(window 5, warmup 2, 6 trials, patience 3, seed
+   0)): the local search over the fusion threshold (1-512 MiB) run to
+   convergence, a line a trial (vector, buckets built, score, retraces);
+   every loss finite and falling, 12/12/12 flash launches a step, each
+   step's bucket count the one its threshold gives, the autotune.* gauges
+   and counters the client's own; then an untuned run of as many steps
+   from the same start, bit for bit (else [train]'s bound, n steps of it,
+   the reason printed); the default and tuned vectors' step medians (no
+   limit).
+35. [serve-autotune] [serve]'s model (GPT-2 small bf16) in a ServePool of
+   2 workers, batch 8, with a QueueDepthPolicy and autotune=AutotuneConfig(
+   window 2, warmup 1, 4 trials): rounds of 64 1024-token requests until 3
+   trials closed; every trial's vector equal to the dispatcher's fill
+   window and the policy's watermarks after it flipped; 12 flash launches
+   a batch; the answers those of an untuned pool bit for bit (else
+   [serve]'s bound, the reason printed).
+36. [stream] CacheLM at [decode]'s width as the trainer's flat dict,
+   ZeRO-1 fused_adamw(1e-4) through make_train_step(publish=2) into an
+   in-process RendezvousServer, the teacher-forced loss through
+   CacheLM.extend over an empty cache, 8 x 128 tokens, 10 steps, chaos
+   publish.delta:torn@step=4;n=1; an int8-KV DecodeEngine (2 workers of 4
+   rows) attached to a StreamSubscriber decodes 8 streams meanwhile; then
+   a stale-epoch manifest: no torn version served, every worker's version
+   log a subsequence of the engine's, the torn set and the stale epoch
+   each rejected once, the engine's parameters bit for bit the last
+   published ones, 1 fused AdamW a bucket a step, 2 quantizes + 2
+   dequantizes an extend, 8 streams decoded after the last flip token for
+   token a fresh engine's on those parameters (a near-tie only where the
+   int8-KV logits' top-2 margin is below DECODE_MARGIN); a second
+   subscriber (weight_dtype="int8", apply=) re-quantizing only the changed
+   buckets through kernel 4, bit for bit quantize_params on the CPU; the
+   publish, apply and staleness times and the step with publish=2 against
+   publish=0, alternated (no limit).
+37. [profile-step] ``python -m horovod_tpu_torch.tools.profile_step``
+   --model bert (32 x 512) and --model resnet50 (128 x 224 x 224 bf16, SGD
+   momentum 0.9), each its own process: exit 0, the category rollup and
+   the idle share and the scopes (BERT's decoder and loss, ResNet-50's
+   BatchNorm, forward and backward) printed, the categories summing to
+   within 1% of the device time linked to the operators that launched it,
+   BERT's window 12/12/12 flash launches a step.
+38. Output: a "kernels" JSON line (the nine TPU kernels' counterparts and
    the cast kernel; "launches" is the training run's count -- for the
    quantize pair the int8 [train-quant] run's (beside it the
    [ckpt-reshard] and int8 [decode] runs' and the KV shapes' times as
    "kv_write" / "kv_gather"), for kernel 8 and the cast kernel the fp8
    [train-fp8] run's, for kernel 7 the [serve-int8] rounds' -- the forward
    kernel's serving count beside it as "launches_serve", and the flash
-   kernels', AdamW's and (from 22.) the quantize pair's counts in 18.-33.,
+   kernels', AdamW's and (from 22.) the quantize pair's counts in 18.-37.,
    each read over its own run, as "launches_phases" (29.-31. and 33.
    counted in the worker processes); the flash rows' ring
    times at n = 2, 4 and the whole sequence as "ring_flash_*"; the quantize pair's
@@ -641,6 +683,27 @@ GUARD_WARMUP, GUARD_TIMED = 3, 20
 # [decode-chaos]: [decode]'s model, 8 streams of 64 tokens over two workers
 # of 4 rows; the first worker to reach this round is killed.
 DECODE_CHAOS_STREAMS, DECODE_CHAOS_ROUND = 8, 20
+# [autotune]: the local search over GPT-2 small's fusion threshold (its
+# window, warmup, budget, patience and seed), a ceiling on its steps, and
+# the steps timed on the tuned vector after it.
+AUTOTUNE_CFG = dict(window_steps=5, warmup_steps=2, max_trials=6, patience=3,
+                    seed=0)
+AUTOTUNE_MAX_STEPS, AUTOTUNE_TIMED = 120, 5
+# [serve-autotune]: ServeLatencyScorer closes a trial on 8 x window_steps
+# responses after 8 x warmup_steps; rounds of SERVE_REQUESTS until this
+# many trials closed.
+AUTOTUNE_SERVE_CFG = dict(window_steps=2, warmup_steps=1, max_trials=4,
+                          patience=4, seed=0)
+AUTOTUNE_SERVE_MIN_TRIALS, AUTOTUNE_SERVE_MAX_ROUNDS = 3, 8
+# [stream]: the trainer (CacheLM at DECODE_CFG, batch x seq tokens, its
+# learning rate, publish cadence, steps), the torn publish, the engine's
+# rows a worker and the streams decoded after the last flip, and the steps
+# timed with and without publishing, alternated.
+STREAM_BATCH, STREAM_SEQ, STREAM_LR, STREAM_EVERY, STREAM_STEPS = (
+    8, 128, 1e-4, 2, 10)
+STREAM_TORN_STEP = 4
+STREAM_CHAOS = f"publish.delta:torn@step={STREAM_TORN_STEP};n=1"
+STREAM_ROWS, STREAM_STREAMS, STREAM_TIMED = 4, 8, 6
 
 
 def log(msg: str) -> None:
@@ -2988,19 +3051,19 @@ def recompute_check(model, params, prompts, outs):
     return allowed
 
 
-def spec_check(model, params, prompts, plain, spec):
-    """The speculative run's tokens against the non-speculative int8 run's:
-    at a stream's first difference, the int8-KV logits that decided it
-    (its prefix prefilled into an int8 pool, one decode step) must have a
-    top-2 margin below DECODE_MARGIN x max |logit|."""
+def first_divergence(tag, model, params, prompts, want, got):
+    """Streams of ``got`` that part from the reference run's ``want``: at
+    the first difference the int8-KV logits that decided it (the prefix
+    prefilled into an int8 pool, one decode step) must have a top-2 margin
+    below DECODE_MARGIN x max |logit|. Returns the near-ties."""
     from horovod_tpu_torch.serve import KVBlockPool
 
     allowed = []
-    for i, (a, b) in enumerate(zip(plain, spec)):
+    for i, (a, b) in enumerate(zip(want, got)):
         k = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
         if k is None:
             if len(a) != len(b):
-                raise AssertionError(f"[decode] stream {i} lengths differ")
+                raise AssertionError(f"[{tag}] stream {i} lengths differ")
             continue
         pool = KVBlockPool(-(-DECODE_MAX_SEQ // DECODE_BLOCK), DECODE_BLOCK,
                            n_layers=model.n_layers, n_heads=model.n_heads,
@@ -3013,11 +3076,11 @@ def spec_check(model, params, prompts, plain, spec):
         rel = margin.item() / amax.item()
         if rel >= DECODE_MARGIN:
             raise AssertionError(
-                f"[decode] stream {i}: speculative token {b[k]} at step {k} "
-                f"where the int8 run has {a[k]} (top-2 margin {rel:.3e})")
+                f"[{tag}] stream {i}: token {b[k]} at step {k} where the "
+                f"reference run has {a[k]} (top-2 margin {rel:.3e})")
         allowed.append([i, k, rel])
-        log(f"[decode] stream {i} step {k}: speculative and plain int8 runs "
-            f"part at a near-tie (top-2 margin {rel:.3e} of max |logit|)")
+        log(f"[{tag}] stream {i} step {k}: a near-tie (top-2 margin "
+            f"{rel:.3e} of max |logit|) decided otherwise")
     return allowed
 
 
@@ -3161,8 +3224,11 @@ def decode(hvt, tq):
     with torch.inference_mode():
         rec["recompute_near_ties"] = recompute_check(
             model, params, prompts[:4], fp32_outs[:4])
-        rec["spec_near_ties"] = spec_check(model, params, prompts, int8_outs,
-                                           spec_outs)
+        # The speculative run's tokens against the non-speculative int8
+        # run's.
+        rec["spec_near_ties"] = first_divergence("decode", model, params,
+                                                 prompts, int8_outs,
+                                                 spec_outs)
         pools = {kv: KVBlockPool(DECODE_KV_BLOCKS, DECODE_BLOCK,
                                  n_layers=cfg.n_layers, n_heads=cfg.n_heads,
                                  head_dim=cfg.head_dim, kv_dtype=kv,
@@ -6642,6 +6708,705 @@ def elastic_quant(hvt, n_quant_buckets):
     return rec
 
 
+# ---- the tuning and streaming planes: [autotune], [serve-autotune],
+# ---- [stream], [profile-step] -----------------------------------------------
+
+
+def autotune_phase(hvt, kernels):
+    """[autotune]: GPT-2 small, replicated unfused adamw(1e-4), under
+    make_train_step(autotune=AutotuneConfig(...)) on a one-rank NCCL world:
+    the local search over the fusion threshold to convergence, each trial's
+    vector, bucket count, score and retraces; then an untuned run of as
+    many steps from the same start, bit for bit."""
+    from horovod_tpu_torch import obs, tune
+    from horovod_tpu_torch.ops import batching, fusion
+    from horovod_tpu_torch.parallel import dp
+
+    fa, fadam, tq = kernels
+    t_phase = time.perf_counter()
+    card = card_line()
+    hvt.init(backend="nccl")
+    cfg = hvt.GPT2Config.small(param_dtype=torch.float32)
+    sd0 = hvt.convert.init_params(cfg, seed=0)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, cfg.max_len + 1),
+        dtype=np.int64)).cuda()
+    tcfg = tune.AutotuneConfig(**AUTOTUNE_CFG)
+    calls = [0]
+    orig = fusion.reduce_bucket
+
+    def spy(*a, **k):
+        calls[0] += 1
+        return orig(*a, **k)
+
+    def build(autotune):
+        model = hvt.GPT2LMModel(cfg)
+        model.load_state_dict(sd0)
+        step, opt = hvt.make_train_step(
+            train_loss(model), hvt.adamw(TRAIN_LR), sharded=False,
+            fused_update=False, autotune=autotune)
+        return model, step, dp.init_state(model, opt)
+
+    # A switch writes its knobs into the environment (that is how a
+    # rebuild reads them): put them back for the untuned run and every
+    # later phase.
+    env0 = {k: v for k, v in os.environ.items() if k.startswith("HVDTPU_")}
+    obs_reset()
+    obs.enable()
+    fusion.reduce_bucket = spy
+    try:
+        model, step, state = build(tcfg)
+        client = step.autotune
+        reset_counts(fa, fadam, tq)
+        per_step, losses, trials = [], [], {}
+        n = 0
+        while not client.done and n < AUTOTUNE_MAX_STEPS:
+            calls[0] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, tokens)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            n += 1
+            losses.append(float(loss))
+            trial = client.applied_trial
+            want = len(batching.pack_spec(state.params)[1].buckets)
+            per_step.append({"trial": trial, "ms": ms, "buckets": calls[0],
+                             "buckets_want": want})
+            trials.setdefault(trial, {"vector": dict(client.applied),
+                                      "buckets": calls[0],
+                                      "buckets_want": want, "ms": [],
+                                      "retraces": step._n_retraces})
+            trials[trial]["ms"].append(ms)
+        counts = read_counts(fa, fadam, tq)
+        search = client.source.search
+        snap = obs.metrics().snapshot()
+    finally:
+        fusion.reduce_bucket = orig
+        obs_reset()
+    hist = search.history()
+    for t, (vec, score) in enumerate(hist):
+        rec = trials.get(t, {})
+        log(f"[autotune] trial {t}: {vec}, {rec.get('buckets')} buckets "
+            f"(its threshold gives {rec.get('buckets_want')}), score "
+            f"{score:.4f} (-mean step ms of the window), step median "
+            f"{np.median(rec.get('ms', [float('nan')])):.3f} ms on {card}; "
+            f"retraces before it {rec.get('retraces')}")
+    if not client.done:
+        raise AssertionError(f"[autotune] no convergence in {n} steps")
+    best = client.best
+    log(f"[autotune] converged after {search.n_trials} trials, {n} steps: "
+        f"best {best} (score {search.best_score:.4f}); retraces "
+        f"{step._n_retraces}; switches {len(client.switch_log)}")
+    # The tuned vector timed beside the default (trial 0), after the search.
+    tuned_ms = []
+    for _ in range(AUTOTUNE_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, tokens)
+        torch.cuda.synchronize()
+        tuned_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        n += 1
+    check_counts("autotune", {k: v for k, v in counts.items()
+                              if k.startswith("flash")},
+                 {k: cfg.n_layers for k in ("flash_fwd", "flash_bwd_dkdv",
+                                            "flash_bwd_dq")},
+                 n - AUTOTUNE_TIMED)
+    check_falling("autotune", losses)
+    bad = [s for s in per_step if s["buckets"] != s["buckets_want"]]
+    if bad:
+        raise AssertionError(f"[autotune] steps whose bucket count is not "
+                             f"their threshold's: {bad[:4]}")
+    gauges, counters = snap["gauges"], snap["counters"]
+    want_counters = {"autotune.trials": search.n_trials,
+                     "autotune.switches": len(client.switch_log),
+                     "autotune.retraces": step._n_retraces}
+    got_counters = {k: counters.get(k, 0) for k in want_counters}
+    if got_counters != want_counters or gauges.get(
+            "autotune.converged") != 1.0 or gauges.get(
+            "autotune.best_score") != search.best_score or gauges.get(
+            "autotune.trial") != float(client.applied_trial):
+        raise AssertionError(f"[autotune] registry {got_counters}, gauges "
+                             f"{gauges} vs the client's {want_counters}")
+    tuned = {k: v.detach().cpu() for k, v in state.params.items()}
+    retraces = step._n_retraces
+    for k in [k for k in os.environ if k.startswith("HVDTPU_")]:
+        if k not in env0:
+            del os.environ[k]
+    os.environ.update(env0)
+    hvt.shutdown()
+    del model, step, state
+    torch.cuda.empty_cache()
+    # The untuned run, as many steps from the same start.
+    hvt.init(backend="nccl")
+    model, step_u, state_u = build(False)
+    for _ in range(n):
+        state_u, _ = step_u(state_u, tokens)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(tuned[k], v.detach().cpu())
+                  for k, v in state_u.params.items())
+    excess = None
+    if not bitwise:
+        # [train]'s one-step bound, n steps of it.
+        excess = max(float(((tuned[k] - v.detach().cpu()).abs()
+                            - n * (2 * TRAIN_LR * (1 + 1e-4 * v.detach(
+                                ).cpu().abs()) + 1e-6)).max())
+                     for k, v in state_u.params.items())
+        log(f"[autotune] tuned and untuned parameters differ (largest "
+            f"excess over n x 2 lr: {excess:.3e}): the reduction's bucket "
+            f"layout changed a sum's order")
+        if excess > 0:
+            raise AssertionError("[autotune] the tuned run left [train]'s "
+                                 "bound")
+    hvt.shutdown()
+    del model, step_u, state_u, tuned
+    torch.cuda.empty_cache()
+    default_ms = float(np.median(trials[0]["ms"]))
+    tuned_med = float(np.median(tuned_ms))
+    rec = {"config": AUTOTUNE_CFG, "steps": n, "trials": [
+        {"vector": v, "score": s, "buckets": trials.get(t, {}).get("buckets"),
+         "step_ms_median": float(np.median(trials.get(t, {}).get(
+             "ms", [float("nan")])))} for t, (v, s) in enumerate(hist)],
+        "best": best, "retraces": retraces,
+        "launches": counts, "default_step_ms": default_ms,
+        "tuned_step_ms": tuned_med, "bitwise_untuned": bitwise,
+        "excess": excess, "losses": losses, "card": card}
+    log(f"[autotune] step median, default vector {default_ms:.3f} ms, tuned "
+        f"{tuned_med:.3f} ms ({AUTOTUNE_TIMED} steps after the search) on "
+        f"{card}; parameters after {n} steps bit for bit the untuned run's: "
+        f"{bitwise}; launches {counts}; losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
+def serve_autotune(hvt, fa):
+    """[serve-autotune]: [serve]'s model (GPT-2 small, bf16) in a ServePool
+    of 2 workers, batch 8, with autotune=...: 1024-token requests until
+    ServeLatencyScorer has closed AUTOTUNE_SERVE_MIN_TRIALS trials; the
+    dispatcher's fill window and the policy's watermarks flipped in place
+    to each trial's vector; the answers those of an untuned pool."""
+    from horovod_tpu_torch import tune
+    from horovod_tpu_torch.serve import QueueDepthPolicy, ServePool
+    from horovod_tpu_torch.tune import serve as tserve
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    cfg = hvt.GPT2Config.small()
+    model = hvt.GPT2LMModel(cfg, device="cuda")
+    model.load_state_dict(hvt.convert.init_params(cfg, seed=0))
+    tokens = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (SERVE_REQUESTS, cfg.max_len), dtype=np.int64)
+
+    def infer(m, t):
+        return m(t)[:, -1, :]
+
+    applied = []
+    orig_apply = tserve.ServeTuner._apply
+
+    def spy_apply(self, vector):
+        orig_apply(self, vector)
+        d, p = self.pool.dispatcher, self.pool.policy
+        applied.append({"vector": dict(vector),
+                        "timeout_ms": d.batch_timeout_ms,
+                        "high": p.high, "low": p.low})
+
+    def run(autotune):
+        pool = ServePool(infer, model, workers=2, batch_size=SERVE_BATCH,
+                         batch_timeout_ms=5.0, request_timeout_secs=600.0,
+                         policy=QueueDepthPolicy(), device="cuda",
+                         autotune=autotune).start()
+        answers, rounds = [], 0
+        try:
+            with torch.inference_mode():
+                infer(model, torch.from_numpy(tokens[:SERVE_BATCH]).cuda())
+            torch.cuda.synchronize()
+            fa.reset_launches()
+            b0 = pool.dispatcher.n_batches
+            t0 = time.perf_counter()
+            while True:
+                futs = [pool.submit(torch.from_numpy(t)) for t in tokens]
+                got = [f.result(timeout=600.0) for f in futs]
+                answers = answers or got
+                rounds += 1
+                if autotune is False or rounds >= AUTOTUNE_SERVE_MAX_ROUNDS:
+                    break
+                if (pool.tuner.done or pool.tuner.search.n_trials
+                        >= AUTOTUNE_SERVE_MIN_TRIALS):
+                    break
+            wall = time.perf_counter() - t0
+            launches, batches = fa.launches, pool.dispatcher.n_batches - b0
+            tuner = pool.tuner
+        finally:
+            pool.stop()
+        return {"answers": answers, "rounds": rounds, "wall_s": wall,
+                "launches": launches, "batches": batches, "tuner": tuner}
+
+    tserve.ServeTuner._apply = spy_apply
+    try:
+        tuned = run(tune.AutotuneConfig(**AUTOTUNE_SERVE_CFG))
+    finally:
+        tserve.ServeTuner._apply = orig_apply
+        obs_reset()
+    plain = run(False)
+    search = tuned["tuner"].search
+    for a in applied:
+        v = a["vector"]
+        if (a["timeout_ms"] != v["SERVE_BATCH_TIMEOUT_MS"]
+                or a["high"] != v["SERVE_QUEUE_HIGH"]
+                or a["low"] != v["SERVE_QUEUE_LOW"]):
+            raise AssertionError(f"[serve-autotune] a trial's vector is not "
+                                 f"the pool's: {a}")
+    for t, (v, s) in enumerate(search.history()):
+        log(f"[serve-autotune] trial {t}: {v}, score {s:.3f} (-p95 request "
+            f"ms) on {card}")
+    if search.n_trials < AUTOTUNE_SERVE_MIN_TRIALS:
+        raise AssertionError(f"[serve-autotune] {search.n_trials} trials "
+                             "closed")
+    if tuned["launches"] != cfg.n_layers * tuned["batches"]:
+        raise AssertionError(f"[serve-autotune] {tuned['launches']} flash "
+                             f"launches in {tuned['batches']} batches")
+    got = torch.stack(tuned["answers"])
+    ref = torch.stack(plain["answers"])
+    bitwise = torch.equal(got, ref)
+    if not bitwise:
+        err = (got - ref).abs().max().item()
+        bound = 0.05 * ref.abs().max().item()
+        top2 = ref.topk(2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > bound
+        same = got.argmax(-1) == ref.argmax(-1)
+        log(f"[serve-autotune] answers differ from the untuned pool's "
+            f"(max |d| {err:.4e}, bound {bound:.4e}; argmax equal on "
+            f"{int(same.sum())}/{len(same)}): another batch composition")
+        if err > bound or not bool(same[decided].all()):
+            raise AssertionError("[serve-autotune] answers disagree")
+    rec = {"config": AUTOTUNE_SERVE_CFG, "trials": [
+        {"vector": v, "score": s} for v, s in search.history()],
+        "applied": applied, "done": tuned["tuner"].done,
+        "rounds": tuned["rounds"], "batches": tuned["batches"],
+        "launches": {"flash_fwd": tuned["launches"]},
+        "answers_bitwise_untuned": bitwise,
+        "wall_s": tuned["wall_s"], "untuned_wall_s": plain["wall_s"],
+        "card": card}
+    log(f"[serve-autotune] {tuned['rounds']} rounds of {SERVE_REQUESTS} "
+        f"requests, {tuned['batches']} batches, {search.n_trials} trials "
+        f"closed (done {tuned['tuner'].done}), {len(applied)} vectors "
+        f"applied in place; answers bit for bit the untuned pool's: "
+        f"{bitwise}; wall {tuned['wall_s']:.2f} s vs untuned "
+        f"{plain['wall_s']:.2f} s for {plain['rounds']} round(s) on {card}")
+    del model
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
+def stream_loss(model, pool):
+    """Teacher-forced next-token cross entropy through ``model.extend``
+    over an empty cache (every row's window is its whole context), on the
+    nested tree of the trainer's flat parameter dict."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.stream import as_tree
+
+    def loss_fn(params, toks):
+        r = toks.shape[0]
+        zeros = torch.zeros((r,), dtype=torch.int32, device=toks.device)
+        scratch = torch.full((r, 1), pool.n_blocks, dtype=torch.int64,
+                             device=toks.device)
+        logits, _, _ = model.extend(as_tree(params), toks[:, :-1], zeros,
+                                    scratch, zeros, *pool.device_args())
+        return F.cross_entropy(logits.flatten(0, 1).float(),
+                               toks[:, 1:].flatten())
+
+    return loss_fn
+
+
+def stream_phase(hvt, kernels):
+    """[stream]: a ZeRO-1 fused trainer of CacheLM at [decode]'s width
+    publishing every STREAM_EVERY steps through an in-process
+    RendezvousServer into a StreamSubscriber that flips an int8-KV
+    DecodeEngine (2 workers) while it decodes; publish.delta:torn once,
+    a stale-epoch manifest after; then the int8 subscriber's
+    re-quantization through kernel 4."""
+    from horovod_tpu_torch import chaos
+    from horovod_tpu_torch.ops import batching
+    from horovod_tpu_torch.parallel import dp
+    from horovod_tpu_torch.runner.http_server import RendezvousServer
+    from horovod_tpu_torch.serve import (CacheLM, CacheLMConfig, DecodeEngine,
+                                         KVBlockPool)
+    from horovod_tpu_torch.stream import StreamSubscriber, as_tree
+    from horovod_tpu_torch.stream import protocol as sproto
+
+    fa, fadam, tq = kernels
+    t_phase = time.perf_counter()
+    card = card_line()
+    hvt.init(backend="nccl")
+    cfg = CacheLMConfig(**DECODE_CFG)
+    model = CacheLM(cfg, block_size=DECODE_BLOCK)
+    nested0 = model.init_params(0)
+    # The trainer's own copies: it updates them in place, and the engine
+    # serves nested0 until the first flip.
+    flat = {"emb": nested0["emb"].clone(), "pos": nested0["pos"].clone()}
+    for i, layer in enumerate(nested0["layers"]):
+        for k, v in layer.items():
+            flat[f"layers.{i}.{k}"] = v.clone()
+    train_pool = KVBlockPool(1, DECODE_BLOCK, n_layers=cfg.n_layers,
+                             n_heads=cfg.n_heads, head_dim=cfg.head_dim,
+                             device="cuda")
+    rng = np.random.default_rng(7)
+    batch = torch.from_numpy(rng.integers(
+        1, cfg.vocab, (STREAM_BATCH, STREAM_SEQ + 1))).cuda()
+    loss_fn = stream_loss(model, train_pool)
+
+    def build(publish, params):
+        step, opt = hvt.make_train_step(
+            loss_fn, hvt.fused_adamw(STREAM_LR), sharded=True,
+            fused_update=True, publish=publish)
+        return step, dp.init_state(params, opt)
+
+    server = RendezvousServer(host="127.0.0.1")
+    server.start()
+    step, state = build(STREAM_EVERY, flat)
+    pub = step.stream_publisher
+    pub.kv = server
+    counting = CountingModel(model)
+    eng = DecodeEngine(counting, nested0, workers=2, rows=STREAM_ROWS,
+                       kv_blocks=DECODE_KV_BLOCKS, kv_block_size=DECODE_BLOCK,
+                       max_seq_len=DECODE_MAX_SEQ, kv_dtype="int8",
+                       device="cuda").start()
+    sub = StreamSubscriber(eng, kv=server, staleness_secs=1e9)
+    eng.attach_stream(sub)
+    prompts = [rng.integers(1, cfg.vocab, size=int(rng.integers(
+        DECODE_PROMPT[0], DECODE_PROMPT[1] + 1))).tolist()
+        for _ in range(STREAM_STREAMS)]
+    # The steps captured, and the trainer's parameters at the last one.
+    published, last_params = [], {}
+    publish_t, apply_ms, staleness, publish_ms = {}, [], [], []
+    orig_maybe = pub.maybe_publish
+
+    def timed_maybe(params, s):
+        t0 = time.perf_counter()
+        v = orig_maybe(params, s)
+        if s % STREAM_EVERY == 0:
+            publish_ms.append((time.perf_counter() - t0) * 1e3)
+            published.append(s)
+            last_params.clear()
+            last_params.update({k: p.detach().clone()
+                                for k, p in params.items()})
+        if v is not None:
+            publish_t[v] = time.perf_counter()
+        return v
+
+    pub.maybe_publish = timed_maybe
+    stop_poll = threading.Event()
+
+    def poll_loop():
+        while not stop_poll.is_set():
+            t0 = time.perf_counter()
+            v = sub.poll_once()
+            if v is not None:
+                t1 = time.perf_counter()
+                apply_ms.append((t1 - t0) * 1e3)
+                staleness.append((t1 - publish_t.get(v, t1)) * 1e3)
+            stop_poll.wait(0.01)
+
+    poller = threading.Thread(target=poll_loop, name="stream-poll")
+    chaos._reset_for_tests()
+    chaos.plan(STREAM_CHAOS, seed=0)
+    reset_counts(fa, fadam, tq)
+    counting.calls = 0
+    poller.start()
+    losses, during = [], []
+    try:
+        futs = [eng.submit(p, DECODE_NEW) for p in prompts[:STREAM_ROWS * 2]]
+        for i in range(STREAM_STEPS):
+            state, loss = step(state, batch)
+            losses.append(float(loss))
+        torch.cuda.synchronize()
+        for f in futs:
+            during.append(list(f.result(timeout=600.0)))
+        last = published[-1]
+        deadline = time.time() + 60.0
+        while eng.stream_version != last and time.time() < deadline:
+            time.sleep(0.01)
+        n_steps = STREAM_STEPS
+        train_counts = {"fused_adamw": fadam.launches}
+        n_extend, q_counts = counting.calls, {
+            "quantize_blockwise": tq.launches_quant,
+            "dequantize_blockwise": tq.launches_dequant}
+        # Streams decoded wholly after the last flip.
+        after = [list(f.result(timeout=600.0)) for f in
+                 [eng.submit(p, DECODE_NEW) for p in prompts]]
+        # A dead trainer's late write: a lower epoch than any seen.
+        server.put("stream", sproto.HEAD_KEY, sproto.frame_manifest(
+            version=last + 7, epoch=-1, step=last + 7, layout={},
+            buckets=[]))
+        deadline = time.time() + 10.0
+        while sub.n_epoch_rejected < 1 and time.time() < deadline:
+            time.sleep(0.01)
+    finally:
+        stop_poll.set()
+        poller.join(timeout=10.0)
+        chaos.clear()
+        chaos._reset_for_tests()
+    with eng._cond:
+        version_log = list(eng.stream_version_log)
+        worker_logs = {n: list(w.version_log)
+                       for n, w in eng._workers.items()}
+        served = eng.params
+    eng.stop()
+    n_buckets_z = n_buckets(state)
+    log(f"[stream] CacheLM {DECODE_CFG} as a flat dict of "
+        f"{len(flat)} leaves, ZeRO-1 fused_adamw({STREAM_LR}) over "
+        f"{n_buckets_z} buckets, {STREAM_BATCH} x {STREAM_SEQ} tokens, "
+        f"publish={STREAM_EVERY}, chaos {STREAM_CHAOS}; losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    log(f"[stream] published {published}, engine version log "
+        f"{version_log}, worker logs {worker_logs}; torn rejected "
+        f"{sub.n_torn}, stale epoch rejected {sub.n_epoch_rejected}; "
+        f"applied {sub.applied_log}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[stream] non-finite loss: {losses}")
+    torn = [v for v in version_log
+            if v not in {int(a) for a, _ in sub.applied_log}]
+    if torn or STREAM_TORN_STEP in version_log:
+        raise AssertionError(f"[stream] a torn version was served: "
+                             f"{version_log}")
+    for name, wl in worker_logs.items():
+        it = iter(version_log)
+        if not all(v in it for v in wl):
+            raise AssertionError(f"[stream] worker {name}'s versions {wl} "
+                                 f"are not a subsequence of {version_log}")
+    if sub.n_torn != 1 or sub.n_epoch_rejected != 1:
+        raise AssertionError(f"[stream] torn {sub.n_torn}, stale epoch "
+                             f"{sub.n_epoch_rejected}: each once wanted")
+    if version_log[-1] != last:
+        raise AssertionError(f"[stream] last flip {version_log[-1]}, last "
+                             f"publish {last}")
+    want_tree = as_tree(last_params)
+    got_leaves = batching.tree_flatten(served)[0]
+    want_leaves = batching.tree_flatten(want_tree)[0]
+    if not all(torch.equal(a, b) for a, b in zip(got_leaves, want_leaves)):
+        raise AssertionError("[stream] the engine's parameters are not the "
+                             "trainer's last published ones")
+    check_counts("stream", train_counts, {"fused_adamw": n_buckets_z},
+                 n_steps)
+    if not (q_counts["quantize_blockwise"] == q_counts[
+            "dequantize_blockwise"] == 2 * n_extend) or n_extend == 0:
+        raise AssertionError(f"[stream] {q_counts} over {n_extend} extend "
+                             "calls, not 2 + 2 each")
+    # The streams decoded after the last flip, against a fresh engine on
+    # the last published parameters.
+    fresh = DecodeEngine(model, want_tree, workers=2, rows=STREAM_ROWS,
+                         kv_blocks=DECODE_KV_BLOCKS,
+                         kv_block_size=DECODE_BLOCK,
+                         max_seq_len=DECODE_MAX_SEQ, kv_dtype="int8",
+                         device="cuda").start()
+    try:
+        ref = [list(f.result(timeout=600.0)) for f in
+               [fresh.submit(p, DECODE_NEW) for p in prompts]]
+    finally:
+        fresh.stop()
+    with torch.inference_mode():
+        near = first_divergence("stream", model, want_tree, prompts, ref,
+                                after)
+    # The int8 subscriber: only the changed buckets re-quantize (kernel 4
+    # at block = K), bit for bit the plain version.
+    q_rec = stream_int8_subscriber(hvt, tq, server, nested0, state, step,
+                                   batch)
+    # The step with publish against without, alternated.
+    step0, state0 = build(0, {k: v.detach().clone()
+                              for k, v in state.params.items()})
+    t_pub, t_off = [], []
+    for _ in range(STREAM_TIMED):
+        for stp, times, which in ((step, t_pub, 0), (step0, t_off, 1)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if which == 0:
+                state, _ = stp(state, batch)
+            else:
+                state0, _ = stp(state0, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    server.stop()
+    hvt.shutdown()
+    rec = {"config": {"model": DECODE_CFG, "batch": STREAM_BATCH,
+                      "seq": STREAM_SEQ, "publish": STREAM_EVERY,
+                      "steps": STREAM_STEPS, "chaos": STREAM_CHAOS,
+                      "rows": STREAM_ROWS, "streams": STREAM_STREAMS},
+           "published": published, "version_log": version_log,
+           "worker_logs": worker_logs, "torn_rejected": sub.n_torn,
+           "epoch_rejected": sub.n_epoch_rejected,
+           "launches": {**train_counts, **q_counts, "extend_calls": n_extend},
+           "near_ties": near, "int8_subscriber": q_rec,
+           "publish_ms": publish_ms, "apply_ms": apply_ms,
+           "staleness_ms": staleness,
+           "step_ms_publish": float(np.median(t_pub)),
+           "step_ms_no_publish": float(np.median(t_off)),
+           "step_ms_publish_all": t_pub, "step_ms_no_publish_all": t_off,
+           "losses": losses, "card": card}
+    log(f"[stream] on {card}: publish (capture: pack + host copy; CRC, "
+        f"frame, KV put) median {np.median(publish_ms):.2f} ms over "
+        f"{len(publish_ms)}; apply (stage, CRC-verify, unpack, flip) median "
+        f"{np.median(apply_ms):.2f} ms over {len(apply_ms)}; staleness "
+        f"(publish returned -> flip) median {np.median(staleness):.2f} ms; "
+        f"step with publish={STREAM_EVERY} {rec['step_ms_publish']:.2f} ms "
+        f"vs publish=0 {rec['step_ms_no_publish']:.2f} ms (medians of "
+        f"{STREAM_TIMED}, alternated); launches {rec['launches']}; the "
+        f"{STREAM_STREAMS} streams after the last flip equal a fresh "
+        f"engine's (near-ties {near})")
+    del step, state, step0, state0, served, last_params, want_tree
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
+def stream_int8_subscriber(hvt, tq, server, nested0, state, step, batch):
+    """A second subscriber, weight_dtype="int8" with an apply= callback, on
+    the server's stream: the next two versions re-quantize only the
+    buckets whose bytes changed (kernel 4), bit for bit quantize_params of
+    the same leaves on the CPU (the plain version)."""
+    from horovod_tpu_torch.ops import batching
+    from horovod_tpu_torch.stream import StreamSubscriber, as_tree
+
+    applied = []
+    sub = StreamSubscriber(None, template_params=nested0, kv=server,
+                           staleness_secs=1e9, weight_dtype="int8",
+                           apply=lambda tree, v: applied.append((v, tree)))
+    quant_calls = []
+    real = tq.quantize_params
+
+    def spy(tree, *a, **k):
+        quant_calls.append(1)
+        return real(tree, *a, **k)
+
+    tq.quantize_params = spy
+    rec = {"versions": [], "requantized": [], "launches": []}
+    pub = step.stream_publisher
+    # The server's head is the stale manifest by now: two fresh versions,
+    # the second with only the position embeddings moved (only the
+    # buckets that hold them change).
+    v = int(state.step) + 1
+    v += (-v) % pub.publish_every
+    try:
+        for k, bump in enumerate((0.0, 1e-3)):
+            with torch.no_grad():
+                state.params["pos"].add_(bump)
+            n_before = len(quant_calls)
+            tq.reset_launches()
+            pub.maybe_publish(state.params, v + k * pub.publish_every)
+            got_v = sub.poll_once()
+            if got_v != v + k * pub.publish_every:
+                raise AssertionError(f"[stream] the int8 subscriber applied "
+                                     f"{got_v}")
+            rec["versions"].append(got_v)
+            rec["requantized"].append(len(quant_calls) - n_before)
+            rec["launches"].append(tq.launches_quant)
+    finally:
+        tq.quantize_params = real
+    tree = applied[-1][1]
+    leaves = batching.tree_flatten(tree)[0]
+    cpu = batching.tree_flatten(batching.tree_map(
+        lambda t: t.detach().cpu(), as_tree(state.params)))[0]
+    bitwise = True
+    n_q = 0
+    for got, leaf in zip(leaves, cpu):
+        want = real(leaf)
+        if hasattr(got, "q"):
+            n_q += 1
+            bitwise &= torch.equal(got.q.cpu(), want.q) and torch.equal(
+                got.scales.cpu(), want.scales)
+        else:
+            bitwise &= torch.equal(got.cpu(), want)
+    _, spec = batching.pack_spec(nested0)
+    rec.update({"bitwise_plain": bitwise, "quantized_leaves": n_q,
+                "buckets": len(spec.buckets)})
+    log(f"[stream] int8 subscriber: versions {rec['versions']}, leaves "
+        f"re-quantized {rec['requantized']} (of {len(leaves)}; {n_q} int8), "
+        f"kernel-4 launches {rec['launches']}; bit for bit "
+        f"the plain version: {bitwise}")
+    # Kernel 4 runs once for each int8 leaf (2-D, >= 4096 elements) of a
+    # re-quantized bucket: every one of them for the first version.
+    if not bitwise or not 0 < rec["requantized"][1] < rec["requantized"][0] \
+            or rec["launches"][0] != n_q \
+            or not 0 < rec["launches"][1] <= rec["requantized"][1]:
+        raise AssertionError(f"[stream] int8 subscriber: {rec}")
+    return rec
+
+
+def profile_step_phase(hvt):
+    """[profile-step]: ``python -m horovod_tpu_torch.tools.profile_step``
+    for BERT-base (32 x 512) and ResNet-50 (128 x 224 x 224), each a
+    process of its own: exit 0, the category totals within 1% of the
+    device time the profiler links to the operators that launched it,
+    BERT's window 12/12/12 flash launches a step."""
+    t_phase = time.perf_counter()
+    card = card_line()
+    out = {}
+    from horovod_tpu_torch.ops import _build
+
+    tmp = Path(tempfile.mkdtemp(prefix="profile-", dir=_build.BUILD_DIR))
+    try:
+        for model in ("bert", "resnet50"):
+            path = tmp / f"{model}.json"
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "horovod_tpu_torch.tools.profile_step",
+                 "--model", model, "--top", "15", "--json", str(path)],
+                cwd=str(Path(__file__).resolve().parent),
+                capture_output=True, text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            for line in proc.stdout.splitlines():
+                log(f"[profile-step] {model}: {line}")
+            if proc.returncode != 0:
+                log(proc.stderr[-4000:])
+                raise AssertionError(f"[profile-step] {model} exited "
+                                     f"{proc.returncode}")
+            s = json.loads(path.read_text())
+            # The categories sum the device event list; the linked total
+            # reaches the same kernels another way, through the operators
+            # that launched them.
+            rel = (abs(s["category_us"] - s["linked_us"]) / s["linked_us"]
+                   if s["linked_us"] else float("inf"))
+            rec = {"categories": s["categories"], "device_ms":
+                   s["device_us"] / 1e3, "category_ms": s["category_us"] / 1e3,
+                   "window_ms": (s["window_us"] or 0) / 1e3,
+                   "busy_ms": (s["busy_us"] or 0) / 1e3,
+                   "idle_share": s["idle_share"], "losses": s["losses"],
+                   "flash_launches": s["flash_launches"],
+                   "top": s["kernels"][:15], "wall_s": wall,
+                   "scopes_ms": {k: v["us"] / 1e3
+                                 for k, v in s["scopes"].items()},
+                   "linked_ms": s["linked_us"] / 1e3,
+                   "sum_rel_diff": rel}
+            out[model] = rec
+            log(f"[profile-step] {model} on {card}: device {rec['device_ms']:.3f}"
+                f" ms over {s['steps']} steps, categories sum "
+                f"{rec['category_ms']:.3f} ms, linked to an operator "
+                f"{rec['linked_ms']:.3f} ms (relative {rel:.2e}); window "
+                f"{rec['window_ms']:.3f} ms, busy {rec['busy_ms']:.3f} ms, "
+                f"idle share {rec['idle_share']}; scopes "
+                f"{rec['scopes_ms']} ms; process {wall:.1f} s")
+            if not rel <= 0.01 or s["idle_share"] is None:
+                raise AssertionError(f"[profile-step] {model}: {rec}")
+            if not all(np.isfinite(s["losses"])):
+                raise AssertionError(f"[profile-step] {model} losses "
+                                     f"{s['losses']}")
+        want = {k: 12 * 5 for k in ("flash_fwd", "flash_bwd_dkdv",
+                                    "flash_bwd_dq")}
+        if out["bert"]["flash_launches"] != want:
+            raise AssertionError(f"[profile-step] BERT's window launched "
+                                 f"{out['bert']['flash_launches']}, not "
+                                 "12/12/12 a step")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["card"] = card
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6775,6 +7540,12 @@ def main() -> int:
     observed = obs_phase(hvt, (fa, fadam, tq))
     log_threads("[obs]")
     equant = elastic_quant(hvt, len(qsizes))
+    tuned = autotune_phase(hvt, (fa, fadam, tq))
+    served_tuned = serve_autotune(hvt, fa)
+    log_threads("[serve-autotune]")
+    streamed = stream_phase(hvt, (fa, fadam, tq))
+    log_threads("[stream]")
+    profiled = profile_step_phase(hvt)
     # [train-remat] trains GPT-2 small, [train]'s layout (held in adam).
     adam_phases = adamw_phase_checks(fadam, gen, {
         "train_bert": bert["bucket_sizes"],
@@ -6806,7 +7577,12 @@ def main() -> int:
                     "launches_launch": launched["launches"],
                     "launches_elastic_recover": recovered["launches"],
                     "launches_obs": observed["launches"],
-                    "launches_elastic_quant": equant["launches"]}
+                    "launches_elastic_quant": equant["launches"],
+                    "launches_autotune": tuned["launches"],
+                    "launches_serve_autotune": served_tuned["launches"],
+                    "launches_stream": streamed["launches"],
+                    "launches_profile_step":
+                        profiled["bert"]["flash_launches"]}
     # [serve-kv]'s workers run kernel 1 only: its count over every batch
     # of both runs, the other kernels' 0.
     serve_kv_flash = (served_kv["clean"]["flash_launches"]
@@ -6847,6 +7623,12 @@ def main() -> int:
             if name == "flash_fwd" else 0,
             "elastic_quant":
                 new_launches["launches_elastic_quant"].get(name, 0),
+            "autotune": new_launches["launches_autotune"].get(name, 0),
+            "serve_autotune":
+                new_launches["launches_serve_autotune"].get(name, 0),
+            "stream": new_launches["launches_stream"].get(name, 0),
+            "profile_step_bert":
+                new_launches["launches_profile_step"].get(name, 0),
         }
 
     kernels = [{
@@ -7072,7 +7854,9 @@ def main() -> int:
                       "gspmd": gsp, "decode_chaos": dchaos,
                       "launch": launched, "elastic_recover": recovered,
                       "serve_kv": served_kv, "obs": observed,
-                      "elastic_quant": equant}),
+                      "elastic_quant": equant, "autotune": tuned,
+                      "serve_autotune": served_tuned, "stream": streamed,
+                      "profile_step": profiled}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

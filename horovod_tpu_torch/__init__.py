@@ -160,6 +160,7 @@ from .optimizer import (  # noqa: F401
     fused_adamw,
     grad,
     reshard_opt_state,
+    sgd,
     unshard_opt_state,
     value_and_grad,
 )

@@ -119,6 +119,12 @@ class State:
                     os.kill(os.getpid(), _signal.SIGTERM)
                     time.sleep(0.05)  # let the handler run before the check
             self.save()
+            # Live weight streaming rides the commit path: only a saved
+            # state is published. Disabled, this is one module-global read.
+            from ..stream import publisher as _spub
+
+            if _spub.enabled():
+                _spub.on_commit(self, self._commit_count)
             if preempt_requested():
                 run_preempt_checkpoint()
             self.check_host_updates()

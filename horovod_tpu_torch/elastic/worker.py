@@ -538,14 +538,16 @@ def current_round() -> int:
 
 
 def tune_config_source():
-    """This worker's view of the autotune rollout protocol: None outside
-    an elastic world (the step then tunes nothing); inside one it raises,
-    the autotuner arriving with A14b."""
+    """This worker's view of the autotune rollout protocol: a
+    ``KVConfigSource`` bound to the elastic KV client and this host's id
+    (the ``autotune/score/<host>`` reporting key). None outside an
+    elastic world: the step wrapper then runs its own local search."""
     if not in_elastic_world():
         return None
-    raise NotImplementedError(
-        "the autotune rollout protocol is not ported yet; it arrives with "
-        "A14b")
+    from ..tune.rollout import KVConfigSource
+
+    host_id = os.environ.get(ENV_HOST_ID) or os.uname().nodename
+    return KVConfigSource(_kv_client(), host_id)
 
 
 def cert_channel():

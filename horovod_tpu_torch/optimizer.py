@@ -14,6 +14,7 @@ parameters' device, the step count included, so no step waits on the host.
   ``-lr * (m_hat / (sqrt(v_hat + eps_root) + eps) + wd * p)``.
   ``torch.optim.AdamW`` is not a drop-in (other default decay, decay
   folded into the parameter, another order of operations).
+* :func:`sgd` -- SGD with optax ``sgd`` semantics (optional momentum).
 * :func:`fused_adamw` -- the same optimizer carrying its hyperparameters
   as a :class:`~.ops.fused_adamw.FusedAdamSpec`, so the sharded update can
   run it as one fused kernel pass per flat shard bucket
@@ -139,6 +140,7 @@ __all__ = [
     "ShardedDistributedOptimizer",
     "ShardedOptState",
     "adamw",
+    "sgd",
     "canonicalize_dist_state",
     "canonicalize_sharded_states",
     "ef_residual_norm",
@@ -283,6 +285,33 @@ def fused_adamw(
     spec = FusedAdamSpec(float(learning_rate), float(b1), float(b2),
                          float(eps), float(eps_root), float(weight_decay))
     return Optimizer(*_adamw_fns(spec), fused_spec=spec)
+
+
+class TraceState(NamedTuple):
+    """optax's ``TraceState``: the momentum buffer, shaped like the
+    parameters."""
+
+    trace: Any
+
+
+def sgd(learning_rate: float, momentum: Optional[float] = None) -> Optimizer:
+    """SGD with optax ``sgd`` semantics: with ``momentum`` the trace
+    ``t = g + momentum * t`` (no Nesterov) and the update ``-lr * t``;
+    without it ``-lr * g`` and an empty state."""
+    lr = float(learning_rate)
+
+    def init(params):
+        if momentum is None:
+            return TraceState(None)
+        return TraceState(_map(torch.zeros_like, params))
+
+    def update(grads, state: TraceState, params=None):
+        if momentum is None:
+            return _map(lambda g: -lr * g, grads), state
+        trace = _map(lambda g, t: g + momentum * t, grads, state.trace)
+        return _map(lambda t: -lr * t, trace), TraceState(trace)
+
+    return Optimizer(init, update)
 
 
 class DistributedOptState(NamedTuple):

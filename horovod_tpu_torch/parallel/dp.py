@@ -194,23 +194,17 @@ def _accumulate(loss_fn, params, batch, accum_steps, has_aux,
     return loss, aux, grads
 
 
-# Knobs of the JAX package's make_train_step whose planes are not ported
-# yet: each raises NotImplementedError naming the slice that brings it.
+# The knob of the JAX package's make_train_step whose plane is not ported
+# yet: armed, it raises NotImplementedError naming the slice that brings it.
 _WAITING = {
     "lint": "the analysis plane (torch.fx / torch.export graph lints)",
-    "autotune": "the tuning plane (tune/)",
-    "publish": "the streaming plane (stream/)",
 }
 
 
 def _armed(name: str, value) -> bool:
     if value is None or value is False:
         return False
-    if name == "lint":
-        return str(value).lower() not in ("", "off", "none", "no", "false", "0")
-    if name == "publish":
-        return int(value) > 0
-    return True
+    return str(value).lower() not in ("", "off", "none", "no", "false", "0")
 
 
 def _instrument_step(fn: Callable, dev: torch.device, tokens_per_step,
@@ -437,24 +431,86 @@ def make_train_step(
     ``compute_dtype="fp8"`` (the fp8 state rides the screened gradients),
     as in the JAX package.
 
-    ``lint``, ``autotune`` and ``publish`` are not ported yet: arming one,
-    or leaving it None under an armed ``HVDTPU_LINT``, ``_AUTOTUNE`` or
-    ``_PUBLISH_EVERY``, raises ``NotImplementedError`` naming the slice
+    ``autotune=True`` (or a :class:`~..tune.AutotuneConfig`; default
+    reads ``HVDTPU_AUTOTUNE``) wraps the step in the closed-loop autotuner
+    (:mod:`..tune`): under an elastic launcher the step follows the
+    driver's rollout coordinator through the KV (lockstep switches), else
+    it runs its own search. Cheap knobs flip in place, retrace knobs
+    rebuild the step from the env the switch wrote. The wrapper exposes
+    the client as ``step.autotune`` (``.done``, ``.best``,
+    ``.switch_log``). Knobs the call pins (``threshold_bytes=``,
+    ``compute_dtype=``, ``act_quant=``; ``stagger=`` or no overlap) leave
+    the space, and a build whose optimizer state depends on the bucket
+    layout (``sharded``, ``fused_update``, quantized error feedback) pins
+    the fusion threshold too.
+
+    ``publish=N`` (default ``HVDTPU_PUBLISH_EVERY``) publishes the
+    committed parameters every N steps into the weight stream
+    (:class:`~..stream.WeightPublisher`, over the elastic KV), gated by
+    the guard's audit when ``guard`` is armed; the step carries it as
+    ``step_fn.stream_publisher``.
+
+    ``lint`` is not ported yet: arming it, or leaving it None under an
+    armed ``HVDTPU_LINT``, raises ``NotImplementedError`` naming the slice
     that brings it.
     """
-    # None reads the knob's HVDTPU_* default, as the JAX package does; an
-    # explicit off value wins over the environment.
-    knobs = dict(
-        lint=_env.lint_mode() if lint is None else lint,
-        autotune=_env.autotune_default() if autotune is None else autotune,
-        publish=_env.publish_every() if publish is None else publish,
-    )
-    for name, value in knobs.items():
-        if _armed(name, value):
-            raise NotImplementedError(
-                f"make_train_step({name}={value!r}) is not ported yet; it "
-                f"arrives with {_WAITING[name]}"
-            )
+    lint = _env.lint_mode() if lint is None else lint
+    if _armed("lint", lint):
+        raise NotImplementedError(
+            f"make_train_step(lint={lint!r}) is not ported yet; it arrives "
+            f"with {_WAITING['lint']}")
+    autotune_cfg = None
+    if autotune is not False:
+        from .. import tune as _tune
+
+        autotune_cfg = _tune.resolve(autotune)
+    if autotune_cfg is not None:
+        build_kwargs = dict(
+            has_aux=has_aux, distribute_optimizer=distribute_optimizer,
+            op=op, compression=compression, axis=axis, sharded=sharded,
+            gather_compression=gather_compression,
+            threshold_bytes=threshold_bytes, fused_update=fused_update,
+            accum_steps=accum_steps, tokens_per_step=tokens_per_step,
+            flops_per_step=flops_per_step, error_feedback=error_feedback,
+            device=device, overlap=overlap, stagger=stagger, lint=lint,
+            guard=guard, autotune=False, publish=publish, remat=remat,
+            compute_dtype=compute_dtype, act_quant=act_quant,
+        )
+        pinned = []
+        if threshold_bytes is not None:
+            pinned.append(_env.FUSION_THRESHOLD)
+        if compute_dtype is not None:
+            pinned.append(_env.COMPUTE_DTYPE)
+        if act_quant is not None:
+            pinned.append(_env.ACT_QUANT)
+        overlap_on = overlap if overlap is not None else _env.overlap_default()
+        if stagger is not None or not overlap_on:
+            # Pinned, or inert without the overlap pipeline: tuning it
+            # would score noise.
+            pinned.append(_env.OVERLAP_STAGGER)
+        quant_on = (is_quantized(compression) if compression is not None
+                    else bool(_env.quant_mode()))
+        fused_on = (_env.fused_update_default() if fused_update is None
+                    else fused_update)
+        structure_locked = bool(
+            sharded or fused_on or (quant_on and error_feedback))
+        from .. import context as _ctx
+
+        c = _ctx._context
+        step = _tune.attach_train_autotuner(
+            lambda: make_train_step(loss_fn, optimizer, **build_kwargs),
+            autotune_cfg,
+            pinned=pinned,
+            mesh_shape=dict(c.mesh.shape) if c is not None else {},
+            cross_axes=((_ctx.CROSS_AXIS,) if c is not None
+                        and _ctx.CROSS_AXIS in c.mesh.shape else ()),
+            structure_locked=structure_locked,
+            device=resolve_device(device),
+        )
+        if step is not None:
+            return step, step.opt
+        # Empty effective space (every live knob pinned by this build):
+        # build the plain untuned step.
     guard_cfg = _resolve_guard(guard)
     overlap = bool(_env.overlap_default() if overlap is None else overlap)
     # stagger picks the overlap pipeline's side streams. Without overlap the
@@ -607,8 +663,14 @@ def make_train_step(
     if guard_cfg is not None:
         guard_runtime = GuardRuntime(guard_cfg, sharded=sharded)
         fn = guard_runtime.wrap(step_fn)
-    # The telemetry bracket wraps the guard's wrapper: a guarded step's
-    # counter read is inside its host_dispatch.
+    publisher = None
+    publish_every = (_env.publish_every() if publish is None
+                     else max(0, int(publish)))
+    if publish_every > 0:
+        publisher, fn = _streamed(fn, publish_every, guard_runtime,
+                                  threshold_bytes)
+    # The telemetry bracket wraps the guard's and the publisher's wrappers:
+    # a guarded step's counter read is inside its host_dispatch.
     fn = _instrument_step(
         fn, dev, tokens_per_step, flops_per_step, overlap=overlap,
         accum_steps=accum_steps, quantized=is_quantized(compression),
@@ -616,4 +678,43 @@ def make_train_step(
     fn.throughput = throughput
     fn.guard_config = guard_cfg
     fn.guard_runtime = guard_runtime
+    fn.stream_publisher = publisher
     return fn, opt
+
+
+def _streamed(fn: Callable, every: int, guard_runtime, threshold_bytes):
+    """The weight-stream publisher around a built step: OUTSIDE the guard
+    wrapper (it reads the audit's verdict and is not audited) and inside
+    the metrics bracket. The cadence runs on a host step clock anchored
+    once to the real ``state.step`` (one device read, first step only) and
+    re-anchored on each cadence hit, where the real step is read anyway:
+    an elastic restore or a guard skip that moved ``state.step`` cannot
+    desynchronize it. Off-cadence steps read nothing on the device."""
+    from ..stream import WeightPublisher
+
+    publisher = WeightPublisher(publish_every=every,
+                                guard_runtime=guard_runtime,
+                                threshold_bytes=threshold_bytes)
+    clock = {"base": None, "n": 0}
+
+    def streamed(state, batch):
+        out = fn(state, batch)
+        new_state = out[0]
+        if clock["base"] is None:
+            clock["base"] = int(new_state.step) - 1
+        clock["n"] += 1
+        hint = clock["base"] + clock["n"]
+        if hint % every == 0:
+            real_step = int(new_state.step)
+            if real_step != hint:
+                clock["base"] = real_step - clock["n"]
+            # The capture is a host copy taken now, before the next step
+            # updates the parameters in place.
+            publisher.maybe_publish(new_state.params, real_step)
+        elif publisher._pending:
+            # Queued behind the guard gate or a KV outage: retry the
+            # flush each step until it drains.
+            publisher.flush()
+        return out
+
+    return publisher, streamed

@@ -21,8 +21,12 @@ goodput roll-up, journaled in ``_driver_state()["goodput"]`` so an adopter
 continues it; the plain attributes ``HostManager.blacklist_events`` /
 ``penalties`` / ``readmissions`` and ``ElasticJob.rescale_events`` /
 ``lease_expiries`` / ``guard_report_events`` / ``adoptions`` count the
-same events. The driver's autotune rollout (``autotune=True`` /
-``HVDTPU_AUTOTUNE``) raises, naming A14b.
+same events. With ``autotune=True`` / ``HVDTPU_AUTOTUNE`` the driver hosts
+the autotuner's :class:`~..tune.RolloutCoordinator`: it publishes candidate
+knob vectors through the journaled KV, journals the search with the driver
+state (an adopter resumes it, never re-learns it) and rides a retrace
+candidate on a round republish. The journal's ``autotune`` record is the
+JAX package's.
 
 The serving request plane's repair (ROADMAP C12): the driver deletes a
 host's ``serve_ctl/ready/<host>`` announcement when it reaps the host's
@@ -471,12 +475,14 @@ class ElasticJob:
         self._preempted: Dict[str, float] = {}
         self._preempt_cooldown = _env.preempt_cooldown_secs()
         # Closed-loop autotuner (HVDTPU_AUTOTUNE=1 / autotune=True): the
-        # rollout coordinator comes with A14b; armed, it raises.
+        # driver hosts the search and publishes candidate knob vectors
+        # through the journaled KV; its trial history rides the driver-
+        # state journal, so a crash-adopted driver RESUMES the search.
         self._tuner = None
         if autotune if autotune is not None else _env.autotune_default():
-            raise NotImplementedError(
-                "the elastic driver's autotune rollout is not ported yet; "
-                "it arrives with A14b")
+            from ..tune.rollout import RolloutCoordinator
+
+            self._tuner = RolloutCoordinator.from_env()
         # Driver-side goodput ledger (the job roll-up): control-plane
         # downtime windows (round publishes, lease expiries, adoption
         # gaps), journaled with the driver state so an adopter continues
@@ -542,6 +548,12 @@ class ElasticJob:
             "secret": self.server.secret,
             "port": self.server.port if self.server._server else None,
             "epoch": self._epoch_gen,
+            # Autotune search state: trial history, incumbent, the
+            # candidate in flight -- what "adopted, never re-learned"
+            # means for a tuned config.
+            "autotune": (
+                self._tuner.state_dict() if self._tuner is not None else None
+            ),
             # Goodput roll-up: totals and the alive-now anchor an adopter
             # measures its takeover gap against.
             "goodput": (
@@ -589,6 +601,21 @@ class ElasticJob:
         self._preempted = {
             h: float(t) for h, t in state.get("preempted", {}).items()
         }
+        if self._tuner is not None and state.get("autotune"):
+            try:
+                self._tuner.load_state_dict(state["autotune"])
+                log.info(
+                    "adopted autotune search: %d trial(s) of history, "
+                    "evaluating trial %d",
+                    self._tuner.search.n_trials, self._tuner._trial,
+                )
+            except ValueError as e:
+                # A changed search space makes the journaled history
+                # meaningless: restart rather than resume another search.
+                log.warning(
+                    "journaled autotune state not adoptable (%s); "
+                    "starting a fresh search", e,
+                )
         if self._goodput is not None and state.get("goodput"):
             try:
                 gap = self._goodput.load_state_dict(state["goodput"])
@@ -1044,9 +1071,44 @@ class ElasticJob:
         return republish
 
     def _check_autotune(self) -> bool:
-        """One autotune coordinator turn; the rollout coordinator comes
-        with A14b (``__init__`` refuses an armed tuner), so this is inert."""
-        return False
+        """One coordinator turn (when autotuning): consume the workers'
+        score reports, record the trial, publish the next candidate
+        through the journaled KV. True when the new candidate flips a
+        retrace knob: the switch then rides a round republish, a boundary
+        every worker already synchronizes on. A coordinator fault
+        degrades to "stop tuning", never kills the job."""
+        if self._tuner is None:
+            return False
+        tune_w0 = time.time()
+        try:
+            # journal= runs BEFORE each KV publish (the journaled search
+            # must never lag the store the workers see); round_= names
+            # the round whose rejoin is a retrace candidate's boundary.
+            republish = self._tuner.poll(
+                self.server, list(self._assignment),
+                journal=self._journal_state, round_=self._round,
+            )
+            # Adoption heal: a predecessor that published a retrace
+            # candidate but died before the round republish left every
+            # worker waiting on a round that never came.
+            pending = self._tuner.pending_round
+            if pending is not None and self._round < pending:
+                republish = True
+        except Exception:
+            log.exception("autotune coordinator failed; disabling the tuner")
+            self._tuner = None
+            return False
+        if self._goodput is not None:
+            self._goodput.add(
+                "autotune_search", tune_w0, time.time() - tune_w0)
+        if self._tuner.consume_dirty():
+            _trace.instant(
+                "autotune.trial", cat="elastic",
+                args={"trial": getattr(self._tuner, "_trial", None),
+                      "round": self._round},
+            )
+            _flush_driver_metrics()
+        return republish
 
     def _terminate_all(self) -> None:
         # Two rounds of SIGTERM, then SIGKILL: workers install a

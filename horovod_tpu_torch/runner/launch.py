@@ -13,8 +13,8 @@ through the elastic driver::
 Config knobs follow the reference's flag->env convention
 (``horovod/runner/common/util/config_parser.py``); ``--timeline-*``
 becomes ``HVDTPU_TIMELINE`` / ``_TIMELINE_MARK_CYCLES``
-(:mod:`..utils.timeline`). The autotuner's flags, a plane not ported yet
-(A14b), raise.
+(:mod:`..utils.timeline`); ``--autotune`` and ``--autotune-log-file``
+become ``HVDTPU_AUTOTUNE`` and ``HVDTPU_AUTOTUNE_LOG``.
 """
 
 from __future__ import annotations
@@ -141,13 +141,10 @@ def _args_to_env(args) -> Dict[str, str]:
         env["HVDTPU_TIMELINE"] = args.timeline_filename
     if args.timeline_mark_cycles:
         env["HVDTPU_TIMELINE_MARK_CYCLES"] = "1"
-    unported = [flag for flag, on in (
-        ("--autotune", args.autotune),
-        ("--autotune-log-file", args.autotune_log_file)) if on]
-    if unported:
-        raise NotImplementedError(
-            f"{', '.join(unported)}: the autotuner is not ported yet; it "
-            "arrives with A14b")
+    if args.autotune:
+        env["HVDTPU_AUTOTUNE"] = "1"
+    if args.autotune_log_file:
+        env["HVDTPU_AUTOTUNE_LOG"] = args.autotune_log_file
     if args.no_stall_check:
         env["HVDTPU_STALL_CHECK_DISABLE"] = "1"
     if args.stall_warning_time_seconds is not None:

@@ -29,10 +29,15 @@ youngest row is preempted (re-queued, its blocks freed), never dropped.
 Each worker is a thread that runs ``model.extend`` eagerly under
 ``torch.inference_mode()`` (where the JAX package jits it) on the engine's
 device, default this process's card. The ``serve.decode`` chaos site
-kills or stalls a worker mid-round, its streams resuming on a survivor. Not
-ported yet: the goodput ledger, trace spans, ``serve.*`` gauges and
-streamed weight versions (A14b); :meth:`DecodeEngine.attach_stream`
-raises.
+kills or stalls a worker mid-round, its streams resuming on a survivor.
+
+Streamed weights (:mod:`..stream`): a :class:`~..stream.StreamSubscriber`
+stages and CRC-verifies a whole version, then flips it in with one
+``hot_swap(params, version=)``. A worker reads the engine's ``params``
+once at the start of each turn (its admissions' prefill and one round), so
+every round runs one version whole;
+``stream_version_log`` records every version flipped in and each worker's
+``version_log`` every version it decoded a round under.
 """
 
 from __future__ import annotations
@@ -169,6 +174,13 @@ class DecodeWorker:
         self._stop = threading.Event()
         self._draining = threading.Event()
         self._round = 0
+        # The weights of the turn running now (admission, prefill and one
+        # round), read once at its start, and every stream version this
+        # worker decoded a round under, in first-seen order.
+        self._params = e.params
+        self._draft_params = e.draft_params
+        self.version_log: List[int] = []
+        self._seen_version: Optional[int] = None
         self._thread = threading.Thread(
             target=self._run, name=f"hvt-decode-{name}", daemon=True)
 
@@ -199,6 +211,13 @@ class DecodeWorker:
         try:
             with torch.inference_mode():
                 while not self._stop.is_set():
+                    # The weights of this turn, its prefill included: one
+                    # version whole, read once (the atomic unit of a
+                    # streamed flip).
+                    with eng._cond:
+                        self._params = eng.params
+                        self._draft_params = eng.draft_params
+                        v = eng.stream_version
                     if not self._draining.is_set():
                         self._admit()
                     if self.n_active == 0:
@@ -218,6 +237,9 @@ class DecodeWorker:
                                 wait_w0, time.time() - wait_w0)
                         continue
                     self._round += 1
+                    if v is not None and v != self._seen_version:
+                        self._seen_version = v
+                        self.version_log.append(v)
                     if _chaos.enabled():
                         fault = _chaos.action(
                             "serve.decode", worker=self.name,
@@ -259,8 +281,8 @@ class DecodeWorker:
         pool: the host arrays onto the device; returns (greedy tokens
         ``[R, W]`` on the host, k_new, v_new)."""
         eng = self.engine
-        model, params, pool = ((eng.model, eng.params, self.pool) if target
-                               else (eng.draft_model, eng.draft_params,
+        model, params, pool = ((eng.model, self._params, self.pool) if target
+                               else (eng.draft_model, self._draft_params,
                                      self.draft_pool))
         dev = eng.device
 
@@ -606,6 +628,13 @@ class DecodeEngine:
         self.n_proposed = 0
         self.n_accepted = 0
         self.n_hotswaps = 0
+        # Streamed weight delivery (..stream): the version served now, the
+        # log of every version flipped in (each CRC-verified whole by the
+        # subscriber first) and the attached subscriber (stopped first).
+        self.stream_version: Optional[int] = None
+        self.stream_version_log: List[int] = []
+        self.n_stream_applies = 0
+        self.stream = None
         # The decode-throughput gauge's rolling window.
         self._rate_t0 = time.time()
         self._rate_tokens = 0
@@ -630,12 +659,15 @@ class DecodeEngine:
         return self
 
     def attach_stream(self, subscriber) -> "DecodeEngine":
-        raise NotImplementedError(
-            "streamed weight delivery (horovod_tpu.stream) is not ported "
-            "yet (ROADMAP A14b); use hot_swap(params)"
-        )
+        """Bind a :class:`~..stream.StreamSubscriber` (or anything with
+        ``stop()``) to the engine's lifetime: :meth:`stop` stops it before
+        the workers drain."""
+        self.stream = subscriber
+        return self
 
     def stop(self, drain: bool = True) -> None:
+        if self.stream is not None:
+            self.stream.stop()
         self._stop.set()
         with self._cond:
             workers = list(self._workers.values())
@@ -718,13 +750,13 @@ class DecodeEngine:
                  version: Optional[int] = None) -> None:
         """Swap the serving weights in place; workers pick the new params up
         at their next round (in-flight streams continue on the new weights
-        over their existing cache). ``version`` belongs to streamed weight
-        delivery, not ported yet (A14b)."""
-        if version is not None:
-            raise NotImplementedError(
-                "versioned hot swaps (streamed weight delivery) are not "
-                "ported yet (ROADMAP A14b)"
-            )
+        over their existing cache).
+
+        ``version`` is the streamed mode (:mod:`..stream`): the subscriber
+        has staged and CRC-verified the whole set before this call, so the
+        one assignment under ``_cond`` is the atomic flip -- a round runs
+        the previous version or the whole new one. The version joins
+        ``stream_version_log``."""
         swap_w0 = time.time()
         params = self._place(params)
         draft = self._place(draft_params) if draft_params is not None else None
@@ -733,6 +765,10 @@ class DecodeEngine:
             if draft is not None:
                 self.draft_params = draft
             self.n_hotswaps += 1
+            if version is not None:
+                self.stream_version = version
+                self.stream_version_log.append(version)
+                self.n_stream_applies += 1
         _sobs.record_hotswap()
         if _goodput.enabled():
             _goodput.record_serve("swap", swap_w0, time.time() - swap_w0)

@@ -208,10 +208,6 @@ class ServePool:
         if params is None and ckpt_dir is None:
             raise ValueError("need initial params or ckpt_dir")
         self.weight_dtype = _resolve_weight_dtype(weight_dtype)
-        if autotune is None:
-            autotune = _env.autotune_default()  # HVDTPU_AUTOTUNE
-        if autotune is not False:
-            raise NotImplementedError("ServePool(autotune=) is not ported yet")
         self.device = resolve_device(device)
         self.ckpt_dir = ckpt_dir
         self.ckpt_target = ckpt_target if ckpt_target is not None else params
@@ -249,6 +245,14 @@ class ServePool:
         self._stop = threading.Event()
         self._threads: List[threading.Thread] = []
         self._watcher: Optional[_ckpt.CheckpointWatcher] = None
+        # The serving twin of the closed-loop autotuner (HVDTPU_AUTOTUNE=1
+        # or autotune=True/AutotuneConfig): it tunes the dispatcher's fill
+        # window and the autoscaler's watermarks against the p95 of
+        # serve.request_ms under live load, flipping them in place.
+        from ..tune import resolve as _tune_resolve
+
+        self._tune_cfg = _tune_resolve(autotune)
+        self.tuner = None
         # (worker, step, t_start, t_end) per completed swap -- the
         # one-at-a-time evidence.
         self.swap_log: List[Tuple[str, int, float, float]] = []
@@ -306,6 +310,10 @@ class ServePool:
             loops.append((self._swap_watch, "serve-swap"))
         if self.autoscale:
             loops.append((self._autoscale_loop, "serve-autoscale"))
+        if self._tune_cfg is not None:
+            from ..tune.serve import ServeTuner
+
+            self.tuner = ServeTuner(self, self._tune_cfg).start()
         for target, name in loops:
             t = threading.Thread(target=target, name=name, daemon=True)
             t.start()
@@ -313,6 +321,8 @@ class ServePool:
         return self
 
     def stop(self, drain: bool = True) -> None:
+        if self.tuner is not None:
+            self.tuner.stop()
         self._stop.set()
         with self._lock:
             workers = list(self._workers.values())

@@ -53,9 +53,22 @@ restart-invariant, under one armed ``HVDTPU_CHAOS`` schedule, and
                      every rank together, one ``grad.bitflip`` localized
                      by the audit and resynced, no corrupted checkpoint,
                      finals bit for bit the fault-free run's
+``stream``           a trainer publishes a weight version every step
+                     into a decode engine's subscriber while its host is
+                     killed (the respawn publishes under a bumped
+                     epoch), one publish is torn on the wire and the
+                     driver is killed and adopted; afterwards a
+                     stale-epoch manifest and a starved stream -> no
+                     torn apply, the stale epoch rejected, the
+                     checkpoint fallback taken, decode finals token for
+                     token the fault-free run's (``stream_baseline``)
+``autotune``         the driver's autotune coordinator is killed
+                     mid-search; the adopter resumes the search from the
+                     journal -> no mixed vector across ranks, the final
+                     vector the fault-free run's
 ===================  ====================================================
 
-Not ported yet: ``stream`` and ``autotune`` (A14b). Every scenario runs
+Every scenario runs
 with the trace plane armed (workers and the in-process driver dump under
 ``<workdir>/trace``) and the driver's goodput ledger on, under a hard
 wall-clock deadline; on timeout the harness records log tails, the KV
@@ -627,7 +640,7 @@ def _scenarios(steps: int) -> Dict[str, dict]:
 
 SCENARIO_NAMES = [n for n in _scenarios(DEFAULT_STEPS)
                   if not n.endswith("baseline")] + [
-    "serve", "decode", "driver_crash"]
+    "serve", "decode", "stream", "driver_crash", "autotune"]
 
 
 # ---- the telemetry planes of a scenario -----------------------------------
@@ -702,6 +715,12 @@ def run_scenario(name: str, steps: int = DEFAULT_STEPS,
     if name == "driver_crash":
         return run_driver_crash_scenario(steps=steps, workdir=workdir,
                                          timeout=timeout, seed=seed)
+    if name in ("stream", "stream_baseline"):
+        return run_stream_scenario(name, steps=steps, workdir=workdir,
+                                   timeout=timeout, seed=seed)
+    if name == "autotune":
+        return run_autotune_scenario(workdir=workdir, timeout=timeout,
+                                     seed=seed)
     spec = _scenarios(steps).get(name)
     if spec is None:
         raise ValueError(
@@ -1200,6 +1219,670 @@ def check_decode_invariants(res: dict) -> List[str]:
     return problems
 
 
+# ---- live weight streaming (the ``stream`` scenario) ------------------------
+
+# The trainer: an elastic world whose "training" is analytic (identical
+# bytes from any incarnation at a step), one host publishing every step
+# into the driver's KV, rank 0 checkpointing the step for a respawn.
+STREAM_WORKER = """
+import horovod_tpu_torch as hvt
+from horovod_tpu_torch import checkpoint as ckptlib
+from horovod_tpu_torch import elastic
+from horovod_tpu_torch.ops import collectives as C
+from horovod_tpu_torch.serve import CacheLM, CacheLMConfig
+from horovod_tpu_torch.stream import WeightPublisher
+
+STEPS = int(os.environ["HVDTPU_TEST_SOAK_STEPS"])
+SEED = int(os.environ.get("HVDTPU_TEST_STREAM_SEED", "0"))
+PUB_HOST = os.environ["HVDTPU_TEST_STREAM_PUB_HOST"]
+CKDIR = os.path.join(workdir, "state_ckpt")
+
+_base = CacheLM(CacheLMConfig(vocab=32, n_layers=2, n_heads=2, head_dim=8,
+                              max_positions=256),
+                block_size=8).init_params(SEED, device="cpu")
+
+
+def params_at(step):
+    # Analytic "training": identical bytes from any incarnation.
+    from horovod_tpu_torch.ops.batching import tree_map
+
+    return tree_map(lambda x: x + torch.tensor(0.001, dtype=torch.float32)
+                    * step, _base)
+
+
+hvt.init(device="cpu", backend="gloo")
+pub = WeightPublisher(publish_every=1) if host_id == PUB_HOST else None
+state = elastic.ObjectState(step=0)
+try:
+    restored = ckptlib.restore_checkpoint(CKDIR, {"step": torch.tensor(0)})
+    state.step = int(restored["step"])
+    state.save()
+    log({"host": host_id, "resumed_at": state.step})
+except FileNotFoundError:
+    pass
+
+
+@elastic.run
+def train(st):
+    while st.step < STEPS:
+        C.allreduce(torch.full((2,), 0.5))
+        st.step += 1
+        if hvt.rank() == 0:
+            ckptlib.save_checkpoint(CKDIR, {"step": torch.tensor(st.step)},
+                                    step=st.step, keep=STEPS + 1)
+        if pub is not None:
+            pub.maybe_publish(params_at(st.step), st.step)
+            log({"host": host_id, "step": st.step, "epoch": pub.epoch,
+                 "published": pub.n_published,
+                 "spawn": int(os.environ.get("HVDTPU_SPAWN_ROUND", "0"))})
+        st.commit()
+    return st.step
+
+
+train(state)
+if pub is not None:
+    pub.flush()
+    log({"host": host_id, "publisher_done": state.step,
+         "published": pub.n_published, "torn": pub.n_torn_injected})
+log({"host": host_id, "final_step": state.step})
+hvt.shutdown()
+"""
+
+STREAM_VICTIM = "127.0.0.1"  # the publisher host the chaos kills
+STREAM_DECODE_STREAMS = 8
+
+
+class _MemKV:
+    """Post-job stand-in for the driver's KV (the real server dies with
+    the job): it holds whatever the harness injects, e.g. the stale-epoch
+    manifest a dead trainer's late write would have left."""
+
+    def __init__(self):
+        self._store: Dict[str, Dict[str, bytes]] = {}
+        self._lock = threading.Lock()
+
+    def put(self, scope: str, key: str, value: bytes) -> None:
+        with self._lock:
+            self._store.setdefault(scope, {})[key] = value
+
+    def scope_items(self, scope: str) -> Dict[str, bytes]:
+        with self._lock:
+            return dict(self._store.get(scope, {}))
+
+
+def _stream_model():
+    from ..serve import CacheLM, CacheLMConfig
+
+    return CacheLM(CacheLMConfig(vocab=32, n_layers=2, n_heads=2,
+                                 head_dim=8, max_positions=256),
+                   block_size=8)
+
+
+def _stream_params(seed: int, step: int):
+    """The harness's twin of the worker's analytic parameters."""
+    import torch
+
+    from ..ops.batching import tree_map
+
+    base = _stream_model().init_params(seed, device="cpu")
+    return tree_map(lambda x: x + torch.tensor(0.001, dtype=torch.float32)
+                    * step, base)
+
+
+def run_stream_scenario(name: str = "stream", steps: int = DEFAULT_STEPS,
+                        workdir: Optional[str] = None,
+                        timeout: float = 120.0, seed: int = 0) -> dict:
+    """Live weight streaming under faults (``stream``; the fault-free twin
+    is ``stream_baseline``): an elastic trainer publishes a version every
+    step through the driver's KV into an in-process
+    :class:`~..serve.engine.DecodeEngine` (2 workers) through a
+    :class:`~..stream.StreamSubscriber`, while the plan kills the
+    publisher host at commit 2 (its respawn publishes under a bumped
+    epoch), tears one publish of the respawned publisher on the wire
+    (``publish.delta:torn``) and kills the driver in round 2 (an
+    ``adopt=True`` driver takes the job over). After the job the harness
+    injects a stale-epoch manifest and starves the stream into the
+    checkpoint fallback. :func:`check_stream_invariants` audits them."""
+    from .. import chaos as _chaos
+    from .. import checkpoint as ckptlib
+    from ..runner import elastic_driver as ed
+    from ..serve import DecodeEngine
+    from ..stream import StreamSubscriber
+    from ..stream import protocol as _sproto
+
+    # The victim must respawn, resume and publish after the adoption for
+    # the epoch and torn legs to fire.
+    steps = max(steps, 10)
+    workdir = workdir or tempfile.mkdtemp(prefix=f"chaos_{name}_")
+    journal_dir = os.path.join(workdir, "journal")
+    serve_ckpt = os.path.join(workdir, "serve_ckpt")
+    disco = _write_discovery(workdir, ["localhost:1", f"{STREAM_VICTIM}:1"])
+    worker_py = os.path.join(workdir, "worker.py")
+    with open(worker_py, "w") as f:
+        f.write(WORKER_PRELUDE + STREAM_WORKER)
+    driver_env = {"HVDTPU_BLACKLIST_COOLDOWN": "1.0"}
+    env = dict(_base_env(workdir, True), HVDTPU_TEST_SOAK_STEPS=str(steps),
+               HVDTPU_TEST_STREAM_SEED=str(seed),
+               HVDTPU_TEST_STREAM_PUB_HOST=STREAM_VICTIM, **driver_env)
+    if name == "stream":
+        # First match wins: the conditioned faults precede the pacing.
+        # The second torn publish fires on the RESPAWNED victim's first
+        # publish past step 7, on its bumped epoch.
+        env["HVDTPU_CHAOS"] = (
+            f"publish.delta:torn@step=2;n=1;host={STREAM_VICTIM};spawn=0,"
+            f"publish.delta:torn@after=7;n=1;host={STREAM_VICTIM},"
+            f"worker.step:crash@step=2;host={STREAM_VICTIM};spawn=0,"
+            "worker.step:slow=0.2")
+    else:
+        env["HVDTPU_CHAOS"] = "worker.step:slow=0.2"  # the same pacing
+    env["HVDTPU_CHAOS_SEED"] = str(seed)
+    _arm_trace(workdir, env)
+
+    # The serving side, in-process: the engine starts on the step-0
+    # parameters; the subscriber follows whichever KV server the live job
+    # incarnation owns (the callable is evaluated every poll).
+    eng = DecodeEngine(_stream_model(), _stream_params(seed, 0), workers=2,
+                       rows=2, kv_blocks=32, kv_block_size=8,
+                       max_seq_len=64, device="cpu")
+    eng.start()
+    job_ref: dict = {}
+    kv_override: dict = {}
+
+    def _kv():
+        if "kv" in kv_override:
+            return kv_override["kv"]
+        job = job_ref.get("job")
+        return getattr(job, "server", None) if job is not None else None
+
+    sub = StreamSubscriber(eng, kv=_kv, poll_secs=0.05, staleness_secs=1e9,
+                           ckpt_dir=serve_ckpt)
+    eng.attach_stream(sub)
+    sub.start()
+
+    # Mirror the live stream scope into the post-job stand-in, so the
+    # server's death with the job cannot strand the last version.
+    mem_kv = _MemKV()
+    mirror_stop = threading.Event()
+
+    def _mirror():
+        while not mirror_stop.is_set():
+            server = _kv()
+            if server is not None and hasattr(server, "scope_items"):
+                try:
+                    for k, v in server.scope_items("stream").items():
+                        mem_kv.put("stream", k, v)
+                except Exception:  # noqa: BLE001 - server mid-death
+                    pass
+            mirror_stop.wait(0.05)
+
+    mirror_t = threading.Thread(target=_mirror, daemon=True)
+    mirror_t.start()
+    result: dict = {}
+    deadline = time.time() + timeout
+
+    def _run(adopt: bool, key: str):
+        try:
+            with mock.patch.dict(os.environ, driver_env), \
+                    _discovery_interval(ed, True):
+                result[key] = ed.run_elastic(
+                    [sys.executable, worker_py], discovery_script=disco,
+                    min_np=1, reset_limit=10, extra_env=env, verbose=True,
+                    output_dir=os.path.join(workdir, "logs"),
+                    drain_timeout=30.0, job_ref=job_ref,
+                    journal_dir=journal_dir, adopt=adopt)
+        except BaseException as exc:  # noqa: BLE001
+            result[f"{key}_exc"] = repr(exc)
+
+    def _phase(adopt: bool, key: str) -> bool:
+        t = threading.Thread(target=_run, args=(adopt, key), daemon=True)
+        t.start()
+        t.join(timeout=max(5.0, deadline - time.time()))
+        if t.is_alive():
+            teardown_job(job_ref.get("job"))
+            t.join(timeout=10.0)
+            return True
+        return False
+
+    adopted_hosts: List[str] = []
+    if name == "stream":
+        # The original driver, armed to die in round 2 (the round that
+        # respawns the struck publisher host), then an adopter.
+        _chaos.plan("driver.crash:crash@step=2;n=1", seed=seed)
+        timed_out = _phase(False, "rc1")
+        _chaos.clear()
+        if not timed_out:
+            job_ref.clear()
+            timed_out = _phase(True, "rc")
+            job2 = job_ref.get("job")
+            if job2 is not None:
+                adopted_hosts = list(job2.adopted_hosts)
+    else:
+        timed_out = _phase(False, "rc")
+
+    mirror_stop.set()
+    mirror_t.join(timeout=5.0)
+    kv_override["kv"] = mem_kv
+    # The last published version must reach the fleet: the head is
+    # written last and nothing overwrites it after the job.
+    final_version = None
+    if not timed_out:
+        t0 = time.time()
+        while time.time() - t0 < 30.0:
+            with sub._lock:
+                final_version = sub._last_version
+            if final_version == steps:
+                break
+            time.sleep(0.05)
+    # Decode on the streamed step-N weights: token for token the
+    # fault-free twin's.
+    answered: Dict[int, list] = {}
+    errors: Dict[int, str] = {}
+    if not timed_out and final_version == steps:
+        futs = {i: eng.submit([1 + (i % 5), 2, (3 * i) % 7], DECODE_MAX_NEW)
+                for i in range(STREAM_DECODE_STREAMS)}
+        for i, f in futs.items():
+            try:
+                answered[i] = list(f.result(timeout=60.0))
+            except Exception as e:  # noqa: BLE001 - evidence
+                errors[i] = repr(e)
+    if name == "stream" and not timed_out:
+        # A late write from a dead trainer: a manifest from an epoch
+        # below every one seen is rejected, never staged.
+        mem_kv.put("stream", _sproto.HEAD_KEY, _sproto.frame_manifest(
+            version=steps + 7, epoch=-1, step=steps + 7, layout={},
+            buckets=[]))
+        t0 = time.time()
+        while time.time() - t0 < 10.0:
+            with sub._lock:
+                if sub.n_epoch_rejected > 0:
+                    break
+            time.sleep(0.05)
+        # The trainer is gone: the stream is stale for good. A tight
+        # threshold and a newer whole checkpoint must make the subscriber
+        # fall back to it through the CheckpointWatcher.
+        ckptlib.save_checkpoint(serve_ckpt, _stream_params(seed, steps + 1),
+                                step=steps + 1, force=True)
+        sub.staleness_secs = 0.3
+        t0 = time.time()
+        while time.time() - t0 < 15.0:
+            with sub._lock:
+                if sub.n_fallbacks > 0:
+                    break
+            time.sleep(0.05)
+    diagnostics = None
+    if timed_out:
+        diagnostics = _attach_flight_recorder(
+            timeout_diagnostics(workdir, job_ref.get("job")), workdir)
+    _disarm_trace()
+    # The evidence before the teardown (stop() drains the workers away).
+    with eng._cond:
+        engine_version_log = list(eng.stream_version_log)
+        worker_version_logs = {n: list(w.version_log)
+                               for n, w in eng._workers.items()}
+    with sub._lock:
+        applied_log = [list(t) for t in sub.applied_log]
+        n_torn = sub.n_torn
+        n_epoch_rejected = sub.n_epoch_rejected
+        n_fallbacks = sub.n_fallbacks
+        sub_error = sub.last_error
+    eng.stop()  # stops the attached subscriber first
+    return {
+        "scenario": name,
+        "steps": steps,
+        "workdir": workdir,
+        "timed_out": timed_out,
+        "rc": result.get("rc"),
+        "exc": result.get("rc_exc"),
+        "crash_exc": result.get("rc1_exc"),  # must name DriverCrashed
+        "records": read_records(workdir),
+        "quarantined": [],
+        "diagnostics": diagnostics,
+        "adopted_hosts": adopted_hosts,
+        "final_version": final_version,
+        "applied_log": applied_log,
+        "engine_version_log": engine_version_log,
+        "worker_version_logs": worker_version_logs,
+        "n_torn": n_torn,
+        "n_epoch_rejected": n_epoch_rejected,
+        "n_fallbacks": n_fallbacks,
+        "sub_error": sub_error,
+        "answered": answered,
+        "errors": errors,
+        "baseline": (run_stream_scenario("stream_baseline", steps=steps,
+                                         timeout=timeout, seed=seed)
+                     if name == "stream" else None),
+    }
+
+
+def check_stream_invariants(res: dict) -> List[str]:
+    """Violated invariants of one stream scenario result ([] = ok)."""
+    name = res["scenario"]
+    if res["timed_out"]:
+        return [f"{name}: job did not finish in time"]
+    if res.get("exc"):
+        return [f"{name}: harness raised {res['exc']}"]
+    problems: List[str] = []
+    if res["rc"] != 0:
+        problems.append(f"{name}: job rc={res['rc']}, wanted 0")
+    steps = res["steps"]
+    if res.get("final_version") != steps:
+        problems.append(
+            f"{name}: final applied version {res.get('final_version')}, "
+            f"wanted {steps} (last error: {res.get('sub_error')})")
+    # No torn apply: every version the engine flipped in, and every one a
+    # decode worker decoded under, came through the subscriber's verified
+    # all-or-nothing staging.
+    applied = {int(v) for v, _ in res["applied_log"]}
+    bad = [v for v in res["engine_version_log"] if v not in applied]
+    if bad:
+        problems.append(f"{name}: engine flipped versions {bad[:4]} the "
+                        "subscriber never verified -- a torn set served")
+    for worker, versions in res["worker_version_logs"].items():
+        bad = [v for v in versions if v not in applied]
+        if bad:
+            problems.append(f"{name}: decode worker {worker} served "
+                            f"unverified versions {bad[:4]}")
+    # Within one epoch versions strictly increase (an epoch bump may
+    # reset the floor: the trainer resumed from its restored step).
+    by_epoch: Dict[int, List[int]] = {}
+    last_epoch = None
+    for v, e in res["applied_log"]:
+        by_epoch.setdefault(int(e), []).append(int(v))
+        if last_epoch is not None and e < last_epoch:
+            problems.append(f"{name}: applied epoch regressed "
+                            f"{last_epoch} -> {e}")
+        last_epoch = e
+    for e, versions in by_epoch.items():
+        if versions != sorted(set(versions)):
+            problems.append(f"{name}: versions within epoch {e} not "
+                            f"strictly increasing: {versions}")
+    if res["errors"]:
+        problems.append(f"{name}: {len(res['errors'])} decode stream(s) "
+                        f"failed: {dict(list(res['errors'].items())[:3])}")
+    if len(res["answered"]) != STREAM_DECODE_STREAMS:
+        problems.append(f"{name}: {len(res['answered'])}/"
+                        f"{STREAM_DECODE_STREAMS} decode streams answered")
+    if name == "stream":
+        base = res.get("baseline") or {}
+        problems.extend(check_stream_invariants(base))
+        if base and res["answered"] != base.get("answered"):
+            diff = [i for i in res["answered"] if res["answered"].get(i)
+                    != base.get("answered", {}).get(i)]
+            problems.append(f"stream: decode streams {diff[:4]} are not "
+                            "token-identical to the fault-free baseline")
+        if res["n_torn"] < 1:
+            problems.append("stream: no torn set was rejected -- the "
+                            "injected mid-publish death left no damage")
+        if res["n_epoch_rejected"] < 1:
+            problems.append("stream: the stale-epoch manifest was never "
+                            "rejected")
+        if res["n_fallbacks"] < 1:
+            problems.append("stream: the starved stream never fell back "
+                            "to the CheckpointWatcher path")
+        epochs = {int(e) for _, e in res["applied_log"]}
+        if len(epochs) < 2:
+            problems.append(f"stream: applied epochs {sorted(epochs)} -- "
+                            "the respawned publisher's epoch never "
+                            "reached the fleet")
+        if "DriverCrashed" not in (res.get("crash_exc") or ""):
+            problems.append(f"stream: the first driver ended with "
+                            f"{res.get('crash_exc')!r}, wanted "
+                            "DriverCrashed")
+        if not res["adopted_hosts"]:
+            problems.append("stream: the adopting driver re-attached no "
+                            "workers")
+    return problems
+
+
+# ---- the closed-loop autotuner (the ``autotune`` scenario) ------------------
+
+# The worker half of the tuner against the real journaled KV, scored by a
+# deterministic analytic duration (a smooth bowl over the unit knob
+# vector) instead of wall time: a fault-free run and a crash-interrupted
+# run land on the same final vector only if the search resumes from
+# journaled history. A retrace switch arrives as a round republish
+# (HostsUpdatedInterrupt at a commit); each rank then logs the bucket
+# layout the env the switch wrote gives, which must agree across ranks.
+AUTOTUNE_WORKER = """
+import horovod_tpu_torch as hvt
+from horovod_tpu_torch import elastic
+from horovod_tpu_torch import tune
+from horovod_tpu_torch.elastic import worker as _ew
+from horovod_tpu_torch.ops.batching import pack_spec
+
+hvt.init(device="cpu", backend="gloo")
+registry = tune.training_space()  # the driver's space, from the same env
+client = tune.AutotuneClient(registry, _ew.tune_config_source(),
+                             scorer=tune.WindowScorer())
+_LAYOUT_PARAMS = {"w": torch.zeros(256, 64), "b": torch.zeros(64)}
+_n_retraces = 0
+
+
+def fake_ms(vector):
+    # A bowl with an interior optimum: the same on every rank and run.
+    u = registry.to_unit(vector)
+    return 100.0 + 50.0 * sum((ui - 0.35) ** 2 for ui in u)
+
+
+state = elastic.ObjectState(step=0)
+
+
+@elastic.run
+def train(st):
+    global _n_retraces
+    while not client.done:
+        act = client.step_start()
+        if act is not None:
+            log({"host": host_id, "rank": hvt.rank(),
+                 "trial": client.applied_trial, "at_step": client.step,
+                 "vector": client.applied, "retrace": bool(act.retrace)})
+            if act.retrace:
+                # What a rebuilt step would bucket from the env the
+                # lockstep switch just wrote.
+                _n_retraces += 1
+                _, spec = pack_spec(_LAYOUT_PARAMS)
+                log({"host": host_id, "rank": hvt.rank(),
+                     "retrace_n": _n_retraces,
+                     "retrace_layout": list(spec.padded_sizes())})
+        time.sleep(0.02)
+        vec = client.applied or registry.canonical(registry.default_vector())
+        client.step_end(fake_ms(vec) / 1e3)
+        st.step += 1
+        st.commit()
+    return st.step
+
+
+train(state)
+log({"host": host_id, "rank": hvt.rank(),
+     "autotune_final": client.applied, "final_trial": client.applied_trial,
+     "steps_run": client.step})
+hvt.shutdown()
+"""
+
+# A small, fast search, shared by both phases and the fault-free twin so
+# their trial histories compare.
+AUTOTUNE_SOAK_ENV = {
+    "HVDTPU_AUTOTUNE": "1",
+    "HVDTPU_AUTOTUNE_WINDOW_STEPS": "2",
+    "HVDTPU_AUTOTUNE_WARMUP_STEPS": "1",
+    "HVDTPU_AUTOTUNE_MAX_TRIALS": "5",
+    "HVDTPU_AUTOTUNE_PATIENCE": "3",
+    "HVDTPU_AUTOTUNE_SEED": "20240731",
+    # The whole catalog: the categorical arm and the retrace-knob round
+    # republish both run.
+    "HVDTPU_AUTOTUNE_KNOBS": ("FUSION_THRESHOLD,OVERLAP_STAGGER,"
+                              "PREFETCH_DEPTH,COLLECTIVE_LAYOUT"),
+}
+
+
+def run_autotune_scenario(workdir: Optional[str] = None,
+                          timeout: float = 120.0, seed: int = 0,
+                          crash: bool = True) -> dict:
+    """The closed-loop autotuner under a driver crash: a 2-host elastic
+    job tunes over the journaled KV (the driver's coordinator, the
+    workers' lockstep clients with analytic scores); ``driver.crash``
+    kills the driver in round 2 (rounds advance with every retrace
+    switch, so mid-search); an ``adopt=True`` driver replays the journal,
+    resumes the search from its journaled trial history and takes it to
+    convergence. ``crash=False`` is the fault-free twin.
+    :func:`check_autotune_invariants` audits both."""
+    from .. import chaos as _chaos
+    from ..runner import elastic_driver as ed
+
+    workdir = workdir or tempfile.mkdtemp(prefix="chaos_autotune_")
+    os.makedirs(workdir, exist_ok=True)  # the twin nests one
+    journal_dir = os.path.join(workdir, "journal")
+    disco = _write_discovery(workdir, ["localhost:1", "127.0.0.1:1"])
+    worker_py = os.path.join(workdir, "worker.py")
+    with open(worker_py, "w") as f:
+        f.write(WORKER_PRELUDE + AUTOTUNE_WORKER)
+    driver_env = dict(AUTOTUNE_SOAK_ENV)
+    env = dict(_base_env(workdir, True), **AUTOTUNE_SOAK_ENV)
+    _arm_trace(workdir, env)
+    result: dict = {}
+    job_ref: dict = {}
+    deadline = time.time() + timeout
+
+    def _run(adopt: bool, key: str):
+        try:
+            with mock.patch.dict(os.environ, driver_env), \
+                    _discovery_interval(ed, True):
+                result[key] = ed.run_elastic(
+                    [sys.executable, worker_py], discovery_script=disco,
+                    min_np=1, reset_limit=10, extra_env=env, verbose=True,
+                    output_dir=os.path.join(workdir, "logs"),
+                    drain_timeout=30.0, job_ref=job_ref,
+                    journal_dir=journal_dir, adopt=adopt)
+        except BaseException as exc:  # noqa: BLE001
+            result[f"{key}_exc"] = repr(exc)
+
+    def _phase(adopt: bool, key: str) -> bool:
+        t = threading.Thread(target=_run, args=(adopt, key), daemon=True)
+        t.start()
+        t.join(timeout=max(5.0, deadline - time.time()))
+        if t.is_alive():
+            teardown_job(job_ref.get("job"))
+            t.join(timeout=10.0)
+            return True
+        return False
+
+    adopted_history_len = None
+    if crash:
+        _chaos.plan("driver.crash:crash@step=2;n=1", seed=seed)
+        timed_out = _phase(False, "rc1")
+        _chaos.clear()
+        if not timed_out:
+            job_ref.clear()
+            timed_out = _phase(True, "rc")
+            job2 = job_ref.get("job")
+            if job2 is not None and job2._adopted_state:
+                at = job2._adopted_state.get("autotune") or {}
+                adopted_history_len = len(
+                    (at.get("search") or {}).get("ys", []))
+    else:
+        timed_out = _phase(False, "rc")
+    job2 = job_ref.get("job")
+    diagnostics = None
+    if timed_out:
+        diagnostics = _attach_flight_recorder(
+            timeout_diagnostics(workdir, job2), workdir)
+    _disarm_trace()
+    tuner = getattr(job2, "_tuner", None) if job2 is not None else None
+    res = {
+        "scenario": "autotune",
+        "workdir": workdir,
+        "timed_out": timed_out,
+        "rc": result.get("rc"),
+        "exc": result.get("rc_exc"),
+        "crash_exc": result.get("rc1_exc"),  # must name DriverCrashed
+        "records": read_records(workdir),
+        "quarantined": [],
+        "diagnostics": diagnostics,
+        "adopted_history_len": adopted_history_len,
+        "final_trials": tuner.search.n_trials if tuner is not None else None,
+        "final_vector": (tuner.search.best_vector() if tuner is not None
+                         and tuner.search.n_trials else None),
+        "kv_restarts": 0,
+        "host_health": (job2.driver.host_manager.host_health()
+                        if job2 is not None else {}),
+        "guard_reports": {},
+    }
+    if crash:
+        # The fault-free twin the final vector must equal.
+        res["baseline"] = run_autotune_scenario(
+            workdir=os.path.join(workdir, "baseline"),
+            timeout=max(30.0, deadline - time.time() + timeout / 2),
+            seed=seed, crash=False)
+    return res
+
+
+def check_autotune_invariants(res: dict) -> List[str]:
+    """Violated invariants of the autotune scenario ([] = survived)."""
+    if res["timed_out"]:
+        return ["autotune: job did not finish in time"]
+    if res.get("exc"):
+        return [f"autotune: driver raised {res['exc']}"]
+    problems: List[str] = []
+    if res["rc"] != 0:
+        problems.append(f"autotune: job rc={res['rc']}, wanted 0")
+    finals = [r for r in res["records"] if "autotune_final" in r]
+    if not finals:
+        return problems + ["autotune: no worker reported a final vector"]
+    vectors = {json.dumps(r["autotune_final"], sort_keys=True)
+               for r in finals}
+    if len(vectors) != 1:
+        problems.append(f"autotune: ranks disagree on the final vector: "
+                        f"{vectors}")
+    base = res.get("baseline")
+    if base is not None:
+        # A crash mid-search ends on the fault-free run's vector: resumed
+        # from the journaled history, never re-learned.
+        if "DriverCrashed" not in (res.get("crash_exc") or ""):
+            problems.append(f"autotune: the driver never crashed (first "
+                            f"phase: {res.get('crash_exc')!r})")
+        if not res.get("adopted_history_len"):
+            problems.append("autotune: the adopter held no journaled trial "
+                            "history -- the search restarted")
+        problems.extend(check_autotune_invariants(base))
+        base_finals = [r for r in base.get("records", [])
+                       if "autotune_final" in r]
+        if base_finals:
+            want = json.dumps(base_finals[-1]["autotune_final"],
+                              sort_keys=True)
+            got = json.dumps(finals[-1]["autotune_final"], sort_keys=True)
+            if want != got:
+                problems.append(f"autotune: the final vector after the "
+                                f"crash ({got}) is not the fault-free "
+                                f"run's ({want})")
+        if (base.get("final_trials") is not None
+                and res.get("final_trials") is not None
+                and base["final_trials"] != res["final_trials"]):
+            problems.append(f"autotune: trial count {res['final_trials']} "
+                            f"!= fault-free {base['final_trials']}")
+    # No mixed vector: every rank switched each trial at the same step
+    # boundary to the same vector.
+    by_trial: Dict[int, set] = {}
+    for r in res["records"]:
+        if "trial" in r and "at_step" in r:
+            by_trial.setdefault(r["trial"], set()).add(
+                (r["at_step"], json.dumps(r["vector"], sort_keys=True)))
+    for trial, switches in sorted(by_trial.items()):
+        if len(switches) != 1:
+            problems.append(f"autotune: trial {trial} switched unevenly "
+                            f"across ranks: {sorted(switches)}")
+    # Every lockstep retrace rebuilt the same bucket layout on every rank.
+    by_retrace: Dict[int, set] = {}
+    for r in res["records"]:
+        if "retrace_layout" in r:
+            by_retrace.setdefault(r["retrace_n"], set()).add(
+                tuple(r["retrace_layout"]))
+    for n, layouts in sorted(by_retrace.items()):
+        if len(layouts) != 1:
+            problems.append(f"autotune: retrace {n} bucketed differently "
+                            f"across ranks: {sorted(layouts)}")
+    return problems
+
+
 # ---- invariants -------------------------------------------------------------
 
 
@@ -1216,6 +1899,10 @@ def check_invariants(res: dict, steps: int = DEFAULT_STEPS) -> List[str]:
         return check_serve_invariants(res)
     if name.startswith("decode"):
         return check_decode_invariants(res)
+    if name.startswith("stream"):
+        return check_stream_invariants(res)
+    if name == "autotune":
+        return check_autotune_invariants(res)
     if res["timed_out"]:
         return [f"{name}: job did not finish in time: "
                 f"{res.get('diagnostics')}"]

@@ -27,7 +27,10 @@ dashboards and tooling. Two rules:
 
 The scan is pure AST over ``horovod_tpu_torch/`` (no imports of the
 linted code) for calls ``<expr>.counter/gauge/histogram/remove_gauge(<str>)``;
-``self.``-receiver calls (the registry's own definitions) are excluded.
+``self.``-receiver calls (the registry's own definitions) are excluded. It
+covers the autotuner's ``autotune.*`` names (owner ``obs/tune.py``, the
+per-knob ``autotune.candidate.<*>`` matched by its prefix) and the weight
+stream's ``stream.*`` (owner ``obs/stream.py``).
 Runnable standalone::
 
     python -m horovod_tpu_torch.tools.check_metric_names

@@ -73,12 +73,30 @@ GOODPUT = "GOODPUT"  # enable the goodput accounting ledger
 GOODPUT_WINDOW = "GOODPUT_WINDOW"  # pending-interval window (bounded memory)
 TIMELINE = "TIMELINE"  # path of the chrome-trace host timeline
 TIMELINE_MARK_CYCLES = "TIMELINE_MARK_CYCLES"  # cycle marks in the timeline
-# Defaults of make_train_step / ServePool knobs whose planes are not ported
-# yet (A14b, and the linter): an armed value raises there as the explicit
-# argument does.
+# Default of make_train_step(lint=...), whose plane (the linter) is not
+# ported yet: an armed value raises there as the explicit argument does.
 LINT = "LINT"  # default for make_train_step(lint=...): off|warn|raise
-PUBLISH_EVERY = "PUBLISH_EVERY"  # publish a delta every N commits; 0=off
+# Closed-loop autotuner (horovod_tpu_torch.tune): the telemetry-driven knob
+# search. HVDTPU_AUTOTUNE=1 is the default of make_train_step(autotune=...),
+# ServePool(autotune=...) and the elastic driver's rollout coordinator. In
+# the JAX package the same flag also arms the native ParameterManager inside
+# the C++ runtime's background loop; that half rides the native runtime,
+# which this package does not have yet (ROADMAP A16), and the flag arms the
+# Python plane alone here.
 AUTOTUNE = "AUTOTUNE"  # closed-loop autotuner, trainer and serving pool
+AUTOTUNE_LOG = "AUTOTUNE_LOG"  # launcher --autotune-log-file
+AUTOTUNE_WINDOW_STEPS = "AUTOTUNE_WINDOW_STEPS"  # scored steps per trial
+AUTOTUNE_WARMUP_STEPS = "AUTOTUNE_WARMUP_STEPS"  # discarded per switch
+AUTOTUNE_MAX_TRIALS = "AUTOTUNE_MAX_TRIALS"  # hard trial budget
+AUTOTUNE_PATIENCE = "AUTOTUNE_PATIENCE"  # no-improvement trials -> done
+AUTOTUNE_SEED = "AUTOTUNE_SEED"  # candidate-draw seed (determinism)
+AUTOTUNE_KNOBS = "AUTOTUNE_KNOBS"  # CSV subset of the search space
+COLLECTIVE_LAYOUT = "COLLECTIVE_LAYOUT"  # auto|flat|hierarchical
+# Live weight streaming, trainer -> decode fleet (horovod_tpu_torch.stream).
+PUBLISH_EVERY = "PUBLISH_EVERY"  # publish a delta every N commits; 0=off
+STREAM = "STREAM"  # arm the streamed hot-swap mode on serving
+STREAM_STALENESS_SECS = "STREAM_STALENESS_SECS"  # watchdog -> ckpt fallback
+STREAM_MAX_PENDING = "STREAM_MAX_PENDING"  # audit-gated deltas held, max
 
 DEFAULT_FUSION_THRESHOLD = 128 * 1024 * 1024
 DEFAULT_SERVE_BATCH_SIZE = 8
@@ -112,6 +130,16 @@ DEFAULT_DATA_TIMEOUT_SECS = 300.0  # the native runtime's default
 DEFAULT_PUBLISH_EVERY = 0  # weight streaming is opt-in
 DEFAULT_PREFETCH_DEPTH = 2  # double-buffered host-to-device staging
 DEFAULT_GOODPUT_WINDOW = 512  # pending intervals before the ledger settles
+# Autotuner defaults: the native ParameterManager's sampling and convergence
+# constants (steps_per_sample 10, 10 samples without improvement or 40
+# samples => done) and its candidate-draw seed, as the JAX package has them.
+DEFAULT_AUTOTUNE_WINDOW_STEPS = 10
+DEFAULT_AUTOTUNE_WARMUP_STEPS = 3
+DEFAULT_AUTOTUNE_MAX_TRIALS = 40
+DEFAULT_AUTOTUNE_PATIENCE = 10
+DEFAULT_AUTOTUNE_SEED = 20240731
+DEFAULT_STREAM_STALENESS_SECS = 30.0
+DEFAULT_STREAM_MAX_PENDING = 4
 
 
 def _lookup(name: str) -> Optional[str]:
@@ -467,10 +495,102 @@ def publish_every() -> int:
     return max(0, get_int(PUBLISH_EVERY, DEFAULT_PUBLISH_EVERY))
 
 
+def stream_enabled() -> bool:
+    """Master switch of the weight stream on the serving side. The
+    publisher is governed by :func:`publish_every` alone, so a trainer can
+    publish for fleets that opt in on their own."""
+    return get_bool(STREAM, False)
+
+
+def stream_staleness_secs() -> float:
+    """Seconds without a freshly applied stream version before the
+    subscriber falls back to the checkpoint watcher (>= 0.1 s: a zero
+    threshold would restore on every poll)."""
+    return max(0.1, get_float(
+        STREAM_STALENESS_SECS, DEFAULT_STREAM_STALENESS_SECS))
+
+
+def stream_max_pending() -> int:
+    """Guard-gated publishes held while they wait for the audit (>= 1).
+    When the queue is full the oldest capture is dropped: the next
+    verified publish supersedes it anyway."""
+    n = get_int(STREAM_MAX_PENDING, DEFAULT_STREAM_MAX_PENDING)
+    if n < 1:
+        raise ValueError(f"HVDTPU_STREAM_MAX_PENDING must be >= 1, got {n}")
+    return n
+
+
 def autotune_default() -> bool:
-    """Default for ``make_train_step(autotune=...)`` and
-    ``ServePool(autotune=...)``."""
+    """Default for ``make_train_step(autotune=...)``,
+    ``ServePool(autotune=...)`` and the elastic driver's rollout
+    coordinator. (The JAX package's flag also arms its native
+    ParameterManager; see :data:`AUTOTUNE`.)"""
     return get_bool(AUTOTUNE, False)
+
+
+def autotune_window_steps() -> int:
+    """Scored steps per autotune trial window (>= 1)."""
+    return max(1, get_int(AUTOTUNE_WINDOW_STEPS,
+                          DEFAULT_AUTOTUNE_WINDOW_STEPS))
+
+
+def autotune_warmup_steps() -> int:
+    """Steps discarded after every knob switch before the scoring window
+    opens (cold caches, a rebuilt step)."""
+    return max(0, get_int(AUTOTUNE_WARMUP_STEPS,
+                          DEFAULT_AUTOTUNE_WARMUP_STEPS))
+
+
+def autotune_max_trials() -> int:
+    """Hard trial budget before the search settles on its best (>= 1)."""
+    return max(1, get_int(AUTOTUNE_MAX_TRIALS, DEFAULT_AUTOTUNE_MAX_TRIALS))
+
+
+def autotune_patience() -> int:
+    """Consecutive no-improvement trials before convergence (>= 1)."""
+    return max(1, get_int(AUTOTUNE_PATIENCE, DEFAULT_AUTOTUNE_PATIENCE))
+
+
+def autotune_seed() -> int:
+    """Seed of the candidate draws: proposals are a pure function of
+    ``(seed, trial index, history)``, so a search resumed from journaled
+    history proposes what the fault-free one would."""
+    return get_int(AUTOTUNE_SEED, DEFAULT_AUTOTUNE_SEED)
+
+
+def autotune_knobs() -> tuple:
+    """Optional CSV subset of the search space (knob constant names,
+    e.g. ``FUSION_THRESHOLD,OVERLAP_STAGGER``); empty = the default space
+    of the plane being tuned."""
+    raw = (get_str(AUTOTUNE_KNOBS, "") or "").strip()
+    if not raw:
+        return ()
+    return tuple(k.strip().upper() for k in raw.split(",") if k.strip())
+
+
+def collective_layout() -> str:
+    """Collective layout preference: ``"auto"`` (the topology heuristic
+    and the tuner's categorical arm decide), ``"flat"`` or
+    ``"hierarchical"``. A typo raises."""
+    val = (get_str(COLLECTIVE_LAYOUT, "auto") or "auto").strip().lower()
+    if val in ("", "auto"):
+        return "auto"
+    if val in ("flat", "hierarchical"):
+        return val
+    raise ValueError(
+        f"HVDTPU_COLLECTIVE_LAYOUT={val!r} is not recognized; use "
+        "auto|flat|hierarchical")
+
+
+def declared_env_vars() -> set:
+    """Every ``HVDTPU_*`` knob this module declares (its constants,
+    prefixed): the tuner refuses to write any other variable."""
+    return {
+        "HVDTPU_" + v
+        for k, v in globals().items()
+        if k.isupper() and isinstance(v, str) and v.isupper()
+        and not k.startswith("DEFAULT_") and not v.startswith("HVT_")
+    }
 
 
 def prefetch_depth() -> int:

@@ -411,12 +411,25 @@ class TestDecodeEngine:
             after = eng.submit([5, 9], 8).result(timeout=30)
             assert eng.n_hotswaps == 1
             assert before != after  # the new weights serve
-            with pytest.raises(NotImplementedError, match="A14"):
-                eng.hot_swap(PARAMS, version=3)
-            with pytest.raises(NotImplementedError, match="A14"):
-                eng.attach_stream(object())
+            # The streamed mode (ported with the weight stream): a
+            # versioned swap joins the engine's version log, and an
+            # attached subscriber is stopped with the engine.
+            eng.hot_swap(PARAMS, version=3)
+            assert eng.stream_version == 3
+            assert eng.stream_version_log == [3]
+            stopped = []
+
+            class Sub:
+                def stop(self):
+                    stopped.append(True)
+
+            assert eng.attach_stream(Sub()) is eng
+            eng.submit([5, 9], 8).result(timeout=30)
+            assert 3 in sum((w.version_log for w in
+                             eng._workers.values()), [])
         finally:
             eng.stop()
+        assert stopped == [True]
 
     def test_scale_to_spawns_and_drains(self):
         eng = _engine(workers=1).start()

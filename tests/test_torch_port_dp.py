@@ -194,6 +194,19 @@ def test_unported_train_step_knobs_raise_naming_their_slice(knob, value):
                                 device="cpu", sharded=True, **{knob: value})
         tdp.make_train_step(lambda p, b: 0.0, topt.adamw(1e-3), device="cpu",
                             **{knob: value})
+    elif knob == "autotune":
+        # Ported (test_torch_port_tune.py): the step runs inside the
+        # closed-loop tuner's local search, bit for bit the plain step at
+        # one process (the fusion threshold it tunes cannot change the
+        # math of a one-rank reduction).
+        run = _tuned_step_runs(value)
+        assert run["tuned"] and run["params"] == _tuned_step_runs(False)[
+            "params"]
+    elif knob == "publish":
+        # Ported (test_torch_port_stream.py): the step carries a weight
+        # publisher on the given cadence, and a step publishes into its KV.
+        run = _tuned_step_runs(False, publish=value)
+        assert run["published"] == [2]
     else:
         with pytest.raises(NotImplementedError,
                            match="not ported yet.*arrives with"):
@@ -270,6 +283,54 @@ def _knob_step_runs(**kw):
                        for k, v in state.params.items()},
             "modes": sorted(set(modes)), "inside": sorted(set(inside)),
             "guarded": [state.guard is not None]}
+
+
+class _DictKV:
+    """An in-memory KV with the ``put``/``get`` surface of the elastic
+    client, for the weight publisher."""
+
+    def __init__(self):
+        self.data = {}
+
+    def put(self, scope, key, value):
+        self.data[(scope, key)] = bytes(value)
+
+    def get(self, scope, key):
+        return self.data.get((scope, key))
+
+
+def _tuned_step_runs(autotune, **kw):
+    """Three steps of a small regression through make_train_step(
+    autotune=..., **kw) on one process: the parameters, whether the step
+    came back tuned, and the versions a publisher (if any) wrote."""
+    from horovod_tpu_torch import tune as ttune
+    from horovod_tpu_torch.stream import protocol as tproto
+
+    if autotune is True:
+        autotune = ttune.AutotuneConfig(window_steps=1, warmup_steps=0,
+                                        max_trials=2, patience=2, seed=1)
+    params, batch = _problem()
+
+    def loss(p, b):
+        return ((b["x"] @ p["w"] + p["b"] - b["y"]) ** 2).mean()
+
+    step, opt = tdp.make_train_step(loss, topt.adamw(1e-2), device="cpu",
+                                    autotune=autotune, **kw)
+    kv = _DictKV()
+    if getattr(step, "stream_publisher", None) is not None:
+        step.stream_publisher.kv = kv
+    state = tdp.init_state(
+        {k: torch.from_numpy(v) for k, v in params.items()}, opt)
+    for _ in range(3):
+        state, _ = step(state, jax.tree.map(torch.from_numpy, batch))
+    head = kv.get("stream", tproto.HEAD_KEY)
+    return {
+        "params": {k: v.detach().numpy().tobytes()
+                   for k, v in state.params.items()},
+        "tuned": hasattr(step, "autotune"),
+        "published": ([] if head is None
+                      else [tproto.unframe_manifest(head)["version"]]),
+    }
 
 
 def _remat_step_runs(remat=None):
@@ -364,15 +425,40 @@ def test_armed_env_default_raises_like_the_explicit_argument(
         assert _knob_step_runs(act_quant=armed)["modes"] == ["int8"]
         assert _knob_step_runs(act_quant=off)["modes"] == [""]
         return
-    match = "autotune" if knob is None else "not ported yet.*arrives with"
+    if knob is None:
+        # Ported: the armed default starts the pool's serving tuner, as
+        # autotune=True does; an explicit False wins over the environment.
+        from horovod_tpu_torch.serve import ServePool
+
+        for kw, tuned in (({}, True), ({"autotune": off}, False)):
+            pool = ServePool(lambda p, b: b, {"w": torch.ones(1)},
+                             device="cpu", **kw).start()
+            try:
+                assert (pool.tuner is not None) == tuned
+            finally:
+                pool.stop()
+        return
+    if knob == "autotune":
+        # Ported: the armed default wraps the step in the tuner, as
+        # autotune=True does; an explicit False wins over the environment.
+        assert _tuned_step_runs(None)["tuned"]
+        assert not _tuned_step_runs(off)["tuned"]
+        return
+    if knob == "publish":
+        # Ported: the armed default publishes every 3 steps, as publish=3
+        # does; an explicit 0 wins over the environment.
+        assert _tuned_step_runs(False)["published"] == [3]
+        assert _tuned_step_runs(False, publish=off)["published"] == []
+        return
+    match = "not ported yet.*arrives with"
     with pytest.raises(NotImplementedError, match=match):
         build()
-    if knob is not None:  # the explicit argument raises the same way
-        with pytest.raises(NotImplementedError, match=match):
-            tdp.make_train_step(lambda p, b: 0.0, topt.adamw(1e-3),
-                                device="cpu", **{knob: armed})
+    # The explicit argument raises the same way.
+    with pytest.raises(NotImplementedError, match=match):
+        tdp.make_train_step(lambda p, b: 0.0, topt.adamw(1e-3),
+                            device="cpu", **{knob: armed})
     # An explicit off value wins over the environment.
-    build(**{knob or "autotune": off})
+    build(**{knob: off})
 
 
 # -- Adasum, axis= and a user's accumulating optimizer (one process) -------

@@ -15,7 +15,7 @@ reference's twin forms its native world); ``run`` ships module-level
 functions with the standard library's pickle and refuses a closure;
 ``--check-build`` reports torch, the card toolchain and the
 ``torch.distributed`` backends; ``--timeline-*`` map to the timeline's
-knobs and ``--autotune`` raises (A14b).
+knobs and ``--autotune`` arms the autotuner.
 """
 
 import json
@@ -350,17 +350,23 @@ def test_cli_parser_flags_to_env():
     assert env["HVDTPU_CYCLE_TIME"] == "2.5"
     assert env["HVDTPU_STALL_CHECK_DISABLE"] == "1"
     assert args.command[1:] == ["python", "train.py"]
-    # The timeline flags map to the timeline's knobs, as in the JAX
-    # package; the autotuner's still raise, naming its slice.
+    # The timeline and autotuner flags map to their knobs, as in the JAX
+    # package.
     args = build_parser().parse_args(
         ["--timeline-filename", "/tmp/t.json", "--timeline-mark-cycles", "x"])
     env = _args_to_env(args)
     assert env["HVDTPU_TIMELINE"] == "/tmp/t.json"
     assert env["HVDTPU_TIMELINE_MARK_CYCLES"] == "1"
-    for flags in (["--autotune"], ["--autotune-log-file", "a"]):
-        args = build_parser().parse_args(flags + ["x"])
-        with pytest.raises(NotImplementedError, match="A14b"):
-            _args_to_env(args)
+    from horovod_tpu.runner.launch import (
+        _args_to_env as ref_args_to_env, build_parser as ref_parser)
+
+    flags = ["--autotune", "--autotune-log-file", "a", "x"]
+    env = _args_to_env(build_parser().parse_args(flags))
+    assert env["HVDTPU_AUTOTUNE"] == "1"
+    assert env["HVDTPU_AUTOTUNE_LOG"] == "a"
+    ref = ref_args_to_env(ref_parser().parse_args(flags))
+    assert {k: ref[k] for k in ("HVDTPU_AUTOTUNE", "HVDTPU_AUTOTUNE_LOG")} \
+        == {k: env[k] for k in ("HVDTPU_AUTOTUNE", "HVDTPU_AUTOTUNE_LOG")}
 
 
 def test_iface_override(monkeypatch):

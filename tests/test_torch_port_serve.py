@@ -348,9 +348,15 @@ class TestServePool:
             pool.stop()
 
     def test_unported_options_raise(self):
-        with pytest.raises(NotImplementedError, match="autotune"):
+        # autotune= is ported (test_torch_port_tune.py): a value that is
+        # neither a bool nor an AutotuneConfig raises, as in the JAX
+        # package, and the tuner starts with the pool.
+        with pytest.raises(ValueError, match="autotune"):
             ServePool(lambda p, b: b, {"w": torch.ones(1)}, device="cpu",
-                      autotune=True)
+                      autotune="yes")
+        tuned = ServePool(lambda p, b: b, {"w": torch.ones(1)}, device="cpu",
+                          autotune=True)
+        assert tuned.tuner is None and tuned._tune_cfg is not None
         with pytest.raises(ValueError, match="weight_dtype"):
             ServePool(lambda p, b: b, {"w": torch.ones(1)}, device="cpu",
                       weight_dtype="fp4")
