@@ -541,18 +541,39 @@ Phases (any failure exits non-zero; nothing is caught):
    BatchNorm, forward and backward) printed, the categories summing to
    within 1% of the device time linked to the operators that launched it,
    BERT's window 12/12/12 flash launches a step.
-38. Output: a "kernels" JSON line (the nine TPU kernels' counterparts and
+38. [analysis] the analysis plane (horovod_tpu_torch.analysis): [train]'s
+   step (GPT-2 small ZeRO-1 fused, 8 x 1025), the same on the int8 wire
+   and the fp8-compute step (replicated adamw), each recorded under fake
+   tensors, linted and certified: the collective sites, the findings (no
+   ERROR), the cert digest and the record's wall time, with every launch
+   counter and torch.cuda.memory_allocated unchanged across the record;
+   then [train]'s step run from the same start, its losses [train]'s bit
+   for bit (12/12/12 + 4 launches a step); step.memplan()'s peak and
+   breakdown beside the measured peak (max_memory_allocated over the
+   step less memory_allocated before it) at [train-remat]'s 32 x 1024
+   under per-block none, dots_saveable and full, compare_to_measured's ok
+   the gate, and [train-remat]'s peaks ordered full < dots_saveable <
+   none; two equal builds' digests equal, a 64 MiB threshold's
+   diff_certs index; a launched world of one (localhost:1) whose first
+   call's preflight over the KV passes under HVDTPU_CERT=raise with
+   [train]'s digest; kernels 1, 2, 3 and 6 timed straight and through
+   their hvt ops in turns (events and host us a call). The workers of
+   [elastic-recover] and [elastic-quant] run with HVDTPU_CERT=off: their
+   first steps are timed as before the preflight existed.
+39. Output: a "kernels" JSON line (the nine TPU kernels' counterparts and
    the cast kernel; "launches" is the training run's count -- for the
    quantize pair the int8 [train-quant] run's (beside it the
    [ckpt-reshard] and int8 [decode] runs' and the KV shapes' times as
    "kv_write" / "kv_gather"), for kernel 8 and the cast kernel the fp8
    [train-fp8] run's, for kernel 7 the [serve-int8] rounds' -- the forward
    kernel's serving count beside it as "launches_serve", and the flash
-   kernels', AdamW's and (from 22.) the quantize pair's counts in 18.-37.,
+   kernels', AdamW's and (from 22.) the quantize pair's counts in 18.-38.,
    each read over its own run, as "launches_phases" (29.-31. and 33.
    counted in the worker processes); the flash rows' ring
    times at n = 2, 4 and the whole sequence as "ring_flash_*"; the quantize pair's
-   times at an act-quant boundary as "boundary"), the card's name and power limit, and the last line
+   times at an act-quant boundary as "boundary"; kernels 1, 2, 3 and 6's
+   straight and hvt-op times as "wrap"), the card's name and power limit,
+   and the last line
    {"ok": true, "device": {...}}.
 
 A crash in native code prints every thread's Python stack to stderr
@@ -5755,6 +5776,10 @@ RECOVER_COMMITS, RECOVER_CKPT_AT, RECOVER_CRASH_AT = 8, (3, 6), 5
 SERVE_KV_REQUESTS = 64
 SERVE_KV_CRASH = "serve.dispatch:crash@step=2;host=127.0.0.1;spawn=0"
 WORKER_TIMEOUT_S = 300.0
+# The recovery phases time what they timed before the analysis plane: the
+# certification preflight (a fresh worker's first record, ~12 s of its
+# first step on the card) is [analysis]'s to run and to time.
+CERT_OFF = {"HVDTPU_CERT": "off"}
 
 
 def phase_dir(prefix: str) -> Path:
@@ -5919,6 +5944,7 @@ def elastic_recover(hvt):
             t0 = time.perf_counter()
             rc, recs = run_elastic_scenario(
                 str(d), src, initial_hosts=["localhost:1"], chaos=chaos,
+                extra_env=CERT_OFF,
                 driver_env={"HVDTPU_BLACKLIST_COOLDOWN": "1"},
                 timeout=WORKER_TIMEOUT_S, drain_timeout=60.0,
                 job_ref=job_ref, fast=False)
@@ -6577,7 +6603,7 @@ def elastic_quant(hvt, n_quant_buckets):
         planes = {"HVDTPU_METRICS": "1",
                   "HVDTPU_METRICS_DIR": str(workdir / "metrics"),
                   "HVDTPU_TRACE": "1", "HVDTPU_TRACE_DIR": str(trace_dir),
-                  "HVDTPU_GOODPUT": "1"}
+                  "HVDTPU_GOODPUT": "1", **CERT_OFF}
         obs_reset()
         registry.enable()
         goodput.enable()
@@ -7407,6 +7433,337 @@ def profile_step_phase(hvt):
 
 
 
+# ---- the analysis plane: [analysis] -----------------------------------------
+
+# A launched world of one: [train]'s step, its first call's certification
+# preflight over the launcher's KV under HVDTPU_CERT=raise.
+CERT_WORKER = '''
+import torch.nn.functional as F
+
+from horovod_tpu_torch.elastic import worker as ew
+
+world()
+os.environ["HVDTPU_CERT"] = "raise"
+cfg = hvt.GPT2Config.small(param_dtype=torch.float32)
+model = hvt.GPT2LMModel(cfg, device=DEVICE)
+model.load_state_dict(hvt.convert.init_params(cfg, seed=0))
+
+
+def loss_fn(params, tokens):
+    logits = torch.func.functional_call(model, params, (tokens[:, :-1],))
+    return F.cross_entropy(logits.flatten(0, 1), tokens[:, 1:].flatten())
+
+
+step, opt = hvt.make_train_step(loss_fn, hvt.fused_adamw(LR), sharded=True,
+                                fused_update=True, device=DEVICE)
+state = dp.init_state(model, opt)
+tokens = batch_tokens(cfg, BATCH)
+channel = ew.cert_channel()
+t0 = time.perf_counter()
+report = step.preflight(state, tokens)  # this process's first record
+t1 = time.perf_counter()
+step.preflight(state, tokens)
+t2 = time.perf_counter()
+reset()
+state, loss = step(state, tokens)
+record({"preflight_s": [t1 - t0, t2 - t1],
+        "channel": None if channel is None else {
+            "host": channel.host_id, "round": channel.round_,
+            "n_hosts": channel.n_hosts},
+        "report": None if report is None else {
+            k: report[k] for k in ("ok", "round", "n_hosts", "n_published",
+                                   "digest", "hosts")},
+        "latched": step._cert_latch["done"], "loss": float(loss),
+        "launches": counts()})
+'''
+
+
+def all_counts(fa, fadam, tq):
+    """Every kernel's launch counter."""
+    return (fa.launches, fa.launches_dkdv, fa.launches_dq, fadam.launches,
+            tq.launches_quant, tq.launches_dequant, tq.launches_fp8_matmul,
+            tq.launches_fp8_cast, tq.launches_fp8_relayout,
+            tq.launches_int8_matmul, tq.launches_int8_matmul_reduce,
+            tq.launches_int8_relayout)
+
+
+def analysis_record(hvt, kernels, tag, step, state, tokens):
+    """One step recorded, linted and certified (the row and the cert); the
+    record must launch no kernel and allocate no device memory."""
+    import gc
+
+    from horovod_tpu_torch import analysis as an
+
+    # Earlier builds' cycles collected first, and no collection during the
+    # record: the allocated bytes change only if the record allocates.
+    gc.collect()
+    torch.cuda.synchronize()
+    before = (all_counts(*kernels), torch.cuda.memory_allocated())
+    gc.disable()
+    try:
+        t0 = time.perf_counter()
+        rec = step.trace(state, tokens)
+        wall = time.perf_counter() - t0
+        findings = step.lint(state, tokens, jaxpr=rec)
+        cert = step.certify(state, tokens, jaxpr=rec)
+        torch.cuda.synchronize()
+        after = (all_counts(*kernels), torch.cuda.memory_allocated())
+    finally:
+        gc.enable()
+    sites = [f"{s.kind} {[str(a) for a in s.in_avals]} -> "
+             f"{[str(a) for a in s.out_avals]}" for s in rec.collectives]
+    errs = an.errors(findings)
+    hvt_ops = {k: v for k, v in rec.op_counts.items()
+               if k.startswith("hvt::")}
+    log(f"[analysis] {tag}: recorded in {wall:.3f} s ({rec.n_eqns} ops, "
+        f"hvt ops {hvt_ops}); "
+        f"collective sites {sites}; findings "
+        f"{[str(f) for f in findings] or 'none'}; cert {cert.digest} "
+        f"({cert.n_collectives} collectives); launches and allocated bytes "
+        f"unchanged across the record: {before == after}")
+    if errs:
+        raise AssertionError(f"[analysis] {tag}: ERROR findings {errs}")
+    if before != after:
+        raise AssertionError(f"[analysis] {tag}: the record launched or "
+                             f"allocated: {before} -> {after}")
+    return {"record_s": wall, "n_ops": rec.n_eqns, "hvt_ops": hvt_ops,
+            "sites": sites, "findings": [f.to_dict() for f in findings],
+            "digest": cert.digest, "entries": list(cert.entries),
+            "unchanged": before == after}, cert
+
+
+def wrap_times(fa, fadam, gen, sizes):
+    """Kernels 1, 2, 3 and 6 called straight (the wrapper's views, checks
+    and ctypes launch, as before the ops) and through their hvt ops, in
+    turns: event ms of back-to-back calls and the host us a call."""
+    import math as _math
+
+    b, s, h, d = 8, 1024, 12, 64
+    q, k, v = qkv_views(gen, b, s, s, h, d)
+    kw = dict(causal=True, layout="bsm", n_heads=h)
+    out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+    g = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+
+    # The wrappers' CUDA paths as they were before the ops: views, checks,
+    # the launch.
+    def fwd_direct():
+        q4, k4, v4 = fa._views(q, k, v, "bsm", h)
+        kv_len = fa._check(q4, k4, v4, None)
+        return fa._launch(q4, k4, v4, causal=True, q_offset=0, kv_offset=0,
+                          sm_scale=1.0 / _math.sqrt(q4.shape[-1]),
+                          layout="bsm", kv_len=kv_len)
+
+    def bwd_direct():
+        q4, k4, v4 = fa._views(q, k, v, "bsm", h)
+        kv_len = fa._check(q4, k4, v4, None)
+        return fa._bwd_launch(
+            q4, k4, v4, fa._view4(out, "bsm", h), fa._view4(g, "bsm", h),
+            lse, None, causal=True, q_offset=0, kv_offset=0,
+            sm_scale=1.0 / _math.sqrt(q4.shape[-1]), layout="bsm",
+            kv_len=kv_len)
+
+    n = max(sizes)
+    p, m, vv, gr = (torch.randn(n, generator=gen, device="cuda")
+                    for _ in range(4))
+    vv = vv.abs()
+    count = torch.full((), 3, dtype=torch.int32, device="cuda")
+    spec = fadam.FusedAdamSpec(TRAIN_LR)
+
+    def adam_direct():
+        fadam._check(p, m, vv, gr, count, None)
+        return fadam._launch(p, m, vv, gr, count, spec, None)
+
+    pairs = {
+        "flash_fwd": (fwd_direct,
+                      lambda: fa.flash_attention_with_lse(q, k, v, **kw)),
+        "flash_bwd": (bwd_direct,
+                      lambda: fa.flash_attention_bwd(q, k, v, out, lse, g,
+                                                     **kw)),
+        "fused_adamw": (adam_direct,
+                        lambda: fadam.fused_adamw_update(p, m, vv, gr, count,
+                                                         spec)),
+    }
+    res = {}
+    for name, (direct, op) in pairs.items():
+        rounds = []
+        for _ in range(3):  # in turns: direct, op, op, direct
+            rounds.append({
+                "direct_ms": time_ms(direct), "op_ms": time_ms(op),
+                "op_host_us": host_us(op), "direct_host_us": host_us(direct),
+            })
+        row = {key: float(np.median([r[key] for r in rounds]))
+               for key in rounds[0]}
+        row["host_us_added"] = row["op_host_us"] - row["direct_host_us"]
+        res[name] = row
+        log(f"[analysis] wrap {name}: events {row['direct_ms']:.4f} -> "
+            f"{row['op_ms']:.4f} ms a call; host {row['direct_host_us']:.1f}"
+            f" -> {row['op_host_us']:.1f} us a call "
+            f"(+{row['host_us_added']:.1f} us) [{card_line()}]")
+    return res
+
+
+def analysis_phase(hvt, kernels, trained, remat, sizes):
+    """[analysis]: the analysis plane on the card. Records (fake tensors:
+    no launch, no allocation) of [train]'s GPT-2 small ZeRO-1 fused step,
+    of the same step on the int8 wire and of the fp8-compute step, each
+    linted and certified; then [train]'s step run from the same start, its
+    losses [train]'s bit for bit; the memory plan against the measured
+    peak at [train-remat]'s 32 x 1024 under none, dots_saveable and full;
+    equal builds' digests and a threshold change's first divergence; a
+    launched world of one's preflight over the KV under HVDTPU_CERT=raise;
+    and kernels 1, 2, 3 and 6 timed before and after their op wrap."""
+    from horovod_tpu_torch import analysis as an
+    from horovod_tpu_torch.parallel import dp
+    from horovod_tpu_torch.tools.chaos_soak import run_elastic_scenario
+
+    fa, fadam, tq = kernels
+    t_phase = time.perf_counter()
+    hvt.init(backend="nccl")
+    cfg = hvt.GPT2Config.small(param_dtype=torch.float32)
+    seq = cfg.max_len
+    sd0 = hvt.convert.init_params(cfg, seed=0)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, seq + 1), dtype=np.int64)).cuda()
+
+    def build(c=cfg, sd=sd0, opt=None, **kw):
+        model = hvt.GPT2LMModel(c)
+        model.load_state_dict(sd)
+        step, wopt = hvt.make_train_step(
+            train_loss(model), opt or hvt.fused_adamw(TRAIN_LR), **kw)
+        return model, step, dp.init_state(model, wopt)
+
+    rec = {}
+    zero1 = dict(sharded=True, fused_update=True)
+    model, step, state = build(**zero1)
+    rec["train"], cert = analysis_record(hvt, kernels, "[train]'s step",
+                                         step, state, tokens)
+    # The step itself, from the same start: [train]'s losses bit for bit.
+    reset_counts(*kernels)
+    losses = []
+    for _ in range(len(trained["losses"])):
+        state, loss = step(state, tokens)
+        losses.append(float(loss))
+    counts = read_counts(*kernels)
+    same = losses == trained["losses"]
+    log(f"[analysis] [train]'s step after its record: losses {losses}; "
+        f"[train]'s bit for bit: {same}; launches {counts}")
+    if not same:
+        raise AssertionError(f"[analysis] losses {losses} != [train]'s "
+                             f"{trained['losses']}")
+    check_counts("analysis", counts, {
+        "flash_fwd": cfg.n_layers, "flash_bwd_dkdv": cfg.n_layers,
+        "flash_bwd_dq": cfg.n_layers, "fused_adamw": len(sizes)},
+        len(losses))
+    rec["train"]["losses_bitwise"] = same
+    rec["launches"] = counts
+    # Equal knobs: equal digests; another threshold: the first divergence.
+    _, step2, state2 = build(**zero1)
+    again = step2.certify(state2, tokens)
+    _, step3, state3 = build(threshold_bytes=64 << 20, **zero1)
+    other = step3.certify(state3, tokens)
+    diff = an.diff_certs(cert, other)
+    rec["certs"] = {"equal": again.digest == rec["train"]["digest"],
+                    "other_digest": other.digest,
+                    "first_divergent_index": diff["first_divergent_index"],
+                    "reason": diff["reason"]}
+    log(f"[analysis] two builds with equal knobs: digests equal "
+        f"{rec['certs']['equal']}; threshold 64 MiB: {diff['reason']} at "
+        f"index {diff['first_divergent_index']} "
+        f"({diff.get('a_entry', {}).get('in')} vs "
+        f"{diff.get('b_entry', {}).get('in')})")
+    if not rec["certs"]["equal"] or diff["first_divergent_index"] is None:
+        raise AssertionError(f"[analysis] certs {rec['certs']}")
+    del model, step, state, step2, state2, step3, state3
+    torch.cuda.empty_cache()
+    # The int8 wire and fp8 compute.
+    _, step, state = build(compression=hvt.Compression.int8, **zero1)
+    rec["int8_wire"] = analysis_record(hvt, kernels, "int8 wire", step,
+                                       state, tokens)[0]
+    del step, state
+    cfg8 = dataclasses.replace(cfg, compute_dtype="fp8")
+    _, step, state = build(cfg8, hvt.convert.init_params(cfg8, seed=0),
+                           hvt.adamw(FP8_LR), compute_dtype="fp8")
+    rec["fp8"] = analysis_record(hvt, kernels, "fp8 compute", step, state,
+                                 tokens)[0]
+    del step, state
+    torch.cuda.empty_cache()
+    # The plan against the measured peak at [train-remat]'s shape.
+    big = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (REMAT_BATCH, seq + 1), dtype=np.int64)).cuda()
+    plans = {}
+    for remat_mode in ("none", "dots_saveable", "full"):
+        c = dataclasses.replace(cfg, remat=remat_mode)
+        model = hvt.GPT2LMModel(c)
+        model.load_state_dict(sd0)
+        step, wopt = hvt.make_train_step(train_loss(model),
+                                         hvt.fused_adamw(TRAIN_LR), **zero1)
+        state = dp.init_state({n: p.detach().clone()
+                               for n, p in model.named_parameters()}, wopt)
+        state, _ = step(state, big)  # the trainer's own first allocations
+        t0 = time.perf_counter()
+        plan = step.memplan(state, big)
+        plan_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        measured, source = an.measure_step_bytes(lambda: step(state, big),
+                                                 device="cuda")
+        gate = an.compare_to_measured(plan, measured, source)
+        above = plan.peak_bytes - plan.resident_bytes
+        plans[remat_mode] = dict(gate, plan_s=plan_s,
+                                 planned_above_resident=above,
+                                 remat_phase_peak_gib=remat["runs"][
+                                     "none" if remat_mode == "none"
+                                     else f"block/{remat_mode}"]["peak_gib"])
+        log(f"[analysis] memplan {remat_mode} at {REMAT_BATCH} x {seq}: "
+            f"planned peak {plan.peak_bytes / 2**30:.3f} GiB "
+            f"{ {k: round(v / 2**30, 3) for k, v in plan.breakdown.items()} } "
+            f"(above the resident state {above / 2**30:.3f} GiB; planned in "
+            f"{plan_s:.2f} s); measured {measured / 2**30:.3f} GiB "
+            f"(max_memory_allocated over the step less allocated before); "
+            f"ratio {gate['ratio']}; ok {gate['ok']} (tolerance "
+            f"{gate['tolerance']}); [train-remat]'s peak "
+            f"{plans[remat_mode]['remat_phase_peak_gib']:.3f} GiB "
+            f"[{card_line()}]")
+        if not gate["ok"]:
+            raise AssertionError(f"[analysis] memplan {remat_mode}: {gate}")
+        del model, step, state
+        torch.cuda.empty_cache()
+    rec["memplan"] = plans
+    peaks = {k: remat["runs"][k]["peak_gib"] for k in (
+        "none", "block/dots_saveable", "block/full")}
+    if not (peaks["block/dots_saveable"] < peaks["none"]
+            and peaks["block/full"] < peaks["block/dots_saveable"]):
+        raise AssertionError(f"[analysis] [train-remat]'s peaks {peaks}")
+    hvt.shutdown()
+    del big, tokens
+    torch.cuda.empty_cache()
+    # A launched world of one: the preflight over the KV, raising.
+    workdir = phase_dir("cert-")
+    try:
+        src = worker_source(CERT_WORKER, BATCH=TRAIN_BATCH, LR=TRAIN_LR)
+        t0 = time.perf_counter()
+        rc, recs = run_elastic_scenario(
+            str(workdir), src, initial_hosts=["localhost:1"],
+            timeout=WORKER_TIMEOUT_S, drain_timeout=60.0, fast=False)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    got = [r for r in recs if "report" in r]
+    pre = {"rc": rc, "wall_s": wall, "records": got}
+    log(f"[analysis] launched world of one (localhost:1), HVDTPU_CERT=raise:"
+        f" rc {rc} in {wall:.1f} s; preflight s (the process's first "
+        f"record, then again) {[r.get('preflight_s') for r in got]}; {got}")
+    if not (rc == 0 and len(got) == 1 and got[0]["report"]
+            and got[0]["report"]["ok"] and got[0]["latched"]
+            and got[0]["report"]["digest"] == rec["train"]["digest"]):
+        raise AssertionError(f"[analysis] preflight {pre}")
+    rec["preflight"] = pre
+    rec["wrap"] = wrap_times(fa, fadam, torch.Generator(
+        device="cuda").manual_seed(19), sizes)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[analysis] phase wall {rec['phase_s']:.1f} s")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -7546,6 +7903,7 @@ def main() -> int:
     streamed = stream_phase(hvt, (fa, fadam, tq))
     log_threads("[stream]")
     profiled = profile_step_phase(hvt)
+    analyzed = analysis_phase(hvt, (fa, fadam, tq), trained, remat, sizes)
     # [train-remat] trains GPT-2 small, [train]'s layout (held in adam).
     adam_phases = adamw_phase_checks(fadam, gen, {
         "train_bert": bert["bucket_sizes"],
@@ -7582,7 +7940,8 @@ def main() -> int:
                     "launches_serve_autotune": served_tuned["launches"],
                     "launches_stream": streamed["launches"],
                     "launches_profile_step":
-                        profiled["bert"]["flash_launches"]}
+                        profiled["bert"]["flash_launches"],
+                    "launches_analysis": analyzed["launches"]}
     # [serve-kv]'s workers run kernel 1 only: its count over every batch
     # of both runs, the other kernels' 0.
     serve_kv_flash = (served_kv["clean"]["flash_launches"]
@@ -7629,6 +7988,7 @@ def main() -> int:
             "stream": new_launches["launches_stream"].get(name, 0),
             "profile_step_bert":
                 new_launches["launches_profile_step"].get(name, 0),
+            "analysis": new_launches["launches_analysis"].get(name, 0),
         }
 
     kernels = [{
@@ -7659,6 +8019,8 @@ def main() -> int:
             **{k: r["fwd_device_ms"] for k, r in ring["runs"].items()},
             "whole": ring["whole"]["fwd_device_ms"],
             "whole_held": ring["whole"]["fwd_held_device_ms"]},
+        # [analysis]: straight launch vs the hvt op, in the same run.
+        "wrap": analyzed["wrap"]["flash_fwd"],
     }]
     # The two backward kernels run as one pair (flash_attention_bwd): "ms"
     # is the pair's CUDA-event time, as for every row, "device_ms" each
@@ -7689,6 +8051,7 @@ def main() -> int:
                    for k, r in ring["runs"].items()},
                 "whole": ring["whole"]["fwd_bwd_device_ms"],
                 "whole_held": ring["whole"]["fwd_bwd_held_device_ms"]},
+            "wrap_pair": analyzed["wrap"]["flash_bwd"],
             "b16": {
                 "ms": bwd_b16["ms"],
                 "device_ms": bwd_b16["kernel_ms"][name],
@@ -7717,6 +8080,7 @@ def main() -> int:
         "bound_ms": adam["bound_ms"],
         "bound_by": adam["bound_by"],
         "library_ms": adam["library_ms"],
+        "wrap": analyzed["wrap"]["fused_adamw"],
     })
     qlaunch = {r: quant_trained[r]["launches"] for r in ("on", "zero1", "fp8")}
     # "kv_write" / "kv_gather": the decode path's KV shapes at block 64 (one
@@ -7856,7 +8220,7 @@ def main() -> int:
                       "serve_kv": served_kv, "obs": observed,
                       "elastic_quant": equant, "autotune": tuned,
                       "serve_autotune": served_tuned, "stream": streamed,
-                      "profile_step": profiled}),
+                      "profile_step": profiled, "analysis": analyzed}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

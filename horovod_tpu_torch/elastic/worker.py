@@ -551,14 +551,33 @@ def tune_config_source():
 
 
 def cert_channel():
-    """This worker's view of the SPMD certification preflight: None
-    outside an elastic world; inside one it raises, the certification
-    plane arriving with A15."""
+    """This worker's view of the SPMD certification preflight protocol:
+    a ``KVCertChannel`` bound to the elastic KV client, this host's id,
+    the joined round and the round's world size (the ``round_N/size``
+    entry: how many fingerprints the gate must collect before it can
+    certify). None outside an elastic world, before the first join, or
+    when the KV is unreachable: the step's preflight then skips (a
+    standalone process has nobody to diverge from)."""
     if not in_elastic_world():
         return None
-    raise NotImplementedError(
-        "the SPMD certification channel is not ported yet; it arrives "
-        "with A15")
+    round_ = current_round()
+    if round_ < 0:
+        return None
+    client = _kv_client()
+    try:
+        size_raw = client.get(f"round_{round_}", "size")
+    except OSError:
+        return None
+    if size_raw is None:
+        return None
+    try:
+        n_hosts = int(size_raw.decode() if isinstance(size_raw, bytes)
+                      else size_raw)
+    except ValueError:
+        return None
+    from ..analysis.certify import KVCertChannel
+
+    return KVCertChannel(client, _host_id(), round_, n_hosts)
 
 
 def publish_clean_exit(host_id: Optional[str] = None) -> None:

@@ -50,6 +50,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..analysis import record as _record
 from ..utils import env as _env
 from . import remat as _remat
 from .quantization import INT8, dequantize_blockwise, quantize_blockwise
@@ -164,6 +165,7 @@ def boundary(x: torch.Tensor, *, nhwc: bool = False) -> torch.Tensor:
     quantizes a ``[B, C, H, W]`` activation in NHWC order."""
     if not active_mode() or not x.is_floating_point():
         return x
+    _record.mark(Q_NAME)  # what the act-quant-unconsumed rule looks for
     block = _env.quant_block()
     q, s = quantize_blockwise(_flat(x.detach(), nhwc), block=block,
                               spec=INT8)

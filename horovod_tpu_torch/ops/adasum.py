@@ -39,6 +39,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..analysis import record as _record
 from ..exceptions import HorovodTpuError
 from .batching import tree_flatten, tree_unflatten
 from .collectives import _comm, group, p2p_ready
@@ -201,11 +202,15 @@ def _exchange(bufs, send_to, recv_from, g) -> List[torch.Tensor]:
 
 def _run_distributed(bufs, layout: FlatLayout, sched: Schedule, g):
     me = g.index
-    for even, odd in sched.pre:
-        if me == odd:
-            _exchange(bufs, even, None, g)
-        elif me == even:
-            bufs = _combine_all(bufs, _exchange(bufs, None, odd, g), layout)
+    # The folds of a world that is not a power of two branch on the rank:
+    # the reference's cond.
+    with _record.frame("cond"):
+        for even, odd in sched.pre:
+            if me == odd:
+                _exchange(bufs, even, None, g)
+            elif me == even:
+                bufs = _combine_all(bufs, _exchange(bufs, None, odd, g),
+                                    layout)
     for pairs in sched.rounds:
         for lo, hi in pairs:
             if me in (lo, hi):
@@ -213,11 +218,12 @@ def _run_distributed(bufs, layout: FlatLayout, sched: Schedule, g):
                                   hi if me == lo else lo, g)
                 pair = (bufs, other) if me == lo else (other, bufs)
                 bufs = _combine_all(*pair, layout)
-    for even, odd in sched.post:
-        if me == even:
-            _exchange(bufs, odd, None, g)
-        elif me == odd:
-            bufs = _exchange(bufs, None, even, g)
+    with _record.frame("cond"):
+        for even, odd in sched.post:
+            if me == even:
+                _exchange(bufs, odd, None, g)
+            elif me == odd:
+                bufs = _exchange(bufs, None, even, g)
     return bufs
 
 

@@ -153,9 +153,17 @@ def _torch_op(op: ReduceOp):
     return getattr(dist.ReduceOp, _TORCH_OPS[op])
 
 
+# The analysis plane's recorder (analysis/record.py) while it records a
+# step: every call below goes to it instead of torch.distributed, and
+# nothing is communicated.
+_recorder = None
+
+
 def _as_transport(t: torch.Tensor) -> torch.Tensor:
-    """fp8 and bool travel as their bytes: gloo has neither type."""
-    if t.dtype in (torch.float8_e4m3fn, torch.float8_e5m2, torch.bool):
+    """fp8 and bool travel as their bytes: gloo has neither type. A record
+    sees the tensor as the step holds it."""
+    if _recorder is None and t.dtype in (
+            torch.float8_e4m3fn, torch.float8_e5m2, torch.bool):
         return t.view(torch.uint8)
     return t
 
@@ -165,7 +173,9 @@ def _comm(fn, *args, **kwargs):
     a timeout, a torn connection -- is the collective's failure, raised as
     :class:`~..exceptions.HorovodInternalError` (what the JAX package's
     native runtime raises) for :func:`~..elastic.run` to restore and
-    rejoin on."""
+    rejoin on. While a step is recorded, the call is logged and not made."""
+    if _recorder is not None:
+        return _recorder(fn, args, kwargs)
     try:
         return fn(*args, **kwargs)
     except RuntimeError as e:  # DistBackendError and gloo's errors

@@ -52,7 +52,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, _library
 
 __all__ = [
     "FlashAttention",
@@ -309,27 +309,49 @@ def _launch(q4, k4, v4, *, causal, q_offset, kv_offset, sm_scale, layout,
     return out, lse
 
 
-def _forward(q, k, v, *, causal, q_offset, kv_offset, sm_scale, layout,
-             n_heads, kv_len):
-    """The forward alone: the plain version for CPU tensors, the kernel
+def _fwd_impl(q, k, v, causal, q_offset, kv_offset, sm_scale, layout,
+              n_heads, kv_len):
+    """``hvt::flash_fwd``: the plain version for CPU tensors, the kernel
     for CUDA tensors."""
-    device = q.device.type
-    if device == "cpu":
+    if q.device.type == "cpu":
         return flash_attention_reference(
             q, k, v, causal=causal, q_offset=q_offset, kv_offset=kv_offset,
             sm_scale=sm_scale, layout=layout, n_heads=n_heads, kv_len=kv_len,
         )
-    if device != "cuda":
-        raise ValueError(f"flash attention runs on cuda or cpu, not {device}")
     q4, k4, v4 = _views(q, k, v, layout, n_heads)
     kv_len = _check(q4, k4, v4, kv_len)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q4.shape[-1])
     return _launch(
-        q4, k4, v4, causal=causal, q_offset=_scalar(q_offset),
-        kv_offset=_scalar(kv_offset), sm_scale=sm_scale, layout=layout,
-        kv_len=kv_len,
+        q4, k4, v4, causal=causal, q_offset=q_offset, kv_offset=kv_offset,
+        sm_scale=sm_scale, layout=layout, kv_len=kv_len,
     )
+
+
+def _fwd_fake(q, k, v, causal, q_offset, kv_offset, sm_scale, layout,
+              n_heads, kv_len):
+    _check(*_views(q, k, v, layout, n_heads), kv_len)
+    b, sq, h, d = _view4(q, layout, n_heads).shape
+    out, _ = _empty_out(b, sq, h, d, layout, q)
+    return out, q.new_empty((b, h, sq), dtype=torch.float32)
+
+
+_flash_fwd_op = _library.define(
+    "flash_fwd(Tensor q, Tensor k, Tensor v, bool causal, int q_offset, "
+    "int kv_offset, float? sm_scale, str layout, int n_heads, int? kv_len)"
+    " -> (Tensor, Tensor)", _fwd_impl, _fwd_fake)
+
+
+def _forward(q, k, v, *, causal, q_offset, kv_offset, sm_scale, layout,
+             n_heads, kv_len):
+    """The forward alone, through ``hvt::flash_fwd``: the plain version for
+    CPU tensors, the kernel for CUDA tensors."""
+    device = q.device.type
+    if device not in ("cpu", "cuda"):
+        raise ValueError(f"flash attention runs on cuda or cpu, not {device}")
+    return _flash_fwd_op(q, k, v, bool(causal), _scalar(q_offset),
+                         _scalar(kv_offset), sm_scale, layout, int(n_heads),
+                         kv_len)
 
 
 def flash_attention_bwd_reference(
@@ -478,6 +500,45 @@ def _bwd_launch(q4, k4, v4, o4, g4, lse, g_lse, *, causal, q_offset,
     return dq, dk, dv
 
 
+def _bwd_impl(q, k, v, out, lse, g_out, g_lse, causal, q_offset, kv_offset,
+              sm_scale, layout, n_heads, kv_len):
+    """``hvt::flash_bwd``: the plain version for CPU tensors; for CUDA
+    tensors the dQ kernel, then the dK/dV kernel on the same stream (they
+    share the ``delta`` scratch the dQ kernel writes)."""
+    kw = dict(causal=causal, q_offset=q_offset, kv_offset=kv_offset,
+              sm_scale=sm_scale, layout=layout, n_heads=n_heads,
+              kv_len=kv_len)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, out, lse, g_out, g_lse,
+                                             **kw)
+    q4, k4, v4 = _views(q, k, v, layout, n_heads)
+    kv_len = _check(q4, k4, v4, kv_len)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q4.shape[-1])
+    return _bwd_launch(
+        q4, k4, v4, _view4(out, layout, n_heads),
+        _view4(g_out, layout, n_heads), lse, g_lse, causal=causal,
+        q_offset=q_offset, kv_offset=kv_offset,
+        sm_scale=sm_scale, layout=layout, kv_len=kv_len,
+    )
+
+
+def _bwd_fake(q, k, v, out, lse, g_out, g_lse, causal, q_offset, kv_offset,
+              sm_scale, layout, n_heads, kv_len):
+    _check(*_views(q, k, v, layout, n_heads), kv_len)
+    b, sq, h, d = _view4(q, layout, n_heads).shape
+    skv = _view4(k, layout, n_heads).shape[1]
+    return tuple(_empty_out(b, s_len, h, d, layout, q)[0]
+                 for s_len in (sq, skv, skv))
+
+
+_flash_bwd_op = _library.define(
+    "flash_bwd(Tensor q, Tensor k, Tensor v, Tensor out, Tensor lse, "
+    "Tensor g_out, Tensor? g_lse, bool causal, int q_offset, int kv_offset, "
+    "float? sm_scale, str layout, int n_heads, int? kv_len) "
+    "-> (Tensor, Tensor, Tensor)", _bwd_impl, _bwd_fake)
+
+
 def flash_attention_bwd(
     q, k, v, out, lse, g_out, g_lse=None, *,
     causal: bool = False,
@@ -490,28 +551,15 @@ def flash_attention_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients ``(dq, dk, dv)`` of flash attention from the forward's
     inputs and outputs and the cotangents of ``out`` and ``lse`` (``g_lse``
-    ``None`` means zeros) -- the port of ``_bwd_pallas``. CUDA tensors run
-    the two backward kernels; CPU tensors run
-    :func:`flash_attention_bwd_reference`."""
-    kw = dict(causal=causal, q_offset=q_offset, kv_offset=kv_offset,
-              sm_scale=sm_scale, layout=layout, n_heads=n_heads,
-              kv_len=kv_len)
+    ``None`` means zeros) -- the port of ``_bwd_pallas``, through
+    ``hvt::flash_bwd``. CUDA tensors run the two backward kernels; CPU
+    tensors run :func:`flash_attention_bwd_reference`."""
     device = q.device.type
-    if device == "cpu":
-        return flash_attention_bwd_reference(q, k, v, out, lse, g_out, g_lse,
-                                             **kw)
-    if device != "cuda":
+    if device not in ("cpu", "cuda"):
         raise ValueError(f"flash attention runs on cuda or cpu, not {device}")
-    q4, k4, v4 = _views(q, k, v, layout, n_heads)
-    kv_len = _check(q4, k4, v4, kv_len)
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q4.shape[-1])
-    return _bwd_launch(
-        q4, k4, v4, _view4(out, layout, n_heads), _view4(g_out, layout, n_heads),
-        lse, g_lse, causal=causal, q_offset=_scalar(q_offset),
-        kv_offset=_scalar(kv_offset), sm_scale=sm_scale, layout=layout,
-        kv_len=kv_len,
-    )
+    return _flash_bwd_op(q, k, v, out, lse, g_out, g_lse, bool(causal),
+                         _scalar(q_offset), _scalar(kv_offset), sm_scale,
+                         layout, int(n_heads), kv_len)
 
 
 class FlashAttention(torch.autograd.Function):

@@ -32,7 +32,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, _library
 
 __all__ = [
     "FusedAdamSpec",
@@ -177,6 +177,28 @@ def _launch(p, m, v, g, count, spec, ok):
     return u
 
 
+def _impl(p, m, v, g, count, ok, lr, b1, b2, eps, eps_root, weight_decay):
+    """``hvt::fused_adamw``: the plain version for CPU tensors (the moments
+    copied into ``m`` and ``v``), the kernel for CUDA tensors."""
+    spec = FusedAdamSpec(lr, b1, b2, eps, eps_root, weight_decay)
+    if p.device.type == "cpu":
+        u, nm, nv = fused_adamw_update_reference(p, m, v, g, count, spec, ok)
+        m.copy_(nm)
+        v.copy_(nv)
+        return u
+    return _launch(p, m, v, g, count, spec, ok)
+
+
+def _fake(p, m, v, g, count, ok, lr, b1, b2, eps, eps_root, weight_decay):
+    return torch.empty_like(p)
+
+
+_op = _library.define(
+    "fused_adamw(Tensor p, Tensor(a!) m, Tensor(b!) v, Tensor g, "
+    "Tensor count, Tensor? ok, float lr, float b1, float b2, float eps, "
+    "float eps_root, float weight_decay) -> Tensor", _impl, _fake)
+
+
 def fused_adamw_update(
     p: torch.Tensor, m: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
     count: torch.Tensor, spec: FusedAdamSpec,
@@ -186,15 +208,13 @@ def fused_adamw_update(
     ``m`` and ``v`` in place and returns the update (``-lr`` applied, in
     ``p``'s dtype). ``count`` is the step count before this update, an
     int32 tensor on ``p``'s device; ``ok``, when given, the guard's skip
-    flag there (an int32 tensor on the card; 0 skips). CUDA tensors launch
-    the kernel; CPU tensors run :func:`fused_adamw_update_reference`."""
+    flag there (an int32 tensor on the card; 0 skips). Through
+    ``hvt::fused_adamw``: CUDA tensors launch the kernel; CPU tensors run
+    :func:`fused_adamw_update_reference`."""
     _check(p, m, v, g, count, ok)
     device = p.device.type
-    if device == "cpu":
-        u, nm, nv = fused_adamw_update_reference(p, m, v, g, count, spec, ok)
-        m.copy_(nm)
-        v.copy_(nv)
-        return u
-    if device != "cuda":
+    if device not in ("cpu", "cuda"):
         raise ValueError(f"fused AdamW runs on cuda or cpu, not {device}")
-    return _launch(p, m, v, g, count, spec, ok)
+    return _op(p, m, v, g, count, ok, float(spec.learning_rate),
+               float(spec.b1), float(spec.b2), float(spec.eps),
+               float(spec.eps_root), float(spec.weight_decay))

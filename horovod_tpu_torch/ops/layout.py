@@ -62,6 +62,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..analysis import record as _record
 from .collectives import broadcast
 from .fusion import BucketPlan
 
@@ -127,7 +128,9 @@ class BucketScheduler:
         self._next = 0
         self._hooks: List = []
         self.device = self.leaves[0].device
-        self._cuda = self.device.type == "cuda"
+        # A record of the step (analysis/record.py) runs no stream work:
+        # its buckets go out inline, as on the CPU.
+        self._cuda = self.device.type == "cuda" and not _record.active()
 
     # -- arrival -------------------------------------------------------------
 

@@ -68,7 +68,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..utils import env as _env
-from . import _build
+from . import _build, _library
 
 __all__ = [
     "E4M3_MAX",
@@ -336,19 +336,11 @@ def _check_kernel_input(x: torch.Tensor, name: str, dtype=None) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def quantize_blockwise(
-    x: torch.Tensor, block: Optional[int] = None, spec: QuantSpec = INT8
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Quantize a flat buffer: ``(q, scales)``, ``q`` the wire-dtype
-    payload (same length as ``x``) and ``scales`` fp32 of length
-    ``ceil(len / block)``. CPU tensors run :func:`quantize_blockwise_
-    reference`; CUDA tensors (contiguous fp32) launch the kernel."""
-    if block is None:
-        block = default_block()
-    if block < 1:
-        raise ValueError(f"block must be >= 1, got {block}")
-    _check_flat(x, "x")
-    if _check_device(x) == "cpu":
+def _quant_impl(x, block, wire):
+    """``hvt::quantize_blockwise``: the plain version for CPU tensors, the
+    kernel for CUDA tensors."""
+    spec = _spec_of_wire(wire)
+    if x.device.type == "cpu":
         return quantize_blockwise_reference(x, block, spec)
     _check_kernel_input(x, "x", torch.float32)
     n = x.shape[0]
@@ -369,34 +361,43 @@ def quantize_blockwise(
     return q, scales
 
 
-def dequantize_blockwise(
-    q: torch.Tensor,
-    scales: torch.Tensor,
-    block: Optional[int] = None,
-    out_dtype: torch.dtype = torch.float32,
-) -> torch.Tensor:
-    """Inverse of :func:`quantize_blockwise` (up to the rounding the wire
-    format performed). CPU tensors run :func:`dequantize_blockwise_
-    reference`; CUDA tensors launch the kernel, which writes fp32 (a cast
-    to another ``out_dtype`` follows it)."""
+def _quant_fake(x, block, wire):
+    n = x.shape[0]
+    return (x.new_empty((n,), dtype=wire),
+            x.new_empty((-(-n // block),), dtype=SCALE_DTYPE))
+
+
+_quant_op = _library.define(
+    "quantize_blockwise(Tensor x, int block, ScalarType wire) "
+    "-> (Tensor, Tensor)", _quant_impl, _quant_fake)
+
+
+def quantize_blockwise(
+    x: torch.Tensor, block: Optional[int] = None, spec: QuantSpec = INT8
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Quantize a flat buffer: ``(q, scales)``, ``q`` the wire-dtype
+    payload (same length as ``x``) and ``scales`` fp32 of length
+    ``ceil(len / block)``. Through ``hvt::quantize_blockwise``: CPU
+    tensors run :func:`quantize_blockwise_reference`; CUDA tensors
+    (contiguous fp32) launch the kernel."""
     if block is None:
         block = default_block()
     if block < 1:
         raise ValueError(f"block must be >= 1, got {block}")
-    _check_flat(q, "q")
-    n = q.shape[0]
-    if scales.dim() != 1 or scales.shape[0] != -(-n // block):
-        raise ValueError(
-            f"{n} elements in blocks of {block} need {-(-n // block)} scales, "
-            f"got shape {tuple(scales.shape)}"
-        )
-    if scales.device != q.device:
-        raise ValueError(f"scales are on {scales.device}, q on {q.device}")
-    if _check_device(q) == "cpu":
+    _check_flat(x, "x")
+    _check_device(x)
+    return _quant_op(x, int(block), spec.wire_dtype)
+
+
+def _dequant_impl(q, scales, block, out_dtype):
+    """``hvt::dequantize_blockwise``: the plain version for CPU tensors, the
+    kernel (fp32, then cast to ``out_dtype``) for CUDA tensors."""
+    if q.device.type == "cpu":
         return dequantize_blockwise_reference(q, scales, block, out_dtype)
     spec = _spec_of_wire(q.dtype)
     _check_kernel_input(q, "q")
     _check_kernel_input(scales, "scales", SCALE_DTYPE)
+    n = q.shape[0]
     out = torch.empty((n,), dtype=torch.float32, device=q.device)
     if n == 0:
         return out.to(out_dtype)
@@ -411,6 +412,43 @@ def dequantize_blockwise(
         )
     _count_launch("dequant")
     return out.to(out_dtype)
+
+
+def _dequant_fake(q, scales, block, out_dtype):
+    return q.new_empty((q.shape[0],), dtype=out_dtype)
+
+
+_dequant_op = _library.define(
+    "dequantize_blockwise(Tensor q, Tensor scales, int block, "
+    "ScalarType out_dtype) -> Tensor", _dequant_impl, _dequant_fake)
+
+
+def dequantize_blockwise(
+    q: torch.Tensor,
+    scales: torch.Tensor,
+    block: Optional[int] = None,
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Inverse of :func:`quantize_blockwise` (up to the rounding the wire
+    format performed). Through ``hvt::dequantize_blockwise``: CPU tensors
+    run :func:`dequantize_blockwise_reference`; CUDA tensors launch the
+    kernel, which writes fp32 (a cast to another ``out_dtype`` follows
+    it)."""
+    if block is None:
+        block = default_block()
+    if block < 1:
+        raise ValueError(f"block must be >= 1, got {block}")
+    _check_flat(q, "q")
+    n = q.shape[0]
+    if scales.dim() != 1 or scales.shape[0] != -(-n // block):
+        raise ValueError(
+            f"{n} elements in blocks of {block} need {-(-n // block)} scales, "
+            f"got shape {tuple(scales.shape)}"
+        )
+    if scales.device != q.device:
+        raise ValueError(f"scales are on {scales.device}, q on {q.device}")
+    _check_device(q)
+    return _dequant_op(q, scales, int(block), out_dtype)
 
 
 # -- the int8 KV cache -------------------------------------------------------
@@ -605,13 +643,17 @@ def _round16(n: int) -> int:
     return -(-n // 16) * 16
 
 
+def _payload_base(rows: int, cols: int, dtype, device) -> torch.Tensor:
+    """An uninitialised ``[rows, round16(cols)]`` allocation: the storage of
+    a payload whose rows start on 16-byte boundaries."""
+    return torch.empty((rows, _round16(cols)), dtype=dtype, device=device)
+
+
 def _payload(rows: int, cols: int, dtype, device) -> torch.Tensor:
     """An uninitialised ``[rows, cols]`` payload whose rows start on 16-byte
     boundaries (a row stride of ``cols`` rounded up to 16): the layout the
     TMA loads of kernel 8 take."""
-    padded = _round16(cols)
-    out = torch.empty((rows, padded), dtype=dtype, device=device)
-    return out if padded == cols else out[:, :cols]
+    return _payload_base(rows, cols, dtype, device)[:, :cols]
 
 
 def _launch_on(device: torch.device, fn, *args) -> int:
@@ -640,12 +682,11 @@ def _cast_workspace(device: torch.device, stream: int) -> torch.Tensor:
 
 def _launch_cast(x, ldx, in_kind, *, q=None, qt=None, history=None,
                  residual=None, wire_dtype=None):
-    """One launch of ``hvt_fp8_cast``; returns (new ring, scale, new
-    residual), None each in byte mode."""
+    """One launch of ``hvt_fp8_cast``; returns (the new ring and the scale
+    in one allocation, new residual), None each in byte mode."""
     rows, cols = x.shape
-    new_hist = scale = new_res = None
+    state = new_hist = scale = new_res = None
     if history is not None:
-        # The new ring and the scale in one allocation.
         state = torch.empty((history.numel() + 1,), dtype=torch.float32,
                             device=x.device)
         new_hist, scale = state[:-1], state[-1]
@@ -670,7 +711,58 @@ def _launch_cast(x, ldx, in_kind, *, q=None, qt=None, history=None,
     rc = _launch_on(x.device, call)
     if rc != 0:
         raise RuntimeError(f"fp8_cast kernel launch failed with cudaError_t {rc}")
-    return new_hist, scale, new_res
+    return state, new_res
+
+
+def _cast_impl(x, history, wire, transposed, residual):
+    """``hvt::fp8_cast``: ``[q storage, ring+scale, (qt storage),
+    (residual)]``. The plain version for CPU tensors, one launch of the
+    cast kernel for CUDA tensors."""
+    if x.device.type == "cpu":
+        c = fp8_cast_reference(x, history, wire, transposed=transposed,
+                               residual=residual)
+        outs = [c.q, torch.cat([c.history, c.scale.reshape(1)])]
+        outs += [c.qt] if transposed else []
+        return outs + ([c.residual] if residual is not None else [])
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the fp8 cast kernel takes float32 or bfloat16, not "
+                        f"{x.dtype}")
+    r, c = x.shape
+    if r == 0 or c == 0:
+        raise ValueError(f"the fp8 cast kernel takes a non-empty tensor, got "
+                         f"{tuple(x.shape)}")
+    if c > 1 and x.stride(1) != 1:
+        raise ValueError(f"the fp8 cast kernel reads x with unit inner "
+                         f"stride; got strides {tuple(x.stride())}")
+    _check_kernel_input(history, "history", torch.float32)
+    if residual is not None:
+        _check_kernel_input(residual, "residual", torch.float32)
+    # Separate allocations: the training path saves only one of the two.
+    qb = _payload_base(r, c, wire, x.device)
+    qtb = _payload_base(c, r, wire, x.device) if transposed else None
+    state, new_res = _launch_cast(
+        x, x.stride(0) if r > 1 else c, int(x.dtype == torch.bfloat16),
+        q=qb[:, :c], qt=None if qtb is None else qtb[:, :r], history=history,
+        residual=residual, wire_dtype=wire)
+    _count_launch("fp8_cast")
+    return ([qb, state] + ([qtb] if transposed else [])
+            + ([new_res] if residual is not None else []))
+
+
+def _cast_fake(x, history, wire, transposed, residual):
+    r, c = x.shape
+    outs = [x.new_empty((r, _round16(c)), dtype=wire),
+            history.new_empty((history.numel() + 1,), dtype=torch.float32)]
+    if transposed:
+        outs.append(x.new_empty((c, _round16(r)), dtype=wire))
+    if residual is not None:
+        outs.append(torch.empty_like(residual))
+    return outs
+
+
+_cast_op = _library.define(
+    "fp8_cast(Tensor x, Tensor history, ScalarType wire, bool transposed, "
+    "Tensor? residual) -> Tensor[]", _cast_impl, _cast_fake)
 
 
 def fp8_cast(
@@ -688,38 +780,21 @@ def fp8_cast(
     Returns :class:`Fp8Cast`: the payload row-major and, with
     ``transposed``, transposed too, the ring with ``amax(|v|)`` pushed at
     slot 0, the scale, and -- with ``residual`` (weight mode: ``v = x.float() +
-    residual``) -- the new residual ``v - q.float() * scale``. CPU tensors
-    run :func:`fp8_cast_reference`. CUDA tensors launch ``csrc/fp8_cast.cu``
-    or raise: ``x`` bf16 or fp32 with unit inner stride, the ring and the
-    residual contiguous fp32; each payload's rows start on 16-byte
-    boundaries (a padded row stride), bit for bit the plain version's."""
+    residual``) -- the new residual ``v - q.float() * scale``. Through
+    ``hvt::fp8_cast``: CPU tensors run :func:`fp8_cast_reference`; CUDA
+    tensors launch ``csrc/fp8_cast.cu`` or raise: ``x`` bf16 or fp32 with
+    unit inner stride, the ring and the residual contiguous fp32; each
+    payload's rows start on 16-byte boundaries (a padded row stride), bit
+    for bit the plain version's."""
     _check_cast(x, history, residual)
-    if _check_device(x) == "cpu":
-        return fp8_cast_reference(x, history, wire_dtype,
-                                  transposed=transposed, residual=residual)
+    _check_device(x)
     _fp8_qmax(wire_dtype)
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"the fp8 cast kernel takes float32 or bfloat16, not "
-                        f"{x.dtype}")
     r, c = x.shape
-    if r == 0 or c == 0:
-        raise ValueError(f"the fp8 cast kernel takes a non-empty tensor, got "
-                         f"{tuple(x.shape)}")
-    if c > 1 and x.stride(1) != 1:
-        raise ValueError(f"the fp8 cast kernel reads x with unit inner "
-                         f"stride; got strides {tuple(x.stride())}")
-    _check_kernel_input(history, "history", torch.float32)
-    if residual is not None:
-        _check_kernel_input(residual, "residual", torch.float32)
-    # Separate allocations: the training path saves only one of the two.
-    q = _payload(r, c, wire_dtype, x.device)
-    qt = _payload(c, r, wire_dtype, x.device) if transposed else None
-    new_hist, scale, new_res = _launch_cast(
-        x, x.stride(0) if r > 1 else c, int(x.dtype == torch.bfloat16),
-        q=q, qt=qt, history=history, residual=residual,
-        wire_dtype=wire_dtype)
-    _count_launch("fp8_cast")
-    return Fp8Cast(q, qt, new_hist, scale, new_res)
+    outs = _cast_op(x, history, wire_dtype, bool(transposed), residual)
+    q, state = outs[0][:, :c], outs[1]
+    qt = outs[2][:, :r] if transposed else None
+    new_res = outs[-1] if residual is not None else None
+    return Fp8Cast(q, qt, state[:-1], state[-1], new_res)
 
 
 def _check_fp8_operands(x_q: torch.Tensor, w_q: torch.Tensor):
@@ -826,51 +901,21 @@ def _splits(m: int, n: int, k: int, device: torch.device) -> int:
     return 3 if 3 * tiles <= sms else 4
 
 
-def fp8_matmul(
-    x_q: torch.Tensor,
-    w_q: torch.Tensor,
-    scale,
-    *,
-    out_dtype: torch.dtype = torch.float32,
-    scale_b=None,
-) -> torch.Tensor:
-    """``[M, K] x [K, N]`` over fp8 operands (``float8_e4m3fn`` or
-    ``float8_e5m2``, mixed allowed) with fp32 accumulation and the combined
-    per-tensor scale (an fp32 device scalar, times ``scale_b`` when given)
-    applied at the end, in ``out_dtype`` (fp32 or bf16 on the card).
-
-    CPU tensors run :func:`fp8_matmul_reference`. CUDA tensors launch
-    kernel 8 or raise. The kernel reads K-major operands only (``x_q`` with
-    k contiguous, ``w_q`` with k contiguous, i.e. the transposed view of an
-    ``[N, K]`` row-major payload), rows on 16-byte boundaries; an operand in
-    another layout (contiguous along M or N, or misaligned rows) costs one
-    K-major copy first (``launches_fp8_relayout``). :func:`fp8_cast` writes
-    the fp8 training path's payloads so that it needs none."""
-    _check_fp8_operands(x_q, w_q)
-    if w_q.device != x_q.device:
-        raise ValueError(f"w_q is on {w_q.device}, x_q on {x_q.device}")
-    device = _check_device(x_q)
-    if device == "cpu":
+def _fp8_mm_impl(x_q, w_q, scale, scale_b, out_dtype):
+    """``hvt::fp8_matmul``: the plain version for CPU tensors; for CUDA
+    tensors kernel 8 (after a K-major copy of an operand laid out
+    otherwise), the result's storage ``[M, round8(N)]``."""
+    if x_q.device.type == "cpu":
         return fp8_matmul_reference(x_q, w_q, scale, out_dtype=out_dtype,
                                     scale_b=scale_b)
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"the fp8 matmul kernel writes float32 or bfloat16, "
-                        f"not {out_dtype}")
-    scale = _scale_tensor(scale, x_q.device)
-    if scale_b is not None:
-        scale_b = _scale_tensor(scale_b, x_q.device)
     m, k = x_q.shape
     n = w_q.shape[1]
-    if m == 0 or n == 0 or k == 0:
-        return torch.zeros((m, n), dtype=out_dtype, device=x_q.device)
     a, lda = _kmajor(x_q, 1, "x_q")
     b, ldb = _kmajor(w_q, 0, "w_q")
     # The kernel's TMA stores need rows on 16-byte boundaries: an N that is
     # not a multiple of 8 gets a padded row stride (a strided view).
     ldc = -(-n // 8) * 8
     out = torch.empty((m, ldc), dtype=out_dtype, device=x_q.device)
-    if ldc != n:
-        out = out[:, :n]
     splits = _splits(m, n, k, x_q.device)
     ws = (torch.empty((splits, m, ldc), dtype=torch.float32,
                       device=x_q.device) if splits > 1 else None)
@@ -887,6 +932,57 @@ def fp8_matmul(
         )
     _count_launch("fp8_matmul")
     return out
+
+
+def _fp8_mm_fake(x_q, w_q, scale, scale_b, out_dtype):
+    n = w_q.shape[1]
+    if x_q.device.type == "cpu":
+        return x_q.new_empty((x_q.shape[0], n), dtype=out_dtype)
+    return x_q.new_empty((x_q.shape[0], -(-n // 8) * 8), dtype=out_dtype)
+
+
+_fp8_mm_op = _library.define(
+    "fp8_matmul(Tensor x_q, Tensor w_q, Tensor scale, Tensor? scale_b, "
+    "ScalarType out_dtype) -> Tensor", _fp8_mm_impl, _fp8_mm_fake)
+
+
+def fp8_matmul(
+    x_q: torch.Tensor,
+    w_q: torch.Tensor,
+    scale,
+    *,
+    out_dtype: torch.dtype = torch.float32,
+    scale_b=None,
+) -> torch.Tensor:
+    """``[M, K] x [K, N]`` over fp8 operands (``float8_e4m3fn`` or
+    ``float8_e5m2``, mixed allowed) with fp32 accumulation and the combined
+    per-tensor scale (an fp32 device scalar, times ``scale_b`` when given)
+    applied at the end, in ``out_dtype`` (fp32 or bf16 on the card).
+
+    Through ``hvt::fp8_matmul``: CPU tensors run
+    :func:`fp8_matmul_reference`. CUDA tensors launch kernel 8 or raise.
+    The kernel reads K-major operands only (``x_q`` with k contiguous,
+    ``w_q`` with k contiguous, i.e. the transposed view of an ``[N, K]``
+    row-major payload), rows on 16-byte boundaries; an operand in another
+    layout (contiguous along M or N, or misaligned rows) costs one K-major
+    copy first (``launches_fp8_relayout``). :func:`fp8_cast` writes the fp8
+    training path's payloads so that it needs none."""
+    _check_fp8_operands(x_q, w_q)
+    if w_q.device != x_q.device:
+        raise ValueError(f"w_q is on {w_q.device}, x_q on {x_q.device}")
+    device = _check_device(x_q)
+    if device == "cuda" and out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the fp8 matmul kernel writes float32 or bfloat16, "
+                        f"not {out_dtype}")
+    scale = _scale_tensor(scale, x_q.device)
+    if scale_b is not None:
+        scale_b = _scale_tensor(scale_b, x_q.device)
+    m, k = x_q.shape
+    n = w_q.shape[1]
+    if device == "cuda" and (m == 0 or n == 0 or k == 0):
+        return torch.zeros((m, n), dtype=out_dtype, device=x_q.device)
+    out = _fp8_mm_op(x_q, w_q, scale, scale_b, out_dtype)
+    return out if out.shape[1] == n else out[:, :n]
 
 
 # -- int8 serving weights -----------------------------------------------------
@@ -1136,8 +1232,9 @@ def int8_weight_matmul(x: torch.Tensor, w: QuantizedWeight,
     the same epilogue, bit for bit the separate add. The result
     ``[..., N]``.
 
-    CPU tensors run :func:`int8_weight_matmul_reference`. CUDA tensors
-    launch kernel 7 or raise: x in bf16 or fp32 with k contiguous, read in
+    Through ``hvt::int8_matmul``: CPU tensors run
+    :func:`int8_weight_matmul_reference`. CUDA tensors launch kernel 7 or
+    raise: x in bf16 or fp32 with k contiguous, read in
     place through its strides; the payload in :func:`quantize_weight`'s
     layout (``w.q.t()`` with k contiguous); fp32 scales. The bf16 kernel
     reads both operands with TMA, whose rows start on 16-byte boundaries:
@@ -1149,7 +1246,7 @@ def int8_weight_matmul(x: torch.Tensor, w: QuantizedWeight,
     _check_int8_operands(x, w, bias)
     device, dtype = x.device, x.dtype
     if device.type == "cpu":
-        return int8_weight_matmul_reference(x, w, bias)
+        return _int8_op(x, w.q, w.scales, bias)
     if device.type != "cuda":
         raise ValueError(f"the int8 matmul runs on cuda or cpu, not "
                          f"{device.type}")
@@ -1180,6 +1277,20 @@ def int8_weight_matmul(x: torch.Tensor, w: QuantizedWeight,
     if m == 0 or n == 0 or k == 0:
         out = torch.zeros((*lead, n), dtype=dtype, device=device)
         return out if bias is None else out + bias
+    return _int8_op(x, q, w.scales, bias)
+
+
+def _int8_impl(x, q, scales, bias):
+    """``hvt::int8_matmul``: the plain version for CPU tensors, kernel 7 for
+    CUDA tensors (after copying an operand whose rows are not on 16-byte
+    boundaries, counted in ``launches_int8_relayout``)."""
+    if x.device.type == "cpu":
+        return int8_weight_matmul_reference(x, QuantizedWeight(q, scales),
+                                            bias)
+    device, dtype = x.device, x.dtype
+    k, n = q.shape
+    lead = x.shape[:-1]
+    m = math.prod(lead)
     out = torch.empty((*lead, n), dtype=dtype, device=device)
     inner, so, si = (m, 0, k) if x.is_contiguous() else _rows_layout(x)
     x_ptr, w_ptr, ldw = x.data_ptr(), q.data_ptr(), q.stride(1) if n > 1 else k
@@ -1213,7 +1324,7 @@ def int8_weight_matmul(x: torch.Tensor, w: QuantizedWeight,
         ws = torch.empty((splits, m, n + n % 2), dtype=torch.float32,
                          device=device)
     rc = _kernel("hvt_int8_matmul")(
-        x_ptr, w_ptr, w_map, w.scales.data_ptr(),
+        x_ptr, w_ptr, w_map, scales.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
         None if ws is None else ws.data_ptr(), m, n,
         k, inner, so, si, ldw, int(bf16), splits, per, dev, stream)
@@ -1224,6 +1335,15 @@ def int8_weight_matmul(x: torch.Tensor, w: QuantizedWeight,
     if splits > 1:
         _count_launch("int8_matmul_reduce")
     return out
+
+
+def _int8_fake(x, q, scales, bias):
+    return x.new_empty((*x.shape[:-1], q.shape[1]))
+
+
+_int8_op = _library.define(
+    "int8_matmul(Tensor x, Tensor q, Tensor scales, Tensor? bias) -> Tensor",
+    _int8_impl, _int8_fake)
 
 
 def qmatmul(x: torch.Tensor, w) -> torch.Tensor:

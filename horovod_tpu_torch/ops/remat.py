@@ -15,10 +15,11 @@ contexts``, as ``jax.checkpoint_policies`` do in the reference:
 * ``"full"`` (or ``True``) is the plain non-reentrant checkpoint: only the
   inputs are saved.
 
-The CUDA kernels (flash attention, the fp8 and int8 matmuls) launch from
-Python through ``ctypes``; they are not aten ops, so no policy can save
-their outputs and a checkpointed region recomputes them in the backward,
-as a ``pallas_call`` is recomputed under ``dots_saveable`` in JAX.
+The CUDA kernels (flash attention, the fp8 and int8 matmuls) are ``hvt``
+ops (:mod:`._library`), not aten ops: every named policy treats them as
+not saveable (``everything_saveable`` too), so a checkpointed region
+recomputes them in the backward, as a ``pallas_call`` is recomputed under
+``dots_saveable`` in JAX.
 
 Every surface shares :func:`resolve_policy`:
 
@@ -52,6 +53,8 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ._library import is_hvt_op
+
 __all__ = ["POLICY_NAMES", "resolve_policy", "checkpoint_fn",
            "checkpoint_module", "remat_module", "is_recomputing"]
 
@@ -79,6 +82,8 @@ def _saving(ops) -> Callable:
 
 
 def _save_all(ctx, op, *args, **kwargs):
+    if is_hvt_op(op):
+        return CheckpointPolicy.PREFER_RECOMPUTE
     return CheckpointPolicy.MUST_SAVE
 
 

@@ -90,6 +90,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from .analysis import record as _record
 from .exceptions import HorovodTpuError
 from .obs import registry as _obs
 from .ops.batching import (
@@ -459,9 +460,11 @@ def guarded_commit(ok, updates, new_opt_state, opt_state, *,
     guard) commits the fresh pair as it is."""
     if ok is None:
         return updates, new_opt_state
-    if not updates_skipped:
-        updates = _map(lambda u: torch.where(ok, u, -0.0), updates)
-    return updates, _select(ok, new_opt_state, opt_state)
+    # The reference's commit-or-skip branch (a select here).
+    with _record.frame("cond"):
+        if not updates_skipped:
+            updates = _map(lambda u: torch.where(ok, u, -0.0), updates)
+        return updates, _select(ok, new_opt_state, opt_state)
 
 
 class _Passes:

@@ -20,11 +20,14 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-from typing import Any, Callable, Dict, Optional, Tuple
+import warnings
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from .. import context as _context
+from ..analysis import record as _record
 from ..context import resolve_device
 from ..guard import GuardRuntime, check_gradients, fresh_state
 from ..guard import resolve as _resolve_guard
@@ -177,12 +180,14 @@ def _accumulate(loss_fn, params, batch, accum_steps, has_aux,
     acc = {n: torch.zeros_like(p, dtype=torch.float32)
            for n, p in zip(names, leaves)}
     loss_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-    for i in range(accum_steps - 1):
-        loss_i, _, gs = one(micro(i))
-        g_i = zero_filled(gs)
-        for n in names:
-            acc[n] += g_i[n].float()
-        loss_sum += loss_i.float()
+    # The first K-1 microbatches are the reference's rolled scan.
+    with _record.frame("scan"):
+        for i in range(accum_steps - 1):
+            loss_i, _, gs = one(micro(i))
+            g_i = zero_filled(gs)
+            for n in names:
+                acc[n] += g_i[n].float()
+            loss_sum += loss_i.float()
     loss_k, aux, g_k = last(micro(accum_steps - 1), acc)
     loss = (loss_sum + loss_k.float()) / accum_steps
     if g_k is None:
@@ -194,17 +199,20 @@ def _accumulate(loss_fn, params, batch, accum_steps, has_aux,
     return loss, aux, grads
 
 
-# The knob of the JAX package's make_train_step whose plane is not ported
-# yet: armed, it raises NotImplementedError naming the slice that brings it.
-_WAITING = {
-    "lint": "the analysis plane (torch.fx / torch.export graph lints)",
-}
-
-
-def _armed(name: str, value) -> bool:
-    if value is None or value is False:
-        return False
-    return str(value).lower() not in ("", "off", "none", "no", "false", "0")
+def _lint_mode(lint) -> str:
+    """``make_train_step(lint=...)`` resolved: ``""``, ``"warn"`` or
+    ``"raise"`` (``True`` is ``"warn"``; None reads ``HVDTPU_LINT``)."""
+    if lint is None:
+        lint = _env.lint_mode()
+    mode = "warn" if lint is True else (lint or "")
+    if mode in ("off", "none", "no", "false", "0"):
+        # The HVDTPU_LINT spellings, so a caller can mirror the env value
+        # to force the lint off over an env default.
+        mode = ""
+    if mode not in ("", "warn", "raise"):
+        raise ValueError(
+            f"lint must be one of False/'off'/'warn'/'raise', got {lint!r}")
+    return mode
 
 
 def _instrument_step(fn: Callable, dev: torch.device, tokens_per_step,
@@ -331,6 +339,7 @@ def make_train_step(
     overlap=None,
     stagger=None,
     lint=None,
+    lint_allow: Sequence[str] = (),
     guard=None,
     autotune=None,
     publish=None,
@@ -450,15 +459,32 @@ def make_train_step(
     the guard's audit when ``guard`` is armed; the step carries it as
     ``step_fn.stream_publisher``.
 
-    ``lint`` is not ported yet: arming it, or leaving it None under an
-    armed ``HVDTPU_LINT``, raises ``NotImplementedError`` naming the slice
-    that brings it.
+    **Static analysis** (:mod:`..analysis`): the returned step exposes
+    ``step.trace(state, batch)`` -- one call of the exact program this
+    builder assembled under fake tensors, in a simulated world of the live
+    context's size (no kernel launches, no device memory, no
+    communication), a :class:`~..analysis.Record` -- and, over it,
+    ``step.lint(state, batch) -> findings`` (collective consistency,
+    fusion parity against the bucket policy, precision, memory),
+    ``step.memplan(state, batch) -> MemoryPlan`` (the per-device peak and
+    its breakdown; publishes ``memplan.peak_bytes``) and
+    ``step.certify(state, batch) -> ScheduleCert`` (the collective
+    schedule's fingerprint); each takes ``jaxpr=`` to share one record.
+    ``lint=`` arms the lint on the FIRST call: ``"warn"`` warns per
+    finding, ``"raise"`` raises :class:`~..analysis.LintError` on ERROR
+    findings before anything is dispatched, and a retried call lints
+    again (``True`` means ``"warn"``; default reads ``HVDTPU_LINT``).
+    ``lint_allow`` suppresses rules by id (``"rule"`` or
+    ``"rule:provenance-substring"``); an explicit wire ``compression``
+    auto-allows the low-precision-collective rule. ``step.preflight(state,
+    batch)`` publishes the cert to the elastic KV and verifies every
+    rank's is equal before anything is dispatched (under an elastic
+    launcher on the first call of every round the worker joins, default
+    ``HVDTPU_CERT=warn``; ``raise`` aborts with
+    :class:`~..analysis.CertMismatchError`); outside one it costs the env
+    read.
     """
-    lint = _env.lint_mode() if lint is None else lint
-    if _armed("lint", lint):
-        raise NotImplementedError(
-            f"make_train_step(lint={lint!r}) is not ported yet; it arrives "
-            f"with {_WAITING['lint']}")
+    lint_mode = _lint_mode(lint)
     autotune_cfg = None
     if autotune is not False:
         from .. import tune as _tune
@@ -473,8 +499,9 @@ def make_train_step(
             accum_steps=accum_steps, tokens_per_step=tokens_per_step,
             flops_per_step=flops_per_step, error_feedback=error_feedback,
             device=device, overlap=overlap, stagger=stagger, lint=lint,
-            guard=guard, autotune=False, publish=publish, remat=remat,
-            compute_dtype=compute_dtype, act_quant=act_quant,
+            lint_allow=lint_allow, guard=guard, autotune=False,
+            publish=publish, remat=remat, compute_dtype=compute_dtype,
+            act_quant=act_quant,
         )
         pinned = []
         if threshold_bytes is not None:
@@ -625,7 +652,9 @@ def make_train_step(
                                     order=issue_order.get(layout))
             loss, aux, _ = _accumulate(loss_fn, state.params, batch,
                                        accum_steps, has_aux, sched)
-            if layout not in issue_order:
+            if layout not in issue_order and not _record.active():
+                # A record leaves the step's host state as it was: the
+                # first real call still agrees on the order.
                 issue_order[layout] = sched.agree_order()
             with torch.no_grad():
                 if guard_cfg is not None:
@@ -658,11 +687,111 @@ def make_train_step(
                            torch.cuda.get_device_name(dev))
         return {"tokens_per_s": tps, "mfu": m}
 
+    quantized = is_quantized(compression)
+    meta = {
+        "sharded": sharded, "overlap": bool(overlap),
+        "accum_steps": accum_steps,
+        "quant": compression.spec.name if quantized else "",
+        "compute_dtype": resolve_compute_dtype(compute_dtype),
+        "act_quant": _actquant.resolve_mode(act_quant) or "",
+        "remat": str((_env.remat_mode() if remat is None else remat) or ""),
+    }
+
+    def seeded(state: TrainState) -> TrainState:
+        """The state a first call would see: the guard seeded."""
+        if guard_cfg is not None and state.guard is None:
+            return dataclasses.replace(state, guard=fresh_state(dev))
+        return state
+
+    def trace(state, batch, rank_check: bool = True):
+        return _record.record(step_fn, (seeded(state), batch),
+                              rank_check=rank_check)
+
+    def lint_findings(state, batch, jaxpr=None, memory=None):
+        """The static passes over a record of the exact inner program
+        (nothing runs, so it is safe on live state)."""
+        from .. import analysis as _analysis
+
+        rec = jaxpr if jaxpr is not None else trace(state, batch)
+        if memory is None:
+            # oom-risk gates only when a budget is declared
+            # (HVDTPU_HBM_BUDGET_GB); donation-missed-reuse is structural.
+            memory = _analysis.MemoryLintConfig(
+                budget_bytes=_env.hbm_budget_bytes())
+        return _analysis.lint_traced(
+            step_fn, (state, batch), declared_axes=_declared_axes(),
+            params=state.params, sharded=sharded,
+            threshold_bytes=threshold_bytes, world=world_size(axis),
+            allow_low_precision_collectives=(
+                compression is not Compression.none
+                or gather_compression is not Compression.none),
+            allowlist=tuple(lint_allow), jaxpr=rec,
+            quant=compression if quantized else None,
+            compute_dtype=meta["compute_dtype"], act_quant=meta["act_quant"],
+            wire_dtype=getattr(compression, "wire_dtype", None),
+            gather_wire_dtype=getattr(gather_compression, "wire_dtype",
+                                      None),
+            memory=memory)
+
+    def memplan(state, batch, jaxpr=None):
+        """The per-device memory plan of the exact inner program;
+        publishes ``memplan.peak_bytes``."""
+        from .. import analysis as _analysis
+
+        rec = (jaxpr if jaxpr is not None
+               else trace(state, batch, rank_check=False))
+        plan = _analysis.plan_record(rec, world=world_size(axis), meta=meta)
+        _analysis.publish_peak_bytes(plan)
+        return plan
+
+    def certify(state, batch, jaxpr=None):
+        """The exact inner program's collective schedule and predicted
+        wire layout, fingerprinted (:mod:`..analysis.certify`)."""
+        from .. import analysis as _analysis
+        from ..ops.fusion import bucket_byte_layout, quantized_bucket_layout
+
+        rec = (jaxpr if jaxpr is not None
+               else trace(state, batch, rank_check=False))
+        world = world_size(axis)
+        if quantized:
+            wire = [dict(b) for b in quantized_bucket_layout(
+                state.params, threshold_bytes, world=world,
+                compression=compression)]
+        else:
+            wire = [[d, int(n)] for d, n in
+                    bucket_byte_layout(state.params, threshold_bytes)]
+        return _analysis.schedule_cert(rec, world=world, wire=wire,
+                                       meta=meta)
+
+    def preflight(state, batch, tag="", mode=None, jaxpr=None):
+        """The cross-rank cert gate: publish this build's fingerprint to
+        the elastic KV and verify every rank's matches BEFORE the first
+        dispatch of the round. Beyond the env read, a no-op outside an
+        elastic world."""
+        from ..elastic.worker import cert_channel, current_round
+
+        cert_latch["round"] = current_round()
+        if mode is None:
+            mode = _env.cert_mode()
+        if not mode:
+            return None
+        channel = cert_channel()
+        if channel is None:
+            return None
+        return channel.preflight(certify(state, batch, jaxpr=jaxpr),
+                                 tag=tag, mode=mode)
+
     fn = step_fn
+    if lint_mode:
+        fn = _linted(fn, lint_mode, lint_findings)
+    cert_latch = {"done": False, "round": None}
+    fn = _preflighted(fn, preflight, cert_latch)
     guard_runtime = None
     if guard_cfg is not None:
+        # OUTSIDE the lint (it records the program, not the escalation
+        # and audit wrapper).
         guard_runtime = GuardRuntime(guard_cfg, sharded=sharded)
-        fn = guard_runtime.wrap(step_fn)
+        fn = guard_runtime.wrap(fn)
     publisher = None
     publish_every = (_env.publish_every() if publish is None
                      else max(0, int(publish)))
@@ -673,13 +802,70 @@ def make_train_step(
     # a guarded step's counter read is inside its host_dispatch.
     fn = _instrument_step(
         fn, dev, tokens_per_step, flops_per_step, overlap=overlap,
-        accum_steps=accum_steps, quantized=is_quantized(compression),
-        fp8=resolve_compute_dtype(compute_dtype) == "fp8")
+        accum_steps=accum_steps, quantized=quantized,
+        fp8=meta["compute_dtype"] == "fp8")
     fn.throughput = throughput
+    fn.trace = trace
+    fn.lint = lint_findings
+    fn.memplan = memplan
+    fn.certify = certify
+    fn.preflight = preflight
+    fn._cert_latch = cert_latch
+    fn._program = step_fn  # the inner program the surfaces record
     fn.guard_config = guard_cfg
     fn.guard_runtime = guard_runtime
     fn.stream_publisher = publisher
     return fn, opt
+
+
+def _declared_axes():
+    """The live mesh's axis names: what a collective may name."""
+    if _context.is_initialized():
+        return set(_context.mesh().axis_names)
+    return {_context.WORLD_AXIS}
+
+
+def _linted(fn: Callable, mode: str, lint_findings: Callable) -> Callable:
+    """The first-call lint: the first call records and lints BEFORE
+    anything is dispatched; ERROR findings raise under ``"raise"`` with
+    the state untouched. The latch is set only after a lint that did not
+    raise, so a retried call lints again rather than dispatching the
+    broken program unlinted."""
+    from ..analysis import LintError
+    from ..analysis import errors as _errors
+
+    linted = False
+
+    def checked(state, batch):
+        nonlocal linted
+        if not linted:
+            findings = lint_findings(state, batch)
+            errs = _errors(findings)
+            if mode == "raise" and errs:
+                raise LintError(errs)
+            linted = True
+            for f in findings:
+                warnings.warn(f"hvdtpu lint: {f}", stacklevel=2)
+        return fn(state, batch)
+
+    return checked
+
+
+def _preflighted(fn: Callable, preflight: Callable, latch: dict) -> Callable:
+    """The cert preflight on the first call of every elastic round this
+    worker joins (a rejoin is where ranks drift apart; the survivors and
+    the respawned certify together), with the lint's latch discipline: a
+    retried call after ``CertMismatchError`` verifies again. An autotune
+    retrace sets the latch itself and preflights under a tag."""
+    from ..elastic.worker import current_round
+
+    def preflighted(state, batch):
+        if not latch["done"] or latch["round"] != current_round():
+            preflight(state, batch)
+            latch["done"] = True
+        return fn(state, batch)
+
+    return preflighted
 
 
 def _streamed(fn: Callable, every: int, guard_runtime, threshold_bytes):

@@ -298,9 +298,9 @@ class ServePool:
                     params, torch.nn.Module):
                 params = copy.deepcopy(params)  # quantized in place
             params, step = self._prepare(params), None
-        self._init_params, self._init_step = params, step
+        self._init_params, self._init_step = params, step  # threadlint: allow[unlocked-attr-write] pre-thread setup
         if self.ckpt_dir is not None:
-            self._watcher = _ckpt.CheckpointWatcher(
+            self._watcher = _ckpt.CheckpointWatcher(  # threadlint: allow[unlocked-attr-write] pre-thread setup
                 self.ckpt_dir, initial=step
             )
         for _ in range(self.n_workers_init):

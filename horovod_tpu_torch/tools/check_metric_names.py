@@ -29,8 +29,10 @@ The scan is pure AST over ``horovod_tpu_torch/`` (no imports of the
 linted code) for calls ``<expr>.counter/gauge/histogram/remove_gauge(<str>)``;
 ``self.``-receiver calls (the registry's own definitions) are excluded. It
 covers the autotuner's ``autotune.*`` names (owner ``obs/tune.py``, the
-per-knob ``autotune.candidate.<*>`` matched by its prefix) and the weight
-stream's ``stream.*`` (owner ``obs/stream.py``).
+per-knob ``autotune.candidate.<*>`` matched by its prefix), the weight
+stream's ``stream.*`` (owner ``obs/stream.py``) and the analysis plane's
+``memplan.peak_bytes`` (owner ``analysis/__init__.py``) and
+``cert.mismatch`` (owner ``analysis/certify.py``).
 Runnable standalone::
 
     python -m horovod_tpu_torch.tools.check_metric_names

@@ -30,10 +30,9 @@ Surfaces: ``HVDTPU_AUTOTUNE=1``, ``make_train_step(autotune=...)``,
 
 Differences from the JAX package: a step is timed with a
 ``torch.cuda.synchronize`` of its card while a window may be scoring (the
-JAX package's ``block_until_ready``); a rebuild after a retrace switch is
-not re-certified, the certification preflight arriving with the analysis
-plane (ROADMAP A15); and ``HVDTPU_AUTOTUNE`` arms the Python plane alone,
-the native ParameterManager riding the C++ runtime (ROADMAP A16).
+JAX package's ``block_until_ready``); and ``HVDTPU_AUTOTUNE`` arms the
+Python plane alone, the native ParameterManager riding the C++ runtime
+(ROADMAP A16).
 """
 
 from __future__ import annotations
@@ -118,9 +117,18 @@ class AutotunedStep:
         return getattr(self._inner, name)
 
     def _preflight_rebuild(self, state, batch):
-        """Re-certify a rebuilt step: the certification preflight arrives
-        with the analysis plane (ROADMAP A15), so there is nothing to run
-        yet."""
+        """Re-certify after a retrace switch: every rank rebuilt from the
+        env the lockstep switch just wrote, so their fingerprints must
+        still agree. Published under a ``retrace<n>`` tag, so the rebuilt
+        program's cert never races the pre-rebuild entry at the round's
+        untagged key. The rebuilt step's own first-call latch is set here,
+        so the gate runs once a rebuild, with the tag."""
+        preflight = getattr(self._inner, "preflight", None)
+        latch = getattr(self._inner, "_cert_latch", None)
+        if preflight is None or latch is None:
+            return
+        latch["done"] = True
+        preflight(state, batch, tag=f"retrace{self._n_retraces}")
 
     def __call__(self, state, batch):
         action = self.autotune.step_start()

@@ -73,9 +73,14 @@ GOODPUT = "GOODPUT"  # enable the goodput accounting ledger
 GOODPUT_WINDOW = "GOODPUT_WINDOW"  # pending-interval window (bounded memory)
 TIMELINE = "TIMELINE"  # path of the chrome-trace host timeline
 TIMELINE_MARK_CYCLES = "TIMELINE_MARK_CYCLES"  # cycle marks in the timeline
-# Default of make_train_step(lint=...), whose plane (the linter) is not
-# ported yet: an armed value raises there as the explicit argument does.
+# The analysis plane (horovod_tpu_torch.analysis): the step's first-call
+# lint, the cross-rank certification preflight and the memory planner.
 LINT = "LINT"  # default for make_train_step(lint=...): off|warn|raise
+CERT = "CERT"  # SPMD cert preflight gate: off|warn|raise (default warn)
+CERT_TIMEOUT_SECS = "CERT_TIMEOUT_SECS"  # cross-rank cert exchange wait
+HBM_BUDGET_GB = "HBM_BUDGET_GB"  # per-device memory budget the memplan gates
+MEMPLAN_BASELINES = "MEMPLAN_BASELINES"  # peak-regression baseline JSON path
+MEMPLAN_TOLERANCE = "MEMPLAN_TOLERANCE"  # predicted-vs-measured drift gate
 # Closed-loop autotuner (horovod_tpu_torch.tune): the telemetry-driven knob
 # search. HVDTPU_AUTOTUNE=1 is the default of make_train_step(autotune=...),
 # ServePool(autotune=...) and the elastic driver's rollout coordinator. In
@@ -99,6 +104,8 @@ STREAM_STALENESS_SECS = "STREAM_STALENESS_SECS"  # watchdog -> ckpt fallback
 STREAM_MAX_PENDING = "STREAM_MAX_PENDING"  # audit-gated deltas held, max
 
 DEFAULT_FUSION_THRESHOLD = 128 * 1024 * 1024
+DEFAULT_CERT_TIMEOUT_SECS = 30.0  # bounded: the gate degrades, never hangs
+DEFAULT_MEMPLAN_TOLERANCE = 0.25
 DEFAULT_SERVE_BATCH_SIZE = 8
 DEFAULT_SERVE_BATCH_TIMEOUT_MS = 2.0
 DEFAULT_SERVE_WORKERS = 1
@@ -418,6 +425,64 @@ def lint_mode() -> str:
     raise ValueError(
         f"HVDTPU_LINT={val!r} is not recognized; use off|warn|raise"
     )
+
+
+def cert_mode() -> str:
+    """SPMD certification preflight mode (:mod:`horovod_tpu_torch.analysis.
+    certify`): ``""`` (off), ``"warn"`` or ``"raise"``. Default is
+    **warn** — the gate is a no-op outside an elastic KV world, and
+    where one exists a silent hang is strictly worse than a warning.
+    ``1/true/yes/on`` are accepted as ``warn``; anything else raises — a
+    typo (``HVDTPU_CERT=error``) must not silently downgrade the gate."""
+    val = (get_str(CERT, "warn") or "").strip().lower()
+    if val in ("", "0", "off", "false", "no", "none"):
+        return ""
+    if val == "raise":
+        return "raise"
+    if val in ("warn", "1", "true", "yes", "on"):
+        return "warn"
+    raise ValueError(
+        f"HVDTPU_CERT={val!r} is not recognized; use off|warn|raise"
+    )
+
+
+def cert_timeout_secs() -> float:
+    """How long the cert preflight waits for every rank's fingerprint
+    to appear in the KV before declaring the exchange incomplete. Must
+    be positive — zero would fail every gate before peers publish."""
+    t = get_float(CERT_TIMEOUT_SECS, DEFAULT_CERT_TIMEOUT_SECS)
+    if t <= 0:
+        raise ValueError(f"HVDTPU_CERT_TIMEOUT_SECS must be > 0, got {t}")
+    return t
+
+
+def hbm_budget_bytes() -> Optional[int]:
+    """Per-device memory budget (GiB) the memory planner's ``oom-risk``
+    rule gates against; unset/``0`` disables the rule. Negative values
+    raise — a budget must not silently invert."""
+    gb = get_float(HBM_BUDGET_GB, 0.0)
+    if gb < 0:
+        raise ValueError(f"HVDTPU_HBM_BUDGET_GB must be >= 0, got {gb}")
+    return int(gb * (1 << 30)) or None
+
+
+def memplan_baselines_path() -> str:
+    """Path of the checked-in peak-bytes baseline JSON the
+    ``peak-regression`` rule reads (the port's
+    ``horovod_tpu_torch/tools/memplan_baselines.json`` by default)."""
+    return get_str(MEMPLAN_BASELINES, "") or ""
+
+
+def memplan_tolerance() -> float:
+    """Relative error allowed between the memory planner's prediction and
+    the measured bytes before :func:`~horovod_tpu_torch.analysis.memory.
+    compare_to_measured` reports drift. Must lie in (0, 1]."""
+    tol = get_float(MEMPLAN_TOLERANCE, DEFAULT_MEMPLAN_TOLERANCE)
+    if not 0.0 < tol <= 1.0:
+        raise ValueError(
+            f"HVDTPU_MEMPLAN_TOLERANCE must be in (0, 1], got {tol}"
+        )
+    return tol
 
 
 def remat_mode() -> str:

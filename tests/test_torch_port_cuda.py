@@ -1770,3 +1770,186 @@ def test_gspmd_one_rank_mesh_runs_the_kernels_on_the_card(gen):
             assert (g - r).abs().max() <= 1e-2 * r.abs().max() + 1e-6, name
     finally:
         hvt.shutdown()
+
+
+# -- the hvt ops and the analysis plane on the card ---------------------------
+
+
+def _hvt_cases(gen):
+    """Each hvt op's wrapper call and its plain version on one set of card
+    tensors: ``name -> (call, plain, tolerance)`` with tolerance None for
+    bit for bit, else the bound relative to the largest plain value."""
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v = (rnd(2, 300, 4 * 64, dtype=torch.bfloat16) for _ in range(3))
+    kw = dict(causal=True, layout="bsm", n_heads=4)
+    out, lse = fa.flash_attention_reference(q, k, v, **kw)
+    g = rnd(2, 300, 4 * 64, dtype=torch.bfloat16)
+    p, m, vv, gr = rnd(4099), rnd(4099), rnd(4099).abs(), rnd(4099)
+    count = torch.full((), 3, dtype=torch.int32, device="cuda")
+    spec = fadam.FusedAdamSpec(1e-3)
+    x = rnd(5000)
+    qx, sx = tq.quantize_blockwise_reference(x, 256)
+    a, hist, res = rnd(96, 200, dtype=torch.bfloat16), rnd(16).abs(), \
+        rnd(96, 200)
+    ca = tq.fp8_cast_reference(a, hist, torch.float8_e4m3fn)
+    wk = rnd(64, 200)
+    cw = tq.fp8_cast_reference(wk, hist, torch.float8_e4m3fn)
+    xi = rnd(37, 256)
+    wq = tq.quantize_weight(rnd(256, 96))
+    bias = rnd(96)
+    return {
+        "flash_fwd": (lambda: fa.flash_attention_with_lse(q, k, v, **kw),
+                      lambda: (out, lse), 1e-2),
+        "flash_bwd": (lambda: fa.flash_attention_bwd(q, k, v, out, lse, g,
+                                                     **kw),
+                      lambda: fa.flash_attention_bwd_reference(
+                          q, k, v, out, lse, g, **kw), 1e-2),
+        "fused_adamw": (lambda: fadam.fused_adamw_update(
+                            p, m.clone(), vv.clone(), gr, count, spec),
+                        lambda: fadam.fused_adamw_update_reference(
+                            p, m, vv, gr, count, spec)[0], 1e-6),
+        "quantize_blockwise": (lambda: tq.quantize_blockwise(x, 256),
+                               lambda: (qx, sx), None),
+        "dequantize_blockwise": (lambda: tq.dequantize_blockwise(qx, sx, 256),
+                                 lambda: tq.dequantize_blockwise_reference(
+                                     qx, sx, 256), None),
+        "fp8_cast": (lambda: tq.fp8_cast(a, hist, torch.float8_e4m3fn,
+                                         residual=res)[:4],
+                     lambda: tq.fp8_cast_reference(
+                         a, hist, torch.float8_e4m3fn, residual=res)[:4],
+                     None),
+        "fp8_matmul": (lambda: tq.fp8_matmul(ca.q, cw.q.t(), ca.scale,
+                                             scale_b=cw.scale),
+                       lambda: tq.fp8_matmul_reference(ca.q, cw.q.t(),
+                                                       ca.scale,
+                                                       scale_b=cw.scale),
+                       1e-4),
+        "int8_matmul": (lambda: tq.int8_weight_matmul(xi, wq, bias),
+                        lambda: tq.int8_weight_matmul_reference(xi, wq, bias),
+                        1e-5),
+    }
+
+
+def _leaves(out):
+    return [t for t in (out if isinstance(out, (tuple, list)) else (out,))
+            if t is not None]
+
+
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd", "fused_adamw",
+                                  "quantize_blockwise",
+                                  "dequantize_blockwise", "fp8_cast",
+                                  "fp8_matmul", "int8_matmul"])
+def test_each_hvt_op_on_the_card_matches_its_plain_version(gen, name):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    call, plain, tol = _hvt_cases(gen)[name]
+    seen = []
+
+    class Log(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen.append(func._schema.name)
+            return func(*args, **(kwargs or {}))
+
+    fa.reset_launches()
+    fadam.reset_launches()
+    tq.reset_launches()
+    with Log():
+        got = call()
+    torch.cuda.synchronize()
+    assert f"hvt::{name}" in seen
+    launched = (fa.launches + fa.launches_dkdv + fa.launches_dq
+                + fadam.launches + tq.launches_quant + tq.launches_dequant
+                + tq.launches_fp8_cast + tq.launches_fp8_matmul
+                + tq.launches_int8_matmul)
+    assert launched >= 1
+    want = plain()
+    for a, b in zip(_leaves(got), _leaves(want)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        if tol is None:
+            if a.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+                a, b = a.float(), b.float()
+            assert torch.equal(a.nan_to_num(), b.nan_to_num()), name
+        else:
+            scale = b.float().abs().max().item() or 1.0
+            assert (a.float() - b.float()).abs().max().item() <= tol * scale
+    # Its fake gives the kernel's outputs: shapes, dtypes and strides.
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fake = call()
+    for a, f in zip(_leaves(got), _leaves(fake)):
+        assert (f.shape, f.dtype, f.stride(), f.device) == \
+            (a.shape, a.dtype, a.stride(), a.device)
+
+
+def _gpt2_card_step(gen, batch=4, seq=256, remat="none"):
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch import optimizer as topt
+    from horovod_tpu_torch.models import GPT2Config, GPT2LMModel
+    from horovod_tpu_torch.parallel import dp as tdp
+
+    # Head dim 64: the flash kernels take 64 or 128.
+    cfg = GPT2Config.tiny(param_dtype=torch.float32, dtype=torch.bfloat16,
+                          max_len=seq, remat=remat, d_model=128, n_heads=2)
+    torch.manual_seed(0)
+    model = GPT2LMModel(cfg, device="cuda")
+
+    def loss(p, t):
+        logits = torch.func.functional_call(model, p, (t[:, :-1],))
+        return F.cross_entropy(logits.float().flatten(0, 1),
+                               t[:, 1:].flatten())
+
+    step, opt = tdp.make_train_step(loss, topt.fused_adamw(1e-3),
+                                    sharded=True, fused_update=True,
+                                    device="cuda")
+    state = tdp.init_state(model, opt)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
+                           generator=gen, device="cuda")
+    return step, state, tokens
+
+
+def test_a_record_on_the_card_launches_and_allocates_nothing(gen):
+    import gc
+
+    step, state, tokens = _gpt2_card_step(gen)
+    w0 = {k: v.detach().clone() for k, v in state.params.items()}
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    fa.reset_launches()
+    fadam.reset_launches()
+    gc.disable()  # no collection of others' cycles inside the window
+    try:
+        rec = step.trace(state, tokens)
+        findings = step.lint(state, tokens, jaxpr=rec)
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated() - before
+    finally:
+        gc.enable()
+    assert allocated == 0
+    assert (fa.launches, fa.launches_dkdv, fa.launches_dq,
+            fadam.launches) == (0, 0, 0, 0)
+    assert rec.op_counts["hvt::flash_fwd"] == 2  # n_layers, no remat
+    assert rec.op_counts["hvt::flash_bwd"] == 2
+    assert rec.op_counts["hvt::fused_adamw"] == 1
+    assert [s.kind for s in rec.collectives] == ["reduce_scatter",
+                                                 "all_gather", "psum"]
+    assert findings == ()
+    assert all(torch.equal(w0[k], v) for k, v in state.params.items())
+    state, loss = step(state, tokens)
+    assert torch.isfinite(loss) and (fa.launches, fadam.launches) == (2, 1)
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_memplan_bounds_the_measured_peak_on_the_card(gen, remat):
+    from horovod_tpu_torch import analysis as tan
+
+    step, state, tokens = _gpt2_card_step(gen, batch=8, seq=512, remat=remat)
+    state, _ = step(state, tokens)  # the state's own first allocations
+    plan = step.memplan(state, tokens)
+    measured, source = tan.measure_step_bytes(lambda: step(state, tokens),
+                                              device="cuda")
+    gate = tan.compare_to_measured(plan, measured, source)
+    assert source == "device_peak" and gate["ok"], gate

@@ -15,6 +15,7 @@ model and the knobs exactly.
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -208,10 +209,14 @@ def test_unported_train_step_knobs_raise_naming_their_slice(knob, value):
         run = _tuned_step_runs(False, publish=value)
         assert run["published"] == [2]
     else:
-        with pytest.raises(NotImplementedError,
-                           match="not ported yet.*arrives with"):
-            tdp.make_train_step(lambda p, b: 0.0, topt.adamw(1e-3),
-                                device="cpu", **{knob: value})
+        # Ported (test_torch_port_analysis.py): the step builds; its first
+        # call records and lints the program (clean here) before it runs,
+        # and the steps are the plain step's bit for bit.
+        assert knob == "lint"
+        run = _lint_step_runs(**{knob: value})
+        assert run["faked"] == [True, False, False]
+        assert run["warnings"] == []
+        assert run["params"] == _lint_step_runs()["params"]
     # Their off values build a step.
     # (act_quant's explicit off is "", as the JAX package's resolve_mode
     # takes it; "off" is an environment spelling only.)
@@ -247,6 +252,37 @@ def test_train_step_argument_checks():
 def _port_build(**kw):
     return tdp.make_train_step(lambda p, b: 0.0, topt.adamw(1e-3),
                                device="cpu", **kw)
+
+
+def _lint_step_runs(**kw):
+    """Two steps of a small regression (one bucket a leaf) through
+    make_train_step(**kw) on one process: the parameters, whether each
+    loss call ran on fake tensors (a record of the step) and the lint's
+    warnings."""
+    import warnings
+
+    from torch._subclasses.fake_tensor import is_fake
+
+    params, batch = _problem()
+    faked = []
+
+    def loss(p, b):
+        faked.append(is_fake(p["w"]))
+        return ((b["x"] @ p["w"] + p["b"] - b["y"]) ** 2).mean()
+
+    step, opt = tdp.make_train_step(loss, topt.adamw(1e-2), device="cpu",
+                                    threshold_bytes=8, **kw)
+    state = tdp.init_state(
+        {k: torch.from_numpy(v) for k, v in params.items()}, opt)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for _ in range(2):
+            state, _ = step(state, jax.tree.map(torch.from_numpy, batch))
+    return {"params": {k: v.detach().numpy().tobytes()
+                       for k, v in state.params.items()},
+            "faked": faked,
+            "warnings": [str(w.message) for w in caught
+                         if "hvdtpu lint" in str(w.message)]}
 
 
 def _knob_step_runs(**kw):
@@ -314,15 +350,23 @@ def _tuned_step_runs(autotune, **kw):
     def loss(p, b):
         return ((b["x"] @ p["w"] + p["b"] - b["y"]) ** 2).mean()
 
-    step, opt = tdp.make_train_step(loss, topt.adamw(1e-2), device="cpu",
-                                    autotune=autotune, **kw)
-    kv = _DictKV()
-    if getattr(step, "stream_publisher", None) is not None:
-        step.stream_publisher.kv = kv
-    state = tdp.init_state(
-        {k: torch.from_numpy(v) for k, v in params.items()}, opt)
-    for _ in range(3):
-        state, _ = step(state, jax.tree.map(torch.from_numpy, batch))
+    # A tuner's switch writes its knob into os.environ (that is how a
+    # retrace reads it): put the environment back, or the knob reaches
+    # every later test of this process and the worlds they spawn (C14).
+    saved = dict(os.environ)
+    try:
+        step, opt = tdp.make_train_step(loss, topt.adamw(1e-2), device="cpu",
+                                        autotune=autotune, **kw)
+        kv = _DictKV()
+        if getattr(step, "stream_publisher", None) is not None:
+            step.stream_publisher.kv = kv
+        state = tdp.init_state(
+            {k: torch.from_numpy(v) for k, v in params.items()}, opt)
+        for _ in range(3):
+            state, _ = step(state, jax.tree.map(torch.from_numpy, batch))
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
     head = kv.get("stream", tproto.HEAD_KEY)
     return {
         "params": {k: v.detach().numpy().tobytes()
@@ -331,6 +375,16 @@ def _tuned_step_runs(autotune, **kw):
         "published": ([] if head is None
                       else [tproto.unframe_manifest(head)["version"]]),
     }
+
+
+def test_a_tuned_step_leaves_the_environment_as_it_was():
+    """C14: a tuned step's switches wrote HVDTPU_FUSION_THRESHOLD into this
+    process's environment, where the gloo worlds of later tests inherited
+    it."""
+    before = dict(os.environ)
+    run = _tuned_step_runs(True)
+    assert run["tuned"]
+    assert dict(os.environ) == before
 
 
 def _remat_step_runs(remat=None):
@@ -450,14 +504,13 @@ def test_armed_env_default_raises_like_the_explicit_argument(
         assert _tuned_step_runs(False)["published"] == [3]
         assert _tuned_step_runs(False, publish=off)["published"] == []
         return
-    match = "not ported yet.*arrives with"
-    with pytest.raises(NotImplementedError, match=match):
-        build()
-    # The explicit argument raises the same way.
-    with pytest.raises(NotImplementedError, match=match):
-        tdp.make_train_step(lambda p, b: 0.0, topt.adamw(1e-3),
-                            device="cpu", **{knob: armed})
-    # An explicit off value wins over the environment.
+    # Ported (test_torch_port_analysis.py): the armed default records and
+    # lints the step's first call, as lint="raise" does; an explicit off
+    # value wins over the environment.
+    assert knob == "lint"
+    assert _lint_step_runs()["faked"] == [True, False, False]
+    assert _lint_step_runs(lint=armed)["faked"] == [True, False, False]
+    assert _lint_step_runs(lint=off)["faked"] == [False, False]
     build(**{knob: off})
 
 

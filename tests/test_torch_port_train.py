@@ -26,32 +26,22 @@ Tolerances, with their reasons:
 * the two port ranks end with identical parameters (tolerance 0).
 """
 
+import subprocess
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
-import torch
-import torch.nn.functional as F
 
 import horovod_tpu as hvd
 from horovod_tpu.models import gpt2 as jgpt2
 from horovod_tpu.optimizer import fused_adamw as jax_fused_adamw
 from horovod_tpu.parallel import dp as jdp
-from horovod_tpu_torch import context, convert
-from horovod_tpu_torch import optimizer as topt
-from horovod_tpu_torch.models import GPT2Config, GPT2LMModel
-from horovod_tpu_torch.parallel import dp as tdp
-
-WORLD = 2
-STEPS = 3
-LR = 1e-2
-VARIANTS = ["replicated", "sharded", "sharded_fused"]
-_KW = {
-    "replicated": dict(sharded=False),
-    "sharded": dict(sharded=True, fused_update=False),
-    "sharded_fused": dict(sharded=True, fused_update=True),
-}
+from horovod_tpu_torch import context
+from torch_train_ranks import KW as _KW
+from torch_train_ranks import LR, STEPS, VARIANTS, WORLD, port_train
 
 
 def _data():
@@ -65,36 +55,6 @@ def _data():
     return jax.tree.map(np.asarray, params), tokens
 
 
-def _port_train(params, tokens):
-    """One rank of the gloo world: every variant, from the same start."""
-    rank = context.rank()
-    rows = torch.from_numpy(tokens[2 * rank:2 * rank + 2]).long()
-    out = {}
-    for variant in VARIANTS:
-        cfg = GPT2Config.tiny(dtype=torch.float32, use_flash=True)
-        model = GPT2LMModel(cfg, device="cpu")
-        model.load_state_dict(convert.params_from_flax({"params": params}))
-
-        def loss_fn(p, t, model=model):
-            logits = torch.func.functional_call(model, p, (t[:, :-1],))
-            return F.cross_entropy(logits.flatten(0, 1), t[:, 1:].flatten())
-
-        opt = (topt.adamw(LR) if variant == "replicated"
-               else topt.fused_adamw(LR))
-        step, wopt = tdp.make_train_step(loss_fn, opt, device="cpu",
-                                         **_KW[variant])
-        state = tdp.init_state(model, wopt)
-        losses = []
-        for _ in range(STEPS):
-            state, loss = step(state, rows)
-            losses.append(float(loss))
-        assert int(state.step) == STEPS
-        out[variant] = (
-            losses, convert.params_to_flax(state.params, cfg.n_heads)["params"]
-        )
-    return out
-
-
 @pytest.fixture(scope="module")
 def data():
     return _data()
@@ -102,7 +62,8 @@ def data():
 
 @pytest.fixture(scope="module")
 def port_runs(data):
-    return context.spawn_gloo(WORLD, _port_train, *data)
+    # The ranks run tests/torch_train_ranks.py, which imports no JAX (C14).
+    return context.spawn_gloo(WORLD, port_train, *data)
 
 
 @pytest.fixture(scope="module")
@@ -170,3 +131,16 @@ def test_ranks_end_with_identical_parameters(port_runs, variant):
     assert losses0 == losses1
     for a, b in zip(jax.tree.leaves(p0), jax.tree.leaves(p1)):
         np.testing.assert_array_equal(a, b)
+
+
+def test_the_ranks_import_no_jax():
+    """The world's ranks import the module their function lives in: it
+    must not pull in JAX, flax or the JAX package (C14: under a parallel
+    run's load, two ranks importing them beside the JAX compiles of the
+    other workers failed this file's world)."""
+    tests_dir = __file__.rsplit("/", 1)[0]
+    code = (f"import sys; sys.path.insert(0, {tests_dir!r}); "
+            f"import {port_train.__module__}; "
+            "bad = [m for m in ('jax', 'flax', 'horovod_tpu') "
+            "if m in sys.modules]; assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=300)

@@ -776,10 +776,9 @@ class TestTrainStepWrapper:
             1 for a, b in zip(log, log[1:]) if a[2] != b[2])
 
     def test_retrace_rebuild_runs_tagged_preflight(self):
-        """A retrace switch rebuilds the inner step; its re-certification
-        is a no-op until the analysis plane is ported, so nothing of the
-        inner step's preflight runs (the JAX package's runs it under the
-        retraceN tag)."""
+        """A retrace switch rebuilds the inner step and re-certifies it
+        once, under the retraceN tag, its first-call latch set first (the
+        JAX package's order)."""
         calls = []
 
         class Inner:
@@ -818,7 +817,7 @@ class TestTrainStepWrapper:
         step("state", "batch")  # no action: no second rebuild
         assert len(inners) == 2  # initial build + the retrace rebuild
         assert step._n_retraces == 1
-        assert calls == []
+        assert calls == [("retrace1", True)]
 
     def test_caller_pin_empties_space_builds_untuned(self):
         """Explicit threshold_bytes= pins the only live knob of a
