@@ -560,14 +560,35 @@ Phases (any failure exits non-zero; nothing is caught):
    their hvt ops in turns (events and host us a call). The workers of
    [elastic-recover] and [elastic-quant] run with HVDTPU_CERT=off: their
    first steps are timed as before the preflight existed.
-39. Output: a "kernels" JSON line (the nine TPU kernels' counterparts and
+39. [eager] the dynamic-enqueue runtime (horovod_tpu_torch.native) and its
+   PyTorch frontend (horovod_tpu_torch.torch) on a one-rank world of the
+   card (its own gloo group and NCCL group): every allreduce op (Sum,
+   Average, Min, Max, Product, Adasum) with a prescale and a postscale in
+   fp32, bf16, fp16, int32 and int64 through the NCCL group, bit for bit
+   against the same values computed on the host; the grouped allreduce,
+   allgather, in-place broadcast, alltoall with splits, reducescatter,
+   barrier and join() (the rank) on CUDA tensors; ops/eager's collectives
+   on CUDA tensors; SyncBatchNorm forward and backward against
+   nn.BatchNorm2d on [8, 64, 56, 56] (1e-4 of the largest value); the host
+   microseconds of an allreduce_async_ + synchronize pair on a 4-byte
+   tensor (median of 200) and the runtime's cycles for them.
+40. [hvd-torch] GPT-2 small (148 parameter tensors, seed-0 weights) at
+   [train]'s 8 x 1024 tokens, 10 steps of hvd.DistributedOptimizer(
+   torch.optim.AdamW) with named_parameters and broadcast_parameters first,
+   against the same 10 steps of the unwrapped AdamW: losses and final
+   parameters bit for bit; the runtime's counters (148 cache misses in
+   step 1, none after, 148 x 9 hits in steps 2-10; fused batches a step);
+   12/12/12 flash launches a step; the wrapped and unwrapped steps timed
+   in turns (median of 10 after 3 warm-up steps each); the idle share of
+   one wrapped step's torch.profiler window.
+41. Output: a "kernels" JSON line (the nine TPU kernels' counterparts and
    the cast kernel; "launches" is the training run's count -- for the
    quantize pair the int8 [train-quant] run's (beside it the
    [ckpt-reshard] and int8 [decode] runs' and the KV shapes' times as
    "kv_write" / "kv_gather"), for kernel 8 and the cast kernel the fp8
    [train-fp8] run's, for kernel 7 the [serve-int8] rounds' -- the forward
    kernel's serving count beside it as "launches_serve", and the flash
-   kernels', AdamW's and (from 22.) the quantize pair's counts in 18.-38.,
+   kernels', AdamW's and (from 22.) the quantize pair's counts in 18.-40.,
    each read over its own run, as "launches_phases" (29.-31. and 33.
    counted in the worker processes); the flash rows' ring
    times at n = 2, 4 and the whole sequence as "ring_flash_*"; the quantize pair's
@@ -7764,6 +7785,283 @@ def analysis_phase(hvt, kernels, trained, remat, sizes):
     return rec
 
 
+# ---- the runtime and the frontend: [eager], [hvd-torch] --------------------
+
+SYNC_BN_SHAPE = (8, 64, 56, 56)
+SYNC_BN_TOL = 1e-4  # of the largest value: fp64 sums vs cuDNN's fp32 ones
+HVD_STEPS, HVD_TIMED, HVD_WARMUP = 10, 10, 3
+ROUND_TRIPS = 200
+
+
+def host_reference(native, x, op, pre, post):
+    """What a one-rank world's allreduce returns, computed on the host with
+    the runtime's own scaling (a reduction of one tensor is the tensor;
+    Average divides by one, an integer one by floor division)."""
+    from horovod_tpu_torch.native import runtime as rt
+
+    y = x.clone()
+    rt.scale_buffer(y, pre)
+    if op == native.ADASUM:
+        folded = rt.adasum_fold([y.double()], [0])
+        y.copy_(folded.float() if y.dtype in (torch.float16, torch.bfloat16)
+                else folded)
+    if op == native.AVERAGE and not y.dtype.is_floating_point:
+        y = torch.div(y, 1, rounding_mode="floor")
+    rt.scale_buffer(y, post)
+    return y
+
+
+def eager_phase(hvt):
+    """[eager]: the runtime's handles and blocking collectives on CUDA
+    tensors through its NCCL group, held bit for bit against the host;
+    SyncBatchNorm against nn.BatchNorm2d; the round trip of one handle."""
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch import native
+    from horovod_tpu_torch.ops import eager as E
+
+    t_phase = time.perf_counter()
+    hvd.init()
+    rt = native.get_runtime()
+    if rt.nccl is None or rt.device.type != "cuda":
+        raise AssertionError("[eager] the runtime has no NCCL group")
+    rng = np.random.default_rng(11)
+    ops = {"Sum": native.SUM, "Average": native.AVERAGE, "Min": native.MIN,
+           "Max": native.MAX, "Product": native.PRODUCT,
+           "Adasum": native.ADASUM}
+    checked, names = 0, 0
+    for dt in (torch.float32, torch.bfloat16, torch.float16, torch.int32,
+               torch.int64):
+        if dt.is_floating_point:
+            host = torch.from_numpy(rng.standard_normal(1000).astype(
+                np.float32)).to(dt)
+        else:
+            host = torch.from_numpy(rng.integers(0, 9, 1000)).to(dt)
+        for name, op in ops.items():
+            if op == native.ADASUM and not dt.is_floating_point:
+                continue
+            x = host.cuda()
+            hs = [native.allreduce_async(f"e.{dt}.{name}.{i}", x, op=op,
+                                         prescale=2.0, postscale=0.5)
+                  for i in range(2)]
+            want = host_reference(native, host, op, 2.0, 0.5)
+            for h in hs:
+                got = native.synchronize(h).cpu()
+                if got.dtype != dt or not torch.equal(got, want):
+                    raise AssertionError(f"[eager] allreduce {name} {dt}: "
+                                         f"{got[:4]} != {want[:4]}")
+                checked += 1
+            names += 1
+    x = torch.arange(12, dtype=torch.float32, device="cuda").reshape(4, 3)
+    outs = hvd.grouped_allreduce([x, x[:2] * 3], name="grp", op=hvd.Sum)
+    if not (torch.equal(outs[0], x) and torch.equal(outs[1], x[:2] * 3)):
+        raise AssertionError("[eager] grouped allreduce")
+    g = hvd.allgather(x, name="ag")
+    b = torch.full((5,), 7.0, device="cuda")
+    ptr = b.data_ptr()
+    hvd.broadcast_(b, 0, name="bc_")
+    a2a, splits = hvd.alltoall(torch.arange(6.0, device="cuda"),
+                               torch.tensor([6]), name="a2a")
+    rs = hvd.reducescatter(x, name="rs", op=hvd.Sum)
+    hvd.barrier()
+    last = hvd.join()
+    if not (torch.equal(g, x) and b.data_ptr() == ptr
+            and torch.equal(b, torch.full((5,), 7.0, device="cuda"))
+            and torch.equal(a2a, torch.arange(6.0, device="cuda"))
+            and splits.tolist() == [6] and torch.equal(rs, x)
+            and last == 0 and g.is_cuda and rs.is_cuda):
+        raise AssertionError("[eager] allgather / broadcast / alltoall / "
+                             "reducescatter / join")
+    e_out = [E.allreduce(x, E.Average), E.allgather(x), E.broadcast(x, 0),
+             E.reducescatter(x, E.Sum)]
+    E.barrier()
+    if not all(o.is_cuda and torch.equal(o, x) for o in e_out):
+        raise AssertionError("[eager] ops/eager on CUDA tensors")
+    log(f"[eager] {checked} allreduce results bit for bit against the host "
+        f"({names} op x dtype pairs, 2 handles each); grouped, allgather, "
+        f"in-place broadcast, alltoall {splits.tolist()}, reducescatter, "
+        f"barrier, join() = {last}, ops/eager on CUDA tensors: ok")
+
+    # SyncBatchNorm on the runtime's allgather against nn.BatchNorm2d.
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    inp = torch.randn(SYNC_BN_SHAPE, generator=gen, device="cuda")
+    cot = torch.randn(SYNC_BN_SHAPE, generator=gen, device="cuda")
+    errs = {}
+    sbn = hvd.SyncBatchNorm(SYNC_BN_SHAPE[1]).cuda().train()
+    bn = torch.nn.BatchNorm2d(SYNC_BN_SHAPE[1]).cuda().train()
+    bn.load_state_dict(sbn.state_dict())
+    outs = []
+    for mod in (sbn, bn):
+        xin = inp.clone().requires_grad_(True)
+        y = mod(xin)
+        (y * cot).sum().backward()
+        outs.append((y.detach(), xin.grad, mod.weight.grad, mod.bias.grad,
+                     mod.running_mean, mod.running_var))
+    for key, a, b in zip(("out", "dx", "dw", "db", "mean", "var"), *outs):
+        errs[key] = float((a - b).abs().max() / b.abs().max())
+    log(f"[eager] SyncBatchNorm {list(SYNC_BN_SHAPE)} vs nn.BatchNorm2d, max "
+        f"|d| / max |ref|: {json.dumps(errs)} (tol {SYNC_BN_TOL})")
+    if not all(e <= SYNC_BN_TOL for e in errs.values()):
+        raise AssertionError("[eager] SyncBatchNorm disagrees with BatchNorm2d")
+
+    # The round trip of one handle on a 4-byte tensor.
+    t = torch.ones(1, device="cuda")
+    for _ in range(20):
+        hvd.synchronize(hvd.allreduce_async_(t, name="rt", op=hvd.Sum))
+    torch.cuda.synchronize()
+    c0 = native.metrics_counters()
+    us = []
+    for _ in range(ROUND_TRIPS):
+        t0 = time.perf_counter()
+        hvd.synchronize(hvd.allreduce_async_(t, name="rt", op=hvd.Sum))
+        us.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    cycles = native.metrics_counters()["cycles"] - c0["cycles"]
+    knobs = rt.knobs
+    hvd.shutdown()
+    rec = {"allreduce_checked": checked, "round_trip_us": float(
+        np.median(us)), "round_trip_us_min": min(us),
+        "round_trip_us_max": max(us), "cycles": cycles,
+        "cycles_per_round_trip": cycles / ROUND_TRIPS,
+        "cycle_time_us": knobs.cycle_time_us,
+        "sync_bn_rel_err": errs, "seconds": time.perf_counter() - t_phase}
+    log(f"[eager] allreduce_async_ + synchronize, 4 bytes: median "
+        f"{rec['round_trip_us']:.1f} us (min {min(us):.1f}, max "
+        f"{max(us):.1f}) over {ROUND_TRIPS}; {cycles} runtime cycles "
+        f"({cycles / ROUND_TRIPS:.2f} a round trip, idle cycle "
+        f"{knobs.cycle_time_us} us); phase {rec['seconds']:.1f} s")
+    return rec
+
+
+def hvd_losses(model, opt, tokens, steps, before_step=None):
+    import torch.nn.functional as F
+
+    losses = []
+    for i in range(steps):
+        if before_step is not None:
+            before_step(i)
+        opt.zero_grad()
+        logits = model(tokens[:, :-1])
+        loss = F.cross_entropy(logits.flatten(0, 1), tokens[:, 1:].flatten())
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+    return [float(v) for v in losses]
+
+
+def hvd_torch_phase(hvt, kernels):
+    """[hvd-torch]: GPT-2 small trained by hvd.DistributedOptimizer(AdamW)
+    in the reference's script shape, bit for bit the unwrapped AdamW."""
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch import native
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fa = kernels[0]
+    t_phase = time.perf_counter()
+    cfg = hvt.GPT2Config.small(param_dtype=torch.float32)
+    sd0 = hvt.convert.init_params(cfg, seed=0)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, cfg.max_len + 1), dtype=np.int64
+    )).cuda()
+    hvd.init()
+
+    def build(wrap):
+        model = hvt.GPT2LMModel(cfg)
+        model.load_state_dict(sd0)
+        opt = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR)
+        if wrap:
+            opt = hvd.DistributedOptimizer(
+                opt, named_parameters=model.named_parameters())
+            hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+            hvd.broadcast_optimizer_state(opt, root_rank=0)
+        return model, opt
+
+    plain, plain_opt = build(False)
+    n_params = len(list(plain.parameters()))
+    want = hvd_losses(plain, plain_opt, tokens, HVD_STEPS)
+    wrapped, wrapped_opt = build(True)
+    counters = []
+    torch.cuda.synchronize()
+    reset_counts(*kernels)
+    got = hvd_losses(wrapped, wrapped_opt, tokens, HVD_STEPS,
+                     lambda i: counters.append(native.metrics_counters()))
+    torch.cuda.synchronize()
+    launches = {"flash_fwd": fa.launches, "flash_bwd_dkdv": fa.launches_dkdv,
+                "flash_bwd_dq": fa.launches_dq}
+    counters.append(native.metrics_counters())
+    same_params = all(torch.equal(a, b) for a, b in zip(
+        plain.parameters(), wrapped.parameters()))
+    log(f"[hvd-torch] losses wrapped {got}")
+    log(f"[hvd-torch] losses plain   {want}")
+    d = {k: [counters[i + 1][k] - counters[i][k] for i in range(HVD_STEPS)]
+         for k in ("cache_hits", "cache_misses", "fused_batches",
+                   "fused_tensors", "cycles")}
+    later_hits = sum(d["cache_hits"][1:])
+    log(f"[hvd-torch] {n_params} parameter tensors; per step: cache misses "
+        f"{d['cache_misses']}, hits {d['cache_hits']} ({later_hits} in "
+        f"steps 2-{HVD_STEPS}), fused batches {d['fused_batches']}, fused "
+        f"tensors {d['fused_tensors']}, cycles {d['cycles']}; launches "
+        f"{launches}; final parameters bit for bit: {same_params}")
+    if got != want or not same_params:
+        raise AssertionError("[hvd-torch] the wrapped AdamW is not the "
+                             "unwrapped one bit for bit")
+    if (n_params != 148 or d["cache_misses"][0] != n_params
+            or any(d["cache_misses"][1:])
+            or later_hits != n_params * (HVD_STEPS - 1)):
+        raise AssertionError("[hvd-torch] the cache did not serve steps 2-"
+                             f"{HVD_STEPS}: {d}")
+    check_counts("hvd-torch", launches,
+                 {k: cfg.n_layers for k in launches}, HVD_STEPS)
+
+    # The wrapped and unwrapped steps in turns.
+    times = {"plain": [], "wrapped": []}
+    runs = {"plain": (plain, plain_opt), "wrapped": (wrapped, wrapped_opt)}
+    for i in range(HVD_WARMUP + HVD_TIMED):
+        for key in (("plain", "wrapped") if i % 2 == 0
+                    else ("wrapped", "plain")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hvd_losses(*runs[key], tokens, 1)
+            torch.cuda.synchronize()
+            if i >= HVD_WARMUP:
+                times[key].append((time.perf_counter() - t0) * 1e3)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"[hvd-torch] step ms, median of {HVD_TIMED} in turns after "
+        f"{HVD_WARMUP} warm-up: plain {med['plain']:.3f}, wrapped "
+        f"{med['wrapped']:.3f} (+{med['wrapped'] - med['plain']:.3f} ms, "
+        f"{med['wrapped'] / med['plain'] - 1:+.2%}); all "
+        f"{json.dumps({k: [round(t, 3) for t in v] for k, v in times.items()})}")
+
+    # One wrapped step profiled; the tracer comes up in a warm-up step.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        hvd_losses(wrapped, wrapped_opt, tokens, 1)
+        torch.cuda.synchronize()
+        prof.step()
+        c0 = native.metrics_counters()
+        t0 = time.perf_counter()
+        hvd_losses(wrapped, wrapped_opt, tokens, 1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        c1 = native.metrics_counters()
+        prof.step()
+    profiled = device_breakdown(prof, wall_ms, {
+        "steps": 1, "fused_batches": c1["fused_batches"]
+        - c0["fused_batches"]})
+    hvd.shutdown()
+    del plain, plain_opt, wrapped, wrapped_opt
+    torch.cuda.empty_cache()
+    rec = {"launches": launches, "losses": got, "n_params": n_params,
+           "per_step": d, "cache_hits_steps_2_on": later_hits,
+           "step_ms": med, "step_ms_all": times,
+           "overhead_ms": med["wrapped"] - med["plain"],
+           "profile": profiled, "seconds": time.perf_counter() - t_phase}
+    log(f"[hvd-torch] wrapped step's window: idle share "
+        f"{profiled['idle_share']:.3f} ({profiled['device_ms']:.2f} device "
+        f"ms in {wall_ms:.2f} wall); phase {rec['seconds']:.1f} s")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -7904,6 +8202,9 @@ def main() -> int:
     log_threads("[stream]")
     profiled = profile_step_phase(hvt)
     analyzed = analysis_phase(hvt, (fa, fadam, tq), trained, remat, sizes)
+    eagered = eager_phase(hvt)
+    hvd_torch = hvd_torch_phase(hvt, (fa, fadam, tq))
+    log_threads("[hvd-torch]")
     # [train-remat] trains GPT-2 small, [train]'s layout (held in adam).
     adam_phases = adamw_phase_checks(fadam, gen, {
         "train_bert": bert["bucket_sizes"],
@@ -7941,7 +8242,8 @@ def main() -> int:
                     "launches_stream": streamed["launches"],
                     "launches_profile_step":
                         profiled["bert"]["flash_launches"],
-                    "launches_analysis": analyzed["launches"]}
+                    "launches_analysis": analyzed["launches"],
+                    "launches_hvd_torch": hvd_torch["launches"]}
     # [serve-kv]'s workers run kernel 1 only: its count over every batch
     # of both runs, the other kernels' 0.
     serve_kv_flash = (served_kv["clean"]["flash_launches"]
@@ -7989,6 +8291,7 @@ def main() -> int:
             "profile_step_bert":
                 new_launches["launches_profile_step"].get(name, 0),
             "analysis": new_launches["launches_analysis"].get(name, 0),
+            "hvd_torch": new_launches["launches_hvd_torch"].get(name, 0),
         }
 
     kernels = [{
@@ -8220,7 +8523,8 @@ def main() -> int:
                       "serve_kv": served_kv, "obs": observed,
                       "elastic_quant": equant, "autotune": tuned,
                       "serve_autotune": served_tuned, "stream": streamed,
-                      "profile_step": profiled, "analysis": analyzed}),
+                      "profile_step": profiled, "analysis": analyzed,
+                      "eager": eagered, "hvd_torch": hvd_torch}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,8 +22,10 @@ recovery instead of assuming it. The sites wired in the port:
 ``param.corrupt``     guarded train step: perturb a seeded parameter span
 ====================  ====================================================
 
-The rest of the catalog (``eager.dispatch``, ``publish.delta``) parses and
-waits for the code that reaches it.
+``eager.dispatch`` (since A16a) fires in every eager collective of
+:mod:`horovod_tpu_torch.ops.eager` (``delay``; ``timeout`` raises the
+recoverable ``HorovodInternalError``); ``publish.delta`` in the weight
+publisher (:mod:`horovod_tpu_torch.stream.publisher`).
 
 Arming: set ``HVDTPU_CHAOS`` to a schedule string -- parsed once, at the
 first site hit -- or call :func:`plan`. ``HVDTPU_CHAOS_SEED`` seeds every

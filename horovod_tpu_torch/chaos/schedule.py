@@ -16,8 +16,6 @@ one fault at one named site::
 Sites and their legal actions are a closed catalog (:data:`SITES`): a
 typo'd site or action raises at parse time, never silently no-ops -- a
 chaos run that injects nothing must not masquerade as a survived one.
-Sites whose code the port does not have yet (``eager.dispatch``,
-``publish.delta``) parse but nothing reaches them.
 
 Conditions (all optional, AND-ed):
 

@@ -21,9 +21,13 @@ knobs and file formats:
 
 Instrumented layers: ``parallel/dp.py`` (the step bracket), ``ops/fusion.py``,
 ``optimizer.py``, ``data.py``, ``checkpoint.py``, ``serve/``, ``guard/``,
-``chaos/``, ``elastic/`` and ``runner/``. The native runtime's counters, the
-eager collectives' latencies and the stall inspector's gauges come with the
-eager path (ROADMAP A16).
+``chaos/``, ``elastic/`` and ``runner/``. Since A16a the eager path brings
+the dynamic-enqueue runtime's counters (``native.*``, merged by
+:mod:`.native_bridge` into every export), the eager collectives' latencies
+and counts (``eager.<KIND>.ms``, ``eager.ops``, ``eager.bytes``) and the
+stall inspector's gauges (``stall.pending``, ``stall.max_age_s``,
+``stall.age_s.<name>``); the native ParameterManager's tuning state waits
+for A16b.
 """
 
 from __future__ import annotations

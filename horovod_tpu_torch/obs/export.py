@@ -1,9 +1,11 @@
 """Metrics exporters: per-rank JSON-lines, Prometheus textfile, rank-0 log.
 
 The port of the JAX package's ``obs/export.py``: the files, their schema
-and the Prometheus names are the same. The native runtime's counters are
-not merged (the port has no native runtime yet, ROADMAP A16), and the
-rank-0 summary is one ``torch.distributed.all_reduce``.
+and the Prometheus names are the same. Since A16a the dynamic-enqueue
+runtime's counters (``native.*``, :mod:`.native_bridge`) are merged into
+every snapshot as the JAX package merges its native library's; its
+ParameterManager's tuning state waits for A16b. The rank-0 summary is one
+``torch.distributed.all_reduce``.
 
 Layout under ``HVDTPU_METRICS_DIR`` (default ``./hvdtpu_metrics``):
 
@@ -81,11 +83,15 @@ def _prom_name(name: str) -> str:
 
 
 def snapshot() -> dict:
-    """The registry as one export-shaped dict."""
+    """Registry + runtime counters as one export-shaped dict."""
+    from .native_bridge import read_native
+
     rank, world = _rank_world()
     snap = _registry.metrics().snapshot()
     counters = dict(snap["counters"])
     gauges = dict(snap["gauges"])
+    for k, v in read_native().items():
+        (gauges if isinstance(v, float) else counters)[k] = v
     return {
         "ts": time.time(),
         "rank": rank,

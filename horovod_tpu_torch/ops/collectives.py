@@ -23,9 +23,10 @@ The uneven exchanges negotiate first, as the reference's controller does:
 :func:`allgather` exchanges every rank's first dimension (with its
 trailing shape and dtype, so a mismatch raises ``HorovodTpuError`` on
 every rank instead of aborting the process group), and
-:func:`alltoall` exchanges the split table. :func:`join` returns -1: the
-port has no dynamic-enqueue runtime, and :func:`masked_allreduce` is the
-idiom for ranks whose data ran out.
+:func:`alltoall` exchanges the split table. :func:`join` goes to the
+dynamic-enqueue runtime (:mod:`horovod_tpu_torch.native`) when it is up
+and returns -1 otherwise, where :func:`masked_allreduce` is the idiom for
+ranks whose data ran out.
 
 A failed ``torch.distributed`` call -- a dead peer, a timeout -- raises
 :class:`~horovod_tpu_torch.exceptions.HorovodInternalError` (from the
@@ -473,12 +474,20 @@ def barrier(*, axis=None) -> None:
 
 
 def join() -> int:
-    """``hvd.join()``: -1, no rank joined, as the JAX package returns
-    without its native runtime. The reference's Join lets a rank whose
-    data ran out take part in outstanding collectives with zeros; the port
-    has no dynamic-enqueue runtime, and every rank runs every collective.
-    For uneven data, weight each rank's contribution with
-    :func:`masked_allreduce` (``valid=False`` where the data ran out)."""
+    """``hvd.join()``. With the dynamic-enqueue runtime up
+    (:func:`horovod_tpu_torch.native.init`, since A16a) this is its Join:
+    the rank's data ran out, it takes part in the other ranks' outstanding
+    collectives with the op's identity until every rank joined, and the
+    last rank that joined is returned. Without the runtime it returns -1,
+    no rank joined, as the JAX package does without its native runtime:
+    the train step's collectives run on every rank, and for uneven data
+    :func:`masked_allreduce` weights each rank's contribution
+    (``valid=False`` where the data ran out)."""
+    import sys
+
+    native = sys.modules.get("horovod_tpu_torch.native")
+    if native is not None and native.is_initialized():
+        return native.join()
     return -1
 
 

@@ -515,7 +515,8 @@ def kv_client():
     return RendezvousClient(addr, int(port))
 
 
-def kv_store(rank: int, size: int, timeout: float):
+def kv_store(rank: int, size: int, timeout: float,
+             scope: Optional[str] = None):
     """The ``torch.distributed`` store of a launched world, bootstrapped
     over the launcher's KV (the Gloo-style bootstrap,
     ``horovod/common/gloo/gloo_context.cc:63-146``, in place of the JAX
@@ -528,7 +529,9 @@ def kv_store(rank: int, size: int, timeout: float):
     waits for the key and connects. The scope is ``HVDTPU_DIST_SCOPE``
     (``dist``; ``dist_<round>`` in an elastic round). A rank that reaches
     a stale address (a torn-down world of the same round) re-reads the
-    key until ``timeout``. Returns None outside a launch."""
+    key until ``timeout``. Returns None outside a launch. ``scope``
+    overrides the scope (the dynamic-enqueue runtime's store lives under
+    ``native``)."""
     from datetime import timedelta
 
     import torch.distributed as dist
@@ -542,7 +545,7 @@ def kv_store(rank: int, size: int, timeout: float):
     # as HVDTPU_IFACE before the address below is derived. No-op unless
     # the launcher enabled the probe; a manual HVDTPU_IFACE always wins.
     _nics.worker_report_and_adopt(client)
-    scope = os.environ.get(ENV_DIST_SCOPE, "dist")
+    scope = scope or os.environ.get(ENV_DIST_SCOPE, "dist")
     if rank == 0:
         # wait_for_workers=False: the address is published only after
         # the constructor returns, so it must not wait for the others.

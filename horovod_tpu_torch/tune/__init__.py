@@ -31,8 +31,10 @@ Surfaces: ``HVDTPU_AUTOTUNE=1``, ``make_train_step(autotune=...)``,
 Differences from the JAX package: a step is timed with a
 ``torch.cuda.synchronize`` of its card while a window may be scoring (the
 JAX package's ``block_until_ready``); and ``HVDTPU_AUTOTUNE`` arms the
-Python plane alone, the native ParameterManager riding the C++ runtime
-(ROADMAP A16).
+Python plane alone. The port's dynamic-enqueue runtime (A16a,
+:mod:`horovod_tpu_torch.native`) takes its fusion threshold and cycle time
+from the environment and syncs rank 0's to every rank each cycle, but has
+no ParameterManager to tune them yet: that comes with A16b (ROADMAP).
 """
 
 from __future__ import annotations

@@ -81,13 +81,23 @@ CERT_TIMEOUT_SECS = "CERT_TIMEOUT_SECS"  # cross-rank cert exchange wait
 HBM_BUDGET_GB = "HBM_BUDGET_GB"  # per-device memory budget the memplan gates
 MEMPLAN_BASELINES = "MEMPLAN_BASELINES"  # peak-regression baseline JSON path
 MEMPLAN_TOLERANCE = "MEMPLAN_TOLERANCE"  # predicted-vs-measured drift gate
+# The dynamic-enqueue runtime (horovod_tpu_torch.native) and its stall
+# inspector (utils/stall.py), under the JAX package's names and defaults.
+# The runtime reads each as HVT_<NAME> first (its native spelling), then
+# HVDTPU_<NAME>, then HOROVOD_<NAME> (native_knob below).
+CYCLE_TIME = "CYCLE_TIME"  # ms between idle background-loop cycles
+CACHE_CAPACITY = "CACHE_CAPACITY"  # response-cache entries (0 = off)
+DISABLE_GROUP_FUSION = "DISABLE_GROUP_FUSION"  # groups never fuse with others
+STALL_CHECK_DISABLE = "STALL_CHECK_DISABLE"
+STALL_CHECK_TIME_SECONDS = "STALL_CHECK_TIME_SECONDS"  # warn after this long
+STALL_SHUTDOWN_TIME_SECONDS = "STALL_SHUTDOWN_TIME_SECONDS"  # 0 = never
 # Closed-loop autotuner (horovod_tpu_torch.tune): the telemetry-driven knob
 # search. HVDTPU_AUTOTUNE=1 is the default of make_train_step(autotune=...),
 # ServePool(autotune=...) and the elastic driver's rollout coordinator. In
 # the JAX package the same flag also arms the native ParameterManager inside
-# the C++ runtime's background loop; that half rides the native runtime,
-# which this package does not have yet (ROADMAP A16), and the flag arms the
-# Python plane alone here.
+# the C++ runtime's background loop. This package's runtime (native/, since
+# A16a) has no ParameterManager yet: it comes with A16b (ROADMAP), and until
+# then the flag arms the Python plane alone.
 AUTOTUNE = "AUTOTUNE"  # closed-loop autotuner, trainer and serving pool
 AUTOTUNE_LOG = "AUTOTUNE_LOG"  # launcher --autotune-log-file
 AUTOTUNE_WINDOW_STEPS = "AUTOTUNE_WINDOW_STEPS"  # scored steps per trial
@@ -104,6 +114,9 @@ STREAM_STALENESS_SECS = "STREAM_STALENESS_SECS"  # watchdog -> ckpt fallback
 STREAM_MAX_PENDING = "STREAM_MAX_PENDING"  # audit-gated deltas held, max
 
 DEFAULT_FUSION_THRESHOLD = 128 * 1024 * 1024
+DEFAULT_CYCLE_TIME_MS = 1.0
+DEFAULT_CACHE_CAPACITY = 1024
+DEFAULT_STALL_WARNING_SECS = 60.0
 DEFAULT_CERT_TIMEOUT_SECS = 30.0  # bounded: the gate degrades, never hangs
 DEFAULT_MEMPLAN_TOLERANCE = 0.25
 DEFAULT_SERVE_BATCH_SIZE = 8
@@ -153,6 +166,17 @@ def _lookup(name: str) -> Optional[str]:
     for prefix in ("HVDTPU_", "HOROVOD_"):
         val = os.environ.get(prefix + name)
         if val is not None:
+            return val
+    return None
+
+
+def native_knob(name: str) -> Optional[str]:
+    """A knob of the dynamic-enqueue runtime: ``HVT_<name>``, then
+    ``HVDTPU_<name>``, then ``HOROVOD_<name>`` (the JAX package's native
+    ``KnobEnv`` order); an empty value counts as unset."""
+    for prefix in ("HVT_", "HVDTPU_", "HOROVOD_"):
+        val = os.environ.get(prefix + name)
+        if val:
             return val
     return None
 

@@ -46,7 +46,8 @@ DIST_ALLGATHER = "DIST_ALLGATHER"
 class Timeline:
     """Chrome-trace writer; one pid per tensor name, writer thread owns IO."""
 
-    def __init__(self, path: Optional[str] = None):
+    def __init__(self, path: Optional[str] = None,
+                 mark_cycles: Optional[bool] = None):
         self._path = path
         self._queue: "queue.Queue" = queue.Queue()
         self._pids: Dict[str, int] = {}
@@ -56,7 +57,8 @@ class Timeline:
         self._file = None
         self._started = False
         self._drained = threading.Event()
-        self._mark_cycles = _env.get_bool(_env.TIMELINE_MARK_CYCLES, False)
+        self._mark_cycles = (_env.get_bool(_env.TIMELINE_MARK_CYCLES, False)
+                             if mark_cycles is None else mark_cycles)
         self._t0 = time.perf_counter()
 
     # -- lifecycle ---------------------------------------------------------

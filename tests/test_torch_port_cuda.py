@@ -1953,3 +1953,45 @@ def test_memplan_bounds_the_measured_peak_on_the_card(gen, remat):
                                               device="cuda")
     gate = tan.compare_to_measured(plan, measured, source)
     assert source == "device_peak" and gate["ok"], gate
+
+
+# ---- the dynamic-enqueue runtime on the card --------------------------------
+
+
+def test_runtime_orders_a_side_stream_producer_and_consumer(gen):
+    """A tensor enqueued right after a producer kernel on a side stream
+    (held back by a spin), its in-place result consumed on another stream
+    with no host synchronization: the runtime's stream waits for the
+    producer's values, and the consumer's stream for the result."""
+    import horovod_tpu_torch.torch as hvd
+
+    hvd.init()
+    try:
+        producer, consumer = torch.cuda.Stream(), torch.cuda.Stream()
+        t = torch.zeros(1 << 22, device="cuda")
+        torch.cuda.synchronize()
+        with torch.cuda.stream(producer):
+            torch.cuda._sleep(100_000_000)  # ~50 ms before the fill runs
+            t.fill_(3.0)
+            h = hvd.allreduce_async_(t, name="ordered", op=hvd.Sum,
+                                     prescale_factor=2.0)
+        with torch.cuda.stream(consumer):
+            hvd.synchronize(h)
+            out = t + 1.0
+        torch.cuda.synchronize()
+        assert torch.equal(out, torch.full_like(t, 7.0))
+        assert torch.equal(t, torch.full_like(t, 6.0))
+    finally:
+        hvd.shutdown()
+
+
+def test_a_cuda_tensor_on_a_cpu_runtime_raises(gen):
+    from horovod_tpu_torch import native
+    from horovod_tpu_torch.exceptions import HorovodTpuError
+
+    native.init(0, 1, device="cpu")
+    try:
+        with pytest.raises(HorovodTpuError, match="initialized for the CPU"):
+            native.allreduce_async("x", torch.ones(2, device="cuda"))
+    finally:
+        native.shutdown()

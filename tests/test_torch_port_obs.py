@@ -219,13 +219,15 @@ def test_jsonl_keys_and_prom_names_match_the_reference(tmp_path,
         prom = open(rep.prom_path()).read().splitlines()
         outs[name] = (rec, prom)
     (prec, pprom), (rrec, rprom) = outs["port"], outs["ref"]
-    # Where the JAX package's native runtime is loaded in this process (a
-    # test before this one started it), its exports carry the runtime's
-    # native.* counters too; the port has no native runtime (A16).
-    for sec in ("counters", "gauges"):
-        rrec[sec] = {k: v for k, v in rrec[sec].items()
-                     if not k.startswith("native.")}
+    # Where either package's runtime ran in this process (a test before
+    # this one started it), its exports carry the runtime's native.*
+    # counters too (their names are held in test_torch_port_native.py).
+    for rec in (prec, rrec):
+        for sec in ("counters", "gauges"):
+            rec[sec] = {k: v for k, v in rec[sec].items()
+                        if not k.startswith("native.")}
     rprom = [line for line in rprom if "hvdtpu_native_" not in line]
+    pprom = [line for line in pprom if "hvdtpu_native_" not in line]
     assert set(prec) == set(rrec)
     for sec in ("counters", "gauges", "histograms"):
         assert prec[sec] == rrec[sec], sec
