@@ -581,14 +581,28 @@ Phases (any failure exits non-zero; nothing is caught):
    12/12/12 flash launches a step; the wrapped and unwrapped steps timed
    in turns (median of 10 after 3 warm-up steps each); the idle share of
    one wrapped step's torch.profiler window.
-41. Output: a "kernels" JSON line (the nine TPU kernels' counterparts and
+41. [hvd-torch-tune] [hvd-torch]'s model, batch and frontend on a runtime
+   started with HVT_AUTOTUNE=1: its ParameterManager
+   (horovod_tpu_torch.native.autotune) scores windows of 10 busy cycles
+   and proposes fusion thresholds and cycle times until it converges (at
+   most 60 wrapped steps); the scored windows, the tuned and default
+   knobs; then the wrapped step at the tuned knobs and at the defaults in
+   turns (median of 10 after 3 warm-up each), its fused batches and cycles
+   a step, and one profiled wrapped step at each (device ms, wall ms, idle
+   share). An unwrapped AdamW takes every step beside the wrapped one:
+   losses and final parameters bit for bit at both settings; 12/12/12
+   flash launches a wrapped step, no fused AdamW.
+   The TensorFlow and Keras frontends (horovod_tpu_torch.tensorflow,
+   .keras) have no phase: the card's machine has no TensorFlow, and this
+   script imports neither. Their parity tests run on the CPU.
+42. Output: a "kernels" JSON line (the nine TPU kernels' counterparts and
    the cast kernel; "launches" is the training run's count -- for the
    quantize pair the int8 [train-quant] run's (beside it the
    [ckpt-reshard] and int8 [decode] runs' and the KV shapes' times as
    "kv_write" / "kv_gather"), for kernel 8 and the cast kernel the fp8
    [train-fp8] run's, for kernel 7 the [serve-int8] rounds' -- the forward
    kernel's serving count beside it as "launches_serve", and the flash
-   kernels', AdamW's and (from 22.) the quantize pair's counts in 18.-40.,
+   kernels', AdamW's and (from 22.) the quantize pair's counts in 18.-41.,
    each read over its own run, as "launches_phases" (29.-31. and 33.
    counted in the worker processes); the flash rows' ring
    times at n = 2, 4 and the whole sequence as "ring_flash_*"; the quantize pair's
@@ -8062,6 +8076,182 @@ def hvd_torch_phase(hvt, kernels):
     return rec
 
 
+HVD_TUNE_CAP = 60  # wrapped steps the tuner may take to converge
+
+
+def hvd_tune_phase(hvt, kernels):
+    """[hvd-torch-tune]: GPT-2 small under hvd.DistributedOptimizer(AdamW)
+    on a runtime started with HVT_AUTOTUNE=1: its ParameterManager tunes
+    the fusion threshold and cycle time; then the wrapped step at the
+    tuned knobs and at the defaults, in turns. An unwrapped AdamW mirror
+    takes every step beside it: losses and parameters bit for bit."""
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch import native
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    t_phase = time.perf_counter()
+    cfg = hvt.GPT2Config.small(param_dtype=torch.float32)
+    sd0 = hvt.convert.init_params(cfg, seed=0)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, cfg.max_len + 1), dtype=np.int64
+    )).cuda()
+    log_path = Path(tempfile.mkdtemp(prefix="hvd_tune_")) / "autotune.log"
+    armed = {"HVT_AUTOTUNE": "1", "HVT_AUTOTUNE_LOG": str(log_path)}
+    os.environ.update(armed)
+    try:
+        hvd.init()
+    finally:
+        for k in armed:
+            os.environ.pop(k)
+    rt = native.get_runtime()
+    default = (rt.knobs.fusion_threshold, rt.knobs.cycle_time_us)
+    plain = hvt.GPT2LMModel(cfg)
+    plain.load_state_dict(sd0)
+    plain_opt = torch.optim.AdamW(plain.parameters(), lr=TRAIN_LR)
+    wrapped = hvt.GPT2LMModel(cfg)
+    wrapped.load_state_dict(sd0)
+    wrapped_opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(wrapped.parameters(), lr=TRAIN_LR),
+        named_parameters=wrapped.named_parameters())
+    hvd.broadcast_parameters(wrapped.state_dict(), root_rank=0)
+    hvd.broadcast_optimizer_state(wrapped_opt, root_rank=0)
+    losses = {"plain": [], "wrapped": []}
+    launches = dict.fromkeys(("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
+                              "fused_adamw"), 0)
+
+    def wrapped_step():
+        """One wrapped step, its launches counted; its ms."""
+        torch.cuda.synchronize()
+        c0 = read_counts(*kernels)
+        t0 = time.perf_counter()
+        losses["wrapped"] += hvd_losses(wrapped, wrapped_opt, tokens, 1)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        c1 = read_counts(*kernels)
+        for k in launches:
+            launches[k] += c1[k] - c0[k]
+        return ms
+
+    def plain_steps(n):
+        t0 = time.perf_counter()
+        losses["plain"] += hvd_losses(plain, plain_opt, tokens, n)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    # The tuner's windows see the wrapped steps back to back, as in a
+    # training loop; the mirror takes the same steps after.
+    tune_steps = 0
+    t0 = time.perf_counter()
+    while tune_steps < HVD_TUNE_CAP and not native.autotune_best()[2]:
+        wrapped_step()
+        tune_steps += 1
+    tune_s = time.perf_counter() - t0
+    plain_steps(tune_steps)
+    fusion, cycle_us, done = native.autotune_best()
+    rt.autotune.active = False  # capped: the knobs stay where they are set
+    samples = [list(s) for s in rt.autotune.samples]
+    rows = log_path.read_text().splitlines()
+    log(f"[hvd-torch-tune] {'converged' if done else 'capped'} after "
+        f"{tune_steps} wrapped steps ({tune_s:.1f} s), {len(samples)} "
+        f"scored windows ({len(rows)} log rows); tuned fusion {fusion} B, "
+        f"cycle {cycle_us} us; default fusion {default[0]} B, cycle "
+        f"{default[1]} us")
+    log(f"[hvd-torch-tune] samples (fusion B, cycle us, score B/s): "
+        f"{json.dumps(samples)}")
+    if not samples or len(rows) != len(samples):
+        raise AssertionError("[hvd-torch-tune] the tuner scored no window "
+                             f"or its log disagrees: {samples} / {rows}")
+    applied = [list(a) for a in rt.applied_knobs]
+
+    # The wrapped step at each setting, in turns; the controller's knobs
+    # ride the next negotiation, as the manager's own do.
+    settings = {"default": default, "tuned": (fusion, cycle_us)}
+    times = {k: [] for k in settings}
+    plain_ms = []
+    batches = {k: [] for k in settings}
+    cycles = {k: [] for k in settings}
+    for i in range(HVD_WARMUP + HVD_TIMED):
+        for key in (("default", "tuned") if i % 2 == 0
+                    else ("tuned", "default")):
+            rt.controller.set_knobs(*settings[key])
+            c0 = native.metrics_counters()
+            ms = wrapped_step()
+            c1 = native.metrics_counters()
+            pms = plain_steps(1)
+            if i >= HVD_WARMUP:
+                times[key].append(ms)
+                plain_ms.append(pms)
+                batches[key].append(c1["fused_batches"]
+                                    - c0["fused_batches"])
+                cycles[key].append(c1["cycles"] - c0["cycles"])
+    n_pairs = tune_steps + 2 * (HVD_WARMUP + HVD_TIMED)
+    same = (losses["wrapped"] == losses["plain"] and all(
+        torch.equal(a, b) for a, b in zip(plain.parameters(),
+                                          wrapped.parameters())))
+    log(f"[hvd-torch-tune] {n_pairs} wrapped steps beside the unwrapped "
+        f"AdamW: losses and final parameters bit for bit: {same}; "
+        f"launches {launches}")
+    if not same:
+        raise AssertionError("[hvd-torch-tune] the wrapped AdamW is not the "
+                             "unwrapped one bit for bit")
+    check_counts("hvd-torch-tune", launches,
+                 {"flash_fwd": cfg.n_layers, "flash_bwd_dkdv": cfg.n_layers,
+                  "flash_bwd_dq": cfg.n_layers, "fused_adamw": 0}, n_pairs)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"[hvd-torch-tune] wrapped step ms, median of {HVD_TIMED} in turns "
+        f"after {HVD_WARMUP} warm-up: default {med['default']:.3f}, tuned "
+        f"{med['tuned']:.3f} ({med['tuned'] - med['default']:+.3f} ms); the "
+        f"unwrapped mirror {float(np.median(plain_ms)):.3f}; fused batches "
+        f"a step default {batches['default']}, tuned {batches['tuned']}; "
+        f"cycles a step default {cycles['default']}, tuned "
+        f"{cycles['tuned']}; all {json.dumps(times)}")
+
+    # One wrapped step profiled at each setting ([hvd-torch]'s breakdown);
+    # the mirror takes the same steps after, outside the window.
+    profiled = {}
+    for key in ("default", "tuned"):
+        rt.controller.set_knobs(*settings[key])
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            hvd_losses(wrapped, wrapped_opt, tokens, 1)
+            torch.cuda.synchronize()
+            prof.step()
+            c0 = native.metrics_counters()
+            t0 = time.perf_counter()
+            hvd_losses(wrapped, wrapped_opt, tokens, 1)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            c1 = native.metrics_counters()
+            prof.step()
+        hvd_losses(plain, plain_opt, tokens, 2)
+        profiled[key] = device_breakdown(prof, wall_ms, {
+            "setting": key, "knobs": list(settings[key]),
+            "fused_batches": c1["fused_batches"] - c0["fused_batches"],
+            "cycles": c1["cycles"] - c0["cycles"]})
+        log(f"[hvd-torch-tune] {key} window: {profiled[key]['device_ms']:.2f}"
+            f" device ms in {wall_ms:.2f} wall, idle share "
+            f"{profiled[key]['idle_share']:.3f}, "
+            f"{profiled[key]['fused_batches']} fused batches")
+    hvd.shutdown()
+    del plain, plain_opt, wrapped, wrapped_opt
+    torch.cuda.empty_cache()
+    shutil.rmtree(log_path.parent, ignore_errors=True)
+    rec = {"launches": launches, "converged": bool(done),
+           "tune_steps": tune_steps, "tune_seconds": tune_s,
+           "tuned": {"fusion_threshold_bytes": fusion,
+                     "cycle_time_us": cycle_us},
+           "default": {"fusion_threshold_bytes": default[0],
+                       "cycle_time_us": default[1]},
+           "samples": samples, "applied_knobs": applied, "step_ms": med,
+           "step_ms_all": times, "plain_ms": float(np.median(plain_ms)),
+           "fused_batches": batches, "cycles": cycles, "profile": profiled,
+           "seconds": time.perf_counter() - t_phase}
+    log(f"[hvd-torch-tune] phase {rec['seconds']:.1f} s")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -8205,6 +8395,8 @@ def main() -> int:
     eagered = eager_phase(hvt)
     hvd_torch = hvd_torch_phase(hvt, (fa, fadam, tq))
     log_threads("[hvd-torch]")
+    hvd_tune = hvd_tune_phase(hvt, (fa, fadam, tq))
+    log_threads("[hvd-torch-tune]")
     # [train-remat] trains GPT-2 small, [train]'s layout (held in adam).
     adam_phases = adamw_phase_checks(fadam, gen, {
         "train_bert": bert["bucket_sizes"],
@@ -8243,7 +8435,8 @@ def main() -> int:
                     "launches_profile_step":
                         profiled["bert"]["flash_launches"],
                     "launches_analysis": analyzed["launches"],
-                    "launches_hvd_torch": hvd_torch["launches"]}
+                    "launches_hvd_torch": hvd_torch["launches"],
+                    "launches_hvd_torch_tune": hvd_tune["launches"]}
     # [serve-kv]'s workers run kernel 1 only: its count over every batch
     # of both runs, the other kernels' 0.
     serve_kv_flash = (served_kv["clean"]["flash_launches"]
@@ -8292,6 +8485,8 @@ def main() -> int:
                 new_launches["launches_profile_step"].get(name, 0),
             "analysis": new_launches["launches_analysis"].get(name, 0),
             "hvd_torch": new_launches["launches_hvd_torch"].get(name, 0),
+            "hvd_torch_tune":
+                new_launches["launches_hvd_torch_tune"].get(name, 0),
         }
 
     kernels = [{
@@ -8524,7 +8719,8 @@ def main() -> int:
                       "elastic_quant": equant, "autotune": tuned,
                       "serve_autotune": served_tuned, "stream": streamed,
                       "profile_step": profiled, "analysis": analyzed,
-                      "eager": eagered, "hvd_torch": hvd_torch}),
+                      "eager": eagered, "hvd_torch": hvd_torch,
+                      "hvd_torch_tune": hvd_tune}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,7 +34,7 @@ from __future__ import annotations
 import os
 import threading
 from datetime import timedelta
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -58,6 +58,9 @@ METRICS_ABI = {
     "cache_misses": "hvt_metrics_cache_misses",
     "shm_bytes": "hvt_metrics_shm_bytes",
 }
+
+# The ParameterManager's answer, under the JAX package's C symbol.
+AUTOTUNE_ABI = {"autotune_best": "hvt_autotune_best"}
 
 _lock = threading.Lock()
 _runtime: Optional[Runtime] = None
@@ -386,6 +389,19 @@ def metrics_counters() -> dict:
     """Cumulative runtime counters under :data:`METRICS_ABI`'s names."""
     snap = COUNTERS.snapshot()
     return {name: snap[name] for name in METRICS_ABI}
+
+
+def autotune_best() -> Tuple[int, int, int]:
+    """``(fusion_bytes, cycle_us, done)``: the best knobs the runtime's
+    ParameterManager has scored (its starting knobs until it scored one)
+    and whether tuning is done (1) or not (0); ``(-1, -1, -1)`` before
+    :func:`init` (``hvt_autotune_best``, ``operations.cc:1606``)."""
+    rt = _runtime
+    if rt is None:
+        return -1, -1, -1
+    best = rt.autotune.best
+    return (best.fusion_threshold_bytes, best.cycle_time_us,
+            1 if rt.autotune.done else 0)
 
 
 def shm_enabled() -> bool:

@@ -32,6 +32,11 @@ thread on ``torch.distributed`` process groups of its own:
   :func:`~horovod_tpu_torch.native.synchronize`, which makes the caller's
   stream wait on it (never ``torch.cuda.synchronize``).
 
+Under ``HVDTPU_AUTOTUNE`` (or ``HVT_AUTOTUNE``) rank 0 feeds each cycle's
+negotiated bytes to its :class:`~.autotune.ParameterManager`
+(``operations.cc:1140-1147``); when a sample window closes, the manager's
+knobs go to the controller and ride the next response list to every rank.
+
 Counters (``metrics_counters()``, process-cumulative like the reference's
 ``csrc/metrics.h``): cycles, fused tensors and batches, cache hits and
 misses, ``shm_bytes`` (always 0: there is no shared-memory plane) and the
@@ -51,6 +56,7 @@ import torch
 import torch.distributed as dist
 
 from . import messages as msg
+from .autotune import ParameterManager
 from .cache import CacheState, ResponseCache
 from .controller import (
     Coordinator, GlooController, LocalController, aligned_size,
@@ -254,6 +260,10 @@ class Knobs:
     timeline: str = ""
     timeline_mark_cycles: bool = False
     disable_group_fusion: bool = False
+    autotune: bool = False
+    autotune_log: str = ""
+    autotune_warmup_samples: int = 3
+    autotune_steps_per_sample: int = 10
 
     @classmethod
     def from_env(cls) -> "Knobs":
@@ -292,6 +302,12 @@ class Knobs:
         k.timeline = _env.native_knob(_env.TIMELINE) or ""
         k.timeline_mark_cycles = flag(_env.TIMELINE_MARK_CYCLES)
         k.disable_group_fusion = flag(_env.DISABLE_GROUP_FUSION)
+        k.autotune = flag(_env.AUTOTUNE)
+        k.autotune_log = _env.native_knob(_env.AUTOTUNE_LOG) or ""
+        k.autotune_warmup_samples = num("AUTOTUNE_WARMUP_SAMPLES",
+                                        k.autotune_warmup_samples, int)
+        k.autotune_steps_per_sample = num("AUTOTUNE_STEPS_PER_SAMPLE",
+                                          k.autotune_steps_per_sample, int)
         return k
 
 
@@ -409,6 +425,19 @@ class Runtime:
                            GlooController(gloo_pg, rank, size, coord))
         self.controller.set_knobs(self.knobs.fusion_threshold,
                                   self.knobs.cycle_time_us)
+        # Every rank holds a manager (autotune_best answers everywhere, as
+        # the reference's does); rank 0 alone updates it and writes its log.
+        self.autotune = ParameterManager()
+        if self.knobs.autotune:
+            self.autotune.initialize(
+                self.knobs.fusion_threshold, self.knobs.cycle_time_us,
+                self.knobs.autotune_log if rank == 0 else "",
+                self.knobs.autotune_warmup_samples,
+                self.knobs.autotune_steps_per_sample)
+        # (negotiation, fusion threshold, cycle us) at each change of the
+        # knobs the coordinator's lists carried, from the first on.
+        self.applied_knobs: List[Tuple[int, int, int]] = []
+        self.negotiations = 0
         path = self.knobs.timeline
         if path and size > 1:
             path += f".{rank}"
@@ -436,6 +465,7 @@ class Runtime:
         if self._thread.is_alive():
             self._thread.join()
         self.timeline.stop()
+        self.autotune.close()
         # The communicators go with the runtime; after a failure a peer may
         # be gone, and only an abort cannot wait for it.
         end = "abort" if self.error else "shutdown"
@@ -503,11 +533,16 @@ class Runtime:
             # A world of one with nothing new and nothing pending: the
             # coordinator's answer is empty, so an idle cycle only pauses.
             self.timeline.mark_cycle()
-            self._pause(start, self.knobs.cycle_time_us)
+            self._pause(start, self.controller.cycle_time_us
+                        or self.knobs.cycle_time_us)
             return True
         sent0 = self.controller.bytes_sent
         recv0 = self.controller.bytes_received
         lst = self.controller.negotiate(mine)
+        self.negotiations += 1
+        knobs = (lst.fusion_threshold_bytes, lst.cycle_time_us)
+        if not self.applied_knobs or self.applied_knobs[-1][1:] != knobs:
+            self.applied_knobs.append((self.negotiations,) + knobs)
         COUNTERS.bytes_sent += self.controller.bytes_sent - sent0
         COUNTERS.bytes_received += self.controller.bytes_received - recv0
 
@@ -542,6 +577,11 @@ class Runtime:
                 COUNTERS.fused_batches += 1
                 COUNTERS.fused_tensors += len(r.names)
             self._perform(r, nbytes)
+        # Autotune on the coordinator: the tuned knobs ride the next
+        # cycle's response list to every rank.
+        if self.rank == 0 and self.autotune.active and not self.autotune.done:
+            if self.autotune.update(sum(nbytes.values())):
+                self.controller.set_knobs(*self.autotune.current)
         self.timeline.mark_cycle()
         if lst.shutdown:
             return False

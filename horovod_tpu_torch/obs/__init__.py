@@ -26,8 +26,9 @@ the dynamic-enqueue runtime's counters (``native.*``, merged by
 :mod:`.native_bridge` into every export), the eager collectives' latencies
 and counts (``eager.<KIND>.ms``, ``eager.ops``, ``eager.bytes``) and the
 stall inspector's gauges (``stall.pending``, ``stall.max_age_s``,
-``stall.age_s.<name>``); the native ParameterManager's tuning state waits
-for A16b.
+``stall.age_s.<name>``). The runtime's ParameterManager exports no metric,
+as the JAX package's native one exports none: read it with
+``native.autotune_best()`` and its ``HVDTPU_AUTOTUNE_LOG`` rows.
 """
 
 from __future__ import annotations

@@ -4,8 +4,8 @@ The port of the JAX package's ``obs/export.py``: the files, their schema
 and the Prometheus names are the same. Since A16a the dynamic-enqueue
 runtime's counters (``native.*``, :mod:`.native_bridge`) are merged into
 every snapshot as the JAX package merges its native library's; its
-ParameterManager's tuning state waits for A16b. The rank-0 summary is one
-``torch.distributed.all_reduce``.
+ParameterManager exports nothing, as the JAX package's does not. The
+rank-0 summary is one ``torch.distributed.all_reduce``.
 
 Layout under ``HVDTPU_METRICS_DIR`` (default ``./hvdtpu_metrics``):
 

@@ -53,6 +53,9 @@ BucketScheduler` makes the same decision at run time:
 
 On the CPU (gloo) there are no streams: a bucket's work runs in the hook,
 and its collectives block there, so the CPU tests drive the same code.
+
+:func:`autotune_threshold` is the JAX package's tuning loop for a fusion
+threshold, driven by the runtime's :class:`~..native.autotune.GpTuner1D`.
 """
 
 from __future__ import annotations
@@ -66,7 +69,7 @@ from ..analysis import record as _record
 from .collectives import broadcast
 from .fusion import BucketPlan
 
-__all__ = ["BucketScheduler"]
+__all__ = ["BucketScheduler", "autotune_threshold"]
 
 # Side streams by (device index, slot): slot 0 is the chained stream, and
 # without stagger bucket b takes slot b.
@@ -233,3 +236,27 @@ class BucketScheduler:
             for t in _tensors(self._results):
                 t.record_stream(compute)
         return self.plan.assemble(self._results)
+
+
+def autotune_threshold(measure_fn: Callable[[int], float], *,
+                       lo_bytes: int = 1 << 20, hi_bytes: int = 512 << 20,
+                       max_samples: int = 12) -> int:
+    """Tune a fusion threshold (the JAX package's ``ops/layout.py:157``,
+    after the reference's ``ParameterManager`` loop): propose a threshold,
+    score it with ``measure_fn(threshold_bytes)`` (higher is better, e.g.
+    steps a second of the step built with ``HVDTPU_FUSION_THRESHOLD`` at
+    it), record the score, ``max_samples`` times. Proposals come from
+    :class:`~..native.autotune.GpTuner1D`, the runtime's GP and
+    expected-improvement search, which is always present here: there is no
+    log-sweep fallback. Returns the best threshold scored (bytes)."""
+    from ..native.autotune import GpTuner1D
+
+    tuner = GpTuner1D(float(lo_bytes), float(hi_bytes))
+    best_t, best_score = None, -float("inf")
+    for _ in range(max_samples):
+        t = int(tuner.propose())
+        score = float(measure_fn(t))
+        tuner.record(float(t), score)
+        if score > best_score:
+            best_t, best_score = t, score
+    return int(best_t)

@@ -30,11 +30,12 @@ Surfaces: ``HVDTPU_AUTOTUNE=1``, ``make_train_step(autotune=...)``,
 
 Differences from the JAX package: a step is timed with a
 ``torch.cuda.synchronize`` of its card while a window may be scoring (the
-JAX package's ``block_until_ready``); and ``HVDTPU_AUTOTUNE`` arms the
-Python plane alone. The port's dynamic-enqueue runtime (A16a,
-:mod:`horovod_tpu_torch.native`) takes its fusion threshold and cycle time
-from the environment and syncs rank 0's to every rank each cycle, but has
-no ParameterManager to tune them yet: that comes with A16b (ROADMAP).
+JAX package's ``block_until_ready``). As in the JAX package,
+``HVDTPU_AUTOTUNE`` also arms the dynamic-enqueue runtime's own
+ParameterManager (:mod:`horovod_tpu_torch.native.autotune`), which tunes
+the runtime's fusion threshold and cycle time from rank 0's negotiated
+bytes and syncs them to every rank each cycle; it shares this package's
+GP (:mod:`.gp`).
 """
 
 from __future__ import annotations

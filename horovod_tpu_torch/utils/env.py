@@ -92,14 +92,17 @@ STALL_CHECK_DISABLE = "STALL_CHECK_DISABLE"
 STALL_CHECK_TIME_SECONDS = "STALL_CHECK_TIME_SECONDS"  # warn after this long
 STALL_SHUTDOWN_TIME_SECONDS = "STALL_SHUTDOWN_TIME_SECONDS"  # 0 = never
 # Closed-loop autotuner (horovod_tpu_torch.tune): the telemetry-driven knob
-# search. HVDTPU_AUTOTUNE=1 is the default of make_train_step(autotune=...),
-# ServePool(autotune=...) and the elastic driver's rollout coordinator. In
-# the JAX package the same flag also arms the native ParameterManager inside
-# the C++ runtime's background loop. This package's runtime (native/, since
-# A16a) has no ParameterManager yet: it comes with A16b (ROADMAP), and until
-# then the flag arms the Python plane alone.
+# search. HVDTPU_AUTOTUNE=1 arms BOTH the runtime's ParameterManager (fusion
+# threshold and cycle time inside native/'s background loop, native/
+# autotune.py) and the Python plane: the default of make_train_step(
+# autotune=...), ServePool(autotune=...) and the elastic driver's rollout
+# coordinator. The runtime reads its knobs through native_knob, so
+# HVT_AUTOTUNE=1 arms the runtime's manager alone; its window knobs,
+# AUTOTUNE_WARMUP_SAMPLES and AUTOTUNE_STEPS_PER_SAMPLE, are the JAX
+# package's native ones (csrc/env_parser.cc), which its env.py does not
+# declare either (native/runtime.py Knobs reads them).
 AUTOTUNE = "AUTOTUNE"  # closed-loop autotuner, trainer and serving pool
-AUTOTUNE_LOG = "AUTOTUNE_LOG"  # launcher --autotune-log-file
+AUTOTUNE_LOG = "AUTOTUNE_LOG"  # ParameterManager rows; launcher log file
 AUTOTUNE_WINDOW_STEPS = "AUTOTUNE_WINDOW_STEPS"  # scored steps per trial
 AUTOTUNE_WARMUP_STEPS = "AUTOTUNE_WARMUP_STEPS"  # discarded per switch
 AUTOTUNE_MAX_TRIALS = "AUTOTUNE_MAX_TRIALS"  # hard trial budget

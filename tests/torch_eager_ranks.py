@@ -329,6 +329,25 @@ def c_package_join(nv, rank, size):
     return {"last": nv.package_join()}
 
 
+def c_autotune(nv, rank, size):
+    """``test_autotune_smoke`` (``tests/test_native_core.py:426``) on the
+    port's runtime, armed by the world's ``HVT_AUTOTUNE*`` env: the sums,
+    the ParameterManager's answer, and the knobs each rank applied at each
+    negotiation, read after the shutdown (the last negotiation is every
+    rank's)."""
+    rt = nv.n.get_runtime()
+    sums = []
+    for step in range(30):
+        hs = [nv.allreduce_async(f"t.{i}", np.ones((64,), np.float32))
+              for i in range(10)]
+        sums.append(np.stack([nv.synchronize(h) for h in hs]))
+    best = nv.n.autotune_best()
+    nv.n.shutdown()
+    return {"sums": np.stack(sums), "best": np.asarray(best),
+            "applied": np.asarray(rt.applied_knobs, np.int64),
+            "samples": np.asarray(rt.autotune.samples, np.float64)}
+
+
 NATIVE_SUITES = {
     4: [c_collectives, c_random_fp32, c_ints, c_adasum, c_fusion_cache,
         c_reducescatter, c_barrier],
@@ -339,6 +358,7 @@ NATIVE_SUITES = {
         c_mismatch_shape, c_mismatch_dtype, c_grouped, c_grouped_repeated,
         c_fusion_cache, c_join_uneven, c_broadcast_root_joined,
         c_package_join, c_allgather_uneven, c_alltoall_uneven],
+    "autotune": [c_autotune],  # the port's side only
 }
 
 
@@ -617,7 +637,7 @@ def _rank_main(side, suite, rank, size, port, out):
 
             native.init(rank, size, "127.0.0.1", port)
             api = RefNative()
-        cases = NATIVE_SUITES[int(suite)]
+        cases = NATIVE_SUITES[int(suite) if suite.isdigit() else suite]
     results = {}
     for case in cases:
         t0 = time.perf_counter()
