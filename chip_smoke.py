@@ -595,14 +595,30 @@ Phases (any failure exits non-zero; nothing is caught):
    The TensorFlow and Keras frontends (horovod_tpu_torch.tensorflow,
    .keras) have no phase: the card's machine has no TensorFlow, and this
    script imports neither. Their parity tests run on the CPU.
-42. Output: a "kernels" JSON line (the nine TPU kernels' counterparts and
+42. [spark-estimator] the Spark workers' training path: GPT-2 small
+   (seed-0 weights as a parameter dict, fp32, bf16 compute) fitted by
+   horovod_tpu_torch.spark.ParamsEstimator.fit_arrays on 24 seeded rows of
+   1024 token ids (labels the shifted ids) and one validation batch, 8
+   rows a step, 2 epochs of 3 steps, adamw(1e-4), checkpointing into a
+   FilesystemStore under _build/: every loss finite and the last below
+   the first; the step losses bit for bit a hand-written loop of the same
+   port calls (the estimator's batch order, functional_call,
+   accumulate_gradients, the adamw update) and its parameters the last
+   epoch checkpoint's; 96/72/72 flash launches (12 a step each, 12 a
+   validation pass); both epoch checkpoints and the final one written;
+   ParamsModel.load the best epoch's parameters and the returned model's
+   bit for bit, its logits equal. Printed: the step median (the steps
+   inside an epoch), the checkpoint writes, the fit and the phase's wall.
+   The Ray, MXNet and pyspark parts have no phase: none of those packages
+   is on the card's machine; their parity tests run on the CPU.
+43. Output: a "kernels" JSON line (the nine TPU kernels' counterparts and
    the cast kernel; "launches" is the training run's count -- for the
    quantize pair the int8 [train-quant] run's (beside it the
    [ckpt-reshard] and int8 [decode] runs' and the KV shapes' times as
    "kv_write" / "kv_gather"), for kernel 8 and the cast kernel the fp8
    [train-fp8] run's, for kernel 7 the [serve-int8] rounds' -- the forward
    kernel's serving count beside it as "launches_serve", and the flash
-   kernels', AdamW's and (from 22.) the quantize pair's counts in 18.-41.,
+   kernels', AdamW's and (from 22.) the quantize pair's counts in 18.-42.,
    each read over its own run, as "launches_phases" (29.-31. and 33.
    counted in the worker processes); the flash rows' ring
    times at n = 2, 4 and the whole sequence as "ring_flash_*"; the quantize pair's
@@ -8252,6 +8268,192 @@ def hvd_tune_phase(hvt, kernels):
     return rec
 
 
+SPARK_EPOCHS, SPARK_STEPS = 2, 3  # [spark-estimator]: epochs, steps each
+
+
+class TimedStore:
+    """A store's writes timed (the checkpoint writes of [spark-estimator])."""
+
+    def __init__(self, store):
+        self.store, self.write_s = store, []
+
+    def __getattr__(self, name):
+        return getattr(self.store, name)
+
+    def write(self, path, data):
+        t0 = time.perf_counter()
+        self.store.write(path, data)
+        self.write_s.append(time.perf_counter() - t0)
+
+
+def timed_optimizer(hvt, opt, ends):
+    """``opt`` with each update's end stamped after a synchronization:
+    consecutive stamps inside an epoch are its steps' times."""
+    def update(grads, state, params=None):
+        out = opt.update(grads, state, params)
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        return out
+
+    return hvt.optimizer.Optimizer(opt.init, update)
+
+
+def spark_estimator_phase(hvt, kernels):
+    """[spark-estimator]: the Spark workers' training path
+    (horovod_tpu_torch.spark.ParamsEstimator.fit_arrays) fits GPT-2 small at
+    [train]'s 8 x 1024 (bf16 compute, fp32 parameters) for 2 epochs of 3
+    steps with a one-batch validation set, checkpointing into a
+    FilesystemStore; held bit for bit against a hand-written loop of the
+    same port calls on the same batches, and its checkpoint reloaded bit
+    for bit."""
+    from horovod_tpu_torch import spark
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.parallel import dp
+    from horovod_tpu_torch.spark.estimator import (
+        as_batch, auto_loss, params_from_blob,
+    )
+
+    fa = kernels[0]
+    t_phase = time.perf_counter()
+    cfg = hvt.GPT2Config.small(param_dtype=torch.float32)
+    sd0 = hvt.convert.init_params(cfg, seed=0)
+    n = TRAIN_BATCH * SPARK_STEPS
+    tok = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (n + TRAIN_BATCH, cfg.max_len + 1), dtype=np.int64)
+    x, y = tok[:n, :-1], tok[:n, 1:]
+    vx, vy = tok[n:, :-1], tok[n:, 1:]
+    # The module on meta: the estimator's parameter dict is the one copy
+    # of the weights on the card.
+    model = hvt.GPT2LMModel(cfg, device="meta")
+    workdir = tempfile.mkdtemp(prefix="spark-", dir=_build.BUILD_DIR)
+    try:
+        store = TimedStore(spark.FilesystemStore(workdir))
+        ends = []
+        est = spark.ParamsEstimator(
+            model=model, params=sd0,
+            optimizer=timed_optimizer(hvt, hvt.adamw(TRAIN_LR), ends),
+            loss="auto", batch_size=TRAIN_BATCH, epochs=SPARK_EPOCHS,
+            store=store, run_id="gpt2")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_bytes = torch.cuda.memory_allocated()
+        reset_counts(*kernels)
+        t0 = time.perf_counter()
+        fitted = est.fit_arrays(x, y, validation=(vx, vy))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_peak = torch.cuda.max_memory_allocated() - base_bytes
+        launches = {"flash_fwd": fa.launches,
+                    "flash_bwd_dkdv": fa.launches_dkdv,
+                    "flash_bwd_dq": fa.launches_dq}
+        steps = SPARK_EPOCHS * SPARK_STEPS
+        hist = fitted.history
+        losses, val = hist["step_loss"], hist["val_loss"]
+        log(f"[spark-estimator] step losses {losses}; epoch means "
+            f"{hist['loss']}; val {val}; launches {launches} over {steps} "
+            f"steps and {SPARK_EPOCHS} validation forwards")
+        if not (len(losses) == steps and np.all(np.isfinite(losses))
+                and np.all(np.isfinite(val)) and losses[-1] < losses[0]):
+            raise RuntimeError(f"[spark-estimator] losses {losses}")
+        want = {"flash_fwd": cfg.n_layers * (steps + SPARK_EPOCHS),
+                "flash_bwd_dkdv": cfg.n_layers * steps,
+                "flash_bwd_dq": cfg.n_layers * steps}
+        if launches != want:
+            raise RuntimeError(f"[spark-estimator] flash launches {launches}, "
+                               f"not {want}")
+
+        # The same steps by hand: the estimator's batch order (its rng),
+        # forward, backward and AdamW update through the same port calls.
+        names = {k for k, _ in model.named_parameters()}
+        if set(sd0) != names:
+            raise RuntimeError("[spark-estimator] the seeded state dict is "
+                               "not GPT-2's parameters")
+        params = {k: sd0[k].cuda().clone().requires_grad_()
+                  for k in sorted(sd0)}
+        opt = hvt.adamw(TRAIN_LR)
+        opt_state = opt.init(params)
+        loss_fn = auto_loss(y.dtype)
+
+        def objective(p, batch):
+            return loss_fn(torch.func.functional_call(model, p, (batch[0],)),
+                           batch[1])
+
+        rng = np.random.default_rng(0)
+        manual = []
+        for _ in range(SPARK_EPOCHS):
+            order = rng.permutation(n)
+            for b in range(SPARK_STEPS):
+                idx = torch.from_numpy(order[b * TRAIN_BATCH:
+                                             (b + 1) * TRAIN_BATCH])
+                batch = (as_batch(torch.from_numpy(x)[idx], "cuda"),
+                         as_batch(torch.from_numpy(y)[idx], "cuda"))
+                loss, _, grads = dp.accumulate_gradients(objective, params,
+                                                         batch, 1)
+                with torch.no_grad():
+                    upd, opt_state = opt.update(grads, opt_state, params)
+                    for k, t in params.items():
+                        t.add_(upd[k])
+                manual.append(float(loss))
+        last = params_from_blob(store.read(store.get_epoch_checkpoint_path(
+            "gpt2", SPARK_EPOCHS - 1)), "cuda")
+        same_last = all(torch.equal(last[k], params[k].detach())
+                        for k in params)
+        log(f"[spark-estimator] hand-written loop losses {manual}; its "
+            f"parameters the last epoch's checkpoint bit for bit: {same_last}")
+        if manual != losses or not same_last:
+            raise RuntimeError("[spark-estimator] the estimator's steps are "
+                               "not the hand-written loop's bit for bit")
+        del params, opt_state, last
+
+        paths = [store.get_epoch_checkpoint_path("gpt2", e)
+                 for e in range(SPARK_EPOCHS)] + [
+                     store.get_checkpoint_path("gpt2")]
+        missing = [p for p in paths if not store.exists(p)]
+        if missing:
+            raise RuntimeError(f"[spark-estimator] missing checkpoints "
+                               f"{missing}")
+        best = int(np.argmin(val))
+        best_params = params_from_blob(store.read(paths[best]), "cuda")
+        loaded = spark.ParamsModel.load(store.store, "gpt2", model=model)
+        same_best = all(
+            torch.equal(loaded.params[k], best_params[k])
+            and torch.equal(loaded.params[k], fitted.params[k].detach())
+            for k in best_params)
+        got, ref = (m.transform_arrays(vx[:1]) for m in (loaded, fitted))
+        same_logits = bool(np.array_equal(got, ref))
+        log(f"[spark-estimator] best epoch {best}; reloaded parameters bit "
+            f"for bit the best epoch's and the returned model's: {same_best};"
+            f" transform_arrays logits {got.shape} equal: {same_logits}, "
+            f"finite: {bool(np.isfinite(got).all())}")
+        if not (same_best and same_logits and np.isfinite(got).all()
+                and got.shape == (1, cfg.max_len, cfg.vocab_size)):
+            raise RuntimeError("[spark-estimator] the reloaded model is not "
+                               "the best epoch's")
+        ckpt_bytes = os.path.getsize(paths[-1])
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    del est, fitted, loaded, best_params, model
+    torch.cuda.empty_cache()
+    # Steps inside an epoch: consecutive update stamps (an epoch's first
+    # step follows the previous epoch's validation and checkpoint).
+    step_ms = [(b - a) * 1e3 for e in range(SPARK_EPOCHS)
+               for a, b in zip(ends[e * SPARK_STEPS:(e + 1) * SPARK_STEPS],
+                               ends[e * SPARK_STEPS + 1:
+                                    (e + 1) * SPARK_STEPS])]
+    rec = {"launches": launches, "losses": losses, "val_loss": val,
+           "step_ms": float(np.median(step_ms)), "step_ms_all": step_ms,
+           "ckpt_write_s": store.write_s, "ckpt_bytes": ckpt_bytes,
+           "fit_s": fit_s, "fit_peak_bytes": fit_peak,
+           "seconds": time.perf_counter() - t_phase}
+    log(f"[spark-estimator] step median {rec['step_ms']:.3f} ms (of "
+        f"{[round(t, 3) for t in step_ms]}); checkpoint writes "
+        f"{[round(t, 3) for t in store.write_s]} s of {ckpt_bytes} bytes "
+        f"each; fit {fit_s:.2f} s, its peak {fit_peak} bytes allocated "
+        f"over the phase's start; phase wall {rec['seconds']:.1f} s on "
+        f"{card_line()}")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -8397,6 +8599,7 @@ def main() -> int:
     log_threads("[hvd-torch]")
     hvd_tune = hvd_tune_phase(hvt, (fa, fadam, tq))
     log_threads("[hvd-torch-tune]")
+    sparked = spark_estimator_phase(hvt, (fa, fadam, tq))
     # [train-remat] trains GPT-2 small, [train]'s layout (held in adam).
     adam_phases = adamw_phase_checks(fadam, gen, {
         "train_bert": bert["bucket_sizes"],
@@ -8436,7 +8639,8 @@ def main() -> int:
                         profiled["bert"]["flash_launches"],
                     "launches_analysis": analyzed["launches"],
                     "launches_hvd_torch": hvd_torch["launches"],
-                    "launches_hvd_torch_tune": hvd_tune["launches"]}
+                    "launches_hvd_torch_tune": hvd_tune["launches"],
+                    "launches_spark_estimator": sparked["launches"]}
     # [serve-kv]'s workers run kernel 1 only: its count over every batch
     # of both runs, the other kernels' 0.
     serve_kv_flash = (served_kv["clean"]["flash_launches"]
@@ -8487,6 +8691,8 @@ def main() -> int:
             "hvd_torch": new_launches["launches_hvd_torch"].get(name, 0),
             "hvd_torch_tune":
                 new_launches["launches_hvd_torch_tune"].get(name, 0),
+            "spark_estimator":
+                new_launches["launches_spark_estimator"].get(name, 0),
         }
 
     kernels = [{
@@ -8720,7 +8926,8 @@ def main() -> int:
                       "serve_autotune": served_tuned, "stream": streamed,
                       "profile_step": profiled, "analysis": analyzed,
                       "eager": eagered, "hvd_torch": hvd_torch,
-                      "hvd_torch_tune": hvd_tune}),
+                      "hvd_torch_tune": hvd_tune,
+                      "spark_estimator": sparked}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

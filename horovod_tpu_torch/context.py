@@ -179,8 +179,11 @@ def init(device=None, *, backend: Optional[str] = None,
         if (_worker.in_elastic_world() and not dist.is_initialized()
                 and not _worker.consume_join()):
             # Rank and size come from the driver's current round, not the
-            # static env, and may change at every rejoin.
-            _worker.join_world_env()
+            # static env, and may change at every rejoin. A fresh worker
+            # forms its first world as a rejoin does: retried.
+            return _worker.form_world(lambda: init(
+                device, backend=backend, init_method=init_method,
+                mesh=mesh, world_axes=world_axes, hierarchical=hierarchical))
     rank = launcher_rank()
     size = _env_int(_SIZE_VARS, 1)
     local_rank = _env_int(_LOCAL_RANK_VARS, 0)

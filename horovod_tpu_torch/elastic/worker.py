@@ -282,6 +282,36 @@ def _mesh_kwargs(prev) -> dict:
     return {"mesh": dict(prev.mesh.shape), "world_axes": prev.world_axes}
 
 
+def form_world(init, *, newer_than: int = -1,
+               grace: float = 0.0):
+    """Join the current round and form its world with ``init()``, retried
+    within the join deadline; returns what ``init`` returns.
+
+    A world forms only while every rank of the round sits in the same
+    attempt: rank 0's store lives as long as its own attempt, so a peer
+    that arrives as it times out sees the connection close. That surfaces
+    as a failed init, not a corrupted one -- the next attempt re-reads the
+    round (which may have advanced) and converges. ``newer_than``/``grace``
+    apply to the first join only (see :func:`join_world`)."""
+    from .. import context as _ctx
+    from ..exceptions import HorovodInternalError, HorovodTpuError
+
+    deadline = time.time() + _join_timeout()
+    while True:
+        _ctx.shutdown(abort=True)
+        join_world_env(timeout=max(1.0, deadline - time.time()),
+                       newer_than=newer_than, grace=grace)
+        newer_than = -1
+        try:
+            return init()
+        except (HorovodInternalError, HorovodTpuError, RuntimeError) as e:
+            if time.time() > deadline:
+                raise
+            _count_retry()
+            log.warning("elastic join attempt failed (%s); retrying", e)
+            time.sleep(0.2)
+
+
 def rejoin_world() -> Tuple[int, int]:
     """Tear the world down and join the (new) current round.
 
@@ -289,41 +319,26 @@ def rejoin_world() -> Tuple[int, int]:
     collective failure. The default group and every mesh group go through
     ``context.shutdown(abort=True)`` (an NCCL world is aborted first, so
     a dead peer cannot hang the teardown); the world is initialized again
-    with the previous context's device, backend and mesh axes. May
-    ``sys.exit(0)`` when this host was removed.
-
-    Init is retried within the join deadline: a rejoin can race peers
-    still tearing down their previous world, which surfaces as a failed
-    init, not a corrupted one -- the next attempt re-reads the round
-    (which may have advanced) and converges.
+    with the previous context's device, backend and mesh axes
+    (:func:`form_world`). May ``sys.exit(0)`` when this host was removed.
     """
     from .. import context as _ctx
-    from ..exceptions import HorovodInternalError, HorovodTpuError
 
     prev = _ctx.context() if _ctx.is_initialized() else None
-    deadline = time.time() + _join_timeout()
-    failed_round = _joined_round
-    while True:
-        _ctx.shutdown(abort=True)
-        # After a failure the driver republishes once it reaps the dead
-        # worker: joining the failed round again would only wait out the
-        # store's timeout for a peer that never comes.
-        join_world_env(timeout=max(1.0, deadline - time.time()),
-                       newer_than=failed_round, grace=_NEW_ROUND_GRACE_SECS)
-        failed_round = -1
+
+    def init():
         if prev is None:
             return last_join["rank"], last_join["size"]
         backend = prev.backend or (
             "nccl" if prev.device.type == "cuda" else "gloo")
-        try:
-            c = _ctx.init(prev.device, backend=backend, **_mesh_kwargs(prev))
-            return c.rank, c.size
-        except (HorovodInternalError, HorovodTpuError, RuntimeError) as e:
-            if time.time() > deadline:
-                raise
-            _count_retry()
-            log.warning("elastic rejoin attempt failed (%s); retrying", e)
-            time.sleep(0.2)
+        c = _ctx.init(prev.device, backend=backend, **_mesh_kwargs(prev))
+        return c.rank, c.size
+
+    # After a failure the driver republishes once it reaps the dead
+    # worker: joining the failed round again would only wait out the
+    # store's timeout for a peer that never comes.
+    return form_world(init, newer_than=_joined_round,
+                      grace=_NEW_ROUND_GRACE_SECS)
 
 
 # ---- heartbeat lease ----------------------------------------------------

@@ -894,10 +894,15 @@ class ElasticJob:
         value is an opaque token, and the lease clock (re)starts when
         the driver *observes it change*. A worker that has not produced
         a post-spawn beat yet is left alone (it may still be importing
-        torch); pre-join hangs are the join timeout's problem."""
+        torch); pre-join hangs are the join timeout's problem. So is a
+        worker that has flagged its clean exit (``exit/<host>``, set when
+        its training function returned): its beats stop while the
+        process tears down, which on a loaded host outlasts a short
+        lease, and a hang past that point is the drain deadline's."""
         if self._hb_timeout <= 0:
             return False
         beats = self.server.scope_items("heartbeat")
+        exits = self.server.scope_items("exit")
         now = time.time()
         reg = _obs.metrics()
         expired: List[str] = []
@@ -907,6 +912,8 @@ class ElasticJob:
             raw = beats.get(host)
             if raw is None or raw == self._hb_baseline.get(host):
                 continue  # no beat from THIS incarnation yet
+            if exits.get(host) == b"0":
+                continue  # finished training, on its way out
             prev = self._hb_seen.get(host)
             if prev is None or prev[0] != raw:
                 self._hb_seen[host] = (raw, now)

@@ -136,6 +136,20 @@ def _discovery_interval(ed, fast: bool):
                              FAST_DISCOVERY_SECS)
 
 
+@contextlib.contextmanager
+def _driver_settings(ed, driver_env: Optional[Dict[str, str]], fast: bool):
+    """The in-process driver's env and discovery interval for one scenario,
+    held by the scenario's own thread around its job thread's whole life.
+    Held by the job thread instead, they outlive a deadline with it: a job
+    thread still alive after the teardown kept a hang scenario's 2 s lease
+    in ``os.environ`` for every later scenario of the test process, and
+    ``patch.dict`` restores its stale copy of the env whenever such a
+    thread finally ends."""
+    with mock.patch.dict(os.environ, driver_env or {}), \
+            _discovery_interval(ed, fast):
+        yield
+
+
 # ---- the harness (tests/elastic_harness.py's twin) ------------------------
 
 # Worker-script preamble giving every scenario log()/set_hosts() plus the
@@ -230,33 +244,32 @@ def run_elastic_scenario(
 
     def _run():
         try:
-            with mock.patch.dict(os.environ, driver_env or {}), \
-                    _discovery_interval(ed, fast):
-                result["rc"] = ed.run_elastic(
-                    [sys.executable, worker_py],
-                    discovery_script=disco,
-                    min_np=min_np,
-                    reset_limit=reset_limit,
-                    extra_env=env,
-                    verbose=True,
-                    output_dir=os.path.join(workdir, "logs"),
-                    drain_timeout=drain_timeout,
-                    job_ref=job_ref,
-                    journal_dir=journal_dir,
-                )
+            result["rc"] = ed.run_elastic(
+                [sys.executable, worker_py],
+                discovery_script=disco,
+                min_np=min_np,
+                reset_limit=reset_limit,
+                extra_env=env,
+                verbose=True,
+                output_dir=os.path.join(workdir, "logs"),
+                drain_timeout=drain_timeout,
+                job_ref=job_ref,
+                journal_dir=journal_dir,
+            )
         except BaseException as exc:  # surface driver bugs, not rc=None
             result["exc"] = exc
 
     t = threading.Thread(target=_run, daemon=True)
-    t.start()
-    t.join(timeout=timeout)
-    if t.is_alive():
-        diag = timeout_diagnostics(workdir, job_ref.get("job"))
-        teardown_job(job_ref.get("job"))
-        t.join(timeout=10.0)
-        raise AssertionError(
-            f"elastic job did not finish in {timeout:.0f}s: "
-            f"{json.dumps(diag)[:4000]}")
+    with _driver_settings(ed, driver_env, fast):
+        t.start()
+        t.join(timeout=timeout)
+        if t.is_alive():
+            diag = timeout_diagnostics(workdir, job_ref.get("job"))
+            teardown_job(job_ref.get("job"))
+            t.join(timeout=10.0)
+            raise AssertionError(
+                f"elastic job did not finish in {timeout:.0f}s: "
+                f"{json.dumps(diag)[:4000]}")
     if "exc" in result:
         raise AssertionError(
             f"elastic driver raised: {result['exc']!r}"
@@ -835,37 +848,37 @@ def run_driver_crash_scenario(steps: int = DEFAULT_STEPS,
 
     def _run(adopt: bool, key: str):
         try:
-            with mock.patch.dict(os.environ, driver_env), \
-                    _discovery_interval(ed, True):
-                result[key] = ed.run_elastic(
-                    [sys.executable, worker_py], discovery_script=disco,
-                    min_np=1, reset_limit=10, extra_env=env, verbose=True,
-                    output_dir=os.path.join(workdir, "logs"),
-                    drain_timeout=30.0, job_ref=job_ref,
-                    journal_dir=journal_dir, adopt=adopt)
+            result[key] = ed.run_elastic(
+                [sys.executable, worker_py], discovery_script=disco,
+                min_np=1, reset_limit=10, extra_env=env, verbose=True,
+                output_dir=os.path.join(workdir, "logs"),
+                drain_timeout=30.0, job_ref=job_ref,
+                journal_dir=journal_dir, adopt=adopt)
         except BaseException as exc:  # noqa: BLE001
             result[f"{key}_exc"] = repr(exc)
 
     _chaos.plan("driver.crash:crash@step=2;n=1", seed=seed)
-    t1 = threading.Thread(target=_run, args=(False, "rc1"), daemon=True)
-    t1.start()
-    t1.join(timeout=max(5.0, deadline - time.time()))
-    _chaos.clear()
-    timed_out = t1.is_alive()
-    if timed_out:
-        teardown_job(job_ref.get("job"))
-        t1.join(timeout=10.0)
-    job2 = None
-    if not timed_out:
-        job_ref.clear()
-        t2 = threading.Thread(target=_run, args=(True, "rc"), daemon=True)
-        t2.start()
-        t2.join(timeout=max(5.0, deadline - time.time()))
-        timed_out = t2.is_alive()
-        job2 = job_ref.get("job")
+    with _driver_settings(ed, driver_env, True):
+        t1 = threading.Thread(target=_run, args=(False, "rc1"), daemon=True)
+        t1.start()
+        t1.join(timeout=max(5.0, deadline - time.time()))
+        _chaos.clear()
+        timed_out = t1.is_alive()
         if timed_out:
-            teardown_job(job2)
-            t2.join(timeout=10.0)
+            teardown_job(job_ref.get("job"))
+            t1.join(timeout=10.0)
+        job2 = None
+        if not timed_out:
+            job_ref.clear()
+            t2 = threading.Thread(target=_run, args=(True, "rc"),
+                                  daemon=True)
+            t2.start()
+            t2.join(timeout=max(5.0, deadline - time.time()))
+            timed_out = t2.is_alive()
+            job2 = job_ref.get("job")
+            if timed_out:
+                teardown_job(job2)
+                t2.join(timeout=10.0)
     return {
         "scenario": "driver_crash",
         "steps": steps,
@@ -954,59 +967,59 @@ def run_kv_serving(workdir: str, worker_body: str, requests, *,
 
     def _run():
         try:
-            with mock.patch.dict(os.environ, cooldown), \
-                    _discovery_interval(ed, fast):
-                result["rc"] = job.run()
+            result["rc"] = job.run()
         except BaseException as exc:  # noqa: BLE001 - reported below
             result["exc"] = repr(exc)
 
     t = threading.Thread(target=_run, daemon=True)
-    t.start()
-    answered: Dict[int, list] = {}
-    errors: Dict[int, str] = {}
-    dispatcher = Dispatcher(batch_size=batch_size, batch_timeout_ms=30.0,
-                            request_timeout_secs=request_timeout,
-                            max_attempts=10)
-    coord, wall = None, None
-    try:
-        t0 = time.time()
-        while getattr(job.server, "_server", None) is None:
-            if time.time() - t0 > 30 or not t.is_alive():
-                raise RuntimeError("rendezvous server never started")
-            time.sleep(0.05)
-        coord = skv.KVServeCoordinator(job.server, dispatcher,
-                                       poll_secs=0.02).start()
-        while len(coord.ready_workers()) < len(hosts):
-            if time.time() - t0 > timeout or not t.is_alive():
-                raise RuntimeError("the serving workers never became ready")
-            time.sleep(0.05)
-        t1 = time.perf_counter()
-        futs = {}
-        for i, r in enumerate(requests):
-            futs[i] = dispatcher.submit(r)
-            time.sleep(0.0 if i < len(requests) // 2 else trickle)
-        deadline = time.time() + timeout
-        for i, f in futs.items():
-            try:
-                answered[i] = [float(x) for x in np.asarray(
-                    f.result(timeout=max(1.0, deadline - time.time())))]
-            except Exception as e:  # noqa: BLE001 - recorded as evidence
-                errors[i] = repr(e)
-        wall = time.perf_counter() - t1
-    except Exception as exc:  # noqa: BLE001
-        result.setdefault("exc", repr(exc))
-    finally:
-        if coord is not None:
-            coord.stop(shutdown_workers=True)
-        elif getattr(job.server, "_server", None) is not None:
-            job.server.put("serve_ctl", "shutdown", b"1")
-    t.join(timeout=60.0)
-    timed_out = t.is_alive()
-    diagnostics = None
-    if timed_out:
-        diagnostics = timeout_diagnostics(workdir, job)
-        teardown_job(job)
-        t.join(timeout=10.0)
+    with _driver_settings(ed, cooldown, fast):
+        t.start()
+        answered: Dict[int, list] = {}
+        errors: Dict[int, str] = {}
+        dispatcher = Dispatcher(batch_size=batch_size, batch_timeout_ms=30.0,
+                                request_timeout_secs=request_timeout,
+                                max_attempts=10)
+        coord, wall = None, None
+        try:
+            t0 = time.time()
+            while getattr(job.server, "_server", None) is None:
+                if time.time() - t0 > 30 or not t.is_alive():
+                    raise RuntimeError("rendezvous server never started")
+                time.sleep(0.05)
+            coord = skv.KVServeCoordinator(job.server, dispatcher,
+                                           poll_secs=0.02).start()
+            while len(coord.ready_workers()) < len(hosts):
+                if time.time() - t0 > timeout or not t.is_alive():
+                    raise RuntimeError(
+                        "the serving workers never became ready")
+                time.sleep(0.05)
+            t1 = time.perf_counter()
+            futs = {}
+            for i, r in enumerate(requests):
+                futs[i] = dispatcher.submit(r)
+                time.sleep(0.0 if i < len(requests) // 2 else trickle)
+            deadline = time.time() + timeout
+            for i, f in futs.items():
+                try:
+                    answered[i] = [float(x) for x in np.asarray(
+                        f.result(timeout=max(1.0, deadline - time.time())))]
+                except Exception as e:  # noqa: BLE001 - evidence
+                    errors[i] = repr(e)
+            wall = time.perf_counter() - t1
+        except Exception as exc:  # noqa: BLE001
+            result.setdefault("exc", repr(exc))
+        finally:
+            if coord is not None:
+                coord.stop(shutdown_workers=True)
+            elif getattr(job.server, "_server", None) is not None:
+                job.server.put("serve_ctl", "shutdown", b"1")
+        t.join(timeout=60.0)
+        timed_out = t.is_alive()
+        diagnostics = None
+        if timed_out:
+            diagnostics = timeout_diagnostics(workdir, job)
+            teardown_job(job)
+            t.join(timeout=10.0)
     return {"timed_out": timed_out, "rc": result.get("rc"),
             "exc": result.get("exc"), "diagnostics": diagnostics,
             "answered": answered, "errors": errors,
@@ -1422,25 +1435,24 @@ def run_stream_scenario(name: str = "stream", steps: int = DEFAULT_STEPS,
 
     def _run(adopt: bool, key: str):
         try:
-            with mock.patch.dict(os.environ, driver_env), \
-                    _discovery_interval(ed, True):
-                result[key] = ed.run_elastic(
-                    [sys.executable, worker_py], discovery_script=disco,
-                    min_np=1, reset_limit=10, extra_env=env, verbose=True,
-                    output_dir=os.path.join(workdir, "logs"),
-                    drain_timeout=30.0, job_ref=job_ref,
-                    journal_dir=journal_dir, adopt=adopt)
+            result[key] = ed.run_elastic(
+                [sys.executable, worker_py], discovery_script=disco,
+                min_np=1, reset_limit=10, extra_env=env, verbose=True,
+                output_dir=os.path.join(workdir, "logs"),
+                drain_timeout=30.0, job_ref=job_ref,
+                journal_dir=journal_dir, adopt=adopt)
         except BaseException as exc:  # noqa: BLE001
             result[f"{key}_exc"] = repr(exc)
 
     def _phase(adopt: bool, key: str) -> bool:
         t = threading.Thread(target=_run, args=(adopt, key), daemon=True)
-        t.start()
-        t.join(timeout=max(5.0, deadline - time.time()))
-        if t.is_alive():
-            teardown_job(job_ref.get("job"))
-            t.join(timeout=10.0)
-            return True
+        with _driver_settings(ed, driver_env, True):
+            t.start()
+            t.join(timeout=max(5.0, deadline - time.time()))
+            if t.is_alive():
+                teardown_job(job_ref.get("job"))
+                t.join(timeout=10.0)
+                return True
         return False
 
     adopted_hosts: List[str] = []
@@ -1745,25 +1757,24 @@ def run_autotune_scenario(workdir: Optional[str] = None,
 
     def _run(adopt: bool, key: str):
         try:
-            with mock.patch.dict(os.environ, driver_env), \
-                    _discovery_interval(ed, True):
-                result[key] = ed.run_elastic(
-                    [sys.executable, worker_py], discovery_script=disco,
-                    min_np=1, reset_limit=10, extra_env=env, verbose=True,
-                    output_dir=os.path.join(workdir, "logs"),
-                    drain_timeout=30.0, job_ref=job_ref,
-                    journal_dir=journal_dir, adopt=adopt)
+            result[key] = ed.run_elastic(
+                [sys.executable, worker_py], discovery_script=disco,
+                min_np=1, reset_limit=10, extra_env=env, verbose=True,
+                output_dir=os.path.join(workdir, "logs"),
+                drain_timeout=30.0, job_ref=job_ref,
+                journal_dir=journal_dir, adopt=adopt)
         except BaseException as exc:  # noqa: BLE001
             result[f"{key}_exc"] = repr(exc)
 
     def _phase(adopt: bool, key: str) -> bool:
         t = threading.Thread(target=_run, args=(adopt, key), daemon=True)
-        t.start()
-        t.join(timeout=max(5.0, deadline - time.time()))
-        if t.is_alive():
-            teardown_job(job_ref.get("job"))
-            t.join(timeout=10.0)
-            return True
+        with _driver_settings(ed, driver_env, True):
+            t.start()
+            t.join(timeout=max(5.0, deadline - time.time()))
+            if t.is_alive():
+                teardown_job(job_ref.get("job"))
+                t.join(timeout=10.0)
+                return True
         return False
 
     adopted_history_len = None

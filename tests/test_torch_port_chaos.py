@@ -632,6 +632,39 @@ class TestHeartbeat:
         finally:
             job.server.stop()
 
+    def test_cleanly_exiting_worker_keeps_its_lease(self, monkeypatch):
+        """A worker whose training function returned has flagged
+        ``exit/<host>``; its beats stop while the process tears down, which
+        on a loaded host outlasts a short lease. The driver must not kill
+        and blacklist it (the job's last worker then never completes), while
+        a peer that stops beating without the flag still expires."""
+        from horovod_tpu_torch.runner.elastic_driver import (
+            ElasticDriver,
+            ElasticJob,
+            FixedHosts,
+        )
+
+        monkeypatch.setenv("HVDTPU_HEARTBEAT_TIMEOUT_SECS", "0.2")
+        driver = ElasticDriver(FixedHosts({"a": 1, "b": 1}))
+        job = ElasticJob(["true"], driver)
+        assert job.server.start()
+        a, b = _FakeProc(), _FakeProc()
+        try:
+            job._assignment = {"a": 0, "b": 1}
+            job._procs = {"a": a, "b": b}
+            job.server.put("heartbeat", "a", b"beat-1")
+            job.server.put("heartbeat", "b", b"beat-1")
+            assert job._check_leases() is False
+            job.server.put("exit", "a", b"0")
+            time.sleep(0.25)
+            assert job._check_leases() is True
+            assert not a.killed and b.killed
+            assert "a" in job._procs and "b" not in job._procs
+            assert not driver.host_manager.is_blacklisted("a")
+            assert job.lease_expiries == 1
+        finally:
+            job.server.stop()
+
     def test_stale_beat_from_previous_incarnation_ignored(self, monkeypatch):
         from horovod_tpu_torch.runner.elastic_driver import (
             ElasticDriver,

@@ -1995,3 +1995,42 @@ def test_a_cuda_tensor_on_a_cpu_runtime_raises(gen):
             native.allreduce_async("x", torch.ones(2, device="cuda"))
     finally:
         native.shutdown()
+
+
+def test_params_estimator_fits_gpt2_through_the_flash_kernels(gen):
+    """The Spark workers' path (ParamsEstimator.fit_arrays) on the card:
+    a GPT-2 of tiny depth at head dim 64 (bf16 compute, fp32 parameters)
+    trains through kernels 1-3 -- one forward a layer a step and a
+    validation pass, one backward pair a layer a step -- and reloads from
+    its store bit for bit."""
+    import tempfile
+
+    from horovod_tpu_torch import optimizer as topt
+    from horovod_tpu_torch.convert import init_params
+    from horovod_tpu_torch.models import GPT2Config, GPT2LMModel
+    from horovod_tpu_torch.spark import FilesystemStore, ParamsEstimator, ParamsModel
+
+    cfg = GPT2Config.tiny(d_model=128, n_heads=2, dtype=torch.bfloat16,
+                          param_dtype=torch.float32)
+    tok = np.random.default_rng(0).integers(0, cfg.vocab_size, (12, 65))
+    x, y = tok[:8, :-1], tok[:8, 1:]
+    model = GPT2LMModel(cfg)
+    with tempfile.TemporaryDirectory() as d:
+        store = FilesystemStore(d)
+        fa.reset_launches()
+        fitted = ParamsEstimator(
+            model=model, params=init_params(cfg, seed=0),
+            optimizer=topt.adamw(1e-3), loss="auto", batch_size=4, epochs=2,
+            store=store, run_id="g").fit_arrays(
+                x, y, validation=(tok[8:, :-1], tok[8:, 1:]))
+        steps = 2 * 2
+        assert fa.launches == cfg.n_layers * (steps + 2)
+        assert fa.launches_dkdv == fa.launches_dq == cfg.n_layers * steps
+        losses = fitted.history["step_loss"]
+        assert len(losses) == steps and np.isfinite(losses).all()
+        assert all(p.is_cuda for p in fitted.params.values())
+        loaded = ParamsModel.load(store, "g", model=model)
+        for k, v in fitted.params.items():
+            assert torch.equal(loaded.params[k], v.detach()), k
+        out = loaded.transform_arrays(x[:2])
+        assert out.shape == (2, 64, cfg.vocab_size) and np.isfinite(out).all()

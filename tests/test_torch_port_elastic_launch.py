@@ -344,6 +344,64 @@ def test_gloo_survivor_of_a_killed_peer_raises_internal_error(tmp_path):
                                "DistNetworkError"), got
 
 
+FIRST_JOIN = textwrap.dedent(
+    """
+    import json, sys, time
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvt
+
+    calls = []
+    real = dist.init_process_group
+
+    def flaky(*args, **kwargs):
+        # Rank 0's store closing as this worker arrives.
+        calls.append(time.time())
+        if len(calls) == 1:
+            raise dist.DistNetworkError("Failed to recv, got 0 bytes")
+        return real(*args, **kwargs)
+
+    dist.init_process_group = flaky
+    c = hvt.init(device="cpu", backend="gloo")
+    print(json.dumps({"rank": c.rank, "size": c.size, "calls": len(calls)}))
+    hvt.shutdown()
+    """
+)
+
+
+def test_fresh_worker_retries_its_first_world_formation(tmp_path):
+    """A respawned worker whose first world formation fails (rank 0's store
+    closed as it arrived) joins the round again and forms the world, as a
+    rejoin does. It used to exit rc=1: under load each respawn reached the
+    store just after the survivor's attempt timed out, until the stream
+    soak's deadline."""
+    import json
+    import subprocess
+    import time
+
+    from horovod_tpu_torch.elastic import worker as ew
+    from horovod_tpu_torch.runner import api
+    from horovod_tpu_torch.runner.http_server import RendezvousServer
+
+    server = RendezvousServer("127.0.0.1")
+    port = server.start()
+    try:
+        server.put("elastic", "round", b"0")
+        server.put("round_0", "assign/hostA", b"0")
+        server.put("round_0", "size", b"1")
+        server.put("round_0", "ts", repr(time.time()).encode())
+        env = dict(os.environ, PYTHONPATH=REPO, **{
+            ew.ENV_ELASTIC: "1", ew.ENV_HOST_ID: "hostA",
+            api.ENV_RENDEZVOUS_ADDR: "127.0.0.1",
+            api.ENV_RENDEZVOUS_PORT: str(port)})
+        out = subprocess.run([sys.executable, "-c", FIRST_JOIN], env=env,
+                             capture_output=True, text=True, timeout=120)
+    finally:
+        server.stop()
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"rank": 0, "size": 1, "calls": 2}
+
+
 # ---- the slice: GPT-2 tiny, crashed, respawned, resumed -------------------
 
 STEPS = 5
