@@ -611,7 +611,41 @@ Phases (any failure exits non-zero; nothing is caught):
    inside an epoch), the checkpoint writes, the fit and the phase's wall.
    The Ray, MXNet and pyspark parts have no phase: none of those packages
    is on the card's machine; their parity tests run on the CPU.
-43. Output: a "kernels" JSON line (the nine TPU kernels' counterparts and
+43. [flash-general] (after 3.) the general flash kernels
+   (csrc/flash_general.cu: bf16 at head dims other than 64 and 128, fp32
+   at every head dim up to 256) against their plain versions, forward
+   and backward (the backward twice, bit for bit), on fused-QKV views: head
+   dims 12-256 in bf16 and fp32, causal and not, at [2, 200 / 333, 3, d];
+   at d 16, 96 and 256 kv_len < Skv, rows without keys, a ring hop's
+   wholly masked block, sm_scale < 0, q/k/v all views of one fused
+   output, no lse cotangent, Sq = 1 and Skv = 1. Tolerances: bf16 the
+   flash checks' (2., 3.); fp32 2e-5 (out, lse absolute; gradients of the
+   largest plain gradient), the plain version's matmuls in full fp32. The
+   fp32 kernels' and plain version's errors against an fp64 computation;
+   launches by route (one general forward, two of each backward kernel, no
+   wgmma launch a case). Timed: the fp32 pair at [8, 1024, 12, 64] causal
+   and bf16 at [8, 1024, 768 / d, d] for d 16, 32, 96, 256 (events, device
+   time, the plain versions, SDPA's forward and backward with the backend
+   it took, bounds).
+44. [train-fp32] (after 5.) GPT-2 small with dtype=float32 (fp32 compute,
+   no TF32) from init_params(seed=0) through make_train_step(sharded=True,
+   fused_update=True), fused_adamw(1e-4), on [train]'s seeded 8 x 1025
+   batch: the first step's loss within 1e-5 relative and gradients within
+   1e-4 relative L2 of the use_flash=False model; one warm-up and 3 steps
+   with 12 launches a step of each general kernel, none of the wgmma
+   ones, one fused AdamW a bucket; losses finite and falling. Printed: the
+   step median, the flash device time of a profiled step, peak memory.
+45. [zoo-tiny] (after 44.) the repository's GPT2Config, BertConfig (no
+   padding mask) and ViTConfig .tiny() (head dim 16) in bf16 and fp32 with
+   fp32 weights under use_flash=None: a forward and backward against the
+   use_flash=False twin (0.05 of the largest plain value in bf16, 1e-4 in
+   fp32), n_layers launches of each general kernel and none on the plain
+   side; the tiny GPT-2 trains 3 ZeRO-1 fused steps with falling losses.
+   Each of 43.-45. prints its wall time; the script prints its own.
+46. Output: a "kernels" JSON line (the nine TPU kernels' counterparts, the
+   general route of the first three ("flash_general_*": [train-fp32]'s
+   launches, [zoo-tiny]'s as "launches_zoo_tiny", the fp32 times with the
+   bf16 ones under "bf16") and
    the cast kernel; "launches" is the training run's count -- for the
    quantize pair the int8 [train-quant] run's (beside it the
    [ckpt-reshard] and int8 [decode] runs' and the KV shapes' times as
@@ -642,6 +676,7 @@ import faulthandler
 import hashlib
 import itertools
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -858,6 +893,40 @@ def host_us(fn, calls: int = 200) -> float:
     return (t1 - t0) / calls * 1e6
 
 
+def attention_work(es, b, sq, skv, h, d, causal, q_offset=0, kv_offset=0,
+                   kv_len=None):
+    """(bytes, flops) of the flash forward (``"fwd"``), the backward pair
+    (``"pair"``) and each backward kernel (``"dkdv"``, ``"dq"``), as the
+    kernels line counts them: each input read once, each output written
+    once (``es`` bytes an element of q, k, v, out, dO and the gradients;
+    lse, delta and g_lse fp32), the products over the valid (query, key)
+    pairs. The pair reads q, out, dO, k, v, lse, g_lse, writes dq, dk, dv
+    (delta is its own, from out and dO) and needs five products (S, dP,
+    dV, dK, dQ); each backward kernel reads q, k, v, dO, lse, delta,
+    g_lse, writes its gradients and needs S, dP and its own products."""
+    kvl = skv if kv_len is None else kv_len
+    pairs = valid_pairs(sq, kvl, causal, q_offset, kv_offset)
+    n_q, n_kv, n_row = b * sq * h * d, b * skv * h * d, b * h * sq
+    product = 2 * d * b * h * pairs  # one QK^T-sized product
+    return {
+        "fwd": (es * (2 * n_q + 2 * n_kv) + 4 * n_row, 2 * product),
+        "pair": (es * (4 * n_q + 4 * n_kv) + 4 * 2 * n_row, 5 * product),
+        "dkdv": (es * (2 * n_q + 4 * n_kv) + 4 * 3 * n_row, 4 * product),
+        "dq": (es * (3 * n_q + 2 * n_kv) + 4 * 3 * n_row, 3 * product),
+    }
+
+
+def bound(nbytes, flops, dt=torch.bfloat16):
+    """The least time for ``nbytes`` and ``flops`` at the card's peaks:
+    the larger of bytes over the memory rate and operations over the
+    peak rate of ``dt`` (fp32 outside the tensor cores, else bf16)."""
+    peak = FP32_FLOPS_PER_S if dt == torch.float32 else BF16_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return {"bytes": nbytes, "flops": flops,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def flash_case(fa, gen, *, b, sq, skv, h, d, causal, q_offset=0,
                kv_offset=0, kv_len=None, timed=False):
     """Kernel vs plain version on one shape, q/k/v as the model hands them
@@ -910,13 +979,9 @@ def flash_case(fa, gen, *, b, sq, skv, h, d, causal, q_offset=0,
         # Every kernel of its call, summed by name: torch's vendored flash
         # kernels share names with this repository's.
         rec["library_device_ms"] = device_ms(sdpa)
-        kvl = skv if kv_len is None else kv_len
-        nbytes = 2 * (2 * b * sq * h * d + 2 * b * skv * h * d) + 4 * b * h * sq
-        flops = 4 * d * b * h * valid_pairs(sq, kvl, causal, q_offset, kv_offset)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
-        rec["bytes"], rec["flops"] = nbytes, flops
-        rec["bound_ms"] = max(t_bytes, t_ops) * 1e3
-        rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        nbytes, flops = attention_work(2, b, sq, skv, h, d, causal, q_offset,
+                                       kv_offset, kv_len)["fwd"]
+        rec.update(bound(nbytes, flops))
         tflops = lambda ms: flops / ms / 1e9  # noqa: E731
         log(f"[kernel] B={b}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP: "
             f"kernel {rec['ms']:.4f} ms by events ({tflops(rec['ms']):.1f} "
@@ -933,11 +998,11 @@ def flash_case(fa, gen, *, b, sq, skv, h, d, causal, q_offset=0,
     return rec
 
 
-def qkv_views(gen, b, sq, skv, h, d):
+def qkv_views(gen, b, sq, skv, h, d, dtype=torch.bfloat16):
     """q, k, v as the model hands them to the kernels: column views of one
     fused projection (of q and a fused key/value one when Sq != Skv)."""
     def rand(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     if sq == skv:
         return rand(b, sq, 3 * h * d).split(h * d, dim=-1)
@@ -1012,30 +1077,12 @@ def bwd_case(fa, gen, *, b, sq, skv, h, d, causal, q_offset=0, kv_offset=0,
         # kept, so no forward runs), summed by name: torch's vendored
         # flash kernels share names with this repository's.
         rec["library_device_ms"] = device_ms(sdpa_bwd)
-        kvl = skv if kv_len is None else kv_len
-        pairs = valid_pairs(sq, kvl, causal, q_offset, kv_offset)
-        n_q, n_kv, n_row = b * sq * h * d, b * skv * h * d, b * h * sq
-        product = 2 * d * b * h * pairs  # one QK^T-sized product, causal part
-        # Bytes and operations of each function: the pair reads q, out, dO,
-        # k, v, lse, g_lse and writes dq, dk, dv (delta is its own, from out
-        # and dO) and needs five products (S, dP, dV, dK, dQ); each kernel
-        # reads q, k, v, dO, lse, delta, g_lse, writes its gradients and
-        # needs S, dP and its own products.
-        work = {
-            "pair": (2 * (4 * n_q + 4 * n_kv) + 4 * 2 * n_row, 5 * product),
-            "flash_bwd_dkdv": (2 * (2 * n_q + 4 * n_kv) + 4 * 3 * n_row,
-                               4 * product),
-            "flash_bwd_dq": (2 * (3 * n_q + 2 * n_kv) + 4 * 3 * n_row,
-                             3 * product),
-        }
-        for name, (nbytes, flops) in work.items():
-            t_bytes = nbytes / HBM_BYTES_PER_S
-            t_ops = flops / BF16_FLOPS_PER_S
-            rec[name] = {
-                "bytes": nbytes, "flops": flops,
-                "bound_ms": max(t_bytes, t_ops) * 1e3,
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            }
+        work = attention_work(2, b, sq, skv, h, d, causal, q_offset,
+                              kv_offset, kv_len)
+        product = work["pair"][1] // 5  # one QK^T-sized product
+        for name, key in (("pair", "pair"), ("flash_bwd_dkdv", "dkdv"),
+                          ("flash_bwd_dq", "dq")):
+            rec[name] = bound(*work[key])
         pair = rec["pair"]
         pair_dev = sum(rec["kernel_ms"][n]
                        for n in ("flash_bwd_dkdv", "flash_bwd_dq"))
@@ -1315,7 +1362,9 @@ def kernel_category(name: str) -> str:
     n = name.lower()
     # dequantize_blockwise before quantize_blockwise: the one name holds
     # the other.
-    for kernel in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
+    for kernel in ("flash_general_fwd", "flash_general_dkdv",
+                   "flash_general_dq", "flash_fwd", "flash_bwd_dkdv",
+                   "flash_bwd_dq",
                    "fused_adamw", "dequantize_blockwise",
                    "quantize_blockwise", "fp8_matmul_reduce", "fp8_matmul",
                    "fp8_cast", "int8_matmul_reduce", "int8_matmul"):
@@ -1591,6 +1640,11 @@ def train(hvt, fa, fadam, cfg, sizes):
               "flash_bwd_dq": fa.launches_dq, "fused_adamw": fadam.launches}
     log(f"[train] losses {losses}")
     log(f"[train] launches over {TRAIN_STEPS} steps: {counts}")
+    general = (fa.launches_general, fa.launches_general_dq,
+               fa.launches_general_dkdv)
+    if any(general):
+        raise RuntimeError(f"[train] bf16 head dim 64 took the general "
+                           f"kernels {general} times: the wgmma route alone")
     want = {"flash_fwd": cfg.n_layers, "flash_bwd_dkdv": cfg.n_layers,
             "flash_bwd_dq": cfg.n_layers, "fused_adamw": len(sizes)}
     for name, per_step in want.items():
@@ -8454,6 +8508,465 @@ def spark_estimator_phase(hvt, kernels):
     return rec
 
 
+# [flash-general]: the general flash kernels (csrc/flash_general.cu) at every
+# head dim and dtype of the grid below, against their plain versions.
+GENERAL_DIMS = {torch.bfloat16: (12, 16, 24, 32, 48, 80, 96, 160, 256),
+                torch.float32: (12, 16, 24, 32, 48, 64, 80, 96, 128, 160,
+                                256)}
+GENERAL_EDGE_DIMS = (16, 96, 256)
+# fp32 against the fp32 plain version at allow_tf32 = False: out and lse
+# absolute, the gradients of the largest plain gradient (the CPU parity
+# tests' fp32 tolerances: summation order only).
+FP32_TOL = 2e-5
+GENERAL_TIMED_BF16_DIMS = (16, 32, 96, 256)  # [8, 1024, 768 // d, d]
+ZOO_TINY_TOL = {torch.bfloat16: 0.05, torch.float32: 1e-4}
+ZOO_TINY_STEPS = 3
+
+
+def general_counts(fa):
+    """The flash counters split by route: the general kernels' own, and the
+    wgmma kernels' (every launch less the general ones)."""
+    return {"general_fwd": fa.launches_general,
+            "general_dq": fa.launches_general_dq,
+            "general_dkdv": fa.launches_general_dkdv,
+            "wgmma_fwd": fa.launches - fa.launches_general,
+            "wgmma_dq": fa.launches_dq - fa.launches_general_dq,
+            "wgmma_dkdv": fa.launches_dkdv - fa.launches_general_dkdv}
+
+
+def check_general_counts(tag, fa, want):
+    got = general_counts(fa)
+    want = dict({k: 0 for k in got}, **want)
+    if got != want:
+        raise RuntimeError(f"[{tag}] flash launches {got}, not {want}")
+    return got
+
+
+def general_case(fa, gen, dt, *, b, sq, skv, h, d, causal, g_lse=True,
+                 **kw):
+    """One forward and one backward (twice: bit for bit) of the general
+    kernels against their plain versions on fused-QKV views; returns the
+    errors."""
+    q, k, v = qkv_views(gen, b, sq, skv, h, d, dt)
+    kw = dict(causal=causal, layout="bsm", n_heads=h, **kw)
+    fa.reset_launches()
+    out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
+    g = torch.randn(out.shape, generator=gen, device="cuda").to(dt)
+    gl = (torch.randn(lse.shape, generator=gen, device="cuda")
+          if g_lse else None)
+    args = (q, k, v, out, lse, g, gl)
+    got = fa.flash_attention_bwd(*args, **kw)
+    again = fa.flash_attention_bwd(*args, **kw)
+    ref = fa.flash_attention_bwd_reference(*args, **kw)
+    torch.cuda.synchronize()
+    name = (f"{str(dt)[6:]} B={b} Sq={sq} Skv={skv} H={h} D={d} "
+            f"causal={causal} {kw} g_lse={g_lse}")
+    check_general_counts("flash-general " + name, fa, {
+        "general_fwd": 1, "general_dq": 2, "general_dkdv": 2})
+    if not torch.equal(torch.isneginf(lse), torch.isneginf(ref_lse)):
+        raise RuntimeError(f"[flash-general] -inf rows differ on {name}")
+    fin = ~torch.isneginf(ref_lse)
+    err_out = (out.float() - ref_out.float()).abs().max().item()
+    err_lse = ((lse[fin] - ref_lse[fin]).abs().max().item()
+               if fin.any() else 0.0)
+    errs, rels = [], []
+    for x, r in zip(got, ref):
+        scale = max(r.float().abs().max().item(), 1e-6)
+        errs.append((x.float() - r.float()).abs().max().item())
+        rels.append(errs[-1] / scale)
+    bitwise = all(torch.equal(x, y) for x, y in zip(got, again))
+    tol = ((FP32_TOL,) * 3 if dt == torch.float32
+           else (OUT_TOL, LSE_TOL, GRAD_TOL))
+    ok = (err_out <= tol[0] and err_lse <= tol[1] and max(rels) <= tol[2]
+          and bitwise and out.dtype == dt)
+    log(f"[flash-general] {name}: max|d out| {err_out:.3e} max|d lse| "
+        f"{err_lse:.3e}; dq dk dv relative {rels[0]:.3e} {rels[1]:.3e} "
+        f"{rels[2]:.3e}; rows without keys {int((~fin).sum())}; backward "
+        f"bitwise again {bitwise}")
+    if not ok:
+        raise RuntimeError(
+            f"[flash-general] the general kernels disagree with their plain "
+            f"versions on {name} (tol out {tol[0]}, lse {tol[1]}, grads "
+            f"{tol[2]}, bitwise repeat)")
+    return {"err_out": err_out, "err_lse": err_lse, "err_grad": max(errs),
+            "rel_grad": max(rels)}
+
+
+def fp64_attention_grads(q4, k4, v4, g4, g_lse, causal, sm_scale):
+    """out, lse and the gradients of sum(out * g) + sum(lse * g_lse) in
+    fp64, by autograd through the dense formula ([B, S, H, D] inputs)."""
+    x = [t.detach().double().requires_grad_(True) for t in (q4, k4, v4)]
+    s = torch.einsum("bqhd,bkhd->bhqk", x[0], x[1]) * sm_scale
+    if causal:
+        sq, skv = s.shape[-2:]
+        keep = torch.ones(sq, skv, dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.exp(s - lse[..., None]),
+                       x[2])
+    ((out * g4.double()).sum() + (lse * g_lse.double()).sum()).backward()
+    return out, lse, [t.grad for t in x]
+
+
+def fp64_error(fa, gen, d=96):
+    """Error of the fp32 general kernels and of the fp32 plain version
+    against an fp64 computation, at [2, 200, 3, d] causal (Sq = Skv)."""
+    b, s, h = 2, 200, 3
+    q, k, v = qkv_views(gen, b, s, s, h, d, torch.float32)
+    kw = dict(causal=True, layout="bsm", n_heads=h)
+    g = torch.randn((b, s, h * d), generator=gen, device="cuda")
+    gl = torch.randn((b, h, s), generator=gen, device="cuda")
+    out64, lse64, grads64 = fp64_attention_grads(
+        *(fa._view4(x, "bsm", h) for x in (q, k, v, g)), gl, True,
+        1.0 / math.sqrt(d))
+    rec = {}
+    for name, fwd, bwd in (
+            ("kernel", fa.flash_attention_with_lse, fa.flash_attention_bwd),
+            ("plain", fa.flash_attention_reference,
+             fa.flash_attention_bwd_reference)):
+        out, lse = fwd(q, k, v, **kw)
+        grads = bwd(q, k, v, out, lse, g, gl, **kw)
+        torch.cuda.synchronize()
+        errs = {"out": (fa._view4(out, "bsm", h).double()
+                        - out64).abs().max().item(),
+                "lse": (lse.double() - lse64).abs().max().item()}
+        for gname, x, r in zip(("dq", "dk", "dv"), grads, grads64):
+            errs[gname] = ((fa._view4(x, "bsm", h).double() - r).abs().max()
+                           / r.abs().max()).item()
+        rec[name] = errs
+    log(f"[flash-general] fp32 against fp64 at [{b}, {s}, {h}, {d}] causal "
+        f"(out, lse absolute; dq dk dv of the largest fp64 gradient): "
+        f"{json.dumps(rec)}")
+    if max(rec["kernel"].values()) > FP32_TOL:
+        raise RuntimeError("[flash-general] the fp32 kernels are not fp32-"
+                           f"accurate against fp64: {rec['kernel']}")
+    return rec
+
+
+def sdpa_backend(fn) -> str:
+    """The backend scaled_dot_product_attention took in ``fn``, from the
+    names of the kernels one call launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = " ".join(e.key.lower() for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA)
+    for backend, marks in (("cudnn", ("cudnn",)), ("flash", ("flash",)),
+                           ("efficient", ("fmha", "efficient", "cutlass"))):
+        if any(m in names for m in marks):
+            return backend
+    return "math"
+
+
+def general_times(fa, gen, dt, h, d, b=8, s=1024):
+    """The general pair at [b, s, h, d] causal in ``dt``: the forward and
+    the backward pair by CUDA events, each kernel by device time, their
+    plain versions, and SDPA's forward and backward (a yardstick the port
+    never calls) with the backend it took; bounds from the function's own
+    bytes and operations."""
+    q, k, v = qkv_views(gen, b, s, s, h, d, dt)
+    kw = dict(causal=True, layout="bsm", n_heads=h)
+    out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+    g = torch.randn(out.shape, generator=gen, device="cuda").to(dt)
+    args = (q, k, v, out, lse, g, None)
+    fwd = lambda: fa.flash_attention_with_lse(q, k, v, **kw)  # noqa: E731
+    bwd = lambda: fa.flash_attention_bwd(*args, **kw)  # noqa: E731
+    rec = {"shape": [b, s, h, d], "dtype": str(dt)[6:],
+           "d_pad": fa.kernel_route(dt, d)[1],
+           "fwd_ms": time_ms(fwd, samples=10),
+           "pair_ms": time_ms(bwd, samples=10),
+           "plain_fwd_ms": time_ms(
+               lambda: fa.flash_attention_reference(q, k, v, **kw),
+               samples=5, per_sample=2),
+           "plain_pair_ms": time_ms(
+               lambda: fa.flash_attention_bwd_reference(*args, **kw),
+               samples=5, per_sample=2)}
+    rec["device_ms"] = {**kernel_ms(fwd, 10), **kernel_ms(bwd, 10)}
+    qh, kh, vh = (x.unflatten(-1, (h, d)).transpose(1, 2).detach()
+                  .requires_grad_(True) for x in (q, k, v))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qh, kh, vh, is_causal=True)
+    oh = sdpa()
+    goh = g.unflatten(-1, (h, d)).transpose(1, 2)
+    sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        oh, (qh, kh, vh), goh, retain_graph=True)
+    with torch.no_grad():
+        rec["sdpa_fwd_ms"] = time_ms(sdpa, samples=10)
+        rec["sdpa_backend"] = sdpa_backend(sdpa)
+    rec["sdpa_bwd_ms"] = time_ms(sdpa_bwd, samples=10)
+    es = 4 if dt == torch.float32 else 2
+    rec["bounds"] = {k: bound(nb, fl, dt) for k, (nb, fl) in
+                     attention_work(es, b, s, s, h, d, True).items()}
+    rec["bounds"]["flash_general_dkdv"] = rec["bounds"].pop("dkdv")
+    rec["bounds"]["flash_general_dq"] = rec["bounds"].pop("dq")
+    del oh, qh, kh, vh
+    dev = rec["device_ms"]
+    log(f"[flash-general] {rec['dtype']} [{b}, {s}, {h}, {d}] causal (d_pad "
+        f"{rec['d_pad']}): forward {rec['fwd_ms']:.4f} ms by events, "
+        f"{dev['flash_general_fwd']:.4f} ms device (bound "
+        f"{rec['bounds']['fwd']['bound_ms']:.4f} ms, "
+        f"{rec['bounds']['fwd']['bound_by']}); backward pair "
+        f"{rec['pair_ms']:.4f} ms by events, dq {dev['flash_general_dq']:.4f}"
+        f" + dkdv {dev['flash_general_dkdv']:.4f} ms device (bound "
+        f"{rec['bounds']['pair']['bound_ms']:.4f} ms); plain "
+        f"{rec['plain_fwd_ms']:.4f} / {rec['plain_pair_ms']:.4f} ms; sdpa "
+        f"({rec['sdpa_backend']}) {rec['sdpa_fwd_ms']:.4f} / "
+        f"{rec['sdpa_bwd_ms']:.4f} ms")
+    return rec
+
+
+def flash_general_phase(fa, gen):
+    """[flash-general]: the general kernels against their plain versions on
+    the grid and the edge cases, fp32 against fp64, and the timed shapes."""
+    t0 = time.perf_counter()
+    cases = []
+    for dt, dims in GENERAL_DIMS.items():
+        for d in dims:
+            for causal in (False, True):
+                cases.append(general_case(fa, gen, dt, b=2, sq=200, skv=333,
+                                          h=3, d=d, causal=causal))
+        for d in GENERAL_EDGE_DIMS:
+            edge = dict(dt=dt, d=d)
+            cases += [
+                general_case(fa, gen, b=2, sq=200, skv=333, h=3,
+                             causal=False, kv_len=250, **edge),
+                # Query rows 0-99 see no key; rows 100 on see some.
+                general_case(fa, gen, b=1, sq=150, skv=300, h=2, causal=True,
+                             kv_offset=100, **edge),
+                # A ring hop's future block: no query sees any key.
+                general_case(fa, gen, b=1, sq=70, skv=70, h=2, causal=True,
+                             kv_offset=100, **edge),
+                general_case(fa, gen, b=1, sq=150, skv=300, h=2, causal=True,
+                             kv_len=290, sm_scale=-1.0 / math.sqrt(d),
+                             **edge),
+                # q, k and v all column views of one fused QKV output, with
+                # and without an lse cotangent.
+                general_case(fa, gen, b=1, sq=130, skv=130, h=2, causal=True,
+                             **edge),
+                general_case(fa, gen, b=1, sq=130, skv=130, h=2, causal=True,
+                             g_lse=False, **edge),
+                general_case(fa, gen, b=2, sq=1, skv=70, h=3, causal=True,
+                             q_offset=69, **edge),
+                general_case(fa, gen, b=1, sq=70, skv=1, h=3, causal=False,
+                             **edge),
+            ]
+    t_checks = time.perf_counter() - t0
+    fp64 = fp64_error(fa, gen)
+    f32 = general_times(fa, gen, torch.float32, 12, 64)
+    bf16 = {d: general_times(fa, gen, torch.bfloat16, 768 // d, d)
+            for d in GENERAL_TIMED_BF16_DIMS}
+    wall = time.perf_counter() - t0
+    rec = {"cases": len(cases),
+           "max_err_out": max(c["err_out"] for c in cases),
+           "max_err_lse": max(c["err_lse"] for c in cases),
+           "max_err_grad": max(c["err_grad"] for c in cases),
+           "max_rel_grad": max(c["rel_grad"] for c in cases),
+           "fp64": fp64, "fp32": f32, "bf16": bf16,
+           "checks_s": t_checks, "wall_s": wall}
+    log(f"[flash-general] {len(cases)} cases passed in {t_checks:.1f} s; "
+        f"phase wall {wall:.1f} s")
+    return rec
+
+
+def train_fp32(hvt, kernels, sizes):
+    """[train-fp32]: GPT-2 small with dtype=float32 through the ZeRO-1 fused
+    step on the one-rank NCCL world, on [train]'s seeded batch: the first
+    step's loss and gradients against use_flash=False, then one warm-up and
+    3 timed steps (12 launches a step of each general kernel, none of the
+    wgmma ones, one AdamW a bucket)."""
+    from horovod_tpu_torch.parallel import dp
+
+    fa, fadam, tq = kernels
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    hvt.init(backend="nccl")
+    cfg = hvt.GPT2Config.small(dtype=torch.float32,
+                               param_dtype=torch.float32)
+    sd0 = hvt.convert.init_params(cfg, seed=0)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, cfg.max_len + 1), dtype=np.int64
+    )).cuda()
+
+    def build(use_flash):
+        model = hvt.GPT2LMModel(dataclasses.replace(cfg, use_flash=use_flash))
+        model.load_state_dict(sd0)
+        return model
+
+    model_k, model_p = build(None), build(False)
+    step, opt = hvt.make_train_step(train_loss(model_k),
+                                    hvt.fused_adamw(TRAIN_LR), sharded=True,
+                                    fused_update=True)
+    state = dp.init_state(model_k, opt)
+    if bucket_sizes(state) != list(sizes):
+        raise RuntimeError(f"[train-fp32] buckets {bucket_sizes(state)} != "
+                           f"[train]'s {list(sizes)}")
+    loss_k, _, g_k = dp.accumulate_gradients(train_loss(model_k),
+                                             state.params, tokens, 1)
+    loss_p, _, g_p = dp.accumulate_gradients(
+        train_loss(model_p), dict(model_p.named_parameters()), tokens, 1)
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    grad_rel = grads_rel_l2(g_k, g_p)
+    del g_k, g_p, model_p
+    torch.cuda.empty_cache()
+    log(f"[train-fp32] first step, kernels vs plain attention: loss "
+        f"{float(loss_k):.7f} vs {float(loss_p):.7f} (relative {loss_rel:.3e},"
+        f" tol 1e-5); gradients relative L2 {grad_rel:.3e} (tol 1e-4)")
+    if not (loss_rel <= 1e-5 and grad_rel <= 1e-4):
+        raise RuntimeError("[train-fp32] the general kernels' step disagrees "
+                           "with plain attention")
+    losses = []
+    state, _ = timed_steps(step, state, lambda i: tokens, 1, losses)
+    reset_counts(fa, fadam, tq)
+    torch.cuda.reset_peak_memory_stats()
+    state, times = timed_steps(step, state, lambda i: tokens, 3, losses)
+    counts = general_counts(fa)
+    counts["fused_adamw"] = fadam.launches
+    peak = peak_gib()
+    check_counts("train-fp32", counts, {
+        "general_fwd": cfg.n_layers, "general_dq": cfg.n_layers,
+        "general_dkdv": cfg.n_layers, "wgmma_fwd": 0, "wgmma_dq": 0,
+        "wgmma_dkdv": 0, "fused_adamw": len(sizes)}, 3)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise RuntimeError(f"[train-fp32] the losses did not fall: {losses}")
+
+    def one_step():
+        nonlocal state
+        state, _ = step(state, tokens)
+
+    prof = profile_window(one_step, {"steps": 1})
+    flash_ms = sum(ms for c, ms in prof["by_category_ms"].items()
+                   if c.startswith("flash_general"))
+    step_ms = float(np.median(times))
+    log(f"[train-fp32] losses {losses}; step median {step_ms:.1f} ms "
+        f"({times}); flash device time {flash_ms:.2f} ms a step of "
+        f"{prof['device_ms']:.2f}; peak memory {peak:.2f} GiB; launches over "
+        f"3 steps {counts}")
+    hvt.shutdown()
+    del model_k, step, state
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    log(f"[train-fp32] phase wall {wall:.1f} s")
+    return {"losses": losses, "loss_rel": loss_rel, "grad_rel_l2": grad_rel,
+            "step_ms": step_ms, "step_ms_all": times,
+            "flash_device_ms": flash_ms, "peak_gib": peak,
+            "launches": counts, "profile": prof, "wall_s": wall}
+
+
+def zoo_tiny_model(hvt, name, dt, use_flash):
+    """The repository's tiny ``name`` (head dim 16) computing in ``dt`` with
+    fp32 weights, its seeded weights loaded, and one seeded input batch."""
+    kw = dict(dtype=dt, param_dtype=torch.float32, use_flash=use_flash)
+    rng = np.random.default_rng(5)
+    if name == "vit":
+        cfg = hvt.ViTConfig.tiny(**kw)
+        model, sd = hvt.ViT(cfg), hvt.convert.init_vit_params(cfg, seed=0)
+        x = rng.standard_normal((4, 3, cfg.image_size, cfg.image_size),
+                                dtype=np.float32)
+    else:
+        tiny = hvt.GPT2Config.tiny if name == "gpt2" else hvt.BertConfig.tiny
+        cfg = tiny(**kw)
+        if name == "gpt2":
+            model, sd = hvt.GPT2LMModel(cfg), hvt.convert.init_params(cfg, 0)
+        else:
+            model = hvt.BertModel(cfg)
+            sd = hvt.convert.init_bert_params(cfg, seed=0)
+        x = rng.integers(0, cfg.vocab_size, (4, 64))
+    model.load_state_dict(sd)
+    return model, torch.from_numpy(x).cuda()
+
+
+def zoo_tiny(hvt, kernels):
+    """[zoo-tiny]: the tiny GPT-2, BERT (no padding mask) and ViT, head dim
+    16, in bf16 and fp32 under use_flash=None: a forward and backward
+    against the use_flash=False twin, n_layers launches of each general
+    kernel; the tiny GPT-2 trains 3 steps."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.parallel import dp
+
+    fa, fadam, tq = kernels
+    t0 = time.perf_counter()
+    hvt.init(backend="nccl")
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        for name in ("gpt2", "bert", "vit"):
+            tag = f"{name} {str(dt)[6:]}"
+            res = {}
+            for use_flash in (None, False):
+                model, x = zoo_tiny_model(hvt, name, dt, use_flash)
+                n = model.cfg.n_layers
+                fa.reset_launches()
+                y = model(x).float()
+                w = torch.from_numpy(np.random.default_rng(6).standard_normal(
+                    tuple(y.shape), dtype=np.float32)).cuda()
+                (y * w).sum().backward()
+                # The kernels on the flash side, one forward and one
+                # backward a layer; none on the plain side.
+                counts = check_general_counts(
+                    f"zoo-tiny {tag} use_flash={use_flash}", fa,
+                    {"general_fwd": n, "general_dq": n, "general_dkdv": n}
+                    if use_flash is None else {})
+                res[use_flash] = (y.detach(), {
+                    k: p.grad for k, p in model.named_parameters()
+                    if p.grad is not None}, counts)
+            (y_k, g_k, counts), (y_p, g_p, _) = res[None], res[False]
+            if g_k.keys() != g_p.keys():
+                raise RuntimeError(f"[zoo-tiny] {tag}: the twins' gradients "
+                                   f"reach other parameters")
+            err_y = ((y_k - y_p).abs().max() / y_p.abs().max()).item()
+            err_g = max((g_k[k].float() - g_p[k].float()).abs().max().item()
+                        for k in g_p) / max(g_p[k].float().abs().max().item()
+                                            for k in g_p)
+            tol = ZOO_TINY_TOL[dt]
+            log(f"[zoo-tiny] {tag}: forward max|d| / max|plain| {err_y:.3e}, "
+                f"gradients {err_g:.3e} (tol {tol}); launches {counts}")
+            if not (err_y <= tol and err_g <= tol):
+                raise RuntimeError(f"[zoo-tiny] {tag} disagrees with its "
+                                   f"use_flash=False twin")
+            out[tag] = {"out_err": err_y, "grad_err": err_g,
+                        "launches": counts}
+        # The tiny GPT-2 trains through the ZeRO-1 fused step.
+        model, _ = zoo_tiny_model(hvt, "gpt2", dt, None)
+        toks = torch.from_numpy(np.random.default_rng(7).integers(
+            0, model.cfg.vocab_size, (8, 65))).cuda()
+
+        def loss_fn(p, t, model=model):
+            logits = torch.func.functional_call(model, p, (t[:, :-1],))
+            return F.cross_entropy(logits.flatten(0, 1), t[:, 1:].flatten())
+
+        step, opt = hvt.make_train_step(loss_fn, hvt.fused_adamw(1e-3),
+                                        sharded=True, fused_update=True)
+        state = dp.init_state(model, opt)
+        reset_counts(*kernels)
+        losses = []
+        state, times = timed_steps(step, state, lambda i: toks,
+                                   ZOO_TINY_STEPS, losses)
+        n = model.cfg.n_layers
+        counts = check_general_counts(
+            f"zoo-tiny gpt2 {str(dt)[6:]} train", fa, {
+                "general_fwd": n * ZOO_TINY_STEPS,
+                "general_dq": n * ZOO_TINY_STEPS,
+                "general_dkdv": n * ZOO_TINY_STEPS})
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise RuntimeError(f"[zoo-tiny] gpt2 {str(dt)[6:]}: the losses "
+                               f"did not fall: {losses}")
+        log(f"[zoo-tiny] gpt2 {str(dt)[6:]} trains: losses {losses}; step ms "
+            f"{times}; launches {counts}")
+        out[f"gpt2 {str(dt)[6:]} train"] = {"losses": losses,
+                                             "launches": counts}
+    hvt.shutdown()
+    wall = time.perf_counter() - t0
+    log(f"[zoo-tiny] phase wall {wall:.1f} s")
+    out["wall_s"] = wall
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -8464,6 +8977,7 @@ def main() -> int:
     from horovod_tpu_torch.ops import fused_adamw as fadam
     from horovod_tpu_torch.ops import quantization as tq
 
+    t_script = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -8508,7 +9022,7 @@ def main() -> int:
     # past kv_len < Skv, causal with q_offset > 0.
     for sq, skv in ((1, 1), (63, 65), (65, 63), (127, 129), (129, 127),
                     (1, 1000), (1000, 1), (129, 1000), (1000, 129)):
-        for d in fa.HEAD_DIMS:
+        for d in fa.WGMMA_HEAD_DIMS:
             for causal in (False, True):
                 cases.append(flash_case(
                     fa, gen, b=1, sq=sq, skv=skv, h=2, d=d, causal=causal,
@@ -8543,11 +9057,14 @@ def main() -> int:
         bwd_case(fa, gen, b=32, sq=197, skv=197, h=16, d=64, causal=False),
         bwd_case(fa, gen, b=32, sq=512, skv=512, h=12, d=64, causal=False),
     ]
+    general = flash_general_phase(fa, gen)
     train_cfg = hvt.GPT2Config.small(param_dtype=torch.float32)
     sizes = trainer_bucket_sizes(hvt, train_cfg)
     adam = adamw_case(fadam, gen, sizes)
     torch.cuda.empty_cache()
     trained = train(hvt, fa, fadam, train_cfg, sizes)
+    fp32_trained = train_fp32(hvt, (fa, fadam, tq), sizes)
+    tiny = zoo_tiny(hvt, (fa, fadam, tq))
     qsizes = quant_bucket_sizes(hvt, train_cfg)
     quant = quant_case(tq, gen, qsizes)
     kv_quant = kv_quant_case(tq, gen)
@@ -8765,6 +9282,53 @@ def main() -> int:
                 "library_device_ms": bwd_b16["library_device_ms"],
             },
         })
+    # The general route of rows 1-3 (csrc/flash_general.cu): "ms",
+    # "device_ms", "plain_ms", "library_ms" and the bounds at the fp32
+    # [train-fp32] shape [8, 1024, 12, 64] causal (the backward rows: "ms"
+    # the pair by events, "device_ms" each kernel), "bf16" the same at
+    # [8, 1024, 768 / d, d] causal; "launches" the 3 timed [train-fp32]
+    # steps', "launches_zoo_tiny" each [zoo-tiny] model's forward and
+    # backward and the tiny GPT-2's 3 steps.
+    g32 = general["fp32"]
+    tiny_runs = {k: r["launches"] for k, r in tiny.items()
+                 if isinstance(r, dict)}
+    for name, line in (("flash_general_fwd", "125"),
+                       ("flash_general_dkdv", "480"),
+                       ("flash_general_dq", "541")):
+        fwd = name == "flash_general_fwd"
+        count = name.replace("flash_", "")
+        work = "fwd" if fwd else name
+
+        def times(r, fwd=fwd, name=name, work=work):
+            return {"ms": r["fwd_ms"] if fwd else r["pair_ms"],
+                    "device_ms": r["device_ms"][name],
+                    "plain_ms": r["plain_fwd_ms"] if fwd
+                    else r["plain_pair_ms"],
+                    "bound_ms": r["bounds"][work]["bound_ms"],
+                    "bound_by": r["bounds"][work]["bound_by"],
+                    "pair_bound_ms": r["bounds"]["pair"]["bound_ms"],
+                    "library_ms": r["sdpa_fwd_ms"] if fwd
+                    else r["sdpa_bwd_ms"],
+                    "library": f"scaled_dot_product_attention "
+                               f"({r['sdpa_backend']})",
+                    "shape": r["shape"], "d_pad": r["d_pad"]}
+
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": src + "flash_general.cu",
+            "replaces": ref + line,
+            "launches": fp32_trained["launches"][count],
+            "launches_zoo_tiny": {k: c[count] for k, c in tiny_runs.items()},
+            "max_abs_err": general["max_err_out"] if fwd
+            else general["max_err_grad"],
+            "max_abs_err_lse": general["max_err_lse"],
+            "max_rel_err": general["max_rel_grad"],
+            "fp64_err": general["fp64"]["kernel"],
+            "dtype": "float32",
+            **times(g32),
+            "bf16": {d: times(r) for d, r in general["bf16"].items()},
+        })
     kernels.append({
         "name": "fused_adamw",
         "route": "cuda",
@@ -8908,7 +9472,12 @@ def main() -> int:
                    if k not in ("t_bytes", "t_ops")},
     })
     log_threads("every phase")
-    print(json.dumps({"kernels": kernels, "train": trained, "quant": quant,
+    log(f"[card] script wall {time.perf_counter() - t_script:.1f} s "
+        f"([flash-general] {general['wall_s']:.1f}, [train-fp32] "
+        f"{fp32_trained['wall_s']:.1f}, [zoo-tiny] {tiny['wall_s']:.1f})")
+    print(json.dumps({"kernels": kernels, "train": trained,
+                      "flash_general": general, "train_fp32": fp32_trained,
+                      "zoo_tiny": tiny, "quant": quant,
                       "train_quant": quant_trained, "fp8": fp8,
                       "fp8_cast": fp8_cast,
                       "train_fp8": fp8_trained, "serve": served,

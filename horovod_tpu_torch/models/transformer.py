@@ -28,11 +28,14 @@ packed ``[B, S, H*D]`` layout: q, k and v are column slices of one fused
 QKV projection, which the kernel reads in place through strides.
 ``use_flash=None`` takes it on a CUDA device, as the JAX package takes its
 Pallas kernel on a TPU, and plain attention on the CPU; ``True`` takes it
-on either (CPU tensors run its plain version). On the card the kernel
-runs or the wrapper raises (it takes bf16 with head dim 64 or 128): plain
-attention runs there only for ``use_flash=False``, an ``attention_fn``, or
-a dense ``mask`` (BERT's padding mask), which takes plain attention on
-every device, as the JAX package routes it.
+on either (CPU tensors run its plain version). On the card a kernel runs
+or the wrapper raises: the kernels take bf16 and fp32 at every head dim
+from 1 to 256 (the tiny configurations' 16 too), read in the packed
+layout, where the JAX package relayouts a head dim that is not a multiple
+of 64 to head-major for Mosaic; fp16 raises. Plain attention runs there
+only for ``use_flash=False``, an ``attention_fn``, or a dense ``mask``
+(BERT's padding mask), which takes plain attention on every device, as
+the JAX package routes it.
 
 ``cfg.remat`` checkpoints each block (:func:`..ops.remat.remat_module`):
 the backward recomputes the block's forward, flash kernel included.

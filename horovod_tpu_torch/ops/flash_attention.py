@@ -5,12 +5,22 @@ The port of ``horovod_tpu/ops/pallas_kernels.py``'s flash attention: the
 forward ``_fwd_kernel`` (through ``_fwd_pallas``, ``flash_attention_with_lse``
 and ``flash_attention``) and the backward pair ``_bwd_kernel_dkdv`` /
 ``_bwd_kernel_dq`` (through ``_bwd_pallas``, the ``custom_vjp`` backward of
-``_flash``). The kernels are ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``
--- hand-written CUDA C++ for sm_90a, built with nvcc at first use
-(:mod:`._build`); their source notes say what bounds them on an H100 and
-what their designs leave on the table. The backward launches the dQ
-kernel first: it also computes ``delta`` and hands it to the dK/dV kernel
-through an fp32 scratch buffer.
+``_flash``). The kernels are hand-written CUDA C++ for sm_90a, built with
+nvcc at first use (:mod:`._build`), on two routes that
+:func:`kernel_route` picks from the dtype and the head dim alone:
+
+* ``"wgmma"`` -- bf16 at head dim 64 or 128: ``csrc/flash_fwd.cu`` and
+  ``csrc/flash_bwd.cu`` (wgmma fed by TMA; 16-byte aligned rows);
+* ``"general"`` -- bf16 at any other head dim from 1 to 256 and fp32 at
+  any head dim from 1 to 256: ``csrc/flash_general.cu`` (mma.sync in bf16,
+  full-fp32 FFMA in fp32), compiled at head dims 16, 32, 64, 128 and 256;
+  a head dim between them runs at the next one up, its extra columns
+  loaded as zeros and never stored. It reads any strided view.
+
+Anything else (fp16, a head dim above 256) raises. The sources' notes say
+what bounds each kernel on an H100 and what its design leaves on the
+table. The backward launches the dQ kernel first: it also computes
+``delta`` and hands it to the dK/dV kernel through an fp32 scratch buffer.
 
 * :func:`flash_attention_with_lse` -- ``(out, lse)``: out in the input
   dtype, lse fp32 ``[B, H, Sq]``; causal masking on global positions
@@ -40,7 +50,7 @@ JAX package's: ``"bshd"`` ``[B, S, H, D]``, ``"bhsd"`` ``[B, H, S, D]`` and
 the packed ``"bsm"`` ``[B, S, H*D]`` with ``n_heads`` given -- the
 projection's native layout, which the kernels read in place through
 strides (a strided view such as one third of a fused QKV output is read
-without a copy). The kernels take bf16 with head dim 64 or 128.
+without a copy). The kernels take bf16 and fp32 at head dims 1 to 256.
 """
 
 from __future__ import annotations
@@ -62,46 +72,87 @@ __all__ = [
     "flash_attention_bwd_reference",
     "flash_attention_with_lse",
     "flash_attention_reference",
+    "kernel_route",
     "launches",
     "launches_dkdv",
     "launches_dq",
+    "launches_general",
+    "launches_general_dkdv",
+    "launches_general_dq",
     "reset_launches",
 ]
 
 KERNEL_SOURCE = "flash_fwd"
 BWD_SOURCE = "flash_bwd"
-HEAD_DIMS = (64, 128)
+GENERAL_SOURCE = "flash_general"
+WGMMA_HEAD_DIMS = (64, 128)  # bf16 only
+GENERAL_HEAD_DIMS = (16, 32, 64, 128, 256)  # the general kernels' sizes
+MAX_HEAD_DIM = GENERAL_HEAD_DIMS[-1]
 
 # Kernel launches since import (or the last reset_launches()), one count per
 # kernel: each wrapper adds one where it launches its kernel and nowhere
 # else, so a run can show that its main path went through the kernels.
-launches = 0  # flash_fwd
-launches_dkdv = 0  # flash_bwd: dK/dV
-launches_dq = 0  # flash_bwd: dQ
+# launches, launches_dkdv and launches_dq count both routes;
+# launches_general* count the general route alone.
+launches = 0  # forward
+launches_dkdv = 0  # backward: dK/dV
+launches_dq = 0  # backward: dQ
+launches_general = 0
+launches_general_dkdv = 0
+launches_general_dq = 0
 _count_lock = threading.Lock()
 _fn = None
 _bwd_fns = None
+_general_fns = None
 
 
 def reset_launches() -> None:
     global launches, launches_dkdv, launches_dq
+    global launches_general, launches_general_dkdv, launches_general_dq
     with _count_lock:
         launches = launches_dkdv = launches_dq = 0
+        launches_general = launches_general_dkdv = launches_general_dq = 0
 
 
-def _count_launch() -> None:
-    global launches
+def _count_launch(general: bool = False) -> None:
+    global launches, launches_general
     with _count_lock:
         launches += 1
+        launches_general += general
 
 
-def _count_bwd_launch(kind: str) -> None:
+def _count_bwd_launch(kind: str, general: bool = False) -> None:
     global launches_dkdv, launches_dq
+    global launches_general_dkdv, launches_general_dq
     with _count_lock:
         if kind == "dkdv":
             launches_dkdv += 1
+            launches_general_dkdv += general
         else:
             launches_dq += 1
+            launches_general_dq += general
+
+
+def kernel_route(dtype: torch.dtype, d: int) -> Tuple[str, int]:
+    """The CUDA kernels that take head dim ``d`` in ``dtype``, decided by
+    these two and nothing else: ``("wgmma", d)`` for bf16 at head dim 64
+    or 128 (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), else
+    ``("general", d_pad)`` for bf16 or fp32 at head dim 1 to 256
+    (``csrc/flash_general.cu`` compiled at ``d_pad``, the smallest of
+    ``GENERAL_HEAD_DIMS`` that holds ``d``). Raises ``TypeError`` for
+    another dtype and ``ValueError`` for another head dim."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(
+            f"the CUDA flash kernels take bfloat16 or float32, got {dtype}"
+        )
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"the CUDA flash kernels take head dim 1 to {MAX_HEAD_DIM}, "
+            f"got {d}"
+        )
+    if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
+        return "wgmma", d
+    return "general", next(p for p in GENERAL_HEAD_DIMS if p >= d)
 
 
 def _view4(x, layout: str, n_heads: int):
@@ -243,27 +294,30 @@ def _map_strides(x):
             st[2] if n[2] > 1 else unit)
 
 
-def _check_kernel_operands(named, d):
-    """What the CUDA kernels take: bf16, head dim 64/128, unit stride
-    along D and 16-byte aligned rows. Returns each operand's
-    :func:`_map_strides`."""
-    for name, x in named:
-        if x.dtype != torch.bfloat16:
-            raise TypeError(
-                f"the CUDA flash kernels take bfloat16, got {x.dtype} for "
-                f"{name}"
-            )
-    if d not in HEAD_DIMS:
-        raise ValueError(
-            f"the CUDA flash kernels take head dim {HEAD_DIMS}, got {d}"
-        )
-    b, _, h, _ = named[0][1].shape
+def _check_grid(named):
+    """Both routes' grids put heads and batch on their y and z
+    dimensions; every operand has a unit stride along D."""
+    b, _, h, d = named[0][1].shape
     if b > 65535 or h > 65535:
         raise ValueError(f"batch {b} or heads {h} exceed the grid limit")
+    for name, x in named:
+        if x.stride(3) != 1 and d > 1:
+            raise ValueError(f"{name} must have a unit stride along D")
+
+
+def _check_kernel_operands(named, d):
+    """What the wgmma kernels take: operands on their route of
+    :func:`kernel_route`, unit stride along D and 16-byte aligned rows.
+    Returns each operand's :func:`_map_strides`."""
+    for name, x in named:
+        if kernel_route(x.dtype, d)[0] != "wgmma":
+            raise TypeError(
+                f"{name} is {x.dtype} at head dim {d}: the wgmma flash "
+                f"kernels take bfloat16 at head dim {WGMMA_HEAD_DIMS}"
+            )
+    _check_grid(named)
     strides = []
     for name, x in named:
-        if x.stride(3) != 1:
-            raise ValueError(f"{name} must have a unit stride along D")
         st = _map_strides(x)
         if st[0] % 8 or st[1] % 8 or st[2] % 8 or x.data_ptr() % 16:
             raise ValueError(
@@ -274,10 +328,67 @@ def _check_kernel_operands(named, d):
     return strides
 
 
+def _general_kernel_fns():
+    """The general route's three C entries (forward, dQ, dK/dV)."""
+    global _general_fns
+    if _general_fns is None:
+        lib = _build.load(GENERAL_SOURCE)
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        tail = [i32] * 5 + [ptr] + [i32] * 3 + [f32, i32, i32, ptr]
+        fwd = lib.hvt_flash_general_fwd
+        fwd.argtypes = [i32, i32] + [ptr] * 5 + tail
+        dq = lib.hvt_flash_general_dq
+        dq.argtypes = [i32, i32] + [ptr] * 6 + [i32] + [ptr] * 4 + tail
+        dkdv = lib.hvt_flash_general_dkdv
+        dkdv.argtypes = [i32, i32] + [ptr] * 9 + tail
+        for fn in (fwd, dq, dkdv):
+            fn.restype = ctypes.c_int
+        _general_fns = (fwd, dq, dkdv)
+    return _general_fns
+
+
+def _strides(*xs):
+    """Element strides (batch, seq, head) of ``[B, S, H, D]`` views, as the
+    general kernels take them."""
+    return (ctypes.c_longlong * (3 * len(xs)))(
+        *[s for x in xs for s in x.stride()[:3]])
+
+
+def _general_launch(q4, k4, v4, d_pad, *, causal, q_offset, kv_offset,
+                    sm_scale, layout, kv_len):
+    b, sq, h, d = q4.shape
+    _check_grid((("q", q4), ("k", k4), ("v", v4)))
+    out, o4 = _empty_out(b, sq, h, d, layout, q4)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q4.device)
+    if b == 0 or h == 0 or sq == 0:
+        return out, lse
+    fwd, _, _ = _general_kernel_fns()
+    dev = q4.get_device()
+    rc = fwd(
+        int(q4.dtype == torch.float32), d_pad, q4.data_ptr(), k4.data_ptr(),
+        v4.data_ptr(), o4.data_ptr(), lse.data_ptr(), b, h, sq, k4.shape[1],
+        d, _strides(q4, k4, v4, o4), kv_len, q_offset, kv_offset,
+        float(sm_scale), int(bool(causal)), dev,
+        torch._C._cuda_getCurrentRawStream(dev),
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"flash_general forward launch failed with cudaError_t {rc}"
+        )
+    _count_launch(general=True)
+    return out, lse
+
+
 def _launch(q4, k4, v4, *, causal, q_offset, kv_offset, sm_scale, layout,
             kv_len):
     b, sq, h, d = q4.shape
     skv = k4.shape[1]
+    route, d_pad = kernel_route(q4.dtype, d)
+    if route == "general":
+        return _general_launch(
+            q4, k4, v4, d_pad, causal=causal, q_offset=q_offset,
+            kv_offset=kv_offset, sm_scale=sm_scale, layout=layout,
+            kv_len=kv_len)
     st = _check_kernel_operands((("q", q4), ("k", k4), ("v", v4)), d)
     if 0 in st[0] or 0 in st[1] or 0 in st[2]:
         # A tensor map steps every dimension by a nonzero stride: an
@@ -437,20 +548,24 @@ def _bwd_launch(q4, k4, v4, o4, g4, lse, g_lse, *, causal, q_offset,
                 kv_offset, sm_scale, layout, kv_len):
     b, sq, h, d = q4.shape
     skv = k4.shape[1]
+    route, d_pad = kernel_route(q4.dtype, d)
+    general = route == "general"
     # delta = rowsum(dO * out) comes from the cotangent as given (the dQ
     # kernel reads it in bf16 or fp32); the products take dO in the input
-    # dtype.
+    # dtype. The wgmma kernels read 16-byte aligned rows; the general ones
+    # any strided view.
     given = g4 if g4.dtype in (torch.bfloat16, torch.float32) else g4.float()
-    if not _rows_aligned(given):
-        given = given.contiguous()
     g_op = g4 if g4.dtype == q4.dtype else g4.to(q4.dtype)
-    if not _rows_aligned(g_op):
-        g_op = g_op.contiguous()
-    if not _rows_aligned(o4):
-        o4 = o4.contiguous()
-    _check_kernel_operands(
-        (("q", q4), ("k", k4), ("v", v4), ("dO", g_op), ("out", o4)), d
-    )
+    named = (("q", q4), ("k", k4), ("v", v4), ("dO", g_op), ("out", o4))
+    if general:
+        if o4.dtype != q4.dtype:
+            raise TypeError(f"out is {o4.dtype}, q is {q4.dtype}")
+        _check_grid(named + (("given dO", given),))
+    else:
+        given, g_op, o4 = (x if _rows_aligned(x) else x.contiguous()
+                           for x in (given, g_op, o4))
+        named = named[:3] + (("dO", g_op), ("out", o4))
+        _check_kernel_operands(named, d)
     dq, dq4 = _empty_out(b, sq, h, d, layout, q4)
     dk, dk4 = _empty_out(b, skv, h, d, layout, q4)
     dv, dv4 = _empty_out(b, skv, h, d, layout, q4)
@@ -466,37 +581,43 @@ def _bwd_launch(q4, k4, v4, o4, g4, lse, g_lse, *, causal, q_offset,
                 f"{name} has shape {tuple(x.shape)}, expected {(b, h, sq)}"
             )
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q4.device)
-    strides = (ctypes.c_longlong * 27)(*[
-        s for x in (q4, k4, v4, g_op, dq4, dk4, dv4, o4, given)
-        for s in _map_strides(x)
-    ])
+    views = (q4, k4, v4, g_op, dq4, dk4, dv4, o4, given)
+    strides = (_strides(*views) if general else (ctypes.c_longlong * 27)(
+        *[s for x in views for s in _map_strides(x)]))
     tail = [b, h, sq, skv, d, strides, kv_len, q_offset, kv_offset,
             float(sm_scale), int(bool(causal))]
     glse_ptr = None if glse is None else glse.data_ptr()
-    fn_dkdv, fn_dq = _bwd_kernel_fns()
+    if general:
+        _, fn_dq, fn_dkdv = _general_kernel_fns()
+        head = [int(q4.dtype == torch.float32), d_pad]
+    else:
+        fn_dkdv, fn_dq = _bwd_kernel_fns()
+        head = []
     with torch.cuda.device(q4.device):
         stream = torch.cuda.current_stream(q4.device).cuda_stream
         # dQ first: it writes delta, which the dK/dV kernel reads after it
         # on the same stream.
-        rc = fn_dq(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
+        rc = fn_dq(*head, q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
                    g_op.data_ptr(), o4.data_ptr(), given.data_ptr(),
                    int(given.dtype == torch.float32), lse.data_ptr(),
                    glse_ptr, delta.data_ptr(), dq4.data_ptr(), *tail,
                    q4.device.index, stream)
         if rc != 0:
             raise RuntimeError(
-                f"flash_bwd dQ kernel launch failed with cudaError_t {rc}"
+                f"flash_{'general' if general else 'bwd'} dQ kernel launch "
+                f"failed with cudaError_t {rc}"
             )
-        _count_bwd_launch("dq")
-        rc = fn_dkdv(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
+        _count_bwd_launch("dq", general)
+        rc = fn_dkdv(*head, q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
                      g_op.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                      glse_ptr, dk4.data_ptr(), dv4.data_ptr(), *tail,
                      q4.device.index, stream)
         if rc != 0:
             raise RuntimeError(
-                f"flash_bwd dK/dV kernel launch failed with cudaError_t {rc}"
+                f"flash_{'general' if general else 'bwd'} dK/dV kernel "
+                f"launch failed with cudaError_t {rc}"
             )
-        _count_bwd_launch("dkdv")
+        _count_bwd_launch("dkdv", general)
     return dq, dk, dv
 
 

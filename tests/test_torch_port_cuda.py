@@ -179,15 +179,20 @@ def test_forward_copies_an_expanded_operand(gen):
 
 
 def test_kernel_rejects_what_it_does_not_take(gen):
+    # The kernels take bf16 and fp32 at head dims 1 to 256: fp16 and a head
+    # dim of 272 raise, and a bf16 head-dim-64 view off 16-byte rows (the
+    # wgmma route's) still raises rather than taking the general kernels.
     x = _rand(gen, (1, 64, 2, 64))
-    with pytest.raises(TypeError, match="bfloat16"):
-        fa.flash_attention(x.float(), x.float(), x.float())
-    y = _rand(gen, (1, 64, 2, 32))
-    with pytest.raises(ValueError, match="head dim"):
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        fa.flash_attention(x.half(), x.half(), x.half())
+    y = _rand(gen, (1, 64, 2, 272))
+    with pytest.raises(ValueError, match="head dim 1 to 256"):
         fa.flash_attention(y, y, y)
     z = _rand(gen, (1, 64, 2 * 64 + 4))[..., :128].unflatten(-1, (2, 64))
+    fa.reset_launches()
     with pytest.raises(ValueError, match="aligned"):
         fa.flash_attention(z, z, z)
+    assert fa.launches == fa.launches_general == 0
 
 
 def test_gpt2_on_the_card_matches_plain_attention(gen):
@@ -211,29 +216,106 @@ def test_gpt2_on_the_card_matches_plain_attention(gen):
     assert (a - b).abs().max().item() <= 0.05 * b.abs().max().item()
 
 
-@pytest.mark.parametrize("kw,err,match", [
-    (dict(d_model=128, n_heads=2, dtype=torch.float32), TypeError, "bfloat16"),
-    (dict(), ValueError, "head dim"),  # tiny: head dim 16
+@pytest.mark.parametrize("kw,tol", [
+    (dict(d_model=128, n_heads=2, dtype=torch.float32), 1e-4),  # head dim 64
+    (dict(), 0.05),  # tiny: bf16, head dim 16
+    (dict(dtype=torch.float32), 1e-4),  # tiny in fp32, head dim 16
+    (dict(dtype=torch.float16), None),  # no kernel takes fp16: it raises
 ])
-def test_default_attention_on_the_card_is_the_kernel_or_raises(gen, kw, err,
-                                                                match):
-    # use_flash=None takes the kernel for every CUDA tensor; inputs it does
-    # not take raise. Plain attention runs only when asked for.
+def test_default_attention_on_the_card_is_the_kernel_or_raises(gen, kw, tol):
+    # use_flash=None takes a kernel for every CUDA tensor: the fp32 model and
+    # the tiny head-dim-16 one run the general kernels, held to their plain
+    # twins (bf16 to the tolerance of the head-dim-64 model above, fp32 to
+    # 1e-4 of the largest logit); fp16, which no kernel takes, raises. Plain
+    # attention runs only when asked for.
     import horovod_tpu_torch as hvt
 
     cfg = hvt.GPT2Config.tiny(**kw)
     m = hvt.GPT2LMModel(cfg, device="cuda")
     m.load_state_dict(hvt.convert.init_params(cfg, seed=1))
-    tokens = torch.zeros((1, 16), dtype=torch.long, device="cuda")
-    fa.reset_launches()
-    with torch.inference_mode(), pytest.raises(err, match=match):
-        m(tokens)
     plain = hvt.GPT2LMModel(dataclasses.replace(cfg, use_flash=False),
                             device="cuda")
     plain.load_state_dict(m.state_dict())
+    tokens = torch.randint(0, cfg.vocab_size, (2, 96), device="cuda",
+                           generator=gen)
+    fa.reset_launches()
+    if tol is None:
+        with torch.inference_mode(), pytest.raises(
+                TypeError, match="bfloat16 or float32"):
+            m(tokens)
     with torch.inference_mode():
         out = plain(tokens)
-    assert fa.launches == 0 and torch.isfinite(out).all()
+        assert fa.launches == 0 and torch.isfinite(out).all()
+        if tol is not None:
+            got = m(tokens)
+            assert fa.launches == fa.launches_general == cfg.n_layers
+            err = (got - out).abs().max().item()
+            assert err <= tol * out.abs().max().item()
+
+
+# The general kernels (csrc/flash_general.cu) at a few of chip_smoke.py's
+# [flash-general] shapes, against their plain versions: bf16 to the
+# tolerances above, fp32 to 2e-5 (out and lse absolute, gradients of the
+# largest plain gradient; the fp32 plain version's matmuls in full fp32,
+# torch's default allow_tf32 = False).
+_GENERAL_TOL = {torch.bfloat16: (1e-2, 1e-3, 1e-2),
+                torch.float32: (2e-5, 2e-5, 2e-5)}
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(kv_len=250), dict(causal=True, kv_offset=100),
+    dict(causal=True, sm_scale=-0.1, kv_len=290), dict(g_lse=False),
+])
+@pytest.mark.parametrize("d", [12, 16, 48, 96, 160, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_general_kernels_match_plain(gen, dtype, d, kw):
+    kw = dict(kw)
+    g_lse = kw.pop("g_lse", True)
+    b, sq, skv, h = 2, 150, 300, 3
+    q = torch.randn((b, sq, h * d), generator=gen, device="cuda").to(dtype)
+    k, v = torch.randn((b, skv, 2 * h * d), generator=gen,
+                       device="cuda").to(dtype).split(h * d, dim=-1)
+    kw.update(layout="bsm", n_heads=h)
+    fa.reset_launches()
+    out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
+    g = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+    gl = (torch.randn(lse.shape, generator=gen, device="cuda") if g_lse
+          else None)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, g, gl, **kw)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, g, gl, **kw)
+    ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, g, gl, **kw)
+    torch.cuda.synchronize()
+    assert (fa.launches_general, fa.launches_general_dq,
+            fa.launches_general_dkdv) == (1, 2, 2)
+    assert (fa.launches, fa.launches_dq, fa.launches_dkdv) == (1, 2, 2)
+    tol_o, tol_l, tol_g = _GENERAL_TOL[dtype]
+    assert out.dtype == dtype and out.shape == ref_out.shape
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(ref_lse))
+    fin = torch.isfinite(ref_lse)
+    assert (out.float() - ref_out.float()).abs().max().item() <= tol_o
+    assert (lse[fin] - ref_lse[fin]).abs().max().item() <= tol_l
+    for x, y, r in zip(got, again, ref):
+        assert x.dtype == dtype and torch.equal(x, y)
+        scale = max(r.float().abs().max().item(), 1e-6)
+        assert (x.float() - r.float()).abs().max().item() <= tol_g * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_general_kernels_take_a_ring_hops_future_block(gen, dtype):
+    # Every key after every query (a flash-ring hop's future block): out 0,
+    # lse -inf, zero gradients and no NaN, at a head dim off the compiled
+    # sizes.
+    q, k, v = torch.randn((1, 70, 3 * 2 * 40), generator=gen,
+                          device="cuda").to(dtype).split(80, dim=-1)
+    kw = dict(causal=True, kv_offset=100, layout="bsm", n_heads=2)
+    out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+    g = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, g, torch.ones_like(lse),
+                                   **kw)
+    torch.cuda.synchronize()
+    assert torch.all(out == 0) and torch.all(torch.isneginf(lse))
+    assert all(torch.all(x == 0) for x in grads)
 
 
 def _bwd_compare(q, k, v, g_lse=True, **kw):
