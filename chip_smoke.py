@@ -618,34 +618,47 @@ Phases (any failure exits non-zero; nothing is caught):
    dims 12-256 in bf16 and fp32, causal and not, at [2, 200 / 333, 3, d];
    at d 16, 96 and 256 kv_len < Skv, rows without keys, a ring hop's
    wholly masked block, sm_scale < 0, q/k/v all views of one fused
-   output, no lse cotangent, Sq = 1 and Skv = 1. Tolerances: bf16 the
-   flash checks' (2., 3.); fp32 2e-5 (out, lse absolute; gradients of the
-   largest plain gradient), the plain version's matmuls in full fp32. The
-   fp32 kernels' and plain version's errors against an fp64 computation;
-   launches by route (one general forward, two of each backward kernel, no
-   wgmma launch a case). Timed: the fp32 pair at [8, 1024, 12, 64] causal
-   and bf16 at [8, 1024, 768 / d, d] for d 16, 32, 96, 256 (events, device
-   time, the plain versions, SDPA's forward and backward with the backend
-   it took, bounds).
+   output, no lse cotangent, Sq = 1 and Skv = 1. Each case's backward runs
+   on the route ops/flash_attention.py's bwd_route picks: the sm90 pair
+   (csrc/flash_bwd_sm90_general.cu: bf16 on wgmma fed by TMA, fp32 as
+   3xTF32 on the tensor cores) at the sizes it takes, else the general
+   pair. Tolerances: bf16 the flash checks' (2., 3.); fp32 2e-5 (out, lse
+   absolute; gradients of the largest plain gradient), the plain version's
+   matmuls in full fp32. The fp32 kernels' (the route's and the general
+   pair called directly) and plain version's errors against an fp64
+   computation at d 96, 64 and 16; launches by route (one general forward,
+   two of each backward kernel on its route, no wgmma launch a case).
+   Timed, at [8, 1024, 768 / d, d] causal, fp32 d 64, 16, 32, 128 and
+   bf16 d 16, 32, 48, 96, 256: the forward, the pair on its route (twice,
+   around the general pair), the general pair called directly, their
+   device times, the plain versions, SDPA's forward and backward with the
+   backend it took, bounds (fp32 at the FFMA rate and as 3xTF32 on the
+   tensor cores), and whether the sm90 pair beat the general one.
 44. [train-fp32] (after 5.) GPT-2 small with dtype=float32 (fp32 compute,
    no TF32) from init_params(seed=0) through make_train_step(sharded=True,
    fused_update=True), fused_adamw(1e-4), on [train]'s seeded 8 x 1025
    batch: the first step's loss within 1e-5 relative and gradients within
    1e-4 relative L2 of the use_flash=False model; one warm-up and 3 steps
-   with 12 launches a step of each general kernel, none of the wgmma
-   ones, one fused AdamW a bucket; losses finite and falling. Printed: the
-   step median, the flash device time of a profiled step, peak memory.
+   with 12 launches a step of the general forward and of each sm90
+   backward kernel, no general backward and no wgmma launch, one fused
+   AdamW a bucket; losses finite and falling. Printed: the step median,
+   the flash device time of a profiled step by kernel, peak memory.
 45. [zoo-tiny] (after 44.) the repository's GPT2Config, BertConfig (no
    padding mask) and ViTConfig .tiny() (head dim 16) in bf16 and fp32 with
    fp32 weights under use_flash=None: a forward and backward against the
    use_flash=False twin (0.05 of the largest plain value in bf16, 1e-4 in
-   fp32), n_layers launches of each general kernel and none on the plain
-   side; the tiny GPT-2 trains 3 ZeRO-1 fused steps with falling losses.
+   fp32), n_layers launches of the general forward and of each sm90
+   backward kernel and none on the plain side; the tiny GPT-2 trains 3
+   ZeRO-1 fused steps with falling losses, and 3 more at head dim 256 (2
+   heads of 256: the sm90 pair in bf16, the general pair in fp32).
    Each of 43.-45. prints its wall time; the script prints its own.
 46. Output: a "kernels" JSON line (the nine TPU kernels' counterparts, the
-   general route of the first three ("flash_general_*": [train-fp32]'s
-   launches, [zoo-tiny]'s as "launches_zoo_tiny", the fp32 times with the
-   bf16 ones under "bf16") and
+   general route of the first three ("flash_general_*": the forward's
+   [train-fp32] launches, the backward's in [zoo-tiny]'s fp32
+   head-dim-256 run, each [zoo-tiny] run's as "launches_zoo_tiny", the fp32 times with
+   every timed shape's under "timed"), the sm90 backward pair
+   ("flash_bwd_sm90_*": [train-fp32]'s launches, the 3xTF32 bound beside
+   the FFMA one, the general pair's time from the same run) and
    the cast kernel; "launches" is the training run's count -- for the
    quantize pair the int8 [train-quant] run's (beside it the
    [ckpt-reshard] and int8 [decode] runs' and the KV shapes' times as
@@ -673,6 +686,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import faulthandler
+import functools
 import hashlib
 import itertools
 import json
@@ -694,6 +708,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor cores
 FP32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12  # dense tf32 tensor cores
 OUT_TOL, LSE_TOL = 1e-2, 1e-3
 GRAD_TOL = 1e-2  # flash backward, relative to the largest plain gradient
 ADAM_TOL = 1e-6  # fused AdamW, relative to the largest plain value
@@ -922,6 +937,16 @@ def bound(nbytes, flops, dt=torch.bfloat16):
     peak rate of ``dt`` (fp32 outside the tensor cores, else bf16)."""
     peak = FP32_FLOPS_PER_S if dt == torch.float32 else BF16_FLOPS_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return {"bytes": nbytes, "flops": flops,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def tf32_bound(nbytes, flops):
+    """The least time for an fp32 function whose products run on the
+    tensor cores as 3xTF32 (three tf32 products a product): the larger of
+    bytes over the memory rate and 3 x ``flops`` over the tf32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOPS_PER_S
     return {"bytes": nbytes, "flops": flops,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -1363,7 +1388,8 @@ def kernel_category(name: str) -> str:
     # dequantize_blockwise before quantize_blockwise: the one name holds
     # the other.
     for kernel in ("flash_general_fwd", "flash_general_dkdv",
-                   "flash_general_dq", "flash_fwd", "flash_bwd_dkdv",
+                   "flash_general_dq", "flash_bwd_sm90_dkdv",
+                   "flash_bwd_sm90_dq", "flash_fwd", "flash_bwd_dkdv",
                    "flash_bwd_dq",
                    "fused_adamw", "dequantize_blockwise",
                    "quantize_blockwise", "fp8_matmul_reduce", "fp8_matmul",
@@ -1641,10 +1667,12 @@ def train(hvt, fa, fadam, cfg, sizes):
     log(f"[train] losses {losses}")
     log(f"[train] launches over {TRAIN_STEPS} steps: {counts}")
     general = (fa.launches_general, fa.launches_general_dq,
-               fa.launches_general_dkdv)
+               fa.launches_general_dkdv, fa.launches_sm90_dq,
+               fa.launches_sm90_dkdv)
     if any(general):
-        raise RuntimeError(f"[train] bf16 head dim 64 took the general "
-                           f"kernels {general} times: the wgmma route alone")
+        raise RuntimeError(f"[train] bf16 head dim 64 took the general or "
+                           f"sm90 kernels {general} times: the wgmma route "
+                           f"alone")
     want = {"flash_fwd": cfg.n_layers, "flash_bwd_dkdv": cfg.n_layers,
             "flash_bwd_dq": cfg.n_layers, "fused_adamw": len(sizes)}
     for name, per_step in want.items():
@@ -8518,20 +8546,40 @@ GENERAL_EDGE_DIMS = (16, 96, 256)
 # absolute, the gradients of the largest plain gradient (the CPU parity
 # tests' fp32 tolerances: summation order only).
 FP32_TOL = 2e-5
-GENERAL_TIMED_BF16_DIMS = (16, 32, 96, 256)  # [8, 1024, 768 // d, d]
+# Timed at [8, 1024, 768 // d, d] causal: each (dtype, d_pad) the sm90
+# backward pair takes (fp32 64 is [train-fp32]'s, 16 [zoo-tiny]'s), and bf16
+# 256 on the general pair.
+GENERAL_TIMED_DIMS = {torch.float32: (64, 16, 32, 128),
+                      torch.bfloat16: (16, 32, 48, 96, 256)}
 ZOO_TINY_TOL = {torch.bfloat16: 0.05, torch.float32: 1e-4}
 ZOO_TINY_STEPS = 3
+# [zoo-tiny]'s tiny GPT-2 at head dim 256 (2 heads of 256): in fp32 the
+# backward pair's general route, which no other model of the repository
+# takes.
+ZOO_TINY_D256 = dict(d_model=512, n_heads=2)
 
 
 def general_counts(fa):
-    """The flash counters split by route: the general kernels' own, and the
-    wgmma kernels' (every launch less the general ones)."""
+    """The flash counters split by route: the general kernels' own, the
+    sm90 backward pair's, and the wgmma kernels' (every launch less the
+    others)."""
     return {"general_fwd": fa.launches_general,
             "general_dq": fa.launches_general_dq,
             "general_dkdv": fa.launches_general_dkdv,
+            "sm90_dq": fa.launches_sm90_dq,
+            "sm90_dkdv": fa.launches_sm90_dkdv,
             "wgmma_fwd": fa.launches - fa.launches_general,
-            "wgmma_dq": fa.launches_dq - fa.launches_general_dq,
-            "wgmma_dkdv": fa.launches_dkdv - fa.launches_general_dkdv}
+            "wgmma_dq": (fa.launches_dq - fa.launches_general_dq
+                         - fa.launches_sm90_dq),
+            "wgmma_dkdv": (fa.launches_dkdv - fa.launches_general_dkdv
+                           - fa.launches_sm90_dkdv)}
+
+
+def bwd_counts(fa, dt, d, n):
+    """``n`` launches of each backward kernel on ``bwd_route``'s route for
+    (dt, d), as :func:`general_counts` names them."""
+    route = fa.bwd_route(dt, d)[0]
+    return {f"{route}_dq": n, f"{route}_dkdv": n}
 
 
 def check_general_counts(tag, fa, want):
@@ -8562,8 +8610,9 @@ def general_case(fa, gen, dt, *, b, sq, skv, h, d, causal, g_lse=True,
     torch.cuda.synchronize()
     name = (f"{str(dt)[6:]} B={b} Sq={sq} Skv={skv} H={h} D={d} "
             f"causal={causal} {kw} g_lse={g_lse}")
+    route = fa.bwd_route(dt, d)[0]
     check_general_counts("flash-general " + name, fa, {
-        "general_fwd": 1, "general_dq": 2, "general_dkdv": 2})
+        "general_fwd": 1, **bwd_counts(fa, dt, d, 2)})
     if not torch.equal(torch.isneginf(lse), torch.isneginf(ref_lse)):
         raise RuntimeError(f"[flash-general] -inf rows differ on {name}")
     fin = ~torch.isneginf(ref_lse)
@@ -8583,14 +8632,14 @@ def general_case(fa, gen, dt, *, b, sq, skv, h, d, causal, g_lse=True,
     log(f"[flash-general] {name}: max|d out| {err_out:.3e} max|d lse| "
         f"{err_lse:.3e}; dq dk dv relative {rels[0]:.3e} {rels[1]:.3e} "
         f"{rels[2]:.3e}; rows without keys {int((~fin).sum())}; backward "
-        f"bitwise again {bitwise}")
+        f"on {route}, bitwise again {bitwise}")
     if not ok:
         raise RuntimeError(
             f"[flash-general] the general kernels disagree with their plain "
             f"versions on {name} (tol out {tol[0]}, lse {tol[1]}, grads "
             f"{tol[2]}, bitwise repeat)")
     return {"err_out": err_out, "err_lse": err_lse, "err_grad": max(errs),
-            "rel_grad": max(rels)}
+            "rel_grad": max(rels), "dtype": str(dt)[6:], "bwd_route": route}
 
 
 def fp64_attention_grads(q4, k4, v4, g4, g_lse, causal, sm_scale):
@@ -8609,9 +8658,25 @@ def fp64_attention_grads(q4, k4, v4, g4, g_lse, causal, sm_scale):
     return out, lse, [t.grad for t in x]
 
 
+def general_pair(fa, q, k, v, out, lse, g, g_lse, *, causal, layout,
+                 n_heads):
+    """flash_general.cu's backward pair called directly on "bsm" operands
+    (the route the sm90 pair replaced where bwd_route picks it)."""
+    assert layout == "bsm"
+    q4, k4, v4, o4, g4 = (fa._view4(x, layout, n_heads)
+                          for x in (q, k, v, out, g))
+    d = q4.shape[-1]
+    return fa._bwd_pair(
+        "general", fa.kernel_route(q.dtype, d)[1], q4, k4, v4, o4, g4, lse,
+        g_lse, causal=causal, q_offset=0, kv_offset=0,
+        sm_scale=1.0 / math.sqrt(d), layout=layout, kv_len=k4.shape[1])
+
+
 def fp64_error(fa, gen, d=96):
-    """Error of the fp32 general kernels and of the fp32 plain version
-    against an fp64 computation, at [2, 200, 3, d] causal (Sq = Skv)."""
+    """Error of the fp32 kernels (the general forward, the backward on
+    bwd_route's route), of the general backward pair called directly, and
+    of the fp32 plain version against an fp64 computation, at [2, 200, 3,
+    d] causal (Sq = Skv)."""
     b, s, h = 2, 200, 3
     q, k, v = qkv_views(gen, b, s, s, h, d, torch.float32)
     kw = dict(causal=True, layout="bsm", n_heads=h)
@@ -8620,9 +8685,11 @@ def fp64_error(fa, gen, d=96):
     out64, lse64, grads64 = fp64_attention_grads(
         *(fa._view4(x, "bsm", h) for x in (q, k, v, g)), gl, True,
         1.0 / math.sqrt(d))
-    rec = {}
+    rec = {"d": d, "bwd_route": fa.bwd_route(torch.float32, d)[0]}
+    general_bwd = functools.partial(general_pair, fa)
     for name, fwd, bwd in (
             ("kernel", fa.flash_attention_with_lse, fa.flash_attention_bwd),
+            ("general", fa.flash_attention_with_lse, general_bwd),
             ("plain", fa.flash_attention_reference,
              fa.flash_attention_bwd_reference)):
         out, lse = fwd(q, k, v, **kw)
@@ -8638,9 +8705,10 @@ def fp64_error(fa, gen, d=96):
     log(f"[flash-general] fp32 against fp64 at [{b}, {s}, {h}, {d}] causal "
         f"(out, lse absolute; dq dk dv of the largest fp64 gradient): "
         f"{json.dumps(rec)}")
-    if max(rec["kernel"].values()) > FP32_TOL:
+    worst = max(max(rec[k].values()) for k in ("kernel", "general"))
+    if worst > FP32_TOL:
         raise RuntimeError("[flash-general] the fp32 kernels are not fp32-"
-                           f"accurate against fp64: {rec['kernel']}")
+                           f"accurate against fp64: {rec}")
     return rec
 
 
@@ -8665,29 +8733,36 @@ def sdpa_backend(fn) -> str:
 
 
 def general_times(fa, gen, dt, h, d, b=8, s=1024):
-    """The general pair at [b, s, h, d] causal in ``dt``: the forward and
-    the backward pair by CUDA events, each kernel by device time, their
-    plain versions, and SDPA's forward and backward (a yardstick the port
-    never calls) with the backend it took; bounds from the function's own
-    bytes and operations."""
+    """At [b, s, h, d] causal in ``dt``: the general forward, the backward
+    pair on bwd_route's route and flash_general.cu's pair called directly,
+    by CUDA events, each kernel by device time; their plain versions; SDPA's
+    forward and backward (a yardstick the port never calls) with the
+    backend it took; bounds from the function's own bytes and operations
+    (fp32: at the FFMA rate, and as 3xTF32 on the tensor cores)."""
     q, k, v = qkv_views(gen, b, s, s, h, d, dt)
     kw = dict(causal=True, layout="bsm", n_heads=h)
     out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
     g = torch.randn(out.shape, generator=gen, device="cuda").to(dt)
     args = (q, k, v, out, lse, g, None)
+    route, d_pad = fa.bwd_route(dt, d)
     fwd = lambda: fa.flash_attention_with_lse(q, k, v, **kw)  # noqa: E731
     bwd = lambda: fa.flash_attention_bwd(*args, **kw)  # noqa: E731
-    rec = {"shape": [b, s, h, d], "dtype": str(dt)[6:],
-           "d_pad": fa.kernel_route(dt, d)[1],
+    gbwd = lambda: general_pair(fa, *args, **kw)  # noqa: E731
+    rec = {"shape": [b, s, h, d], "dtype": str(dt)[6:], "d_pad": d_pad,
+           "bwd_route": route,
            "fwd_ms": time_ms(fwd, samples=10),
            "pair_ms": time_ms(bwd, samples=10),
+           "general_pair_ms": time_ms(gbwd, samples=10),
            "plain_fwd_ms": time_ms(
                lambda: fa.flash_attention_reference(q, k, v, **kw),
                samples=5, per_sample=2),
            "plain_pair_ms": time_ms(
                lambda: fa.flash_attention_bwd_reference(*args, **kw),
                samples=5, per_sample=2)}
-    rec["device_ms"] = {**kernel_ms(fwd, 10), **kernel_ms(bwd, 10)}
+    # The pair on its route again after the general one: the two in turns.
+    rec["pair_ms_again"] = time_ms(bwd, samples=10)
+    rec["device_ms"] = {**kernel_ms(fwd, 10), **kernel_ms(gbwd, 10),
+                        **kernel_ms(bwd, 10)}
     qh, kh, vh = (x.unflatten(-1, (h, d)).transpose(1, 2).detach()
                   .requires_grad_(True) for x in (q, k, v))
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
@@ -8701,29 +8776,44 @@ def general_times(fa, gen, dt, h, d, b=8, s=1024):
         rec["sdpa_backend"] = sdpa_backend(sdpa)
     rec["sdpa_bwd_ms"] = time_ms(sdpa_bwd, samples=10)
     es = 4 if dt == torch.float32 else 2
-    rec["bounds"] = {k: bound(nb, fl, dt) for k, (nb, fl) in
-                     attention_work(es, b, s, s, h, d, True).items()}
-    rec["bounds"]["flash_general_dkdv"] = rec["bounds"].pop("dkdv")
-    rec["bounds"]["flash_general_dq"] = rec["bounds"].pop("dq")
+    work = attention_work(es, b, s, s, h, d, True)
+    rec["bounds"] = {k: bound(nb, fl, dt) for k, (nb, fl) in work.items()}
+    if dt == torch.float32:
+        rec["bounds_tf32"] = {k: tf32_bound(nb, fl)
+                              for k, (nb, fl) in work.items()}
     del oh, qh, kh, vh
     dev = rec["device_ms"]
+    split = lambda pre: (f"dq {dev[pre + '_dq']:.4f} + dkdv "  # noqa: E731
+                         f"{dev[pre + '_dkdv']:.4f} ms device")
+    tf32 = (f", 3xTF32 {rec['bounds_tf32']['pair']['bound_ms']:.4f} ms"
+            if dt == torch.float32 else "")
+    routed = (f"sm90 pair {rec['pair_ms']:.4f} / {rec['pair_ms_again']:.4f}"
+              f" ms by events, {split('flash_bwd_sm90')}; "
+              if route == "sm90" else "")
     log(f"[flash-general] {rec['dtype']} [{b}, {s}, {h}, {d}] causal (d_pad "
-        f"{rec['d_pad']}): forward {rec['fwd_ms']:.4f} ms by events, "
-        f"{dev['flash_general_fwd']:.4f} ms device (bound "
+        f"{d_pad}, backward on {route}): forward {rec['fwd_ms']:.4f} ms by "
+        f"events, {dev['flash_general_fwd']:.4f} ms device (bound "
         f"{rec['bounds']['fwd']['bound_ms']:.4f} ms, "
-        f"{rec['bounds']['fwd']['bound_by']}); backward pair "
-        f"{rec['pair_ms']:.4f} ms by events, dq {dev['flash_general_dq']:.4f}"
-        f" + dkdv {dev['flash_general_dkdv']:.4f} ms device (bound "
-        f"{rec['bounds']['pair']['bound_ms']:.4f} ms); plain "
+        f"{rec['bounds']['fwd']['bound_by']}); {routed}general pair "
+        f"{rec['general_pair_ms']:.4f} ms by events, "
+        f"{split('flash_general')} (pair bound "
+        f"{rec['bounds']['pair']['bound_ms']:.4f} ms{tf32}); plain "
         f"{rec['plain_fwd_ms']:.4f} / {rec['plain_pair_ms']:.4f} ms; sdpa "
         f"({rec['sdpa_backend']}) {rec['sdpa_fwd_ms']:.4f} / "
-        f"{rec['sdpa_bwd_ms']:.4f} ms")
+        f"{rec['sdpa_bwd_ms']:.4f} ms; on {card_line()}")
+    if route == "sm90":
+        rec["sm90_faster"] = max(rec["pair_ms"], rec["pair_ms_again"]) < (
+            rec["general_pair_ms"])
+        log(f"[flash-general] {rec['dtype']} d_pad {d_pad}: the sm90 pair "
+            f"{'beats' if rec['sm90_faster'] else 'does not beat'} the "
+            f"general pair in this run")
     return rec
 
 
 def flash_general_phase(fa, gen):
-    """[flash-general]: the general kernels against their plain versions on
-    the grid and the edge cases, fp32 against fp64, and the timed shapes."""
+    """[flash-general]: the general kernels and the sm90 backward pair
+    against their plain versions on the grid and the edge cases, fp32
+    against fp64, and the timed shapes."""
     t0 = time.perf_counter()
     cases = []
     for dt, dims in GENERAL_DIMS.items():
@@ -8757,20 +8847,31 @@ def flash_general_phase(fa, gen):
                              **edge),
             ]
     t_checks = time.perf_counter() - t0
-    fp64 = fp64_error(fa, gen)
-    f32 = general_times(fa, gen, torch.float32, 12, 64)
-    bf16 = {d: general_times(fa, gen, torch.bfloat16, 768 // d, d)
-            for d in GENERAL_TIMED_BF16_DIMS}
+    fp64 = {d: fp64_error(fa, gen, d) for d in (96, 64, 16)}
+    timed = {str(dt)[6:]: {d: general_times(fa, gen, dt, 768 // d, d)
+                           for d in dims}
+             for dt, dims in GENERAL_TIMED_DIMS.items()}
     wall = time.perf_counter() - t0
-    rec = {"cases": len(cases),
+    by_route = {}
+    for c in cases:
+        key = f"{c['dtype']}/{c['bwd_route']}"
+        by_route[key] = by_route.get(key, 0) + 1
+    sm90 = [c for c in cases if c["bwd_route"] == "sm90"]
+    rec = {"cases": len(cases), "cases_by_bwd_route": by_route,
            "max_err_out": max(c["err_out"] for c in cases),
            "max_err_lse": max(c["err_lse"] for c in cases),
            "max_err_grad": max(c["err_grad"] for c in cases),
            "max_rel_grad": max(c["rel_grad"] for c in cases),
-           "fp64": fp64, "fp32": f32, "bf16": bf16,
+           "sm90_max_err_grad": {dt: max(c["err_grad"] for c in sm90
+                                         if c["dtype"] == dt)
+                                 for dt in ("bfloat16", "float32")},
+           "sm90_max_rel_grad": {dt: max(c["rel_grad"] for c in sm90
+                                         if c["dtype"] == dt)
+                                 for dt in ("bfloat16", "float32")},
+           "fp64": fp64[96], "fp64_by_d": fp64, "timed": timed,
            "checks_s": t_checks, "wall_s": wall}
-    log(f"[flash-general] {len(cases)} cases passed in {t_checks:.1f} s; "
-        f"phase wall {wall:.1f} s")
+    log(f"[flash-general] {len(cases)} cases passed in {t_checks:.1f} s "
+        f"(backward by route {by_route}); phase wall {wall:.1f} s")
     return rec
 
 
@@ -8778,7 +8879,8 @@ def train_fp32(hvt, kernels, sizes):
     """[train-fp32]: GPT-2 small with dtype=float32 through the ZeRO-1 fused
     step on the one-rank NCCL world, on [train]'s seeded batch: the first
     step's loss and gradients against use_flash=False, then one warm-up and
-    3 timed steps (12 launches a step of each general kernel, none of the
+    3 timed steps (12 launches a step of the general forward and of each
+    backward kernel on bwd_route's route -- the sm90 pair -- none of the
     wgmma ones, one AdamW a bucket)."""
     from horovod_tpu_torch.parallel import dp
 
@@ -8828,10 +8930,11 @@ def train_fp32(hvt, kernels, sizes):
     counts = general_counts(fa)
     counts["fused_adamw"] = fadam.launches
     peak = peak_gib()
-    check_counts("train-fp32", counts, {
-        "general_fwd": cfg.n_layers, "general_dq": cfg.n_layers,
-        "general_dkdv": cfg.n_layers, "wgmma_fwd": 0, "wgmma_dq": 0,
-        "wgmma_dkdv": 0, "fused_adamw": len(sizes)}, 3)
+    head_dim = cfg.d_model // cfg.n_heads
+    want = dict({k: 0 for k in counts}, general_fwd=cfg.n_layers,
+                fused_adamw=len(sizes),
+                **bwd_counts(fa, torch.float32, head_dim, cfg.n_layers))
+    check_counts("train-fp32", counts, want, 3)
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise RuntimeError(f"[train-fp32] the losses did not fall: {losses}")
 
@@ -8840,13 +8943,14 @@ def train_fp32(hvt, kernels, sizes):
         state, _ = step(state, tokens)
 
     prof = profile_window(one_step, {"steps": 1})
-    flash_ms = sum(ms for c, ms in prof["by_category_ms"].items()
-                   if c.startswith("flash_general"))
+    flash_split = {c: ms for c, ms in prof["by_category_ms"].items()
+                   if c.startswith(("flash_general", "flash_bwd_sm90"))}
+    flash_ms = sum(flash_split.values())
     step_ms = float(np.median(times))
     log(f"[train-fp32] losses {losses}; step median {step_ms:.1f} ms "
         f"({times}); flash device time {flash_ms:.2f} ms a step of "
-        f"{prof['device_ms']:.2f}; peak memory {peak:.2f} GiB; launches over "
-        f"3 steps {counts}")
+        f"{prof['device_ms']:.2f} ({flash_split}); peak memory {peak:.2f} "
+        f"GiB; launches over 3 steps {counts}")
     hvt.shutdown()
     del model_k, step, state
     torch.cuda.empty_cache()
@@ -8854,14 +8958,17 @@ def train_fp32(hvt, kernels, sizes):
     log(f"[train-fp32] phase wall {wall:.1f} s")
     return {"losses": losses, "loss_rel": loss_rel, "grad_rel_l2": grad_rel,
             "step_ms": step_ms, "step_ms_all": times,
-            "flash_device_ms": flash_ms, "peak_gib": peak,
+            "flash_device_ms": flash_ms, "flash_device_ms_split": flash_split,
+            "peak_gib": peak,
             "launches": counts, "profile": prof, "wall_s": wall}
 
 
-def zoo_tiny_model(hvt, name, dt, use_flash):
-    """The repository's tiny ``name`` (head dim 16) computing in ``dt`` with
-    fp32 weights, its seeded weights loaded, and one seeded input batch."""
-    kw = dict(dtype=dt, param_dtype=torch.float32, use_flash=use_flash)
+def zoo_tiny_model(hvt, name, dt, use_flash, **cfg_kw):
+    """The repository's tiny ``name`` (head dim 16, or as ``cfg_kw`` sets
+    it) computing in ``dt`` with fp32 weights, its seeded weights loaded,
+    and one seeded input batch."""
+    kw = dict(dtype=dt, param_dtype=torch.float32, use_flash=use_flash,
+              **cfg_kw)
     rng = np.random.default_rng(5)
     if name == "vit":
         cfg = hvt.ViTConfig.tiny(**kw)
@@ -8881,15 +8988,51 @@ def zoo_tiny_model(hvt, name, dt, use_flash):
     return model, torch.from_numpy(x).cuda()
 
 
-def zoo_tiny(hvt, kernels):
-    """[zoo-tiny]: the tiny GPT-2, BERT (no padding mask) and ViT, head dim
-    16, in bf16 and fp32 under use_flash=None: a forward and backward
-    against the use_flash=False twin, n_layers launches of each general
-    kernel; the tiny GPT-2 trains 3 steps."""
+def zoo_tiny_train(hvt, kernels, dt, label, cfg_kw):
+    """The tiny GPT-2 (its head dim as ``cfg_kw`` sets it) trains
+    ZOO_TINY_STEPS ZeRO-1 fused steps in ``dt`` with falling losses and
+    n_layers launches a step of the general forward and of each backward
+    kernel on bwd_route's route."""
     import torch.nn.functional as F
 
     from horovod_tpu_torch.parallel import dp
 
+    fa = kernels[0]
+    model, _ = zoo_tiny_model(hvt, "gpt2", dt, None, **cfg_kw)
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, model.cfg.vocab_size, (8, 65))).cuda()
+
+    def loss_fn(p, t, model=model):
+        logits = torch.func.functional_call(model, p, (t[:, :-1],))
+        return F.cross_entropy(logits.flatten(0, 1), t[:, 1:].flatten())
+
+    step, opt = hvt.make_train_step(loss_fn, hvt.fused_adamw(1e-3),
+                                    sharded=True, fused_update=True)
+    state = dp.init_state(model, opt)
+    reset_counts(*kernels)
+    losses = []
+    state, times = timed_steps(step, state, lambda i: toks, ZOO_TINY_STEPS,
+                               losses)
+    n = model.cfg.n_layers * ZOO_TINY_STEPS
+    head_dim = model.cfg.d_model // model.cfg.n_heads
+    tag = f"gpt2 {str(dt)[6:]}{label}"
+    counts = check_general_counts(f"zoo-tiny {tag} train", fa, {
+        "general_fwd": n, **bwd_counts(fa, dt, head_dim, n)})
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise RuntimeError(f"[zoo-tiny] {tag}: the losses did not fall: "
+                           f"{losses}")
+    log(f"[zoo-tiny] {tag} (head dim {head_dim}) trains: losses {losses}; "
+        f"step ms {times}; launches {counts}")
+    return {"losses": losses, "launches": counts, "head_dim": head_dim}
+
+
+def zoo_tiny(hvt, kernels):
+    """[zoo-tiny]: the tiny GPT-2, BERT (no padding mask) and ViT, head dim
+    16, in bf16 and fp32 under use_flash=None: a forward and backward
+    against the use_flash=False twin, n_layers launches of the general
+    forward and of each backward kernel on bwd_route's route; the tiny
+    GPT-2 trains 3 steps, and 3 more at head dim 256 (in fp32 the backward
+    pair's general route)."""
     fa, fadam, tq = kernels
     t0 = time.perf_counter()
     hvt.init(backend="nccl")
@@ -8901,6 +9044,7 @@ def zoo_tiny(hvt, kernels):
             for use_flash in (None, False):
                 model, x = zoo_tiny_model(hvt, name, dt, use_flash)
                 n = model.cfg.n_layers
+                head_dim = model.cfg.d_model // model.cfg.n_heads
                 fa.reset_launches()
                 y = model(x).float()
                 w = torch.from_numpy(np.random.default_rng(6).standard_normal(
@@ -8910,7 +9054,7 @@ def zoo_tiny(hvt, kernels):
                 # backward a layer; none on the plain side.
                 counts = check_general_counts(
                     f"zoo-tiny {tag} use_flash={use_flash}", fa,
-                    {"general_fwd": n, "general_dq": n, "general_dkdv": n}
+                    {"general_fwd": n, **bwd_counts(fa, dt, head_dim, n)}
                     if use_flash is None else {})
                 res[use_flash] = (y.detach(), {
                     k: p.grad for k, p in model.named_parameters()
@@ -8931,40 +9075,127 @@ def zoo_tiny(hvt, kernels):
                                    f"use_flash=False twin")
             out[tag] = {"out_err": err_y, "grad_err": err_g,
                         "launches": counts}
-        # The tiny GPT-2 trains through the ZeRO-1 fused step.
-        model, _ = zoo_tiny_model(hvt, "gpt2", dt, None)
-        toks = torch.from_numpy(np.random.default_rng(7).integers(
-            0, model.cfg.vocab_size, (8, 65))).cuda()
-
-        def loss_fn(p, t, model=model):
-            logits = torch.func.functional_call(model, p, (t[:, :-1],))
-            return F.cross_entropy(logits.flatten(0, 1), t[:, 1:].flatten())
-
-        step, opt = hvt.make_train_step(loss_fn, hvt.fused_adamw(1e-3),
-                                        sharded=True, fused_update=True)
-        state = dp.init_state(model, opt)
-        reset_counts(*kernels)
-        losses = []
-        state, times = timed_steps(step, state, lambda i: toks,
-                                   ZOO_TINY_STEPS, losses)
-        n = model.cfg.n_layers
-        counts = check_general_counts(
-            f"zoo-tiny gpt2 {str(dt)[6:]} train", fa, {
-                "general_fwd": n * ZOO_TINY_STEPS,
-                "general_dq": n * ZOO_TINY_STEPS,
-                "general_dkdv": n * ZOO_TINY_STEPS})
-        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
-            raise RuntimeError(f"[zoo-tiny] gpt2 {str(dt)[6:]}: the losses "
-                               f"did not fall: {losses}")
-        log(f"[zoo-tiny] gpt2 {str(dt)[6:]} trains: losses {losses}; step ms "
-            f"{times}; launches {counts}")
-        out[f"gpt2 {str(dt)[6:]} train"] = {"losses": losses,
-                                             "launches": counts}
+        # The tiny GPT-2 trains through the ZeRO-1 fused step, at head dim
+        # 16 and at 256.
+        for label, cfg_kw in (("", {}), (" d256", ZOO_TINY_D256)):
+            out[f"gpt2 {str(dt)[6:]}{label} train"] = zoo_tiny_train(
+                hvt, kernels, dt, label, cfg_kw)
     hvt.shutdown()
     wall = time.perf_counter() - t0
     log(f"[zoo-tiny] phase wall {wall:.1f} s")
     out["wall_s"] = wall
     return out
+
+
+def flash_route_rows(general, fp32_trained, tiny):
+    """The "kernels" line's rows of the general flash kernels and the sm90
+    backward pair, from [flash-general], [train-fp32] and [zoo-tiny]."""
+    src = "horovod_tpu_torch/csrc/"
+    ref = "horovod_tpu/ops/pallas_kernels.py:"
+    kernels = []
+    # The general route of rows 1-3 (csrc/flash_general.cu): "ms",
+    # "device_ms", "plain_ms", "library_ms" and the bounds at the fp32
+    # [train-fp32] shape [8, 1024, 12, 64] causal (the backward rows: "ms"
+    # the pair called directly, by events, "device_ms" each kernel; bounds
+    # at the FFMA rate), "timed" the same at every timed shape [8, 1024,
+    # 768 / d, d] causal; "launches" the forward's 3 timed [train-fp32]
+    # steps' and the backward's [zoo-tiny] head-dim-256 tiny GPT-2's 3
+    # steps in fp32 (the backward pair's general route), and
+    # "launches_zoo_tiny" each [zoo-tiny] run's.
+    timed = general["timed"]
+    g32 = timed["float32"][64]
+    tiny_runs = {k: r["launches"] for k, r in tiny.items()
+                 if isinstance(r, dict)}
+    d256 = [r for k, r in tiny_runs.items() if k.endswith("d256 train")]
+
+    def times(r, work, pair, dev, bounds="bounds"):
+        fwd = work == "fwd"
+        return {"ms": r["fwd_ms"] if fwd else r[pair],
+                "device_ms": r["device_ms"][dev],
+                "plain_ms": r["plain_fwd_ms"] if fwd else r["plain_pair_ms"],
+                "bound_ms": r[bounds][work]["bound_ms"],
+                "bound_by": r[bounds][work]["bound_by"],
+                "pair_bound_ms": r[bounds]["pair"]["bound_ms"],
+                "library_ms": r["sdpa_fwd_ms"] if fwd else r["sdpa_bwd_ms"],
+                "library": f"scaled_dot_product_attention "
+                           f"({r['sdpa_backend']})",
+                "shape": r["shape"], "d_pad": r["d_pad"],
+                "bwd_route": r["bwd_route"]}
+
+    for name, line in (("flash_general_fwd", "125"),
+                       ("flash_general_dkdv", "480"),
+                       ("flash_general_dq", "541")):
+        fwd = name == "flash_general_fwd"
+        count = name.replace("flash_", "")
+        work = "fwd" if fwd else name.replace("flash_general_", "")
+        row = functools.partial(times, work=work, pair="general_pair_ms",
+                                dev=name)
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": src + "flash_general.cu",
+            "replaces": ref + line,
+            "launches": (fp32_trained["launches"][count] if fwd
+                         else sum(c[count] for c in d256)),
+            "launches_train_fp32": fp32_trained["launches"][count],
+            "launches_zoo_tiny": {k: c[count] for k, c in tiny_runs.items()},
+            "max_abs_err": general["max_err_out"] if fwd
+            else general["max_err_grad"],
+            "max_abs_err_lse": general["max_err_lse"],
+            "max_rel_err": general["max_rel_grad"],
+            "fp64_err": {d: r["general"] for d, r in
+                         general["fp64_by_d"].items()},
+            "dtype": "float32",
+            **row(g32),
+            "timed": {dt: {d: row(r) for d, r in by_d.items()}
+                      for dt, by_d in timed.items()},
+        })
+    # The sm90 backward pair (csrc/flash_bwd_sm90_general.cu) on bwd_route's
+    # sm90 sizes: "ms" (the pair by events), "device_ms" (each kernel),
+    # "plain_ms", "library_ms" (SDPA's backward) at [train-fp32]'s fp32
+    # shape; "bound_ms" there the 3xTF32 tensor-core bound (the products as
+    # three tf32 products each), "bound_ffma_ms" the FFMA-rate bound the
+    # general rows use; "general_pair_ms" the general pair in the same run;
+    # "timed" every sm90 shape of the grid, bf16 bounds at the bf16 rate;
+    # "launches" the 3 timed [train-fp32] steps'.
+    for name, line in (("flash_bwd_sm90_dkdv", "480"),
+                       ("flash_bwd_sm90_dq", "541")):
+        count = name.replace("flash_bwd_", "")
+        work = name.replace("flash_bwd_sm90_", "")
+
+        def sm90_row(r, work=work, name=name):
+            fp32 = r["dtype"] == "float32"
+            row = times(r, work, "pair_ms", name,
+                        "bounds_tf32" if fp32 else "bounds")
+            row["pair_ms_again"] = r["pair_ms_again"]
+            row["general_pair_ms"] = r["general_pair_ms"]
+            row["general_device_ms"] = r["device_ms"][
+                name.replace("bwd_sm90", "general")]
+            row["faster_than_general"] = r["sm90_faster"]
+            if fp32:
+                row["bound_ffma_ms"] = r["bounds"][work]["bound_ms"]
+                row["pair_bound_ffma_ms"] = r["bounds"]["pair"]["bound_ms"]
+            return row
+
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": src + "flash_bwd_sm90_general.cu",
+            "replaces": ref + line,
+            "launches": fp32_trained["launches"][count],
+            "launches_zoo_tiny": {k: c.get(count, 0)
+                                  for k, c in tiny_runs.items()},
+            "max_abs_err": max(general["sm90_max_err_grad"].values()),
+            "max_rel_err": general["sm90_max_rel_grad"],
+            "fp64_err": {d: r["kernel"] for d, r in
+                         general["fp64_by_d"].items()},
+            "dtype": "float32",
+            **sm90_row(g32),
+            "timed": {dt: {d: sm90_row(r) for d, r in by_d.items()
+                           if r["bwd_route"] == "sm90"}
+                      for dt, by_d in timed.items()},
+        })
+    return kernels
 
 
 def main() -> int:
@@ -9282,53 +9513,7 @@ def main() -> int:
                 "library_device_ms": bwd_b16["library_device_ms"],
             },
         })
-    # The general route of rows 1-3 (csrc/flash_general.cu): "ms",
-    # "device_ms", "plain_ms", "library_ms" and the bounds at the fp32
-    # [train-fp32] shape [8, 1024, 12, 64] causal (the backward rows: "ms"
-    # the pair by events, "device_ms" each kernel), "bf16" the same at
-    # [8, 1024, 768 / d, d] causal; "launches" the 3 timed [train-fp32]
-    # steps', "launches_zoo_tiny" each [zoo-tiny] model's forward and
-    # backward and the tiny GPT-2's 3 steps.
-    g32 = general["fp32"]
-    tiny_runs = {k: r["launches"] for k, r in tiny.items()
-                 if isinstance(r, dict)}
-    for name, line in (("flash_general_fwd", "125"),
-                       ("flash_general_dkdv", "480"),
-                       ("flash_general_dq", "541")):
-        fwd = name == "flash_general_fwd"
-        count = name.replace("flash_", "")
-        work = "fwd" if fwd else name
-
-        def times(r, fwd=fwd, name=name, work=work):
-            return {"ms": r["fwd_ms"] if fwd else r["pair_ms"],
-                    "device_ms": r["device_ms"][name],
-                    "plain_ms": r["plain_fwd_ms"] if fwd
-                    else r["plain_pair_ms"],
-                    "bound_ms": r["bounds"][work]["bound_ms"],
-                    "bound_by": r["bounds"][work]["bound_by"],
-                    "pair_bound_ms": r["bounds"]["pair"]["bound_ms"],
-                    "library_ms": r["sdpa_fwd_ms"] if fwd
-                    else r["sdpa_bwd_ms"],
-                    "library": f"scaled_dot_product_attention "
-                               f"({r['sdpa_backend']})",
-                    "shape": r["shape"], "d_pad": r["d_pad"]}
-
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": src + "flash_general.cu",
-            "replaces": ref + line,
-            "launches": fp32_trained["launches"][count],
-            "launches_zoo_tiny": {k: c[count] for k, c in tiny_runs.items()},
-            "max_abs_err": general["max_err_out"] if fwd
-            else general["max_err_grad"],
-            "max_abs_err_lse": general["max_err_lse"],
-            "max_rel_err": general["max_rel_grad"],
-            "fp64_err": general["fp64"]["kernel"],
-            "dtype": "float32",
-            **times(g32),
-            "bf16": {d: times(r) for d, r in general["bf16"].items()},
-        })
+    kernels += flash_route_rows(general, fp32_trained, tiny)
     kernels.append({
         "name": "fused_adamw",
         "route": "cuda",

@@ -17,6 +17,13 @@ nvcc at first use (:mod:`._build`), on two routes that
   a head dim between them runs at the next one up, its extra columns
   loaded as zeros and never stored. It reads any strided view.
 
+The backward pair has a third route, which :func:`bwd_route` picks from
+the same two: ``"sm90"`` -- ``csrc/flash_bwd_sm90_general.cu``, bf16 on
+wgmma fed by TMA and fp32 on the tensor cores as 3xTF32, for the sizes of
+``SM90_BWD_SIZES`` where a row is whole 16-byte units (bf16 head dims a
+multiple of 8, fp32 a multiple of 4), the view's rows 16-byte aligned.
+The forward keeps :func:`kernel_route`.
+
 Anything else (fp16, a head dim above 256) raises. The sources' notes say
 what bounds each kernel on an H100 and what its design leaves on the
 table. The backward launches the dQ kernel first: it also computes
@@ -72,6 +79,7 @@ __all__ = [
     "flash_attention_bwd_reference",
     "flash_attention_with_lse",
     "flash_attention_reference",
+    "bwd_route",
     "kernel_route",
     "launches",
     "launches_dkdv",
@@ -79,39 +87,53 @@ __all__ = [
     "launches_general",
     "launches_general_dkdv",
     "launches_general_dq",
+    "launches_sm90_dkdv",
+    "launches_sm90_dq",
     "reset_launches",
 ]
 
 KERNEL_SOURCE = "flash_fwd"
 BWD_SOURCE = "flash_bwd"
 GENERAL_SOURCE = "flash_general"
+SM90_SOURCE = "flash_bwd_sm90_general"
 WGMMA_HEAD_DIMS = (64, 128)  # bf16 only
 GENERAL_HEAD_DIMS = (16, 32, 64, 128, 256)  # the general kernels' sizes
 MAX_HEAD_DIM = GENERAL_HEAD_DIMS[-1]
+# The d_pad sizes whose backward pair runs on the sm90 kernels, by dtype:
+# each where that pair measured faster than the general pair in the same
+# chip run (PERF.md). fp32 256 stays general (the source's note says why).
+SM90_BWD_SIZES = {torch.bfloat16: (16, 32, 64, 128, 256),
+                  torch.float32: (16, 32, 64, 128)}
 
 # Kernel launches since import (or the last reset_launches()), one count per
 # kernel: each wrapper adds one where it launches its kernel and nowhere
 # else, so a run can show that its main path went through the kernels.
-# launches, launches_dkdv and launches_dq count both routes;
-# launches_general* count the general route alone.
+# launches, launches_dkdv and launches_dq count every route;
+# launches_general* count the general route alone, launches_sm90_* the
+# sm90 backward pair alone.
 launches = 0  # forward
 launches_dkdv = 0  # backward: dK/dV
 launches_dq = 0  # backward: dQ
 launches_general = 0
 launches_general_dkdv = 0
 launches_general_dq = 0
+launches_sm90_dkdv = 0
+launches_sm90_dq = 0
 _count_lock = threading.Lock()
 _fn = None
 _bwd_fns = None
 _general_fns = None
+_sm90_fns = None
 
 
 def reset_launches() -> None:
     global launches, launches_dkdv, launches_dq
     global launches_general, launches_general_dkdv, launches_general_dq
+    global launches_sm90_dkdv, launches_sm90_dq
     with _count_lock:
         launches = launches_dkdv = launches_dq = 0
         launches_general = launches_general_dkdv = launches_general_dq = 0
+        launches_sm90_dkdv = launches_sm90_dq = 0
 
 
 def _count_launch(general: bool = False) -> None:
@@ -121,16 +143,19 @@ def _count_launch(general: bool = False) -> None:
         launches_general += general
 
 
-def _count_bwd_launch(kind: str, general: bool = False) -> None:
+def _count_bwd_launch(kind: str, route: str) -> None:
     global launches_dkdv, launches_dq
     global launches_general_dkdv, launches_general_dq
+    global launches_sm90_dkdv, launches_sm90_dq
     with _count_lock:
         if kind == "dkdv":
             launches_dkdv += 1
-            launches_general_dkdv += general
+            launches_general_dkdv += route == "general"
+            launches_sm90_dkdv += route == "sm90"
         else:
             launches_dq += 1
-            launches_general_dq += general
+            launches_general_dq += route == "general"
+            launches_sm90_dq += route == "sm90"
 
 
 def kernel_route(dtype: torch.dtype, d: int) -> Tuple[str, int]:
@@ -153,6 +178,23 @@ def kernel_route(dtype: torch.dtype, d: int) -> Tuple[str, int]:
     if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
         return "wgmma", d
     return "general", next(p for p in GENERAL_HEAD_DIMS if p >= d)
+
+
+def bwd_route(dtype: torch.dtype, d: int) -> Tuple[str, int]:
+    """The backward pair's CUDA kernels for head dim ``d`` in ``dtype``,
+    decided by these two and nothing else: :func:`kernel_route`'s
+    ``("wgmma", d)`` for bf16 at 64 and 128; ``("sm90", d_pad)``
+    (``csrc/flash_bwd_sm90_general.cu``) where ``d_pad`` is one of
+    ``SM90_BWD_SIZES[dtype]`` and a row of ``d`` is whole 16-byte units
+    (bf16 ``d`` a multiple of 8, fp32 a multiple of 4), which TMA and
+    ``cp.async`` need; else :func:`kernel_route`'s ``("general", d_pad)``.
+    Raises as :func:`kernel_route` does."""
+    route, d_pad = kernel_route(dtype, d)
+    unit = 16 // (2 if dtype == torch.bfloat16 else 4)
+    if (route == "general" and d % unit == 0
+            and d_pad in SM90_BWD_SIZES[dtype]):
+        return "sm90", d_pad
+    return route, d_pad
 
 
 def _view4(x, layout: str, n_heads: int):
@@ -533,6 +575,24 @@ def _bwd_kernel_fns():
     return _bwd_fns
 
 
+def _sm90_kernel_fns():
+    """The sm90 backward pair's two C entries (dQ, dK/dV), with the
+    general entries' signatures."""
+    global _sm90_fns
+    if _sm90_fns is None:
+        lib = _build.load(SM90_SOURCE)
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        tail = [i32] * 5 + [ptr] + [i32] * 3 + [f32, i32, i32, ptr]
+        dq = lib.hvt_flash_bwd_sm90_dq
+        dq.argtypes = [i32, i32] + [ptr] * 6 + [i32] + [ptr] * 4 + tail
+        dkdv = lib.hvt_flash_bwd_sm90_dkdv
+        dkdv.argtypes = [i32, i32] + [ptr] * 9 + tail
+        for fn in (dq, dkdv):
+            fn.restype = ctypes.c_int
+        _sm90_fns = (dq, dkdv)
+    return _sm90_fns
+
+
 def _rows_aligned(x) -> bool:
     """Unit stride along D, and every other stride of a dimension longer
     than 1 a nonzero multiple of 16 bytes, from a 16-byte aligned base:
@@ -546,26 +606,47 @@ def _rows_aligned(x) -> bool:
 
 def _bwd_launch(q4, k4, v4, o4, g4, lse, g_lse, *, causal, q_offset,
                 kv_offset, sm_scale, layout, kv_len):
+    route, d_pad = bwd_route(q4.dtype, q4.shape[-1])
+    return _bwd_pair(route, d_pad, q4, k4, v4, o4, g4, lse, g_lse,
+                     causal=causal, q_offset=q_offset, kv_offset=kv_offset,
+                     sm_scale=sm_scale, layout=layout, kv_len=kv_len)
+
+
+def _bwd_pair(route, d_pad, q4, k4, v4, o4, g4, lse, g_lse, *, causal,
+              q_offset, kv_offset, sm_scale, layout, kv_len):
+    """The dQ and dK/dV kernels of ``route`` at ``d_pad`` on ``[B, S, H,
+    D]`` views. :func:`_bwd_launch` takes :func:`bwd_route`'s choice;
+    ``chip_smoke.py`` also times the general pair here beside the sm90
+    one."""
     b, sq, h, d = q4.shape
     skv = k4.shape[1]
-    route, d_pad = kernel_route(q4.dtype, d)
     general = route == "general"
     # delta = rowsum(dO * out) comes from the cotangent as given (the dQ
     # kernel reads it in bf16 or fp32); the products take dO in the input
-    # dtype. The wgmma kernels read 16-byte aligned rows; the general ones
-    # any strided view.
+    # dtype. The wgmma and sm90 kernels read 16-byte aligned rows (q, k, v
+    # as given, or they raise; the cotangent and out are copied to such
+    # rows); the general ones any strided view.
     given = g4 if g4.dtype in (torch.bfloat16, torch.float32) else g4.float()
     g_op = g4 if g4.dtype == q4.dtype else g4.to(q4.dtype)
     named = (("q", q4), ("k", k4), ("v", v4), ("dO", g_op), ("out", o4))
+    if route != "wgmma" and o4.dtype != q4.dtype:
+        raise TypeError(f"out is {o4.dtype}, q is {q4.dtype}")
     if general:
-        if o4.dtype != q4.dtype:
-            raise TypeError(f"out is {o4.dtype}, q is {q4.dtype}")
         _check_grid(named + (("given dO", given),))
     else:
         given, g_op, o4 = (x if _rows_aligned(x) else x.contiguous()
                            for x in (given, g_op, o4))
         named = named[:3] + (("dO", g_op), ("out", o4))
-        _check_kernel_operands(named, d)
+        if route == "wgmma":
+            _check_kernel_operands(named, d)
+        else:
+            _check_grid(named)
+            for name, x in named[:3]:
+                if not _rows_aligned(x):
+                    raise ValueError(
+                        f"{name} rows must be 16-byte aligned for the sm90 "
+                        f"backward kernels: strides {tuple(x.stride())}, "
+                        f"address {x.data_ptr():#x}")
     dq, dq4 = _empty_out(b, sq, h, d, layout, q4)
     dk, dk4 = _empty_out(b, skv, h, d, layout, q4)
     dv, dv4 = _empty_out(b, skv, h, d, layout, q4)
@@ -587,12 +668,15 @@ def _bwd_launch(q4, k4, v4, o4, g4, lse, g_lse, *, causal, q_offset,
     tail = [b, h, sq, skv, d, strides, kv_len, q_offset, kv_offset,
             float(sm_scale), int(bool(causal))]
     glse_ptr = None if glse is None else glse.data_ptr()
-    if general:
-        _, fn_dq, fn_dkdv = _general_kernel_fns()
-        head = [int(q4.dtype == torch.float32), d_pad]
-    else:
+    if route == "wgmma":
         fn_dkdv, fn_dq = _bwd_kernel_fns()
         head = []
+    else:
+        fn_dq, fn_dkdv = (_general_kernel_fns()[1:] if general
+                          else _sm90_kernel_fns())
+        head = [int(q4.dtype == torch.float32), d_pad]
+    source = {"wgmma": BWD_SOURCE, "general": GENERAL_SOURCE,
+              "sm90": SM90_SOURCE}[route]
     with torch.cuda.device(q4.device):
         stream = torch.cuda.current_stream(q4.device).cuda_stream
         # dQ first: it writes delta, which the dK/dV kernel reads after it
@@ -604,20 +688,16 @@ def _bwd_launch(q4, k4, v4, o4, g4, lse, g_lse, *, causal, q_offset,
                    q4.device.index, stream)
         if rc != 0:
             raise RuntimeError(
-                f"flash_{'general' if general else 'bwd'} dQ kernel launch "
-                f"failed with cudaError_t {rc}"
-            )
-        _count_bwd_launch("dq", general)
+                f"{source} dQ kernel launch failed with cudaError_t {rc}")
+        _count_bwd_launch("dq", route)
         rc = fn_dkdv(*head, q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
                      g_op.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                      glse_ptr, dk4.data_ptr(), dv4.data_ptr(), *tail,
                      q4.device.index, stream)
         if rc != 0:
             raise RuntimeError(
-                f"flash_{'general' if general else 'bwd'} dK/dV kernel "
-                f"launch failed with cudaError_t {rc}"
-            )
-        _count_bwd_launch("dkdv", general)
+                f"{source} dK/dV kernel launch failed with cudaError_t {rc}")
+        _count_bwd_launch("dkdv", route)
     return dq, dk, dv
 
 

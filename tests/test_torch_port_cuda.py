@@ -286,8 +286,13 @@ def test_general_kernels_match_plain(gen, dtype, d, kw):
     again = fa.flash_attention_bwd(q, k, v, out, lse, g, gl, **kw)
     ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, g, gl, **kw)
     torch.cuda.synchronize()
+    # The forward on the general kernel; the backward pair on the route
+    # bwd_route picks (the sm90 kernels where they take the head dim).
+    sm90 = fa.bwd_route(dtype, d)[0] == "sm90"
     assert (fa.launches_general, fa.launches_general_dq,
-            fa.launches_general_dkdv) == (1, 2, 2)
+            fa.launches_general_dkdv) == ((1, 0, 0) if sm90 else (1, 2, 2))
+    assert (fa.launches_sm90_dq, fa.launches_sm90_dkdv) == (
+        (2, 2) if sm90 else (0, 0))
     assert (fa.launches, fa.launches_dq, fa.launches_dkdv) == (1, 2, 2)
     tol_o, tol_l, tol_g = _GENERAL_TOL[dtype]
     assert out.dtype == dtype and out.shape == ref_out.shape
@@ -501,6 +506,178 @@ def test_autograd_on_the_card_reaches_the_backward_kernels(gen, monkeypatch):
     torch.cuda.synchronize()
     assert (fa.launches, fa.launches_dkdv, fa.launches_dq) == (1, 1, 1)
     assert fused.grad is not None and torch.isfinite(fused.grad.float()).all()
+
+
+# The sm90 backward pair (csrc/flash_bwd_sm90_general.cu: bf16 on wgmma fed
+# by TMA, fp32 on the tensor cores as 3xTF32) against its plain version,
+# flash_attention_bwd_reference, at the general kernels' tolerances above:
+# fused-QKV views, kv_len < Skv, a ring hop partly and wholly masked, an
+# lse cotangent or none, sm_scale < 0, Sq = 1 and Skv = 1; at every
+# (dtype, d_pad) of SM90_BWD_SIZES, head dims on and off the compiled size.
+_SM90_DIMS = [(torch.bfloat16, d)
+              for d in (8, 16, 24, 32, 40, 48, 96, 120, 160, 256)] + [
+    (torch.float32, d) for d in (4, 12, 16, 32, 48, 64, 80, 128)]
+_SM90_CASES = {
+    "plain": dict(b=2, sq=150, skv=300, kw=dict()),
+    "kv_len": dict(b=2, sq=150, skv=300, kw=dict(kv_len=250)),
+    "ring_hop": dict(b=1, sq=150, skv=300, kw=dict(causal=True,
+                                                   kv_offset=100)),
+    "future_hop": dict(b=1, sq=70, skv=70, kw=dict(causal=True,
+                                                   kv_offset=100)),
+    "neg_scale": dict(b=1, sq=150, skv=300, kw=dict(
+        causal=True, kv_len=290, sm_scale=-0.1)),
+    "no_g_lse": dict(b=1, sq=130, skv=130, kw=dict(causal=True), g_lse=False),
+    "sq1": dict(b=2, sq=1, skv=70, kw=dict(causal=True, q_offset=69)),
+    "skv1": dict(b=1, sq=70, skv=1, kw=dict()),
+}
+
+
+def _sm90_operands(gen, dtype, b, sq, skv, h, d):
+    """q, k, v as column views of fused projections (k and v of one)."""
+    q = torch.randn((b, sq, h * d), generator=gen, device="cuda").to(dtype)
+    k, v = torch.randn((b, skv, 2 * h * d), generator=gen,
+                       device="cuda").to(dtype).split(h * d, dim=-1)
+    return q, k, v
+
+
+def _sm90_pair(gen, dtype, d, case, h=3, g_dtype=None):
+    c = _SM90_CASES[case]
+    q, k, v = _sm90_operands(gen, dtype, c["b"], c["sq"], c["skv"], h, d)
+    kw = dict(c["kw"], layout="bsm", n_heads=h)
+    with torch.no_grad():
+        out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+    g = torch.randn(out.shape, generator=gen, device="cuda").to(
+        g_dtype or dtype)
+    gl = (torch.randn(lse.shape, generator=gen, device="cuda")
+          if c.get("g_lse", True) else None)
+    return (q, k, v, out, lse, g, gl), kw
+
+
+def _sm90_check(args, kw, dtype):
+    fa.reset_launches()
+    got = fa.flash_attention_bwd(*args, **kw)
+    ref = fa.flash_attention_bwd_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert (fa.launches_sm90_dq, fa.launches_sm90_dkdv) == (1, 1)
+    assert (fa.launches_dq, fa.launches_dkdv) == (1, 1)
+    assert (fa.launches_general_dq, fa.launches_general_dkdv) == (0, 0)
+    tol = _GENERAL_TOL[dtype][2]
+    for x, r in zip(got, ref):
+        assert x.dtype == dtype and x.shape == r.shape
+        assert torch.isfinite(x.float()).all()
+        scale = max(r.float().abs().max().item(), 1e-6)
+        assert (x.float() - r.float()).abs().max().item() <= tol * scale
+    return got
+
+
+@pytest.mark.parametrize("case", sorted(_SM90_CASES))
+@pytest.mark.parametrize("dtype,d", _SM90_DIMS)
+def test_sm90_backward_pair_matches_plain(gen, dtype, d, case):
+    assert fa.bwd_route(dtype, d)[0] == "sm90"
+    args, kw = _sm90_pair(gen, dtype, d, case)
+    dq, dk, dv = _sm90_check(args, kw, dtype)
+    if case == "future_hop":
+        assert not dq.any() and not dk.any() and not dv.any()
+    if case == "kv_len":
+        h, d_ = kw["n_heads"], dk.shape[-1] // kw["n_heads"]
+        tail = dk.unflatten(-1, (h, d_))[:, 250:]
+        assert not tail.any() and not dv.unflatten(-1, (h, d_))[:, 250:].any()
+
+
+@pytest.mark.parametrize("d", [16, 48, 96])
+def test_sm90_backward_delta_from_an_fp32_cotangent(gen, d):
+    # bf16 q/k/v with an fp32 cotangent: delta from the cotangent as given,
+    # the products' dO rounded to bf16, as the plain version does.
+    args, kw = _sm90_pair(gen, torch.bfloat16, d, "ring_hop",
+                          g_dtype=torch.float32)
+    _sm90_check(args, kw, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 16),
+                                     (torch.bfloat16, 96),
+                                     (torch.float32, 64),
+                                     (torch.float32, 16)])
+def test_sm90_backward_pair_is_bitwise_repeatable(gen, dtype, d):
+    # No atomics: two calls on the same inputs agree bit for bit, at the
+    # shapes of [train-fp32] and [zoo-tiny] (cut in batch).
+    h = 768 // d if d < 64 else 12
+    q, k, v = torch.randn((2, 1024, 3 * h * d), generator=gen,
+                          device="cuda").to(dtype).split(h * d, dim=-1)
+    kw = dict(causal=True, layout="bsm", n_heads=h)
+    with torch.no_grad():
+        out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+    g = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+    gl = torch.randn(lse.shape, generator=gen, device="cuda")
+    first = fa.flash_attention_bwd(q, k, v, out, lse, g, gl, **kw)
+    second = fa.flash_attention_bwd(q, k, v, out, lse, g, gl, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, g, gl, **kw)
+    for x, r in zip(first, ref):
+        scale = r.float().abs().max().item()
+        tol = _GENERAL_TOL[dtype][2]
+        assert (x.float() - r.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 48),
+                                     (torch.float32, 64)])
+def test_sm90_backward_launches_from_a_fresh_thread(gen, dtype, d):
+    # A thread that has made no CUDA call has no context bound: the entry
+    # binds the tensors' device before it encodes its tensor maps.
+    args, kw = _sm90_pair(gen, dtype, d, "kv_len")
+    want = fa.flash_attention_bwd_reference(*args, **kw)
+    torch.cuda.synchronize()
+    got, errors = [], []
+
+    def run():
+        try:
+            got.append(fa.flash_attention_bwd(*args, **kw))
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert not errors, errors
+    for x, r in zip(got[0], want):
+        scale = r.float().abs().max().item()
+        tol = _GENERAL_TOL[dtype][2]
+        assert (x.float() - r.float()).abs().max().item() <= tol * scale
+
+
+def test_sm90_backward_counts_launches_by_route(gen):
+    # launches_dq / launches_dkdv count every route; launches_sm90_* and
+    # launches_general_* their own; reset_launches zeroes them all.
+    fa.reset_launches()
+    for dtype, d in ((torch.bfloat16, 64), (torch.bfloat16, 48),
+                     (torch.float32, 64), (torch.bfloat16, 12),
+                     (torch.float32, 160)):
+        args, kw = _sm90_pair(gen, dtype, d, "plain", h=2)
+        fa.flash_attention_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert (fa.launches_dq, fa.launches_dkdv) == (5, 5)
+    assert (fa.launches_sm90_dq, fa.launches_sm90_dkdv) == (2, 2)
+    assert (fa.launches_general_dq, fa.launches_general_dkdv) == (2, 2)
+    fa.reset_launches()
+    assert (fa.launches_dq, fa.launches_sm90_dq, fa.launches_sm90_dkdv,
+            fa.launches_general_dq) == (0, 0, 0, 0)
+
+
+def test_sm90_backward_raises_on_a_view_tma_cannot_describe(gen):
+    # bf16 head dim 48 takes the sm90 route; q/k/v whose rows are not
+    # 16-byte aligned raise, with no launch and no fallback to the general
+    # kernels.
+    fused = torch.randn((1, 64, 2 * 48 + 4), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+    x = fused[..., 2:98].unflatten(-1, (2, 48))
+    assert not fa._rows_aligned(x)
+    out = torch.zeros_like(x)
+    lse = torch.zeros((1, 2, 64), device="cuda")
+    fa.reset_launches()
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_bwd(x, x, x, out, lse, torch.ones_like(x))
+    assert (fa.launches_dq, fa.launches_dkdv) == (0, 0)
 
 
 @pytest.mark.parametrize("p_dtype,m_dtype", [
