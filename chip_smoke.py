@@ -4,7 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --wrapper-host-us DIR   # the flash forward's
         # and kernel 7's wrappers' host microseconds a call, DIR's package
-        # (another checkout) against this one's in one process on one card
+        # (another checkout) against this one's, a process each, alternated
+        # DIR, this, this, DIR, on one card
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -614,49 +615,56 @@ Phases (any failure exits non-zero; nothing is caught):
 43. [flash-general] (after 3.) the general flash kernels
    (csrc/flash_general.cu: bf16 at head dims other than 64 and 128, fp32
    at every head dim up to 256) against their plain versions, forward
-   and backward (the backward twice, bit for bit), on fused-QKV views: head
+   and backward (each twice, bit for bit), on fused-QKV views: head
    dims 12-256 in bf16 and fp32, causal and not, at [2, 200 / 333, 3, d];
    at d 16, 96 and 256 kv_len < Skv, rows without keys, a ring hop's
    wholly masked block, sm_scale < 0, q/k/v all views of one fused
-   output, no lse cotangent, Sq = 1 and Skv = 1. Each case's backward runs
-   on the route ops/flash_attention.py's bwd_route picks: the sm90 pair
-   (csrc/flash_bwd_sm90_general.cu: bf16 on wgmma fed by TMA, fp32 as
-   3xTF32 on the tensor cores) at the sizes it takes, else the general
-   pair. Tolerances: bf16 the flash checks' (2., 3.); fp32 2e-5 (out, lse
+   output, no lse cotangent, Sq = 1 and Skv = 1. Each case's forward runs
+   on the route ops/flash_attention.py's fwd_route picks and its backward
+   on bwd_route's: the sm90 kernels (csrc/flash_fwd_sm90_general.cu and
+   csrc/flash_bwd_sm90_general.cu: bf16 on wgmma fed by TMA, fp32 as
+   3xTF32 on the tensor cores) at the sizes they take, else the general
+   ones. Tolerances: bf16 the flash checks' (2., 3.); fp32 2e-5 (out, lse
    absolute; gradients of the largest plain gradient), the plain version's
-   matmuls in full fp32. The fp32 kernels' (the route's and the general
-   pair called directly) and plain version's errors against an fp64
-   computation at d 96, 64 and 16; launches by route (one general forward,
-   two of each backward kernel on its route, no wgmma launch a case).
-   Timed, at [8, 1024, 768 / d, d] causal, fp32 d 64, 16, 32, 128 and
-   bf16 d 16, 32, 48, 96, 256: the forward, the pair on its route (twice,
-   around the general pair), the general pair called directly, their
-   device times, the plain versions, SDPA's forward and backward with the
-   backend it took, bounds (fp32 at the FFMA rate and as 3xTF32 on the
-   tensor cores), and whether the sm90 pair beat the general one.
+   matmuls in full fp32. The fp32 kernels' (the routes' and the general
+   ones called directly) and plain version's errors against an fp64
+   computation at d 96, 64 and 16, the routed forward's out and lse within
+   5e-6; launches by route (two forwards and two of each backward kernel
+   on their routes, no wgmma launch a case). Timed, at [8, 1024, 768 / d,
+   d] causal, fp32 d 64, 16, 32, 128 and bf16 d 16, 32, 48, 96, 256: the
+   forward on its route (twice, around the general forward called
+   directly), the pair on its route (twice, around the general pair
+   called directly), their device times, the plain versions, SDPA's
+   forward and backward with the backend it took, bounds (fp32 at the
+   FFMA rate and as 3xTF32 on the tensor cores), and whether the sm90
+   forward and pair beat the general ones in both orders. The sm90
+   forward's compiler report (advisories, HGMMA and LDL/STL counts a
+   kernel, registers and spills) is printed.
 44. [train-fp32] (after 5.) GPT-2 small with dtype=float32 (fp32 compute,
    no TF32) from init_params(seed=0) through make_train_step(sharded=True,
    fused_update=True), fused_adamw(1e-4), on [train]'s seeded 8 x 1025
    batch: the first step's loss within 1e-5 relative and gradients within
    1e-4 relative L2 of the use_flash=False model; one warm-up and 3 steps
-   with 12 launches a step of the general forward and of each sm90
-   backward kernel, no general backward and no wgmma launch, one fused
-   AdamW a bucket; losses finite and falling. Printed: the step median,
+   with 12 launches a step of the sm90 forward and of each sm90 backward
+   kernel, no general and no wgmma launch, one fused AdamW a bucket;
+   losses finite and falling. Printed: the step median,
    the flash device time of a profiled step by kernel, peak memory.
 45. [zoo-tiny] (after 44.) the repository's GPT2Config, BertConfig (no
    padding mask) and ViTConfig .tiny() (head dim 16) in bf16 and fp32 with
    fp32 weights under use_flash=None: a forward and backward against the
    use_flash=False twin (0.05 of the largest plain value in bf16, 1e-4 in
-   fp32), n_layers launches of the general forward and of each sm90
-   backward kernel and none on the plain side; the tiny GPT-2 trains 3
-   ZeRO-1 fused steps with falling losses, and 3 more at head dim 256 (2
-   heads of 256: the sm90 pair in bf16, the general pair in fp32).
+   fp32), n_layers launches of the sm90 forward and of each sm90 backward
+   kernel and none on the plain side; the tiny GPT-2 trains 3 ZeRO-1
+   fused steps with falling losses, and 3 more at head dim 256 (2 heads of
+   256: the sm90 kernels in bf16, the general ones in fp32).
    Each of 43.-45. prints its wall time; the script prints its own.
 46. Output: a "kernels" JSON line (the nine TPU kernels' counterparts, the
-   general route of the first three ("flash_general_*": the forward's
-   [train-fp32] launches, the backward's in [zoo-tiny]'s fp32
-   head-dim-256 run, each [zoo-tiny] run's as "launches_zoo_tiny", the fp32 times with
-   every timed shape's under "timed"), the sm90 backward pair
+   general route of the first three ("flash_general_*": the launches in
+   [zoo-tiny]'s fp32 head-dim-256 run, each [zoo-tiny] run's as
+   "launches_zoo_tiny", the fp32 times with every timed shape's under
+   "timed"), the sm90 forward ("flash_fwd_sm90": [train-fp32]'s launches,
+   the 3xTF32 bound beside the FFMA one, the general forward's time from
+   the same run), the sm90 backward pair
    ("flash_bwd_sm90_*": [train-fp32]'s launches, the 3xTF32 bound beside
    the FFMA one, the general pair's time from the same run) and
    the cast kernel; "launches" is the training run's count -- for the
@@ -1389,7 +1397,8 @@ def kernel_category(name: str) -> str:
     # the other.
     for kernel in ("flash_general_fwd", "flash_general_dkdv",
                    "flash_general_dq", "flash_bwd_sm90_dkdv",
-                   "flash_bwd_sm90_dq", "flash_fwd", "flash_bwd_dkdv",
+                   "flash_bwd_sm90_dq", "flash_fwd_sm90", "flash_fwd",
+                   "flash_bwd_dkdv",
                    "flash_bwd_dq",
                    "fused_adamw", "dequantize_blockwise",
                    "quantize_blockwise", "fp8_matmul_reduce", "fp8_matmul",
@@ -1667,8 +1676,8 @@ def train(hvt, fa, fadam, cfg, sizes):
     log(f"[train] losses {losses}")
     log(f"[train] launches over {TRAIN_STEPS} steps: {counts}")
     general = (fa.launches_general, fa.launches_general_dq,
-               fa.launches_general_dkdv, fa.launches_sm90_dq,
-               fa.launches_sm90_dkdv)
+               fa.launches_general_dkdv, fa.launches_sm90_fwd,
+               fa.launches_sm90_dq, fa.launches_sm90_dkdv)
     if any(general):
         raise RuntimeError(f"[train] bf16 head dim 64 took the general or "
                            f"sm90 kernels {general} times: the wgmma route "
@@ -8561,18 +8570,26 @@ ZOO_TINY_D256 = dict(d_model=512, n_heads=2)
 
 def general_counts(fa):
     """The flash counters split by route: the general kernels' own, the
-    sm90 backward pair's, and the wgmma kernels' (every launch less the
+    sm90 kernels', and the wgmma kernels' (every launch less the
     others)."""
     return {"general_fwd": fa.launches_general,
             "general_dq": fa.launches_general_dq,
             "general_dkdv": fa.launches_general_dkdv,
+            "sm90_fwd": fa.launches_sm90_fwd,
             "sm90_dq": fa.launches_sm90_dq,
             "sm90_dkdv": fa.launches_sm90_dkdv,
-            "wgmma_fwd": fa.launches - fa.launches_general,
+            "wgmma_fwd": (fa.launches - fa.launches_general
+                          - fa.launches_sm90_fwd),
             "wgmma_dq": (fa.launches_dq - fa.launches_general_dq
                          - fa.launches_sm90_dq),
             "wgmma_dkdv": (fa.launches_dkdv - fa.launches_general_dkdv
                            - fa.launches_sm90_dkdv)}
+
+
+def fwd_counts(fa, dt, d, n):
+    """``n`` launches of the forward kernel on ``fwd_route``'s route for
+    (dt, d), as :func:`general_counts` names them."""
+    return {f"{fa.fwd_route(dt, d)[0]}_fwd": n}
 
 
 def bwd_counts(fa, dt, d, n):
@@ -8592,13 +8609,14 @@ def check_general_counts(tag, fa, want):
 
 def general_case(fa, gen, dt, *, b, sq, skv, h, d, causal, g_lse=True,
                  **kw):
-    """One forward and one backward (twice: bit for bit) of the general
-    kernels against their plain versions on fused-QKV views; returns the
-    errors."""
+    """One forward and one backward (each twice: bit for bit) of the
+    kernels on fwd_route's and bwd_route's routes against their plain
+    versions on fused-QKV views; returns the errors."""
     q, k, v = qkv_views(gen, b, sq, skv, h, d, dt)
     kw = dict(causal=causal, layout="bsm", n_heads=h, **kw)
     fa.reset_launches()
     out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+    fwd_again = fa.flash_attention_with_lse(q, k, v, **kw)
     ref_out, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
     g = torch.randn(out.shape, generator=gen, device="cuda").to(dt)
     gl = (torch.randn(lse.shape, generator=gen, device="cuda")
@@ -8611,8 +8629,9 @@ def general_case(fa, gen, dt, *, b, sq, skv, h, d, causal, g_lse=True,
     name = (f"{str(dt)[6:]} B={b} Sq={sq} Skv={skv} H={h} D={d} "
             f"causal={causal} {kw} g_lse={g_lse}")
     route = fa.bwd_route(dt, d)[0]
+    fwd_route = fa.fwd_route(dt, d)[0]
     check_general_counts("flash-general " + name, fa, {
-        "general_fwd": 1, **bwd_counts(fa, dt, d, 2)})
+        **fwd_counts(fa, dt, d, 2), **bwd_counts(fa, dt, d, 2)})
     if not torch.equal(torch.isneginf(lse), torch.isneginf(ref_lse)):
         raise RuntimeError(f"[flash-general] -inf rows differ on {name}")
     fin = ~torch.isneginf(ref_lse)
@@ -8624,22 +8643,24 @@ def general_case(fa, gen, dt, *, b, sq, skv, h, d, causal, g_lse=True,
         scale = max(r.float().abs().max().item(), 1e-6)
         errs.append((x.float() - r.float()).abs().max().item())
         rels.append(errs[-1] / scale)
-    bitwise = all(torch.equal(x, y) for x, y in zip(got, again))
+    bitwise = all(torch.equal(x, y) for x, y in zip(
+        [*got, out, lse], [*again, *fwd_again]))
     tol = ((FP32_TOL,) * 3 if dt == torch.float32
            else (OUT_TOL, LSE_TOL, GRAD_TOL))
     ok = (err_out <= tol[0] and err_lse <= tol[1] and max(rels) <= tol[2]
           and bitwise and out.dtype == dt)
     log(f"[flash-general] {name}: max|d out| {err_out:.3e} max|d lse| "
         f"{err_lse:.3e}; dq dk dv relative {rels[0]:.3e} {rels[1]:.3e} "
-        f"{rels[2]:.3e}; rows without keys {int((~fin).sum())}; backward "
-        f"on {route}, bitwise again {bitwise}")
+        f"{rels[2]:.3e}; rows without keys {int((~fin).sum())}; forward on "
+        f"{fwd_route}, backward on {route}, bitwise again {bitwise}")
     if not ok:
         raise RuntimeError(
             f"[flash-general] the general kernels disagree with their plain "
             f"versions on {name} (tol out {tol[0]}, lse {tol[1]}, grads "
             f"{tol[2]}, bitwise repeat)")
     return {"err_out": err_out, "err_lse": err_lse, "err_grad": max(errs),
-            "rel_grad": max(rels), "dtype": str(dt)[6:], "bwd_route": route}
+            "rel_grad": max(rels), "dtype": str(dt)[6:], "bwd_route": route,
+            "fwd_route": fwd_route}
 
 
 def fp64_attention_grads(q4, k4, v4, g4, g_lse, causal, sm_scale):
@@ -8672,11 +8693,28 @@ def general_pair(fa, q, k, v, out, lse, g, g_lse, *, causal, layout,
         sm_scale=1.0 / math.sqrt(d), layout=layout, kv_len=k4.shape[1])
 
 
+def general_fwd(fa, q, k, v, *, causal, layout, n_heads):
+    """flash_general.cu's forward called directly on "bsm" operands (the
+    route the sm90 forward replaced where fwd_route picks it)."""
+    assert layout == "bsm"
+    q4, k4, v4 = (fa._view4(x, layout, n_heads) for x in (q, k, v))
+    d = q4.shape[-1]
+    return fa._fwd_launch(
+        "general", q4, k4, v4, fa.kernel_route(q.dtype, d)[1], causal=causal,
+        q_offset=0, kv_offset=0, sm_scale=1.0 / math.sqrt(d), layout=layout,
+        kv_len=k4.shape[1])
+
+
+# The sm90 fp32 forward against fp64: out and lse absolute (3xTF32 keeps
+# the products to ~2^-22 of each term; the fp32 sums and exp2 the rest).
+FP64_FWD_TOL = 5e-6
+
+
 def fp64_error(fa, gen, d=96):
-    """Error of the fp32 kernels (the general forward, the backward on
-    bwd_route's route), of the general backward pair called directly, and
-    of the fp32 plain version against an fp64 computation, at [2, 200, 3,
-    d] causal (Sq = Skv)."""
+    """Error of the fp32 kernels (the forward on fwd_route's route, the
+    backward on bwd_route's), of the general forward and backward pair
+    called directly, and of the fp32 plain version against an fp64
+    computation, at [2, 200, 3, d] causal (Sq = Skv)."""
     b, s, h = 2, 200, 3
     q, k, v = qkv_views(gen, b, s, s, h, d, torch.float32)
     kw = dict(causal=True, layout="bsm", n_heads=h)
@@ -8685,11 +8723,12 @@ def fp64_error(fa, gen, d=96):
     out64, lse64, grads64 = fp64_attention_grads(
         *(fa._view4(x, "bsm", h) for x in (q, k, v, g)), gl, True,
         1.0 / math.sqrt(d))
-    rec = {"d": d, "bwd_route": fa.bwd_route(torch.float32, d)[0]}
-    general_bwd = functools.partial(general_pair, fa)
+    rec = {"d": d, "fwd_route": fa.fwd_route(torch.float32, d)[0],
+           "bwd_route": fa.bwd_route(torch.float32, d)[0]}
     for name, fwd, bwd in (
             ("kernel", fa.flash_attention_with_lse, fa.flash_attention_bwd),
-            ("general", fa.flash_attention_with_lse, general_bwd),
+            ("general", functools.partial(general_fwd, fa),
+             functools.partial(general_pair, fa)),
             ("plain", fa.flash_attention_reference,
              fa.flash_attention_bwd_reference)):
         out, lse = fwd(q, k, v, **kw)
@@ -8706,9 +8745,11 @@ def fp64_error(fa, gen, d=96):
         f"(out, lse absolute; dq dk dv of the largest fp64 gradient): "
         f"{json.dumps(rec)}")
     worst = max(max(rec[k].values()) for k in ("kernel", "general"))
-    if worst > FP32_TOL:
+    fwd = max(rec["kernel"]["out"], rec["kernel"]["lse"])
+    if worst > FP32_TOL or fwd > FP64_FWD_TOL:
         raise RuntimeError("[flash-general] the fp32 kernels are not fp32-"
-                           f"accurate against fp64: {rec}")
+                           f"accurate against fp64 (forward tol "
+                           f"{FP64_FWD_TOL}): {rec}")
     return rec
 
 
@@ -8733,24 +8774,30 @@ def sdpa_backend(fn) -> str:
 
 
 def general_times(fa, gen, dt, h, d, b=8, s=1024):
-    """At [b, s, h, d] causal in ``dt``: the general forward, the backward
-    pair on bwd_route's route and flash_general.cu's pair called directly,
-    by CUDA events, each kernel by device time; their plain versions; SDPA's
-    forward and backward (a yardstick the port never calls) with the
-    backend it took; bounds from the function's own bytes and operations
-    (fp32: at the FFMA rate, and as 3xTF32 on the tensor cores)."""
+    """At [b, s, h, d] causal in ``dt``: the forward on fwd_route's route
+    (twice, around flash_general.cu's forward called directly), the
+    backward pair on bwd_route's route (twice, around flash_general.cu's
+    pair called directly), by CUDA events, each kernel by device time;
+    their plain versions; SDPA's forward and backward (a yardstick the port
+    never calls) with the backend it took; bounds from the function's own
+    bytes and operations (fp32: at the FFMA rate, and as 3xTF32 on the
+    tensor cores)."""
     q, k, v = qkv_views(gen, b, s, s, h, d, dt)
     kw = dict(causal=True, layout="bsm", n_heads=h)
     out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
     g = torch.randn(out.shape, generator=gen, device="cuda").to(dt)
     args = (q, k, v, out, lse, g, None)
     route, d_pad = fa.bwd_route(dt, d)
+    fwd_route = fa.fwd_route(dt, d)[0]
     fwd = lambda: fa.flash_attention_with_lse(q, k, v, **kw)  # noqa: E731
+    gfwd = lambda: general_fwd(fa, q, k, v, **kw)  # noqa: E731
     bwd = lambda: fa.flash_attention_bwd(*args, **kw)  # noqa: E731
     gbwd = lambda: general_pair(fa, *args, **kw)  # noqa: E731
     rec = {"shape": [b, s, h, d], "dtype": str(dt)[6:], "d_pad": d_pad,
-           "bwd_route": route,
+           "fwd_route": fwd_route, "bwd_route": route,
            "fwd_ms": time_ms(fwd, samples=10),
+           "general_fwd_ms": time_ms(gfwd, samples=10),
+           "fwd_ms_again": time_ms(fwd, samples=10),
            "pair_ms": time_ms(bwd, samples=10),
            "general_pair_ms": time_ms(gbwd, samples=10),
            "plain_fwd_ms": time_ms(
@@ -8761,8 +8808,8 @@ def general_times(fa, gen, dt, h, d, b=8, s=1024):
                samples=5, per_sample=2)}
     # The pair on its route again after the general one: the two in turns.
     rec["pair_ms_again"] = time_ms(bwd, samples=10)
-    rec["device_ms"] = {**kernel_ms(fwd, 10), **kernel_ms(gbwd, 10),
-                        **kernel_ms(bwd, 10)}
+    rec["device_ms"] = {**kernel_ms(gfwd, 10), **kernel_ms(fwd, 10),
+                        **kernel_ms(gbwd, 10), **kernel_ms(bwd, 10)}
     qh, kh, vh = (x.unflatten(-1, (h, d)).transpose(1, 2).detach()
                   .requires_grad_(True) for x in (q, k, v))
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
@@ -8790,11 +8837,17 @@ def general_times(fa, gen, dt, h, d, b=8, s=1024):
     routed = (f"sm90 pair {rec['pair_ms']:.4f} / {rec['pair_ms_again']:.4f}"
               f" ms by events, {split('flash_bwd_sm90')}; "
               if route == "sm90" else "")
+    fwd_dev = dev.get("flash_fwd_sm90", dev["flash_general_fwd"])
+    tf32_fwd = (f", 3xTF32 {rec['bounds_tf32']['fwd']['bound_ms']:.4f} ms"
+                if dt == torch.float32 else "")
     log(f"[flash-general] {rec['dtype']} [{b}, {s}, {h}, {d}] causal (d_pad "
-        f"{d_pad}, backward on {route}): forward {rec['fwd_ms']:.4f} ms by "
-        f"events, {dev['flash_general_fwd']:.4f} ms device (bound "
+        f"{d_pad}, forward on {fwd_route}, backward on {route}): forward "
+        f"{rec['fwd_ms']:.4f} / {rec['fwd_ms_again']:.4f} ms by events, "
+        f"{fwd_dev:.4f} ms device; general forward "
+        f"{rec['general_fwd_ms']:.4f} ms by events, "
+        f"{dev['flash_general_fwd']:.4f} ms device (bound "
         f"{rec['bounds']['fwd']['bound_ms']:.4f} ms, "
-        f"{rec['bounds']['fwd']['bound_by']}); {routed}general pair "
+        f"{rec['bounds']['fwd']['bound_by']}{tf32_fwd}); {routed}general pair "
         f"{rec['general_pair_ms']:.4f} ms by events, "
         f"{split('flash_general')} (pair bound "
         f"{rec['bounds']['pair']['bound_ms']:.4f} ms{tf32}); plain "
@@ -8807,13 +8860,35 @@ def general_times(fa, gen, dt, h, d, b=8, s=1024):
         log(f"[flash-general] {rec['dtype']} d_pad {d_pad}: the sm90 pair "
             f"{'beats' if rec['sm90_faster'] else 'does not beat'} the "
             f"general pair in this run")
+    if fwd_route == "sm90":
+        # Faster in both orders: before and after the general forward.
+        rec["sm90_fwd_faster"] = max(rec["fwd_ms"], rec["fwd_ms_again"]) < (
+            rec["general_fwd_ms"])
+        log(f"[flash-general] {rec['dtype']} d_pad {d_pad}: the sm90 forward "
+            f"{'beats' if rec['sm90_fwd_faster'] else 'does not beat'} the "
+            f"general forward in this run")
     return rec
 
 
-def flash_general_phase(fa, gen):
-    """[flash-general]: the general kernels and the sm90 backward pair
-    against their plain versions on the grid and the edge cases, fp32
-    against fp64, and the timed shapes."""
+def sm90_fwd_compiler(fa, report):
+    """The sm90 forward's compiler report (a future of compiler_report),
+    printed: ptxas's advisories, and each kernel's HGMMA, HMMA and local
+    load and store (LDL, STL) counts and its registers and spills."""
+    comp = report.result()
+    log(f"[flash-general] compiler ({fa.SM90_FWD_SOURCE}.cu): advisories "
+        f"{comp['advisories'] or 'none'}")
+    for fn, ops in comp["sass"].items():
+        log(f"[flash-general]   {fn}: {json.dumps(ops)}")
+    for line in comp["ptxas"]:
+        log(f"[flash-general]   ptxas: {line}")
+    return comp
+
+
+def flash_general_phase(fa, gen, report):
+    """[flash-general]: the general kernels and the sm90 forward and
+    backward pair against their plain versions on the grid and the edge
+    cases, fp32 against fp64, and the timed shapes; ``report`` the sm90
+    forward's compiler report (a future)."""
     t0 = time.perf_counter()
     cases = []
     for dt, dims in GENERAL_DIMS.items():
@@ -8852,12 +8927,21 @@ def flash_general_phase(fa, gen):
                            for d in dims}
              for dt, dims in GENERAL_TIMED_DIMS.items()}
     wall = time.perf_counter() - t0
-    by_route = {}
+    by_route, by_fwd_route = {}, {}
     for c in cases:
         key = f"{c['dtype']}/{c['bwd_route']}"
         by_route[key] = by_route.get(key, 0) + 1
+        key = f"{c['dtype']}/{c['fwd_route']}"
+        by_fwd_route[key] = by_fwd_route.get(key, 0) + 1
     sm90 = [c for c in cases if c["bwd_route"] == "sm90"]
+    sm90_fwd = [c for c in cases if c["fwd_route"] == "sm90"]
+    # Each timed (dtype, d_pad) on the sm90 forward: did it beat the general
+    # forward in both orders?
+    fwd_won = {f"{r['dtype']}/{r['d_pad']}": r["sm90_fwd_faster"]
+               for by_d in timed.values() for r in by_d.values()
+               if "sm90_fwd_faster" in r}
     rec = {"cases": len(cases), "cases_by_bwd_route": by_route,
+           "cases_by_fwd_route": by_fwd_route,
            "max_err_out": max(c["err_out"] for c in cases),
            "max_err_lse": max(c["err_lse"] for c in cases),
            "max_err_grad": max(c["err_grad"] for c in cases),
@@ -8868,10 +8952,22 @@ def flash_general_phase(fa, gen):
            "sm90_max_rel_grad": {dt: max(c["rel_grad"] for c in sm90
                                          if c["dtype"] == dt)
                                  for dt in ("bfloat16", "float32")},
+           "sm90_fwd_max_err_out": {dt: max(c["err_out"] for c in sm90_fwd
+                                            if c["dtype"] == dt)
+                                    for dt in ("bfloat16", "float32")},
+           "sm90_fwd_max_err_lse": {dt: max(c["err_lse"] for c in sm90_fwd
+                                            if c["dtype"] == dt)
+                                    for dt in ("bfloat16", "float32")},
+           "sm90_fwd_faster": fwd_won,
            "fp64": fp64[96], "fp64_by_d": fp64, "timed": timed,
+           "compiler_sm90_fwd": sm90_fwd_compiler(fa, report),
            "checks_s": t_checks, "wall_s": wall}
     log(f"[flash-general] {len(cases)} cases passed in {t_checks:.1f} s "
-        f"(backward by route {by_route}); phase wall {wall:.1f} s")
+        f"(forward by route {by_fwd_route}, backward by route {by_route}); "
+        f"the sm90 forward beat the general one in both orders at "
+        f"{sorted(k for k, w in fwd_won.items() if w)}, not at "
+        f"{sorted(k for k, w in fwd_won.items() if not w)}; phase wall "
+        f"{wall:.1f} s")
     return rec
 
 
@@ -8880,8 +8976,8 @@ def train_fp32(hvt, kernels, sizes):
     step on the one-rank NCCL world, on [train]'s seeded batch: the first
     step's loss and gradients against use_flash=False, then one warm-up and
     3 timed steps (12 launches a step of the general forward and of each
-    backward kernel on bwd_route's route -- the sm90 pair -- none of the
-    wgmma ones, one AdamW a bucket)."""
+    backward kernel on fwd_route's and bwd_route's routes -- the sm90
+    kernels -- none of the general or wgmma ones, one AdamW a bucket)."""
     from horovod_tpu_torch.parallel import dp
 
     fa, fadam, tq = kernels
@@ -8920,8 +9016,8 @@ def train_fp32(hvt, kernels, sizes):
         f"{float(loss_k):.7f} vs {float(loss_p):.7f} (relative {loss_rel:.3e},"
         f" tol 1e-5); gradients relative L2 {grad_rel:.3e} (tol 1e-4)")
     if not (loss_rel <= 1e-5 and grad_rel <= 1e-4):
-        raise RuntimeError("[train-fp32] the general kernels' step disagrees "
-                           "with plain attention")
+        raise RuntimeError("[train-fp32] the kernels' step disagrees with "
+                           "plain attention")
     losses = []
     state, _ = timed_steps(step, state, lambda i: tokens, 1, losses)
     reset_counts(fa, fadam, tq)
@@ -8931,8 +9027,8 @@ def train_fp32(hvt, kernels, sizes):
     counts["fused_adamw"] = fadam.launches
     peak = peak_gib()
     head_dim = cfg.d_model // cfg.n_heads
-    want = dict({k: 0 for k in counts}, general_fwd=cfg.n_layers,
-                fused_adamw=len(sizes),
+    want = dict({k: 0 for k in counts}, fused_adamw=len(sizes),
+                **fwd_counts(fa, torch.float32, head_dim, cfg.n_layers),
                 **bwd_counts(fa, torch.float32, head_dim, cfg.n_layers))
     check_counts("train-fp32", counts, want, 3)
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
@@ -8944,7 +9040,8 @@ def train_fp32(hvt, kernels, sizes):
 
     prof = profile_window(one_step, {"steps": 1})
     flash_split = {c: ms for c, ms in prof["by_category_ms"].items()
-                   if c.startswith(("flash_general", "flash_bwd_sm90"))}
+                   if c.startswith(("flash_general", "flash_bwd_sm90",
+                                    "flash_fwd_sm90"))}
     flash_ms = sum(flash_split.values())
     step_ms = float(np.median(times))
     log(f"[train-fp32] losses {losses}; step median {step_ms:.1f} ms "
@@ -8991,8 +9088,8 @@ def zoo_tiny_model(hvt, name, dt, use_flash, **cfg_kw):
 def zoo_tiny_train(hvt, kernels, dt, label, cfg_kw):
     """The tiny GPT-2 (its head dim as ``cfg_kw`` sets it) trains
     ZOO_TINY_STEPS ZeRO-1 fused steps in ``dt`` with falling losses and
-    n_layers launches a step of the general forward and of each backward
-    kernel on bwd_route's route."""
+    n_layers launches a step of the forward kernel on fwd_route's route
+    and of each backward kernel on bwd_route's route."""
     import torch.nn.functional as F
 
     from horovod_tpu_torch.parallel import dp
@@ -9017,7 +9114,7 @@ def zoo_tiny_train(hvt, kernels, dt, label, cfg_kw):
     head_dim = model.cfg.d_model // model.cfg.n_heads
     tag = f"gpt2 {str(dt)[6:]}{label}"
     counts = check_general_counts(f"zoo-tiny {tag} train", fa, {
-        "general_fwd": n, **bwd_counts(fa, dt, head_dim, n)})
+        **fwd_counts(fa, dt, head_dim, n), **bwd_counts(fa, dt, head_dim, n)})
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise RuntimeError(f"[zoo-tiny] {tag}: the losses did not fall: "
                            f"{losses}")
@@ -9029,10 +9126,10 @@ def zoo_tiny_train(hvt, kernels, dt, label, cfg_kw):
 def zoo_tiny(hvt, kernels):
     """[zoo-tiny]: the tiny GPT-2, BERT (no padding mask) and ViT, head dim
     16, in bf16 and fp32 under use_flash=None: a forward and backward
-    against the use_flash=False twin, n_layers launches of the general
-    forward and of each backward kernel on bwd_route's route; the tiny
-    GPT-2 trains 3 steps, and 3 more at head dim 256 (in fp32 the backward
-    pair's general route)."""
+    against the use_flash=False twin, n_layers launches of the forward
+    kernel on fwd_route's route and of each backward kernel on bwd_route's;
+    the tiny GPT-2 trains 3 steps, and 3 more at head dim 256 (in fp32 the
+    general route, forward and backward)."""
     fa, fadam, tq = kernels
     t0 = time.perf_counter()
     hvt.init(backend="nccl")
@@ -9054,7 +9151,8 @@ def zoo_tiny(hvt, kernels):
                 # backward a layer; none on the plain side.
                 counts = check_general_counts(
                     f"zoo-tiny {tag} use_flash={use_flash}", fa,
-                    {"general_fwd": n, **bwd_counts(fa, dt, head_dim, n)}
+                    {**fwd_counts(fa, dt, head_dim, n),
+                     **bwd_counts(fa, dt, head_dim, n)}
                     if use_flash is None else {})
                 res[use_flash] = (y.detach(), {
                     k: p.grad for k, p in model.named_parameters()
@@ -9088,8 +9186,9 @@ def zoo_tiny(hvt, kernels):
 
 
 def flash_route_rows(general, fp32_trained, tiny):
-    """The "kernels" line's rows of the general flash kernels and the sm90
-    backward pair, from [flash-general], [train-fp32] and [zoo-tiny]."""
+    """The "kernels" line's rows of the general flash kernels, the sm90
+    forward and the sm90 backward pair, from [flash-general], [train-fp32]
+    and [zoo-tiny]."""
     src = "horovod_tpu_torch/csrc/"
     ref = "horovod_tpu/ops/pallas_kernels.py:"
     kernels = []
@@ -9098,19 +9197,19 @@ def flash_route_rows(general, fp32_trained, tiny):
     # [train-fp32] shape [8, 1024, 12, 64] causal (the backward rows: "ms"
     # the pair called directly, by events, "device_ms" each kernel; bounds
     # at the FFMA rate), "timed" the same at every timed shape [8, 1024,
-    # 768 / d, d] causal; "launches" the forward's 3 timed [train-fp32]
-    # steps' and the backward's [zoo-tiny] head-dim-256 tiny GPT-2's 3
-    # steps in fp32 (the backward pair's general route), and
-    # "launches_zoo_tiny" each [zoo-tiny] run's.
+    # 768 / d, d] causal; "launches" the [zoo-tiny] head-dim-256 tiny
+    # GPT-2's 3 steps in fp32 (the general route, forward and backward),
+    # "launches_train_fp32" the 3 timed [train-fp32] steps' (0: that path
+    # runs the sm90 kernels), and "launches_zoo_tiny" each [zoo-tiny] run's.
     timed = general["timed"]
     g32 = timed["float32"][64]
     tiny_runs = {k: r["launches"] for k, r in tiny.items()
                  if isinstance(r, dict)}
     d256 = [r for k, r in tiny_runs.items() if k.endswith("d256 train")]
 
-    def times(r, work, pair, dev, bounds="bounds"):
+    def times(r, work, pair, dev, bounds="bounds", fwd_key="fwd_ms"):
         fwd = work == "fwd"
-        return {"ms": r["fwd_ms"] if fwd else r[pair],
+        return {"ms": r[fwd_key] if fwd else r[pair],
                 "device_ms": r["device_ms"][dev],
                 "plain_ms": r["plain_fwd_ms"] if fwd else r["plain_pair_ms"],
                 "bound_ms": r[bounds][work]["bound_ms"],
@@ -9129,14 +9228,13 @@ def flash_route_rows(general, fp32_trained, tiny):
         count = name.replace("flash_", "")
         work = "fwd" if fwd else name.replace("flash_general_", "")
         row = functools.partial(times, work=work, pair="general_pair_ms",
-                                dev=name)
+                                dev=name, fwd_key="general_fwd_ms")
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": src + "flash_general.cu",
             "replaces": ref + line,
-            "launches": (fp32_trained["launches"][count] if fwd
-                         else sum(c[count] for c in d256)),
+            "launches": sum(c[count] for c in d256),
             "launches_train_fp32": fp32_trained["launches"][count],
             "launches_zoo_tiny": {k: c[count] for k, c in tiny_runs.items()},
             "max_abs_err": general["max_err_out"] if fwd
@@ -9150,6 +9248,46 @@ def flash_route_rows(general, fp32_trained, tiny):
             "timed": {dt: {d: row(r) for d, r in by_d.items()}
                       for dt, by_d in timed.items()},
         })
+    # The sm90 forward (csrc/flash_fwd_sm90_general.cu) on fwd_route's sm90
+    # sizes: "ms" by events, "device_ms", "plain_ms", "library_ms" (SDPA's
+    # forward) at [train-fp32]'s fp32 shape; "bound_ms" there the 3xTF32
+    # tensor-core bound, "bound_ffma_ms" the FFMA-rate one; "general_ms"
+    # and "general_device_ms" the general forward in the same run, timed
+    # between the two "ms" readings ("ms_again" the second); "timed" every
+    # sm90 shape of the grid, bf16 bounds at the bf16 rate; "launches" the
+    # 3 timed [train-fp32] steps'.
+    def sm90_fwd_row(r):
+        fp32 = r["dtype"] == "float32"
+        row = times(r, "fwd", "pair_ms", "flash_fwd_sm90",
+                    "bounds_tf32" if fp32 else "bounds")
+        del row["pair_bound_ms"]
+        row.update(ms_again=r["fwd_ms_again"], general_ms=r["general_fwd_ms"],
+                   general_device_ms=r["device_ms"]["flash_general_fwd"],
+                   faster_than_general=r["sm90_fwd_faster"],
+                   fwd_route=r["fwd_route"])
+        if fp32:
+            row["bound_ffma_ms"] = r["bounds"]["fwd"]["bound_ms"]
+        return row
+
+    kernels.append({
+        "name": "flash_fwd_sm90",
+        "route": "cuda",
+        "source": src + "flash_fwd_sm90_general.cu",
+        "replaces": ref + "125",
+        "launches": fp32_trained["launches"]["sm90_fwd"],
+        "launches_zoo_tiny": {k: c.get("sm90_fwd", 0)
+                              for k, c in tiny_runs.items()},
+        "max_abs_err": max(general["sm90_fwd_max_err_out"].values()),
+        "max_abs_err_by_dtype": general["sm90_fwd_max_err_out"],
+        "max_abs_err_lse": general["sm90_fwd_max_err_lse"],
+        "fp64_err": {d: {k: r["kernel"][k] for k in ("out", "lse")}
+                     for d, r in general["fp64_by_d"].items()},
+        "dtype": "float32",
+        **sm90_fwd_row(g32),
+        "timed": {dt: {d: sm90_fwd_row(r) for d, r in by_d.items()
+                       if r["fwd_route"] == "sm90"}
+                  for dt, by_d in timed.items()},
+    })
     # The sm90 backward pair (csrc/flash_bwd_sm90_general.cu) on bwd_route's
     # sm90 sizes: "ms" (the pair by events), "device_ms" (each kernel),
     # "plain_ms", "library_ms" (SDPA's backward) at [train-fp32]'s fp32
@@ -9220,9 +9358,11 @@ def main() -> int:
     built = _build.build_all()
     log(f"[card] built {built} in {time.perf_counter() - t0:.1f} s "
         f"(libraries in _build/ before: {before or 'none'})")
-    # Kernel 7's compiler report, in the background until [int8] reads it.
+    # Kernel 7's and the sm90 forward's compiler reports, in the background
+    # until [int8] and [flash-general] read them.
     reporter = ThreadPoolExecutor(max_workers=1)
     report = reporter.submit(compiler_report, tq.INT8_MATMUL_SOURCE)
+    fwd_report = reporter.submit(compiler_report, fa.SM90_FWD_SOURCE)
     reporter.shutdown(wait=False)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -9288,7 +9428,7 @@ def main() -> int:
         bwd_case(fa, gen, b=32, sq=197, skv=197, h=16, d=64, causal=False),
         bwd_case(fa, gen, b=32, sq=512, skv=512, h=12, d=64, causal=False),
     ]
-    general = flash_general_phase(fa, gen)
+    general = flash_general_phase(fa, gen, fwd_report)
     train_cfg = hvt.GPT2Config.small(param_dtype=torch.float32)
     sizes = trainer_bucket_sizes(hvt, train_cfg)
     adam = adamw_case(fadam, gen, sizes)
@@ -9698,72 +9838,70 @@ def wrapper_host_us(other_root: str) -> int:
     bias, and with one as Dense.forward adds it: in the epilogue where the
     wrapper takes a bias, else a separate ``+ b``) -- for the
     ``horovod_tpu_torch`` under DIR (another checkout, e.g. the parent
-    commit's) and for this checkout's, both imported into this process and
-    timed in windows of 200 calls, ten rounds of one window each, the order
-    of the two flipped every round so that the host's drift falls on both
-    alike. Prints each wrapper's windows, their median, and the rounds in
-    which this checkout's window was the faster."""
+    commit's) and for this checkout's. Each package runs in a process of
+    its own (both register the ``hvt`` op library, which a process takes
+    once), four processes in the order DIR, this, this, DIR, so that the
+    host's drift falls on both alike; each times ten windows of 200 calls
+    a wrapper. Prints each process's windows, each wrapper's median per
+    package over its two processes, and the ratio."""
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    import importlib
+    roots = {"other": Path(other_root).resolve(),
+             "this": Path(__file__).resolve().parent}
+    times = {}
+    for name in ("other", "this", "this", "other"):
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--wrapper-host-us-one", str(roots[name])],
+            capture_output=True, text=True, check=True)
+        for wrapper, t in json.loads(proc.stdout.splitlines()[-1]).items():
+            times.setdefault(wrapper, {}).setdefault(name, []).extend(t)
+            log(f"[host] {wrapper} {name} {roots[name]}: one process's "
+                f"windows {json.dumps([round(x, 2) for x in t])} us a call")
+    for wrapper, by_name in times.items():
+        med = {n: float(np.median(t)) for n, t in by_name.items()}
+        log(f"[host] {wrapper}: median this {med['this']:.2f}, other "
+            f"{med['other']:.2f} us a call; this / other "
+            f"{med['this'] / med['other']:.3f}")
+    log(f"[host] {card_line()}")
+    return 0
+
+
+def wrapper_host_us_one(root: str) -> int:
+    """``--wrapper-host-us-one DIR``: one process of :func:`wrapper_host_us`
+    for the ``horovod_tpu_torch`` under DIR: prints, as its last line, a
+    JSON object of each wrapper's ten windows (host us a call)."""
     import inspect
 
-    def load(root):
-        for name in [m for m in sys.modules
-                     if m.split(".")[0] == "horovod_tpu_torch"]:
-            del sys.modules[name]
-        sys.path.insert(0, str(Path(root).resolve()))
-        try:
-            return (importlib.import_module(
-                "horovod_tpu_torch.ops.flash_attention"),
-                importlib.import_module("horovod_tpu_torch.ops.quantization"))
-        finally:
-            sys.path.pop(0)
+    sys.path.insert(0, str(Path(root).resolve()))
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import quantization as tq
 
-    pkgs = {"other": load(other_root),
-            "this": load(Path(__file__).resolve().parent)}
+    if not Path(fa.__file__).resolve().is_relative_to(Path(root).resolve()):
+        raise RuntimeError(f"imported {fa.__file__}, not the package under "
+                           f"{root}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     q, k, v = qkv_views(gen, 8, 1024, 1024, 12, 64)
     w = torch.randn((768, 3072), generator=gen, device="cuda") * 0.02
     b = (torch.randn((3072,), generator=gen, device="cuda") * 0.02).to(
         torch.bfloat16)
-    xs = {m: torch.randn((8, m // 8, 768), generator=gen,
-                         device="cuda").to(torch.bfloat16) for m in (8192, 8)}
-    calls = {}
-    for name, (fa, tq) in pkgs.items():
-        calls[("flash_fwd", name)] = (
-            lambda fa=fa: fa.flash_attention_with_lse(
-                q, k, v, causal=True, layout="bsm", n_heads=12))
-        qw = tq.quantize_weight(w)
-        fused = "bias" in inspect.signature(tq.int8_weight_matmul).parameters
-        for m, x in xs.items():
-            calls[(f"int8_matmul M={m}", name)] = (
-                lambda tq=tq, x=x, qw=qw: tq.int8_weight_matmul(x, qw))
-            calls[(f"int8_matmul+bias M={m}", name)] = (
-                (lambda tq=tq, x=x, qw=qw: tq.int8_weight_matmul(x, qw, b))
-                if fused else
-                (lambda tq=tq, x=x, qw=qw: tq.int8_weight_matmul(x, qw) + b))
-    wrappers = list(dict.fromkeys(wrapper for wrapper, _ in calls))
-    times = {key: [] for key in calls}
-    for r in range(10):
-        names = ("other", "this") if r % 2 == 0 else ("this", "other")
-        for wrapper in wrappers:
-            for name in names:
-                times[(wrapper, name)].append(host_us(calls[(wrapper, name)]))
-    for (wrapper, name), t in times.items():
-        fa, _ = pkgs[name]
-        log(f"[host] {wrapper} {name} {Path(fa.__file__).parents[2]}: "
-            f"wrapper median {float(np.median(t)):.2f} us a call, min "
-            f"{min(t):.2f}, max {max(t):.2f} "
-            f"({json.dumps([round(x, 2) for x in t])})")
-    for wrapper in wrappers:
-        this, other = times[(wrapper, "this")], times[(wrapper, "other")]
-        wins = sum(a < b for a, b in zip(this, other))
-        log(f"[host] {wrapper}: this / other, medians "
-            f"{float(np.median(this) / np.median(other)):.3f}; this faster in "
-            f"{wins} of {len(this)} rounds")
-    log(f"[host] {card_line()}")
+    qw = tq.quantize_weight(w)
+    fused = "bias" in inspect.signature(tq.int8_weight_matmul).parameters
+    calls = {"flash_fwd": lambda: fa.flash_attention_with_lse(
+        q, k, v, causal=True, layout="bsm", n_heads=12)}
+    for m in (8192, 8):
+        x = torch.randn((8, m // 8, 768), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        calls[f"int8_matmul M={m}"] = (
+            lambda x=x: tq.int8_weight_matmul(x, qw))
+        calls[f"int8_matmul+bias M={m}"] = (
+            (lambda x=x: tq.int8_weight_matmul(x, qw, b)) if fused
+            else (lambda x=x: tq.int8_weight_matmul(x, qw) + b))
+    with torch.no_grad():
+        times = {name: [host_us(call) for _ in range(10)]
+                 for name, call in calls.items()}
+    print(json.dumps(times), flush=True)
     return 0
 
 
@@ -9773,6 +9911,8 @@ if __name__ == "__main__":
     faulthandler.enable(all_threads=True)
     if len(sys.argv) == 3 and sys.argv[1] == "--wrapper-host-us":
         sys.exit(wrapper_host_us(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--wrapper-host-us-one":
+        sys.exit(wrapper_host_us_one(sys.argv[2]))
     rc = main()
     if rc == 0:
         # Every phase passed and printed; every thread and process the

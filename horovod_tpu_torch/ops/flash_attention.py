@@ -17,12 +17,13 @@ nvcc at first use (:mod:`._build`), on two routes that
   a head dim between them runs at the next one up, its extra columns
   loaded as zeros and never stored. It reads any strided view.
 
-The backward pair has a third route, which :func:`bwd_route` picks from
-the same two: ``"sm90"`` -- ``csrc/flash_bwd_sm90_general.cu``, bf16 on
-wgmma fed by TMA and fp32 on the tensor cores as 3xTF32, for the sizes of
-``SM90_BWD_SIZES`` where a row is whole 16-byte units (bf16 head dims a
-multiple of 8, fp32 a multiple of 4), the view's rows 16-byte aligned.
-The forward keeps :func:`kernel_route`.
+Both passes have a third route, ``"sm90"``, which :func:`fwd_route` and
+:func:`bwd_route` pick from the same two: ``csrc/flash_fwd_sm90_general.cu``
+(the forward) and ``csrc/flash_bwd_sm90_general.cu`` (the backward pair),
+bf16 on wgmma fed by TMA and fp32 on the tensor cores as 3xTF32, for the
+sizes of ``SM90_FWD_SIZES`` and ``SM90_BWD_SIZES`` where a row is whole
+16-byte units (bf16 head dims a multiple of 8, fp32 a multiple of 4); q, k
+and v must then have 16-byte aligned rows, or the call raises.
 
 Anything else (fp16, a head dim above 256) raises. The sources' notes say
 what bounds each kernel on an H100 and what its design leaves on the
@@ -63,6 +64,7 @@ without a copy). The kernels take bf16 and fp32 at head dims 1 to 256.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
 from typing import Optional, Tuple
@@ -80,6 +82,7 @@ __all__ = [
     "flash_attention_with_lse",
     "flash_attention_reference",
     "bwd_route",
+    "fwd_route",
     "kernel_route",
     "launches",
     "launches_dkdv",
@@ -89,6 +92,7 @@ __all__ = [
     "launches_general_dq",
     "launches_sm90_dkdv",
     "launches_sm90_dq",
+    "launches_sm90_fwd",
     "reset_launches",
 ]
 
@@ -96,6 +100,7 @@ KERNEL_SOURCE = "flash_fwd"
 BWD_SOURCE = "flash_bwd"
 GENERAL_SOURCE = "flash_general"
 SM90_SOURCE = "flash_bwd_sm90_general"
+SM90_FWD_SOURCE = "flash_fwd_sm90_general"
 WGMMA_HEAD_DIMS = (64, 128)  # bf16 only
 GENERAL_HEAD_DIMS = (16, 32, 64, 128, 256)  # the general kernels' sizes
 MAX_HEAD_DIM = GENERAL_HEAD_DIMS[-1]
@@ -104,13 +109,18 @@ MAX_HEAD_DIM = GENERAL_HEAD_DIMS[-1]
 # chip run (PERF.md). fp32 256 stays general (the source's note says why).
 SM90_BWD_SIZES = {torch.bfloat16: (16, 32, 64, 128, 256),
                   torch.float32: (16, 32, 64, 128)}
+# The d_pad sizes whose forward runs on the sm90 kernel, by dtype: each
+# where it measured faster than the general forward in the same chip run,
+# in both orders (PERF.md). fp32 256 stays general (the source's note).
+SM90_FWD_SIZES = {torch.bfloat16: (16, 32, 64, 128, 256),
+                  torch.float32: (16, 32, 64, 128)}
 
 # Kernel launches since import (or the last reset_launches()), one count per
 # kernel: each wrapper adds one where it launches its kernel and nowhere
 # else, so a run can show that its main path went through the kernels.
 # launches, launches_dkdv and launches_dq count every route;
 # launches_general* count the general route alone, launches_sm90_* the
-# sm90 backward pair alone.
+# sm90 kernels alone.
 launches = 0  # forward
 launches_dkdv = 0  # backward: dK/dV
 launches_dq = 0  # backward: dQ
@@ -119,28 +129,31 @@ launches_general_dkdv = 0
 launches_general_dq = 0
 launches_sm90_dkdv = 0
 launches_sm90_dq = 0
+launches_sm90_fwd = 0
 _count_lock = threading.Lock()
 _fn = None
 _bwd_fns = None
 _general_fns = None
 _sm90_fns = None
+_sm90_fwd_fn = None
 
 
 def reset_launches() -> None:
     global launches, launches_dkdv, launches_dq
     global launches_general, launches_general_dkdv, launches_general_dq
-    global launches_sm90_dkdv, launches_sm90_dq
+    global launches_sm90_dkdv, launches_sm90_dq, launches_sm90_fwd
     with _count_lock:
         launches = launches_dkdv = launches_dq = 0
         launches_general = launches_general_dkdv = launches_general_dq = 0
-        launches_sm90_dkdv = launches_sm90_dq = 0
+        launches_sm90_dkdv = launches_sm90_dq = launches_sm90_fwd = 0
 
 
-def _count_launch(general: bool = False) -> None:
-    global launches, launches_general
+def _count_launch(route: str = "wgmma") -> None:
+    global launches, launches_general, launches_sm90_fwd
     with _count_lock:
         launches += 1
-        launches_general += general
+        launches_general += route == "general"
+        launches_sm90_fwd += route == "sm90"
 
 
 def _count_bwd_launch(kind: str, route: str) -> None:
@@ -180,21 +193,40 @@ def kernel_route(dtype: torch.dtype, d: int) -> Tuple[str, int]:
     return "general", next(p for p in GENERAL_HEAD_DIMS if p >= d)
 
 
-def bwd_route(dtype: torch.dtype, d: int) -> Tuple[str, int]:
-    """The backward pair's CUDA kernels for head dim ``d`` in ``dtype``,
-    decided by these two and nothing else: :func:`kernel_route`'s
-    ``("wgmma", d)`` for bf16 at 64 and 128; ``("sm90", d_pad)``
-    (``csrc/flash_bwd_sm90_general.cu``) where ``d_pad`` is one of
-    ``SM90_BWD_SIZES[dtype]`` and a row of ``d`` is whole 16-byte units
-    (bf16 ``d`` a multiple of 8, fp32 a multiple of 4), which TMA and
-    ``cp.async`` need; else :func:`kernel_route`'s ``("general", d_pad)``.
-    Raises as :func:`kernel_route` does."""
+def _sm90_route(dtype, d, sizes) -> Tuple[str, int]:
+    """:func:`kernel_route`'s choice, or ``("sm90", d_pad)`` where it is
+    the general route, ``d_pad`` is one of ``sizes[dtype]`` and a row of
+    ``d`` is whole 16-byte units, which TMA and ``cp.async`` need."""
     route, d_pad = kernel_route(dtype, d)
     unit = 16 // (2 if dtype == torch.bfloat16 else 4)
-    if (route == "general" and d % unit == 0
-            and d_pad in SM90_BWD_SIZES[dtype]):
+    if route == "general" and d % unit == 0 and d_pad in sizes[dtype]:
         return "sm90", d_pad
     return route, d_pad
+
+
+# Both lookups are pure functions of (dtype, d), cached: the wrappers call
+# them once a launch.
+@functools.lru_cache(maxsize=None)
+def fwd_route(dtype: torch.dtype, d: int) -> Tuple[str, int]:
+    """The forward's CUDA kernel for head dim ``d`` in ``dtype``, decided
+    by these two and nothing else: :func:`kernel_route`'s ``("wgmma", d)``
+    for bf16 at 64 and 128; ``("sm90", d_pad)``
+    (``csrc/flash_fwd_sm90_general.cu``) where ``d_pad`` is one of
+    ``SM90_FWD_SIZES[dtype]`` and a row of ``d`` is whole 16-byte units
+    (bf16 ``d`` a multiple of 8, fp32 a multiple of 4); else
+    :func:`kernel_route`'s ``("general", d_pad)``. Raises as
+    :func:`kernel_route` does."""
+    return _sm90_route(dtype, d, SM90_FWD_SIZES)
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_route(dtype: torch.dtype, d: int) -> Tuple[str, int]:
+    """The backward pair's CUDA kernels for head dim ``d`` in ``dtype``,
+    as :func:`fwd_route` decides the forward's: ``("sm90", d_pad)``
+    (``csrc/flash_bwd_sm90_general.cu``) for the sizes of
+    ``SM90_BWD_SIZES``, else :func:`kernel_route`'s choice. Raises as
+    :func:`kernel_route` does."""
+    return _sm90_route(dtype, d, SM90_BWD_SIZES)
 
 
 def _view4(x, layout: str, n_heads: int):
@@ -370,6 +402,15 @@ def _check_kernel_operands(named, d):
     return strides
 
 
+# The C signature of both padded-route forward entries (hvt_flash_general_fwd,
+# hvt_flash_fwd_sm90): f32, d_pad, q, k, v, out, lse, batch, heads, sq, skv,
+# d, strides, kv_len, q_offset, kv_offset, sm_scale, causal, device, stream.
+_FWD_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+                 + [ctypes.c_int] * 5 + [ctypes.c_void_p] + [ctypes.c_int] * 3
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p])
+
+
 def _general_kernel_fns():
     """The general route's three C entries (forward, dQ, dK/dV)."""
     global _general_fns
@@ -378,7 +419,7 @@ def _general_kernel_fns():
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         tail = [i32] * 5 + [ptr] + [i32] * 3 + [f32, i32, i32, ptr]
         fwd = lib.hvt_flash_general_fwd
-        fwd.argtypes = [i32, i32] + [ptr] * 5 + tail
+        fwd.argtypes = _FWD_ARGTYPES
         dq = lib.hvt_flash_general_dq
         dq.argtypes = [i32, i32] + [ptr] * 6 + [i32] + [ptr] * 4 + tail
         dkdv = lib.hvt_flash_general_dkdv
@@ -396,28 +437,61 @@ def _strides(*xs):
         *[s for x in xs for s in x.stride()[:3]])
 
 
-def _general_launch(q4, k4, v4, d_pad, *, causal, q_offset, kv_offset,
-                    sm_scale, layout, kv_len):
+def _sm90_fwd_kernel_fn():
+    """The sm90 forward's C entry, with the general forward's signature."""
+    global _sm90_fwd_fn
+    if _sm90_fwd_fn is None:
+        fn = _build.load(SM90_FWD_SOURCE).hvt_flash_fwd_sm90
+        fn.argtypes = _FWD_ARGTYPES
+        fn.restype = ctypes.c_int
+        _sm90_fwd_fn = fn
+    return _sm90_fwd_fn
+
+
+def _fwd_launch(route, q4, k4, v4, d_pad, *, causal, q_offset, kv_offset,
+                sm_scale, layout, kv_len):
+    """The forward kernel of ``route`` (``"general"`` or ``"sm90"``) at
+    ``d_pad`` on ``[B, S, H, D]`` views. :func:`_launch` takes
+    :func:`fwd_route`'s choice; ``chip_smoke.py`` also times the general
+    kernel here beside the sm90 one. The general kernel reads any strided
+    view; the sm90 one q, k and v with 16-byte aligned rows (an expanded,
+    stride-0 operand is copied first), or it raises."""
     b, sq, h, d = q4.shape
+    general = route == "general"
     _check_grid((("q", q4), ("k", k4), ("v", v4)))
+    if not general:
+        q4, k4, v4 = (x.contiguous() if 0 in x.stride()[:3] else x
+                      for x in (q4, k4, v4))
+        for name, x in zip(("q", "k", "v"), (q4, k4, v4)):
+            if not _rows_aligned(x):
+                raise ValueError(
+                    f"{name} rows must be 16-byte aligned for the sm90 "
+                    f"forward kernel: strides {tuple(x.stride())}, address "
+                    f"{x.data_ptr():#x}")
     out, o4 = _empty_out(b, sq, h, d, layout, q4)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q4.device)
     if b == 0 or h == 0 or sq == 0:
         return out, lse
-    fwd, _, _ = _general_kernel_fns()
+    views = (q4, k4, v4, o4)
+    if general:
+        fn, strides = _general_kernel_fns()[0], _strides(*views)
+    else:
+        fn = _sm90_fwd_kernel_fn()
+        strides = (ctypes.c_longlong * 12)(
+            *[s for x in views for s in _map_strides(x)])
     dev = q4.get_device()
-    rc = fwd(
+    rc = fn(
         int(q4.dtype == torch.float32), d_pad, q4.data_ptr(), k4.data_ptr(),
         v4.data_ptr(), o4.data_ptr(), lse.data_ptr(), b, h, sq, k4.shape[1],
-        d, _strides(q4, k4, v4, o4), kv_len, q_offset, kv_offset,
-        float(sm_scale), int(bool(causal)), dev,
-        torch._C._cuda_getCurrentRawStream(dev),
+        d, strides, kv_len, q_offset, kv_offset, float(sm_scale),
+        int(bool(causal)), dev, torch._C._cuda_getCurrentRawStream(dev),
     )
     if rc != 0:
+        source = GENERAL_SOURCE if general else SM90_FWD_SOURCE
         raise RuntimeError(
-            f"flash_general forward launch failed with cudaError_t {rc}"
+            f"{source} forward launch failed with cudaError_t {rc}"
         )
-    _count_launch(general=True)
+    _count_launch(route)
     return out, lse
 
 
@@ -425,10 +499,10 @@ def _launch(q4, k4, v4, *, causal, q_offset, kv_offset, sm_scale, layout,
             kv_len):
     b, sq, h, d = q4.shape
     skv = k4.shape[1]
-    route, d_pad = kernel_route(q4.dtype, d)
-    if route == "general":
-        return _general_launch(
-            q4, k4, v4, d_pad, causal=causal, q_offset=q_offset,
+    route, d_pad = fwd_route(q4.dtype, d)
+    if route != "wgmma":
+        return _fwd_launch(
+            route, q4, k4, v4, d_pad, causal=causal, q_offset=q_offset,
             kv_offset=kv_offset, sm_scale=sm_scale, layout=layout,
             kv_len=kv_len)
     st = _check_kernel_operands((("q", q4), ("k", k4), ("v", v4)), d)

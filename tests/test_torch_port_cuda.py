@@ -224,10 +224,11 @@ def test_gpt2_on_the_card_matches_plain_attention(gen):
 ])
 def test_default_attention_on_the_card_is_the_kernel_or_raises(gen, kw, tol):
     # use_flash=None takes a kernel for every CUDA tensor: the fp32 model and
-    # the tiny head-dim-16 one run the general kernels, held to their plain
-    # twins (bf16 to the tolerance of the head-dim-64 model above, fp32 to
-    # 1e-4 of the largest logit); fp16, which no kernel takes, raises. Plain
-    # attention runs only when asked for.
+    # the tiny head-dim-16 one run the forward on fwd_route's route (the
+    # sm90 kernel), held to their plain twins (bf16 to the tolerance of the
+    # head-dim-64 model above, fp32 to 1e-4 of the largest logit); fp16,
+    # which no kernel takes, raises. Plain attention runs only when asked
+    # for.
     import horovod_tpu_torch as hvt
 
     cfg = hvt.GPT2Config.tiny(**kw)
@@ -248,7 +249,11 @@ def test_default_attention_on_the_card_is_the_kernel_or_raises(gen, kw, tol):
         assert fa.launches == 0 and torch.isfinite(out).all()
         if tol is not None:
             got = m(tokens)
-            assert fa.launches == fa.launches_general == cfg.n_layers
+            route = fa.fwd_route(cfg.dtype, cfg.d_model // cfg.n_heads)[0]
+            assert fa.launches == cfg.n_layers
+            assert (fa.launches_general, fa.launches_sm90_fwd) == (
+                (cfg.n_layers, 0) if route == "general"
+                else (0, cfg.n_layers))
             err = (got - out).abs().max().item()
             assert err <= tol * out.abs().max().item()
 
@@ -286,11 +291,14 @@ def test_general_kernels_match_plain(gen, dtype, d, kw):
     again = fa.flash_attention_bwd(q, k, v, out, lse, g, gl, **kw)
     ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, g, gl, **kw)
     torch.cuda.synchronize()
-    # The forward on the general kernel; the backward pair on the route
-    # bwd_route picks (the sm90 kernels where they take the head dim).
+    # The forward on the route fwd_route picks, the backward pair on the
+    # route bwd_route picks (the sm90 kernels where they take the head dim).
+    sm90_fwd = fa.fwd_route(dtype, d)[0] == "sm90"
     sm90 = fa.bwd_route(dtype, d)[0] == "sm90"
-    assert (fa.launches_general, fa.launches_general_dq,
-            fa.launches_general_dkdv) == ((1, 0, 0) if sm90 else (1, 2, 2))
+    assert (fa.launches_general, fa.launches_sm90_fwd) == (
+        (0, 1) if sm90_fwd else (1, 0))
+    assert (fa.launches_general_dq, fa.launches_general_dkdv) == (
+        (0, 0) if sm90 else (2, 2))
     assert (fa.launches_sm90_dq, fa.launches_sm90_dkdv) == (
         (2, 2) if sm90 else (0, 0))
     assert (fa.launches, fa.launches_dq, fa.launches_dkdv) == (1, 2, 2)
@@ -678,6 +686,146 @@ def test_sm90_backward_raises_on_a_view_tma_cannot_describe(gen):
     with pytest.raises(ValueError, match="aligned"):
         fa.flash_attention_bwd(x, x, x, out, lse, torch.ones_like(x))
     assert (fa.launches_dq, fa.launches_dkdv) == (0, 0)
+
+
+# The sm90 forward (csrc/flash_fwd_sm90_general.cu: bf16 on wgmma fed by
+# TMA, fp32 on the tensor cores as 3xTF32) against its plain version at
+# the general kernels' tolerances above, at test_general_kernels_match_
+# plain's head dims and keyword cases and a few more sizes, wherever
+# fwd_route picks it (every (dtype, d_pad) of SM90_FWD_SIZES, head dims on
+# and off the compiled size), on fused-QKV views, with Sq = 1, Skv = 1 and
+# a ring hop's wholly masked block besides.
+_SM90_FWD_DIMS = [
+    (dtype, d)
+    for dtype, dims in ((torch.bfloat16, (8, 16, 24, 40, 48, 96, 120, 160,
+                                          256)),
+                        (torch.float32, (4, 12, 16, 32, 48, 64, 80, 96, 128,
+                                         160, 256)))
+    for d in dims if fa.fwd_route(dtype, d)[0] == "sm90"]
+_SM90_FWD_CASES = {
+    "plain": dict(b=2, sq=150, skv=300, kw=dict()),
+    "kv_len": dict(b=2, sq=150, skv=300, kw=dict(kv_len=250)),
+    "ring_hop": dict(b=1, sq=150, skv=300, kw=dict(causal=True,
+                                                   kv_offset=100)),
+    "future_hop": dict(b=1, sq=70, skv=70, kw=dict(causal=True,
+                                                   kv_offset=100)),
+    "neg_scale": dict(b=1, sq=150, skv=300, kw=dict(
+        causal=True, kv_len=290, sm_scale=-0.1)),
+    "causal_long": dict(b=1, sq=1030, skv=1030, kw=dict(causal=True)),
+    "sq1": dict(b=2, sq=1, skv=70, kw=dict(causal=True, q_offset=69)),
+    "skv1": dict(b=1, sq=70, skv=1, kw=dict()),
+}
+
+
+def _sm90_fwd_check(q, k, v, kw, dtype):
+    fa.reset_launches()
+    out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.launches_sm90_fwd, fa.launches_general) == (
+        1, 1, 0)
+    tol_o, tol_l, _ = _GENERAL_TOL[dtype]
+    assert out.dtype == dtype and out.shape == ref_out.shape
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(ref_lse))
+    fin = torch.isfinite(ref_lse)
+    assert (out.float() - ref_out.float()).abs().max().item() <= tol_o
+    if fin.any():
+        assert (lse[fin] - ref_lse[fin]).abs().max().item() <= tol_l
+    return out, lse
+
+
+@pytest.mark.parametrize("case", sorted(_SM90_FWD_CASES))
+@pytest.mark.parametrize("dtype,d", _SM90_FWD_DIMS)
+def test_sm90_forward_matches_plain(gen, dtype, d, case):
+    c = _SM90_FWD_CASES[case]
+    q, k, v = _sm90_operands(gen, dtype, c["b"], c["sq"], c["skv"], 3, d)
+    out, lse = _sm90_fwd_check(q, k, v, dict(c["kw"], layout="bsm",
+                                             n_heads=3), dtype)
+    if case == "future_hop":
+        assert not out.any() and torch.isneginf(lse).all()
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 16),
+                                     (torch.bfloat16, 96),
+                                     (torch.bfloat16, 256),
+                                     (torch.float32, 64),
+                                     (torch.float32, 16)])
+def test_sm90_forward_is_bitwise_repeatable(gen, dtype, d):
+    # The persistent grid deals items to blocks in a fixed order and each
+    # row is one block's sums in a fixed order: two calls agree bit for bit,
+    # at the shapes of [train-fp32] and [zoo-tiny] (cut in batch).
+    assert fa.fwd_route(dtype, d)[0] == "sm90"
+    h = 768 // d if d < 64 else 12
+    q, k, v = torch.randn((2, 1024, 3 * h * d), generator=gen,
+                          device="cuda").to(dtype).split(h * d, dim=-1)
+    kw = dict(causal=True, layout="bsm", n_heads=h)
+    first = _sm90_fwd_check(q, k, v, kw, dtype)
+    second = fa.flash_attention_with_lse(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 48),
+                                     (torch.float32, 64)])
+def test_sm90_forward_launches_from_a_fresh_thread(gen, dtype, d):
+    # A thread that has made no CUDA call has no context bound: the entry
+    # binds the tensors' device before it encodes its tensor maps.
+    q, k, v = _sm90_operands(gen, dtype, 2, 150, 300, 3, d)
+    kw = dict(kv_len=250, layout="bsm", n_heads=3)
+    want = fa.flash_attention_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    got, errors = [], []
+
+    def run():
+        try:
+            with torch.no_grad():
+                got.append(fa.flash_attention_with_lse(q, k, v, **kw))
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert not errors, errors
+    tol_o, tol_l, _ = _GENERAL_TOL[dtype]
+    assert (got[0][0].float() - want[0].float()).abs().max().item() <= tol_o
+    assert (got[0][1] - want[1]).abs().max().item() <= tol_l
+
+
+def test_sm90_forward_counts_launches_by_route(gen):
+    # launches counts every route; launches_sm90_fwd and launches_general
+    # their own; reset_launches zeroes them all.
+    fa.reset_launches()
+    with torch.no_grad():
+        for dtype, d in ((torch.bfloat16, 64), (torch.bfloat16, 48),
+                         (torch.float32, 64), (torch.bfloat16, 12),
+                         (torch.float32, 160)):
+            q, k, v = _sm90_operands(gen, dtype, 2, 150, 300, 2, d)
+            fa.flash_attention_with_lse(q, k, v, layout="bsm", n_heads=2)
+    torch.cuda.synchronize()
+    assert fa.launches == 5
+    assert (fa.launches_sm90_fwd, fa.launches_general) == (2, 2)
+    fa.reset_launches()
+    assert (fa.launches, fa.launches_sm90_fwd, fa.launches_general) == (
+        0, 0, 0)
+
+
+def test_sm90_forward_raises_on_a_view_tma_cannot_describe(gen):
+    # bf16 head dim 48 takes the sm90 forward; a q view whose rows are not
+    # 16-byte aligned raises, with no launch and no fallback to the general
+    # kernel.
+    fused = torch.randn((1, 64, 2 * 48 + 4), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+    x = fused[..., 2:98].unflatten(-1, (2, 48))
+    y = torch.randn((1, 64, 2, 48), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    assert not fa._rows_aligned(x) and fa._rows_aligned(y)
+    fa.reset_launches()
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_with_lse(x, y, y)
+    assert (fa.launches, fa.launches_sm90_fwd, fa.launches_general) == (
+        0, 0, 0)
 
 
 @pytest.mark.parametrize("p_dtype,m_dtype", [
