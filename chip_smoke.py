@@ -658,7 +658,28 @@ Phases (any failure exits non-zero; nothing is caught):
    fused steps with falling losses, and 3 more at head dim 256 (2 heads of
    256: the sm90 kernels in bf16, the general ones in fp32).
    Each of 43.-45. prints its wall time; the script prints its own.
-46. Output: a "kernels" JSON line (the nine TPU kernels' counterparts, the
+46. [hvd-elastic] (after 40.) the eager runtime across an elastic round:
+   run_elastic on the discovery localhost:1 (HVDTPU_BLACKLIST_COOLDOWN=1,
+   every other setting the launcher's own) runs one worker that trains
+   [hvd-torch]'s GPT-2 small (fp32 weights, seed 0, the seed-3 batch of 8
+   x 1025 tokens) through hvd.DistributedOptimizer(torch.optim.AdamW(
+   1e-4)) with broadcast_parameters and broadcast_optimizer_state, under
+   hvd.elastic.run over TorchState, a commit a step, for 8 commits. The
+   worker raises HorovodInternalError once, after step 4's backward and
+   before its optimizer step: elastic.run restores commit 3 and resets,
+   which shuts the runtime down and starts it again on the card (the next
+   generation, new gloo and NCCL groups, size 1), and training goes on to
+   8. Gates: the steps ran 1-3 on the first generation and 4-8 on the
+   next; 148 cache misses in step 1 and again in the first step after the
+   restart, none and 148 hits in every other step; 108 launches of each of
+   kernels 1-3 (12 a forward/backward pass, the failed step's included),
+   none of the general or sm90 kernels, no fused AdamW; the final
+   parameters and AdamW state bit for bit an unwrapped AdamW of 8 steps in
+   this process, else [train]'s bound with the reason printed. Printed:
+   the time from the fault to the first step after it, split into the
+   restore, the runtime's shutdown, the round's rejoin and the runtime's
+   start; the step ms before and after the restart.
+47. Output: a "kernels" JSON line (the nine TPU kernels' counterparts, the
    general route of the first three ("flash_general_*": the launches in
    [zoo-tiny]'s fp32 head-dim-256 run, each [zoo-tiny] run's as
    "launches_zoo_tiny", the fp32 times with every timed shape's under
@@ -673,9 +694,9 @@ Phases (any failure exits non-zero; nothing is caught):
    "kv_write" / "kv_gather"), for kernel 8 and the cast kernel the fp8
    [train-fp8] run's, for kernel 7 the [serve-int8] rounds' -- the forward
    kernel's serving count beside it as "launches_serve", and the flash
-   kernels', AdamW's and (from 22.) the quantize pair's counts in 18.-42.,
-   each read over its own run, as "launches_phases" (29.-31. and 33.
-   counted in the worker processes); the flash rows' ring
+   kernels', AdamW's and (from 22.) the quantize pair's counts in 18.-42.
+   and 46., each read over its own run, as "launches_phases" (29.-31., 33.
+   and 46. counted in the worker processes); the flash rows' ring
    times at n = 2, 4 and the whole sequence as "ring_flash_*"; the quantize pair's
    times at an act-quant boundary as "boundary"; kernels 1, 2, 3 and 6's
    straight and hvt-op times as "wrap"), the card's name and power limit,
@@ -8377,6 +8398,256 @@ class TimedStore:
         self.write_s.append(time.perf_counter() - t0)
 
 
+# [hvd-elastic]: [hvd-torch]'s model, batch and frontend under hvd.elastic.run
+# over TorchState, a commit a step for COMMITS commits; HorovodInternalError
+# raised once after step FAULT_AT's backward, before its optimizer step.
+HVD_ELASTIC_WORKER = '''
+import torch.nn.functional as F
+
+import horovod_tpu_torch.torch as hvd
+from horovod_tpu_torch import native
+from horovod_tpu_torch.elastic import worker as ew
+from horovod_tpu_torch.exceptions import HorovodInternalError
+
+hvd.init()
+for src in (fa.KERNEL_SOURCE, fa.BWD_SOURCE):
+    _build.load(src)
+cfg = hvt.GPT2Config.small(param_dtype=torch.float32)
+model = hvt.GPT2LMModel(cfg, device=DEVICE)
+model.load_state_dict(hvt.convert.init_params(cfg, seed=0))
+opt = hvd.DistributedOptimizer(torch.optim.AdamW(model.parameters(), lr=LR),
+                               named_parameters=model.named_parameters())
+hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+hvd.broadcast_optimizer_state(opt, root_rank=0)
+tokens = batch_tokens(cfg, BATCH)
+
+
+class State(hvd.elastic.TorchState):
+    def restore(self):
+        t0 = time.time()
+        super().restore()
+        torch.cuda.synchronize()
+        record({"event": "restored", "restore_s": time.time() - t0})
+
+
+def other_launches():
+    return {"general": fa.launches_general + fa.launches_general_dq
+            + fa.launches_general_dkdv,
+            "sm90": fa.launches_sm90_fwd + fa.launches_sm90_dq
+            + fa.launches_sm90_dkdv}
+
+
+state = State(model, opt, step=0)
+first = native.get_runtime()
+first_groups = (first.gloo, first.nccl)  # held: compared by identity
+fault = [FAULT_AT]
+reset()
+
+
+@hvd.elastic.run
+def train(st):
+    record({"event": "synced", "step": st.step,
+            "counters": native.metrics_counters()})
+    while st.step < COMMITS:
+        t0 = time.time()
+        opt.zero_grad()
+        logits = model(tokens[:, :-1])
+        loss = F.cross_entropy(logits.flatten(0, 1), tokens[:, 1:].flatten())
+        loss.backward()
+        if st.step + 1 == fault[0]:
+            fault[0] = None
+            torch.cuda.synchronize()
+            record({"event": "fault", "step": st.step + 1,
+                    "generation": native.generation(),
+                    "counters": native.metrics_counters()})
+            raise HorovodInternalError(
+                f"injected after step {st.step + 1}'s backward")
+        opt.step()
+        torch.cuda.synchronize()
+        st.step += 1
+        rt = native.get_runtime()
+        record({"step": st.step, "loss": float(loss), "t0": t0,
+                "t1": time.time(), "generation": native.generation(),
+                "size": hvd.size(), "counters": native.metrics_counters(),
+                "new_groups": rt.gloo is not first_groups[0]
+                and rt.nccl is not first_groups[1]
+                and rt.nccl is not None})
+        st.commit()
+
+
+train(state)
+torch.save({"params": {k: v.detach().cpu()
+                       for k, v in model.state_dict().items()},
+            "opt_sha256": digests(opt.state_dict()), "step": state.step},
+           FINAL)
+record({"event": "done", "rejoin": ew.last_rejoin, "launches": counts(),
+        "other_launches": other_launches()})
+hvd.shutdown()
+'''
+HVD_ELASTIC_COMMITS, HVD_ELASTIC_FAULT_AT = 8, 4
+
+
+def tensor_digests(tree):
+    """sha256 of every tensor's bytes in the tree's walk order (the
+    workers' digests())."""
+    from horovod_tpu_torch.checkpoint import map_tensors
+
+    out = []
+    map_tensors(lambda t: out.append(hashlib.sha256(
+        t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy()
+    ).hexdigest()) or t, tree)
+    return out
+
+
+def hvd_elastic_phase(hvt):
+    """[hvd-elastic]: run_elastic on the discovery localhost:1 (cooldown 1
+    s, every other setting the launcher's own) runs one worker that trains
+    [hvd-torch]'s GPT-2 small through hvd.DistributedOptimizer(AdamW)
+    under hvd.elastic.run over TorchState, a commit a step, and raises
+    HorovodInternalError once after step HVD_ELASTIC_FAULT_AT's backward:
+    elastic.run restores the last commit and resets, which shuts the
+    runtime down and starts it again on the card (a new generation, new
+    gloo and NCCL groups), and training goes on to HVD_ELASTIC_COMMITS.
+    Held against an unwrapped AdamW of as many steps in this process."""
+    from horovod_tpu_torch.tools.chaos_soak import run_elastic_scenario
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = hvt.GPT2Config.small(param_dtype=torch.float32)
+    sd0 = hvt.convert.init_params(cfg, seed=0)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, cfg.max_len + 1), dtype=np.int64
+    )).cuda()
+    model = hvt.GPT2LMModel(cfg)
+    model.load_state_dict(sd0)
+    opt = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR)
+    n_params = len(list(model.parameters()))
+    want = hvd_losses(model, opt, tokens, HVD_ELASTIC_COMMITS)
+    plain = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    plain_opt = tensor_digests(opt.state_dict())
+    del model, opt
+    torch.cuda.empty_cache()
+    workdir = phase_dir("hvd-elastic-")
+    try:
+        src = worker_source(
+            HVD_ELASTIC_WORKER, BATCH=TRAIN_BATCH, LR=TRAIN_LR,
+            COMMITS=HVD_ELASTIC_COMMITS, FAULT_AT=HVD_ELASTIC_FAULT_AT,
+            FINAL=str(workdir / "final.pt"))
+        t0 = time.perf_counter()
+        rc, recs = run_elastic_scenario(
+            str(workdir), src, initial_hosts=["localhost:1"],
+            driver_env={"HVDTPU_BLACKLIST_COOLDOWN": "1"},
+            timeout=WORKER_TIMEOUT_S, drain_timeout=60.0, fast=False)
+        wall = time.perf_counter() - t0
+        final = torch.load(workdir / "final.pt")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    if rc != 0:
+        raise AssertionError(f"[hvd-elastic] rc {rc}: {recs}")
+    steps = [r for r in recs if "loss" in r]
+    fault = next(r for r in recs if r.get("event") == "fault")
+    restored = next(r for r in recs if r.get("event") == "restored")
+    synced = [r for r in recs if r.get("event") == "synced"]
+    done = next(r for r in recs if r.get("event") == "done")
+    rejoin = done["rejoin"]
+    after = [r for r in steps if r["t0"] > fault["t"]]
+    before = [r for r in steps if r["t0"] < fault["t"]]
+    gen0 = fault["generation"]
+    restarted = (
+        [r["step"] for r in before] == list(range(1, HVD_ELASTIC_FAULT_AT))
+        and [r["step"] for r in after] == list(range(
+            HVD_ELASTIC_FAULT_AT, HVD_ELASTIC_COMMITS + 1))
+        and {r["generation"] for r in before} == {gen0}
+        and {r["generation"] for r in after} == {gen0 + 1}
+        and rejoin.get("generation") == gen0 + 1
+        and all(r["size"] == 1 for r in steps)
+        and not any(r["new_groups"] for r in before)
+        and all(r["new_groups"] for r in after))
+
+    def delta(a, b, key):
+        return b["counters"][key] - a["counters"][key]
+
+    # Cache misses and hits a step, each step against the record before it
+    # (the first step after each sync against that sync).
+    marks = sorted(synced + steps, key=lambda r: r["t"])
+    per_step = {r["step"]: {k: delta(prev, r, k)
+                            for k in ("cache_misses", "cache_hits")}
+                for prev, r in zip(marks, marks[1:]) if "loss" in r}
+    first_after = per_step[HVD_ELASTIC_FAULT_AT]
+    cache_back = (per_step[1]["cache_misses"] == n_params
+                  and first_after["cache_misses"] == n_params
+                  and all(per_step[s]["cache_misses"] == 0
+                          and per_step[s]["cache_hits"] == n_params
+                          for s in per_step
+                          if s not in (1, HVD_ELASTIC_FAULT_AT)))
+    got = [r["loss"] for r in steps]
+    params_bitwise = all(torch.equal(final["params"][k], plain[k])
+                         for k in plain)
+    opt_bitwise = final["opt_sha256"] == plain_opt
+    p_rel = grads_rel_l2(final["params"], plain)
+    split = {"restore_s": restored["restore_s"],
+             "shutdown_s": rejoin["shutdown_s"],
+             "rejoin_s": rejoin["join_s"],
+             "runtime_start_s": rejoin["runtime_start_s"],
+             "fault_to_first_step_s": after[0]["t1"] - fault["t"]}
+    ms_before = [1e3 * (r["t1"] - r["t0"]) for r in before[1:]]
+    ms_after = [1e3 * (r["t1"] - r["t0"]) for r in after[1:]]
+    launches = done["launches"]
+    n_runs = HVD_ELASTIC_COMMITS + 1  # the failed step ran its backward
+    rec = {"rc": rc, "wall_s": wall, "losses": got, "plain_losses": want,
+           "params_bitwise": params_bitwise, "opt_bitwise": opt_bitwise,
+           "params_rel_l2": p_rel, "restarted": restarted,
+           "generations": [gen0, gen0 + 1], "time_to_recover": split,
+           "step_ms_before": ms_before, "step_ms_after": ms_after,
+           "cache_per_step": per_step, "launches": launches,
+           "other_launches": done["other_launches"],
+           "flash_steps": n_runs}
+    log(f"[hvd-elastic] run_elastic, discovery localhost:1, cooldown 1 s, "
+        f"the launcher's own settings: rc {rc} in {wall:.1f} s; "
+        f"HorovodInternalError after step {HVD_ELASTIC_FAULT_AT}'s backward; "
+        f"steps {[r['step'] for r in before]} on generation {gen0}, "
+        f"{[r['step'] for r in after]} on generation "
+        f"{after[0]['generation'] if after else None} (size "
+        f"{sorted({r['size'] for r in steps})}, new gloo and NCCL groups "
+        f"{all(r['new_groups'] for r in after)}); restarted in place "
+        f"{restarted}")
+    log("[hvd-elastic] fault to the first step after it (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in split.items()))
+    log(f"[hvd-elastic] step ms before the restart {[round(t, 3) for t in ms_before]}"
+        f" (median {float(np.median(ms_before)):.3f}), after "
+        f"{[round(t, 3) for t in ms_after]} (median "
+        f"{float(np.median(ms_after)):.3f})")
+    log(f"[hvd-elastic] cache misses/hits a step: " + ", ".join(
+        f"{s}: {c['cache_misses']}/{c['cache_hits']}"
+        for s, c in sorted(per_step.items())) + f"; misses back after the "
+        f"restart {cache_back}")
+    log(f"[hvd-elastic] losses {got}")
+    log(f"[hvd-elastic] unwrapped AdamW {want}")
+    log(f"[hvd-elastic] final parameters bit for bit {params_bitwise}, AdamW "
+        f"state bit for bit {opt_bitwise} (relative L2 {p_rel:.3e}); "
+        f"launches {launches} over {n_runs} forward/backward passes, general "
+        f"and sm90 {done['other_launches']}")
+    if not (restarted and cache_back):
+        raise AssertionError(f"[hvd-elastic] the runtime did not restart in "
+                             f"place as scheduled: {rec}")
+    check_counts("hvd-elastic", launches, {
+        "flash_fwd": cfg.n_layers, "flash_bwd_dkdv": cfg.n_layers,
+        "flash_bwd_dq": cfg.n_layers, "fused_adamw": 0}, n_runs)
+    if any(done["other_launches"].values()):
+        raise AssertionError(f"[hvd-elastic] launches off the wgmma route: "
+                             f"{done['other_launches']}")
+    if not (params_bitwise and opt_bitwise and got == want):
+        log("[hvd-elastic] the recovered run is not the unwrapped AdamW bit "
+            "for bit: a step on the card is not bitwise repeatable across "
+            f"processes here; held to [train]'s bound (relative L2 <= "
+            f"{STEP_GRAD_TOL})")
+        if not p_rel <= STEP_GRAD_TOL:
+            raise AssertionError(f"[hvd-elastic] {rec}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[hvd-elastic] phase {rec['phase_s']:.1f} s")
+    return rec
+
+
 def timed_optimizer(hvt, opt, ends):
     """``opt`` with each update's end stamped after a synchronization:
     consecutive stamps inside an epoch are its steps' times."""
@@ -9485,6 +9756,8 @@ def main() -> int:
     eagered = eager_phase(hvt)
     hvd_torch = hvd_torch_phase(hvt, (fa, fadam, tq))
     log_threads("[hvd-torch]")
+    hvd_elastic = hvd_elastic_phase(hvt)
+    log_threads("[hvd-elastic]")
     hvd_tune = hvd_tune_phase(hvt, (fa, fadam, tq))
     log_threads("[hvd-torch-tune]")
     sparked = spark_estimator_phase(hvt, (fa, fadam, tq))
@@ -9527,6 +9800,7 @@ def main() -> int:
                         profiled["bert"]["flash_launches"],
                     "launches_analysis": analyzed["launches"],
                     "launches_hvd_torch": hvd_torch["launches"],
+                    "launches_hvd_elastic": hvd_elastic["launches"],
                     "launches_hvd_torch_tune": hvd_tune["launches"],
                     "launches_spark_estimator": sparked["launches"]}
     # [serve-kv]'s workers run kernel 1 only: its count over every batch
@@ -9577,6 +9851,7 @@ def main() -> int:
                 new_launches["launches_profile_step"].get(name, 0),
             "analysis": new_launches["launches_analysis"].get(name, 0),
             "hvd_torch": new_launches["launches_hvd_torch"].get(name, 0),
+            "hvd_elastic": new_launches["launches_hvd_elastic"].get(name, 0),
             "hvd_torch_tune":
                 new_launches["launches_hvd_torch_tune"].get(name, 0),
             "spark_estimator":
@@ -9820,6 +10095,7 @@ def main() -> int:
                       "serve_autotune": served_tuned, "stream": streamed,
                       "profile_step": profiled, "analysis": analyzed,
                       "eager": eagered, "hvd_torch": hvd_torch,
+                      "hvd_elastic": hvd_elastic,
                       "hvd_torch_tune": hvd_tune,
                       "spark_estimator": sparked}),
           flush=True)

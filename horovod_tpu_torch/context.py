@@ -269,6 +269,16 @@ def shutdown(abort: bool = False) -> None:
             else:
                 dist.destroy_process_group()
             collectives.forget_groups()
+        if not dist.is_initialized():
+            # A failed init_process_group has already named its group from
+            # torch's count of unnamed groups, which only the world's
+            # destruction resets; that name prefixes the rendezvous keys,
+            # so a rank that failed more attempts than its peers would
+            # wait on other keys than theirs for ever. Reset it as the
+            # destruction would.
+            from torch.distributed import distributed_c10d as _c10d
+
+            _c10d._world.group_count = 0
         _pg_ours = False
         _store = None
         _context = None

@@ -9,7 +9,10 @@ syncs the state from rank 0.
 * :class:`State` -- the base: ``commit`` (with the chaos ``worker.step``
   site), ``check_host_updates`` (one object broadcast of rank 0's latest
   update timestamp, so every rank raises at the same commit),
-  ``register_reset_callbacks`` and ``on_reset``.
+  ``register_reset_callbacks`` and ``on_reset``. Its object broadcasts
+  ride the dynamic-enqueue runtime when that runs a world of several
+  processes (a worker that started only ``native.init()`` or a frontend's
+  ``init()``), else the ``torch.distributed`` world's collectives.
 * :class:`ObjectState` -- picklable attributes, deep-copied on save.
 * :class:`TrainState` -- ``params`` and ``opt_state`` (and any other
   attributes) of a training loop. ``save`` snapshots every tensor to the
@@ -27,7 +30,8 @@ syncs the state from rank 0.
 Under an elastic launcher ``reset`` re-forms the world after a membership
 change or a failed collective (the reference's ``shutdown`` + ``init``):
 :func:`~.worker.rejoin_world` tears it down, joins the driver's current
-round and initializes it again with the previous mesh's axes. In a plain
+round and initializes it again with the previous mesh's axes, the
+runtime included. In a plain
 process ``reset`` keeps the live world, which an in-process restart -- a
 guard escalation, a failed step -- needs unchanged. ``commit`` also
 honours a pending preemption notice (the priority checkpoint) and carries
@@ -59,8 +63,24 @@ __all__ = ["ObjectState", "State", "TrainState"]
 
 def _rank():
     from .. import context as _ctx
+    from .. import native
 
-    return _ctx.rank() if _ctx.is_initialized() else None
+    if _ctx.is_initialized():
+        return _ctx.rank()
+    return native.rank() if native.is_initialized() else None
+
+
+def _bcast_object(obj, root_rank: int = 0, name: str = "elastic"):
+    """``root_rank``'s object over whichever plane is live: the runtime's
+    when it runs a world of several processes, else the ``torch.distributed``
+    world's (the JAX package's ``elastic.state._bcast_object``)."""
+    from .. import native
+
+    if native.is_initialized() and native.size() > 1:
+        from ..native.objects import broadcast_object as impl
+
+        return impl(obj, root_rank=root_rank, name=name)
+    return broadcast_object(obj, root_rank=root_rank)
 
 
 class State:
@@ -137,7 +157,7 @@ class State:
 
         local_ts = self._host_messages[-1][0] if self._host_messages else 0.0
         self._host_messages.clear()
-        ts = broadcast_object(local_ts, root_rank=0)
+        ts = _bcast_object(local_ts, root_rank=0, name="elastic.hosts")
         # A change no newer than the round this world already joined (a
         # rejoin after a failure lands in it) is not news; every rank of
         # the round holds the same round timestamp.
@@ -190,7 +210,7 @@ class ObjectState(State):
 
     def sync(self):
         payload = {k: getattr(self, k) for k in self._known_attrs}
-        synced = broadcast_object(payload, root_rank=0)
+        synced = _bcast_object(payload, root_rank=0, name="elastic.state")
         for k, v in synced.items():
             setattr(self, k, v)
         self.save()

@@ -17,19 +17,22 @@ plus a *round*:
   - ``round_N/size``              number of worker processes in round N
   - ``round_N/assign/<host_id>``  this host's world rank in round N
 
-A worker joins the current round in ``context.init`` (:func:`join_world`,
-which also points the world's store bootstrap at the round's own
-``dist_N`` scope), is notified of newer rounds by
+A worker joins the current round in ``context.init`` or
+``native.init`` (:func:`join_world`, which also points the world's and
+the runtime's store bootstraps at the round's own ``dist_N`` and
+``native_N`` scopes), is notified of newer rounds by
 :class:`WorkerNotificationManager`, and rejoins on reset
-(:func:`rejoin_world`: the world is torn down -- an NCCL world aborted
-first -- joined again and re-initialized with the previous mesh's axes).
-A worker whose host is absent from the new round has been scaled away and
-exits cleanly. Besides: the heartbeat lease, the preemption (SIGTERM)
-drain with its priority-checkpoint callbacks, and the clean-exit flag an
-adopting driver reads.
+(:func:`rejoin_world`: the dynamic-enqueue runtime is shut down and the
+world torn down -- an NCCL world aborted first -- joined again,
+re-initialized with the previous mesh's axes, and the runtime started
+again on it). A worker whose host is absent from the new round has been
+scaled away and exits cleanly. Besides: the heartbeat lease, the
+preemption (SIGTERM) drain with its priority-checkpoint callbacks, and
+the clean-exit flag an adopting driver reads.
 
 Telemetry: :data:`join_retries`, :data:`last_join` (the round, the seconds
-the join took and the wall times around it) and the heartbeat's ``beats``,
+the join took and the wall times around it), :data:`last_rejoin` (a
+rejoin's parts) and the heartbeat's ``beats``,
 counted also as ``recovery.join_retries`` and ``recovery.heartbeats``; each
 join records ``clock_sync`` observations of the driver's clock (the round's
 timestamp and the driver's ``clock/now`` beacon), an ``elastic.join`` span
@@ -77,14 +80,23 @@ log = logging.getLogger("horovod_tpu_torch.elastic.worker")
 ENV_ELASTIC = "HVDTPU_ELASTIC"
 ENV_HOST_ID = "HVDTPU_HOST_ID"
 ENV_NOTIFY_POLL = "HVDTPU_ELASTIC_POLL_SECS"
+# The runtime's store scope (native.init): per round, as the world's is.
+ENV_NATIVE_SCOPE = "HVDTPU_NATIVE_SCOPE"
 
 _DECOMMISSION_GRACE_SECS = 5.0
 # How long a rejoin waits for a round newer than the one it failed in.
 _NEW_ROUND_GRACE_SECS = 5.0
+# How long a rejoin waits for its peers to shut the runtime down with it
+# (they do so at the same commit); past it the runtime is abandoned.
+_RUNTIME_SHUTDOWN_SECS = 10.0
 
 # Join telemetry (the registry's recovery.join_retries counts the same).
 join_retries = 0  # KV outages and torn round publications ridden out
 last_join: dict = {}  # {"round", "rank", "size", "t0", "t1", "secs"}
+# The last rejoin's parts, in seconds: the runtime's shutdown, the round's
+# join, the world's formation, the runtime's start; its round and the
+# runtime's generation.
+last_rejoin: dict = {}
 
 
 def _join_timeout() -> float:
@@ -199,6 +211,7 @@ def join_world(timeout: Optional[float] = None, *,
                     from ..runner.api import ENV_DIST_SCOPE
 
                     os.environ[ENV_DIST_SCOPE] = f"dist_{n}"
+                    os.environ[ENV_NATIVE_SCOPE] = f"native_{n}"
                     log.info(
                         "joined elastic round %d as rank %s/%d",
                         n, assign.decode(), size,
@@ -304,7 +317,8 @@ def form_world(init, *, newer_than: int = -1,
         newer_than = -1
         try:
             return init()
-        except (HorovodInternalError, HorovodTpuError, RuntimeError) as e:
+        except (HorovodInternalError, HorovodTpuError, RuntimeError,
+                TimeoutError) as e:
             if time.time() > deadline:
                 raise
             _count_retry()
@@ -316,29 +330,53 @@ def rejoin_world() -> Tuple[int, int]:
     """Tear the world down and join the (new) current round.
 
     Called from ``State.reset()`` after a ``HostsUpdatedInterrupt`` or a
-    collective failure. The default group and every mesh group go through
-    ``context.shutdown(abort=True)`` (an NCCL world is aborted first, so
-    a dead peer cannot hang the teardown); the world is initialized again
-    with the previous context's device, backend and mesh axes
-    (:func:`form_world`). May ``sys.exit(0)`` when this host was removed.
+    collective failure. The dynamic-enqueue runtime goes first
+    (``native.shutdown``; every rank of the old world does so at the same
+    commit, and past :data:`_RUNTIME_SHUTDOWN_SECS` a runtime whose peers
+    never came is abandoned, its pending handles failed); then the default
+    group and every mesh group go through ``context.shutdown(abort=True)``
+    (an NCCL world is aborted first, so a dead peer cannot hang the
+    teardown). On the new round the world is initialized again with the
+    previous context's device, backend and mesh axes, and the runtime
+    started again on it with its previous device -- both inside
+    :func:`form_world`'s attempt, so a failed start retries within the
+    join deadline. May ``sys.exit(0)`` when this host was removed.
     """
+    global last_rejoin
     from .. import context as _ctx
+    from .. import native
 
     prev = _ctx.context() if _ctx.is_initialized() else None
+    runtime_device = native.device()
+    t0 = time.time()
+    native.shutdown(timeout=_RUNTIME_SHUTDOWN_SECS)
+    parts = {"shutdown_s": time.time() - t0}
 
     def init():
+        t = time.time()
         if prev is None:
-            return last_join["rank"], last_join["size"]
-        backend = prev.backend or (
-            "nccl" if prev.device.type == "cuda" else "gloo")
-        c = _ctx.init(prev.device, backend=backend, **_mesh_kwargs(prev))
-        return c.rank, c.size
+            rank, size = last_join["rank"], last_join["size"]
+        else:
+            backend = prev.backend or (
+                "nccl" if prev.device.type == "cuda" else "gloo")
+            c = _ctx.init(prev.device, backend=backend, **_mesh_kwargs(prev))
+            rank, size = c.rank, c.size
+        parts["world_s"] = time.time() - t
+        if runtime_device is not None:
+            t = time.time()
+            native.init(rank, size, device=runtime_device)
+            parts["runtime_start_s"] = time.time() - t
+        return rank, size
 
     # After a failure the driver republishes once it reaps the dead
     # worker: joining the failed round again would only wait out the
     # store's timeout for a peer that never comes.
-    return form_world(init, newer_than=_joined_round,
-                      grace=_NEW_ROUND_GRACE_SECS)
+    out = form_world(init, newer_than=_joined_round,
+                     grace=_NEW_ROUND_GRACE_SECS)
+    last_rejoin = dict(parts, join_s=last_join["secs"],
+                       round=last_join["round"],
+                       generation=native.generation())
+    return out
 
 
 # ---- heartbeat lease ----------------------------------------------------

@@ -20,9 +20,12 @@ group (CUDA tensors). The tensor's device picks the data plane. A world
 already formed by :func:`horovod_tpu_torch.init` lends its store; else
 the world forms from ``HVT_RANK``/``HVT_SIZE``/``HVT_COORD_ADDR``/
 ``HVT_COORD_PORT`` (a ``TCPStore`` rank 0 opens), or from the launcher's
-rendezvous KV (:func:`..runner.api.kv_store` under the ``native`` scope),
-or, for a world of one, from an in-process store. Under an elastic
-launcher :func:`init` first joins the driver's current round.
+rendezvous KV (:func:`..runner.api.kv_store` under the ``native`` scope,
+``native_<round>`` in an elastic round), or, for a world of one, from an
+in-process store. Under an elastic launcher :func:`init` first joins the
+driver's current round, and every later round starts the runtime again
+(:func:`..elastic.worker.rejoin_world`: :func:`shutdown`, the join, then
+:func:`init` on the new world with the same device).
 
 There is no fallback: :func:`init` runs on the card unless the caller
 passes ``device="cpu"`` (and raises without CUDA), and a CUDA tensor sent
@@ -64,14 +67,7 @@ AUTOTUNE_ABI = {"autotune_best": "hvt_autotune_best"}
 
 _lock = threading.Lock()
 _runtime: Optional[Runtime] = None
-
-
-def _elastic_rank_size():
-    from ..elastic import worker as _worker
-
-    if _worker.in_elastic_world() and not dist.is_initialized():
-        return _worker.join_world_env()
-    return None, None
+_generation = 0  # runtimes this process has started
 
 
 def _store(rank: int, size: int, coord_addr, coord_port, timeout: float):
@@ -108,16 +104,35 @@ def init(rank: Optional[int] = None, size: Optional[int] = None,
     """Start the runtime (a no-op while one runs). ``rank``/``size``
     default to a live ``torch.distributed`` world's, else ``HVT_RANK``/
     ``HVT_SIZE`` (the launcher's env, then ``RANK``/``WORLD_SIZE``).
-    ``device``: ``None`` is this process's card, ``"cpu"`` the CPU."""
-    global _runtime
-    from .. import context as _ctx
+    ``device``: ``None`` is this process's card, ``"cpu"`` the CPU.
 
+    Under an elastic launcher, with neither ``rank`` nor ``size`` given and
+    no ``torch.distributed`` world, the world is the driver's current
+    round, formed as a rejoin forms it: retried within the join deadline
+    (:func:`..elastic.worker.form_world`)."""
+    from .. import context as _ctx
+    from ..elastic import worker as _worker
+
+    if is_initialized():
+        return
+    dev = _ctx.resolve_device(device)
+    if (rank is None and size is None and not dist.is_initialized()
+            and _worker.in_elastic_world()):
+        def start():
+            joined = _worker.last_join
+            _start(joined["rank"], joined["size"], coord_addr, coord_port,
+                   dev)
+
+        _worker.form_world(start)
+        return
+    _start(rank, size, coord_addr, coord_port, dev)
+
+
+def _start(rank, size, coord_addr, coord_port, dev: torch.device) -> None:
+    global _runtime, _generation
     with _lock:
         if _runtime is not None and _runtime.alive:
             return
-        dev = _ctx.resolve_device(device)
-        if rank is None and size is None:
-            rank, size = _elastic_rank_size()
         if dist.is_initialized():
             rank = dist.get_rank() if rank is None else rank
             size = dist.get_world_size() if size is None else size
@@ -149,19 +164,37 @@ def init(rank: Optional[int] = None, size: Optional[int] = None,
         rt = Runtime(rank, size, gloo, nccl, dev)
         rt.start()
         _runtime = rt
+        _generation += 1
 
 
-def shutdown() -> None:
-    """Stop the runtime; every rank calls it (the loop ends when all did)."""
+def shutdown(timeout: Optional[float] = None) -> None:
+    """Stop the runtime; every rank calls it (the loop ends when all did).
+    ``timeout`` bounds the wait for the others (None: for ever); past it
+    the runtime is abandoned: its pending handles fail with
+    :class:`HorovodInternalError` and its groups are released."""
     global _runtime
     with _lock:
         rt, _runtime = _runtime, None
     if rt is not None:
-        rt.shutdown()
+        rt.shutdown(timeout)
 
 
 def is_initialized() -> bool:
     return _runtime is not None and _runtime.alive
+
+
+def device() -> Optional[torch.device]:
+    """The device the runtime serves: None before :func:`init` and after
+    :func:`shutdown` (a runtime whose loop failed keeps its device until
+    then)."""
+    return _runtime.device if _runtime is not None else None
+
+
+def generation() -> int:
+    """This process's runtime generation: 1 for the first runtime it
+    started, one more at every restart (an elastic round), 0 before the
+    first. A handle belongs to the generation it was issued under."""
+    return _generation
 
 
 def rank() -> int:

@@ -101,6 +101,10 @@ class Counters:
 
 
 COUNTERS = Counters()
+# Handles are numbered across the process's runtimes: after a restart (an
+# elastic round) a handle of the old runtime is unknown to the new one,
+# never another entry's.
+_HANDLE_IDS = itertools.count()
 
 
 @dataclasses.dataclass
@@ -129,12 +133,10 @@ class HandleManager:
     def __init__(self):
         self._cv = threading.Condition()
         self._records: Dict[int, list] = {}  # handle -> [done, status, entry]
-        self._next = 0
 
     def allocate(self) -> int:
         with self._cv:
-            h = self._next
-            self._next += 1
+            h = next(_HANDLE_IDS)
             self._records[h] = [False, Status(), None]
             return h
 
@@ -449,6 +451,8 @@ class Runtime:
         if device.type == "cuda":
             self.stream = torch.cuda.Stream(device)
         self._shutdown = threading.Event()
+        self._abandoned = threading.Event()
+        self._taken: List[Entry] = []  # the entries being performed
         self.alive = False
         self.error: Optional[str] = None
         self._thread = threading.Thread(
@@ -459,19 +463,37 @@ class Runtime:
         self.alive = True
         self._thread.start()
 
-    def shutdown(self) -> None:
-        """Request shutdown (every rank must) and wait for the loop."""
+    def shutdown(self, timeout: Optional[float] = None) -> None:
+        """Request shutdown and wait for the loop, which ends once every
+        rank has requested it. ``timeout`` bounds the wait (None: for
+        ever): a loop still running then -- a peer that never asks, hung or
+        still in an earlier step -- is abandoned: its pending handles fail
+        as after a failed collective, and its groups are released, which
+        fails the peer's waiting exchange in turn."""
         self._shutdown.set()
         if self._thread.is_alive():
-            self._thread.join()
+            self._thread.join(timeout)
+        if self._thread.is_alive():
+            # The loop ends at its next cycle (one blocked in an exchange,
+            # at the data plane's timeout).
+            self._abandoned.set()
+            self.error = self.error or (
+                f"runtime shut down after {timeout} s without its peers")
+            self.alive = False
+            self._abort(Status(ABORTED, self.error))
         self.timeline.stop()
         self.autotune.close()
         # The communicators go with the runtime; after a failure a peer may
-        # be gone, and only an abort cannot wait for it.
+        # be gone, and only an abort cannot wait for it. Neither closes a
+        # gloo group's connections: dropping the last reference does, which
+        # fails a peer still waiting in an exchange with this rank at once.
         end = "abort" if self.error else "shutdown"
         for pg in (self.nccl, self.gloo):
             if pg is not None and hasattr(pg, end):
                 getattr(pg, end)()
+        self.gloo = self.nccl = None
+        if hasattr(self.controller, "pg"):
+            self.controller.pg = None
 
     def _loop(self) -> None:
         torch.set_grad_enabled(False)  # thread-local: the loop's copies
@@ -485,15 +507,21 @@ class Runtime:
                 pass
             reason = "Horovod-TPU runtime shut down"
         except Exception as exc:  # the runtime is dead: fail every handle
-            log.exception("runtime cycle failed")
-            reason = f"collective negotiation or data plane failed: {exc}"
-            self.error = reason
+            if self._abandoned.is_set():  # its groups released under it
+                reason = self.error
+            else:
+                log.exception("runtime cycle failed")
+                reason = f"collective negotiation or data plane failed: {exc}"
+                self.error = reason
         self.alive = False
         self._abort(Status(ABORTED, reason))
 
     def _abort(self, status: Status) -> None:
-        for e in self.queue.abort_all():
-            self.handles.mark_done(e.handle, status)
+        # The queue's entries and those a failed perform took out of it.
+        taken, self._taken = self._taken, []
+        for e in self.queue.abort_all() + taken:
+            if not self.handles.poll(e.handle):
+                self.handles.mark_done(e.handle, status)
         self.in_flight.clear()
 
     # -- enqueue ---------------------------------------------------------
@@ -509,6 +537,8 @@ class Runtime:
 
     # -- one cycle (RunLoopOnce) -----------------------------------------
     def _cycle(self) -> bool:
+        if self._abandoned.is_set():
+            return False
         start = time.perf_counter()
         COUNTERS.cycles += 1
         popped = self.queue.pop_requests()
@@ -605,7 +635,7 @@ class Runtime:
     def _perform(self, resp: Response, nbytes: Dict[str, int]) -> None:
         for name in resp.names:
             self.timeline.end_activity(name, "NEGOTIATE")
-        entries = self.queue.take(resp.names)
+        entries = self._taken = self.queue.take(resp.names)
         for e in entries:
             self.timeline.start_activity(e.name, e.type.name)
         if resp.type == ResponseType.ERROR:
@@ -654,6 +684,7 @@ class Runtime:
             self.timeline.end_activity(e.name, e.type.name)
             self.in_flight.pop(e.name, None)
         self.handles.mark_done_many(entries, Status())
+        self._taken = []
 
     def _dev(self, resp: Response) -> torch.device:
         return self.device if resp.device == "cuda" else torch.device("cpu")

@@ -33,14 +33,17 @@ and ``.reconnects`` (epoch changes observed), counted also as
 from __future__ import annotations
 
 import collections
+import errno
 import secrets as _secrets_mod
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Iterable, Optional, Tuple
 from urllib.parse import unquote
 
 from ..obs import control as _ctl
 from ..obs import registry as _obs
+from ..utils.retry import Backoff
 
 from .secret import (
     DIGEST_HEADER,
@@ -216,6 +219,10 @@ class _Server(ThreadingHTTPServer):
         self.seen_digests = collections.deque()  # (recv time, digest)
 
 
+# How long a listener waits for its given port to come free (start()).
+REBIND_SECS = 10.0
+
+
 class RendezvousServer:
     """In-process KV server; ``start()`` returns the bound port.
 
@@ -246,12 +253,26 @@ class RendezvousServer:
 
     def start(self, port: int = 0,
               store: Optional[Dict[str, Dict[str, bytes]]] = None) -> int:
+        """Listen on ``port`` (0: one the kernel picks). A given port -- a
+        restart's, an adopter's -- was free a moment ago, and a socket
+        another process opened in the gap may hold it for a while (the
+        kernel hands a freed port out as an outgoing connection's source
+        port): the bind is retried for up to :data:`REBIND_SECS`."""
         if store is None and self._journal is not None:
             store, _ = self._journal.recover()
-        self._server = _Server(
-            (self._host, port), secret=self._secret,
-            journal=self._journal, store=store,
-        )
+        deadline = time.monotonic() + (REBIND_SECS if port else 0.0)
+        backoff = Backoff(base=0.02, cap=0.5)
+        while True:
+            try:
+                self._server = _Server(
+                    (self._host, port), secret=self._secret,
+                    journal=self._journal, store=store,
+                )
+                break
+            except OSError as e:
+                if e.errno != errno.EADDRINUSE or time.monotonic() > deadline:
+                    raise
+                backoff.sleep()
         self._thread = threading.Thread(
             target=self._server.serve_forever, daemon=True
         )

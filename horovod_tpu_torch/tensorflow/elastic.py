@@ -4,11 +4,11 @@ The port of the JAX package's ``tensorflow/elastic.py`` (parity:
 ``horovod/tensorflow/elastic.py:91-154``, ``TensorFlowKerasState``: save,
 restore and sync of a Keras model's weights, its optimizer's variables and
 plain attributes) on the port's :class:`~..elastic.state.State`, which
-brings the commit, the host-update interrupt and the world rejoin. Every
-exchange rides the runtime: the weights as broadcasts, the attributes and
-the host-update timestamp through :mod:`horovod_tpu_torch.native.objects`
-(the JAX package's ``_bcast_object``, which this package's elastic state
-does not have).
+brings the commit, the host-update interrupt (its timestamp over the
+runtime, as the base's ``_bcast_object`` sends it) and the world rejoin,
+which starts the runtime again on the new round. Every exchange rides the
+runtime: the weights as broadcasts, the attributes through
+:mod:`horovod_tpu_torch.native.objects`.
 """
 
 from __future__ import annotations
@@ -21,7 +21,6 @@ import numpy as np
 from .. import native
 from ..elastic.run import run  # noqa: F401  (parity: hvd.elastic.run)
 from ..elastic.state import State
-from ..exceptions import HostsUpdatedInterrupt
 from ..native.objects import broadcast_object
 from . import _numpy, _torch, broadcast
 
@@ -125,12 +124,3 @@ class TensorFlowKerasState(State):
         self._values = broadcast_object(self._values, root_rank=0,
                                         name="tfstate.values")
         self.save()
-
-    def check_host_updates(self):
-        # The base class's coordination, over the runtime's broadcast.
-        local_ts = self._host_messages[-1][0] if self._host_messages else 0.0
-        self._host_messages.clear()
-        ts = broadcast_object(local_ts, root_rank=0, name="elastic.hostck")
-        if ts > self._last_updated_timestamp:
-            self._last_updated_timestamp = ts
-            raise HostsUpdatedInterrupt(skip_sync=False)

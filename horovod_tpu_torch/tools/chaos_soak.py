@@ -277,9 +277,27 @@ def run_elastic_scenario(
     return result.get("rc"), read_records(workdir)
 
 
+# Lines of a C++ backtrace (torch's c10 errors): one failed world formation
+# prints dozens, and a log's tail would hold nothing else.
+_BACKTRACE_LINE = ("frame #", "Exception raised from", "<omitting python")
+
+
+def _log_tail(path: str, tail_bytes: int) -> str:
+    """The last ``tail_bytes`` of a worker log without its C++ backtrace
+    lines, so the tail shows every incarnation's last messages."""
+    with open(path, "rb") as f:
+        f.seek(0, os.SEEK_END)
+        f.seek(max(0, f.tell() - 32 * tail_bytes))
+        lines = f.read().decode(errors="replace").splitlines(keepends=True)
+    kept = "".join(ln for ln in lines
+                   if not ln.lstrip().startswith(_BACKTRACE_LINE))
+    return kept[-tail_bytes:]
+
+
 def timeout_diagnostics(workdir: str, job=None, tail_bytes: int = 3000):
-    """Evidence for a blown deadline: each worker log's tail and the KV
-    plane's round, heartbeat and guard state."""
+    """Evidence for a blown deadline: each worker log's tail (C++
+    backtraces left out) and the KV plane's round, heartbeat and guard
+    state."""
     diag: dict = {"logs": {}, "kv": {}}
     logs = os.path.join(workdir, "logs")
     if os.path.isdir(logs):
@@ -287,11 +305,8 @@ def timeout_diagnostics(workdir: str, job=None, tail_bytes: int = 3000):
             for stream in ("stdout", "stderr"):
                 path = os.path.join(logs, rank_dir, stream)
                 try:
-                    with open(path, "rb") as f:
-                        f.seek(0, os.SEEK_END)
-                        f.seek(max(0, f.tell() - tail_bytes))
-                        diag["logs"][f"{rank_dir}/{stream}"] = f.read(
-                        ).decode(errors="replace")
+                    diag["logs"][f"{rank_dir}/{stream}"] = _log_tail(
+                        path, tail_bytes)
                 except OSError:
                     pass
     if job is not None and getattr(job.server, "_server", None) is not None:

@@ -20,7 +20,6 @@ from torch.utils.data import Sampler
 
 from ..elastic.run import run  # noqa: F401  (parity: hvd.elastic.run decorator)
 from ..elastic.state import State
-from ..exceptions import HostsUpdatedInterrupt
 from . import mpi_ops
 from .functions import broadcast_object, broadcast_parameters
 
@@ -73,15 +72,6 @@ class TorchState(State):
             h.sync()
         self._values = broadcast_object(self._values, root_rank=0, name="torchstate")
         self.save()
-
-    def check_host_updates(self):
-        # The base class's coordination, over the runtime's broadcast.
-        local_ts = self._host_messages[-1][0] if self._host_messages else 0.0
-        self._host_messages.clear()
-        ts = broadcast_object(local_ts, root_rank=0, name="torchstate.hosts")
-        if ts > self._last_updated_timestamp:
-            self._last_updated_timestamp = ts
-            raise HostsUpdatedInterrupt(skip_sync=False)
 
 
 class _ModuleHandler:

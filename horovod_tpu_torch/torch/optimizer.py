@@ -15,6 +15,13 @@ hook recorded on autograd's stream). One difference from the JAX package:
 the hooks and the runtime run at every world size, one rank included,
 where the JAX package skips them at one (Average there divides by 1, so
 the step is the unwrapped optimizer's bit for bit).
+
+Under an elastic launcher a reset between a backward and its step (a
+failed collective, a fault raised in between) restarts the runtime
+(:func:`~horovod_tpu_torch.elastic.worker.rejoin_world`): the handles of
+the old runtime can never be synchronized, and the rolled-back step starts
+over, so the optimizer forgets them at its next hook, step or
+``zero_grad``.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from typing import Iterable, Optional
 
 import torch
 
+from .. import native
 from . import mpi_ops
 from .compression import Compression
 
@@ -64,6 +72,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             )
         self._parameter_names = {v: k for k, v in named_parameters}
         self._handles = {}
+        self._handles_of = 0  # native.generation() that issued the handles
         self._grad_accs = []
         self._requires_update = set()
         self._synchronized = False
@@ -86,7 +95,17 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                     grad_acc.register_hook(self._make_hook(p))
                     self._grad_accs.append(grad_acc)
 
+    def _forget_stale_handles(self):
+        """Drop the handles of a runtime that has since been restarted,
+        with the backward passes counted toward them."""
+        if self._handles and self._handles_of != native.generation():
+            self._handles.clear()
+            for p in self._allreduce_delay:
+                self._allreduce_delay[p] = self.backward_passes_per_step
+            self._synchronized = False
+
     def _allreduce_grad_async(self, p):
+        self._handles_of = native.generation()
         name = self._parameter_names.get(p)
         if p.grad is None:
             # Parameter did not participate in the loss this step (its hook
@@ -110,6 +129,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
 
     def _make_hook(self, p):
         def hook(*ignore):
+            self._forget_stale_handles()
             if p in self._handles and self._handles[p][0] is not None:
                 if self._allreduce_delay[p] <= 0:
                     raise AssertionError(
@@ -122,12 +142,14 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             if self._allreduce_delay[p] == 0:
                 handle, ctx = self._allreduce_grad_async(p)
             self._handles[p] = (handle, ctx)
+            self._handles_of = native.generation()
 
         return hook
 
     def synchronize(self):
         """Finish all outstanding allreduces and write back grads
         (reference ``:200-227``)."""
+        self._forget_stale_handles()
         missing = [p for p in self._requires_update if p not in self._handles]
         for p in missing:
             self._allreduce_delay[p] = 0  # force now
@@ -171,6 +193,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         return super(self.__class__, self).step(closure)
 
     def zero_grad(self, *args, **kwargs):
+        self._forget_stale_handles()
         if self._handles:
             raise AssertionError(
                 "optimizer.zero_grad() was called after loss.backward() but "

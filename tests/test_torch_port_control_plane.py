@@ -209,6 +209,44 @@ class TestDurableServer:
         assert cli.get("s", "k") is None
         srv.stop()
 
+    def test_restart_waits_for_a_port_taken_in_the_gap(self, jdir,
+                                                       monkeypatch):
+        """C19: a restart closes its listener and binds the same port
+        again; a socket opened in that gap by another process (on a busy
+        host the kernel hands the freed port out as a connection's source
+        port) held it at the rebind, which raised EADDRINUSE and ended the
+        elastic driver of the kv_server_crash soak. The rebind now waits
+        for the port."""
+        import socket
+
+        from horovod_tpu_torch.runner import http_server
+
+        srv = RendezvousServer(host="127.0.0.1", journal_dir=jdir)
+        port = srv.start()
+        # Direct writes: a request's closed connection would sit in
+        # TIME_WAIT on the port, and only a reusing bind passes that.
+        srv.put("s", "k", b"v")
+        old = srv._server
+        real_close = http_server._Server.server_close
+        taken = []
+
+        def close_then_take(self):
+            real_close(self)
+            if self is old:
+                s = socket.socket()
+                s.bind(("127.0.0.1", port))
+                taken.append(s)
+                threading.Timer(0.5, s.close).start()
+
+        monkeypatch.setattr(http_server._Server, "server_close",
+                            close_then_take)
+        t0 = time.monotonic()
+        srv.restart(replay=True)
+        assert taken and srv.port == port
+        assert time.monotonic() - t0 >= 0.4
+        assert RendezvousClient("127.0.0.1", port).get("s", "k") == b"v"
+        srv.stop()
+
     def test_heartbeat_scope_not_journaled(self, jdir):
         srv = RendezvousServer(host="127.0.0.1", journal_dir=jdir)
         port = srv.start()
